@@ -1,0 +1,140 @@
+"""FullSubNet+, the speech-enhancement model of the serving path.
+
+Port of generative_audio_tpu/models/fullsubnet_plus.py:37-173: pad look_ahead
+frames -> per-stream (mag/real/imag) norm + TSSE channel attention -> three
+full-band TCN towers -> band_unfold of the tower outputs and of the attended
+magnitude -> concat -> norm -> drop_band (B > 1) -> sub-band 2-layer LSTM
+over B*F rows -> [B, 2, F, T] compressed cRM, cropped by look_ahead.
+
+Parameter names are the reference checkpoint's, so a reference FullSubNet+
+state_dict loads with `load_state_dict`, and utils/convert.py carries the
+JAX package's params across.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from generative_audio_torch.nn.attention import make_channel_attention
+from generative_audio_torch.nn.recurrent import SequenceModel
+from generative_audio_torch.ops.norms import get_norm
+from generative_audio_torch.ops.subband import band_unfold, drop_band
+from generative_audio_torch.utils.device import resolve_device
+
+__all__ = ["FullSubNetPlusConfig", "FullSubNetPlus"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FullSubNetPlusConfig:
+    """The reference's FullSubNet+ configuration (fullsubnet_plus.py:18-42)."""
+    num_freqs: int = 257
+    look_ahead: int = 2
+    sequence_model: str = "LSTM"
+    sb_num_neighbors: int = 15
+    fb_num_neighbors: int = 0
+    fb_output_activate_function: str = "ReLU"
+    sb_output_activate_function: Optional[str] = None
+    fb_model_hidden_size: int = 512
+    sb_model_hidden_size: int = 384
+    channel_attention_model: str = "TSSE"
+    norm_type: str = "offline_laplace_norm"
+    num_groups_in_drop_band: int = 1
+    output_size: int = 2
+    subband_num: int = 1
+    kersize: Sequence[int] = (3, 5, 10)
+
+    @property
+    def num_channels(self) -> int:
+        if self.subband_num == 1:
+            return self.num_freqs
+        return self.num_freqs // self.subband_num + 1
+
+
+class FullSubNetPlus(nn.Module):
+    """[B, 1, F, T] mag, real, imag -> [B, output_size, F, T] compressed cRM.
+
+    device: "cuda" (default; raises when there is no CUDA device) or "cpu".
+    compute_dtype: bf16 for serving (the default, as the JAX CLI and bench
+    run it) or float32 (the CPU tests). gates_bytes_limit: see
+    nn.recurrent.LSTMLayer."""
+
+    def __init__(self, config: FullSubNetPlusConfig = FullSubNetPlusConfig(),
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 gates_bytes_limit: Optional[int] = None):
+        super().__init__()
+        c = config
+        if c.subband_num != 1:
+            raise NotImplementedError(
+                "subband_num > 1 is not ported to generative_audio_torch yet")
+        dev = resolve_device(device)
+        self.config = c
+        self.compute_dtype = compute_dtype
+        self.norm = get_norm(c.norm_type)
+        for suffix in ("", "_real", "_imag"):
+            self.add_module(f"channel_attention{suffix}", make_channel_attention(
+                c.channel_attention_model, c.num_channels, c.kersize,
+                c.subband_num, device=dev))
+        for suffix in ("", "_real", "_imag"):
+            self.add_module(f"fb_model{suffix}", SequenceModel(
+                c.num_freqs, c.num_freqs, c.fb_model_hidden_size, num_layers=2,
+                sequence_model="TCN",
+                output_activate_function=c.fb_output_activate_function,
+                compute_dtype=compute_dtype, device=dev))
+        fb_w = c.fb_num_neighbors * 2 + 1
+        sb_w = c.sb_num_neighbors * 2 + 1
+        self.sb_model = SequenceModel(
+            sb_w + 3 * fb_w, c.output_size, c.sb_model_hidden_size,
+            num_layers=2, sequence_model=c.sequence_model,
+            output_activate_function=c.sb_output_activate_function,
+            compute_dtype=compute_dtype, gates_bytes_limit=gates_bytes_limit,
+            device=dev)
+
+    def _attend(self, x: torch.Tensor, attention: nn.Module) -> torch.Tensor:
+        """norm [B, 1, F, T] -> [B, F, T] -> channel attention."""
+        b, ch, f, t = x.shape
+        return attention(self.norm(x).reshape(b, ch * f, t))
+
+    def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
+                noisy_imag: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        if noisy_mag.ndim != 4 or noisy_mag.shape[1] != 1:
+            raise ValueError("FullSubNetPlus takes [B, 1, F, T] inputs, got "
+                             f"{tuple(noisy_mag.shape)}")
+        pad = (0, c.look_ahead)
+        noisy_mag = F.pad(noisy_mag, pad)
+        noisy_real = F.pad(noisy_real, pad)
+        noisy_imag = F.pad(noisy_imag, pad)
+        b, _, f, t = noisy_mag.shape
+
+        fb_input = self._attend(noisy_mag, self.channel_attention)
+        fbr_input = self._attend(noisy_real, self.channel_attention_real)
+        fbi_input = self._attend(noisy_imag, self.channel_attention_imag)
+
+        fb_output = self.fb_model(fb_input).reshape(b, 1, f, t)
+        fbr_output = self.fb_model_real(fbr_input).reshape(b, 1, f, t)
+        fbi_output = self.fb_model_imag(fbi_input).reshape(b, 1, f, t)
+
+        fb_w = c.fb_num_neighbors * 2 + 1
+        sb_w = c.sb_num_neighbors * 2 + 1
+        unfolded = [
+            band_unfold(fb_input.reshape(b, 1, f, t),
+                        c.sb_num_neighbors).reshape(b, f, sb_w, t),
+            *(band_unfold(y, c.fb_num_neighbors).reshape(b, f, fb_w, t)
+              for y in (fb_output, fbr_output, fbi_output))]
+        sb_input = self.norm(torch.cat(unfolded, dim=2))
+
+        num_freqs = f
+        if b > 1:
+            sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
+                                 num_groups=c.num_groups_in_drop_band)
+            num_freqs = sb_input.shape[2]
+            sb_input = sb_input.permute(0, 2, 1, 3)
+
+        sb_input = sb_input.reshape(b * num_freqs, sb_w + 3 * fb_w, t)
+        sb_mask = self.sb_model(sb_input)                   # [B*F, out, T]
+        sb_mask = sb_mask.reshape(b, num_freqs, c.output_size, t)
+        return sb_mask.permute(0, 2, 1, 3)[:, :, :, c.look_ahead:]

@@ -1,0 +1,5 @@
+"""Blocks of the serving path: TSSE channel attention, TCN, sequence models."""
+from generative_audio_torch.nn.attention import (  # noqa: F401
+    ChannelTimeSenseSELayer, make_channel_attention)
+from generative_audio_torch.nn.recurrent import LSTMLayer, SequenceModel  # noqa: F401
+from generative_audio_torch.nn.tcn import TCNBlock, TCNStack  # noqa: F401

@@ -1,0 +1,12 @@
+"""Tensor ops of the serving path and the LSTM kernel wrappers."""
+from generative_audio_torch.ops.lstm import (  # noqa: F401
+    launch_counts, lstm_layer_tm_chunked, lstm_scan_carry_reference_tm,
+    lstm_scan_carry_tm, lstm_scan_reference_tm, lstm_scan_tm,
+    reset_launch_counts)
+from generative_audio_torch.ops.mask import (  # noqa: F401
+    apply_crm, build_complex_ideal_ratio_mask_ri, compress_cIRM,
+    decompress_cIRM)
+from generative_audio_torch.ops.norms import get_norm, offline_laplace_norm  # noqa: F401
+from generative_audio_torch.ops.stft import (  # noqa: F401
+    hann_window, istft_ri, prepare_input_from_waveform, stft_ri)
+from generative_audio_torch.ops.subband import band_unfold, drop_band  # noqa: F401

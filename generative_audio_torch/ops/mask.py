@@ -1,0 +1,48 @@
+"""Complex ideal ratio mask (cIRM) maths with the reference's saturation.
+
+Port of generative_audio_tpu/ops/mask.py:35-84.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+EPSILON = 1e-8
+
+__all__ = ["build_complex_ideal_ratio_mask_ri", "compress_cIRM",
+           "decompress_cIRM", "apply_crm"]
+
+
+def build_complex_ideal_ratio_mask_ri(noisy_real: torch.Tensor,
+                                      noisy_imag: torch.Tensor,
+                                      clean_real: torch.Tensor,
+                                      clean_imag: torch.Tensor) -> torch.Tensor:
+    """[B, F, T] components -> compressed cIRM [B, F, T, 2]."""
+    denominator = noisy_real ** 2 + noisy_imag ** 2 + EPSILON
+    mask_real = (noisy_real * clean_real + noisy_imag * clean_imag) / denominator
+    mask_imag = (noisy_real * clean_imag - noisy_imag * clean_real) / denominator
+    return compress_cIRM(torch.stack((mask_real, mask_imag), dim=-1))
+
+
+def compress_cIRM(mask: torch.Tensor, K: float = 10.0,
+                  C: float = 0.1) -> torch.Tensor:
+    """Compress (-inf, inf) -> (-K, K), with the reference's -100 clamp."""
+    mask = torch.where(mask <= -100.0, torch.full_like(mask, -100.0), mask)
+    e = torch.exp(-C * mask)
+    return K * (1.0 - e) / (1.0 + e)
+
+
+def decompress_cIRM(mask: torch.Tensor, K: float = 10.0,
+                    limit: float = 9.9) -> torch.Tensor:
+    """Inverse of compress_cIRM, saturated at +/-limit."""
+    mask = torch.clamp(mask, -limit, limit)
+    return -K * torch.log((K - mask) / (K + mask))
+
+
+def apply_crm(crm: torch.Tensor, noisy_real: torch.Tensor,
+              noisy_imag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply a decompressed cRM [..., F, T, 2] to noisy STFT components."""
+    enhanced_real = crm[..., 0] * noisy_real - crm[..., 1] * noisy_imag
+    enhanced_imag = crm[..., 1] * noisy_real + crm[..., 0] * noisy_imag
+    return enhanced_real, enhanced_imag

@@ -1,0 +1,166 @@
+"""Carry the JAX package's FullSubNet+ params into the port's state_dict.
+
+The input is the nested dict of arrays that `model.init(...)["params"]` of
+generative_audio_tpu's FullSubNetPlus gives (numpy or anything
+`np.asarray` takes). The output uses the reference checkpoint's key names,
+e.g. `sb_model.sequence_model.weight_ih_l0` and
+`fb_model.sequence_model.3.depthwise_conv.weight`, so it loads into the
+port's FullSubNetPlus with `load_state_dict` and is the exact inverse of
+generative_audio_tpu/utils/torch_convert.py:80-167 (convert_fullsubnet_plus).
+
+Layout transforms (JAX -> torch):
+  Dense kernel [in, out]          -> Linear weight [out, in]
+  Conv kernel [k, in/g, out]      -> Conv1d weight [out, in/g, k]
+  1x1 conv as Dense [in, out]     -> Conv1d weight [out, in, 1]
+  LSTM w_ih [in, 4H], w_hh [H, 4H] -> weight_ih_l{n} [4H, in], weight_hh_l{n} [4H, H]
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["convert_fullsubnet_plus", "convert_sequence_model",
+           "convert_tsse", "random_fullsubnet_plus_params"]
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _dense(p: Mapping, prefix: str) -> StateDict:
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _conv1d(p: Mapping, prefix: str) -> StateDict:
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).transpose(2, 1, 0)),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _pointwise(p: Mapping, prefix: str) -> StateDict:
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).T[:, :, None]),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def convert_sequence_model(params: Mapping, prefix: str, kind: str,
+                           num_layers: int = 2,
+                           bidirectional: bool = False) -> StateDict:
+    """recurrent.SequenceModel params -> the port's SequenceModel keys."""
+    sd: StateDict = {}
+    seq = f"{prefix}sequence_model"
+    if kind == "LSTM":
+        for layer in range(num_layers):
+            p = params[f"layer_{layer}"]
+            for suffix in ([""] + (["_reverse"] if bidirectional else [])):
+                sd[f"{seq}.weight_ih_l{layer}{suffix}"] = _t(
+                    np.asarray(p[f"w_ih{suffix}"]).T)
+                sd[f"{seq}.weight_hh_l{layer}{suffix}"] = _t(
+                    np.asarray(p[f"w_hh{suffix}"]).T)
+                sd[f"{seq}.bias_ih_l{layer}{suffix}"] = _t(p[f"b_ih{suffix}"])
+                sd[f"{seq}.bias_hh_l{layer}{suffix}"] = _t(p[f"b_hh{suffix}"])
+    elif kind in ("TCN", "TCN-subband"):
+        for i in range(8):
+            p = params["tcn"][f"block_{i}"]
+            blk = f"{seq}.{i}"
+            sd.update(_pointwise(p["conv1x1"], f"{blk}.conv1x1"))
+            sd[f"{blk}.prelu1.weight"] = _t(p["prelu1"])
+            sd[f"{blk}.norm1.weight"] = _t(p["norm1"]["scale"])
+            sd[f"{blk}.norm1.bias"] = _t(p["norm1"]["bias"])
+            sd.update(_conv1d(p["depthwise_conv"], f"{blk}.depthwise_conv"))
+            sd[f"{blk}.prelu2.weight"] = _t(p["prelu2"])
+            sd[f"{blk}.norm2.weight"] = _t(p["norm2"]["scale"])
+            sd[f"{blk}.norm2.bias"] = _t(p["norm2"]["bias"])
+            sd.update(_pointwise(p["sconv"], f"{blk}.sconv"))
+    else:
+        raise NotImplementedError(kind)
+    sd.update(_dense(params["fc_output_layer"], f"{prefix}fc_output_layer"))
+    return sd
+
+
+def convert_tsse(params: Mapping, prefix: str) -> StateDict:
+    """attention.ChannelTimeSenseSELayer params -> the port's TSSE keys."""
+    sd: StateDict = {}
+    for branch in ("smallConv1d", "middleConv1d", "largeConv1d"):
+        sd.update(_conv1d(params[branch]["conv"], f"{prefix}{branch}.0"))
+    for name in ("feature_concate_fc", "fc1", "fc2"):
+        sd.update(_dense(params[name], f"{prefix}{name}"))
+    return sd
+
+
+def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
+    """Random FullSubNet+ (LSTM sub-band, TSSE, TCN towers) params in the JAX
+    package's layout, made with numpy from `seed`: weights uniform in
+    +/-1/sqrt(fan_in) as torch initialises them, PReLU slopes 0.25, norm
+    scales 1 and biases 0. `config` is a FullSubNetPlusConfig of either
+    package."""
+    rng = np.random.default_rng(seed)
+
+    def u(shape, fan_in):
+        bound = fan_in ** -0.5
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    def dense(n_in, n_out):
+        return {"kernel": u((n_in, n_out), n_in), "bias": u((n_out,), n_in)}
+
+    def conv(k, n_in_per_group, n_out):
+        fan_in = k * n_in_per_group
+        return {"kernel": u((k, n_in_per_group, n_out), fan_in),
+                "bias": u((n_out,), fan_in)}
+
+    c = config
+    f, ch = c.num_freqs, c.num_channels
+    params: Dict[str, Any] = {}
+    for suffix in ("", "_real", "_imag"):
+        params[f"channel_attention{suffix}"] = {
+            "smallConv1d": {"conv": conv(c.kersize[0], 1, ch)},
+            "middleConv1d": {"conv": conv(c.kersize[1], 1, ch)},
+            "largeConv1d": {"conv": conv(c.kersize[2], 1, ch)},
+            "feature_concate_fc": dense(3, 1),
+            "fc1": dense(ch, ch // 2),
+            "fc2": dense(ch // 2, ch)}
+        hid = 512                  # SequenceModel's fixed TCN hidden width
+        params[f"fb_model{suffix}"] = {
+            "tcn": {f"block_{i}": {
+                "conv1x1": dense(f, hid),
+                "prelu1": np.full((1,), 0.25, np.float32),
+                "norm1": {"scale": np.ones(hid, np.float32),
+                          "bias": np.zeros(hid, np.float32)},
+                "depthwise_conv": conv(3, 1, hid),
+                "prelu2": np.full((1,), 0.25, np.float32),
+                "norm2": {"scale": np.ones(hid, np.float32),
+                          "bias": np.zeros(hid, np.float32)},
+                "sconv": dense(hid, f)} for i in range(8)},
+            "fc_output_layer": dense(f, f)}
+    h = c.sb_model_hidden_size
+    n_in = (2 * c.sb_num_neighbors + 1) + 3 * (2 * c.fb_num_neighbors + 1)
+    layers = {}
+    for layer in range(2):
+        size = n_in if layer == 0 else h
+        layers[f"layer_{layer}"] = {"w_ih": u((size, 4 * h), h),
+                                    "w_hh": u((h, 4 * h), h),
+                                    "b_ih": u((4 * h,), h),
+                                    "b_hh": u((4 * h,), h)}
+    params["sb_model"] = {**layers, "fc_output_layer": dense(h, c.output_size)}
+    return params
+
+
+def convert_fullsubnet_plus(params: Mapping,
+                            sequence_model: str = "LSTM",
+                            attention: str = "TSSE") -> StateDict:
+    """models.FullSubNetPlus params -> the port's FullSubNetPlus state_dict."""
+    if attention != "TSSE":
+        raise NotImplementedError(
+            f"attention {attention!r} is not ported to generative_audio_torch yet")
+    sd: StateDict = {}
+    for suffix in ("", "_real", "_imag"):
+        sd.update(convert_tsse(params[f"channel_attention{suffix}"],
+                               f"channel_attention{suffix}."))
+        sd.update(convert_sequence_model(params[f"fb_model{suffix}"],
+                                         f"fb_model{suffix}.", "TCN"))
+    sd.update(convert_sequence_model(params["sb_model"], "sb_model.",
+                                     sequence_model))
+    return sd

@@ -1,0 +1,37 @@
+"""Device choice and float32 precision flags for the port's entry points."""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+__all__ = ["resolve_device"]
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """Map `None` or "cuda" to a CUDA device and raise when there is none.
+
+    The CPU is used only when the caller asks for it (`device="cpu"`); there
+    is no silent fallback. On CUDA this sets the float32 precision flags:
+    `torch.backends.cuda.matmul.allow_tf32 = False` and
+    `torch.backends.cudnn.allow_tf32 = False`, so the float32 parts of the
+    path (STFT, norms, TSSE, the TCN's norms) compute in full float32 as the
+    JAX reference does. The bf16 parts (projections, TCN 1x1 convs, the LSTM)
+    are unaffected by these flags.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
