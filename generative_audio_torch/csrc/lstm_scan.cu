@@ -1,15 +1,18 @@
 // LSTM forward scan over precomputed time-major gates, for sm_90a.
 //
-// Replaces two Pallas TPU kernels of generative_audio_tpu/ops/pallas_lstm.py:
+// Replaces three Pallas TPU kernels of generative_audio_tpu/ops/pallas_lstm.py:
 //   * kernel A (lstm_scan_fwd)       <- _lstm_pallas_call / _lstm_kernel
-//     (h and c start at zero), used by lstm_scan_tm;
+//     (h and c start at zero), used by lstm_scan_tm without grad;
 //   * kernel B (lstm_scan_fwd_carry) <- _lstm_pallas_call_carry /
 //     _lstm_carry_kernel (h0, c0 in; h_T, c_T out), used by
-//     lstm_layer_tm_chunked.
-// Both are one template, so a chunked run and an unchunked run of the same
-// bf16 gates are bit-identical: every step does the same arithmetic on the
-// same operands in the same order, and the carry crosses a chunk boundary
-// as the fp32 h and c the next step would have read anyway.
+//     lstm_layer_tm_chunked;
+//   * kernel C (lstm_scan_fwd_train) <- _lstm_pallas_call_train /
+//     _lstm_train_kernel (kernel A that also writes the c sequence, rounded
+//     to bf16: the residual the backward scan needs), used by LSTMScan.
+// All are one template, so a chunked run, an unchunked run and a training
+// run of the same bf16 gates give bit-identical h: every step does the same
+// arithmetic on the same operands in the same order, and the carry crosses
+// a chunk boundary as the fp32 h and c the next step would have read anyway.
 //
 // What it computes, per row b and step t (torch gate order i, f, g, o):
 //   z   = float(gates[t, b, :]) + bf16(h_{t-1}) @ W_hh    (fp32 accumulation)
@@ -85,13 +88,14 @@ __device__ __forceinline__ void store_pair(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-template <typename OutT, bool CARRY>
+template <typename OutT, bool CARRY, bool STREAM_C>
 __global__ void __launch_bounds__(NWARPS * 32)
 lstm_scan_kernel(const __nv_bfloat16* __restrict__ gates,
                  const __nv_bfloat16* __restrict__ wt,
                  const float* __restrict__ h0, const float* __restrict__ c0,
                  OutT* __restrict__ out, float* __restrict__ h_T,
-                 float* __restrict__ c_T, int T, int B, int H, int reverse) {
+                 float* __restrict__ c_T, __nv_bfloat16* __restrict__ c_seq,
+                 int T, int B, int H, int reverse) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hs = H + HPAD;                                  // h row stride
   __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][ROWS][hs]
@@ -174,6 +178,8 @@ lstm_scan_kernel(const __nv_bfloat16* __restrict__ gates,
         store_pair(hnext + r * hs + j, hn[0], hn[1]);
         if (valid) {
           store_pair(out + ((size_t)t * B + row) * H + j, hn[0], hn[1]);
+          if (STREAM_C)
+            store_pair(c_seq + ((size_t)t * B + row) * H + j, cn[0], cn[1]);
           if (CARRY && s == T - 1) {
             store_pair(h_T + (size_t)row * H + j, hn[0], hn[1]);
             store_pair(c_T + (size_t)row * H + j, cn[0], cn[1]);
@@ -185,13 +191,13 @@ lstm_scan_kernel(const __nv_bfloat16* __restrict__ gates,
   }
 }
 
-template <typename OutT, bool CARRY>
+template <typename OutT, bool CARRY, bool STREAM_C = false>
 int launch(const void* gates, const void* wt, const void* h0, const void* c0,
-           void* out, void* h_T, void* c_T, int T, int B, int H, int reverse,
-           void* stream) {
+           void* out, void* h_T, void* c_T, void* c_seq, int T, int B, int H,
+           int reverse, void* stream) {
   const size_t smem = 2 * ROWS * (H + HPAD) * sizeof(__nv_bfloat16) +
                       ROWS * H * sizeof(float);
-  auto kernel = lstm_scan_kernel<OutT, CARRY>;
+  auto kernel = lstm_scan_kernel<OutT, CARRY, STREAM_C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -199,7 +205,7 @@ int launch(const void* gates, const void* wt, const void* h0, const void* c0,
   kernel<<<grid, NWARPS * 32, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)gates, (const __nv_bfloat16*)wt,
       (const float*)h0, (const float*)c0, (OutT*)out, (float*)h_T,
-      (float*)c_T, T, B, H, reverse);
+      (float*)c_T, (__nv_bfloat16*)c_seq, T, B, H, reverse);
   return (int)cudaGetLastError();
 }
 
@@ -213,10 +219,10 @@ int lstm_scan_fwd(const void* gates, const void* wt, void* out, int out_f32,
                   int T, int B, int H, int reverse, void* stream) {
   if (out_f32)
     return launch<float, false>(gates, wt, nullptr, nullptr, out, nullptr,
-                                nullptr, T, B, H, reverse, stream);
+                                nullptr, nullptr, T, B, H, reverse, stream);
   return launch<__nv_bfloat16, false>(gates, wt, nullptr, nullptr, out,
-                                      nullptr, nullptr, T, B, H, reverse,
-                                      stream);
+                                      nullptr, nullptr, nullptr, T, B, H,
+                                      reverse, stream);
 }
 
 // Kernel B. As kernel A, plus h0, c0 [B, H] fp32 in and h_T, c_T [B, H]
@@ -226,10 +232,20 @@ int lstm_scan_fwd_carry(const void* gates, const void* wt, const void* h0,
                         int out_f32, int T, int B, int H, int reverse,
                         void* stream) {
   if (out_f32)
-    return launch<float, true>(gates, wt, h0, c0, out, h_T, c_T, T, B, H,
-                               reverse, stream);
-  return launch<__nv_bfloat16, true>(gates, wt, h0, c0, out, h_T, c_T, T, B,
-                                     H, reverse, stream);
+    return launch<float, true>(gates, wt, h0, c0, out, h_T, c_T, nullptr, T,
+                               B, H, reverse, stream);
+  return launch<__nv_bfloat16, true>(gates, wt, h0, c0, out, h_T, c_T,
+                                     nullptr, T, B, H, reverse, stream);
+}
+
+// Kernel C. As kernel A with bf16 output, plus c_seq [T, B, H] bf16 out:
+// c_t after each step, rounded once (the state itself stays fp32 on chip).
+int lstm_scan_fwd_train(const void* gates, const void* wt, void* h_seq,
+                        void* c_seq, int T, int B, int H, int reverse,
+                        void* stream) {
+  return launch<__nv_bfloat16, false, true>(gates, wt, nullptr, nullptr, h_seq,
+                                            nullptr, nullptr, c_seq, T, B, H,
+                                            reverse, stream);
 }
 
 const char* lstm_scan_error_string(int err) {

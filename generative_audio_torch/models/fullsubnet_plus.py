@@ -1,4 +1,4 @@
-"""FullSubNet+, the speech-enhancement model of the serving path.
+"""FullSubNet+, the speech-enhancement model of the serving and training paths.
 
 Port of generative_audio_tpu/models/fullsubnet_plus.py:37-173: pad look_ahead
 frames -> per-stream (mag/real/imag) norm + TSSE channel attention -> three
@@ -99,8 +99,13 @@ class FullSubNetPlus(nn.Module):
         return attention(self.norm(x).reshape(b, ch * f, t))
 
     def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
-                noisy_imag: torch.Tensor) -> torch.Tensor:
+                noisy_imag: torch.Tensor,
+                num_groups: Optional[int] = None) -> torch.Tensor:
+        """num_groups overrides config.num_groups_in_drop_band for this call
+        (1 = full band), on the same parameters."""
         c = self.config
+        if num_groups is None:
+            num_groups = c.num_groups_in_drop_band
         if noisy_mag.ndim != 4 or noisy_mag.shape[1] != 1:
             raise ValueError("FullSubNetPlus takes [B, 1, F, T] inputs, got "
                              f"{tuple(noisy_mag.shape)}")
@@ -130,7 +135,7 @@ class FullSubNetPlus(nn.Module):
         num_freqs = f
         if b > 1:
             sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
-                                 num_groups=c.num_groups_in_drop_band)
+                                 num_groups=num_groups)
             num_freqs = sb_input.shape[2]
             sb_input = sb_input.permute(0, 2, 1, 3)
 

@@ -12,9 +12,13 @@ transpose in, the layers stay time-major, one transpose out after the head.
 In bf16 each layer hoists its input projection into one matmul that writes
 bf16 gates [T, B, 4H] and runs the scan kernel over them (ops/lstm.py);
 above a gates working-set limit it switches to the time-chunked layer.
+Under autograd the same calls go through ops.lstm.LSTMScan (the training
+forward and the backward scan kernels); the projection's own backward
+(dx, dW_ih, db) is autograd's, in bf16 like its forward.
 In float32 (a constructor option, used by the CPU tests) the recurrence is
-the full-precision plain loop, the counterpart of the JAX lax.scan path;
-the CUDA kernel takes bf16 operands only, so float32 is refused on CUDA.
+the full-precision plain loop, the counterpart of the JAX lax.scan path,
+differentiated by autograd; the CUDA kernels take bf16 operands only, so
+float32 is refused on CUDA.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
-"""Tensor ops of the serving path and the LSTM kernel wrappers."""
+"""Tensor ops of the main path and the LSTM kernel wrappers."""
 from generative_audio_torch.ops.lstm import (  # noqa: F401
-    launch_counts, lstm_layer_tm_chunked, lstm_scan_carry_reference_tm,
-    lstm_scan_carry_tm, lstm_scan_reference_tm, lstm_scan_tm,
-    reset_launch_counts)
+    LSTMScan, launch_counts, lstm_layer_tm_chunked, lstm_scan_bwd_reference_tm,
+    lstm_scan_bwd_tm, lstm_scan_carry_reference_tm, lstm_scan_carry_tm,
+    lstm_scan_reference_tm, lstm_scan_tm, lstm_scan_train_reference_tm,
+    lstm_scan_train_tm, reset_launch_counts)
 from generative_audio_torch.ops.mask import (  # noqa: F401
     apply_crm, build_complex_ideal_ratio_mask_ri, compress_cIRM,
     decompress_cIRM)

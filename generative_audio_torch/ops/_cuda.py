@@ -18,7 +18,7 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "find_nvcc", "build", "load",
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "find_nvcc", "build", "load",
            "check", "stream_handle"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -98,8 +98,13 @@ _SIGNATURES = {
         "lstm_scan_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "lstm_scan_fwd_carry": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _P],
+        "lstm_scan_fwd_train": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "lstm_scan_bwd": {
+        "lstm_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
+SOURCES = tuple(_SIGNATURES)
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:

@@ -1,4 +1,5 @@
-"""Carry the JAX package's FullSubNet+ params into the port's state_dict.
+"""Carry the JAX package's FullSubNet+ params into the port's state_dict,
+and back.
 
 The input is the nested dict of arrays that `model.init(...)["params"]` of
 generative_audio_tpu's FullSubNetPlus gives (numpy or anything
@@ -8,6 +9,11 @@ e.g. `sb_model.sequence_model.weight_ih_l0` and
 port's FullSubNetPlus with `load_state_dict` and is the exact inverse of
 generative_audio_tpu/utils/torch_convert.py:80-167 (convert_fullsubnet_plus).
 
+`to_jax_fullsubnet_plus` is the inverse: a `state_dict`, or a dict of
+gradients under state-dict names, becomes numpy arrays in the JAX param
+layout, so that a test can lay the port's gradients and updated parameters
+beside the JAX tree.
+
 Layout transforms (JAX -> torch):
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel [k, in/g, out]      -> Conv1d weight [out, in/g, k]
@@ -16,13 +22,15 @@ Layout transforms (JAX -> torch):
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 __all__ = ["convert_fullsubnet_plus", "convert_sequence_model",
-           "convert_tsse", "random_fullsubnet_plus_params"]
+           "convert_tsse", "random_fullsubnet_plus_params",
+           "to_jax_fullsubnet_plus"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -164,3 +172,59 @@ def convert_fullsubnet_plus(params: Mapping,
     sd.update(convert_sequence_model(params["sb_model"], "sb_model.",
                                      sequence_model))
     return sd
+
+
+# state-dict key (regex) -> (path in the JAX tree, transform of the array)
+_LSTM_KINDS = {"weight_ih": "w_ih", "weight_hh": "w_hh", "bias_ih": "b_ih",
+               "bias_hh": "b_hh"}
+_TO_JAX = [
+    (r"(channel_attention\w*)\.(\w+Conv1d)\.0\.weight",
+     lambda m: (m[1], m[2], "conv", "kernel"), lambda a: a.transpose(2, 1, 0)),
+    (r"(channel_attention\w*)\.(\w+Conv1d)\.0\.bias",
+     lambda m: (m[1], m[2], "conv", "bias"), None),
+    (r"(\w+)\.sequence_model\.(\d)\.(conv1x1|sconv)\.weight",
+     lambda m: (m[1], "tcn", f"block_{m[2]}", m[3], "kernel"),
+     lambda a: a[:, :, 0].T),
+    (r"(\w+)\.sequence_model\.(\d)\.depthwise_conv\.weight",
+     lambda m: (m[1], "tcn", f"block_{m[2]}", "depthwise_conv", "kernel"),
+     lambda a: a.transpose(2, 1, 0)),
+    (r"(\w+)\.sequence_model\.(\d)\.(conv1x1|sconv|depthwise_conv)\.bias",
+     lambda m: (m[1], "tcn", f"block_{m[2]}", m[3], "bias"), None),
+    (r"(\w+)\.sequence_model\.(\d)\.(prelu[12])\.weight",
+     lambda m: (m[1], "tcn", f"block_{m[2]}", m[3]), None),
+    (r"(\w+)\.sequence_model\.(\d)\.(norm[12])\.weight",
+     lambda m: (m[1], "tcn", f"block_{m[2]}", m[3], "scale"), None),
+    (r"(\w+)\.sequence_model\.(\d)\.(norm[12])\.bias",
+     lambda m: (m[1], "tcn", f"block_{m[2]}", m[3], "bias"), None),
+    (r"(\w+)\.sequence_model\.(weight|bias)_(ih|hh)_l(\d)(_reverse)?",
+     lambda m: (m[1], f"layer_{m[4]}",
+                _LSTM_KINDS[f"{m[2]}_{m[3]}"] + (m[5] or "")),
+     lambda a: a.T),                      # biases are 1-D: .T leaves them
+    (r"([\w.]+)\.weight", lambda m: (*m[1].split("."), "kernel"),
+     lambda a: a.T),                      # Linear
+    (r"([\w.]+)\.bias", lambda m: (*m[1].split("."), "bias"), None),
+]
+
+
+def to_jax_fullsubnet_plus(named: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's FullSubNetPlus tensors by state-dict name (parameters, or
+    their gradients) -> float32 numpy arrays in the JAX package's nested
+    param layout: the inverse of convert_fullsubnet_plus."""
+    tree: Dict[str, Any] = {}
+    for key, value in named.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().float().cpu().numpy()
+        array = np.asarray(value, dtype=np.float32)
+        for pattern, path_of, transform in _TO_JAX:
+            m = re.fullmatch(pattern, key)
+            if m:
+                break
+        else:
+            raise KeyError(f"no JAX counterpart for state-dict key {key!r}")
+        *parents, leaf = path_of(m)
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(
+            transform(array) if transform else array)
+    return tree
