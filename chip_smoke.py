@@ -51,11 +51,23 @@ of which fails the run (non-zero exit, no result line):
      recurrence, and the times (the library call is a cuDNN GRU's forward
      and backward, and one torch.mm for the contraction);
  11. phases 4-7 again for FullSubNet v1-GRU (mode full_band_crm_mask; model
-     type "fullsubnet"), plus the 1 s clip for v1-LSTM.
+     type "fullsubnet"), plus the 1 s clip for v1-LSTM;
+ 12. the LSTM layer and scan variants, each through its own entry point: the
+     layer with the projection inside the scan (ops.lstm.lstm_layer_tm) over
+     FullSubNet+'s real sub-band stack (the model's layer-1 input of one
+     batch-8 x 10 s request, its own weights), against its plain version at
+     both layers, forward and reverse, and at a ragged row count, and both
+     layers against the model's own hoisted stack; LSTMLayerScan's four
+     gradients at the training shape against autograd through the float32
+     recurrence, with its exact launches; the chains backward
+     (scripts.perf_lstm_chains) and the K-step unrolled forward
+     (scripts.perf_lstm_unroll) bit for bit against the kernels they
+     reorganise; and their times beside bound, plain version and library.
 The launch counts are set to 0 just before each model's serving phases and
-read just after, and again around each model's five training steps. The
-second-to-last line of stdout is the `kernels` JSON, the last line the
-device JSON. Exits non-zero without a CUDA device.
+read just after, again around each model's five training steps, and around
+each variant's own path in phase 12. The second-to-last line of stdout is
+the `kernels` JSON, the last line the device JSON. Exits non-zero without a
+CUDA device.
 """
 import dataclasses
 import json
@@ -71,6 +83,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from generative_audio_torch.utils.device import cuda_ms  # noqa: E402
 
 T_FRAMES, HIDDEN, ROWS, RAGGED_ROWS = 628, 384, 8 * 257, 2047
 T_CHUNK = 64
@@ -101,8 +114,18 @@ KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 5e-3, 3e-5
 # measures what the bf16 streams cost: its limits are shares of the exact
 # gradient's peak (dgates; measured 2.9e-3 max, 3.0e-5 mean) and of its
 # Frobenius norm (dW_hh; measured 2.3e-3). Margins of about 15x.
+# LSTMLayerScan's dW_ih, dW_hh and db measured 2.5e-3, 3.1e-3 and 1.2e-3 of
+# their norms and its dx 2.5e-3 max of its peak, under the same limits.
 BWD_MAX_REL, BWD_MEAN_REL = 5e-2, 2e-5
 GRAD_MAX_REL, GRAD_MEAN_REL, GRAD_DW_REL = 5e-2, 5e-4, 3e-2
+# LSTMLayerScan's dx is a contraction over 4H of the bf16 dgates, so each
+# rounding adds up: at T=195, 2304 rows, F=34 its mean error measured 3.4e-4
+# of its peak on an H100, too close to GRAD_MEAN_REL, so dx has its own mean
+# limit, 2.9x over that reading. The run also reads two faulty dx, and fails
+# unless the limits reject them: dgates without the forget gate's derivative
+# measured a mean of 7.4e-3 (7.4x over the limit); one of the 195 steps lost
+# a max of 0.79 (16x over GRAD_MAX_REL) and a mean of 1.04e-3.
+DX_MEAN_REL = 1e-3
 # The GRU forward vs its plain version: the same one-bf16-step differences,
 # but the update h = (1 - z) n + z h_prev hands a moved h on to later steps
 # where the LSTM's output gate damps it, so the mean is higher: on an H100 at
@@ -126,6 +149,14 @@ TRAIN_LOSS_REL, TRAIN_GRAD_COS, TRAIN_GRAD_RATIO = 5e-3, 0.95, 0.15
 # against unchunked projections (cuBLAS may round a chunk's bf16 gates
 # differently), both as a share of the output's peak.
 PATH_REL = 5e-2
+# The two sub-band layers through lstm_layer_tm against the model's own
+# hoisted stack, bf16 h: the hoisted path rounds every gate to bf16, the
+# projection inside the scan keeps it in fp32, and layer 2 sees layer 1's
+# differences. On an H100 the largest difference measured 1.95e-3 (one bf16
+# step of an h in [0.25, 0.5)) and the mean 7.9e-5; margins of 5x and 6x.
+LAYER_PATH_MAX_ABS, LAYER_PATH_MEAN_ABS = 1e-2, 5e-4
+# The sub-band model's input width: 31 neighbour bins + 3 full-band outputs.
+SB_FEATURES = 34
 
 
 def log(msg):
@@ -138,20 +169,6 @@ def card_line():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()
     return out[torch.cuda.current_device()]
-
-
-def cuda_ms(fn, iters, warmup=1):
-    """Mean milliseconds per call on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(t, rows, h, extra_bytes=0, streams=5, products=1, gates=4):
@@ -826,6 +843,316 @@ def phase_gru_train_kernels(dev):
             bound_by=by_w, library_ms=lib_w)}
 
 
+def library_layer_ms(x, w_ih, w_hh, bias):
+    """cuDNN's LSTM, nn.LSTM(F, H) in bf16, on x [T, B, F] with the layer's
+    own weights (b_ih = bias, b_hh = 0): the same function as lstm_layer_tm,
+    projection included. Timed only."""
+    h = w_hh.shape[0]
+    lstm = torch.nn.LSTM(w_ih.shape[0], h, device=x.device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(w_ih.t())
+        lstm.weight_hh_l0.copy_(w_hh.t())
+        lstm.bias_ih_l0.copy_(bias)
+        lstm.bias_hh_l0.zero_()
+        return cuda_ms(lambda: lstm(x), iters=5)
+
+
+def _layer_bound(t, rows, f, h):
+    """Least time (ms) of one layer with the projection inside: x and h
+    streams and the weights in bf16, the fp32 bias; 2*(F + H)*4H operations
+    per row and step."""
+    return _larger(t * rows * (f + h) * 2 + (f + h) * 4 * h * 2 + 4 * h * 4,
+                   2 * t * rows * (f + h) * 4 * h)
+
+
+def _sub_band_stack(dev, path):
+    """FullSubNet+'s sub-band LSTM stack on one batch-8 x 10 s request: its
+    layer-1 input [T, rows, 34] (float32), the stack's own bf16 output and
+    the two layers' (w_ih [F, 4H], w_hh [H, 4H], b_ih + b_hh)."""
+    from generative_audio_torch.ops import prepare_input_from_waveform
+    model = path.model(torch.bfloat16, dev)
+    stack = model.sb_model.sequence_model
+    seen = {}
+    hooks = [stack.register_forward_pre_hook(
+                 lambda m, args: seen.setdefault("x", args[0])),
+             stack.register_forward_hook(
+                 lambda m, args, y: seen.setdefault("y", y))]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    wav = torch.randn(8, 160000, generator=gen, device=dev) * 0.1
+    with torch.no_grad():
+        model(*prepare_input_from_waveform(wav, 512, 256, 512)[:path.n_inputs])
+        weights = [tuple(w.detach().clone() for w in (
+            getattr(stack, f"weight_ih_l{i}").t(),
+            getattr(stack, f"weight_hh_l{i}").t(),
+            getattr(stack, f"bias_ih_l{i}") + getattr(stack, f"bias_hh_l{i}")))
+            for i in range(2)]
+    for hook in hooks:
+        hook.remove()
+    return seen["x"], seen["y"], weights
+
+
+def _check_layer(L, tag, x, weights, reverse):
+    """lstm_layer_fwd (fp32 out) against its plain version; max |err|."""
+    got = L.lstm_layer_tm(x, *weights, reverse, torch.float32)
+    want = L.lstm_layer_reference_tm(x, *weights, reverse)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    log(f"lstm_layer_fwd {tag} reverse={reverse}: max|err| "
+        f"{err.max().item():.3e} mean {err.mean().item():.3e}")
+    check(torch.isfinite(got).all().item(), f"lstm_layer_fwd finite ({tag})")
+    check(err.max().item() < KERNEL_MAX_ABS
+          and err.mean().item() < KERNEL_MEAN_ABS,
+          f"lstm_layer_fwd vs plain within {KERNEL_MAX_ABS}/{KERNEL_MEAN_ABS} "
+          f"({tag} reverse={reverse})")
+    return err.max().item()
+
+
+def phase_lstm_layer(dev, path, kernel_a_ms):
+    """Row 4: lstm_layer_tm through FullSubNet+'s sub-band stack, its plain
+    version, the model's hoisted stack, its gradient at the training shape,
+    and its times."""
+    from generative_audio_torch.ops import lstm as L
+    x, hoisted, weights = _sub_band_stack(dev, path)
+    check(tuple(x.shape) == (T_FRAMES, ROWS, SB_FEATURES),
+          f"the sub-band input is [{T_FRAMES}, {ROWS}, {SB_FEATURES}] "
+          f"(got {tuple(x.shape)})")
+
+    # the path: both layers through the entry point, bf16 as a user runs it
+    L.reset_launch_counts()
+    with torch.no_grad():
+        y1 = L.lstm_layer_tm(x, *weights[0])
+        y2 = L.lstm_layer_tm(y1, *weights[1])
+    torch.cuda.synchronize()
+    launches = dict(L.launch_counts)
+    check(launches == {**dict.fromkeys(launches, 0), "lstm_layer_fwd": 2},
+          f"the two layers launched lstm_layer_fwd twice and nothing else "
+          f"(got {launches})")
+    err = (y2.float() - hoisted.float()).abs()
+    log(f"lstm_layer_tm x 2 over FullSubNet+'s sub-band input [{T_FRAMES}, "
+        f"{ROWS}, {SB_FEATURES}] vs the model's hoisted stack: max|err| "
+        f"{err.max().item():.3e} mean {err.mean().item():.3e}")
+    check(torch.isfinite(y2.float()).all().item()
+          and err.max().item() < LAYER_PATH_MAX_ABS
+          and err.mean().item() < LAYER_PATH_MEAN_ABS,
+          f"lstm_layer_tm stack vs the hoisted stack within "
+          f"{LAYER_PATH_MAX_ABS}/{LAYER_PATH_MEAN_ABS}")
+    del err
+
+    max_err = 0.0
+    with torch.no_grad():
+        for tag, inp, w in (("layer 1", x, weights[0]),
+                            ("layer 2", y1, weights[1])):
+            tag = f"{tag} (F={inp.shape[-1]})"
+            for reverse in (False, True):
+                max_err = max(max_err, _check_layer(L, tag, inp, w, reverse))
+        ragged = x[:TRAIN_T, :RAGGED_ROWS]
+        for reverse in (False, True):
+            max_err = max(max_err, _check_layer(
+                L, f"layer 1 T={TRAIN_T} rows={RAGGED_ROWS}", ragged,
+                weights[0], reverse))
+
+    # times at both layers, on bf16 inputs as the stack hands them on
+    x_bf = x.to(torch.bfloat16).contiguous()
+    card = card_line()
+    times = {}
+    with torch.no_grad():
+        for name, inp, w in (("layer 1", x_bf, weights[0]),
+                             ("layer 2", y1, weights[1])):
+            f = inp.shape[-1]
+            ms = cuda_ms(lambda: L.lstm_layer_tm(inp, *w), iters=5)
+            plain = cuda_ms(lambda: L.lstm_layer_reference_tm(inp, *w), iters=2)
+            lib = library_layer_ms(inp, *w)
+            b_ms, by = _layer_bound(T_FRAMES, ROWS, f, HIDDEN)
+            times[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                               bound_by=by, library_ms=lib)
+            log(f"lstm_layer_fwd {name} at T={T_FRAMES} rows={ROWS} F={f} "
+                f"H={HIDDEN}: {ms:.3f} ms ({ms / kernel_a_ms:.2f}x kernel A's "
+                f"{kernel_a_ms:.3f}; bound {b_ms:.3f} ms by {by}; plain "
+                f"{plain:.3f} ms; cuDNN nn.LSTM({f}, {HIDDEN}) {lib:.3f} ms) "
+                f"on {card}")
+    del x, hoisted, y1, y2, x_bf
+
+    # under grad at the training shape: LSTMLayerScan = kernels C and D
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    xg = torch.randn(TRAIN_T, TRAIN_ROWS, SB_FEATURES, generator=gen, device=dev)
+    gout = torch.randn(TRAIN_T, TRAIN_ROWS, HIDDEN, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    kernel_in = [t.clone().requires_grad_() for t in (xg, *weights[0])]
+    before = dict(L.launch_counts)
+    (L.lstm_layer_tm(*kernel_in, False, torch.float32)
+     * gout.float()).sum().backward()
+    torch.cuda.synchronize()
+    launched = {k: L.launch_counts[k] - before[k] for k in before}
+    check(launched == {**dict.fromkeys(launched, 0), "lstm_scan_fwd_train": 1,
+                       "lstm_scan_bwd": 1},
+          f"LSTMLayerScan launched 1 lstm_scan_fwd_train and 1 lstm_scan_bwd "
+          f"and nothing else (got {launched})")
+    exact_in = [t.clone().requires_grad_() for t in (xg, *weights[0])]
+    (L.lstm_layer_reference_tm(*exact_in, compute_dtype=torch.float32)
+     * gout.float()).sum().backward()
+    torch.cuda.synchronize()
+    got, want = [t.grad for t in kernel_in], [t.grad for t in exact_in]
+    check(all(g.dtype == torch.float32 for g in got),
+          "LSTMLayerScan gradient dtypes")
+    err_x = (got[0] - want[0]).abs()
+    peak = want[0].abs().max().item()
+    rel = [_rel_norm(g, w) for g, w in zip(got[1:], want[1:])]
+    log(f"LSTMLayerScan T={TRAIN_T} rows={TRAIN_ROWS} F={SB_FEATURES} vs "
+        f"float32 autograd: dx max|err|/peak {err_x.max().item() / peak:.3e} "
+        f"mean/peak {err_x.mean().item() / peak:.3e}; |err|/|grad| dW_ih "
+        f"{rel[0]:.3e}, dW_hh {rel[1]:.3e}, db {rel[2]:.3e}")
+    check(err_x.max().item() < GRAD_MAX_REL * peak
+          and err_x.mean().item() < DX_MEAN_REL * peak
+          and max(rel) < GRAD_DW_REL,
+          f"LSTMLayerScan gradients vs float32 within {GRAD_MAX_REL}/"
+          f"{DX_MEAN_REL}/{GRAD_DW_REL}")
+    # two faulty dx the limits must reject: dgates without the forget
+    # gate's derivative (diffuse), and one step's dx lost (local)
+    w_ih, w_hh, bias = (w.detach() for w in kernel_in[1:])
+    bf16, hsz = torch.bfloat16, HIDDEN
+    with torch.no_grad():
+        # as LSTMLayerScan's forward: bf16 operands, fp32 sums, then bf16
+        gates = (xg.to(bf16).float() @ w_ih.to(bf16).float() + bias).to(bf16)
+        dgates = L.lstm_scan_bwd_tm(gates, *L.lstm_scan_train_tm(gates, w_hh),
+                                    gout, w_hh)
+        dgates[..., hsz:2 * hsz] = 0
+        dx_f = dgates.float() @ w_ih.to(bf16).float().t()
+        fault_f = (dx_f - want[0]).abs().mean().item() / peak
+        dx_step = got[0].clone()
+        dx_step[TRAIN_T // 2] = 0
+        fault_step = (dx_step - want[0]).abs()
+    log(f"faulty dx: forget-gate derivative left out, mean/peak "
+        f"{fault_f:.3e}; step {TRAIN_T // 2} lost, max/peak "
+        f"{fault_step.max().item() / peak:.3e} mean/peak "
+        f"{fault_step.mean().item() / peak:.3e}")
+    check(fault_f > DX_MEAN_REL and fault_step.max().item() > GRAD_MAX_REL * peak,
+          f"the dx limits {GRAD_MAX_REL}/{DX_MEAN_REL} reject both faulty dx")
+    del gates, dgates, dx_f, dx_step, fault_step
+    log(f"lstm_layer_fwd launches on its path (two layers): "
+        f"{launches['lstm_layer_fwd']}")
+    return dict(max_abs_err=max_err, **times["layer 1"]), \
+        launches["lstm_layer_fwd"]
+
+
+def phase_lstm_chains(dev, library_bwd_ms):
+    """Row 9: the chains backward through scripts.perf_lstm_chains, bit for
+    bit against kernel D, against its plain version, and its times beside
+    kernel D's."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_lstm_chains as PC
+    shapes = ((PC.T, PC.B), (TRAIN_T, TRAIN_ROWS), (TRAIN_T, TRAIN_RAGGED_ROWS))
+    L.reset_launch_counts()
+    for i, (t_len, rows) in enumerate(shapes):
+        inputs = PC.make_inputs(t_len, rows, HIDDEN, dev, seed=SEED + 14 + i)
+        got = PC.chains_bwd(*inputs)                 # the path: 2 chains
+        want = L.lstm_scan_bwd_tm(*inputs)           # kernel D, to compare
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"lstm_scan_bwd_chains == lstm_scan_bwd "
+              f"bitwise (T={t_len} rows={rows})")
+        log(f"lstm_scan_bwd_chains (2 chains) T={t_len} rows={rows}: == "
+            f"lstm_scan_bwd over all {got.numel()} outputs")
+        del inputs, got, want
+    launches = L.launch_counts["lstm_scan_bwd_chains"]
+    check(launches == len(shapes), "lstm_scan_bwd_chains launched once a shape")
+
+    # at the training shape: the plain version, and D against G in turns
+    inputs = PC.make_inputs(TRAIN_T, TRAIN_ROWS, HIDDEN, dev, seed=SEED + 15)
+    got = PC.chains_bwd(*inputs)
+    want = PC.chains_bwd_reference(*inputs)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    peak = want.float().abs().max().item()
+    max_err = err.max().item()
+    log(f"lstm_scan_bwd_chains T={TRAIN_T} rows={TRAIN_ROWS} vs plain: max|err| "
+        f"{max_err:.3e} mean {err.mean().item():.3e} (peak |dgates| {peak:.3f})")
+    check(max_err < BWD_MAX_REL * peak and err.mean().item() < BWD_MEAN_REL * peak,
+          f"lstm_scan_bwd_chains vs plain within {BWD_MAX_REL}/{BWD_MEAN_REL} "
+          f"of the peak")
+    del got, want, err
+    # the script's A/B: best of 10 in 3 alternating rounds
+    times = PC.ab(inputs)
+    ms_d, ms_g = min(times["lstm_scan_bwd"]), min(times["chains2"])
+    plain = cuda_ms(lambda: PC.chains_bwd_reference(*inputs), iters=2)
+    b_ms, by = bound(TRAIN_T, TRAIN_ROWS, HIDDEN, streams=11, products=2)
+    card = card_line()
+    log(f"lstm_scan_bwd_chains (2 chains, {-(-TRAIN_ROWS // 32)} blocks) at "
+        f"T={TRAIN_T} rows={TRAIN_ROWS} H={HIDDEN}: {ms_g:.3f} ms; "
+        f"lstm_scan_bwd ({-(-TRAIN_ROWS // 16)} blocks) {ms_d:.3f} ms (rounds "
+        f"D {' '.join(f'{ms:.3f}' for ms in times['lstm_scan_bwd'])}, G "
+        f"{' '.join(f'{ms:.3f}' for ms in times['chains2'])}); bound "
+        f"{b_ms:.3f} ms by {by}; plain {plain:.3f} ms; cuDNN backward "
+        f"{library_bwd_ms:.3f} ms on {card}")
+    del inputs
+    inputs = PC.make_inputs(PC.T, PC.B, HIDDEN, dev, seed=SEED + 14)
+    times = PC.ab(inputs)
+    log(f"at the script's shape T={PC.T} rows={PC.B}: best D "
+        f"{min(times['lstm_scan_bwd']):.3f} ms, G {min(times['chains2']):.3f} "
+        f"ms (bound {bound(PC.T, PC.B, HIDDEN, streams=11, products=2)[0]:.3f} "
+        f"ms) on {card}")
+    del inputs
+    return dict(max_abs_err=max_err, ms=ms_g, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=library_bwd_ms), launches
+
+
+def phase_lstm_unroll(dev):
+    """Row 10: the K-step unrolled forward through scripts.perf_lstm_unroll,
+    bit for bit against kernel A, against its plain version, and its times
+    beside kernel A's."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_lstm_unroll as PU
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    w_hh = _uniform(gen, dev, (HIDDEN, 4 * HIDDEN), HIDDEN ** -0.5)
+    L.reset_launch_counts()
+    with torch.no_grad():
+        for rows in (TRAIN_ROWS, ROWS):
+            gates = torch.randn(T_FRAMES, rows, 4 * HIDDEN, generator=gen,
+                                device=dev).to(torch.bfloat16)
+            for k in L.UNROLL_STEPS:
+                got = PU.lstm_unrolled(gates, w_hh, block_t=k)   # the path
+                want = L.lstm_scan_tm(gates, w_hh)               # kernel A
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"lstm_scan_fwd_unrolled K={k} "
+                      f"== lstm_scan_fwd bitwise (rows={rows})")
+                log(f"lstm_scan_fwd_unrolled K={k} T={T_FRAMES} rows={rows}: "
+                    f"== lstm_scan_fwd over all {got.numel()} outputs")
+            del gates, got, want
+        launches = L.launch_counts["lstm_scan_fwd_unrolled"]
+        check(launches == 2 * len(L.UNROLL_STEPS),
+              "lstm_scan_fwd_unrolled launched once a shape and K")
+
+        # at T=628 x 2304 rows, the script's shape
+        rows = TRAIN_ROWS
+        gates = torch.randn(T_FRAMES, rows, 4 * HIDDEN, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        got = PU.lstm_unrolled(gates, w_hh)
+        want = PU.lstm_unrolled_reference(gates, w_hh)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        max_err = err.max().item()
+        log(f"lstm_scan_fwd_unrolled K=2 T={T_FRAMES} rows={rows} vs plain, "
+            f"bf16 out: max|err| {max_err:.3e} mean {err.mean().item():.3e}")
+        # bf16 outputs: a difference that crosses a rounding boundary shows
+        # as one bf16 step of |h| < 1, 3.9e-3 at most (measured 3.9e-3 max,
+        # 2.1e-6 mean)
+        check(max_err < KERNEL_MAX_ABS and err.mean().item() < KERNEL_MEAN_ABS,
+              f"lstm_scan_fwd_unrolled vs plain within {KERNEL_MAX_ABS}/"
+              f"{KERNEL_MEAN_ABS}")
+        del got, want, err
+        # the script's A/B: best of 8 in 3 rounds of alternating order
+        times = PU.ab(gates, w_hh)
+        ms = {k: min(rounds) for k, rounds in times.items()}
+        plain = cuda_ms(lambda: PU.lstm_unrolled_reference(gates, w_hh), iters=2)
+        lib = library_lstm_ms(gates, w_hh)
+    b_ms, by = bound(T_FRAMES, rows, HIDDEN)
+    log(f"lstm_scan_fwd_unrolled at T={T_FRAMES} rows={rows} H={HIDDEN}: K=2 "
+        f"{ms[2]:.3f} ms, K=4 {ms[4]:.3f} ms; lstm_scan_fwd (K=1) {ms[1]:.3f} "
+        f"ms (rounds {'; '.join(f'K={k} ' + ' '.join(f'{t:.3f}' for t in r) for k, r in times.items())}); "
+        f"bound {b_ms:.3f} ms by {by}; plain {plain:.3f} ms; cuDNN LSTM "
+        f"{lib:.3f} ms on {card_line()}")
+    return dict(max_abs_err=max_err, ms=ms[2], plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib), launches
+
+
 @dataclasses.dataclass
 class ModelPath:
     """One model of the port driven end to end: how to build it, which
@@ -1202,11 +1529,25 @@ def main():
         "gru_scan_fwd_carry": (f"{csrc}/gru_scan.cu", f"{pallas}:1151"),
         "gru_scan_bwd": (f"{csrc}/gru_scan_bwd.cu", f"{pallas}:1019"),
         # the dW_hh line of the same TPU kernel's body
-        "gru_scan_bwd_dwhh": (f"{csrc}/gru_scan_bwd.cu", f"{pallas}:1011")}
+        "gru_scan_bwd_dwhh": (f"{csrc}/gru_scan_bwd.cu", f"{pallas}:1011"),
+        # each with an entry point of its own, on no model's path
+        "lstm_layer_fwd": (f"{csrc}/lstm_scan_staged.cu", f"{pallas}:542"),
+        "lstm_scan_bwd_chains": (f"{csrc}/lstm_scan_bwd.cu",
+                                 "scripts/perf_lstm_chains.py:105"),
+        "lstm_scan_fwd_unrolled": (f"{csrc}/lstm_scan_staged.cu",
+                                   "scripts/perf_lstm_unroll.py:59")}
     plus, v1_gru, v1_lstm = model_paths()
-    counts = drive(dev, plus, [k for k in table if k.startswith("lstm_")])
+    counts = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
+                               "lstm_scan_fwd_train", "lstm_scan_bwd"])
     counts.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")]))
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
+
+    kernels["lstm_scan_bwd_chains"], counts["lstm_scan_bwd_chains"] = \
+        phase_lstm_chains(dev, kernels["lstm_scan_bwd"]["library_ms"])
+    kernels["lstm_scan_fwd_unrolled"], counts["lstm_scan_fwd_unrolled"] = \
+        phase_lstm_unroll(dev)
+    kernels["lstm_layer_fwd"], counts["lstm_layer_fwd"] = phase_lstm_layer(
+        dev, plus, kernels["lstm_scan_fwd"]["ms"])
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -3,7 +3,10 @@
 // Kernel D (lstm_scan_bwd) replaces the Pallas TPU kernel
 // _lstm_pallas_call_bwd / _lstm_bwd_kernel of
 // generative_audio_tpu/ops/pallas_lstm.py. It is the backward of the scan in
-// lstm_scan.cu (kernel C wrote its residuals h_seq and c_seq).
+// lstm_scan.cu (kernel C wrote its residuals h_seq and c_seq). Kernel G
+// (lstm_scan_bwd_chains) replaces chains_bwd / _chains_bwd_kernel of
+// scripts/perf_lstm_chains.py: kernel D whose block holds CHAINS independent
+// 16-row chains and runs each phase for all of them before the next phase.
 //
 // What it computes. The forward processed positions p = 0..T-1 (array time
 // t = p, or T-1-p with reverse). This kernel walks p = T-1..0 per tile of
@@ -54,6 +57,15 @@
 //     barriers, not three.
 //   * Both weight copies (1.18 MB each) stay in L2 and are re-read every
 //     step, as W_hh is in the forward.
+//   * Kernel G (CHAINS = 2 or 4; kernel D is CHAINS = 1): a block holds
+//     CHAINS x 16 rows, each chain with kernel D's shared-memory layout, and
+//     every B fragment of W_hh a warp reads from L2 feeds CHAINS mma.sync
+//     tiles, so the L2 stream per row halves at CHAINS = 2 and each warp has
+//     CHAINS independent accumulator chains. The phases follow
+//     _chains_bwd_kernel: all gate-recompute products, then all gate
+//     derivatives, then all dh products. Each row sees kernel D's operations
+//     in kernel D's order, so dgates are bit-identical. One chain takes
+//     111 104 B at H = 384: two fit the 227 KB opt-in limit, four do not.
 //
 // Plain C interface for ctypes; the function returns the cudaError_t of its
 // launch (0 on success). The launch goes to the caller's stream and does
@@ -63,6 +75,7 @@
 
 namespace {
 
+template <int CHAINS>
 __global__ void __launch_bounds__(NWARPS * 32)
 lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
                      const __nv_bfloat16* __restrict__ h_seq,
@@ -76,13 +89,14 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
   const int G4 = 4 * H;
   const int hs = H + PAD;                                   // h_prev row stride
   const int gs = G4 + PAD;                                  // dgates row stride
-  __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(smem);   // [ROWS][hs]
-  __nv_bfloat16* dgbuf = hbuf + ROWS * hs;                         // [ROWS][gs]
-  float* dhbuf = reinterpret_cast<float*>(dgbuf + ROWS * gs);      // [ROWS][H]
-  float* dcbuf = dhbuf + ROWS * H;                                 // [ROWS][H]
+  // per chain: [ROWS][hs] h_prev, [ROWS][gs] dgates, [ROWS][H] dh and dc
+  __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(smem);   // [CHAINS][ROWS][hs]
+  __nv_bfloat16* dgbuf = hbuf + CHAINS * ROWS * hs;                // [CHAINS][ROWS][gs]
+  float* dhbuf = reinterpret_cast<float*>(dgbuf + CHAINS * ROWS * gs);  // [CHAINS][ROWS][H]
+  float* dcbuf = dhbuf + CHAINS * ROWS * H;                        // [CHAINS][ROWS][H]
 
-  const int row0 = blockIdx.x * ROWS;
-  for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) {
+  const int row0 = blockIdx.x * CHAINS * ROWS;              // chain ch: + ch * ROWS
+  for (int i = threadIdx.x; i < CHAINS * ROWS * H; i += blockDim.x) {
     dhbuf[i] = 0.0f;
     dcbuf[i] = 0.0f;
   }
@@ -91,7 +105,10 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
   const int step = reverse ? 1 : -1;            // t(p-1) = t(p) + step
   {
     const int t = reverse ? 0 : T - 1;
-    load_h_tile(hbuf, h_seq, t + step, row0, B, H, hs, T == 1);
+#pragma unroll
+    for (int ch = 0; ch < CHAINS; ++ch)
+      load_h_tile(hbuf + ch * ROWS * hs, h_seq, t + step, row0 + ch * ROWS, B,
+                  H, hs, T == 1);
   }
   __syncthreads();
 
@@ -106,15 +123,19 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
 
     // ---- gates recompute and the elementwise backward -> dgates ---------
     for (int u = warp; u < ngroups; u += NWARPS) {
-      float acc[4][4];
+      float acc[CHAINS][4][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+      for (int ch = 0; ch < CHAINS; ++ch)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[ch][q][e] = 0.0f;
 
       for (int k = 0; k < H / 16; ++k) {
-        uint32_t a[4];
-        load_a(a, hbuf + grp * hs + k * 16 + 2 * tq, hs);
+        uint32_t a[CHAINS][4];
+#pragma unroll
+        for (int ch = 0; ch < CHAINS; ++ch)
+          load_a(a[ch], hbuf + ch * ROWS * hs + grp * hs + k * 16 + 2 * tq, hs);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           // B fragment (16x8, col-major) = rows of wt [4H, H]
@@ -122,75 +143,91 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
               wt + (size_t)(q * H + 8 * u + grp) * H + k * 16 + 2 * tq;
           const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wp));
           const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wp + 8));
-          mma_bf16_16816(acc[q], a, b0, b1);
+#pragma unroll
+          for (int ch = 0; ch < CHAINS; ++ch)
+            mma_bf16_16816(acc[ch][q], a[ch], b0, b1);
         }
       }
 
       // accumulator (half, e): row grp + 8*half, unit 8u + 2*tq + e
       const int j = 8 * u + 2 * tq;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = grp + 8 * half, row = row0 + r;
-        const bool valid = row < B;
-        const size_t at = ((size_t)t * B + row) * H + j;
-        float z[4][2];
-        float2 ct = make_float2(0.0f, 0.0f), cp = ct, go = ct;
+      for (int ch = 0; ch < CHAINS; ++ch) {
+        __nv_bfloat16* dgc = dgbuf + ch * ROWS * gs;
+        float* dhc = dhbuf + ch * ROWS * H;
+        float* dcc = dcbuf + ch * ROWS * H;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float2 gx = make_float2(0.0f, 0.0f);
-          if (valid)
-            gx = load_pair(gates + ((size_t)t * B + row) * G4 + q * H + j);
-          z[q][0] = gx.x + acc[q][2 * half];
-          z[q][1] = gx.y + acc[q][2 * half + 1];
-        }
-        if (valid) {
-          ct = load_pair(c_seq + at);
-          go = load_pair(gout + at);
-          if (!first) cp = load_pair(c_seq + ((size_t)tprev * B + row) * H + j);
-        }
-        const float c_t[2] = {ct.x, ct.y}, c_prev[2] = {cp.x, cp.y},
-                    g_out[2] = {go.x, go.y};
-        float dg[4][2];
+        for (int half = 0; half < 2; ++half) {
+          const int r = grp + 8 * half, row = row0 + ch * ROWS + r;
+          const bool valid = row < B;
+          const size_t at = ((size_t)t * B + row) * H + j;
+          float z[4][2];
+          float2 ct = make_float2(0.0f, 0.0f), cp = ct, go = ct;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float gi = sigmoidf_(z[0][e]), gf = sigmoidf_(z[1][e]),
-                      gg = tanhf(z[2][e]), og = sigmoidf_(z[3][e]);
-          const float tc = tanhf(c_t[e]);
-          const float dh_tot = g_out[e] + dhbuf[r * H + j + e];
-          const float dc_tot =
-              dcbuf[r * H + j + e] + dh_tot * og * (1.0f - tc * tc);
-          dg[0][e] = dc_tot * gg * gi * (1.0f - gi);
-          dg[1][e] = dc_tot * c_prev[e] * gf * (1.0f - gf);
-          dg[2][e] = dc_tot * gi * (1.0f - gg * gg);
-          dg[3][e] = dh_tot * tc * og * (1.0f - og);
-          dcbuf[r * H + j + e] = dc_tot * gf;
-        }
+          for (int q = 0; q < 4; ++q) {
+            float2 gx = make_float2(0.0f, 0.0f);
+            if (valid)
+              gx = load_pair(gates + ((size_t)t * B + row) * G4 + q * H + j);
+            z[q][0] = gx.x + acc[ch][q][2 * half];
+            z[q][1] = gx.y + acc[ch][q][2 * half + 1];
+          }
+          if (valid) {
+            ct = load_pair(c_seq + at);
+            go = load_pair(gout + at);
+            if (!first) cp = load_pair(c_seq + ((size_t)tprev * B + row) * H + j);
+          }
+          const float c_t[2] = {ct.x, ct.y}, c_prev[2] = {cp.x, cp.y},
+                      g_out[2] = {go.x, go.y};
+          float dg[4][2];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const __nv_bfloat162 v = __floats2bfloat162_rn(dg[q][0], dg[q][1]);
-          *reinterpret_cast<__nv_bfloat162*>(dgbuf + r * gs + q * H + j) = v;
-          if (valid)
-            *reinterpret_cast<__nv_bfloat162*>(
-                dgates + ((size_t)t * B + row) * G4 + q * H + j) = v;
+          for (int e = 0; e < 2; ++e) {
+            const float gi = sigmoidf_(z[0][e]), gf = sigmoidf_(z[1][e]),
+                        gg = tanhf(z[2][e]), og = sigmoidf_(z[3][e]);
+            const float tc = tanhf(c_t[e]);
+            const float dh_tot = g_out[e] + dhc[r * H + j + e];
+            const float dc_tot =
+                dcc[r * H + j + e] + dh_tot * og * (1.0f - tc * tc);
+            dg[0][e] = dc_tot * gg * gi * (1.0f - gi);
+            dg[1][e] = dc_tot * c_prev[e] * gf * (1.0f - gf);
+            dg[2][e] = dc_tot * gi * (1.0f - gg * gg);
+            dg[3][e] = dh_tot * tc * og * (1.0f - og);
+            dcc[r * H + j + e] = dc_tot * gf;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(dg[q][0], dg[q][1]);
+            *reinterpret_cast<__nv_bfloat162*>(dgc + r * gs + q * H + j) = v;
+            if (valid)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  dgates + ((size_t)t * B + row) * G4 + q * H + j) = v;
+          }
         }
       }
     }
     __syncthreads();
 
     // ---- dh = bf16(dgates) @ W_hh^T, and the next step's h_prev ---------
-    if (s + 1 < T)
-      load_h_tile(hbuf, h_seq, tprev + step, row0, B, H, hs, s + 2 == T);
+    if (s + 1 < T) {
+#pragma unroll
+      for (int ch = 0; ch < CHAINS; ++ch)
+        load_h_tile(hbuf + ch * ROWS * hs, h_seq, tprev + step,
+                    row0 + ch * ROWS, B, H, hs, s + 2 == T);
+    }
 
     for (int pair = warp; pair < npairs; pair += NWARPS) {
-      float acc[2][4];
+      float acc[CHAINS][2][4];
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int ch = 0; ch < CHAINS; ++ch)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[ch][n][e] = 0.0f;
 
       for (int k = 0; k < G4 / 16; ++k) {
-        uint32_t a[4];
-        load_a(a, dgbuf + grp * gs + k * 16 + 2 * tq, gs);
+        uint32_t a[CHAINS][4];
+#pragma unroll
+        for (int ch = 0; ch < CHAINS; ++ch)
+          load_a(a[ch], dgbuf + ch * ROWS * gs + grp * gs + k * 16 + 2 * tq, gs);
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
           // B fragment (16x8, col-major) = rows of w [H, 4H]
@@ -198,21 +235,48 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
               w + (size_t)(16 * pair + 8 * n + grp) * G4 + k * 16 + 2 * tq;
           const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wp));
           const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wp + 8));
-          mma_bf16_16816(acc[n], a, b0, b1);
+#pragma unroll
+          for (int ch = 0; ch < CHAINS; ++ch)
+            mma_bf16_16816(acc[ch][n], a[ch], b0, b1);
         }
       }
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int j = 16 * pair + 8 * n + 2 * tq;
+      for (int ch = 0; ch < CHAINS; ++ch)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          *reinterpret_cast<float2*>(dhbuf + (grp + 8 * half) * H + j) =
-              make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+        for (int n = 0; n < 2; ++n) {
+          const int j = 16 * pair + 8 * n + 2 * tq;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            *reinterpret_cast<float2*>(dhbuf + ch * ROWS * H +
+                                       (grp + 8 * half) * H + j) =
+                make_float2(acc[ch][n][2 * half], acc[ch][n][2 * half + 1]);
+          }
         }
-      }
     }
     __syncthreads();
   }
+}
+
+template <int CHAINS>
+int launch(const void* gates, const void* h_seq, const void* c_seq,
+           const void* gout, const void* wt, const void* w, void* dgates,
+           int T, int B, int H, int reverse, void* stream) {
+  // ops/lstm.py repeats this sum to refuse a launch above the opt-in limit
+  const size_t smem =
+      CHAINS * (((size_t)ROWS * (H + PAD) + (size_t)ROWS * (4 * H + PAD)) *
+                    sizeof(__nv_bfloat16) +
+                2 * (size_t)ROWS * H * sizeof(float));
+  auto kernel = lstm_scan_bwd_kernel<CHAINS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + CHAINS * ROWS - 1) / (CHAINS * ROWS));
+  kernel<<<grid, NWARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)gates, (const __nv_bfloat16*)h_seq,
+      (const __nv_bfloat16*)c_seq, (const __nv_bfloat16*)gout,
+      (const __nv_bfloat16*)wt, (const __nv_bfloat16*)w,
+      (__nv_bfloat16*)dgates, T, B, H, reverse);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -225,21 +289,23 @@ int lstm_scan_bwd(const void* gates, const void* h_seq, const void* c_seq,
                   const void* gout, const void* wt, const void* w,
                   void* dgates, int T, int B, int H, int reverse,
                   void* stream) {
-  const size_t smem =
-      ((size_t)ROWS * (H + PAD) + (size_t)ROWS * (4 * H + PAD)) *
-          sizeof(__nv_bfloat16) +
-      2 * (size_t)ROWS * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(row_blocks(B));
-  lstm_scan_bwd_kernel<<<grid, NWARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)gates, (const __nv_bfloat16*)h_seq,
-      (const __nv_bfloat16*)c_seq, (const __nv_bfloat16*)gout,
-      (const __nv_bfloat16*)wt, (const __nv_bfloat16*)w,
-      (__nv_bfloat16*)dgates, T, B, H, reverse);
-  return (int)cudaGetLastError();
+  return launch<1>(gates, h_seq, c_seq, gout, wt, w, dgates, T, B, H, reverse,
+                   stream);
+}
+
+// Kernel G. Kernel D with n_chains = 2 or 4 chains of 16 rows per block,
+// forward not reversed (as the script). Bit-identical to kernel D.
+int lstm_scan_bwd_chains(const void* gates, const void* h_seq,
+                         const void* c_seq, const void* gout, const void* wt,
+                         const void* w, void* dgates, int T, int B, int H,
+                         int n_chains, void* stream) {
+  if (n_chains == 2)
+    return launch<2>(gates, h_seq, c_seq, gout, wt, w, dgates, T, B, H, 0,
+                     stream);
+  if (n_chains == 4)
+    return launch<4>(gates, h_seq, c_seq, gout, wt, w, dgates, T, B, H, 0,
+                     stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* lstm_scan_bwd_error_string(int err) {

@@ -5,7 +5,8 @@ from generative_audio_torch.ops.gru import (  # noqa: F401
     gru_scan_bwd_streams_tm, gru_scan_bwd_tm, gru_scan_carry_reference_tm,
     gru_scan_carry_tm, gru_scan_reference_tm, gru_scan_tm)
 from generative_audio_torch.ops.lstm import (  # noqa: F401
-    LSTMScan, launch_counts, lstm_layer_tm_chunked, lstm_scan_bwd_reference_tm,
+    LSTMLayerScan, LSTMScan, launch_counts, lstm_layer_reference_tm,
+    lstm_layer_tm, lstm_layer_tm_chunked, lstm_scan_bwd_reference_tm,
     lstm_scan_bwd_tm, lstm_scan_carry_reference_tm, lstm_scan_carry_tm,
     lstm_scan_reference_tm, lstm_scan_tm, lstm_scan_train_reference_tm,
     lstm_scan_train_tm, reset_launch_counts)

@@ -103,8 +103,14 @@ _SIGNATURES = {
                                 _I, _P],
         "lstm_scan_fwd_train": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "lstm_scan_staged": {
+        "lstm_scan_fwd_unrolled": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "lstm_layer_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
     "lstm_scan_bwd": {
         "lstm_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "lstm_scan_bwd_chains": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P],
     },
     "gru_scan": {
         "gru_scan_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

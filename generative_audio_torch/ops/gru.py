@@ -47,8 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from generative_audio_torch.ops.lstm import (
-    _check_kernel_operand, _check_kernel_sizes, _is_cuda, _launch,
-    _wants_grad)
+    _check_kernel_operand, _check_kernel_sizes, _is_cuda, _kernel_operand,
+    _launch, _wants_grad)
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "gru_scan_carry_reference_tm", "gru_scan_bwd_streams_tm",
@@ -215,11 +215,11 @@ def _check_shapes(gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 def _kernel_weight(w_hh: torch.Tensor) -> torch.Tensor:
     """W_hh [H, 3H] -> the kernels' operand: [3H, H] bf16, contiguous (torch's
     weight_hh layout, so each MMA B fragment is one 32-bit load)."""
-    return w_hh.t().to(torch.bfloat16).contiguous()
+    return _kernel_operand(w_hh.t(), torch.bfloat16)
 
 
 def _kernel_bias(b_hh: torch.Tensor) -> torch.Tensor:
-    return b_hh.reshape(-1).to(torch.float32).contiguous()
+    return _kernel_operand(b_hh.reshape(-1), torch.float32)
 
 
 def gru_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -306,7 +306,7 @@ def gru_scan_bwd_streams_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     # W_hh in both layouts: [3H, H] for the gates recompute, [H, 3H] (the 3H
     # axis contiguous) for dgates_h @ W_hh^T
     _launch("gru_scan_bwd", gates, h_seq, gout, _kernel_weight(w_hh),
-            w_hh.to(torch.bfloat16).contiguous(), _kernel_bias(b_hh), dgx,
+            _kernel_operand(w_hh, torch.bfloat16), _kernel_bias(b_hh), dgx,
             dhn, db_blocks, db_blocks.shape[0], t_len, b, hsz, reverse)
     return dgx, dhn, db_blocks.sum(dim=0)
 

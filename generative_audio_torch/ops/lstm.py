@@ -1,7 +1,8 @@
-"""LSTM recurrence over precomputed time-major gates: CUDA kernels, their
-plain PyTorch versions, and the autograd Function that trains through them.
+"""LSTM recurrence over precomputed time-major gates, and the LSTM layer
+with the input projection inside the scan: CUDA kernels, their plain
+PyTorch versions, and the autograd Functions that train through them.
 
-Port of four kernels of generative_audio_tpu/ops/pallas_lstm.py:
+Port of five kernels of generative_audio_tpu/ops/pallas_lstm.py:
   * `lstm_scan_tm` without grad (kernel A, csrc/lstm_scan.cu `lstm_scan_fwd`)
     replaces `_lstm_pallas_call` / `_lstm_kernel`;
   * `lstm_scan_carry_tm` (kernel B, `lstm_scan_fwd_carry`) replaces
@@ -13,11 +14,24 @@ Port of four kernels of generative_audio_tpu/ops/pallas_lstm.py:
     writes the bf16 c sequence;
   * `lstm_scan_bwd_tm` (kernel D, csrc/lstm_scan_bwd.cu `lstm_scan_bwd`)
     replaces `_lstm_pallas_call_bwd` / `_lstm_bwd_kernel`: the reverse-time
-    backward that recomputes the gates and emits bf16 dgates.
+    backward that recomputes the gates and emits bf16 dgates;
+  * `lstm_layer_tm` without grad (kernel F, csrc/lstm_scan_staged.cu
+    `lstm_layer_fwd`) replaces `_lstm_layer_pallas_call` /
+    `_lstm_layer_kernel`: x_t @ W_ih inside each step, no gates buffer.
+Two more kernels reorganise kernels A and D, bit for bit, and replace the
+kernels that the JAX package keeps in scripts/: `lstm_scan_tm(...,
+block_t=K)` (kernel E, csrc/lstm_scan_staged.cu `lstm_scan_fwd_unrolled`:
+K steps' gate tiles staged at once) and `lstm_scan_bwd_tm(...,
+n_chains=N)` (kernel G, csrc/lstm_scan_bwd.cu `lstm_scan_bwd_chains`: N
+16-row chains per block). generative_audio_torch/scripts/ holds their entry
+points, named after the JAX scripts.
 `LSTMScan` is the counterpart of the JAX custom VJP (`_lstm_fwd` /
 `_lstm_bwd`): forward = kernel C, backward = kernel D plus dW_hh as one
 contraction outside the kernel. `lstm_scan_tm` goes through it whenever
-autograd is recording and an input requires grad.
+autograd is recording and an input requires grad. `LSTMLayerScan` is the
+counterpart of `_layer_fwd` / `_layer_bwd`: the hoisted projection, kernel
+C, and in backward kernel D plus dx, dW_ih, db and dW_hh as contractions
+with fp32 output.
 
 Layouts follow the JAX package: gates [T, B, 4H] in torch gate order
 (i, f, g, o) with the biases already added, W_hh [H, 4H], h [T, B, H].
@@ -44,21 +58,43 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "lstm_scan_carry_reference_tm", "lstm_scan_train_tm",
            "lstm_scan_train_reference_tm", "lstm_scan_bwd_tm",
            "lstm_scan_bwd_reference_tm", "LSTMScan", "lstm_layer_tm_chunked",
+           "lstm_layer_tm", "lstm_layer_reference_tm", "LSTMLayerScan",
            "launch_counts", "reset_launch_counts"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "lstm_scan_fwd_train": "lstm_scan",
+              "lstm_scan_fwd_unrolled": "lstm_scan_staged",
+              "lstm_layer_fwd": "lstm_scan_staged",
               "lstm_scan_bwd": "lstm_scan_bwd",
+              "lstm_scan_bwd_chains": "lstm_scan_bwd",
               "gru_scan_fwd": "gru_scan", "gru_scan_fwd_carry": "gru_scan",
               "gru_scan_bwd": "gru_scan_bwd",
               "gru_scan_bwd_dwhh": "gru_scan_bwd"}
 launch_counts = dict.fromkeys(_SOURCE_OF, 0)
 
+# Dynamic shared memory a block may opt in to on sm_90 (H100): 227 KB.
+SMEM_LIMIT = 232448
+_PAD = 8                   # bf16 pad per shared row, as csrc/scan_common.cuh
+_ROWS = 16                 # batch rows per block (per chain)
+UNROLL_STEPS = (2, 4)      # kernel E's steps per staged gate tile
+CHAIN_COUNTS = (2, 4)      # kernel G's 16-row chains per block
+# kernel E keeps c in registers, at most 8 unit groups of 8 per warp of 8
+UNROLL_MAX_HIDDEN = 512
+
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _cell(z: torch.Tensor, c: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LSTM cell on fp32 pre-activations z [B, 4H] (gate order i, f, g,
+    o) and the state c [B, H] -> (h, c)."""
+    i, f, g, o = z.split(c.shape[-1], dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
 
 
 def _scan_plain(gates: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor,
@@ -73,9 +109,7 @@ def _scan_plain(gates: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor,
     out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=gates.device)
     for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
         z = gates[t].float() + h.to(compute_dtype).float() @ w
-        i, f, g, o = z.split(hsz, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        h, c = _cell(z, c)
         out[t] = h.to(out_dtype)
         if c_seq is not None:
             c_seq[t] = c.to(c_seq.dtype)
@@ -93,6 +127,32 @@ def lstm_scan_reference_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     zeros = torch.zeros(b, hsz, dtype=torch.float32, device=gates_x.device)
     return _scan_plain(gates_x, w_hh, zeros, zeros, reverse, compute_dtype,
                        torch.float32)[0]
+
+
+def lstm_layer_reference_tm(x_tm: torch.Tensor, w_ih: torch.Tensor,
+                            w_hh: torch.Tensor, bias: torch.Tensor,
+                            reverse: bool = False,
+                            compute_dtype: torch.dtype = torch.bfloat16
+                            ) -> torch.Tensor:
+    """Plain version of kernel F: x_tm [T, B, F], w_ih [F, 4H], w_hh [H, 4H],
+    bias [4H] -> h sequence [T, B, H] fp32. Each step computes z = x_t @ W_ih
+    + bf16(h) @ W_hh + bias with x and both weights rounded to
+    compute_dtype, fp32 products and sums, fp32 bias and c. With
+    compute_dtype=torch.float32 it is the float32 layer: the projection of
+    the JAX `_layer_reference` and a float32 recurrence (`_layer_reference`
+    itself runs the recurrence at lstm_scan_reference_tm's default bf16)."""
+    t_len, b, _ = x_tm.shape
+    hsz = w_hh.shape[0]
+    x = x_tm.to(compute_dtype).float()
+    w_i, w = w_ih.to(compute_dtype).float(), w_hh.to(compute_dtype).float()
+    bias = bias.float()
+    h = torch.zeros(b, hsz, dtype=torch.float32, device=x_tm.device)
+    c = torch.zeros_like(h)
+    out = torch.empty(t_len, b, hsz, dtype=torch.float32, device=x_tm.device)
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        h, c = _cell(x[t] @ w_i + h.to(compute_dtype).float() @ w + bias, c)
+        out[t] = h
+    return out
 
 
 def lstm_scan_carry_reference_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
@@ -195,16 +255,31 @@ def _check_kernel_operand(name: str, t: torch.Tensor, dtype: torch.dtype):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _kernel_operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in dtype, contiguous and on a 16-byte boundary: a view that lies off
+    one (a slice of a packed buffer) is copied, since the kernels read
+    operands in pieces of up to 16 bytes."""
+    t = t.to(dtype).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _kernel_weight(w_hh: torch.Tensor) -> torch.Tensor:
     """W_hh [H, 4H] -> the kernel's operand: [4H, H] bf16, contiguous (torch's
     weight_hh layout, so each MMA B fragment is one 32-bit load)."""
-    return w_hh.t().to(torch.bfloat16).contiguous()
+    return _kernel_operand(w_hh.t(), torch.bfloat16)
 
 
 def _launch(fn_name: str, *args) -> None:
     """Launch csrc entry `fn_name` on the tensors' device and current stream.
     `args` are the C function's arguments in order, without the stream:
-    tensors (passed as their data pointers) and ints."""
+    tensors (passed as their data pointers) and ints. Raises, before
+    anything is built, for a tensor off a 16-byte boundary: the wrappers
+    hand every kernel aligned operands, and a misaligned read would end the
+    CUDA context."""
+    for i, a in enumerate(args):
+        if isinstance(a, torch.Tensor) and a.data_ptr() % 16:
+            raise ValueError(f"argument {i} of {fn_name} lies off a 16-byte "
+                             f"boundary")
     from generative_audio_torch.ops import _cuda
 
     source = _SOURCE_OF[fn_name]
@@ -223,20 +298,70 @@ def _check_kernel_sizes(hsz: int) -> None:
         raise ValueError(f"the CUDA scan kernels need H % 16 == 0, got H={hsz}")
 
 
+def staged_smem_bytes(hsz: int, k: int = 1, f: int = 0) -> int:
+    """Shared memory of one block of csrc/lstm_scan_staged.cu
+    (`staged_smem`): kernel E (k > 1 steps' gate tiles beside h; c lives in
+    registers) or kernel F (h, c and two tiles of f input features padded
+    to a multiple of 16)."""
+    h_tiles = 2 * _ROWS * (hsz + _PAD) * 2
+    if k > 1:
+        return h_tiles + k * _ROWS * (4 * hsz + _PAD) * 2
+    f_pad = -(-f // 16) * 16
+    return h_tiles + _ROWS * hsz * 4 + 2 * _ROWS * (f_pad + _PAD) * 2
+
+
+def bwd_smem_bytes(hsz: int, n_chains: int = 1) -> int:
+    """Shared memory of one block of the backward (csrc/lstm_scan_bwd.cu):
+    per 16-row chain the bf16 h_prev and dgates tiles and fp32 dh and dc."""
+    return n_chains * ((_ROWS * (hsz + _PAD) + _ROWS * (4 * hsz + _PAD)) * 2
+                       + 2 * _ROWS * hsz * 4)
+
+
+def check_smem(what: str, nbytes: int) -> None:
+    """Raise when a launch would ask for more shared memory than a block may
+    opt in to."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {nbytes} B of shared memory per block, "
+                         f"more than the {SMEM_LIMIT} B a block may use")
+
+
 def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _check_unrolled(t_len: int, hsz: int, block_t: int, reverse: bool,
+                    out_dtype: torch.dtype, grad: bool) -> None:
+    """Kernel E runs the forward inference scan with bf16 output only, over
+    whole groups of block_t steps."""
+    if block_t not in UNROLL_STEPS:
+        raise ValueError(f"block_t must be 1 or one of {UNROLL_STEPS}, got "
+                         f"{block_t}")
+    if reverse or out_dtype != torch.bfloat16 or grad:
+        raise ValueError("block_t > 1 runs the forward scan with bf16 output "
+                         "and no gradient")
+    if t_len % block_t:
+        raise ValueError(f"T={t_len} is no multiple of block_t={block_t}")
+    if hsz > UNROLL_MAX_HIDDEN:
+        raise ValueError(f"lstm_scan_fwd_unrolled keeps c in registers: "
+                         f"H <= {UNROLL_MAX_HIDDEN}, got H={hsz}")
+
+
 def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
                  reverse: bool = False,
-                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 out_dtype: torch.dtype = torch.bfloat16,
+                 block_t: int = 1) -> torch.Tensor:
     """LSTM recurrence, time-major: gates_x [T, B, 4H] (cast to bf16 as the
     kernel's input), w_hh [H, 4H] -> h sequence [T, B, H] in out_dtype.
-    h and c start at zero. CUDA tensors run kernel A; when autograd records
-    and an input requires grad, the call goes through LSTMScan (kernels C
-    and D) instead, on either device."""
+    h and c start at zero. CUDA tensors run kernel A, or with block_t = 2
+    or 4 kernel E (forward, bf16 output, T a multiple of block_t; the same
+    h bit for bit); when autograd records and an input requires grad, the
+    call goes through LSTMScan (kernels C and D) instead, on either
+    device."""
     t_len, b, hsz = _check_shapes(gates_x, w_hh, out_dtype)
-    if _wants_grad(gates_x, w_hh):
+    grad = _wants_grad(gates_x, w_hh)
+    if block_t != 1:
+        _check_unrolled(t_len, hsz, block_t, reverse, out_dtype, grad)
+    if grad:
         return LSTMScan.apply(gates_x, w_hh, reverse, out_dtype)
     gates = gates_x.to(torch.bfloat16)
     if not _is_cuda(gates, w_hh):
@@ -244,7 +369,13 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     _check_kernel_sizes(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=gates.device)
-    if t_len and b:
+    if block_t != 1:
+        check_smem(f"lstm_scan_fwd_unrolled with K={block_t} at H={hsz}",
+                   staged_smem_bytes(hsz, k=block_t))
+        if t_len and b:
+            _launch("lstm_scan_fwd_unrolled", gates, _kernel_weight(w_hh),
+                    out, t_len, b, hsz, block_t)
+    elif t_len and b:
         _launch("lstm_scan_fwd", gates, _kernel_weight(w_hh), out,
                 out_dtype == torch.float32, t_len, b, hsz, reverse)
     return out
@@ -305,22 +436,30 @@ def lstm_scan_train_tm(gates: torch.Tensor, w_hh: torch.Tensor,
 
 def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
                      c_seq: torch.Tensor, gout: torch.Tensor,
-                     w_hh: torch.Tensor, reverse: bool = False
-                     ) -> torch.Tensor:
+                     w_hh: torch.Tensor, reverse: bool = False,
+                     n_chains: int = 1) -> torch.Tensor:
     """The backward scan: bf16 gates [T, B, 4H], the residuals h_seq and
     c_seq of lstm_scan_train_tm and the cotangent gout of h_seq, all
     [T, B, H] bf16, w_hh [H, 4H] -> dgates [T, B, 4H] bf16. CUDA tensors run
-    kernel D."""
+    kernel D, or with n_chains = 2 or 4 kernel G (a forward that was not
+    reversed; the same dgates bit for bit). Raises when a block's shared
+    memory (n_chains x 111 104 B at H=384) exceeds the opt-in limit."""
     t_len, b, hsz = _check_shapes(gates, w_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("c_seq", c_seq), ("gout", gout)):
         if tuple(x.shape) != (t_len, b, hsz):
             raise ValueError(f"{name} must be [{t_len}, {b}, {hsz}], got "
                              f"{tuple(x.shape)}")
+    if n_chains != 1 and (n_chains not in CHAIN_COUNTS or reverse):
+        raise ValueError(f"n_chains must be 1 or, for a forward that was not "
+                         f"reversed, one of {CHAIN_COUNTS}; got {n_chains} "
+                         f"with reverse={reverse}")
     if not _is_cuda(gates, h_seq, c_seq, gout, w_hh):
         return lstm_scan_bwd_reference_tm(
             gates.to(torch.bfloat16), h_seq.to(torch.bfloat16),
             c_seq.to(torch.bfloat16), gout.to(torch.bfloat16), w_hh, reverse)
     _check_kernel_sizes(hsz)
+    check_smem(f"lstm_scan_bwd with {n_chains} chain(s) at H={hsz}",
+               bwd_smem_bytes(hsz, n_chains))
     for name, x in (("gates", gates), ("h_seq", h_seq), ("c_seq", c_seq),
                     ("gout", gout)):
         _check_kernel_operand(name, x, torch.bfloat16)
@@ -328,18 +467,35 @@ def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     if t_len and b:
         # W_hh in both layouts: [4H, H] for the gates recompute, [H, 4H]
         # (the 4H axis contiguous) for dgates @ W_hh^T
-        _launch("lstm_scan_bwd", gates, h_seq, c_seq, gout,
-                _kernel_weight(w_hh), w_hh.to(torch.bfloat16).contiguous(),
-                dgates, t_len, b, hsz, reverse)
+        operands = (gates, h_seq, c_seq, gout, _kernel_weight(w_hh),
+                    _kernel_operand(w_hh, torch.bfloat16), dgates, t_len, b,
+                    hsz)
+        if n_chains == 1:
+            _launch("lstm_scan_bwd", *operands, reverse)
+        else:
+            _launch("lstm_scan_bwd_chains", *operands, n_chains)
     return dgates
 
 
-def _contract_rows_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [N, P], b [N, Q], both bf16 -> a^T @ b [P, Q] in fp32: bf16 operands,
-    fp32 accumulation and fp32 output (a plain matmul outside the kernels)."""
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [N, P] @ b [P, Q], both bf16 -> [N, Q] in fp32: bf16 operands, fp32
+    accumulation and fp32 output (a plain matmul outside the kernels)."""
     if a.is_cuda:
-        return torch.mm(a.t(), b, out_dtype=torch.float32)
-    return a.float().t() @ b.float()
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _dw_hh(h_seq: torch.Tensor, dgates: torch.Tensor, reverse: bool
+           ) -> torch.Tensor:
+    """dW_hh = sum_t h_prev[t]^T @ dgates[t] [H, 4H] fp32, with h_prev one
+    processing step earlier (the first processed step saw h = 0 and adds
+    nothing), as one contraction with fp32 output."""
+    if reverse:                     # processed t = T-1 .. 0
+        h_prev, dg = h_seq[1:], dgates[:-1]
+    else:                           # processed t = 0 .. T-1
+        h_prev, dg = h_seq[:-1], dgates[1:]
+    return _mm_f32(h_prev.reshape(-1, h_seq.shape[-1]).t(),
+                   dg.reshape(-1, dgates.shape[-1]))
 
 
 class LSTMScan(torch.autograd.Function):
@@ -373,14 +529,112 @@ class LSTMScan(torch.autograd.Function):
                                   ctx.reverse)
         dw_hh = None
         if ctx.needs_input_grad[1]:
-            if ctx.reverse:                 # processed t = T-1 .. 0
-                h_prev, dg = h_seq[1:], dgates[:-1]
-            else:                           # processed t = 0 .. T-1
-                h_prev, dg = h_seq[:-1], dgates[1:]
-            hsz = w_hh.shape[0]
-            dw_hh = _contract_rows_f32(h_prev.reshape(-1, hsz),
-                                       dg.reshape(-1, 4 * hsz)).to(w_hh.dtype)
+            dw_hh = _dw_hh(h_seq, dgates, ctx.reverse).to(w_hh.dtype)
         return dgates.to(ctx.gates_dtype), dw_hh, None, None
+
+
+def _check_layer_shapes(x_tm: torch.Tensor, w_ih: torch.Tensor,
+                        w_hh: torch.Tensor, bias: torch.Tensor,
+                        out_dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    if x_tm.ndim != 3:
+        raise ValueError(f"x_tm must be [T, B, F], got {tuple(x_tm.shape)}")
+    t_len, b, f = x_tm.shape
+    hsz = w_hh.shape[0]
+    shapes = {"w_ih": (w_ih, (f, 4 * hsz)), "w_hh": (w_hh, (hsz, 4 * hsz)),
+              "bias": (bias, (4 * hsz,))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got {tuple(t.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    return t_len, b, f, hsz
+
+
+def _kernel_input_weight(w_ih: torch.Tensor, f_pad: int) -> torch.Tensor:
+    """W_ih [F, 4H] -> kernel F's operand: [4H, F_pad] bf16, contiguous, with
+    zero columns from F to F_pad (a multiple of 16: whole MMA k-steps)."""
+    w = w_ih.t().to(torch.bfloat16)
+    return _kernel_operand(F.pad(w, (0, f_pad - w.shape[1])), torch.bfloat16)
+
+
+def lstm_layer_tm(x_tm: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                  bias: torch.Tensor, reverse: bool = False,
+                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Whole LSTM layer, time-major, projection inside the scan: x_tm
+    [T, B, F], w_ih [F, 4H], w_hh [H, 4H], bias [4H] -> [T, B, H] in
+    out_dtype. CUDA tensors run kernel F, which computes x_t @ W_ih in every
+    step, so the [T, B, 4H] gates never exist; CPU tensors run the plain
+    version. When autograd records and an input requires grad, the call
+    goes through LSTMLayerScan (hoisted projection, kernels C and D), as the
+    JAX function's VJP does. The JAX function's `block_b` and `interpret`
+    are TPU knobs and are not carried over."""
+    t_len, b, f, hsz = _check_layer_shapes(x_tm, w_ih, w_hh, bias, out_dtype)
+    if _wants_grad(x_tm, w_ih, w_hh, bias):
+        return LSTMLayerScan.apply(x_tm, w_ih, w_hh, bias, reverse, out_dtype)
+    if not _is_cuda(x_tm, w_ih, w_hh, bias):
+        return lstm_layer_reference_tm(x_tm, w_ih, w_hh, bias,
+                                       reverse).to(out_dtype)
+    _check_kernel_sizes(hsz)
+    x = x_tm.to(torch.bfloat16)
+    if f % 2:                   # the kernel copies x rows in 4-byte pieces
+        x = F.pad(x, (0, 1))
+    x = x.contiguous()
+    f_even = x.shape[-1]
+    check_smem("lstm_layer_fwd", staged_smem_bytes(hsz, f=f_even))
+    _check_kernel_operand("x_tm", x, torch.bfloat16)
+    out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=x.device)
+    if t_len and b:
+        _launch("lstm_layer_fwd", x,
+                _kernel_input_weight(w_ih, -(-f_even // 16) * 16),
+                _kernel_weight(w_hh), _kernel_operand(bias, torch.float32), out,
+                out_dtype == torch.float32, t_len, b, f_even, hsz, reverse)
+    return out
+
+
+class LSTMLayerScan(torch.autograd.Function):
+    """lstm_layer_tm with a gradient: (x_tm [T, B, F], w_ih [F, 4H], w_hh
+    [H, 4H], bias [4H], reverse, out_dtype) -> h sequence [T, B, H].
+
+    Forward, as the JAX `_layer_fwd`: the hoisted projection x @ W_ih in
+    bf16 with fp32 output, plus the fp32 bias, rounded once to bf16 gates;
+    then lstm_scan_train_tm (kernel C). Backward, as `_layer_bwd`:
+    lstm_scan_bwd_tm (kernel D) on the cotangent rounded to bf16, then dx =
+    dgates @ W_ih^T, dW_ih = x^T @ dgates, db = sum of dgates and dW_hh, each
+    with fp32 output and cast to its input's dtype. On CPU tensors both
+    kernels are their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x_tm, w_ih, w_hh, bias, reverse, out_dtype):
+        t_len, b, f = x_tm.shape
+        x = x_tm.to(torch.bfloat16).contiguous()
+        gates = (_mm_f32(x.reshape(-1, f), w_ih.to(torch.bfloat16))
+                 + bias.float()).to(torch.bfloat16).reshape(t_len, b, -1)
+        h_seq, c_seq = lstm_scan_train_tm(gates, w_hh, reverse)
+        ctx.save_for_backward(x, w_ih, w_hh, bias, gates, h_seq, c_seq)
+        ctx.reverse = reverse
+        ctx.x_dtype = x_tm.dtype
+        return h_seq.to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, w_ih, w_hh, bias, gates, h_seq, c_seq = ctx.saved_tensors
+        dgates = lstm_scan_bwd_tm(gates, h_seq, c_seq,
+                                  gout.to(torch.bfloat16).contiguous(), w_hh,
+                                  ctx.reverse)
+        dg = dgates.reshape(-1, dgates.shape[-1])
+        need = ctx.needs_input_grad
+        dx = dw_ih = dw_hh = db = None
+        if need[0]:
+            dx = _mm_f32(dg, w_ih.to(torch.bfloat16).t()).reshape(
+                x.shape).to(ctx.x_dtype)
+        if need[1]:
+            dw_ih = _mm_f32(x.reshape(-1, x.shape[-1]).t(),
+                            dg).to(w_ih.dtype)
+        if need[2]:
+            dw_hh = _dw_hh(h_seq, dgates, ctx.reverse).to(w_hh.dtype)
+        if need[3]:
+            db = dg.float().sum(0).to(bias.dtype)
+        return dx, dw_ih, dw_hh, db, None, None
 
 
 def lstm_layer_tm_chunked(x_tm: torch.Tensor, w_ih: torch.Tensor,

@@ -1,11 +1,12 @@
-"""Device choice and float32 precision flags for the port's entry points."""
+"""Device choice and float32 precision flags for the port's entry points,
+and the timer on the card that chip_smoke.py and the port's scripts use."""
 from __future__ import annotations
 
 from typing import Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "cuda_ms"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -35,3 +36,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of fn on the card over `iters` calls
+    after `warmup` calls, by CUDA events around the whole run."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
