@@ -579,23 +579,34 @@ def _gru_chunked(G, gates, w_hh, b_hh, reverse, out_dtype):
     return out
 
 
+def _plan_line(G, dev, h, rows, out_dtype=torch.bfloat16, carry=False):
+    """The forward scan's launch plan at (H, rows) on the card."""
+    plan = G.card_scan_plan(dev, h, rows, out_dtype, carry)
+    return (f"cluster C={plan.cluster} x R={plan.rows} rows, {plan.clusters} "
+            f"clusters, route DSMEM, cudaOccupancyMaxActiveClusters "
+            f"{plan.active}, {plan.waves} wave(s), {plan.smem_bytes} B of "
+            f"shared memory a CTA")
+
+
 def phase_gru_kernels(dev):
     """The GRU forward and carry kernels at the sub-band serving shape and
-    at the full-band shape."""
+    at the full-band serving and training shapes."""
     from generative_audio_torch.ops import gru as G
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     max_f = max_c = 0.0
     weights = {}
-    for h, row_counts in ((HIDDEN, (ROWS, RAGGED_ROWS)),
-                          (FB_HIDDEN, (FB_SERVE_ROWS, 1))):
-        w_hh = _uniform(gen, dev, (h, 3 * h), h ** -0.5)
-        b_hh = _uniform(gen, dev, (3 * h,), h ** -0.5)
-        weights[h] = (w_hh, b_hh)
+    for h, row_counts, t_len in ((HIDDEN, (ROWS, RAGGED_ROWS), T_FRAMES),
+                                 (FB_HIDDEN, (FB_SERVE_ROWS, 1), T_FRAMES),
+                                 (FB_HIDDEN, (TRAIN_BATCH,), TRAIN_T)):
+        if h not in weights:
+            weights[h] = (_uniform(gen, dev, (h, 3 * h), h ** -0.5),
+                          _uniform(gen, dev, (3 * h,), h ** -0.5))
+        w_hh, b_hh = weights[h]
         for rows in row_counts:
-            gates = torch.randn(T_FRAMES, rows, 3 * h, generator=gen,
+            gates = torch.randn(t_len, rows, 3 * h, generator=gen,
                                 device=dev).to(torch.bfloat16)
             for reverse in (False, True):
-                tag = f"H={h} rows={rows} reverse={reverse}"
+                tag = f"H={h} T={t_len} rows={rows} reverse={reverse}"
                 got = G.gru_scan_tm(gates, w_hh, b_hh, reverse, torch.float32)
                 want = G.gru_scan_reference_tm(gates, w_hh, b_hh, reverse)
                 torch.cuda.synchronize()
@@ -658,27 +669,37 @@ def phase_gru_kernels(dev):
     b_c, by_c = bound(T_FRAMES, ROWS, h, streams=4, gates=3,
                       extra_bytes=3 * h * 4 + n_chunks * 2 * ROWS * h * 4)
     card = card_line()
-    log(f"GRU forward at T={T_FRAMES} rows={ROWS} H={h}: {ms_f:.3f} ms (bound "
-        f"{b_f:.3f} ms by {by_f}; plain {plain_f:.3f} ms; cuDNN GRU "
-        f"{library:.3f} ms) on {card}")
-    log(f"GRU carry, {n_chunks} chunks of {T_CHUNK}: {ms_c:.3f} ms (bound "
-        f"{b_c:.3f} ms by {by_c}; plain {plain_c:.3f} ms); in one chunk of "
-        f"{T_FRAMES}: {ms_c_one:.3f} ms on {card}")
+    log(f"GRU forward at T={T_FRAMES} rows={ROWS} H={h}: {ms_f:.3f} ms, "
+        f"{1e3 * ms_f / T_FRAMES:.2f} us a step (bound {b_f:.3f} ms by "
+        f"{by_f}; plain {plain_f:.3f} ms; cuDNN GRU {library:.3f} ms) on {card}")
+    log(f"  plan: {_plan_line(G, dev, h, ROWS)}")
+    log(f"GRU carry, {n_chunks} chunks of {T_CHUNK}: {ms_c:.3f} ms, "
+        f"{1e3 * ms_c / T_FRAMES:.2f} us a step (bound {b_c:.3f} ms by {by_c}; "
+        f"plain {plain_c:.3f} ms); in one chunk of {T_FRAMES}: {ms_c_one:.3f} "
+        f"ms on {card}")
+    log(f"  plan: {_plan_line(G, dev, h, ROWS, carry=True)}")
     log("  (the cuDNN GRU is nn.GRU(3H, H) with W_ih = I and b_ih = 0: the "
         "same recurrence plus one extra [T*rows, 3H] x [3H, 3H] projection)")
     del gates
-    # the full-band shape: one block of the card's 132 SMs
+    # the full-band shapes: one cluster
     h = FB_HIDDEN
     w_hh, b_hh = weights[h]
-    gates = torch.randn(T_FRAMES, FB_SERVE_ROWS, 3 * h, generator=gen,
-                        device=dev).to(torch.bfloat16)
-    ms_fb = cuda_ms(lambda: G.gru_scan_tm(gates, w_hh, b_hh), iters=5)
-    lib_fb = library_gru_ms(gates, w_hh, b_hh)
-    b_fb, by_fb = bound(T_FRAMES, FB_SERVE_ROWS, h, streams=4, gates=3,
-                        extra_bytes=3 * h * 4)
-    log(f"GRU forward at T={T_FRAMES} rows={FB_SERVE_ROWS} H={h} (full band, "
-        f"one block): {ms_fb:.3f} ms (bound {b_fb:.4f} ms by {by_fb}; cuDNN GRU "
-        f"{lib_fb:.3f} ms) on {card}")
+    for rows, t_len, what in ((FB_SERVE_ROWS, T_FRAMES, "serving"),
+                              (TRAIN_BATCH, TRAIN_T, "training")):
+        gates = torch.randn(t_len, rows, 3 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        ms_fb = cuda_ms(lambda: G.gru_scan_tm(gates, w_hh, b_hh), iters=5)
+        plain_fb = cuda_ms(lambda: G.gru_scan_reference_tm(gates, w_hh, b_hh),
+                           iters=2)
+        lib_fb = library_gru_ms(gates, w_hh, b_hh)
+        b_fb, by_fb = bound(t_len, rows, h, streams=4, gates=3,
+                            extra_bytes=3 * h * 4)
+        log(f"GRU forward at T={t_len} rows={rows} H={h} (full band, "
+            f"{what}): {ms_fb:.3f} ms, {1e3 * ms_fb / t_len:.2f} us a step "
+            f"(bound {b_fb:.4f} ms by {by_fb}; plain {plain_fb:.3f} ms; cuDNN "
+            f"GRU {lib_fb:.3f} ms) on {card}")
+        log(f"  plan: {_plan_line(G, dev, h, rows)}")
+        del gates
     return {
         "gru_scan_fwd": dict(
             max_abs_err=max_f, ms=ms_f, plain_ms=plain_f, bound_ms=b_f,
@@ -733,8 +754,9 @@ def phase_gru_train_kernels(dev):
                 gates, h_seq, gout, w_hh, b_hh, reverse)
             shifted = G.shifted_rows(h_seq, p_dgx, p_dhn, reverse)
             p_dw = G.gru_dwhh_reference(*shifted)
-            # the contraction alone, on the plain version's own streams
+            # the contraction alone, on the plain version's own streams, twice
             alone = G.gru_dwhh(*shifted)
+            repeats = torch.equal(alone, G.gru_dwhh(*shifted))
             torch.cuda.synchronize()
             err_d = (dgx.float() - p_dgx.float()).abs()
             peak = p_dgx.float().abs().max().item()
@@ -744,7 +766,8 @@ def phase_gru_train_kernels(dev):
                 f"mean {err_d.mean().item():.3e} (peak |dgx| {peak:.3f}); dW_hh "
                 f"|err|/|dW_hh| {rel_w:.3e}, db_hh {rel_b:.3e}; the contraction "
                 f"alone vs a float32 matmul {rel_alone:.3e} (max|err| "
-                f"{(alone - p_dw).abs().max().item():.3e})")
+                f"{(alone - p_dw).abs().max().item():.3e}), the same bits in two "
+                f"runs: {repeats}")
             check(all(torch.isfinite(x.float()).all().item()
                       for x in (dgx, dw, db)), f"GRU backward finite ({tag})")
             check(err_d.max().item() < BWD_MAX_REL * peak
@@ -757,6 +780,7 @@ def phase_gru_train_kernels(dev):
             check(rel_alone < DWHH_ALONE_REL,
                   f"dW_hh contraction vs float32 matmul within "
                   f"{DWHH_ALONE_REL} ({tag})")
+            check(repeats, f"dW_hh contraction repeats bit for bit ({tag})")
             max_d = max(max_d, err_d.max().item())
             max_w = max(max_w, (alone - p_dw).abs().max().item())
             del p_dgx, p_dhn, shifted, err_d
@@ -804,43 +828,66 @@ def phase_gru_train_kernels(dev):
         h_seq = G.gru_scan_tm(gates, w_hh, b_hh)
         ms_f = cuda_ms(lambda: G.gru_scan_tm(gates, w_hh, b_hh), iters=5)
     dgx, dhn, _ = G.gru_scan_bwd_streams_tm(gates, h_seq, gout, w_hh, b_hh)
-    h_prev, dg, dn = G.shifted_rows(h_seq, dgx, dhn, False)
-    n = h_prev.shape[0]
     ms_d = cuda_ms(lambda: G.gru_scan_bwd_streams_tm(gates, h_seq, gout, w_hh,
                                                      b_hh), iters=5)
-    ms_w = cuda_ms(lambda: G.gru_dwhh(h_prev, dg, dn), iters=5)
     plain_d = cuda_ms(lambda: G.gru_scan_bwd_streams_reference_tm(
         gates, h_seq, gout, w_hh, b_hh), iters=2)
-    plain_w = cuda_ms(lambda: G.gru_dwhh_reference(h_prev, dg, dn), iters=2)
-    lib_w = library_dwhh_ms(h_prev, torch.cat([dg[:, :2 * h], dn], dim=-1))
     lib_fwd, lib_both = library_gru_train_ms(gates, w_hh, b_hh, gout)
     # the scan: gx (3) + h_seq + gout in, dgx (3) + dhn out, W_hh and b_hh
     # in, db_hh out; two products per step. The per-block db_hh partials and
     # the second layout of W_hh are the design's own and not counted.
     b_d, by_d = bound(t_len, rows, h, streams=9, products=2, gates=3,
                       extra_bytes=2 * 3 * h * 4)
-    # the contraction: h_prev, the 2H columns of dgx it needs and dhn in, one
-    # fp32 [H, 3H] out (the per-slice partials are the design's own)
-    b_w, by_w = _larger(n * 4 * h * 2 + h * 3 * h * 4, 2 * n * h * 3 * h)
     card = card_line()
     log(f"GRU forward at T={t_len} rows={rows} H={h} (the forward under grad): "
-        f"{ms_f:.3f} ms (cuDNN GRU forward, training mode, {lib_fwd:.3f} ms) "
-        f"on {card}")
-    log(f"GRU backward scan at T={t_len} rows={rows} H={h}: {ms_d:.3f} ms "
-        f"(bound {b_d:.3f} ms by {by_d}; plain {plain_d:.3f} ms; "
-        f"cuDNN GRU backward {lib_both - lib_fwd:.3f} ms = forward + backward "
-        f"{lib_both:.3f} ms less the forward, dW_hh and db_hh included) on "
-        f"{card}")
-    log(f"GRU dW_hh contraction over N={n} rows, {G.DWHH_SLICES} slices and "
-        f"their sum: {ms_w:.3f} ms (bound {b_w:.3f} ms by {by_w}; plain {plain_w:.3f} ms; "
-        f"torch.mm with fp32 output {lib_w:.3f} ms) on {card}")
+        f"{ms_f:.3f} ms, {1e3 * ms_f / t_len:.2f} us a step (cuDNN GRU "
+        f"forward, training mode, {lib_fwd:.3f} ms) on {card}")
+    log(f"  plan: {_plan_line(G, dev, h, rows)}")
+    log(f"GRU backward scan at T={t_len} rows={rows} H={h}: {ms_d:.3f} ms, "
+        f"{1e3 * ms_d / t_len:.2f} us a step (bound {b_d:.3f} ms by {by_d}; "
+        f"plain {plain_d:.3f} ms; cuDNN GRU backward {lib_both - lib_fwd:.3f} "
+        f"ms = forward + backward {lib_both:.3f} ms less the forward, dW_hh "
+        f"and db_hh included) on {card}")
+    contraction = _time_dwhh(G, h_seq, dgx, dhn, card)
+    del gates, gout, h_seq, dgx, dhn
+    # the contraction at the full-band training shape
+    h, rows = FB_HIDDEN, TRAIN_BATCH
+    w_hh, b_hh = weights[h]
+    gates = torch.randn(t_len, rows, 3 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    gout = torch.randn(t_len, rows, h, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        h_seq = G.gru_scan_tm(gates, w_hh, b_hh)
+    dgx, dhn, _ = G.gru_scan_bwd_streams_tm(gates, h_seq, gout, w_hh, b_hh)
+    _time_dwhh(G, h_seq, dgx, dhn, card)
     return {
         "gru_scan_bwd": dict(
             max_abs_err=max_d, ms=ms_d, plain_ms=plain_d, bound_ms=b_d,
             bound_by=by_d, library_ms=lib_both - lib_fwd),
-        "gru_scan_bwd_dwhh": dict(
-            max_abs_err=max_w, ms=ms_w, plain_ms=plain_w, bound_ms=b_w,
-            bound_by=by_w, library_ms=lib_w)}
+        "gru_scan_bwd_dwhh": dict(max_abs_err=max_w, **contraction)}
+
+
+def _time_dwhh(G, h_seq, dgx, dhn, card):
+    """The dW_hh contraction over the shifted rows of one layer's streams:
+    its time (the slices' sum included), bound, plain version and one
+    torch.mm."""
+    h = h_seq.shape[-1]
+    h_prev, dg, dn = G.shifted_rows(h_seq, dgx, dhn, False)
+    n = h_prev.shape[0]
+    ms_w = cuda_ms(lambda: G.gru_dwhh(h_prev, dg, dn), iters=10)
+    plain_w = cuda_ms(lambda: G.gru_dwhh_reference(h_prev, dg, dn), iters=2)
+    lib_w = library_dwhh_ms(h_prev, torch.cat([dg[:, :2 * h], dn], dim=-1))
+    # h_prev, the 2H columns of dgx it needs and dhn in, one fp32 [H, 3H]
+    # out (the per-slice partials are the design's own)
+    b_w, by_w = _larger(n * 4 * h * 2 + h * 3 * h * 4, 2 * n * h * 3 * h)
+    plan = G.plan_dwhh(n, h)
+    log(f"GRU dW_hh contraction at H={h} over N={n} rows, {plan.tiles} tiles "
+        f"x {plan.slices} slices of {plan.rows_per_slice} rows and their sum: "
+        f"{ms_w:.3f} ms (bound {b_w:.3f} ms by {by_w}; plain {plain_w:.3f} ms; "
+        f"torch.mm with fp32 output {lib_w:.3f} ms) on {card}")
+    return dict(ms=ms_w, plain_ms=plain_w, bound_ms=b_w, bound_by=by_w,
+                library_ms=lib_w)
 
 
 def library_layer_ms(x, w_ih, w_hh, bias):

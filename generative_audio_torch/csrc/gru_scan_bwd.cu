@@ -1,9 +1,10 @@
 // GRU backward over time-major residuals, for sm_90a: two kernels.
 //
 // Together they replace the Pallas TPU kernel _gru_pallas_call_bwd /
-// _gru_bwd_kernel of generative_audio_tpu/ops/pallas_lstm.py, the backward
-// of the scan in gru_scan.cu. The only residual of the forward is its bf16 h
-// sequence; the h-side gates are recomputed.
+// _gru_bwd_kernel of generative_audio_tpu/ops/pallas_lstm.py (:1019; its
+// dW_hh line at :1011), the backward of the scan in gru_scan.cu. The only
+// residual of the forward is its bf16 h sequence; the h-side gates are
+// recomputed.
 //
 // What the TPU kernel computes. The forward processed positions p = 0..T-1
 // (array time t = p, or T-1-p with reverse). The backward walks p = T-1..0
@@ -33,11 +34,11 @@
 //   * gru_scan_bwd_dwhh, the contraction: dW_hh = A^T @ D over N = (T-1)*B
 //     rows, where A = h_seq shifted by one processing step and
 //     D = [dgx[:, :2H], dhn] (the caller passes the shifted slices; the
-//     first processed step saw h = 0 and adds nothing). A tiled mma.sync
-//     product; the N axis is cut into a fixed number of slices, each block
-//     writes its fp32 tile of its slice's partial [n_slices, H, 3H], and the
-//     caller sums the slices, as the JAX caller sums the blocks. No atomics,
-//     so the result does not change from run to run.
+//     first processed step saw h = 0 and adds nothing). The N axis is cut
+//     into slices; each CTA writes its fp32 tile of its slice's partial
+//     [n_slices, H, 3H], and the caller sums the slices in a fixed order, as
+//     the JAX caller sums the blocks. No atomics, so the result does not
+//     change from run to run.
 //
 // What bounds them on an H100, at the training shape (batch 18 x 3.072 s
 // with drop_band 2: T = 195, 2304 rows, H = 384). The scan does
@@ -47,7 +48,9 @@
 // is what the simple design pays. The contraction does 2*N*H*3H = 0.40 TFLOP
 // (0.40 ms) and must move N*(H + 2H + H)*2 B = 1.4 GB in and one fp32
 // [H, 3H] out (0.41 ms): at the ridge too. The fp32 partials per slice are
-// this design's own traffic on top of that (28 MB at 16 slices).
+// this design's own traffic on top of that (14 MB at 8 slices), and so are
+// the operand rows each output tile reads again: A once per column tile, D
+// once per row tile.
 //
 // Design of the scan (the LSTM backward's, lstm_scan_bwd.cu):
 //   * First product in the forward's layout: a warp owns units 8u..8u+7 and
@@ -67,16 +70,34 @@
 //     shared memory that only it touches.
 //   * Rows beyond B read zero gates, gout and h, which makes their dgh and
 //     dh exactly zero: they add nothing to db_hh and write nothing.
-// Design of the contraction: a block owns a 64 x 128 tile of dW_hh and one
-// slice of N; 8 warps as 2 x 4, each 32 x 32 (2 m16 x 4 n8 tiles, 32 fp32
-// accumulators a thread). Chunks of 32 rows of A and D go to shared memory
-// with 16-byte loads; both operands are needed transposed (the contraction
-// index is the slow axis in memory), which ldmatrix.trans does on the way
-// to the registers.
+// Design of the contraction, for Hopper's asynchronous units:
+//   * A CTA owns a 128 x 256 tile of dW_hh and one slice of rows. The tile's
+//     columns come whole from dgx (2H = 768 or 1024, a multiple of 256) or
+//     from dhn, so each operand has one TMA descriptor; dhn's last tile may
+//     be ragged, and the columns beyond H are neither loaded nor written.
+//   * TMA brings the operands in: one producer warp keeps 4 stages of 64
+//     rows in flight (2 boxes of A and 4 of D, 64 columns x 64 rows each,
+//     48 KB a stage), with mbarrier completion and the 128-byte swizzle.
+//     Rows beyond N arrive as zeros, so a ragged last slice needs no mask.
+//     No thread spends registers or instructions on the copies, and the
+//     product of one stage overlaps the loads of the next three.
+//   * Two consumer warpgroups each run wgmma m64n256k16 on 64 of the tile's
+//     rows, both operands MN-major in shared memory (the contraction index
+//     is the slow axis of A and of D, which the transpose flags take as
+//     stored: no ldmatrix.trans pass), with the fp32 sum in registers.
+//   * The slices (ops/gru.py plan_dwhh) make tiles x slices about one wave
+//     of the card's SMs, so the CTAs that share a slice read its rows while
+//     they are in L2: 15 tiles x 8 slices at H = 384; at the full-band
+//     shape (H = 512, N = 3492) 24 tiles and one slice.
+//   * The TMA descriptors are encoded on the host for each call with
+//     cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint, and
+//     passed as __grid_constant__ kernel parameters.
 //
 // Plain C interface for ctypes; each function returns the cudaError_t of its
 // launch (0 on success). Launches go to the caller's stream and do not
 // synchronise.
+
+#include <cuda.h>
 
 #include "scan_common.cuh"
 
@@ -267,107 +288,231 @@ gru_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
 
 // ---- dW_hh = A^T @ [D1[:, :2H], D2] over N rows, in slices ----------------
 
-constexpr int TM = 64;             // tile of dW_hh rows (units of h_prev)
-constexpr int TN = 128;            // tile of dW_hh columns (of 3H)
-constexpr int TK = 32;             // rows of A and D per chunk
-constexpr int AS = TM + PAD;       // shared row strides (bf16)
-constexpr int DS = TN + PAD;
+constexpr int DW_TM = 128;                   // dW_hh rows (units) per CTA
+constexpr int DW_TN = 256;                   // dW_hh columns per CTA
+constexpr int DW_TK = 64;                    // rows of A and D per stage
+constexpr int DW_STAGES = 4;
+constexpr int DW_BOX = DW_TK * 64 * 2;       // one TMA box: 64 rows x 128 B
+constexpr int DW_STAGE = (DW_TM / 64 + DW_TN / 64) * DW_BOX;   // 48 KB
+constexpr int DW_THREADS = 9 * 32;           // warps 0-7 compute, warp 8 loads
+constexpr size_t DW_SMEM = DW_STAGES * DW_STAGE + 2 * DW_STAGES * 8 + 1024;
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__global__ void __launch_bounds__(NWARPS * 32)
-gru_dwhh_kernel(const __nv_bfloat16* __restrict__ a,    // [N, H]   h_prev
-                const __nv_bfloat16* __restrict__ d1,   // [N, 3H]  dgx
-                const __nv_bfloat16* __restrict__ d2,   // [N, H]   dhn
-                float* __restrict__ part,               // [slices, H, 3H]
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// One box of a 2-D tensor map, {column, row}, into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+         "r"(bar)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled tile in shared memory:
+// start address, leading byte offset (between 64-element blocks along M or
+// N), stride byte offset (between 8-row groups along K), all >> 4.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x 256] += A[64 x 16] @ B[16 x 256], bf16 from shared memory, both
+// MN-major (the transpose flags: K is the slow axis of both tiles), fp32 in
+// registers.
+__device__ __forceinline__ void wgmma_m64n256k16_tt(float (&d)[128],
+                                                    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// part[z] = A[n0:n1]^T @ D[n0:n1] for one 128 x 256 tile of dW_hh. The tile's
+// columns come whole from dgx (the first 2H) or from dhn. Warp 8 keeps
+// DW_STAGES stages of TMA boxes in flight; warpgroups 0 and 1 each run
+// wgmma on 64 of the tile's rows.
+__global__ void __launch_bounds__(DW_THREADS, 1)
+gru_dwhh_kernel(const __grid_constant__ CUtensorMap map_a,    // h_prev [N, H]
+                const __grid_constant__ CUtensorMap map_d1,   // dgx [N, :2H]
+                const __grid_constant__ CUtensorMap map_d2,   // dhn [N, H]
+                float* __restrict__ part,                     // [slices, H, 3H]
                 int N, int H, int rows_per_slice) {
-  __shared__ __align__(16) __nv_bfloat16 as[TK * AS];
-  __shared__ __align__(16) __nv_bfloat16 ds[TK * DS];
-  const int G3 = 3 * H;
-  const int m0 = blockIdx.x * TM, c0 = blockIdx.y * TN;
-  const int n_begin = blockIdx.z * rows_per_slice;
-  const int n_end = min(N, n_begin + rows_per_slice);
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the stages to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t full = base + DW_STAGES * DW_STAGE;   // DW_STAGES barriers
+  const uint32_t empty = full + DW_STAGES * 8;         // DW_STAGES barriers
 
+  const int n_d1 = (2 * H + DW_TN - 1) / DW_TN;
+  const bool from_d2 = (int)blockIdx.y >= n_d1;
+  const int c0 = ((int)blockIdx.y - (from_d2 ? n_d1 : 0)) * DW_TN;
+  const int c_end = from_d2 ? H : 2 * H;      // columns of the source
+  const int m0 = blockIdx.x * DW_TM;
+  const int n0 = blockIdx.z * rows_per_slice;
+  const int n1 = min(N, n0 + rows_per_slice);
+  const int iters = n1 > n0 ? (n1 - n0 + DW_TK - 1) / DW_TK : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tq = lane & 3;
-  const int wm = (warp & 1) * 32, wc = (warp >> 1) * 32;   // warp tile origin
-  const int mat = lane >> 3, mrow = lane & 7;              // ldmatrix address
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);            // one arrival per warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int n0 = n_begin; n0 < n_end; n0 += TK) {
-    // A chunk: TK rows x TM units, 8 bf16 (16 bytes) a thread
-    for (int i = threadIdx.x; i < TK * (TM / 8); i += blockDim.x) {
-      const int k = i / (TM / 8), m = (i % (TM / 8)) * 8, n = n0 + k;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n < n_end && m0 + m < H)
-        v = *reinterpret_cast<const uint4*>(a + (size_t)n * H + m0 + m);
-      *reinterpret_cast<uint4*>(as + k * AS + m) = v;
+  if (warp == 8) {
+    if (lane != 0) return;
+    // boxes wholly outside the tile's rows or its source's columns are not
+    // loaded: they could only reach outputs that are not written
+    const int a_boxes = min(DW_TM / 64, (H - m0 + 63) / 64);
+    const int d_boxes = min(DW_TN / 64, (c_end - c0 + 63) / 64);
+    const int bytes = (a_boxes + d_boxes) * DW_BOX;
+    const CUtensorMap* dmap = from_d2 ? &map_d2 : &map_d1;
+    for (int it = 0; it < iters; ++it) {
+      const int s = it % DW_STAGES;
+      if (it >= DW_STAGES) mbar_wait(empty + 8 * s, ((it / DW_STAGES) - 1) & 1);
+      const uint32_t bar = full + 8 * s, st = base + s * DW_STAGE;
+      mbar_expect_tx(bar, bytes);
+      const int n = n0 + it * DW_TK;          // rows beyond N arrive as zeros
+      for (int b = 0; b < a_boxes; ++b)
+        tma_load(st + b * DW_BOX, &map_a, m0 + 64 * b, n, bar);
+      for (int b = 0; b < d_boxes; ++b)
+        tma_load(st + (DW_TM / 64 + b) * DW_BOX, dmap, c0 + 64 * b, n, bar);
     }
-    // D chunk: columns below 2H come from dgx, the rest from dhn
-    for (int i = threadIdx.x; i < TK * (TN / 8); i += blockDim.x) {
-      const int k = i / (TN / 8), c = c0 + (i % (TN / 8)) * 8, n = n0 + k;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n < n_end && c < G3) {
-        const __nv_bfloat16* src = c < 2 * H ? d1 + (size_t)n * G3 + c
-                                             : d2 + (size_t)n * H + (c - 2 * H);
-        v = *reinterpret_cast<const uint4*>(src);
-      }
-      *reinterpret_cast<uint4*>(ds + k * DS + (c - c0)) = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int k0 = 0; k0 < TK; k0 += 16) {
-      // A^T fragments: matrices (k0, m), (k0, m+8), (k0+8, m), (k0+8, m+8)
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4_trans(af[mi], as + (k0 + mrow + 8 * (mat >> 1)) * AS +
-                                      wm + 16 * mi + 8 * (mat & 1));
-      // D fragments for two n8 tiles at once: matrices (k0, c), (k0+8, c),
-      // (k0, c+8), (k0+8, c+8)
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, ds + (k0 + mrow + 8 * (mat & 1)) * DS + wc +
-                                  16 * np + 8 * (mat >> 1));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16_16816(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-          mma_bf16_16816(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-    __syncthreads();
+    return;
   }
 
+  const int wg = warp >> 2;                   // rows m0 + 64 wg .. + 63
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    const int s = it % DW_STAGES;
+    mbar_wait(full + 8 * s, (it / DW_STAGES) & 1);
+    const uint32_t a_tile = base + s * DW_STAGE + wg * DW_BOX;
+    const uint32_t d_tile = base + s * DW_STAGE + (DW_TM / 64) * DW_BOX;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < DW_TK / 16; ++kk)   // 16 rows = 2048 bytes of a box
+      wgmma_m64n256k16_tt(acc, wgmma_desc(a_tile + 2048 * kk, DW_BOX, 1024),
+                          wgmma_desc(d_tile + 2048 * kk, DW_BOX, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    if ((threadIdx.x & 127) == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  // accumulator 4i + 2 half + e: row 16 (warp % 4) + lane/4 + 8 half of the
+  // warpgroup's 64, column 8i + 2 (lane % 4) + e of the tile's 256
+  const int G3 = 3 * H, col_off = from_d2 ? 2 * H : 0;
   float* out = part + (size_t)blockIdx.z * H * G3;
+  const int m = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < DW_TN / 8; ++i) {
+    const int c = c0 + 8 * i + 2 * (lane & 3);
+    if (c >= c_end) continue;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm + 16 * mi + grp + 8 * half;
-        const int c = c0 + wc + 8 * ni + 2 * tq;
-        if (m < H && c < G3)
-          *reinterpret_cast<float2*>(out + (size_t)m * G3 + c) =
-              make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
+    for (int half = 0; half < 2; ++half)
+      if (m + 8 * half < H)
+        *reinterpret_cast<float2*>(out + (size_t)(m + 8 * half) * G3 +
+                                   col_off + c) =
+            make_float2(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so the library links no libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// bf16 [rows, cols] with row stride ld elements, in boxes of 64 columns x
+// DW_TK rows, 128-byte swizzle; elements outside [rows, cols] read as zero.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows,
+              int cols, int ld) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, DW_TK};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -401,17 +546,33 @@ int gru_scan_bwd(const void* gates, const void* h_seq, const void* gout,
   return (int)cudaGetLastError();
 }
 
-// The contraction. a [N, H], d1 [N, 3H], d2 [N, H], all bf16 ->
-// part [n_slices, H, 3H] fp32 with sum over slices = a^T @ [d1[:, :2H], d2].
-// Every element of part is written. H must be a multiple of 8.
+// The contraction. a [N, H], d1 [N, 3H], d2 [N, H], all bf16, 16-byte
+// aligned, H a multiple of 8 -> part [n_slices, H, 3H] fp32 with sum over
+// slices = a^T @ [d1[:, :2H], d2]. Slice z takes rows [z*P, (z+1)*P) with
+// P = ceil(ceil(N / n_slices) / 64) * 64 (ops/gru.py plan_dwhh); every
+// element of part is written, zero for an empty slice.
 int gru_scan_bwd_dwhh(const void* a, const void* d1, const void* d2,
                       void* part, int N, int H, int n_slices, void* stream) {
+  if (N <= 0 || H <= 0 || H % 8 || n_slices <= 0)
+    return (int)cudaErrorInvalidValue;
   int rows_per_slice = (N + n_slices - 1) / n_slices;
-  rows_per_slice = (rows_per_slice + TK - 1) / TK * TK;
-  const dim3 grid((H + TM - 1) / TM, (3 * H + TN - 1) / TN, n_slices);
-  gru_dwhh_kernel<<<grid, NWARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)a, (const __nv_bfloat16*)d1,
-      (const __nv_bfloat16*)d2, (float*)part, N, H, rows_per_slice);
+  rows_per_slice = (rows_per_slice + DW_TK - 1) / DW_TK * DW_TK;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap map_a, map_d1, map_d2;
+  if (!make_map(encode, &map_a, a, N, H, H) ||
+      !make_map(encode, &map_d1, d1, N, 2 * H, 3 * H) ||
+      !make_map(encode, &map_d2, d2, N, H, H))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_dwhh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + DW_TM - 1) / DW_TM,
+                  (2 * H + DW_TN - 1) / DW_TN + (H + DW_TN - 1) / DW_TN,
+                  n_slices);
+  gru_dwhh_kernel<<<grid, DW_THREADS, DW_SMEM, (cudaStream_t)stream>>>(
+      map_a, map_d1, map_d2, (float*)part, N, H, rows_per_slice);
   return (int)cudaGetLastError();
 }
 

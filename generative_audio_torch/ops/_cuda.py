@@ -113,9 +113,10 @@ _SIGNATURES = {
                                  _P],
     },
     "gru_scan": {
-        "gru_scan_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # ..., reverse, then the launch plan: cluster, rows, shared bytes
+        "gru_scan_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "gru_scan_fwd_carry": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _P],
+                               _I, _I, _I, _P],
     },
     "gru_scan_bwd": {
         "gru_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -124,10 +125,17 @@ _SIGNATURES = {
     },
 }
 SOURCES = tuple(_SIGNATURES)
+# Queries that launch nothing: (out_f32, carry, H, cluster, rows, int* n).
+_QUERIES = {
+    "gru_scan": {
+        "gru_scan_max_clusters": [_I, _I, _I, _I, _I,
+                                  ctypes.POINTER(ctypes.c_int)],
+    },
+}
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    for fn, argtypes in _SIGNATURES[name].items():
+    for fn, argtypes in {**_SIGNATURES[name], **_QUERIES.get(name, {})}.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     err_fn = getattr(lib, f"{name}_error_string")

@@ -37,32 +37,215 @@ gates upcast to fp32, fp32 h on chip, cast to bf16 only as the operand of
 the product with bf16 W_hh, fp32 accumulation, fp32 b_hh; in the backward
 bf16 h_seq, gout and dgates streams, fp32 dh, dW_hh and db_hh.
 
-The launch helper and the launch counts are those of ops/lstm.py.
+The launch counts are those of ops/lstm.py, and so is the launch helper;
+`_launch` here appends the launch plan of the two forward entries, which
+run as thread-block clusters: `plan_scan` picks the cluster size and the
+rows per cluster from H, the row count, the shared-memory limit and the
+card's `cudaOccupancyMaxActiveClusters`. `plan_dwhh` cuts the contraction's
+rows into slices. Both planners are plain Python.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import dataclasses
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from generative_audio_torch.ops.lstm import (
-    _check_kernel_operand, _check_kernel_sizes, _is_cuda, _kernel_operand,
-    _launch, _wants_grad)
+    _PAD, SMEM_LIMIT, _check_kernel_operand, _check_kernel_sizes, _is_cuda,
+    _kernel_operand, _wants_grad)
+from generative_audio_torch.ops.lstm import _launch as _launch_entry
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "gru_scan_carry_reference_tm", "gru_scan_bwd_streams_tm",
            "gru_scan_bwd_streams_reference_tm", "gru_dwhh",
            "gru_dwhh_reference", "shifted_rows", "gru_scan_bwd_tm",
            "gru_scan_bwd_reference_tm", "GRUScan", "gru_layer_tm_chunked",
-           "DWHH_SLICES"]
+           "ScanPlan", "scan_smem_bytes", "scan_step_us", "plan_scan",
+           "card_scan_plan",
+           "DwhhPlan", "plan_dwhh"]
 
-# Time slices of the dW_hh contraction: each writes one fp32 [H, 3H] partial.
-DWHH_SLICES = 16
 # Batch rows per block of the backward scan, which writes one db_hh partial
 # per block: the kernel is told the number of partials and refuses another
 # count than its own grid.
 _ROWS_PER_BLOCK = 16
+_MAX_WARPS = 18            # warps per CTA of the forward scan, at most
+# scan_step_us's parts (microseconds), fitted to the cluster scan's steps on
+# an H100 SXM at 700 W: a step with one round of items, each further round
+# of the busiest warp, and one 16-byte store of the h exchange.
+_STEP_US, _ROUND_US, _STORE_US = 2.1, 2.7, 2.2e-3
+# CTAs per cluster of the forward scan: 8 is the portable limit; the kernel
+# opts in to 16, which an H100 allows.
+CLUSTER_SIZES = (8, 16)
+# The forward entries, whose C functions end in the launch plan.
+_CLUSTER_ENTRIES = ("gru_scan_fwd", "gru_scan_fwd_carry")
+# SMs of an H100 SXM: the contraction's tiles x slices fill about one wave.
+H100_SMS = 132
+# The contraction's output tile (csrc/gru_scan_bwd.cu DW_TM x DW_TN) and the
+# rows of one pipeline stage, on which every slice begins (DW_TK).
+_DW_TILE_ROWS, _DW_TILE_COLS, _DW_STAGE_ROWS = 128, 256, 64
+# A slice of the contraction reads at least 8 times the bytes its fp32
+# partial writes: rows * 4H * 2 B >= 8 * H * 3H * 4 B, so rows >= 12 H.
+_DW_ROWS_PER_UNIT = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """Launch plan of the forward scan (csrc/gru_scan.cu): clusters of
+    `cluster` CTAs, each CTA owning H / cluster units, over `rows` batch
+    rows per cluster (whole m16 tiles)."""
+    cluster: int          # CTAs per cluster
+    rows: int             # batch rows per cluster
+    clusters: int         # clusters in the grid
+    active: int           # clusters the card runs at once (occupancy)
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int]:
+        """The C entries' last arguments before the stream."""
+        return self.cluster, self.rows, self.smem_bytes
+
+
+def scan_smem_bytes(hsz: int, cluster: int, rows: int) -> int:
+    """Shared memory of one CTA of the forward scan (csrc/gru_scan.cu
+    `cluster_smem`): the W_hh^T slice [3U][H + 8] and two bf16 h buffers
+    [rows][H + 8], the CTA's fp32 h [rows][U], its x-side gates of two
+    steps [2][rows][3U] bf16 and b_hh slice [3U] fp32, with U = H / cluster
+    units."""
+    units, stride = hsz // cluster, hsz + _PAD
+    return ((3 * units + 2 * rows) * stride * 2 + rows * units * 4
+            + 2 * rows * 3 * units * 2 + 3 * units * 4)
+
+
+def scan_step_us(hsz: int, cluster: int, rows: int) -> float:
+    """Modelled time of one step of one wave of the forward scan: a step
+    whose warps each take one m16 x 8-unit item (products, cell, cluster
+    barrier, gates), each further round of items of the busiest warp (at
+    most _MAX_WARPS warps), and the 16-byte stores of the h exchange (a CTA
+    sends rows * U / 8 of them to each of its cluster - 1 peers)."""
+    groups = hsz // cluster // 8
+    rounds = -(-(rows // 16 * groups) // _MAX_WARPS)
+    stores = rows * groups * (cluster - 1)
+    return _STEP_US + (rounds - 1) * _ROUND_US + stores * _STORE_US
+
+
+def plan_scan(hsz: int, batch: int, max_clusters: Callable[[int, int], int]
+              ) -> ScanPlan:
+    """The forward scan's cluster shape for `batch` rows at H = hsz.
+
+    For each cluster size C of CLUSTER_SIZES that splits H into groups of 8
+    units, and each row count R (whole m16 tiles) whose CTA fits in
+    SMEM_LIMIT bytes, the clusters are balanced over the rows and
+    `max_clusters(C, R)` (the card's cudaOccupancyMaxActiveClusters) says
+    how many run at once. The plan minimises waves x scan_step_us; ties go
+    to the smaller cluster, then to fewer clusters. Raises ValueError with
+    each size's reason when nothing fits."""
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    tiles = -(-batch // 16)
+    best, refused = None, []
+    for cluster in CLUSTER_SIZES:
+        if hsz % (8 * cluster):
+            refused.append(f"C={cluster}: H={hsz} is no multiple of "
+                           f"{8 * cluster}")
+            continue
+        if scan_smem_bytes(hsz, cluster, 16) > SMEM_LIMIT:
+            refused.append(f"C={cluster}: {scan_smem_bytes(hsz, cluster, 16)} "
+                           f"bytes of shared memory at 16 rows, over "
+                           f"{SMEM_LIMIT}")
+            continue
+        for per_cluster in range(1, tiles + 1):
+            clusters = -(-tiles // per_cluster)
+            rows = 16 * -(-tiles // clusters)        # balanced over clusters
+            smem = scan_smem_bytes(hsz, cluster, rows)
+            if smem > SMEM_LIMIT:
+                break
+            active = max_clusters(cluster, rows)
+            if active < 1:
+                refused.append(f"C={cluster}, R={rows}: the card runs no "
+                               f"such cluster")
+                continue
+            waves = -(-clusters // active)
+            key = (waves * scan_step_us(hsz, cluster, rows), cluster, clusters)
+            if best is None or key < best[0]:
+                best = (key, ScanPlan(cluster, rows, clusters, active, waves,
+                                      smem))
+    if best is None:
+        raise ValueError(f"no cluster plan for the GRU scan at H={hsz}, "
+                         f"{batch} rows: " + "; ".join(refused))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(device_index: int, out_f32: bool, carry: bool, hsz: int,
+                  cluster: int, rows: int) -> int:
+    """cudaOccupancyMaxActiveClusters of a forward scan instance on the card
+    (csrc/gru_scan.cu `gru_scan_max_clusters`)."""
+    from generative_audio_torch.ops import _cuda
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _cuda.load("gru_scan").gru_scan_max_clusters(
+            int(out_f32), int(carry), hsz, cluster, rows, ctypes.byref(n))
+    _cuda.check("gru_scan", err, "gru_scan_max_clusters")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def card_scan_plan(device: torch.device, hsz: int, batch: int,
+                   out_dtype: torch.dtype = torch.bfloat16,
+                   carry: bool = False) -> ScanPlan:
+    """The plan the forward scan launches with on `device` (a CUDA device)
+    for `batch` rows at H = hsz."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return plan_scan(hsz, batch, functools.partial(
+        _max_clusters, index, out_dtype == torch.float32, carry, hsz))
+
+
+def _launch(fn_name: str, *args) -> None:
+    """Launch csrc entry `fn_name` through the port's launch helper. The
+    forward entries are cluster launches: their arguments end in (out_f32,
+    T, B, H, reverse), and card_scan_plan's plan for (H, B) on the tensors'
+    card is appended to them."""
+    if fn_name in _CLUSTER_ENTRIES:
+        out_f32, _, b, hsz, _ = args[-5:]
+        plan = card_scan_plan(args[0].device, hsz, b,
+                              torch.float32 if out_f32 else torch.bfloat16,
+                              fn_name == "gru_scan_fwd_carry")
+        args = (*args, *plan.launch_args)
+    _launch_entry(fn_name, *args)
+
+
+@dataclasses.dataclass(frozen=True)
+class DwhhPlan:
+    """How the dW_hh contraction (csrc/gru_scan_bwd.cu) cuts its N rows:
+    slice z takes rows [z * rows_per_slice, (z + 1) * rows_per_slice) of
+    the first N (whole 64-row stages; the last slice may be shorter), one
+    CTA per 128 x 256 output tile and slice."""
+    tiles: int
+    slices: int
+    rows_per_slice: int
+
+
+def plan_dwhh(n: int, hsz: int) -> DwhhPlan:
+    """The contraction's slices over n >= 1 rows at H = hsz: as many as keep
+    tiles x slices within one wave of H100_SMS and every slice at least
+    12 H rows long, and at least one. Slices begin on whole stages and none
+    is empty: rows_per_slice is what the kernel takes for the count,
+    ceil(ceil(n / slices) / 64) * 64."""
+    def per_slice(slices):
+        return -(-(-(-n // slices)) // _DW_STAGE_ROWS) * _DW_STAGE_ROWS
+
+    tiles = -(-hsz // _DW_TILE_ROWS) * (-(-2 * hsz // _DW_TILE_COLS)
+                                       + -(-hsz // _DW_TILE_COLS))
+    slices = max(1, min(H100_SMS // tiles, n // (_DW_ROWS_PER_UNIT * hsz)))
+    slices = -(-n // per_slice(slices))           # no empty slice
+    return DwhhPlan(tiles, slices, per_slice(slices))
 
 
 def _scan_plain(gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -316,7 +499,10 @@ def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor
     """The dW_hh contraction: h_prev [N, H], dgx [N, 3H], dhn [N, H], all
     bf16 (see shifted_rows) -> h_prev^T @ [dgx[:, :2H], dhn] as fp32
     [H, 3H]. CUDA tensors run `gru_scan_bwd_dwhh`, which writes one partial
-    per slice of the N rows; the partials are summed here."""
+    per slice of the N rows (plan_dwhh); the partials are summed here in a
+    fixed order, so a result repeats bit for bit. The kernel reads its
+    operands through TMA descriptors: they must be contiguous and 16-byte
+    aligned, as shifted_rows' views of contiguous streams are."""
     n, hsz = h_prev.shape
     if tuple(dgx.shape) != (n, 3 * hsz) or tuple(dhn.shape) != (n, hsz):
         raise ValueError(f"dgx must be [{n}, {3 * hsz}] and dhn [{n}, {hsz}], "
@@ -328,10 +514,11 @@ def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor
     _check_kernel_sizes(hsz)
     for name, x in (("h_prev", h_prev), ("dgx", dgx), ("dhn", dhn)):
         _check_kernel_operand(name, x, torch.bfloat16)
-    slices = torch.empty(DWHH_SLICES, hsz, 3 * hsz, dtype=torch.float32,
+    plan = plan_dwhh(n, hsz)
+    slices = torch.empty(plan.slices, hsz, 3 * hsz, dtype=torch.float32,
                          device=h_prev.device)
     _launch("gru_scan_bwd_dwhh", h_prev, dgx, dhn, slices, n, hsz,
-            DWHH_SLICES)
+            plan.slices)
     return slices.sum(dim=0)
 
 
