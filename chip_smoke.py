@@ -10,18 +10,22 @@ of which fails the run (non-zero exit, no result line):
   1. the card (name, power limit, torch and CUDA versions) and the build of
      every CUDA kernel from generative_audio_torch/csrc, with the registers
      ptxas reports for every instance;
-  2. the two inference kernels against their plain PyTorch versions at the
-     serving shape (T=628 frames, H=384, 2056 rows = batch 8 x 257 bins, and
-     a ragged row count; forward and reverse), the chunked kernel against
-     the unchunked one bit for bit, and each kernel's time beside its bound,
-     its plain version's time and a cuDNN LSTM's time;
+  2. the two inference kernels (A and B, cluster scans) against their plain
+     PyTorch versions at the serving shape (T=628 frames, H=384, 2056 rows =
+     batch 8 x 257 bins, and a ragged row count; forward and reverse), the
+     chunked kernel against the unchunked one bit for bit, and each
+     kernel's time and microseconds a step beside its bound, its plain
+     version's time and a cuDNN LSTM's time, also at 257 rows (one 10 s
+     clip), with the launch plan ops.lstm.card_scan_plan picks (cluster
+     size, rows per cluster, clusters, the card's occupancy, waves, shared
+     bytes) and the instances' registers;
   3. the two training kernels at the training shape (T=195 frames, 2304 rows
      = batch 18 x 128 bins after drop_band, and a ragged row count; forward
      and reverse): the training forward's h against the inference kernel's
      bit for bit, its c sequence and the backward scan's dgates against
      their plain versions, the whole LSTMScan gradient against autograd
-     through the float32 recurrence, and the times as in phase 2 (the
-     library call is a cuDNN LSTM's forward and backward);
+     through the float32 recurrence, and the times, plans and registers as
+     in phase 2 (the library call is a cuDNN LSTM's forward and backward);
   4. the serving path at FullSubNet+'s full width (random weights from a
      numpy seed in the JAX param layout, carried across by
      utils/convert.py), bf16: a 1 s clip against the float32 model on the
@@ -38,7 +42,11 @@ of which fails the run (non-zero exit, no result line):
   7. torch.profiler breakdowns by kernel of one batch-8 x 10 s forward and
      of one training step;
   8. the three LSTM scan kernels once more at FullSubNet v1's full-band
-     shape (H=512, T=195, 18 rows and 1 row, forward and reverse);
+     shape (H=512, T=195, 18 rows and 1 row, forward and reverse), with
+     kernel A's time, plan and registers at 18 rows; then every scan
+     wrapper of the model paths (LSTM forward, carry, training forward and
+     backward; GRU forward, carry and backward) at H=100 and 200, which the
+     wrappers zero-pad to the kernels' units, against its plain version;
   9. the GRU forward and carry kernels against their plain versions at the
      sub-band serving shape (T=628, H=384, 2056 rows and a ragged count) and
      the full-band shape (H=512, 8 rows and 1 row), chunked against unchunked
@@ -71,6 +79,7 @@ CUDA device.
 """
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -157,6 +166,8 @@ PATH_REL = 5e-2
 LAYER_PATH_MAX_ABS, LAYER_PATH_MEAN_ABS = 1e-2, 5e-4
 # The sub-band model's input width: 31 neighbour bins + 3 full-band outputs.
 SB_FEATURES = 34
+# Hidden sizes the kernels do not take as they are: the wrappers pad them.
+PADDED_HIDDEN = (100, 200)
 
 
 def log(msg):
@@ -195,6 +206,9 @@ def check(cond, what):
 
 
 def phase_build():
+    """Builds every source and prints ptxas's report of each instance.
+    Returns the registers of the instances of kernels A-C by name (kernel
+    and output type), empty for a library that was built before."""
     from generative_audio_torch.ops import _cuda
     t0 = time.perf_counter()
     reports = _cuda.build(list(_cuda.SOURCES))
@@ -206,9 +220,34 @@ def phase_build():
                 log(f"  ptxas {name}: {line.strip()}")
     for name in _cuda.SOURCES:
         _cuda.load(name)
+    return _cluster_registers(reports.get("lstm_scan", ""))
 
 
-def phase_kernels(dev):
+def _cluster_registers(report):
+    """{"A bf16": registers, ...} from ptxas's report of lstm_scan.cu: the
+    instance lstm_cluster_kernel<OutT, CARRY, STREAM_C> is kernel A
+    (neither flag), B (CARRY) or C (STREAM_C)."""
+    found, name = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"lstm_cluster_kernelI(13__nv_bfloat16|f)"
+                          r"Lb([01])ELb([01])E", line)
+        if entry:
+            out, carry, train = entry.groups()
+            kernel = "C" if train == "1" else "B" if carry == "1" else "A"
+            name = f"{kernel} {'fp32' if out == 'f' else 'bf16'}"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = int(used.group(1)), None
+    return found
+
+
+def _registers_line(registers, kernels):
+    """The registers of the named kernels' instances, for a phase's log."""
+    return ", ".join(f"{k} {n}" for k, n in sorted(registers.items())
+                     if k[0] in kernels) or "not rebuilt in this run"
+
+
+def phase_kernels(dev, registers):
     from generative_audio_torch.ops import lstm as L
     gen = torch.Generator(device=dev).manual_seed(SEED)
     h = HIDDEN
@@ -219,6 +258,10 @@ def phase_kernels(dev):
     for rows in (ROWS, RAGGED_ROWS):
         gates = torch.randn(T_FRAMES, rows, 4 * h, generator=gen,
                             device=dev).to(torch.bfloat16)
+        log(f"kernel A plan at rows={rows}: "
+            f"{_plan_line(L, dev, h, rows, out_dtype=torch.float32)}")
+        log(f"kernel B plan at rows={rows}: "
+            f"{_plan_line(L, dev, h, rows, carry=True)}")
         for reverse in (False, True):
             got = L.lstm_scan_tm(gates, w_hh, reverse, torch.float32)
             want = L.lstm_scan_reference_tm(gates, w_hh, reverse)
@@ -285,6 +328,7 @@ def phase_kernels(dev):
                        iters=5)
     one_clip = gates[:, :257].contiguous()
     ms_a_257 = cuda_ms(lambda: L.lstm_scan_tm(one_clip, w_hh), iters=5)
+    library_257 = library_lstm_ms(one_clip, w_hh)
     plain_a = cuda_ms(lambda: L.lstm_scan_reference_tm(gates, w_hh), iters=2)
     plain_b = cuda_ms(lambda: [L.lstm_scan_carry_reference_tm(
         gates[s:s + T_CHUNK], w_hh, zeros, zeros)
@@ -293,22 +337,31 @@ def phase_kernels(dev):
     n_chunks = -(-T_FRAMES // T_CHUNK)
     b_a, by_a = bound(T_FRAMES, ROWS, h)
     b_b, by_b = bound(T_FRAMES, ROWS, h, extra_bytes=n_chunks * 4 * ROWS * h * 4)
-    log(f"kernel A at T={T_FRAMES} rows={ROWS} H={h}: {ms_a:.3f} ms "
-        f"(bound {b_a:.3f} ms by {by_a}; plain {plain_a:.3f} ms; cuDNN LSTM "
-        f"{library:.3f} ms) on {card_line()}")
-    log(f"kernel B, {n_chunks} chunks of {T_CHUNK}: {ms_b:.3f} ms "
-        f"(bound {b_b:.3f} ms by {by_b}; plain {plain_b:.3f} ms) on {card_line()}")
+    card = card_line()
+    log(f"kernel A at T={T_FRAMES} rows={ROWS} H={h}: {ms_a:.3f} ms, "
+        f"{1e3 * ms_a / T_FRAMES:.2f} us a step (bound {b_a:.3f} ms by {by_a}; "
+        f"plain {plain_a:.3f} ms; cuDNN LSTM {library:.3f} ms) on {card}")
+    log(f"  plan: {_plan_line(L, dev, h, ROWS)}")
+    log(f"kernel B, {n_chunks} chunks of {T_CHUNK}: {ms_b:.3f} ms, "
+        f"{1e3 * ms_b / T_FRAMES:.2f} us a step (bound {b_b:.3f} ms by {by_b}; "
+        f"plain {plain_b:.3f} ms) on {card}")
+    log(f"  plan: {_plan_line(L, dev, h, ROWS, carry=True)}")
     log(f"kernel B in one chunk of {T_FRAMES}: {ms_b_one:.3f} ms; kernel A at "
-        f"257 rows (one 10 s clip): {ms_a_257:.3f} ms (bound "
-        f"{bound(T_FRAMES, 257, h)[0]:.3f} ms) on {card_line()}")
+        f"257 rows (one 10 s clip): {ms_a_257:.3f} ms, "
+        f"{1e3 * ms_a_257 / T_FRAMES:.2f} us a step (bound "
+        f"{bound(T_FRAMES, 257, h)[0]:.3f} ms; cuDNN LSTM {library_257:.3f} "
+        f"ms) on {card}")
+    log(f"  plan at 257 rows: {_plan_line(L, dev, h, 257)}")
+    log(f"  registers of kernels A and B: {_registers_line(registers, 'AB')}")
     log("  (the cuDNN LSTM is nn.LSTM(4H, H) with W_ih = I and zero bias: the "
         "same recurrence plus one extra [T*rows, 4H] x [4H, 4H] projection)")
     results["lstm_scan_fwd"] = dict(
         max_abs_err=max_a, ms=ms_a, plain_ms=plain_a, bound_ms=b_a,
-        bound_by=by_a, library_ms=library)
+        bound_by=by_a, library_ms=library, plan=_plan_json(L, dev, h, ROWS))
     results["lstm_scan_fwd_carry"] = dict(
         max_abs_err=max_b, ms=ms_b, plain_ms=plain_b, bound_ms=b_b,
-        bound_by=by_b, library_ms=library)
+        bound_by=by_b, library_ms=library,
+        plan=_plan_json(L, dev, h, ROWS, carry=True))
     return results
 
 
@@ -346,7 +399,7 @@ def library_lstm_train_ms(gates, w_hh, gout):
     return cuda_ms(lambda: lstm(x), iters=5), cuda_ms(both, iters=5)
 
 
-def phase_train_kernels(dev):
+def phase_train_kernels(dev, registers):
     """Kernels C (training forward) and D (backward scan) at the training
     shape, and the LSTMScan gradient as a whole."""
     from generative_audio_torch.ops import lstm as L
@@ -361,6 +414,9 @@ def phase_train_kernels(dev):
         gout = torch.randn(t_len, rows, h, generator=gen,
                            device=dev).to(torch.bfloat16)
         tag = f"rows={rows} reverse={reverse}"
+        if not reverse:
+            log(f"kernel C plan at rows={rows}: "
+                f"{_plan_line(L, dev, h, rows, train=True)}")
         with torch.no_grad():
             h_a = L.lstm_scan_tm(gates, w_hh, reverse)
         h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh, reverse)
@@ -451,12 +507,14 @@ def phase_train_kernels(dev):
     b_c, by_c = bound(t_len, rows, h, streams=6)
     b_d, by_d = bound(t_len, rows, h, streams=11, products=2)
     card = card_line()
-    log(f"kernel C at T={t_len} rows={rows} H={h}: {ms_c:.3f} ms (kernel A "
-        f"on the same gates {ms_a:.3f} ms; bound {b_c:.3f} ms by {by_c}; plain "
-        f"{plain_c:.3f} ms; cuDNN LSTM forward, training mode, {lib_fwd:.3f} ms) "
-        f"on {card}")
-    log(f"kernel C at {one_wave} rows (one block per SM): {ms_c_wave:.3f} ms "
-        f"on {card}")
+    log(f"kernel C at T={t_len} rows={rows} H={h}: {ms_c:.3f} ms, "
+        f"{1e3 * ms_c / t_len:.2f} us a step (kernel A on the same gates "
+        f"{ms_a:.3f} ms; bound {b_c:.3f} ms by {by_c}; plain {plain_c:.3f} ms; "
+        f"cuDNN LSTM forward, training mode, {lib_fwd:.3f} ms) on {card}")
+    log(f"  plan: {_plan_line(L, dev, h, rows, train=True)}; registers "
+        f"{_registers_line(registers, 'C')}")
+    log(f"kernel C at {one_wave} rows (16 a SM): {ms_c_wave:.3f} ms on {card}")
+    log(f"  plan: {_plan_line(L, dev, h, one_wave, train=True)}")
     log(f"kernel D at T={t_len} rows={rows} H={h}: {ms_d:.3f} ms (bound "
         f"{b_d:.3f} ms by {by_d}; plain {plain_d:.3f} ms; cuDNN LSTM backward "
         f"{lib_both - lib_fwd:.3f} ms = forward + backward {lib_both:.3f} ms "
@@ -464,7 +522,8 @@ def phase_train_kernels(dev):
     return {
         "lstm_scan_fwd_train": dict(
             max_abs_err=max_c, ms=ms_c, plain_ms=plain_c, bound_ms=b_c,
-            bound_by=by_c, library_ms=lib_fwd),
+            bound_by=by_c, library_ms=lib_fwd,
+            plan=_plan_json(L, dev, h, rows, train=True)),
         "lstm_scan_bwd": dict(
             max_abs_err=max_d, ms=ms_d, plain_ms=plain_d, bound_ms=b_d,
             bound_by=by_d, library_ms=lib_both - lib_fwd)}
@@ -474,7 +533,7 @@ def _uniform(gen, dev, shape, bound):
     return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
 
 
-def phase_lstm_h512(dev):
+def phase_lstm_h512(dev, registers):
     """The three LSTM scan kernels at FullSubNet v1's full-band shape, where
     the v1-LSTM model runs them: H=512 (the backward's shared memory grows to
     114 KB there), very few rows."""
@@ -487,6 +546,8 @@ def phase_lstm_h512(dev):
                             device=dev).to(torch.bfloat16)
         gout = torch.randn(t_len, rows, h, generator=gen,
                            device=dev).to(torch.bfloat16)
+        log(f"LSTM H={h} rows={rows}: kernel A plan {_plan_line(L, dev, h, rows)}"
+            f"; kernel C plan {_plan_line(L, dev, h, rows, train=True)}")
         for reverse in (False, True):
             tag = f"H={h} T={t_len} rows={rows} reverse={reverse}"
             with torch.no_grad():
@@ -520,6 +581,105 @@ def phase_lstm_h512(dev):
             check(err_d.max().item() < BWD_MAX_REL * peak
                   and err_d.mean().item() < BWD_MEAN_REL * peak,
                   f"kernel D vs plain ({tag})")
+        del gates, gout
+
+    # times at the full-band training shape (18 rows, one cluster)
+    rows = TRAIN_BATCH
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        ms_a = cuda_ms(lambda: L.lstm_scan_tm(gates, w_hh), iters=10)
+    ms_c = cuda_ms(lambda: L.lstm_scan_train_tm(gates, w_hh), iters=10)
+    plain_a = cuda_ms(lambda: L.lstm_scan_reference_tm(gates, w_hh), iters=2)
+    lib = library_lstm_ms(gates, w_hh)
+    b_a, by_a = bound(t_len, rows, h)
+    log(f"kernel A at T={t_len} rows={rows} H={h} (full band, training "
+        f"batch): {ms_a:.3f} ms, {1e3 * ms_a / t_len:.2f} us a step (bound "
+        f"{b_a:.4f} ms by {by_a}; plain {plain_a:.3f} ms; cuDNN LSTM "
+        f"{lib:.3f} ms); kernel C {ms_c:.3f} ms on {card_line()}")
+    log(f"  plan: {_plan_line(L, dev, h, rows)}; registers of kernels A-C: "
+        f"{_registers_line(registers, 'ABC')}")
+
+
+def phase_padded_hidden(dev):
+    """Every scan wrapper of the model paths at hidden sizes the kernels do
+    not take as they are (H=100 and 200, zero-padded by the wrappers), T=64,
+    40 rows, against its plain version within the kernel limits."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    t_len, rows = T_CHUNK, 40
+    for h in PADDED_HIDDEN:
+        tag = f"H={h} T={t_len} rows={rows}"
+        w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+        gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        gout = torch.randn(t_len, rows, h, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        h0 = _uniform(gen, dev, (rows, h), 1.0)
+        c0 = torch.randn(rows, h, generator=gen, device=dev)
+        with torch.no_grad():
+            err_a = (L.lstm_scan_tm(gates, w_hh, False, torch.float32)
+                     - L.lstm_scan_reference_tm(gates, w_hh)).abs()
+            h_a = L.lstm_scan_tm(gates, w_hh)
+            got_b = L.lstm_scan_carry_tm(gates, w_hh, h0, c0, True,
+                                         torch.float32)
+        want_b = L.lstm_scan_carry_reference_tm(gates, w_hh, h0, c0, True)
+        err_b = max((x - y).abs().max().item() for x, y in zip(got_b, want_b))
+        h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh)
+        p_c = L.lstm_scan_train_reference_tm(gates, w_hh)[1]
+        err_c = (c_seq.float() - p_c.float()).abs()
+        dg = L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh)
+        p_dg = L.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout, w_hh)
+        err_d = (dg.float() - p_dg.float()).abs()
+        peak = p_dg.float().abs().max().item()
+        torch.cuda.synchronize()
+        log(f"LSTM {tag}: A max|err| {err_a.max().item():.3e} mean "
+            f"{err_a.mean().item():.3e}; B (reverse, from a state) "
+            f"{err_b:.3e}; C c_seq {err_c.max().item():.3e}, h == A bitwise "
+            f"{torch.equal(h_seq, h_a)}; D "
+            f"{err_d.max().item():.3e} mean {err_d.mean().item():.3e} (peak "
+            f"{peak:.3f}); padded to {L.scan_hidden(h)} units (A-C)")
+        check(err_a.max().item() < KERNEL_MAX_ABS
+              and err_a.mean().item() < KERNEL_MEAN_ABS
+              and err_b < KERNEL_MAX_ABS
+              and err_c.max().item() < 8 * KERNEL_MAX_ABS
+              and err_c.mean().item() < 8 * KERNEL_MEAN_ABS
+              and err_d.max().item() < BWD_MAX_REL * peak
+              and err_d.mean().item() < BWD_MEAN_REL * peak
+              and torch.equal(h_seq, h_a),
+              f"LSTM kernels vs plain, and C h == A h bitwise, at {tag}")
+
+        w_g, b_g = (_uniform(gen, dev, (h, 3 * h), h ** -0.5),
+                    _uniform(gen, dev, (3 * h,), h ** -0.5))
+        gx = torch.randn(t_len, rows, 3 * h, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            err_f = (G.gru_scan_tm(gx, w_g, b_g, False, torch.float32)
+                     - G.gru_scan_reference_tm(gx, w_g, b_g)).abs()
+            got_c = G.gru_scan_carry_tm(gx, w_g, b_g, h0, True, torch.float32)
+            h_g = G.gru_scan_tm(gx, w_g, b_g)
+        want_c = G.gru_scan_carry_reference_tm(gx, w_g, b_g, h0, True)
+        err_gc = max((x - y).abs().max().item() for x, y in zip(got_c, want_c))
+        dgx, dw, db = G.gru_scan_bwd_tm(gx, h_g, gout, w_g, b_g)
+        p_dgx, p_dw, p_db = G.gru_scan_bwd_reference_tm(gx, h_g, gout, w_g, b_g)
+        err_g = (dgx.float() - p_dgx.float()).abs()
+        peak_g = p_dgx.float().abs().max().item()
+        rel_w, rel_b = _rel_norm(dw, p_dw), _rel_norm(db, p_db)
+        torch.cuda.synchronize()
+        log(f"GRU {tag}: forward max|err| {err_f.max().item():.3e} mean "
+            f"{err_f.mean().item():.3e}; carry (reverse, from h0) "
+            f"{err_gc:.3e}; backward dgx {err_g.max().item():.3e} mean "
+            f"{err_g.mean().item():.3e} (peak {peak_g:.3f}), dW_hh "
+            f"{rel_w:.3e}, db_hh {rel_b:.3e}; padded to {G.scan_hidden(h)} "
+            f"units (forward)")
+        check(err_f.max().item() < KERNEL_MAX_ABS
+              and err_f.mean().item() < GRU_FWD_MEAN_ABS
+              and err_gc < KERNEL_MAX_ABS
+              and err_g.max().item() < BWD_MAX_REL * peak_g
+              and err_g.mean().item() < BWD_MEAN_REL * peak_g
+              and rel_w < BWD_DW_REL and rel_b < BWD_DW_REL,
+              f"GRU kernels vs plain at {tag}")
 
 
 def _gru_library(w_hh, b_hh):
@@ -579,13 +739,20 @@ def _gru_chunked(G, gates, w_hh, b_hh, reverse, out_dtype):
     return out
 
 
-def _plan_line(G, dev, h, rows, out_dtype=torch.bfloat16, carry=False):
-    """The forward scan's launch plan at (H, rows) on the card."""
-    plan = G.card_scan_plan(dev, h, rows, out_dtype, carry)
+def _plan_line(M, dev, h, rows, **instance):
+    """A cluster scan's launch plan at (H, rows) on the card: M is ops.lstm
+    (kernels A-C; instance flags out_dtype, carry, train) or ops.gru (the
+    GRU forward; out_dtype, carry)."""
+    plan = M.card_scan_plan(dev, h, rows, **instance)
     return (f"cluster C={plan.cluster} x R={plan.rows} rows, {plan.clusters} "
             f"clusters, route DSMEM, cudaOccupancyMaxActiveClusters "
             f"{plan.active}, {plan.waves} wave(s), {plan.smem_bytes} B of "
             f"shared memory a CTA")
+
+
+def _plan_json(L, dev, h, rows, **instance):
+    """The plan of kernels A-C at (H, rows) for the kernels line."""
+    return dataclasses.asdict(L.card_scan_plan(dev, h, rows, **instance))
 
 
 def phase_gru_kernels(dev):
@@ -1558,10 +1725,11 @@ def main():
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(dev)}, {torch.cuda.device_count()} device(s)")
-    phase_build()
-    kernels = phase_kernels(dev)
-    kernels.update(phase_train_kernels(dev))
-    phase_lstm_h512(dev)
+    registers = phase_build()
+    kernels = phase_kernels(dev, registers)
+    kernels.update(phase_train_kernels(dev, registers))
+    phase_lstm_h512(dev, registers)
+    phase_padded_hidden(dev)
     kernels.update(phase_gru_kernels(dev))
     kernels.update(phase_gru_train_kernels(dev))
 

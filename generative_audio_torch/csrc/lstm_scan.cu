@@ -27,169 +27,364 @@
 // products and must move T*rows*(4H + H)*2 B = 4.96 GB (gates in, h out).
 // Against 989 TFLOP/s and 3.35 TB/s both give about 1.5 ms, so the layer
 // sits near the ridge. On top of that there is a serial chain of T
-// dependent steps, each a [rows, H] x [H, 4H] product that no block can
-// start before the previous step's h exists.
+// dependent steps: no step can start before the whole h of the step before
+// is known, so the time is T times the latency of one step. The first
+// design (16-row blocks, each re-reading all of W_hh, 1.18 MB at H = 384,
+// from L2 every step) waited on a few hundred dependent L2 round trips a
+// step, about 66 us, at 257 rows as at 2056.
 //
-// Design (right and simple first; later PRs make it fast):
-//   * Rows are independent, so the grid is over tiles of ROWS = 16 batch
-//     rows (one m16 MMA tile) and the serial time loop runs inside the
-//     block. This replaces the Pallas grid's serial T axis. 2056 rows give
-//     129 blocks for 132 SMs; a ragged last tile is masked, not padded.
-//   * The block keeps its rows' h_{t-1} in shared memory as bf16 (double
-//     buffered, one __syncthreads per step) and c in fp32 in shared memory.
-//   * W_hh (384 x 1536 bf16 = 1.18 MB) does not fit a block's 227 KB of
-//     shared memory, so every step re-reads it from global memory, where it
-//     stays resident in the 50 MB L2. That L2 stream (1.18 MB per block per
-//     step) is what this design pays, and is expected to bound it well
-//     above the 1.5 ms floor.
-//   * Products are mma.sync m16n8k16 with bf16 operands and fp32
-//     accumulators. A warp owns units 8u..8u+7 and computes the four n8
-//     tiles of columns (u, H+u, 2H+u, 3H+u); the accumulator layout then
-//     puts the four gates of each (row, unit) in one thread, so the cell
-//     update needs no exchange between threads.
-//   * Considered and not taken now: a thread-block cluster that splits the
-//     4H columns of W_hh across the blocks of a cluster, keeps each slice
-//     in shared memory, and exchanges h through distributed shared memory
-//     every step. It removes the L2 stream but adds a cluster barrier per
-//     step; it is the first candidate for the PR that makes this fast.
+// Design: a thread-block cluster of C CTAs (8 or 16) owns R batch rows and
+// splits the 4H columns of W_hh by units, as csrc/gru_scan.cu does for the
+// GRU's 3H.
+//   * CTA k of the cluster owns units [k*U, (k+1)*U), U = H/C, and with them
+//     the four gate columns i, f, g, o of each unit, so every (row, unit)
+//     update still needs nothing from another thread. Its W_hh^T slice (4U
+//     rows of wt: 75 KB at H = 384, C = 16; 147 KB at H = 384, C = 8; 130 KB
+//     at H = 512, C = 16) is copied into shared memory once: no step reads
+//     W_hh from L2.
+//   * Every CTA keeps a bf16 copy of the whole h_{t-1} of the cluster's rows
+//     in shared memory, double buffered, and its own units' fp32 c. No fp32
+//     h is kept: the cell reads only c, and kernel B's h_T is the fp32 h of
+//     the last step. After its update a CTA writes its new bf16 slice into
+//     its own next buffer, then into the next buffer of every other CTA of
+//     the cluster (distributed shared memory, 16-byte stores, to the peers
+//     rank+1, rank+2, ... in turn, so that a cluster's CTAs do not all write
+//     to one peer at once), and meets them at one cluster barrier
+//     (release/acquire). The barrier after step s also means that every CTA
+//     has read buffer s&1 before anyone writes it in step s+1, so one
+//     barrier a step is enough; the last one comes before any CTA exits.
+//   * The x-side gates of step t+2 for the thread's own (row, unit) pairs are
+//     copied (4-byte cp.async, two tiles) while steps t and t+1 run, so they
+//     leave the serial chain; each thread waits only for its own copies, in
+//     the shadow of the cluster barrier (between its arrive and its wait).
+//   * The product is the single-block design's, element for element:
+//     mma.sync m16n8k16, bf16 operands, fp32 accumulators from zero, the k
+//     loop in the same order. A warp owns one m16 row tile and 8 units (one
+//     warp per such item, 8 to 18 warps) and computes the n8 tiles of their
+//     i, f, g and o columns, loading the next k-step's fragments while this
+//     one's products run; the cell arithmetic is the same expression.
+//     Splitting the columns changes no element's sum, so h is bit-identical
+//     to the single-block kernel's (and to kernel E's, lstm_scan_staged.cu,
+//     which reorganises that kernel).
+//   * The launch plan (C, R and the shared bytes) comes from the caller
+//     (ops/lstm.py plan_scan, which weighs the shared bytes against
+//     cudaOccupancyMaxActiveClusters, lstm_scan_max_clusters below); the
+//     entries refuse a plan whose bytes are not this layout's. A cluster of
+//     16 is non-portable and is opted into; a launch the card refuses
+//     returns its error. H must be a multiple of 8 * C (the wrappers pad it
+//     with zero units).
 //
 // Plain C interface for ctypes; each function returns the cudaError_t of
 // its launch (0 on success). Launches go to the caller's stream and do not
 // synchronise.
 
+#include <cooperative_groups.h>
+
 #include "scan_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-template <typename OutT, bool CARRY, bool STREAM_C>
-__global__ void __launch_bounds__(NWARPS * 32)
-lstm_scan_kernel(const __nv_bfloat16* __restrict__ gates,
-                 const __nv_bfloat16* __restrict__ wt,
-                 const float* __restrict__ h0, const float* __restrict__ c0,
-                 OutT* __restrict__ out, float* __restrict__ h_T,
-                 float* __restrict__ c_T, __nv_bfloat16* __restrict__ c_seq,
-                 int T, int B, int H, int reverse) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hs = H + PAD;                                   // h row stride
-  __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][ROWS][hs]
-  float* cbuf = reinterpret_cast<float*>(smem + 2 * ROWS * hs * sizeof(__nv_bfloat16));
+constexpr int MIN_WARPS = 8, MAX_WARPS = 18;
 
-  const int row0 = blockIdx.x * ROWS;
-  for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) {
-    const int r = i / H, j = i % H, row = row0 + r;
+// Shared bytes of one CTA for a cluster of C over R rows, in the order the
+// kernel lays them out: W_hh^T slice [4U][H + PAD] bf16, h [2][R][H + PAD]
+// bf16, own c [R][U] fp32, x-side gates of two steps [2][R][4U] bf16. Every
+// region is a multiple of 16 bytes when U % 8 == 0.
+size_t cluster_smem(int H, int C, int R) {
+  const size_t U = H / C, hs = H + PAD, r = R;
+  return (4 * U + 2 * r) * hs * 2 + r * U * 4 + 2 * r * 4 * U * 2;
+}
+
+// Warps of a CTA: one per (m16 row tile, group of 8 units) item, at least
+// MIN_WARPS (they share the exchange's stores) and at most MAX_WARPS.
+int cluster_warps(int H, int C, int R) {
+  return max(MIN_WARPS, min(MAX_WARPS, (R / 16) * (H / C / 8)));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+// Wait until at most `n` of this thread's cp.async groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+}
+
+// mma.sync m16n8k16 as scan_common.cuh's, but not volatile: the compiler may
+// move the next k-step's fragment loads ahead of it. The order of the
+// products into one accumulator is their data dependence, so it is kept.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <typename OutT, bool CARRY, bool STREAM_C>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
+lstm_cluster_kernel(const __nv_bfloat16* __restrict__ gates,
+                    const __nv_bfloat16* __restrict__ wt,
+                    const float* __restrict__ h0, const float* __restrict__ c0,
+                    OutT* __restrict__ out, float* __restrict__ h_T,
+                    float* __restrict__ c_T, __nv_bfloat16* __restrict__ c_seq,
+                    int T, int B, int H, int R, int reverse) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  unsigned int cluster_id;
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(cluster_id));
+
+  const int U = H / C, U4 = 4 * U, hs = H + PAD, G4 = 4 * H;
+  const int col0 = rank * U;                  // first unit of this CTA
+  const int row0 = (int)cluster_id * R;       // first batch row of the cluster
+  const int nrows = min(R, B - row0);         // valid rows, at least 1
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);      // [4U][hs]
+  __nv_bfloat16* hbuf = ws + U4 * hs;                               // [2][R][hs]
+  float* cf = reinterpret_cast<float*>(hbuf + 2 * R * hs);          // [R][U]
+  __nv_bfloat16* gx = reinterpret_cast<__nv_bfloat16*>(cf + R * U); // [2][R][4U]
+  const int nthreads = blockDim.x, nwarps = nthreads / 32;
+
+  // W^T slice: rows q*H + col0 + u of wt (q < 4, u < U), 16-byte copies
+  const int per_row = H / 8;
+  for (int i = threadIdx.x; i < U4 * per_row; i += nthreads) {
+    const int r = i / per_row, c = (i % per_row) * 8;
+    const int q = r / U, u = r % U;
+    *reinterpret_cast<uint4*>(ws + r * hs + c) =
+        *reinterpret_cast<const uint4*>(wt + (size_t)(q * H + col0 + u) * H + c);
+  }
+  // h_{-1}: all units in bf16 (buffer 0; buffer 1 zeroed); c_{-1}: own units
+  for (int i = threadIdx.x; i < R * H; i += nthreads) {
+    const int r = i / H, j = i % H;
     float h = 0.0f, c = 0.0f;
-    if (CARRY && row < B) {
-      h = h0[(size_t)row * H + j];
-      c = c0[(size_t)row * H + j];
+    if (CARRY && r < nrows) {
+      h = h0[(size_t)(row0 + r) * H + j];
+      c = c0[(size_t)(row0 + r) * H + j];
     }
     hbuf[r * hs + j] = __float2bfloat16(h);
-    cbuf[r * H + j] = c;
+    hbuf[(R + r) * hs + j] = __float2bfloat16(0.0f);
+    if (j >= col0 && j < col0 + U) cf[r * U + j - col0] = c;
   }
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane >> 2, tq = lane & 3;   // MMA fragment coordinates
-  const int G4 = 4 * H, ngroups = H / 8, ksteps = H / 16;
+  const int G = U / 8, ksteps = H / 16;
+  // a warp's items: (m16 row tile, group of 8 units) pairs over valid rows
+  const int n_items = (nrows + 15) / 16 * G;
+
+  // step t's x-side gates of this thread's own (row, unit) pairs, into tile
+  // `buf`; one cp.async group per call, empty when t is past the end
+  auto fetch_gates = [&](int t, int buf) {
+    for (int i = warp; i < n_items && t >= 0 && t < T; i += nwarps) {
+      const int jl = 8 * (i % G) + 2 * tq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = (i / G) * 16 + grp + 8 * half;
+        if (r >= nrows) continue;
+        const __nv_bfloat16* src =
+            gates + ((size_t)t * B + row0 + r) * G4 + col0 + jl;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          cp_async4(gx + (buf * R + r) * U4 + q * U + jl, src + q * H);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  const int dir = reverse ? -1 : 1, t0 = reverse ? T - 1 : 0;
+
+  fetch_gates(t0, 0);
+  fetch_gates(t0 + dir, 1);
+  cluster.sync();      // every CTA has started and filled its buffers
+  cp_async_wait<1>();  // step 0's gates (own copies)
 
   for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const __nv_bfloat16* hcur = hbuf + (s & 1) * ROWS * hs;
-    __nv_bfloat16* hnext = hbuf + ((s + 1) & 1) * ROWS * hs;
+    const int t = t0 + dir * s;
+    const __nv_bfloat16* hcur = hbuf + (s & 1) * R * hs;
+    __nv_bfloat16* hnext = hbuf + ((s + 1) & 1) * R * hs;
+    const __nv_bfloat16* gcur = gx + (s & 1) * R * U4;
 
-    for (int u = warp; u < ngroups; u += NWARPS) {
+    for (int i = warp; i < n_items; i += nwarps) {
+      const int mt = i / G, g = i % G;
       float acc[4][4];
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
 
-      for (int k = 0; k < ksteps; ++k) {
-        // A fragment (16x16, row-major) of bf16 h_{t-1}
-        uint32_t a[4];
-        load_a(a, hcur + grp * hs + k * 16 + 2 * tq, hs);
+      // k-steps in pairs (H % 32 == 0), the next k-step's fragments loaded
+      // while this one's products run
+      const __nv_bfloat16* ap = hcur + (mt * 16 + grp) * hs + 2 * tq;
+      const __nv_bfloat16* bp = ws + (8 * g + grp) * hs + 2 * tq;
+      uint32_t a[2][4], b[2][4][2];
+      auto load_k = [&](int k, int slot) {
+        load_a(a[slot], ap + k * 16, hs);     // A (16x16, row-major): h_{t-1}
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          // B fragment (16x8, col-major) = rows of wt [4H, H]
-          const __nv_bfloat16* wp =
-              wt + (size_t)(q * H + 8 * u + grp) * H + k * 16 + 2 * tq;
-          const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wp));
-          const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wp + 8));
-          mma_bf16_16816(acc[q], a, b0, b1);
+        for (int q = 0; q < 4; ++q) {         // B (16x8, col-major): W^T rows
+          const __nv_bfloat16* wp = bp + q * U * hs + k * 16;
+          b[slot][q][0] = *reinterpret_cast<const uint32_t*>(wp);
+          b[slot][q][1] = *reinterpret_cast<const uint32_t*>(wp + 8);
         }
+      };
+      load_k(0, 0);
+      for (int k = 0; k < ksteps; k += 2) {
+        load_k(k + 1, 1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mma16816(acc[q], a[0], b[0][q]);
+        if (k + 2 < ksteps) load_k(k + 2, 0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mma16816(acc[q], a[1], b[1][q]);
       }
 
-      // accumulator (half, e): row grp + 8*half, unit 8u + 2*tq + e
-      const int j = 8 * u + 2 * tq;
+      // accumulator (half, e): row 16 mt + grp + 8 half, unit jl + e
+      const int jl = 8 * g + 2 * tq;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int r = grp + 8 * half, row = row0 + r;
-        const bool valid = row < B;
+        const int r = mt * 16 + grp + 8 * half;
+        const bool valid = r < nrows;
         float z[4][2];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          float2 gx = make_float2(0.0f, 0.0f);
-          if (valid)
-            gx = load_pair(gates + ((size_t)t * B + row) * G4 + q * H + j);
-          z[q][0] = gx.x + acc[q][2 * half];
-          z[q][1] = gx.y + acc[q][2 * half + 1];
+          float2 gv = make_float2(0.0f, 0.0f);
+          if (valid) gv = load_pair(gcur + r * U4 + q * U + jl);
+          z[q][0] = gv.x + acc[q][2 * half];
+          z[q][1] = gv.y + acc[q][2 * half + 1];
         }
         float hn[2], cn[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float c = sigmoidf_(z[1][e]) * cbuf[r * H + j + e] +
+          const float c = sigmoidf_(z[1][e]) * cf[r * U + jl + e] +
                           sigmoidf_(z[0][e]) * tanhf(z[2][e]);
           cn[e] = c;
           hn[e] = sigmoidf_(z[3][e]) * tanhf(c);
-          cbuf[r * H + j + e] = c;
+          cf[r * U + jl + e] = c;
         }
-        store_pair(hnext + r * hs + j, hn[0], hn[1]);
+        store_pair(hnext + r * hs + col0 + jl, hn[0], hn[1]);
         if (valid) {
-          store_pair(out + ((size_t)t * B + row) * H + j, hn[0], hn[1]);
-          if (STREAM_C)
-            store_pair(c_seq + ((size_t)t * B + row) * H + j, cn[0], cn[1]);
+          const size_t o = ((size_t)t * B + row0 + r) * H + col0 + jl;
+          store_pair(out + o, hn[0], hn[1]);
+          if (STREAM_C) store_pair(c_seq + o, cn[0], cn[1]);
           if (CARRY && s == T - 1) {
-            store_pair(h_T + (size_t)row * H + j, hn[0], hn[1]);
-            store_pair(c_T + (size_t)row * H + j, cn[0], cn[1]);
+            store_pair(h_T + (size_t)(row0 + r) * H + col0 + jl, hn[0], hn[1]);
+            store_pair(c_T + (size_t)(row0 + r) * H + col0 + jl, cn[0], cn[1]);
           }
         }
       }
     }
-    __syncthreads();
+    fetch_gates(t + 2 * dir, s & 1);         // into the tile just read
+    __syncthreads();                          // the CTA's slice of h_t is in hnext
+
+    // hand the slice on to the other CTAs of the cluster: each thread reads
+    // a 16-byte piece once and stores it to the peers rank+1, rank+2, ...,
+    // so that the CTAs of a cluster write to different peers at a time
+    const int chunks = U / 8;
+    for (int i = threadIdx.x; i < nrows * chunks; i += nthreads) {
+      uint4* piece = reinterpret_cast<uint4*>(hnext + (i / chunks) * hs + col0 +
+                                              8 * (i % chunks));
+      const uint4 v = *piece;
+      for (int p = 1; p < C; ++p)
+        *cluster.map_shared_rank(piece, (rank + p) % C) = v;
+    }
+    // arrive (release), wait for the next step's gates, then wait (acquire)
+    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+    cp_async_wait<1>();
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
   }
+}
+
+template <typename OutT, bool CARRY, bool STREAM_C>
+cudaError_t prepare(int C, size_t smem) {
+  auto kernel = lstm_cluster_kernel<OutT, CARRY, STREAM_C>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+bool plan_fits(int H, int C, int R) {
+  return (C == 8 || C == 16) && H > 0 && H % (8 * C) == 0 && H % 32 == 0 &&
+         R > 0 && R % 16 == 0;
+}
+
+cudaLaunchAttribute cluster_attr(int C) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
 }
 
 template <typename OutT, bool CARRY, bool STREAM_C = false>
 int launch(const void* gates, const void* wt, const void* h0, const void* c0,
            void* out, void* h_T, void* c_T, void* c_seq, int T, int B, int H,
-           int reverse, void* stream) {
-  const size_t smem = 2 * ROWS * (H + PAD) * sizeof(__nv_bfloat16) +
-                      ROWS * H * sizeof(float);
-  auto kernel = lstm_scan_kernel<OutT, CARRY, STREAM_C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           int reverse, int C, int R, int smem_bytes, void* stream) {
+  if (!plan_fits(H, C, R) || (size_t)smem_bytes != cluster_smem(H, C, R))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare<OutT, CARRY, STREAM_C>(C, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(row_blocks(B));
-  kernel<<<grid, NWARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)gates, (const __nv_bfloat16*)wt,
-      (const float*)h0, (const float*)c0, (OutT*)out, (float*)h_T,
-      (float*)c_T, (__nv_bfloat16*)c_seq, T, B, H, reverse);
+  cudaLaunchAttribute attr = cluster_attr(C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + R - 1) / R));
+  cfg.blockDim = dim3(32 * cluster_warps(H, C, R));
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, lstm_cluster_kernel<OutT, CARRY, STREAM_C>,
+                           (const __nv_bfloat16*)gates,
+                           (const __nv_bfloat16*)wt, (const float*)h0,
+                           (const float*)c0, (OutT*)out, (float*)h_T,
+                           (float*)c_T, (__nv_bfloat16*)c_seq, T, B, H, R,
+                           reverse);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename OutT, bool CARRY, bool STREAM_C = false>
+int max_clusters(int H, int C, int R, int* n) {
+  if (!plan_fits(H, C, R)) return (int)cudaErrorInvalidValue;
+  const size_t smem = cluster_smem(H, C, R);
+  cudaError_t err = prepare<OutT, CARRY, STREAM_C>(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = cluster_attr(C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(32 * cluster_warps(H, C, R));
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      n, lstm_cluster_kernel<OutT, CARRY, STREAM_C>, &cfg);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Kernel A. gates [T, B, 4H] bf16, wt [4H, H] bf16 -> out [T, B, H]
-// (bf16, or fp32 when out_f32). H must be a multiple of 16.
+// Kernel A. gates [T, B, 4H] bf16, wt [4H, H] bf16 -> out [T, B, H] (bf16,
+// or fp32 when out_f32), as clusters of `cluster` CTAs (8 or 16, H a
+// multiple of 8 * cluster) over `rows` batch rows each (a multiple of 16);
+// smem_bytes must be the layout's (ops/lstm.py scan_smem_bytes).
 int lstm_scan_fwd(const void* gates, const void* wt, void* out, int out_f32,
-                  int T, int B, int H, int reverse, void* stream) {
+                  int T, int B, int H, int reverse, int cluster, int rows,
+                  int smem_bytes, void* stream) {
   if (out_f32)
     return launch<float, false>(gates, wt, nullptr, nullptr, out, nullptr,
-                                nullptr, nullptr, T, B, H, reverse, stream);
+                                nullptr, nullptr, T, B, H, reverse, cluster,
+                                rows, smem_bytes, stream);
   return launch<__nv_bfloat16, false>(gates, wt, nullptr, nullptr, out,
                                       nullptr, nullptr, nullptr, T, B, H,
-                                      reverse, stream);
+                                      reverse, cluster, rows, smem_bytes,
+                                      stream);
 }
 
 // Kernel B. As kernel A, plus h0, c0 [B, H] fp32 in and h_T, c_T [B, H]
@@ -197,22 +392,39 @@ int lstm_scan_fwd(const void* gates, const void* wt, void* out, int out_f32,
 int lstm_scan_fwd_carry(const void* gates, const void* wt, const void* h0,
                         const void* c0, void* out, void* h_T, void* c_T,
                         int out_f32, int T, int B, int H, int reverse,
-                        void* stream) {
+                        int cluster, int rows, int smem_bytes, void* stream) {
   if (out_f32)
     return launch<float, true>(gates, wt, h0, c0, out, h_T, c_T, nullptr, T,
-                               B, H, reverse, stream);
+                               B, H, reverse, cluster, rows, smem_bytes,
+                               stream);
   return launch<__nv_bfloat16, true>(gates, wt, h0, c0, out, h_T, c_T,
-                                     nullptr, T, B, H, reverse, stream);
+                                     nullptr, T, B, H, reverse, cluster, rows,
+                                     smem_bytes, stream);
 }
 
 // Kernel C. As kernel A with bf16 output, plus c_seq [T, B, H] bf16 out:
 // c_t after each step, rounded once (the state itself stays fp32 on chip).
 int lstm_scan_fwd_train(const void* gates, const void* wt, void* h_seq,
                         void* c_seq, int T, int B, int H, int reverse,
-                        void* stream) {
+                        int cluster, int rows, int smem_bytes, void* stream) {
   return launch<__nv_bfloat16, false, true>(gates, wt, nullptr, nullptr, h_seq,
                                             nullptr, nullptr, c_seq, T, B, H,
-                                            reverse, stream);
+                                            reverse, cluster, rows, smem_bytes,
+                                            stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the instance (out_f32, carry, train) for
+// a cluster of `cluster` CTAs over `rows` rows at H: *n clusters can run at
+// once on the current device.
+int lstm_scan_max_clusters(int out_f32, int carry, int train, int H,
+                           int cluster, int rows, int* n) {
+  if (train)
+    return max_clusters<__nv_bfloat16, false, true>(H, cluster, rows, n);
+  if (out_f32)
+    return carry ? max_clusters<float, true>(H, cluster, rows, n)
+                 : max_clusters<float, false>(H, cluster, rows, n);
+  return carry ? max_clusters<__nv_bfloat16, true>(H, cluster, rows, n)
+               : max_clusters<__nv_bfloat16, false>(H, cluster, rows, n);
 }
 
 const char* lstm_scan_error_string(int err) {

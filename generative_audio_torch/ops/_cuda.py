@@ -98,10 +98,12 @@ def load(name: str) -> ctypes.CDLL:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lstm_scan": {
-        "lstm_scan_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # ..., reverse, then the launch plan: cluster, rows, shared bytes
+        "lstm_scan_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "lstm_scan_fwd_carry": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _P],
-        "lstm_scan_fwd_train": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _P],
+        "lstm_scan_fwd_train": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P],
     },
     "lstm_scan_staged": {
         "lstm_scan_fwd_unrolled": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -125,8 +127,13 @@ _SIGNATURES = {
     },
 }
 SOURCES = tuple(_SIGNATURES)
-# Queries that launch nothing: (out_f32, carry, H, cluster, rows, int* n).
+# Queries that launch nothing: the instance's flags (out_f32, carry; and
+# train for the LSTM), then H, cluster, rows and int* n.
 _QUERIES = {
+    "lstm_scan": {
+        "lstm_scan_max_clusters": [_I, _I, _I, _I, _I, _I,
+                                   ctypes.POINTER(ctypes.c_int)],
+    },
     "gru_scan": {
         "gru_scan_max_clusters": [_I, _I, _I, _I, _I,
                                   ctypes.POINTER(ctypes.c_int)],

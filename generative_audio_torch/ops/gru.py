@@ -39,14 +39,22 @@ bf16 h_seq, gout and dgates streams, fp32 dh, dW_hh and db_hh.
 
 The launch counts are those of ops/lstm.py, and so is the launch helper;
 `_launch` here appends the launch plan of the two forward entries, which
-run as thread-block clusters: `plan_scan` picks the cluster size and the
-rows per cluster from H, the row count, the shared-memory limit and the
-card's `cudaOccupancyMaxActiveClusters`. `plan_dwhh` cuts the contraction's
-rows into slices. Both planners are plain Python.
+run as thread-block clusters: `plan_scan` (ops/lstm.py's
+`plan_cluster_scan` with this kernel's layout and step model) picks the
+cluster size and the rows per cluster from H, the row count, the
+shared-memory limit and the card's `cudaOccupancyMaxActiveClusters`.
+`plan_dwhh` cuts the contraction's rows into slices. Both planners are
+plain Python.
+
+Any H runs on the card, as for the LSTM: the wrappers zero-pad H to the
+units their kernel takes (`scan_hidden` for the cluster forward, whole
+16-deep k-steps for the backward and the contraction; nothing at H = 384
+and 512) and slice the result back. A padded unit sees zero gates, weights
+and b_hh, so n = tanh(0 + r * 0) = 0 and it stays at h = 0, adds exact
+zeros to the real units' sums and gets zero dgates.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 from typing import Callable, Optional, Tuple
@@ -55,9 +63,12 @@ import torch
 import torch.nn.functional as F
 
 from generative_audio_torch.ops.lstm import (
-    _PAD, SMEM_LIMIT, _check_kernel_operand, _check_kernel_sizes, _is_cuda,
-    _kernel_operand, _wants_grad)
-from generative_audio_torch.ops.lstm import _launch as _launch_entry
+    _PAD, _STEP_UNITS, CLUSTER_SIZES, ScanPlan,
+    _check_kernel_operand, _is_cuda, _kernel_operand, _kernel_weight,
+    _pad_gates, _pad_units, _padded_weight, _unpad_gates, _unpad_units,
+    _wants_grad, card_plan, cluster_hidden, cluster_step_us,
+    plan_cluster_scan)
+from generative_audio_torch.ops.lstm import _launch_kernel as _launch_entry
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "gru_scan_carry_reference_tm", "gru_scan_bwd_streams_tm",
@@ -65,21 +76,16 @@ __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "gru_dwhh_reference", "shifted_rows", "gru_scan_bwd_tm",
            "gru_scan_bwd_reference_tm", "GRUScan", "gru_layer_tm_chunked",
            "ScanPlan", "scan_smem_bytes", "scan_step_us", "plan_scan",
-           "card_scan_plan",
-           "DwhhPlan", "plan_dwhh"]
+           "scan_hidden", "card_scan_plan", "DwhhPlan", "plan_dwhh"]
 
 # Batch rows per block of the backward scan, which writes one db_hh partial
 # per block: the kernel is told the number of partials and refuses another
 # count than its own grid.
 _ROWS_PER_BLOCK = 16
-_MAX_WARPS = 18            # warps per CTA of the forward scan, at most
 # scan_step_us's parts (microseconds), fitted to the cluster scan's steps on
 # an H100 SXM at 700 W: a step with one round of items, each further round
 # of the busiest warp, and one 16-byte store of the h exchange.
 _STEP_US, _ROUND_US, _STORE_US = 2.1, 2.7, 2.2e-3
-# CTAs per cluster of the forward scan: 8 is the portable limit; the kernel
-# opts in to 16, which an H100 allows.
-CLUSTER_SIZES = (8, 16)
 # The forward entries, whose C functions end in the launch plan.
 _CLUSTER_ENTRIES = ("gru_scan_fwd", "gru_scan_fwd_carry")
 # SMs of an H100 SXM: the contraction's tiles x slices fill about one wave.
@@ -90,24 +96,6 @@ _DW_TILE_ROWS, _DW_TILE_COLS, _DW_STAGE_ROWS = 128, 256, 64
 # A slice of the contraction reads at least 8 times the bytes its fp32
 # partial writes: rows * 4H * 2 B >= 8 * H * 3H * 4 B, so rows >= 12 H.
 _DW_ROWS_PER_UNIT = 12
-
-
-@dataclasses.dataclass(frozen=True)
-class ScanPlan:
-    """Launch plan of the forward scan (csrc/gru_scan.cu): clusters of
-    `cluster` CTAs, each CTA owning H / cluster units, over `rows` batch
-    rows per cluster (whole m16 tiles)."""
-    cluster: int          # CTAs per cluster
-    rows: int             # batch rows per cluster
-    clusters: int         # clusters in the grid
-    active: int           # clusters the card runs at once (occupancy)
-    waves: int            # rounds of clusters, one after another
-    smem_bytes: int       # dynamic shared memory of one CTA
-
-    @property
-    def launch_args(self) -> Tuple[int, int, int]:
-        """The C entries' last arguments before the stream."""
-        return self.cluster, self.rows, self.smem_bytes
 
 
 def scan_smem_bytes(hsz: int, cluster: int, rows: int) -> int:
@@ -122,76 +110,24 @@ def scan_smem_bytes(hsz: int, cluster: int, rows: int) -> int:
 
 
 def scan_step_us(hsz: int, cluster: int, rows: int) -> float:
-    """Modelled time of one step of one wave of the forward scan: a step
-    whose warps each take one m16 x 8-unit item (products, cell, cluster
-    barrier, gates), each further round of items of the busiest warp (at
-    most _MAX_WARPS warps), and the 16-byte stores of the h exchange (a CTA
-    sends rows * U / 8 of them to each of its cluster - 1 peers)."""
-    groups = hsz // cluster // 8
-    rounds = -(-(rows // 16 * groups) // _MAX_WARPS)
-    stores = rows * groups * (cluster - 1)
-    return _STEP_US + (rounds - 1) * _ROUND_US + stores * _STORE_US
+    """Modelled time of one step of one wave of the forward scan
+    (ops/lstm.py cluster_step_us with this kernel's fitted parts)."""
+    return cluster_step_us(hsz, cluster, rows, (_STEP_US, _ROUND_US, _STORE_US))
 
 
 def plan_scan(hsz: int, batch: int, max_clusters: Callable[[int, int], int]
               ) -> ScanPlan:
-    """The forward scan's cluster shape for `batch` rows at H = hsz.
-
-    For each cluster size C of CLUSTER_SIZES that splits H into groups of 8
-    units, and each row count R (whole m16 tiles) whose CTA fits in
-    SMEM_LIMIT bytes, the clusters are balanced over the rows and
-    `max_clusters(C, R)` (the card's cudaOccupancyMaxActiveClusters) says
-    how many run at once. The plan minimises waves x scan_step_us; ties go
-    to the smaller cluster, then to fewer clusters. Raises ValueError with
-    each size's reason when nothing fits."""
-    if batch < 1:
-        raise ValueError(f"the scan needs at least one row, got {batch}")
-    tiles = -(-batch // 16)
-    best, refused = None, []
-    for cluster in CLUSTER_SIZES:
-        if hsz % (8 * cluster):
-            refused.append(f"C={cluster}: H={hsz} is no multiple of "
-                           f"{8 * cluster}")
-            continue
-        if scan_smem_bytes(hsz, cluster, 16) > SMEM_LIMIT:
-            refused.append(f"C={cluster}: {scan_smem_bytes(hsz, cluster, 16)} "
-                           f"bytes of shared memory at 16 rows, over "
-                           f"{SMEM_LIMIT}")
-            continue
-        for per_cluster in range(1, tiles + 1):
-            clusters = -(-tiles // per_cluster)
-            rows = 16 * -(-tiles // clusters)        # balanced over clusters
-            smem = scan_smem_bytes(hsz, cluster, rows)
-            if smem > SMEM_LIMIT:
-                break
-            active = max_clusters(cluster, rows)
-            if active < 1:
-                refused.append(f"C={cluster}, R={rows}: the card runs no "
-                               f"such cluster")
-                continue
-            waves = -(-clusters // active)
-            key = (waves * scan_step_us(hsz, cluster, rows), cluster, clusters)
-            if best is None or key < best[0]:
-                best = (key, ScanPlan(cluster, rows, clusters, active, waves,
-                                      smem))
-    if best is None:
-        raise ValueError(f"no cluster plan for the GRU scan at H={hsz}, "
-                         f"{batch} rows: " + "; ".join(refused))
-    return best[1]
+    """The forward scan's cluster shape for `batch` rows at H = hsz (ops/
+    lstm.py plan_cluster_scan with this kernel's layout and step model).
+    Raises ValueError with each cluster size's reason when nothing fits."""
+    return plan_cluster_scan("GRU", hsz, batch, max_clusters,
+                             scan_smem_bytes, scan_step_us)
 
 
-@functools.lru_cache(maxsize=None)
-def _max_clusters(device_index: int, out_f32: bool, carry: bool, hsz: int,
-                  cluster: int, rows: int) -> int:
-    """cudaOccupancyMaxActiveClusters of a forward scan instance on the card
-    (csrc/gru_scan.cu `gru_scan_max_clusters`)."""
-    from generative_audio_torch.ops import _cuda
-    n = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        err = _cuda.load("gru_scan").gru_scan_max_clusters(
-            int(out_f32), int(carry), hsz, cluster, rows, ctypes.byref(n))
-    _cuda.check("gru_scan", err, "gru_scan_max_clusters")
-    return n.value
+def scan_hidden(hsz: int) -> int:
+    """The H the forward scan runs a layer of hsz units at (ops/lstm.py
+    cluster_hidden)."""
+    return cluster_hidden(hsz, scan_smem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,12 +135,10 @@ def card_scan_plan(device: torch.device, hsz: int, batch: int,
                    out_dtype: torch.dtype = torch.bfloat16,
                    carry: bool = False) -> ScanPlan:
     """The plan the forward scan launches with on `device` (a CUDA device)
-    for `batch` rows at H = hsz."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    return plan_scan(hsz, batch, functools.partial(
-        _max_clusters, index, out_dtype == torch.float32, carry, hsz))
+    for `batch` rows at H = hsz (occupancy from csrc/gru_scan.cu
+    `gru_scan_max_clusters`)."""
+    return card_plan("gru_scan", plan_scan, device, hsz, batch,
+                     (int(out_dtype == torch.float32), int(carry)))
 
 
 def _launch(fn_name: str, *args) -> None:
@@ -395,14 +329,10 @@ def _check_shapes(gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return t_len, b, hsz
 
 
-def _kernel_weight(w_hh: torch.Tensor) -> torch.Tensor:
-    """W_hh [H, 3H] -> the kernels' operand: [3H, H] bf16, contiguous (torch's
-    weight_hh layout, so each MMA B fragment is one 32-bit load)."""
-    return _kernel_operand(w_hh.t(), torch.bfloat16)
-
-
-def _kernel_bias(b_hh: torch.Tensor) -> torch.Tensor:
-    return _kernel_operand(b_hh.reshape(-1), torch.float32)
+def _kernel_bias(b_hh: torch.Tensor, hp: int) -> torch.Tensor:
+    """b_hh [3H] -> the kernels' operand: [3hp] fp32, zero-padded per gate."""
+    return _kernel_operand(_pad_gates(b_hh.reshape(-1).float(), 3, hp),
+                           torch.float32)
 
 
 def gru_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -419,14 +349,14 @@ def gru_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     gates = gates_x.to(torch.bfloat16)
     if not _is_cuda(gates, w_hh, b_hh):
         return gru_scan_reference_tm(gates, w_hh, b_hh, reverse).to(out_dtype)
-    _check_kernel_sizes(hsz)
+    hp = scan_hidden(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
-    out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=gates.device)
+    out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     if t_len and b:
-        _launch("gru_scan_fwd", gates, _kernel_weight(w_hh),
-                _kernel_bias(b_hh), out, out_dtype == torch.float32, t_len, b,
-                hsz, reverse)
-    return out
+        _launch("gru_scan_fwd", _pad_gates(gates, 3, hp),
+                _kernel_weight(w_hh, hp), _kernel_bias(b_hh, hp), out,
+                out_dtype == torch.float32, t_len, b, hp, reverse)
+    return _unpad_units(out, hsz)
 
 
 def gru_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
@@ -446,17 +376,19 @@ def gru_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh, b_hh, h0):
         return gru_scan_carry_reference_tm(gates, w_hh, b_hh, h0, reverse,
                                            out_dtype)
-    _check_kernel_sizes(hsz)
+    hp = scan_hidden(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     _check_kernel_operand("h0", h0, torch.float32)
-    out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=gates.device)
     if not (t_len and b):
-        return out, h0.clone()
-    h_t = torch.empty_like(h0)
-    _launch("gru_scan_fwd_carry", gates, _kernel_weight(w_hh),
-            _kernel_bias(b_hh), h0, out, h_t, out_dtype == torch.float32,
-            t_len, b, hsz, reverse)
-    return out, h_t
+        return (torch.empty(t_len, b, hsz, dtype=out_dtype,
+                            device=gates.device), h0.clone())
+    out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
+    h_t = torch.empty(b, hp, dtype=torch.float32, device=gates.device)
+    _launch("gru_scan_fwd_carry", _pad_gates(gates, 3, hp),
+            _kernel_weight(w_hh, hp), _kernel_bias(b_hh, hp),
+            _pad_units(h0, hp), out, h_t, out_dtype == torch.float32, t_len,
+            b, hp, reverse)
+    return _unpad_units(out, hsz), _unpad_units(h_t, hsz)
 
 
 def gru_scan_bwd_streams_tm(gates: torch.Tensor, h_seq: torch.Tensor,
@@ -478,20 +410,26 @@ def gru_scan_bwd_streams_tm(gates: torch.Tensor, h_seq: torch.Tensor,
         return gru_scan_bwd_streams_reference_tm(
             gates.to(torch.bfloat16), h_seq.to(torch.bfloat16),
             gout.to(torch.bfloat16), w_hh, b_hh, reverse)
-    _check_kernel_sizes(hsz)
     for name, x in (("gates", gates), ("h_seq", h_seq), ("gout", gout)):
         _check_kernel_operand(name, x, torch.bfloat16)
-    dgx, dhn = torch.empty_like(gates), torch.empty_like(h_seq)
     if not (t_len and b):
-        return dgx, dhn, torch.zeros(3 * hsz, device=gates.device)
-    db_blocks = torch.empty(-(-b // _ROWS_PER_BLOCK), 3 * hsz,
+        return (torch.empty_like(gates), torch.empty_like(h_seq),
+                torch.zeros(3 * hsz, device=gates.device))
+    hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
+    dgx = torch.empty(t_len, b, 3 * hp, dtype=torch.bfloat16,
+                      device=gates.device)
+    dhn = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=gates.device)
+    db_blocks = torch.empty(-(-b // _ROWS_PER_BLOCK), 3 * hp,
                             dtype=torch.float32, device=gates.device)
     # W_hh in both layouts: [3H, H] for the gates recompute, [H, 3H] (the 3H
     # axis contiguous) for dgates_h @ W_hh^T
-    _launch("gru_scan_bwd", gates, h_seq, gout, _kernel_weight(w_hh),
-            _kernel_operand(w_hh, torch.bfloat16), _kernel_bias(b_hh), dgx,
-            dhn, db_blocks, db_blocks.shape[0], t_len, b, hsz, reverse)
-    return dgx, dhn, db_blocks.sum(dim=0)
+    _launch("gru_scan_bwd", _pad_gates(gates, 3, hp), _pad_units(h_seq, hp),
+            _pad_units(gout, hp), _kernel_weight(w_hh, hp),
+            _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16),
+            _kernel_bias(b_hh, hp), dgx, dhn, db_blocks, db_blocks.shape[0],
+            t_len, b, hp, reverse)
+    return (_unpad_gates(dgx, 3, hsz), _unpad_units(dhn, hsz),
+            _unpad_gates(db_blocks.sum(dim=0), 3, hsz))
 
 
 def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor
@@ -502,7 +440,8 @@ def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor
     per slice of the N rows (plan_dwhh); the partials are summed here in a
     fixed order, so a result repeats bit for bit. The kernel reads its
     operands through TMA descriptors: they must be contiguous and 16-byte
-    aligned, as shifted_rows' views of contiguous streams are."""
+    aligned, as shifted_rows' views of contiguous streams are at an H that
+    needs no padding, and as the padded copies are at any other H."""
     n, hsz = h_prev.shape
     if tuple(dgx.shape) != (n, 3 * hsz) or tuple(dhn.shape) != (n, hsz):
         raise ValueError(f"dgx must be [{n}, {3 * hsz}] and dhn [{n}, {hsz}], "
@@ -511,15 +450,18 @@ def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor
         return gru_dwhh_reference(h_prev, dgx, dhn)
     if not n:
         return torch.zeros(hsz, 3 * hsz, device=h_prev.device)
-    _check_kernel_sizes(hsz)
-    for name, x in (("h_prev", h_prev), ("dgx", dgx), ("dhn", dhn)):
+    # the padded copies are the operands (shifted_rows' views at an H that
+    # is no multiple of 16 may lie off a 16-byte boundary)
+    hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
+    operands = (_pad_units(h_prev, hp), _pad_gates(dgx, 3, hp),
+                _pad_units(dhn, hp))
+    for name, x in zip(("h_prev", "dgx", "dhn"), operands):
         _check_kernel_operand(name, x, torch.bfloat16)
-    plan = plan_dwhh(n, hsz)
-    slices = torch.empty(plan.slices, hsz, 3 * hsz, dtype=torch.float32,
+    plan = plan_dwhh(n, hp)
+    slices = torch.empty(plan.slices, hp, 3 * hp, dtype=torch.float32,
                          device=h_prev.device)
-    _launch("gru_scan_bwd_dwhh", h_prev, dgx, dhn, slices, n, hsz,
-            plan.slices)
-    return slices.sum(dim=0)
+    _launch("gru_scan_bwd_dwhh", *operands, slices, n, hp, plan.slices)
+    return _unpad_gates(slices.sum(dim=0)[:hsz], 3, hsz)
 
 
 def gru_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,

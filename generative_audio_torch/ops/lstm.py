@@ -44,12 +44,30 @@ fp32 accumulation, fp32 c, dh and dc; bf16 h_seq, c_seq, gout and dgates.
 
 `launch_counts` counts kernel launches by kernel name, for the GRU kernels
 of ops/gru.py too (one dict and one launch helper for every kernel of the
-port); `_launch` adds one exactly where it launches, so a run can show that
-the path went through the kernels.
+port); `_launch_kernel` adds one exactly where it launches, so a run can
+show that the path went through the kernels.
+
+Kernels A, B and C run as thread-block clusters (csrc/lstm_scan.cu), as the
+GRU forward does (ops/gru.py): `_launch` appends `card_scan_plan`'s launch
+plan to their arguments. `plan_cluster_scan`, the planner both cells share,
+picks the cluster size and the rows per cluster from H, the row count, the
+shared-memory limit, a step model fitted on the card and the card's
+`cudaOccupancyMaxActiveClusters`; it is plain Python.
+
+Any H runs on the card: the wrappers of the model paths' scans zero-pad H
+to the units their kernel takes (`scan_hidden` for the cluster scans, whole
+16-deep k-steps for the backward) and slice the result back; at H = 384 and
+512 nothing is padded. A padded unit sees zero gates and zero weights, so it
+stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros to the real units'
+sums and gets zero dgates. Kernels E and F and the chains backward, which no
+model path launches, take H as it is and refuse what they cannot run.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import dataclasses
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +77,9 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "lstm_scan_train_reference_tm", "lstm_scan_bwd_tm",
            "lstm_scan_bwd_reference_tm", "LSTMScan", "lstm_layer_tm_chunked",
            "lstm_layer_tm", "lstm_layer_reference_tm", "LSTMLayerScan",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "ScanPlan",
+           "scan_smem_bytes", "scan_step_us", "plan_scan", "scan_hidden",
+           "card_scan_plan", "plan_cluster_scan", "cluster_hidden"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -81,6 +101,23 @@ UNROLL_STEPS = (2, 4)      # kernel E's steps per staged gate tile
 CHAIN_COUNTS = (2, 4)      # kernel G's 16-row chains per block
 # kernel E keeps c in registers, at most 8 unit groups of 8 per warp of 8
 UNROLL_MAX_HIDDEN = 512
+# CTAs per cluster of the forward scans (csrc/lstm_scan.cu, csrc/gru_scan.cu):
+# 8 is the portable limit; the kernels opt in to 16, which an H100 allows.
+CLUSTER_SIZES = (8, 16)
+_MAX_WARPS = 18            # warps per CTA of a cluster scan, at most
+# The units of H the other scan kernels take: whole 16-deep MMA k-steps.
+_STEP_UNITS = 16
+# scan_step_us's parts (microseconds): a step with one round of items, each
+# further round of the busiest warp, and one 16-byte store of the h
+# exchange. The step and the store are a least-squares fit to the steps of
+# eight one-cluster plans of kernel A (H = 384: C = 8 x 16, 32 rows, C = 16 x
+# 16-64 rows; H = 512: C = 16 x 16, 32 rows) on an H100 SXM at 700 W, off by
+# at most 0.9 us a step; the round is the GRU's (ops/gru.py), since no plan
+# at H = 384 or 512 gives a warp a second item.
+_STEP_US, _ROUND_US, _STORE_US = 3.3, 2.7, 1.75e-3
+# The forward entries, whose C functions end in the launch plan.
+_CLUSTER_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry",
+                    "lstm_scan_fwd_train")
 
 
 def reset_launch_counts() -> None:
@@ -263,13 +300,238 @@ def _kernel_operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _kernel_weight(w_hh: torch.Tensor) -> torch.Tensor:
-    """W_hh [H, 4H] -> the kernel's operand: [4H, H] bf16, contiguous (torch's
-    weight_hh layout, so each MMA B fragment is one 32-bit load)."""
-    return _kernel_operand(w_hh.t(), torch.bfloat16)
+def _pad_units(x: torch.Tensor, hp: int) -> torch.Tensor:
+    """x [..., H] -> [..., hp] with zero units appended (x itself when
+    hp == H)."""
+    hsz = x.shape[-1]
+    return x if hsz == hp else F.pad(x, (0, hp - hsz))
+
+
+def _pad_gates(x: torch.Tensor, n: int, hp: int) -> torch.Tensor:
+    """x [..., n*H], n gate blocks of H units -> [..., n*hp], each block
+    with zero units appended (x itself when hp == H)."""
+    hsz = x.shape[-1] // n
+    if hsz == hp:
+        return x
+    return F.pad(x.unflatten(-1, (n, hsz)), (0, hp - hsz)).flatten(-2)
+
+
+def _unpad_units(x: torch.Tensor, hsz: int) -> torch.Tensor:
+    """The first hsz units of x [..., hp], contiguous."""
+    return x if x.shape[-1] == hsz else x[..., :hsz].contiguous()
+
+
+def _unpad_gates(x: torch.Tensor, n: int, hsz: int) -> torch.Tensor:
+    """The first hsz units of each of the n gate blocks of x [..., n*hp]."""
+    hp = x.shape[-1] // n
+    if hp == hsz:
+        return x
+    return x.unflatten(-1, (n, hp))[..., :hsz].flatten(-2)
+
+
+def _padded_weight(w_hh: torch.Tensor, hp: int) -> torch.Tensor:
+    """W_hh [H, n*H] in bf16 with zero units up to hp: [hp, n*hp], zero rows
+    for the padded units' h and zero columns in each gate block."""
+    w = w_hh.to(torch.bfloat16)
+    hsz = w.shape[0]
+    if hsz == hp:
+        return w
+    return F.pad(_pad_gates(w, w.shape[1] // hsz, hp), (0, 0, 0, hp - hsz))
+
+
+def _kernel_weight(w_hh: torch.Tensor, hp: Optional[int] = None
+                   ) -> torch.Tensor:
+    """W_hh [H, n*H] -> the kernels' operand: [n*hp, hp] bf16, contiguous
+    (torch's weight_hh layout, so each MMA B fragment is one 32-bit load),
+    zero-padded to hp units (default: H, no padding)."""
+    return _kernel_operand(_padded_weight(w_hh, hp or w_hh.shape[0]).t(),
+                           torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """Launch plan of a cluster forward scan (csrc/lstm_scan.cu,
+    csrc/gru_scan.cu): clusters of `cluster` CTAs, each CTA owning
+    H / cluster units, over `rows` batch rows per cluster (whole m16
+    tiles)."""
+    cluster: int          # CTAs per cluster
+    rows: int             # batch rows per cluster
+    clusters: int         # clusters in the grid
+    active: int           # clusters the card runs at once (occupancy)
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int]:
+        """The C entries' last arguments before the stream."""
+        return self.cluster, self.rows, self.smem_bytes
+
+
+SmemBytes = Callable[[int, int, int], int]      # (H, cluster, rows) -> bytes
+
+
+def cluster_step_us(hsz: int, cluster: int, rows: int,
+                    parts: Tuple[float, float, float]) -> float:
+    """Modelled time of one step of one wave of a cluster scan, from parts
+    (step, round, store) in microseconds fitted to the kernel: a step whose
+    warps each take one m16 x 8-unit item (products, cell, cluster barrier,
+    gates), each further round of items of the busiest warp (at most
+    _MAX_WARPS warps), and the 16-byte stores of the h exchange (a CTA sends
+    rows * U / 8 of them to each of its cluster - 1 peers)."""
+    step_us, round_us, store_us = parts
+    groups = hsz // cluster // 8
+    rounds = -(-(rows // 16 * groups) // _MAX_WARPS)
+    stores = rows * groups * (cluster - 1)
+    return step_us + (rounds - 1) * round_us + stores * store_us
+
+
+def plan_cluster_scan(what: str, hsz: int, batch: int,
+                      max_clusters: Callable[[int, int], int],
+                      smem_bytes: SmemBytes,
+                      step_us: Callable[[int, int, int], float]) -> ScanPlan:
+    """A cluster scan's shape for `batch` rows at H = hsz, given its layout
+    (`smem_bytes`) and step model (`step_us`, both of (H, cluster, rows)).
+
+    For each cluster size C of CLUSTER_SIZES that splits H into groups of 8
+    units, and each row count R (whole m16 tiles) whose CTA fits in
+    SMEM_LIMIT bytes, the clusters are balanced over the rows and
+    `max_clusters(C, R)` (the card's cudaOccupancyMaxActiveClusters) says
+    how many run at once. The plan minimises waves x step_us; ties go to
+    the smaller cluster, then to fewer clusters. Raises ValueError with each
+    size's reason when nothing fits."""
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    tiles = -(-batch // 16)
+    best, refused = None, []
+    for cluster in CLUSTER_SIZES:
+        if hsz % (8 * cluster):
+            refused.append(f"C={cluster}: H={hsz} is no multiple of "
+                           f"{8 * cluster}")
+            continue
+        if smem_bytes(hsz, cluster, 16) > SMEM_LIMIT:
+            refused.append(f"C={cluster}: {smem_bytes(hsz, cluster, 16)} "
+                           f"bytes of shared memory at 16 rows, over "
+                           f"{SMEM_LIMIT}")
+            continue
+        for per_cluster in range(1, tiles + 1):
+            clusters = -(-tiles // per_cluster)
+            rows = 16 * -(-tiles // clusters)        # balanced over clusters
+            smem = smem_bytes(hsz, cluster, rows)
+            if smem > SMEM_LIMIT:
+                break
+            active = max_clusters(cluster, rows)
+            if active < 1:
+                refused.append(f"C={cluster}, R={rows}: the card runs no "
+                               f"such cluster")
+                continue
+            waves = -(-clusters // active)
+            key = (waves * step_us(hsz, cluster, rows), cluster, clusters)
+            if best is None or key < best[0]:
+                best = (key, ScanPlan(cluster, rows, clusters, active, waves,
+                                      smem))
+    if best is None:
+        raise ValueError(f"no cluster plan for the {what} scan at H={hsz}, "
+                         f"{batch} rows: " + "; ".join(refused))
+    return best[1]
+
+
+def cluster_hidden(hsz: int, smem_bytes: SmemBytes) -> int:
+    """The H a cluster scan runs a layer of hsz units at: the least multiple
+    of 8 C (C of CLUSTER_SIZES) at or above hsz whose CTA of 16 rows fits
+    SMEM_LIMIT bytes. hsz itself when it is such a multiple (384 and 512
+    are). Raises ValueError when no cluster holds the layer's W_hh slice."""
+    for cluster in CLUSTER_SIZES:           # the smaller multiple first
+        hp = -(-hsz // (8 * cluster)) * 8 * cluster
+        if smem_bytes(hp, cluster, 16) <= SMEM_LIMIT:
+            return hp
+    raise ValueError(f"H={hsz} is too large for the cluster scan: no cluster "
+                     f"of {CLUSTER_SIZES} holds its W_hh slice in "
+                     f"{SMEM_LIMIT} B of shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(source: str, device_index: int, instance: Tuple[int, ...],
+                  hsz: int, cluster: int, rows: int) -> int:
+    """cudaOccupancyMaxActiveClusters of a cluster scan instance on the card
+    (`<source>_max_clusters` of csrc/<source>.cu, with the instance's
+    flags)."""
+    from generative_audio_torch.ops import _cuda
+    n = ctypes.c_int(0)
+    query = f"{source}_max_clusters"
+    with torch.cuda.device(device_index):
+        err = getattr(_cuda.load(source), query)(*instance, hsz, cluster,
+                                                 rows, ctypes.byref(n))
+    _cuda.check(source, err, query)
+    return n.value
+
+
+def card_plan(source: str, plan: Callable, device: torch.device, hsz: int,
+              batch: int, instance: Tuple[int, ...]) -> ScanPlan:
+    """`plan(hsz, batch, max_clusters)` with the occupancy of `source`'s
+    instance on `device` (a CUDA device)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return plan(hsz, batch, functools.partial(_max_clusters, source, index,
+                                              instance, hsz))
+
+
+def scan_smem_bytes(hsz: int, cluster: int, rows: int) -> int:
+    """Shared memory of one CTA of kernels A-C (csrc/lstm_scan.cu
+    `cluster_smem`): the W_hh^T slice [4U][H + 8] and two bf16 h buffers
+    [rows][H + 8], the CTA's fp32 c [rows][U] and its x-side gates of two
+    steps [2][rows][4U] bf16, with U = H / cluster units."""
+    units, stride = hsz // cluster, hsz + _PAD
+    return ((4 * units + 2 * rows) * stride * 2 + rows * units * 4
+            + 2 * rows * 4 * units * 2)
+
+
+def scan_step_us(hsz: int, cluster: int, rows: int) -> float:
+    """Modelled time of one step of one wave of kernels A-C
+    (cluster_step_us with this kernel's fitted parts)."""
+    return cluster_step_us(hsz, cluster, rows, (_STEP_US, _ROUND_US, _STORE_US))
+
+
+def plan_scan(hsz: int, batch: int, max_clusters: Callable[[int, int], int]
+              ) -> ScanPlan:
+    """Kernels A-C's cluster shape for `batch` rows at H = hsz (see
+    plan_cluster_scan)."""
+    return plan_cluster_scan("LSTM", hsz, batch, max_clusters,
+                             scan_smem_bytes, scan_step_us)
+
+
+def scan_hidden(hsz: int) -> int:
+    """The H kernels A-C run a layer of hsz units at (cluster_hidden)."""
+    return cluster_hidden(hsz, scan_smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def card_scan_plan(device: torch.device, hsz: int, batch: int,
+                   out_dtype: torch.dtype = torch.bfloat16,
+                   carry: bool = False, train: bool = False) -> ScanPlan:
+    """The plan kernels A (neither flag), B (carry) and C (train, bf16 out)
+    launch with on `device` (a CUDA device) for `batch` rows at H = hsz."""
+    return card_plan("lstm_scan", plan_scan, device, hsz, batch,
+                     (int(out_dtype == torch.float32), int(carry), int(train)))
 
 
 def _launch(fn_name: str, *args) -> None:
+    """Launch csrc entry `fn_name` (see _launch_kernel). Kernels A-C are
+    cluster launches: their arguments end in (T, B, H, reverse), and
+    card_scan_plan's plan for (H, B) on the tensors' card is appended to
+    them."""
+    if fn_name in _CLUSTER_ENTRIES:
+        train = fn_name == "lstm_scan_fwd_train"
+        b, hsz = args[-3], args[-2]
+        out_f32 = not train and bool(args[-5])
+        plan = card_scan_plan(args[0].device, hsz, b,
+                              torch.float32 if out_f32 else torch.bfloat16,
+                              fn_name == "lstm_scan_fwd_carry", train)
+        args = (*args, *plan.launch_args)
+    _launch_kernel(fn_name, *args)
+
+
+def _launch_kernel(fn_name: str, *args) -> None:
     """Launch csrc entry `fn_name` on the tensors' device and current stream.
     `args` are the C function's arguments in order, without the stream:
     tensors (passed as their data pointers) and ints. Raises, before
@@ -294,8 +556,10 @@ def _launch(fn_name: str, *args) -> None:
 
 
 def _check_kernel_sizes(hsz: int) -> None:
-    if hsz % 16:
-        raise ValueError(f"the CUDA scan kernels need H % 16 == 0, got H={hsz}")
+    """Kernels E, F and G take H as it is: whole 16-deep k-steps."""
+    if hsz % _STEP_UNITS:
+        raise ValueError(f"this CUDA scan kernel needs H % {_STEP_UNITS} == 0, "
+                         f"got H={hsz}")
 
 
 def staged_smem_bytes(hsz: int, k: int = 1, f: int = 0) -> int:
@@ -366,19 +630,24 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     gates = gates_x.to(torch.bfloat16)
     if not _is_cuda(gates, w_hh):
         return lstm_scan_reference_tm(gates, w_hh, reverse).to(out_dtype)
-    _check_kernel_sizes(hsz)
+    if block_t != 1:
+        _check_kernel_sizes(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
-    out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=gates.device)
     if block_t != 1:
         check_smem(f"lstm_scan_fwd_unrolled with K={block_t} at H={hsz}",
                    staged_smem_bytes(hsz, k=block_t))
+        out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=gates.device)
         if t_len and b:
             _launch("lstm_scan_fwd_unrolled", gates, _kernel_weight(w_hh),
                     out, t_len, b, hsz, block_t)
-    elif t_len and b:
-        _launch("lstm_scan_fwd", gates, _kernel_weight(w_hh), out,
-                out_dtype == torch.float32, t_len, b, hsz, reverse)
-    return out
+        return out
+    hp = scan_hidden(hsz)
+    out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
+    if t_len and b:
+        _launch("lstm_scan_fwd", _pad_gates(gates, 4, hp),
+                _kernel_weight(w_hh, hp), out, out_dtype == torch.float32,
+                t_len, b, hp, reverse)
+    return _unpad_units(out, hsz)
 
 
 def lstm_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
@@ -398,18 +667,21 @@ def lstm_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh, h0, c0):
         return lstm_scan_carry_reference_tm(gates, w_hh, h0, c0, reverse,
                                             out_dtype)
-    _check_kernel_sizes(hsz)
+    hp = scan_hidden(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     _check_kernel_operand("h0", h0, torch.float32)
     _check_kernel_operand("c0", c0, torch.float32)
-    out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=gates.device)
     if not (t_len and b):
-        return out, h0.clone(), c0.clone()
-    h_t = torch.empty_like(h0)
-    c_t = torch.empty_like(c0)
-    _launch("lstm_scan_fwd_carry", gates, _kernel_weight(w_hh), h0, c0, out,
-            h_t, c_t, out_dtype == torch.float32, t_len, b, hsz, reverse)
-    return out, h_t, c_t
+        return (torch.empty(t_len, b, hsz, dtype=out_dtype,
+                            device=gates.device), h0.clone(), c0.clone())
+    out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
+    h_t = torch.empty(b, hp, dtype=torch.float32, device=gates.device)
+    c_t = torch.empty_like(h_t)
+    _launch("lstm_scan_fwd_carry", _pad_gates(gates, 4, hp),
+            _kernel_weight(w_hh, hp), _pad_units(h0, hp), _pad_units(c0, hp),
+            out, h_t, c_t, out_dtype == torch.float32, t_len, b, hp, reverse)
+    return (_unpad_units(out, hsz), _unpad_units(h_t, hsz),
+            _unpad_units(c_t, hsz))
 
 
 def lstm_scan_train_tm(gates: torch.Tensor, w_hh: torch.Tensor,
@@ -423,15 +695,15 @@ def lstm_scan_train_tm(gates: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh):
         return lstm_scan_train_reference_tm(gates.to(torch.bfloat16), w_hh,
                                             reverse)
-    _check_kernel_sizes(hsz)
+    hp = scan_hidden(hsz)
     _check_kernel_operand("gates", gates, torch.bfloat16)
-    h_seq = torch.empty(t_len, b, hsz, dtype=torch.bfloat16,
+    h_seq = torch.empty(t_len, b, hp, dtype=torch.bfloat16,
                         device=gates.device)
     c_seq = torch.empty_like(h_seq)
     if t_len and b:
-        _launch("lstm_scan_fwd_train", gates, _kernel_weight(w_hh), h_seq,
-                c_seq, t_len, b, hsz, reverse)
-    return h_seq, c_seq
+        _launch("lstm_scan_fwd_train", _pad_gates(gates, 4, hp),
+                _kernel_weight(w_hh, hp), h_seq, c_seq, t_len, b, hp, reverse)
+    return _unpad_units(h_seq, hsz), _unpad_units(c_seq, hsz)
 
 
 def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
@@ -457,24 +729,31 @@ def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
         return lstm_scan_bwd_reference_tm(
             gates.to(torch.bfloat16), h_seq.to(torch.bfloat16),
             c_seq.to(torch.bfloat16), gout.to(torch.bfloat16), w_hh, reverse)
-    _check_kernel_sizes(hsz)
-    check_smem(f"lstm_scan_bwd with {n_chains} chain(s) at H={hsz}",
-               bwd_smem_bytes(hsz, n_chains))
+    if n_chains == 1:
+        hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
+    else:
+        _check_kernel_sizes(hsz)
+        hp = hsz
+    check_smem(f"lstm_scan_bwd with {n_chains} chain(s) at H={hp}",
+               bwd_smem_bytes(hp, n_chains))
     for name, x in (("gates", gates), ("h_seq", h_seq), ("c_seq", c_seq),
                     ("gout", gout)):
         _check_kernel_operand(name, x, torch.bfloat16)
-    dgates = torch.empty_like(gates)
+    dgates = torch.empty(t_len, b, 4 * hp, dtype=torch.bfloat16,
+                         device=gates.device)
     if t_len and b:
         # W_hh in both layouts: [4H, H] for the gates recompute, [H, 4H]
         # (the 4H axis contiguous) for dgates @ W_hh^T
-        operands = (gates, h_seq, c_seq, gout, _kernel_weight(w_hh),
-                    _kernel_operand(w_hh, torch.bfloat16), dgates, t_len, b,
-                    hsz)
+        operands = (_pad_gates(gates, 4, hp), _pad_units(h_seq, hp),
+                    _pad_units(c_seq, hp), _pad_units(gout, hp),
+                    _kernel_weight(w_hh, hp),
+                    _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16),
+                    dgates, t_len, b, hp)
         if n_chains == 1:
             _launch("lstm_scan_bwd", *operands, reverse)
         else:
             _launch("lstm_scan_bwd_chains", *operands, n_chains)
-    return dgates
+    return _unpad_gates(dgates, 4, hsz)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

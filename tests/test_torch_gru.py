@@ -28,6 +28,8 @@ import torch
 from generative_audio_tpu.ops import pallas_lstm as jl
 from generative_audio_torch.ops import gru as tg
 from generative_audio_torch.ops import lstm as tl
+from test_torch_lstm_backward import (BACKWARD_UNITS, FORWARD_UNITS, fill,
+                                      real_units, real_weight, strip)
 
 torch.set_num_threads(2)
 H_ATOL = 5e-3
@@ -242,28 +244,42 @@ def fake_launch(fn_name, *args):
     """Stands in for the launch helper where there is no card: runs what
     each GRU kernel computes into the output buffers it was given, with the
     kernel's partials (db_hh per 16-row block, dW_hh per slice of rows), and
-    counts the launch as the helper does."""
+    counts the launch as the helper does. The scans check the zero padding
+    of H the wrapper handed the kernel and compute on the real units, as
+    tests/test_torch_lstm_backward.py's fake does; the contraction, whose
+    padded rows and columns come out zero, computes on what it is given."""
     if fn_name == "gru_scan_fwd":
         gates, wt, bhh, out, _, _, _, _, reverse = args
-        out.copy_(tg.gru_scan_reference_tm(gates, wt.t(), bhh, bool(reverse)))
+        h = real_units(wt, 3, FORWARD_UNITS)
+        fill(out, tg.gru_scan_reference_tm(strip(gates, h, 3),
+                                           real_weight(wt, h, 3),
+                                           strip(bhh, h, 3), bool(reverse)))
     elif fn_name == "gru_scan_fwd_carry":
         gates, wt, bhh, h0, out, h_t, _, _, _, _, reverse = args
-        seq, h = tg.gru_scan_carry_reference_tm(gates, wt.t(), bhh, h0,
-                                                bool(reverse), out.dtype)
-        out.copy_(seq), h_t.copy_(h)
+        h = real_units(wt, 3, FORWARD_UNITS)
+        seq, hn = tg.gru_scan_carry_reference_tm(
+            strip(gates, h, 3), real_weight(wt, h, 3), strip(bhh, h, 3),
+            strip(h0, h), bool(reverse), out.dtype)
+        fill(out, seq), fill(h_t, hn)
     elif fn_name == "gru_scan_bwd":
         (gates, h_seq, gout, wt, w, bhh, dgx, dhn, db_blocks, n_blocks, _, b,
          _, reverse) = args
         assert torch.equal(wt.t(), w) and bhh.dtype == torch.float32
         assert db_blocks.shape[0] == n_blocks == -(-b // 16)
+        h = real_units(wt, 3, BACKWARD_UNITS)
+        gates, h_seq, gout = strip(gates, h, 3), strip(h_seq, h), strip(gout, h)
+        w, bhh = real_weight(wt, h, 3), strip(bhh, h, 3)
         for i in range(db_blocks.shape[0]):
             rows = slice(16 * i, 16 * (i + 1))
-            dgx[:, rows], dhn[:, rows], db_blocks[i] = tg.gru_scan_bwd_streams_reference_tm(
+            dg, dn, db = tg.gru_scan_bwd_streams_reference_tm(
                 gates[:, rows], h_seq[:, rows], gout[:, rows], w, bhh,
                 bool(reverse))
+            fill(dgx[:, rows], dg, 3), fill(dhn[:, rows], dn)
+            fill(db_blocks[i], db, 3)
     elif fn_name == "gru_scan_bwd_dwhh":
-        h_prev, dgx, dhn, part, n, _, n_slices = args
+        h_prev, dgx, dhn, part, n, hsz, n_slices = args
         assert h_prev.shape[0] == dgx.shape[0] == dhn.shape[0] == n
+        assert h_prev.shape[1] == hsz and hsz % BACKWARD_UNITS == 0
         per = -(-n // n_slices)
         for i in range(n_slices):
             rows = slice(per * i, per * (i + 1))
@@ -370,8 +386,11 @@ def test_kernel_operands_are_checked(launches):
     with pytest.raises(TypeError):                     # bf16 state
         tg.gru_scan_carry_tm(gates, whh, bhh,
                              torch.zeros(2, 16, dtype=torch.bfloat16))
-    with pytest.raises(ValueError):                    # H = 8: no multiple of 16
-        tg.gru_scan_tm(gates[:, :, :24].contiguous(), whh[:8, :24], bhh[:24])
+    # any H is padded for the kernels, but no cluster of 16 holds the W_hh
+    # slice of H = 1024 in shared memory
+    with pytest.raises(ValueError, match="too large for the cluster scan"):
+        tg.gru_scan_tm(torch.zeros(1, 1, 3 * 1024, dtype=torch.bfloat16),
+                       torch.zeros(1024, 3 * 1024), torch.zeros(3 * 1024))
     assert not any(launches.values())
 
 

@@ -169,27 +169,79 @@ def test_chunked_layer_gradients_match_unchunked():
         assert a is not None and torch.equal(a, b_)
 
 
+# The units the wrappers pad H to a multiple of, per kernel: the cluster
+# forward scans take 8-unit groups on each of 8 (or 16) CTAs, the other
+# scans whole 16-deep k-steps (ops/lstm.py scan_hidden and _STEP_UNITS).
+FORWARD_UNITS, BACKWARD_UNITS = 64, 16
+
+
+def real_units(wt, n_gates, units):
+    """The H of the layer whose W_hh^T [n*hp, hp] a wrapper handed a kernel:
+    checks that hp is the least multiple of `units` at or above it and that
+    the padded units' rows and columns are zero. (The random test weights
+    have no zero unit.)"""
+    hp = wt.shape[1]
+    assert hp % units == 0 and wt.shape[0] == n_gates * hp
+    used = (wt != 0).reshape(n_gates, hp, hp)     # [gate, out unit, in unit]
+    hsz = int(torch.nonzero(used.any(0).any(0)).max()) + 1
+    assert hp - hsz < units
+    assert not used[:, hsz:].any() and not used[:, :, hsz:].any()
+    return hsz
+
+
+def strip(x, hsz, n=1):
+    """x [..., n*hp] -> [..., n*hsz], after checking that the padded units of
+    each of its n blocks are zero."""
+    blocks = x.unflatten(-1, (n, x.shape[-1] // n))
+    assert not blocks[..., hsz:].any()
+    return blocks[..., :hsz].flatten(-2)
+
+
+def real_weight(wt, hsz, n):
+    """W_hh [hsz, n*hsz] from the kernel operand W_hh^T [n*hp, hp]."""
+    return strip(wt.t()[:hsz], hsz, n)
+
+
+def fill(buf, value, n=1):
+    """value [..., n*hsz] into the kernel's output buffer buf [..., n*hp],
+    its padded units zero, as the kernel leaves them."""
+    buf.zero_()
+    buf.unflatten(-1, (n, buf.shape[-1] // n))[..., :value.shape[-1] // n] = \
+        value.unflatten(-1, (n, value.shape[-1] // n))
+
+
 def fake_launch(fn_name, *args):
     """Stands in for ops.lstm._launch where there is no card: runs the
     kernel's plain version into the output buffers it was given, and counts
-    the launch as _launch does."""
+    the launch as _launch does. It checks the zero padding of H the wrapper
+    handed the kernel and computes on the real units, as the kernel's zero
+    units leave them unchanged."""
     if fn_name == "lstm_scan_fwd":
         gates, wt, out, _, _, _, _, reverse = args
-        out.copy_(tl.lstm_scan_reference_tm(gates, wt.t(), bool(reverse)))
+        h = real_units(wt, 4, FORWARD_UNITS)
+        fill(out, tl.lstm_scan_reference_tm(strip(gates, h, 4),
+                                            real_weight(wt, h, 4),
+                                            bool(reverse)))
     elif fn_name == "lstm_scan_fwd_carry":
         gates, wt, h0, c0, out, h_t, c_t, _, _, _, _, reverse = args
-        seq, h, c = tl.lstm_scan_carry_reference_tm(gates, wt.t(), h0, c0,
-                                                    bool(reverse), out.dtype)
-        out.copy_(seq), h_t.copy_(h), c_t.copy_(c)
+        h = real_units(wt, 4, FORWARD_UNITS)
+        seq, hn, cn = tl.lstm_scan_carry_reference_tm(
+            strip(gates, h, 4), real_weight(wt, h, 4), strip(h0, h),
+            strip(c0, h), bool(reverse), out.dtype)
+        fill(out, seq), fill(h_t, hn), fill(c_t, cn)
     elif fn_name == "lstm_scan_fwd_train":
         gates, wt, h_seq, c_seq, _, _, _, reverse = args
-        hs, cs = tl.lstm_scan_train_reference_tm(gates, wt.t(), bool(reverse))
-        h_seq.copy_(hs), c_seq.copy_(cs)
+        h = real_units(wt, 4, FORWARD_UNITS)
+        hs, cs = tl.lstm_scan_train_reference_tm(
+            strip(gates, h, 4), real_weight(wt, h, 4), bool(reverse))
+        fill(h_seq, hs), fill(c_seq, cs)
     elif fn_name == "lstm_scan_bwd":
         gates, h_seq, c_seq, gout, wt, w, dgates, _, _, _, reverse = args
         assert torch.equal(wt.t(), w)
-        dgates.copy_(tl.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout,
-                                                   w, bool(reverse)))
+        h = real_units(wt, 4, BACKWARD_UNITS)
+        fill(dgates, tl.lstm_scan_bwd_reference_tm(
+            strip(gates, h, 4), strip(h_seq, h), strip(c_seq, h),
+            strip(gout, h), real_weight(wt, h, 4), bool(reverse)), 4)
     else:
         raise KeyError(fn_name)
     tl.launch_counts[fn_name] += 1
@@ -253,6 +305,9 @@ def test_kernel_operands_are_checked(launches):
         tl.lstm_scan_bwd_tm(gates, state, state, state.float(), whh)
     with pytest.raises(ValueError):
         tl.lstm_scan_bwd_tm(gates, state, state[:2], state, whh)
-    with pytest.raises(ValueError):         # H = 8 is no multiple of 16
-        tl.lstm_scan_train_tm(gates[:, :, :32].contiguous(), whh[:8, :32])
+    # any H is padded for the kernels, but no cluster of 16 holds the W_hh
+    # slice of H = 1024 in shared memory
+    big = torch.zeros(1, 1, 4 * 1024, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="too large for the cluster scan"):
+        tl.lstm_scan_train_tm(big, torch.zeros(1024, 4 * 1024))
     assert not any(launches.values())
