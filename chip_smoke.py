@@ -23,9 +23,13 @@ of which fails the run (non-zero exit, no result line):
      = batch 18 x 128 bins after drop_band, and a ragged row count; forward
      and reverse): the training forward's h against the inference kernel's
      bit for bit, its c sequence and the backward scan's dgates against
-     their plain versions, the whole LSTMScan gradient against autograd
-     through the float32 recurrence, and the times, plans and registers as
-     in phase 2 (the library call is a cuDNN LSTM's forward and backward);
+     their plain versions, the backward's launch plan (a thread-block
+     cluster) against its single-block design bit for bit (and, first, every
+     plan of both backward scans at small shapes, scripts/perf_bwd_scan.py),
+     the whole LSTMScan gradient against autograd through the float32
+     recurrence, and the times (both designs of the backward), plans and
+     registers as in phase 2 (the library call is a cuDNN LSTM's forward and
+     backward);
   4. the serving path at FullSubNet+'s full width (random weights from a
      numpy seed in the JAX param layout, carried across by
      utils/convert.py), bf16: a 1 s clip against the float32 model on the
@@ -42,11 +46,16 @@ of which fails the run (non-zero exit, no result line):
   7. torch.profiler breakdowns by kernel of one batch-8 x 10 s forward and
      of one training step;
   8. the three LSTM scan kernels once more at FullSubNet v1's full-band
-     shape (H=512, T=195, 18 rows and 1 row, forward and reverse), with
-     kernel A's time, plan and registers at 18 rows; then every scan
-     wrapper of the model paths (LSTM forward, carry, training forward and
-     backward; GRU forward, carry and backward) at H=100 and 200, which the
-     wrappers zero-pad to the kernels' units, against its plain version;
+     shape (H=512, T=195, 18 rows and 1 row, forward and reverse; the
+     backward's cluster against its single block bit for bit), with kernel
+     A's and the backward's times (both designs), plans and registers at 18
+     rows; then every scan wrapper of the model paths (LSTM forward, carry,
+     training forward and backward; GRU forward, carry and backward) at
+     H=100 and 200, which the wrappers zero-pad to the kernels' units,
+     against its plain version; then the single-block forwards the wrappers
+     take where no cluster holds H: against the clusters bit for bit at LSTM
+     H=512 and GRU H=640, every model-path wrapper at LSTM H=640 and 768 and
+     GRU H=768 against its plain version, and each entry's time at H=768;
   9. the GRU forward and carry kernels against their plain versions at the
      sub-band serving shape (T=628, H=384, 2056 rows and a ragged count) and
      the full-band shape (H=512, 8 rows and 1 row), chunked against unchunked
@@ -54,10 +63,12 @@ of which fails the run (non-zero exit, no result line):
  10. the GRU backward (the scan and the dW_hh contraction) at the training
      shape (T=195, H=384, 2304 rows and a ragged count; H=512, 18 rows):
      the forward as GRUScan launches it, dgates, dW_hh and db_hh against
-     their plain versions, the contraction alone against a float32 matmul,
-     GRUScan's three gradients against autograd through the float32
-     recurrence, and the times (the library call is a cuDNN GRU's forward
-     and backward, and one torch.mm for the contraction);
+     their plain versions, the scan's plan (a cluster) against its single
+     block bit for bit (dgx, dhn and every db_hh partial), the contraction
+     alone against a float32 matmul, GRUScan's three gradients against
+     autograd through the float32 recurrence, and the times, the scan's at
+     both shapes and in both designs (the library call is a cuDNN GRU's
+     forward and backward, and one torch.mm for the contraction);
  11. phases 4-7 again for FullSubNet v1-GRU (mode full_band_crm_mask; model
      type "fullsubnet"), plus the 1 s clip for v1-LSTM;
  12. the LSTM layer and scan variants, each through its own entry point: the
@@ -168,6 +179,9 @@ LAYER_PATH_MAX_ABS, LAYER_PATH_MEAN_ABS = 1e-2, 5e-4
 SB_FEATURES = 34
 # Hidden sizes the kernels do not take as they are: the wrappers pad them.
 PADDED_HIDDEN = (100, 200)
+# Hidden sizes no cluster holds (LSTM above 512, GRU above 640): the
+# forwards take the single-block route. The GRU runs at the last.
+BLOCK_HIDDEN = (640, 768)
 
 
 def log(msg):
@@ -220,7 +234,8 @@ def phase_build():
                 log(f"  ptxas {name}: {line.strip()}")
     for name in _cuda.SOURCES:
         _cuda.load(name)
-    return _cluster_registers(reports.get("lstm_scan", ""))
+    return {**_cluster_registers(reports.get("lstm_scan", "")),
+            **_bwd_registers(reports)}
 
 
 def _cluster_registers(report):
@@ -238,6 +253,30 @@ def _cluster_registers(report):
         used = re.search(r"Used (\d+) registers", line)
         if used and name:
             found[name], name = int(used.group(1)), None
+    return found
+
+
+def _bwd_registers(reports):
+    """{"D cluster, slice resident": "... registers, ... spilled", ...} for
+    the cluster instances of the two backward scans (lstm_bwd_cluster_kernel
+    and gru_bwd_cluster_kernel <RESIDENT>), from ptxas's reports."""
+    found, name, spill = {}, None, ""
+    for line in "\n".join(reports.get(s, "") for s in (
+            "lstm_scan_bwd", "gru_scan_bwd")).splitlines():
+        entry = re.search(r"(lstm|gru)_bwd_cluster_kernelILb([01])E", line)
+        if "Compiling entry function" in line:
+            name = None
+            if entry:
+                kind = "D" if entry.group(1) == "lstm" else "GRU backward"
+                name = (f"{kind} cluster, slice "
+                        f"{'resident' if entry.group(2) == '1' else 'streamed'}")
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
     return found
 
 
@@ -403,6 +442,12 @@ def phase_train_kernels(dev, registers):
     """Kernels C (training forward) and D (backward scan) at the training
     shape, and the LSTMScan gradient as a whole."""
     from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_bwd_scan as PB
+    # every plan of both backward scans (cluster sizes, rows, the
+    # recompute's slice resident or streamed) == the single block, bit for
+    # bit, at small ragged shapes, forward and reverse
+    check(PB.check(dev) == 0, "every backward plan == the single block "
+          "bitwise (scripts/perf_bwd_scan.py check)")
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     h, t_len = HIDDEN, TRAIN_T
     w_hh = (torch.rand(h, 4 * h, generator=gen, device=dev) * 2 - 1) * h ** -0.5
@@ -453,6 +498,16 @@ def phase_train_kernels(dev, registers):
               f"kernel D vs plain within {BWD_MAX_REL}/{BWD_MEAN_REL} of the "
               f"peak ({tag})")
         max_d = max(max_d, err_d.max().item())
+        # the card's plan (a cluster) against the single-block design
+        dg_block = L.lstm_scan_bwd_planned_tm(gates, h_seq, c_seq, gout, w_hh,
+                                              _block_bwd_plan(L, dev, h, rows),
+                                              reverse)
+        torch.cuda.synchronize()
+        check(torch.equal(dg, dg_block),
+              f"kernel D's plan == the single block bitwise ({tag})")
+        log(f"kernel D {tag}: plan {_bwd_plan_line(L, dev, h, rows)}; == the "
+            f"single block bitwise over {dg.numel()} outputs")
+        del dg_block
 
         # LSTMScan as a whole against autograd through the fp32 recurrence
         g_k = gates.clone().requires_grad_()
@@ -497,6 +552,9 @@ def phase_train_kernels(dev, registers):
     ms_c_wave = cuda_ms(lambda: L.lstm_scan_train_tm(part, w_hh), iters=5)
     ms_d = cuda_ms(lambda: L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh),
                    iters=5)
+    block = _block_bwd_plan(L, dev, h, rows)
+    ms_d_block = cuda_ms(lambda: L.lstm_scan_bwd_planned_tm(
+        gates, h_seq, c_seq, gout, w_hh, block), iters=3)
     plain_c = cuda_ms(lambda: L.lstm_scan_train_reference_tm(gates, w_hh),
                       iters=2)
     plain_d = cuda_ms(lambda: L.lstm_scan_bwd_reference_tm(
@@ -515,10 +573,13 @@ def phase_train_kernels(dev, registers):
         f"{_registers_line(registers, 'C')}")
     log(f"kernel C at {one_wave} rows (16 a SM): {ms_c_wave:.3f} ms on {card}")
     log(f"  plan: {_plan_line(L, dev, h, one_wave, train=True)}")
-    log(f"kernel D at T={t_len} rows={rows} H={h}: {ms_d:.3f} ms (bound "
-        f"{b_d:.3f} ms by {by_d}; plain {plain_d:.3f} ms; cuDNN LSTM backward "
-        f"{lib_both - lib_fwd:.3f} ms = forward + backward {lib_both:.3f} ms "
-        f"less the forward) on {card}")
+    log(f"kernel D at T={t_len} rows={rows} H={h}: {ms_d:.3f} ms, "
+        f"{1e3 * ms_d / t_len:.2f} us a step (the single-block design "
+        f"{ms_d_block:.3f} ms; bound {b_d:.3f} ms by {by_d}; plain "
+        f"{plain_d:.3f} ms; cuDNN LSTM backward {lib_both - lib_fwd:.3f} ms = "
+        f"forward + backward {lib_both:.3f} ms less the forward) on {card}")
+    log(f"  plan: {_bwd_plan_line(L, dev, h, rows)}; registers "
+        f"{_registers_line(registers, 'D')}")
     return {
         "lstm_scan_fwd_train": dict(
             max_abs_err=max_c, ms=ms_c, plain_ms=plain_c, bound_ms=b_c,
@@ -526,7 +587,9 @@ def phase_train_kernels(dev, registers):
             plan=_plan_json(L, dev, h, rows, train=True)),
         "lstm_scan_bwd": dict(
             max_abs_err=max_d, ms=ms_d, plain_ms=plain_d, bound_ms=b_d,
-            bound_by=by_d, library_ms=lib_both - lib_fwd)}
+            bound_by=by_d, library_ms=lib_both - lib_fwd,
+            single_block_ms=ms_d_block,
+            plan=dataclasses.asdict(L.card_bwd_scan_plan(dev, h, rows)))}
 
 
 def _uniform(gen, dev, shape, bound):
@@ -535,8 +598,9 @@ def _uniform(gen, dev, shape, bound):
 
 def phase_lstm_h512(dev, registers):
     """The three LSTM scan kernels at FullSubNet v1's full-band shape, where
-    the v1-LSTM model runs them: H=512 (the backward's shared memory grows to
-    114 KB there), very few rows."""
+    the v1-LSTM model runs them: H=512, very few rows; kernel D's plan (a
+    cluster of 16) against the single block bit for bit, and both designs'
+    times at 18 rows. Returns kernel D's numbers there."""
     from generative_audio_torch.ops import lstm as L
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     h, t_len = FB_HIDDEN, TRAIN_T
@@ -581,6 +645,14 @@ def phase_lstm_h512(dev, registers):
             check(err_d.max().item() < BWD_MAX_REL * peak
                   and err_d.mean().item() < BWD_MEAN_REL * peak,
                   f"kernel D vs plain ({tag})")
+            dg_block = L.lstm_scan_bwd_planned_tm(
+                gates, h_seq, c_seq, gout, w_hh,
+                _block_bwd_plan(L, dev, h, rows), reverse)
+            torch.cuda.synchronize()
+            check(torch.equal(dg, dg_block),
+                  f"kernel D's plan == the single block bitwise ({tag})")
+            log(f"kernel D {tag}: plan {_bwd_plan_line(L, dev, h, rows)}; == "
+                f"the single block bitwise")
         del gates, gout
 
     # times at the full-band training shape (18 rows, one cluster)
@@ -600,6 +672,31 @@ def phase_lstm_h512(dev, registers):
     log(f"  plan: {_plan_line(L, dev, h, rows)}; registers of kernels A-C: "
         f"{_registers_line(registers, 'ABC')}")
 
+    # kernel D at the full-band training shape: both designs, bound, plain
+    # version and cuDNN's backward
+    gout = torch.randn(t_len, rows, h, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh)
+    block = _block_bwd_plan(L, dev, h, rows)
+    ms_d = cuda_ms(lambda: L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh),
+                   iters=10)
+    ms_block = cuda_ms(lambda: L.lstm_scan_bwd_planned_tm(
+        gates, h_seq, c_seq, gout, w_hh, block), iters=3)
+    plain_d = cuda_ms(lambda: L.lstm_scan_bwd_reference_tm(
+        gates, h_seq, c_seq, gout, w_hh), iters=2)
+    lib_fwd, lib_both = library_lstm_train_ms(gates, w_hh, gout)
+    b_d, by_d = bound(t_len, rows, h, streams=11, products=2)
+    log(f"kernel D at T={t_len} rows={rows} H={h} (full band, training "
+        f"batch): {ms_d:.3f} ms, {1e3 * ms_d / t_len:.2f} us a step (the "
+        f"single-block design {ms_block:.3f} ms; bound {b_d:.4f} ms by {by_d}; "
+        f"plain {plain_d:.3f} ms; cuDNN LSTM backward {lib_both - lib_fwd:.3f} "
+        f"ms) on {card_line()}")
+    log(f"  plan: {_bwd_plan_line(L, dev, h, rows)}; registers "
+        f"{_registers_line(registers, 'D')}")
+    return dict(ms=ms_d, single_block_ms=ms_block, plain_ms=plain_d,
+                bound_ms=b_d, bound_by=by_d, library_ms=lib_both - lib_fwd,
+                plan=dataclasses.asdict(L.card_bwd_scan_plan(dev, h, rows)))
+
 
 def phase_padded_hidden(dev):
     """Every scan wrapper of the model paths at hidden sizes the kernels do
@@ -608,78 +705,265 @@ def phase_padded_hidden(dev):
     from generative_audio_torch.ops import gru as G
     from generative_audio_torch.ops import lstm as L
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
-    t_len, rows = T_CHUNK, 40
     for h in PADDED_HIDDEN:
-        tag = f"H={h} T={t_len} rows={rows}"
-        w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
-        gates = torch.randn(t_len, rows, 4 * h, generator=gen,
-                            device=dev).to(torch.bfloat16)
-        gout = torch.randn(t_len, rows, h, generator=gen,
-                           device=dev).to(torch.bfloat16)
-        h0 = _uniform(gen, dev, (rows, h), 1.0)
-        c0 = torch.randn(rows, h, generator=gen, device=dev)
-        with torch.no_grad():
-            err_a = (L.lstm_scan_tm(gates, w_hh, False, torch.float32)
-                     - L.lstm_scan_reference_tm(gates, w_hh)).abs()
-            h_a = L.lstm_scan_tm(gates, w_hh)
-            got_b = L.lstm_scan_carry_tm(gates, w_hh, h0, c0, True,
-                                         torch.float32)
-        want_b = L.lstm_scan_carry_reference_tm(gates, w_hh, h0, c0, True)
-        err_b = max((x - y).abs().max().item() for x, y in zip(got_b, want_b))
-        h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh)
-        p_c = L.lstm_scan_train_reference_tm(gates, w_hh)[1]
-        err_c = (c_seq.float() - p_c.float()).abs()
-        dg = L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh)
-        p_dg = L.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout, w_hh)
-        err_d = (dg.float() - p_dg.float()).abs()
-        peak = p_dg.float().abs().max().item()
-        torch.cuda.synchronize()
-        log(f"LSTM {tag}: A max|err| {err_a.max().item():.3e} mean "
-            f"{err_a.mean().item():.3e}; B (reverse, from a state) "
-            f"{err_b:.3e}; C c_seq {err_c.max().item():.3e}, h == A bitwise "
-            f"{torch.equal(h_seq, h_a)}; D "
-            f"{err_d.max().item():.3e} mean {err_d.mean().item():.3e} (peak "
-            f"{peak:.3f}); padded to {L.scan_hidden(h)} units (A-C)")
-        check(err_a.max().item() < KERNEL_MAX_ABS
-              and err_a.mean().item() < KERNEL_MEAN_ABS
-              and err_b < KERNEL_MAX_ABS
-              and err_c.max().item() < 8 * KERNEL_MAX_ABS
-              and err_c.mean().item() < 8 * KERNEL_MEAN_ABS
-              and err_d.max().item() < BWD_MAX_REL * peak
-              and err_d.mean().item() < BWD_MEAN_REL * peak
-              and torch.equal(h_seq, h_a),
-              f"LSTM kernels vs plain, and C h == A h bitwise, at {tag}")
+        _lstm_wrappers_vs_plain(L, dev, gen, h, T_CHUNK, 40)
+        _gru_wrappers_vs_plain(G, dev, gen, h, T_CHUNK, 40)
 
-        w_g, b_g = (_uniform(gen, dev, (h, 3 * h), h ** -0.5),
-                    _uniform(gen, dev, (3 * h,), h ** -0.5))
-        gx = torch.randn(t_len, rows, 3 * h, generator=gen,
-                         device=dev).to(torch.bfloat16)
+
+def _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows):
+    """The LSTM forward, carry, training forward and backward wrappers at
+    (H, T, rows) against their plain versions within the kernel limits, and
+    C's h == A's h bit for bit."""
+    tag = f"H={h} T={t_len} rows={rows}"
+    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    gout = torch.randn(t_len, rows, h, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    h0 = _uniform(gen, dev, (rows, h), 1.0)
+    c0 = torch.randn(rows, h, generator=gen, device=dev)
+    with torch.no_grad():
+        err_a = (L.lstm_scan_tm(gates, w_hh, False, torch.float32)
+                 - L.lstm_scan_reference_tm(gates, w_hh)).abs()
+        h_a = L.lstm_scan_tm(gates, w_hh)
+        got_b = L.lstm_scan_carry_tm(gates, w_hh, h0, c0, True,
+                                     torch.float32)
+    want_b = L.lstm_scan_carry_reference_tm(gates, w_hh, h0, c0, True)
+    err_b = max((x - y).abs().max().item() for x, y in zip(got_b, want_b))
+    h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh)
+    p_c = L.lstm_scan_train_reference_tm(gates, w_hh)[1]
+    err_c = (c_seq.float() - p_c.float()).abs()
+    dg = L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh)
+    p_dg = L.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout, w_hh)
+    err_d = (dg.float() - p_dg.float()).abs()
+    peak = p_dg.float().abs().max().item()
+    torch.cuda.synchronize()
+    hp, route = L.forward_hidden(h, L.scan_smem_bytes)
+    log(f"LSTM {tag}: A max|err| {err_a.max().item():.3e} mean "
+        f"{err_a.mean().item():.3e}; B (reverse, from a state) "
+        f"{err_b:.3e}; C c_seq {err_c.max().item():.3e}, h == A bitwise "
+        f"{torch.equal(h_seq, h_a)}; D "
+        f"{err_d.max().item():.3e} mean {err_d.mean().item():.3e} (peak "
+        f"{peak:.3f}); A-C at {hp} units "
+        f"({'single blocks' if route else 'clusters'}), D: "
+        f"{_describe_bwd(L.card_bwd_scan_plan(dev, -(-h // 16) * 16, rows))}")
+    check(err_a.max().item() < KERNEL_MAX_ABS
+          and err_a.mean().item() < KERNEL_MEAN_ABS
+          and err_b < KERNEL_MAX_ABS
+          and err_c.max().item() < 8 * KERNEL_MAX_ABS
+          and err_c.mean().item() < 8 * KERNEL_MEAN_ABS
+          and err_d.max().item() < BWD_MAX_REL * peak
+          and err_d.mean().item() < BWD_MEAN_REL * peak
+          and torch.equal(h_seq, h_a),
+          f"LSTM kernels vs plain, and C h == A h bitwise, at {tag}")
+
+
+def _gru_wrappers_vs_plain(G, dev, gen, h, t_len, rows):
+    """The GRU forward, carry and backward wrappers at (H, T, rows) against
+    their plain versions within the kernel limits."""
+    tag = f"H={h} T={t_len} rows={rows}"
+    w_g, b_g = (_uniform(gen, dev, (h, 3 * h), h ** -0.5),
+                _uniform(gen, dev, (3 * h,), h ** -0.5))
+    gx = torch.randn(t_len, rows, 3 * h, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    gout = torch.randn(t_len, rows, h, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    h0 = _uniform(gen, dev, (rows, h), 1.0)
+    with torch.no_grad():
+        err_f = (G.gru_scan_tm(gx, w_g, b_g, False, torch.float32)
+                 - G.gru_scan_reference_tm(gx, w_g, b_g)).abs()
+        got_c = G.gru_scan_carry_tm(gx, w_g, b_g, h0, True, torch.float32)
+        h_g = G.gru_scan_tm(gx, w_g, b_g)
+    want_c = G.gru_scan_carry_reference_tm(gx, w_g, b_g, h0, True)
+    err_gc = max((x - y).abs().max().item() for x, y in zip(got_c, want_c))
+    dgx, dw, db = G.gru_scan_bwd_tm(gx, h_g, gout, w_g, b_g)
+    p_dgx, p_dw, p_db = G.gru_scan_bwd_reference_tm(gx, h_g, gout, w_g, b_g)
+    err_g = (dgx.float() - p_dgx.float()).abs()
+    peak_g = p_dgx.float().abs().max().item()
+    rel_w, rel_b = _rel_norm(dw, p_dw), _rel_norm(db, p_db)
+    torch.cuda.synchronize()
+    hp, route = G._forward_route(h)
+    log(f"GRU {tag}: forward max|err| {err_f.max().item():.3e} mean "
+        f"{err_f.mean().item():.3e}; carry (reverse, from h0) "
+        f"{err_gc:.3e}; backward dgx {err_g.max().item():.3e} mean "
+        f"{err_g.mean().item():.3e} (peak {peak_g:.3f}), dW_hh "
+        f"{rel_w:.3e}, db_hh {rel_b:.3e}; forward at {hp} units "
+        f"({'single blocks' if route else 'clusters'}), backward: "
+        f"{_describe_bwd(G.card_bwd_scan_plan(dev, -(-h // 16) * 16, rows))}")
+    check(err_f.max().item() < KERNEL_MAX_ABS
+          and err_f.mean().item() < GRU_FWD_MEAN_ABS
+          and err_gc < KERNEL_MAX_ABS
+          and err_g.max().item() < BWD_MAX_REL * peak_g
+          and err_g.mean().item() < BWD_MEAN_REL * peak_g
+          and rel_w < BWD_DW_REL and rel_b < BWD_DW_REL,
+          f"GRU kernels vs plain at {tag}")
+
+
+def phase_block_forwards(dev):
+    """The single-block forward route (csrc/lstm_scan_block.cu,
+    csrc/gru_scan_block.cu), which the wrappers take where no cluster holds
+    H: bit for bit against the cluster entries where both run (LSTM H=512,
+    GRU H=640, forward and reverse, bf16 and fp32 out, from a state); every
+    model-path scan wrapper at LSTM H=640 and 768 and GRU H=768 against its
+    plain version within the kernel limits, with the launch counts set to 0
+    around them; and each entry at H=768, T=195, 18 rows against its plain
+    version, with its time beside bound, plain version and cuDNN. Returns
+    the entries' numbers for the kernels line and their launches."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    t_len, rows = T_CHUNK, 40
+
+    def both_routes(run):
+        """run() on the card's route and on the single-block route."""
         with torch.no_grad():
-            err_f = (G.gru_scan_tm(gx, w_g, b_g, False, torch.float32)
-                     - G.gru_scan_reference_tm(gx, w_g, b_g)).abs()
-            got_c = G.gru_scan_carry_tm(gx, w_g, b_g, h0, True, torch.float32)
-            h_g = G.gru_scan_tm(gx, w_g, b_g)
-        want_c = G.gru_scan_carry_reference_tm(gx, w_g, b_g, h0, True)
-        err_gc = max((x - y).abs().max().item() for x, y in zip(got_c, want_c))
-        dgx, dw, db = G.gru_scan_bwd_tm(gx, h_g, gout, w_g, b_g)
-        p_dgx, p_dw, p_db = G.gru_scan_bwd_reference_tm(gx, h_g, gout, w_g, b_g)
-        err_g = (dgx.float() - p_dgx.float()).abs()
-        peak_g = p_dgx.float().abs().max().item()
-        rel_w, rel_b = _rel_norm(dw, p_dw), _rel_norm(db, p_db)
+            got = run()
+            with L.single_block_forwards():
+                blk = run()
         torch.cuda.synchronize()
-        log(f"GRU {tag}: forward max|err| {err_f.max().item():.3e} mean "
-            f"{err_f.mean().item():.3e}; carry (reverse, from h0) "
-            f"{err_gc:.3e}; backward dgx {err_g.max().item():.3e} mean "
-            f"{err_g.mean().item():.3e} (peak {peak_g:.3f}), dW_hh "
-            f"{rel_w:.3e}, db_hh {rel_b:.3e}; padded to {G.scan_hidden(h)} "
-            f"units (forward)")
-        check(err_f.max().item() < KERNEL_MAX_ABS
-              and err_f.mean().item() < GRU_FWD_MEAN_ABS
-              and err_gc < KERNEL_MAX_ABS
-              and err_g.max().item() < BWD_MAX_REL * peak_g
-              and err_g.mean().item() < BWD_MEAN_REL * peak_g
-              and rel_w < BWD_DW_REL and rel_b < BWD_DW_REL,
-              f"GRU kernels vs plain at {tag}")
+        return got, blk
+
+    h = FB_HIDDEN                                  # LSTM: clusters of 16
+    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    h0 = _uniform(gen, dev, (rows, h), 1.0)
+    c0 = torch.randn(rows, h, generator=gen, device=dev)
+    for reverse in (False, True):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got, blk = both_routes(lambda: (
+                L.lstm_scan_tm(gates, w_hh, reverse, out_dtype),
+                *L.lstm_scan_carry_tm(gates, w_hh, h0, c0, reverse, out_dtype)))
+            check(all(torch.equal(x, y) for x, y in zip(got, blk)),
+                  f"LSTM single-block A, B == clusters bitwise (H={h}, "
+                  f"reverse={reverse}, {out_dtype})")
+        got, blk = both_routes(lambda: L.lstm_scan_train_tm(gates, w_hh,
+                                                            reverse))
+        check(all(torch.equal(x, y) for x, y in zip(got, blk)),
+              f"LSTM single-block C == cluster C bitwise (H={h}, "
+              f"reverse={reverse})")
+    log(f"LSTM single-block forwards (A, B from a state, C) == the clusters "
+        f"bitwise at H={h} T={t_len} rows={rows}, forward and reverse, bf16 "
+        f"and fp32 out")
+    h = 640                                        # GRU: clusters of 16
+    w_g, b_g = (_uniform(gen, dev, (h, 3 * h), h ** -0.5),
+                _uniform(gen, dev, (3 * h,), h ** -0.5))
+    gx = torch.randn(t_len, rows, 3 * h, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    h0 = _uniform(gen, dev, (rows, h), 1.0)
+    for reverse in (False, True):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got, blk = both_routes(lambda: (
+                G.gru_scan_tm(gx, w_g, b_g, reverse, out_dtype),
+                *G.gru_scan_carry_tm(gx, w_g, b_g, h0, reverse, out_dtype)))
+            check(all(torch.equal(x, y) for x, y in zip(got, blk)),
+                  f"GRU single-block forward, carry == clusters bitwise "
+                  f"(H={h}, reverse={reverse}, {out_dtype})")
+    log(f"GRU single-block forward and carry == the clusters bitwise at H={h} "
+        f"T={t_len} rows={rows}, forward and reverse, bf16 and fp32 out; "
+        f"the cluster plan there: {_plan_line(G, dev, h, rows)}")
+    del gates, gx
+
+    # the route itself: every model-path wrapper where no cluster fits
+    L.reset_launch_counts()
+    for h in BLOCK_HIDDEN:
+        _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows)
+    _gru_wrappers_vs_plain(G, dev, gen, BLOCK_HIDDEN[-1], t_len, rows)
+    launches = {k: n for k, n in L.launch_counts.items()
+                if k.endswith("_block")}
+    log(f"launches of the single-block forwards at LSTM H={BLOCK_HIDDEN} and "
+        f"GRU H={BLOCK_HIDDEN[-1]}: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched by the wrappers at an H no cluster "
+              f"holds")
+
+    # each entry at H=768, the full-band training shape's T and rows
+    h, t_len, rows = BLOCK_HIDDEN[-1], TRAIN_T, TRAIN_BATCH
+    card = card_line()
+    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    zeros = torch.zeros(rows, h, device=dev)
+    with torch.no_grad():
+        err_a = (L.lstm_scan_tm(gates, w_hh, False, torch.float32)
+                 - L.lstm_scan_reference_tm(gates, w_hh)).abs().max().item()
+        err_b = max((x - y).abs().max().item() for x, y in zip(
+            L.lstm_scan_carry_tm(gates, w_hh, zeros, zeros, False,
+                                 torch.float32),
+            L.lstm_scan_carry_reference_tm(gates, w_hh, zeros, zeros)))
+    err_c = max((x.float() - y.float()).abs().max().item() for x, y in zip(
+        L.lstm_scan_train_tm(gates, w_hh),
+        L.lstm_scan_train_reference_tm(gates, w_hh)))
+    check(err_a < KERNEL_MAX_ABS and err_b < KERNEL_MAX_ABS
+          and err_c < 8 * KERNEL_MAX_ABS,
+          f"LSTM single-block forwards vs plain at H={h} T={t_len} "
+          f"rows={rows}")
+    with torch.no_grad():
+        ms_a = cuda_ms(lambda: L.lstm_scan_tm(gates, w_hh), iters=5)
+        ms_b = cuda_ms(lambda: L.lstm_scan_carry_tm(gates, w_hh, zeros,
+                                                    zeros), iters=5)
+    ms_c = cuda_ms(lambda: L.lstm_scan_train_tm(gates, w_hh), iters=5)
+    plain_a = cuda_ms(lambda: L.lstm_scan_reference_tm(gates, w_hh), iters=2)
+    plain_b = cuda_ms(lambda: L.lstm_scan_carry_reference_tm(
+        gates, w_hh, zeros, zeros), iters=2)
+    plain_c = cuda_ms(lambda: L.lstm_scan_train_reference_tm(gates, w_hh),
+                      iters=2)
+    lib_a = library_lstm_ms(gates, w_hh)
+    lib_c = library_lstm_train_ms(gates, w_hh, torch.randn(
+        t_len, rows, h, generator=gen, device=dev).to(torch.bfloat16))[0]
+    b_a, by_a = bound(t_len, rows, h)
+    b_b, by_b = bound(t_len, rows, h, extra_bytes=4 * rows * h * 4)
+    b_c, by_c = bound(t_len, rows, h, streams=6)
+    log(f"LSTM single-block forwards at T={t_len} rows={rows} H={h}: A "
+        f"{ms_a:.3f} ms (max|err| {err_a:.3e}), B in one chunk {ms_b:.3f} ms "
+        f"({err_b:.3e}), C {ms_c:.3f} ms ({err_c:.3e}); bounds {b_a:.4f} / "
+        f"{b_b:.4f} / {b_c:.4f} ms; plain {plain_a:.3f} / {plain_b:.3f} / "
+        f"{plain_c:.3f} ms; cuDNN LSTM {lib_a:.3f} ms, training-mode forward "
+        f"{lib_c:.3f} ms on {card}")
+    w_g, b_g = (_uniform(gen, dev, (h, 3 * h), h ** -0.5),
+                _uniform(gen, dev, (3 * h,), h ** -0.5))
+    gx = torch.randn(t_len, rows, 3 * h, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        err_f = (G.gru_scan_tm(gx, w_g, b_g, False, torch.float32)
+                 - G.gru_scan_reference_tm(gx, w_g, b_g)).abs().max().item()
+        err_g = max((x - y).abs().max().item() for x, y in zip(
+            G.gru_scan_carry_tm(gx, w_g, b_g, zeros, False, torch.float32),
+            G.gru_scan_carry_reference_tm(gx, w_g, b_g, zeros)))
+        ms_f = cuda_ms(lambda: G.gru_scan_tm(gx, w_g, b_g), iters=5)
+        ms_g = cuda_ms(lambda: G.gru_scan_carry_tm(gx, w_g, b_g, zeros),
+                       iters=5)
+    check(err_f < KERNEL_MAX_ABS and err_g < KERNEL_MAX_ABS,
+          f"GRU single-block forwards vs plain at H={h} T={t_len} rows={rows}")
+    plain_f = cuda_ms(lambda: G.gru_scan_reference_tm(gx, w_g, b_g), iters=2)
+    plain_g = cuda_ms(lambda: G.gru_scan_carry_reference_tm(gx, w_g, b_g,
+                                                            zeros), iters=2)
+    lib_f = library_gru_ms(gx, w_g, b_g)
+    b_f, by_f = bound(t_len, rows, h, streams=4, gates=3,
+                      extra_bytes=3 * h * 4)
+    b_g2, by_g2 = bound(t_len, rows, h, streams=4, gates=3,
+                        extra_bytes=3 * h * 4 + 2 * rows * h * 4)
+    log(f"GRU single-block forwards at T={t_len} rows={rows} H={h}: forward "
+        f"{ms_f:.3f} ms (max|err| {err_f:.3e}), carry in one chunk "
+        f"{ms_g:.3f} ms ({err_g:.3e}); bounds {b_f:.4f} / {b_g2:.4f} ms; plain "
+        f"{plain_f:.3f} / {plain_g:.3f} ms; cuDNN GRU {lib_f:.3f} ms on {card}")
+    kernels = {
+        "lstm_scan_fwd_block": dict(max_abs_err=err_a, ms=ms_a,
+                                    plain_ms=plain_a, bound_ms=b_a,
+                                    bound_by=by_a, library_ms=lib_a),
+        "lstm_scan_fwd_carry_block": dict(max_abs_err=err_b, ms=ms_b,
+                                          plain_ms=plain_b, bound_ms=b_b,
+                                          bound_by=by_b, library_ms=lib_a),
+        "lstm_scan_fwd_train_block": dict(max_abs_err=err_c, ms=ms_c,
+                                          plain_ms=plain_c, bound_ms=b_c,
+                                          bound_by=by_c, library_ms=lib_c),
+        "gru_scan_fwd_block": dict(max_abs_err=err_f, ms=ms_f,
+                                   plain_ms=plain_f, bound_ms=b_f,
+                                   bound_by=by_f, library_ms=lib_f),
+        "gru_scan_fwd_carry_block": dict(max_abs_err=err_g, ms=ms_g,
+                                         plain_ms=plain_g, bound_ms=b_g2,
+                                         bound_by=by_g2, library_ms=lib_f)}
+    return kernels, launches
 
 
 def _gru_library(w_hh, b_hh):
@@ -748,6 +1032,33 @@ def _plan_line(M, dev, h, rows, **instance):
             f"clusters, route DSMEM, cudaOccupancyMaxActiveClusters "
             f"{plan.active}, {plan.waves} wave(s), {plan.smem_bytes} B of "
             f"shared memory a CTA")
+
+
+def _bwd_plan_line(M, dev, h, rows):
+    """The backward scan's launch plan at (H, rows) on the card: M is
+    ops.lstm (kernel D) or ops.gru (the GRU backward scan)."""
+    plan = M.card_bwd_scan_plan(dev, h, rows)
+    return _describe_bwd(plan)
+
+
+def _describe_bwd(plan):
+    if plan.design == "block":
+        return (f"single block, {plan.clusters} blocks of 16 rows, "
+                f"{plan.active} at once, {plan.waves} wave(s), "
+                f"{plan.smem_bytes} B of shared memory a block, modelled "
+                f"{plan.step_us:.2f} us a step")
+    return (f"cluster C={plan.cluster} x R={plan.rows} rows, recompute's "
+            f"W_hh^T slice {'resident' if plan.resident else 'from L2'}, "
+            f"{plan.clusters} clusters, cudaOccupancyMaxActiveClusters "
+            f"{plan.active}, {plan.waves} wave(s), {plan.smem_bytes} B of "
+            f"shared memory a CTA, modelled {plan.step_us:.2f} us a step")
+
+
+def _block_bwd_plan(M, dev, h, rows):
+    """The single-block design's plan at (H, rows): the planner with no
+    cluster to choose from."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return M.plan_bwd_scan(h, rows, lambda c, r, resident: 0, sms)
 
 
 def _plan_json(L, dev, h, rows, **instance):
@@ -880,9 +1191,11 @@ def _rel_norm(got, want):
     return ((got - want).norm() / want.norm()).item()
 
 
-def phase_gru_train_kernels(dev):
+def phase_gru_train_kernels(dev, registers):
     """The GRU backward (scan + dW_hh contraction) at the training shapes,
-    and the GRUScan gradient as a whole."""
+    the scan's plan (a cluster) against the single block bit for bit (dgx,
+    dhn and every db_hh partial), and the GRUScan gradient as a whole; the
+    scan's times at the sub-band and full-band training shapes."""
     from generative_audio_torch.ops import gru as G
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     t_len = TRAIN_T
@@ -951,6 +1264,23 @@ def phase_gru_train_kernels(dev):
             max_d = max(max_d, err_d.max().item())
             max_w = max(max_w, (alone - p_dw).abs().max().item())
             del p_dgx, p_dhn, shifted, err_d
+            # the card's plan (a cluster) against the single-block design:
+            # dgx, dhn and the db_hh partial of every 16-row tile
+            got = G.gru_scan_bwd_streams_planned_tm(
+                gates, h_seq, gout, w_hh, b_hh,
+                G.card_bwd_scan_plan(dev, h, rows), reverse)
+            want = G.gru_scan_bwd_streams_planned_tm(
+                gates, h_seq, gout, w_hh, b_hh,
+                _block_bwd_plan(G, dev, h, rows), reverse)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, want))
+                  and torch.equal(got[0], dgx),
+                  f"GRU backward scan's plan == the single block bitwise "
+                  f"(dgx, dhn, {got[2].shape[0]} db_hh partials; {tag})")
+            log(f"GRU backward scan {tag}: plan "
+                f"{_bwd_plan_line(G, dev, h, rows)}; == the single block "
+                f"bitwise (dgx, dhn, {got[2].shape[0]} db_hh partials)")
+            del got, want
 
             # GRUScan as a whole against autograd through the fp32 recurrence
             kernel_in = [gates.clone().requires_grad_(),
@@ -997,6 +1327,9 @@ def phase_gru_train_kernels(dev):
     dgx, dhn, _ = G.gru_scan_bwd_streams_tm(gates, h_seq, gout, w_hh, b_hh)
     ms_d = cuda_ms(lambda: G.gru_scan_bwd_streams_tm(gates, h_seq, gout, w_hh,
                                                      b_hh), iters=5)
+    block = _block_bwd_plan(G, dev, h, rows)
+    ms_d_block = cuda_ms(lambda: G.gru_scan_bwd_streams_planned_tm(
+        gates, h_seq, gout, w_hh, b_hh, block), iters=3)
     plain_d = cuda_ms(lambda: G.gru_scan_bwd_streams_reference_tm(
         gates, h_seq, gout, w_hh, b_hh), iters=2)
     lib_fwd, lib_both = library_gru_train_ms(gates, w_hh, b_hh, gout)
@@ -1011,10 +1344,14 @@ def phase_gru_train_kernels(dev):
         f"forward, training mode, {lib_fwd:.3f} ms) on {card}")
     log(f"  plan: {_plan_line(G, dev, h, rows)}")
     log(f"GRU backward scan at T={t_len} rows={rows} H={h}: {ms_d:.3f} ms, "
-        f"{1e3 * ms_d / t_len:.2f} us a step (bound {b_d:.3f} ms by {by_d}; "
-        f"plain {plain_d:.3f} ms; cuDNN GRU backward {lib_both - lib_fwd:.3f} "
+        f"{1e3 * ms_d / t_len:.2f} us a step (the single-block design "
+        f"{ms_d_block:.3f} ms; bound {b_d:.3f} ms by {by_d}; plain "
+        f"{plain_d:.3f} ms; cuDNN GRU backward {lib_both - lib_fwd:.3f} "
         f"ms = forward + backward {lib_both:.3f} ms less the forward, dW_hh "
         f"and db_hh included) on {card}")
+    log(f"  plan: {_bwd_plan_line(G, dev, h, rows)}; registers "
+        f"{_registers_line(registers, 'G')}")
+    scan_plan = dataclasses.asdict(G.card_bwd_scan_plan(dev, h, rows))
     contraction = _time_dwhh(G, h_seq, dgx, dhn, card)
     del gates, gout, h_seq, dgx, dhn
     # the contraction at the full-band training shape
@@ -1028,10 +1365,35 @@ def phase_gru_train_kernels(dev):
         h_seq = G.gru_scan_tm(gates, w_hh, b_hh)
     dgx, dhn, _ = G.gru_scan_bwd_streams_tm(gates, h_seq, gout, w_hh, b_hh)
     _time_dwhh(G, h_seq, dgx, dhn, card)
+    # the scan at the full-band training shape: both designs, bound, plain
+    # version and cuDNN's backward
+    ms_fb = cuda_ms(lambda: G.gru_scan_bwd_streams_tm(gates, h_seq, gout,
+                                                      w_hh, b_hh), iters=10)
+    block = _block_bwd_plan(G, dev, h, rows)
+    ms_fb_block = cuda_ms(lambda: G.gru_scan_bwd_streams_planned_tm(
+        gates, h_seq, gout, w_hh, b_hh, block), iters=3)
+    plain_fb = cuda_ms(lambda: G.gru_scan_bwd_streams_reference_tm(
+        gates, h_seq, gout, w_hh, b_hh), iters=2)
+    lib_fwd_fb, lib_both_fb = library_gru_train_ms(gates, w_hh, b_hh, gout)
+    b_fb, by_fb = bound(t_len, rows, h, streams=9, products=2, gates=3,
+                        extra_bytes=2 * 3 * h * 4)
+    log(f"GRU backward scan at T={t_len} rows={rows} H={h} (full band, "
+        f"training batch): {ms_fb:.3f} ms, {1e3 * ms_fb / t_len:.2f} us a step "
+        f"(the single-block design {ms_fb_block:.3f} ms; bound {b_fb:.4f} ms "
+        f"by {by_fb}; plain {plain_fb:.3f} ms; cuDNN GRU backward "
+        f"{lib_both_fb - lib_fwd_fb:.3f} ms, dW_hh and db_hh included) on "
+        f"{card}")
+    log(f"  plan: {_bwd_plan_line(G, dev, h, rows)}")
     return {
         "gru_scan_bwd": dict(
             max_abs_err=max_d, ms=ms_d, plain_ms=plain_d, bound_ms=b_d,
-            bound_by=by_d, library_ms=lib_both - lib_fwd),
+            bound_by=by_d, library_ms=lib_both - lib_fwd,
+            single_block_ms=ms_d_block, plan=scan_plan,
+            full_band=dict(
+                ms=ms_fb, single_block_ms=ms_fb_block, plain_ms=plain_fb,
+                bound_ms=b_fb, bound_by=by_fb,
+                library_ms=lib_both_fb - lib_fwd_fb,
+                plan=dataclasses.asdict(G.card_bwd_scan_plan(dev, h, rows)))),
         "gru_scan_bwd_dwhh": dict(max_abs_err=max_w, **contraction)}
 
 
@@ -1728,10 +2090,12 @@ def main():
     registers = phase_build()
     kernels = phase_kernels(dev, registers)
     kernels.update(phase_train_kernels(dev, registers))
-    phase_lstm_h512(dev, registers)
+    kernels["lstm_scan_bwd"]["full_band"] = phase_lstm_h512(dev, registers)
     phase_padded_hidden(dev)
+    block_kernels, block_launches = phase_block_forwards(dev)
+    kernels.update(block_kernels)
     kernels.update(phase_gru_kernels(dev))
-    kernels.update(phase_gru_train_kernels(dev))
+    kernels.update(phase_gru_train_kernels(dev, registers))
 
     pallas = "generative_audio_tpu/ops/pallas_lstm.py"
     csrc = "generative_audio_torch/csrc"
@@ -1750,11 +2114,23 @@ def main():
         "lstm_scan_bwd_chains": (f"{csrc}/lstm_scan_bwd.cu",
                                  "scripts/perf_lstm_chains.py:105"),
         "lstm_scan_fwd_unrolled": (f"{csrc}/lstm_scan_staged.cu",
-                                   "scripts/perf_lstm_unroll.py:59")}
+                                   "scripts/perf_lstm_unroll.py:59"),
+        # the single-block route of rows 1, 5, 2, 6 and 8 where no cluster
+        # holds H, on the wrappers' path at such H
+        "lstm_scan_fwd_block": (f"{csrc}/lstm_scan_block.cu", f"{pallas}:142"),
+        "lstm_scan_fwd_carry_block": (f"{csrc}/lstm_scan_block.cu",
+                                      f"{pallas}:725"),
+        "lstm_scan_fwd_train_block": (f"{csrc}/lstm_scan_block.cu",
+                                      f"{pallas}:205"),
+        "gru_scan_fwd_block": (f"{csrc}/gru_scan_block.cu", f"{pallas}:907"),
+        "gru_scan_fwd_carry_block": (f"{csrc}/gru_scan_block.cu",
+                                     f"{pallas}:1151")}
     plus, v1_gru, v1_lstm = model_paths()
     counts = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
                                "lstm_scan_fwd_train", "lstm_scan_bwd"])
-    counts.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")]))
+    counts.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
+                                      and not k.endswith("_block")]))
+    counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 
     kernels["lstm_scan_bwd_chains"], counts["lstm_scan_bwd_chains"] = \

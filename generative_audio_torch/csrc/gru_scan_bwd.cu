@@ -70,6 +70,28 @@
 //     shared memory that only it touches.
 //   * Rows beyond B read zero gates, gout and h, which makes their dgh and
 //     dh exactly zero: they add nothing to db_hh and write nothing.
+// The scan as a thread-block cluster (gru_bwd_cluster_kernel; the entry
+// gru_scan_bwd takes a launch plan, ops/gru.py plan_bwd_scan, and runs
+// either design, the same bits): the LSTM backward's cluster design
+// (lstm_scan_bwd.cu) with three gate columns a unit.
+//   * A cluster of C CTAs owns R rows; CTA k owns units [k*U, (k+1)*U) and
+//     their r, z, n columns. One warp per (m16 tile, 8 units) item keeps
+//     dh, b_hh of its columns and, in the lanes of row group 0, the tile's
+//     db_hh sums in registers. The db_hh partial stays one per 16-row tile
+//     of the batch, summed over steps in the single block's order (the
+//     shuffle over the eight row groups, then one add a step), so
+//     `db_blocks` keeps its shape and its bits.
+//   * After the elementwise part each CTA sends its bf16 dgh slice to every
+//     peer with one bulk copy into the peer's dgh tile, laid out by owner
+//     [C][R][3U + pad], completing on the peer's mbarrier; then dh =
+//     bf16(dgh) @ W_hh^T over all 3H for its units from its resident slice
+//     of w [H, 3H], then `+ dh_tot * z`, in that order, as the single block
+//     adds its carry. A cluster barrier keeps the tile until every CTA has
+//     read it.
+//   * The gates recompute of step s+1 (h_prev from h_seq, off the chain) and
+//     the loads of that step's gates and gout run between the arrive and
+//     the wait of step s's second barrier, from the W_hh^T slice in shared
+//     memory where it fits (RESIDENT), else from L2.
 // Design of the contraction, for Hopper's asynchronous units:
 //   * A CTA owns a 128 x 256 tile of dW_hh and one slice of rows. The tile's
 //     columns come whole from dgx (2H = 768 or 1024, a multiple of 256) or
@@ -97,6 +119,8 @@
 // launch (0 on success). Launches go to the caller's stream and do not
 // synchronise.
 
+#include <cooperative_groups.h>
+#include <type_traits>
 #include <cuda.h>
 
 #include "scan_common.cuh"
@@ -284,6 +308,427 @@ gru_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
 
   for (int i = threadIdx.x; i < G3; i += blockDim.x)
     dbhh[(size_t)blockIdx.x * G3 + i] = dbacc[i];
+}
+
+// ---- the scan as a thread-block cluster ------------------------------------
+
+constexpr int BWD_WARPS = 16;      // warps per CTA of the cluster design
+
+namespace cg = cooperative_groups;
+
+// Row stride (bf16) of one CTA's slice of the dgates tile: its 3U gate
+// columns and a pad that makes the stride 4 words past a multiple of 8, so
+// the eight rows of an A fragment fall in different banks.
+__host__ __device__ inline int slice_stride(int U) {
+  return 3 * U + (3 * U % 16 == 0 ? 8 : 16);
+}
+
+// Shared bytes of one CTA for a cluster of C over R rows, in the order the
+// kernel lays them out: the W_hh^T slice [3U][H] in fragment order (only when
+// RESIDENT),
+// the W_hh slice [U][3H + PAD], h_prev [R][H + PAD] and the dgh tile
+// [C][R][slice_stride(U)], all bf16; the recomputed gh [R][3U] fp32, the
+// step's x-side gates [R][3U], gout and h_prev [R][U] bf16, the k-step table
+// [3H/16] int2 and the exchange's mbarrier (16 bytes). b_hh and the db_hh
+// sums of the thread's columns live in registers. Every region is a
+// multiple of 16 bytes.
+size_t bwd_cluster_smem(int H, int C, int R, bool resident) {
+  const size_t U = H / C, hs = H + PAD, gs = 3 * (size_t)H + PAD, r = R;
+  return ((resident ? 3 * U * (size_t)H : 0) + U * gs + r * hs +
+          C * r * slice_stride(U)) * 2 +
+         r * 3 * U * 4 + r * 5 * U / 2 * 4 + 3 * (size_t)H / 16 * 8 + 16;
+}
+
+// C of 8 or 16 splits H into groups of 8 units; R is whole m16 tiles, and
+// every (m16 tile, 8-unit group) item has two warps of its own.
+bool bwd_plan_fits(int H, int C, int R) {
+  return (C == 8 || C == 16) && H > 0 && H % (8 * C) == 0 && R > 0 &&
+         R % 16 == 0 && 2 * (R / 16) * (H / C / 8) <= BWD_WARPS;
+}
+
+template <bool RESIDENT>
+__global__ void __launch_bounds__(BWD_WARPS * 32, 1)
+gru_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ gates,
+                       const __nv_bfloat16* __restrict__ h_seq,
+                       const __nv_bfloat16* __restrict__ gout,
+                       const __nv_bfloat16* __restrict__ w,    // [H, 3H]
+                       const uint4* __restrict__ wf,   // wt, fragment order
+                       const float* __restrict__ bhh,          // [3H]
+                       __nv_bfloat16* __restrict__ dgx,        // [T, B, 3H]
+                       __nv_bfloat16* __restrict__ dhn,        // [T, B, H]
+                       float* __restrict__ dbhh,               // [blocks, 3H]
+                       int T, int B, int H, int R, int reverse) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  unsigned int cluster_id;
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(cluster_id));
+
+  const int U = H / C, U3 = 3 * U, hs = H + PAD, G3 = 3 * H, gs = G3 + PAD;
+  const int col0 = rank * U;                  // first unit of this CTA
+  const int row0 = (int)cluster_id * R;       // first batch row of the cluster
+  const int nrows = min(R, B - row0);         // valid rows, at least 1
+  const int mrows = (nrows + 15) / 16 * 16;   // rows of the valid m16 tiles
+  const int sw = slice_stride(U);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the recompute's W_hh^T slice in fragment order: [3][U/8][H/32][32]
+  uint4* wts = reinterpret_cast<uint4*>(smem);
+  __nv_bfloat16* ws =
+      reinterpret_cast<__nv_bfloat16*>(smem) + (RESIDENT ? U3 * H : 0);  // [U][gs]
+  __nv_bfloat16* htile = ws + U * gs;                            // [R][hs]
+  __nv_bfloat16* dgt = htile + R * hs;                           // [C][R][sw]
+  float* ght = reinterpret_cast<float*>(dgt + C * R * sw);       // [R][3U]
+  uint32_t* gx_s = reinterpret_cast<uint32_t*>(ght + R * U3);    // [R][3U/2]
+  uint32_t* go_s = gx_s + R * U3 / 2;                            // [R][U/2]
+  uint32_t* hp_s = go_s + R * U / 2;                             // [R][U/2]
+  // the second product's k-steps: offsets in dgt of each one's two halves
+  int2* koff = reinterpret_cast<int2*>(hp_s + R * U / 2);        // [3H/16]
+  const uint32_t xbar = cta_addr(koff + 3 * H / 16);
+  const int nthreads = blockDim.x;
+
+  if (RESIDENT) {    // the CTA's units of each gate: contiguous in wf
+    const int per_gate = U / 8 * (H / 32) * 32;     // uint4 of a gate's slice
+    for (int i = threadIdx.x; i < 3 * per_gate; i += nthreads) {
+      const int q = i / per_gate;
+      wts[i] = wf[((size_t)q * (H / 8) + col0 / 8) * (H / 32) * 32 + i % per_gate];
+    }
+  }
+  {                  // rows col0 + u of w (u < U)
+    const int per_row = G3 / 8;
+    for (int i = threadIdx.x; i < U * per_row; i += nthreads) {
+      const int u = i / per_row, c = (i % per_row) * 8;
+      *reinterpret_cast<uint4*>(ws + u * gs + c) =
+          *reinterpret_cast<const uint4*>(w + (size_t)(col0 + u) * G3 + c);
+    }
+  }
+  // column q*H + u of the dgh row lies in the slice of CTA u / U, at
+  // q*U + u % U; a k-step's 16 columns are two groups of 8 units
+  for (int k = threadIdx.x; k < 3 * H / 16; k += nthreads) {
+    const int q = k * 16 / H, u = k * 16 % H;
+    koff[k] = make_int2(u / U * R * sw + q * U + u % U,
+                        (u + 8) / U * R * sw + q * U + (u + 8) % U);
+  }
+  if (threadIdx.x == 0) xbar_init(xbar);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tq = lane & 3;   // MMA fragment coordinates
+  const int G = U / 8, n_items = mrows / 16 * G;
+  // warps [0, n_items) run the elementwise part and the second product of
+  // their (m16 tile, 8 units) item; warps [n_items, 2 n_items) the gates
+  // recompute of the same items, one step ahead
+  const bool is_cmp = warp < n_items;
+  const bool is_rec = !is_cmp && warp < 2 * n_items;
+  const int item = is_cmp ? warp : is_rec ? warp - n_items : 0;
+  const int mt = item / G, jl = 8 * (item % G) + 2 * tq;
+  const int arow = mt * 16 + grp;             // the A fragments' first row
+  const int rec0 = n_items * 32, n_rec = n_items * 32;   // recompute threads
+
+  auto load_h = [&](int t, bool zero, int first, int n) {
+    const int per_row = H / 8;
+    for (int i = threadIdx.x - first; i < R * per_row; i += n) {
+      const int r = i / per_row, j = (i % per_row) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (!zero && r < nrows)
+        v = *reinterpret_cast<const uint4*>(h_seq +
+                                            ((size_t)t * B + row0 + r) * H + j);
+      *reinterpret_cast<uint4*>(htile + r * hs + j) = v;
+    }
+  };
+  // position p = T-1-s is processed at backward step s; its array time and
+  // that of the position before it
+  const int step = reverse ? 1 : -1;          // t(p-1) = t(p) + step
+  const int t_first = reverse ? 0 : T - 1;
+  load_h(t_first + step, T == 1, 0, nthreads);
+
+  // a recompute warp: gh = h_prev @ W_hh + b_hh (the scan's first product)
+  // of step s into ght, and that step's x-side gates, gout and h_prev into
+  // gx_s, go_s and hp_s, for its item
+  float bias[3][2];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bias[q][e] = bhh[q * H + col0 + jl + e];
+  auto recompute = [&](int s) {
+    const int t = reverse ? s : T - 1 - s;
+    uint32_t gx_raw[2][3], go_raw[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = arow + 8 * half, row = row0 + r;
+      const bool valid = r < nrows;
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        gx_raw[half][q] =
+            valid ? ldg32(gates + ((size_t)t * B + row) * G3 + q * H + col0 + jl)
+                  : 0u;
+      go_raw[half] =
+          valid ? ldg32(gout + ((size_t)t * B + row) * H + col0 + jl) : 0u;
+    }
+    float acc[3][4];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+    // k-steps in chunks of 8, and one of 4 when H / 16 leaves 4 (H % 64 ==
+    // 0). B fragments come from W_hh^T in fragment order (ops: wf), one
+    // 16-byte load a lane for two k-steps of a gate, all of a chunk loaded
+    // before its products, so that the reads from L2 of a streamed slice
+    // are few and in flight together; each accumulator still sums its
+    // k-steps in order
+    const size_t per_q = RESIDENT ? (size_t)(U / 8) * (H / 32) * 32
+                                  : (size_t)(H / 8) * (H / 32) * 32;
+    const uint4* fsrc =
+        (RESIDENT ? wts + (size_t)(item % G) * (H / 32) * 32
+                  : wf + (size_t)((col0 + jl - 2 * tq) / 8) * (H / 32) * 32) +
+        lane;
+    auto chunk = [&](int k0, auto kc) {
+      constexpr int KC = decltype(kc)::value;
+      uint32_t b[KC][3][2];
+#pragma unroll
+      for (int kp = 0; kp < KC / 2; ++kp)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const uint4* p = fsrc + q * per_q + (k0 / 2 + kp) * 32;
+          const uint4 v = RESIDENT ? *p : __ldg(p);
+          b[2 * kp][q][0] = v.x;
+          b[2 * kp][q][1] = v.y;
+          b[2 * kp + 1][q][0] = v.z;
+          b[2 * kp + 1][q][1] = v.w;
+        }
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        uint32_t a[4];
+        load_a(a, htile + arow * hs + (k0 + kk) * 16 + 2 * tq, hs);
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          mma_bf16_16816(acc[q], a, b[kk][q][0], b[kk][q][1]);
+      }
+    };
+    int k0 = 0;
+    for (; k0 + 8 <= H / 16; k0 += 8) chunk(k0, std::integral_constant<int, 8>());
+    if (k0 < H / 16) chunk(k0, std::integral_constant<int, 4>());
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = arow + 8 * half;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        *reinterpret_cast<float2*>(ght + r * U3 + q * U + jl) =
+            make_float2(acc[q][2 * half] + bias[q][0],
+                        acc[q][2 * half + 1] + bias[q][1]);
+        gx_s[r * U3 / 2 + (q * U + jl) / 2] = gx_raw[half][q];
+      }
+      go_s[r * U / 2 + jl / 2] = go_raw[half];
+      hp_s[r * U / 2 + jl / 2] = ld32(htile + r * hs + col0 + jl);
+    }
+  };
+
+  // a compute warp's dh of its (row, unit) pairs (index 2 * half + e: row
+  // mt*16 + grp + 8 half, unit col0 + jl + e) and, in lanes with grp == 0,
+  // the m-tile's db_hh sums of its columns
+  float dh[4] = {0.0f, 0.0f, 0.0f, 0.0f}, carry[4], dbacc[3][2];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) dbacc[q][0] = dbacc[q][1] = 0.0f;
+
+  cluster.sync();      // every CTA has started and filled its slices
+  if (is_rec) recompute(0);
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s, tprev = t + step;
+    __syncthreads();   // step s's gh is in ght; the last second product is done
+
+    if (is_cmp) {      // ---- the elementwise backward (the scan's) --------
+      float dbsum[3][2];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) dbsum[q][0] = dbsum[q][1] = 0.0f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = arow + 8 * half, row = row0 + r;
+        const bool valid = r < nrows;
+        float x[3][2], gh[3][2];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float2 gxv = bf2(gx_s[r * U3 / 2 + (q * U + jl) / 2]);
+          const float2 ghv =
+              *reinterpret_cast<const float2*>(ght + r * U3 + q * U + jl);
+          x[q][0] = gxv.x;
+          x[q][1] = gxv.y;
+          gh[q][0] = ghv.x;
+          gh[q][1] = ghv.y;
+        }
+        const float2 go = bf2(go_s[r * U / 2 + jl / 2]);
+        // the bf16 residual, upcast; zero at the first processed position
+        const float2 hp2 = bf2(hp_s[r * U / 2 + jl / 2]);
+        const float g_out[2] = {go.x, go.y}, h_prev[2] = {hp2.x, hp2.y};
+        float dg[3][2], dxn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float rg = sigmoidf_(x[0][e] + gh[0][e]);
+          const float zg = sigmoidf_(x[1][e] + gh[1][e]);
+          const float ng = tanhf(x[2][e] + rg * gh[2][e]);
+          const float dh_tot = g_out[e] + dh[2 * half + e];
+          const float dn = dh_tot * (1.0f - zg);
+          const float dz = dh_tot * (h_prev[e] - ng);
+          dxn[e] = dn * (1.0f - ng * ng);
+          dg[0][e] = dxn[e] * gh[2][e] * rg * (1.0f - rg);
+          dg[1][e] = dz * zg * (1.0f - zg);
+          dg[2][e] = dxn[e] * rg;
+          carry[2 * half + e] = dh_tot * zg;  // the product is added below
+#pragma unroll
+          for (int q = 0; q < 3; ++q) dbsum[q][e] += dg[q][e];
+        }
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const __nv_bfloat162 v = __floats2bfloat162_rn(dg[q][0], dg[q][1]);
+          *reinterpret_cast<__nv_bfloat162*>(dgt + (rank * R + r) * sw + q * U + jl) = v;
+          if (valid) {
+            if (q < 2)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  dgx + ((size_t)t * B + row) * G3 + q * H + col0 + jl) = v;
+            else
+              *reinterpret_cast<__nv_bfloat162*>(
+                  dhn + ((size_t)t * B + row) * H + col0 + jl) = v;
+          }
+        }
+        if (valid)
+          *reinterpret_cast<__nv_bfloat162*>(
+              dgx + ((size_t)t * B + row) * G3 + 2 * H + col0 + jl) =
+              __floats2bfloat162_rn(dxn[0], dxn[1]);
+      }
+      // db_hh: add the eight row groups of the warp (lanes that share tq)
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = dbsum[q][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (grp == 0) dbacc[q][e] += v;
+        }
+      fence_proxy_async();   // the slice is read by the bulk copies below
+    } else if (is_rec && s + 1 < T) {
+      load_h(tprev + step, s + 2 == T, rec0, n_rec);   // the next h_prev
+    }
+    __syncthreads();   // the CTA's dgh slice is in dgt; ght is read
+
+    // every peer has read its copy of this CTA's slice of step s-1
+    if (s > 0) asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+    // hand the slice on: one bulk copy of its valid rows to each peer
+    // (rank+1, rank+2, ...), completing on the peer's barrier
+    const uint32_t bytes = mrows * sw * 2;
+    if (threadIdx.x == 0) xbar_expect(xbar, (C - 1) * bytes);
+    if (threadIdx.x < C - 1) {
+      const int peer = (rank + 1 + threadIdx.x) % C;
+      const uint32_t src = cta_addr(dgt + rank * R * sw);
+      bulk_to_peer(peer_addr(src, peer), src, bytes, peer_addr(xbar, peer));
+    }
+
+    if (is_cmp) {      // ---- dh = bf16(dgh) @ W_hh^T + dh_tot * z ----------
+      xbar_wait(xbar, s & 1);                 // the peers' slices of step s
+      float acc2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const __nv_bfloat16* ap = dgt + arow * sw + 2 * tq;
+      const __nv_bfloat16* bp = ws + (jl - 2 * tq + grp) * gs + 2 * tq;
+#pragma unroll 4
+      for (int k = 0; k < G3 / 16; ++k) {
+        // A fragment (16x16, row-major) of the k-step's columns, whose two
+        // halves lie in the slices of the CTAs that own their units
+        const int2 o = koff[k];
+        uint32_t a[4];
+        a[0] = ld32(ap + o.x);
+        a[1] = ld32(ap + o.x + 8 * sw);
+        a[2] = ld32(ap + o.y);
+        a[3] = ld32(ap + o.y + 8 * sw);
+        mma_bf16_16816(acc2, a, ld32(bp + k * 16), ld32(bp + k * 16 + 8));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dh[i] = acc2[i] + carry[i];
+    } else if (is_rec && s + 1 < T) {
+      recompute(s + 1);                       // off the serial chain
+    }
+    if (threadIdx.x < C - 1) bulk_wait_read();   // before dgt is written again
+    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  }
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+
+  // one db_hh partial per 16-row tile of the batch, as the single block
+  if (is_cmp && grp == 0) {
+    float* out = dbhh + (size_t)(row0 / ROWS + mt) * G3 + col0 + jl;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) out[q * H + e] = dbacc[q][e];
+  }
+}
+
+template <bool RESIDENT>
+cudaError_t prepare_cluster(int C, size_t smem) {
+  auto kernel = gru_bwd_cluster_kernel<RESIDENT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+cudaLaunchAttribute cluster_attr(int C) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
+
+template <bool RESIDENT>
+int launch_cluster(const void* gates, const void* h_seq, const void* gout,
+                   const void* w, const void* wf, const void* bhh, void* dgx,
+                   void* dhn, void* dbhh, int T, int B, int H, int reverse,
+                   int C, int R, void* stream) {
+  const size_t smem = bwd_cluster_smem(H, C, R, RESIDENT);
+  cudaError_t err = prepare_cluster<RESIDENT>(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = cluster_attr(C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + R - 1) / R));
+  cfg.blockDim = dim3(32 * BWD_WARPS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gru_bwd_cluster_kernel<RESIDENT>,
+                           (const __nv_bfloat16*)gates,
+                           (const __nv_bfloat16*)h_seq,
+                           (const __nv_bfloat16*)gout,
+                           (const __nv_bfloat16*)w, (const uint4*)wf,
+                           (const float*)bhh, (__nv_bfloat16*)dgx,
+                           (__nv_bfloat16*)dhn, (float*)dbhh, T, B, H, R,
+                           reverse);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool RESIDENT>
+int max_clusters(int H, int C, int R, int* n) {
+  const size_t smem = bwd_cluster_smem(H, C, R, RESIDENT);
+  cudaError_t err = prepare_cluster<RESIDENT>(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = cluster_attr(C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(32 * BWD_WARPS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      n, gru_bwd_cluster_kernel<RESIDENT>, &cfg);
+}
+
+// Shared bytes of one block of the single-block scan.
+size_t block_smem(int H) {
+  return ((size_t)ROWS * (H + PAD) + (size_t)ROWS * (3 * H + PAD)) *
+             sizeof(__nv_bfloat16) +
+         ((size_t)ROWS * H + 2 * (size_t)3 * H) * sizeof(float);
 }
 
 // ---- dW_hh = A^T @ [D1[:, :2H], D2] over N rows, in slices ----------------
@@ -521,18 +966,36 @@ extern "C" {
 
 // The scan. gates [T, B, 3H], h_seq, gout [T, B, H], wt [3H, H], w [H, 3H],
 // all bf16, bhh [3H] fp32 -> dgx [T, B, 3H] bf16, dhn [T, B, H] bf16,
-// dbhh [n_blocks, 3H] fp32, one row per block of ROWS batch rows: the call
-// is refused unless n_blocks is the grid it launches. H must be a multiple
-// of 16.
+// dbhh [n_blocks, 3H] fp32, one row per 16-row tile of the batch: the call
+// is refused unless n_blocks is ceil(B / 16). H must be a multiple of 16.
+// wf is wt in MMA fragment order, [3][H/8][H/32][32] of 16 bytes (ops/gru.py
+// via ops/lstm.py _fragment_weight), read by the cluster design (H % 64 ==
+// 0 there); the single block reads wt.
+// The launch plan (ops/gru.py plan_bwd_scan): cluster = 1 runs the
+// single-block design (rows 16, resident 0); cluster = 8 or 16 a cluster of
+// that many CTAs over `rows` rows each, with the recompute's W_hh^T slice in
+// shared memory when `resident`. smem_bytes must be the design's.
 int gru_scan_bwd(const void* gates, const void* h_seq, const void* gout,
-                 const void* wt, const void* w, const void* bhh, void* dgx,
-                 void* dhn, void* dbhh, int n_blocks, int T, int B, int H,
-                 int reverse, void* stream) {
-  if (n_blocks != row_blocks(B)) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      ((size_t)ROWS * (H + PAD) + (size_t)ROWS * (3 * H + PAD)) *
-          sizeof(__nv_bfloat16) +
-      ((size_t)ROWS * H + 2 * (size_t)3 * H) * sizeof(float);
+                 const void* wt, const void* w, const void* wf,
+                 const void* bhh, void* dgx, void* dhn, void* dbhh,
+                 int n_blocks, int T, int B, int H, int reverse, int cluster,
+                 int rows, int resident, int smem_bytes, void* stream) {
+  if (n_blocks != row_blocks(B) || H <= 0 || H % 16)
+    return (int)cudaErrorInvalidValue;
+  if (cluster != 1) {
+    if (!bwd_plan_fits(H, cluster, rows) ||
+        (size_t)smem_bytes != bwd_cluster_smem(H, cluster, rows, resident))
+      return (int)cudaErrorInvalidValue;
+    if (resident)
+      return launch_cluster<true>(gates, h_seq, gout, w, wf, bhh, dgx, dhn,
+                                  dbhh, T, B, H, reverse, cluster, rows,
+                                  stream);
+    return launch_cluster<false>(gates, h_seq, gout, w, wf, bhh, dgx, dhn,
+                                 dbhh, T, B, H, reverse, cluster, rows, stream);
+  }
+  const size_t smem = block_smem(H);
+  if (rows != ROWS || resident || (size_t)smem_bytes != smem)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       gru_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -544,6 +1007,16 @@ int gru_scan_bwd(const void* gates, const void* h_seq, const void* gout,
       (const __nv_bfloat16*)w, (const float*)bhh, (__nv_bfloat16*)dgx,
       (__nv_bfloat16*)dhn, (float*)dbhh, T, B, H, reverse);
   return (int)cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of the scan's cluster design (resident or
+// not) for a cluster of `cluster` CTAs over `rows` rows at H: *n clusters
+// can run at once on the current device.
+int gru_scan_bwd_max_clusters(int resident, int H, int cluster, int rows,
+                              int* n) {
+  if (!bwd_plan_fits(H, cluster, rows)) return (int)cudaErrorInvalidValue;
+  return resident ? max_clusters<true>(H, cluster, rows, n)
+                  : max_clusters<false>(H, cluster, rows, n);
 }
 
 // The contraction. a [N, H], d1 [N, 3H], d2 [N, H], all bf16, 16-byte

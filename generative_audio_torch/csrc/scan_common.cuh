@@ -1,7 +1,7 @@
-// What the four scan sources (lstm_scan.cu, lstm_scan_bwd.cu, gru_scan.cu,
-// gru_scan_bwd.cu) share: the tile constants of a block and the device
-// helpers around one mma.sync m16n8k16 tile. The constants have internal
-// linkage and the functions are inline, so a source may leave any unused.
+// What the scan sources (csrc/*.cu) share: the tile constants of a block,
+// the device helpers around one mma.sync m16n8k16 tile, and the bulk-copy
+// exchange of the cluster backwards. The constants have internal linkage
+// and the functions are inline, so a source may leave any unused.
 
 #pragma once
 
@@ -42,6 +42,20 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+// Two bf16 as one 32-bit word (an MMA fragment register), from shared or
+// global memory (read-only path), and back to two floats.
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
 // A fragment (16x16, row-major) of a bf16 tile in shared memory
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* p,
                                        int stride) {
@@ -65,4 +79,63 @@ __device__ __forceinline__ void load_h_tile(__nv_bfloat16* tile,
       v = *reinterpret_cast<const uint4*>(src + ((size_t)t * B + row) * H + j);
     *reinterpret_cast<uint4*>(tile + r * hs + j) = v;
   }
+}
+
+// ---- the dgates exchange of the cluster backwards: bulk copies ------------
+// A CTA copies its slice into a peer's shared memory with one
+// cp.async.bulk (shared::cta to shared::cluster); the copy completes on an
+// mbarrier in the peer, which waits for the bytes of all its peers.
+
+__device__ __forceinline__ uint32_t cta_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address of the same shared-memory location in the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void xbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n" :: "r"(bar) : "memory");
+}
+
+// The barrier's one arrival of a phase, expecting `bytes` from the peers.
+__device__ __forceinline__ void xbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void xbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// Writes of this thread to shared memory become visible to bulk copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from src (this CTA) to dst in a peer, completing
+// on the peer's barrier `bar` (both shared::cluster addresses).
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      "cp.async.bulk.commit_group;\n"
+      :: "r"(dst), "r"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Wait until this thread's bulk copies have read their source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }

@@ -105,12 +105,21 @@ _SIGNATURES = {
         "lstm_scan_fwd_train": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P],
     },
+    "lstm_scan_block": {
+        "lstm_scan_fwd_block": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "lstm_scan_fwd_carry_block": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _P],
+        "lstm_scan_fwd_train_block": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
     "lstm_scan_staged": {
         "lstm_scan_fwd_unrolled": [_P, _P, _P, _I, _I, _I, _I, _P],
         "lstm_layer_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "lstm_scan_bwd": {
-        "lstm_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # ..., reverse, then the launch plan: cluster, rows, resident,
+        # shared bytes
+        "lstm_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P],
         "lstm_scan_bwd_chains": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P],
     },
@@ -120,15 +129,23 @@ _SIGNATURES = {
         "gru_scan_fwd_carry": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P],
     },
+    "gru_scan_block": {
+        "gru_scan_fwd_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "gru_scan_fwd_carry_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _P],
+    },
     "gru_scan_bwd": {
-        "gru_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _P],
+        # ..., reverse, then the launch plan: cluster, rows, resident,
+        # shared bytes
+        "gru_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P],
         "gru_scan_bwd_dwhh": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 SOURCES = tuple(_SIGNATURES)
 # Queries that launch nothing: the instance's flags (out_f32, carry; and
-# train for the LSTM), then H, cluster, rows and int* n.
+# train for the LSTM forward; resident for the backwards), then H, cluster,
+# rows and int* n.
 _QUERIES = {
     "lstm_scan": {
         "lstm_scan_max_clusters": [_I, _I, _I, _I, _I, _I,
@@ -137,6 +154,14 @@ _QUERIES = {
     "gru_scan": {
         "gru_scan_max_clusters": [_I, _I, _I, _I, _I,
                                   ctypes.POINTER(ctypes.c_int)],
+    },
+    "lstm_scan_bwd": {
+        "lstm_scan_bwd_max_clusters": [_I, _I, _I, _I,
+                                       ctypes.POINTER(ctypes.c_int)],
+    },
+    "gru_scan_bwd": {
+        "gru_scan_bwd_max_clusters": [_I, _I, _I, _I,
+                                      ctypes.POINTER(ctypes.c_int)],
     },
 }
 

@@ -43,13 +43,17 @@ run as thread-block clusters: `plan_scan` (ops/lstm.py's
 `plan_cluster_scan` with this kernel's layout and step model) picks the
 cluster size and the rows per cluster from H, the row count, the
 shared-memory limit and the card's `cudaOccupancyMaxActiveClusters`.
-`plan_dwhh` cuts the contraction's rows into slices. Both planners are
-plain Python.
+The backward scan runs as a thread-block cluster or as the single-block
+design (the same bits): `_launch` appends `card_bwd_scan_plan`'s plan.
+`plan_dwhh` cuts the contraction's rows into slices. The planners are plain
+Python.
 
 Any H runs on the card, as for the LSTM: the wrappers zero-pad H to the
 units their kernel takes (`scan_hidden` for the cluster forward, whole
 16-deep k-steps for the backward and the contraction; nothing at H = 384
-and 512) and slice the result back. A padded unit sees zero gates, weights
+and 512) and slice the result back; above H = 640, where no cluster holds
+W_hh's slice, the forward takes the single-block route
+(csrc/gru_scan_block.cu) at H padded to 16. A padded unit sees zero gates, weights
 and b_hh, so n = tanh(0 + r * 0) = 0 and it stays at h = 0, adds exact
 zeros to the real units' sums and gets zero dgates.
 """
@@ -63,11 +67,13 @@ import torch
 import torch.nn.functional as F
 
 from generative_audio_torch.ops.lstm import (
-    _PAD, _STEP_UNITS, CLUSTER_SIZES, ScanPlan,
-    _check_kernel_operand, _is_cuda, _kernel_operand, _kernel_weight,
-    _pad_gates, _pad_units, _padded_weight, _unpad_gates, _unpad_units,
-    _wants_grad, card_plan, cluster_hidden, cluster_step_us,
-    plan_cluster_scan)
+    _PAD, _ROWS, _STEP_UNITS, CLUSTER_SIZES, H100_SMS, BwdPlan, ScanPlan,
+    _check_kernel_operand, _fragment_weight, _is_cuda, _kernel_operand,
+    _kernel_weight, _pad_gates, _pad_units, _padded_weight, _unpad_gates,
+    _unpad_units,
+    _wants_grad, bwd_cluster_smem_bytes, bwd_cluster_step_us, card_bwd_plan,
+    card_plan, check_smem, cluster_hidden, cluster_step_us, forward_hidden,
+    plan_bwd, plan_cluster_scan, sm_blocks)
 from generative_audio_torch.ops.lstm import _launch_kernel as _launch_entry
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
@@ -76,7 +82,10 @@ __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "gru_dwhh_reference", "shifted_rows", "gru_scan_bwd_tm",
            "gru_scan_bwd_reference_tm", "GRUScan", "gru_layer_tm_chunked",
            "ScanPlan", "scan_smem_bytes", "scan_step_us", "plan_scan",
-           "scan_hidden", "card_scan_plan", "DwhhPlan", "plan_dwhh"]
+           "scan_hidden", "card_scan_plan", "DwhhPlan", "plan_dwhh",
+           "gru_scan_bwd_streams_planned_tm", "bwd_block_smem_bytes",
+           "bwd_smem_bytes_cluster", "bwd_step_us", "plan_bwd_scan",
+           "card_bwd_scan_plan", "block_smem_bytes"]
 
 # Batch rows per block of the backward scan, which writes one db_hh partial
 # per block: the kernel is told the number of partials and refuses another
@@ -88,8 +97,14 @@ _ROWS_PER_BLOCK = 16
 _STEP_US, _ROUND_US, _STORE_US = 2.1, 2.7, 2.2e-3
 # The forward entries, whose C functions end in the launch plan.
 _CLUSTER_ENTRIES = ("gru_scan_fwd", "gru_scan_fwd_carry")
-# SMs of an H100 SXM: the contraction's tiles x slices fill about one wave.
-H100_SMS = 132
+# The cluster backward's step model (ops/lstm.py bwd_cluster_step_us): a
+# step, a KB of the dgh exchange, a k-step of the second product, an item
+# and the stream term of an item (microseconds), fitted to the steps of five
+# one-cluster plans on an H100 SXM at 700 W (as the LSTM's); and a step of
+# the single-block scan, 152 us at H = 384 (29.67 ms over T = 195) and 140
+# at H = 512, taken to grow with H.
+_BWD_PARTS = (2.66, 0.0305, 0.018, 0.177, 0.097)
+_BWD_BLOCK_US = 152.0
 # The contraction's output tile (csrc/gru_scan_bwd.cu DW_TM x DW_TN) and the
 # rows of one pipeline stage, on which every slice begins (DW_TK).
 _DW_TILE_ROWS, _DW_TILE_COLS, _DW_STAGE_ROWS = 128, 256, 64
@@ -130,6 +145,22 @@ def scan_hidden(hsz: int) -> int:
     return cluster_hidden(hsz, scan_smem_bytes)
 
 
+def block_smem_bytes(hsz: int) -> int:
+    """Shared memory of one block of the single-block forward
+    (csrc/gru_scan_block.cu): two bf16 h tiles [16][H + 8], fp32 h [16][H]
+    and b_hh [3H]."""
+    return 2 * _ROWS * (hsz + _PAD) * 2 + _ROWS * hsz * 4 + 3 * hsz * 4
+
+
+def _forward_route(hsz: int) -> Tuple[int, str]:
+    """(H, entry suffix) of the forward for a layer of hsz units (ops/
+    lstm.py forward_hidden); raises when not even a single block fits."""
+    hp, suffix = forward_hidden(hsz, scan_smem_bytes)
+    if suffix:
+        check_smem(f"gru_scan_fwd_block at H={hp}", block_smem_bytes(hp))
+    return hp, suffix
+
+
 @functools.lru_cache(maxsize=None)
 def card_scan_plan(device: torch.device, hsz: int, batch: int,
                    out_dtype: torch.dtype = torch.bfloat16,
@@ -141,12 +172,60 @@ def card_scan_plan(device: torch.device, hsz: int, batch: int,
                      (int(out_dtype == torch.float32), int(carry)))
 
 
-def _launch(fn_name: str, *args) -> None:
+def bwd_block_smem_bytes(hsz: int) -> int:
+    """Shared memory of one block of the single-block backward scan
+    (csrc/gru_scan_bwd.cu `block_smem`): bf16 h_prev [16][H + 8] and dgh
+    [16][3H + 8], fp32 dh [16][H], b_hh [3H] and db_hh [3H]."""
+    return ((_ROWS * (hsz + _PAD) + _ROWS * (3 * hsz + _PAD)) * 2
+            + (_ROWS * hsz + 6 * hsz) * 4)
+
+
+def bwd_smem_bytes_cluster(hsz: int, cluster: int, rows: int,
+                           resident: bool) -> int:
+    """Shared memory of one CTA of the cluster backward scan (three gates;
+    b_hh and the db_hh sums live in registers)."""
+    return bwd_cluster_smem_bytes(hsz, cluster, rows, resident, 3)
+
+
+def bwd_step_us(hsz: int, cluster: int, rows: int, resident: bool) -> float:
+    """Modelled time of one step of one wave of the cluster backward scan
+    (ops/lstm.py bwd_cluster_step_us with this kernel's fitted parts)."""
+    return bwd_cluster_step_us(hsz, cluster, rows, resident, 3, _BWD_PARTS)
+
+
+def plan_bwd_scan(hsz: int, batch: int,
+                  max_clusters: Callable[[int, int, bool], int],
+                  sms: int = H100_SMS) -> BwdPlan:
+    """The backward scan's plan for `batch` rows at H = hsz (a multiple of
+    16): the single-block design or a cluster (ops/lstm.py plan_bwd), on a
+    card of `sms` SMs."""
+    return plan_bwd("GRU", hsz, batch, max_clusters,
+                    functools.partial(sm_blocks, sms=sms),
+                    bwd_smem_bytes_cluster, bwd_step_us,
+                    bwd_block_smem_bytes(hsz),
+                    _BWD_BLOCK_US * hsz / 384)
+
+
+@functools.lru_cache(maxsize=None)
+def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int) -> BwdPlan:
+    """The plan the backward scan launches with on `device` (a CUDA device)
+    for `batch` rows at H = hsz (occupancy from csrc/gru_scan_bwd.cu
+    `gru_scan_bwd_max_clusters`)."""
+    return card_bwd_plan("gru_scan_bwd", plan_bwd_scan, device, hsz, batch)
+
+
+def _launch(fn_name: str, *args, plan: Optional[BwdPlan] = None) -> None:
     """Launch csrc entry `fn_name` through the port's launch helper. The
     forward entries are cluster launches: their arguments end in (out_f32,
     T, B, H, reverse), and card_scan_plan's plan for (H, B) on the tensors'
-    card is appended to them."""
-    if fn_name in _CLUSTER_ENTRIES:
+    card is appended to them. The backward scan's arguments end in (T, B, H,
+    reverse), and `plan` (default: card_bwd_scan_plan's for (H, B)) is
+    appended to them."""
+    if fn_name == "gru_scan_bwd":
+        b, hsz = args[-3], args[-2]
+        plan = plan or card_bwd_scan_plan(args[0].device, hsz, b)
+        args = (*args, *plan.launch_args)
+    elif fn_name in _CLUSTER_ENTRIES:
         out_f32, _, b, hsz, _ = args[-5:]
         plan = card_scan_plan(args[0].device, hsz, b,
                               torch.float32 if out_f32 else torch.bfloat16,
@@ -349,11 +428,11 @@ def gru_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     gates = gates_x.to(torch.bfloat16)
     if not _is_cuda(gates, w_hh, b_hh):
         return gru_scan_reference_tm(gates, w_hh, b_hh, reverse).to(out_dtype)
-    hp = scan_hidden(hsz)
+    hp, route = _forward_route(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     if t_len and b:
-        _launch("gru_scan_fwd", _pad_gates(gates, 3, hp),
+        _launch("gru_scan_fwd" + route, _pad_gates(gates, 3, hp),
                 _kernel_weight(w_hh, hp), _kernel_bias(b_hh, hp), out,
                 out_dtype == torch.float32, t_len, b, hp, reverse)
     return _unpad_units(out, hsz)
@@ -376,7 +455,7 @@ def gru_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh, b_hh, h0):
         return gru_scan_carry_reference_tm(gates, w_hh, b_hh, h0, reverse,
                                            out_dtype)
-    hp = scan_hidden(hsz)
+    hp, route = _forward_route(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     _check_kernel_operand("h0", h0, torch.float32)
     if not (t_len and b):
@@ -384,7 +463,7 @@ def gru_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
                             device=gates.device), h0.clone())
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     h_t = torch.empty(b, hp, dtype=torch.float32, device=gates.device)
-    _launch("gru_scan_fwd_carry", _pad_gates(gates, 3, hp),
+    _launch("gru_scan_fwd_carry" + route, _pad_gates(gates, 3, hp),
             _kernel_weight(w_hh, hp), _kernel_bias(b_hh, hp),
             _pad_units(h0, hp), out, h_t, out_dtype == torch.float32, t_len,
             b, hp, reverse)
@@ -399,8 +478,30 @@ def gru_scan_bwd_streams_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     """The backward scan: bf16 gates [T, B, 3H], the forward's bf16 h_seq and
     the cotangent gout of h_seq, both [T, B, H] bf16, w_hh [H, 3H], b_hh [3H]
     -> (dgx [T, B, 3H] bf16, dhn [T, B, H] bf16, db_hh [3H] fp32). CUDA
-    tensors run `gru_scan_bwd`, which writes one db_hh partial per 16-row
-    block; the partials are summed here."""
+    tensors run `gru_scan_bwd` with card_bwd_scan_plan's plan (a thread-block
+    cluster, or the single-block design: the same bits), which writes one
+    db_hh partial per 16-row tile of the batch; the partials are summed
+    here."""
+    return _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse)
+
+
+def gru_scan_bwd_streams_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
+                                    gout: torch.Tensor, w_hh: torch.Tensor,
+                                    b_hh: torch.Tensor, plan: BwdPlan,
+                                    reverse: bool = False
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """gru_scan_bwd_streams_tm on CUDA tensors with a given launch plan (a
+    BwdPlan for the operands' H, padded to 16, and any design), returning
+    the per-tile db_hh partials [ceil(B / 16), 3H] unsummed, for holding the
+    designs against each other bit for bit and timing plans."""
+    if not _is_cuda(gates, h_seq, gout, w_hh, b_hh):
+        raise ValueError("a launch plan is for CUDA tensors")
+    return _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse, plan)
+
+
+def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
+              plan: Optional[BwdPlan] = None):
     t_len, b, hsz = _check_shapes(gates, w_hh, b_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("gout", gout)):
         if tuple(x.shape) != (t_len, b, hsz):
@@ -421,15 +522,24 @@ def gru_scan_bwd_streams_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     dhn = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=gates.device)
     db_blocks = torch.empty(-(-b // _ROWS_PER_BLOCK), 3 * hp,
                             dtype=torch.float32, device=gates.device)
-    # W_hh in both layouts: [3H, H] for the gates recompute, [H, 3H] (the 3H
-    # axis contiguous) for dgates_h @ W_hh^T
-    _launch("gru_scan_bwd", _pad_gates(gates, 3, hp), _pad_units(h_seq, hp),
-            _pad_units(gout, hp), _kernel_weight(w_hh, hp),
-            _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16),
-            _kernel_bias(b_hh, hp), dgx, dhn, db_blocks, db_blocks.shape[0],
-            t_len, b, hp, reverse)
+    # W_hh in both layouts: [3H, H] for the gates recompute (and in fragment
+    # order for the clusters'), [H, 3H] (the 3H axis contiguous) for
+    # dgates_h @ W_hh^T
+    wt = _kernel_weight(w_hh, hp)
+    operands = (_pad_gates(gates, 3, hp), _pad_units(h_seq, hp),
+                _pad_units(gout, hp), wt,
+                _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16),
+                _fragment_weight(wt), _kernel_bias(b_hh, hp), dgx, dhn,
+                db_blocks,
+                db_blocks.shape[0], t_len, b, hp, reverse)
+    if plan is None:
+        _launch("gru_scan_bwd", *operands)
+        db = db_blocks.sum(dim=0)
+    else:
+        _launch("gru_scan_bwd", *operands, plan=plan)
+        db = db_blocks
     return (_unpad_gates(dgx, 3, hsz), _unpad_units(dhn, hsz),
-            _unpad_gates(db_blocks.sum(dim=0), 3, hsz))
+            _unpad_gates(db, 3, hsz))
 
 
 def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor

@@ -52,18 +52,26 @@ GRU forward does (ops/gru.py): `_launch` appends `card_scan_plan`'s launch
 plan to their arguments. `plan_cluster_scan`, the planner both cells share,
 picks the cluster size and the rows per cluster from H, the row count, the
 shared-memory limit, a step model fitted on the card and the card's
-`cudaOccupancyMaxActiveClusters`; it is plain Python.
+`cudaOccupancyMaxActiveClusters`; it is plain Python. Kernel D runs as a
+thread-block cluster or as the single-block design, which give the same
+dgates bit for bit: `_launch` appends `card_bwd_scan_plan`'s plan
+(`plan_bwd`, shared with the GRU backward, weighs the two by a step model
+fitted on the card).
 
 Any H runs on the card: the wrappers of the model paths' scans zero-pad H
 to the units their kernel takes (`scan_hidden` for the cluster scans, whole
 16-deep k-steps for the backward) and slice the result back; at H = 384 and
-512 nothing is padded. A padded unit sees zero gates and zero weights, so it
-stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros to the real units'
-sums and gets zero dgates. Kernels E and F and the chains backward, which no
-model path launches, take H as it is and refuse what they cannot run.
+512 nothing is padded. Where no cluster holds W_hh's slice (H above 512),
+kernels A-C take the single-block route (csrc/lstm_scan_block.cu, entries
+ending in `_block`) at H padded to 16. A padded unit sees zero gates and
+zero weights, so it stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros
+to the real units' sums and gets zero dgates. Kernels E and F and the
+chains backward, which no model path launches, take H as it is and refuse
+what they cannot run.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -79,16 +87,25 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "lstm_layer_tm", "lstm_layer_reference_tm", "LSTMLayerScan",
            "launch_counts", "reset_launch_counts", "ScanPlan",
            "scan_smem_bytes", "scan_step_us", "plan_scan", "scan_hidden",
-           "card_scan_plan", "plan_cluster_scan", "cluster_hidden"]
+           "card_scan_plan", "plan_cluster_scan", "cluster_hidden",
+           "lstm_scan_bwd_planned_tm", "BwdPlan", "plan_bwd",
+           "plan_bwd_scan", "card_bwd_scan_plan", "bwd_smem_bytes_cluster",
+           "bwd_step_us", "forward_hidden", "block_smem_bytes",
+           "single_block_forwards"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "lstm_scan_fwd_train": "lstm_scan",
+              "lstm_scan_fwd_block": "lstm_scan_block",
+              "lstm_scan_fwd_carry_block": "lstm_scan_block",
+              "lstm_scan_fwd_train_block": "lstm_scan_block",
               "lstm_scan_fwd_unrolled": "lstm_scan_staged",
               "lstm_layer_fwd": "lstm_scan_staged",
               "lstm_scan_bwd": "lstm_scan_bwd",
               "lstm_scan_bwd_chains": "lstm_scan_bwd",
               "gru_scan_fwd": "gru_scan", "gru_scan_fwd_carry": "gru_scan",
+              "gru_scan_fwd_block": "gru_scan_block",
+              "gru_scan_fwd_carry_block": "gru_scan_block",
               "gru_scan_bwd": "gru_scan_bwd",
               "gru_scan_bwd_dwhh": "gru_scan_bwd"}
 launch_counts = dict.fromkeys(_SOURCE_OF, 0)
@@ -118,6 +135,23 @@ _STEP_US, _ROUND_US, _STORE_US = 3.3, 2.7, 1.75e-3
 # The forward entries, whose C functions end in the launch plan.
 _CLUSTER_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry",
                     "lstm_scan_fwd_train")
+# SMs of an H100 SXM, and the shared memory of one of them (228 KB).
+H100_SMS = 132
+_SM_SHARED = 233472
+# Warps of a CTA of the cluster backwards (csrc/lstm_scan_bwd.cu and
+# csrc/gru_scan_bwd.cu BWD_WARPS): two per (16-row tile, 8 units) item, one
+# for the elementwise part and the second product, one for the recompute.
+BWD_WARPS = 16
+# The LSTM cluster backward's step model (bwd_cluster_step_us): a step, a
+# KB of the dgates exchange, a k-step of the second product, an item and
+# the stream term of an item (microseconds), fitted to the steps of five
+# one-cluster plans on an H100 SXM at 700 W (H = 384: C = 8 x 16 rows, C =
+# 16 x 16 resident and streamed, C = 16 x 32; H = 512: C = 16 x 16; the
+# sweep of generative_audio_torch/scripts/perf_bwd_scan.py), within 0.02
+# us; and a step of the single-block design, 198 us at H = 384 (38.62 ms
+# over T = 195) and 190 at H = 512, taken to grow with H.
+_BWD_PARTS = (4.12, 0.0435, 0.0, 0.163, 0.247)
+_BWD_BLOCK_US = 198.0
 
 
 def reset_launch_counts() -> None:
@@ -339,6 +373,21 @@ def _padded_weight(w_hh: torch.Tensor, hp: int) -> torch.Tensor:
     return F.pad(_pad_gates(w, w.shape[1] // hsz, hp), (0, 0, 0, hp - hsz))
 
 
+def _fragment_weight(wt: torch.Tensor) -> torch.Tensor:
+    """The kernel operand wt [n*H, H] in the MMA fragment order the cluster
+    backwards read (csrc `wf`): [n][H/8][H/32][32 lanes][8] bf16, where lane
+    (grp, tq) of 8-unit group G holds the B fragments (b0, b1) of k-steps 2p
+    and 2p + 1 of row 8G + grp: columns 32p + 16kk + 8half + 2tq + e in the
+    order (kk, half, e). wt itself where H % 32 != 0 (no cluster plan takes
+    such an H; the single block reads wt)."""
+    hsz = wt.shape[1]
+    if hsz % 32:
+        return wt
+    n = wt.shape[0] // hsz
+    return wt.reshape(n, hsz // 8, 8, hsz // 32, 2, 2, 4, 2).permute(
+        0, 1, 3, 2, 6, 4, 5, 7).contiguous()
+
+
 def _kernel_weight(w_hh: torch.Tensor, hp: Optional[int] = None
                    ) -> torch.Tensor:
     """W_hh [H, n*H] -> the kernels' operand: [n*hp, hp] bf16, contiguous
@@ -439,14 +488,51 @@ def cluster_hidden(hsz: int, smem_bytes: SmemBytes) -> int:
     """The H a cluster scan runs a layer of hsz units at: the least multiple
     of 8 C (C of CLUSTER_SIZES) at or above hsz whose CTA of 16 rows fits
     SMEM_LIMIT bytes. hsz itself when it is such a multiple (384 and 512
-    are). Raises ValueError when no cluster holds the layer's W_hh slice."""
+    are). Raises ValueError when no cluster holds the layer's W_hh slice
+    (forward_hidden then takes the single-block route)."""
+    hp = _cluster_fit(hsz, smem_bytes)
+    if hp is None:
+        raise ValueError(f"H={hsz} is too large for the cluster scan: no "
+                         f"cluster of {CLUSTER_SIZES} holds its W_hh slice in "
+                         f"{SMEM_LIMIT} B of shared memory")
+    return hp
+
+
+def _cluster_fit(hsz: int, smem_bytes: SmemBytes) -> Optional[int]:
     for cluster in CLUSTER_SIZES:           # the smaller multiple first
         hp = -(-hsz // (8 * cluster)) * 8 * cluster
         if smem_bytes(hp, cluster, 16) <= SMEM_LIMIT:
             return hp
-    raise ValueError(f"H={hsz} is too large for the cluster scan: no cluster "
-                     f"of {CLUSTER_SIZES} holds its W_hh slice in "
-                     f"{SMEM_LIMIT} B of shared memory")
+    return None
+
+
+_single_block = [False]       # set by single_block_forwards()
+
+
+@contextlib.contextmanager
+def single_block_forwards():
+    """Within the block, the forward wrappers of both modules take the
+    single-block entries at any H: for holding them against the cluster
+    entries, which they equal bit for bit where both run."""
+    _single_block[0] = True
+    try:
+        yield
+    finally:
+        _single_block[0] = False
+
+
+def forward_hidden(hsz: int, smem_bytes: SmemBytes) -> Tuple[int, str]:
+    """(H, entry suffix) a forward scan runs a layer of hsz units with:
+    cluster_hidden's H and the cluster entries ("") where a cluster holds
+    the layer's W_hh slice, else hsz padded to whole 16-deep k-steps and the
+    single-block entries ("_block", csrc/lstm_scan_block.cu and
+    csrc/gru_scan_block.cu), which read W_hh from L2 and take any such H
+    whose 16 rows of state fit a block (always within
+    single_block_forwards())."""
+    hp = None if _single_block[0] else _cluster_fit(hsz, smem_bytes)
+    if hp is not None:
+        return hp, ""
+    return -(-hsz // _STEP_UNITS) * _STEP_UNITS, "_block"
 
 
 @functools.lru_cache(maxsize=None)
@@ -505,6 +591,22 @@ def scan_hidden(hsz: int) -> int:
     return cluster_hidden(hsz, scan_smem_bytes)
 
 
+def block_smem_bytes(hsz: int) -> int:
+    """Shared memory of one block of the single-block forward
+    (csrc/lstm_scan_block.cu): two bf16 h tiles [16][H + 8] and fp32 c
+    [16][H]."""
+    return 2 * _ROWS * (hsz + _PAD) * 2 + _ROWS * hsz * 4
+
+
+def _forward_route(hsz: int) -> Tuple[int, str]:
+    """(H, entry suffix) of kernels A-C for a layer of hsz units
+    (forward_hidden); raises when not even a single block fits."""
+    hp, suffix = forward_hidden(hsz, scan_smem_bytes)
+    if suffix:
+        check_smem(f"lstm_scan_fwd_block at H={hp}", block_smem_bytes(hp))
+    return hp, suffix
+
+
 @functools.lru_cache(maxsize=None)
 def card_scan_plan(device: torch.device, hsz: int, batch: int,
                    out_dtype: torch.dtype = torch.bfloat16,
@@ -515,12 +617,207 @@ def card_scan_plan(device: torch.device, hsz: int, batch: int,
                      (int(out_dtype == torch.float32), int(carry), int(train)))
 
 
-def _launch(fn_name: str, *args) -> None:
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """Launch plan of a backward scan (csrc/lstm_scan_bwd.cu `lstm_scan_bwd`,
+    csrc/gru_scan_bwd.cu `gru_scan_bwd`): the single-block design (cluster
+    1: 16 rows a block, both W_hh layouts read from L2 every step) or a
+    thread-block cluster of `cluster` CTAs over `rows` batch rows, each CTA
+    owning H / cluster units, with the gates recompute's W_hh^T slice in
+    shared memory when `resident` (else read from L2)."""
+    cluster: int          # CTAs per cluster; 1 for the single-block design
+    rows: int             # batch rows per cluster (block)
+    resident: bool        # the recompute's W_hh^T slice in shared memory
+    clusters: int         # clusters (blocks) in the grid
+    active: int           # clusters (blocks) the card runs at once
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+    step_us: float        # modelled time of one step of one wave
+
+    @property
+    def design(self) -> str:
+        return "block" if self.cluster == 1 else "cluster"
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int]:
+        """The C entry's last arguments before the stream."""
+        return self.cluster, self.rows, int(self.resident), self.smem_bytes
+
+
+# (H, cluster, rows, resident) -> shared bytes of one CTA of a cluster backward
+BwdSmemBytes = Callable[[int, int, int, bool], int]
+
+
+def bwd_slice_stride(units: int, n_gates: int) -> int:
+    """Row stride (bf16) of one CTA's slice of a cluster backward's dgates
+    tile (csrc `slice_stride`): its n U gate columns and a pad of 8, or 16
+    where n U is no multiple of 16, so the eight rows of an MMA fragment
+    fall in different banks."""
+    return n_gates * units + (8 if n_gates * units % 16 == 0 else 16)
+
+
+def bwd_cluster_smem_bytes(hsz: int, cluster: int, rows: int, resident: bool,
+                           n_gates: int) -> int:
+    """Shared memory of one CTA of a cluster backward (csrc/lstm_scan_bwd.cu
+    and csrc/gru_scan_bwd.cu `bwd_cluster_smem`) with n gate columns a unit:
+    the recompute's W_hh^T slice [n U][H] (fragment order) when resident,
+    the W_hh slice [U][n H + 8], h_prev [rows][H + 8] and the dgates tile
+    laid out by owner [cluster][rows][bwd_slice_stride], all bf16; what the
+    recompute warps
+    hand the elementwise part, 22 bytes a (row, unit) in both kernels (LSTM:
+    z [rows][4U] fp32 and c_t, c_prev, gout [3][rows][U] bf16; GRU: gh
+    [rows][3U] fp32, the x-side gates [rows][3U], gout and h_prev [rows][U]
+    bf16); the second product's k-step table [n H / 16] of int2 and the
+    exchange's mbarrier (16 bytes); with U = H / cluster units."""
+    units, hs, gs = hsz // cluster, hsz + _PAD, n_gates * hsz + _PAD
+    sw = bwd_slice_stride(units, n_gates)
+    return (((n_gates * units * hsz if resident else 0) + units * gs
+             + rows * hs + cluster * rows * sw) * 2
+            + 22 * rows * units + n_gates * hsz // 16 * 8 + 16)
+
+
+def bwd_cluster_step_us(hsz: int, cluster: int, rows: int, resident: bool,
+                        n_gates: int,
+                        parts: Tuple[float, float, float, float, float]
+                        ) -> float:
+    """Modelled time of one step of one wave of a cluster backward, from
+    parts (step, kilobyte, k-step, item, stream) in microseconds: the
+    barriers and waits of a step; each KB a CTA sends to its cluster - 1
+    peers by bulk copies (rows of its dgates slice); each of the second
+    product's n H / 16 dependent k-steps; and each (16-row tile, 8 units)
+    item of a CTA, scaled by H / 384 (its recompute, elementwise part and
+    products share the SM), plus the stream term an item when the
+    recompute's W_hh^T slice is read from L2."""
+    step_us, kb_us, kstep_us, item_us, stream_us = parts
+    units = hsz // cluster
+    kbytes = rows * bwd_slice_stride(units, n_gates) * 2 * (cluster - 1) / 1024
+    items = rows // 16 * (units // 8)
+    return (step_us + kbytes * kb_us + n_gates * hsz // 16 * kstep_us
+            + items * hsz / 384 * (item_us + (0.0 if resident else stream_us)))
+
+
+def plan_bwd(what: str, hsz: int, batch: int,
+             max_clusters: Callable[[int, int, bool], int],
+             max_blocks: Callable[[int], int], smem_bytes: BwdSmemBytes,
+             step_us: Callable[[int, int, int, bool], float],
+             block_smem: int, block_step_us: float) -> BwdPlan:
+    """A backward scan's launch plan for `batch` rows at H = hsz: the
+    single-block design against every cluster shape, by modelled time.
+
+    The single-block design takes ceil(batch / 16) blocks of block_smem
+    bytes, of which `max_blocks(block_smem)` run at once, each step taking
+    block_step_us. A cluster of C CTAs (C of CLUSTER_SIZES that splits H
+    into groups of 8 units) over R rows (whole m16 tiles, balanced over the
+    clusters, two warps for each item of a 16-row tile and 8 units, at most
+    BWD_WARPS a CTA) whose CTA fits SMEM_LIMIT bytes, with the recompute's
+    slice resident or not, runs `max_clusters(C, R, resident)` (the card's
+    cudaOccupancyMaxActiveClusters) at once and takes step_us(H, C, R,
+    resident) a step. The plan minimises waves x step time; ties go to the
+    single block, then to the smaller cluster, then to fewer clusters. Both
+    designs give the same bits. Raises ValueError when neither fits."""
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    tiles = -(-batch // 16)
+    best = None
+
+    def offer(key, plan):
+        nonlocal best
+        if best is None or key < best[0]:
+            best = (key, plan)
+
+    if block_smem <= SMEM_LIMIT and max_blocks(block_smem) >= 1:
+        active = max_blocks(block_smem)
+        waves = -(-tiles // active)
+        offer((waves * block_step_us, 1, tiles),
+              BwdPlan(1, 16, False, tiles, active, waves, block_smem,
+                      block_step_us))
+    for cluster in CLUSTER_SIZES:
+        if hsz % (8 * cluster):
+            continue
+        groups = hsz // cluster // 8
+        for resident in (True, False):
+            for per_cluster in range(1, tiles + 1):
+                clusters = -(-tiles // per_cluster)
+                rows = 16 * -(-tiles // clusters)     # balanced over clusters
+                smem = smem_bytes(hsz, cluster, rows, resident)
+                if 2 * rows // 16 * groups > BWD_WARPS or smem > SMEM_LIMIT:
+                    break
+                active = max_clusters(cluster, rows, resident)
+                if active < 1:
+                    continue
+                waves = -(-clusters // active)
+                step = step_us(hsz, cluster, rows, resident)
+                offer((waves * step, cluster, clusters),
+                      BwdPlan(cluster, rows, resident, clusters, active, waves,
+                              smem, step))
+    if best is None:
+        raise ValueError(f"no plan for the {what} backward scan at H={hsz}: "
+                         f"a block needs {block_smem} B of shared memory, "
+                         f"over {SMEM_LIMIT}, and no cluster holds it")
+    return best[1]
+
+
+def sm_blocks(smem: int, sms: int = H100_SMS) -> int:
+    """Blocks of 256 threads and `smem` dynamic shared bytes that `sms` SMs
+    run at once (228 KB of shared memory an SM, 1 KB of it reserved per
+    block; at most 8 blocks of 256 threads)."""
+    return sms * min(8, _SM_SHARED // (smem + 1024))
+
+
+def bwd_smem_bytes_cluster(hsz: int, cluster: int, rows: int,
+                           resident: bool) -> int:
+    """Shared memory of one CTA of the LSTM cluster backward (four gates)."""
+    return bwd_cluster_smem_bytes(hsz, cluster, rows, resident, 4)
+
+
+def bwd_step_us(hsz: int, cluster: int, rows: int, resident: bool) -> float:
+    """Modelled time of one step of one wave of the LSTM cluster backward
+    (bwd_cluster_step_us with this kernel's fitted parts)."""
+    return bwd_cluster_step_us(hsz, cluster, rows, resident, 4, _BWD_PARTS)
+
+
+def plan_bwd_scan(hsz: int, batch: int,
+                  max_clusters: Callable[[int, int, bool], int],
+                  sms: int = H100_SMS) -> BwdPlan:
+    """Kernel D's plan for `batch` rows at H = hsz (a multiple of 16): the
+    single-block design or a cluster (plan_bwd), on a card of `sms` SMs."""
+    return plan_bwd("LSTM", hsz, batch, max_clusters,
+                    functools.partial(sm_blocks, sms=sms),
+                    bwd_smem_bytes_cluster, bwd_step_us, bwd_smem_bytes(hsz),
+                    _BWD_BLOCK_US * hsz / 384)
+
+
+def card_bwd_plan(source: str, plan: Callable, device: torch.device,
+                  hsz: int, batch: int) -> BwdPlan:
+    """`plan(hsz, batch, max_clusters, sms)` with the occupancy of
+    `source`'s cluster backward and the SMs of `device` (a CUDA device)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return plan(hsz, batch, lambda c, r, resident: _max_clusters(
+        source, index, (int(resident),), hsz, c, r), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int) -> BwdPlan:
+    """The plan kernel D launches with on `device` (a CUDA device) for
+    `batch` rows at H = hsz (occupancy from csrc/lstm_scan_bwd.cu
+    `lstm_scan_bwd_max_clusters`)."""
+    return card_bwd_plan("lstm_scan_bwd", plan_bwd_scan, device, hsz, batch)
+
+
+def _launch(fn_name: str, *args, plan: Optional[BwdPlan] = None) -> None:
     """Launch csrc entry `fn_name` (see _launch_kernel). Kernels A-C are
     cluster launches: their arguments end in (T, B, H, reverse), and
     card_scan_plan's plan for (H, B) on the tensors' card is appended to
-    them."""
-    if fn_name in _CLUSTER_ENTRIES:
+    them. Kernel D's arguments end the same way, and `plan` (default:
+    card_bwd_scan_plan's for (H, B)) is appended to them."""
+    if fn_name == "lstm_scan_bwd":
+        b, hsz = args[-3], args[-2]
+        plan = plan or card_bwd_scan_plan(args[0].device, hsz, b)
+        args = (*args, *plan.launch_args)
+    elif fn_name in _CLUSTER_ENTRIES:
         train = fn_name == "lstm_scan_fwd_train"
         b, hsz = args[-3], args[-2]
         out_f32 = not train and bool(args[-5])
@@ -641,10 +938,10 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
             _launch("lstm_scan_fwd_unrolled", gates, _kernel_weight(w_hh),
                     out, t_len, b, hsz, block_t)
         return out
-    hp = scan_hidden(hsz)
+    hp, route = _forward_route(hsz)
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     if t_len and b:
-        _launch("lstm_scan_fwd", _pad_gates(gates, 4, hp),
+        _launch("lstm_scan_fwd" + route, _pad_gates(gates, 4, hp),
                 _kernel_weight(w_hh, hp), out, out_dtype == torch.float32,
                 t_len, b, hp, reverse)
     return _unpad_units(out, hsz)
@@ -667,7 +964,7 @@ def lstm_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh, h0, c0):
         return lstm_scan_carry_reference_tm(gates, w_hh, h0, c0, reverse,
                                             out_dtype)
-    hp = scan_hidden(hsz)
+    hp, route = _forward_route(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     _check_kernel_operand("h0", h0, torch.float32)
     _check_kernel_operand("c0", c0, torch.float32)
@@ -677,7 +974,7 @@ def lstm_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     h_t = torch.empty(b, hp, dtype=torch.float32, device=gates.device)
     c_t = torch.empty_like(h_t)
-    _launch("lstm_scan_fwd_carry", _pad_gates(gates, 4, hp),
+    _launch("lstm_scan_fwd_carry" + route, _pad_gates(gates, 4, hp),
             _kernel_weight(w_hh, hp), _pad_units(h0, hp), _pad_units(c0, hp),
             out, h_t, c_t, out_dtype == torch.float32, t_len, b, hp, reverse)
     return (_unpad_units(out, hsz), _unpad_units(h_t, hsz),
@@ -695,13 +992,13 @@ def lstm_scan_train_tm(gates: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh):
         return lstm_scan_train_reference_tm(gates.to(torch.bfloat16), w_hh,
                                             reverse)
-    hp = scan_hidden(hsz)
+    hp, route = _forward_route(hsz)
     _check_kernel_operand("gates", gates, torch.bfloat16)
     h_seq = torch.empty(t_len, b, hp, dtype=torch.bfloat16,
                         device=gates.device)
     c_seq = torch.empty_like(h_seq)
     if t_len and b:
-        _launch("lstm_scan_fwd_train", _pad_gates(gates, 4, hp),
+        _launch("lstm_scan_fwd_train" + route, _pad_gates(gates, 4, hp),
                 _kernel_weight(w_hh, hp), h_seq, c_seq, t_len, b, hp, reverse)
     return _unpad_units(h_seq, hsz), _unpad_units(c_seq, hsz)
 
@@ -713,9 +1010,29 @@ def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     """The backward scan: bf16 gates [T, B, 4H], the residuals h_seq and
     c_seq of lstm_scan_train_tm and the cotangent gout of h_seq, all
     [T, B, H] bf16, w_hh [H, 4H] -> dgates [T, B, 4H] bf16. CUDA tensors run
-    kernel D, or with n_chains = 2 or 4 kernel G (a forward that was not
-    reversed; the same dgates bit for bit). Raises when a block's shared
-    memory (n_chains x 111 104 B at H=384) exceeds the opt-in limit."""
+    kernel D with card_bwd_scan_plan's plan (a thread-block cluster, or the
+    single-block design: the same dgates bit for bit), or with n_chains = 2
+    or 4 kernel G (a forward that was not reversed; the same dgates bit for
+    bit). Raises when kernel G's block (n_chains x 111 104 B at H=384), or
+    every design of kernel D, exceeds the shared-memory limit."""
+    return _scan_bwd(gates, h_seq, c_seq, gout, w_hh, reverse, n_chains)
+
+
+def lstm_scan_bwd_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
+                             c_seq: torch.Tensor, gout: torch.Tensor,
+                             w_hh: torch.Tensor, plan: BwdPlan,
+                             reverse: bool = False) -> torch.Tensor:
+    """lstm_scan_bwd_tm on CUDA tensors with a given launch plan of kernel
+    D (a BwdPlan for the operands' H, padded to 16, and any design), for
+    holding the designs against each other and timing plans."""
+    if not _is_cuda(gates, h_seq, c_seq, gout, w_hh):
+        raise ValueError("a launch plan is for CUDA tensors")
+    return _scan_bwd(gates, h_seq, c_seq, gout, w_hh, reverse, 1, plan)
+
+
+def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
+              gout: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
+              n_chains: int, plan: Optional[BwdPlan] = None) -> torch.Tensor:
     t_len, b, hsz = _check_shapes(gates, w_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("c_seq", c_seq), ("gout", gout)):
         if tuple(x.shape) != (t_len, b, hsz):
@@ -734,25 +1051,32 @@ def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     else:
         _check_kernel_sizes(hsz)
         hp = hsz
-    check_smem(f"lstm_scan_bwd with {n_chains} chain(s) at H={hp}",
-               bwd_smem_bytes(hp, n_chains))
+        check_smem(f"lstm_scan_bwd_chains with {n_chains} chains at H={hp}",
+                   bwd_smem_bytes(hp, n_chains))
     for name, x in (("gates", gates), ("h_seq", h_seq), ("c_seq", c_seq),
                     ("gout", gout)):
         _check_kernel_operand(name, x, torch.bfloat16)
     dgates = torch.empty(t_len, b, 4 * hp, dtype=torch.bfloat16,
                          device=gates.device)
     if t_len and b:
-        # W_hh in both layouts: [4H, H] for the gates recompute, [H, 4H]
-        # (the 4H axis contiguous) for dgates @ W_hh^T
-        operands = (_pad_gates(gates, 4, hp), _pad_units(h_seq, hp),
-                    _pad_units(c_seq, hp), _pad_units(gout, hp),
-                    _kernel_weight(w_hh, hp),
-                    _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16),
-                    dgates, t_len, b, hp)
-        if n_chains == 1:
-            _launch("lstm_scan_bwd", *operands, reverse)
+        # W_hh in both layouts: [4H, H] for the gates recompute (and in
+        # fragment order for the clusters'), [H, 4H] (the 4H axis
+        # contiguous) for dgates @ W_hh^T
+        wt = _kernel_weight(w_hh, hp)
+        weights = (wt, _kernel_operand(_padded_weight(w_hh, hp),
+                                       torch.bfloat16))
+        streams = (_pad_gates(gates, 4, hp), _pad_units(h_seq, hp),
+                   _pad_units(c_seq, hp), _pad_units(gout, hp))
+        if n_chains != 1:
+            _launch("lstm_scan_bwd_chains", *streams, *weights, dgates, t_len,
+                    b, hp, n_chains)
         else:
-            _launch("lstm_scan_bwd_chains", *operands, n_chains)
+            operands = (*streams, *weights, _fragment_weight(wt), dgates,
+                        t_len, b, hp, reverse)
+            if plan is None:
+                _launch("lstm_scan_bwd", *operands)
+            else:
+                _launch("lstm_scan_bwd", *operands, plan=plan)
     return _unpad_gates(dgates, 4, hsz)
 
 

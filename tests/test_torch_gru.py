@@ -240,31 +240,38 @@ def test_chunked_layer_gradients_match_unchunked():
         assert a is not None and torch.equal(a, b_)
 
 
-def fake_launch(fn_name, *args):
+def fake_launch(fn_name, *args, plan=None):
     """Stands in for the launch helper where there is no card: runs what
     each GRU kernel computes into the output buffers it was given, with the
     kernel's partials (db_hh per 16-row block, dW_hh per slice of rows), and
     counts the launch as the helper does. The scans check the zero padding
     of H the wrapper handed the kernel and compute on the real units, as
     tests/test_torch_lstm_backward.py's fake does; the contraction, whose
-    padded rows and columns come out zero, computes on what it is given."""
+    padded rows and columns come out zero, computes on what it is given. The
+    single-block forwards ("_block") take the cluster entries' arguments at
+    H padded to whole k-steps."""
+    tl.launch_counts[fn_name] += 1
+    units = FORWARD_UNITS
+    if fn_name.endswith("_block"):
+        fn_name, units = fn_name[:-len("_block")], BACKWARD_UNITS
     if fn_name == "gru_scan_fwd":
         gates, wt, bhh, out, _, _, _, _, reverse = args
-        h = real_units(wt, 3, FORWARD_UNITS)
+        h = real_units(wt, 3, units)
         fill(out, tg.gru_scan_reference_tm(strip(gates, h, 3),
                                            real_weight(wt, h, 3),
                                            strip(bhh, h, 3), bool(reverse)))
     elif fn_name == "gru_scan_fwd_carry":
         gates, wt, bhh, h0, out, h_t, _, _, _, _, reverse = args
-        h = real_units(wt, 3, FORWARD_UNITS)
+        h = real_units(wt, 3, units)
         seq, hn = tg.gru_scan_carry_reference_tm(
             strip(gates, h, 3), real_weight(wt, h, 3), strip(bhh, h, 3),
             strip(h0, h), bool(reverse), out.dtype)
         fill(out, seq), fill(h_t, hn)
     elif fn_name == "gru_scan_bwd":
-        (gates, h_seq, gout, wt, w, bhh, dgx, dhn, db_blocks, n_blocks, _, b,
-         _, reverse) = args
+        (gates, h_seq, gout, wt, w, wf, bhh, dgx, dhn, db_blocks, n_blocks, _,
+         b, _, reverse) = args
         assert torch.equal(wt.t(), w) and bhh.dtype == torch.float32
+        assert torch.equal(wf, tl._fragment_weight(wt))
         assert db_blocks.shape[0] == n_blocks == -(-b // 16)
         h = real_units(wt, 3, BACKWARD_UNITS)
         gates, h_seq, gout = strip(gates, h, 3), strip(h_seq, h), strip(gout, h)
@@ -286,7 +293,6 @@ def fake_launch(fn_name, *args):
             part[i] = tg.gru_dwhh_reference(h_prev[rows], dgx[rows], dhn[rows])
     else:
         raise KeyError(fn_name)
-    tl.launch_counts[fn_name] += 1
 
 
 GRU_KERNELS = ("gru_scan_fwd", "gru_scan_fwd_carry", "gru_scan_bwd",
@@ -386,12 +392,15 @@ def test_kernel_operands_are_checked(launches):
     with pytest.raises(TypeError):                     # bf16 state
         tg.gru_scan_carry_tm(gates, whh, bhh,
                              torch.zeros(2, 16, dtype=torch.bfloat16))
-    # any H is padded for the kernels, but no cluster of 16 holds the W_hh
-    # slice of H = 1024 in shared memory
-    with pytest.raises(ValueError, match="too large for the cluster scan"):
-        tg.gru_scan_tm(torch.zeros(1, 1, 3 * 1024, dtype=torch.bfloat16),
-                       torch.zeros(1024, 3 * 1024), torch.zeros(3 * 1024))
     assert not any(launches.values())
+    # no cluster of 16 holds the W_hh slice of H = 1024 in shared memory, so
+    # the forward takes the single-block route, as the JAX kernels take any H
+    gx, whh, bhh = _operands(2, 1, 1024, seed=96)
+    big, whh, bhh = _bf16(gx), torch.from_numpy(whh), torch.from_numpy(bhh)
+    got = tg.gru_scan_tm(big, whh, bhh)
+    assert launches == {**dict.fromkeys(launches, 0), "gru_scan_fwd_block": 1}
+    assert torch.equal(got, tg.gru_scan_reference_tm(big, whh, bhh).to(
+        torch.bfloat16))
 
 
 def test_dispatch_by_device_without_fallback():

@@ -210,41 +210,46 @@ def fill(buf, value, n=1):
         value.unflatten(-1, (n, value.shape[-1] // n))
 
 
-def fake_launch(fn_name, *args):
+def fake_launch(fn_name, *args, plan=None):
     """Stands in for ops.lstm._launch where there is no card: runs the
     kernel's plain version into the output buffers it was given, and counts
     the launch as _launch does. It checks the zero padding of H the wrapper
     handed the kernel and computes on the real units, as the kernel's zero
-    units leave them unchanged."""
+    units leave them unchanged. The single-block forwards ("_block") take
+    the cluster entries' arguments at H padded to whole k-steps."""
+    tl.launch_counts[fn_name] += 1
+    units = FORWARD_UNITS
+    if fn_name.endswith("_block"):
+        fn_name, units = fn_name[:-len("_block")], BACKWARD_UNITS
     if fn_name == "lstm_scan_fwd":
         gates, wt, out, _, _, _, _, reverse = args
-        h = real_units(wt, 4, FORWARD_UNITS)
+        h = real_units(wt, 4, units)
         fill(out, tl.lstm_scan_reference_tm(strip(gates, h, 4),
                                             real_weight(wt, h, 4),
                                             bool(reverse)))
     elif fn_name == "lstm_scan_fwd_carry":
         gates, wt, h0, c0, out, h_t, c_t, _, _, _, _, reverse = args
-        h = real_units(wt, 4, FORWARD_UNITS)
+        h = real_units(wt, 4, units)
         seq, hn, cn = tl.lstm_scan_carry_reference_tm(
             strip(gates, h, 4), real_weight(wt, h, 4), strip(h0, h),
             strip(c0, h), bool(reverse), out.dtype)
         fill(out, seq), fill(h_t, hn), fill(c_t, cn)
     elif fn_name == "lstm_scan_fwd_train":
         gates, wt, h_seq, c_seq, _, _, _, reverse = args
-        h = real_units(wt, 4, FORWARD_UNITS)
+        h = real_units(wt, 4, units)
         hs, cs = tl.lstm_scan_train_reference_tm(
             strip(gates, h, 4), real_weight(wt, h, 4), bool(reverse))
         fill(h_seq, hs), fill(c_seq, cs)
     elif fn_name == "lstm_scan_bwd":
-        gates, h_seq, c_seq, gout, wt, w, dgates, _, _, _, reverse = args
-        assert torch.equal(wt.t(), w)
+        gates, h_seq, c_seq, gout, wt, w, wf, dgates, _, _, _, reverse = args
+        assert torch.equal(wt.t(), w) and torch.equal(wf,
+                                                      tl._fragment_weight(wt))
         h = real_units(wt, 4, BACKWARD_UNITS)
         fill(dgates, tl.lstm_scan_bwd_reference_tm(
             strip(gates, h, 4), strip(h_seq, h), strip(c_seq, h),
             strip(gout, h), real_weight(wt, h, 4), bool(reverse)), 4)
     else:
         raise KeyError(fn_name)
-    tl.launch_counts[fn_name] += 1
 
 
 @pytest.fixture
@@ -305,9 +310,15 @@ def test_kernel_operands_are_checked(launches):
         tl.lstm_scan_bwd_tm(gates, state, state, state.float(), whh)
     with pytest.raises(ValueError):
         tl.lstm_scan_bwd_tm(gates, state, state[:2], state, whh)
-    # any H is padded for the kernels, but no cluster of 16 holds the W_hh
-    # slice of H = 1024 in shared memory
-    big = torch.zeros(1, 1, 4 * 1024, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="too large for the cluster scan"):
-        tl.lstm_scan_train_tm(big, torch.zeros(1024, 4 * 1024))
     assert not any(launches.values())
+    # no cluster of 16 holds the W_hh slice of H = 1024 in shared memory, so
+    # the training forward takes the single-block route, as the JAX kernels
+    # take any H
+    big = _bf16(_rand((2, 1, 4 * 1024), seed=46))
+    w_big = torch.from_numpy(_rand((1024, 4 * 1024), seed=47, scale=0.02))
+    got = tl.lstm_scan_train_tm(big, w_big)
+    assert launches == {**dict.fromkeys(launches, 0),
+                        "lstm_scan_fwd_train_block": 1}
+    want = tl.lstm_scan_train_reference_tm(big, w_big)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -116,14 +116,14 @@ def test_layer_gradients_match_jax(reverse):
         np.testing.assert_allclose(a, e, **EXACT)
 
 
-def fake_launch(fn_name, *args):
+def fake_launch(fn_name, *args, plan=None):
     """Stands in for ops.lstm._launch where there is no card: kernel F's
     plain version into the output buffer it was given, after checking the
     operand layout the wrapper built (x with an even F, W_ih^T padded with
     zero columns to a multiple of 16, fp32 bias); the scan kernels as
     tests/test_torch_lstm_backward.py fakes them."""
     if fn_name != "lstm_layer_fwd":
-        return scan_fake_launch(fn_name, *args)
+        return scan_fake_launch(fn_name, *args, plan=plan)
     x, wih_t, wt, bias, out, out_f32, t_len, b, f, hsz, reverse = args
     assert x.dtype == wih_t.dtype == wt.dtype == torch.bfloat16
     assert bias.dtype == torch.float32 and out_f32 == (out.dtype == torch.float32)

@@ -128,14 +128,21 @@ def test_scan_hidden_pads_to_a_cluster_multiple(hsz, padded):
 
 
 def test_scan_hidden_refuses_what_no_cluster_holds():
+    """No cluster holds H = 1024: scan_hidden raises, and the wrappers take
+    the single-block route at H padded to 16 (forward_hidden)."""
     with pytest.raises(ValueError, match="too large for the cluster scan"):
         tl.scan_hidden(1024)
+    assert tl.forward_hidden(1024, tl.scan_smem_bytes) == (1024, "_block")
+    assert tl.forward_hidden(1000, tl.scan_smem_bytes) == (1008, "_block")
+    assert tl.forward_hidden(384, tl.scan_smem_bytes) == (384, "")
 
 
 def test_forward_launches_carry_the_plan(monkeypatch):
     """Kernels A-C's C functions end in the plan: `_launch` appends
     card_scan_plan's (cluster, rows, shared bytes) for (H, B) of the call
-    with the instance's flags; other entries pass as they are."""
+    with the instance's flags; kernel D's end in card_bwd_scan_plan's
+    (cluster, rows, resident, shared bytes); other entries pass as they
+    are."""
     calls, plans = [], []
     monkeypatch.setattr(tl, "_launch_kernel",
                         lambda name, *args: calls.append((name, args)))
@@ -144,12 +151,18 @@ def test_forward_launches_carry_the_plan(monkeypatch):
         plans.append((hsz, batch, out_dtype, carry, train))
         return tl.plan_scan(hsz, batch, h100_clusters)
 
+    def fake_bwd_plan(device, hsz, batch):
+        plans.append((hsz, batch))
+        return tl.plan_bwd_scan(hsz, batch, lambda c, r, res:
+                                h100_clusters(c, r))
+
     monkeypatch.setattr(tl, "card_scan_plan", fake_plan)
+    monkeypatch.setattr(tl, "card_bwd_scan_plan", fake_bwd_plan)
     x = torch.zeros(2, 16)
     tl._launch("lstm_scan_fwd", x, x, x, 1, 628, 2056, 384, 1)
     tl._launch("lstm_scan_fwd_carry", x, x, x, x, x, x, x, 0, 64, 18, 512, 0)
     tl._launch("lstm_scan_fwd_train", x, x, x, x, 195, 2304, 384, 0)
-    tl._launch("lstm_scan_bwd", x, x, x, x, x, x, x, 195, 2304, 384, 0)
+    tl._launch("lstm_scan_bwd", x, x, x, x, x, x, x, x, 195, 2304, 384, 0)
     sub, full, train = (tl.plan_scan(384, 2056, h100_clusters),
                         tl.plan_scan(512, 18, h100_clusters),
                         tl.plan_scan(384, 2304, h100_clusters))
@@ -160,11 +173,17 @@ def test_forward_launches_carry_the_plan(monkeypatch):
                          *full.launch_args))
     assert calls[2] == ("lstm_scan_fwd_train",
                         (x, x, x, x, 195, 2304, 384, 0, *train.launch_args))
+    bwd = tl.plan_bwd_scan(384, 2304, lambda c, r, res: h100_clusters(c, r))
     assert calls[3] == ("lstm_scan_bwd",
-                        (x, x, x, x, x, x, x, 195, 2304, 384, 0))
+                        (x, x, x, x, x, x, x, x, 195, 2304, 384, 0,
+                         *bwd.launch_args))
+    tl._launch("lstm_scan_bwd_chains", x, x, x, x, x, x, x, 194, 2560, 384, 2)
+    assert calls[4] == ("lstm_scan_bwd_chains",
+                        (x, x, x, x, x, x, x, 194, 2560, 384, 2))
     assert plans == [(384, 2056, torch.float32, False, False),
                      (512, 18, torch.bfloat16, True, False),
-                     (384, 2304, torch.bfloat16, False, True)]
+                     (384, 2304, torch.bfloat16, False, True),
+                     (384, 2304)]
 
 
 def test_card_plan_asks_for_the_instance(monkeypatch):
@@ -215,4 +234,5 @@ def test_sources_match_their_declared_signatures():
     body = re.search(r"size_t cluster_smem\(int H, int C, int R\) \{(.*?)\}",
                      text, re.S).group(1)
     assert "(4 * U + 2 * r) * hs * 2 + r * U * 4 + 2 * r * 4 * U * 2" in body
-    assert set(_cuda._QUERIES) == {"lstm_scan", "gru_scan"}
+    assert set(_cuda._QUERIES) == {"lstm_scan", "gru_scan", "lstm_scan_bwd",
+                                   "gru_scan_bwd"}

@@ -130,7 +130,7 @@ def test_lstm_unrolled_matches_script_interpret(block_t):
     np.testing.assert_allclose(got.float().numpy(), want, **BF16)
 
 
-def fake_launch(fn_name, *args):
+def fake_launch(fn_name, *args, plan=None):
     """Stands in for ops.lstm._launch where there is no card: kernels E and
     G compute what kernels A and D do, so each runs that plain version into
     the output buffer it was given, after checking the arguments the
@@ -146,7 +146,7 @@ def fake_launch(fn_name, *args):
         dgates.copy_(tl.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout,
                                                    w))
     else:
-        return scan_fake_launch(fn_name, *args)
+        return scan_fake_launch(fn_name, *args, plan=plan)
     tl.launch_counts[fn_name] += 1
 
 
