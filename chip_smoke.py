@@ -50,12 +50,14 @@ of which fails the run (non-zero exit, no result line):
      backward's cluster against its single block bit for bit), with kernel
      A's and the backward's times (both designs), plans and registers at 18
      rows; then every scan wrapper of the model paths (LSTM forward, carry,
-     training forward and backward; GRU forward, carry and backward) at
-     H=100 and 200, which the wrappers zero-pad to the kernels' units,
-     against its plain version; then the single-block forwards the wrappers
-     take where no cluster holds H: against the clusters bit for bit at LSTM
-     H=512 and GRU H=640, every model-path wrapper at LSTM H=640 and 768 and
-     GRU H=768 against its plain version, and each entry's time at H=768;
+     training forward and backward; GRU forward, carry and backward) and
+     the LSTM layer with the projection inside (lstm_layer_tm) at H=100
+     and 200, which the wrappers zero-pad to the kernels' units, against its
+     plain version; then the single-block forwards the wrappers take where
+     no cluster holds H: against the clusters bit for bit at LSTM H=512 and
+     GRU H=640, every such wrapper at LSTM H=640 and 768 (lstm_layer_tm's
+     lstm_layer_fwd_block among them) and GRU H=768 against its plain
+     version, and each scan entry's time at H=768;
   9. the GRU forward and carry kernels against their plain versions at the
      sub-band serving shape (T=628, H=384, 2056 rows and a ragged count) and
      the full-band shape (H=512, 8 rows and 1 row), chunked against unchunked
@@ -76,18 +78,23 @@ of which fails the run (non-zero exit, no result line):
      FullSubNet+'s real sub-band stack (the model's layer-1 input of one
      batch-8 x 10 s request, its own weights), against its plain version at
      both layers, forward and reverse, and at a ragged row count, and both
-     layers against the model's own hoisted stack; LSTMLayerScan's four
+     layers against the model's own hoisted stack; the cluster against its
+     single block (lstm_layer_fwd_block, the first design) bit for bit at
+     both layers, the ragged count and H=512; LSTMLayerScan's four
      gradients at the training shape against autograd through the float32
      recurrence, with its exact launches; the chains backward
      (scripts.perf_lstm_chains) and the K-step unrolled forward
      (scripts.perf_lstm_unroll) bit for bit against the kernels they
-     reorganise; and their times beside bound, plain version and library.
+     reorganise (the unrolled one also at H=100 and 200); and their times
+     beside bound, plain version and library (the layer's beside its single
+     block's), with the staged kernels' plans and registers.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, and around
 each variant's own path in phase 12. The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device.
 """
+import contextlib
 import dataclasses
 import json
 import re
@@ -235,7 +242,7 @@ def phase_build():
     for name in _cuda.SOURCES:
         _cuda.load(name)
     return {**_cluster_registers(reports.get("lstm_scan", "")),
-            **_bwd_registers(reports)}
+            **_bwd_registers(reports), **_staged_registers(reports)}
 
 
 def _cluster_registers(report):
@@ -270,6 +277,38 @@ def _bwd_registers(reports):
                 kind = "D" if entry.group(1) == "lstm" else "GRU backward"
                 name = (f"{kind} cluster, slice "
                         f"{'resident' if entry.group(2) == '1' else 'streamed'}")
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
+    return found
+
+
+def _staged_registers(reports):
+    """{"E K=2": "... registers, ... spilled", "F bf16": ...,
+    "F block fp32": ...} for the instances of kernels E and F
+    (lstm_scan_staged.cu) and of F's single block (lstm_layer_block.cu),
+    from ptxas's reports."""
+    found, name, spill = {}, None, ""
+    out_type = {"13__nv_bfloat16": "bf16", "f": "fp32"}
+    for line in "\n".join(reports.get(s, "") for s in (
+            "lstm_scan_staged", "lstm_layer_block")).splitlines():
+        if "Compiling entry function" in line:
+            name, spill = None, ""
+            e = re.search(r"lstm_unrolled_kernelILi(\d)E", line)
+            f = re.search(r"lstm_layer_cluster_kernelI(13__nv_bfloat16|f)E",
+                          line)
+            b = re.search(r"lstm_layer_block_kernelI(13__nv_bfloat16|f)E",
+                          line)
+            if e:
+                name = f"E K={e.group(1)}"
+            elif f:
+                name = f"F {out_type[f.group(1)]}"
+            elif b:
+                name = f"F block {out_type[b.group(1)]}"
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            line)
         if stores and name:
@@ -737,16 +776,30 @@ def _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows):
     p_dg = L.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout, w_hh)
     err_d = (dg.float() - p_dg.float()).abs()
     peak = p_dg.float().abs().max().item()
+    # the layer with the projection inside (kernel F), sub-band input width
+    x = torch.randn(t_len, rows, SB_FEATURES, generator=gen, device=dev)
+    layer = (_uniform(gen, dev, (SB_FEATURES, 4 * h), h ** -0.5),
+             _uniform(gen, dev, (h, 4 * h), h ** -0.5),
+             _uniform(gen, dev, (4 * h,), h ** -0.5))
+    with torch.no_grad():
+        err_f = (L.lstm_layer_tm(x, *layer, True, torch.float32)
+                 - L.lstm_layer_reference_tm(x, *layer, True)).abs()
     torch.cuda.synchronize()
     hp, route = L.forward_hidden(h, L.scan_smem_bytes)
+    hf, route_f = L.layer_route(h, SB_FEATURES)
     log(f"LSTM {tag}: A max|err| {err_a.max().item():.3e} mean "
         f"{err_a.mean().item():.3e}; B (reverse, from a state) "
         f"{err_b:.3e}; C c_seq {err_c.max().item():.3e}, h == A bitwise "
         f"{torch.equal(h_seq, h_a)}; D "
         f"{err_d.max().item():.3e} mean {err_d.mean().item():.3e} (peak "
-        f"{peak:.3f}); A-C at {hp} units "
-        f"({'single blocks' if route else 'clusters'}), D: "
+        f"{peak:.3f}); F (reverse, F={SB_FEATURES}) "
+        f"{err_f.max().item():.3e} mean {err_f.mean().item():.3e}; A-C at "
+        f"{hp} units ({'single blocks' if route else 'clusters'}), F at {hf} "
+        f"({'single blocks' if route_f else 'clusters'}), D: "
         f"{_describe_bwd(L.card_bwd_scan_plan(dev, -(-h // 16) * 16, rows))}")
+    check(err_f.max().item() < KERNEL_MAX_ABS
+          and err_f.mean().item() < KERNEL_MEAN_ABS,
+          f"lstm_layer_tm vs plain at {tag}")
     check(err_a.max().item() < KERNEL_MAX_ABS
           and err_a.mean().item() < KERNEL_MEAN_ABS
           and err_b < KERNEL_MAX_ABS
@@ -801,12 +854,14 @@ def _gru_wrappers_vs_plain(G, dev, gen, h, t_len, rows):
 
 def phase_block_forwards(dev):
     """The single-block forward route (csrc/lstm_scan_block.cu,
-    csrc/gru_scan_block.cu), which the wrappers take where no cluster holds
-    H: bit for bit against the cluster entries where both run (LSTM H=512,
-    GRU H=640, forward and reverse, bf16 and fp32 out, from a state); every
-    model-path scan wrapper at LSTM H=640 and 768 and GRU H=768 against its
-    plain version within the kernel limits, with the launch counts set to 0
-    around them; and each entry at H=768, T=195, 18 rows against its plain
+    csrc/gru_scan_block.cu, and kernel F's csrc/lstm_layer_block.cu), which
+    the wrappers take where no cluster holds H: bit for bit against the
+    cluster entries where both run (LSTM H=512, GRU H=640, forward and
+    reverse, bf16 and fp32 out, from a state; kernel F's in phase 12); every
+    model-path scan wrapper and lstm_layer_tm at LSTM H=640 and 768 and GRU
+    H=768 against its plain version within the kernel limits, with the
+    launch counts set to 0 around them; and each scan entry at H=768, T=195,
+    18 rows against its plain
     version, with its time beside bound, plain version and cuDNN. Returns
     the entries' numbers for the kernels line and their launches."""
     from generative_audio_torch.ops import gru as G
@@ -1468,25 +1523,44 @@ def _sub_band_stack(dev, path):
 
 
 def _check_layer(L, tag, x, weights, reverse):
-    """lstm_layer_fwd (fp32 out) against its plain version; max |err|."""
-    got = L.lstm_layer_tm(x, *weights, reverse, torch.float32)
+    """lstm_layer_fwd and its single block, lstm_layer_fwd_block (fp32 out
+    both), against the plain version; (max |err| of each)."""
     want = L.lstm_layer_reference_tm(x, *weights, reverse)
+    errs = []
+    for name in ("lstm_layer_fwd", "lstm_layer_fwd_block"):
+        with (L.single_block_forwards() if name.endswith("_block")
+              else contextlib.nullcontext()):
+            got = L.lstm_layer_tm(x, *weights, reverse, torch.float32)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        log(f"{name} {tag} reverse={reverse}: max|err| "
+            f"{err.max().item():.3e} mean {err.mean().item():.3e}")
+        check(torch.isfinite(got).all().item(), f"{name} finite ({tag})")
+        check(err.max().item() < KERNEL_MAX_ABS
+              and err.mean().item() < KERNEL_MEAN_ABS,
+              f"{name} vs plain within {KERNEL_MAX_ABS}/{KERNEL_MEAN_ABS} "
+              f"({tag} reverse={reverse})")
+        errs.append(err.max().item())
+    return tuple(errs)
+
+
+def _layer_routes_agree(L, inp, weights, reverse):
+    """lstm_layer_tm (fp32 out) on the card's route (the cluster) and on
+    the single block (the first design of kernel F): bit for bit?"""
+    with torch.no_grad():
+        got = L.lstm_layer_tm(inp, *weights, reverse, torch.float32)
+        with L.single_block_forwards():
+            blk = L.lstm_layer_tm(inp, *weights, reverse, torch.float32)
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    log(f"lstm_layer_fwd {tag} reverse={reverse}: max|err| "
-        f"{err.max().item():.3e} mean {err.mean().item():.3e}")
-    check(torch.isfinite(got).all().item(), f"lstm_layer_fwd finite ({tag})")
-    check(err.max().item() < KERNEL_MAX_ABS
-          and err.mean().item() < KERNEL_MEAN_ABS,
-          f"lstm_layer_fwd vs plain within {KERNEL_MAX_ABS}/{KERNEL_MEAN_ABS} "
-          f"({tag} reverse={reverse})")
-    return err.max().item()
+    return torch.equal(got, blk)
 
 
-def phase_lstm_layer(dev, path, kernel_a_ms):
+def phase_lstm_layer(dev, path, kernel_a_ms, registers):
     """Row 4: lstm_layer_tm through FullSubNet+'s sub-band stack, its plain
-    version, the model's hoisted stack, its gradient at the training shape,
-    and its times."""
+    version, the model's hoisted stack, the cluster against the single block
+    (`lstm_layer_fwd_block`, the first design) bit for bit, its gradient at
+    the training shape, and its times beside the single block's, with its
+    plans and registers."""
     from generative_audio_torch.ops import lstm as L
     x, hoisted, weights = _sub_band_stack(dev, path)
     check(tuple(x.shape) == (T_FRAMES, ROWS, SB_FEATURES),
@@ -1514,38 +1588,77 @@ def phase_lstm_layer(dev, path, kernel_a_ms):
           f"{LAYER_PATH_MAX_ABS}/{LAYER_PATH_MEAN_ABS}")
     del err
 
-    max_err = 0.0
+    max_err = max_err_blk = 0.0
     with torch.no_grad():
+        ragged = x[:TRAIN_T, :RAGGED_ROWS]
         for tag, inp, w in (("layer 1", x, weights[0]),
-                            ("layer 2", y1, weights[1])):
+                            ("layer 2", y1, weights[1]),
+                            (f"layer 1 T={TRAIN_T} rows={RAGGED_ROWS}",
+                             ragged, weights[0])):
             tag = f"{tag} (F={inp.shape[-1]})"
             for reverse in (False, True):
-                max_err = max(max_err, _check_layer(L, tag, inp, w, reverse))
-        ragged = x[:TRAIN_T, :RAGGED_ROWS]
-        for reverse in (False, True):
-            max_err = max(max_err, _check_layer(
-                L, f"layer 1 T={TRAIN_T} rows={RAGGED_ROWS}", ragged,
-                weights[0], reverse))
+                err, err_blk = _check_layer(L, tag, inp, w, reverse)
+                max_err, max_err_blk = (max(max_err, err),
+                                        max(max_err_blk, err_blk))
 
-    # times at both layers, on bf16 inputs as the stack hands them on
+    # the cluster against the single block, the parent design, bit for bit
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    fb = FB_HIDDEN
+    x512 = torch.randn(T_CHUNK, 40, HIDDEN, generator=gen, device=dev)
+    w512 = (_uniform(gen, dev, (HIDDEN, 4 * fb), fb ** -0.5),
+            _uniform(gen, dev, (fb, 4 * fb), fb ** -0.5),
+            _uniform(gen, dev, (4 * fb,), fb ** -0.5))
+    for tag, inp, w in (("layer 1", x, weights[0]), ("layer 2", y1, weights[1]),
+                        (f"layer 1 T={TRAIN_T} rows={RAGGED_ROWS}",
+                         x[:TRAIN_T, :RAGGED_ROWS], weights[0]),
+                        (f"H={fb} F={HIDDEN} T={T_CHUNK} rows=40", x512,
+                         w512)):
+        for reverse in (False, True):
+            check(_layer_routes_agree(L, inp, w, reverse),
+                  f"lstm_layer_fwd == lstm_layer_fwd_block bitwise ({tag}, "
+                  f"reverse={reverse})")
+        log(f"lstm_layer_fwd == lstm_layer_fwd_block bitwise, fp32 out, "
+            f"forward and reverse: {tag}")
+    del x512, w512
+
+    # times at both layers, on bf16 inputs as the stack hands them on: the
+    # cluster and the single block in turns (cluster, block, block, cluster)
     x_bf = x.to(torch.bfloat16).contiguous()
     card = card_line()
-    times = {}
+    times, block_times = {}, {}
     with torch.no_grad():
         for name, inp, w in (("layer 1", x_bf, weights[0]),
                              ("layer 2", y1, weights[1])):
             f = inp.shape[-1]
-            ms = cuda_ms(lambda: L.lstm_layer_tm(inp, *w), iters=5)
+
+            def block():
+                with L.single_block_forwards():
+                    return L.lstm_layer_tm(inp, *w)
+
+            rounds = [cuda_ms(lambda: L.lstm_layer_tm(inp, *w), iters=5),
+                      cuda_ms(block, iters=3), cuda_ms(block, iters=3),
+                      cuda_ms(lambda: L.lstm_layer_tm(inp, *w), iters=5)]
+            ms, ms_blk = min(rounds[0], rounds[3]), min(rounds[1:3])
             plain = cuda_ms(lambda: L.lstm_layer_reference_tm(inp, *w), iters=2)
             lib = library_layer_ms(inp, *w)
             b_ms, by = _layer_bound(T_FRAMES, ROWS, f, HIDDEN)
+            plan = L.card_layer_plan(dev, L.layer_route(HIDDEN, f)[0], ROWS, f)
             times[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                               bound_by=by, library_ms=lib)
+                               bound_by=by, library_ms=lib,
+                               plan=dataclasses.asdict(plan))
+            block_times[name] = dict(ms=ms_blk, plain_ms=plain, bound_ms=b_ms,
+                                     bound_by=by, library_ms=lib)
             log(f"lstm_layer_fwd {name} at T={T_FRAMES} rows={ROWS} F={f} "
-                f"H={HIDDEN}: {ms:.3f} ms ({ms / kernel_a_ms:.2f}x kernel A's "
-                f"{kernel_a_ms:.3f}; bound {b_ms:.3f} ms by {by}; plain "
-                f"{plain:.3f} ms; cuDNN nn.LSTM({f}, {HIDDEN}) {lib:.3f} ms) "
-                f"on {card}")
+                f"H={HIDDEN}: {ms:.3f} ms, {1e3 * ms / T_FRAMES / plan.waves:.2f} "
+                f"us a step a wave (modelled "
+                f"{L.layer_step_us(HIDDEN, plan.cluster, plan.rows, f):.2f}); single "
+                f"block (lstm_layer_fwd_block, the first design) "
+                f"{ms_blk:.3f} ms (rounds {' '.join(f'{r:.3f}' for r in rounds)}); "
+                f"{ms / kernel_a_ms:.2f}x kernel A's {kernel_a_ms:.3f}; bound "
+                f"{b_ms:.3f} ms by {by}; plain {plain:.3f} ms; cuDNN "
+                f"nn.LSTM({f}, {HIDDEN}) {lib:.3f} ms) on {card}")
+            log(f"  plan: {_staged_plan_line(plan)}")
+    log(f"kernel F registers: {_registers_line(registers, 'F')}")
     del x, hoisted, y1, y2, x_bf
 
     # under grad at the training shape: LSTMLayerScan = kernels C and D
@@ -1606,8 +1719,10 @@ def phase_lstm_layer(dev, path, kernel_a_ms):
     del gates, dgates, dx_f, dx_step, fault_step
     log(f"lstm_layer_fwd launches on its path (two layers): "
         f"{launches['lstm_layer_fwd']}")
-    return dict(max_abs_err=max_err, **times["layer 1"]), \
-        launches["lstm_layer_fwd"]
+    return (dict(max_abs_err=max_err, **times["layer 1"],
+                 layer_2=times["layer 2"]), launches["lstm_layer_fwd"],
+            dict(max_abs_err=max_err_blk, **block_times["layer 1"],
+                 layer_2=block_times["layer 2"]))
 
 
 def phase_lstm_chains(dev, library_bwd_ms):
@@ -1670,31 +1785,49 @@ def phase_lstm_chains(dev, library_bwd_ms):
                 bound_by=by, library_ms=library_bwd_ms), launches
 
 
-def phase_lstm_unroll(dev):
+def _staged_plan_line(plan):
+    """A launch plan of kernel E or F (a ScanPlan)."""
+    return (f"cluster C={plan.cluster} x R={plan.rows} rows, "
+            f"{plan.clusters} clusters, cudaOccupancyMaxActiveClusters "
+            f"{plan.active}, {plan.waves} wave(s), {plan.smem_bytes} B of "
+            f"shared memory a CTA")
+
+
+def phase_lstm_unroll(dev, registers):
     """Row 10: the K-step unrolled forward through scripts.perf_lstm_unroll,
-    bit for bit against kernel A, against its plain version, and its times
-    beside kernel A's."""
+    bit for bit against kernel A (at the script's and the serving row
+    counts, and at H=100 and 200, which the wrapper pads), against its
+    plain version, and its times beside kernel A's, with its plans and
+    registers."""
     from generative_audio_torch.ops import lstm as L
     from generative_audio_torch.scripts import perf_lstm_unroll as PU
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     w_hh = _uniform(gen, dev, (HIDDEN, 4 * HIDDEN), HIDDEN ** -0.5)
+    shapes = [(HIDDEN, T_FRAMES, rows) for rows in (TRAIN_ROWS, ROWS)]
+    shapes += [(h, T_CHUNK, ROWS) for h in PADDED_HIDDEN]
     L.reset_launch_counts()
     with torch.no_grad():
-        for rows in (TRAIN_ROWS, ROWS):
-            gates = torch.randn(T_FRAMES, rows, 4 * HIDDEN, generator=gen,
+        for h, t_len, rows in shapes:
+            w = w_hh if h == HIDDEN else _uniform(gen, dev, (h, 4 * h),
+                                                  h ** -0.5)
+            gates = torch.randn(t_len, rows, 4 * h, generator=gen,
                                 device=dev).to(torch.bfloat16)
             for k in L.UNROLL_STEPS:
-                got = PU.lstm_unrolled(gates, w_hh, block_t=k)   # the path
-                want = L.lstm_scan_tm(gates, w_hh)               # kernel A
+                got = PU.lstm_unrolled(gates, w, block_t=k)      # the path
+                want = L.lstm_scan_tm(gates, w)                  # kernel A
                 torch.cuda.synchronize()
                 check(torch.equal(got, want), f"lstm_scan_fwd_unrolled K={k} "
-                      f"== lstm_scan_fwd bitwise (rows={rows})")
-                log(f"lstm_scan_fwd_unrolled K={k} T={T_FRAMES} rows={rows}: "
-                    f"== lstm_scan_fwd over all {got.numel()} outputs")
+                      f"== lstm_scan_fwd bitwise (H={h} rows={rows})")
+                log(f"lstm_scan_fwd_unrolled K={k} H={h} T={t_len} "
+                    f"rows={rows}: == lstm_scan_fwd over all {got.numel()} "
+                    f"outputs; {L.unrolled_hidden(h, k)} units, "
+                    f"{_staged_plan_line(L.card_unrolled_plan(dev, L.unrolled_hidden(h, k), rows, k))}")
             del gates, got, want
         launches = L.launch_counts["lstm_scan_fwd_unrolled"]
-        check(launches == 2 * len(L.UNROLL_STEPS),
+        check(launches == len(shapes) * len(L.UNROLL_STEPS),
               "lstm_scan_fwd_unrolled launched once a shape and K")
+        log(f"kernel E registers: {_registers_line(registers, 'E')}; "
+            f"kernels A-C: {_registers_line(registers, 'ABC')}")
 
         # at T=628 x 2304 rows, the script's shape
         rows = TRAIN_ROWS
@@ -1720,13 +1853,21 @@ def phase_lstm_unroll(dev):
         plain = cuda_ms(lambda: PU.lstm_unrolled_reference(gates, w_hh), iters=2)
         lib = library_lstm_ms(gates, w_hh)
     b_ms, by = bound(T_FRAMES, rows, HIDDEN)
+    plans = {k: L.card_unrolled_plan(dev, L.unrolled_hidden(HIDDEN, k), rows,
+                                     k) for k in L.UNROLL_STEPS}
     log(f"lstm_scan_fwd_unrolled at T={T_FRAMES} rows={rows} H={HIDDEN}: K=2 "
         f"{ms[2]:.3f} ms, K=4 {ms[4]:.3f} ms; lstm_scan_fwd (K=1) {ms[1]:.3f} "
         f"ms (rounds {'; '.join(f'K={k} ' + ' '.join(f'{t:.3f}' for t in r) for k, r in times.items())}); "
         f"bound {b_ms:.3f} ms by {by}; plain {plain:.3f} ms; cuDNN LSTM "
         f"{lib:.3f} ms on {card_line()}")
+    for k, plan in plans.items():
+        log(f"  K={k}: {_staged_plan_line(plan)}, modelled "
+            f"{L.unrolled_step_us(L.unrolled_hidden(HIDDEN, k), plan.cluster, plan.rows):.2f} us a "
+            f"step; measured {1e3 * ms[k] / T_FRAMES / plan.waves:.2f} us a "
+            f"step a wave")
     return dict(max_abs_err=max_err, ms=ms[2], plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=lib), launches
+                bound_by=by, library_ms=lib, kernel_a_ms=ms[1], k4_ms=ms[4],
+                plan=dataclasses.asdict(plans[2])), launches
 
 
 @dataclasses.dataclass
@@ -2124,7 +2265,10 @@ def main():
                                       f"{pallas}:205"),
         "gru_scan_fwd_block": (f"{csrc}/gru_scan_block.cu", f"{pallas}:907"),
         "gru_scan_fwd_carry_block": (f"{csrc}/gru_scan_block.cu",
-                                     f"{pallas}:1151")}
+                                     f"{pallas}:1151"),
+        # kernel F's single-block route where no cluster holds H
+        "lstm_layer_fwd_block": (f"{csrc}/lstm_layer_block.cu",
+                                 f"{pallas}:542")}
     plus, v1_gru, v1_lstm = model_paths()
     counts = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
                                "lstm_scan_fwd_train", "lstm_scan_bwd"])
@@ -2136,9 +2280,10 @@ def main():
     kernels["lstm_scan_bwd_chains"], counts["lstm_scan_bwd_chains"] = \
         phase_lstm_chains(dev, kernels["lstm_scan_bwd"]["library_ms"])
     kernels["lstm_scan_fwd_unrolled"], counts["lstm_scan_fwd_unrolled"] = \
-        phase_lstm_unroll(dev)
-    kernels["lstm_layer_fwd"], counts["lstm_layer_fwd"] = phase_lstm_layer(
-        dev, plus, kernels["lstm_scan_fwd"]["ms"])
+        phase_lstm_unroll(dev, registers)
+    (kernels["lstm_layer_fwd"], counts["lstm_layer_fwd"],
+     kernels["lstm_layer_fwd_block"]) = phase_lstm_layer(
+        dev, plus, kernels["lstm_scan_fwd"]["ms"], registers)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -112,8 +112,16 @@ _SIGNATURES = {
         "lstm_scan_fwd_train_block": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "lstm_scan_staged": {
-        "lstm_scan_fwd_unrolled": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "lstm_layer_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # ..., k, then the launch plan: cluster, rows, shared bytes
+        "lstm_scan_fwd_unrolled": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _P],
+        # ..., reverse, then the launch plan: cluster, rows, shared bytes
+        "lstm_layer_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _P],
+    },
+    "lstm_layer_block": {
+        "lstm_layer_fwd_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P],
     },
     "lstm_scan_bwd": {
         # ..., reverse, then the launch plan: cluster, rows, resident,
@@ -144,12 +152,16 @@ _SIGNATURES = {
 }
 SOURCES = tuple(_SIGNATURES)
 # Queries that launch nothing: the instance's flags (out_f32, carry; and
-# train for the LSTM forward; resident for the backwards), then H, cluster,
-# rows and int* n.
+# train for the LSTM forward; resident for the backwards; k and out_f32 for
+# the staged scans), then H, cluster, rows and int* n.
 _QUERIES = {
     "lstm_scan": {
         "lstm_scan_max_clusters": [_I, _I, _I, _I, _I, _I,
                                    ctypes.POINTER(ctypes.c_int)],
+    },
+    "lstm_scan_staged": {
+        "lstm_scan_staged_max_clusters": [_I, _I, _I, _I, _I,
+                                          ctypes.POINTER(ctypes.c_int)],
     },
     "gru_scan": {
         "gru_scan_max_clusters": [_I, _I, _I, _I, _I,

@@ -74,7 +74,7 @@ from generative_audio_torch.ops.lstm import (
     _wants_grad, bwd_cluster_smem_bytes, bwd_cluster_step_us, card_bwd_plan,
     card_plan, check_smem, cluster_hidden, cluster_step_us, forward_hidden,
     plan_bwd, plan_cluster_scan, sm_blocks)
-from generative_audio_torch.ops.lstm import _launch_kernel as _launch_entry
+from generative_audio_torch.ops.lstm import _launch as _launch_entry
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "gru_scan_carry_reference_tm", "gru_scan_bwd_streams_tm",

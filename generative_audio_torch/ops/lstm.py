@@ -17,14 +17,17 @@ Port of five kernels of generative_audio_tpu/ops/pallas_lstm.py:
     backward that recomputes the gates and emits bf16 dgates;
   * `lstm_layer_tm` without grad (kernel F, csrc/lstm_scan_staged.cu
     `lstm_layer_fwd`) replaces `_lstm_layer_pallas_call` /
-    `_lstm_layer_kernel`: x_t @ W_ih inside each step, no gates buffer.
+    `_lstm_layer_kernel`: x_t @ W_ih inside the scan, no gates buffer; a
+    thread-block cluster whose warps compute the next step's x product
+    while they wait at the step's cluster barrier.
 Two more kernels reorganise kernels A and D, bit for bit, and replace the
 kernels that the JAX package keeps in scripts/: `lstm_scan_tm(...,
 block_t=K)` (kernel E, csrc/lstm_scan_staged.cu `lstm_scan_fwd_unrolled`:
-K steps' gate tiles staged at once) and `lstm_scan_bwd_tm(...,
-n_chains=N)` (kernel G, csrc/lstm_scan_bwd.cu `lstm_scan_bwd_chains`: N
-16-row chains per block). generative_audio_torch/scripts/ holds their entry
-points, named after the JAX scripts.
+kernel A's cluster whose x-side gates arrive by TMA, K steps at a time)
+and `lstm_scan_bwd_tm(..., n_chains=N)` (kernel G, csrc/lstm_scan_bwd.cu
+`lstm_scan_bwd_chains`: N 16-row chains per block).
+generative_audio_torch/scripts/ holds their entry points, named after the
+JAX scripts.
 `LSTMScan` is the counterpart of the JAX custom VJP (`_lstm_fwd` /
 `_lstm_bwd`): forward = kernel C, backward = kernel D plus dW_hh as one
 contraction outside the kernel. `lstm_scan_tm` goes through it whenever
@@ -52,22 +55,26 @@ GRU forward does (ops/gru.py): `_launch` appends `card_scan_plan`'s launch
 plan to their arguments. `plan_cluster_scan`, the planner both cells share,
 picks the cluster size and the rows per cluster from H, the row count, the
 shared-memory limit, a step model fitted on the card and the card's
-`cudaOccupancyMaxActiveClusters`; it is plain Python. Kernel D runs as a
+`cudaOccupancyMaxActiveClusters`; it is plain Python. Kernels E and F are
+clusters too, each with its own layout and step model through the same
+planner (`plan_unrolled`, `plan_layer`; `card_unrolled_plan`,
+`card_layer_plan`). Kernel D runs as a
 thread-block cluster or as the single-block design, which give the same
 dgates bit for bit: `_launch` appends `card_bwd_scan_plan`'s plan
 (`plan_bwd`, shared with the GRU backward, weighs the two by a step model
 fitted on the card).
 
-Any H runs on the card: the wrappers of the model paths' scans zero-pad H
-to the units their kernel takes (`scan_hidden` for the cluster scans, whole
-16-deep k-steps for the backward) and slice the result back; at H = 384 and
-512 nothing is padded. Where no cluster holds W_hh's slice (H above 512),
-kernels A-C take the single-block route (csrc/lstm_scan_block.cu, entries
-ending in `_block`) at H padded to 16. A padded unit sees zero gates and
-zero weights, so it stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros
-to the real units' sums and gets zero dgates. Kernels E and F and the
-chains backward, which no model path launches, take H as it is and refuse
-what they cannot run.
+Any H runs on the card: the wrappers zero-pad H to the units their kernel
+takes (`scan_hidden` for kernels A-C, `unrolled_hidden` for E,
+`layer_route` for F, whole 16-deep k-steps for the backward) and slice the
+result back; at H = 384 and 512 nothing is padded. Where no cluster holds
+W_hh's slice (H above 512), kernels A-C and F take the single-block route
+(csrc/lstm_scan_block.cu and csrc/lstm_layer_block.cu, entries ending in
+`_block`) at H padded to 16. A padded unit sees zero gates, zero weights
+and zero bias, so it stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros
+to the real units' sums and gets zero dgates. Kernel E refuses an H that
+no cluster holds, and the chains backward takes H as it is and refuses
+what it cannot run.
 """
 from __future__ import annotations
 
@@ -75,7 +82,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -91,7 +98,12 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "lstm_scan_bwd_planned_tm", "BwdPlan", "plan_bwd",
            "plan_bwd_scan", "card_bwd_scan_plan", "bwd_smem_bytes_cluster",
            "bwd_step_us", "forward_hidden", "block_smem_bytes",
-           "single_block_forwards"]
+           "single_block_forwards", "unrolled_smem_bytes",
+           "unrolled_step_us", "plan_unrolled", "card_unrolled_plan",
+           "unrolled_hidden", "lstm_scan_unrolled_planned_tm",
+           "layer_smem_bytes", "layer_step_us", "plan_layer",
+           "card_layer_plan", "layer_route", "layer_block_smem_bytes",
+           "lstm_layer_planned_tm"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -101,6 +113,7 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "lstm_scan_fwd_train_block": "lstm_scan_block",
               "lstm_scan_fwd_unrolled": "lstm_scan_staged",
               "lstm_layer_fwd": "lstm_scan_staged",
+              "lstm_layer_fwd_block": "lstm_layer_block",
               "lstm_scan_bwd": "lstm_scan_bwd",
               "lstm_scan_bwd_chains": "lstm_scan_bwd",
               "gru_scan_fwd": "gru_scan", "gru_scan_fwd_carry": "gru_scan",
@@ -116,8 +129,6 @@ _PAD = 8                   # bf16 pad per shared row, as csrc/scan_common.cuh
 _ROWS = 16                 # batch rows per block (per chain)
 UNROLL_STEPS = (2, 4)      # kernel E's steps per staged gate tile
 CHAIN_COUNTS = (2, 4)      # kernel G's 16-row chains per block
-# kernel E keeps c in registers, at most 8 unit groups of 8 per warp of 8
-UNROLL_MAX_HIDDEN = 512
 # CTAs per cluster of the forward scans (csrc/lstm_scan.cu, csrc/gru_scan.cu):
 # 8 is the portable limit; the kernels opt in to 16, which an H100 allows.
 CLUSTER_SIZES = (8, 16)
@@ -132,6 +143,19 @@ _STEP_UNITS = 16
 # at most 0.9 us a step; the round is the GRU's (ops/gru.py), since no plan
 # at H = 384 or 512 gives a warp a second item.
 _STEP_US, _ROUND_US, _STORE_US = 3.3, 2.7, 1.75e-3
+# Kernel E's parts, as kernel A's (step, round, store; microseconds): the
+# step and the store a least-squares fit to the steps of nine one-cluster
+# plans (H = 384, K = 2 and 4, C = 8 x 16 rows and C = 16 x 16-64 rows) on
+# an H100 SXM at 700 W (generative_audio_torch/scripts/perf_staged_scan.py),
+# off by at most 0.4 us a step; the round is kernel A's (no plan at H = 384
+# gives a warp a second item). Kernel F's (step, store, and one x k-step of
+# one item, W_ih^T's fragments from L2): a least-squares fit to the steps of
+# 18 one-cluster plans of the same sweep (F = 34 and 384, C = 8 and 16,
+# 16-96 rows), off by at most 2.7 us a step and 1.0 us in the mean, whose
+# least modelled waves x step is the measured best plan at both sub-band
+# layers.
+_UNROLL_PARTS = (3.06, 2.7, 1.62e-3)
+_LAYER_PARTS = (5.52, 1.13e-3, 0.0291)
 # The forward entries, whose C functions end in the launch plan.
 _CLUSTER_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry",
                     "lstm_scan_fwd_train")
@@ -378,14 +402,20 @@ def _fragment_weight(wt: torch.Tensor) -> torch.Tensor:
     backwards read (csrc `wf`): [n][H/8][H/32][32 lanes][8] bf16, where lane
     (grp, tq) of 8-unit group G holds the B fragments (b0, b1) of k-steps 2p
     and 2p + 1 of row 8G + grp: columns 32p + 16kk + 8half + 2tq + e in the
-    order (kk, half, e). wt itself where H % 32 != 0 (no cluster plan takes
-    such an H; the single block reads wt)."""
-    hsz = wt.shape[1]
-    if hsz % 32:
-        return wt
-    n = wt.shape[0] // hsz
-    return wt.reshape(n, hsz // 8, 8, hsz // 32, 2, 2, 4, 2).permute(
-        0, 1, 3, 2, 6, 4, 5, 7).contiguous()
+    order (kk, half, e): _fragment_rows's order. wt itself where H % 32 != 0
+    (no cluster plan takes such an H; the single block reads wt)."""
+    return wt if wt.shape[1] % 32 else _fragment_rows(wt)
+
+
+def _fragment_rows(w: torch.Tensor) -> torch.Tensor:
+    """w [N, K] bf16 (N % 8 == 0, K % 32 == 0), rows of mma.sync B operands,
+    in MMA fragment order: [N/8][K/32][32 lanes][8], where lane (grp, tq) of
+    row group G holds the B fragments (b0, b1) of k-steps 2p and 2p + 1 of
+    row 8G + grp: columns 32p + 16kk + 8half + 2tq + e in the order
+    (kk, half, e)."""
+    n, k = w.shape
+    return w.reshape(n // 8, 8, k // 32, 2, 2, 4, 2).permute(
+        0, 2, 1, 5, 3, 4, 6).contiguous()
 
 
 def _kernel_weight(w_hh: torch.Tensor, hp: Optional[int] = None
@@ -400,7 +430,7 @@ def _kernel_weight(w_hh: torch.Tensor, hp: Optional[int] = None
 @dataclasses.dataclass(frozen=True)
 class ScanPlan:
     """Launch plan of a cluster forward scan (csrc/lstm_scan.cu,
-    csrc/gru_scan.cu): clusters of `cluster` CTAs, each CTA owning
+    csrc/gru_scan.cu, csrc/lstm_scan_staged.cu): clusters of `cluster` CTAs, each CTA owning
     H / cluster units, over `rows` batch rows per cluster (whole m16
     tiles)."""
     cluster: int          # CTAs per cluster
@@ -437,13 +467,15 @@ def cluster_step_us(hsz: int, cluster: int, rows: int,
 def plan_cluster_scan(what: str, hsz: int, batch: int,
                       max_clusters: Callable[[int, int], int],
                       smem_bytes: SmemBytes,
-                      step_us: Callable[[int, int, int], float]) -> ScanPlan:
+                      step_us: Callable[[int, int, int], float],
+                      max_items: Optional[int] = None) -> ScanPlan:
     """A cluster scan's shape for `batch` rows at H = hsz, given its layout
     (`smem_bytes`) and step model (`step_us`, both of (H, cluster, rows)).
 
     For each cluster size C of CLUSTER_SIZES that splits H into groups of 8
     units, and each row count R (whole m16 tiles) whose CTA fits in
-    SMEM_LIMIT bytes, the clusters are balanced over the rows and
+    SMEM_LIMIT bytes (and, with max_items, gives a CTA at most that many
+    (m16 tile, 8 units) items), the clusters are balanced over the rows and
     `max_clusters(C, R)` (the card's cudaOccupancyMaxActiveClusters) says
     how many run at once. The plan minimises waves x step_us; ties go to
     the smaller cluster, then to fewer clusters. Raises ValueError with each
@@ -467,6 +499,11 @@ def plan_cluster_scan(what: str, hsz: int, batch: int,
             rows = 16 * -(-tiles // clusters)        # balanced over clusters
             smem = smem_bytes(hsz, cluster, rows)
             if smem > SMEM_LIMIT:
+                break
+            if max_items and rows // 16 * (hsz // cluster // 8) > max_items:
+                if rows == 16:
+                    refused.append(f"C={cluster}: more than {max_items} "
+                                   f"items at 16 rows")
                 break
             active = max_clusters(cluster, rows)
             if active < 1:
@@ -492,9 +529,13 @@ def cluster_hidden(hsz: int, smem_bytes: SmemBytes) -> int:
     (forward_hidden then takes the single-block route)."""
     hp = _cluster_fit(hsz, smem_bytes)
     if hp is None:
+        need = ", ".join(
+            f"C={c}: {smem_bytes(p, c, 16)} B at H={p}"
+            for c, p in ((c, -(-hsz // (8 * c)) * 8 * c)
+                         for c in CLUSTER_SIZES))
         raise ValueError(f"H={hsz} is too large for the cluster scan: no "
                          f"cluster of {CLUSTER_SIZES} holds its W_hh slice in "
-                         f"{SMEM_LIMIT} B of shared memory")
+                         f"{SMEM_LIMIT} B of shared memory ({need}, 16 rows)")
     return hp
 
 
@@ -615,6 +656,119 @@ def card_scan_plan(device: torch.device, hsz: int, batch: int,
     launch with on `device` (a CUDA device) for `batch` rows at H = hsz."""
     return card_plan("lstm_scan", plan_scan, device, hsz, batch,
                      (int(out_dtype == torch.float32), int(carry), int(train)))
+
+
+def unrolled_smem_bytes(hsz: int, cluster: int, rows: int, k: int) -> int:
+    """Shared memory of one CTA of kernel E (csrc/lstm_scan_staged.cu
+    `unrolled_smem`): the TMA ring of two groups of k steps' x-side gates
+    [2][4][k][rows][U] bf16 (128 bytes of slack to align it), the W_hh^T
+    slice [4U][H + 8] and two bf16 h buffers [rows][H + 8], the CTA's fp32
+    c [rows][U] and the ring's two mbarriers, with U = H / cluster units."""
+    units, stride = hsz // cluster, hsz + _PAD
+    return (2 * 4 * k * rows * units * 2 + (4 * units + 2 * rows) * stride * 2
+            + rows * units * 4 + 16 + 128)
+
+
+def unrolled_step_us(hsz: int, cluster: int, rows: int) -> float:
+    """Modelled time of one step of one wave of kernel E (cluster_step_us
+    with its own parts: kernel A's step, with the gates from shared memory
+    instead of each thread's cp.async)."""
+    return cluster_step_us(hsz, cluster, rows, _UNROLL_PARTS)
+
+
+def plan_unrolled(hsz: int, batch: int, k: int,
+                  max_clusters: Callable[[int, int], int]) -> ScanPlan:
+    """Kernel E's cluster shape for `batch` rows at H = hsz with k steps a
+    group (plan_cluster_scan with its layout and step model)."""
+    return plan_cluster_scan(
+        f"LSTM unrolled (K={k})", hsz, batch, max_clusters,
+        lambda h, c, r: unrolled_smem_bytes(h, c, r, k), unrolled_step_us)
+
+
+def unrolled_hidden(hsz: int, k: int) -> int:
+    """The H kernel E runs a layer of hsz units at (cluster_hidden of its
+    layout with k steps a group). Raises ValueError, with the bytes each
+    cluster size would need, where no cluster holds it: kernel E has no
+    single-block route."""
+    return cluster_hidden(hsz, lambda h, c, r: unrolled_smem_bytes(h, c, r, k))
+
+
+@functools.lru_cache(maxsize=None)
+def card_unrolled_plan(device: torch.device, hsz: int, batch: int,
+                       k: int) -> ScanPlan:
+    """The plan kernel E launches with on `device` (a CUDA device) for
+    `batch` rows at H = hsz, k steps a group (occupancy from
+    csrc/lstm_scan_staged.cu `lstm_scan_staged_max_clusters`)."""
+    return card_plan("lstm_scan_staged",
+                     lambda h, b, m: plan_unrolled(h, b, k, m), device, hsz,
+                     batch, (k, 0))
+
+
+def layer_smem_bytes(hsz: int, cluster: int, rows: int) -> int:
+    """Shared memory of one CTA of kernel F (csrc/lstm_scan_staged.cu
+    `layer_smem`): the W_hh^T slice [4U][H + 8] and two bf16 h buffers
+    [rows][H + 8], with U = H / cluster units. c and the x product's
+    accumulators live in registers, W_ih^T's fragments come from L2."""
+    units, stride = hsz // cluster, hsz + _PAD
+    return (4 * units + 2 * rows) * stride * 2
+
+
+def layer_step_us(hsz: int, cluster: int, rows: int, f: int) -> float:
+    """Modelled time of one step of one wave of kernel F, from its parts
+    (step, store, x k-step) in microseconds: a step (h product, cell,
+    cluster barrier), the 16-byte stores of the h exchange (rows * U / 8 to
+    each of cluster - 1 peers), and the x product's ceil(f / 16) k-steps for
+    each of the CTA's (m16 tile, 8 units) items, whose x and W_ih^T fragment
+    loads share the SM."""
+    step, store_us, kx_us = _LAYER_PARTS
+    groups = hsz // cluster // 8
+    items = rows // 16 * groups
+    return (step + rows * groups * (cluster - 1) * store_us
+            + -(-f // 16) * items * kx_us)
+
+
+def plan_layer(hsz: int, batch: int, f: int,
+               max_clusters: Callable[[int, int], int]) -> ScanPlan:
+    """Kernel F's launch plan for `batch` rows at H = hsz and f input
+    features: plan_cluster_scan with its layout and step model and at most
+    _MAX_WARPS items a CTA (one warp each)."""
+    return plan_cluster_scan(
+        f"LSTM layer (F={f})", hsz, batch, max_clusters, layer_smem_bytes,
+        lambda h, c, r: layer_step_us(h, c, r, f), max_items=_MAX_WARPS)
+
+
+@functools.lru_cache(maxsize=None)
+def card_layer_plan(device: torch.device, hsz: int, batch: int, f: int,
+                    out_dtype: torch.dtype = torch.bfloat16) -> ScanPlan:
+    """The plan kernel F launches with on `device` (a CUDA device) for
+    `batch` rows at H = hsz and f input features, occupancy from
+    csrc/lstm_scan_staged.cu `lstm_scan_staged_max_clusters` for the
+    output type's instance."""
+    return card_plan("lstm_scan_staged",
+                     lambda h, b, m: plan_layer(h, b, f, m), device, hsz,
+                     batch, (1, int(out_dtype == torch.float32)))
+
+
+def layer_block_smem_bytes(hsz: int, f: int) -> int:
+    """Shared memory of one block of kernel F's single-block route
+    (csrc/lstm_layer_block.cu `layer_block_smem`): two bf16 h tiles
+    [16][H + 8], fp32 c [16][H] and two x tiles [16][F16 + 8] (F16: f
+    rounded up to 16)."""
+    return (2 * _ROWS * (hsz + _PAD) * 2 + _ROWS * hsz * 4
+            + 2 * _ROWS * (-(-f // 16) * 16 + _PAD) * 2)
+
+
+def layer_route(hsz: int, f: int) -> Tuple[int, str]:
+    """(H, entry suffix) kernel F runs a layer of hsz units and f (even)
+    input features with: forward_hidden with kernel F's layout, so the
+    cluster ("") up to H = 512 and the single block ("_block",
+    csrc/lstm_layer_block.cu) above; raises when not even a single block
+    fits."""
+    hp, suffix = forward_hidden(hsz, layer_smem_bytes)
+    if suffix:
+        check_smem(f"lstm_layer_fwd_block at H={hp}",
+                   layer_block_smem_bytes(hp, f))
+    return hp, suffix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -807,13 +961,35 @@ def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int) -> BwdPlan:
     return card_bwd_plan("lstm_scan_bwd", plan_bwd_scan, device, hsz, batch)
 
 
-def _launch(fn_name: str, *args, plan: Optional[BwdPlan] = None) -> None:
-    """Launch csrc entry `fn_name` (see _launch_kernel). Kernels A-C are
+def _launch(fn_name: str, *args,
+            plan: Optional[Union[ScanPlan, BwdPlan]] = None) -> None:
+    """Launch csrc entry `fn_name` (see _launch_kernel), of this module or
+    of ops/gru.py (whose own _launch has appended any plan). Kernels A-C are
     cluster launches: their arguments end in (T, B, H, reverse), and
     card_scan_plan's plan for (H, B) on the tensors' card is appended to
     them. Kernel D's arguments end the same way, and `plan` (default:
-    card_bwd_scan_plan's for (H, B)) is appended to them."""
-    if fn_name == "lstm_scan_bwd":
+    card_bwd_scan_plan's for (H, B)) is appended to them; so are kernel E's
+    (arguments ending in T, B, H, k; default card_unrolled_plan's) and
+    kernel F's (ending in T, B, F, H, reverse; default card_layer_plan's
+    for the output type). Raises first, before any plan asks the card and
+    before anything is built, for a tensor off a 16-byte boundary: the
+    wrappers hand every kernel aligned operands, and a misaligned read
+    would end the CUDA context."""
+    for i, a in enumerate(args):
+        if isinstance(a, torch.Tensor) and a.data_ptr() % 16:
+            raise ValueError(f"argument {i} of {fn_name} lies off a 16-byte "
+                             f"boundary")
+    if fn_name == "lstm_scan_fwd_unrolled":
+        b, hsz, k = args[-3:]
+        plan = plan or card_unrolled_plan(args[0].device, hsz, b, k)
+        args = (*args, *plan.launch_args)
+    elif fn_name == "lstm_layer_fwd":
+        out_f32, b, f, hsz = args[-6], args[-4], args[-3], args[-2]
+        plan = plan or card_layer_plan(
+            args[0].device, hsz, b, f,
+            torch.float32 if out_f32 else torch.bfloat16)
+        args = (*args, *plan.launch_args)
+    elif fn_name == "lstm_scan_bwd":
         b, hsz = args[-3], args[-2]
         plan = plan or card_bwd_scan_plan(args[0].device, hsz, b)
         args = (*args, *plan.launch_args)
@@ -831,14 +1007,8 @@ def _launch(fn_name: str, *args, plan: Optional[BwdPlan] = None) -> None:
 def _launch_kernel(fn_name: str, *args) -> None:
     """Launch csrc entry `fn_name` on the tensors' device and current stream.
     `args` are the C function's arguments in order, without the stream:
-    tensors (passed as their data pointers) and ints. Raises, before
-    anything is built, for a tensor off a 16-byte boundary: the wrappers
-    hand every kernel aligned operands, and a misaligned read would end the
-    CUDA context."""
-    for i, a in enumerate(args):
-        if isinstance(a, torch.Tensor) and a.data_ptr() % 16:
-            raise ValueError(f"argument {i} of {fn_name} lies off a 16-byte "
-                             f"boundary")
+    tensors (passed as their data pointers, aligned: _launch checks them)
+    and ints."""
     from generative_audio_torch.ops import _cuda
 
     source = _SOURCE_OF[fn_name]
@@ -853,22 +1023,10 @@ def _launch_kernel(fn_name: str, *args) -> None:
 
 
 def _check_kernel_sizes(hsz: int) -> None:
-    """Kernels E, F and G take H as it is: whole 16-deep k-steps."""
+    """Kernel G takes H as it is: whole 16-deep k-steps."""
     if hsz % _STEP_UNITS:
         raise ValueError(f"this CUDA scan kernel needs H % {_STEP_UNITS} == 0, "
                          f"got H={hsz}")
-
-
-def staged_smem_bytes(hsz: int, k: int = 1, f: int = 0) -> int:
-    """Shared memory of one block of csrc/lstm_scan_staged.cu
-    (`staged_smem`): kernel E (k > 1 steps' gate tiles beside h; c lives in
-    registers) or kernel F (h, c and two tiles of f input features padded
-    to a multiple of 16)."""
-    h_tiles = 2 * _ROWS * (hsz + _PAD) * 2
-    if k > 1:
-        return h_tiles + k * _ROWS * (4 * hsz + _PAD) * 2
-    f_pad = -(-f // 16) * 16
-    return h_tiles + _ROWS * hsz * 4 + 2 * _ROWS * (f_pad + _PAD) * 2
 
 
 def bwd_smem_bytes(hsz: int, n_chains: int = 1) -> int:
@@ -893,7 +1051,8 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 def _check_unrolled(t_len: int, hsz: int, block_t: int, reverse: bool,
                     out_dtype: torch.dtype, grad: bool) -> None:
     """Kernel E runs the forward inference scan with bf16 output only, over
-    whole groups of block_t steps."""
+    whole groups of block_t steps, at an H that a cluster holds (on either
+    device, as the kernel it reorganises)."""
     if block_t not in UNROLL_STEPS:
         raise ValueError(f"block_t must be 1 or one of {UNROLL_STEPS}, got "
                          f"{block_t}")
@@ -902,9 +1061,7 @@ def _check_unrolled(t_len: int, hsz: int, block_t: int, reverse: bool,
                          "and no gradient")
     if t_len % block_t:
         raise ValueError(f"T={t_len} is no multiple of block_t={block_t}")
-    if hsz > UNROLL_MAX_HIDDEN:
-        raise ValueError(f"lstm_scan_fwd_unrolled keeps c in registers: "
-                         f"H <= {UNROLL_MAX_HIDDEN}, got H={hsz}")
+    unrolled_hidden(hsz, block_t)
 
 
 def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
@@ -915,9 +1072,9 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     kernel's input), w_hh [H, 4H] -> h sequence [T, B, H] in out_dtype.
     h and c start at zero. CUDA tensors run kernel A, or with block_t = 2
     or 4 kernel E (forward, bf16 output, T a multiple of block_t; the same
-    h bit for bit); when autograd records and an input requires grad, the
-    call goes through LSTMScan (kernels C and D) instead, on either
-    device."""
+    h bit for bit; H zero-padded to unrolled_hidden's units); when autograd
+    records and an input requires grad, the call goes through LSTMScan
+    (kernels C and D) instead, on either device."""
     t_len, b, hsz = _check_shapes(gates_x, w_hh, out_dtype)
     grad = _wants_grad(gates_x, w_hh)
     if block_t != 1:
@@ -927,17 +1084,9 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     gates = gates_x.to(torch.bfloat16)
     if not _is_cuda(gates, w_hh):
         return lstm_scan_reference_tm(gates, w_hh, reverse).to(out_dtype)
-    if block_t != 1:
-        _check_kernel_sizes(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     if block_t != 1:
-        check_smem(f"lstm_scan_fwd_unrolled with K={block_t} at H={hsz}",
-                   staged_smem_bytes(hsz, k=block_t))
-        out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=gates.device)
-        if t_len and b:
-            _launch("lstm_scan_fwd_unrolled", gates, _kernel_weight(w_hh),
-                    out, t_len, b, hsz, block_t)
-        return out
+        return _scan_unrolled(gates, w_hh, block_t)
     hp, route = _forward_route(hsz)
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     if t_len and b:
@@ -945,6 +1094,36 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
                 _kernel_weight(w_hh, hp), out, out_dtype == torch.float32,
                 t_len, b, hp, reverse)
     return _unpad_units(out, hsz)
+
+
+def _scan_unrolled(gates: torch.Tensor, w_hh: torch.Tensor, block_t: int,
+                   plan: Optional[ScanPlan] = None) -> torch.Tensor:
+    """Kernel E on bf16 CUDA gates [T, B, 4H] at H padded to
+    unrolled_hidden's units, with `plan` (default: card_unrolled_plan's)."""
+    t_len, b, g4 = gates.shape
+    hsz = g4 // 4
+    hp = unrolled_hidden(hsz, block_t)
+    out = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=gates.device)
+    if t_len and b:
+        _launch("lstm_scan_fwd_unrolled", _pad_gates(gates, 4, hp),
+                _kernel_weight(w_hh, hp), out, t_len, b, hp, block_t,
+                plan=plan)
+    return _unpad_units(out, hsz)
+
+
+def lstm_scan_unrolled_planned_tm(gates: torch.Tensor, w_hh: torch.Tensor,
+                                  plan: ScanPlan, block_t: int
+                                  ) -> torch.Tensor:
+    """lstm_scan_tm(..., block_t) on CUDA tensors with a given launch plan
+    of kernel E (a ScanPlan of plan_unrolled's layout for the padded H), for
+    holding the plans against kernel A and timing them."""
+    t_len, _, hsz = _check_shapes(gates, w_hh, torch.bfloat16)
+    _check_unrolled(t_len, hsz, block_t, False, torch.bfloat16, False)
+    if not _is_cuda(gates, w_hh):
+        raise ValueError("a launch plan is for CUDA tensors")
+    gates = gates.to(torch.bfloat16)
+    _check_kernel_operand("gates_x", gates, torch.bfloat16)
+    return _scan_unrolled(gates, w_hh, block_t, plan)
 
 
 def lstm_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
@@ -1155,7 +1334,8 @@ def _check_layer_shapes(x_tm: torch.Tensor, w_ih: torch.Tensor,
 
 def _kernel_input_weight(w_ih: torch.Tensor, f_pad: int) -> torch.Tensor:
     """W_ih [F, 4H] -> kernel F's operand: [4H, F_pad] bf16, contiguous, with
-    zero columns from F to F_pad (a multiple of 16: whole MMA k-steps)."""
+    zero columns from F to F_pad (a multiple of 16: whole MMA k-steps; of 32
+    for the cluster's fragment order)."""
     w = w_ih.t().to(torch.bfloat16)
     return _kernel_operand(F.pad(w, (0, f_pad - w.shape[1])), torch.bfloat16)
 
@@ -1165,33 +1345,68 @@ def lstm_layer_tm(x_tm: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Whole LSTM layer, time-major, projection inside the scan: x_tm
     [T, B, F], w_ih [F, 4H], w_hh [H, 4H], bias [4H] -> [T, B, H] in
-    out_dtype. CUDA tensors run kernel F, which computes x_t @ W_ih in every
-    step, so the [T, B, 4H] gates never exist; CPU tensors run the plain
-    version. When autograd records and an input requires grad, the call
-    goes through LSTMLayerScan (hoisted projection, kernels C and D), as the
-    JAX function's VJP does. The JAX function's `block_b` and `interpret`
-    are TPU knobs and are not carried over."""
-    t_len, b, f, hsz = _check_layer_shapes(x_tm, w_ih, w_hh, bias, out_dtype)
+    out_dtype. CUDA tensors run kernel F, which computes x_t @ W_ih inside
+    the scan, so the [T, B, 4H] gates never exist: the cluster at H
+    zero-padded to layer_route's units (up to 512), the single block
+    (`lstm_layer_fwd_block`) above; CPU tensors run the plain version. When
+    autograd records and an input requires grad, the call goes through
+    LSTMLayerScan (hoisted projection, kernels C and D), as the JAX
+    function's VJP does. The JAX function's `block_b` and `interpret` are
+    TPU knobs and are not carried over."""
+    _check_layer_shapes(x_tm, w_ih, w_hh, bias, out_dtype)
     if _wants_grad(x_tm, w_ih, w_hh, bias):
         return LSTMLayerScan.apply(x_tm, w_ih, w_hh, bias, reverse, out_dtype)
     if not _is_cuda(x_tm, w_ih, w_hh, bias):
         return lstm_layer_reference_tm(x_tm, w_ih, w_hh, bias,
                                        reverse).to(out_dtype)
-    _check_kernel_sizes(hsz)
+    return _layer_fwd(x_tm, w_ih, w_hh, bias, reverse, out_dtype)
+
+
+def lstm_layer_planned_tm(x_tm: torch.Tensor, w_ih: torch.Tensor,
+                          w_hh: torch.Tensor, bias: torch.Tensor,
+                          plan: ScanPlan, reverse: bool = False,
+                          out_dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """lstm_layer_tm on CUDA tensors without grad, with a given launch plan
+    of kernel F's cluster (a ScanPlan for the padded H), for holding the
+    plans against the single block and timing them."""
+    _check_layer_shapes(x_tm, w_ih, w_hh, bias, out_dtype)
+    if not _is_cuda(x_tm, w_ih, w_hh, bias):
+        raise ValueError("a launch plan is for CUDA tensors")
+    return _layer_fwd(x_tm, w_ih, w_hh, bias, reverse, out_dtype, plan)
+
+
+def _layer_fwd(x_tm: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+               bias: torch.Tensor, reverse: bool, out_dtype: torch.dtype,
+               plan: Optional[ScanPlan] = None) -> torch.Tensor:
+    """Kernel F on CUDA tensors: the route by H (layer_route; the cluster
+    whenever a plan is given), W_ih, W_hh and the bias zero-padded to its
+    units, x with an even F."""
+    t_len, b, f = x_tm.shape
+    hsz = w_hh.shape[0]
     x = x_tm.to(torch.bfloat16)
-    if f % 2:                   # the kernel copies x rows in 4-byte pieces
+    if f % 2:                   # the kernels read x rows in 4-byte pieces
         x = F.pad(x, (0, 1))
     x = x.contiguous()
     f_even = x.shape[-1]
-    check_smem("lstm_layer_fwd", staged_smem_bytes(hsz, f=f_even))
+    hp, route = layer_route(hsz, f_even)
+    if plan is not None and route:
+        raise ValueError(f"no cluster of kernel F takes H={hsz}")
     _check_kernel_operand("x_tm", x, torch.bfloat16)
-    out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=x.device)
+    w_i = _pad_gates(w_ih, 4, hp)
+    out = torch.empty(t_len, b, hp, dtype=out_dtype, device=x.device)
     if t_len and b:
-        _launch("lstm_layer_fwd", x,
-                _kernel_input_weight(w_ih, -(-f_even // 16) * 16),
-                _kernel_weight(w_hh), _kernel_operand(bias, torch.float32), out,
-                out_dtype == torch.float32, t_len, b, f_even, hsz, reverse)
-    return out
+        tail = (_kernel_weight(w_hh, hp),
+                _kernel_operand(_pad_gates(bias, 4, hp), torch.float32), out,
+                out_dtype == torch.float32, t_len, b, f_even, hp, reverse)
+        if route:
+            _launch("lstm_layer_fwd_block", x,
+                    _kernel_input_weight(w_i, -(-f_even // 16) * 16), *tail)
+        else:
+            _launch("lstm_layer_fwd", x, _fragment_rows(
+                _kernel_input_weight(w_i, -(-f_even // 32) * 32)), *tail,
+                plan=plan)
+    return _unpad_units(out, hsz)
 
 
 class LSTMLayerScan(torch.autograd.Function):

@@ -1,11 +1,13 @@
 """K-step unrolled LSTM forward scan: kernel E (csrc/lstm_scan_staged.cu
 `lstm_scan_fwd_unrolled`), the port of scripts/perf_lstm_unroll.py.
 
-The inference scan (kernel A, bf16 out, forward) whose time loop runs in
-groups of K steps: at the first step of a group the block copies the K
-steps' gate tiles into shared memory at once, so those loads leave the
-serial chain. The cell arithmetic is kernel A's, so the output is
-bit-identical.
+The inference scan (kernel A's thread-block cluster, bf16 out, forward)
+whose x-side gates arrive K steps at a time: one thread of each CTA copies
+the group's gate tiles of its columns by TMA into a ring of two groups, and
+every thread waits for them once a group, so those loads leave the serial
+chain. The products and the cell are kernel A's, so the output is
+bit-identical. The wrapper pads H to the cluster's units; above H=512 no
+cluster holds the ring and the call is refused.
 
     # kernel A against K = 2 and 4 on the card (T=628, 2304 rows, H=384)
     python -m generative_audio_torch.scripts.perf_lstm_unroll

@@ -26,7 +26,10 @@ import torch
 
 from generative_audio_tpu.ops import pallas_lstm as jl
 from generative_audio_torch.ops import lstm as tl
+from test_torch_lstm_backward import (BACKWARD_UNITS, FORWARD_UNITS, fill,
+                                      real_units, real_weight, strip)
 from test_torch_lstm_backward import fake_launch as scan_fake_launch
+from test_torch_staged_plan import unfragment
 
 torch.set_num_threads(2)
 BF16 = dict(atol=1e-2, rtol=1e-2)
@@ -119,21 +122,30 @@ def test_layer_gradients_match_jax(reverse):
 def fake_launch(fn_name, *args, plan=None):
     """Stands in for ops.lstm._launch where there is no card: kernel F's
     plain version into the output buffer it was given, after checking the
-    operand layout the wrapper built (x with an even F, W_ih^T padded with
-    zero columns to a multiple of 16, fp32 bias); the scan kernels as
-    tests/test_torch_lstm_backward.py fakes them."""
-    if fn_name != "lstm_layer_fwd":
+    operand layout the wrapper built: x with an even F; H zero-padded to
+    the cluster's units (64) or, for the single block ("_block"), to 16,
+    in W_hh^T, W_ih^T and the fp32 bias; W_ih^T with zero columns to a
+    multiple of 32 and in fragment order for the cluster, of 16 as rows for
+    the single block. The scan kernels as tests/test_torch_lstm_backward.py
+    fakes them."""
+    if fn_name not in ("lstm_layer_fwd", "lstm_layer_fwd_block"):
         return scan_fake_launch(fn_name, *args, plan=plan)
-    x, wih_t, wt, bias, out, out_f32, t_len, b, f, hsz, reverse = args
+    x, w_in, wt, bias, out, out_f32, t_len, b, f, hp, reverse = args
+    block = fn_name.endswith("_block")
+    hsz = real_units(wt, 4, BACKWARD_UNITS if block else FORWARD_UNITS)
+    f_pad = -(-f // (16 if block else 32)) * (16 if block else 32)
+    wih_t = w_in if block else unfragment(w_in, 4 * hp, f_pad)
     assert x.dtype == wih_t.dtype == wt.dtype == torch.bfloat16
     assert bias.dtype == torch.float32 and out_f32 == (out.dtype == torch.float32)
     assert tuple(x.shape) == (t_len, b, f) and f % 2 == 0
-    assert tuple(wih_t.shape) == (4 * hsz, -(-f // 16) * 16)
+    assert tuple(wih_t.shape) == (4 * hp, f_pad)
+    assert tuple(out.shape) == (t_len, b, hp) and tuple(bias.shape) == (4 * hp,)
     assert not wih_t[:, f:].any()
-    assert wih_t.is_contiguous() and x.is_contiguous()
-    assert all(a.data_ptr() % 16 == 0 for a in (x, wih_t, wt, bias, out))
-    out.copy_(tl.lstm_layer_reference_tm(x, wih_t[:, :f].t(), wt.t(), bias,
-                                         bool(reverse)))
+    assert w_in.is_contiguous() and x.is_contiguous()
+    assert all(a.data_ptr() % 16 == 0 for a in (x, w_in, wt, bias, out))
+    fill(out, tl.lstm_layer_reference_tm(
+        x, strip(wih_t[:, :f].t(), hsz, 4), real_weight(wt, hsz, 4),
+        strip(bias, hsz, 4), bool(reverse)))
     tl.launch_counts[fn_name] += 1
 
 
@@ -182,9 +194,60 @@ def test_layer_operands_are_checked(launches):
         tl.lstm_layer_tm(x, wi, wh, bias[:32])
     with pytest.raises(ValueError):
         tl.lstm_layer_tm(x, wi, wh, bias, out_dtype=torch.float16)
-    with pytest.raises(ValueError):         # H = 8 is no multiple of 16
-        tl.lstm_layer_tm(x, wi[:, :32], wh[:8, :32], bias[:32])
     assert not any(launches.values())
+    # H = 8, no multiple of 16, pads to the cluster's 64 units and launches
+    small = (x, wi[:, :32], wh[:8, :32], bias[:32])
+    with torch.no_grad():
+        got = tl.lstm_layer_tm(*small, False, torch.float32)
+    assert launches == {**dict.fromkeys(launches, 0), "lstm_layer_fwd": 1}
+    assert tuple(got.shape) == (T, B, 8)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tl, "_is_cuda", lambda *tensors: False)
+        assert torch.equal(got, tl.lstm_layer_tm(*small, False, torch.float32))
+
+
+def _inputs_h(seed, hsz, f=F, t_len=T, b=B):
+    return (_rand((t_len, b, f), seed), _rand((f, 4 * hsz), seed + 1, 0.3),
+            _rand((hsz, 4 * hsz), seed + 2, 0.2),
+            _rand((4 * hsz,), seed + 3, 0.1))
+
+
+@pytest.mark.parametrize("hsz", [20, 100])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_padded_hidden_on_the_kernel_branch(launches, hsz, reverse):
+    """H = 20 and 100 on the kernel's branch: the wrapper pads H to the
+    cluster's 64 units (the fake checks the multiple and the zero units of
+    every operand) and slices the result back; it equals the CPU branch, and
+    the JAX lstm_layer_tm in interpret mode within the bf16 tolerance."""
+    x, wi, wh, bias = _inputs_h(70, hsz)
+    args = [torch.from_numpy(a) for a in (x, wi, wh, bias)]
+    with torch.no_grad():
+        got = tl.lstm_layer_tm(*args, reverse, torch.float32)
+    assert launches == {**dict.fromkeys(launches, 0), "lstm_layer_fwd": 1}
+    assert tuple(got.shape) == (T, B, hsz)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tl, "_is_cuda", lambda *tensors: False)
+        assert torch.equal(got, tl.lstm_layer_tm(*args, reverse,
+                                                 torch.float32))
+    want = np.asarray(jl.lstm_layer_tm(x, wi, wh, bias, reverse, 256, True,
+                                       jnp.float32))
+    np.testing.assert_allclose(got.numpy(), want, **BF16)
+
+
+def test_single_block_route_above_what_a_cluster_holds(launches):
+    """At H = 520 no cluster holds W_hh's slice: the wrapper takes the
+    single block (`lstm_layer_fwd_block`) at H padded to 528, with W_ih^T
+    as rows of 16-padded columns, and equals the CPU branch."""
+    x, wi, wh, bias = _inputs_h(80, 520, f=5, t_len=2, b=3)
+    args = [torch.from_numpy(a) for a in (x, wi, wh, bias)]
+    assert tl.layer_route(520, 6) == (528, "_block")
+    with torch.no_grad():
+        got = tl.lstm_layer_tm(*args, True)
+    assert launches == {**dict.fromkeys(launches, 0),
+                        "lstm_layer_fwd_block": 1}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tl, "_is_cuda", lambda *tensors: False)
+        assert torch.equal(got, tl.lstm_layer_tm(*args, True))
 
 
 def test_operands_off_16_bytes_are_copied(launches):

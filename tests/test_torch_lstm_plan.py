@@ -235,4 +235,4 @@ def test_sources_match_their_declared_signatures():
                      text, re.S).group(1)
     assert "(4 * U + 2 * r) * hs * 2 + r * U * 4 + 2 * r * 4 * U * 2" in body
     assert set(_cuda._QUERIES) == {"lstm_scan", "gru_scan", "lstm_scan_bwd",
-                                   "gru_scan_bwd"}
+                                   "gru_scan_bwd", "lstm_scan_staged"}

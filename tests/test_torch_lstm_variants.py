@@ -34,6 +34,8 @@ import torch
 from generative_audio_torch.ops import lstm as tl
 from generative_audio_torch.scripts import perf_lstm_chains as tc
 from generative_audio_torch.scripts import perf_lstm_unroll as tu
+from test_torch_lstm_backward import (FORWARD_UNITS, fill, real_units,
+                                      real_weight, strip)
 from test_torch_lstm_backward import fake_launch as scan_fake_launch
 
 torch.set_num_threads(2)
@@ -134,12 +136,17 @@ def fake_launch(fn_name, *args, plan=None):
     """Stands in for ops.lstm._launch where there is no card: kernels E and
     G compute what kernels A and D do, so each runs that plain version into
     the output buffer it was given, after checking the arguments the
-    wrapper built; the other kernels as tests/test_torch_lstm_backward.py
-    fakes them."""
+    wrapper built (for kernel E, H zero-padded to the cluster's 64 units:
+    the multiple and the zero units of its operands); the other kernels as
+    tests/test_torch_lstm_backward.py fakes them."""
     if fn_name == "lstm_scan_fwd_unrolled":
-        gates, wt, out, t_len, _, _, k = args
+        gates, wt, out, t_len, b, hp, k = args
         assert k in (2, 4) and t_len % k == 0 and out.dtype == torch.bfloat16
-        out.copy_(tl.lstm_scan_reference_tm(gates, wt.t()))
+        assert tuple(out.shape) == (t_len, b, hp)
+        assert tuple(gates.shape) == (t_len, b, 4 * hp)
+        h = real_units(wt, 4, FORWARD_UNITS)
+        fill(out, tl.lstm_scan_reference_tm(strip(gates, h, 4),
+                                            real_weight(wt, h, 4)))
     elif fn_name == "lstm_scan_bwd_chains":
         gates, h_seq, c_seq, gout, wt, w, dgates, _, _, _, n_chains = args
         assert torch.equal(wt.t(), w) and n_chains in (2, 4)
@@ -179,6 +186,24 @@ def test_kernel_route_of_both_wrappers(launches):
         assert torch.equal(tu.lstm_unrolled(gates[:4], w_hh), out)
 
 
+@pytest.mark.parametrize("hsz", [20, 100])
+def test_lstm_unrolled_pads_the_hidden_size(launches, hsz):
+    """H = 20 and 100 on the kernel's branch: kernel E runs at H padded to
+    the cluster's 64 units (the fake checks them) and equals lstm_scan_tm
+    (kernel A, padded the same way) and the CPU branch."""
+    gates = _bf16(_rand((8, 11, 4 * hsz), 8, 0.5))
+    w_hh = torch.from_numpy(_rand((hsz, 4 * hsz), 9, 0.2))
+    for k in (2, 4):
+        got = tu.lstm_unrolled(gates, w_hh, block_t=k)
+        assert tuple(got.shape) == (8, 11, hsz)
+        assert torch.equal(got, tl.lstm_scan_tm(gates, w_hh))
+    assert launches == {**dict.fromkeys(launches, 0),
+                        "lstm_scan_fwd_unrolled": 2, "lstm_scan_fwd": 2}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tl, "_is_cuda", lambda *tensors: False)
+        assert torch.equal(tu.lstm_unrolled(gates, w_hh), got)
+
+
 def test_refusals(launches):
     """T % K, K other than 2 and 4, a chain count other than 2 and 4, and a
     block over the 227 KB shared-memory limit raise before any launch."""
@@ -190,13 +215,16 @@ def test_refusals(launches):
         tu.lstm_unrolled(gates, w_hh, block_t=3)
     with pytest.raises(ValueError, match="n_chains"):
         tc.chains_bwd(*inputs, n_chains=3)
-    # H = 384: four chains take 444 416 B; H = 512: four gate tiles 296 448 B
+    # H = 384: four chains take 444 416 B; H = 640: no cluster holds kernel
+    # E's layout (a CTA of 16 at 16 rows and K=4 needs 292 496 B; at H = 512
+    # it needs 201 360 B and launches)
     big = tc.make_inputs(2, 2, 384, "cpu", seed=5)
     with pytest.raises(ValueError, match="444416 B"):
         tc.chains_bwd(*big, n_chains=4)
-    gates_512 = torch.zeros(4, 2, 4 * 512, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="296448 B"):
-        tu.lstm_unrolled(gates_512, torch.zeros(512, 4 * 512), block_t=4)
+    gates_640 = torch.zeros(4, 2, 4 * 640, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="C=16: 292496 B at H=640"):
+        tu.lstm_unrolled(gates_640, torch.zeros(640, 4 * 640), block_t=4)
+    assert tl.unrolled_smem_bytes(512, 16, 16, 4) == 201360 <= tl.SMEM_LIMIT
     # kernel G has no reverse; kernel E is the forward inference scan only
     with pytest.raises(ValueError, match="n_chains"):
         tl.lstm_scan_bwd_tm(*inputs, reverse=True, n_chains=2)
