@@ -57,7 +57,10 @@ of which fails the run (non-zero exit, no result line):
      no cluster holds H: against the clusters bit for bit at LSTM H=512 and
      GRU H=640, every such wrapper at LSTM H=640 and 768 (lstm_layer_tm's
      lstm_layer_fwd_block among them) and GRU H=768 against its plain
-     version, and each scan entry's time at H=768;
+     version, and each scan entry's time at H=768; then LSTMScan at H=768
+     and 1024 (kernel D's single block, dc in registers) against autograd
+     through the float32 recurrence, and kernel D's single block at H=1024
+     timed;
   9. the GRU forward and carry kernels against their plain versions at the
      sub-band serving shape (T=628, H=384, 2056 rows and a ragged count) and
      the full-band shape (H=512, 8 rows and 1 row), chunked against unchunked
@@ -83,11 +86,16 @@ of which fails the run (non-zero exit, no result line):
      both layers, the ragged count and H=512; LSTMLayerScan's four
      gradients at the training shape against autograd through the float32
      recurrence, with its exact launches; the chains backward
-     (scripts.perf_lstm_chains) and the K-step unrolled forward
-     (scripts.perf_lstm_unroll) bit for bit against the kernels they
-     reorganise (the unrolled one also at H=100 and 200); and their times
-     beside bound, plain version and library (the layer's beside its single
-     block's), with the staged kernels' plans and registers.
+     (scripts.perf_lstm_chains, kernel G, 2 and 4 chains) bit for bit
+     against kernel D at the script's shape, the training shape, a ragged
+     row count and H=100, 200 (its single block) and 512, and the K-step
+     unrolled forward (scripts.perf_lstm_unroll) bit for bit against kernel
+     A (also at H=100 and 200, and through its single block at H=640 and
+     768 against lstm_scan_fwd_block); and their times beside bound, plain
+     version and library (kernel G's beside kernel D's in alternating
+     rounds, the layer's beside its single block's), with the plans and
+     registers of the staged kernels and of kernel G, and kernel D's
+     cluster registers against their recorded counts.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, and around
 each variant's own path in phase 12. The second-to-last line of stdout is
@@ -242,7 +250,8 @@ def phase_build():
     for name in _cuda.SOURCES:
         _cuda.load(name)
     return {**_cluster_registers(reports.get("lstm_scan", "")),
-            **_bwd_registers(reports), **_staged_registers(reports)}
+            **_bwd_registers(reports), **_staged_registers(reports),
+            **_chains_registers(reports.get("lstm_scan_bwd_chains", ""))}
 
 
 def _cluster_registers(report):
@@ -289,26 +298,55 @@ def _bwd_registers(reports):
 
 def _staged_registers(reports):
     """{"E K=2": "... registers, ... spilled", "F bf16": ...,
-    "F block fp32": ...} for the instances of kernels E and F
-    (lstm_scan_staged.cu) and of F's single block (lstm_layer_block.cu),
-    from ptxas's reports."""
+    "F block fp32": ..., "E block K=4": ...} for the instances of kernels E
+    and F (lstm_scan_staged.cu) and of their single blocks
+    (lstm_layer_block.cu, lstm_scan_unrolled_block.cu), from ptxas's
+    reports."""
     found, name, spill = {}, None, ""
     out_type = {"13__nv_bfloat16": "bf16", "f": "fp32"}
     for line in "\n".join(reports.get(s, "") for s in (
-            "lstm_scan_staged", "lstm_layer_block")).splitlines():
+            "lstm_scan_staged", "lstm_layer_block",
+            "lstm_scan_unrolled_block")).splitlines():
         if "Compiling entry function" in line:
             name, spill = None, ""
             e = re.search(r"lstm_unrolled_kernelILi(\d)E", line)
+            eb = re.search(r"lstm_unrolled_block_kernelILi(\d)E", line)
             f = re.search(r"lstm_layer_cluster_kernelI(13__nv_bfloat16|f)E",
                           line)
             b = re.search(r"lstm_layer_block_kernelI(13__nv_bfloat16|f)E",
                           line)
             if e:
                 name = f"E K={e.group(1)}"
+            elif eb:
+                name = f"E block K={eb.group(1)}"
             elif f:
                 name = f"F {out_type[f.group(1)]}"
             elif b:
                 name = f"F block {out_type[b.group(1)]}"
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
+    return found
+
+
+def _chains_registers(report):
+    """{"G N=2 units streamed": "... registers, ... spilled", ...} for the
+    instances lstm_chains_cluster_kernel<N, ARRANGE, RESIDENT> of kernel G
+    (lstm_scan_bwd_chains.cu), from ptxas's report."""
+    found, name, spill = {}, None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = None, ""
+            g = re.search(r"lstm_chains_cluster_kernelILi(\d)ELi(\d)ELb([01])E",
+                          line)
+            if g:
+                name = (f"G N={g.group(1)} "
+                        f"{'rows' if g.group(2) == '0' else 'units'} "
+                        f"{'resident' if g.group(3) == '1' else 'streamed'}")
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            line)
         if stores and name:
@@ -549,31 +587,8 @@ def phase_train_kernels(dev, registers):
         del dg_block
 
         # LSTMScan as a whole against autograd through the fp32 recurrence
-        g_k = gates.clone().requires_grad_()
-        w_k = w_hh.clone().requires_grad_()
-        (L.lstm_scan_tm(g_k, w_k, reverse, torch.float32)
-         * gout.float()).sum().backward()
-        g_x = gates.float().requires_grad_()
-        w_x = w_hh.clone().requires_grad_()
-        (L.lstm_scan_reference_tm(g_x, w_x, reverse,
-                                  compute_dtype=torch.float32)
-         * gout.float()).sum().backward()
-        torch.cuda.synchronize()
-        check(g_k.grad.dtype == torch.bfloat16
-              and w_k.grad.dtype == torch.float32, "LSTMScan gradient dtypes")
-        err_g = (g_k.grad.float() - g_x.grad).abs()
-        peak_g = g_x.grad.abs().max().item()
-        rel_w = ((w_k.grad - w_x.grad).norm() / w_x.grad.norm()).item()
-        log(f"LSTMScan {tag} vs float32 autograd: d gates max|err|/peak "
-            f"{err_g.max().item() / peak_g:.3e} mean/peak "
-            f"{err_g.mean().item() / peak_g:.3e}; dW_hh |err|/|dW_hh| "
-            f"{rel_w:.3e}")
-        check(err_g.max().item() < GRAD_MAX_REL * peak_g
-              and err_g.mean().item() < GRAD_MEAN_REL * peak_g
-              and rel_w < GRAD_DW_REL,
-              f"LSTMScan gradient vs float32 within {GRAD_MAX_REL}/"
-              f"{GRAD_MEAN_REL}/{GRAD_DW_REL} ({tag})")
-        del g_k, w_k, g_x, w_x, err_g, gates, gout
+        _lstm_scan_grads_vs_float32(L, gates, w_hh, gout, reverse, tag)
+        del gates, gout
 
     # times at the training shape
     rows = TRAIN_ROWS
@@ -633,6 +648,87 @@ def phase_train_kernels(dev, registers):
 
 def _uniform(gen, dev, shape, bound):
     return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * bound
+
+
+def _lstm_scan_grads_vs_float32(L, gates, w_hh, gout, reverse, tag):
+    """LSTMScan's two gradients (bf16 gates on the card, through kernels C
+    and D) for the cotangent gout against autograd through the float32
+    recurrence, within GRAD_MAX_REL / GRAD_MEAN_REL of the peak (dgates)
+    and GRAD_DW_REL of the norm (dW_hh)."""
+    g_k = gates.clone().requires_grad_()
+    w_k = w_hh.clone().requires_grad_()
+    (L.lstm_scan_tm(g_k, w_k, reverse, torch.float32)
+     * gout.float()).sum().backward()
+    g_x = gates.float().requires_grad_()
+    w_x = w_hh.clone().requires_grad_()
+    (L.lstm_scan_reference_tm(g_x, w_x, reverse,
+                              compute_dtype=torch.float32)
+     * gout.float()).sum().backward()
+    torch.cuda.synchronize()
+    check(g_k.grad.dtype == torch.bfloat16
+          and w_k.grad.dtype == torch.float32, "LSTMScan gradient dtypes")
+    err_g = (g_k.grad.float() - g_x.grad).abs()
+    peak_g = g_x.grad.abs().max().item()
+    rel_w = ((w_k.grad - w_x.grad).norm() / w_x.grad.norm()).item()
+    log(f"LSTMScan {tag} vs float32 autograd: d gates max|err|/peak "
+        f"{err_g.max().item() / peak_g:.3e} mean/peak "
+        f"{err_g.mean().item() / peak_g:.3e}; dW_hh |err|/|dW_hh| "
+        f"{rel_w:.3e}")
+    check(err_g.max().item() < GRAD_MAX_REL * peak_g
+          and err_g.mean().item() < GRAD_MEAN_REL * peak_g
+          and rel_w < GRAD_DW_REL,
+          f"LSTMScan gradient vs float32 within {GRAD_MAX_REL}/"
+          f"{GRAD_MEAN_REL}/{GRAD_DW_REL} ({tag})")
+
+
+def phase_lstm_train_large(dev):
+    """LSTMScan (kernel C's and kernel D's single blocks) at H=768 and 1024,
+    which no cluster holds (kernel D's single block keeps dc in registers,
+    so it holds H up to 1024): both gradients against autograd through the
+    float32 recurrence, forward and reverse, with the launches counted
+    around it; and kernel D's single block at H=1024 against its plain
+    version and timed."""
+    from generative_audio_torch.ops import lstm as L
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    t_len, rows = T_CHUNK, 40
+    L.reset_launch_counts()
+    for h in (BLOCK_HIDDEN[-1], 1024):
+        w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+        for reverse in (False, True):
+            gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                                device=dev).to(torch.bfloat16)
+            gout = torch.randn(t_len, rows, h, generator=gen,
+                               device=dev).to(torch.bfloat16)
+            _lstm_scan_grads_vs_float32(
+                L, gates, w_hh, gout, reverse,
+                f"H={h} T={t_len} rows={rows} reverse={reverse}")
+    launches = {k: n for k, n in L.launch_counts.items() if n}
+    log(f"launches of LSTMScan at H=768 and 1024: {launches}")
+    check(launches == {"lstm_scan_fwd_train_block": 4, "lstm_scan_bwd": 4},
+          "LSTMScan at H=768 and 1024 runs kernel C's and kernel D's single "
+          "blocks once a gradient")
+    h, t_len, rows = 1024, TRAIN_T, TRAIN_BATCH
+    plan = L.card_bwd_scan_plan(dev, h, rows)
+    check(plan.design == "block", f"kernel D at H={h} takes its single block")
+    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    gout = torch.randn(t_len, rows, h, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh)
+    dg = L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh)
+    want = L.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout, w_hh)
+    err = (dg.float() - want.float()).abs()
+    peak = want.float().abs().max().item()
+    check(err.max().item() < BWD_MAX_REL * peak
+          and err.mean().item() < BWD_MEAN_REL * peak,
+          f"kernel D's single block vs plain at H={h}")
+    ms = cuda_ms(lambda: L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh),
+                 iters=3)
+    log(f"kernel D's single block at T={t_len} rows={rows} H={h}: {ms:.3f} ms "
+        f"({plan.smem_bytes} B a block, dc in registers); max|err| "
+        f"{err.max().item():.3e} mean {err.mean().item():.3e} (peak "
+        f"{peak:.3f}) on {card_line()}")
 
 
 def phase_lstm_h512(dev, registers):
@@ -924,8 +1020,10 @@ def phase_block_forwards(dev):
     for h in BLOCK_HIDDEN:
         _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows)
     _gru_wrappers_vs_plain(G, dev, gen, BLOCK_HIDDEN[-1], t_len, rows)
-    launches = {k: n for k, n in L.launch_counts.items()
-                if k.endswith("_block")}
+    launches = {k: L.launch_counts[k] for k in (
+        "lstm_scan_fwd_block", "lstm_scan_fwd_carry_block",
+        "lstm_scan_fwd_train_block", "lstm_layer_fwd_block",
+        "gru_scan_fwd_block", "gru_scan_fwd_carry_block")}
     log(f"launches of the single-block forwards at LSTM H={BLOCK_HIDDEN} and "
         f"GRU H={BLOCK_HIDDEN[-1]}: {launches}")
     for name, n in launches.items():
@@ -1725,64 +1823,142 @@ def phase_lstm_layer(dev, path, kernel_a_ms, registers):
                  layer_2=block_times["layer 2"]))
 
 
-def phase_lstm_chains(dev, library_bwd_ms):
-    """Row 9: the chains backward through scripts.perf_lstm_chains, bit for
-    bit against kernel D, against its plain version, and its times beside
-    kernel D's."""
+# Kernel D's cluster instances as ptxas reported them on an H100 before kernel
+# G had a cluster: kernel G lives in a source of its own so that they stay.
+KERNEL_D_REGISTERS = {"D cluster, slice resident": "120 registers, 0/0 B spilled",
+                   "D cluster, slice streamed": "128 registers, 16/32 B spilled"}
+
+
+def _chains_plan_line(plan):
+    """A launch plan of kernel G (a ChainsPlan)."""
+    if plan.design == "block":
+        return (f"single block of {plan.rows} rows ({plan.chains} chains), "
+                f"{plan.clusters} blocks, {plan.active} at once, "
+                f"{plan.waves} wave(s), {plan.smem_bytes} B")
+    return (f"cluster C={plan.cluster} x R={plan.rows} rows, {plan.chains} "
+            f"chains of {'row tiles' if plan.arrangement == 0 else 'units'} "
+            f"a warp, W_hh^T slice {'resident' if plan.resident else 'from L2'}"
+            f", {plan.clusters} clusters, cudaOccupancyMaxActiveClusters "
+            f"{plan.active}, {plan.waves} wave(s), {plan.smem_bytes} B a CTA, "
+            f"modelled {plan.step_us:.2f} us a step")
+
+
+def phase_lstm_chains(dev, library_bwd_ms, registers):
+    """Row 9: the chains backward (kernel G) through scripts.perf_lstm_chains
+    with 2 and 4 chains, bit for bit against kernel D at the script's shape,
+    the training shape and a ragged row count (H=384; kernel G's cluster)
+    and at H=100, 200 (its single block) and 512 (its cluster); against its
+    plain version; its times beside kernel D's in alternating rounds, with
+    µs a step a wave, its plans and registers, and kernel D's cluster
+    registers against their recorded counts; its single block (its first
+    design, now with dc in registers) timed at the training shape. Returns the two entries' numbers
+    and their launches on this path."""
     from generative_audio_torch.ops import lstm as L
     from generative_audio_torch.scripts import perf_lstm_chains as PC
-    shapes = ((PC.T, PC.B), (TRAIN_T, TRAIN_ROWS), (TRAIN_T, TRAIN_RAGGED_ROWS))
+    shapes = [(PC.T, PC.B, HIDDEN), (TRAIN_T, TRAIN_ROWS, HIDDEN),
+              (TRAIN_T, TRAIN_RAGGED_ROWS, HIDDEN)]
+    shapes += [(T_CHUNK, 40, h) for h in (*PADDED_HIDDEN, FB_HIDDEN)]
+    expected = dict.fromkeys(("lstm_scan_bwd_chains",
+                              "lstm_scan_bwd_chains_block"), 0)
     L.reset_launch_counts()
-    for i, (t_len, rows) in enumerate(shapes):
-        inputs = PC.make_inputs(t_len, rows, HIDDEN, dev, seed=SEED + 14 + i)
-        got = PC.chains_bwd(*inputs)                 # the path: 2 chains
+    for i, (t_len, rows, h) in enumerate(shapes):
+        inputs = PC.make_inputs(t_len, rows, h, dev, seed=SEED + 14 + i)
         want = L.lstm_scan_bwd_tm(*inputs)           # kernel D, to compare
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"lstm_scan_bwd_chains == lstm_scan_bwd "
-              f"bitwise (T={t_len} rows={rows})")
-        log(f"lstm_scan_bwd_chains (2 chains) T={t_len} rows={rows}: == "
-            f"lstm_scan_bwd over all {got.numel()} outputs")
+        for n in L.CHAIN_COUNTS:
+            got = PC.chains_bwd(*inputs, n_chains=n)     # the path
+            torch.cuda.synchronize()
+            plan = L.card_chains_scan_plan(dev, -(-h // 16) * 16, rows, n)
+            expected["lstm_scan_bwd_chains" + (
+                "_block" if plan.design == "block" else "")] += 1
+            check(torch.equal(got, want), f"kernel G ({n} chains) == "
+                  f"lstm_scan_bwd bitwise (T={t_len} rows={rows} H={h})")
+            log(f"kernel G, {n} chains, T={t_len} rows={rows} H={h}: == "
+                f"lstm_scan_bwd over all {got.numel()} outputs; "
+                f"{_chains_plan_line(plan)}")
         del inputs, got, want
-    launches = L.launch_counts["lstm_scan_bwd_chains"]
-    check(launches == len(shapes), "lstm_scan_bwd_chains launched once a shape")
+    launches = {k: L.launch_counts[k] for k in expected}
+    log(f"kernel G's launches on its path: {launches}")
+    check(launches == expected, f"kernel G launched once a shape and chain "
+          f"count, by its plan's design (expected {expected})")
+    for n in L.CHAIN_COUNTS:       # above H=512 no design holds the chains
+        try:
+            L.plan_chains_scan(640, TRAIN_ROWS, n, lambda *a: 1)
+            check(False, f"kernel G ({n} chains) has no route at H=640")
+        except ValueError as e:
+            log(f"above H=512 kernel G refuses, as ROADMAP.md logs: {e}")
 
     # at the training shape: the plain version, and D against G in turns
+    card = card_line()
     inputs = PC.make_inputs(TRAIN_T, TRAIN_ROWS, HIDDEN, dev, seed=SEED + 15)
-    got = PC.chains_bwd(*inputs)
     want = PC.chains_bwd_reference(*inputs)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
     peak = want.float().abs().max().item()
-    max_err = err.max().item()
-    log(f"lstm_scan_bwd_chains T={TRAIN_T} rows={TRAIN_ROWS} vs plain: max|err| "
-        f"{max_err:.3e} mean {err.mean().item():.3e} (peak |dgates| {peak:.3f})")
-    check(max_err < BWD_MAX_REL * peak and err.mean().item() < BWD_MEAN_REL * peak,
-          f"lstm_scan_bwd_chains vs plain within {BWD_MAX_REL}/{BWD_MEAN_REL} "
-          f"of the peak")
-    del got, want, err
-    # the script's A/B: best of 10 in 3 alternating rounds
-    times = PC.ab(inputs)
-    ms_d, ms_g = min(times["lstm_scan_bwd"]), min(times["chains2"])
+    max_err = {}
+    for n in L.CHAIN_COUNTS:
+        err = (PC.chains_bwd(*inputs, n_chains=n).float() - want.float()).abs()
+        max_err[n] = err.max().item()
+        log(f"kernel G ({n} chains) T={TRAIN_T} rows={TRAIN_ROWS} vs plain: "
+            f"max|err| {max_err[n]:.3e} mean {err.mean().item():.3e} (peak "
+            f"|dgates| {peak:.3f})")
+        check(max_err[n] < BWD_MAX_REL * peak
+              and err.mean().item() < BWD_MEAN_REL * peak,
+              f"kernel G ({n} chains) vs plain within {BWD_MAX_REL}/"
+              f"{BWD_MEAN_REL} of the peak")
+        del err
+    # kernel G's first design, kept as its single block: same bits, timed
+    block = L.plan_chains_scan(HIDDEN, TRAIN_ROWS, 2, lambda *a: 0)
+    got = L.lstm_scan_bwd_planned_tm(*inputs, block)
+    err_blk = (got.float() - want.float()).abs().max().item()
+    check(torch.equal(got, PC.chains_bwd(*inputs)),
+          "kernel G's single block == its cluster bitwise (2 chains)")
+    del got, want
+    ms_blk = cuda_ms(lambda: L.lstm_scan_bwd_planned_tm(*inputs, block),
+                     iters=2)
+    times = PC.ab(inputs)          # best of 10 in 3 alternating rounds
+    best = {k: min(v) for k, v in times.items()}
     plain = cuda_ms(lambda: PC.chains_bwd_reference(*inputs), iters=2)
     b_ms, by = bound(TRAIN_T, TRAIN_ROWS, HIDDEN, streams=11, products=2)
-    card = card_line()
-    log(f"lstm_scan_bwd_chains (2 chains, {-(-TRAIN_ROWS // 32)} blocks) at "
-        f"T={TRAIN_T} rows={TRAIN_ROWS} H={HIDDEN}: {ms_g:.3f} ms; "
-        f"lstm_scan_bwd ({-(-TRAIN_ROWS // 16)} blocks) {ms_d:.3f} ms (rounds "
-        f"D {' '.join(f'{ms:.3f}' for ms in times['lstm_scan_bwd'])}, G "
-        f"{' '.join(f'{ms:.3f}' for ms in times['chains2'])}); bound "
-        f"{b_ms:.3f} ms by {by}; plain {plain:.3f} ms; cuDNN backward "
-        f"{library_bwd_ms:.3f} ms on {card}")
+    plans = {n: L.card_chains_scan_plan(dev, HIDDEN, TRAIN_ROWS, n)
+             for n in L.CHAIN_COUNTS}
+    d_plan = L.card_bwd_scan_plan(dev, HIDDEN, TRAIN_ROWS)
+    step = {k: 1e3 * best[k] / TRAIN_T / p.waves for k, p in (
+        ("lstm_scan_bwd", d_plan), *((f"chains{n}", plans[n])
+                                     for n in L.CHAIN_COUNTS))}
+    log(f"kernel G at T={TRAIN_T} rows={TRAIN_ROWS} H={HIDDEN}: 2 chains "
+        f"{best['chains2']:.3f} ms ({step['chains2']:.2f} us a step a wave), "
+        f"4 chains {best['chains4']:.3f} ms ({step['chains4']:.2f}); kernel D "
+        f"{best['lstm_scan_bwd']:.3f} ms ({step['lstm_scan_bwd']:.2f}) in the "
+        f"same rounds ({'; '.join(k + ' ' + ' '.join(f'{t:.3f}' for t in r) for k, r in times.items())}); "
+        f"bound {b_ms:.3f} ms by {by}; plain {plain:.3f} ms; cuDNN backward "
+        f"{library_bwd_ms:.3f} ms; the single block (the first design, 2 chains) "
+        f"{ms_blk:.3f} ms on {card}")
+    for n, plan in plans.items():
+        log(f"  {n} chains: {_chains_plan_line(plan)}")
+    log(f"  kernel G registers: {_registers_line(registers, 'G')}")
+    d_regs = {k: v for k, v in registers.items() if k.startswith("D cluster")}
+    log(f"  kernel D's cluster registers {d_regs or 'not rebuilt in this run'}"
+        f" (recorded: {KERNEL_D_REGISTERS}; unchanged: "
+        f"{d_regs == KERNEL_D_REGISTERS if d_regs else 'not known'})")
     del inputs
     inputs = PC.make_inputs(PC.T, PC.B, HIDDEN, dev, seed=SEED + 14)
-    times = PC.ab(inputs)
+    script = {k: min(v) for k, v in PC.ab(inputs).items()}
     log(f"at the script's shape T={PC.T} rows={PC.B}: best D "
-        f"{min(times['lstm_scan_bwd']):.3f} ms, G {min(times['chains2']):.3f} "
-        f"ms (bound {bound(PC.T, PC.B, HIDDEN, streams=11, products=2)[0]:.3f} "
-        f"ms) on {card}")
+        f"{script['lstm_scan_bwd']:.3f} ms, G 2 chains {script['chains2']:.3f}"
+        f" ms, 4 chains {script['chains4']:.3f} ms (bound "
+        f"{bound(PC.T, PC.B, HIDDEN, streams=11, products=2)[0]:.3f} ms) on "
+        f"{card}")
     del inputs
-    return dict(max_abs_err=max_err, ms=ms_g, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=library_bwd_ms), launches
+    kernels = {
+        "lstm_scan_bwd_chains": dict(
+            max_abs_err=max(max_err.values()), ms=best["chains2"],
+            plain_ms=plain, bound_ms=b_ms, bound_by=by,
+            library_ms=library_bwd_ms, chains4_ms=best["chains4"],
+            kernel_d_ms=best["lstm_scan_bwd"], us_step_wave=step,
+            script_shape_ms=script,
+            plan={n: dataclasses.asdict(p) for n, p in plans.items()}),
+        "lstm_scan_bwd_chains_block": dict(
+            max_abs_err=err_blk, ms=ms_blk, plain_ms=plain, bound_ms=b_ms,
+            bound_by=by, library_ms=library_bwd_ms)}
+    return kernels, launches
 
 
 def _staged_plan_line(plan):
@@ -1796,15 +1972,22 @@ def _staged_plan_line(plan):
 def phase_lstm_unroll(dev, registers):
     """Row 10: the K-step unrolled forward through scripts.perf_lstm_unroll,
     bit for bit against kernel A (at the script's and the serving row
-    counts, and at H=100 and 200, which the wrapper pads), against its
-    plain version, and its times beside kernel A's, with its plans and
-    registers."""
+    counts, and at H=100 and 200, which the wrapper pads) and, at H=640 and
+    768, which no cluster holds, its single block against
+    lstm_scan_fwd_block; against its plain version, and its times beside
+    kernel A's (the single block's at H=768 beside lstm_scan_fwd_block),
+    with its plans and registers. Returns both entries' numbers and their
+    launches on this path."""
     from generative_audio_torch.ops import lstm as L
     from generative_audio_torch.scripts import perf_lstm_unroll as PU
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     w_hh = _uniform(gen, dev, (HIDDEN, 4 * HIDDEN), HIDDEN ** -0.5)
     shapes = [(HIDDEN, T_FRAMES, rows) for rows in (TRAIN_ROWS, ROWS)]
     shapes += [(h, T_CHUNK, ROWS) for h in PADDED_HIDDEN]
+    # H no cluster holds: kernel E's single block against lstm_scan_fwd_block
+    shapes += [(h, T_CHUNK, 40) for h in BLOCK_HIDDEN]
+    expected = dict.fromkeys(("lstm_scan_fwd_unrolled",
+                              "lstm_scan_fwd_unrolled_block"), 0)
     L.reset_launch_counts()
     with torch.no_grad():
         for h, t_len, rows in shapes:
@@ -1816,18 +1999,54 @@ def phase_lstm_unroll(dev, registers):
                 got = PU.lstm_unrolled(gates, w, block_t=k)      # the path
                 want = L.lstm_scan_tm(gates, w)                  # kernel A
                 torch.cuda.synchronize()
-                check(torch.equal(got, want), f"lstm_scan_fwd_unrolled K={k} "
-                      f"== lstm_scan_fwd bitwise (H={h} rows={rows})")
-                log(f"lstm_scan_fwd_unrolled K={k} H={h} T={t_len} "
-                    f"rows={rows}: == lstm_scan_fwd over all {got.numel()} "
-                    f"outputs; {L.unrolled_hidden(h, k)} units, "
-                    f"{_staged_plan_line(L.card_unrolled_plan(dev, L.unrolled_hidden(h, k), rows, k))}")
+                hp, route = L.unrolled_route(h, k)
+                expected["lstm_scan_fwd_unrolled" + route] += 1
+                a_entry = "lstm_scan_fwd" + L._forward_route(h)[1]
+                check(torch.equal(got, want), f"lstm_scan_fwd_unrolled{route} "
+                      f"K={k} == {a_entry} bitwise (H={h} rows={rows})")
+                where = (f"single block of {L.unrolled_block_rows(hp, k)} "
+                         f"rows, {L.unrolled_block_smem_bytes(hp, L.unrolled_block_rows(hp, k), k)} B"
+                         if route else _staged_plan_line(
+                             L.card_unrolled_plan(dev, hp, rows, k)))
+                log(f"lstm_scan_fwd_unrolled{route} K={k} H={h} T={t_len} "
+                    f"rows={rows}: == {a_entry} over all {got.numel()} "
+                    f"outputs; {hp} units, {where}")
             del gates, got, want
-        launches = L.launch_counts["lstm_scan_fwd_unrolled"]
-        check(launches == len(shapes) * len(L.UNROLL_STEPS),
-              "lstm_scan_fwd_unrolled launched once a shape and K")
+        launches = {k: L.launch_counts[k] for k in expected}
+        log(f"kernel E's launches on its path: {launches}")
+        check(launches == expected,
+              f"kernel E launched once a shape and K, by its route "
+              f"(expected {expected})")
         log(f"kernel E registers: {_registers_line(registers, 'E')}; "
             f"kernels A-C: {_registers_line(registers, 'ABC')}")
+
+        # the single block at H=768, the full-band training shape's rows and
+        # its T cut to whole groups of 4 steps, beside lstm_scan_fwd_block
+        h, t_len, rows = BLOCK_HIDDEN[-1], TRAIN_T - TRAIN_T % 4, TRAIN_BATCH
+        w = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+        gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        got = PU.lstm_unrolled(gates, w)
+        want = PU.lstm_unrolled_reference(gates, w)
+        err_blk = (got.float() - want.float()).abs()
+        check(err_blk.max().item() < KERNEL_MAX_ABS
+              and err_blk.mean().item() < KERNEL_MEAN_ABS,
+              f"lstm_scan_fwd_unrolled_block vs plain at H={h}")
+        err_blk = err_blk.max().item()
+        ms_blk = {k: cuda_ms(lambda k=k: PU.lstm_unrolled(gates, w, block_t=k),
+                             iters=5) for k in L.UNROLL_STEPS}
+        ms_a_blk = cuda_ms(lambda: L.lstm_scan_tm(gates, w), iters=5)
+        plain_blk = cuda_ms(lambda: PU.lstm_unrolled_reference(gates, w),
+                            iters=2)
+        lib_blk = library_lstm_ms(gates, w)
+        b_blk, by_blk = bound(t_len, rows, h)
+        log(f"lstm_scan_fwd_unrolled_block at T={t_len} rows={rows} H={h}: "
+            f"K=2 {ms_blk[2]:.3f} ms ({L.unrolled_block_rows(h, 2)} rows a "
+            f"block), K=4 {ms_blk[4]:.3f} ms ({L.unrolled_block_rows(h, 4)} "
+            f"rows); lstm_scan_fwd_block {ms_a_blk:.3f} ms; max|err| "
+            f"{err_blk:.3e}; bound {b_blk:.4f} ms by {by_blk}; plain "
+            f"{plain_blk:.3f} ms; cuDNN LSTM {lib_blk:.3f} ms on {card_line()}")
+        del gates, got, want
 
         # at T=628 x 2304 rows, the script's shape
         rows = TRAIN_ROWS
@@ -1865,9 +2084,15 @@ def phase_lstm_unroll(dev, registers):
             f"{L.unrolled_step_us(L.unrolled_hidden(HIDDEN, k), plan.cluster, plan.rows):.2f} us a "
             f"step; measured {1e3 * ms[k] / T_FRAMES / plan.waves:.2f} us a "
             f"step a wave")
-    return dict(max_abs_err=max_err, ms=ms[2], plain_ms=plain, bound_ms=b_ms,
+    return ({"lstm_scan_fwd_unrolled": dict(
+                max_abs_err=max_err, ms=ms[2], plain_ms=plain, bound_ms=b_ms,
                 bound_by=by, library_ms=lib, kernel_a_ms=ms[1], k4_ms=ms[4],
-                plan=dataclasses.asdict(plans[2])), launches
+                plan=dataclasses.asdict(plans[2])),
+             "lstm_scan_fwd_unrolled_block": dict(
+                max_abs_err=err_blk, ms=ms_blk[2], plain_ms=plain_blk,
+                bound_ms=b_blk, bound_by=by_blk, library_ms=lib_blk,
+                k4_ms=ms_blk[4], lstm_scan_fwd_block_ms=ms_a_blk)},
+            launches)
 
 
 @dataclasses.dataclass
@@ -2235,6 +2460,7 @@ def main():
     phase_padded_hidden(dev)
     block_kernels, block_launches = phase_block_forwards(dev)
     kernels.update(block_kernels)
+    phase_lstm_train_large(dev)
     kernels.update(phase_gru_kernels(dev))
     kernels.update(phase_gru_train_kernels(dev, registers))
 
@@ -2252,10 +2478,16 @@ def main():
         "gru_scan_bwd_dwhh": (f"{csrc}/gru_scan_bwd.cu", f"{pallas}:1011"),
         # each with an entry point of its own, on no model's path
         "lstm_layer_fwd": (f"{csrc}/lstm_scan_staged.cu", f"{pallas}:542"),
-        "lstm_scan_bwd_chains": (f"{csrc}/lstm_scan_bwd.cu",
+        "lstm_scan_bwd_chains": (f"{csrc}/lstm_scan_bwd_chains.cu",
                                  "scripts/perf_lstm_chains.py:105"),
         "lstm_scan_fwd_unrolled": (f"{csrc}/lstm_scan_staged.cu",
                                    "scripts/perf_lstm_unroll.py:59"),
+        # their single-block routes: kernel G where no cluster holds H
+        # (its first design), kernel E above H=512
+        "lstm_scan_bwd_chains_block": (f"{csrc}/lstm_scan_bwd.cu",
+                                       "scripts/perf_lstm_chains.py:105"),
+        "lstm_scan_fwd_unrolled_block": (f"{csrc}/lstm_scan_unrolled_block.cu",
+                                         "scripts/perf_lstm_unroll.py:59"),
         # the single-block route of rows 1, 5, 2, 6 and 8 where no cluster
         # holds H, on the wrappers' path at such H
         "lstm_scan_fwd_block": (f"{csrc}/lstm_scan_block.cu", f"{pallas}:142"),
@@ -2277,10 +2509,12 @@ def main():
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 
-    kernels["lstm_scan_bwd_chains"], counts["lstm_scan_bwd_chains"] = \
-        phase_lstm_chains(dev, kernels["lstm_scan_bwd"]["library_ms"])
-    kernels["lstm_scan_fwd_unrolled"], counts["lstm_scan_fwd_unrolled"] = \
-        phase_lstm_unroll(dev, registers)
+    for phase in (lambda: phase_lstm_chains(
+                      dev, kernels["lstm_scan_bwd"]["library_ms"], registers),
+                  lambda: phase_lstm_unroll(dev, registers)):
+        numbers, launches = phase()
+        kernels.update(numbers)
+        counts.update(launches)
     (kernels["lstm_layer_fwd"], counts["lstm_layer_fwd"],
      kernels["lstm_layer_fwd_block"]) = phase_lstm_layer(
         dev, plus, kernels["lstm_scan_fwd"]["ms"], registers)

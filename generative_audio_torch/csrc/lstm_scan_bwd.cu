@@ -3,10 +3,13 @@
 // Kernel D (lstm_scan_bwd) replaces the Pallas TPU kernel
 // _lstm_pallas_call_bwd / _lstm_bwd_kernel of
 // generative_audio_tpu/ops/pallas_lstm.py. It is the backward of the scan in
-// lstm_scan.cu (kernel C wrote its residuals h_seq and c_seq). Kernel G
-// (lstm_scan_bwd_chains) replaces chains_bwd / _chains_bwd_kernel of
-// scripts/perf_lstm_chains.py: kernel D whose block holds CHAINS independent
-// 16-row chains and runs each phase for all of them before the next phase.
+// lstm_scan.cu (kernel C wrote its residuals h_seq and c_seq). This source
+// also holds the single-block route of kernel G
+// (lstm_scan_bwd_chains_block), which replaces chains_bwd /
+// _chains_bwd_kernel of scripts/perf_lstm_chains.py where no cluster of
+// lstm_scan_bwd_chains.cu holds H: kernel D's single block whose block holds
+// CHAINS independent 16-row chains and runs each phase for all of them
+// before the next phase.
 //
 // What it computes. The forward processed positions p = 0..T-1 (array time
 // t = p, or T-1-p with reverse). This kernel walks p = T-1..0 per tile of
@@ -35,7 +38,7 @@
 // forward, the serial chain of T steps, each now two dependent products, is
 // what the simple design pays.
 //
-// Design (right and simple first):
+// Design of the single block (right and simple first):
 //   * Tiles of ROWS = 16 batch rows per block, the time loop inside the
 //     block, 8 warps; a ragged last tile is masked, not padded, and rows
 //     beyond B write nothing.
@@ -43,8 +46,11 @@
 //     computes the four n8 tiles of columns (u, H+u, 2H+u, 3H+u) with
 //     mma.sync m16n8k16, so one thread holds all four gates of its (row,
 //     unit) pairs, and c_prev, c_t, gout, dh and dc, which are all per (row,
-//     unit), need no exchange between threads. h_prev comes from h_seq in
-//     global memory into shared memory (it is bf16 already).
+//     unit), need no exchange between threads. dc therefore lives in the
+//     thread's registers: a warp owns at most 16 / CHAINS unit groups (H <=
+//     1024 for kernel D, 512 for two chains, 256 for four), each of its
+//     groups' rounds unrolled. h_prev comes from h_seq in global memory into
+//     shared memory (it is bf16 already).
 //   * Second product: it contracts over 4H, so every warp must see the
 //     whole bf16 dgates tile: 16 x (4H + 8) x 2 B = 49 KB of shared memory
 //     at H = 384, and a second __syncthreads per step. A warp owns pairs of
@@ -57,15 +63,18 @@
 //     barriers, not three.
 //   * Both weight copies (1.18 MB each) stay in L2 and are re-read every
 //     step, as W_hh is in the forward.
-//   * Kernel G (CHAINS = 2 or 4; kernel D is CHAINS = 1): a block holds
-//     CHAINS x 16 rows, each chain with kernel D's shared-memory layout, and
+//   * Shared memory: h_prev, the dgates tile and dh, 224 H + 512 bytes a
+//     chain: 229 888 B at H = 1024. (With dc in shared memory too, as
+//     before, H = 1024 needed 295 424 B and no block held it.)
+//   * Kernel G's single block (CHAINS = 2 or 4; kernel D is CHAINS = 1): a
+//     block holds CHAINS x 16 rows, each chain with kernel D's layout, and
 //     every B fragment of W_hh a warp reads from L2 feeds CHAINS mma.sync
-//     tiles, so the L2 stream per row halves at CHAINS = 2 and each warp has
-//     CHAINS independent accumulator chains. The phases follow
-//     _chains_bwd_kernel: all gate-recompute products, then all gate
-//     derivatives, then all dh products. Each row sees kernel D's operations
-//     in kernel D's order, so dgates are bit-identical. One chain takes
-//     111 104 B at H = 384: two fit the 227 KB opt-in limit, four do not.
+//     tiles, so each warp has CHAINS independent accumulator chains. The
+//     phases follow _chains_bwd_kernel: all gate-recompute products, then
+//     all gate derivatives, then all dh products. Each row sees kernel D's
+//     operations in kernel D's order, so dgates are bit-identical. Kernel
+//     G's cluster (lstm_scan_bwd_chains.cu) takes its place wherever a
+//     cluster holds H.
 //
 // Kernel D as a thread-block cluster (lstm_bwd_cluster_kernel): the
 // backward of the cluster forward (lstm_scan.cu), turned round. The entry
@@ -119,6 +128,11 @@
 
 namespace {
 
+// Unit groups (of 8) a warp of the single block owns at most, each with its
+// dc in registers: H <= 8 * NWARPS * block_groups<CHAINS>().
+template <int CHAINS>
+__host__ __device__ constexpr int block_groups() { return 16 / CHAINS; }
+
 template <int CHAINS>
 __global__ void __launch_bounds__(NWARPS * 32)
 lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
@@ -129,21 +143,28 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
                      const __nv_bfloat16* __restrict__ w,    // [H, 4H]
                      __nv_bfloat16* __restrict__ dgates,
                      int T, int B, int H, int reverse) {
+  constexpr int MAXG = block_groups<CHAINS>();
   extern __shared__ __align__(16) unsigned char smem[];
   const int G4 = 4 * H;
   const int hs = H + PAD;                                   // h_prev row stride
   const int gs = G4 + PAD;                                  // dgates row stride
-  // per chain: [ROWS][hs] h_prev, [ROWS][gs] dgates, [ROWS][H] dh and dc
+  // per chain: [ROWS][hs] h_prev, [ROWS][gs] dgates, [ROWS][H] dh
   __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(smem);   // [CHAINS][ROWS][hs]
   __nv_bfloat16* dgbuf = hbuf + CHAINS * ROWS * hs;                // [CHAINS][ROWS][gs]
   float* dhbuf = reinterpret_cast<float*>(dgbuf + CHAINS * ROWS * gs);  // [CHAINS][ROWS][H]
-  float* dcbuf = dhbuf + CHAINS * ROWS * H;                        // [CHAINS][ROWS][H]
 
   const int row0 = blockIdx.x * CHAINS * ROWS;              // chain ch: + ch * ROWS
-  for (int i = threadIdx.x; i < CHAINS * ROWS * H; i += blockDim.x) {
+  for (int i = threadIdx.x; i < CHAINS * ROWS * H; i += blockDim.x)
     dhbuf[i] = 0.0f;
-    dcbuf[i] = 0.0f;
-  }
+  // dc of the thread's (row, unit) pairs: round gi (unit group warp + 8 gi),
+  // chain ch, pair 2 * half + e (row grp + 8 half, unit 8u + 2tq + e)
+  float dc[MAXG][CHAINS][4];
+#pragma unroll
+  for (int gi = 0; gi < MAXG; ++gi)
+#pragma unroll
+    for (int ch = 0; ch < CHAINS; ++ch)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dc[gi][ch][e] = 0.0f;
   // position p = T-1-s is processed at backward step s; its array time and
   // that of the position before it
   const int step = reverse ? 1 : -1;            // t(p-1) = t(p) + step
@@ -166,7 +187,10 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
     const int tprev = t + step;
 
     // ---- gates recompute and the elementwise backward -> dgates ---------
-    for (int u = warp; u < ngroups; u += NWARPS) {
+#pragma unroll
+    for (int gi = 0; gi < MAXG; ++gi) {
+      const int u = warp + gi * NWARPS;
+      if (u >= ngroups) break;
       float acc[CHAINS][4][4];
 #pragma unroll
       for (int ch = 0; ch < CHAINS; ++ch)
@@ -198,8 +222,7 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
 #pragma unroll
       for (int ch = 0; ch < CHAINS; ++ch) {
         __nv_bfloat16* dgc = dgbuf + ch * ROWS * gs;
-        float* dhc = dhbuf + ch * ROWS * H;
-        float* dcc = dcbuf + ch * ROWS * H;
+        const float* dhc = dhbuf + ch * ROWS * H;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int r = grp + 8 * half, row = row0 + ch * ROWS + r;
@@ -225,17 +248,17 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
           float dg[4][2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float gi = sigmoidf_(z[0][e]), gf = sigmoidf_(z[1][e]),
+            const float gi_ = sigmoidf_(z[0][e]), gf = sigmoidf_(z[1][e]),
                         gg = tanhf(z[2][e]), og = sigmoidf_(z[3][e]);
             const float tc = tanhf(c_t[e]);
             const float dh_tot = g_out[e] + dhc[r * H + j + e];
             const float dc_tot =
-                dcc[r * H + j + e] + dh_tot * og * (1.0f - tc * tc);
-            dg[0][e] = dc_tot * gg * gi * (1.0f - gi);
+                dc[gi][ch][2 * half + e] + dh_tot * og * (1.0f - tc * tc);
+            dg[0][e] = dc_tot * gg * gi_ * (1.0f - gi_);
             dg[1][e] = dc_tot * c_prev[e] * gf * (1.0f - gf);
-            dg[2][e] = dc_tot * gi * (1.0f - gg * gg);
+            dg[2][e] = dc_tot * gi_ * (1.0f - gg * gg);
             dg[3][e] = dh_tot * tc * og * (1.0f - og);
-            dcc[r * H + j + e] = dc_tot * gf;
+            dc[gi][ch][2 * half + e] = dc_tot * gf;
           }
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
@@ -301,15 +324,26 @@ lstm_scan_bwd_kernel(const __nv_bfloat16* __restrict__ gates,
   }
 }
 
+// Shared bytes of one 16-row chain of the single block: h_prev [16][H + 8]
+// and the dgates tile [16][4H + 8], bf16, and dh [16][H] fp32.
+size_t block_smem(int H) {
+  return ((size_t)ROWS * (H + PAD) + (size_t)ROWS * (4 * H + PAD)) *
+             sizeof(__nv_bfloat16) +
+         (size_t)ROWS * H * sizeof(float);
+}
+
+// The single block of CHAINS chains takes H (a multiple of 16) whose unit
+// groups' dc fit the warps' registers.
+template <int CHAINS>
+bool block_fits(int H) {
+  return H > 0 && H % 16 == 0 && H <= 8 * NWARPS * block_groups<CHAINS>();
+}
+
 template <int CHAINS>
 int launch(const void* gates, const void* h_seq, const void* c_seq,
            const void* gout, const void* wt, const void* w, void* dgates,
            int T, int B, int H, int reverse, void* stream) {
-  // ops/lstm.py repeats this sum to refuse a launch above the opt-in limit
-  const size_t smem =
-      CHAINS * (((size_t)ROWS * (H + PAD) + (size_t)ROWS * (4 * H + PAD)) *
-                    sizeof(__nv_bfloat16) +
-                2 * (size_t)ROWS * H * sizeof(float));
+  const size_t smem = CHAINS * block_smem(H);
   auto kernel = lstm_scan_bwd_kernel<CHAINS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -694,19 +728,13 @@ int max_clusters(int H, int C, int R, int* n) {
       n, lstm_bwd_cluster_kernel<RESIDENT>, &cfg);
 }
 
-// Shared bytes of one block of the single-block design (CHAINS = 1).
-size_t block_smem(int H) {
-  return ((size_t)ROWS * (H + PAD) + (size_t)ROWS * (4 * H + PAD)) *
-             sizeof(__nv_bfloat16) +
-         2 * (size_t)ROWS * H * sizeof(float);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Kernel D. gates [T, B, 4H], h_seq, c_seq, gout [T, B, H], wt [4H, H],
-// w [H, 4H], all bf16 -> dgates [T, B, 4H] bf16. H must be a multiple of 16.
+// w [H, 4H], all bf16 -> dgates [T, B, 4H] bf16. H must be a multiple of 16
+// (at most 1024 for the single block).
 // wf is wt in MMA fragment order, [4][H/8][H/32][32] of 16 bytes (ops/lstm.py
 // _fragment_weight), read by the cluster design (H % 64 == 0 there); the
 // single block reads wt.
@@ -721,7 +749,8 @@ int lstm_scan_bwd(const void* gates, const void* h_seq, const void* c_seq,
                   int smem_bytes, void* stream) {
   if (H <= 0 || H % 16) return (int)cudaErrorInvalidValue;
   if (cluster == 1) {
-    if (rows != ROWS || resident || (size_t)smem_bytes != block_smem(H))
+    if (!block_fits<1>(H) || rows != ROWS || resident ||
+        (size_t)smem_bytes != block_smem(H))
       return (int)cudaErrorInvalidValue;
     return launch<1>(gates, h_seq, c_seq, gout, wt, w, dgates, T, B, H,
                      reverse, stream);
@@ -736,16 +765,21 @@ int lstm_scan_bwd(const void* gates, const void* h_seq, const void* c_seq,
                                H, reverse, cluster, rows, stream);
 }
 
-// Kernel G. Kernel D with n_chains = 2 or 4 chains of 16 rows per block,
-// forward not reversed (as the script). Bit-identical to kernel D.
-int lstm_scan_bwd_chains(const void* gates, const void* h_seq,
-                         const void* c_seq, const void* gout, const void* wt,
-                         const void* w, void* dgates, int T, int B, int H,
-                         int n_chains, void* stream) {
-  if (n_chains == 2)
+// Kernel G's single block: kernel D's single block with n_chains = 2 or 4
+// chains of 16 rows a block, forward not reversed (as the script), H up to
+// 512 (two chains) or 256 (four); smem_bytes must be n_chains chains'.
+// Bit-identical to kernel D.
+int lstm_scan_bwd_chains_block(const void* gates, const void* h_seq,
+                               const void* c_seq, const void* gout,
+                               const void* wt, const void* w, void* dgates,
+                               int T, int B, int H, int n_chains,
+                               int smem_bytes, void* stream) {
+  if ((size_t)smem_bytes != n_chains * block_smem(H))
+    return (int)cudaErrorInvalidValue;
+  if (n_chains == 2 && block_fits<2>(H))
     return launch<2>(gates, h_seq, c_seq, gout, wt, w, dgates, T, B, H, 0,
                      stream);
-  if (n_chains == 4)
+  if (n_chains == 4 && block_fits<4>(H))
     return launch<4>(gates, h_seq, c_seq, gout, wt, w, dgates, T, B, H, 0,
                      stream);
   return (int)cudaErrorInvalidValue;

@@ -119,6 +119,11 @@ _SIGNATURES = {
         "lstm_layer_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P],
     },
+    "lstm_scan_unrolled_block": {
+        # ..., k, rows a block, shared bytes
+        "lstm_scan_fwd_unrolled_block": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _P],
+    },
     "lstm_layer_block": {
         "lstm_layer_fwd_block": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _P],
@@ -128,8 +133,15 @@ _SIGNATURES = {
         # shared bytes
         "lstm_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P],
+        # ..., n_chains, shared bytes
+        "lstm_scan_bwd_chains_block": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _P],
+    },
+    "lstm_scan_bwd_chains": {
+        # ..., n_chains, then the launch plan: cluster, rows, resident,
+        # arrangement, shared bytes
         "lstm_scan_bwd_chains": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P],
+                                 _I, _I, _I, _I, _I, _P],
     },
     "gru_scan": {
         # ..., reverse, then the launch plan: cluster, rows, shared bytes
@@ -153,7 +165,8 @@ _SIGNATURES = {
 SOURCES = tuple(_SIGNATURES)
 # Queries that launch nothing: the instance's flags (out_f32, carry; and
 # train for the LSTM forward; resident for the backwards; k and out_f32 for
-# the staged scans), then H, cluster, rows and int* n.
+# the staged scans; n_chains, arrangement and resident for kernel G), then
+# H, cluster, rows and int* n.
 _QUERIES = {
     "lstm_scan": {
         "lstm_scan_max_clusters": [_I, _I, _I, _I, _I, _I,
@@ -170,6 +183,10 @@ _QUERIES = {
     "lstm_scan_bwd": {
         "lstm_scan_bwd_max_clusters": [_I, _I, _I, _I,
                                        ctypes.POINTER(ctypes.c_int)],
+    },
+    "lstm_scan_bwd_chains": {
+        "lstm_scan_bwd_chains_max_clusters": [_I, _I, _I, _I, _I, _I,
+                                              ctypes.POINTER(ctypes.c_int)],
     },
     "gru_scan_bwd": {
         "gru_scan_bwd_max_clusters": [_I, _I, _I, _I,

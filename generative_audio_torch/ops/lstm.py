@@ -23,9 +23,15 @@ Port of five kernels of generative_audio_tpu/ops/pallas_lstm.py:
 Two more kernels reorganise kernels A and D, bit for bit, and replace the
 kernels that the JAX package keeps in scripts/: `lstm_scan_tm(...,
 block_t=K)` (kernel E, csrc/lstm_scan_staged.cu `lstm_scan_fwd_unrolled`:
-kernel A's cluster whose x-side gates arrive by TMA, K steps at a time)
-and `lstm_scan_bwd_tm(..., n_chains=N)` (kernel G, csrc/lstm_scan_bwd.cu
-`lstm_scan_bwd_chains`: N 16-row chains per block).
+kernel A's cluster whose x-side gates arrive by TMA, K steps at a time;
+above H = 512 its single block, csrc/lstm_scan_unrolled_block.cu
+`lstm_scan_fwd_unrolled_block`, equal to `lstm_scan_fwd_block`) and
+`lstm_scan_bwd_tm(..., n_chains=N)` (kernel G, csrc/lstm_scan_bwd_chains.cu
+`lstm_scan_bwd_chains`: kernel D's cluster whose compute warps carry N
+independent accumulator chains each; where no cluster holds H its single
+block, csrc/lstm_scan_bwd.cu `lstm_scan_bwd_chains_block`: N 16-row chains
+a block), each with a plan of its own (`plan_chains_scan`,
+`card_chains_scan_plan`).
 generative_audio_torch/scripts/ holds their entry points, named after the
 JAX scripts.
 `LSTMScan` is the counterpart of the JAX custom VJP (`_lstm_fwd` /
@@ -65,16 +71,20 @@ dgates bit for bit: `_launch` appends `card_bwd_scan_plan`'s plan
 fitted on the card).
 
 Any H runs on the card: the wrappers zero-pad H to the units their kernel
-takes (`scan_hidden` for kernels A-C, `unrolled_hidden` for E,
-`layer_route` for F, whole 16-deep k-steps for the backward) and slice the
-result back; at H = 384 and 512 nothing is padded. Where no cluster holds
-W_hh's slice (H above 512), kernels A-C and F take the single-block route
-(csrc/lstm_scan_block.cu and csrc/lstm_layer_block.cu, entries ending in
-`_block`) at H padded to 16. A padded unit sees zero gates, zero weights
-and zero bias, so it stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros
-to the real units' sums and gets zero dgates. Kernel E refuses an H that
-no cluster holds, and the chains backward takes H as it is and refuses
-what it cannot run.
+takes (`scan_hidden` for kernels A-C, `unrolled_route` for E,
+`layer_route` for F, whole 16-deep k-steps for the backwards D and G) and
+slice the result back; at H = 384 and 512 nothing is padded. Where no
+cluster holds W_hh's slice (H above 512), kernels A-C, E and F take the
+single-block route (csrc/lstm_scan_block.cu, csrc/lstm_scan_unrolled_block.cu
+and csrc/lstm_layer_block.cu, entries ending in `_block`) at H padded to
+16, and kernel D its single block, which keeps dc in registers and so holds
+H up to 1024. A padded unit sees zero gates, zero weights and zero bias, so
+it stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros to the real
+units' sums and gets zero dgates. What no design holds raises with the
+bytes: kernel D above H = 1024, kernel G above H = 512 (two chains) or
+where neither its cluster nor its single block holds four chains, kernel E
+where not even a block of 4 rows holds K steps of gates (H above 1104 at
+K = 4).
 """
 from __future__ import annotations
 
@@ -82,7 +92,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -103,7 +113,11 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "unrolled_hidden", "lstm_scan_unrolled_planned_tm",
            "layer_smem_bytes", "layer_step_us", "plan_layer",
            "card_layer_plan", "layer_route", "layer_block_smem_bytes",
-           "lstm_layer_planned_tm"]
+           "lstm_layer_planned_tm", "unrolled_route",
+           "unrolled_block_rows", "unrolled_block_smem_bytes", "ChainsPlan",
+           "plan_chains_scan", "card_chains_scan_plan", "chain_warps",
+           "chains_cluster_smem_bytes", "chains_step_us", "chain_cta_warps",
+           "chains_scan_plans"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -112,10 +126,12 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "lstm_scan_fwd_carry_block": "lstm_scan_block",
               "lstm_scan_fwd_train_block": "lstm_scan_block",
               "lstm_scan_fwd_unrolled": "lstm_scan_staged",
+              "lstm_scan_fwd_unrolled_block": "lstm_scan_unrolled_block",
               "lstm_layer_fwd": "lstm_scan_staged",
               "lstm_layer_fwd_block": "lstm_layer_block",
               "lstm_scan_bwd": "lstm_scan_bwd",
-              "lstm_scan_bwd_chains": "lstm_scan_bwd",
+              "lstm_scan_bwd_chains": "lstm_scan_bwd_chains",
+              "lstm_scan_bwd_chains_block": "lstm_scan_bwd",
               "gru_scan_fwd": "gru_scan", "gru_scan_fwd_carry": "gru_scan",
               "gru_scan_fwd_block": "gru_scan_block",
               "gru_scan_fwd_carry_block": "gru_scan_block",
@@ -128,7 +144,7 @@ SMEM_LIMIT = 232448
 _PAD = 8                   # bf16 pad per shared row, as csrc/scan_common.cuh
 _ROWS = 16                 # batch rows per block (per chain)
 UNROLL_STEPS = (2, 4)      # kernel E's steps per staged gate tile
-CHAIN_COUNTS = (2, 4)      # kernel G's 16-row chains per block
+CHAIN_COUNTS = (2, 4)      # kernel G's accumulator chains a warp
 # CTAs per cluster of the forward scans (csrc/lstm_scan.cu, csrc/gru_scan.cu):
 # 8 is the portable limit; the kernels opt in to 16, which an H100 allows.
 CLUSTER_SIZES = (8, 16)
@@ -176,6 +192,18 @@ BWD_WARPS = 16
 # over T = 195) and 190 at H = 512, taken to grow with H.
 _BWD_PARTS = (4.12, 0.0435, 0.0, 0.163, 0.247)
 _BWD_BLOCK_US = 198.0
+# Kernel G's cluster step model (chains_step_us): kernel D's step model plus
+# three parts (microseconds): a step, each k-step of the second product for
+# each chain a warp carries beyond its first, and each m16 row tile of the
+# cluster beyond its first; a least-squares fit to the steps of eight
+# one-cluster plans on an H100 SXM at 700 W (2 and 4 chains; H = 384: C = 8
+# x 16, C = 16 x 16 resident and streamed, C = 16 x 32 in both
+# arrangements; H = 512: C = 16 x 16; the sweep of
+# generative_audio_torch/scripts/perf_lstm_chains.py), off by at most 0.67
+# us. Kernel G's single block: a step of 154 us at H = 384 (30.007 ms over T
+# = 195 with two chains in the same sweep), taken to grow with H.
+_CHAINS_PARTS = (0.415, 0.0147, 4.93)
+_CHAINS_BLOCK_US = 154.0
 
 
 def reset_launch_counts() -> None:
@@ -685,12 +713,49 @@ def plan_unrolled(hsz: int, batch: int, k: int,
         lambda h, c, r: unrolled_smem_bytes(h, c, r, k), unrolled_step_us)
 
 
+def unrolled_block_smem_bytes(hsz: int, rows: int, k: int) -> int:
+    """Shared memory of one block of kernel E's single-block route
+    (csrc/lstm_scan_unrolled_block.cu `unrolled_block_smem`): two bf16 h
+    tiles [16][H + 8], fp32 c [rows][H] and the gates of k steps
+    [k][rows][4H] bf16."""
+    return (2 * _ROWS * (hsz + _PAD) * 2 + rows * hsz * 4
+            + k * rows * 4 * hsz * 2)
+
+
+UNROLLED_BLOCK_ROWS = (16, 8, 4)   # rows a block of kernel E's single block
+
+
+def unrolled_block_rows(hsz: int, k: int) -> int:
+    """The rows a block of kernel E's single-block route takes at H = hsz
+    (padded to 16) with k steps staged: the most of UNROLLED_BLOCK_ROWS
+    whose block fits SMEM_LIMIT. Raises ValueError with the bytes where
+    none does."""
+    for rows in UNROLLED_BLOCK_ROWS:
+        if unrolled_block_smem_bytes(hsz, rows, k) <= SMEM_LIMIT:
+            return rows
+    rows = UNROLLED_BLOCK_ROWS[-1]
+    raise ValueError(
+        f"lstm_scan_fwd_unrolled_block at H={hsz}, K={k} needs "
+        f"{unrolled_block_smem_bytes(hsz, rows, k)} B of shared memory at "
+        f"{rows} rows a block, more than the {SMEM_LIMIT} B a block may use")
+
+
+def unrolled_route(hsz: int, k: int) -> Tuple[int, str]:
+    """(H, entry suffix) kernel E runs a layer of hsz units with, k steps a
+    group: forward_hidden with its cluster layout, so the cluster ("") up
+    to H = 512 and the single block ("_block",
+    csrc/lstm_scan_unrolled_block.cu) at H padded to 16 above; raises when
+    not even a block of the fewest rows fits."""
+    hp, suffix = forward_hidden(
+        hsz, lambda h, c, r: unrolled_smem_bytes(h, c, r, k))
+    if suffix:
+        unrolled_block_rows(hp, k)
+    return hp, suffix
+
+
 def unrolled_hidden(hsz: int, k: int) -> int:
-    """The H kernel E runs a layer of hsz units at (cluster_hidden of its
-    layout with k steps a group). Raises ValueError, with the bytes each
-    cluster size would need, where no cluster holds it: kernel E has no
-    single-block route."""
-    return cluster_hidden(hsz, lambda h, c, r: unrolled_smem_bytes(h, c, r, k))
+    """The H kernel E runs a layer of hsz units at (unrolled_route's)."""
+    return unrolled_route(hsz, k)[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -961,6 +1026,198 @@ def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int) -> BwdPlan:
     return card_bwd_plan("lstm_scan_bwd", plan_bwd_scan, device, hsz, batch)
 
 
+@dataclasses.dataclass(frozen=True)
+class ChainsPlan:
+    """Launch plan of kernel G with `chains` chains a warp: its cluster
+    (csrc/lstm_scan_bwd_chains.cu `lstm_scan_bwd_chains`: kernel D's cluster
+    of `cluster` CTAs over `rows` rows, the recompute's W_hh^T slice
+    resident or not, each compute warp carrying up to `chains` (m16 tile, 8
+    units) items: row tiles of one unit group (arrangement 0) or unit groups
+    of one row tile (arrangement 1)), or its single block (cluster 1,
+    csrc/lstm_scan_bwd.cu `lstm_scan_bwd_chains_block`: chains x 16 rows a
+    block)."""
+    chains: int           # independent accumulator chains a warp, 2 or 4
+    cluster: int          # CTAs per cluster; 1 for the single block
+    rows: int             # batch rows per cluster (block)
+    resident: bool        # the recompute's W_hh^T slice in shared memory
+    arrangement: int      # 0: a warp's chains are row tiles; 1: unit groups
+    clusters: int         # clusters (blocks) in the grid
+    active: int           # clusters (blocks) the card runs at once
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+    step_us: float        # modelled time of one step of one wave
+
+    @property
+    def design(self) -> str:
+        return "block" if self.cluster == 1 else "cluster"
+
+    @property
+    def launch_args(self) -> Tuple[int, ...]:
+        """The C entry's last arguments before the stream: the cluster's
+        plan, or the single block's shared bytes."""
+        if self.cluster == 1:
+            return (self.smem_bytes,)
+        return (self.cluster, self.rows, int(self.resident),
+                self.arrangement, self.smem_bytes)
+
+
+CHAIN_ARRANGEMENTS = (0, 1)        # kernel G: chains of row tiles, of units
+
+
+def chain_cta_warps(n_chains: int) -> int:
+    """Warps of a CTA of kernel G's cluster with n_chains chains a compute
+    warp (csrc/lstm_scan_bwd_chains.cu `chain_cta_warps`)."""
+    return 12 if n_chains == 2 else 8
+
+
+def chain_warps(tiles: int, groups: int, n_chains: int,
+                arrangement: int) -> Tuple[int, int]:
+    """(compute warps, most chains a warp carries) of a CTA of kernel G's
+    cluster with `tiles` m16 row tiles and `groups` groups of 8 units
+    (csrc/lstm_scan_bwd_chains.cu `compute_warps`)."""
+    if arrangement == 0:
+        return -(-tiles // n_chains) * groups, min(n_chains, tiles)
+    return tiles * -(-groups // n_chains), min(n_chains, groups)
+
+
+def chains_cluster_smem_bytes(hsz: int, cluster: int, rows: int,
+                              resident: bool) -> int:
+    """Shared memory of one CTA of kernel G's cluster
+    (csrc/lstm_scan_bwd_chains.cu `chains_cluster_smem`): kernel D's
+    cluster layout."""
+    return bwd_smem_bytes_cluster(hsz, cluster, rows, resident)
+
+
+def chains_step_us(hsz: int, cluster: int, rows: int, resident: bool,
+                   n_chains: int) -> float:
+    """Modelled time of one step of one wave of kernel G's cluster: kernel
+    D's step model for the same cluster (bwd_step_us) plus _CHAINS_PARTS: a
+    step, each of the second product's 4H / 16 k-steps for each chain a
+    warp carries beyond its first (its mma.sync, its fragment loads and its
+    share of the elementwise part, in the same warp), and each m16 row tile
+    beyond the first."""
+    step_us, chain_us, tile_us = _CHAINS_PARTS
+    return (bwd_step_us(hsz, cluster, rows, resident) + step_us
+            + (n_chains - 1) * 4 * hsz // 16 * chain_us
+            + (rows // 16 - 1) * tile_us)
+
+
+def chains_block_step_us(hsz: int) -> float:
+    """Modelled step of kernel G's single block: _CHAINS_BLOCK_US at H = 384,
+    taken to grow with H."""
+    return _CHAINS_BLOCK_US * hsz / 384
+
+
+def chains_scan_plans(hsz: int, batch: int, n_chains: int,
+                      max_clusters: Callable[[int, int, bool, int], int],
+                      sms: int = H100_SMS
+                      ) -> Tuple[List[ChainsPlan], List[str]]:
+    """Every launch plan of kernel G for `batch` rows at H = hsz (a multiple
+    of 16) with n_chains chains a warp, with the reasons for what fits
+    nowhere: (plans, refusals).
+
+    The cluster: C of CLUSTER_SIZES that splits H into groups of 8 units, R
+    rows (whole m16 tiles, balanced over the clusters), the recompute's
+    slice resident or not, and an arrangement in which a warp carries all
+    n_chains chains (kernel G never runs fewer), whose CTA fits SMEM_LIMIT
+    bytes and chain_cta_warps warps (ceil(items / n_chains) compute warps
+    and one recompute warp an item); `max_clusters(C, R, resident,
+    arrangement)` (the card's cudaOccupancyMaxActiveClusters) of them run
+    at once, each step taking chains_step_us. The single block: n_chains x
+    16 rows a block where its shared memory fits and its warps' registers
+    hold dc (H <= 1024 / n_chains), sm_blocks of them at once, each step
+    chains_block_step_us."""
+    tiles = -(-batch // 16)
+    plans, refused = [], []
+    for cluster in CLUSTER_SIZES:
+        if hsz % (8 * cluster):
+            refused.append(f"C={cluster}: H={hsz} is no multiple of "
+                           f"{8 * cluster}")
+            continue
+        groups = hsz // cluster // 8
+        least = chains_cluster_smem_bytes(hsz, cluster, 16, False)
+        if least > SMEM_LIMIT:
+            refused.append(f"C={cluster}: {least} B at 16 rows")
+            continue
+        for resident in (True, False):
+            for arrangement in CHAIN_ARRANGEMENTS:
+                for per_cluster in range(1, tiles + 1):
+                    clusters = -(-tiles // per_cluster)
+                    rows = 16 * -(-tiles // clusters)
+                    smem = chains_cluster_smem_bytes(hsz, cluster, rows,
+                                                     resident)
+                    warps, chains = chain_warps(rows // 16, groups, n_chains,
+                                                arrangement)
+                    if (smem > SMEM_LIMIT
+                            or warps + rows // 16 * groups
+                            > chain_cta_warps(n_chains)):
+                        break
+                    if chains < n_chains:
+                        continue
+                    active = max_clusters(cluster, rows, resident,
+                                          arrangement)
+                    if active < 1:
+                        continue
+                    plans.append(ChainsPlan(
+                        n_chains, cluster, rows, resident, arrangement,
+                        clusters, active, -(-clusters // active), smem,
+                        chains_step_us(hsz, cluster, rows, resident,
+                                       n_chains)))
+    block = bwd_smem_bytes(hsz, n_chains)
+    if block > SMEM_LIMIT or hsz > 1024 // n_chains:
+        refused.append(f"single block: {block} B")
+    else:
+        blocks = -(-batch // (16 * n_chains))
+        active = sm_blocks(block, sms)
+        plans.append(ChainsPlan(n_chains, 1, 16 * n_chains, False, 0, blocks,
+                                active, -(-blocks // active), block,
+                                chains_block_step_us(hsz)))
+    return plans, refused
+
+
+def plan_chains_scan(hsz: int, batch: int, n_chains: int,
+                     max_clusters: Callable[[int, int, bool, int], int],
+                     sms: int = H100_SMS) -> ChainsPlan:
+    """Kernel G's launch plan for `batch` rows at H = hsz (a multiple of 16)
+    with n_chains chains a warp: of chains_scan_plans', the least waves x
+    step time; ties go to the cluster, then to the smaller cluster, to
+    fewer clusters, and to chains of unit groups (at C=16 x 32, H=384, the
+    whole batch ran 11.30 us a step a wave with chains of units and 17.21
+    with chains of row tiles: perf_lstm_chains.py --sweep). Raises
+    ValueError, with the bytes, when no design holds the chains."""
+    if n_chains not in CHAIN_COUNTS:
+        raise ValueError(f"n_chains must be one of {CHAIN_COUNTS}, got "
+                         f"{n_chains}")
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    plans, refused = chains_scan_plans(hsz, batch, n_chains, max_clusters,
+                                       sms)
+    if not plans:
+        raise ValueError(f"no plan for the chains backward (kernel G) with "
+                         f"{n_chains} chains at H={hsz}: " + "; ".join(refused)
+                         + f"; a block may use {SMEM_LIMIT} B")
+    return min(plans, key=lambda p: (p.waves * p.step_us, p.cluster == 1,
+                                     p.cluster, p.clusters, -p.arrangement))
+
+
+@functools.lru_cache(maxsize=None)
+def card_chains_scan_plan(device: torch.device, hsz: int, batch: int,
+                          n_chains: int) -> ChainsPlan:
+    """The plan kernel G launches with on `device` (a CUDA device) for
+    `batch` rows at H = hsz with n_chains chains (occupancy from
+    csrc/lstm_scan_bwd_chains.cu `lstm_scan_bwd_chains_max_clusters` for the
+    instance, SMs from the device)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return plan_chains_scan(
+        hsz, batch, n_chains,
+        lambda c, r, resident, arrangement: _max_clusters(
+            "lstm_scan_bwd_chains", index,
+            (n_chains, arrangement, int(resident)), hsz, c, r), sms)
+
+
 def _launch(fn_name: str, *args,
             plan: Optional[Union[ScanPlan, BwdPlan]] = None) -> None:
     """Launch csrc entry `fn_name` (see _launch_kernel), of this module or
@@ -968,7 +1225,9 @@ def _launch(fn_name: str, *args,
     cluster launches: their arguments end in (T, B, H, reverse), and
     card_scan_plan's plan for (H, B) on the tensors' card is appended to
     them. Kernel D's arguments end the same way, and `plan` (default:
-    card_bwd_scan_plan's for (H, B)) is appended to them; so are kernel E's
+    card_bwd_scan_plan's for (H, B)) is appended to them; so are kernel G's
+    cluster's (arguments ending in T, B, H, n_chains; default
+    card_chains_scan_plan's) and kernel E's
     (arguments ending in T, B, H, k; default card_unrolled_plan's) and
     kernel F's (ending in T, B, F, H, reverse; default card_layer_plan's
     for the output type). Raises first, before any plan asks the card and
@@ -992,6 +1251,10 @@ def _launch(fn_name: str, *args,
     elif fn_name == "lstm_scan_bwd":
         b, hsz = args[-3], args[-2]
         plan = plan or card_bwd_scan_plan(args[0].device, hsz, b)
+        args = (*args, *plan.launch_args)
+    elif fn_name == "lstm_scan_bwd_chains":
+        b, hsz, n_chains = args[-3:]
+        plan = plan or card_chains_scan_plan(args[0].device, hsz, b, n_chains)
         args = (*args, *plan.launch_args)
     elif fn_name in _CLUSTER_ENTRIES:
         train = fn_name == "lstm_scan_fwd_train"
@@ -1022,18 +1285,12 @@ def _launch_kernel(fn_name: str, *args) -> None:
     launch_counts[fn_name] += 1
 
 
-def _check_kernel_sizes(hsz: int) -> None:
-    """Kernel G takes H as it is: whole 16-deep k-steps."""
-    if hsz % _STEP_UNITS:
-        raise ValueError(f"this CUDA scan kernel needs H % {_STEP_UNITS} == 0, "
-                         f"got H={hsz}")
-
-
 def bwd_smem_bytes(hsz: int, n_chains: int = 1) -> int:
-    """Shared memory of one block of the backward (csrc/lstm_scan_bwd.cu):
-    per 16-row chain the bf16 h_prev and dgates tiles and fp32 dh and dc."""
+    """Shared memory of one block of the single-block backward
+    (csrc/lstm_scan_bwd.cu `block_smem` a chain): per 16-row chain the bf16
+    h_prev and dgates tiles and fp32 dh (dc lives in registers)."""
     return n_chains * ((_ROWS * (hsz + _PAD) + _ROWS * (4 * hsz + _PAD)) * 2
-                       + 2 * _ROWS * hsz * 4)
+                       + _ROWS * hsz * 4)
 
 
 def check_smem(what: str, nbytes: int) -> None:
@@ -1051,8 +1308,8 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 def _check_unrolled(t_len: int, hsz: int, block_t: int, reverse: bool,
                     out_dtype: torch.dtype, grad: bool) -> None:
     """Kernel E runs the forward inference scan with bf16 output only, over
-    whole groups of block_t steps, at an H that a cluster holds (on either
-    device, as the kernel it reorganises)."""
+    whole groups of block_t steps, at an H that its cluster or its single
+    block holds (on either device, as the kernel it reorganises)."""
     if block_t not in UNROLL_STEPS:
         raise ValueError(f"block_t must be 1 or one of {UNROLL_STEPS}, got "
                          f"{block_t}")
@@ -1072,7 +1329,8 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     kernel's input), w_hh [H, 4H] -> h sequence [T, B, H] in out_dtype.
     h and c start at zero. CUDA tensors run kernel A, or with block_t = 2
     or 4 kernel E (forward, bf16 output, T a multiple of block_t; the same
-    h bit for bit; H zero-padded to unrolled_hidden's units); when autograd
+    h bit for bit; H zero-padded to unrolled_route's units, the single
+    block above H = 512); when autograd
     records and an input requires grad, the call goes through LSTMScan
     (kernels C and D) instead, on either device."""
     t_len, b, hsz = _check_shapes(gates_x, w_hh, out_dtype)
@@ -1099,15 +1357,23 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
 def _scan_unrolled(gates: torch.Tensor, w_hh: torch.Tensor, block_t: int,
                    plan: Optional[ScanPlan] = None) -> torch.Tensor:
     """Kernel E on bf16 CUDA gates [T, B, 4H] at H padded to
-    unrolled_hidden's units, with `plan` (default: card_unrolled_plan's)."""
+    unrolled_route's units: the cluster with `plan` (default:
+    card_unrolled_plan's), or above H = 512 the single block."""
     t_len, b, g4 = gates.shape
     hsz = g4 // 4
-    hp = unrolled_hidden(hsz, block_t)
+    hp, route = unrolled_route(hsz, block_t)
+    if plan is not None and route:
+        raise ValueError(f"no cluster of kernel E takes H={hsz}")
     out = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=gates.device)
     if t_len and b:
-        _launch("lstm_scan_fwd_unrolled", _pad_gates(gates, 4, hp),
-                _kernel_weight(w_hh, hp), out, t_len, b, hp, block_t,
-                plan=plan)
+        operands = (_pad_gates(gates, 4, hp), _kernel_weight(w_hh, hp), out,
+                    t_len, b, hp, block_t)
+        if route:
+            rows = unrolled_block_rows(hp, block_t)
+            _launch("lstm_scan_fwd_unrolled_block", *operands, rows,
+                    unrolled_block_smem_bytes(hp, rows, block_t))
+        else:
+            _launch("lstm_scan_fwd_unrolled", *operands, plan=plan)
     return _unpad_units(out, hsz)
 
 
@@ -1191,27 +1457,34 @@ def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     [T, B, H] bf16, w_hh [H, 4H] -> dgates [T, B, 4H] bf16. CUDA tensors run
     kernel D with card_bwd_scan_plan's plan (a thread-block cluster, or the
     single-block design: the same dgates bit for bit), or with n_chains = 2
-    or 4 kernel G (a forward that was not reversed; the same dgates bit for
-    bit). Raises when kernel G's block (n_chains x 111 104 B at H=384), or
-    every design of kernel D, exceeds the shared-memory limit."""
+    or 4 kernel G with card_chains_scan_plan's (a forward that was not
+    reversed; its cluster, or its single block where no cluster holds H;
+    the same dgates bit for bit). Both zero-pad H to whole 16-deep k-steps.
+    Raises where no design holds H: kernel D above H = 1024, kernel G above
+    H = 512 (two chains) or where no cluster and no single block holds four
+    chains (ValueError with the bytes)."""
     return _scan_bwd(gates, h_seq, c_seq, gout, w_hh, reverse, n_chains)
 
 
 def lstm_scan_bwd_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
                              c_seq: torch.Tensor, gout: torch.Tensor,
-                             w_hh: torch.Tensor, plan: BwdPlan,
+                             w_hh: torch.Tensor,
+                             plan: Union[BwdPlan, ChainsPlan],
                              reverse: bool = False) -> torch.Tensor:
-    """lstm_scan_bwd_tm on CUDA tensors with a given launch plan of kernel
-    D (a BwdPlan for the operands' H, padded to 16, and any design), for
-    holding the designs against each other and timing plans."""
+    """lstm_scan_bwd_tm on CUDA tensors with a given launch plan: of kernel
+    D (a BwdPlan for the operands' H, padded to 16, and any design) or of
+    kernel G (a ChainsPlan, whose chains it runs), for holding the designs
+    against each other and timing plans."""
     if not _is_cuda(gates, h_seq, c_seq, gout, w_hh):
         raise ValueError("a launch plan is for CUDA tensors")
-    return _scan_bwd(gates, h_seq, c_seq, gout, w_hh, reverse, 1, plan)
+    n_chains = plan.chains if isinstance(plan, ChainsPlan) else 1
+    return _scan_bwd(gates, h_seq, c_seq, gout, w_hh, reverse, n_chains, plan)
 
 
 def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
               gout: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
-              n_chains: int, plan: Optional[BwdPlan] = None) -> torch.Tensor:
+              n_chains: int, plan: Optional[Union[BwdPlan, ChainsPlan]] = None
+              ) -> torch.Tensor:
     t_len, b, hsz = _check_shapes(gates, w_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("c_seq", c_seq), ("gout", gout)):
         if tuple(x.shape) != (t_len, b, hsz):
@@ -1225,13 +1498,9 @@ def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
         return lstm_scan_bwd_reference_tm(
             gates.to(torch.bfloat16), h_seq.to(torch.bfloat16),
             c_seq.to(torch.bfloat16), gout.to(torch.bfloat16), w_hh, reverse)
-    if n_chains == 1:
-        hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
-    else:
-        _check_kernel_sizes(hsz)
-        hp = hsz
-        check_smem(f"lstm_scan_bwd_chains with {n_chains} chains at H={hp}",
-                   bwd_smem_bytes(hp, n_chains))
+    hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
+    if n_chains != 1 and t_len and b:
+        plan = plan or card_chains_scan_plan(gates.device, hp, b, n_chains)
     for name, x in (("gates", gates), ("h_seq", h_seq), ("c_seq", c_seq),
                     ("gout", gout)):
         _check_kernel_operand(name, x, torch.bfloat16)
@@ -1242,20 +1511,23 @@ def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
         # fragment order for the clusters'), [H, 4H] (the 4H axis
         # contiguous) for dgates @ W_hh^T
         wt = _kernel_weight(w_hh, hp)
-        weights = (wt, _kernel_operand(_padded_weight(w_hh, hp),
-                                       torch.bfloat16))
+        w = _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16)
         streams = (_pad_gates(gates, 4, hp), _pad_units(h_seq, hp),
                    _pad_units(c_seq, hp), _pad_units(gout, hp))
-        if n_chains != 1:
-            _launch("lstm_scan_bwd_chains", *streams, *weights, dgates, t_len,
-                    b, hp, n_chains)
-        else:
-            operands = (*streams, *weights, _fragment_weight(wt), dgates,
-                        t_len, b, hp, reverse)
+        shape = (t_len, b, hp)
+        if n_chains == 1:
+            operands = (*streams, wt, w, _fragment_weight(wt), dgates, *shape,
+                        reverse)
             if plan is None:
                 _launch("lstm_scan_bwd", *operands)
             else:
                 _launch("lstm_scan_bwd", *operands, plan=plan)
+        elif plan.design == "block":
+            _launch("lstm_scan_bwd_chains_block", *streams, wt, w, dgates,
+                    *shape, n_chains, *plan.launch_args)
+        else:
+            _launch("lstm_scan_bwd_chains", *streams, w, _fragment_weight(wt),
+                    dgates, *shape, n_chains, plan=plan)
     return _unpad_gates(dgates, 4, hsz)
 
 

@@ -6,8 +6,11 @@ whose x-side gates arrive K steps at a time: one thread of each CTA copies
 the group's gate tiles of its columns by TMA into a ring of two groups, and
 every thread waits for them once a group, so those loads leave the serial
 chain. The products and the cell are kernel A's, so the output is
-bit-identical. The wrapper pads H to the cluster's units; above H=512 no
-cluster holds the ring and the call is refused.
+bit-identical. The wrapper pads H to the cluster's units; above H=512, where
+no cluster holds the ring, it takes kernel E's single block
+(csrc/lstm_scan_unrolled_block.cu `lstm_scan_fwd_unrolled_block`: 16, 8
+or 4 rows a block, the gates staged K steps ahead by cp.async), which is
+bit-identical to lstm_scan_fwd_block.
 
     # kernel A against K = 2 and 4 on the card (T=628, 2304 rows, H=384)
     python -m generative_audio_torch.scripts.perf_lstm_unroll

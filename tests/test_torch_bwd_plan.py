@@ -98,7 +98,9 @@ def test_block_smem_is_the_source_layout(hsz):
     env = dict(H=hsz, ROWS=16, PAD=8)
     assert tl.bwd_smem_bytes(hsz) == eval(lstm, {}, env)
     assert tg.bwd_block_smem_bytes(hsz) == eval(gru, {}, env)
-    assert tl.bwd_smem_bytes(384) == 111104        # the parent's kernel D
+    # kernel D's single block with dc in registers: 111 104 B at H=384
+    # before, with dc in shared memory too
+    assert tl.bwd_smem_bytes(384) == 86528
 
 
 # (H, rows) -> (C, R, resident, clusters) at the four model shapes
@@ -161,11 +163,16 @@ def test_single_block_where_no_cluster_fits(kind, hsz):
 
 
 def test_lstm_block_limit_is_the_parent_s():
-    """Kernel D's single block needs 295 424 B at H=1024, as before this
-    design: no new refusal, and the same one."""
-    assert tl.bwd_smem_bytes(1024) == 295424 > tl.SMEM_LIMIT
+    """Kernel D's single block needed 295 424 B at H=1024 while it kept dc
+    in shared memory; with dc in registers it needs 229 888 B and runs, so
+    the backward trains H up to 1024 on the card. Above that (H=1040) its
+    shared memory refuses, as the parent's did above 784."""
+    assert tl.bwd_smem_bytes(1024) == 229888 <= tl.SMEM_LIMIT
+    plan = tl.plan_bwd_scan(1024, 40, h100_clusters)
+    assert plan.design == "block" and plan.smem_bytes == 229888
+    assert tl.bwd_smem_bytes(1040) == 233472 > tl.SMEM_LIMIT
     with pytest.raises(ValueError, match="no plan for the LSTM backward"):
-        tl.plan_bwd_scan(1024, 40, h100_clusters)
+        tl.plan_bwd_scan(1040, 40, h100_clusters)
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))

@@ -141,8 +141,9 @@ def test_forward_launches_carry_the_plan(monkeypatch):
     """Kernels A-C's C functions end in the plan: `_launch` appends
     card_scan_plan's (cluster, rows, shared bytes) for (H, B) of the call
     with the instance's flags; kernel D's end in card_bwd_scan_plan's
-    (cluster, rows, resident, shared bytes); other entries pass as they
-    are."""
+    (cluster, rows, resident, shared bytes) and kernel G's cluster's in
+    card_chains_scan_plan's (cluster, rows, resident, arrangement, shared
+    bytes); other entries pass as they are."""
     calls, plans = [], []
     monkeypatch.setattr(tl, "_launch_kernel",
                         lambda name, *args: calls.append((name, args)))
@@ -156,8 +157,14 @@ def test_forward_launches_carry_the_plan(monkeypatch):
         return tl.plan_bwd_scan(hsz, batch, lambda c, r, res:
                                 h100_clusters(c, r))
 
+    def fake_chains_plan(device, hsz, batch, n_chains):
+        plans.append((hsz, batch, n_chains))
+        return tl.plan_chains_scan(hsz, batch, n_chains, lambda c, r, res, a:
+                                   h100_clusters(c, r))
+
     monkeypatch.setattr(tl, "card_scan_plan", fake_plan)
     monkeypatch.setattr(tl, "card_bwd_scan_plan", fake_bwd_plan)
+    monkeypatch.setattr(tl, "card_chains_scan_plan", fake_chains_plan)
     x = torch.zeros(2, 16)
     tl._launch("lstm_scan_fwd", x, x, x, 1, 628, 2056, 384, 1)
     tl._launch("lstm_scan_fwd_carry", x, x, x, x, x, x, x, 0, 64, 18, 512, 0)
@@ -178,12 +185,20 @@ def test_forward_launches_carry_the_plan(monkeypatch):
                         (x, x, x, x, x, x, x, x, 195, 2304, 384, 0,
                          *bwd.launch_args))
     tl._launch("lstm_scan_bwd_chains", x, x, x, x, x, x, x, 194, 2560, 384, 2)
+    chains = tl.plan_chains_scan(384, 2560, 2, lambda c, r, res, a:
+                                 h100_clusters(c, r))
     assert calls[4] == ("lstm_scan_bwd_chains",
-                        (x, x, x, x, x, x, x, 194, 2560, 384, 2))
+                        (x, x, x, x, x, x, x, 194, 2560, 384, 2,
+                         *chains.launch_args))
+    assert len(chains.launch_args) == 5
+    tl._launch("lstm_scan_bwd_chains_block", x, x, x, x, x, x, x, 6, 37, 32,
+               4, 30720)
+    assert calls[5] == ("lstm_scan_bwd_chains_block",
+                        (x, x, x, x, x, x, x, 6, 37, 32, 4, 30720))
     assert plans == [(384, 2056, torch.float32, False, False),
                      (512, 18, torch.bfloat16, True, False),
                      (384, 2304, torch.bfloat16, False, True),
-                     (384, 2304)]
+                     (384, 2304), (384, 2560, 2)]
 
 
 def test_card_plan_asks_for_the_instance(monkeypatch):
@@ -235,4 +250,5 @@ def test_sources_match_their_declared_signatures():
                      text, re.S).group(1)
     assert "(4 * U + 2 * r) * hs * 2 + r * U * 4 + 2 * r * 4 * U * 2" in body
     assert set(_cuda._QUERIES) == {"lstm_scan", "gru_scan", "lstm_scan_bwd",
-                                   "gru_scan_bwd", "lstm_scan_staged"}
+                                   "gru_scan_bwd", "lstm_scan_staged",
+                                   "lstm_scan_bwd_chains"}

@@ -1,9 +1,11 @@
 """The two LSTM scan variants that the JAX package keeps as scripts, ported
 as generative_audio_torch.scripts: the chains backward (perf_lstm_chains,
-kernel G, csrc/lstm_scan_bwd.cu `lstm_scan_bwd_chains`) and the K-step
-unrolled forward (perf_lstm_unroll, kernel E, csrc/lstm_scan_staged.cu
-`lstm_scan_fwd_unrolled`), on the CPU against the scripts' own Pallas
-kernels in interpret mode.
+kernel G, csrc/lstm_scan_bwd_chains.cu `lstm_scan_bwd_chains`, and its
+single block csrc/lstm_scan_bwd.cu `lstm_scan_bwd_chains_block`) and the
+K-step unrolled forward (perf_lstm_unroll, kernel E,
+csrc/lstm_scan_staged.cu `lstm_scan_fwd_unrolled`, and its single block
+csrc/lstm_scan_unrolled_block.cu `lstm_scan_fwd_unrolled_block`), on the
+CPU against the scripts' own Pallas kernels in interpret mode.
 
 The scripts are loaded from scripts/ by file path (scripts/ is no package;
 perf_lstm_unroll.py imports its neighbour _perf_common), and sys.path and
@@ -34,8 +36,8 @@ import torch
 from generative_audio_torch.ops import lstm as tl
 from generative_audio_torch.scripts import perf_lstm_chains as tc
 from generative_audio_torch.scripts import perf_lstm_unroll as tu
-from test_torch_lstm_backward import (FORWARD_UNITS, fill, real_units,
-                                      real_weight, strip)
+from test_torch_lstm_backward import (BACKWARD_UNITS, FORWARD_UNITS, fill,
+                                      real_units, real_weight, strip)
 from test_torch_lstm_backward import fake_launch as scan_fake_launch
 
 torch.set_num_threads(2)
@@ -69,20 +71,22 @@ def _bf16(x):
     return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
 
 
-def test_chains_bwd_matches_script_interpret():
-    """The port's chains_bwd (plain, 2 chains) against the script's
-    chains_bwd with 2 chains in interpret mode, on the script's own inputs
-    (block_b = 8, so a 16-row padded batch; the port takes the first 13
-    rows: a ragged count)."""
+@pytest.mark.parametrize("t_len,b,hsz,n_chains", [
+    (6, 13, 16, 2), (5, 11, 20, 2), (4, 9, 20, 4)])
+def test_chains_bwd_matches_script_interpret(t_len, b, hsz, n_chains):
+    """The port's chains_bwd (plain) against the script's chains_bwd in
+    interpret mode, on the script's own inputs (block_b = 8, a padded batch;
+    the port takes the first b rows: a ragged count), at H=16 and at H=20,
+    which the card's route pads to 32."""
     script = _load_script("perf_lstm_chains")
-    t_len, b, hsz, block_b = 6, 13, 16, 8
+    block_b = 8
     gx, h, c, gout, whh = script.make_inputs(t_len, b, hsz, block_b,
                                              np.random.default_rng(0))
     want = np.asarray(script.chains_bwd(gx, h, c, gout, whh, block_b=block_b,
-                                        n_chains=2, interpret=True),
+                                        n_chains=n_chains, interpret=True),
                       np.float32)[:, :b]
     got = tc.chains_bwd(*(_bf16(a)[:, :b] for a in (gx, h, c, gout)),
-                        torch.from_numpy(np.array(whh)), n_chains=2)
+                        torch.from_numpy(np.array(whh)), n_chains=n_chains)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.float().numpy(), want, **BF16)
 
@@ -117,14 +121,15 @@ def _unrolled_interpret(script, gates, w_hh, block_b, block_t):
     )(gates, w_hh.astype(jnp.bfloat16))
 
 
-@pytest.mark.parametrize("block_t", [2, 4])
-def test_lstm_unrolled_matches_script_interpret(block_t):
+@pytest.mark.parametrize("t_len,b,hsz,block_t", [
+    (8, 16, 16, 2), (8, 16, 16, 4), (4, 8, 640, 2), (4, 8, 640, 4)])
+def test_lstm_unrolled_matches_script_interpret(t_len, b, hsz, block_t):
     """The port's lstm_unrolled (plain) against the script's unrolled
-    kernel in interpret mode: T = 8, 16 rows in blocks of 8, H = 16."""
+    kernel in interpret mode, in blocks of 8 rows: at H = 16, and at H = 640,
+    where the card takes kernel E's single block."""
     script = _load_script("perf_lstm_unroll")
-    t_len, b, hsz = 8, 16, 16
     gates = jnp.asarray(_rand((t_len, b, 4 * hsz), 1, 0.5), jnp.bfloat16)
-    w_hh = _rand((hsz, 4 * hsz), 2, 0.2)
+    w_hh = _rand((hsz, 4 * hsz), 2, 0.2 * (16 / hsz) ** 0.5)
     want = np.asarray(_unrolled_interpret(script, gates, jnp.asarray(w_hh), 8,
                                           block_t), np.float32)
     got = tu.lstm_unrolled(_bf16(gates), torch.from_numpy(w_hh), block_t)
@@ -132,53 +137,97 @@ def test_lstm_unrolled_matches_script_interpret(block_t):
     np.testing.assert_allclose(got.float().numpy(), want, **BF16)
 
 
+ASKED = []     # (H, rows, n_chains) of every kernel G plan asked for
+
+
+def h100_clusters(cluster, rows, resident=False, arrangement=0):
+    """cudaOccupancyMaxActiveClusters of an H100 SXM for one CTA an SM."""
+    return 15 if cluster == 8 else 7
+
+
 def fake_launch(fn_name, *args, plan=None):
     """Stands in for ops.lstm._launch where there is no card: kernels E and
     G compute what kernels A and D do, so each runs that plain version into
     the output buffer it was given, after checking the arguments the
-    wrapper built (for kernel E, H zero-padded to the cluster's 64 units:
-    the multiple and the zero units of its operands); the other kernels as
-    tests/test_torch_lstm_backward.py fakes them."""
+    wrapper built (H zero-padded: for kernel E's cluster to its 64 units,
+    for its single block and for kernel G to 16; the multiple and the zero
+    units of the operands; the plan or the single block's rows and shared
+    bytes); the other kernels as tests/test_torch_lstm_backward.py fakes
+    them."""
     if fn_name == "lstm_scan_fwd_unrolled":
         gates, wt, out, t_len, b, hp, k = args
+        h = real_units(wt, 4, FORWARD_UNITS)
+    elif fn_name == "lstm_scan_fwd_unrolled_block":
+        gates, wt, out, t_len, b, hp, k, rows, smem = args
+        h = real_units(wt, 4, BACKWARD_UNITS)
+        assert rows == tl.unrolled_block_rows(hp, k)
+        assert smem == tl.unrolled_block_smem_bytes(hp, rows, k)
+        assert tl.unrolled_route(h, k) == (hp, "_block")
+    elif fn_name in ("lstm_scan_bwd_chains", "lstm_scan_bwd_chains_block"):
+        if fn_name == "lstm_scan_bwd_chains":
+            gates, h_seq, c_seq, gout, w, wf, dgates, _, b, hp, n_chains = args
+            wt = w.t().contiguous()
+            assert torch.equal(wf, tl._fragment_weight(wt))
+            assert plan.design == "cluster" and plan.chains == n_chains
+            assert plan.smem_bytes == tl.chains_cluster_smem_bytes(
+                hp, plan.cluster, plan.rows, plan.resident)
+            assert tl.chain_warps(plan.rows // 16, hp // plan.cluster // 8,
+                                  n_chains, plan.arrangement)[1] == n_chains
+        else:
+            (gates, h_seq, c_seq, gout, wt, w, dgates, _, b, hp, n_chains,
+             smem) = args
+            assert torch.equal(wt.t(), w) and plan is None
+            assert smem == tl.bwd_smem_bytes(hp, n_chains) <= tl.SMEM_LIMIT
+        assert n_chains in (2, 4)
+        h = real_units(wt, 4, BACKWARD_UNITS)
+        # the weight contiguous, as the plain version's caller hands it: the
+        # CPU's matmul may sum in another order for a strided operand
+        fill(dgates, tl.lstm_scan_bwd_reference_tm(
+            strip(gates, h, 4), strip(h_seq, h), strip(c_seq, h),
+            strip(gout, h), real_weight(wt, h, 4).contiguous()), 4)
+    else:
+        return scan_fake_launch(fn_name, *args, plan=plan)
+    if fn_name.startswith("lstm_scan_fwd_unrolled"):
         assert k in (2, 4) and t_len % k == 0 and out.dtype == torch.bfloat16
         assert tuple(out.shape) == (t_len, b, hp)
         assert tuple(gates.shape) == (t_len, b, 4 * hp)
-        h = real_units(wt, 4, FORWARD_UNITS)
-        fill(out, tl.lstm_scan_reference_tm(strip(gates, h, 4),
-                                            real_weight(wt, h, 4)))
-    elif fn_name == "lstm_scan_bwd_chains":
-        gates, h_seq, c_seq, gout, wt, w, dgates, _, _, _, n_chains = args
-        assert torch.equal(wt.t(), w) and n_chains in (2, 4)
-        dgates.copy_(tl.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout,
-                                                   w))
-    else:
-        return scan_fake_launch(fn_name, *args, plan=plan)
+        fill(out, tl.lstm_scan_reference_tm(
+            strip(gates, h, 4), real_weight(wt, h, 4).contiguous()))
     tl.launch_counts[fn_name] += 1
 
 
 @pytest.fixture
 def launches(monkeypatch):
-    """The CUDA branch of the wrappers on CPU tensors, with fake_launch."""
+    """The CUDA branch of the wrappers on CPU tensors, with fake_launch and
+    kernel G's plans from an H100's occupancy."""
+    ASKED.clear()
+
+    def card_chains_plan(device, hsz, batch, n_chains):
+        ASKED.append((hsz, batch, n_chains))
+        return tl.plan_chains_scan(hsz, batch, n_chains, h100_clusters)
+
     monkeypatch.setattr(tl, "_is_cuda", lambda *tensors: True)
     monkeypatch.setattr(tl, "_launch", fake_launch)
+    monkeypatch.setattr(tl, "card_chains_scan_plan", card_chains_plan)
     monkeypatch.setattr(tl, "launch_counts", dict.fromkeys(tl.launch_counts, 0))
     return tl.launch_counts
 
 
 def test_kernel_route_of_both_wrappers(launches):
     """On the kernels' branch each wrapper launches its own kernel once, and
-    its result equals the CPU branch's and the kernel it reorganises."""
+    its result equals the CPU branch's and the kernel it reorganises (at
+    H=16 no cluster takes kernel G: its single block runs)."""
     inputs = tc.make_inputs(6, 37, 16, "cpu", seed=3)
     got = tc.chains_bwd(*inputs, n_chains=2)
-    assert launches["lstm_scan_bwd_chains"] == 1
+    assert launches["lstm_scan_bwd_chains_block"] == 1
+    assert ASKED == [(16, 37, 2)]
     assert torch.equal(got, tl.lstm_scan_bwd_tm(*inputs))
     gates, w_hh = inputs[0], inputs[4]
     for k in (2, 4):
         out = tu.lstm_unrolled(gates[:4], w_hh, block_t=k)
         assert torch.equal(out, tl.lstm_scan_tm(gates[:4], w_hh))
     assert launches == {**dict.fromkeys(launches, 0),
-                        "lstm_scan_bwd_chains": 1, "lstm_scan_bwd": 1,
+                        "lstm_scan_bwd_chains_block": 1, "lstm_scan_bwd": 1,
                         "lstm_scan_fwd_unrolled": 2, "lstm_scan_fwd": 2}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tl, "_is_cuda", lambda *tensors: False)
@@ -204,40 +253,62 @@ def test_lstm_unrolled_pads_the_hidden_size(launches, hsz):
         assert torch.equal(tu.lstm_unrolled(gates, w_hh), got)
 
 
-def test_refusals(launches):
-    """T % K, K other than 2 and 4, a chain count other than 2 and 4, and a
-    block over the 227 KB shared-memory limit raise before any launch."""
-    inputs = tc.make_inputs(6, 5, 16, "cpu", seed=4)
-    gates, w_hh = inputs[0], inputs[4]
+@pytest.mark.parametrize("hsz,n_chains,design", [
+    (384, 4, "cluster"), (512, 2, "cluster"), (20, 2, "block")])
+def test_refusals(launches, hsz, n_chains, design):
+    """The shapes the chains backward refused before (H % 16, and the
+    shared memory of its single block: four chains at H=384 took 444 416 B,
+    two at H=512 295 936 B) now run through the card's branch: each hands
+    its entry a plan (kernel G's cluster at H=384 and 512, its single block
+    at H=20, padded to 32) and gives kernel D's plain dgates. What stays
+    refused raises before any launch: T % K, K other than 2 and 4, a chain
+    count other than 2 and 4, kernel G's reverse, and kernel E's reverse,
+    fp32 output and grad."""
+    inputs = tc.make_inputs(3, 18, hsz, "cpu", seed=4)
+    got = tc.chains_bwd(*inputs, n_chains=n_chains)
+    hp = -(-hsz // 16) * 16
+    assert ASKED == [(hp, 18, n_chains)]
+    plan = tl.plan_chains_scan(hp, 18, n_chains, h100_clusters)
+    assert plan.design == design and plan.chains == n_chains
+    entry = ("lstm_scan_bwd_chains" if design == "cluster"
+             else "lstm_scan_bwd_chains_block")
+    assert launches == {**dict.fromkeys(launches, 0), entry: 1}
+    assert torch.equal(got, tc.chains_bwd_reference(*inputs))
+    assert tuple(got.shape) == (3, 18, 4 * hsz)
+
+    small = tc.make_inputs(6, 5, 16, "cpu", seed=5)
+    gates, w_hh = small[0], small[4]
     with pytest.raises(ValueError, match="multiple"):
         tu.lstm_unrolled(gates[:5], w_hh, block_t=2)
     with pytest.raises(ValueError, match="block_t"):
         tu.lstm_unrolled(gates, w_hh, block_t=3)
     with pytest.raises(ValueError, match="n_chains"):
-        tc.chains_bwd(*inputs, n_chains=3)
-    # H = 384: four chains take 444 416 B; H = 640: no cluster holds kernel
-    # E's layout (a CTA of 16 at 16 rows and K=4 needs 292 496 B; at H = 512
-    # it needs 201 360 B and launches)
-    big = tc.make_inputs(2, 2, 384, "cpu", seed=5)
-    with pytest.raises(ValueError, match="444416 B"):
-        tc.chains_bwd(*big, n_chains=4)
-    gates_640 = torch.zeros(4, 2, 4 * 640, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="C=16: 292496 B at H=640"):
-        tu.lstm_unrolled(gates_640, torch.zeros(640, 4 * 640), block_t=4)
-    assert tl.unrolled_smem_bytes(512, 16, 16, 4) == 201360 <= tl.SMEM_LIMIT
-    # kernel G has no reverse; kernel E is the forward inference scan only
+        tc.chains_bwd(*small, n_chains=3)
     with pytest.raises(ValueError, match="n_chains"):
-        tl.lstm_scan_bwd_tm(*inputs, reverse=True, n_chains=2)
+        tl.lstm_scan_bwd_tm(*small, reverse=True, n_chains=2)
     with pytest.raises(ValueError, match="block_t"):
         tl.lstm_scan_tm(gates[:4], w_hh, reverse=True, block_t=2)
     with pytest.raises(ValueError, match="block_t"):
         tl.lstm_scan_tm(gates[:4], w_hh, out_dtype=torch.float32, block_t=2)
     with pytest.raises(ValueError, match="block_t"):
         tl.lstm_scan_tm(gates[:4], w_hh.clone().requires_grad_(), block_t=2)
-    # H = 512 (the full-band LSTM): two chains take 295 936 B
-    fb = tc.make_inputs(2, 2, 512, "cpu", seed=6)
-    with pytest.raises(ValueError, match="295936 B"):
-        tc.chains_bwd(*fb, n_chains=2)
-    assert not any(launches.values())
-    # and two chains at H = 384 fit (222 208 B): the script's default
-    assert tl.bwd_smem_bytes(384, 2) == 222208 <= tl.SMEM_LIMIT
+    assert launches == {**dict.fromkeys(launches, 0), entry: 1}
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_lstm_unrolled_above_what_a_cluster_holds(launches, k):
+    """Kernel E at H=640, which no cluster holds: on the CPU it equals
+    kernel A's plain version; on the card's branch it launches its single
+    block (rows and shared bytes checked by the fake) and gives the same
+    h as lstm_scan_tm, which takes lstm_scan_fwd_block."""
+    hsz = 640
+    gates = _bf16(_rand((4, 9, 4 * hsz), 10, 0.5))
+    w_hh = torch.from_numpy(_rand((hsz, 4 * hsz), 11, 0.02))
+    got = tu.lstm_unrolled(gates, w_hh, block_t=k)
+    assert launches == {**dict.fromkeys(launches, 0),
+                        "lstm_scan_fwd_unrolled_block": 1}
+    assert torch.equal(got, tl.lstm_scan_reference_tm(gates, w_hh).to(
+        torch.bfloat16))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tl, "_is_cuda", lambda *tensors: False)
+        assert torch.equal(tu.lstm_unrolled(gates, w_hh, block_t=k), got)

@@ -214,14 +214,19 @@ def test_unrolled_hidden(hsz, k, padded):
 
 
 def test_unrolled_refuses_what_no_cluster_holds():
-    """Kernel E has no single-block route: above H=512 it refuses, on either
-    device, with the bytes each cluster size would need."""
-    with pytest.raises(ValueError, match=r"C=8: 543376 B at H=640, C=16: "
-                                         r"292496 B at H=640"):
-        tl.unrolled_hidden(640, 4)
-    gates = torch.zeros(4, 2, 4 * 576, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="too large for the cluster scan"):
-        tl.lstm_scan_tm(gates, torch.zeros(576, 4 * 576), block_t=2)
+    """Where no cluster holds kernel E (above H=512: a CTA of 16 at 16 rows
+    and K=4 needs 292 496 B at H=640) it takes its single block at H padded
+    to 16, with as many rows a block as fit; it refuses, on either device,
+    only where not even a block of 4 rows holds K steps of gates (H=1120,
+    K=4: 233 472 B)."""
+    assert tl.unrolled_smem_bytes(640, 16, 16, 4) == 292496 > tl.SMEM_LIMIT
+    assert tl.unrolled_route(640, 4) == (640, "_block")
+    assert tl.unrolled_route(576, 2) == (576, "_block")
+    with pytest.raises(ValueError, match=r"H=1120, K=4 needs 233472 B"):
+        tl.unrolled_hidden(1120, 4)
+    gates = torch.zeros(4, 2, 4 * 1120, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="233472 B"):
+        tl.lstm_scan_tm(gates, torch.zeros(1120, 4 * 1120), block_t=4)
 
 
 @pytest.mark.parametrize("hsz,f,route", [
