@@ -96,9 +96,27 @@ of which fails the run (non-zero exit, no result line):
      rounds, the layer's beside its single block's), with the plans and
      registers of the staged kernels and of kernel G, and kernel D's
      cluster registers against their recorded counts.
+ 13. the rest of serving at FullSubNet+'s full width, bf16, phase 4's
+     weights: overlapped_chunk (spectral, 4 s chunks: 64 256 samples, 252
+     frames, 257 rows) on a 10 s clip against the float32 model on the CPU;
+     StreamingEnhancer at K = 1 and 8 streams, async_depth 0 and 2, fed
+     pieces of seeded sizes, bit for bit against overlapped_chunk run with
+     as many rows, and each of the 8 rows against its single stream; the
+     sub-band mode (SequenceModel(31, 2, 384), 257 rows) and the modes mag,
+     scaled_mask, complex_full_band_crm_mask and time_domain around a
+     full-band LSTM (H=512), card against CPU; the batched enhance_dir over
+     mixed buckets (8 x 10 s, 5 x 7.5 s) against the serial path (and
+     where a batch and its first clip part: the full-band towers, while the
+     sub-band model's rows stay bit for bit), and one real halving of a
+     batch of 30 s clips under a lowered memory limit; the
+     inference CLI in process (JSON config, a .pth, three wavs) on the card
+     and on the CPU; each with its exact launches; then the streaming
+     readings (the chunk's time on the card, feed-to-finalized latency p50,
+     aggregate x realtime) at K = 1, 8 and 16, 4 s and 1 s chunks.
 The launch counts are set to 0 just before each model's serving phases and
-read just after, again around each model's five training steps, and around
-each variant's own path in phase 12. The second-to-last line of stdout is
+read just after, again around each model's five training steps, around
+each variant's own path in phase 12 and around phase 13 (whose launches
+add to kernel A's). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device.
 """
@@ -2223,11 +2241,13 @@ def phase_serving(dev, path, model, counts):
             sr, got = read_wav(Path(out_dir) / f"{name}.wav")
             check(sr == 16000 and got.shape == noisy.shape
                   and np.isfinite(got).all(), f"enhance_dir output {name}")
-    check(counts[path.fwd] - before == path.per_forward,
-          f"{path.fwd} launched {path.per_forward} times for the batched "
-          f"forward")
+    # the bucket is warmed once at its batch outside the timed window
+    check(counts[path.fwd] - before == 2 * path.per_forward,
+          f"{path.fwd} launched {path.per_forward} times for each of the "
+          f"batched forwards (warm-up and request)")
     log(f"serve {path.name} enhance_dir 8 x 10 s, batch 8: rtf "
         f"{inf.last_rtf:.5f}, {wall:.2f} ms on {card}")
+    return inf.last_rtf
 
 
 def phase_long_clip(dev, path, model, counts):
@@ -2412,13 +2432,13 @@ def drive(dev, path, kernels_of_path):
     """One model's main path: the serving entry point (single requests, a
     batch, a long clip), then the training entry point, each with the launch
     counts set to 0 just before and read just after. Returns the launches of
-    the path's kernels, serving plus training."""
+    the path's kernels, serving plus training, and the batched RTF."""
     from generative_audio_torch.ops import lstm as L
     model = path.model(torch.bfloat16, dev)
     phase_reference(dev, path, model)
 
     L.reset_launch_counts()
-    phase_serving(dev, path, model, L.launch_counts)
+    batched_rtf = phase_serving(dev, path, model, L.launch_counts)
     phase_long_clip(dev, path, model, L.launch_counts)
     serving = dict(L.launch_counts)
     log(f"launches on the serving path of {path.name}: {serving}")
@@ -2439,7 +2459,364 @@ def drive(dev, path, kernels_of_path):
                   f"{name} is not on {path.name}'s path (got {launched[name]})")
     phase_training_reference(dev, path)
     phase_profile(dev, path, model, trainer)
-    return {k: launched[k] for k in kernels_of_path}
+    return {k: launched[k] for k in kernels_of_path}, batched_rtf
+
+
+# Phase 13: the rest of serving at FullSubNet+'s full width.
+CHUNK_SECONDS = 4            # overlapped_chunk: 64 256 samples in, 252 frames
+STREAM_SECONDS = 10          # the clip the chunked and streamed paths serve
+STREAM_KS = (1, 8, 16)       # streams of the latency and throughput readings
+FEED_SAMPLES = 1600          # 100 ms feeds of those readings
+MODE_SECONDS = 3             # the four modes' and the sub-band mode's clip
+OOM_BATCH, OOM_SECONDS = 8, 30
+
+
+def _count(counts, fn, expected, what):
+    """fn(), checked to launch exactly `expected` ({entry: launches})."""
+    before = dict(counts)
+    out = fn()
+    launched = {k: counts[k] - before[k] for k in counts
+                if counts[k] != before[k]}
+    check(launched == expected,
+          f"{what} launched {expected} and nothing else (got {launched})")
+    return out
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _noise(seed, *shape):
+    return (np.random.default_rng(seed).standard_normal(shape) * 0.1
+            ).astype(np.float32)
+
+
+def _streamed(stream, noisy, seed, low=1, high=24000):
+    """Feed `noisy` ([L] or [K, L]) in pieces of seeded random sizes and
+    flush: the concatenated output."""
+    rng = np.random.default_rng(seed)
+    pieces, pos = [], 0
+    while pos < noisy.shape[-1]:
+        n = int(rng.integers(low, high))
+        pieces.append(stream.feed(noisy[..., pos:pos + n]))
+        pos += n
+    pieces.append(stream.flush())
+    return np.concatenate(pieces, axis=-1)
+
+
+class _Reshaped(torch.nn.Module):
+    """A full-band SequenceModel (LSTM, FB_HIDDEN) behind the reshapes of
+    one inference mode's convention."""
+
+    def __init__(self, mode, dtype, device):
+        from generative_audio_torch.nn.recurrent import SequenceModel
+        super().__init__()
+        f = 257
+        n_in, n_out, act = {"mag": (f, f, "ReLU"),
+                            "scaled_mask": (f, 2 * f, "Tanh"),
+                            "complex_full_band_crm_mask": (2 * f, 2 * f, "Tanh"),
+                            "time_domain": (250, 250, "Tanh")}[mode]
+        self.mode = mode
+        self.seq = SequenceModel(n_in, n_out, FB_HIDDEN, sequence_model="LSTM",
+                                 output_activate_function=act,
+                                 compute_dtype=dtype, device=device)
+
+    def forward(self, x):
+        b = x.shape[0]
+        if self.mode == "time_domain":    # frames of 250 (a bucket divides)
+            y = self.seq(x.reshape(b, -1, 250).transpose(1, 2))
+            return y.transpose(1, 2).reshape(b, -1)
+        y = self.seq(x.reshape(b, -1, x.shape[-1]))
+        return y.reshape(b, 1 if self.mode == "mag" else 2, 257, -1)
+
+
+def _card_and_cpu(make, seed):
+    """The same weights (torch's initialisers drawn from `seed`) in a bf16
+    model, for the card, and a float32 one, for the CPU."""
+    torch.manual_seed(seed)
+    ref = make(torch.float32, "cpu")
+    model = make(torch.bfloat16, "cpu")
+    model.load_state_dict(ref.state_dict())
+    return model, ref
+
+
+def _serve_modes(dev, counts, card):
+    """The sub-band mode (FullSubNet's sub-band width: SequenceModel(31, 2,
+    HIDDEN), 257 rows) and the four modes around a full-band LSTM, one 3 s
+    clip each, card against CPU."""
+    from generative_audio_torch.eval import Inferencer, InferencerConfig
+    from generative_audio_torch.nn.recurrent import SequenceModel
+    noisy = _noise(SEED + 20, MODE_SECONDS * 16000)
+    models = {"sub_band_crm_mask": lambda dtype, device: SequenceModel(
+        31, 2, HIDDEN, num_layers=2, sequence_model="LSTM",
+        output_activate_function=None, compute_dtype=dtype, device=device)}
+    for mode in ("mag", "scaled_mask", "complex_full_band_crm_mask",
+                 "time_domain"):
+        models[mode] = lambda dtype, device, mode=mode: _Reshaped(
+            mode, dtype, device)
+    for i, (mode, make) in enumerate(models.items()):
+        model, ref = _card_and_cpu(make, SEED + 21 + i)
+        cfg = InferencerConfig(inference_type=mode)
+        inf = Inferencer(model, cfg, device=dev)
+        got = _count(counts, lambda: inf.enhance(noisy), {"lstm_scan_fwd": 2},
+                     f"mode {mode}")
+        want = Inferencer(ref, cfg, device="cpu").enhance(noisy)
+        rel = _rel(got, want)
+        log(f"mode {mode}: {MODE_SECONDS} s clip, rtf {inf.last_rtf:.5f}; card "
+            f"(bf16) vs CPU (float32) max|err|/peak {rel:.3e} on {card}")
+        check(got.shape == noisy.shape and np.isfinite(got).all()
+              and rel < PATH_REL, f"mode {mode}: card vs CPU within {PATH_REL}")
+
+
+def _chunks_and_streams(dev, model, ref, counts, card):
+    """overlapped_chunk (4 s chunks) against the float32 model on the CPU;
+    StreamingEnhancer at K = 1 and 8, async_depth 0 and 2, against it bit
+    for bit; each of the 8 rows against its single stream."""
+    from generative_audio_torch.eval import (
+        Inferencer, InferencerConfig, StreamingEnhancer)
+    cfg = InferencerConfig(inference_type="overlapped_chunk",
+                           chunk_model="spectral",
+                           chunk_length_seconds=CHUNK_SECONDS)
+    inf = Inferencer(model, cfg, device=dev)
+    chunk = cfg.sr * CHUNK_SECONDS
+    n_chunks = int(STREAM_SECONDS * cfg.sr / (chunk // 2)) + 1
+    per_run = {"lstm_scan_fwd": 2 * n_chunks}
+    noisy = _noise(SEED + 30, 8, STREAM_SECONDS * cfg.sr)
+    got = _count(counts, lambda: inf.enhance(noisy[0]), per_run,
+                 "overlapped_chunk")
+    want = Inferencer(ref, cfg, device="cpu").enhance(noisy[0])
+    rel = _rel(got, want)
+    log(f"overlapped_chunk: {STREAM_SECONDS} s clip, {n_chunks} chunks of "
+        f"{chunk + 256} samples ({(chunk + 256) // 256 + 1} frames), rtf "
+        f"{inf.last_rtf:.5f}; card (bf16) vs CPU (float32) max|err|/peak "
+        f"{rel:.3e} on {card}")
+    check(got.shape == (STREAM_SECONDS * cfg.sr,) and np.isfinite(got).all()
+          and rel < PATH_REL, f"overlapped_chunk vs the CPU within {PATH_REL}")
+    offline = {1: got}
+    offline[8] = _count(counts, lambda: inf.overlapped_chunk(noisy), per_run,
+                        "overlapped_chunk, 8 rows")
+    for k in (1, 8):
+        rows = noisy[0] if k == 1 else noisy
+        for depth in (0, 2):
+            stream = StreamingEnhancer(inf, n_streams=k, async_depth=depth)
+            out = _count(counts,
+                         lambda: _streamed(stream, rows, SEED + k + depth),
+                         per_run, f"stream K={k} depth {depth}")
+            check(np.array_equal(out, offline[k]),
+                  f"K={k} streams, async_depth {depth} == overlapped_chunk of "
+                  f"{k} rows bit for bit")
+    worst = 0.0
+    for row in range(8):
+        single = _streamed(StreamingEnhancer(inf), noisy[row], SEED + 40 + row)
+        worst = max(worst, _rel(offline[8][row], single))
+    log(f"stream: K=1 and 8 at async_depth 0 and 2 == overlapped_chunk of as "
+        f"many rows bit for bit; the 8 rows vs their single streams max|err|/"
+        f"peak {worst:.3e}")
+    check(worst < PATH_REL, f"K=8 rows vs single streams within {PATH_REL}")
+
+
+def _stream_readings(dev, model, card):
+    """Per-chunk time on the card, feed-to-finalized latency and aggregate
+    x realtime at K = 1, 8, 16 streams, 100 ms feeds, 4 s and 1 s chunks."""
+    from generative_audio_torch.eval import (
+        Inferencer, InferencerConfig, StreamingEnhancer)
+    for seconds in (CHUNK_SECONDS, 1):
+        cfg = InferencerConfig(chunk_model="spectral",
+                               chunk_length_seconds=seconds)
+        inf = Inferencer(model, cfg, device=dev)
+        n_in = cfg.sr * seconds + 256
+        program = inf._chunk_program()
+        for k in STREAM_KS:
+            x = torch.randn(k, n_in, device=dev) * 0.1
+            with torch.inference_mode():
+                chunk_ms = cuda_ms(lambda: program(x), 10, warmup=3)
+            wavs = _noise(SEED + 50 + k, k, STREAM_SECONDS * cfg.sr)
+            for depth in (0, 2):
+                stream = StreamingEnhancer(inf, n_streams=k, async_depth=depth)
+                stream.feed(wavs[:, :n_in])     # warm the shapes
+                stream.flush()
+                finalize_ms = []
+                t0 = time.perf_counter()
+                for pos in range(0, wavs.shape[-1], FEED_SAMPLES):
+                    f0 = time.perf_counter()
+                    out = stream.feed(wavs[:, pos:pos + FEED_SAMPLES])
+                    if out.shape[-1]:
+                        finalize_ms.append((time.perf_counter() - f0) * 1e3)
+                stream.flush()
+                wall = time.perf_counter() - t0
+                log(f"stream {seconds} s chunks ({n_in // 256 + 1} frames), "
+                    f"K={k}, async_depth {depth}: chunk {chunk_ms:.3f} ms on "
+                    f"the card (CUDA events); feed-to-finalized p50 "
+                    f"{statistics.median(finalize_ms):.2f} ms over "
+                    f"{len(finalize_ms)} feeds; aggregate "
+                    f"{k * STREAM_SECONDS / wall:.1f}x realtime "
+                    f"({STREAM_SECONDS / wall:.1f}x a stream); on {card}")
+
+
+def _batched_dir(dev, inf, counts, card, phase4_rtf):
+    """enhance_dir over mixed buckets (8 x 10 s, 5 x 7.5 s) at batch 8
+    against the serial path, then one real halving: a memory limit under
+    which a batch of 30 s clips runs out."""
+    from generative_audio_torch.data import read_wav
+    clips = [(_noise(SEED + 60 + i, 160000), f"ten{i}") for i in range(8)]
+    clips += [(_noise(SEED + 70 + i, 120000), f"sevenhalf{i}") for i in range(5)]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {}
+        for batch in (8, 1):
+            # batch 8: each bucket warmed once at its batch, then served
+            _count(counts, lambda: inf.enhance_dir(
+                clips, Path(tmp) / str(batch), log=lambda *_: None,
+                batch_size=batch), {"lstm_scan_fwd": 8 if batch == 8 else 26},
+                f"enhance_dir, batch {batch}")
+            out[batch] = {name: read_wav(Path(tmp) / str(batch) / f"{name}.wav")
+                          for _, name in clips}
+            if batch == 8:
+                rtf = inf.last_rtf
+        steps = max(float(np.abs(out[8][name][1] - out[1][name][1]).max())
+                    for _, name in clips) * 32768
+        # 0.8 is the written peak: the same bf16 limit as chunked against
+        # unchunked, since another batch sums the projections, norms and
+        # convolutions in another order
+        log(f"enhance_dir 8 x 10 s + 5 x 7.5 s, batch 8: rtf {rtf:.5f} (phase "
+            f"4's batch of 8 x 10 s: {phase4_rtf:.5f}); batched vs serial max "
+            f"{steps:.0f} int16 steps ({steps / 32768 / 0.8:.3e} of the peak); "
+            f"on {card}")
+        for noisy, name in clips:
+            sr, wav = out[8][name]
+            check(sr == 16000 and wav.shape == noisy.shape
+                  and np.isfinite(wav).all(), f"enhance_dir wrote {name}")
+        check(steps / 32768 / 0.8 < PATH_REL,
+              f"batched enhance_dir vs serial within {PATH_REL} of the peak")
+        _halving(dev, inf, Path(tmp))
+
+
+def _batch_parts(dev, model, card):
+    """Where a batch of 8 clips and its first clip alone part: the
+    full-band tower's output (convolutions and norms over another batch sum
+    in another order) and so the sub-band input differ, while the sub-band
+    model (the projections and kernel A) on the same 257 rows, among 2056
+    or alone, gives the same bits."""
+    from generative_audio_torch.ops import prepare_input_from_waveform
+    seen = {}
+
+    def keep(name):
+        def hook(module, args, out):
+            seen.setdefault(name, []).append((args[0], out))
+        return hook
+
+    hooks = [model.get_submodule(name).register_forward_hook(keep(name))
+             for name in ("fb_model", "sb_model")]
+    wav = torch.from_numpy(_noise(SEED + 60, 8, 160000)).to(dev)
+    with torch.inference_mode():
+        for batch in (8, 1):
+            model(*prepare_input_from_waveform(wav[:batch], 512, 256, 512))
+        for hook in hooks:
+            hook.remove()
+        (fb8, fb1), (sb8, sb1) = seen["fb_model"], seen["sb_model"]
+        fb = float((fb8[1][:1] - fb1[1]).abs().max() / fb1[1].abs().max())
+        sb_in = float((sb8[0][:257] - sb1[0]).abs().max())
+        alone = model.sb_model(sb8[0][:257].contiguous())
+        same = torch.equal(alone, sb8[1][:257])
+    log(f"batch 8 vs its first clip alone: full-band tower output max|diff|/"
+        f"peak {fb:.3e}, sub-band input max|diff| {sb_in:.3e}; the sub-band "
+        f"model on the same 257 rows, among 2056 vs alone, bit for bit: "
+        f"{same}; on {card}")
+    check(same, "the sub-band model's rows do not depend on the batch")
+
+
+def _halving(dev, inf, tmp):
+    """One real halving: the memory limit is what is reserved now plus what
+    a batch of two 30 s clips takes, so that a batch of 8 (four times that)
+    runs out. Free space inside segments that are reserved may let a batch
+    of 4 fit, so the check is that the batch halved and every clip was
+    written, not how often."""
+    from generative_audio_torch.data import read_wav
+    long = [(_noise(SEED + 80 + i, OOM_SECONDS * 16000), f"long{i}")
+            for i in range(OOM_BATCH)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    inf.enhance_dir(long[:2], tmp / "batch2", log=lambda *_: None,
+                    batch_size=2)
+    need2 = torch.cuda.max_memory_allocated(dev) - start
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    limit = reserved + need2
+    total = torch.cuda.get_device_properties(dev).total_memory
+    logs = []
+    torch.cuda.set_per_process_memory_fraction(limit / total, dev)
+    try:
+        inf.enhance_dir(long, tmp / "long", log=logs.append,
+                        batch_size=OOM_BATCH)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    retries = [line for line in logs if "retrying" in line]
+    log(f"enhance_dir {OOM_BATCH} x {OOM_SECONDS} s: a batch of 2 takes "
+        f"{need2 / 2 ** 30:.2f} GiB; {reserved / 2 ** 30:.2f} GiB reserved "
+        f"({torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} allocated), limit "
+        f"{limit / 2 ** 30:.2f} GiB: {retries}")
+    check(retries and retries[0].startswith(
+        f"bucket {OOM_SECONDS * 16000}: batch {OOM_BATCH} ran out of device "
+        "memory"), f"the batch of {OOM_BATCH} x {OOM_SECONDS} s clips halved "
+        "under the memory limit")
+    for noisy, name in long:
+        sr, wav = read_wav(tmp / "long" / f"{name}.wav")
+        check(wav.shape == noisy.shape and np.isfinite(wav).all(),
+              f"enhance_dir wrote {name} after halving")
+
+
+def _cli(dev, plus, counts, card):
+    """generative_audio_torch.cli.inference in process, a JSON config and a
+    .pth of the seeded weights, three wavs, on the card and on the CPU."""
+    from generative_audio_torch.cli.inference import main as cli_main
+    from generative_audio_torch.data import read_wav, write_wav
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "noisy").mkdir()
+        for i, seconds in enumerate((0.5, 0.75, 1.0)):
+            write_wav(root / "noisy" / f"c{i}.wav",
+                      _noise(SEED + 90 + i, int(seconds * 16000)), 16000)
+        torch.save({"model": plus.sd}, root / "model.pth")
+        (root / "cfg.json").write_text(json.dumps(
+            {"inferencer": {"length_bucket": 4000}}))
+        for device in (str(dev), "cpu"):
+            argv = ["-C", str(root / "cfg.json"), "-M", str(root / "model.pth"),
+                    "-I", str(root / "noisy"), "-O", str(root / device),
+                    "--device", device]
+            _count(counts, lambda: cli_main(argv),
+                   {"lstm_scan_fwd": 6} if device != "cpu" else {},
+                   f"the CLI on {device}")
+        worst = 0.0
+        for i in range(3):
+            got = read_wav(root / str(dev) / f"c{i}.wav")[1]
+            want = read_wav(root / "cpu" / f"c{i}.wav")[1]
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"the CLI wrote c{i}.wav")
+            worst = max(worst, _rel(got, want))
+        log(f"cli: 3 wavs, card vs CPU (both bf16) max|err|/peak {worst:.3e} "
+            f"on {card}")
+        check(worst < PATH_REL, f"the CLI, card vs CPU within {PATH_REL}")
+
+
+def phase_serving_modes(dev, plus, phase4_rtf):
+    """Phase 13. Returns the launches of its kernels."""
+    from generative_audio_torch.ops import lstm as L
+    card = card_line()
+    model = plus.model(torch.bfloat16, dev)
+    ref = plus.model(torch.float32, "cpu")
+    L.reset_launch_counts()
+    counts = L.launch_counts
+    _chunks_and_streams(dev, model, ref, counts, card)
+    _serve_modes(dev, counts, card)
+    _batched_dir(dev, plus.inferencer(model, dev), counts, card, phase4_rtf)
+    _batch_parts(dev, model, card)
+    _cli(dev, plus, counts, card)
+    launched = {k: v for k, v in counts.items() if v}
+    log(f"launches on the serving path of phase 13: {launched}")
+    check(set(launched) == {"lstm_scan_fwd"},
+          f"phase 13 launched kernel A and nothing else (got {launched})")
+    _stream_readings(dev, model, card)
+    return launched
 
 
 def main():
@@ -2502,10 +2879,12 @@ def main():
         "lstm_layer_fwd_block": (f"{csrc}/lstm_layer_block.cu",
                                  f"{pallas}:542")}
     plus, v1_gru, v1_lstm = model_paths()
-    counts = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
-                               "lstm_scan_fwd_train", "lstm_scan_bwd"])
+    counts, plus_rtf = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
+                                         "lstm_scan_fwd_train", "lstm_scan_bwd"])
     counts.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
-                                      and not k.endswith("_block")]))
+                                      and not k.endswith("_block")])[0])
+    for name, launched in phase_serving_modes(dev, plus, plus_rtf).items():
+        counts[name] += launched
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 

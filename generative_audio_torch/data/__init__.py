@@ -1,2 +1,4 @@
-"""Host-side data: wav I/O."""
-from generative_audio_torch.data.audio_io import read_wav, write_wav  # noqa: F401
+"""Host-side data: audio I/O and the inference dataset."""
+from generative_audio_torch.data.audio_io import (  # noqa: F401
+    load_audio, read_wav, resample, to_mono, write_wav)
+from generative_audio_torch.data.dns_dataset import InferenceDataset  # noqa: F401

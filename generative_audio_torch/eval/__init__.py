@@ -1,2 +1,3 @@
-"""Serving: the Inferencer."""
+"""Serving: the Inferencer and the StreamingEnhancer."""
 from generative_audio_torch.eval.inferencer import Inferencer, InferencerConfig  # noqa: F401
+from generative_audio_torch.eval.streaming import StreamingEnhancer  # noqa: F401

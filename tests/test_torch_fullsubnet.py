@@ -237,8 +237,8 @@ def test_enhance_dir_matches_jax(tmp_path, batch_size):
 def test_refusals(monkeypatch, tmp_path):
     """No CUDA device: the model raises unless asked for the CPU. A body that
     is neither GRU nor LSTM, an input that is not the magnitude, a batch
-    served through a model that drops bands and a mode that is not ported
-    all raise."""
+    served through a model that drops bands and an unknown mode all
+    raise."""
     with pytest.raises(ValueError):
         FullSubNet(FullSubNetConfig(sequence_model="TCN", **SMALL),
                    device="cpu")
@@ -251,8 +251,8 @@ def test_refusals(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="num_groups_in_drop_band=1"):
         tinf.enhance_dir(_Clips([1500, 1500, 1500]), tmp_path,
                          log=lambda *_: None, batch_size=3)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Inferencer(dropping, InferencerConfig(inference_type="scaled_mask"),
+    with pytest.raises(NotImplementedError, match="Unknown inference type"):
+        Inferencer(dropping, InferencerConfig(inference_type="scaled_masks"),
                    device="cpu").enhance(np.zeros(100, np.float32))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):

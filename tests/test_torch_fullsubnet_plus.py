@@ -155,7 +155,7 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         Inferencer(model)
     with pytest.raises(NotImplementedError):
-        Inferencer(model, InferencerConfig(inference_type="mag"),
+        Inferencer(model, InferencerConfig(inference_type="magnitude"),
                    device="cpu").enhance(np.zeros(100, np.float32))
 
 
