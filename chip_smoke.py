@@ -107,16 +107,32 @@ of which fails the run (non-zero exit, no result line):
      full-band LSTM (H=512), card against CPU; the batched enhance_dir over
      mixed buckets (8 x 10 s, 5 x 7.5 s) against the serial path (and
      where a batch and its first clip part: the full-band towers, while the
-     sub-band model's rows stay bit for bit), and one real halving of a
-     batch of 30 s clips under a lowered memory limit; the
+     sub-band model's rows stay bit for bit, and, op by op through the three
+     TCN towers, the first op whose output for clip 0 depends on the batch),
+     and one real halving of a batch of 30 s clips under a lowered memory
+     limit; the
      inference CLI in process (JSON config, a .pth, three wavs) on the card
      and on the CPU; each with its exact launches; then the streaming
      readings (the chunk's time on the card, feed-to-finalized latency p50,
      aggregate x realtime) at K = 1, 8 and 16, 4 s and 1 s chunks.
+ 14. training with validation at FullSubNet+'s full width, bf16 (phase 6's
+     seeded weights, the sub-band output layer near the identity mask):
+     EnhanceTrainer.train for 2 epochs of one 18 x 3.072 s batch, validating
+     4 speech-like (noisy, clean) pairs of 3-10 s each epoch (the 10 s clip
+     under a lowered gates limit, so kernel B runs for it) and a probe of 2
+     pairs at another SNR at weight 0.5, with exact launches per validation
+     and per step; finite STOI, SI_SDR and WB_PESQ on every clip;
+     best_score.json (probe weight 0.5) and latest.pt with the same best
+     score; report.html with the validation series; the model back in
+     training mode, its state equal to the checkpoint saved before the last
+     validation and the next step's loss equal to one without it; the
+     validation's wall time per clip, its time on the card and the host's
+     metric time; the card's bf16 validation means against ModelValidator on
+     the float32 model on the CPU.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
-each variant's own path in phase 12 and around phase 13 (whose launches
-add to kernel A's). The second-to-last line of stdout is
+each variant's own path in phase 12 and around phases 13 and 14 (whose
+launches add to kernel A's, and in phase 14 to kernel B's too). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device.
 """
@@ -2724,6 +2740,97 @@ def _batch_parts(dev, model, card):
     check(same, "the sub-band model's rows do not depend on the batch")
 
 
+def _tcn_block_ops(block):
+    """TCNBlock.forward as its ops, in order: (name, fn, feeds_next). An op
+    that does not feed the next one is a reading of part of the next op
+    (the norms' mean and variance)."""
+    import torch.nn.functional as F
+    cdt, dw = block.compute_dtype, block.depthwise_conv
+
+    def depthwise(y):
+        y = F.conv1d(F.pad(y.transpose(1, 2).to(cdt), block.padding),
+                     dw.weight.to(cdt), dw.bias.to(cdt), dilation=dw.dilation,
+                     groups=dw.groups)
+        return y.transpose(1, 2).float()
+
+    def mean(y):
+        return y.mean(dim=(1, 2), keepdim=True)
+
+    def var(y):
+        return y.var(dim=(1, 2), keepdim=True, unbiased=False)
+
+    return [("conv1x1 (bf16 F.linear, M = B*T)",
+             lambda y: block._pointwise(block.conv1x1, y), True),
+            ("prelu1", block.prelu1, True),
+            ("norm1 mean over (T, C)", mean, False),
+            ("norm1 variance over (T, C)", var, False),
+            ("norm1", block.norm1, True),
+            ("depthwise conv (bf16 F.conv1d)", depthwise, True),
+            ("prelu2", block.prelu2, True),
+            ("norm2 mean over (T, C)", mean, False),
+            ("norm2 variance over (T, C)", var, False),
+            ("norm2", block.norm2, True),
+            ("sconv (bf16 F.linear, M = B*T)",
+             lambda y: block._pointwise(block.sconv, y), True)]
+
+
+def _batch_trace(dev, model, card):
+    """Where clip 0 of a batch of 8 x 10 s and clip 0 alone part, block by
+    block and op by op through FullSubNet+'s three TCN towers. Each op of
+    each block is given the batch's own input to it, once as the batch and
+    once as row 0 alone, so that an op that does not depend on the batch
+    reads 0 whatever the ops before it did. Logs the largest difference of
+    each op as a share of its output's peak, and the first op (tower,
+    block, op) whose row 0 differs."""
+    from generative_audio_torch.ops import prepare_input_from_waveform
+    towers = ("fb_model", "fb_model_real", "fb_model_imag")
+    inputs, alone = {}, {}
+    seen = inputs
+
+    def keep(name):
+        def hook(module, args, out):
+            seen[name] = args[0]
+        return hook
+
+    blocks = {(t, i): model.get_submodule(f"{t}.sequence_model.{i}")
+              for t in towers for i in range(8)}
+    hooks = [b.register_forward_hook(keep(k)) for k, b in blocks.items()]
+    wav = torch.from_numpy(_noise(SEED + 60, 8, 160000)).to(dev)
+    worst, first = {}, None
+    try:
+        with torch.inference_mode():
+            model(*prepare_input_from_waveform(wav, 512, 256, 512))
+            seen = alone
+            model(*prepare_input_from_waveform(wav[:1], 512, 256, 512))
+            # what reaches each tower (STFT, norm, TSSE) in the two runs
+            upstream = max(float((inputs[(t, 0)][:1] - alone[(t, 0)]).abs()
+                                 .max() / alone[(t, 0)].abs().max())
+                           for t in towers)
+            for key, block in blocks.items():
+                x8 = inputs[key].float()                 # [8, T, 257]
+                for name, fn, feeds in _tcn_block_ops(block):
+                    y8, y1 = fn(x8), fn(x8[:1].contiguous())
+                    diff = float((y8[:1] - y1).abs().max()
+                                 / y1.abs().max().clamp_min(1e-30))
+                    worst[name] = max(worst.get(name, 0.0), diff)
+                    if diff > 0 and first is None:
+                        first = (*key, name, diff)
+                    if feeds:
+                        x8 = y8
+    finally:
+        for hook in hooks:
+            hook.remove()
+    log("batch trace, FullSubNet+'s TCN towers, batch 8 x 10 s vs its first "
+        "clip alone on the same input to each op (max|diff| / peak, worst of "
+        "24 blocks): " + "; ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; on {card}")
+    log(f"batch trace: the towers' inputs (STFT, norm, TSSE), batch vs alone: "
+        f"max|diff|/peak {upstream:.3e}")
+    log("batch trace: first op whose clip-0 output depends on the batch: "
+        + (f"{first[0]} block {first[1]}, {first[2]} ({first[3]:.3e} of its "
+           "peak)" if first else "none"))
+
+
 def _halving(dev, inf, tmp):
     """One real halving: the memory limit is what is reserved now plus what
     a batch of two 30 s clips takes, so that a batch of 8 (four times that)
@@ -2810,6 +2917,7 @@ def phase_serving_modes(dev, plus, phase4_rtf):
     _serve_modes(dev, counts, card)
     _batched_dir(dev, plus.inferencer(model, dev), counts, card, phase4_rtf)
     _batch_parts(dev, model, card)
+    _batch_trace(dev, model, card)
     _cli(dev, plus, counts, card)
     launched = {k: v for k, v in counts.items() if v}
     log(f"launches on the serving path of phase 13: {launched}")
@@ -2817,6 +2925,296 @@ def phase_serving_modes(dev, plus, phase4_rtf):
           f"phase 13 launched kernel A and nothing else (got {launched})")
     _stream_readings(dev, model, card)
     return launched
+
+
+# Phase 14: validation and best-model selection inside training, FullSubNet+
+# at full width. V: four (noisy, clean) pairs, P: two more at another SNR.
+VAL_SECONDS, VAL_SNR = (3.0, 10.0, 5.5, 7.25), 5.0
+PROBE_SECONDS, PROBE_SNR = (4.0, 6.5), -2.0
+VAL_EPOCHS = 2
+# The 10 s clip of V (628 frames x 257 rows) runs under this gates limit,
+# so the sub-band LSTM takes the chunked path (kernel B) for it alone.
+VAL_CHUNKED, VAL_GATES_LIMIT = 1, 256 << 20
+# The card's bf16 validation means against ModelValidator on the float32
+# model on the CPU with the same weights (V's four clips), absolute: on an
+# H100 they measured 3.5e-6 (STOI), 5.5e-4 dB (SI_SDR) and 1.1e-5 (WB_PESQ),
+# a clip at most 2.8e-5, 1.2e-3 dB and 2.8e-5; margins of about 20x over
+# the means.
+VAL_STOI_ABS, VAL_SI_SDR_ABS, VAL_PESQ_ABS = 1e-4, 1e-2, 2e-4
+
+
+def _speech_like(seed, seconds, fs=16000):
+    """Speech-like audio: harmonic bursts with a wandering f0 separated by
+    near-silent pauses (the utterances P.862's VAD looks for) over a faint
+    noise floor; peak 1."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * fs)
+    t = np.arange(n) / fs
+    f0 = 120.0 * (1.0 + 0.2 * np.sin(2 * np.pi * 1.3 * t
+                                     + rng.uniform(0, 2 * np.pi))
+                  + 0.08 * np.sin(2 * np.pi * 3.1 * t
+                                  + rng.uniform(0, 2 * np.pi)))
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    voiced = sum(np.sin(k * phase + rng.uniform(0, 2 * np.pi)) / k
+                 for k in range(1, 9))
+    env = np.zeros(n)
+    pos = 0.1
+    while pos < seconds - 0.4:
+        dur = rng.uniform(0.25, 0.5)
+        i0, i1 = int(pos * fs), min(int((pos + dur) * fs), n)
+        env[i0:i1] = (np.sin(np.pi * np.arange(i1 - i0) / (i1 - i0)) ** 0.5
+                      * rng.uniform(0.6, 1.0))
+        pos += dur + rng.uniform(0.15, 0.4)
+    out = voiced * env + 2e-4 * rng.standard_normal(n)
+    return out / np.max(np.abs(out))
+
+
+def _speech_pair(seed, seconds, snr_db):
+    """(noisy, clean) float32 at peak 0.5: speech-like audio plus seeded
+    white noise at snr_db."""
+    clean = 0.5 * _speech_like(seed, seconds)
+    noise = np.random.default_rng(seed + 1).standard_normal(len(clean))
+    noise *= np.sqrt(np.mean(clean ** 2) / np.mean(noise ** 2)
+                     / 10 ** (snr_db / 10))
+    return (clean + noise).astype(np.float32), clean.astype(np.float32)
+
+
+class _LimitedClip:
+    """V as a dataset: while item `index` is enhanced, the model's LSTM layers
+    take `limit` as their gates limit, and their own limit for every other
+    item. The validator launches an item's enhancement before it fetches
+    the next item, so the limit holds for that item's forward alone."""
+
+    def __init__(self, pairs, model, index, limit):
+        from generative_audio_torch.nn.recurrent import LSTMLayer
+        self.pairs, self.index, self.limit = pairs, index, limit
+        self.layers = {m: m.gates_bytes_limit for m in model.modules()
+                       if isinstance(m, LSTMLayer)}
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, i):
+        for layer, own in self.layers.items():
+            layer.gates_bytes_limit = self.limit if i == self.index else own
+        return self.pairs[i]
+
+
+def _chunks(frames, rows, hidden, limit):
+    """Chunks of the time-chunked LSTM layer at this limit: a chunk holds
+    max(64, ceil(limit * share / bytes of one frame's bf16 gates)) frames."""
+    from generative_audio_torch.nn import recurrent
+    row_bytes = rows * 4 * hidden * 2
+    t_chunk = max(64, -(-int(limit * recurrent._CHUNK_SHARE_OF_LIMIT)
+                        // row_bytes))
+    return -(-frames // t_chunk)
+
+
+@contextlib.contextmanager
+def _timed_validator(readings):
+    """ModelValidator, as the trainer builds it, with each clip's
+    enhancement timed on the card (CUDA events around the launches; read
+    after the validation) and on the host clock (the launches), and each
+    clip's host metrics timed on the host clock; per-clip scores kept."""
+    from generative_audio_torch.eval import validator as VM
+    base = VM.ModelValidator
+
+    class Timed(base):
+        def _enhance(self, noisy):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            out = super()._enhance(noisy)
+            end.record()
+            readings["launch_s"].append(time.perf_counter() - t0)
+            readings["events"].append((start, end))
+            return out
+
+        def calculate_metrics(self, clean, enhanced):
+            t0 = time.perf_counter()
+            out = super().calculate_metrics(clean, enhanced)
+            readings["host_s"].append(time.perf_counter() - t0)
+            readings["scores"].append(out)
+            return out
+
+    VM.ModelValidator = Timed
+    try:
+        yield
+    finally:
+        VM.ModelValidator = base
+
+
+def phase_validation(dev, plus):
+    """Phase 14: EnhanceTrainer.train with validation and a probe at weight
+    0.5 at FullSubNet+'s full width, bf16. Returns the launches of its
+    kernels."""
+    from generative_audio_torch.eval.validator import ModelValidator
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import EnhanceTrainer
+    card = card_line()
+    cfg = plus.train_config("bfloat16")
+    # phase 6's seeded weights, with the sub-band output layer near the
+    # identity mask (kernel x 0.1, bias the compressed mask of 1): with a
+    # random mask the enhanced clip is near silence and the metrics read
+    # nothing of the path
+    from generative_audio_torch.ops.mask import compress_cIRM
+    sd = dict(plus.sd)
+    sd["sb_model.fc_output_layer.weight"] = \
+        sd["sb_model.fc_output_layer.weight"] * 0.1
+    sd["sb_model.fc_output_layer.bias"] = torch.tensor(
+        [compress_cIRM(torch.ones(())).item(), 0.0])
+    noisy, clean = (torch.from_numpy(x).to(dev) for x in
+                    _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
+    loader = [(noisy, clean)]
+    val_pairs = [_speech_pair(SEED + 100 + i, s, VAL_SNR)
+                 for i, s in enumerate(VAL_SECONDS)]
+    probe = [_speech_pair(SEED + 110 + i, s, PROBE_SNR)
+             for i, s in enumerate(PROBE_SECONDS)]
+    frames = int(VAL_SECONDS[VAL_CHUNKED] * 16000) // 256 + 1 + 2
+    n_chunks = _chunks(frames, 257, HIDDEN, VAL_GATES_LIMIT)
+    per_val = {"lstm_scan_fwd": 2 * (len(VAL_SECONDS) - 1),
+               "lstm_scan_fwd_carry": 2 * n_chunks}
+    per_probe = {"lstm_scan_fwd": 2 * len(PROBE_SECONDS)}
+    per_step = {"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2}
+
+    readings = {"events": [], "launch_s": [], "host_s": [], "scores": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = EnhanceTrainer(cfg, checkpoint_dir=Path(tmp) / "ckpt",
+                                 seed=SEED, pretrained_state_dict=sd,
+                                 device=dev)
+        val = _LimitedClip(val_pairs, trainer.state.model, VAL_CHUNKED,
+                           VAL_GATES_LIMIT)
+        calls, walls, means = [], [], []
+        validate = trainer.validate
+
+        def counted(dataset, max_items=10):
+            before = dict(L.launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = validate(dataset, max_items)
+            walls.append((time.perf_counter() - t0, len(dataset)))
+            calls.append({k: L.launch_counts[k] - before[k]
+                          for k in L.launch_counts
+                          if L.launch_counts[k] != before[k]})
+            means.append((dataset is val, out))
+            return out
+
+        trainer.validate = counted
+        L.reset_launch_counts()
+        with _timed_validator(readings):
+            trainer.train(loader, epochs=VAL_EPOCHS, val_dataset=val,
+                          validation_interval=1, probe_dataset=probe,
+                          probe_weight=0.5, log=log)
+        launched = {k: v for k, v in L.launch_counts.items() if v}
+        log(f"launches on the validation path of phase 14: {launched}; per "
+            f"validation {calls}")
+        chunked = VAL_SECONDS[VAL_CHUNKED]
+        check(calls == [per_val, per_probe] * VAL_EPOCHS,
+              f"each validation of V launched {per_val} (the {chunked} s clip "
+              f"in {n_chunks} chunks a layer) and of P {per_probe}, nothing "
+              f"else (got {calls})")
+        want = {k: VAL_EPOCHS * (per_val.get(k, 0) + per_probe.get(k, 0)
+                                 + per_step.get(k, 0))
+                for k in {**per_val, **per_probe, **per_step}}
+        check(launched == want,
+              f"phase 14 launched {want} and nothing else (got {launched})")
+
+        n_clips = len(VAL_SECONDS) + len(PROBE_SECONDS)
+        check(len(readings["scores"]) == VAL_EPOCHS * n_clips,
+              "every clip of V and P was scored")
+        for scores in readings["scores"]:
+            check(all(scores[k] is not None and np.isfinite(scores[k])
+                      for k in ("STOI", "SI_SDR", "WB_PESQ")),
+                  f"finite STOI, SI_SDR and WB_PESQ on every clip ({scores})")
+        ckpt = trainer.ckpt
+        meta = ckpt.best_meta()
+        latest = torch.load(ckpt.path("latest"), map_location="cpu",
+                            weights_only=True)
+        check(meta is not None and meta["probe_weight"] == 0.5
+              and latest["best_score"] == meta["score"] == trainer.best_score,
+              f"best_score.json with probe_weight 0.5, latest.pt with the "
+              f"same best score ({meta}, latest {latest['best_score']})")
+        report = (ckpt.directory / "report.html").read_text()
+        check(report.count("<polyline") == 2
+              and 'data-label="validation"' in report,
+              "report.html written with the loss and validation series")
+        check(trainer.state.model.training,
+              "the model is back in training mode")
+        # the weights V was last validated with, for the float32 reference
+        final_sd = {k: v.float().cpu()
+                    for k, v in trainer.state.model.state_dict().items()}
+        log(f"validation: val_history {trainer.val_history}, probe_history "
+            f"{trainer.probe_history}, best {meta}")
+
+        # validation left training as it found it: the step checkpoint
+        # saved just before the last validation, loaded into a second
+        # trainer, equals the first trainer bit for bit, and the next
+        # step's loss (its forward, before the update) is the same
+        twin = EnhanceTrainer(cfg, seed=SEED, pretrained_state_dict=sd,
+                              device=dev)
+        tree = ckpt.restore(f"step_{trainer.state.step:08d}")
+        twin.state.load_state_dict(tree)
+        same = all(torch.equal(a, b) for a, b in zip(
+            trainer.state.model.state_dict().values(),
+            twin.state.model.state_dict().values()))
+        opt_a, opt_b = (t.state.optimizer.state_dict()["state"]
+                        for t in (trainer, twin))
+        same_opt = all(torch.equal(opt_a[i][n], opt_b[i][n]) for i in opt_a
+                       for n in ("exp_avg", "exp_avg_sq", "step"))
+        loss_a = trainer.train_epoch(loader)
+        loss_b = twin.train_epoch(loader)
+        log(f"validation: after it the parameters {'==' if same else '!='} "
+            f"and the optimizer state {'==' if same_opt else '!='} the step "
+            f"checkpoint saved before it; next step's loss {loss_a!r} vs "
+            f"{loss_b!r} without the validation")
+        check(same and same_opt and trainer.state.step == twin.state.step
+              and loss_a == loss_b,
+              "a training step after validation equals one without it")
+        del trainer, twin
+
+    # the card's numbers: wall per clip, time on the card, host metrics
+    torch.cuda.synchronize()
+    card_ms = [s.elapsed_time(e) for s, e in readings["events"]]
+    host_s = sum(readings["host_s"])
+    wall_s = sum(w for w, _ in walls)
+    clips = sum(n for _, n in walls)
+    launch_s = sum(readings["launch_s"])
+    hidden = wall_s <= host_s + max(card_ms) / 1e3
+    log(f"validation: {len(walls)} validations, {clips} clips of "
+        f"{min(VAL_SECONDS + PROBE_SECONDS)}-{max(VAL_SECONDS + PROBE_SECONDS)}"
+        f" s: wall {wall_s * 1e3 / clips:.2f} ms per clip; on the card "
+        f"(CUDA events, enhancement) {sum(card_ms) / clips:.2f} ms per clip "
+        f"(longest {max(card_ms):.2f}), of which the host spent "
+        f"{launch_s * 1e3 / clips:.2f} ms launching it; host metrics (STOI, "
+        f"SI_SDR, WB_PESQ) {host_s * 1e3 / clips:.2f} ms per clip; the "
+        f"depth-2 pipeline hides the card (wall <= host metrics + one clip's "
+        f"enhancement): {hidden}; on {card}")
+
+    # the card's bf16 validation of V against the float32 model on the CPU
+    ref_model = plus.model_cls(plus.config, compute_dtype=torch.float32,
+                               device="cpu")
+    ref_model.load_state_dict(final_sd)
+    names = ("STOI", "SI_SDR", "WB_PESQ")
+    ref_v = ModelValidator(ref_model, metric_names=names, device="cpu")
+    ref_clips = [ref_v.calculate_metrics(c, ref_v.enhance_audio(n))
+                 for n, c in val_pairs]
+    ref = {k: float(np.mean([r[k] for r in ref_clips])) for k in names}
+    got = [m for is_val, m in means if is_val][-1]
+    # the last validation of V: the first clips of the last epoch's scores
+    card_clips = readings["scores"][-n_clips:][:len(VAL_SECONDS)]
+    gaps = {k: abs(got[k] - ref[k]) for k in names}
+    worst = {k: max(abs(a[k] - b[k]) for a, b in zip(card_clips, ref_clips))
+             for k in names}
+    log(f"validation of V, card (bf16) vs CPU (float32), same weights: "
+        + ", ".join(f"{k} {got[k]:.5f} vs {ref[k]:.5f} (|diff| {gaps[k]:.2e},"
+                    f" largest of a clip {worst[k]:.2e})" for k in names))
+    check(gaps["STOI"] <= VAL_STOI_ABS and gaps["SI_SDR"] <= VAL_SI_SDR_ABS
+          and gaps["WB_PESQ"] <= VAL_PESQ_ABS,
+          f"bf16 validation vs float32: |dSTOI| <= {VAL_STOI_ABS}, |dSI_SDR| "
+          f"<= {VAL_SI_SDR_ABS} dB, |dWB_PESQ| <= {VAL_PESQ_ABS}")
+    return {k: v for k, v in launched.items()
+            if k in ("lstm_scan_fwd", "lstm_scan_fwd_carry")}
 
 
 def main():
@@ -2884,6 +3282,8 @@ def main():
     counts.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
                                       and not k.endswith("_block")])[0])
     for name, launched in phase_serving_modes(dev, plus, plus_rtf).items():
+        counts[name] += launched
+    for name, launched in phase_validation(dev, plus).items():
         counts[name] += launched
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))

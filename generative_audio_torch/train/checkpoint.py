@@ -7,7 +7,7 @@ optimizer `state_dict`, the step, the best score); the sidecars
 (`config.json`, `latest_step.json`, `best_score.json`) are plain JSON, as in
 the JAX package. Files are written to a temporary name and renamed, so a
 reader never sees half a checkpoint. The JAX package's multi-host
-coordinator gate waits for the multi-GPU slice (ROADMAP.md, queue A item 9).
+coordinator gate waits for the multi-GPU slice (ROADMAP.md, queue A item 6).
 """
 from __future__ import annotations
 

@@ -11,13 +11,15 @@ the port passes the `nn.Module` and updates a `train.state.TrainState` in
 place. `model_type="fullsubnet"` trains FullSubNet v1 (`model_v1`, the
 magnitude-only model; the same loss otherwise). In bf16 on CUDA the
 recurrent layers run through ops.lstm.LSTMScan or ops.gru.GRUScan, whose
-forward and backward are the hand-written scan kernels. Not ported yet:
-validation inside the trainer (ROADMAP.md queue A items 7 and 14), the HTML
-training report (item 14) and the multi-GPU step (item 9).
+forward and backward are the hand-written scan kernels. The trainer
+validates with eval/validator.ModelValidator (composite (STOI + WB-PESQ)/2,
+optionally blended with a probe set's), keeps the best model and writes
+report.html. Not ported yet: the multi-GPU step (ROADMAP.md, queue A item 6).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -181,9 +183,11 @@ def make_enhance_train_step(config: EnhanceTrainConfig,
 
 
 class EnhanceTrainer:
-    """The training loop with the reference trainer's semantics: epochs over
-    a loader of (noisy, clean) batches, latest and step-tagged checkpoints,
-    resume. Validation and best-model selection are not ported yet."""
+    """The training loop with the reference trainer's semantics
+    (Trainer_Finetune, fullsubnet_plus/trainer/trainer.py:309-446 +
+    base_trainer.py:305-342): epochs over a loader of (noisy, clean)
+    batches, periodic validation with the composite (STOI + PESQ)/2 score,
+    latest, step-tagged and best checkpoints, resume."""
 
     def __init__(self, config: EnhanceTrainConfig, checkpoint_dir=None,
                  seed: int = 0, pretrained_state_dict=None, tracker=None,
@@ -197,7 +201,12 @@ class EnhanceTrainer:
                      if checkpoint_dir else None)
         self.best_score = -float("inf")
         self.loss_history = []
+        self.val_history = []
+        # (step, probe composite) when a probe dataset is given, recorded
+        # even at probe_weight 0 so that the selection can be swept later
+        self.probe_history = []
         self.tracker = tracker        # anything with .log(dict, step=int)
+        self._validator = None
 
     def train_epoch(self, loader, log=print) -> float:
         # the losses stay on the device and are fetched once per epoch: a
@@ -213,25 +222,111 @@ class EnhanceTrainer:
         return avg
 
     def validate(self, dataset, max_items: int = 10) -> dict:
-        raise NotImplementedError(
-            "EnhanceTrainer.validate needs eval/validator.py and "
-            "eval/metrics.py, which are not ported to generative_audio_torch "
-            "yet (ROADMAP.md, queue A items 7 and 14)")
+        """Composite validation on (noisy, clean) pairs (trainer.py:365-446):
+        the mean STOI, SI_SDR and WB_PESQ of the live model, and
+        "composite". The model's parameters, training flag and device and
+        the optimizer's state are left as they were."""
+        from generative_audio_torch.eval.metrics import (
+            composite_validation_score)
+        from generative_audio_torch.eval.validator import ModelValidator
+        model = self.state.model
+        if self._validator is None:
+            self._validator = ModelValidator(
+                model, n_fft=self.config.n_fft,
+                hop_length=self.config.hop_length,
+                win_length=self.config.win_length,
+                metric_names=("STOI", "SI_SDR", "WB_PESQ"),
+                device=next(model.parameters()).device,
+                model_type=self.config.model_type)
+        self._validator.model = model
+        means = self._validator.validate_dataset(dataset, max_items=max_items,
+                                                 log=lambda *_: None)
+        if means.get("WB_PESQ") is None:
+            # every clip failed PESQ (silent or too short): rank on STOI and
+            # say so, rather than hide the change of criterion
+            warnings.warn("validation produced no WB_PESQ value; composite "
+                          "falls back to STOI for this epoch")
+            means["composite"] = means.get("STOI") or 0.0
+        else:
+            means["composite"] = composite_validation_score(
+                means.get("STOI") or 0.0, means["WB_PESQ"])
+        return means
 
-    def train(self, loader, epochs: int, val_dataset=None, log=print) -> None:
-        """Epoch loop: train, then save the latest and a step-tagged
-        checkpoint. Raises for a val_dataset (see validate)."""
-        if val_dataset is not None:
-            self.validate(val_dataset)
+    def train(self, loader, epochs: int, val_dataset=None,
+              validation_interval: int = 1, log=print,
+              probe_dataset=None, probe_weight: float = 0.0) -> None:
+        """Epoch loop: train, save the latest and a step-tagged checkpoint,
+        and every `validation_interval` epochs validate and keep the best
+        model (best.pt, best_score.json); report.html at the end.
+
+        The selection score is the reference's in-distribution composite
+        (base_trainer.py:296-303). With `probe_dataset` and probe_weight w
+        > 0 it is (1 - w) * val + w * probe composite; at w = 0 the probe is
+        evaluated and recorded (probe_history, tracker) but never selects.
+        A new best also re-saves latest with the updated best_score, so
+        that a resume does not restore the score from before the
+        validation."""
+        # scores are comparable under one criterion only: when a resumed
+        # best/ was selected under another probe_weight, its score is on
+        # another scale, and best-model tracking starts again
+        if self.ckpt is not None:
+            meta = self.ckpt.best_meta()
+            if meta is not None and self.best_score > -float("inf"):
+                saved_w = float(meta.get("probe_weight", 0.0))
+                cur_w = probe_weight if probe_dataset is not None else 0.0
+                if saved_w != cur_w:
+                    warnings.warn(
+                        f"resumed best_score was selected with probe_weight="
+                        f"{saved_w:g} but this run uses {cur_w:g}; resetting "
+                        "best-model tracking (scores are incommensurate)")
+                    self.best_score = -float("inf")
         for epoch in range(1, epochs + 1):
             avg = self.train_epoch(loader, log=log)
             log(f"[Train] Epoch {epoch}, Loss {avg:.5f}")
+            step = self.state.step
             if self.ckpt:
-                step = self.state.step
                 tree = {**self.state.state_dict(),
                         "best_score": float(self.best_score)}
                 self.ckpt.save_latest(tree, step)
                 self.ckpt.save_step(tree, step)
+            if val_dataset is None or epoch % validation_interval:
+                continue
+            scores = self.validate(val_dataset)
+            select = scores["composite"]
+            if probe_dataset is not None:
+                probe = self.validate(probe_dataset)
+                scores["probe_composite"] = probe["composite"]
+                self.probe_history.append((step, probe["composite"]))
+                if probe_weight > 0.0:
+                    select = ((1.0 - probe_weight) * scores["composite"]
+                              + probe_weight * probe["composite"])
+                    scores["selection"] = select
+            log(f"[Validate] Epoch {epoch}: {scores}")
+            self.val_history.append((step, scores.get("composite") or 0.0))
+            if self.tracker is not None:
+                self.tracker.log(
+                    {k: v for k, v in scores.items() if v is not None},
+                    step=step)
+            if self.ckpt and select > self.best_score:
+                self.best_score = select
+                self.ckpt.save_best(
+                    {"params": self.state.model.state_dict()}, select, step,
+                    extra={"probe_weight": (probe_weight
+                                            if probe_dataset is not None
+                                            else 0.0),
+                           "composite": scores["composite"]})
+                # latest again, with the new best_score (ref
+                # base_trainer.py:315-340): a resume from here must not
+                # restore the score from before this validation
+                tree["best_score"] = float(self.best_score)
+                self.ckpt.save_latest(tree, step)
+        if self.ckpt:
+            from generative_audio_torch.utils.report import (
+                write_training_report)
+            write_training_report(
+                self.ckpt.directory / "report.html", "enhancement training",
+                self.loss_history, self.val_history,
+                {"best_composite": self.best_score, "steps": self.state.step})
 
     def restore_latest(self) -> bool:
         """Resume from the latest checkpoint: step, parameters, optimizer
