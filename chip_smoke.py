@@ -129,10 +129,30 @@ of which fails the run (non-zero exit, no result line):
      validation's wall time per clip, its time on the card and the host's
      metric time; the card's bf16 validation means against ModelValidator on
      the float32 model on the CPU.
+ 15. training from a corpus on disk through the training CLI, FullSubNet+
+     at configs/enhance_train.yaml's full width, bf16: a corpus written into
+     a temporary directory (36 clean and 6 noise clips of 6 s from
+     write_synthetic_corpus, four clean clips also as FLAC in the clean scp,
+     8 RIRs from make_rir_bank, scp lists from cli/tools.gen_lst, 4
+     validation and 2 probe pairs from TestSampleGenerator); the FLAC clips
+     through the native binding, built at first use with soundfile hidden,
+     against their WAVs within one int16 step; two loader passes with one
+     seed identical at 1 and 24 workers; cli.train.main with a JSON config
+     (the DNS scp regime, 3.072 s clips, batch 18, 24 workers, RIRs at 0.75,
+     validation every epoch with the probe at weight 0.5) for 2 epochs, then
+     -R for one more, with exact launches per step and per validation (the
+     6 s clips of V under phase 14's gates limit take kernel B), finite
+     losses, the resume at the saved step and best score, best_score.json's
+     probe weight; cli.validate.main on the best checkpoint over an
+     AudioDataset of the corpus; and the readings: ms per step through the
+     loader beside phase 6's, the loader's host time per batch at 1 and 24
+     workers, the mixing time per clip, clips per second, a profile of one
+     loader-fed step, validation_results.json's means.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
-each variant's own path in phase 12 and around phases 13 and 14 (whose
-launches add to kernel A's, and in phase 14 to kernel B's too). The second-to-last line of stdout is
+each variant's own path in phase 12 and around phases 13, 14 and 15 (whose
+launches add to kernel A's, in phases 14 and 15 to kernel B's too, and in
+phase 15 to kernels C's and D's). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device.
 """
@@ -147,6 +167,7 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Callable
+from unittest import mock
 
 import numpy as np
 import torch
@@ -163,6 +184,8 @@ TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_STEPS = 18, 49152, 5
 # FullSubNet v1's full-band model: H=512 over as many rows as clips.
 FB_HIDDEN, FB_SERVE_ROWS = 512, 8
 SEED = 0
+# The median ms of phase 6's training steps 2-5 by model, for phase 15.
+STEP_MS = {}
 # Lowered gates limit of phase 4: a 30 s clip's gates (1.48 GB) exceed it.
 LONG_CLIP_GATES_LIMIT = 256 << 20
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -2348,6 +2371,7 @@ def phase_training(dev, path, counts):
     check(losses[-1] < losses[0], "the fifth loss is below the first")
     check(trainer.state.step == TRAIN_STEPS, "five optimizer steps counted")
     steady = statistics.median(times[1:])
+    STEP_MS[path.name] = steady
     log(f"train {path.name}: ms per step {' '.join(f'{x:.1f}' for x in times)}; "
         f"median of steps 2-{TRAIN_STEPS} {steady:.2f} ms = "
         f"{TRAIN_BATCH / steady * 1e3:.2f} clips/s; peak memory {peak:.2f} GiB "
@@ -3217,6 +3241,424 @@ def phase_validation(dev, plus):
             if k in ("lstm_scan_fwd", "lstm_scan_fwd_carry")}
 
 
+
+# Phase 15: training from a corpus on disk through the training CLI,
+# FullSubNet+ at full width (configs/enhance_train.yaml's model), bf16. The
+# corpus: clean and noise clips of write_synthetic_corpus, some clean clips
+# also as FLAC (verbatim frames of tests/flac_writer.py), RIRs of
+# make_rir_bank, scp lists of cli/tools.gen_lst, a validation set V and a
+# probe set P of TestSampleGenerator pairs.
+CORPUS_CLEAN, CORPUS_NOISE, CORPUS_SECONDS = 36, 6, 6.0
+CORPUS_RIRS, CORPUS_FLAC = 8, 4
+CORPUS_VAL, CORPUS_VAL_SECONDS, CORPUS_VAL_SNR = 4, 6.0, 5.0
+CORPUS_PROBE, CORPUS_PROBE_SECONDS, CORPUS_PROBE_SNR = 2, 3.0, -2.0
+CORPUS_BATCH, CORPUS_WORKERS, CORPUS_EPOCHS = 18, 24, 2
+# While the trainer validates, its LSTM layers take phase 14's lowered gates
+# limit: a 6 s clip of V (378 frames x 257 rows, 298 MB of gates) exceeds
+# it and takes kernel B, a 3 s clip of P (150 MB) kernel A.
+CORPUS_VALIDATE_ITEMS = 8        # clips the validate CLI scores
+# The A/B of a step fed by the loader against one from a batch in memory:
+# rounds, and the pause before each step (a batch's mixing at 24 workers
+# took about 90 ms on the card's host)
+CORPUS_AB_ROUNDS, CORPUS_AB_PAUSE = 5, 0.3
+# configs/enhance_train.yaml's model block
+CORPUS_MODEL = {"num_freqs": 257, "look_ahead": 2, "sequence_model": "LSTM",
+                "sb_num_neighbors": 15, "fb_num_neighbors": 0,
+                "fb_output_activate_function": "ReLU",
+                "fb_model_hidden_size": 512, "sb_model_hidden_size": 384,
+                "channel_attention_model": "TSSE",
+                "norm_type": "offline_laplace_norm",
+                "num_groups_in_drop_band": 2, "kersize": [3, 5, 10]}
+
+
+def _verbatim_flac(samples, block=4096):
+    """16-bit mono FLAC bytes of int16 `samples`, verbatim subframes: after
+    the byte-aligned frame and subframe headers of tests/flac_writer.py the
+    samples go in as big-endian bytes. The writer is loaded by its path: a
+    package named `tests` elsewhere on sys.path would shadow the repo's."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "flac_writer", Path(__file__).resolve().parent / "tests"
+        / "flac_writer.py")
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
+
+    def frame(chunk):
+        def write(bw, _):
+            writer._subframe_header(bw, 1)
+            bw.bytes += chunk.astype(">i2").tobytes()
+        return write
+
+    chunks = [samples[i:i + block] for i in range(0, len(samples), block)]
+    return writer.flac_stream([(len(c), 0, frame(c)) for c in chunks],
+                              total=len(samples))
+
+
+def _write_corpus(root):
+    """The corpus of phase 15 under `root`; returns the config's data and
+    validation blocks, the clean directory and the FLAC/WAV pairs."""
+    from scipy.io import wavfile
+    from generative_audio_torch.cli.tools import gen_lst
+    from generative_audio_torch.data import (
+        AudioDataSetConfig, TestSampleGenerator, make_rir_bank,
+        write_synthetic_corpus)
+    clean_dir, noise_dir = write_synthetic_corpus(
+        root, n_clean=CORPUS_CLEAN, n_noise=CORPUS_NOISE,
+        seconds=CORPUS_SECONDS, seed=SEED)
+    rir_scp = make_rir_bank(root / "rir", n=CORPUS_RIRS, seed=SEED)
+    gen_lst(noise_dir, root / "noise.scp")
+    gen_lst(clean_dir, root / "clean.scp")
+    (root / "flac").mkdir()
+    flac_pairs = []
+    for i in range(CORPUS_FLAC):
+        wav = clean_dir / f"clean_{i}.wav"
+        sr, pcm = wavfile.read(wav)
+        flac = root / "flac" / f"clean_{i}.flac"
+        flac.write_bytes(_verbatim_flac(pcm))
+        flac_pairs.append((flac, wav))
+    # the clean list names the FLAC copies in place of their WAVs
+    swap = {str(w): str(f) for f, w in flac_pairs}
+    lines = (root / "clean.scp").read_text().split()
+    check(sum(line in swap for line in lines) == CORPUS_FLAC,
+          "the clean scp lists the WAVs that get FLAC copies")
+    (root / "clean.scp").write_text(
+        "".join(f"{swap.get(line, line)}\n" for line in lines))
+    for name, n, seconds, snr, seed in (
+            ("val", CORPUS_VAL, CORPUS_VAL_SECONDS, CORPUS_VAL_SNR, SEED),
+            ("probe", CORPUS_PROBE, CORPUS_PROBE_SECONDS, CORPUS_PROBE_SNR,
+             SEED + 1)):
+        TestSampleGenerator(AudioDataSetConfig(
+            str(clean_dir), str(noise_dir),
+            sub_sample_length_seconds=seconds), root / name, snr=snr,
+            seed=seed).generate(n)
+    data = {"clean_dataset": str(root / "clean.scp"),
+            "noise_dataset": str(root / "noise.scp"),
+            "rir_dataset": str(rir_scp), "snr_range": [-5, 20],
+            "reverb_proportion": 0.75, "silence_length": 0.2,
+            "target_dB_FS": -25, "target_dB_FS_floating_value": 10,
+            "sub_sample_length": 3.072, "sr": 16000}
+    validation = {"val_dir": str(root / "val"),
+                  "probe_dir": str(root / "probe"), "probe_weight": 0.5,
+                  "validation_interval": 1}
+    return data, validation, clean_dir, noise_dir, flac_pairs
+
+
+def _train_config(root, data, validation):
+    """configs/enhance_train.yaml's keys and values, as JSON (PyYAML may be
+    missing where the script runs), pointed at the corpus, validating every
+    epoch with the probe at weight 0.5."""
+    cfg = {"line": "enhance", "checkpoint_dir": str(root / "ckpt"),
+           "train": {"model": CORPUS_MODEL, "n_fft": 512, "hop_length": 256,
+                     "win_length": 512, "learning_rate": 0.001,
+                     "betas": [0.9, 0.999], "clip_grad_norm": 10.0,
+                     "compute_dtype": "bfloat16"},
+           "validation": validation, "data": data,
+           "dataloader": {"global_batch_size": CORPUS_BATCH,
+                          "num_workers": CORPUS_WORKERS, "drop_last": True,
+                          "seed": SEED}}
+    path = root / "train.json"
+    path.write_text(json.dumps(cfg, indent=1))
+    return path
+
+
+@contextlib.contextmanager
+def _instrumented_trainer(steps, validations, restores):
+    """EnhanceTrainer as the CLI builds it, with each train step timed on
+    the host clock (entered when the loader has delivered the batch, left
+    after a synchronize) and its launches counted; each validation run under
+    VAL_GATES_LIMIT with its launches counted; each restore_latest's result,
+    step and best score recorded."""
+    from generative_audio_torch.nn.recurrent import LSTMLayer
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import enhance as E
+    make_step, validate = E.make_enhance_train_step, E.EnhanceTrainer.validate
+    restore = E.EnhanceTrainer.restore_latest
+
+    def launched_since(before):
+        return {k: v - before[k] for k, v in L.launch_counts.items()
+                if v != before[k]}
+
+    def make_timed(config, accum_steps=1):
+        step = make_step(config, accum_steps)
+
+        def timed(state, noisy, clean):
+            t0 = time.perf_counter()
+            before = dict(L.launch_counts)
+            state, loss = step(state, noisy, clean)
+            torch.cuda.synchronize()
+            steps.append({"start": t0, "end": time.perf_counter(),
+                          "step": state.step, "loss": loss.item(),
+                          "launched": launched_since(before),
+                          "rows": tuple(noisy.shape)})
+            return state, loss
+        return timed
+
+    def limited_validate(self, dataset, max_items=10):
+        layers = [m for m in self.state.model.modules()
+                  if isinstance(m, LSTMLayer)]
+        own = [m.gates_bytes_limit for m in layers]
+        before = dict(L.launch_counts)
+        for m in layers:
+            m.gates_bytes_limit = VAL_GATES_LIMIT
+        try:
+            out = validate(self, dataset, max_items)
+        finally:
+            for m, limit in zip(layers, own):
+                m.gates_bytes_limit = limit
+        validations.append((len(dataset), launched_since(before), out))
+        return out
+
+    def recorded_restore(self):
+        out = restore(self)
+        restores.append((out, self.state.step, self.best_score))
+        return out
+
+    with mock.patch.object(E, "make_enhance_train_step", make_timed), \
+            mock.patch.object(E.EnhanceTrainer, "validate", limited_validate), \
+            mock.patch.object(E.EnhanceTrainer, "restore_latest",
+                              recorded_restore):
+        yield
+
+
+@contextlib.contextmanager
+def _hidden_module(name):
+    """`import name` raises ImportError inside the block."""
+    missing = object()
+    saved = sys.modules.get(name, missing)
+    sys.modules[name] = None
+    try:
+        yield
+    finally:
+        if saved is missing:
+            del sys.modules[name]
+        else:
+            sys.modules[name] = saved
+
+
+def _loader_pass(config, workers):
+    """One epoch of BatchLoader over a fresh DNSTrainDataset seeded with
+    SEED: the batches and the host seconds per batch."""
+    from generative_audio_torch.data import (
+        BatchLoader, DNSTrainConfig, DNSTrainDataset)
+    from generative_audio_torch.utils.config import build_dataclass
+    loader = BatchLoader(DNSTrainDataset(build_dataclass(
+        DNSTrainConfig, config), seed=SEED), CORPUS_BATCH, seed=SEED,
+        num_workers=workers)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    return batches, (time.perf_counter() - t0) / len(batches)
+
+
+def phase_corpus_training(dev):
+    """Phase 15: FullSubNet+ trained from a corpus on disk through
+    generative_audio_torch.cli.train (two epochs, then one more with -R),
+    then cli.validate on the best checkpoint. Returns the launches of the
+    CLI runs by kernel."""
+    from generative_audio_torch.cli import train as train_cli
+    from generative_audio_torch.cli import validate as validate_cli
+    from generative_audio_torch.data import (
+        BatchLoader, DNSTrainConfig, DNSTrainDataset, LoopIterator,
+        load_audio, native)
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.utils.config import build_dataclass
+    card = card_line()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, _hidden_module("soundfile"):
+        root = Path(tmp)
+        data, validation, clean_dir, noise_dir, flac_pairs = \
+            _write_corpus(root)
+        log(f"corpus: {CORPUS_CLEAN} clean clips and {CORPUS_NOISE} noise "
+            f"clips of {CORPUS_SECONDS} s ({CORPUS_FLAC} clean clips as FLAC "
+            f"in the clean scp), {CORPUS_RIRS} RIRs, V {CORPUS_VAL} x "
+            f"{CORPUS_VAL_SECONDS} s, P {CORPUS_PROBE} x "
+            f"{CORPUS_PROBE_SECONDS} s: written in "
+            f"{time.perf_counter() - t_phase:.2f} s")
+
+        # FLAC through the native decoder, built at its first use (main
+        # removed a library carried over from another machine)
+        check(native._lib is None and not native._LIB.exists(),
+              "the native library is neither built nor loaded yet")
+        t0 = time.perf_counter()
+        worst = 0.0
+        for flac, wav in flac_pairs:
+            got = load_audio(flac)
+            want = load_audio(wav)
+            check(got.shape == want.shape, f"{flac.name}: length of the WAV")
+            worst = max(worst, float(np.abs(got - want).max()))
+        check(native._lib is not None and native._LIB.exists(),
+              "the FLAC clips decoded through the native binding, built at "
+              f"first use into {native._LIB.parent}")
+        check(worst <= 1 / 32768, f"FLAC == WAV within one int16 step "
+              f"(max |diff| {worst:.3e})")
+        log(f"corpus: {CORPUS_FLAC} FLAC clips decoded by the native binding "
+            f"(soundfile hidden), built at first use in "
+            f"{time.perf_counter() - t0:.2f} s; max |FLAC - WAV| {worst!r}")
+
+        # the loader: the same batches at 1 and 24 workers, its host time
+        passes = {w: _loader_pass(data, w) for w in (1, CORPUS_WORKERS, 1)}
+        one, many = passes[1][0], passes[CORPUS_WORKERS][0]
+        check(len(one) == len(many) == CORPUS_CLEAN // CORPUS_BATCH and all(
+            np.array_equal(a, b) for x, y in zip(one, many)
+            for a, b in zip(x, y)),
+            f"two loader passes with seed {SEED} give identical batches at 1 "
+            f"and {CORPUS_WORKERS} workers")
+        dataset = DNSTrainDataset(build_dataclass(DNSTrainConfig, data),
+                                  seed=SEED)
+        dataset.set_epoch(1)
+        t0 = time.perf_counter()
+        for i in range(len(dataset)):
+            dataset[i]
+        mix_ms = (time.perf_counter() - t0) * 1e3 / len(dataset)
+        log(f"loader: host time per batch of {CORPUS_BATCH} (3.072 s clips, "
+            f"RIR at 0.75): {passes[1][1] * 1e3:.2f} ms at 1 worker, "
+            f"{passes[CORPUS_WORKERS][1] * 1e3:.2f} ms at {CORPUS_WORKERS}; "
+            f"mixing {mix_ms:.3f} ms per clip, serial")
+
+        # training through the CLI: two epochs, then one more with -R
+        cfg_path = _train_config(root, data, validation)
+        steps, validations, restores = [], [], []
+        L.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _instrumented_trainer(steps, validations, restores):
+            first = train_cli.main(["-C", str(cfg_path), "--epochs",
+                                    str(CORPUS_EPOCHS)])
+            first_s = time.perf_counter() - t0
+            ckpt = root / "ckpt"
+            latest = torch.load(ckpt / "latest.pt", map_location="cpu",
+                                weights_only=True)
+            meta = json.loads((ckpt / "best_score.json").read_text())
+            n_first = len(steps)
+            del first
+            t0 = time.perf_counter()
+            second = train_cli.main(["-C", str(cfg_path), "-R", "--epochs",
+                                     "1"])
+            second_s = time.perf_counter() - t0
+        per_epoch = CORPUS_CLEAN // CORPUS_BATCH
+        n_chunks = _chunks(int(CORPUS_VAL_SECONDS * 16000) // 256 + 3, 257,
+                           HIDDEN, VAL_GATES_LIMIT)
+        per_step = {"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2}
+        per_val = {"lstm_scan_fwd_carry": 2 * n_chunks * CORPUS_VAL}
+        per_probe = {"lstm_scan_fwd": 2 * CORPUS_PROBE}
+        log(f"train CLI: steps {[(r['step'], round(r['loss'], 5)) for r in steps]}"
+            f"; validations {[(n, d) for n, d, _ in validations]}; restore "
+            f"{restores}; best_score.json {meta}")
+        check(len(steps) == 3 * per_epoch and n_first == 2 * per_epoch,
+              f"the CLI took {per_epoch} steps an epoch ({len(steps)} steps)")
+        check(all(r["launched"] == per_step
+                  and r["rows"] == (CORPUS_BATCH, 49152) for r in steps),
+              f"every step launched {per_step} and nothing else, on a batch "
+              f"of {CORPUS_BATCH} x 49152")
+        check([(n, d) for n, d, _ in validations]
+              == [(CORPUS_VAL, per_val), (CORPUS_PROBE, per_probe)] * 3,
+              f"each validation of V launched {per_val} (6 s clips in "
+              f"{n_chunks} chunks a layer) and of P {per_probe}")
+        check(all(np.isfinite(r["loss"]) for r in steps)
+              and np.isfinite(second.loss_history).all(),
+              "finite losses")
+        check(meta["probe_weight"] == 0.5 and latest["step"] == n_first
+              and latest["best_score"] == meta["score"],
+              "best_score.json records probe weight 0.5; latest.pt holds "
+              "its score")
+        check(restores == [(True, n_first, latest["best_score"])]
+              and steps[n_first]["step"] == n_first + 1
+              and second.state.step == 3 * per_epoch,
+              "-R resumed at the saved step with the saved best score, and "
+              "its first step continued the count")
+
+        # the best checkpoint through the validate CLI, over an AudioDataset
+        # of the same corpus
+        vcfg = root / "validate.json"
+        model = {k: v for k, v in CORPUS_MODEL.items()
+                 if k != "num_groups_in_drop_band"}
+        vcfg.write_text(json.dumps({"model": model, "data": {
+            "clean_path": str(clean_dir), "noisy_path": str(noise_dir)}}))
+        vbefore = dict(L.launch_counts)
+        t0 = time.perf_counter()
+        means = validate_cli.main([
+            "-C", str(vcfg), "-M", str(ckpt), "-O",
+            str(root / "validation_results.json"), "--max_items",
+            str(CORPUS_VALIDATE_ITEMS)])
+        validate_s = time.perf_counter() - t0
+        written = json.loads((root / "validation_results.json").read_text())
+        vlaunched = {k: v - vbefore[k] for k, v in L.launch_counts.items()
+                     if v != vbefore[k]}
+        check(vlaunched == {"lstm_scan_fwd": 2 * CORPUS_VALIDATE_ITEMS},
+              f"the validate CLI launched kernel A twice a clip "
+              f"({vlaunched})")
+        check(written == means and all(
+            means[k] is not None and np.isfinite(means[k])
+            for k in ("STOI", "SI_SDR")),
+            f"validation_results.json with finite STOI and SI_SDR ({means})")
+        launched = {k: v for k, v in L.launch_counts.items() if v}
+        want = {"lstm_scan_fwd_train": 2 * len(steps),
+                "lstm_scan_bwd": 2 * len(steps),
+                "lstm_scan_fwd_carry": 3 * per_val["lstm_scan_fwd_carry"],
+                "lstm_scan_fwd": 3 * per_probe["lstm_scan_fwd"]
+                + 2 * CORPUS_VALIDATE_ITEMS}
+        check(launched == want,
+              f"phase 15 launched {want} and nothing else (got {launched})")
+        log(f"validate CLI: {CORPUS_VALIDATE_ITEMS} clips of 3 s, "
+            f"{validate_s:.2f} s; validation_results.json means {means}")
+
+        # readings: the step through the CLI's loader (an epoch's second
+        # step: from the end of the first to its own end, so that it holds
+        # the wait for the loader's batch) beside phase 6's in-memory step
+        later = [i for i in range(len(steps)) if i % per_epoch]
+        step_ms = statistics.median(
+            (steps[i]["end"] - steps[i - 1]["end"]) * 1e3 for i in later)
+        wait_ms = statistics.median(
+            (steps[i]["start"] - steps[i - 1]["end"]) * 1e3 for i in later)
+        first_ms = [(r["end"] - r["start"]) * 1e3
+                    for i, r in enumerate(steps) if not i % per_epoch]
+        in_memory = STEP_MS["FullSubNet+"]
+        log(f"train CLI: {CORPUS_EPOCHS} epochs in {first_s:.2f} s, resumed "
+            f"epoch in {second_s:.2f} s; ms per step after an epoch's first "
+            f"(median of {len(later)}) {step_ms:.2f}, of which "
+            f"{wait_ms:.2f} waiting for the loader = "
+            f"{CORPUS_BATCH / step_ms * 1e3:.2f} clips/s; an epoch's first "
+            f"step from its batch's arrival "
+            f"{' '.join(f'{x:.1f}' for x in first_ms)} ms; phase 6's step "
+            f"from an in-memory batch {in_memory:.2f} ms "
+            f"({100 * (step_ms / in_memory - 1):+.1f}%); on {card}")
+
+        # where a loader-fed step's time goes, with the loader's threads at
+        # work on the next batches; then the same trainer's step fed by the
+        # loader (taking a batch submits the next one, whose mixing runs
+        # during the step) and from a batch in memory with the workers
+        # idle, in alternating rounds, each after a pause that lets the
+        # workers finish
+        loader = BatchLoader(dataset, CORPUS_BATCH, seed=SEED,
+                             num_workers=CORPUS_WORKERS)
+        batches = iter(LoopIterator(loader, n_steps=3 + CORPUS_AB_ROUNDS))
+        fed, held = [], []
+        try:
+            _profile(lambda: second.train_epoch([next(batches)]),
+                     f"FullSubNet+ training step fed by the loader "
+                     f"({CORPUS_WORKERS} workers)")
+            in_memory_batch = next(batches)
+            for _ in range(CORPUS_AB_ROUNDS):
+                for times, take in ((fed, lambda: next(batches)),
+                                    (held, lambda: in_memory_batch)):
+                    time.sleep(CORPUS_AB_PAUSE)
+                    t0 = time.perf_counter()
+                    second.train_epoch([take()])          # ends in a fetch
+                    times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            batches.close()
+        fed_ms, held_ms = statistics.median(fed), statistics.median(held)
+        log(f"train step A/B, {CORPUS_AB_ROUNDS} alternating rounds: fed by "
+            f"the loader ({CORPUS_WORKERS} workers mixing the next batch) "
+            f"{' '.join(f'{x:.1f}' for x in fed)} ms, median {fed_ms:.2f}; "
+            f"from a batch in memory, workers idle "
+            f"{' '.join(f'{x:.1f}' for x in held)} ms, median {held_ms:.2f} "
+            f"({100 * (fed_ms / held_ms - 1):+.1f}%); on {card}")
+        del second
+    log(f"phase 15: {time.perf_counter() - t_phase:.2f} s")
+    return {k: v for k, v in launched.items()
+            if k in ("lstm_scan_fwd", "lstm_scan_fwd_carry",
+                     "lstm_scan_fwd_train", "lstm_scan_bwd")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3224,6 +3666,11 @@ def main():
     from generative_audio_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
+    # the native audio library is compiled for the machine it runs on
+    # (-march=native) at its first use, in phase 15: a copy built elsewhere
+    # goes
+    from generative_audio_torch.data import native
+    native._LIB.unlink(missing_ok=True)
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3284,6 +3731,8 @@ def main():
     for name, launched in phase_serving_modes(dev, plus, plus_rtf).items():
         counts[name] += launched
     for name, launched in phase_validation(dev, plus).items():
+        counts[name] += launched
+    for name, launched in phase_corpus_training(dev).items():
         counts[name] += launched
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))

@@ -1,10 +1,13 @@
-"""Audio file I/O for the serving path. The port's own copy of
+"""Audio file I/O for the data pipelines and serving. The port's own copy of
 generative_audio_tpu/data/audio_io.py (read_wav, write_wav, to_mono,
 resample, load_audio): importing the JAX package's data module would pull
-in JAX. WAV goes through scipy; FLAC through `soundfile` where it can be
-imported (the native decoder of native/ is not bound yet)."""
+in JAX. WAV goes through scipy, or through the native decoder
+(data/native.py) with GAT_NATIVE_AUDIO=1; FLAC through `soundfile` where it
+can be imported, else through the native decoder (data/flac.py), which is
+then built at first use."""
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -56,24 +59,36 @@ def resample(data: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(data, target_sr // g, orig_sr // g).astype(np.float32)
 
 
-def _load_flac(path: Path):
-    try:
-        import soundfile as sf
-    except ImportError:
-        raise ImportError(
-            f"{path}: FLAC needs the soundfile package; the native decoder "
-            "is not bound in generative_audio_torch yet (ROADMAP.md, queue A "
-            "item 4)") from None
-    data, file_sr = sf.read(str(path), dtype="float32")
-    return data, file_sr
+def _native_for_wav():
+    """The native decoder and resampler (data/native.py) for WAV when
+    GAT_NATIVE_AUDIO=1 (its library is built at first use; NativeUnavailable
+    when it cannot be); else None, and scipy decodes. The port of the JAX
+    package's _native_if_built, which takes the native path as soon as the
+    library file exists: here load_audio's result does not depend on
+    whether some process has built the library."""
+    if os.environ.get("GAT_NATIVE_AUDIO") != "1":
+        return None
+    from generative_audio_torch.data import native
+    return native
 
 
 def load_audio(path, sr: Optional[int] = 16000) -> np.ndarray:
     """Load a .wav or .flac file as mono float32 at `sr` (None keeps the
-    file's rate)."""
+    file's rate). WAV goes through scipy, or with GAT_NATIVE_AUDIO=1
+    through the native decoder and resampler (scipy where the native decoder
+    refuses the file's format)."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".wav":
+        native = _native_for_wav()
+        if native is not None:
+            try:
+                data, file_sr = native.decode_wav(path.read_bytes())
+                if sr is not None and file_sr != sr:
+                    data = native.resample(data, file_sr, sr)
+                return data
+            except ValueError:
+                pass  # a format the native decoder does not take
         file_sr, data = read_wav(path)
     elif suffix == ".flac":
         data, file_sr = _load_flac(path)
@@ -83,3 +98,15 @@ def load_audio(path, sr: Optional[int] = 16000) -> np.ndarray:
     if sr is not None and file_sr != sr:
         data = resample(data, file_sr, sr)
     return data
+
+
+def _load_flac(path: Path):
+    """FLAC through soundfile where it is installed, else through the
+    native decoder (raises NativeUnavailable when it cannot be built)."""
+    try:
+        import soundfile as sf
+    except ImportError:
+        from generative_audio_torch.data import flac
+        return flac.decode(path)
+    data, file_sr = sf.read(str(path), dtype="float32")
+    return data, file_sr

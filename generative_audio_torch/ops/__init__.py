@@ -1,4 +1,5 @@
-"""Tensor ops of the main path and the LSTM and GRU kernel wrappers."""
+"""Tensor ops of the main path, the LSTM and GRU kernel wrappers, and the
+host-side waveform utilities (numpy) of the data pipelines."""
 from generative_audio_torch.ops.gru import (  # noqa: F401
     GRUScan, gru_dwhh, gru_dwhh_reference, gru_layer_tm_chunked,
     gru_scan_bwd_reference_tm, gru_scan_bwd_streams_reference_tm,
@@ -17,3 +18,4 @@ from generative_audio_torch.ops.norms import get_norm, offline_laplace_norm  # n
 from generative_audio_torch.ops.stft import (  # noqa: F401
     hann_window, istft_ri, prepare_input_from_waveform, stft_ri)
 from generative_audio_torch.ops.subband import band_unfold, drop_band  # noqa: F401
+from generative_audio_torch.ops import waveform  # noqa: F401

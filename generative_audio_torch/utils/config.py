@@ -1,20 +1,21 @@
 """Config files to nested dataclasses: YAML, TOML or JSON -> dict -> dataclass.
 
 The port's own copy of generative_audio_tpu/utils/config.py:23-100
-(load_config_file, merge_config, build_dataclass, dump_config): importing
-the JAX package's utils would pull in JAX. PyYAML is imported only for a
-YAML file.
+(load_config_file, merge_config, initialize_module, build_dataclass,
+dump_config): importing the JAX package's utils would pull in JAX. PyYAML is
+imported only for a YAML file.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 from pathlib import Path
 from typing import (Any, Dict, Optional, Type, TypeVar, get_args, get_origin,
                     get_type_hints)
 
-__all__ = ["load_config_file", "merge_config", "build_dataclass",
-           "dump_config"]
+__all__ = ["load_config_file", "merge_config", "initialize_module",
+           "build_dataclass", "dump_config"]
 
 T = TypeVar("T")
 
@@ -45,6 +46,17 @@ def merge_config(base: Dict, override: Optional[Dict]) -> Dict:
         else:
             out[key] = value
     return out
+
+
+def initialize_module(path: str, args: Optional[Dict] = None,
+                      initialize: bool = True):
+    """Load (and optionally instantiate) a dotted-path object.
+    Ref audio_zen/utils.py:63-99."""
+    module_path, _, name = path.rpartition(".")
+    obj = getattr(importlib.import_module(module_path), name)
+    if initialize:
+        return obj(**(args or {}))
+    return obj
 
 
 def build_dataclass(cls: Type[T], data: Optional[Dict]) -> T:
