@@ -148,11 +148,31 @@ of which fails the run (non-zero exit, no result line):
      loader beside phase 6's, the loader's host time per batch at 1 and 24
      workers, the mixing time per clip, clips per second, a profile of one
      loader-fed step, validation_results.json's means.
+ 16. the denoising-NPPC line at full width, bf16 (scripts/denoising_nppc_e2e
+     .py's configuration: the frozen enhancer FullSubNet+ with one drop_band
+     group, the MultiDirection head with 5 directions and 2 groups; random
+     weights from a numpy seed in the JAX layout, carried across by
+     convert_denoising_nppc): forward_with_pred_crm on a 1 s clip against
+     the float32 model on the CPU and the card's directions orthogonal;
+     five NPPCDenoisingTrainer steps on one 8 x 3.072 s batch with
+     configs/denoising_nppc.yaml's lr, lambda and grace, with exact launches
+     (2 A for the frozen enhancer, 2 C and 2 D for the head), finite
+     objectives, the enhancer bit for bit unchanged and without gradient, a
+     finite non-zero gradient per head tensor, ms per step, clips/s, peak
+     memory and a profile of one step; a 4 x 1 s objective, reconst_err and
+     head gradients in bf16 against the float32 trainer on the CPU;
+     DenoisingNPPCValidator on a 6 s speech-like clip with its clean
+     reference under phase 14's gates limit (kernel B), its 5 x 6 variation
+     wavs against the CPU's float32 model, the PNG's size, the wall time
+     per sample; cli.train's nppc_denoising line with the yaml's train:
+     block (n_dirs 5) on a corpus in a temporary directory, 2 epochs of 2
+     steps and -R for one more, with exact launches per step, the resume
+     and metrics_final_*.json.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
-each variant's own path in phase 12 and around phases 13, 14 and 15 (whose
-launches add to kernel A's, in phases 14 and 15 to kernel B's too, and in
-phase 15 to kernels C's and D's). The second-to-last line of stdout is
+each variant's own path in phase 12 and around phases 13, 14 and 15 and
+each path of phase 16 (whose launches add to kernel A's, in phases 14-16 to
+kernel B's too, and in phases 15-16 to kernels C's and D's). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device.
 """
@@ -161,6 +181,7 @@ import dataclasses
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -237,6 +258,13 @@ BWD_DW_REL, DWHH_ALONE_REL = 1e-2, 1e-3
 # whose gradient norm is above 1e-3 of the largest) the cosine (measured
 # 0.9972 at the lowest) and the ratio of the norms (measured 0.985-1.028).
 TRAIN_LOSS_REL, TRAIN_GRAD_COS, TRAIN_GRAD_RATIO = 5e-3, 0.95, 0.15
+# The denoising-NPPC step (phase 16), bf16 on the card vs the float32
+# trainer on the CPU, 4 x 1 s at the step where lambda reaches its scale:
+# the objective and reconst_err (relative; measured 8.3e-5 and 8.9e-5 on an
+# H100), and per head tensor that carries the gradient the cosine (lowest
+# measured 0.99844) and the ratio of the norms (0.9967-1.0499). The limits
+# keep margins of about 20x, 13x on 1 - cosine and 3x on the norms.
+NPPC_OBJ_REL, NPPC_GRAD_COS, NPPC_GRAD_RATIO = 2e-3, 0.98, 0.15
 # Whole path: bf16 on the card against float32 on the CPU, and chunked
 # against unchunked projections (cuBLAS may round a chunk's bf16 gates
 # differently), both as a share of the output's peak.
@@ -2321,6 +2349,35 @@ def _noise_batch(seed, batch, samples):
     return noisy, clean
 
 
+def _first_grads(named, what):
+    """Hooks on `named` (name, parameter) pairs that record whether each
+    gradient arrives finite and not all zero. Returns a function to call
+    after the first step: it removes the hooks and fails unless every
+    tensor got such a gradient."""
+    named = list(named)
+    flags, names = [], []
+
+    def arrived(name):
+        def hook(param):
+            names.append(name)
+            flags.append(torch.isfinite(param.grad).all()
+                         & (param.grad != 0).any())
+        return hook
+
+    hooks = [p.register_post_accumulate_grad_hook(arrived(k))
+             for k, p in named]
+
+    def verify():
+        for hook in hooks:
+            hook.remove()
+        ok = torch.stack(flags).cpu().tolist()
+        bad = [k for k, good in zip(names, ok) if not good]
+        check(len(ok) == len(named) and not bad,
+              f"every {what} tensor got a finite non-zero gradient in step 1 "
+              f"({len(ok)} of {len(named)} arrived; failing: {bad[:5]})")
+    return verify
+
+
 def phase_training(dev, path, counts):
     """Five steps of EnhanceTrainer at full width on one fixed batch. The
     caller has set the launch counts to 0."""
@@ -2330,18 +2387,8 @@ def phase_training(dev, path, counts):
                              device=dev)
     noisy, clean = (torch.from_numpy(x).to(dev) for x in
                     _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
-    # step one's gradients, as they arrive: finite and not all zero
-    flags, names = [], []
-
-    def grad_arrived(name):
-        def hook(param):
-            names.append(name)
-            flags.append(torch.isfinite(param.grad).all()
-                         & (param.grad != 0).any())
-        return hook
-
-    hooks = [p.register_post_accumulate_grad_hook(grad_arrived(k))
-             for k, p in trainer.state.model.named_parameters()]
+    verify_grads = _first_grads(trainer.state.model.named_parameters(),
+                                "parameter")
     torch.cuda.reset_peak_memory_stats(dev)
     expected = {**dict.fromkeys(counts, 0), **path.per_step}
     losses, times = [], []
@@ -2356,14 +2403,7 @@ def phase_training(dev, path, counts):
               f"{path.name} train step {step + 1} launched {path.per_step} "
               f"and nothing else (got {launched})")
         if step == 0:
-            for hook in hooks:
-                hook.remove()
-            ok = torch.stack(flags).cpu().tolist()
-            n_params = sum(1 for _ in trainer.state.model.parameters())
-            bad = [k for k, good in zip(names, ok) if not good]
-            check(len(ok) == n_params and not bad,
-                  f"every parameter tensor got a finite non-zero gradient in "
-                  f"step 1 ({len(ok)} of {n_params} arrived; failing: {bad[:5]})")
+            verify_grads()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     log(f"train {path.name}: batch {TRAIN_BATCH} x {TRAIN_SAMPLES / 16000:.3f} "
         f"s, bf16, losses {' '.join(f'{x:.5f}' for x in losses)}")
@@ -2511,12 +2551,15 @@ MODE_SECONDS = 3             # the four modes' and the sub-band mode's clip
 OOM_BATCH, OOM_SECONDS = 8, 30
 
 
+def _launched(counts, before):
+    return {k: v - before[k] for k, v in counts.items() if v != before[k]}
+
+
 def _count(counts, fn, expected, what):
     """fn(), checked to launch exactly `expected` ({entry: launches})."""
     before = dict(counts)
     out = fn()
-    launched = {k: counts[k] - before[k] for k in counts
-                if counts[k] != before[k]}
+    launched = _launched(counts, before)
     check(launched == expected,
           f"{what} launched {expected} and nothing else (got {launched})")
     return out
@@ -3374,10 +3417,6 @@ def _instrumented_trainer(steps, validations, restores):
     make_step, validate = E.make_enhance_train_step, E.EnhanceTrainer.validate
     restore = E.EnhanceTrainer.restore_latest
 
-    def launched_since(before):
-        return {k: v - before[k] for k, v in L.launch_counts.items()
-                if v != before[k]}
-
     def make_timed(config, accum_steps=1):
         step = make_step(config, accum_steps)
 
@@ -3388,7 +3427,7 @@ def _instrumented_trainer(steps, validations, restores):
             torch.cuda.synchronize()
             steps.append({"start": t0, "end": time.perf_counter(),
                           "step": state.step, "loss": loss.item(),
-                          "launched": launched_since(before),
+                          "launched": _launched(L.launch_counts, before),
                           "rows": tuple(noisy.shape)})
             return state, loss
         return timed
@@ -3405,7 +3444,7 @@ def _instrumented_trainer(steps, validations, restores):
         finally:
             for m, limit in zip(layers, own):
                 m.gates_bytes_limit = limit
-        validations.append((len(dataset), launched_since(before), out))
+        validations.append((len(dataset), _launched(L.launch_counts, before), out))
         return out
 
     def recorded_restore(self):
@@ -3659,6 +3698,386 @@ def phase_corpus_training(dev):
                      "lstm_scan_fwd_train", "lstm_scan_bwd")}
 
 
+# Phase 16: the denoising-NPPC line at full width, bf16:
+# scripts/denoising_nppc_e2e.py's configuration (the frozen enhancer
+# FullSubNetPlusConfig(num_groups_in_drop_band=1), the head
+# MultiDirectionConfig(n_directions=5, num_groups_in_drop_band=2), STFT
+# 512/256/512) and configs/denoising_nppc.yaml's optimizer (lr 1e-4, lambda
+# 0.1, grace 200).
+NPPC_ENHANCER = {"num_groups_in_drop_band": 1}
+NPPC_HEAD = {"n_directions": 5, "num_groups_in_drop_band": 2}
+NPPC_BATCH, NPPC_SAMPLES, NPPC_STEPS = 8, 49152, 5
+NPPC_REF_BATCH, NPPC_REF_SAMPLES = 4, 16000
+NPPC_VAL_SECONDS, NPPC_VAL_SNR = 6.0, 5.0
+# configs/denoising_nppc.yaml's train: block, as JSON (the card's machine
+# has no PyYAML); its model is the config's default, so the head trains
+# without drop_band there
+NPPC_CLI_TRAIN = {"n_dirs": 5, "learning_rate": 0.0001,
+                  "second_moment_loss_lambda": 0.1,
+                  "second_moment_loss_grace": 200}
+NPPC_CLI_CLEAN, NPPC_CLI_NOISE, NPPC_CLI_SECONDS = 16, 4, 4.0
+NPPC_CLI_WORKERS, NPPC_CLI_STEPS = 8, 2
+# Gram-Schmidt runs in float32 on the card: the largest |<w_i, w_j>| of two
+# unit directions of one clip (D = 2 x 257 x 63 elements)
+NPPC_ORTHO_ABS = 1e-4
+
+
+def nppc_config():
+    from generative_audio_torch.models import (
+        DenoisingNPPCConfig, FullSubNetPlusConfig, MultiDirectionConfig,
+        StftConfig)
+    return DenoisingNPPCConfig(
+        restoration=FullSubNetPlusConfig(**NPPC_ENHANCER),
+        pc_wrapper=MultiDirectionConfig(**NPPC_HEAD),
+        stft=StftConfig(512, 256, 512))
+
+
+def _nppc_train_config(cfg):
+    from generative_audio_torch.train import NPPCDenoisingTrainConfig
+    return NPPCDenoisingTrainConfig(
+        model=cfg, learning_rate=NPPC_CLI_TRAIN["learning_rate"],
+        second_moment_loss_lambda=NPPC_CLI_TRAIN["second_moment_loss_lambda"],
+        second_moment_loss_grace=NPPC_CLI_TRAIN["second_moment_loss_grace"])
+
+
+def _nppc_trainer(cfg, params, device, dtype, checkpoint_dir=None):
+    """NPPCDenoisingTrainer with the enhancer and the head from `params`
+    (the JAX layout)."""
+    from generative_audio_torch.train import NPPCDenoisingTrainer
+    from generative_audio_torch.utils import convert
+    trainer = NPPCDenoisingTrainer(
+        _nppc_train_config(cfg),
+        restoration_params=params["pretrained_restoration_model"],
+        checkpoint_dir=checkpoint_dir, seed=SEED, device=device,
+        compute_dtype=dtype)
+    trainer.state.model.audio_pc_wrapper.net.load_state_dict(
+        convert.convert_multidirection(params["audio_pc_wrapper"]["net"]))
+    return trainer
+
+
+def _nppc_model_check(dev, cfg, sd, counts):
+    """A 1 s clip through forward_with_pred_crm, the card (bf16) against the
+    float32 model on the CPU, and the card's directions orthogonal."""
+    from generative_audio_torch.models import DenoisingNPPCModel
+    card_model = DenoisingNPPCModel(cfg, compute_dtype=torch.bfloat16,
+                                    device=dev)
+    card_model.load_state_dict(sd)
+    cpu_model = DenoisingNPPCModel(cfg, compute_dtype=torch.float32,
+                                   device="cpu")
+    cpu_model.load_state_dict(sd)
+    wav = torch.from_numpy(np.random.default_rng(SEED + 21).standard_normal(
+        (1, 16000)).astype(np.float32) * 0.1)
+    before = dict(counts)
+    with torch.inference_mode():
+        w_card, crm_card = card_model.forward_with_pred_crm(wav.to(dev))
+        w_card, crm_card = w_card.cpu(), crm_card.cpu()
+        w_cpu, crm_cpu = cpu_model.forward_with_pred_crm(wav)
+    launched = _launched(counts, before)
+    check(launched == {"lstm_scan_fwd": 4},
+          f"a 1 s forward launched 2 lstm_scan_fwd for the enhancer and 2 for "
+          f"the head, nothing else (got {launched})")
+    check(w_card.dtype == torch.float32 and torch.isfinite(w_card).all()
+          and w_card.shape == w_cpu.shape, "w_mat float32, finite, shaped")
+    rel_w = ((w_card - w_cpu).abs().max() / w_cpu.abs().max()).item()
+    rel_c = ((crm_card - crm_cpu).abs().max() / crm_cpu.abs().max()).item()
+    w = w_card.double()
+    z = torch.complex(w[:, :, 0], w[:, :, 1]).flatten(2)[0]       # [K, D]
+    unit = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+    gram = (unit.conj() @ unit.T).abs()
+    off = (gram - torch.diag(torch.diagonal(gram))).max().item()
+    log(f"nppc model: 1 s clip, w_mat {tuple(w_card.shape)}: card (bf16) vs "
+        f"CPU (float32) max|err|/peak w_mat {rel_w:.3e}, cRM {rel_c:.3e}; "
+        f"largest |<w_i, w_j>| of the card's unit directions {off:.3e}; "
+        f"launches {launched}")
+    check(rel_w < PATH_REL and rel_c < PATH_REL,
+          f"nppc forward card vs CPU within {PATH_REL} of the peak")
+    check(off < NPPC_ORTHO_ABS,
+          f"the card's directions orthogonal within {NPPC_ORTHO_ABS}")
+    return card_model, cpu_model, launched
+
+
+def _nppc_training(dev, cfg, params, counts):
+    """Five steps of NPPCDenoisingTrainer on one seeded batch. Returns the
+    trainer, the batch and the launches."""
+    trainer = _nppc_trainer(cfg, params, dev, torch.bfloat16)
+    model = trainer.state.model
+    enhancer = model.pretrained_restoration_model
+    frozen = {k: v.clone() for k, v in enhancer.state_dict().items()}
+    noisy, clean = (torch.from_numpy(x).to(dev) for x in
+                    _noise_batch(SEED + 22, NPPC_BATCH, NPPC_SAMPLES))
+    verify_grads = _first_grads(model.audio_pc_wrapper.named_parameters(),
+                                "head")
+    per_step = {"lstm_scan_fwd": 2, "lstm_scan_fwd_train": 2,
+                "lstm_scan_bwd": 2}
+    torch.cuda.reset_peak_memory_stats(dev)
+    objectives, reconst, times = [], [], []
+    start = dict(counts)
+    for step in range(NPPC_STEPS):
+        before = dict(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obj, rec = trainer.train_step(noisy, clean)
+        objectives.append(obj.item())                        # a fetch
+        times.append((time.perf_counter() - t0) * 1e3)
+        reconst.append(rec.item())
+        launched = _launched(counts, before)
+        check(launched == per_step,
+              f"nppc train step {step + 1} launched {per_step} and nothing "
+              f"else (got {launched})")
+        if step == 0:
+            verify_grads()
+    launched = _launched(counts, start)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(np.isfinite(objectives).all() and np.isfinite(reconst).all(),
+          "nppc objectives finite")
+    check(trainer.state.step == NPPC_STEPS, "five optimizer steps counted")
+    check(all(torch.equal(v, frozen[k])
+              for k, v in enhancer.state_dict().items())
+          and all(p.grad is None for p in enhancer.parameters()),
+          "the frozen enhancer bit for bit unchanged, with no gradient")
+    steady = statistics.median(times[1:])
+    log(f"train nppc: batch {NPPC_BATCH} x {NPPC_SAMPLES / 16000:.3f} s, "
+        f"{cfg.pc_wrapper.n_directions} directions, bf16: objectives "
+        f"{' '.join(f'{x:.6f}' for x in objectives)}, reconst_err "
+        f"{' '.join(f'{x:.6f}' for x in reconst)}; the enhancer unchanged")
+    log(f"train nppc: ms per step {' '.join(f'{x:.1f}' for x in times)}; "
+        f"median of steps 2-{NPPC_STEPS} {steady:.2f} ms = "
+        f"{NPPC_BATCH / steady * 1e3:.2f} clips/s; peak memory {peak:.2f} GiB "
+        f"on {card_line()}")
+    return trainer, (noisy, clean), launched
+
+
+def _nppc_reference(dev, cfg, params):
+    """A 4 x 1 s batch: the objective, reconst_err and the head's gradients
+    in bf16 on the card against the float32 trainer on the CPU, at the
+    step where lambda reaches its scale (both terms of the objective)."""
+    import torch.nn.functional as F
+    noisy, clean = (torch.from_numpy(x) for x in
+                    _noise_batch(SEED + 23, NPPC_REF_BATCH, NPPC_REF_SAMPLES))
+    step = NPPC_CLI_TRAIN["second_moment_loss_grace"]
+    out = {}
+    for name, device, dtype in (("card", dev, torch.bfloat16),
+                                ("cpu", "cpu", torch.float32)):
+        trainer = _nppc_trainer(cfg, params, device, dtype)
+        obj, rec, _ = trainer.objective(noisy.to(device), clean.to(device),
+                                        step)
+        obj.backward()
+        out[name] = (obj.item(), rec.mean().item(), {
+            k: p.grad.float().cpu() for k, p in
+            trainer.state.model.audio_pc_wrapper.named_parameters()})
+    rel_obj = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    rel_rec = abs(out["card"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+    top = max(g.norm().item() for g in out["cpu"][2].values())
+    rows = []
+    for k, want in out["cpu"][2].items():
+        got = out["card"][2][k]
+        cos = F.cosine_similarity(got.flatten(), want.flatten(), dim=0).item()
+        rows.append((cos, got.norm().item() / max(want.norm().item(), 1e-30),
+                     want.norm().item() / top, k))
+    carrying = [r for r in rows if r[2] > 1e-3]
+    worst = min(carrying)
+    ratios = [r[1] for r in carrying]
+    log(f"nppc reference: {NPPC_REF_BATCH} x {NPPC_REF_SAMPLES / 16000:.0f} s "
+        f"at step {step}, bf16 on the card vs float32 on the CPU: objective "
+        f"{out['card'][0]:.7f} vs {out['cpu'][0]:.7f} (rel {rel_obj:.3e}), "
+        f"reconst_err {out['card'][1]:.7f} vs {out['cpu'][1]:.7f} (rel "
+        f"{rel_rec:.3e}); of {len(rows)} head tensors {len(carrying)} carry "
+        f"the gradient: lowest cosine {worst[0]:.5f} ({worst[3]}), norm "
+        f"ratios {min(ratios):.4f}-{max(ratios):.4f}")
+    for cos, ratio, share, k in sorted(rows)[:6]:
+        log(f"  {k}: cosine {cos:.5f}, norm ratio {ratio:.4f}, "
+            f"norm/largest {share:.2e}")
+    check(rel_obj < NPPC_OBJ_REL and rel_rec < NPPC_OBJ_REL,
+          f"bf16 objective and reconst_err vs float32 within {NPPC_OBJ_REL}")
+    check(worst[0] > NPPC_GRAD_COS
+          and all(abs(r - 1) < NPPC_GRAD_RATIO for r in ratios),
+          f"bf16 head gradients vs float32: cosine above {NPPC_GRAD_COS}, "
+          f"norms within {NPPC_GRAD_RATIO}")
+
+
+def _nppc_validation(dev, card_model, cpu_model, counts):
+    """DenoisingNPPCValidator on a 6 s clip with its clean reference, the
+    model's LSTM layers under VAL_GATES_LIMIT (kernel B): the files, the
+    figure's size, the variations against the CPU's float32 model, and the
+    wall time per sample."""
+    from generative_audio_torch.data import read_wav
+    from generative_audio_torch.eval import (
+        DenoisingNPPCValidator, DenoisingNPPCValidatorConfig)
+    from generative_audio_torch.eval.nppc_denoising_validator import (
+        figure_size)
+    from generative_audio_torch.nn.recurrent import LSTMLayer
+    noisy, clean = _speech_pair(SEED + 24, NPPC_VAL_SECONDS, NPPC_VAL_SNR)
+    frames = len(noisy) // 256 + 1
+    n_chunks = _chunks(frames + 2, 257, HIDDEN, VAL_GATES_LIMIT)
+    expected = {"lstm_scan_fwd_carry": 2 * 2 * n_chunks}
+    layers = {m: m.gates_bytes_limit for m in card_model.modules()
+              if isinstance(m, LSTMLayer)}
+    for layer in layers:
+        layer.gates_bytes_limit = VAL_GATES_LIMIT
+    n_dirs = card_model.config.pc_wrapper.n_directions
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {}
+        walls = []
+        launched = None
+        for name, model, device, runs in (
+                ("card", card_model, dev, 2), ("cpu", cpu_model, "cpu", 1)):
+            val = DenoisingNPPCValidator(
+                model.forward_with_pred_crm, None,
+                DenoisingNPPCValidatorConfig(save_dir=str(Path(tmp) / name)),
+                device=device)
+            for i in range(runs):
+                before = dict(counts)
+                t0 = time.perf_counter()
+                out = val.validate_sample(noisy, clean_waveform=clean,
+                                          sample_idx=i)
+                if name == "card":
+                    walls.append(time.perf_counter() - t0)
+                    got = _launched(counts, before)
+                    check(got == expected,
+                          f"the validator's {NPPC_VAL_SECONDS} s clip launched "
+                          f"{expected} ({n_chunks} chunks a layer, enhancer "
+                          f"and head), nothing else (got {got})")
+                    launched = {k: (launched or {}).get(k, 0) + v
+                                for k, v in got.items()}
+            dirs[name] = Path(out["save_dir"])
+        files = sorted(p.name for p in dirs["card"].iterdir())
+        wavs = [f for f in files if f.startswith("pc") and f.endswith(".wav")]
+        check(len(wavs) == n_dirs * 6 and {"enhanced.wav", "noisy.wav",
+                                            "clean.wav"} <= set(files),
+              f"{n_dirs} x 6 variation wavs and enhanced, noisy, clean "
+              f"({files})")
+        png = (dirs["card"] / "pc_spectrograms_variations.png").read_bytes()
+        size = struct.unpack(">II", png[16:24])
+        want_size = figure_size(n_dirs, 6, 257, frames)
+        check(png[:8] == b"\x89PNG\r\n\x1a\n" and png[12:16] == b"IHDR"
+              and size == want_size,
+              f"the figure is a PNG of {want_size} pixels (got {size})")
+        worst = 0.0
+        for f in wavs + ["enhanced.wav"]:
+            a = read_wav(dirs["card"] / f)[1]
+            b = read_wav(dirs["cpu"] / f)[1]
+            worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    for layer, own in layers.items():
+        layer.gates_bytes_limit = own
+    log(f"nppc validator: {NPPC_VAL_SECONDS} s clip, gates limit "
+        f"{VAL_GATES_LIMIT >> 20} MiB ({n_chunks} chunks a layer): launches "
+        f"a sample {expected}; {len(wavs)} variation wavs, figure "
+        f"{want_size[0]} x {want_size[1]} px ({len(png)} B); the card's "
+        f"wavs vs the CPU's float32 model, max|err|/peak {worst:.3e}; wall "
+        f"per sample {' '.join(f'{w * 1e3:.1f}' for w in walls)} ms (the "
+        f"second is the reading) on {card_line()}")
+    check(worst < PATH_REL,
+          f"the validator's wavs card vs CPU within {PATH_REL} of the peak")
+    return launched
+
+
+def _nppc_cli(dev, counts):
+    """cli.train's nppc_denoising line on a corpus in a temporary directory:
+    2 epochs of NPPC_CLI_STEPS steps, then -R for one more."""
+    from generative_audio_torch.cli import train as train_cli
+    from generative_audio_torch.data import write_synthetic_corpus
+    from generative_audio_torch.train import nppc as N
+    steps, restores = [], []
+    train_step, restore = (N.NPPCDenoisingTrainer.train_step,
+                           N.NPPCDenoisingTrainer.restore_latest)
+
+    def counted_step(self, noisy, clean):
+        before = dict(counts)
+        t0 = time.perf_counter()
+        out = train_step(self, noisy, clean)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, _launched(counts, before)))
+        return out
+
+    def recorded_restore(self):
+        out = restore(self)
+        restores.append((out, self.state.step))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(N.NPPCDenoisingTrainer, "train_step",
+                              counted_step), \
+            mock.patch.object(N.NPPCDenoisingTrainer, "restore_latest",
+                              recorded_restore):
+        root = Path(tmp)
+        clean_dir, noise_dir = write_synthetic_corpus(
+            root, n_clean=NPPC_CLI_CLEAN, n_noise=NPPC_CLI_NOISE,
+            seconds=NPPC_CLI_SECONDS, seed=SEED)
+        cfg = {"line": "nppc_denoising", "checkpoint_dir": str(root / "ckpt"),
+               "train": NPPC_CLI_TRAIN,
+               "data": {"clean_path": str(clean_dir),
+                        "noisy_path": str(noise_dir),
+                        "sub_sample_length_seconds": 3.0},
+               "dataloader": {"num_workers": NPPC_CLI_WORKERS, "seed": SEED}}
+        path = root / "nppc.json"
+        path.write_text(json.dumps(cfg, indent=1))
+        argv = ["-C", str(path), "--steps", str(NPPC_CLI_STEPS)]
+        before = dict(counts)
+        first = train_cli.main(argv + ["--epochs", "2"])
+        second = train_cli.main(argv + ["--epochs", "1", "-R"])
+        launched = _launched(counts, before)
+        metrics = sorted((root / "ckpt").glob("metrics_final_*.json"))
+        final = json.loads(metrics[-1].read_text()) if metrics else {}
+    n = 3 * NPPC_CLI_STEPS
+    per_step = {"lstm_scan_fwd": 2, "lstm_scan_fwd_train": 2,
+                "lstm_scan_bwd": 2}
+    n_dirs = [t.state.model.config.pc_wrapper.n_directions
+              for t in (first, second)]
+    log(f"nppc CLI: {NPPC_CLI_CLEAN} clean + {NPPC_CLI_NOISE} noise clips of "
+        f"{NPPC_CLI_SECONDS} s, batch 8 x 3.0 s, {NPPC_CLI_WORKERS} workers: "
+        f"{n_dirs} directions, objectives {first.loss_history} then "
+        f"{second.loss_history}, restores {restores}, steps "
+        f"{' '.join(f'{s * 1e3:.1f}' for s, _ in steps)} ms, final metrics "
+        f"{final}")
+    check(n_dirs == [5, 5], "the yaml's n_dirs built 5 directions")
+    check(len(steps) == n and all(got == per_step for _, got in steps),
+          f"each CLI step launched {per_step} and nothing else")
+    check(restores == [(True, 2 * NPPC_CLI_STEPS)]
+          and second.state.step == n,
+          f"-R resumed at step {2 * NPPC_CLI_STEPS} and ran to {n}")
+    check(final.get("total_steps") == n
+          and np.isfinite(first.loss_history + second.loss_history).all(),
+          "metrics_final_*.json written, finite objectives")
+    return launched
+
+
+def phase_nppc_denoising(dev):
+    """Phase 16: the denoising-NPPC line at full width, bf16. Returns the
+    launches of its paths by kernel (the model's forward, the training
+    steps, the validator and the CLI; not the comparisons)."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.utils import convert
+    t_phase = time.perf_counter()
+    cfg = nppc_config()
+    params = convert.random_denoising_nppc_params(cfg, seed=SEED + 20)
+    sd = convert.convert_denoising_nppc(params)
+    counts = L.launch_counts
+    L.reset_launch_counts()
+    card_model, cpu_model, launched = _nppc_model_check(dev, cfg, sd, counts)
+    total = dict(launched)
+    L.reset_launch_counts()
+    trainer, (noisy, clean), launched = _nppc_training(dev, cfg, params,
+                                                       counts)
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+    _profile(lambda: trainer.train_step(noisy, clean),
+             f"nppc training step, batch {NPPC_BATCH} x "
+             f"{NPPC_SAMPLES / 16000:.3f} s, {cfg.pc_wrapper.n_directions} "
+             f"directions")
+    del trainer, noisy, clean
+    _nppc_reference(dev, cfg, params)
+    L.reset_launch_counts()
+    for k, v in _nppc_validation(dev, card_model, cpu_model, counts).items():
+        total[k] = total.get(k, 0) + v
+    del card_model, cpu_model
+    L.reset_launch_counts()
+    for k, v in _nppc_cli(dev, counts).items():
+        total[k] = total.get(k, 0) + v
+    log(f"launches on the denoising-NPPC paths of phase 16: {total}")
+    log(f"phase 16: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3733,6 +4152,8 @@ def main():
     for name, launched in phase_validation(dev, plus).items():
         counts[name] += launched
     for name, launched in phase_corpus_training(dev).items():
+        counts[name] += launched
+    for name, launched in phase_nppc_denoising(dev).items():
         counts[name] += launched
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))

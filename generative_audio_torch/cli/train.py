@@ -4,8 +4,9 @@
         [-R] [--steps N] [--epochs N] [--device cpu]
 
 Port of generative_audio_tpu/cli/train.py. The config's `line` picks the
-model line; the port trains the `enhance` line (FullSubNet+ or FullSubNet
-v1, `train:` is the EnhanceTrainConfig), wired as the JAX CLI wires it:
+model line; the port trains two. The `enhance` line (FullSubNet+ or
+FullSubNet v1, `train:` is the EnhanceTrainConfig) is wired as the JAX CLI
+wires it:
 DNSTrainDataset when `data:` names a `clean_dataset` scp (the DNS regime),
 else AudioDataset over clean and noise directories; BatchLoader with
 `dataloader:` (global_batch_size 18 by default); EnhanceTrainer writing
@@ -13,14 +14,19 @@ to `checkpoint_dir`; `-R` resumes from its latest checkpoint; the optional
 `validation:` block (val_dir, probe_dir, validation_interval, probe_weight)
 turns on in-loop validation and best-model selection. The dataset is
 seeded with the loader's `seed` (default 0), so a run is repeatable.
+The `nppc_denoising` line (`train:` is the NPPCDenoisingTrainConfig) trains
+uncertainty directions over a frozen FullSubNet+ on AudioDataset batches
+(global_batch_size 8 by default); as in the JAX CLI, no enhancer checkpoint
+is loaded, so the frozen enhancer keeps its seeded init. A `train.n_dirs`
+key sets `model.pc_wrapper.n_directions`, the intent of
+configs/denoising_nppc.yaml, which the JAX CLI refuses as an unknown key.
 `--epochs` (default 1) counts passes over the loader; `--steps N` makes each
 epoch N steps, looping the loader (LoopIterator). `--device` is `cuda`
 (default; raises without a CUDA device) or `cpu`.
 
-The other lines (restoration, nppc_inpainting, nppc_denoising,
-image_restoration, image_nppc) and `--distributed` raise
-NotImplementedError until their slices are ported (ROADMAP.md, queue A
-items 6-9).
+The other lines (restoration, nppc_inpainting, image_restoration,
+image_nppc) and `--distributed` raise NotImplementedError until their
+slices are ported (ROADMAP.md, queue A items 6, 8 and 9).
 """
 from __future__ import annotations
 
@@ -30,17 +36,35 @@ from generative_audio_torch.utils.config import (
     build_dataclass, load_config_file)
 from generative_audio_torch.utils.logging import get_logger
 
-__all__ = ["main"]
+__all__ = ["main", "nppc_denoising_config"]
 
 # the JAX CLI's other lines, and the item of ROADMAP.md's queue A that
 # ports each
 _UNPORTED_LINES = {"restoration": 8, "nppc_inpainting": 8,
-                   "nppc_denoising": 7, "image_restoration": 9,
-                   "image_nppc": 9}
+                   "image_restoration": 9, "image_nppc": 9}
+
+
+def nppc_denoising_config(train):
+    """The `train:` block of an nppc_denoising config -> the
+    NPPCDenoisingTrainConfig. `n_dirs` sets model.pc_wrapper.n_directions (a
+    ValueError where both are given and differ); every other key builds as
+    strictly as build_dataclass does."""
+    from generative_audio_torch.train import NPPCDenoisingTrainConfig
+    train = dict(train or {})
+    if "n_dirs" in train:
+        n_dirs = train.pop("n_dirs")
+        model = dict(train.get("model") or {})
+        head = dict(model.get("pc_wrapper") or {})
+        if head.setdefault("n_directions", n_dirs) != n_dirs:
+            raise ValueError(
+                f"train.n_dirs = {n_dirs} but train.model.pc_wrapper."
+                f"n_directions = {head['n_directions']}")
+        train["model"] = {**model, "pc_wrapper": head}
+    return build_dataclass(NPPCDenoisingTrainConfig, train)
 
 
 def main(argv=None):
-    """Run the CLI; returns the EnhanceTrainer after its last epoch."""
+    """Run the CLI; returns the trainer after its last epoch."""
     parser = argparse.ArgumentParser(
         description="generative_audio_torch train")
     parser.add_argument("-C", "--configuration", required=True)
@@ -65,11 +89,12 @@ def main(argv=None):
         raise NotImplementedError(
             f"training line {line!r} is not ported yet (ROADMAP.md, queue A "
             f"item {_UNPORTED_LINES[line]})")
-    if line != "enhance":
+    if line not in ("enhance", "nppc_denoising"):
         raise ValueError(f"Unknown training line {line!r}")
     checkpoint_dir = raw.pop("checkpoint_dir", "checkpoints")
     data_cfg = raw.pop("data")
-    loader_cfg = {"global_batch_size": 18, **raw.pop("dataloader", {})}
+    loader_cfg = {"global_batch_size": 18 if line == "enhance" else 8,
+                  **raw.pop("dataloader", {})}
     val_cfg = raw.pop("validation", None)
     log = get_logger().info
 
@@ -77,12 +102,11 @@ def main(argv=None):
         AudioDataSetConfig, AudioDataset, BatchLoader, DNSTrainConfig,
         DNSTrainDataset, LoopIterator)
     from generative_audio_torch.train import (
-        EnhanceTrainConfig, EnhanceTrainer)
+        EnhanceTrainConfig, EnhanceTrainer, NPPCDenoisingTrainer)
     from generative_audio_torch.utils.device import resolve_device
     device = resolve_device(args.device)
-    cfg = build_dataclass(EnhanceTrainConfig, raw.get("train"))
     seed = loader_cfg.get("seed", 0)
-    if "clean_dataset" in data_cfg:         # DNS scp regime
+    if line == "enhance" and "clean_dataset" in data_cfg:   # DNS scp regime
         dataset = DNSTrainDataset(build_dataclass(DNSTrainConfig, data_cfg),
                                   seed=seed)
     else:
@@ -91,10 +115,19 @@ def main(argv=None):
     loader = BatchLoader(dataset, **loader_cfg)
     if args.steps is not None:
         loader = LoopIterator(loader, n_steps=args.steps)
-    trainer = EnhanceTrainer(cfg, checkpoint_dir=checkpoint_dir,
-                             device=device)
+    if line == "nppc_denoising":
+        trainer = NPPCDenoisingTrainer(
+            nppc_denoising_config(raw.get("train")),
+            checkpoint_dir=checkpoint_dir, device=device)
+    else:
+        trainer = EnhanceTrainer(
+            build_dataclass(EnhanceTrainConfig, raw.get("train")),
+            checkpoint_dir=checkpoint_dir, device=device)
     if args.resume:
         trainer.restore_latest()
+    if line == "nppc_denoising":
+        trainer.train(loader, n_epochs=args.epochs or 1, log=log)
+        return trainer
     val_ds = probe_ds = None
     val_interval, probe_weight = 1, 0.0
     if val_cfg:

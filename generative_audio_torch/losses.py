@@ -1,14 +1,20 @@
-"""Training objectives of the enhancement line.
+"""Training objectives of the enhancement and denoising-NPPC lines.
 
 Port of generative_audio_tpu/losses.py:34-71 (cirm_mse_loss, cirm_l1_loss,
-si_snr_loss), with the reference's eps placements. The masked-MSE and NPPC
-objectives wait for their trainers (ROADMAP.md, queue A items 10-11).
+si_snr_loss), with the reference's eps placements, and :85-89, :180-221
+(second_moment_lambda, nppc_objective_complex: the denoising line's NPPC
+objective in cRM space). The masked-MSE loss and the real and MC-aligned
+NPPC objectives wait for the inpainting and image lines (ROADMAP.md, queue A
+items 8-9).
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
-__all__ = ["cirm_mse_loss", "cirm_l1_loss", "si_snr_loss"]
+__all__ = ["cirm_mse_loss", "cirm_l1_loss", "si_snr_loss",
+           "second_moment_lambda", "nppc_objective_complex"]
 
 
 def cirm_mse_loss(pred_crm: torch.Tensor, gt_cirm: torch.Tensor) -> torch.Tensor:
@@ -40,3 +46,52 @@ def si_snr_loss(enhanced: torch.Tensor, reference: torch.Tensor,
     t = dot * s_zm / (s_energy + eps)
     return -torch.mean(20.0 * torch.log10(
         eps + safe_norm(t) / (safe_norm(x_zm - t) + eps)))
+
+
+def second_moment_lambda(step, grace: int,
+                         scale: float = 1.0) -> torch.Tensor:
+    """The second-moment weight: -1 + 2 * step / grace, clamped to
+    [1e-6, 1], times scale (a 0-d float32 tensor)."""
+    lam = -1.0 + 2.0 * torch.as_tensor(step, dtype=torch.float32) / grace
+    return torch.clamp(lam, 1e-6, 1.0) * scale
+
+
+def nppc_objective_complex(w_mat: torch.Tensor, gt_crm: torch.Tensor,
+                           pred_crm: torch.Tensor, step, grace: int,
+                           lambda_scale: float = 1.0, eps: float = 1e-8
+                           ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """The denoising line's NPPC objective, complex maths in real pairs.
+
+    w_mat [B, n_dirs, 2, F, T] cRM directions; gt_crm, pred_crm
+    [B, 2, F, T] compressed masks (after drop_band); step: the optimizer's
+    step, for the lambda ramp. Returns (reconst_err [B], the objective, a
+    log dict). Every sum is in float32."""
+    w_mat, gt_crm, pred_crm = w_mat.float(), gt_crm.float(), pred_crm.float()
+    b, n_dirs = w_mat.shape[:2]
+    w_flat = w_mat.reshape(b, n_dirs, 2, -1)                   # [B, K, 2, D]
+    w_norms = torch.sqrt(torch.sum(torch.square(w_flat), dim=(2, 3)))
+    w_hat = w_flat / (w_norms[:, :, None, None] + eps)
+
+    err = (gt_crm - pred_crm).reshape(b, 2, -1)                # [B, 2, D]
+    err_norm = torch.sqrt(torch.sum(torch.square(err), dim=(1, 2)))
+    err = err / (err_norm[:, None, None] + eps)
+    w_norms = w_norms / (err_norm[:, None] + eps)
+
+    # err_proj = sum(conj(w_hat) * err) over D:
+    # (wr - i wi)(er + i ei) = (wr er + wi ei) + i (wr ei - wi er)
+    wr, wi = w_hat[:, :, 0], w_hat[:, :, 1]                    # [B, K, D]
+    er, ei = err[:, 0][:, None], err[:, 1][:, None]            # [B, 1, D]
+    proj_r = torch.sum(wr * er + wi * ei, dim=-1)              # [B, K]
+    proj_i = torch.sum(wr * ei - wi * er, dim=-1)
+    err_proj_mag = torch.sqrt(proj_r ** 2 + proj_i ** 2)
+
+    reconst_err = 1.0 - torch.sum(torch.square(err_proj_mag), dim=1)
+    second_moment_mse = torch.square(
+        torch.square(w_norms) - torch.square(err_proj_mag).detach())
+    lam = second_moment_lambda(step, grace, lambda_scale).to(w_mat.device)
+    objective = torch.mean(reconst_err) + lam * torch.mean(second_moment_mse)
+    log = {"err_proj_mag": err_proj_mag, "w_norms": w_norms,
+           "reconst_err": reconst_err,
+           "second_moment_mse": second_moment_mse,
+           "second_moment_lambda": lam}
+    return reconst_err, objective, log

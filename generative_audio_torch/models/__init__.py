@@ -2,4 +2,8 @@
 from generative_audio_torch.models.fullsubnet import (  # noqa: F401
     FullSubNet, FullSubNetConfig)
 from generative_audio_torch.models.fullsubnet_plus import (  # noqa: F401
-    FullSubNetPlus, FullSubNetPlusConfig)
+    FullSubNetPlus, FullSubNetPlusConfig, MultiDirectionConfig,
+    MultiDirectionFullSubNetPlus)
+from generative_audio_torch.models.nppc_model import (  # noqa: F401
+    DenoisingNPPCConfig, DenoisingNPPCModel, StftConfig)
+from generative_audio_torch.models.pc_wrapper import AudioPCWrapper  # noqa: F401

@@ -6,6 +6,11 @@ full-band TCN towers -> band_unfold of the tower outputs and of the attended
 magnitude -> concat -> norm -> drop_band (B > 1) -> sub-band 2-layer LSTM
 over B*F rows -> [B, 2, F, T] compressed cRM, cropped by look_ahead.
 
+MultiDirectionFullSubNetPlus (generative_audio_tpu/models/fullsubnet_plus.py:
+176-270) is the denoising-NPPC head on the same skeleton: six streams (the
+noisy and the enhanced mag, real and imag), each tower over the two
+attended streams side by side (2F channels), and 2 * n_directions outputs.
+
 Parameter names are the reference checkpoint's, so a reference FullSubNet+
 state_dict loads with `load_state_dict`, and utils/convert.py carries the
 JAX package's params across.
@@ -25,7 +30,8 @@ from generative_audio_torch.ops.norms import get_norm
 from generative_audio_torch.ops.subband import band_unfold, drop_band
 from generative_audio_torch.utils.device import resolve_device
 
-__all__ = ["FullSubNetPlusConfig", "FullSubNetPlus"]
+__all__ = ["FullSubNetPlusConfig", "FullSubNetPlus",
+           "MultiDirectionConfig", "MultiDirectionFullSubNetPlus"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,3 +149,101 @@ class FullSubNetPlus(nn.Module):
         sb_mask = self.sb_model(sb_input)                   # [B*F, out, T]
         sb_mask = sb_mask.reshape(b, num_freqs, c.output_size, t)
         return sb_mask.permute(0, 2, 1, 3)[:, :, :, c.look_ahead:]
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiDirectionConfig(FullSubNetPlusConfig):
+    """The head's configuration: output_size is 2 * n_directions, whatever
+    the inherited field says."""
+    n_directions: int = 4
+
+
+class MultiDirectionFullSubNetPlus(nn.Module):
+    """Six [B, 1, F, T] streams (noisy mag, real, imag, enhanced mag, real,
+    imag) -> [B, 2 * n_directions, F', T] (F' = F // G after drop_band when
+    B > 1, group-major batch order).
+
+    As in the reference, the sub-band unfold takes the raw padded noisy
+    magnitude, not its attended stream as FullSubNetPlus does. device and
+    compute_dtype as for FullSubNetPlus."""
+
+    def __init__(self, config: MultiDirectionConfig = MultiDirectionConfig(),
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        c = config
+        if c.subband_num != 1:
+            raise NotImplementedError(
+                "subband_num > 1 is not ported to generative_audio_torch yet")
+        dev = resolve_device(device)
+        self.config = c
+        self.compute_dtype = compute_dtype
+        self.norm = get_norm(c.norm_type)
+        for suffix in ("", "_real", "_imag"):
+            self.add_module(f"channel_attention{suffix}", make_channel_attention(
+                c.channel_attention_model, c.num_channels, c.kersize,
+                c.subband_num, device=dev))
+        for suffix in ("", "_real", "_imag"):
+            self.add_module(f"fb_model{suffix}", SequenceModel(
+                2 * c.num_freqs, c.num_freqs, c.fb_model_hidden_size,
+                num_layers=2, sequence_model="TCN",
+                output_activate_function=c.fb_output_activate_function,
+                compute_dtype=compute_dtype, device=dev))
+        fb_w = c.fb_num_neighbors * 2 + 1
+        sb_w = c.sb_num_neighbors * 2 + 1
+        self.sb_model = SequenceModel(
+            sb_w + 3 * fb_w, 2 * c.n_directions, c.sb_model_hidden_size,
+            num_layers=2, sequence_model=c.sequence_model,
+            output_activate_function=c.sb_output_activate_function,
+            compute_dtype=compute_dtype, device=dev)
+
+    def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
+                noisy_imag: torch.Tensor, enhanced_mag: torch.Tensor,
+                enhanced_real: torch.Tensor,
+                enhanced_imag: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        n_dirs = c.n_directions
+        if noisy_mag.ndim != 4 or noisy_mag.shape[1] != 1:
+            raise ValueError("MultiDirectionFullSubNetPlus takes [B, 1, F, T] "
+                             f"inputs, got {tuple(noisy_mag.shape)}")
+        pad = (0, c.look_ahead)
+        (noisy_mag, noisy_real, noisy_imag, enhanced_mag, enhanced_real,
+         enhanced_imag) = (F.pad(x, pad) for x in (
+             noisy_mag, noisy_real, noisy_imag, enhanced_mag, enhanced_real,
+             enhanced_imag))
+        b, ch, f, t = noisy_mag.shape
+
+        def prep(x, attention):
+            return attention(self.norm(x).reshape(b, ch * f, t))
+
+        towers = []
+        for tower, attention, noisy, enhanced in (
+                (self.fb_model, self.channel_attention, noisy_mag,
+                 enhanced_mag),
+                (self.fb_model_real, self.channel_attention_real, noisy_real,
+                 enhanced_real),
+                (self.fb_model_imag, self.channel_attention_imag, noisy_imag,
+                 enhanced_imag)):
+            fb_input = torch.cat([prep(noisy, attention),
+                                  prep(enhanced, attention)], dim=1)
+            towers.append(tower(fb_input).reshape(b, 1, f, t))
+
+        fb_w = c.fb_num_neighbors * 2 + 1
+        sb_w = c.sb_num_neighbors * 2 + 1
+        unfolded = [
+            band_unfold(noisy_mag, c.sb_num_neighbors).reshape(b, f, sb_w, t),
+            *(band_unfold(y, c.fb_num_neighbors).reshape(b, f, fb_w, t)
+              for y in towers)]
+        sb_input = self.norm(torch.cat(unfolded, dim=2))
+
+        num_freqs = f
+        if b > 1:
+            sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
+                                 num_groups=c.num_groups_in_drop_band)
+            num_freqs = sb_input.shape[2]
+            sb_input = sb_input.permute(0, 2, 1, 3)
+
+        sb_input = sb_input.reshape(b * num_freqs, sb_w + 3 * fb_w, t)
+        sb_masks = self.sb_model(sb_input)                 # [B*F, 2K, T]
+        sb_masks = sb_masks.reshape(b, num_freqs, n_dirs, 2, t)
+        out = sb_masks.permute(0, 2, 3, 1, 4)[..., c.look_ahead:]
+        return out.reshape(b, 2 * n_dirs, num_freqs, -1)

@@ -1,5 +1,6 @@
-"""Tensor ops of the main path, the LSTM and GRU kernel wrappers, and the
-host-side waveform utilities (numpy) of the data pipelines."""
+"""Tensor ops of the main path, the LSTM and GRU kernel wrappers, the NPPC
+Gram-Schmidt, and the host-side waveform utilities (numpy) of the data
+pipelines."""
 from generative_audio_torch.ops.gru import (  # noqa: F401
     GRUScan, gru_dwhh, gru_dwhh_reference, gru_layer_tm_chunked,
     gru_scan_bwd_reference_tm, gru_scan_bwd_streams_reference_tm,
@@ -11,9 +12,11 @@ from generative_audio_torch.ops.lstm import (  # noqa: F401
     lstm_scan_bwd_tm, lstm_scan_carry_reference_tm, lstm_scan_carry_tm,
     lstm_scan_reference_tm, lstm_scan_tm, lstm_scan_train_reference_tm,
     lstm_scan_train_tm, reset_launch_counts)
+from generative_audio_torch.ops.gram_schmidt import (  # noqa: F401
+    gram_schmidt, gram_schmidt_to_crm, gram_schmidt_to_spec_mag)
 from generative_audio_torch.ops.mask import (  # noqa: F401
-    apply_crm, build_complex_ideal_ratio_mask_ri, compress_cIRM,
-    decompress_cIRM)
+    apply_crm, build_complex_ideal_ratio_mask_ri, complex_mul, compress_cIRM,
+    crm_to_stft_components, decompress_cIRM)
 from generative_audio_torch.ops.norms import get_norm, offline_laplace_norm  # noqa: F401
 from generative_audio_torch.ops.stft import (  # noqa: F401
     hann_window, istft_ri, prepare_input_from_waveform, stft_ri)

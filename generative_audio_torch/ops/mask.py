@@ -1,6 +1,6 @@
 """Complex ideal ratio mask (cIRM) maths with the reference's saturation.
 
-Port of generative_audio_tpu/ops/mask.py:35-84.
+Port of generative_audio_tpu/ops/mask.py:35-93.
 """
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import torch
 EPSILON = 1e-8
 
 __all__ = ["build_complex_ideal_ratio_mask_ri", "compress_cIRM",
-           "decompress_cIRM", "apply_crm"]
+           "decompress_cIRM", "complex_mul", "apply_crm",
+           "crm_to_stft_components"]
 
 
 def build_complex_ideal_ratio_mask_ri(noisy_real: torch.Tensor,
@@ -40,9 +41,27 @@ def decompress_cIRM(mask: torch.Tensor, K: float = 10.0,
     return -K * torch.log((K - mask) / (K + mask))
 
 
+def complex_mul(noisy_r: torch.Tensor, noisy_i: torch.Tensor,
+                mask_r: torch.Tensor, mask_i: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Complex product of a spectrogram and a mask, in (real, imag) pairs."""
+    return (noisy_r * mask_r - noisy_i * mask_i,
+            noisy_r * mask_i + noisy_i * mask_r)
+
+
 def apply_crm(crm: torch.Tensor, noisy_real: torch.Tensor,
               noisy_imag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply a decompressed cRM [..., F, T, 2] to noisy STFT components."""
     enhanced_real = crm[..., 0] * noisy_real - crm[..., 1] * noisy_imag
     enhanced_imag = crm[..., 1] * noisy_real + crm[..., 0] * noisy_imag
     return enhanced_real, enhanced_imag
+
+
+def crm_to_stft_components(crm: torch.Tensor, noisy_real: torch.Tensor,
+                           noisy_imag: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mag, real, imag) of the spectrogram a decompressed cRM [..., F, T, 2]
+    makes of the noisy one."""
+    enhanced_real, enhanced_imag = apply_crm(crm, noisy_real, noisy_imag)
+    enhanced_mag = torch.sqrt(enhanced_real ** 2 + enhanced_imag ** 2)
+    return enhanced_mag, enhanced_real, enhanced_imag

@@ -1,5 +1,5 @@
-"""Carry the JAX package's FullSubNet+ and FullSubNet params into the port's
-state_dict, and back.
+"""Carry the JAX package's FullSubNet+, FullSubNet and denoising-NPPC params
+into the port's state_dict, and back.
 
 The input is the nested dict of arrays that `model.init(...)["params"]` of
 generative_audio_tpu's FullSubNetPlus or FullSubNet gives (numpy or anything
@@ -30,10 +30,12 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["convert_fullsubnet", "convert_fullsubnet_plus",
+__all__ = ["convert_denoising_nppc", "convert_fullsubnet",
+           "convert_fullsubnet_plus", "convert_multidirection",
            "convert_sequence_model", "convert_tsse",
-           "random_fullsubnet_params", "random_fullsubnet_plus_params",
-           "to_jax_fullsubnet", "to_jax_fullsubnet_plus"]
+           "random_denoising_nppc_params", "random_fullsubnet_params",
+           "random_fullsubnet_plus_params", "to_jax_fullsubnet",
+           "to_jax_fullsubnet_plus"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -148,7 +150,8 @@ def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
     package's layout, made with numpy from `seed`: weights uniform in
     +/-1/sqrt(fan_in) as torch initialises them, PReLU slopes 0.25, norm
     scales 1 and biases 0. `config` is a FullSubNetPlusConfig of either
-    package."""
+    package, or a MultiDirectionConfig: then the head's widths (towers over
+    2 * num_freqs channels, 2 * n_directions outputs)."""
     rng = np.random.default_rng(seed)
 
     def u(shape, fan_in):
@@ -164,6 +167,8 @@ def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
 
     c = config
     f, ch = c.num_freqs, c.num_channels
+    n_dirs = getattr(c, "n_directions", None)
+    fb_in = f if n_dirs is None else 2 * f
     params: Dict[str, Any] = {}
     for suffix in ("", "_real", "_imag"):
         params[f"channel_attention{suffix}"] = {
@@ -176,7 +181,7 @@ def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
         hid = 512                  # SequenceModel's fixed TCN hidden width
         params[f"fb_model{suffix}"] = {
             "tcn": {f"block_{i}": {
-                "conv1x1": dense(f, hid),
+                "conv1x1": dense(fb_in, hid),
                 "prelu1": np.full((1,), 0.25, np.float32),
                 "norm1": {"scale": np.ones(hid, np.float32),
                           "bias": np.zeros(hid, np.float32)},
@@ -184,12 +189,26 @@ def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
                 "prelu2": np.full((1,), 0.25, np.float32),
                 "norm2": {"scale": np.ones(hid, np.float32),
                           "bias": np.zeros(hid, np.float32)},
-                "sconv": dense(hid, f)} for i in range(8)},
-            "fc_output_layer": dense(f, f)}
+                "sconv": dense(hid, fb_in)} for i in range(8)},
+            "fc_output_layer": dense(fb_in, f)}
     n_in = (2 * c.sb_num_neighbors + 1) + 3 * (2 * c.fb_num_neighbors + 1)
     params["sb_model"] = _random_recurrent(
-        rng, "LSTM", n_in, c.sb_model_hidden_size, c.output_size)
+        rng, "LSTM", n_in, c.sb_model_hidden_size,
+        c.output_size if n_dirs is None else 2 * n_dirs)
     return params
+
+
+def random_denoising_nppc_params(config, seed: int = 0) -> Dict[str, Any]:
+    """Random DenoisingNPPCModel params in the JAX package's layout
+    ({"pretrained_restoration_model": ..., "audio_pc_wrapper": {"net":
+    ...}}), made with numpy: the enhancer from `seed`, the head from seed + 1
+    (see random_fullsubnet_plus_params). `config` is a DenoisingNPPCConfig
+    of either package."""
+    return {
+        "pretrained_restoration_model": random_fullsubnet_plus_params(
+            config.restoration, seed),
+        "audio_pc_wrapper": {"net": random_fullsubnet_plus_params(
+            config.pc_wrapper, seed + 1)}}
 
 
 def convert_fullsubnet_plus(params: Mapping,
@@ -218,6 +237,22 @@ def convert_fullsubnet(params: Mapping,
     for name in ("fb_model", "sb_model"):
         sd.update(convert_sequence_model(params[name], f"{name}.",
                                          sequence_model))
+    return sd
+
+
+# the head has FullSubNet+'s parameter names (only some widths differ)
+convert_multidirection = convert_fullsubnet_plus
+
+
+def convert_denoising_nppc(params: Mapping) -> StateDict:
+    """models.nppc_model.DenoisingNPPCModel params -> the port's
+    DenoisingNPPCModel state_dict."""
+    sd = {f"pretrained_restoration_model.{k}": v for k, v in
+          convert_fullsubnet_plus(
+              params["pretrained_restoration_model"]).items()}
+    sd.update({f"audio_pc_wrapper.net.{k}": v for k, v in
+               convert_multidirection(
+                   params["audio_pc_wrapper"]["net"]).items()})
     return sd
 
 

@@ -169,7 +169,7 @@ def test_train_cli_loss_history_equals_trainer(tmp_path, corpus, steps,
 
 
 @pytest.mark.parametrize("line,item", [
-    ("restoration", 8), ("nppc_inpainting", 8), ("nppc_denoising", 7),
+    ("restoration", 8), ("nppc_inpainting", 8),
     ("image_restoration", 9), ("image_nppc", 9), ("distributed", 6)])
 def test_train_cli_unported_raise(tmp_path, corpus, line, item):
     if line == "distributed":
