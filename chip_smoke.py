@@ -219,6 +219,9 @@ PEAK_HBM_BYTES = 3.35e12
 # scan measured 3.4e-4 and the mean 2.2e-6 (h lies in (-1, 1)); the limits
 # keep a margin of about 15x over those.
 KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 5e-3, 3e-5
+# The largest |c| of phase 6's random gates (measured 2.47-2.55 on an H100),
+# where kernel C's c limits (8x those of h) were set.
+C_PEAK = 2.5
 # Backward scan vs its plain version, as a share of the largest |dgates|:
 # the same one-bf16-step differences (2^-8 of a value), which dh carries on
 # to earlier steps. On an H100 at T=195, 2304 rows the largest measured
@@ -3796,9 +3799,128 @@ def _nppc_model_check(dev, cfg, sd, counts):
     return card_model, cpu_model, launched
 
 
+@contextlib.contextmanager
+def _recorded_scans(L):
+    """While open, records the operands and the result of every call of
+    ops.lstm's lstm_scan_train_tm (kernel C) and lstm_scan_bwd_tm (kernel
+    D), the two LSTMScan makes, under "C" and "D" in call order. The
+    operands are copies: W_hh is a view of a parameter that the optimizer
+    updates in place after the step."""
+    calls = {"C": [], "D": []}
+    train, bwd = L.lstm_scan_train_tm, L.lstm_scan_bwd_tm
+
+    def copies(*tensors):
+        return tuple(t.detach().clone() for t in tensors)
+
+    def train_recorded(gates, w_hh, reverse=False):
+        out = train(gates, w_hh, reverse)
+        calls["C"].append(((*copies(gates, w_hh), reverse), copies(*out)))
+        return out
+
+    def bwd_recorded(gates, h_seq, c_seq, gout, w_hh, reverse=False,
+                     n_chains=1):
+        out = bwd(gates, h_seq, c_seq, gout, w_hh, reverse, n_chains)
+        calls["D"].append((
+            (*copies(gates, h_seq, c_seq, gout, w_hh), reverse),
+            out.detach().clone()))
+        return out
+
+    with mock.patch.object(L, "lstm_scan_train_tm", train_recorded), \
+            mock.patch.object(L, "lstm_scan_bwd_tm", bwd_recorded):
+        yield calls
+
+
+def _nppc_scans_vs_plain(L, dev, calls):
+    """Kernels C and D on the very operands the head's two sub-band LSTM
+    layers handed them in a training step (rows = batch x bins / G after
+    drop_band), against their plain versions on the card under phase 6's
+    limits. The same limits must reject each kernel's result with its rows
+    rolled by one cluster (a cluster writing its neighbour's rows). Each
+    result is also the same bit for bit under another plan: kernel C's
+    rows within the operands tiled to phase 6's TRAIN_ROWS, kernel D's as
+    the single-block design gives them."""
+    check(len(calls["C"]) == 2 and len(calls["D"]) == 2,
+          f"the step made 2 kernel C and 2 kernel D calls (got "
+          f"{len(calls['C'])} and {len(calls['D'])})")
+    for i, ((gates, w_hh, reverse), (h_seq, c_seq)) in enumerate(calls["C"]):
+        t_len, rows, h = h_seq.shape
+        shift = L.card_scan_plan(dev, h, rows, train=True).rows
+        p_h, p_c = L.lstm_scan_train_reference_tm(gates, w_hh, reverse)
+        peak_c = p_c.float().abs().max().item()
+        # phase 6's c limits hold at its peak |c| of about 2.5; a bf16 step
+        # of c grows with |c|, so they grow with the peak above that
+        scale = max(1.0, peak_c / C_PEAK)
+
+        def within(got_h, got_c):
+            err_h = (got_h.float() - p_h.float()).abs()
+            err_c = (got_c.float() - p_c.float()).abs()
+            return (err_h.max().item(), err_c.max().item(),
+                    err_c.mean().item(),
+                    err_h.max().item() < 8 * KERNEL_MAX_ABS
+                    and err_c.max().item() < 8 * KERNEL_MAX_ABS * scale
+                    and err_c.mean().item() < 8 * KERNEL_MEAN_ABS * scale)
+        max_h, max_c, mean_c, ok = within(h_seq, c_seq)
+        faulty = within(h_seq.roll(shift, 1), c_seq.roll(shift, 1))
+        log(f"kernel C on the nppc head's layer {i + 1} (T={t_len} "
+            f"rows={rows} H={h}, plan "
+            f"{_plan_line(L, dev, h, rows, train=True)}): h max|err| "
+            f"{max_h:.3e}, c max|err| {max_c:.3e} mean {mean_c:.3e} (peak |h| "
+            f"{p_h.float().abs().max().item():.3f}, |c| {peak_c:.3f}); rows "
+            f"rolled by {shift}: h {faulty[0]:.3e}, c {faulty[1]:.3e} mean "
+            f"{faulty[2]:.3e}")
+        check(ok, f"kernel C vs plain on the nppc head's layer {i + 1} within "
+              f"{8 * KERNEL_MAX_ABS} (h), {8 * KERNEL_MAX_ABS * scale}/"
+              f"{8 * KERNEL_MEAN_ABS * scale} (c)")
+        check(not faulty[3], f"the kernel C limits reject rows rolled by one "
+              f"cluster (layer {i + 1})")
+        tiled = gates.repeat(1, -(-TRAIN_ROWS // rows), 1)[:, :TRAIN_ROWS]
+        h_t, c_t = L.lstm_scan_train_tm(tiled.contiguous(), w_hh, reverse)
+        check(all(torch.equal(h_t[:, k:k + rows], h_seq)
+                  and torch.equal(c_t[:, k:k + rows], c_seq)
+                  for k in range(0, TRAIN_ROWS - rows + 1, rows)),
+              f"kernel C on layer {i + 1}'s operands == its rows within "
+              f"{TRAIN_ROWS} tiled rows bitwise")
+        log(f"  == its rows within {TRAIN_ROWS} tiled rows bitwise (plan "
+            f"{_plan_line(L, dev, h, TRAIN_ROWS, train=True)})")
+        del tiled, h_t, c_t
+    for i, ((gates, h_seq, c_seq, gout, w_hh, reverse), dg) in enumerate(
+            calls["D"]):
+        t_len, rows, h = h_seq.shape
+        shift = L.card_bwd_scan_plan(dev, h, rows).rows
+        want = L.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout, w_hh,
+                                            reverse).float()
+        peak = want.abs().max().item()
+
+        def within(got):
+            err = (got.float() - want).abs()
+            return (err.max().item(), err.mean().item(),
+                    err.max().item() < BWD_MAX_REL * peak
+                    and err.mean().item() < BWD_MEAN_REL * peak)
+        max_d, mean_d, ok = within(dg)
+        faulty = within(dg.roll(shift, 1))
+        log(f"kernel D on the nppc head's layer {2 - i} (T={t_len} "
+            f"rows={rows} H={h}, plan {_bwd_plan_line(L, dev, h, rows)}): "
+            f"dgates max|err| {max_d:.3e} mean {mean_d:.3e} (peak {peak:.3e}); "
+            f"rows rolled by {shift}: max {faulty[0]:.3e} mean "
+            f"{faulty[1]:.3e}")
+        check(peak > 0 and ok, f"kernel D vs plain on the nppc head's layer "
+              f"{2 - i} within {BWD_MAX_REL}/{BWD_MEAN_REL} of the peak")
+        check(not faulty[2], f"the kernel D limits reject rows rolled by one "
+              f"cluster (layer {2 - i})")
+        block = L.lstm_scan_bwd_planned_tm(gates, h_seq, c_seq, gout, w_hh,
+                                           _block_bwd_plan(L, dev, h, rows),
+                                           reverse)
+        check(torch.equal(block, dg), f"kernel D on layer {2 - i}'s operands "
+              f"== the single block bitwise")
+        log("  == the single block bitwise")
+
+
 def _nppc_training(dev, cfg, params, counts):
-    """Five steps of NPPCDenoisingTrainer on one seeded batch. Returns the
-    trainer, the batch and the launches."""
+    """Five steps of NPPCDenoisingTrainer on one seeded batch, step 1 with
+    kernels C and D held on their operands against the plain versions
+    (those launches left out of the count). Returns the trainer, the batch
+    and the steps' launches."""
+    from generative_audio_torch.ops import lstm as L
     trainer = _nppc_trainer(cfg, params, dev, torch.bfloat16)
     model = trainer.state.model
     enhancer = model.pretrained_restoration_model
@@ -3811,12 +3933,14 @@ def _nppc_training(dev, cfg, params, counts):
                 "lstm_scan_bwd": 2}
     torch.cuda.reset_peak_memory_stats(dev)
     objectives, reconst, times = [], [], []
-    start = dict(counts)
+    total = dict.fromkeys(per_step, 0)
     for step in range(NPPC_STEPS):
         before = dict(counts)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        obj, rec = trainer.train_step(noisy, clean)
+        with (_recorded_scans(L) if step == 0 else
+              contextlib.nullcontext()) as recorded:
+            obj, rec = trainer.train_step(noisy, clean)
         objectives.append(obj.item())                        # a fetch
         times.append((time.perf_counter() - t0) * 1e3)
         reconst.append(rec.item())
@@ -3824,9 +3948,14 @@ def _nppc_training(dev, cfg, params, counts):
         check(launched == per_step,
               f"nppc train step {step + 1} launched {per_step} and nothing "
               f"else (got {launched})")
+        total = {k: total[k] + n for k, n in launched.items()}
         if step == 0:
             verify_grads()
-    launched = _launched(counts, start)
+            _nppc_scans_vs_plain(L, dev, recorded)
+            del recorded
+            # the records held the operands past the step: steps 2-5 give
+            # the peak
+            torch.cuda.reset_peak_memory_stats(dev)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     check(np.isfinite(objectives).all() and np.isfinite(reconst).all(),
           "nppc objectives finite")
@@ -3842,9 +3971,9 @@ def _nppc_training(dev, cfg, params, counts):
         f"{' '.join(f'{x:.6f}' for x in reconst)}; the enhancer unchanged")
     log(f"train nppc: ms per step {' '.join(f'{x:.1f}' for x in times)}; "
         f"median of steps 2-{NPPC_STEPS} {steady:.2f} ms = "
-        f"{NPPC_BATCH / steady * 1e3:.2f} clips/s; peak memory {peak:.2f} GiB "
-        f"on {card_line()}")
-    return trainer, (noisy, clean), launched
+        f"{NPPC_BATCH / steady * 1e3:.2f} clips/s; peak memory of steps "
+        f"2-{NPPC_STEPS} {peak:.2f} GiB on {card_line()}")
+    return trainer, (noisy, clean), total
 
 
 def _nppc_reference(dev, cfg, params):
@@ -3884,9 +4013,14 @@ def _nppc_reference(dev, cfg, params):
         f"{rel_rec:.3e}); of {len(rows)} head tensors {len(carrying)} carry "
         f"the gradient: lowest cosine {worst[0]:.5f} ({worst[3]}), norm "
         f"ratios {min(ratios):.4f}-{max(ratios):.4f}")
-    for cos, ratio, share, k in sorted(rows)[:6]:
+    # the sub-band LSTM's tensors: their gradients come from kernel D
+    scan = [r for r in rows if ".sb_model.sequence_model." in r[3]]
+    for cos, ratio, share, k in scan:
         log(f"  {k}: cosine {cos:.5f}, norm ratio {ratio:.4f}, "
             f"norm/largest {share:.2e}")
+    check(len(scan) == 8 and all(r in carrying for r in scan),
+          f"the sub-band LSTM's 8 tensors carry the gradient (got "
+          f"{[(r[3], r[2]) for r in scan]})")
     check(rel_obj < NPPC_OBJ_REL and rel_rec < NPPC_OBJ_REL,
           f"bf16 objective and reconst_err vs float32 within {NPPC_OBJ_REL}")
     check(worst[0] > NPPC_GRAD_COS

@@ -20,6 +20,7 @@ uncertainty directions over a frozen FullSubNet+ on AudioDataset batches
 is loaded, so the frozen enhancer keeps its seeded init. A `train.n_dirs`
 key sets `model.pc_wrapper.n_directions`, the intent of
 configs/denoising_nppc.yaml, which the JAX CLI refuses as an unknown key.
+The line takes no `validation:` block (a ValueError).
 `--epochs` (default 1) counts passes over the loader; `--steps N` makes each
 epoch N steps, looping the loader (LoopIterator). `--device` is `cuda`
 (default; raises without a CUDA device) or `cpu`.
@@ -63,6 +64,71 @@ def nppc_denoising_config(train):
     return build_dataclass(NPPCDenoisingTrainConfig, train)
 
 
+def _loader(dataset, loader_cfg, steps):
+    from generative_audio_torch.data import BatchLoader, LoopIterator
+    loader = BatchLoader(dataset, **loader_cfg)
+    return loader if steps is None else LoopIterator(loader, n_steps=steps)
+
+
+def _train_enhance(args, raw, data_cfg, loader_cfg, checkpoint_dir, device,
+                   log):
+    from generative_audio_torch.data import (
+        AudioDataSetConfig, AudioDataset, DNSTrainConfig, DNSTrainDataset,
+        DNSValidationDataset)
+    from generative_audio_torch.train import EnhanceTrainConfig, EnhanceTrainer
+    seed = loader_cfg.get("seed", 0)
+    if "clean_dataset" in data_cfg:         # DNS scp regime
+        dataset = DNSTrainDataset(build_dataclass(DNSTrainConfig, data_cfg),
+                                  seed=seed)
+    else:
+        dataset = AudioDataset(build_dataclass(AudioDataSetConfig, data_cfg),
+                               seed=seed)
+    loader = _loader(dataset, loader_cfg, args.steps)
+    trainer = EnhanceTrainer(
+        build_dataclass(EnhanceTrainConfig, raw.get("train")),
+        checkpoint_dir=checkpoint_dir, device=device)
+    if args.resume:
+        trainer.restore_latest()
+    val_cfg = raw.get("validation")
+    val_ds = probe_ds = None
+    val_interval, probe_weight = 1, 0.0
+    if val_cfg:
+        sr = int(data_cfg.get("sr", 16000))
+        if val_cfg.get("val_dir"):
+            val_ds = DNSValidationDataset([val_cfg["val_dir"]], sr=sr)
+        if val_cfg.get("probe_dir"):
+            probe_ds = DNSValidationDataset([val_cfg["probe_dir"]], sr=sr)
+        val_interval = int(val_cfg.get("validation_interval", 1))
+        probe_weight = float(val_cfg.get("probe_weight", 0.0))
+    trainer.train(loader, epochs=args.epochs or 1, log=log,
+                  val_dataset=val_ds, validation_interval=val_interval,
+                  probe_dataset=probe_ds, probe_weight=probe_weight)
+    return trainer
+
+
+def _train_nppc_denoising(args, raw, data_cfg, loader_cfg, checkpoint_dir,
+                          device, log):
+    from generative_audio_torch.data import AudioDataSetConfig, AudioDataset
+    from generative_audio_torch.train import NPPCDenoisingTrainer
+    if raw.get("validation"):
+        raise ValueError("the nppc_denoising line takes no validation: block")
+    dataset = AudioDataset(build_dataclass(AudioDataSetConfig, data_cfg),
+                           seed=loader_cfg.get("seed", 0))
+    loader = _loader(dataset, loader_cfg, args.steps)
+    trainer = NPPCDenoisingTrainer(nppc_denoising_config(raw.get("train")),
+                                   checkpoint_dir=checkpoint_dir,
+                                   device=device)
+    if args.resume:
+        trainer.restore_latest()
+    trainer.train(loader, n_epochs=args.epochs or 1, log=log)
+    return trainer
+
+
+# each ported line: (its run, the loader's default global_batch_size)
+_LINES = {"enhance": (_train_enhance, 18),
+          "nppc_denoising": (_train_nppc_denoising, 8)}
+
+
 def main(argv=None):
     """Run the CLI; returns the trainer after its last epoch."""
     parser = argparse.ArgumentParser(
@@ -89,60 +155,17 @@ def main(argv=None):
         raise NotImplementedError(
             f"training line {line!r} is not ported yet (ROADMAP.md, queue A "
             f"item {_UNPORTED_LINES[line]})")
-    if line not in ("enhance", "nppc_denoising"):
+    if line not in _LINES:
         raise ValueError(f"Unknown training line {line!r}")
+    run, batch_size = _LINES[line]
     checkpoint_dir = raw.pop("checkpoint_dir", "checkpoints")
     data_cfg = raw.pop("data")
-    loader_cfg = {"global_batch_size": 18 if line == "enhance" else 8,
+    loader_cfg = {"global_batch_size": batch_size,
                   **raw.pop("dataloader", {})}
-    val_cfg = raw.pop("validation", None)
-    log = get_logger().info
 
-    from generative_audio_torch.data import (
-        AudioDataSetConfig, AudioDataset, BatchLoader, DNSTrainConfig,
-        DNSTrainDataset, LoopIterator)
-    from generative_audio_torch.train import (
-        EnhanceTrainConfig, EnhanceTrainer, NPPCDenoisingTrainer)
     from generative_audio_torch.utils.device import resolve_device
-    device = resolve_device(args.device)
-    seed = loader_cfg.get("seed", 0)
-    if line == "enhance" and "clean_dataset" in data_cfg:   # DNS scp regime
-        dataset = DNSTrainDataset(build_dataclass(DNSTrainConfig, data_cfg),
-                                  seed=seed)
-    else:
-        dataset = AudioDataset(build_dataclass(AudioDataSetConfig, data_cfg),
-                               seed=seed)
-    loader = BatchLoader(dataset, **loader_cfg)
-    if args.steps is not None:
-        loader = LoopIterator(loader, n_steps=args.steps)
-    if line == "nppc_denoising":
-        trainer = NPPCDenoisingTrainer(
-            nppc_denoising_config(raw.get("train")),
-            checkpoint_dir=checkpoint_dir, device=device)
-    else:
-        trainer = EnhanceTrainer(
-            build_dataclass(EnhanceTrainConfig, raw.get("train")),
-            checkpoint_dir=checkpoint_dir, device=device)
-    if args.resume:
-        trainer.restore_latest()
-    if line == "nppc_denoising":
-        trainer.train(loader, n_epochs=args.epochs or 1, log=log)
-        return trainer
-    val_ds = probe_ds = None
-    val_interval, probe_weight = 1, 0.0
-    if val_cfg:
-        from generative_audio_torch.data import DNSValidationDataset
-        sr = int(data_cfg.get("sr", 16000))
-        if val_cfg.get("val_dir"):
-            val_ds = DNSValidationDataset([val_cfg["val_dir"]], sr=sr)
-        if val_cfg.get("probe_dir"):
-            probe_ds = DNSValidationDataset([val_cfg["probe_dir"]], sr=sr)
-        val_interval = int(val_cfg.get("validation_interval", 1))
-        probe_weight = float(val_cfg.get("probe_weight", 0.0))
-    trainer.train(loader, epochs=args.epochs or 1, log=log,
-                  val_dataset=val_ds, validation_interval=val_interval,
-                  probe_dataset=probe_ds, probe_weight=probe_weight)
-    return trainer
+    return run(args, raw, data_cfg, loader_cfg, checkpoint_dir,
+               resolve_device(args.device), get_logger().info)
 
 
 if __name__ == "__main__":

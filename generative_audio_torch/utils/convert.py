@@ -150,8 +150,15 @@ def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
     package's layout, made with numpy from `seed`: weights uniform in
     +/-1/sqrt(fan_in) as torch initialises them, PReLU slopes 0.25, norm
     scales 1 and biases 0. `config` is a FullSubNetPlusConfig of either
-    package, or a MultiDirectionConfig: then the head's widths (towers over
-    2 * num_freqs channels, 2 * n_directions outputs)."""
+    package."""
+    return _random_plus_params(config, seed, config.num_freqs,
+                               config.output_size)
+
+
+def _random_plus_params(config, seed: int, fb_in: int,
+                        sb_out: int) -> Dict[str, Any]:
+    """random_fullsubnet_plus_params with the TCN towers over `fb_in`
+    channels and `sb_out` sub-band outputs a bin."""
     rng = np.random.default_rng(seed)
 
     def u(shape, fan_in):
@@ -167,8 +174,6 @@ def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
 
     c = config
     f, ch = c.num_freqs, c.num_channels
-    n_dirs = getattr(c, "n_directions", None)
-    fb_in = f if n_dirs is None else 2 * f
     params: Dict[str, Any] = {}
     for suffix in ("", "_real", "_imag"):
         params[f"channel_attention{suffix}"] = {
@@ -193,8 +198,7 @@ def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
             "fc_output_layer": dense(fb_in, f)}
     n_in = (2 * c.sb_num_neighbors + 1) + 3 * (2 * c.fb_num_neighbors + 1)
     params["sb_model"] = _random_recurrent(
-        rng, "LSTM", n_in, c.sb_model_hidden_size,
-        c.output_size if n_dirs is None else 2 * n_dirs)
+        rng, "LSTM", n_in, c.sb_model_hidden_size, sb_out)
     return params
 
 
@@ -202,13 +206,16 @@ def random_denoising_nppc_params(config, seed: int = 0) -> Dict[str, Any]:
     """Random DenoisingNPPCModel params in the JAX package's layout
     ({"pretrained_restoration_model": ..., "audio_pc_wrapper": {"net":
     ...}}), made with numpy: the enhancer from `seed`, the head from seed + 1
-    (see random_fullsubnet_plus_params). `config` is a DenoisingNPPCConfig
-    of either package."""
+    (see random_fullsubnet_plus_params; the head's towers take the noisy
+    and enhanced streams, 2 * num_freqs channels, and its sub-band model
+    gives 2 * n_directions outputs). `config` is a DenoisingNPPCConfig of
+    either package."""
+    head = config.pc_wrapper
     return {
         "pretrained_restoration_model": random_fullsubnet_plus_params(
             config.restoration, seed),
-        "audio_pc_wrapper": {"net": random_fullsubnet_plus_params(
-            config.pc_wrapper, seed + 1)}}
+        "audio_pc_wrapper": {"net": _random_plus_params(
+            head, seed + 1, 2 * head.num_freqs, 2 * head.n_directions)}}
 
 
 def convert_fullsubnet_plus(params: Mapping,

@@ -363,6 +363,17 @@ def test_train_cli_nppc_denoising(tmp_path):
     assert json.loads((ckpt / "latest_step.json").read_text()) == {"step": 3}
 
 
+def test_train_cli_nppc_denoising_refuses_validation(tmp_path):
+    """The line has no in-loop validation: a `validation:` block raises
+    instead of being dropped."""
+    path = _cli_config(tmp_path, (tmp_path / "clean", tmp_path / "noise"))
+    cfg = json.loads(path.read_text())
+    cfg["validation"] = {"val_dir": str(tmp_path / "val")}
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="no validation"):
+        train_cli.main(["-C", str(path), "--device", "cpu"])
+
+
 def test_shipped_config_builds_five_directions():
     """configs/denoising_nppc.yaml puts n_dirs under train:, which the JAX
     CLI's build_dataclass refuses; the port maps it to the head's
