@@ -168,6 +168,29 @@ of which fails the run (non-zero exit, no result line):
      block (n_dirs 5) on a corpus in a temporary directory, 2 epochs of 2
      steps and -R for one more, with exact launches per step, the resume
      and metrics_final_*.json.
+ 17. the inpainting-NPPC line at the full width of configs/inpainting_*.yaml
+     (UNets 64 -> 512 over a 128 x 256 log-magnitude spectrogram, batch
+     128, 5 directions; random weights from a numpy seed in the JAX layout,
+     carried across by convert_inpainting_nppc), float32 with cuDNN's TF32
+     convolutions, activations channels-last: the restoration output and
+     w_mat on 2 items, card (TF32 and strict float32) against the CPU, the
+     directions orthogonal; one restoration loss and gradient at batch 4,
+     TF32 against strict float32, every gradient finite and non-zero; five
+     RestorationTrainer steps at batch 128 (ms per step, samples/s, peak
+     memory, every running statistic moved) and a profile of one; five
+     NPPCInpaintingTrainer base steps over the trained UNet (the frozen
+     UNet's parameters and buffers bit for bit unchanged) and a profile of
+     one; three mc_pca_aligned steps at batch 16 (50 passes, 5 a forward)
+     and the passes chunked == unchunked bit for bit; RestorationValidator
+     on 4 items and NPPCValidator on one 2.044 s speech-like sample (50 MC
+     passes, the 13-alpha grid, 25 wavs with the clean phase, YIN pitch,
+     the JSON, 75 PNGs), wall per sample split into card (CUDA events) and
+     host; cli.train's restoration line on 24 verbatim FLAC clips in a
+     LibriSpeech layout with *.trans.txt (2 epochs of 2 steps at batch 16
+     with a validation block, then -R for one more) and the
+     nppc_inpainting line over its best/, then -R, with the loader-fed
+     step times. No scan kernel is on this path: every launch count stays
+     0 through phase 17.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15 and
@@ -4212,6 +4235,574 @@ def phase_nppc_denoising(dev):
     return total
 
 
+# Phase 17: the inpainting-NPPC line at the full width of
+# configs/inpainting_restoration.yaml and configs/inpainting_nppc.yaml: the
+# UNets 64 -> 512, a 128 x 256 log-magnitude spectrogram (nfft 255, hop 128,
+# 2.044 s at 16 kHz), batch 128, 5 directions; random weights from a numpy
+# seed in the JAX layout (convert.random_inpainting_nppc_params).
+INPAINT_F, INPAINT_T, INPAINT_BATCH, INPAINT_STEPS = 128, 256, 128, 5
+INPAINT_GAP_FRAMES = 18          # 0.128 s of 16 kHz under 255-point windows
+INPAINT_MC_BATCH, INPAINT_MC_STEPS = 16, 3
+INPAINT_TF32_BATCH = 4
+# the shipped configs' train: blocks, as JSON (no PyYAML on the card's
+# machine)
+INPAINT_REST_TRAIN = {"model": {"in_channels": 1, "out_channels": 1,
+                                "dropout": 0.2},
+                      "learning_rate": 0.0001, "betas": [0.5, 0.999],
+                      "clip_grad_norm": 5.0, "num_freqs": 128,
+                      "num_frames": 256}
+INPAINT_NPPC_TRAIN = {"model": {"restoration": INPAINT_REST_TRAIN["model"],
+                                "pc_wrapper": {"in_channels": 2,
+                                               "out_channels": 5, "n_dirs": 5,
+                                               "dropout": 0.0}},
+                      "learning_rate": 0.0001, "betas": [0.5, 0.999],
+                      "max_grad_norm": 1.0, "second_moment_loss_lambda": 1.0,
+                      "second_moment_loss_grace": 500, "num_freqs": 128,
+                      "num_frames": 256}
+INPAINT_DATA = {"sample_rate": 16000, "missing_length_seconds": 0.128,
+                "missing_start_seconds": 0.4,
+                "sub_sample_length_seconds": 2.044, "target_dB_FS": -25.0,
+                "stft_configuration": {"nfft": 255, "hop_length": 128,
+                                       "win_length": 255}}
+INPAINT_CLI_FILES, INPAINT_CLI_SECONDS = (2, 2, 6), (2.5, 4.0)
+INPAINT_CLI_BATCH, INPAINT_CLI_STEPS, INPAINT_CLI_WORKERS = 16, 2, 8
+# The UNet on the card with TF32 convolutions (cuDNN's default) against
+# strict float32 on the card, batch 4 in training: the loss (relative;
+# measured 1.5e-4 and 2.1e-4 on an H100) and, per parameter tensor whose
+# gradient norm is above 1e-3 of the largest, the cosine (lowest measured
+# 0.99918) and the ratio of the gradient norms (0.9981-1.0035). Margins of
+# about 5x (on 1 - cosine, and on the ratio's distance from 1).
+INPAINT_TF32_LOSS_REL, INPAINT_TF32_COS, INPAINT_TF32_RATIO = 1e-3, 0.995, 0.02
+# Gram-Schmidt in float32 over D = 128 x 256: the largest |<w_i, w_j>| of
+# two unit directions of one item
+INPAINT_ORTHO_ABS = 1e-4
+
+
+def _inpaint_batch(seed, batch):
+    """(stft_masked, mask_frames, stft_clean) numpy: seeded normal spectra
+    [batch, 2, 128, 256] and an 18-frame gap at a seeded place per item."""
+    rng = np.random.default_rng(seed)
+    clean = rng.standard_normal((batch, 2, INPAINT_F, INPAINT_T),
+                                np.float32)
+    mask = np.ones((batch, INPAINT_T), np.float32)
+    for b, start in enumerate(rng.integers(8, INPAINT_T - 8
+                                           - INPAINT_GAP_FRAMES, batch)):
+        mask[b, start:start + INPAINT_GAP_FRAMES] = 0
+    return clean * mask[:, None, None, :], mask, clean
+
+
+def _inpaint_config():
+    from generative_audio_torch.train import NPPCInpaintingTrainConfig
+    from generative_audio_torch.utils.config import build_dataclass
+    return build_dataclass(NPPCInpaintingTrainConfig, INPAINT_NPPC_TRAIN)
+
+
+def _unit_gram_off(w):
+    """The largest |<w_i, w_j>|, i != j, of the unit directions of each
+    item of w [B, K, F, T] (float64)."""
+    flat = w.double().flatten(2)
+    unit = flat / torch.linalg.vector_norm(flat, dim=-1, keepdim=True)
+    gram = (unit @ unit.transpose(1, 2)).abs()
+    return (gram - torch.diag_embed(torch.diagonal(gram, dim1=1, dim2=2))
+            ).max().item()
+
+
+def _inpaint_card_vs_cpu(dev, sd):
+    """Restoration output and NPPC w_mat on 2 items: the card with TF32 and
+    in strict float32 against the float32 CPU model; the card's directions
+    orthogonal."""
+    from generative_audio_torch.models import InpaintingNPPCModel
+    from generative_audio_torch.ops.preprocess import preprocess_data
+    from generative_audio_torch.utils.device import conv_tf32
+    cfg = _inpaint_config().model
+    cpu = InpaintingNPPCModel(cfg)
+    cpu.load_state_dict(sd)
+    card = InpaintingNPPCModel(cfg).to(dev)
+    card.load_state_dict(sd)
+    batch = [torch.from_numpy(x) for x in _inpaint_batch(SEED + 31, 2)]
+    _, mask, masked = preprocess_data(batch[2], batch[0], batch[1])
+    with torch.no_grad():
+        want_r = cpu.pretrained_restoration_model(masked, mask)
+        want_w = cpu(masked, mask)
+        got = {}
+        for tf32 in (True, False):
+            with conv_tf32(tf32):
+                x, m = masked.to(dev), mask.to(dev)
+                got[tf32] = (card.pretrained_restoration_model(x, m).cpu(),
+                             card(x, m).cpu())
+    rel = {tf32: (_rel(r.numpy(), want_r.numpy()), _rel(w.numpy(),
+                                                         want_w.numpy()))
+           for tf32, (r, w) in got.items()}
+    off = _unit_gram_off(got[True][1])
+    log(f"inpainting model, 2 x 1 x {INPAINT_F} x {INPAINT_T}: card vs CPU "
+        f"(float32) max|err|/peak, TF32: restoration {rel[True][0]:.3e}, "
+        f"w_mat {rel[True][1]:.3e}; strict float32: restoration "
+        f"{rel[False][0]:.3e}, w_mat {rel[False][1]:.3e}; largest "
+        f"|<w_i, w_j>| of the card's unit directions {off:.3e}")
+    check(max(rel[True] + rel[False]) < PATH_REL,
+          f"inpainting forward card vs CPU within {PATH_REL} of the peak")
+    check(off < INPAINT_ORTHO_ABS,
+          f"the card's directions orthogonal within {INPAINT_ORTHO_ABS}")
+    check(got[True][1].shape == (2, 5, INPAINT_F, INPAINT_T),
+          "w_mat [2, 5, 128, 256]")
+
+
+def _timed_steps(step, n):
+    """n calls of step(), each synchronised; (ms of each, median of steps
+    2..n, peak memory in GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, statistics.median(ms[1:]), \
+        torch.cuda.max_memory_allocated() / 2 ** 30, out
+
+
+def _grads(model):
+    return {k: p.grad.detach().float().clone() for k, p in
+            model.named_parameters() if p.grad is not None}
+
+
+def _inpaint_tf32_gap(dev, sd):
+    """One restoration loss and gradient at batch 4 with TF32 and in strict
+    float32 (the same weights, batch and dropout masks): every gradient
+    finite and non-zero, and the gap."""
+    from generative_audio_torch.train import (
+        RestorationTrainConfig, RestorationTrainer)
+    from generative_audio_torch.train.restoration import device_batch
+    from generative_audio_torch.utils.config import build_dataclass
+    from generative_audio_torch.utils.device import conv_tf32
+    cfg = build_dataclass(RestorationTrainConfig, INPAINT_REST_TRAIN)
+    batch = device_batch(_inpaint_batch(SEED + 32, INPAINT_TF32_BATCH), dev)
+    out = {}
+    for tf32 in (True, False):
+        trainer = RestorationTrainer(cfg, seed=SEED, device=dev)
+        trainer.state.model.load_state_dict(sd)
+        with conv_tf32(tf32):
+            loss = trainer.loss(batch, train=True)
+            loss.backward()
+        out[tf32] = (loss.item(), _grads(trainer.state.model))
+    (l_tf, g_tf), (l_32, g_32) = out[True], out[False]
+    check(all(torch.isfinite(g).all() and g.abs().max() > 0
+              for g in g_tf.values()) and len(g_tf) == len(
+                  list(trainer.state.model.parameters())),
+          "every restoration gradient finite and non-zero")
+    top = max(g.norm().item() for g in g_32.values())
+    cos, ratio = [], []
+    for k, g in g_32.items():
+        if g.norm().item() > 1e-3 * top:
+            cos.append(torch.nn.functional.cosine_similarity(
+                g_tf[k].flatten(), g.flatten(), dim=0).item())
+            ratio.append(g_tf[k].norm().item() / g.norm().item())
+    loss_rel = abs(l_tf - l_32) / abs(l_32)
+    log(f"restoration TF32 vs float32 on the card, batch "
+        f"{INPAINT_TF32_BATCH}: loss {l_tf:.6f} vs {l_32:.6f} (rel "
+        f"{loss_rel:.3e}); over {len(cos)} gradient tensors cosine >= "
+        f"{min(cos):.6f}, norm ratio {min(ratio):.5f}-{max(ratio):.5f}")
+    check(loss_rel < INPAINT_TF32_LOSS_REL and min(cos) > INPAINT_TF32_COS
+          and max(abs(r - 1) for r in ratio) < INPAINT_TF32_RATIO,
+          f"TF32 within {INPAINT_TF32_LOSS_REL} (loss), {INPAINT_TF32_COS} "
+          f"(cosine) and {INPAINT_TF32_RATIO} (norms) of float32")
+
+
+def _inpaint_restoration_training(dev, sd, card):
+    """RestorationTrainer at batch 128 for 5 steps on one batch: ms per
+    step, samples/s, peak memory, the running statistics moved."""
+    from generative_audio_torch.train import (
+        RestorationTrainConfig, RestorationTrainer)
+    from generative_audio_torch.utils.config import build_dataclass
+    trainer = RestorationTrainer(
+        build_dataclass(RestorationTrainConfig, INPAINT_REST_TRAIN),
+        seed=SEED, device=dev)
+    trainer.state.model.load_state_dict(sd)
+    stats0 = {k: v.clone() for k, v in trainer.state.model.state_dict().items()
+              if "running" in k}
+    batch = _inpaint_batch(SEED + 33, INPAINT_BATCH)
+    ms, median, peak, loss = _timed_steps(lambda: trainer.train_step(batch),
+                                          INPAINT_STEPS)
+    moved = sum(not torch.equal(v, trainer.state.model.state_dict()[k])
+                for k, v in stats0.items())
+    log(f"restoration training, batch {INPAINT_BATCH} x 1 x {INPAINT_F} x "
+        f"{INPAINT_T}: steps {' '.join(f'{x:.1f}' for x in ms)} ms, median "
+        f"of 2-{INPAINT_STEPS} {median:.2f} ms, "
+        f"{INPAINT_BATCH * 1e3 / median:.1f} samples/s, peak memory "
+        f"{peak:.2f} GiB; last loss {loss.item():.5f}; {moved} of "
+        f"{len(stats0)} running statistics moved; on {card}")
+    check(moved == len(stats0), "every BatchNorm running statistic moved")
+    check(trainer.state.step == INPAINT_STEPS and np.isfinite(loss.item()),
+          f"{INPAINT_STEPS} steps taken, finite loss")
+    return trainer, batch, median
+
+
+def _inpaint_nppc_training(dev, rest_sd, head_sd, batch, card):
+    """NPPCInpaintingTrainer (base step) at batch 128 over the trained
+    restoration model, 5 steps: the frozen model's parameters and buffers
+    bit for bit unchanged, ms per step, samples/s, peak memory."""
+    from generative_audio_torch.train import NPPCInpaintingTrainer
+    trainer = NPPCInpaintingTrainer(_inpaint_config(),
+                                    restoration_variables=rest_sd, seed=SEED,
+                                    device=dev)
+    trainer.state.model.pc_wrapper.net.load_state_dict(head_sd)
+    frozen = trainer.state.model.pretrained_restoration_model
+    before = {k: v.clone() for k, v in frozen.state_dict().items()}
+    ms, median, peak, (obj, rec) = _timed_steps(
+        lambda: trainer.train_step(batch), INPAINT_STEPS)
+    same = all(torch.equal(v, before[k]) for k, v in
+               frozen.state_dict().items())
+    log(f"nppc base step, batch {INPAINT_BATCH}, 5 directions: steps "
+        f"{' '.join(f'{x:.1f}' for x in ms)} ms, median {median:.2f} ms, "
+        f"{INPAINT_BATCH * 1e3 / median:.1f} samples/s, peak memory "
+        f"{peak:.2f} GiB; objective {obj.item():.5f}, reconst_err "
+        f"{rec.item():.5f}; frozen restoration model unchanged: {same}; "
+        f"on {card}")
+    check(same and all(p.grad is None for p in frozen.parameters()),
+          "the frozen restoration model's parameters and buffers bit for "
+          "bit unchanged, without gradient")
+    check(np.isfinite(obj.item()) and 0 <= rec.item() <= 1,
+          "finite objective, reconst_err in [0, 1]")
+    return trainer, median
+
+
+def _inpaint_mc(dev, rest_sd, head_sd, card):
+    """mc_pca_aligned at batch 16 (50 passes, 5 a forward), 3 steps; the
+    passes chunked (5) == unchunked (50 in one forward) bit for bit."""
+    from generative_audio_torch.eval import mc_dropout
+    from generative_audio_torch.ops.preprocess import preprocess_data
+    from generative_audio_torch.train import NPPCInpaintingTrainer
+    from generative_audio_torch.utils.device import conv_tf32
+    cfg = _inpaint_config()
+    cfg = dataclasses.replace(cfg, objective_variant="mc_pca_aligned")
+    trainer = NPPCInpaintingTrainer(cfg, restoration_variables=rest_sd,
+                                    seed=SEED, device=dev)
+    trainer.state.model.pc_wrapper.net.load_state_dict(head_sd)
+    batch = _inpaint_batch(SEED + 34, INPAINT_MC_BATCH)
+    ms, median, peak, (obj, rec) = _timed_steps(
+        lambda: trainer.train_step(batch), INPAINT_MC_STEPS)
+    log(f"nppc mc_pca_aligned step, batch {INPAINT_MC_BATCH}, "
+        f"{cfg.n_mc_samples} passes {cfg.mc_chunk_size} a forward: steps "
+        f"{' '.join(f'{x:.1f}' for x in ms)} ms, median {median:.2f} ms, "
+        f"peak memory {peak:.2f} GiB; objective {obj.item():.5f}, "
+        f"reconst_err {rec.item():.5f}; on {card}")
+    check(np.isfinite(obj.item()), "finite mc_pca_aligned objective")
+    model = trainer.state.model
+    clean, mask, masked = preprocess_data(*(torch.from_numpy(x).to(dev) for x
+                                            in (batch[2], batch[0], batch[1])))
+    with torch.no_grad(), conv_tf32(True):
+        runs = {}
+        for chunk in (cfg.mc_chunk_size, 0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[chunk] = mc_dropout.mc_dropout_inference(
+                model.mc_restoration, masked, mask,
+                mc_dropout.mc_generators(SEED + 35, cfg.n_mc_samples, dev),
+                chunk_size=chunk)
+            torch.cuda.synchronize()
+            runs[chunk, "ms"] = (time.perf_counter() - t0) * 1e3
+    a, b = runs[cfg.mc_chunk_size], runs[0]
+    distinct = (a[0] - a[1]).abs().max().item()
+    log(f"MC passes {cfg.n_mc_samples} x batch {INPAINT_MC_BATCH}: chunked "
+        f"({cfg.mc_chunk_size}) {runs[cfg.mc_chunk_size, 'ms']:.1f} ms, "
+        f"unchunked {runs[0, 'ms']:.1f} ms, equal bit for bit: "
+        f"{torch.equal(a, b)}; passes 0 and 1 differ by {distinct:.3e}")
+    check(torch.equal(a, b), "chunked MC passes == unchunked bit for bit")
+    check(distinct > 0, "the MC passes differ")
+    return median, peak
+
+
+def _inpaint_validators(dev, trainer, card):
+    """RestorationValidator on 4 items and NPPCValidator on one (50 MC
+    passes, the 13-alpha grid, 25 wavs with the clean phase, pitch, the
+    JSON and the PNGs): wall per sample, its time on the card (CUDA events
+    around the models) and on the host."""
+    from generative_audio_torch.eval import (
+        NPPCValidator, NPPCValidatorConfig, RestorationValidator,
+        RestorationValidatorConfig)
+    from generative_audio_torch.eval import nppc_validator as NV
+    from generative_audio_torch.ops.preprocess import preprocess_data
+    from generative_audio_torch.ops.stft import stft_ri
+    model = trainer.state.model
+    stft = INPAINT_DATA["stft_configuration"]
+    seconds = INPAINT_DATA["sub_sample_length_seconds"]
+    wav = (_speech_like(SEED + 36, seconds)[:int(seconds * 16000)]
+           .astype(np.float32) * 0.3)
+    re, im = stft_ri(torch.from_numpy(wav)[None], stft["nfft"],
+                     stft["hop_length"], stft["win_length"])
+    clean = torch.stack([re, im], dim=1).numpy()           # [1, 2, F, T]
+    g0 = clean.shape[-1] // 5
+    frames = np.ones((1, clean.shape[-1]), np.float32)
+    frames[:, g0:g0 + INPAINT_GAP_FRAMES] = 0
+    masked = clean * frames[:, None, None, :]
+    with tempfile.TemporaryDirectory() as tmp:
+        rv = RestorationValidator(
+            lambda x, m: model.pretrained_restoration_model(x, m),
+            RestorationValidatorConfig(save_dir=f"{tmp}/rest"), device=dev)
+        t0 = time.perf_counter()
+        summary = rv.validate_dataloader(
+            [_inpaint_batch(SEED + 37, 4)], max_samples=4)
+        rest_ms = (time.perf_counter() - t0) * 1e3 / 4
+
+        def restoration(x, m, generator=None):
+            return (model.get_pred_spec_mag_norm(x, m) if generator is None
+                    else model.mc_restoration(x, m, generator))
+
+        val = NPPCValidator(model, restoration, NPPCValidatorConfig(
+            save_dir=f"{tmp}/nppc", nfft=stft["nfft"],
+            hop_length=stft["hop_length"], win_length=stft["win_length"]),
+            device=dev)
+        events = []
+        device_outputs = val.device_outputs
+
+        def timed(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = device_outputs(*a, **k)
+            end.record()
+            events.append((start, end))
+            return out
+
+        val.device_outputs = timed
+        c, m, x, mean, std = preprocess_data(
+            *(torch.from_numpy(a) for a in (clean, masked, frames)),
+            return_stats=True)
+        t0 = time.perf_counter()
+        metrics = val.validate_sample(
+            x, m, c, sample_idx=0, stats=(mean, std),
+            clean_phase=np.arctan2(clean[0, 1], clean[0, 0]),
+            full_audio=wav, gap_bounds=(
+                g0 * stft["hop_length"],
+                (g0 + INPAINT_GAP_FRAMES) * stft["hop_length"]))
+        wall = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        card_ms = sum(s.elapsed_time(e) for s, e in events)
+        out = Path(tmp) / "nppc" / "sample_0"
+        wavs = sorted(out.glob("pc*_alpha*.wav"))
+        pngs = list(out.rglob("*.png"))
+        rows = NV.organize_jsons(Path(tmp) / "nppc")
+        val.plot_pitch_comparison(
+            {p.stem: _read_wav(p) for p in wavs[:5]}, out)
+        pitch = (out / "pitch_comparison.png").exists()
+    f0 = [v["mean_f0"] for v in metrics["audio_variations"]
+          if v["mean_f0"] is not None]
+    log(f"restoration validator: 4 items, mean gap MSE "
+        f"{summary['mean_gap_mse']:.5f}, {rest_ms:.1f} ms a sample")
+    log(f"nppc validator: one {seconds} s sample, {len(wavs)} wavs, {len(pngs)} "
+        f"PNGs, metrics nppc {metrics['nppc']}, mc_dropout "
+        f"{metrics['mc_dropout']}, principal angles "
+        f"{[round(a, 2) for a in metrics['principal_angles']]}, mean f0 of "
+        f"{len(f0)} voiced variations "
+        f"{min(f0, default=float('nan')):.1f}-"
+        f"{max(f0, default=float('nan')):.1f} Hz; wall {wall:.1f} ms a "
+        f"sample: "
+        f"card {card_ms:.1f} ms (CUDA events around the models and the "
+        f"PCA), host {wall - card_ms:.1f} ms; on {card}")
+    check(summary["num_samples"] == 4
+          and np.isfinite(summary["mean_gap_mse"]), "restoration validation")
+    check(len(wavs) == 25 and len(pngs) == 1 + 4 + 5 * 14 and pitch
+          and len(rows) == 1 and len(metrics["principal_angles"]) == 5,
+          "the NPPC validator's 25 wavs, 75 PNGs, pitch figure and JSON row")
+    return wall, card_ms, rest_ms
+
+
+def _read_wav(path):
+    from generative_audio_torch.data.audio_io import load_audio
+    return load_audio(path, 16000)
+
+
+def _inpaint_corpus(root):
+    """A LibriSpeech layout under root: speaker/chapter/{s}-{c}-{i}.flac
+    (16-bit verbatim FLAC) and {s}-{c}.trans.txt."""
+    rng = np.random.default_rng(SEED + 38)
+    n_spk, n_chap, n_files = INPAINT_CLI_FILES
+    for s in range(n_spk):
+        for c in range(n_chap):
+            chapter = root / f"{100 + s}" / f"{200 + c}"
+            chapter.mkdir(parents=True)
+            lines = []
+            for i in range(n_files):
+                stem = f"{100 + s}-{200 + c}-{i:04d}"
+                audio = _speech_like(int(rng.integers(1 << 30)),
+                                     rng.uniform(*INPAINT_CLI_SECONDS))
+                (chapter / f"{stem}.flac").write_bytes(_verbatim_flac(
+                    np.round(audio * 0.5 * 32767).astype(np.int16)))
+                lines.append(f"{stem} SPEAKER {s} CHAPTER {c} LINE {i}")
+            (chapter / f"{100 + s}-{200 + c}.trans.txt").write_text(
+                "\n".join(lines) + "\n")
+    return n_spk * n_chap * n_files
+
+
+def _inpaint_loader_ms(data):
+    """The loader alone: host ms a batch of one pass over the corpus (FLAC
+    decode, gap, STFT, collate) at the CLI's batch and workers."""
+    from generative_audio_torch.data import (
+        AudioInpaintingConfig, AudioInpaintingDataset, BatchLoader,
+        collate_inpainting)
+    from generative_audio_torch.utils.config import build_dataclass
+    loader = BatchLoader(
+        AudioInpaintingDataset(build_dataclass(AudioInpaintingConfig, data),
+                               seed=SEED),
+        global_batch_size=INPAINT_CLI_BATCH, num_workers=INPAINT_CLI_WORKERS,
+        collate_fn=collate_inpainting, seed=SEED)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) * 1e3 / max(n, 1)
+
+
+def _inpaint_cli(dev, card):
+    """cli.train's restoration line on a FLAC corpus (2 epochs of 2 steps
+    at batch 16 with a validation block, then -R for one more), then the
+    nppc_inpainting line over its checkpoint directory, then -R: loader-fed
+    step times."""
+    from generative_audio_torch.cli import train as train_cli
+    from generative_audio_torch.train import nppc as N
+    from generative_audio_torch.train import restoration as R
+    steps = {"restoration": [], "nppc": []}
+    validations = []
+    originals = (R.RestorationTrainer.train_step,
+                 N.NPPCInpaintingTrainer.train_step,
+                 R.RestorationTrainer.validate)
+
+    def timed(original, key):
+        def step(self, batch):
+            out = original(self, batch)
+            torch.cuda.synchronize()
+            steps[key].append((id(self), time.perf_counter()))
+            return out
+        return step
+
+    def timed_validate(self, loader):
+        t0 = time.perf_counter()
+        out = originals[2](self, loader)
+        validations.append((t0, time.perf_counter()))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(R.RestorationTrainer, "train_step",
+                              timed(originals[0], "restoration")), \
+            mock.patch.object(N.NPPCInpaintingTrainer, "train_step",
+                              timed(originals[1], "nppc")), \
+            mock.patch.object(R.RestorationTrainer, "validate",
+                              timed_validate):
+        root = Path(tmp)
+        n_files = _inpaint_corpus(root / "LibriSpeech")
+        data = {**INPAINT_DATA, "clean_path": str(root / "LibriSpeech")}
+        loader = {"global_batch_size": INPAINT_CLI_BATCH,
+                  "num_workers": INPAINT_CLI_WORKERS, "seed": SEED}
+        rest_cfg = {"line": "restoration",
+                    "checkpoint_dir": str(root / "rest"),
+                    "train": {**INPAINT_REST_TRAIN, "log_interval": 1},
+                    "data": data, "validation": {**data, "seed": SEED},
+                    "dataloader": loader}
+        nppc_cfg = {"line": "nppc_inpainting",
+                    "checkpoint_dir": str(root / "nppc"),
+                    "pretrained_restoration_checkpoint": str(root / "rest"),
+                    "train": {**INPAINT_NPPC_TRAIN, "log_interval": 1},
+                    "data": data, "dataloader": loader}
+        for name, cfg in (("rest", rest_cfg), ("nppc", nppc_cfg)):
+            (root / f"{name}.json").write_text(json.dumps(cfg, indent=1))
+        argv = ["--steps", str(INPAINT_CLI_STEPS)]
+        t0 = time.perf_counter()
+        first = train_cli.main(["-C", str(root / "rest.json"), "--epochs",
+                                "2"] + argv)
+        second = train_cli.main(["-C", str(root / "rest.json"), "--epochs",
+                                 "1", "-R"] + argv)
+        rest_wall = time.perf_counter() - t0
+        best = json.loads((root / "rest" / "best_score.json").read_text())
+        nppc = train_cli.main(["-C", str(root / "nppc.json")] + argv)
+        frozen = nppc.state.model.pretrained_restoration_model.state_dict()
+        best_sd = torch.load(root / "rest" / "best.pt", map_location="cpu",
+                             weights_only=True)["params"]
+        from_best = all(torch.equal(frozen[k].cpu(), v)
+                        for k, v in best_sd.items())
+        resumed = train_cli.main(["-C", str(root / "nppc.json"), "-R"] + argv)
+        loader_ms = _inpaint_loader_ms(data)
+    # the time from one step's end to the next one's of the same run, the
+    # loader's wait included and the validations in between taken out
+    gaps = {k: np.array([(b - a - sum(v1 - v0 for v0, v1 in validations
+                                      if a <= v0 < b)) * 1e3
+                         for (ra, a), (rb, b) in zip(v, v[1:]) if ra == rb])
+            for k, v in steps.items()}
+    log(f"inpainting CLI: {n_files} FLAC clips of "
+        f"{INPAINT_CLI_SECONDS[0]}-{INPAINT_CLI_SECONDS[1]} s, batch "
+        f"{INPAINT_CLI_BATCH}, {INPAINT_CLI_WORKERS} workers: restoration "
+        f"losses {first.loss_history} then {second.loss_history} (steps "
+        f"{first.state.step}, {second.state.step}; val "
+        f"{[round(v, 4) for _, v in first.val_loss_history]} then "
+        f"{[round(v, 4) for _, v in second.val_loss_history]}; best "
+        f"{best}), {rest_wall:.1f} s with validation; nppc objectives "
+        f"{nppc.loss_history} then {resumed.loss_history} (steps "
+        f"{nppc.state.step}, {resumed.state.step}); the frozen UNet is best/: "
+        f"{from_best}; loader-fed step times (validation out) restoration "
+        f"{' '.join(f'{g:.1f}' for g in gaps['restoration'])} ms, nppc "
+        f"{' '.join(f'{g:.1f}' for g in gaps['nppc'])} ms; the loader alone "
+        f"{loader_ms:.1f} ms a batch; on {card}")
+    n = 2 * INPAINT_CLI_STEPS
+    check(first.state.step == n and second.state.step == n
+          + INPAINT_CLI_STEPS, "the restoration line ran and resumed")
+    vals = [v for _, v in first.val_loss_history + second.val_loss_history]
+    check(len(vals) == n + INPAINT_CLI_STEPS
+          and abs(best["score"] - min(vals)) <= 1e-6 * abs(min(vals))
+          and second.best_val == best["score"],
+          "best/ holds the validation minimum across the resume")
+    check(from_best, "nppc_inpainting froze the restoration line's best/")
+    check(nppc.state.step == INPAINT_CLI_STEPS
+          and resumed.state.step == n
+          and np.isfinite(first.loss_history + second.loss_history
+                          + nppc.loss_history + resumed.loss_history).all(),
+          "the nppc_inpainting line ran and resumed, finite losses")
+    return float(np.median(np.concatenate([gaps["restoration"],
+                                           gaps["nppc"]])))
+
+
+def phase_inpainting(dev):
+    """Phase 17: the inpainting-NPPC line at full width. No scan kernel is
+    on its path: every count of ops.lstm.launch_counts stays 0."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.utils import convert
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = _inpaint_config()
+    L.reset_launch_counts()
+    params = convert.random_inpainting_nppc_params(cfg.model, seed=SEED + 30)
+    sd = convert.convert_inpainting_nppc(params)
+    rest_sd = {k[len("pretrained_restoration_model."):]: v for k, v in
+               sd.items() if k.startswith("pretrained_restoration_model.")}
+    head_sd = {k[len("pc_wrapper.net."):]: v for k, v in sd.items()
+               if k.startswith("pc_wrapper.net.")}
+    _inpaint_card_vs_cpu(dev, sd)
+    _inpaint_tf32_gap(dev, rest_sd)
+    trainer, batch, rest_ms = _inpaint_restoration_training(dev, rest_sd,
+                                                            card)
+    _profile(lambda: trainer.train_step(batch),
+             f"restoration training step, batch {INPAINT_BATCH}")
+    trained = {k: v.detach().cpu().clone() for k, v in
+               trainer.state.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    nppc, nppc_ms = _inpaint_nppc_training(dev, trained, head_sd, batch, card)
+    _profile(lambda: nppc.train_step(batch),
+             f"nppc base step, batch {INPAINT_BATCH}, 5 directions")
+    del nppc, batch
+    torch.cuda.empty_cache()
+    mc_ms, mc_peak = _inpaint_mc(dev, trained, head_sd, card)
+    from generative_audio_torch.train import NPPCInpaintingTrainer
+    val_trainer = NPPCInpaintingTrainer(cfg, restoration_variables=trained,
+                                        seed=SEED, device=dev)
+    val_trainer.state.model.pc_wrapper.net.load_state_dict(head_sd)
+    _inpaint_validators(dev, val_trainer, card)
+    del val_trainer
+    torch.cuda.empty_cache()
+    _inpaint_cli(dev, card)
+    launched = {k: v for k, v in L.launch_counts.items() if v}
+    log(f"scan kernel launches in phase 17: {launched or 0}")
+    check(not launched, "no scan kernel launched on the inpainting line")
+    log(f"phase 17: {time.perf_counter() - t_phase:.2f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4289,6 +4880,7 @@ def main():
         counts[name] += launched
     for name, launched in phase_nppc_denoising(dev).items():
         counts[name] += launched
+    phase_inpainting(dev)
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 

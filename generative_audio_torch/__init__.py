@@ -1,9 +1,11 @@
-"""PyTorch/CUDA port of generative_audio_tpu: FullSubNet+ serving and training.
+"""PyTorch/CUDA port of generative_audio_tpu: FullSubNet+ serving and training,
+and the denoising and inpainting NPPC lines.
 
 The layout follows the JAX package: `ops/` (STFT, masks, norms, sub-band ops and the
-LSTM scan wrappers with their autograd Function), `nn/` (TSSE, TCN, sequence models),
-`models/` (FullSubNet+), `losses.py`, `train/` (optimizer state, checkpoints, the
-enhancement trainer), `eval/` (the Inferencer, metrics, the validator), `utils/`
+LSTM scan wrappers with their autograd Function), `nn/` (TSSE, TCN, sequence models,
+the inpainting UNets), `models/` (FullSubNet+, the NPPC models), `losses.py`, `train/`
+(optimizer state, checkpoints, the enhancement, restoration and NPPC trainers),
+`eval/` (the Inferencer, metrics, the validator), `utils/`
 (device choice, weight conversion both ways, config, logging, tracking, the report),
 `data/` (audio I/O, mixing, datasets, the batch loader, the native audio binding),
 `cli/` (inference, training, validation, metrics, corpus tools) and `csrc/` (the CUDA

@@ -4,7 +4,7 @@
         [-R] [--steps N] [--epochs N] [--device cpu]
 
 Port of generative_audio_tpu/cli/train.py. The config's `line` picks the
-model line; the port trains two. The `enhance` line (FullSubNet+ or
+model line; the port trains four. The `enhance` line (FullSubNet+ or
 FullSubNet v1, `train:` is the EnhanceTrainConfig) is wired as the JAX CLI
 wires it:
 DNSTrainDataset when `data:` names a `clean_dataset` scp (the DNS regime),
@@ -21,28 +21,42 @@ is loaded, so the frozen enhancer keeps its seeded init. A `train.n_dirs`
 key sets `model.pc_wrapper.n_directions`, the intent of
 configs/denoising_nppc.yaml, which the JAX CLI refuses as an unknown key.
 The line takes no `validation:` block (a ValueError).
+The `restoration` line (`train:` is the RestorationTrainConfig) trains the
+inpainting UNet on AudioInpaintingDataset batches (`data:` is the
+AudioInpaintingConfig; collate_inpainting; global_batch_size 16 by default);
+an optional `validation:` block is a second AudioInpaintingConfig, validated
+at each log point, whose minimum keeps best/. The `nppc_inpainting` line
+(`train:` is the NPPCInpaintingTrainConfig) trains the PC UNet over the
+restoration UNet of `pretrained_restoration_checkpoint`, a checkpoint
+directory of the restoration line: its best/ where there is one, else its
+latest/ (the JAX CLI takes latest/, though the restoration trainer keeps
+best/ for the NPPC head); a named directory with neither raises, where the
+JAX CLI trains over a random UNet without a word. Without the key the
+frozen UNet keeps its seeded init, as in the JAX CLI. The line takes no
+`validation:` block (a ValueError). The inpainting datasets draw from the
+loader's `seed` where `data.seed` is not set.
 `--epochs` (default 1) counts passes over the loader; `--steps N` makes each
 epoch N steps, looping the loader (LoopIterator). `--device` is `cuda`
 (default; raises without a CUDA device) or `cpu`.
 
-The other lines (restoration, nppc_inpainting, image_restoration,
-image_nppc) and `--distributed` raise NotImplementedError until their
-slices are ported (ROADMAP.md, queue A items 6, 8 and 9).
+The image lines (image_restoration, image_nppc) and `--distributed` raise
+NotImplementedError until their slices are ported (ROADMAP.md, queue A
+items 6 and 9).
 """
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 
 from generative_audio_torch.utils.config import (
     build_dataclass, load_config_file)
 from generative_audio_torch.utils.logging import get_logger
 
-__all__ = ["main", "nppc_denoising_config"]
+__all__ = ["main", "nppc_denoising_config", "restoration_checkpoint"]
 
 # the JAX CLI's other lines, and the item of ROADMAP.md's queue A that
 # ports each
-_UNPORTED_LINES = {"restoration": 8, "nppc_inpainting": 8,
-                   "image_restoration": 9, "image_nppc": 9}
+_UNPORTED_LINES = {"image_restoration": 9, "image_nppc": 9}
 
 
 def nppc_denoising_config(train):
@@ -124,9 +138,78 @@ def _train_nppc_denoising(args, raw, data_cfg, loader_cfg, checkpoint_dir,
     return trainer
 
 
+def _inpainting_loader(data_cfg, loader_cfg, steps):
+    from generative_audio_torch.data import (
+        AudioInpaintingConfig, AudioInpaintingDataset, collate_inpainting)
+    dataset = AudioInpaintingDataset(
+        build_dataclass(AudioInpaintingConfig, data_cfg),
+        seed=loader_cfg.get("seed", 0))
+    return _loader(dataset, {**loader_cfg, "collate_fn": collate_inpainting},
+                   steps)
+
+
+def _train_restoration(args, raw, data_cfg, loader_cfg, checkpoint_dir,
+                       device, log):
+    from generative_audio_torch.train import (
+        RestorationTrainConfig, RestorationTrainer)
+    loader = _inpainting_loader(data_cfg, loader_cfg, args.steps)
+    trainer = RestorationTrainer(
+        build_dataclass(RestorationTrainConfig, raw.get("train")),
+        checkpoint_dir=checkpoint_dir, device=device)
+    if args.resume:
+        trainer.restore_latest()
+    val_cfg = raw.get("validation")
+    val_loader = (_inpainting_loader(val_cfg, loader_cfg, None) if val_cfg
+                  else None)
+    trainer.train(loader, n_epochs=args.epochs or 1, val_loader=val_loader,
+                  log=log)
+    return trainer
+
+
+def restoration_checkpoint(directory):
+    """(the restoration UNet's state_dict, "best" or "latest") from a
+    checkpoint directory of the restoration line: best/ where there is one,
+    else latest/; FileNotFoundError where it holds neither."""
+    from generative_audio_torch.train import CheckpointManager
+    if Path(directory).is_dir():
+        ckpt = CheckpointManager(directory)
+        for name in ("best", "latest"):
+            tree = ckpt.restore(name)
+            if tree is not None:
+                return tree["params"], name
+    raise FileNotFoundError(
+        f"pretrained_restoration_checkpoint {directory} holds no best.pt or "
+        f"latest.pt")
+
+
+def _train_nppc_inpainting(args, raw, data_cfg, loader_cfg, checkpoint_dir,
+                           device, log):
+    from generative_audio_torch.train import (
+        NPPCInpaintingTrainConfig, NPPCInpaintingTrainer)
+    if raw.get("validation"):
+        raise ValueError("the nppc_inpainting line takes no validation: block")
+    restoration = None
+    if raw.get("pretrained_restoration_checkpoint"):
+        restoration, name = restoration_checkpoint(
+            raw["pretrained_restoration_checkpoint"])
+        log(f"frozen restoration UNet: {name} of "
+            f"{raw['pretrained_restoration_checkpoint']}")
+    loader = _inpainting_loader(data_cfg, loader_cfg, args.steps)
+    trainer = NPPCInpaintingTrainer(
+        build_dataclass(NPPCInpaintingTrainConfig, raw.get("train")),
+        restoration_variables=restoration, checkpoint_dir=checkpoint_dir,
+        device=device)
+    if args.resume:
+        trainer.restore_latest()
+    trainer.train(loader, n_epochs=args.epochs or 1, log=log)
+    return trainer
+
+
 # each ported line: (its run, the loader's default global_batch_size)
 _LINES = {"enhance": (_train_enhance, 18),
-          "nppc_denoising": (_train_nppc_denoising, 8)}
+          "nppc_denoising": (_train_nppc_denoising, 8),
+          "restoration": (_train_restoration, 16),
+          "nppc_inpainting": (_train_nppc_inpainting, 16)}
 
 
 def main(argv=None):

@@ -1,6 +1,6 @@
 """Host-side data: audio I/O, SNR mixing, synthetic RIRs, the training,
-validation and inference datasets, batch loading and the native audio
-binding. Importing it builds nothing."""
+validation, inference and inpainting datasets, batch loading and the native
+audio binding. Importing it builds nothing."""
 from generative_audio_torch.data.audio_io import (  # noqa: F401
     load_audio, read_wav, resample, to_mono, write_wav)
 from generative_audio_torch.data.mixing import (  # noqa: F401
@@ -10,6 +10,9 @@ from generative_audio_torch.data.audio_dataset import (  # noqa: F401
 from generative_audio_torch.data.dns_dataset import (  # noqa: F401
     DNSTrainConfig, DNSTrainDataset, DNSValidationDataset, InferenceDataset,
     parse_snr_range)
+from generative_audio_torch.data.inpainting_dataset import (  # noqa: F401
+    AudioInpaintingConfig, AudioInpaintingDataset, AudioInpaintingSample,
+    collate_inpainting, time_to_spec_mask)
 from generative_audio_torch.data.loader import BatchLoader, LoopIterator  # noqa: F401
 from generative_audio_torch.data.rir import image_source_rir, make_rir_bank  # noqa: F401
 from generative_audio_torch.data.sample_generator import (  # noqa: F401

@@ -12,14 +12,12 @@ writes them.
 The figure keeps the JAX package's layout, (1 + n_dirs) rows x max(n_alphas
 + 1, 9) columns of spectrogram panels in dB, origin lower, the fixed
 [-60, 0] dB range where the JAX figure sets one, each other panel scaled to
-its own range; it is written as a PNG with zlib and struct (no matplotlib or
-PIL), without titles or colorbars.
+its own range; it is written as a PNG by utils/plot (no matplotlib or PIL),
+without titles or colorbars.
 """
 from __future__ import annotations
 
 import dataclasses
-import struct
-import zlib
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
@@ -30,16 +28,15 @@ from generative_audio_torch.data.audio_io import write_wav
 from generative_audio_torch.ops.mask import apply_crm, decompress_cIRM
 from generative_audio_torch.ops.stft import istft_ri, stft_ri
 from generative_audio_torch.utils.device import resolve_device
+from generative_audio_torch.utils.plot import GAP as _GAP
+from generative_audio_torch.utils.plot import heatmap as _panel
+from generative_audio_torch.utils.plot import write_png
 
 __all__ = ["DenoisingNPPCValidatorConfig", "DenoisingNPPCValidator",
            "figure_size", "write_png"]
 
-# the figure: white gutter between panels (pixels), the base row's order,
-# and a viridis-like colour ramp (five stops, dark to light)
-_GAP = 4
+# the figure's base row, in order
 _BASE_ORDER = ("Noisy", "Clean", "Enhanced", "Error (Enh - Clean)")
-_RAMP = np.array([[68, 1, 84], [59, 82, 139], [33, 145, 140], [94, 201, 98],
-                  [253, 231, 37]], np.float64)
 
 
 @dataclasses.dataclass
@@ -58,34 +55,6 @@ def figure_size(n_dirs: int, n_alphas: int, n_freqs: int, n_frames: int):
     n_rows = n_dirs + 1
     return (n_cols * n_frames + (n_cols + 1) * _GAP,
             n_rows * n_freqs + (n_rows + 1) * _GAP)
-
-
-def write_png(path, rgb: np.ndarray) -> None:
-    """uint8 [H, W, 3] -> an 8-bit RGB PNG (filter 0 on every row)."""
-    h, w, _ = rgb.shape
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(rgb, np.uint8).reshape(h, -1)],
-                          axis=1)
-    Path(path).write_bytes(
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
-        + chunk(b"IEND", b""))
-
-
-def _panel(values: np.ndarray, vmin=None, vmax=None) -> np.ndarray:
-    """[F, T] -> uint8 [F, T, 3] through the ramp, origin lower."""
-    lo = np.min(values) if vmin is None else vmin
-    hi = np.max(values) if vmax is None else vmax
-    x = np.clip((values - lo) / max(hi - lo, 1e-12), 0.0, 1.0)[::-1]
-    stops = np.linspace(0.0, 1.0, len(_RAMP))
-    return np.stack([np.interp(x, stops, _RAMP[:, k]) for k in range(3)],
-                    axis=-1).round().astype(np.uint8)
 
 
 class DenoisingNPPCValidator:

@@ -5,5 +5,8 @@ from generative_audio_torch.models.fullsubnet_plus import (  # noqa: F401
     FullSubNetPlus, FullSubNetPlusConfig, MultiDirectionConfig,
     MultiDirectionFullSubNetPlus)
 from generative_audio_torch.models.nppc_model import (  # noqa: F401
-    DenoisingNPPCConfig, DenoisingNPPCModel, StftConfig)
-from generative_audio_torch.models.pc_wrapper import AudioPCWrapper  # noqa: F401
+    DenoisingNPPCConfig, DenoisingNPPCModel, InpaintingNPPCConfig,
+    InpaintingNPPCModel, InpaintingRestorationModel, StftConfig,
+    UNetModelConfig)
+from generative_audio_torch.models.pc_wrapper import (  # noqa: F401
+    AudioInpaintingPCWrapper, AudioInpaintingPCWrapperConfig, AudioPCWrapper)

@@ -1,16 +1,22 @@
-"""The denoising-NPPC model: uncertainty directions in cRM space over a
-frozen FullSubNet+ enhancer.
+"""The NPPC models: uncertainty directions over a frozen restoration model.
 
-Port of generative_audio_tpu/models/nppc_model.py:41-106 (StftConfig,
-DenoisingNPPCConfig, DenoisingNPPCModel): waveform -> STFT triplet -> the
-frozen FullSubNet+'s compressed cRM -> the enhanced triplet -> AudioPCWrapper
-over the noisy and enhanced streams -> w_mat [B, n_dirs, 2, F', T].
+Port of generative_audio_tpu/models/nppc_model.py:41-174.
+  * Denoising (StftConfig, DenoisingNPPCConfig, DenoisingNPPCModel):
+    waveform -> STFT triplet -> the frozen FullSubNet+'s compressed cRM ->
+    the enhanced triplet -> AudioPCWrapper over the noisy and enhanced
+    streams -> w_mat [B, n_dirs, 2, F', T].
+  * Inpainting (UNetModelConfig, InpaintingRestorationModel,
+    InpaintingNPPCConfig, InpaintingNPPCModel): the frozen restoration UNet's
+    prediction, concatenated with the masked log-magnitude, ->
+    AudioInpaintingPCWrapper -> w_mat [B, n_dirs, F, T].
 
-Where the JAX package writes stop_gradient around the enhancer's output, the
-port runs the enhancer under torch.no_grad() with its parameters'
-requires_grad off: in bf16 on CUDA its LSTM layers launch the inference
-scan (kernel A), never the training kernels, and it gets no gradient. The
-inpainting line's model waits for the UNet (ROADMAP.md, queue A item 8).
+Where the JAX package writes stop_gradient around the frozen model's
+output, the port runs it under torch.no_grad() with its parameters'
+requires_grad off. The denoising enhancer in bf16 on CUDA launches the
+inference scan (kernel A), never the training kernels. The frozen
+restoration UNet always runs with train=False (BatchNorm on its running
+statistics, which therefore never change), whatever the outer module's
+mode.
 """
 from __future__ import annotations
 
@@ -22,13 +28,17 @@ from torch import nn
 
 from generative_audio_torch.models.fullsubnet_plus import (
     FullSubNetPlus, FullSubNetPlusConfig, MultiDirectionConfig)
-from generative_audio_torch.models.pc_wrapper import AudioPCWrapper
+from generative_audio_torch.models.pc_wrapper import (
+    AudioInpaintingPCWrapper, AudioInpaintingPCWrapperConfig, AudioPCWrapper)
+from generative_audio_torch.nn.unet import RestorationWrapper, UNet
 from generative_audio_torch.ops.mask import (
     crm_to_stft_components, decompress_cIRM)
 from generative_audio_torch.ops.stft import prepare_input_from_waveform
 from generative_audio_torch.utils.device import resolve_device
 
-__all__ = ["StftConfig", "DenoisingNPPCConfig", "DenoisingNPPCModel"]
+__all__ = ["StftConfig", "DenoisingNPPCConfig", "DenoisingNPPCModel",
+           "UNetModelConfig", "InpaintingRestorationModel",
+           "InpaintingNPPCConfig", "InpaintingNPPCModel"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,3 +103,83 @@ class DenoisingNPPCModel(nn.Module):
     def _enhancer(self, mag, real, imag) -> torch.Tensor:
         with torch.no_grad():
             return self.pretrained_restoration_model(mag, real, imag)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetModelConfig:
+    in_channels: int = 1
+    out_channels: int = 1
+    dropout: float = 0.0
+
+
+class InpaintingRestorationModel(RestorationWrapper):
+    """UNet + RestorationWrapper: the prediction pasted into the gap only.
+    forward(x_in, mask, train=False, mc_dropout=False, generator=None);
+    mc_dropout=True turns dropout on with BatchNorm on its running
+    statistics. Parameters under `net.`."""
+
+    def __init__(self, config: UNetModelConfig = UNetModelConfig()):
+        super().__init__(UNet(config.in_channels, config.out_channels,
+                              config.dropout))
+        self.config = config
+
+    def forward(self, x_in, mask, train: bool = False,
+                mc_dropout: bool = False, generator=None):
+        return super().forward(x_in, mask, train, mc_dropout, generator)
+
+
+@dataclasses.dataclass(frozen=True)
+class InpaintingNPPCConfig:
+    restoration: UNetModelConfig = UNetModelConfig(in_channels=1,
+                                                   out_channels=1,
+                                                   dropout=0.2)
+    pc_wrapper: AudioInpaintingPCWrapperConfig = \
+        AudioInpaintingPCWrapperConfig()
+
+
+class InpaintingNPPCModel(nn.Module):
+    """Masked log-magnitude [B, 1, F, T] and mask [B, 1, F, T] -> w_mat
+    [B, n_dirs, F, T]. Parameters: `pretrained_restoration_model.net.*` (the
+    frozen UNet, requires_grad off) and `pc_wrapper.net.*` (the PC UNet,
+    whose BatchNorm updates its running statistics when train=True)."""
+
+    def __init__(self, config: InpaintingNPPCConfig = InpaintingNPPCConfig()):
+        super().__init__()
+        self.config = config
+        self.pretrained_restoration_model = InpaintingRestorationModel(
+            config.restoration)
+        self.pretrained_restoration_model.requires_grad_(False)
+        self.pc_wrapper = AudioInpaintingPCWrapper(config.pc_wrapper)
+
+    def get_pred_spec_mag_norm(self, masked_spec_mag_log: torch.Tensor,
+                               mask: torch.Tensor) -> torch.Tensor:
+        """The frozen restoration prediction [B, 1, F, T]."""
+        with torch.no_grad():
+            return self.pretrained_restoration_model(masked_spec_mag_log,
+                                                     mask, train=False)
+
+    def mc_restoration(self, masked_spec_mag_log: torch.Tensor,
+                       mask: torch.Tensor, generator=None) -> torch.Tensor:
+        """MC-dropout samples of the frozen restoration model: dropout on,
+        BatchNorm on its running statistics. With a sequence of P
+        generators the input holds P stacked passes, one per generator."""
+        with torch.no_grad():
+            return self.pretrained_restoration_model(
+                masked_spec_mag_log, mask, train=False, mc_dropout=True,
+                generator=generator)
+
+    def forward(self, masked_spec_mag_norm: torch.Tensor, mask: torch.Tensor,
+                train: bool = False, generator=None) -> torch.Tensor:
+        return self.forward_with_pred(masked_spec_mag_norm, mask, train,
+                                      generator)[0]
+
+    def forward_with_pred(self, masked_spec_mag_norm: torch.Tensor,
+                          mask: torch.Tensor, train: bool = False,
+                          generator=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(w_mat, the frozen prediction) from one frozen forward: the
+        training objective needs both."""
+        pred = self.get_pred_spec_mag_norm(masked_spec_mag_norm, mask)
+        x = torch.cat([masked_spec_mag_norm, pred], dim=1)
+        return self.pc_wrapper(x, mask, train=train,
+                               generator=generator), pred

@@ -1,20 +1,26 @@
-"""The principal-component head of the denoising-NPPC line.
+"""The principal-component heads of the two NPPC lines.
 
-Port of generative_audio_tpu/models/pc_wrapper.py:26-43 (AudioPCWrapper):
-MultiDirectionFullSubNetPlus -> [B, n_dirs, 2, F, T] -> complex
-Gram-Schmidt. The inpainting line's AudioInpaintingPCWrapper waits for the
-UNet (ROADMAP.md, queue A item 8).
+Port of generative_audio_tpu/models/pc_wrapper.py:26-70. AudioPCWrapper
+(denoising): MultiDirectionFullSubNetPlus -> [B, n_dirs, 2, F, T] ->
+complex Gram-Schmidt. AudioInpaintingPCWrapper (inpainting): a UNet with
+n_dirs outputs, zeroed in the known region (mask == 1), -> real
+Gram-Schmidt.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 
 from generative_audio_torch.models.fullsubnet_plus import (
     MultiDirectionConfig, MultiDirectionFullSubNetPlus)
-from generative_audio_torch.ops.gram_schmidt import gram_schmidt_to_crm
+from generative_audio_torch.nn.unet import UNet
+from generative_audio_torch.ops.gram_schmidt import (
+    gram_schmidt_to_crm, gram_schmidt_to_spec_mag)
 
-__all__ = ["AudioPCWrapper"]
+__all__ = ["AudioPCWrapper", "AudioInpaintingPCWrapper",
+           "AudioInpaintingPCWrapperConfig"]
 
 
 class AudioPCWrapper(nn.Module):
@@ -35,3 +41,28 @@ class AudioPCWrapper(nn.Module):
         b, _, f, t = crm.shape
         return gram_schmidt_to_crm(
             crm.reshape(b, self.config.n_directions, 2, f, t))
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioInpaintingPCWrapperConfig:
+    in_channels: int = 2
+    out_channels: int = 5   # == n_dirs
+    dropout: float = 0.0
+    n_dirs: int = 5
+
+
+class AudioInpaintingPCWrapper(nn.Module):
+    """mag_spec [B, in_channels, F, T] and mask [B, 1, F, T] -> orthogonal
+    directions [B, n_dirs, F, T] that live in the gap only. The UNet's
+    parameters are under `net.`."""
+
+    def __init__(self, config: AudioInpaintingPCWrapperConfig =
+                 AudioInpaintingPCWrapperConfig()):
+        super().__init__()
+        self.config = config
+        self.net = UNet(config.in_channels, config.n_dirs, config.dropout)
+
+    def forward(self, mag_spec: torch.Tensor, mask: torch.Tensor,
+                train: bool = False, generator=None) -> torch.Tensor:
+        pred = self.net(mag_spec, train=train, generator=generator)
+        return gram_schmidt_to_spec_mag(pred * (1.0 - mask.expand(pred.shape)))

@@ -1,5 +1,5 @@
-"""Carry the JAX package's FullSubNet+, FullSubNet and denoising-NPPC params
-into the port's state_dict, and back.
+"""Carry the JAX package's FullSubNet+, FullSubNet, denoising-NPPC and
+inpainting (UNet) params into the port's state_dict, and back.
 
 The input is the nested dict of arrays that `model.init(...)["params"]` of
 generative_audio_tpu's FullSubNetPlus or FullSubNet gives (numpy or anything
@@ -21,6 +21,13 @@ Layout transforms (JAX -> torch):
   1x1 conv as Dense [in, out]     -> Conv1d weight [out, in, 1]
   LSTM w_ih [in, 4H], w_hh [H, 4H] -> weight_ih_l{n} [4H, in], weight_hh_l{n} [4H, H]
   GRU  w_ih [in, 3H], w_hh [H, 3H] -> weight_ih_l{n} [3H, in], weight_hh_l{n} [3H, H]
+  Conv2d kernel [kh, kw, in, out]  -> Conv2d weight [out, in, kh, kw]
+  BatchNorm scale, bias            -> weight, bias; batch_stats mean, var
+                                      -> running_mean, running_var
+
+The UNets' variables are flax's {"params": ..., "batch_stats": ...}; their
+state-dict names are the reference's (generative_audio_tpu/utils/
+torch_convert.py:182-221), `num_batches_tracked` set to 0.
 """
 from __future__ import annotations
 
@@ -31,11 +38,13 @@ import numpy as np
 import torch
 
 __all__ = ["convert_denoising_nppc", "convert_fullsubnet",
-           "convert_fullsubnet_plus", "convert_multidirection",
-           "convert_sequence_model", "convert_tsse",
-           "random_denoising_nppc_params", "random_fullsubnet_params",
-           "random_fullsubnet_plus_params", "to_jax_fullsubnet",
-           "to_jax_fullsubnet_plus"]
+           "convert_fullsubnet_plus", "convert_inpainting_nppc",
+           "convert_inpainting_restoration", "convert_multidirection",
+           "convert_sequence_model", "convert_tsse", "convert_unet",
+           "convert_unet2", "random_denoising_nppc_params",
+           "random_fullsubnet_params", "random_fullsubnet_plus_params",
+           "random_inpainting_nppc_params", "random_unet_params",
+           "to_jax_fullsubnet", "to_jax_fullsubnet_plus", "to_jax_unet"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -321,3 +330,170 @@ def to_jax_fullsubnet_plus(named: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 to_jax_fullsubnet = to_jax_fullsubnet_plus
+
+
+# ------------------------------------------------------------------ UNets --
+# the UNet's blocks: (JAX path, state-dict prefix of its DoubleConv's
+# Sequential)
+_UNET_BLOCKS = ([(("inc",), "inc.conv")]
+                + [((f"down{i}", "conv"), f"down{i}.mpconv.1.conv")
+                   for i in range(1, 5)]
+                + [((f"up{i}", "conv"), f"up{i}.conv.conv")
+                   for i in range(1, 5)])
+# DoubleConv: flax name -> index in the reference's Sequential
+_DOUBLE_CONV = {"conv0": 0, "bn0": 1, "conv1": 3, "bn1": 4}
+_UNET2_BLOCKS = ([f"enc{i}" for i in range(1, 7)]
+                 + [f"dec{i}" for i in range(6, 0, -1)])
+
+
+def _node(tree: Mapping, path) -> Mapping:
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def _conv2d(p: Mapping, prefix: str) -> StateDict:
+    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _bn(p: Mapping, stats: Mapping, prefix: str) -> StateDict:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"]),
+            f"{prefix}.running_mean": _t(stats["mean"]),
+            f"{prefix}.running_var": _t(stats["var"]),
+            f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+
+def convert_unet(variables: Mapping, prefix: str = "") -> StateDict:
+    """nn.unet.UNet variables {"params", "batch_stats"} -> the port's UNet
+    state_dict (keys under `prefix`)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    for path, seq in _UNET_BLOCKS:
+        p, st = _node(params, path), _node(stats, path)
+        for name, index in _DOUBLE_CONV.items():
+            key = f"{prefix}{seq}.{index}"
+            sd.update(_bn(p[name], st[name], key) if name.startswith("bn")
+                      else _conv2d(p[name], key))
+    sd.update(_conv2d(params["outc"], f"{prefix}outc.conv"))
+    return sd
+
+
+def convert_unet2(variables: Mapping, prefix: str = "") -> StateDict:
+    """nn.unet.UNet2 variables -> the port's UNet2 state_dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    for block in _UNET2_BLOCKS:
+        sd.update(_conv2d(params[block]["conv"], f"{prefix}{block}.conv"))
+        sd.update(_bn(params[block]["bn"], stats[block]["bn"],
+                      f"{prefix}{block}.bn"))
+    return sd
+
+
+def _sub(variables: Mapping, name: str) -> Dict[str, Any]:
+    return {"params": variables["params"][name],
+            "batch_stats": variables["batch_stats"][name]}
+
+
+def convert_inpainting_restoration(variables: Mapping) -> StateDict:
+    """models.nppc_model.InpaintingRestorationModel variables -> the port's
+    InpaintingRestorationModel state_dict."""
+    return convert_unet(_sub(variables, "net"), "net.")
+
+
+def convert_inpainting_nppc(variables: Mapping) -> StateDict:
+    """models.nppc_model.InpaintingNPPCModel variables -> the port's
+    InpaintingNPPCModel state_dict."""
+    sd = {f"pretrained_restoration_model.{k}": v for k, v in
+          convert_inpainting_restoration(
+              _sub(variables, "pretrained_restoration_model")).items()}
+    sd.update(convert_unet(_sub(_sub(variables, "pc_wrapper"), "net"),
+                           "pc_wrapper.net."))
+    return sd
+
+
+def random_unet_params(in_channels: int, out_channels: int,
+                       seed: int = 0) -> Dict[str, Any]:
+    """Random nn.unet.UNet variables in the JAX layout, made with numpy from
+    `seed`: kernels and biases uniform in +/-1/sqrt(fan_in) as torch
+    initialises them, BatchNorm scales 1 and biases 0, running means 0 and
+    variances 1."""
+    rng = np.random.default_rng(seed)
+
+    def conv(k, n_in, n_out):
+        fan_in = k * k * n_in
+        return {"kernel": _uniform(rng, (k, k, n_in, n_out), fan_in),
+                "bias": _uniform(rng, (n_out,), fan_in)}
+
+    def double(n_in, n_out):
+        ones, zeros = np.ones(n_out, np.float32), np.zeros(n_out, np.float32)
+        bn = {"scale": ones, "bias": zeros}
+        return ({"conv0": conv(3, n_in, n_out), "bn0": bn,
+                 "conv1": conv(3, n_out, n_out), "bn1": dict(bn)},
+                {"bn0": {"mean": zeros, "var": ones},
+                 "bn1": {"mean": zeros.copy(), "var": ones.copy()}})
+
+    widths = {"inc": (in_channels, 64), "down1": (64, 128),
+              "down2": (128, 256), "down3": (256, 512), "down4": (512, 512),
+              "up1": (1024, 256), "up2": (512, 128), "up3": (256, 64),
+              "up4": (128, 64)}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for name, (n_in, n_out) in widths.items():
+        p, st = double(n_in, n_out)
+        params[name], stats[name] = ((p, st) if name == "inc"
+                                     else ({"conv": p}, {"conv": st}))
+    params["outc"] = conv(1, 64, out_channels)
+    return {"params": params, "batch_stats": stats}
+
+
+def random_inpainting_nppc_params(config, seed: int = 0) -> Dict[str, Any]:
+    """Random InpaintingNPPCModel variables in the JAX layout, made with
+    numpy: the restoration UNet from `seed`, the PC UNet from seed + 1 (see
+    random_unet_params). `config` is an InpaintingNPPCConfig of either
+    package."""
+    r, h = config.restoration, config.pc_wrapper
+    rest = random_unet_params(r.in_channels, r.out_channels, seed)
+    head = random_unet_params(h.in_channels, h.n_dirs, seed + 1)
+    return {"params": {"pretrained_restoration_model": {"net": rest["params"]},
+                       "pc_wrapper": {"net": head["params"]}},
+            "batch_stats": {
+                "pretrained_restoration_model": {"net": rest["batch_stats"]},
+                "pc_wrapper": {"net": head["batch_stats"]}}}
+
+
+def to_jax_unet(named: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """The port's UNet tensors by state-dict name under `prefix` (parameters
+    and buffers, or parameters' gradients) -> {"params": ..., "batch_stats":
+    ...} of float32 numpy arrays in the JAX layout; names absent from
+    `named` are left out. The inverse of convert_unet."""
+    def get(key):
+        value = named.get(prefix + key)
+        if isinstance(value, torch.Tensor):
+            value = value.detach().float().cpu().numpy()
+        return None if value is None else np.asarray(value, np.float32)
+
+    def put(tree, path, leaf, value):
+        if value is not None:
+            for name in path:
+                tree = tree.setdefault(name, {})
+            tree[leaf] = np.ascontiguousarray(value)
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    blocks = _UNET_BLOCKS + [((), "outc.conv")]
+    for path, seq in blocks:
+        for name, index in (_DOUBLE_CONV.items() if path else [(None, None)]):
+            key = seq if index is None else f"{seq}.{index}"
+            where = path + ((name,) if name else ("outc",))
+            if name and name.startswith("bn"):
+                put(params, where, "scale", get(f"{key}.weight"))
+                put(params, where, "bias", get(f"{key}.bias"))
+                put(stats, where, "mean", get(f"{key}.running_mean"))
+                put(stats, where, "var", get(f"{key}.running_var"))
+            else:
+                w = get(f"{key}.weight")
+                put(params, where, "kernel",
+                    None if w is None else w.transpose(2, 3, 1, 0))
+                put(params, where, "bias", get(f"{key}.bias"))
+    return {"params": params, "batch_stats": stats}

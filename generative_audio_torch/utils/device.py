@@ -2,11 +2,12 @@
 and the timer on the card that chip_smoke.py and the port's scripts use."""
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
 
-__all__ = ["resolve_device", "cuda_ms"]
+__all__ = ["resolve_device", "conv_tf32", "cuda_ms"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -36,6 +37,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
+
+@contextlib.contextmanager
+def conv_tf32(enabled: bool = True):
+    """cuDNN's float32 convolutions with TF32 (`enabled`, torch's default)
+    or in full float32 inside the block, and the flag as it was after it.
+    The inpainting line's trainers and validators run their UNets' forward
+    and backward inside it with TF32; resolve_device turns the flag off for
+    the rest of the port."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
