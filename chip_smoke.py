@@ -191,16 +191,45 @@ of which fails the run (non-zero exit, no result line):
      nppc_inpainting line over its best/, then -R, with the loader-fed
      step times. No scan kernel is on this path: every launch count stays
      0 through phase 17.
+ 18. the rest of queue A item 5 at full width, random weights from a numpy
+     seed in the JAX layout: FullSubNet+ (bf16) in seven configurations
+     that take every norm and every channel attention (TSSE over the
+     sub-band fold of 10, SE over the fold of 2 with the cumulative Laplace
+     norm, CBAM with the offline Gaussian norm, ECA with the cumulative
+     layer norm, TSSE with the forgetting norm, SE with the sub-band
+     forgetting norm, CBAM with the hybrid norm): each a 1 s clip against
+     the float32 model on the CPU, cRM and wav (for the four norms that
+     divide each frame by a running mean, with the clip's magnitude in all
+     three streams, and on a 10 s request's own streams each norm in
+     float64 and each attention, card against CPU; see _own_streams), 10 s
+     requests timed beside the default configuration's with exactly 2
+     launches of kernel A each, and for the first two one training step at
+     18 x 3.072 s with exactly 2 C and 2 D and a finite non-zero gradient
+     per tensor; ComplexSequenceModel with LSTM and GRU towers (2 x 257
+     features, H=384, 2 layers), served at [8, 514, 628] with exactly 4
+     scans over 16 rows each, against the float32 CPU model, and trained at
+     [18, 514, 195] with exactly 4 C and 4 D (LSTM) or 4 + 4 + 4 GRU
+     launches, every one of those scan launches held on its recorded
+     operands against its plain version under phases 2, 3, 9 and 10's
+     limits; the forgetting norms' block products against
+     their loops, both timed; MOSNet at its published width on a 10 s and a
+     25 s clip, card against CPU, with the wall per window; conv-STFT ->
+     conv-iSTFT on 4 mics x 10 s, both directional feature computers, the
+     three beamforming ops, a causal and a no-skip TCN stack and both causal
+     conv blocks in train and eval, float32, card against CPU within 1e-4 of
+     the peak.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
-each variant's own path in phase 12 and around phases 13, 14 and 15 and
-each path of phase 16 (whose launches add to kernel A's, in phases 14-16 to
-kernel B's too, and in phases 15-16 to kernels C's and D's). The second-to-last line of stdout is
+each variant's own path in phase 12 and around phases 13, 14 and 15, each
+path of phase 16 and phase 18's model paths (whose launches add to kernel
+A's, in phases 14-16 to kernel B's too, in phases 15-16 and 18 to kernels
+C's and D's, and in phase 18 to the GRU kernels'). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device.
 """
 import contextlib
 import dataclasses
+import inspect
 import json
 import re
 import statistics
@@ -2279,11 +2308,28 @@ def model_paths():
     return plus, v1["GRU"], v1["LSTM"]
 
 
-def phase_reference(dev, path, model):
+class _Fed(torch.nn.Module):
+    """A model that takes its inputs through `streams` first."""
+
+    def __init__(self, model, streams):
+        super().__init__()
+        self.model, self.streams = model, streams
+
+    def forward(self, *inputs):
+        return self.model(*self.streams(*inputs))
+
+
+def phase_reference(dev, path, model, streams=None):
     """A 1 s clip: the bf16 model on the card against the float32 model on
-    the CPU (the algorithm as the CPU tests hold it against JAX)."""
+    the CPU (the algorithm as the CPU tests hold it against JAX), on the
+    model's inputs and wav to wav through the Inferencer. With `streams`,
+    both models take their inputs through it (_Fed)."""
     from generative_audio_torch.ops import prepare_input_from_waveform
     ref = path.model(torch.float32, "cpu")
+    what = path.name
+    if streams is not None:
+        model, ref = _Fed(model, streams), _Fed(ref, streams)
+        what += f" fed {streams.__name__}"
     wav = np.random.default_rng(SEED + 1).standard_normal(16000).astype(
         np.float32) * 0.1
     inputs = prepare_input_from_waveform(torch.from_numpy(wav)[None], 512, 256,
@@ -2292,17 +2338,17 @@ def phase_reference(dev, path, model):
         want = ref(*inputs)
         got = model(*(x.to(dev) for x in inputs)).float().cpu()
     rel = ((got - want).abs().max() / want.abs().max()).item()
-    log(f"reference {path.name}: 1 s clip, bf16 cRM on the card vs float32 on "
+    log(f"reference {what}: 1 s clip, bf16 cRM on the card vs float32 on "
         f"the CPU: max|err|/peak {rel:.3e} (peak {want.abs().max().item():.3f})")
     check(torch.isfinite(got).all().item() and rel < PATH_REL,
-          f"{path.name}: bf16 model vs float32 reference within {PATH_REL}")
+          f"{what}: bf16 model vs float32 reference within {PATH_REL}")
     out_gpu = path.inferencer(model, dev).enhance(wav)
     out_cpu = path.inferencer(ref, "cpu").enhance(wav)
     rel_wav = np.abs(out_gpu - out_cpu).max() / np.abs(out_cpu).max()
-    log(f"reference {path.name}: 1 s clip wav to wav, card vs CPU: "
+    log(f"reference {what}: 1 s clip wav to wav, card vs CPU: "
         f"max|err|/peak {rel_wav:.3e}")
     check(rel_wav < PATH_REL,
-          f"{path.name}: wav vs float32 reference within {PATH_REL}")
+          f"{what}: wav vs float32 reference within {PATH_REL}")
 
 
 def phase_serving(dev, path, model, counts):
@@ -3823,54 +3869,63 @@ def _nppc_model_check(dev, cfg, sd, counts):
 
 
 @contextlib.contextmanager
-def _recorded_scans(L):
-    """While open, records the operands and the result of every call of
-    ops.lstm's lstm_scan_train_tm (kernel C) and lstm_scan_bwd_tm (kernel
-    D), the two LSTMScan makes, under "C" and "D" in call order. The
-    operands are copies: W_hh is a view of a parameter that the optimizer
-    updates in place after the step."""
-    calls = {"C": [], "D": []}
-    train, bwd = L.lstm_scan_train_tm, L.lstm_scan_bwd_tm
+def _recorded_calls(module, **entries):
+    """While open, records every call of the functions of `module` that
+    `entries` names ({key: function name}): under each key, in call order,
+    the call's arguments (in the signature's order, defaults filled in) and
+    its result. Every tensor is a copy: an operand may be a view of a
+    parameter that the optimizer updates in place after the step."""
+    calls = {key: [] for key in entries}
 
-    def copies(*tensors):
-        return tuple(t.detach().clone() for t in tensors)
+    def copied(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        return tuple(map(copied, x)) if isinstance(x, tuple) else x
 
-    def train_recorded(gates, w_hh, reverse=False):
-        out = train(gates, w_hh, reverse)
-        calls["C"].append(((*copies(gates, w_hh), reverse), copies(*out)))
-        return out
+    def recorder(key, fn):
+        signature = inspect.signature(fn)
 
-    def bwd_recorded(gates, h_seq, c_seq, gout, w_hh, reverse=False,
-                     n_chains=1):
-        out = bwd(gates, h_seq, c_seq, gout, w_hh, reverse, n_chains)
-        calls["D"].append((
-            (*copies(gates, h_seq, c_seq, gout, w_hh), reverse),
-            out.detach().clone()))
-        return out
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            calls[key].append((copied(tuple(bound.arguments.values())),
+                               copied(out)))
+            return out
+        return recorded
 
-    with mock.patch.object(L, "lstm_scan_train_tm", train_recorded), \
-            mock.patch.object(L, "lstm_scan_bwd_tm", bwd_recorded):
+    with contextlib.ExitStack() as stack:
+        for key, name in entries.items():
+            stack.enter_context(mock.patch.object(
+                module, name, recorder(key, getattr(module, name))))
         yield calls
 
 
-def _nppc_scans_vs_plain(L, dev, calls):
-    """Kernels C and D on the very operands the head's two sub-band LSTM
-    layers handed them in a training step (rows = batch x bins / G after
-    drop_band), against their plain versions on the card under phase 6's
-    limits. The same limits must reject each kernel's result with its rows
-    rolled by one cluster (a cluster writing its neighbour's rows). Each
-    result is also the same bit for bit under another plan: kernel C's
-    rows within the operands tiled to phase 6's TRAIN_ROWS, kernel D's as
-    the single-block design gives them."""
-    check(len(calls["C"]) == 2 and len(calls["D"]) == 2,
-          f"the step made 2 kernel C and 2 kernel D calls (got "
+def _recorded_scans(L):
+    """_recorded_calls of ops.lstm's lstm_scan_train_tm (kernel C) and
+    lstm_scan_bwd_tm (kernel D), the two LSTMScan makes, under "C" and
+    "D"."""
+    return _recorded_calls(L, C="lstm_scan_train_tm", D="lstm_scan_bwd_tm")
+
+
+def _scans_vs_plain(L, dev, calls, what, n):
+    """Kernels C and D on the very operands `what`'s n LSTMScan layers
+    handed them in a training step (as _recorded_scans records them),
+    against their plain versions on the card under phase 3's limits. The
+    same limits must reject each kernel's result with its rows rolled by
+    one cluster (a cluster writing its neighbour's rows). Each result is
+    also the same bit for bit under another plan: kernel C's rows within
+    the operands tiled to phase 3's TRAIN_ROWS, kernel D's as the
+    single-block design gives them."""
+    check(len(calls["C"]) == n and len(calls["D"]) == n,
+          f"{what}: the step made {n} kernel C and {n} kernel D calls (got "
           f"{len(calls['C'])} and {len(calls['D'])})")
     for i, ((gates, w_hh, reverse), (h_seq, c_seq)) in enumerate(calls["C"]):
         t_len, rows, h = h_seq.shape
-        shift = L.card_scan_plan(dev, h, rows, train=True).rows
+        shift = L.card_scan_plan(dev, h, rows, train=True).rows % rows or 1
         p_h, p_c = L.lstm_scan_train_reference_tm(gates, w_hh, reverse)
         peak_c = p_c.float().abs().max().item()
-        # phase 6's c limits hold at its peak |c| of about 2.5; a bf16 step
+        # phase 3's c limits hold at its peak |c| of about 2.5; a bf16 step
         # of c grows with |c|, so they grow with the peak above that
         scale = max(1.0, peak_c / C_PEAK)
 
@@ -3884,32 +3939,32 @@ def _nppc_scans_vs_plain(L, dev, calls):
                     and err_c.mean().item() < 8 * KERNEL_MEAN_ABS * scale)
         max_h, max_c, mean_c, ok = within(h_seq, c_seq)
         faulty = within(h_seq.roll(shift, 1), c_seq.roll(shift, 1))
-        log(f"kernel C on the nppc head's layer {i + 1} (T={t_len} "
-            f"rows={rows} H={h}, plan "
+        log(f"kernel C on {what}, call {i + 1} (T={t_len} rows={rows} H={h}, "
+            f"reverse={reverse}, plan "
             f"{_plan_line(L, dev, h, rows, train=True)}): h max|err| "
             f"{max_h:.3e}, c max|err| {max_c:.3e} mean {mean_c:.3e} (peak |h| "
             f"{p_h.float().abs().max().item():.3f}, |c| {peak_c:.3f}); rows "
             f"rolled by {shift}: h {faulty[0]:.3e}, c {faulty[1]:.3e} mean "
             f"{faulty[2]:.3e}")
-        check(ok, f"kernel C vs plain on the nppc head's layer {i + 1} within "
+        check(ok, f"kernel C vs plain on {what}, call {i + 1} within "
               f"{8 * KERNEL_MAX_ABS} (h), {8 * KERNEL_MAX_ABS * scale}/"
               f"{8 * KERNEL_MEAN_ABS * scale} (c)")
-        check(not faulty[3], f"the kernel C limits reject rows rolled by one "
-              f"cluster (layer {i + 1})")
+        check(not faulty[3], f"the kernel C limits reject rows rolled by "
+              f"{shift} ({what}, call {i + 1})")
         tiled = gates.repeat(1, -(-TRAIN_ROWS // rows), 1)[:, :TRAIN_ROWS]
         h_t, c_t = L.lstm_scan_train_tm(tiled.contiguous(), w_hh, reverse)
         check(all(torch.equal(h_t[:, k:k + rows], h_seq)
                   and torch.equal(c_t[:, k:k + rows], c_seq)
                   for k in range(0, TRAIN_ROWS - rows + 1, rows)),
-              f"kernel C on layer {i + 1}'s operands == its rows within "
+              f"kernel C on {what}'s call {i + 1} == its rows within "
               f"{TRAIN_ROWS} tiled rows bitwise")
         log(f"  == its rows within {TRAIN_ROWS} tiled rows bitwise (plan "
             f"{_plan_line(L, dev, h, TRAIN_ROWS, train=True)})")
         del tiled, h_t, c_t
-    for i, ((gates, h_seq, c_seq, gout, w_hh, reverse), dg) in enumerate(
+    for i, ((gates, h_seq, c_seq, gout, w_hh, reverse, _), dg) in enumerate(
             calls["D"]):
         t_len, rows, h = h_seq.shape
-        shift = L.card_bwd_scan_plan(dev, h, rows).rows
+        shift = L.card_bwd_scan_plan(dev, h, rows).rows % rows or 1
         want = L.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout, w_hh,
                                             reverse).float()
         peak = want.abs().max().item()
@@ -3921,19 +3976,19 @@ def _nppc_scans_vs_plain(L, dev, calls):
                     and err.mean().item() < BWD_MEAN_REL * peak)
         max_d, mean_d, ok = within(dg)
         faulty = within(dg.roll(shift, 1))
-        log(f"kernel D on the nppc head's layer {2 - i} (T={t_len} "
-            f"rows={rows} H={h}, plan {_bwd_plan_line(L, dev, h, rows)}): "
+        log(f"kernel D on {what}, call {i + 1} (T={t_len} rows={rows} H={h}, "
+            f"reverse={reverse}, plan {_bwd_plan_line(L, dev, h, rows)}): "
             f"dgates max|err| {max_d:.3e} mean {mean_d:.3e} (peak {peak:.3e}); "
             f"rows rolled by {shift}: max {faulty[0]:.3e} mean "
             f"{faulty[1]:.3e}")
-        check(peak > 0 and ok, f"kernel D vs plain on the nppc head's layer "
-              f"{2 - i} within {BWD_MAX_REL}/{BWD_MEAN_REL} of the peak")
-        check(not faulty[2], f"the kernel D limits reject rows rolled by one "
-              f"cluster (layer {2 - i})")
+        check(peak > 0 and ok, f"kernel D vs plain on {what}, call {i + 1} "
+              f"within {BWD_MAX_REL}/{BWD_MEAN_REL} of the peak")
+        check(not faulty[2], f"the kernel D limits reject rows rolled by "
+              f"{shift} ({what}, call {i + 1})")
         block = L.lstm_scan_bwd_planned_tm(gates, h_seq, c_seq, gout, w_hh,
                                            _block_bwd_plan(L, dev, h, rows),
                                            reverse)
-        check(torch.equal(block, dg), f"kernel D on layer {2 - i}'s operands "
+        check(torch.equal(block, dg), f"kernel D on {what}'s call {i + 1} "
               f"== the single block bitwise")
         log("  == the single block bitwise")
 
@@ -3974,7 +4029,7 @@ def _nppc_training(dev, cfg, params, counts):
         total = {k: total[k] + n for k, n in launched.items()}
         if step == 0:
             verify_grads()
-            _nppc_scans_vs_plain(L, dev, recorded)
+            _scans_vs_plain(L, dev, recorded, "the nppc head's layers", 2)
             del recorded
             # the records held the operands past the step: steps 2-5 give
             # the peak
@@ -4803,6 +4858,559 @@ def phase_inpainting(dev):
     log(f"phase 17: {time.perf_counter() - t_phase:.2f} s")
 
 
+# Phase 18: the rest of queue A item 5 at full width. FullSubNet+ (F=257,
+# TCN towers 512, sub-band LSTM H=384, bf16) in seven configurations that
+# between them take every norm and every channel attention, as (attention,
+# subband_num, norm); the complex LSTM and GRU on the scan kernels; MOSNet at
+# its published width; the small blocks. Random weights from a numpy seed in
+# the JAX layout, carried across by utils/convert.py.
+VARIANTS = (("TSSE", 10, "offline_laplace_norm"),
+            ("SE", 2, "cumulative_laplace_norm"),
+            ("CBAM", 1, "offline_gaussian_norm"),
+            ("ECA", 1, "cumulative_layer_norm"),
+            ("TSSE", 1, "forgetting_norm"),
+            ("SE", 1, "sband_forgetting_norm"),
+            ("CBAM", 1, "hybrid_norm"))
+VARIANTS_TRAINED = 2          # the first two also take a training step
+# norms that divide each frame by a running mean (_own_streams)
+PER_FRAME_MEAN_NORMS = ("cumulative_laplace_norm", "forgetting_norm",
+                        "sband_forgetting_norm", "hybrid_norm")
+# Those norms in float64 on a 10 s request's own streams, card against CPU,
+# of the peak: on the CPU the float64 result moves by up to 1.6e-8 of its
+# peak under a relative change of 2e-16 of every entry (forgetting_norm's
+# imaginary stream; 1e-11 at most on the magnitude and the real stream); a
+# wrong coefficient or bin moves it by O(1).
+NORM64_REL = 1e-6
+VARIANT_REQUESTS = 3          # timed 10 s requests a configuration
+# ComplexSequenceModel: 2 x 257 features in, H=384, 2 layers; (batch,
+# frames) of the served request (also held against the CPU) and of the
+# training step
+COMPLEX_FREQS, COMPLEX_HIDDEN = 257, 384
+COMPLEX_SERVE, COMPLEX_TRAIN = (8, 628), (18, 195)
+MOSNET_SECONDS = (10.0, 25.0)
+# MOSNet's score, float32 on the card (TF32 off) against the CPU, relative
+MOSNET_REL = 1e-3
+# The small blocks, float32 on the card against the CPU, of the peak
+SMALL_BLOCK_REL = 1e-4
+MICS = 4
+
+
+def _variant_path(attention, subband_num, norm, seed):
+    """A FullSubNet+ configuration as a ModelPath (serving like phase 4's,
+    training with two drop_band groups)."""
+    from generative_audio_torch import models as M
+    from generative_audio_torch.train import EnhanceTrainConfig
+    from generative_audio_torch.utils import convert
+    cfg = M.FullSubNetPlusConfig(channel_attention_model=attention,
+                                 subband_num=subband_num, norm_type=norm)
+    return ModelPath(
+        name=f"FullSubNet+ {attention}/s={subband_num}/{norm}",
+        model_cls=M.FullSubNetPlus, config=cfg,
+        sd=convert.convert_fullsubnet_plus(
+            convert.random_fullsubnet_plus_params(cfg, seed=seed),
+            attention=attention),
+        mode="mag_complex_full_band_crm_mask", n_inputs=3,
+        fwd="lstm_scan_fwd", carry="lstm_scan_fwd_carry", per_forward=2,
+        per_long_forward=0,
+        train_config=lambda dtype: EnhanceTrainConfig(
+            model=dataclasses.replace(cfg, num_groups_in_drop_band=2),
+            compute_dtype=dtype),
+        per_step={"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2})
+
+
+def magnitude(mag, real, imag):
+    """The magnitude on all three streams."""
+    return mag, mag, mag
+
+
+def _own_streams(dev, path, model):
+    """For a configuration whose norm divides each frame by a running mean
+    (PER_FRAME_MEAN_NORMS), the parts that are well-conditioned on the real
+    and imaginary streams themselves. End to end such a configuration is
+    not: the sum of a frame's real parts is about N/2 times its windowed
+    first sample, which the Hann window zeroes, and the first frame of a
+    centred, reflect-padded STFT is even, so its imaginary parts are
+    rounding noise; dividing by such means makes a few frames huge, and the
+    bf16 towers and sub-band LSTM round those frames' outputs far past
+    PATH_REL (phase_reference therefore feeds both models the magnitude).
+    Held here on the 10 s request's own three streams: each norm in float64,
+    card against CPU, within NORM64_REL of its peak, and each channel
+    attention over its stream normed (float32, the model's own dtype for
+    it), card against CPU, within SMALL_BLOCK_REL. On the 1 s clip, the
+    distance of the whole model on its own streams and how far the float32
+    model moves under a 1e-6 change of the waveform are printed."""
+    import torch.nn.functional as F
+    from generative_audio_torch.models.fullsubnet_plus import attend
+    from generative_audio_torch.ops import prepare_input_from_waveform
+    ref = path.model(torch.float32, "cpu")
+    s = path.config.subband_num
+    streams = prepare_input_from_waveform(
+        torch.from_numpy(_noise(SEED + 50, 160000))[None], 512, 256, 512)[:3]
+    rel_norm, rel_attend = [], []
+    with torch.inference_mode():
+        for x, suffix in zip(streams, ("", "_real", "_imag")):
+            x = F.pad(x, (0, path.config.look_ahead)).double()
+            want = ref.norm(x)
+            got = model.norm(x.to(dev)).cpu()
+            check(torch.isfinite(got).all().item(), f"{path.name}: finite "
+                  f"float64 norm on the 10 s stream{suffix or '_mag'}")
+            rel_norm.append(_rel(got.numpy(), want.numpy()))
+            normed = want.float()
+            want = attend(normed, getattr(ref, f"channel_attention{suffix}"), s)
+            got = attend(normed.to(dev), getattr(
+                model, f"channel_attention{suffix}"), s).cpu()
+            rel_attend.append(_rel(got.numpy(), want.numpy()))
+        wav = np.random.default_rng(SEED + 1).standard_normal(16000).astype(
+            np.float32) * 0.1
+        moved = wav * (1 + 1e-6 * np.random.default_rng(SEED + 2)
+                       .standard_normal(16000).astype(np.float32))
+        own, own_moved = (prepare_input_from_waveform(
+            torch.from_numpy(w)[None], 512, 256, 512)[:3] for w in (wav, moved))
+        want = ref(*own)
+        got = model(*(x.to(dev) for x in own)).float().cpu()
+        rel_own = ((got - want).abs().max() / want.abs().max()).item()
+        moves = ((ref(*own_moved) - want).abs().max()
+                 / want.abs().max()).item()
+    log(f"own streams {path.name}: 10 s request's mag, real, imag: float64 "
+        f"norm card vs CPU max|err|/peak "
+        f"{' '.join(f'{r:.3e}' for r in rel_norm)}; attention over them "
+        f"(float32) {' '.join(f'{r:.3e}' for r in rel_attend)}; 1 s clip end "
+        f"to end, bf16 card vs float32 CPU {rel_own:.3e}, where the float32 "
+        f"model moves by {moves:.3e} of its peak under a 1e-6 change of the "
+        f"waveform (not checked)")
+    check(max(rel_norm) < NORM64_REL, f"{path.name}: float64 norm on the own "
+          f"streams, card vs CPU within {NORM64_REL}")
+    check(max(rel_attend) < SMALL_BLOCK_REL, f"{path.name}: attention over "
+          f"the normed own streams, card vs CPU within {SMALL_BLOCK_REL}")
+
+
+def _ten_second_requests(dev, path, model, counts):
+    """A warm-up and VARIANT_REQUESTS timed 10 s requests, each launching
+    kernel A exactly twice. Returns (median ms, its RTF)."""
+    inf = path.inferencer(model, dev)
+    noisy = _noise(SEED + 50, 160000)
+    readings = []
+    for i in range(VARIANT_REQUESTS + 1):
+        t0 = time.perf_counter()
+        out = _count(counts, lambda: inf.enhance(noisy),
+                     {path.fwd: path.per_forward}, f"{path.name} 10 s request")
+        if i:
+            readings.append(((time.perf_counter() - t0) * 1e3, inf.last_rtf))
+    check(out.shape == noisy.shape and np.isfinite(out).all(),
+          f"{path.name} 10 s request: shape and finite")
+    return sorted(readings)[len(readings) // 2]
+
+
+def _variant_training_step(dev, path, counts):
+    """One EnhanceTrainer step at 18 x 3.072 s: exactly 2 C and 2 D, a
+    finite loss and a finite non-zero gradient for every tensor."""
+    from generative_audio_torch.train import EnhanceTrainer
+    trainer = EnhanceTrainer(path.train_config("bfloat16"), seed=SEED,
+                             pretrained_state_dict=path.sd, device=dev)
+    noisy, clean = (torch.from_numpy(x).to(dev) for x in
+                    _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
+    verify = _first_grads(trainer.state.model.named_parameters(),
+                          f"{path.name} parameter")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = _count(counts, lambda: trainer.train_epoch([(noisy, clean)]),
+                  path.per_step, f"{path.name} training step")
+    ms = (time.perf_counter() - t0) * 1e3
+    verify()
+    check(np.isfinite(loss), f"{path.name}: finite training loss")
+    log(f"phase 18 train {path.name}: batch {TRAIN_BATCH} x "
+        f"{TRAIN_SAMPLES / 16000:.3f} s, loss {loss:.5f}, first step "
+        f"{ms:.1f} ms (with the warm-up of its shapes)")
+
+
+def _variants(dev, counts):
+    """(a): each configuration's 1 s clip against the float32 model on the
+    CPU, its 10 s request beside the default configuration's, and for the
+    first two one training step."""
+    plus = model_paths()[0]
+    card = card_line()
+    default_ms, default_rtf = _ten_second_requests(
+        dev, plus, plus.model(torch.bfloat16, dev), counts)
+    log(f"phase 18 serve {plus.name} (default: TSSE, s=1, "
+        f"offline_laplace_norm) 10 s: {default_ms:.2f} ms, rtf "
+        f"{default_rtf:.5f}, median of {VARIANT_REQUESTS} on {card}")
+    for i, (attention, s, norm) in enumerate(VARIANTS):
+        path = _variant_path(attention, s, norm, seed=SEED + 51 + i)
+        model = path.model(torch.bfloat16, dev)
+        if norm in PER_FRAME_MEAN_NORMS:
+            phase_reference(dev, path, model, magnitude)
+            _own_streams(dev, path, model)
+        else:
+            phase_reference(dev, path, model)
+        ms, rtf = _ten_second_requests(dev, path, model, counts)
+        log(f"phase 18 serve {path.name} 10 s: {ms:.2f} ms, rtf {rtf:.5f} "
+            f"({ms / default_ms:.3f} x the default's {default_ms:.2f} ms) "
+            f"on {card}")
+        del model
+        if i < VARIANTS_TRAINED:
+            _variant_training_step(dev, path, counts)
+        torch.cuda.empty_cache()
+
+
+def _forgetting_forms(dev):
+    """The forgetting family as block products (the model's form) against
+    its step-by-step loop (the plain version) on the card, at a batch-8 x
+    10 s request's stream (8 x 257 bins x 630 frames): agreement within
+    1e-5 of the peak, and both times."""
+    from generative_audio_torch.ops import norms as N
+    x = torch.from_numpy(np.abs(_noise(SEED + 65, 8, 257, 630)) + 0.01).to(dev)
+    card = card_line()
+    for fast, slow in ((N.forgetting_norm, N.forgetting_norm_reference),
+                       (N.sband_forgetting_norm,
+                        N.sband_forgetting_norm_reference),
+                       (N.hybrid_norm, N.hybrid_norm_reference)):
+        rel = _rel(fast(x).cpu().numpy(), slow(x).cpu().numpy())
+        ms, loop_ms = cuda_ms(lambda: fast(x), 20), cuda_ms(lambda: slow(x), 3)
+        log(f"phase 18 {fast.__name__} [8, 257, 630]: block product "
+            f"{ms:.3f} ms vs the loop over frames {loop_ms:.3f} ms "
+            f"({loop_ms / ms:.1f}x), max|diff|/peak {rel:.2e} on {card}")
+        check(rel < 1e-5, f"{fast.__name__}: product vs loop within 1e-5")
+
+
+def _complex_models(kind, dev, seed):
+    from generative_audio_torch.nn import ComplexSequenceModel
+    from generative_audio_torch.utils import convert
+    sd = convert.convert_complex_sequence_model(
+        convert.random_complex_sequence_params(
+            kind, COMPLEX_FREQS, COMPLEX_HIDDEN, COMPLEX_FREQS, seed=seed))
+    models = []
+    for dtype, device in ((torch.bfloat16, dev), (torch.float32, "cpu")):
+        m = ComplexSequenceModel(COMPLEX_FREQS, COMPLEX_FREQS, COMPLEX_HIDDEN,
+                                 sequence_model=kind, compute_dtype=dtype,
+                                 device=device)
+        m.load_state_dict(sd)
+        models.append(m)
+    return models
+
+
+def _forward_scans_vs_plain(calls, what):
+    """Kernel A's or the GRU forward's results on the very operands a
+    forward handed lstm_scan_tm or gru_scan_tm (as _recorded_calls records
+    them), against the plain versions on the card rounded to the result's
+    dtype, under phase 2's and phase 9's limits. The same limits must
+    reject each result with its rows rolled by one."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    for i, (args, out) in enumerate(calls):
+        gates, w_hh, *rest = args
+        gates = gates.to(torch.bfloat16)
+        if w_hh.shape[1] == 3 * w_hh.shape[0]:  # b_hh, reverse, out_dtype
+            kernel, mean_limit = "GRU forward", GRU_FWD_MEAN_ABS
+            want = G.gru_scan_reference_tm(gates, w_hh, *rest[:2])
+        else:                                   # reverse, out_dtype, block_t
+            kernel, mean_limit = "kernel A", KERNEL_MEAN_ABS
+            want = L.lstm_scan_reference_tm(gates, w_hh, rest[0])
+        want = want.to(out.dtype).float()
+
+        def within(got):
+            err = (got.float() - want).abs()
+            return (err.max().item(), err.mean().item(),
+                    err.max().item() < KERNEL_MAX_ABS
+                    and err.mean().item() < mean_limit)
+        max_e, mean_e, ok = within(out)
+        faulty = within(out.roll(1, 1))
+        log(f"{kernel} on {what}, call {i + 1} (T={out.shape[0]} "
+            f"rows={out.shape[1]} H={out.shape[2]}): max|err| {max_e:.3e} "
+            f"mean {mean_e:.3e}; rows rolled by 1: max {faulty[0]:.3e} mean "
+            f"{faulty[1]:.3e}")
+        check(torch.isfinite(out).all().item() and ok,
+              f"{kernel} vs plain on {what}, call {i + 1} within "
+              f"{KERNEL_MAX_ABS}/{mean_limit}")
+        check(not faulty[2], f"the {kernel} limits reject rows rolled by 1 "
+              f"({what}, call {i + 1})")
+
+
+def _gru_bwd_vs_plain(calls, what):
+    """The GRU backward (the scan and the dW_hh contraction) on the very
+    operands a training step handed ops.gru's gru_scan_bwd_tm, against the
+    plain versions on the card under phase 10's limits: dgx of the peak,
+    dW_hh and db_hh of the plain result's norm, and the contraction alone on
+    the plain streams against a float32 matmul."""
+    from generative_audio_torch.ops import gru as G
+    for i, ((gates, h_seq, gout, w_hh, b_hh, reverse), (dgx, dw, db)) in (
+            enumerate(calls)):
+        p_dgx, p_dhn, p_db = G.gru_scan_bwd_streams_reference_tm(
+            gates, h_seq, gout, w_hh, b_hh, reverse)
+        shifted = G.shifted_rows(h_seq, p_dgx, p_dhn, reverse)
+        p_dw = G.gru_dwhh_reference(*shifted)
+        alone = G.gru_dwhh(*shifted)
+        err = (dgx.float() - p_dgx.float()).abs()
+        peak = p_dgx.float().abs().max().item()
+        rel_w, rel_b = _rel_norm(dw, p_dw), _rel_norm(db, p_db)
+        rel_alone = _rel_norm(alone, p_dw)
+        log(f"GRU backward on {what}, call {i + 1} (T={h_seq.shape[0]} "
+            f"rows={h_seq.shape[1]} H={h_seq.shape[2]}, reverse={reverse}): "
+            f"dgx max|err| {err.max().item():.3e} mean {err.mean().item():.3e} "
+            f"(peak {peak:.3e}); dW_hh |err|/|dW_hh| {rel_w:.3e}, db_hh "
+            f"{rel_b:.3e}; the contraction alone vs a float32 matmul "
+            f"{rel_alone:.3e}")
+        check(all(torch.isfinite(x.float()).all().item()
+                  for x in (dgx, dw, db)) and peak > 0
+              and err.max().item() < BWD_MAX_REL * peak
+              and err.mean().item() < BWD_MEAN_REL * peak,
+              f"GRU backward dgx vs plain on {what}, call {i + 1} within "
+              f"{BWD_MAX_REL}/{BWD_MEAN_REL} of the peak")
+        check(rel_w < BWD_DW_REL and rel_b < BWD_DW_REL,
+              f"GRU backward dW_hh, db_hh vs plain on {what}, call {i + 1} "
+              f"within {BWD_DW_REL}")
+        check(rel_alone < DWHH_ALONE_REL,
+              f"dW_hh contraction vs float32 matmul on {what}, call {i + 1} "
+              f"within {DWHH_ALONE_REL}")
+
+
+def _complex(dev, counts):
+    """(b): ComplexSequenceModel with LSTM and GRU towers. A served batch
+    runs each layer of each tower as ONE scan launch over the 2B rows of
+    the real and the imag stream, and its output is held against the
+    float32 model on the CPU; a training step launches the training scans
+    of every layer once. Every scan launch of both is held on its operands
+    against its plain version (those launches left out of the count)."""
+    from generative_audio_torch.nn import recurrent as R
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    card = card_line()
+    for kind, fwd, per_step in (
+            ("LSTM", "lstm_scan_fwd",
+             {"lstm_scan_fwd_train": 4, "lstm_scan_bwd": 4}),
+            ("GRU", "gru_scan_fwd",
+             {"gru_scan_fwd": 4, "gru_scan_bwd": 4, "gru_scan_bwd_dwhh": 4})):
+        model, ref = _complex_models(kind, dev, SEED + 60)
+        b, t = COMPLEX_SERVE
+        x = torch.from_numpy(_noise(SEED + 62, b, 2 * COMPLEX_FREQS, t) * 10)
+        with torch.inference_mode(), _recorded_calls(
+                R, scan=f"{kind.lower()}_scan_tm") as recorded:
+            got = _count(counts, lambda: model(x.to(dev)), {fwd: 4},
+                         f"complex {kind} forward").float().cpu()
+        rows = [out.shape[1] for _, out in recorded["scan"]]
+        check(rows == [2 * b] * 4,
+              f"complex {kind}: each of the 4 scans over {2 * b} rows "
+              f"(got {rows})")
+        _forward_scans_vs_plain(recorded["scan"], f"complex {kind} serve")
+        del recorded
+        with torch.inference_mode():
+            want = ref(x)
+            ms = cuda_ms(lambda: model(x.to(dev)), 5)
+        rel = _rel(got.numpy(), want.numpy())
+        log(f"phase 18 complex {kind} serve [{b}, {2 * COMPLEX_FREQS}, {t}]: "
+            f"4 {fwd} launches over {2 * b} rows each, {ms:.3f} ms a forward "
+            f"on {card}; bf16 on the card vs float32 on the CPU: "
+            f"max|err|/peak {rel:.3e}")
+        check(torch.isfinite(got).all().item() and rel < PATH_REL,
+              f"complex {kind} vs float32 within {PATH_REL}")
+
+        b, t = COMPLEX_TRAIN
+        x = torch.from_numpy(_noise(SEED + 63, b, 2 * COMPLEX_FREQS, t)).to(dev)
+        target = torch.from_numpy(_noise(SEED + 64, b, 2 * COMPLEX_FREQS,
+                                         t)).to(dev)
+        verify = _first_grads(model.named_parameters(),
+                              f"complex {kind} parameter")
+
+        def step():
+            loss = ((model(x) - target) ** 2).mean()
+            loss.backward()
+            return loss
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (_recorded_scans(L) if kind == "LSTM" else _recorded_calls(
+                G, fwd="gru_scan_tm", bwd="gru_scan_bwd_tm")) as recorded:
+            loss = _count(counts, step, per_step,
+                          f"complex {kind} training step")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        verify()
+        check(torch.isfinite(loss).item(), f"complex {kind}: finite loss")
+        log(f"phase 18 complex {kind} train [{b}, {2 * COMPLEX_FREQS}, {t}]: "
+            f"launched {per_step}, loss {loss.item():.5f}, {ms:.1f} ms (first "
+            f"step, with the records' copies) on {card}")
+        saved = dict(counts)
+        what = f"complex {kind} train"
+        if kind == "LSTM":
+            _scans_vs_plain(L, dev, recorded, what, 4)
+        else:
+            check(len(recorded["fwd"]) == 4 and len(recorded["bwd"]) == 4,
+                  f"{what}: 4 forward and 4 backward calls")
+            _forward_scans_vs_plain(recorded["fwd"], what)
+            _gru_bwd_vs_plain(recorded["bwd"], what)
+        counts.update(saved)
+        del model, ref, recorded
+
+
+def _mosnet(dev):
+    """(c): MOSNet at its published width on a 10 s and a 25 s clip (one
+    and three windows), the card against the CPU, and the card's wall per
+    window."""
+    from generative_audio_torch.eval.mosnet import MOSNetConfig, mosnet_score
+    from generative_audio_torch.utils import convert
+    cfg = MOSNetConfig()
+    sd = convert.convert_mosnet(convert.random_mosnet_params(cfg, SEED + 70))
+    mosnet_score(_speech_like(SEED + 71, 1.0), sd, device=dev)     # warm-up
+    for i, seconds in enumerate(MOSNET_SECONDS):
+        wav = _speech_like(SEED + 72 + i, seconds) * 0.3
+        windows = -(-int(seconds * 16000) // 160000)
+        t0 = time.perf_counter()
+        got = mosnet_score(wav, sd, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = mosnet_score(wav, sd, device="cpu")
+        rel = abs(got - want) / abs(want)
+        log(f"phase 18 MOSNet {seconds:g} s ({windows} windows): card "
+            f"{got:.6f} vs CPU {want:.6f} (rel {rel:.3e}); {ms / windows:.2f} "
+            f"ms a window on the card (features on the host included) on "
+            f"{card_line()}")
+        check(np.isfinite(got) and rel < MOSNET_REL,
+              f"MOSNet {seconds:g} s card vs CPU within {MOSNET_REL}")
+
+
+def _card_vs_cpu(what, fn, card_args, cpu_args):
+    """fn on the card and on the CPU; every output within SMALL_BLOCK_REL of
+    its peak."""
+    got, want = fn(*card_args), fn(*cpu_args)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().cpu(), w.detach()
+        if g.is_complex():
+            g, w = torch.view_as_real(g), torch.view_as_real(w)
+        check(g.shape == w.shape and torch.isfinite(g).all().item(),
+              f"{what}: shape and finite")
+        worst = max(worst, _rel(g.numpy(), w.numpy()))
+    log(f"phase 18 {what}: card vs CPU max|err|/peak {worst:.3e}")
+    check(worst < SMALL_BLOCK_REL, f"{what}: card vs CPU within "
+          f"{SMALL_BLOCK_REL} of the peak")
+
+
+def _small_blocks(dev):
+    """(d): conv-STFT -> conv-iSTFT on 4 mics x 10 s, both directional
+    feature computers, the three beamforming ops, a causal and a no-skip
+    TCN stack, both causal conv blocks in train and eval; each float32, the
+    card against the CPU."""
+    from generative_audio_torch import ops
+    from generative_audio_torch.models import FullSubNetPlusConfig
+    from generative_audio_torch.nn import (
+        CausalConvBlock, CausalTransConvBlock, TCNBlock, TCNStack)
+    from generative_audio_torch.utils import convert
+    cpu = torch.device("cpu")
+    wav = torch.from_numpy(_noise(SEED + 80, MICS, 160000))
+
+    def stft_istft(y):
+        mag, phase, real, imag = ops.conv_stft(y, 512, 256)
+        return real, imag, ops.conv_istft(mag, phase, 512, 256)
+
+    _card_vs_cpu(f"conv-STFT -> conv-iSTFT, {MICS} mics x 10 s", stft_istft,
+                 (wav.to(dev),), (wav,))
+    pairs = [(0, m) for m in range(1, MICS)]
+    kw = dict(n_fft=512, win_length=512, hop_length=256,
+              input_features=("LPS", "IPD"), mic_pairs=pairs, lps_channel=0,
+              use_sin_IPD=True)
+    for cls in (ops.DirectionalFeatureComputer,
+                ops.ChannelDirectionalFeatureComputer):
+        mods = {d: (cls(**kw, device=d) if cls is ops.DirectionalFeatureComputer
+                    else cls(**kw)) for d in (dev, cpu)}
+        _card_vs_cpu(f"{cls.__name__}, {MICS} mics x 10 s",
+                     lambda d, y: mods[d](y)[0], (dev, wav[None].to(dev)),
+                     (cpu, wav[None]))
+
+    spec = ops.mc_stft(wav[None], 512, 256)                  # [1, C, F, T]
+    rng = np.random.default_rng(SEED + 81)
+
+    def crand(*shape):
+        return torch.complex(*(torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)) for _ in range(2)))
+
+    f, t = spec.shape[-2:]
+    mix = spec.permute(0, 2, 1, 3).contiguous()              # [B, F, C, T]
+    bf_args = (crand(1, f, t, MICS), mix)
+    crf_args = (crand(1, f, t, 3), crand(1, MICS, f, 3, t))
+    for name, fn, args in (
+            ("apply_crf_filter", ops.apply_crf_filter, crf_args),
+            ("get_power_spectral_density_matrix",
+             ops.get_power_spectral_density_matrix, (mix,)),
+            ("apply_beamforming_vector", ops.apply_beamforming_vector,
+             bf_args)):
+        _card_vs_cpu(f"{name} at F={f}, T={t}, {MICS} mics", fn,
+                     tuple(a.to(dev) for a in args), args)
+
+    blocks = convert.random_fullsubnet_plus_params(
+        FullSubNetPlusConfig(), seed=SEED + 82)["fb_model"]["tcn"]
+    sd = {k: v for i in range(8) for k, v in convert.convert_tcn_block(
+        blocks[f"block_{i}"], f"{i}.").items()}
+    x = torch.from_numpy(_noise(SEED + 83, 4, 628, 257))
+    for causal, skip in ((True, True), (False, False)):
+        stacks = {}
+        for d in (dev, cpu):
+            stacks[d] = torch.nn.Sequential(*(
+                TCNBlock(257, 512, 257, dilation=dil, causal=causal,
+                         use_skip_connection=skip, device=d)
+                for dil in TCNStack.DILATIONS))
+            stacks[d].load_state_dict(sd)
+        with torch.no_grad():
+            _card_vs_cpu(f"TCN stack 257 -> 512, [4, 628], causal={causal}, "
+                         f"skip={skip}", lambda d, y: torch.relu(stacks[d](y)),
+                         (dev, x.to(dev)), (cpu, x))
+
+    def variables(kernel_shape, out, seed):
+        g = np.random.default_rng(seed)
+        fan_in = int(np.prod(kernel_shape[:3]))
+        return {"params": {
+            "conv": {"kernel": convert._uniform(g, kernel_shape, fan_in),
+                     "bias": convert._uniform(g, (out,), fan_in)},
+            "norm": {"scale": 1 + 0.1 * g.standard_normal(out).astype(
+                np.float32), "bias": 0.1 * g.standard_normal(out).astype(
+                np.float32)}},
+            "batch_stats": {"norm": {
+                "mean": 0.1 * g.standard_normal(out).astype(np.float32),
+                "var": g.uniform(0.5, 1.5, out).astype(np.float32)}}}
+
+    x = torch.from_numpy(_noise(SEED + 84, 4, 2, 257, 100)) * 10
+    for cls, conv, (c_in, c_out), shape in (
+            (CausalConvBlock, convert.convert_causal_conv_block, (2, 16),
+             (3, 2, 2, 16)),
+            (CausalTransConvBlock, convert.convert_causal_trans_conv_block,
+             (2, 16), (3, 2, 2, 16))):
+        sd = conv(variables(shape, c_out, SEED + 85))
+        for train in (True, False):
+            mods = {}
+            for d in (dev, cpu):
+                mods[d] = cls(c_in, c_out, device=d)
+                mods[d].load_state_dict(sd)
+
+            def run(d, y):
+                out = mods[d](y, train=train)
+                return out, mods[d].norm.running_mean, mods[d].norm.running_var
+
+            with torch.no_grad():
+                _card_vs_cpu(f"{cls.__name__} {c_in} -> {c_out} over [4, 2, "
+                             f"257, 100], train={train} (output, running "
+                             f"mean and variance)", run, (dev, x.to(dev)),
+                             (cpu, x))
+
+
+def phase_item5(dev):
+    """Phase 18: the rest of queue A item 5 (FullSubNet+ variants, the
+    complex sequence models, MOSNet, the small blocks). Returns the
+    launches of its model paths by kernel (the served requests, the 1 s
+    reference clips' card runs, the training steps), read around (a) and
+    (b) with the counts set to 0 just before."""
+    from generative_audio_torch.ops import lstm as L
+    t_phase = time.perf_counter()
+    L.reset_launch_counts()
+    _variants(dev, L.launch_counts)
+    _complex(dev, L.launch_counts)
+    total = {k: v for k, v in L.launch_counts.items() if v}
+    log(f"launches on the model paths of phase 18: {total}")
+    _forgetting_forms(dev)
+    _mosnet(dev)
+    _small_blocks(dev)
+    log(f"phase 18: {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4881,6 +5489,8 @@ def main():
     for name, launched in phase_nppc_denoising(dev).items():
         counts[name] += launched
     phase_inpainting(dev)
+    for name, launched in phase_item5(dev).items():
+        counts[name] += launched
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 

@@ -1,7 +1,7 @@
 """Evaluation: the metrics registry, the validator, the Inferencer, the
 StreamingEnhancer, the NPPC validators of both lines, the restoration
-validator, the MC-dropout baseline and the pitch tracker. Nothing here
-starts CUDA at import."""
+validator, the MC-dropout baseline, the pitch tracker and MOSNet. Nothing
+here starts CUDA at import."""
 from generative_audio_torch.eval.inferencer import Inferencer, InferencerConfig  # noqa: F401
 from generative_audio_torch.eval.metrics import (  # noqa: F401
     ESTOI, MOSNET, NB_PESQ, REGISTERED_METRICS, SDR, SI_SDR, STOI, WB_PESQ,
@@ -9,6 +9,8 @@ from generative_audio_torch.eval.metrics import (  # noqa: F401
 from generative_audio_torch.eval.mc_dropout import (  # noqa: F401
     calculate_unet_baseline, compute_pca_batch, mc_dropout_inference,
     mc_generators)
+from generative_audio_torch.eval.mosnet import (  # noqa: F401
+    MOSNet, MOSNetConfig, load_keras_h5, mosnet_features, mosnet_score)
 from generative_audio_torch.eval.nppc_denoising_validator import (  # noqa: F401
     DenoisingNPPCValidator, DenoisingNPPCValidatorConfig)
 from generative_audio_torch.eval.nppc_validator import (  # noqa: F401

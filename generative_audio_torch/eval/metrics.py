@@ -15,9 +15,10 @@ None of those native wheels is needed:
   * WB/NB PESQ compute via the from-scratch ITU-T P.862 / P.862.2
     implementation in eval/pesq/ (the optional `pesq` C wheel is preferred
     when installed, for bit-exactness with the reference).
-  * MOSNET dispatches to the optional `speechmetrics` wheel when installed
-    and raises MetricUnavailable otherwise (the first-party MOSNet of
-    eval/mosnet.py is not ported yet: ROADMAP.md, queue A item 5).
+  * MOSNET dispatches to the optional `speechmetrics` wheel when installed,
+    else to the first-party CNN-BLSTM of eval/mosnet.py with the keras
+    weights named by $GAT_MOSNET_WEIGHTS (on the card), and raises
+    MetricUnavailable with neither.
   * SDR computes via the from-scratch single-source BSS Eval v3 in
     eval/bss.py (the optional `mir_eval` wheel is preferred when
     installed), so every metric but MOSNET computes without a wheel.
@@ -27,7 +28,9 @@ None of those native wheels is needed:
 from __future__ import annotations
 
 import functools
+import os
 import warnings
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -230,22 +233,34 @@ def SDR(reference, estimation, sr: int = 16000) -> float:
 
 
 def MOSNET(ref, est, sr: int = 16000) -> float:
-    """MOS prediction of `est` (ref is unused, matching metrics.py:119-130)
-    by the `speechmetrics` wheel, the reference's exact scorer. Without it
-    the metric is unavailable: the JAX package's second branch, the
-    first-party CNN-BLSTM of eval/mosnet.py with transplanted keras
-    weights, waits for that module's port (ROADMAP.md, queue A item 5)."""
+    """MOS prediction of `est` (ref is unused, matching metrics.py:119-130).
+
+    Dispatch order: the `speechmetrics` wheel when installed (the
+    reference's exact scorer); else the first-party CNN-BLSTM
+    (eval/mosnet.py) with keras weights transplanted from the file named by
+    $GAT_MOSNET_WEIGHTS (e.g. speechmetrics' mosnet.h5), scored on the card.
+    With neither, the metric is unavailable: the net's weights are a trained
+    artifact."""
     try:
         import speechmetrics  # the reference's scorer, lazy like metrics.py:122
+        global _mos_metrics
+        if "_mos_metrics" not in globals() or _mos_metrics is None:
+            _mos_metrics = speechmetrics.load("mosnet", 10)
+        return float(np.mean(_mos_metrics(est, rate=sr)["mosnet"]))
     except ImportError:
-        raise MetricUnavailable(
-            "MOSNET needs the speechmetrics wheel; the first-party MOSNet "
-            "(eval/mosnet.py) is not ported to generative_audio_torch yet "
-            "(ROADMAP.md, queue A item 5)") from None
-    global _mos_metrics
-    if "_mos_metrics" not in globals() or _mos_metrics is None:
-        _mos_metrics = speechmetrics.load("mosnet", 10)
-    return float(np.mean(_mos_metrics(est, rate=sr)["mosnet"]))
+        pass
+    weights = os.environ.get("GAT_MOSNET_WEIGHTS", "")
+    if weights and Path(weights).exists():
+        from generative_audio_torch.eval.mosnet import (
+            load_keras_h5, mosnet_score)
+        global _mos_variables
+        if "_mos_variables" not in globals() or _mos_variables is None:
+            _mos_variables = load_keras_h5(weights)
+        return mosnet_score(est, _mos_variables, sr=sr)
+    raise MetricUnavailable(
+        "MOSNET needs the speechmetrics wheel or $GAT_MOSNET_WEIGHTS "
+        "pointing at its keras mosnet.h5 (the eval/mosnet.py architecture "
+        "computes with transplanted weights)")
 
 
 REGISTERED_METRICS: Dict[str, Callable] = {

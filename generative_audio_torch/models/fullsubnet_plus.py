@@ -1,8 +1,9 @@
 """FullSubNet+, the speech-enhancement model of the serving and training paths.
 
 Port of generative_audio_tpu/models/fullsubnet_plus.py:37-173: pad look_ahead
-frames -> per-stream (mag/real/imag) norm + TSSE channel attention -> three
-full-band TCN towers -> band_unfold of the tower outputs and of the attended
+frames -> per-stream (mag/real/imag) norm + channel attention (TSSE, SE,
+CBAM or ECA; with subband_num > 1 over the folded stream, see `attend`) ->
+three full-band TCN towers -> band_unfold of the tower outputs and of the attended
 magnitude -> concat -> norm -> drop_band (B > 1) -> sub-band 2-layer LSTM
 over B*F rows -> [B, 2, F, T] compressed cRM, cropped by look_ahead.
 
@@ -10,6 +11,8 @@ MultiDirectionFullSubNetPlus (generative_audio_tpu/models/fullsubnet_plus.py:
 176-270) is the denoising-NPPC head on the same skeleton: six streams (the
 noisy and the enhanced mag, real and imag), each tower over the two
 attended streams side by side (2F channels), and 2 * n_directions outputs.
+It takes the same fold for subband_num > 1, which the JAX head has not (its
+attention there gets F channels where it was built for F // s + 1).
 
 Parameter names are the reference checkpoint's, so a reference FullSubNet+
 state_dict loads with `load_state_dict`, and utils/convert.py carries the
@@ -31,7 +34,7 @@ from generative_audio_torch.ops.subband import band_unfold, drop_band
 from generative_audio_torch.utils.device import resolve_device
 
 __all__ = ["FullSubNetPlusConfig", "FullSubNetPlus",
-           "MultiDirectionConfig", "MultiDirectionFullSubNetPlus"]
+           "MultiDirectionConfig", "MultiDirectionFullSubNetPlus", "attend"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +63,26 @@ class FullSubNetPlusConfig:
         return self.num_freqs // self.subband_num + 1
 
 
+def attend(y: torch.Tensor, attention: nn.Module,
+           subband_num: int) -> torch.Tensor:
+    """Channel attention over a normed [B, 1, F, T] stream -> [B, F, T].
+
+    With subband_num s > 1 the stream is folded first
+    (generative_audio_tpu/models/fullsubnet_plus.py:94-110): the bins
+    f - 1 - pad .. f - 2 are appended in reverse (the last bin is left
+    out), pad = s - F % s (s, not 0, when s divides F, as in the
+    reference), each s neighbouring bins become one channel of T * s
+    frames, [B, (F + pad) / s, T * s]; after the attention the fold is
+    undone and the pad cropped."""
+    b, ch, f, t = y.shape
+    if subband_num == 1:
+        return attention(y.reshape(b, ch * f, t))
+    pad = subband_num - f % subband_num
+    y = torch.cat([y, y[:, :, -1 - pad:-1].flip(2)], dim=2)
+    y = attention(y.reshape(b, (f + pad) // subband_num, t * subband_num))
+    return y.reshape(b, ch * (f + pad), t)[:, :f]
+
+
 class FullSubNetPlus(nn.Module):
     """[B, 1, F, T] mag, real, imag -> [B, output_size, F, T] compressed cRM.
 
@@ -73,9 +96,6 @@ class FullSubNetPlus(nn.Module):
                  gates_bytes_limit: Optional[int] = None):
         super().__init__()
         c = config
-        if c.subband_num != 1:
-            raise NotImplementedError(
-                "subband_num > 1 is not ported to generative_audio_torch yet")
         dev = resolve_device(device)
         self.config = c
         self.compute_dtype = compute_dtype
@@ -99,11 +119,6 @@ class FullSubNetPlus(nn.Module):
             compute_dtype=compute_dtype, gates_bytes_limit=gates_bytes_limit,
             device=dev)
 
-    def _attend(self, x: torch.Tensor, attention: nn.Module) -> torch.Tensor:
-        """norm [B, 1, F, T] -> [B, F, T] -> channel attention."""
-        b, ch, f, t = x.shape
-        return attention(self.norm(x).reshape(b, ch * f, t))
-
     def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
                 noisy_imag: torch.Tensor,
                 num_groups: Optional[int] = None) -> torch.Tensor:
@@ -121,9 +136,11 @@ class FullSubNetPlus(nn.Module):
         noisy_imag = F.pad(noisy_imag, pad)
         b, _, f, t = noisy_mag.shape
 
-        fb_input = self._attend(noisy_mag, self.channel_attention)
-        fbr_input = self._attend(noisy_real, self.channel_attention_real)
-        fbi_input = self._attend(noisy_imag, self.channel_attention_imag)
+        fb_input, fbr_input, fbi_input = (
+            attend(self.norm(x), attention, c.subband_num) for x, attention in
+            ((noisy_mag, self.channel_attention),
+             (noisy_real, self.channel_attention_real),
+             (noisy_imag, self.channel_attention_imag)))
 
         fb_output = self.fb_model(fb_input).reshape(b, 1, f, t)
         fbr_output = self.fb_model_real(fbr_input).reshape(b, 1, f, t)
@@ -171,9 +188,6 @@ class MultiDirectionFullSubNetPlus(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         c = config
-        if c.subband_num != 1:
-            raise NotImplementedError(
-                "subband_num > 1 is not ported to generative_audio_torch yet")
         dev = resolve_device(device)
         self.config = c
         self.compute_dtype = compute_dtype
@@ -213,7 +227,7 @@ class MultiDirectionFullSubNetPlus(nn.Module):
         b, ch, f, t = noisy_mag.shape
 
         def prep(x, attention):
-            return attention(self.norm(x).reshape(b, ch * f, t))
+            return attend(self.norm(x), attention, c.subband_num)
 
         towers = []
         for tower, attention, noisy, enhanced in (

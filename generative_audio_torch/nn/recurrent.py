@@ -1,7 +1,8 @@
 """Sequence models: the LSTM and GRU layers and the SequenceModel head.
 
 Port of generative_audio_tpu/nn/recurrent.py:55-172 (LSTMLayer), :175-262
-(GRULayer) and :272-332 (SequenceModel, LSTM, GRU and TCN bodies).
+(GRULayer), :272-332 (SequenceModel, LSTM, GRU and TCN bodies) and
+:335-399 (ComplexSequenceModel).
 Parameters carry the reference checkpoint's names:
 `sequence_model.weight_ih_l0` [GH, in], `weight_hh_l0` [GH, H],
 `bias_ih_l0`, `bias_hh_l0`, ... for the recurrent bodies (G = 4 gates for
@@ -38,7 +39,7 @@ from generative_audio_torch.ops.gru import (
 from generative_audio_torch.ops.lstm import (
     lstm_layer_tm_chunked, lstm_scan_reference_tm, lstm_scan_tm)
 
-__all__ = ["LSTMLayer", "GRULayer", "SequenceModel",
+__all__ = ["LSTMLayer", "GRULayer", "SequenceModel", "ComplexSequenceModel",
            "default_gates_bytes_limit"]
 
 # Share of the card's memory that one layer's bf16 gates buffer may take
@@ -279,3 +280,56 @@ class SequenceModel(nn.Module):
         if recurrent:
             return y.permute(1, 2, 0)                        # [B, F', T]
         return y.transpose(1, 2)
+
+
+class ComplexSequenceModel(nn.Module):
+    """Complex LSTM or GRU: two towers (`real_sequence_model`,
+    `imag_sequence_model`, torch.nn.LSTM's / GRU's parameter names) with the
+    complex pairing (r2r - i2i, i2r + r2i), a Linear head for each part
+    (`real_fc_output_layer`, `imag_fc_output_layer`) and an optional
+    activation. [B, 2F, T] = concat(real, imag) along the features ->
+    [B, 2 * output_size, T].
+
+    The real and the imag stream go through each tower together, as one
+    batch of 2B rows: each layer of each tower is one scan launch (two when
+    bidirectional), as in the JAX module."""
+
+    def __init__(self, input_size: int, output_size: int, hidden_size: int,
+                 num_layers: int = 2, bidirectional: bool = False,
+                 sequence_model: str = "GRU",
+                 output_activate_function: Optional[str] = "Tanh",
+                 compute_dtype: torch.dtype = torch.float32,
+                 gates_bytes_limit: Optional[int] = None, device=None):
+        super().__init__()
+        if sequence_model not in _STACKS:
+            raise NotImplementedError(f"Not implemented {sequence_model}")
+        self.compute_dtype = compute_dtype
+        self.activation = (_ACTIVATIONS[output_activate_function]
+                           if output_activate_function else None)
+        head_in = hidden_size * (2 if bidirectional else 1)
+        for part in ("real", "imag"):
+            self.add_module(f"{part}_sequence_model", _STACKS[sequence_model](
+                input_size, hidden_size, num_layers, bidirectional,
+                compute_dtype, gates_bytes_limit, device=device))
+        for part in ("real", "imag"):
+            self.add_module(f"{part}_fc_output_layer",
+                            nn.Linear(head_in, output_size, device=device))
+
+    def _head(self, fc: nn.Linear, y: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        y = F.linear(y.to(cdt), fc.weight.to(cdt), fc.bias.to(cdt)).float()
+        return self.activation(y) if self.activation is not None else y
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim != 3:
+            raise ValueError(f"expected [B, 2F, T], got {tuple(x.shape)}")
+        b = x.shape[0]
+        real, imag = x.chunk(2, dim=1)
+        both = torch.cat([real, imag], dim=0).permute(2, 0, 1)   # [T, 2B, F]
+        y_real = self.real_sequence_model(both)
+        y_imag = self.imag_sequence_model(both)
+        real_out = y_real[:, :b] - y_imag[:, b:]                 # r2r - i2i
+        imag_out = y_real[:, b:] + y_imag[:, :b]                 # i2r + r2i
+        real_out = self._head(self.real_fc_output_layer, real_out)
+        imag_out = self._head(self.imag_fc_output_layer, imag_out)
+        return torch.cat([real_out, imag_out], dim=2).permute(1, 2, 0)

@@ -1,8 +1,13 @@
-"""Temporal convolutional network blocks. Port of generative_audio_tpu/nn/tcn.py:24-98.
+"""Temporal convolutional network blocks and the causal 2-D conv blocks.
+Port of generative_audio_tpu/nn/tcn.py:24-133.
 
 Parameter names and shapes are the reference checkpoint's (conv1x1 and sconv
 are Conv1d weights [out, in, 1]); the 1x1 convs run as matmuls over the
-channel axis. Internally [B, T, C], as in the JAX module; public [B, C, T].
+channel axis. The TCN is [B, T, C] inside, as in the JAX module, and [B, C,
+T] in public. The causal conv blocks take [B, C, F, T] (the reference's
+layout; the JAX blocks take [B, F, T, C]) and keep flax's BatchNorm as the
+JAX blocks build it (nn.unet.batch_norm at flax's default momentum 0.99,
+the biased running variance), with `train` as an argument of forward.
 """
 from __future__ import annotations
 
@@ -10,7 +15,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["TCNBlock", "TCNStack"]
+from generative_audio_torch.nn.unet import batch_norm
+
+__all__ = ["TCNBlock", "TCNStack", "CausalConvBlock", "CausalTransConvBlock"]
+
+# flax nn.BatchNorm's default, which the JAX causal blocks keep
+_FLAX_MOMENTUM = 0.99
 
 
 class _GlobalLayerNorm(nn.Module):
@@ -32,22 +42,25 @@ class _GlobalLayerNorm(nn.Module):
 class TCNBlock(nn.Module):
     """Residual depthwise-separable dilated conv block over [B, T, C]:
     1x1 conv -> PReLU -> norm -> depthwise dilated conv -> PReLU -> norm ->
-    1x1 conv, plus the input. The convolutions run in compute_dtype, the
-    rest in float32. The JAX block's causal and no-skip options, which no
-    FullSubNet+ configuration sets, are not ported."""
+    1x1 conv, plus the input unless use_skip_connection is off. causal pads
+    the dilated conv by d * (k - 1) frames on the left only (symmetric
+    otherwise). The convolutions run in compute_dtype, the rest in
+    float32."""
 
     def __init__(self, in_channels: int, hidden_channels: int = 512,
                  out_channels: int = 257, kernel_size: int = 3,
-                 dilation: int = 1,
+                 dilation: int = 1, use_skip_connection: bool = True,
+                 causal: bool = False,
                  compute_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         h = hidden_channels
         self.compute_dtype = compute_dtype
+        self.use_skip_connection = use_skip_connection
         self.conv1x1 = nn.Conv1d(in_channels, h, 1, device=device)
         self.prelu1 = nn.PReLU(init=0.25, device=device)
         self.norm1 = _GlobalLayerNorm(h, device=device)
-        pad = dilation * (kernel_size - 1) // 2       # symmetric (non-causal)
-        self.padding = (pad, pad)
+        pad = dilation * (kernel_size - 1)
+        self.padding = (pad, 0) if causal else (pad // 2, pad // 2)
         self.depthwise_conv = nn.Conv1d(h, h, kernel_size, dilation=dilation,
                                         groups=h, device=device)
         self.prelu2 = nn.PReLU(init=0.25, device=device)
@@ -68,7 +81,7 @@ class TCNBlock(nn.Module):
                      dilation=dw.dilation, groups=dw.groups)
         y = self.norm2(self.prelu2(y.transpose(1, 2).float()))
         y = self._pointwise(self.sconv, y)
-        return x + y
+        return x + y if self.use_skip_connection else y
 
 
 class TCNStack(nn.Module):
@@ -91,3 +104,49 @@ class TCNStack(nn.Module):
         for block in self.children():
             y = block(y)
         return torch.relu(y).transpose(1, 2)
+
+
+class CausalConvBlock(nn.Module):
+    """Encoder block: Conv2d(k=(3, 2), stride (2, 1), time padded by one
+    frame each side) -> the last frame chomped -> BatchNorm -> activation
+    (a torch.nn.functional name: "relu", "elu", ...)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 activation: str = "relu", device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, (3, 2), stride=(2, 1),
+                              padding=(0, 1), device=device)
+        self.norm = nn.BatchNorm2d(out_channels, device=device)
+        self.activation = getattr(F, activation.lower())
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        y = self.conv(x)[..., :-1]
+        return self.activation(batch_norm(self.norm, y, train,
+                                          _FLAX_MOMENTUM))
+
+
+class CausalTransConvBlock(nn.Module):
+    """Decoder block: ConvTranspose2d(k=(3, 2), stride (2, 1), no padding)
+    -> output_padding[0] zero bins appended to F -> the last frame chomped
+    -> BatchNorm -> ReLU if is_last else ELU.
+
+    flax's ConvTranspose (transpose_kernel=False) does not flip its kernel
+    and torch's does: utils.convert.convert_causal_trans_conv_block flips
+    both spatial axes."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 is_last: bool = False, output_padding=(0, 0), device=None):
+        super().__init__()
+        self.is_last = is_last
+        self.output_padding = tuple(output_padding)
+        self.conv = nn.ConvTranspose2d(in_channels, out_channels, (3, 2),
+                                       stride=(2, 1), device=device)
+        self.norm = nn.BatchNorm2d(out_channels, device=device)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        y = self.conv(x)
+        if self.output_padding[0]:
+            y = F.pad(y, (0, 0, 0, self.output_padding[0]))
+        y = batch_norm(self.norm, y[..., :-1], train,
+                       _FLAX_MOMENTUM)
+        return torch.relu(y) if self.is_last else F.elu(y)

@@ -60,23 +60,25 @@ class UNetConfig:
         self.dropout = dropout
 
 
-def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool
-               ) -> torch.Tensor:
-    """flax nn.BatchNorm(momentum=0.9, epsilon=1e-5) on bn's parameters and
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
+               momentum: float = 0.9) -> torch.Tensor:
+    """flax nn.BatchNorm(momentum, epsilon=1e-5) on bn's parameters and
     buffers. In training the running variance takes the biased batch
     variance: F.batch_norm updates it with the unbiased one, v_u, so the
-    update is taken back by 0.1 * v_u / n (n values a channel), where
-    0.1 * v_u = running_var_new - 0.9 * running_var_old."""
+    update is taken back by (1 - momentum) * v_u / n (n values a channel),
+    where (1 - momentum) * v_u = running_var_new - momentum *
+    running_var_old."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
     # autograd keeps the variance tensor it was given: update a copy
     new_var = bn.running_var.clone()
     out = F.batch_norm(x, bn.running_mean, new_var, bn.weight, bn.bias, True,
-                       0.1, bn.eps)
+                       1.0 - momentum, bn.eps)
     n = x.numel() // x.shape[1]
     with torch.no_grad():
-        bn.running_var.copy_(new_var - (new_var - 0.9 * bn.running_var) / n)
+        bn.running_var.copy_(new_var - (new_var - momentum * bn.running_var)
+                             / n)
         bn.num_batches_tracked.add_(1)
     return out
 

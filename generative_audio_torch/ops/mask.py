@@ -1,6 +1,7 @@
 """Complex ideal ratio mask (cIRM) maths with the reference's saturation.
 
-Port of generative_audio_tpu/ops/mask.py:35-93.
+Port of generative_audio_tpu/ops/mask.py:28-101. The complex-valued
+functions take and give complex64.
 """
 from __future__ import annotations
 
@@ -10,9 +11,16 @@ import torch
 
 EPSILON = 1e-8
 
-__all__ = ["build_complex_ideal_ratio_mask_ri", "compress_cIRM",
+__all__ = ["build_ideal_ratio_mask", "build_complex_ideal_ratio_mask",
+           "build_complex_ideal_ratio_mask_ri", "compress_cIRM",
            "decompress_cIRM", "complex_mul", "apply_crm",
-           "crm_to_stft_components"]
+           "crm_to_stft_components", "crm_to_spectrogram"]
+
+
+def build_ideal_ratio_mask(noisy_mag: torch.Tensor,
+                           clean_mag: torch.Tensor) -> torch.Tensor:
+    """[B, F, T] magnitudes -> compressed IRM [B, F, T, 1]."""
+    return compress_cIRM((clean_mag / (noisy_mag + EPSILON))[..., None])
 
 
 def build_complex_ideal_ratio_mask_ri(noisy_real: torch.Tensor,
@@ -24,6 +32,13 @@ def build_complex_ideal_ratio_mask_ri(noisy_real: torch.Tensor,
     mask_real = (noisy_real * clean_real + noisy_imag * clean_imag) / denominator
     mask_imag = (noisy_real * clean_imag - noisy_imag * clean_real) / denominator
     return compress_cIRM(torch.stack((mask_real, mask_imag), dim=-1))
+
+
+def build_complex_ideal_ratio_mask(noisy: torch.Tensor,
+                                   clean: torch.Tensor) -> torch.Tensor:
+    """Complex [B, F, T] spectrograms -> compressed cIRM [B, F, T, 2]."""
+    return build_complex_ideal_ratio_mask_ri(noisy.real, noisy.imag,
+                                             clean.real, clean.imag)
 
 
 def compress_cIRM(mask: torch.Tensor, K: float = 10.0,
@@ -65,3 +80,11 @@ def crm_to_stft_components(crm: torch.Tensor, noisy_real: torch.Tensor,
     enhanced_real, enhanced_imag = apply_crm(crm, noisy_real, noisy_imag)
     enhanced_mag = torch.sqrt(enhanced_real ** 2 + enhanced_imag ** 2)
     return enhanced_mag, enhanced_real, enhanced_imag
+
+
+def crm_to_spectrogram(crm: torch.Tensor,
+                       noisy_complex: torch.Tensor) -> torch.Tensor:
+    """A decompressed cRM [..., F, T, 2] applied to a complex noisy
+    spectrogram -> the complex enhanced one."""
+    return torch.complex(*apply_crm(crm, noisy_complex.real,
+                                    noisy_complex.imag))

@@ -6,7 +6,9 @@ with reflect padding, onesided and un-normalised. The analysis side is
 (`F.fold`) written out here, because `torch.istft` raises where the window
 envelope is near zero instead of keeping the reference's `env > 1e-11`
 guard, and its `length` handling is what `istft_ri` has to reproduce
-exactly (crop after the centre padding, zero-fill past the end).
+exactly (crop after the centre padding, zero-fill past the end). The
+complex-valued functions (`stft`, `istft`, `mc_stft`, `mag_phase`) take and
+give complex64, on the card too.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["hann_window", "stft_ri", "istft_ri", "prepare_input_from_waveform"]
+__all__ = ["hann_window", "frame_signal", "stft", "stft_ri", "istft",
+           "istft_ri", "mc_stft", "mag_phase", "stft_real_imag",
+           "audio_to_stft", "prepare_input_from_waveform"]
 
 
 def hann_window(win_length: int, dtype=torch.float32,
@@ -35,6 +39,18 @@ def _padded_window(win_length: int, n_fft: int, device) -> torch.Tensor:
     return w
 
 
+def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int,
+                 center: bool = True) -> torch.Tensor:
+    """[..., L] -> [..., T, n_fft] frames, reflect-padded by n_fft // 2 on
+    both sides if center."""
+    if center:
+        lead = y.shape[:-1]
+        pad = n_fft // 2
+        y = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")
+        y = y.reshape(lead + y.shape[-1:])
+    return y.unfold(-1, n_fft, hop_length)
+
+
 def stft_ri(y: torch.Tensor, n_fft: int, hop_length: int,
             win_length: Optional[int] = None, center: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -49,6 +65,15 @@ def stft_ri(y: torch.Tensor, n_fft: int, hop_length: int,
                       onesided=True, return_complex=True)
     spec = spec.reshape(lead + spec.shape[-2:])
     return spec.real.contiguous(), spec.imag.contiguous()
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int,
+         win_length: Optional[int] = None, center: bool = True
+         ) -> torch.Tensor:
+    """torch.stft's complex64 [..., F, T] with the reference's conventions
+    (one torch.stft, whichever of its two methods the JAX function takes)."""
+    real, imag = stft_ri(y, n_fft, hop_length, win_length, center)
+    return torch.complex(real, imag)
 
 
 def _overlap_add(frames: torch.Tensor, hop_length: int,
@@ -93,6 +118,39 @@ def istft_ri(spec_real: torch.Tensor, spec_imag: torch.Tensor, n_fft: int,
     elif center:
         y = y[:, :expected - 2 * pad]
     return y.reshape(lead + y.shape[-1:])
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int,
+          win_length: Optional[int] = None, length: Optional[int] = None,
+          center: bool = True) -> torch.Tensor:
+    """istft_ri over a complex [..., F, T] spectrogram."""
+    return istft_ri(spec.real, spec.imag, n_fft, hop_length, win_length,
+                    length=length, center=center)
+
+
+def mc_stft(y_s: torch.Tensor, n_fft: int, hop_length: int,
+            win_length: Optional[int] = None) -> torch.Tensor:
+    """Multi-channel STFT: [B, C, L] -> complex [B, C, F, T]."""
+    if y_s.ndim != 3:
+        raise ValueError(f"mc_stft takes [B, C, L], got {tuple(y_s.shape)}")
+    return stft(y_s, n_fft, hop_length, win_length)
+
+
+def mag_phase(complex_spec: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return complex_spec.abs(), complex_spec.angle()
+
+
+def stft_real_imag(waveform: torch.Tensor, n_fft: int, hop_length: int,
+                   win_length: Optional[int] = None) -> torch.Tensor:
+    """Waveform [B, L] (or [L]) -> stacked [B, 2, F, T] (real, imag)."""
+    if waveform.ndim == 1:
+        waveform = waveform[None]
+    real, imag = stft_ri(waveform, n_fft, hop_length, win_length)
+    return torch.stack([real, imag], dim=1)
+
+
+audio_to_stft = stft_real_imag
 
 
 def prepare_input_from_waveform(waveform: torch.Tensor, n_fft: int,

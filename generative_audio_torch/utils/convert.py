@@ -1,5 +1,6 @@
-"""Carry the JAX package's FullSubNet+, FullSubNet, denoising-NPPC and
-inpainting (UNet) params into the port's state_dict, and back.
+"""Carry the JAX package's FullSubNet+ (every attention kind and sub-band
+fold), FullSubNet, denoising-NPPC, inpainting (UNet), ComplexSequenceModel,
+causal conv block and MOSNet params into the port's state_dict, and back.
 
 The input is the nested dict of arrays that `model.init(...)["params"]` of
 generative_audio_tpu's FullSubNetPlus or FullSubNet gives (numpy or anything
@@ -22,6 +23,9 @@ Layout transforms (JAX -> torch):
   LSTM w_ih [in, 4H], w_hh [H, 4H] -> weight_ih_l{n} [4H, in], weight_hh_l{n} [4H, H]
   GRU  w_ih [in, 3H], w_hh [H, 3H] -> weight_ih_l{n} [3H, in], weight_hh_l{n} [3H, H]
   Conv2d kernel [kh, kw, in, out]  -> Conv2d weight [out, in, kh, kw]
+  ConvTranspose kernel [kh, kw, in, out] (flax: not flipped)
+                                   -> ConvTranspose2d weight [in, out, kh, kw],
+                                      both spatial axes flipped
   BatchNorm scale, bias            -> weight, bias; batch_stats mean, var
                                       -> running_mean, running_var
 
@@ -37,13 +41,20 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["convert_denoising_nppc", "convert_fullsubnet",
+__all__ = ["convert_attention", "convert_attention_tsse",
+           "convert_causal_conv_block", "convert_causal_trans_conv_block",
+           "convert_complex_sequence_model", "convert_deep_tsse",
+           "convert_denoising_nppc", "convert_fullsubnet",
            "convert_fullsubnet_plus", "convert_inpainting_nppc",
-           "convert_inpainting_restoration", "convert_multidirection",
-           "convert_sequence_model", "convert_tsse", "convert_unet",
+           "convert_inpainting_restoration", "convert_mosnet",
+           "convert_multidirection", "convert_self_attention",
+           "convert_sequence_model", "convert_tcn_block", "convert_tsse",
+           "convert_unet",
            "convert_unet2", "random_denoising_nppc_params",
-           "random_fullsubnet_params", "random_fullsubnet_plus_params",
-           "random_inpainting_nppc_params", "random_unet_params",
+           "random_complex_sequence_params", "random_fullsubnet_params",
+           "random_fullsubnet_plus_params",
+           "random_inpainting_nppc_params", "random_mosnet_params",
+           "random_unet_params",
            "to_jax_fullsubnet", "to_jax_fullsubnet_plus", "to_jax_unet"]
 
 StateDict = Dict[str, torch.Tensor]
@@ -75,42 +86,130 @@ def convert_sequence_model(params: Mapping, prefix: str, kind: str,
     sd: StateDict = {}
     seq = f"{prefix}sequence_model"
     if kind in ("LSTM", "GRU"):     # the same names, 4H or 3H gate rows
-        for layer in range(num_layers):
-            p = params[f"layer_{layer}"]
-            for suffix in ([""] + (["_reverse"] if bidirectional else [])):
-                sd[f"{seq}.weight_ih_l{layer}{suffix}"] = _t(
-                    np.asarray(p[f"w_ih{suffix}"]).T)
-                sd[f"{seq}.weight_hh_l{layer}{suffix}"] = _t(
-                    np.asarray(p[f"w_hh{suffix}"]).T)
-                sd[f"{seq}.bias_ih_l{layer}{suffix}"] = _t(p[f"b_ih{suffix}"])
-                sd[f"{seq}.bias_hh_l{layer}{suffix}"] = _t(p[f"b_hh{suffix}"])
+        sd.update(_recurrent_layers(params, "layer_", seq, num_layers,
+                                    bidirectional))
     elif kind in ("TCN", "TCN-subband"):
         for i in range(8):
-            p = params["tcn"][f"block_{i}"]
-            blk = f"{seq}.{i}"
-            sd.update(_pointwise(p["conv1x1"], f"{blk}.conv1x1"))
-            sd[f"{blk}.prelu1.weight"] = _t(p["prelu1"])
-            sd[f"{blk}.norm1.weight"] = _t(p["norm1"]["scale"])
-            sd[f"{blk}.norm1.bias"] = _t(p["norm1"]["bias"])
-            sd.update(_conv1d(p["depthwise_conv"], f"{blk}.depthwise_conv"))
-            sd[f"{blk}.prelu2.weight"] = _t(p["prelu2"])
-            sd[f"{blk}.norm2.weight"] = _t(p["norm2"]["scale"])
-            sd[f"{blk}.norm2.bias"] = _t(p["norm2"]["bias"])
-            sd.update(_pointwise(p["sconv"], f"{blk}.sconv"))
+            sd.update(convert_tcn_block(params["tcn"][f"block_{i}"],
+                                        f"{seq}.{i}."))
     else:
         raise NotImplementedError(kind)
     sd.update(_dense(params["fc_output_layer"], f"{prefix}fc_output_layer"))
     return sd
 
 
-def convert_tsse(params: Mapping, prefix: str) -> StateDict:
-    """attention.ChannelTimeSenseSELayer params -> the port's TSSE keys."""
+def convert_tcn_block(params: Mapping, prefix: str = "") -> StateDict:
+    """nn.tcn.TCNBlock params -> the port's TCNBlock keys."""
     sd: StateDict = {}
-    for branch in ("smallConv1d", "middleConv1d", "largeConv1d"):
+    sd.update(_pointwise(params["conv1x1"], f"{prefix}conv1x1"))
+    sd.update(_conv1d(params["depthwise_conv"], f"{prefix}depthwise_conv"))
+    sd.update(_pointwise(params["sconv"], f"{prefix}sconv"))
+    for i in (1, 2):
+        sd[f"{prefix}prelu{i}.weight"] = _t(params[f"prelu{i}"])
+        sd[f"{prefix}norm{i}.weight"] = _t(params[f"norm{i}"]["scale"])
+        sd[f"{prefix}norm{i}.bias"] = _t(params[f"norm{i}"]["bias"])
+    return sd
+
+
+def _recurrent_layers(params: Mapping, layer_prefix: str, module: str,
+                      num_layers: int, bidirectional: bool) -> StateDict:
+    """LSTM or GRU layers `{layer_prefix}{n}` -> torch.nn.LSTM's / GRU's
+    names under `module`."""
+    sd: StateDict = {}
+    for layer in range(num_layers):
+        p = params[f"{layer_prefix}{layer}"]
+        for suffix in ([""] + (["_reverse"] if bidirectional else [])):
+            sd[f"{module}.weight_ih_l{layer}{suffix}"] = _t(
+                np.asarray(p[f"w_ih{suffix}"]).T)
+            sd[f"{module}.weight_hh_l{layer}{suffix}"] = _t(
+                np.asarray(p[f"w_hh{suffix}"]).T)
+            sd[f"{module}.bias_ih_l{layer}{suffix}"] = _t(p[f"b_ih{suffix}"])
+            sd[f"{module}.bias_hh_l{layer}{suffix}"] = _t(p[f"b_hh{suffix}"])
+    return sd
+
+
+def convert_complex_sequence_model(params: Mapping, prefix: str = "",
+                                   num_layers: int = 2,
+                                   bidirectional: bool = False) -> StateDict:
+    """recurrent.ComplexSequenceModel params -> the port's keys
+    ({real,imag}_sequence_model.weight_ih_l{n}..., {real,imag}_fc_output_layer):
+    the inverse of generative_audio_tpu/utils/torch_convert.py:394-415."""
+    sd: StateDict = {}
+    for tower in ("real", "imag"):
+        sd.update(_recurrent_layers(params, f"{tower}_layer_",
+                                    f"{prefix}{tower}_sequence_model",
+                                    num_layers, bidirectional))
+        sd.update(_dense(params[f"{tower}_fc_output_layer"],
+                         f"{prefix}{tower}_fc_output_layer"))
+    return sd
+
+
+_BRANCHES = ("smallConv1d", "middleConv1d", "largeConv1d")
+
+
+def convert_tsse(params: Mapping, prefix: str) -> StateDict:
+    """attention.ChannelTimeSenseSELayer (or ChannelTimeSenseSEWeightLayer)
+    params -> the port's TSSE keys."""
+    sd: StateDict = {}
+    for branch in _BRANCHES:
         sd.update(_conv1d(params[branch]["conv"], f"{prefix}{branch}.0"))
     for name in ("feature_concate_fc", "fc1", "fc2"):
         sd.update(_dense(params[name], f"{prefix}{name}"))
     return sd
+
+
+def _se(params: Mapping, prefix: str) -> StateDict:
+    return {**_dense(params["fc1"], f"{prefix}fc1"),
+            **_dense(params["fc2"], f"{prefix}fc2")}
+
+
+def convert_self_attention(params: Mapping, prefix: str = "") -> StateDict:
+    """attention.SelfAttentionLayer params -> q_linear, k_linear, v_linear,
+    out."""
+    sd: StateDict = {}
+    for name in ("q_linear", "k_linear", "v_linear", "out"):
+        sd.update(_dense(params[name], f"{prefix}{name}"))
+    return sd
+
+
+def convert_deep_tsse(params: Mapping, prefix: str = "") -> StateDict:
+    """attention.ChannelDeepTimeSenseSELayer params -> the reference's keys
+    (each branch's two convs at Sequential indices 0 and 2)."""
+    sd: StateDict = {}
+    for branch in _BRANCHES:
+        sd.update(_conv1d(params[branch]["conv0"], f"{prefix}{branch}.0"))
+        sd.update(_conv1d(params[branch]["conv1"], f"{prefix}{branch}.2"))
+    sd.update(_dense(params["feature_concate_fc"],
+                     f"{prefix}feature_concate_fc"))
+    sd.update(_se(params, prefix))
+    return sd
+
+
+def convert_attention_tsse(params: Mapping, prefix: str = "") -> StateDict:
+    """attention.ChannelTimeSenseAttentionSELayer params -> {branch}.conv1d,
+    {branch}.attention.*, feature_concate_fc, fc1, fc2."""
+    sd: StateDict = {}
+    for branch in _BRANCHES:
+        sd.update(_conv1d(params[branch]["conv1d"], f"{prefix}{branch}.conv1d"))
+        sd.update(convert_self_attention(params[branch]["attention"],
+                                         f"{prefix}{branch}.attention."))
+    sd.update(_dense(params["feature_concate_fc"],
+                     f"{prefix}feature_concate_fc"))
+    sd.update(_se(params, prefix))
+    return sd
+
+
+def convert_attention(params: Mapping, prefix: str, kind: str) -> StateDict:
+    """make_channel_attention's module params (SE, TSSE, CBAM or ECA) ->
+    the port's keys."""
+    if kind == "TSSE":
+        return convert_tsse(params, prefix)
+    if kind in ("SE", "CBAM"):
+        return _se(params, prefix)
+    if kind == "ECA":             # flax [k, 1, 1] -> Conv1d [1, 1, k]
+        return {f"{prefix}conv.weight": _t(
+            np.asarray(params["conv"]["kernel"]).transpose(2, 1, 0))}
+    raise NotImplementedError(f"Unknown channel attention model {kind!r}")
 
 
 def _uniform(rng, shape, fan_in):
@@ -138,6 +237,32 @@ def _random_recurrent(rng, kind, n_in, h, n_out, num_layers=2):
     return params
 
 
+def random_complex_sequence_params(kind: str, input_size: int, hidden: int,
+                                   output_size: int, num_layers: int = 2,
+                                   bidirectional: bool = False,
+                                   seed: int = 0) -> Dict[str, Any]:
+    """Random ComplexSequenceModel (LSTM or GRU towers) params in the JAX
+    package's layout, made with numpy from `seed`: uniform in
+    +/-1/sqrt(H), as torch initialises an RNN."""
+    rng = np.random.default_rng(seed)
+    gh = {"LSTM": 4, "GRU": 3}[kind] * hidden
+    dirs = 2 if bidirectional else 1
+    params: Dict[str, Any] = {}
+    for tower in ("real", "imag"):
+        for layer in range(num_layers):
+            size = input_size if layer == 0 else hidden * dirs
+            params[f"{tower}_layer_{layer}"] = {
+                f"{kind_}{suffix}": _uniform(rng, shape, hidden)
+                for suffix in [""] + ["_reverse"] * bidirectional
+                for kind_, shape in (("w_ih", (size, gh)),
+                                     ("w_hh", (hidden, gh)),
+                                     ("b_ih", (gh,)), ("b_hh", (gh,)))}
+        params[f"{tower}_fc_output_layer"] = {
+            "kernel": _uniform(rng, (hidden * dirs, output_size), hidden),
+            "bias": _uniform(rng, (output_size,), hidden)}
+    return params
+
+
 def random_fullsubnet_params(config, seed: int = 0) -> Dict[str, Any]:
     """Random FullSubNet (v1, GRU or LSTM) params in the JAX package's
     layout, made with numpy from `seed`: weights uniform in +/-1/sqrt(fan_in)
@@ -155,11 +280,11 @@ def random_fullsubnet_params(config, seed: int = 0) -> Dict[str, Any]:
 
 
 def random_fullsubnet_plus_params(config, seed: int = 0) -> Dict[str, Any]:
-    """Random FullSubNet+ (LSTM sub-band, TSSE, TCN towers) params in the JAX
-    package's layout, made with numpy from `seed`: weights uniform in
-    +/-1/sqrt(fan_in) as torch initialises them, PReLU slopes 0.25, norm
-    scales 1 and biases 0. `config` is a FullSubNetPlusConfig of either
-    package."""
+    """Random FullSubNet+ (LSTM sub-band, the config's channel attention at
+    its subband_num, TCN towers) params in the JAX package's layout, made
+    with numpy from `seed`: weights uniform in +/-1/sqrt(fan_in) as torch
+    initialises them, PReLU slopes 0.25, norm scales 1 and biases 0.
+    `config` is a FullSubNetPlusConfig of either package."""
     return _random_plus_params(config, seed, config.num_freqs,
                                config.output_size)
 
@@ -183,15 +308,29 @@ def _random_plus_params(config, seed: int, fb_in: int,
 
     c = config
     f, ch = c.num_freqs, c.num_channels
+    in_per_group = ch // (ch // c.subband_num)     # TSSE's grouped convs
+
+    def attention():
+        # drawn in the module's parameter order, TSSE's as before the other
+        # kinds were ported, so that a seed gives the same weights
+        kind = c.channel_attention_model
+        if kind == "ECA":
+            return {"conv": {"kernel": u((3, 1, 1), 3)}}
+        if kind not in ("SE", "CBAM", "TSSE"):
+            raise NotImplementedError(
+                f"Unknown channel attention model {kind!r}")
+        p = {}
+        if kind == "TSSE":
+            for branch, k in zip(_BRANCHES, c.kersize):
+                p[branch] = {"conv": conv(k, in_per_group, ch)}
+            p["feature_concate_fc"] = dense(3, 1)
+        p["fc1"] = dense(ch, ch // 2)
+        p["fc2"] = dense(ch // 2, ch)
+        return p
+
     params: Dict[str, Any] = {}
     for suffix in ("", "_real", "_imag"):
-        params[f"channel_attention{suffix}"] = {
-            "smallConv1d": {"conv": conv(c.kersize[0], 1, ch)},
-            "middleConv1d": {"conv": conv(c.kersize[1], 1, ch)},
-            "largeConv1d": {"conv": conv(c.kersize[2], 1, ch)},
-            "feature_concate_fc": dense(3, 1),
-            "fc1": dense(ch, ch // 2),
-            "fc2": dense(ch // 2, ch)}
+        params[f"channel_attention{suffix}"] = attention()
         hid = 512                  # SequenceModel's fixed TCN hidden width
         params[f"fb_model{suffix}"] = {
             "tcn": {f"block_{i}": {
@@ -230,14 +369,12 @@ def random_denoising_nppc_params(config, seed: int = 0) -> Dict[str, Any]:
 def convert_fullsubnet_plus(params: Mapping,
                             sequence_model: str = "LSTM",
                             attention: str = "TSSE") -> StateDict:
-    """models.FullSubNetPlus params -> the port's FullSubNetPlus state_dict."""
-    if attention != "TSSE":
-        raise NotImplementedError(
-            f"attention {attention!r} is not ported to generative_audio_torch yet")
+    """models.FullSubNetPlus params -> the port's FullSubNetPlus state_dict;
+    `attention` is the config's channel_attention_model."""
     sd: StateDict = {}
     for suffix in ("", "_real", "_imag"):
-        sd.update(convert_tsse(params[f"channel_attention{suffix}"],
-                               f"channel_attention{suffix}."))
+        sd.update(convert_attention(params[f"channel_attention{suffix}"],
+                                    f"channel_attention{suffix}.", attention))
         sd.update(convert_sequence_model(params[f"fb_model{suffix}"],
                                          f"fb_model{suffix}.", "TCN"))
     sd.update(convert_sequence_model(params["sb_model"], "sb_model.",
@@ -497,3 +634,63 @@ def to_jax_unet(named: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
                     None if w is None else w.transpose(2, 3, 1, 0))
                 put(params, where, "bias", get(f"{key}.bias"))
     return {"params": params, "batch_stats": stats}
+
+
+# ------------------------------------------------- causal blocks, MOSNet --
+def convert_causal_conv_block(variables: Mapping, prefix: str = "") -> StateDict:
+    """nn.tcn.CausalConvBlock variables {"params", "batch_stats"} -> the
+    port's CausalConvBlock state_dict (conv, norm)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    return {**_conv2d(params["conv"], f"{prefix}conv"),
+            **_bn(params["norm"], stats["norm"], f"{prefix}norm")}
+
+
+def convert_causal_trans_conv_block(variables: Mapping,
+                                    prefix: str = "") -> StateDict:
+    """nn.tcn.CausalTransConvBlock variables -> the port's state_dict. flax's
+    ConvTranspose correlates with its kernel as it is and torch's
+    conv_transpose2d with the kernel flipped, so both spatial axes are
+    flipped here."""
+    params, stats = variables["params"], variables["batch_stats"]
+    kernel = np.asarray(params["conv"]["kernel"])[::-1, ::-1]
+    return {f"{prefix}conv.weight": _t(kernel.transpose(2, 3, 0, 1)),
+            f"{prefix}conv.bias": _t(params["conv"]["bias"]),
+            **_bn(params["norm"], stats["norm"], f"{prefix}norm")}
+
+
+def convert_mosnet(params: Mapping) -> StateDict:
+    """eval.mosnet.MOSNet params (HWIO convs, the packed [D + H + 1, 4H]
+    LSTM directions, dense1, frame) -> the port's MOSNet state_dict."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        if name.startswith("conv"):
+            sd.update(_conv2d(p, name))
+        elif name in ("lstm_fwd", "lstm_bwd"):
+            sd[name] = _t(p)
+        else:
+            sd.update(_dense(p, name))
+    return sd
+
+
+def random_mosnet_params(config, seed: int = 0) -> Dict[str, Any]:
+    """Random MOSNet params in the JAX layout, made with numpy from `seed`:
+    kernels and biases uniform in +/-1/sqrt(fan_in). `config` is a
+    MOSNetConfig of either package."""
+    rng = np.random.default_rng(seed)
+    params: Dict[str, Any] = {}
+    in_ch = 1
+    for bi, ch in enumerate(config.conv_channels):
+        for ci in range(3):
+            fan_in = 9 * in_ch
+            params[f"conv{bi}_{ci}"] = {
+                "kernel": _uniform(rng, (3, 3, in_ch, ch), fan_in),
+                "bias": _uniform(rng, (ch,), fan_in)}
+            in_ch = ch
+    h = config.lstm_units
+    d = config.reduced_freqs * config.conv_channels[-1]
+    for name in ("lstm_fwd", "lstm_bwd"):
+        params[name] = np.concatenate([_uniform(rng, (d, 4 * h), d),
+                                       _uniform(rng, (h + 1, 4 * h), h)])
+    params["dense1"] = _random_dense(rng, 2 * h, config.dense_units)
+    params["frame"] = _random_dense(rng, config.dense_units, 1)
+    return params

@@ -43,9 +43,16 @@ def test_tsse_matches_jax():
 
 
 def test_unported_attention_raises():
+    """SE, CBAM and ECA build (test_torch_norms_attention.py holds them
+    against JAX); an unknown kind and a TSSE whose groups do not divide its
+    channels still raise."""
     for kind in ("SE", "CBAM", "ECA"):
-        with pytest.raises(NotImplementedError):
-            ta.make_channel_attention(kind, 8)
+        assert isinstance(ta.make_channel_attention(kind, 8, device="cpu"),
+                          torch.nn.Module)
+    with pytest.raises(NotImplementedError):
+        ta.make_channel_attention("bogus", 8)
+    with pytest.raises(ValueError):
+        ta.make_channel_attention("TSSE", 129, subband_num=2, device="cpu")
 
 
 def _sequence_models(kind, input_size, output_size, hidden, act, cdt_j,

@@ -155,12 +155,15 @@ def test_bss_projection_and_refusals_equal_jax():
             TB.bss_eval_sdr(*bad)
 
 
-def test_mosnet_unavailable_names_its_queue_item():
-    """Without the speechmetrics wheel MOSNET raises MetricUnavailable,
-    which the validator records as None; the first-party MOSNet waits for
-    queue A item 5."""
+def test_mosnet_unavailable_names_its_queue_item(monkeypatch):
+    """Without the speechmetrics wheel and without $GAT_MOSNET_WEIGHTS,
+    MOSNET raises MetricUnavailable, which the validator records as None;
+    the message names both ways to score (test_torch_mosnet.py runs the
+    second)."""
+    monkeypatch.delenv("GAT_MOSNET_WEIGHTS", raising=False)
     x = _speech_like(53, seconds=1.0)
-    with pytest.raises(TM.MetricUnavailable, match="queue A item 5"):
+    with pytest.raises(TM.MetricUnavailable,
+                       match=r"speechmetrics wheel or \$GAT_MOSNET_WEIGHTS"):
         TM.MOSNET(x, x)
 
 

@@ -96,9 +96,10 @@ def test_offline_laplace_norm_and_get_norm():
     np.testing.assert_allclose(got.numpy(),
                                np.asarray(jops.offline_laplace_norm(x)),
                                rtol=1e-5)
-    for name in ("cumulative_laplace_norm", "forgetting_norm", "bogus"):
-        with pytest.raises(NotImplementedError):
-            ops.get_norm(name)
+    for name in ("cumulative_laplace_norm", "forgetting_norm"):
+        assert callable(ops.get_norm(name))
+    with pytest.raises(NotImplementedError):
+        ops.get_norm("bogus")
 
 
 @pytest.mark.parametrize("n", [0, 1, 3])
