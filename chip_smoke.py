@@ -153,8 +153,14 @@ of which fails the run (non-zero exit, no result line):
      group, the MultiDirection head with 5 directions and 2 groups; random
      weights from a numpy seed in the JAX layout, carried across by
      convert_denoising_nppc): forward_with_pred_crm on a 1 s clip against
-     the float32 model on the CPU and the card's directions orthogonal;
-     five NPPCDenoisingTrainer steps on one 8 x 3.072 s batch with
+     the float32 model on the CPU and the card's directions orthogonal,
+     with each offline_laplace_norm call's divisor (the stream's signed mean
+     + 1e-5) on both sides; this holds only at seeds where every divisor
+     keeps its sign between bf16 and float32, so the head alone
+     (MultiDirectionFullSubNetPlus) also runs in bf16 on the card over the
+     float32 enhancer's streams against float32 on the CPU at five seeds of
+     the weights, 0 and 31 among them, each within PATH_REL, with 2 kernel-A
+     launches each and its divisors; five NPPCDenoisingTrainer steps on one 8 x 3.072 s batch with
      configs/denoising_nppc.yaml's lr, lambda and grace, with exact launches
      (2 A for the frozen enhancer, 2 C and 2 D for the head), finite
      objectives, the enhancer bit for bit unchanged and without gradient, a
@@ -218,6 +224,27 @@ of which fails the run (non-zero exit, no result line):
      three beamforming ops, a causal and a no-skip TCN stack and both causal
      conv blocks in train and eval, float32, card against CPU within 1e-4 of
      the peak.
+ 19. the image-NPPC line, float32 with cuDNN's TF32 convolutions, NCHW: at
+     the width of configs/image_*.yaml (UNet
+     32 -> 128, bottleneck 256; MNIST's 1 x 28 x 28 padded to 32 on
+     synthetic digits, batch 64, 5 directions) and with the line's largest
+     nets (the res_unet restoration net 64 -> 256 with attention over 3 x
+     256 x 256 under inpainting_2's mask; the res_cnn pre-net NPPC under
+     super_resolution_1, 64 x 64 in and 256 out), random weights from a
+     numpy seed in the JAX layout (convert.random_image_net_params): the
+     restored images and the directions, card (TF32 and strict float32)
+     against the float32 CPU, the card's directions orthogonal; the loss
+     and gradients, TF32 against strict float32 under phase 17's limits,
+     every gradient finite and non-zero; ImageRestorationTrainer and
+     ImageNPPCTrainer steps (five at batch 64, three at batch 4 for the large
+     nets: ms, samples/s, peak memory), a profile of one batch-64 step each,
+     the frozen restoration net bit for bit unchanged, the NPPC benchmark;
+     the restoration steps in NCHW and channels-last in alternating rounds;
+     cli.train's image_restoration and image_nppc lines with the shipped
+     configs (as JSON) for 4 steps with a benchmark every 2, the NPPC line
+     over the first run's latest, both writing latest.pt, best.pt and
+     report.html with its image grids. No scan kernel is on this path:
+     every launch count stays 0 through phase 19.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -3792,6 +3819,13 @@ NPPC_CLI_WORKERS, NPPC_CLI_STEPS = 8, 2
 # Gram-Schmidt runs in float32 on the card: the largest |<w_i, w_j>| of two
 # unit directions of one clip (D = 2 x 257 x 63 elements)
 NPPC_ORTHO_ABS = 1e-4
+# The seeds of random_denoising_nppc_params at which the head alone runs in
+# bf16 on the card over the float32 enhancer's streams. The end-to-end
+# check above holds only where each offline_laplace_norm divisor (the
+# stream's signed mean + 1e-5) keeps its sign between bf16 and float32; at
+# seeds 0 and 31 the enhanced real stream's divisor flips (ROADMAP.md,
+# reference quirks), so the head's own check takes them.
+NPPC_HEAD_SEEDS = (0, 7, 20, 31, 40)
 
 
 def nppc_config():
@@ -3827,9 +3861,18 @@ def _nppc_trainer(cfg, params, device, dtype, checkpoint_dir=None):
     return trainer
 
 
+def _log_divisors(divisors):
+    for what, calls in divisors.items():
+        names = HEAD_NORMS if what.startswith("head") else ENHANCER_NORMS
+        log(f"  {what} norm divisors (signed mean + 1e-5): " + "; ".join(
+            f"{name} " + " ".join(f"{d:+.3e}" for d in c)
+            for name, c in zip(names, calls)))
+
+
 def _nppc_model_check(dev, cfg, sd, counts):
     """A 1 s clip through forward_with_pred_crm, the card (bf16) against the
-    float32 model on the CPU, and the card's directions orthogonal."""
+    float32 model on the CPU, and the card's directions orthogonal; each
+    norm call's divisor on both sides."""
     from generative_audio_torch.models import DenoisingNPPCModel
     card_model = DenoisingNPPCModel(cfg, compute_dtype=torch.bfloat16,
                                     device=dev)
@@ -3840,7 +3883,14 @@ def _nppc_model_check(dev, cfg, sd, counts):
     wav = torch.from_numpy(np.random.default_rng(SEED + 21).standard_normal(
         (1, 16000)).astype(np.float32) * 0.1)
     before = dict(counts)
-    with torch.inference_mode():
+    divisors = {}
+    with torch.inference_mode(), contextlib.ExitStack() as stack:
+        for side, model in (("card, bf16", card_model),
+                            ("CPU, float32", cpu_model)):
+            stack.enter_context(_divisors(model.pretrained_restoration_model,
+                                          divisors, f"enhancer, {side}"))
+            stack.enter_context(_divisors(model.audio_pc_wrapper.net,
+                                          divisors, f"head, {side}"))
         w_card, crm_card = card_model.forward_with_pred_crm(wav.to(dev))
         w_card, crm_card = w_card.cpu(), crm_card.cpu()
         w_cpu, crm_cpu = cpu_model.forward_with_pred_crm(wav)
@@ -3861,11 +3911,89 @@ def _nppc_model_check(dev, cfg, sd, counts):
         f"CPU (float32) max|err|/peak w_mat {rel_w:.3e}, cRM {rel_c:.3e}; "
         f"largest |<w_i, w_j>| of the card's unit directions {off:.3e}; "
         f"launches {launched}")
+    _log_divisors(divisors)
     check(rel_w < PATH_REL and rel_c < PATH_REL,
           f"nppc forward card vs CPU within {PATH_REL} of the peak")
     check(off < NPPC_ORTHO_ABS,
           f"the card's directions orthogonal within {NPPC_ORTHO_ABS}")
     return card_model, cpu_model, launched
+
+
+# the streams an offline_laplace_norm call takes, in call order
+ENHANCER_NORMS = ("noisy mag", "noisy real", "noisy imag", "sub-band input")
+HEAD_NORMS = ("noisy mag", "enhanced mag", "noisy real", "enhanced real",
+              "noisy imag", "enhanced imag", "sub-band input")
+
+
+def _divisors(module, record, what):
+    """While open, module.norm (offline_laplace_norm) records under `what`
+    each call's divisor per item: the signed mean over (C, F, T) + 1e-5."""
+    norm = module.norm
+
+    def recorded(x):
+        record.setdefault(what, []).append(
+            (x.float().mean(dim=(1, 2, 3)) + 1e-5).cpu().tolist())
+        return norm(x)
+
+    return mock.patch.object(module, "norm", recorded)
+
+
+def _nppc_head_seeds(dev, cfg, counts):
+    """For each seed of NPPC_HEAD_SEEDS: the float32 enhancer's six streams
+    of a 1 s clip on the CPU, the head (MultiDirectionFullSubNetPlus) over
+    them in bf16 on the card against float32 on the CPU, within PATH_REL of
+    the peak; every norm call's divisors printed. Returns the launches."""
+    from generative_audio_torch.models import (
+        DenoisingNPPCModel, MultiDirectionFullSubNetPlus)
+    from generative_audio_torch.ops.mask import (
+        crm_to_stft_components, decompress_cIRM)
+    from generative_audio_torch.utils import convert
+    wav = torch.from_numpy(np.random.default_rng(SEED + 21).standard_normal(
+        (1, 16000)).astype(np.float32) * 0.1)
+    before = dict(counts)
+    worst = 0.0
+    for seed in NPPC_HEAD_SEEDS:
+        sd = convert.convert_denoising_nppc(
+            convert.random_denoising_nppc_params(cfg, seed=seed))
+        cpu = DenoisingNPPCModel(cfg, compute_dtype=torch.float32,
+                                 device="cpu")
+        cpu.load_state_dict(sd)
+        head = MultiDirectionFullSubNetPlus(
+            cfg.pc_wrapper, compute_dtype=torch.bfloat16, device=dev)
+        head.load_state_dict({k[len("audio_pc_wrapper.net."):]: v for k, v in
+                              sd.items()
+                              if k.startswith("audio_pc_wrapper.net.")})
+        divisors = {}
+        with torch.inference_mode(), \
+                _divisors(cpu.pretrained_restoration_model, divisors,
+                          "enhancer"), \
+                _divisors(cpu.audio_pc_wrapper.net, divisors, "head, CPU"), \
+                _divisors(head, divisors, "head, card"):
+            mag, real, imag = cpu._stft_triplet(wav)
+            crm = decompress_cIRM(cpu._enhancer(mag, real, imag).permute(
+                0, 2, 3, 1))
+            enhanced = [x[:, None] for x in crm_to_stft_components(
+                crm, real[:, 0], imag[:, 0])]
+            streams = [mag, real, imag] + enhanced
+            want = cpu.audio_pc_wrapper.net(*streams)
+            got = head(*(x.to(dev) for x in streams)).float().cpu()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        worst = max(worst, rel)
+        log(f"nppc head, seed {seed}: bf16 on the card over the float32 "
+            f"enhancer's streams vs float32 on the CPU, max|err|/peak "
+            f"{rel:.3e}")
+        _log_divisors(divisors)
+        check(torch.isfinite(got).all() and got.shape == want.shape,
+              f"the head's output finite and shaped (seed {seed})")
+        check(rel < PATH_REL, f"the bf16 head within {PATH_REL} of the "
+              f"float32 head at seed {seed}")
+    launched = _launched(counts, before)
+    log(f"nppc head over {len(NPPC_HEAD_SEEDS)} seeds: worst {worst:.3e}; "
+        f"launches {launched}")
+    check(launched == {"lstm_scan_fwd": 2 * len(NPPC_HEAD_SEEDS)},
+          f"each seed's head forward launched 2 lstm_scan_fwd, nothing else "
+          f"(got {launched})")
+    return launched
 
 
 @contextlib.contextmanager
@@ -4267,6 +4395,9 @@ def phase_nppc_denoising(dev):
     L.reset_launch_counts()
     card_model, cpu_model, launched = _nppc_model_check(dev, cfg, sd, counts)
     total = dict(launched)
+    L.reset_launch_counts()
+    for k, v in _nppc_head_seeds(dev, cfg, counts).items():
+        total[k] = total.get(k, 0) + v
     L.reset_launch_counts()
     trainer, (noisy, clean), launched = _nppc_training(dev, cfg, params,
                                                        counts)
@@ -5411,6 +5542,401 @@ def phase_item5(dev):
     return total
 
 
+# Phase 19: the image-NPPC line. The shipped configs' width
+# (configs/image_restoration.yaml, configs/image_nppc.yaml): ImageUNet 32 ->
+# 128, bottleneck 256, over MNIST's 1 x 28 x 28 padded to 32, batch 64, 5
+# directions, on synthetic digits (the repository holds no IDX files); the
+# line's largest net, build_restoration_net's res_unet (64 -> 256,
+# bottleneck 512, attention at 16 x 16) over 3 x 256 x 256 under
+# inpainting_2's mask, and the res_cnn pre-net NPPC under super_resolution_1
+# (3 x 64 x 64 in, 256 x 256 out), batch 4. Random weights from a numpy seed
+# in the JAX layout (convert.random_image_net_params).
+IMAGE_BATCH, IMAGE_STEPS = 64, 5
+IMAGE_LARGE_BATCH, IMAGE_LARGE_STEPS, IMAGE_LARGE_SIZE = 4, 6, 256
+# the shipped configs' blocks, as JSON (no PyYAML on the card's machine)
+IMAGE_REST_TRAIN = {"dataset": "mnist", "distortion_type": "denoising_1",
+                    "net_type": "unet", "loss_type": "mse", "lr": 0.0001}
+IMAGE_NPPC_TRAIN = {"net_type": "unet", "n_dirs": 5, "lr": 0.0001,
+                    "second_moment_loss_lambda": 0.1,
+                    "second_moment_loss_grace": 200}
+IMAGE_RUN = {"n_steps": 2000, "batch_size": 64, "benchmark_every": 200}
+# the CLI's run: --steps 4, a benchmark every 2 steps, so best/ is written
+IMAGE_CLI_STEPS, IMAGE_CLI_BENCHMARK = 4, 2
+# the layouts' rounds, each of 10 steps on a trainer built in its layout
+IMAGE_LAYOUTS = ("NCHW", "channels-last", "channels-last", "NCHW") * 2
+IMAGE_LAYOUT_STEPS = 10
+
+
+class _ImageModule:
+    """An in-memory data module of `n` seeded uniform images [C, H, W]
+    (mean .5, std .5, as the CelebA modules)."""
+    mean = 0.5
+    std = 0.5
+
+    def __init__(self, shape, n, seed):
+        self.shape = shape
+        arr = np.random.default_rng(seed).uniform(
+            size=(n,) + shape).astype(np.float32)
+        self.train_set = self.valid_set = self.test_set = list(arr)
+
+
+def _random_net(net, seed):
+    from generative_audio_torch.utils import convert
+    net.load_state_dict(convert.convert_image_net(
+        convert.random_image_net_params(net, seed), net))
+
+
+def _image_pair(dm, distortion, net_type, pre_net, seed):
+    """(restoration model, NPPC model) on the CPU with numpy-made weights:
+    the restoration net from `seed`, the PC net from seed + 1, the pre-net
+    from seed + 2."""
+    from generative_audio_torch.models import (
+        ImageNPPCConfig, ImageNPPCModel, ImageRestorationConfig,
+        ImageRestorationModel)
+    rest = ImageRestorationModel(ImageRestorationConfig(
+        distortion_type=distortion, net_type=net_type), data_module=dm)
+    _random_net(rest.base_net, seed)
+    nppc = ImageNPPCModel(ImageNPPCConfig(n_dirs=5, pre_net_type=pre_net),
+                          rest)
+    _load_pc(nppc.wrapper, seed)
+    return rest, nppc
+
+
+def _load_pc(wrapper, seed):
+    _random_net(wrapper.net, seed + 1)
+    if wrapper.pre_net is not None:
+        _random_net(wrapper.pre_net, seed + 2)
+
+
+def _image_card_vs_cpu(dev, what, make, x, seed):
+    """Restored images and directions of the same x_distorted (drawn on the
+    CPU), the card (TF32 and strict float32) against the float32 CPU; the
+    card's directions orthogonal. The directions take the CPU's x_restored
+    on both sides."""
+    from generative_audio_torch.utils.device import conv_tf32
+    cpu_rest, cpu_nppc = make()
+    card_rest, card_nppc = make()
+    card_rest.to(dev)
+    card_nppc.to(dev)
+    x_d = cpu_rest.distort(x, torch.Generator().manual_seed(seed))
+    got = {}
+    with torch.no_grad():
+        want_r = cpu_rest.restore(x_d)
+        want_w = cpu_nppc.get_dirs(x_d, want_r)
+        for tf32 in (True, False):
+            with conv_tf32(tf32):
+                got[tf32] = (card_rest.restore(x_d.to(dev)).cpu(),
+                             card_nppc.get_dirs(x_d.to(dev),
+                                                want_r.to(dev)).cpu())
+    rel = {tf32: (_rel(r.numpy(), want_r.numpy()),
+                  _rel(w.numpy(), want_w.numpy()))
+           for tf32, (r, w) in got.items()}
+    off = _unit_gram_off(got[True][1])
+    log(f"{what}: card vs CPU (float32) max|err|/peak, TF32: restored "
+        f"{rel[True][0]:.3e}, w_mat {rel[True][1]:.3e}; strict float32: "
+        f"restored {rel[False][0]:.3e}, w_mat {rel[False][1]:.3e}; largest "
+        f"|<w_i, w_j>| of the card's unit directions {off:.3e}")
+    check(got[True][1].shape == want_w.shape and all(
+        torch.isfinite(t).all() for pair in got.values() for t in pair),
+        f"{what}: finite, shaped")
+    check(max(rel[True] + rel[False]) < PATH_REL,
+          f"{what}: card vs CPU within {PATH_REL} of the peak")
+    check(off < NPPC_ORTHO_ABS,
+          f"{what}: the card's directions orthogonal within {NPPC_ORTHO_ABS}")
+
+
+def _image_grads(model, loss, what, compare):
+    """loss() and its gradients with TF32 convolutions and, where `compare`,
+    in strict float32 on the same weights and inputs: every gradient finite
+    and non-zero, and the TF32 gap under phase 17's limits."""
+    from generative_audio_torch.utils.device import conv_tf32
+    out = {}
+    for tf32 in ((True, False) if compare else (True,)):
+        with conv_tf32(tf32):
+            value = loss()
+            value.backward()
+        out[tf32] = (value.item(), _grads(model))
+        model.zero_grad(set_to_none=True)
+    l_tf, g_tf = out[True]
+    n_params = sum(1 for p in model.parameters() if p.requires_grad)
+    check(len(g_tf) == n_params and all(
+        torch.isfinite(g).all() and g.abs().max() > 0 for g in g_tf.values()),
+        f"{what}: every gradient finite and non-zero ({len(g_tf)} of "
+        f"{n_params} tensors)")
+    if not compare:
+        return
+    l_32, g_32 = out[False]
+    top = max(g.norm().item() for g in g_32.values())
+    cos, ratio = [], []
+    for k, g in g_32.items():
+        if g.norm().item() > 1e-3 * top:
+            cos.append(torch.nn.functional.cosine_similarity(
+                g_tf[k].flatten(), g.flatten(), dim=0).item())
+            ratio.append(g_tf[k].norm().item() / g.norm().item())
+    loss_rel = abs(l_tf - l_32) / abs(l_32)
+    log(f"{what}: TF32 vs float32 on the card: loss {l_tf:.6f} vs "
+        f"{l_32:.6f} (rel {loss_rel:.3e}); over {len(cos)} of {len(g_32)} "
+        f"gradient tensors cosine >= {min(cos):.6f}, norm ratio "
+        f"{min(ratio):.5f}-{max(ratio):.5f}")
+    check(loss_rel < INPAINT_TF32_LOSS_REL and min(cos) > INPAINT_TF32_COS
+          and max(abs(r - 1) for r in ratio) < INPAINT_TF32_RATIO,
+          f"{what}: TF32 within {INPAINT_TF32_LOSS_REL} (loss), "
+          f"{INPAINT_TF32_COS} (cosine) and {INPAINT_TF32_RATIO} (norms) of "
+          f"float32")
+
+
+def _image_steps(trainer, batch, n, what, card):
+    """n train_step calls on one batch: (ms of each, the median of steps
+    2..n); logs samples/s and the peak memory."""
+    ms, median, peak, loss = _timed_steps(lambda: trainer.train_step(batch),
+                                          n)
+    log(f"{what}, batch {len(batch)}: steps "
+        f"{' '.join(f'{x:.2f}' for x in ms)} ms, median of 2-{n} "
+        f"{median:.2f} ms, {len(batch) * 1e3 / median:.1f} samples/s, peak "
+        f"memory {peak:.2f} GiB; last loss {loss.item():.5f}; on {card}")
+    check(np.isfinite(loss.item()) and trainer.state.step == n,
+          f"{what}: {n} steps, finite loss")
+    return median
+
+
+def _x_batch(dm, n):
+    return np.stack([np.asarray(dm.train_set[i % len(dm.train_set)])
+                     for i in range(n)])
+
+
+def _image_large(dev, card):
+    """The line's largest nets at 256 x 256: card vs CPU on one item, the
+    TF32 gap of the loss and gradients at batch 4, three steps at batch 4."""
+    from generative_audio_torch.train import (
+        ImageNPPCTrainer, ImageRestorationTrainer)
+    size = IMAGE_LARGE_SIZE
+    dm = _ImageModule((3, size, size), IMAGE_LARGE_BATCH, SEED + 90)
+    x = torch.from_numpy(_x_batch(dm, IMAGE_LARGE_BATCH))
+    _image_card_vs_cpu(dev, "res_unet restoration + unet NPPC, inpainting_2, "
+                       f"1 x 3 x {size} x {size}",
+                       lambda: _image_pair(dm, "inpainting_2", "res_unet",
+                                           "none", SEED + 91), x[:1], SEED)
+    _image_card_vs_cpu(dev, "unet restoration + res_cnn pre-net NPPC, "
+                       f"super_resolution_1, 1 x 3 x {size // 4} x "
+                       f"{size // 4} -> {size}",
+                       lambda: _image_pair(dm, "super_resolution_1", "unet",
+                                           "res_cnn", SEED + 94), x[:1], SEED)
+    rest, _ = _image_pair(dm, "inpainting_2", "res_unet", "none", SEED + 91)
+    trainer = ImageRestorationTrainer(rest.config, model=rest, seed=SEED,
+                                      device=dev)
+    xd = x.to(dev)
+    x_d = rest.distort(xd)
+    _image_grads(trainer.state.model, lambda: trainer.loss_value(xd, x_d),
+                 f"res_unet restoration at batch {IMAGE_LARGE_BATCH}",
+                 compare=True)
+    batch = _x_batch(dm, IMAGE_LARGE_BATCH)
+    large = {"res_unet restoration": _image_steps(
+        trainer, batch, IMAGE_LARGE_STEPS,
+        f"res_unet restoration training, inpainting_2, 3 x {size} x {size}",
+        card)}
+    _profile(lambda: trainer.train_step(batch),
+             f"res_unet restoration training step, batch {IMAGE_LARGE_BATCH}")
+    del trainer, rest
+    rest, nppc_model = _image_pair(dm, "super_resolution_1", "unet",
+                                   "res_cnn", SEED + 94)
+    nppc = ImageNPPCTrainer(nppc_model.config, rest, seed=SEED, device=dev)
+    _load_pc(nppc.model.wrapper, SEED + 94)
+    x_d, x_r = nppc.process_batch(xd, torch.Generator(
+        device=dev).manual_seed(SEED))
+    _image_grads(nppc.state.model,
+                 lambda: nppc.objective(xd, x_d, x_r, 0)[0],
+                 f"res_cnn pre-net NPPC at batch {IMAGE_LARGE_BATCH}",
+                 compare=True)
+    large["res_cnn NPPC"] = _image_steps(
+        nppc, _x_batch(dm, IMAGE_LARGE_BATCH), IMAGE_LARGE_STEPS,
+        f"res_cnn pre-net NPPC training, super_resolution_1, {size // 4} -> "
+        f"{size}", card)
+    del nppc, rest
+    torch.cuda.empty_cache()
+    return large
+
+
+def _image_training(dev, card):
+    """ImageRestorationTrainer and ImageNPPCTrainer at the shipped configs'
+    width, batch 64: every gradient finite and non-zero, five steps each
+    (ms, samples/s, peak memory), a profile of one step each, the frozen
+    restoration net bit for bit unchanged."""
+    from generative_audio_torch.models import (
+        ImageNPPCConfig, ImageRestorationConfig)
+    from generative_audio_torch.train import (
+        ImageNPPCTrainer, ImageRestorationTrainer)
+    from generative_audio_torch.utils.config import build_dataclass
+    trainer = ImageRestorationTrainer(
+        build_dataclass(ImageRestorationConfig, IMAGE_REST_TRAIN), seed=SEED,
+        device=dev)
+    _random_net(trainer.model.base_net, SEED + 95)
+    dm = trainer.model.data_module
+    batch = _x_batch(dm, IMAGE_BATCH)
+    xd = torch.from_numpy(batch).to(dev)
+    x_d = trainer.model.distort(xd, torch.Generator(device=dev).manual_seed(
+        SEED))
+    _image_grads(trainer.state.model, lambda: trainer.loss_value(xd, x_d),
+                 f"unet restoration at batch {IMAGE_BATCH}", compare=True)
+    ms = {"restoration": _image_steps(
+        trainer, batch, IMAGE_STEPS, "unet restoration training, "
+        "denoising_1, 1 x 28 x 28", card)}
+    _profile(lambda: trainer.train_step(batch),
+             f"image restoration training step, batch {IMAGE_BATCH}")
+    nppc = ImageNPPCTrainer(build_dataclass(ImageNPPCConfig,
+                                            IMAGE_NPPC_TRAIN),
+                            trainer.model, seed=SEED, device=dev)
+    _load_pc(nppc.model.wrapper, SEED + 95)
+    frozen = {k: v.clone() for k, v in
+              trainer.model.wrapper.state_dict().items()}
+    x_d, x_r = nppc.process_batch(xd, torch.Generator(
+        device=dev).manual_seed(SEED))
+    _image_grads(nppc.state.model,
+                 lambda: nppc.objective(xd, x_d, x_r, 0)[0],
+                 f"unet NPPC at batch {IMAGE_BATCH}", compare=True)
+    ms["nppc"] = _image_steps(nppc, batch, IMAGE_STEPS,
+                              "unet NPPC training, 5 directions", card)
+    _profile(lambda: nppc.train_step(batch),
+             f"image NPPC training step, batch {IMAGE_BATCH}, 5 directions")
+    same = all(torch.equal(v, frozen[k]) for k, v in
+               trainer.model.wrapper.state_dict().items())
+    log(f"image NPPC: the frozen restoration net bit for bit unchanged: "
+        f"{same}")
+    check(same and all(p.grad is None for p in
+                       trainer.model.wrapper.parameters()),
+          "the frozen restoration net bit for bit unchanged, without "
+          "gradient")
+    score = nppc.benchmark(batch_size=IMAGE_BATCH)
+    check(0 <= score <= 1, f"NPPC benchmark (mean reconst_err) {score:.5f} "
+          f"in [0, 1]")
+    return ms, dm
+
+
+def _image_layouts(dev, dm, card):
+    """The restoration step at batch 64 and the res_unet step at batch 4 in
+    both layouts, NCHW (the port's) and channels-last (the trainer's
+    weights converted, so cuDNN convolves NHWC from the first conv on), in
+    the rounds of IMAGE_LAYOUTS on one card: the median ms of steps 2..n of
+    each round."""
+    from generative_audio_torch.models import (
+        ImageRestorationConfig, ImageRestorationModel)
+    from generative_audio_torch.train import ImageRestorationTrainer
+    size = IMAGE_LARGE_SIZE
+    large = _ImageModule((3, size, size), IMAGE_LARGE_BATCH, SEED + 90)
+    cases = {f"unet restoration, batch {IMAGE_BATCH}": (
+                 dm, "denoising_1", "unet", IMAGE_BATCH),
+             f"res_unet restoration, batch {IMAGE_LARGE_BATCH}": (
+                 large, "inpainting_2", "res_unet", IMAGE_LARGE_BATCH)}
+    readings = {}
+    for what, (module, distortion, net_type, n) in cases.items():
+        times = {"NCHW": [], "channels-last": []}
+        for layout in IMAGE_LAYOUTS:
+            model = ImageRestorationModel(ImageRestorationConfig(
+                distortion_type=distortion, net_type=net_type),
+                data_module=module)
+            _random_net(model.base_net, SEED + 96)
+            trainer = ImageRestorationTrainer(model.config, model=model,
+                                              seed=SEED, device=dev)
+            if layout == "channels-last":
+                trainer.state.model.to(memory_format=torch.channels_last)
+            batch = _x_batch(module, n)
+            _, median, _, _ = _timed_steps(
+                lambda: trainer.train_step(batch), IMAGE_LAYOUT_STEPS)
+            times[layout].append(median)
+            del trainer, model
+        readings[what] = times
+        log(f"layout, {what}: NCHW "
+            f"{' '.join(f'{t:.2f}' for t in times['NCHW'])} ms (median "
+            f"{statistics.median(times['NCHW']):.2f}), channels-last "
+            f"{' '.join(f'{t:.2f}' for t in times['channels-last'])} ms "
+            f"(median {statistics.median(times['channels-last']):.2f}) a "
+            f"step, each round's median of steps 2-{IMAGE_LAYOUT_STEPS}; on "
+            f"{card}")
+    torch.cuda.empty_cache()
+    return readings
+
+
+def _image_cli(dev, card):
+    """cli.train's image_restoration line with configs/image_restoration.yaml
+    (as JSON) for 4 steps with a benchmark every 2, then the image_nppc line
+    with configs/image_nppc.yaml over the first run's directory: latest/,
+    best/ and report.html with its grids for both."""
+    from generative_audio_torch.cli import train as train_cli
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        run = {**IMAGE_RUN, "benchmark_every": IMAGE_CLI_BENCHMARK}
+        cfgs = {"rest": {"line": "image_restoration",
+                         "checkpoint_dir": str(root / "rest"),
+                         "train": IMAGE_REST_TRAIN, "run": run},
+                "nppc": {"line": "image_nppc",
+                         "checkpoint_dir": str(root / "nppc"),
+                         "restoration_checkpoint": str(root / "rest"),
+                         "restoration": {k: IMAGE_REST_TRAIN[k] for k in (
+                             "dataset", "distortion_type", "net_type")},
+                         "train": IMAGE_NPPC_TRAIN, "run": run}}
+        walls = {}
+        trainers = {}
+        for name, cfg in cfgs.items():
+            (root / f"{name}.json").write_text(json.dumps(cfg, indent=1))
+            t0 = time.perf_counter()
+            trainers[name] = train_cli.main(
+                ["-C", str(root / f"{name}.json"), "--steps",
+                 str(IMAGE_CLI_STEPS)])
+            walls[name] = time.perf_counter() - t0
+        latest = torch.load(root / "rest" / "latest.pt", map_location="cpu",
+                            weights_only=True)["params"]
+        frozen = trainers["nppc"].restoration_model.wrapper.state_dict()
+        from_latest = all(torch.equal(frozen[k].cpu(), v)
+                          for k, v in latest.items())
+        files = {}
+        for name, grids in (("rest", 3), ("nppc", 1)):
+            d = root / name
+            html = (d / "report.html").read_text()
+            files[name] = (sorted(p.name for p in d.iterdir()),
+                           html.count("data:image/png;base64,"))
+            check((d / "latest.pt").exists() and (d / "best.pt").exists()
+                  and files[name][1] == grids and "<svg" in html,
+                  f"the {name} run wrote latest.pt, best.pt and report.html "
+                  f"with {grids} image grid(s) and its SVG curve")
+    rest, nppc = trainers["rest"], trainers["nppc"]
+    log(f"image CLI, {IMAGE_CLI_STEPS} steps at batch {run['batch_size']}, a "
+        f"benchmark every {IMAGE_CLI_BENCHMARK}: restoration losses "
+        f"{[round(v, 5) for v in rest.loss_history]} (best "
+        f"{rest.best_score:.5f}), {walls['rest']:.1f} s; NPPC objectives "
+        f"{[round(v, 5) for v in nppc.loss_history]} (best "
+        f"{nppc.best_score:.5f}), {walls['nppc']:.1f} s; the frozen net is "
+        f"the restoration run's latest: {from_latest}; files {files}; on "
+        f"{card}")
+    check(rest.state.step == nppc.state.step == IMAGE_CLI_STEPS
+          and np.isfinite(rest.loss_history + nppc.loss_history).all(),
+          "both image lines ran their steps, finite losses")
+    check(from_latest, "image_nppc froze the restoration run's latest")
+
+
+def phase_image(dev):
+    """Phase 19: the image-NPPC line. No scan kernel is on its path: every
+    count of ops.lstm.launch_counts stays 0 through phase 19."""
+    from generative_audio_torch.data import MNISTDataModule
+    from generative_audio_torch.ops import lstm as L
+    t_phase = time.perf_counter()
+    card = card_line()
+    L.reset_launch_counts()
+    mnist = MNISTDataModule()
+    x = torch.from_numpy(_x_batch(mnist, IMAGE_BATCH))
+    _image_card_vs_cpu(dev, "unet restoration + unet NPPC, denoising_1, "
+                       f"{IMAGE_BATCH} x 1 x 28 x 28",
+                       lambda: _image_pair(mnist, "denoising_1", "unet",
+                                           "none", SEED + 97), x, SEED)
+    large = _image_large(dev, card)
+    ms, dm = _image_training(dev, card)
+    layouts = _image_layouts(dev, dm, card)
+    _image_cli(dev, card)
+    launched = {k: v for k, v in L.launch_counts.items() if v}
+    log(f"scan kernel launches in phase 19: {launched or 0}")
+    check(not launched, "no scan kernel launched on the image line")
+    log(f"phase 19: {json.dumps({'ms_per_step': {**ms, **large}, 'layouts_ms': layouts})}")
+    log(f"phase 19: {time.perf_counter() - t_phase:.2f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5491,6 +6017,7 @@ def main():
     phase_inpainting(dev)
     for name, launched in phase_item5(dev).items():
         counts[name] += launched
+    phase_image(dev)
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 

@@ -1,13 +1,16 @@
 """PyTorch/CUDA port of generative_audio_tpu: FullSubNet+ serving and training,
-and the denoising and inpainting NPPC lines.
+the denoising and inpainting NPPC lines, and the image restoration and
+image NPPC lines.
 
 The layout follows the JAX package: `ops/` (STFT, masks, norms, sub-band ops and the
 LSTM scan wrappers with their autograd Function), `nn/` (TSSE, TCN, sequence models,
-the inpainting UNets), `models/` (FullSubNet+, the NPPC models), `losses.py`, `train/`
-(optimizer state, checkpoints, the enhancement, restoration and NPPC trainers),
-`eval/` (the Inferencer, metrics, the validator), `utils/`
+the inpainting UNets, the image nets), `models/` (FullSubNet+, the NPPC models, the
+image restoration and image NPPC models), `losses.py`, `train/`
+(optimizer state, checkpoints, the enhancement, restoration, NPPC and image trainers),
+`eval/` (the Inferencer, metrics, the validators, the transcription hooks), `utils/`
 (device choice, weight conversion both ways, config, logging, tracking, the report),
-`data/` (audio I/O, mixing, datasets, the batch loader, the native audio binding),
+`data/` (audio I/O, mixing, datasets, the image datasets, the batch loader, the
+LibriSpeech downloader, the native audio binding),
 `cli/` (inference, training, validation, metrics, corpus tools) and `csrc/` (the CUDA
 kernels, built with nvcc at first use).
 

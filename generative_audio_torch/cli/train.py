@@ -4,7 +4,7 @@
         [-R] [--steps N] [--epochs N] [--device cpu]
 
 Port of generative_audio_tpu/cli/train.py. The config's `line` picks the
-model line; the port trains four. The `enhance` line (FullSubNet+ or
+model line; the port trains all six. The `enhance` line (FullSubNet+ or
 FullSubNet v1, `train:` is the EnhanceTrainConfig) is wired as the JAX CLI
 wires it:
 DNSTrainDataset when `data:` names a `clean_dataset` scp (the DNS regime),
@@ -35,13 +35,26 @@ JAX CLI trains over a random UNet without a word. Without the key the
 frozen UNet keeps its seeded init, as in the JAX CLI. The line takes no
 `validation:` block (a ValueError). The inpainting datasets draw from the
 loader's `seed` where `data.seed` is not set.
+The image lines take no `data:`, `dataloader:` or `validation:` block (a
+ValueError; the JAX CLI ignores them): their trainers own the data module,
+as in the JAX CLI (make_data_module of
+`train.dataset`, synthetic digits for mnist, since no data folder is
+passed), and `run:` gives n_steps (1000 by default), batch_size (32) and
+benchmark_every. The `image_restoration` line (`train:` is the
+ImageRestorationConfig) trains ImageRestorationTrainer; the `image_nppc`
+line (`train:` is the ImageNPPCConfig, `restoration:` the
+ImageRestorationConfig of the frozen model) trains ImageNPPCTrainer over the
+latest/ of `restoration_checkpoint`, as the JAX CLI does; a named directory
+without latest.pt raises, where the JAX CLI trains over a random restoration
+net without a word. Without the key the frozen net keeps its seeded init.
+The image lines do not resume: `-R` raises for them (the JAX CLI ignores it).
 `--epochs` (default 1) counts passes over the loader; `--steps N` makes each
-epoch N steps, looping the loader (LoopIterator). `--device` is `cuda`
-(default; raises without a CUDA device) or `cpu`.
+epoch N steps, looping the loader (LoopIterator); for the image lines it is
+the number of steps. `--device` is `cuda` (default; raises without a CUDA
+device) or `cpu`.
 
-The image lines (image_restoration, image_nppc) and `--distributed` raise
-NotImplementedError until their slices are ported (ROADMAP.md, queue A
-items 6 and 9).
+`--distributed` raises NotImplementedError until multi-GPU training is
+ported (ROADMAP.md, queue A item 6).
 """
 from __future__ import annotations
 
@@ -53,10 +66,6 @@ from generative_audio_torch.utils.config import (
 from generative_audio_torch.utils.logging import get_logger
 
 __all__ = ["main", "nppc_denoising_config", "restoration_checkpoint"]
-
-# the JAX CLI's other lines, and the item of ROADMAP.md's queue A that
-# ports each
-_UNPORTED_LINES = {"image_restoration": 9, "image_nppc": 9}
 
 
 def nppc_denoising_config(train):
@@ -205,11 +214,61 @@ def _train_nppc_inpainting(args, raw, data_cfg, loader_cfg, checkpoint_dir,
     return trainer
 
 
-# each ported line: (its run, the loader's default global_batch_size)
+def _run_image(args, raw, trainer, log):
+    if args.resume:
+        raise ValueError("the image lines do not resume (-R)")
+    run = raw.get("run", {})
+    trainer.train(n_steps=args.steps or run.get("n_steps", 1000),
+                  batch_size=run.get("batch_size", 32),
+                  benchmark_every=run.get("benchmark_every"), log=log)
+    return trainer
+
+
+def _train_image_restoration(args, raw, data_cfg, loader_cfg, checkpoint_dir,
+                             device, log):
+    from generative_audio_torch.models import ImageRestorationConfig
+    from generative_audio_torch.train import ImageRestorationTrainer
+    cfg = build_dataclass(ImageRestorationConfig, raw.get("train"))
+    return _run_image(args, raw, ImageRestorationTrainer(
+        cfg, checkpoint_dir=checkpoint_dir, device=device), log)
+
+
+def _train_image_nppc(args, raw, data_cfg, loader_cfg, checkpoint_dir,
+                      device, log):
+    import torch
+    from generative_audio_torch.models import (
+        ImageNPPCConfig, ImageRestorationConfig, ImageRestorationModel)
+    from generative_audio_torch.train import (
+        CheckpointManager, ImageNPPCTrainer)
+    rest_cfg = build_dataclass(ImageRestorationConfig, raw.get("restoration"))
+    # the JAX CLI initialises the frozen net from PRNGKey(0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        rest_model = ImageRestorationModel(rest_cfg)
+    rest_vars = None
+    rest_ckpt = raw.get("restoration_checkpoint")
+    if rest_ckpt:
+        tree = (CheckpointManager(rest_ckpt).restore("latest")
+                if Path(rest_ckpt).is_dir() else None)
+        if tree is None:
+            raise FileNotFoundError(
+                f"restoration_checkpoint {rest_ckpt} holds no latest.pt")
+        rest_vars = tree["params"]
+        log(f"frozen restoration net: latest of {rest_ckpt}")
+    trainer = ImageNPPCTrainer(
+        build_dataclass(ImageNPPCConfig, raw.get("train")), rest_model,
+        rest_vars, checkpoint_dir=checkpoint_dir, device=device)
+    return _run_image(args, raw, trainer, log)
+
+
+# each line: (its run, the loader's default global_batch_size; None for
+# the image lines, which take no loader)
 _LINES = {"enhance": (_train_enhance, 18),
           "nppc_denoising": (_train_nppc_denoising, 8),
           "restoration": (_train_restoration, 16),
-          "nppc_inpainting": (_train_nppc_inpainting, 16)}
+          "nppc_inpainting": (_train_nppc_inpainting, 16),
+          "image_restoration": (_train_image_restoration, None),
+          "image_nppc": (_train_image_nppc, None)}
 
 
 def main(argv=None):
@@ -234,17 +293,20 @@ def main(argv=None):
 
     raw = load_config_file(args.configuration)
     line = raw.pop("line")
-    if line in _UNPORTED_LINES:
-        raise NotImplementedError(
-            f"training line {line!r} is not ported yet (ROADMAP.md, queue A "
-            f"item {_UNPORTED_LINES[line]})")
     if line not in _LINES:
         raise ValueError(f"Unknown training line {line!r}")
     run, batch_size = _LINES[line]
     checkpoint_dir = raw.pop("checkpoint_dir", "checkpoints")
-    data_cfg = raw.pop("data")
-    loader_cfg = {"global_batch_size": batch_size,
-                  **raw.pop("dataloader", {})}
+    if batch_size is None:      # the image lines own their data
+        extra = sorted({"data", "dataloader", "validation"} & set(raw))
+        if extra:
+            raise ValueError(f"the {line} line takes no {', '.join(extra)} "
+                             f"block: its trainer owns the data module")
+        data_cfg, loader_cfg = None, None
+    else:
+        data_cfg = raw.pop("data")
+        loader_cfg = {"global_batch_size": batch_size,
+                      **raw.pop("dataloader", {})}
 
     from generative_audio_torch.utils.device import resolve_device
     return run(args, raw, data_cfg, loader_cfg, checkpoint_dir,

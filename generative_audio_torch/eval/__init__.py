@@ -1,7 +1,8 @@
 """Evaluation: the metrics registry, the validator, the Inferencer, the
 StreamingEnhancer, the NPPC validators of both lines, the restoration
-validator, the MC-dropout baseline, the pitch tracker and MOSNet. Nothing
-here starts CUDA at import."""
+validator, the MC-dropout baseline, the pitch tracker, MOSNet and the
+transcription hooks. Nothing here starts CUDA or imports transformers at
+import."""
 from generative_audio_torch.eval.inferencer import Inferencer, InferencerConfig  # noqa: F401
 from generative_audio_torch.eval.metrics import (  # noqa: F401
     ESTOI, MOSNET, NB_PESQ, REGISTERED_METRICS, SDR, SI_SDR, STOI, WB_PESQ,
@@ -19,4 +20,6 @@ from generative_audio_torch.eval.pitch import yin_pitch_track  # noqa: F401
 from generative_audio_torch.eval.restoration_validator import (  # noqa: F401
     RestorationValidator, RestorationValidatorConfig)
 from generative_audio_torch.eval.streaming import StreamingEnhancer  # noqa: F401
+from generative_audio_torch.eval.transcription import (  # noqa: F401
+    make_phoneme_fn, make_whisper_transcribe_fn)
 from generative_audio_torch.eval.validator import ModelValidator  # noqa: F401

@@ -1,6 +1,7 @@
 """Carry the JAX package's FullSubNet+ (every attention kind and sub-band
-fold), FullSubNet, denoising-NPPC, inpainting (UNet), ComplexSequenceModel,
-causal conv block and MOSNet params into the port's state_dict, and back.
+fold), FullSubNet, denoising-NPPC, inpainting (UNet), image-net (ImageUNet,
+ResUNet, ResCNN), ComplexSequenceModel, causal conv block and MOSNet params
+into the port's state_dict, and back.
 
 The input is the nested dict of arrays that `model.init(...)["params"]` of
 generative_audio_tpu's FullSubNetPlus or FullSubNet gives (numpy or anything
@@ -45,17 +46,20 @@ __all__ = ["convert_attention", "convert_attention_tsse",
            "convert_causal_conv_block", "convert_causal_trans_conv_block",
            "convert_complex_sequence_model", "convert_deep_tsse",
            "convert_denoising_nppc", "convert_fullsubnet",
-           "convert_fullsubnet_plus", "convert_inpainting_nppc",
+           "convert_fullsubnet_plus", "convert_image_net",
+           "convert_image_unet", "convert_inpainting_nppc",
            "convert_inpainting_restoration", "convert_mosnet",
-           "convert_multidirection", "convert_self_attention",
+           "convert_multidirection", "convert_res_cnn", "convert_res_unet",
+           "convert_self_attention", "image_net_leaves",
            "convert_sequence_model", "convert_tcn_block", "convert_tsse",
            "convert_unet",
            "convert_unet2", "random_denoising_nppc_params",
            "random_complex_sequence_params", "random_fullsubnet_params",
-           "random_fullsubnet_plus_params",
+           "random_fullsubnet_plus_params", "random_image_net_params",
            "random_inpainting_nppc_params", "random_mosnet_params",
            "random_unet_params",
-           "to_jax_fullsubnet", "to_jax_fullsubnet_plus", "to_jax_unet"]
+           "to_jax_fullsubnet", "to_jax_fullsubnet_plus", "to_jax_image_net",
+           "to_jax_unet"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -694,3 +698,215 @@ def random_mosnet_params(config, seed: int = 0) -> Dict[str, Any]:
     params["dense1"] = _random_dense(rng, 2 * h, config.dense_units)
     params["frame"] = _random_dense(rng, config.dense_units, 1)
     return params
+
+
+# ------------------------------------------------------------- image nets --
+# Each image net's params as leaves (JAX path, state-dict prefix, kind,
+# optional): kind "conv" is a Conv2d ({kernel, bias} <-> weight, bias),
+# "gn" a GroupNorm ({scale, bias} <-> weight, bias), "qkv" and "proj" the
+# attention's 1x1 Conv1d as a Dense ({kernel} <-> weight [O, I, 1], and the
+# bias for "proj"); an optional leaf is the ResBlock's shortcut, present
+# where its channels change. The index arithmetic is that of
+# generative_audio_tpu/utils/torch_convert.py:222-391.
+def _res_leaves(path, prefix):
+    return [(path + ("conv1",), f"{prefix}.block.base.0", "conv", False),
+            (path + ("norm1",), f"{prefix}.block.base.1", "gn", False),
+            (path + ("conv2",), f"{prefix}.block.base.3", "conv", False),
+            (path + ("norm2",), f"{prefix}.block.base.4", "gn", False),
+            (path + ("shortcut",), f"{prefix}.block.shortcut", "conv", True)]
+
+
+def _attn_leaves(path, prefix):
+    return [(path + ("conv_in",), f"{prefix}.conv_in", "qkv", False),
+            (path + ("conv_out",), f"{prefix}.conv_out", "proj", False)]
+
+
+def _upscale_leaves(net, prefix, first):
+    """The upscale convs at `first`, `first` + 2, ...; and the index after
+    them."""
+    n = int(np.log2(net.upscale_factor))
+    return ([((f"upscale_{fi}",), f"{prefix}.{first + 2 * fi}", "conv", False)
+             for fi in range(n)], first + 2 * n)
+
+
+def image_net_leaves(net):
+    """The leaves of an ImageUNet, ResUNet or ResCNN of either package
+    (the fields channels_list, downsample_list, attn_list, n_blocks,
+    n_blocks_bottleneck, upscale_factor are read)."""
+    kind = type(net).__name__
+    if kind == "ImageUNet":
+        leaves = [(("in_conv",), "encoder_blocks.0.0", "conv", False)]
+        for i, down in enumerate(net.downsample_list):
+            for j in range(net.n_blocks):
+                at, k = f"encoder_blocks.{1 + i}", int(down) + 3 * j
+                leaves += [((f"enc_{i}_{j}", "conv"), f"{at}.{k}", "conv",
+                            False),
+                           ((f"enc_{i}_{j}", "norm"), f"{at}.{k + 1}", "gn",
+                            False)]
+        for j in range(net.n_blocks_bottleneck):
+            leaves += [((f"bottleneck_{j}", "conv"), f"bottleneck.{3 * j}",
+                        "conv", False),
+                       ((f"bottleneck_{j}", "norm"), f"bottleneck.{3 * j + 1}",
+                        "gn", False)]
+        n_levels = len(net.channels_list)
+        for idx in range(n_levels):
+            for j in range(net.n_blocks):
+                at = f"decoder_blocks.{idx}"
+                leaves += [((f"dec_{idx}_{j}", "conv"), f"{at}.{3 * j}",
+                            "conv", False),
+                           ((f"dec_{idx}_{j}", "norm"), f"{at}.{3 * j + 1}",
+                            "gn", False)]
+        ups, k = _upscale_leaves(net, f"decoder_blocks.{n_levels}", 0)
+        return leaves + ups + [(("out_conv",), f"decoder_blocks.{n_levels}.{k}",
+                                "conv", False)]
+    if kind == "ResUNet":
+        leaves = [(("in_conv",), "encoder_blocks.0.0", "conv", False)]
+        enc = 1
+        for i, (down, attn) in enumerate(zip(net.downsample_list,
+                                             net.attn_list)):
+            if down:
+                leaves.append(((f"down_{i}",), f"encoder_blocks.{enc}.0",
+                               "conv", False))
+                enc += 1
+            for j in range(net.n_blocks):
+                leaves += _res_leaves((f"enc_{i}_{j}",),
+                                      f"encoder_blocks.{enc}.0")
+                if attn:
+                    leaves += _attn_leaves((f"enc_attn_{i}_{j}",),
+                                           f"encoder_blocks.{enc}.1")
+                enc += 1
+        leaves += (_res_leaves(("bottleneck_res1",), "bottleneck.0")
+                   + _attn_leaves(("bottleneck_attn",), "bottleneck.1")
+                   + _res_leaves(("bottleneck_res2",), "bottleneck.2"))
+        dec = 0
+        for i in reversed(range(len(net.channels_list))):
+            attn = net.attn_list[i]
+            for j in range(net.n_blocks):
+                leaves += _res_leaves((f"dec_{i}_{j}",),
+                                      f"decoder_blocks.{dec}.0")
+                if attn:
+                    leaves += _attn_leaves((f"dec_attn_{i}_{j}",),
+                                           f"decoder_blocks.{dec}.1")
+                dec += 1
+            if net.downsample_list[i]:
+                leaves += _res_leaves((f"up_res_{i}",),
+                                      f"decoder_blocks.{dec}.0")
+                if attn:
+                    leaves += _attn_leaves((f"up_attn_{i}",),
+                                           f"decoder_blocks.{dec}.1")
+                leaves.append(((f"up_conv_{i}",),
+                               f"decoder_blocks.{dec}.{3 if attn else 2}",
+                               "conv", False))
+                dec += 1
+        final = f"decoder_blocks.{dec}"
+        leaves += _res_leaves(("out_res",), f"{final}.0")
+        leaves.append((("out_norm",), f"{final}.1", "gn", False))
+        ups, k = _upscale_leaves(net, final, 3)
+        return leaves + ups + [(("out_conv",), f"{final}.{k}", "conv", False)]
+    if kind == "ResCNN":
+        leaves = [(("in_conv",), "net.0", "conv", False)]
+        for i in range(net.n_blocks):
+            leaves += [((f"block_{i}_conv1",), f"net.{1 + i}.base.0", "conv",
+                        False),
+                       ((f"block_{i}_conv2",), f"net.{1 + i}.base.2", "conv",
+                        False)]
+        leaves.append((("mid_conv",), f"net.{1 + net.n_blocks}", "conv", False))
+        # net.{n + 2} is the empty ShortcutBlock: it holds no params
+        ups, k = _upscale_leaves(net, "net", 3 + net.n_blocks)
+        return leaves + ups + [(("out_conv",), f"net.{k}", "conv", False)]
+    raise TypeError(f"not an image net: {kind}")
+
+
+def convert_image_net(params: Mapping, net, prefix: str = "") -> StateDict:
+    """The JAX params of an image net ({"params": ...} or the tree inside
+    it) -> the port's state_dict under `prefix`. `net` is the net of either
+    package (its fields lay out the names). The inverse of
+    generative_audio_tpu/utils/torch_convert.convert_image_unet,
+    convert_res_unet and convert_res_cnn."""
+    params = params.get("params", params)
+    sd: StateDict = {}
+    for path, key, kind, optional in image_net_leaves(net):
+        if optional and path[0] in params and path[-1] not in _node(
+                params, path[:-1]):
+            continue
+        p = _node(params, path)
+        key = prefix + key
+        if kind == "conv":
+            sd.update(_conv2d(p, key))
+        elif kind == "gn":
+            sd[f"{key}.weight"], sd[f"{key}.bias"] = (_t(p["scale"]),
+                                                      _t(p["bias"]))
+        else:
+            sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None])
+            if kind == "proj":
+                sd[f"{key}.bias"] = _t(p["bias"])
+    return sd
+
+
+def convert_image_unet(params: Mapping, net, prefix: str = "") -> StateDict:
+    """image_nets.ImageUNet params -> the port's ImageUNet state_dict."""
+    return convert_image_net(params, net, prefix)
+
+
+def convert_res_unet(params: Mapping, net, prefix: str = "") -> StateDict:
+    """image_nets.ResUNet params -> the port's ResUNet state_dict."""
+    return convert_image_net(params, net, prefix)
+
+
+def convert_res_cnn(params: Mapping, net, prefix: str = "") -> StateDict:
+    """image_nets.ResCNN params -> the port's ResCNN state_dict."""
+    return convert_image_net(params, net, prefix)
+
+
+def to_jax_image_net(named: Mapping[str, Any], net,
+                     prefix: str = "") -> Dict[str, Any]:
+    """The port's image-net tensors by state-dict name under `prefix`
+    (parameters, or their gradients) -> {"params": ...} of float32 numpy
+    arrays in the JAX layout; names absent from `named` are left out. The
+    inverse of convert_image_net."""
+    def get(key):
+        value = named.get(prefix + key)
+        if isinstance(value, torch.Tensor):
+            value = value.detach().float().cpu().numpy()
+        return None if value is None else np.asarray(value, np.float32)
+
+    params: Dict[str, Any] = {}
+    for path, key, kind, _ in image_net_leaves(net):
+        w, b = get(f"{key}.weight"), get(f"{key}.bias")
+        if w is None and b is None:
+            continue
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        if w is not None:
+            node["scale" if kind == "gn" else "kernel"] = np.ascontiguousarray(
+                w.transpose(2, 3, 1, 0) if kind == "conv" else
+                w if kind == "gn" else w[:, :, 0].T)
+        if b is not None:
+            node["bias"] = b
+    return {"params": params}
+
+
+def random_image_net_params(net, seed: int = 0) -> Dict[str, Any]:
+    """Random params of the port's image net `net` in the JAX layout
+    ({"params": ...}), made with numpy from `seed`: conv and attention
+    kernels and biases uniform in +/-1/sqrt(fan_in) as torch initialises
+    them, GroupNorm scales 1 + u and biases u with u uniform in +/-0.1, so
+    that a swap of the two shows."""
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    sd = {}
+    for _, key, kind, optional in image_net_leaves(net):
+        w = f"{key}.weight"
+        if optional and w not in shapes:
+            continue
+        if kind == "gn":
+            sd[w] = (1 + rng.uniform(-0.1, 0.1, shapes[w])).astype(np.float32)
+            sd[f"{key}.bias"] = rng.uniform(-0.1, 0.1, shapes[w]).astype(
+                np.float32)
+            continue
+        fan_in = int(np.prod(shapes[w][1:]))
+        sd[w] = _uniform(rng, shapes[w], fan_in)
+        if kind != "qkv":
+            sd[f"{key}.bias"] = _uniform(rng, shapes[w][:1], fan_in)
+    return to_jax_image_net(sd, net)

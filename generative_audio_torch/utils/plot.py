@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["GAP", "heatmap", "write_png", "compose", "line_plot",
+__all__ = ["GAP", "heatmap", "png_bytes", "write_png", "compose", "line_plot",
            "bar_chart", "plot_alignment", "plot_spectrogram",
            "plot_waveform", "spectrogram_figure"]
 
@@ -34,22 +34,28 @@ _PALETTE = np.array([[31, 119, 180], [255, 127, 14], [44, 160, 44],
                      [23, 190, 207]], np.uint8)
 
 
-def write_png(path, rgb: np.ndarray) -> Path:
-    """uint8 [H, W, 3] -> an 8-bit RGB PNG (filter 0 on every row)."""
-    h, w, _ = rgb.shape
+def png_bytes(pixels: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] (RGB) or [H, W] (gray) -> the bytes of an 8-bit PNG
+    (filter 0 on every row)."""
+    h, w = pixels.shape[:2]
+    color = 2 if pixels.ndim == 3 else 0
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(rgb, np.uint8).reshape(h, -1)],
+                           np.ascontiguousarray(pixels, np.uint8).reshape(h, -1)],
                           axis=1)
-    Path(path).write_bytes(
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
-        + chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, rgb: np.ndarray) -> Path:
+    """uint8 [H, W, 3] -> an 8-bit RGB PNG file (png_bytes)."""
+    Path(path).write_bytes(png_bytes(rgb))
     return Path(path)
 
 

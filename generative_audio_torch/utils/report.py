@@ -5,12 +5,14 @@ log_html :803-917): one HTML file with loss curves and a metric table. The
 JAX module draws its curves with matplotlib into base64 PNGs; this one draws
 each series as an inline SVG polyline in plain Python, so the report needs
 numpy alone. Same sections, the same log-y rule and the same (step, value)
-pairs for the validation overlay. The image-grid section (img_to_png_base64,
-add_image_grid) waits for the image-NPPC line (ROADMAP.md, queue A item 9);
-imgs_to_grid, which it tiles with, is here.
+pairs for the validation overlay. The image grids (imgs_to_grid,
+img_to_png_base64, add_image_grid) are base64 PNGs written with
+utils/plot.py's zlib writer, gray where the image has one channel, as PIL
+writes the JAX module's: the same pixels without PIL.
 """
 from __future__ import annotations
 
+import base64
 import html
 import time
 from pathlib import Path
@@ -18,7 +20,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["imgs_to_grid", "HTMLReport", "write_training_report"]
+__all__ = ["imgs_to_grid", "img_to_png_base64", "HTMLReport",
+           "write_training_report"]
 
 _COLORS = ("#1f77b4", "#ff7f0e", "#2ca02c", "#d62728", "#9467bd",
            "#8c564b", "#e377c2", "#7f7f7f")
@@ -40,6 +43,19 @@ def imgs_to_grid(imgs: np.ndarray, nrow: Optional[int] = None,
         y, x = pad + r * (h + pad), pad + col * (w + pad)
         grid[:, y:y + h, x:x + w] = imgs[i]
     return grid
+
+
+def img_to_png_base64(img: np.ndarray) -> str:
+    """[C, H, W] (C = 1 or 3) or [H, W] float in [0, 1] -> a base64 PNG
+    string, gray for one channel (ref auxil.py:180-207)."""
+    from generative_audio_torch.utils.plot import png_bytes
+    img = np.asarray(img)
+    if img.ndim == 3:
+        img = np.transpose(img, (1, 2, 0))
+        if img.shape[-1] == 1:
+            img = img[..., 0]
+    arr = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    return base64.b64encode(png_bytes(arr)).decode("ascii")
 
 
 def _points(ys) -> Tuple[np.ndarray, np.ndarray]:
@@ -147,6 +163,15 @@ class HTMLReport:
             f"<h2>{html.escape(name)}</h2>"
             + _svg_curves(series, xlabel, ylabel, logy))
 
+    def add_image_grid(self, name: str, imgs: np.ndarray,
+                       nrow: Optional[int] = None):
+        """[N, C, H, W] in [0, 1] tiled into one PNG grid, `nrow` a row."""
+        grid = imgs_to_grid(np.asarray(imgs), nrow=nrow)
+        self._sections.append(
+            f"<h2>{html.escape(name)}</h2>"
+            f'<img src="data:image/png;base64,{img_to_png_base64(grid)}"'
+            f' style="image-rendering: pixelated; min-width: 40%"/>')
+
     def add_html(self, fragment: str):
         self._sections.append(fragment)
 
@@ -160,7 +185,7 @@ class HTMLReport:
  body {{ font-family: sans-serif; margin: 2em; background: #fafafa; }}
  table {{ border-collapse: collapse; }}
  td {{ border: 1px solid #ccc; padding: 4px 10px; }}
- svg {{ max-width: 100%; }}
+ svg, img {{ max-width: 100%; }}
  h2 {{ border-bottom: 1px solid #ddd; }}
 </style></head><body>
 <h1>{html.escape(self.title)}</h1>

@@ -172,18 +172,17 @@ def test_train_cli_loss_history_equals_trainer(tmp_path, corpus, steps,
     ("restoration", 8), ("nppc_inpainting", 8),
     ("image_restoration", 9), ("image_nppc", 9), ("distributed", 6)])
 def test_train_cli_unported_raise(tmp_path, corpus, line, item):
-    """The lines still to port (and --distributed) raise naming their item
-    of ROADMAP.md's queue A. Item 8's two lines are ported: they pass that
-    gate and refuse this enhance-line config in their own way (the
-    restoration line's dataset has no noisy_path, the nppc_inpainting line
-    takes no validation: block)."""
+    """--distributed, still to port, raises naming its item of ROADMAP.md's
+    queue A. Items 8 and 9's lines are ported: they refuse this enhance-line
+    config in their own way (the restoration line's dataset has no
+    noisy_path, the nppc_inpainting line takes no validation: block, the
+    image lines take no data: block)."""
     if line == "distributed":
         argv = ["-C", str(_config(tmp_path, corpus)), "--distributed"]
     else:
         argv = ["-C", str(_config(tmp_path, corpus, line=line))]
-    if item == 8:
-        assert line not in train_cli._UNPORTED_LINES
-        with pytest.raises(ValueError, match="noisy_path|validation"):
+    if item in (8, 9):
+        with pytest.raises(ValueError, match="noisy_path|validation|no data"):
             train_cli.main(argv + ["--device", "cpu"])
         return
     with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
