@@ -245,14 +245,32 @@ of which fails the run (non-zero exit, no result line):
      over the first run's latest, both writing latest.pt, best.pt and
      report.html with its image grids. No scan kernel is on this path:
      every launch count stays 0 through phase 19.
+ 20. multi-GPU training on the one card, each part through cli.launch
+     running this script's --phase20 mode as the ranks: (a) NCCL, a world
+     of one: three DDP steps of EnhanceTrainer at EnhanceTrainConfig()'s
+     full width (18 x 3.072 s, bf16) bit for bit against three plain
+     steps on the same seeded weights and batch, with exact launches and
+     the ms of each step beside phase 6's, then cli.train's enhance line
+     on phase 15's corpus for 2 steps and -R (latest_step.json 2, then 4);
+     (b) gloo, 2 ranks sharing the card, 9 rows each of the global batch
+     of 18 (rank 1's first row in drop_band group 1): the step-1 loss and
+     the averaged gradient (cosine, norm) against one process on the card,
+     exactly 2 C and 2 D a step on each rank; (c) gloo, 2 ranks: the
+     restoration line at configs/inpainting_*.yaml's width, batch 128 (64
+     a rank), strict float32, two steps: losses and BatchNorm running
+     statistics against one process. The ranks' C and D launches add to
+     the kernels line's.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
 path of phase 16 and phase 18's model paths (whose launches add to kernel
 A's, in phases 14-16 to kernel B's too, in phases 15-16 and 18 to kernels
-C's and D's, and in phase 18 to the GRU kernels'). The second-to-last line of stdout is
+C's and D's, and in phase 18 to the GRU kernels'), and in each rank of
+phase 20 around each DDP step and each cli.train run (whose launches add to
+kernels C's and D's). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
-CUDA device.
+CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
+20, run by cli.launch.
 """
 import contextlib
 import dataclasses
@@ -3516,13 +3534,13 @@ def _instrumented_trainer(steps, validations, restores):
     make_step, validate = E.make_enhance_train_step, E.EnhanceTrainer.validate
     restore = E.EnhanceTrainer.restore_latest
 
-    def make_timed(config, accum_steps=1):
-        step = make_step(config, accum_steps)
+    def make_timed(config, accum_steps=1, net=None):
+        step = make_step(config, accum_steps, net)
 
-        def timed(state, noisy, clean):
+        def timed(state, noisy, clean, global_rows=None):
             t0 = time.perf_counter()
             before = dict(L.launch_counts)
-            state, loss = step(state, noisy, clean)
+            state, loss = step(state, noisy, clean, global_rows)
             torch.cuda.synchronize()
             steps.append({"start": t0, "end": time.perf_counter(),
                           "step": state.step, "loss": loss.item(),
@@ -5937,7 +5955,341 @@ def phase_image(dev):
     log(f"phase 19: {time.perf_counter() - t_phase:.2f} s")
 
 
+# ------------------------------------------------------------- phase 20 --
+# Multi-GPU training on the one card. (a) NCCL, a world of one, through
+# cli.launch: DDP_STEPS DDP steps of EnhanceTrainer at EnhanceTrainConfig()'s
+# full width, bit for bit the plain trainer's on the same seeded weights and
+# batch, then cli.train's enhance line on phase 15's corpus for
+# DDP_CLI_STEPS steps and -R. (b) gloo, 2 ranks sharing the card, the
+# global batch of 18 (9 rows a rank: rank 1's first row is global row 9,
+# drop_band group 1): the first step's global loss and the averaged
+# gradient against one process on the card. (c) gloo, 2 ranks: the
+# restoration line at configs/inpainting_*.yaml's width (batch 128, 64 a
+# rank), strict float32: DDP_REST_STEPS steps, the BatchNorm running
+# statistics and the losses against one process.
+# (b)'s limits: bf16 at other row counts per launch (9 rows of the
+# sub-band LSTM's batch against 18) may sum in another order. Measured on
+# an NVIDIA H100 80GB HBM3, 700.00 W (first run): (b) step-1 loss 2.13e-7
+# relative, cosine 0.999998, norm 4.08e-4; (c) losses 2.17e-5 relative,
+# running statistics 6.71e-5.
+DDP_STEPS, DDP_CLI_STEPS, DDP_REST_STEPS = 3, 2, 2
+DDP_LOSS_REL, DDP_GRAD_COS, DDP_GRAD_NORM_REL = 5e-3, 0.99, 0.05
+DDP_BN_ABS, DDP_REST_LOSS_REL = 5e-4, 1e-4
+DDP_TIMEOUT = 600          # seconds for a launch, its ranks included
+DDP_BATCH_SEED, DDP_REST_SEED = SEED + 20, SEED + 34
+
+
+def _ddp_launch(part, out, nprocs, backend, per_device=1):
+    """cli.launch of this script's `--phase20 part out` in a session of its
+    own (so that a launch past its time is killed whole); returns the
+    Popen, its output going to out/part.log."""
+    import os
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "generative_audio_torch.cli.launch",
+           "--nprocs", str(nprocs), "--backend", backend]
+    if per_device > 1:
+        cmd += ["--ranks-per-device", str(per_device)]
+    cmd += ["--", sys.executable, str(root / "chip_smoke.py"), "--phase20",
+            part, str(out)]
+    env = dict(os.environ, GAT_TIMEOUT="300", PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    with open(out / f"{part}.log", "w") as f:
+        return subprocess.Popen(cmd, cwd=str(root), env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+
+def _ddp_wait(proc, out, part):
+    """Wait for a launch (killing its session past DDP_TIMEOUT); print its
+    output; fail on a non-zero exit."""
+    import os
+    import signal
+    try:
+        proc.wait(timeout=DDP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    text = (out / f"{part}.log").read_text()
+    for line in text.splitlines():
+        if "hostname of the client socket" not in line:
+            log(f"  [{part}] {line}")
+    check(proc.returncode == 0, f"phase 20 {part} launch exited 0 "
+          f"(got {proc.returncode})")
+
+
+def _ddp_step_counts(trainer, batch, steps, L):
+    """`steps` train_epoch calls on one batch: (losses, ms of each, the
+    launches of each)."""
+    losses, ms, launches = [], [], []
+    for _ in range(steps):
+        L.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_epoch([batch]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: v for k, v in L.launch_counts.items() if v})
+    return losses, ms, launches
+
+
+def _first_step_grads(trainer):
+    """The gradient apply_gradients finds at its first call (averaged over
+    the ranks under DDP), on the CPU in float64."""
+    grads = {}
+    apply = trainer.state.apply_gradients
+
+    def spy():
+        if not grads:
+            grads.update({k: p.grad.detach().double().cpu() for k, p in
+                          trainer.state.model.named_parameters()
+                          if p.grad is not None})
+        apply()
+    trainer.state.apply_gradients = spy
+    return grads
+
+
+def _strict_float32(trainer_module):
+    """The restoration trainer's convolutions in full float32 (its
+    train_step turns cuDNN's TF32 on)."""
+    import functools
+    from generative_audio_torch.utils.device import conv_tf32
+    return mock.patch.object(trainer_module, "conv_tf32",
+                             functools.partial(conv_tf32, False))
+
+
+def _restoration_trainer(dev, mesh=None):
+    from generative_audio_torch.train import (
+        RestorationTrainConfig, RestorationTrainer)
+    from generative_audio_torch.utils import convert
+    from generative_audio_torch.utils.config import build_dataclass
+    sd = convert.convert_inpainting_nppc(convert.random_inpainting_nppc_params(
+        _inpaint_config().model, seed=SEED + 30))
+    trainer = RestorationTrainer(
+        build_dataclass(RestorationTrainConfig, INPAINT_REST_TRAIN),
+        seed=SEED, device=dev, mesh=mesh)
+    trainer.state.model.load_state_dict(
+        {k[len("pretrained_restoration_model."):]: v for k, v in sd.items()
+         if k.startswith("pretrained_restoration_model.")})
+    return trainer
+
+
+def _restoration_steps(trainer):
+    """DDP_REST_STEPS strict float32 steps on the seeded batch: (the global
+    losses, the running statistics on the CPU)."""
+    from generative_audio_torch.parallel.mesh import mean_over_ranks
+    from generative_audio_torch.train import restoration
+    batch = _inpaint_batch(DDP_REST_SEED, INPAINT_BATCH)
+    with _strict_float32(restoration):
+        losses = [trainer.train_step(batch) for _ in range(DDP_REST_STEPS)]
+    losses = mean_over_ranks(torch.stack(losses), trainer.mesh).tolist()
+    stats = {k: v.detach().cpu() for k, v in
+             trainer.state.model.state_dict().items() if "running" in k}
+    return losses, stats
+
+
+def ddp_worker(part, out):
+    """A rank of phase 20's launches (run by cli.launch)."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.parallel import distributed as D
+    from generative_audio_torch.parallel import make_mesh
+    from generative_audio_torch.train import EnhanceTrainer
+    out = Path(out)
+    check(D.initialize(), "the launcher's environment starts the job")
+    dev = D.local_device("cuda")
+    mesh = make_mesh(device_type="cuda")
+    rank = D.process_index()
+    plus = model_paths()[0]
+    cfg = plus.train_config("bfloat16")
+    result = {"rank": rank, "world": D.process_count(),
+              "backend": torch.distributed.get_backend(), "device": str(dev)}
+    if part == "nccl":
+        from generative_audio_torch.cli import train as train_cli
+        batch = tuple(torch.from_numpy(x).to(dev) for x in
+                      _noise_batch(DDP_BATCH_SEED, TRAIN_BATCH,
+                                   TRAIN_SAMPLES))
+        runs = {}
+        for name, m in (("plain", None), ("ddp", mesh)):
+            trainer = EnhanceTrainer(cfg, seed=SEED,
+                                     pretrained_state_dict=plus.sd,
+                                     device=dev, mesh=m)
+            losses, ms, launches = _ddp_step_counts(trainer, batch,
+                                                    DDP_STEPS, L)
+            runs[name] = (losses, ms, launches, trainer.state.model)
+            result[name] = {"losses": losses, "ms": ms,
+                            "launches": launches,
+                            "net": type(trainer.net).__name__}
+        result["bitwise"] = (runs["plain"][0] == runs["ddp"][0] and all(
+            torch.equal(a, b) for a, b in zip(
+                runs["plain"][3].state_dict().values(),
+                runs["ddp"][3].state_dict().values())))
+        del runs
+        torch.cuda.empty_cache()
+        cli = []
+        for extra in ([], ["-R"]):
+            L.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer = train_cli.main(["-C", str(out / "train.json"),
+                                      "--steps", str(DDP_CLI_STEPS)] + extra)
+            cli.append({"step": trainer.state.step,
+                        "latest_step": trainer.ckpt.latest_step(),
+                        "mesh": trainer.mesh is not None,
+                        "losses": trainer.loss_history,
+                        "seconds": time.perf_counter() - t0,
+                        "launches": {k: v for k, v in
+                                     L.launch_counts.items() if v}})
+            del trainer
+        result["cli"] = cli
+    else:
+        trainer = EnhanceTrainer(cfg, seed=SEED, pretrained_state_dict=plus.sd,
+                                 device=dev, mesh=mesh)
+        grads = _first_step_grads(trainer)
+        batch = _noise_batch(DDP_BATCH_SEED, TRAIN_BATCH, TRAIN_SAMPLES)
+        losses, ms, launches = _ddp_step_counts(trainer, batch, 2, L)
+        result["enhance"] = {"losses": losses, "ms": ms,
+                             "launches": launches}
+        if rank == 0:
+            torch.save(grads, out / "grads.pt")
+        del trainer, grads
+        torch.cuda.empty_cache()
+        trainer = _restoration_trainer(dev, mesh)
+        t0 = time.perf_counter()
+        losses, stats = _restoration_steps(trainer)
+        result["restoration"] = {"losses": losses,
+                                 "seconds": time.perf_counter() - t0}
+        if rank == 0:
+            torch.save(stats, out / "stats.pt")
+    (out / f"{part}_rank{rank}.json").write_text(json.dumps(result))
+    D.shutdown()
+    return 0
+
+
+def phase_multi_gpu(dev, plus):
+    """Phase 20 (see DDP_* above); returns the ranks' scan launches, which
+    the kernels line adds to the main path's."""
+    check(torch.distributed.is_available()
+          and torch.distributed.is_nccl_available(),
+          "torch.distributed with NCCL on this machine")
+    from generative_audio_torch.train import EnhanceTrainer
+    t_phase = time.perf_counter()
+    card = card_line()
+    launched = {"lstm_scan_fwd_train": 0, "lstm_scan_bwd": 0}
+    per_step = plus.per_step
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        data, _, _, _, _ = _write_corpus(out / "corpus")
+        cfg = json.loads(_train_config(out, data, None).read_text())
+        cfg["checkpoint_dir"] = str(out / "ckpt_ddp")
+        (out / "train.json").write_text(json.dumps(cfg))
+        t_part = time.perf_counter()
+        proc = _ddp_launch("nccl", out, 1, "nccl")
+        _ddp_wait(proc, out, "nccl")
+        log(f"phase 20: corpus {t_part - t_phase:.1f} s, (a)'s launch "
+            f"{time.perf_counter() - t_part:.1f} s")
+        t_part = time.perf_counter()
+        a = json.loads((out / "nccl_rank0.json").read_text())
+        log(f"phase 20 (a) NCCL world of one on {a['device']} "
+            f"(backend {a['backend']}, {a['world']} rank): DDP losses "
+            f"{a['ddp']['losses']}, plain {a['plain']['losses']}; ms a step "
+            f"DDP {' '.join(f'{x:.1f}' for x in a['ddp']['ms'])}, plain "
+            f"{' '.join(f'{x:.1f}' for x in a['plain']['ms'])} (phase 6: "
+            f"{STEP_MS.get('FullSubNet+', float('nan')):.2f}); on {card}")
+        check(a["backend"] == "nccl" and a["world"] == 1
+              and a["ddp"]["net"] == "DistributedDataParallel",
+              "(a) ran under NCCL, one rank, through DDP")
+        check(a["bitwise"], f"(a) {DDP_STEPS} DDP steps bit for bit the "
+              "plain trainer's (losses, parameters, buffers)")
+        for run in ("plain", "ddp"):
+            check(all(c == per_step for c in a[run]["launches"]),
+                  f"(a) {run}: {per_step} a step (got "
+                  f"{a[run]['launches']})")
+        for i, run in enumerate(a["cli"]):
+            log(f"phase 20 (a) cli.train{' -R' if i else ''}: step "
+                f"{run['step']}, latest_step.json {run['latest_step']}, "
+                f"losses {run['losses']}, launches {run['launches']}, "
+                f"{run['seconds']:.1f} s")
+            check(run["mesh"] and run["step"] == run["latest_step"]
+                  == DDP_CLI_STEPS * (i + 1)
+                  and np.isfinite(run["losses"]).all(),
+                  f"(a) cli.train run {i + 1} under DDP at step "
+                  f"{DDP_CLI_STEPS * (i + 1)}")
+            check(run["launches"] == {k: v * DDP_CLI_STEPS for k, v in
+                                      per_step.items()},
+                  f"(a) cli.train run {i + 1}: {per_step} a step")
+        for k in launched:
+            launched[k] += sum(c.get(k, 0) for c in a["ddp"]["launches"]) + \
+                sum(run["launches"].get(k, 0) for run in a["cli"])
+
+        proc = _ddp_launch("gloo", out, 2, "gloo", per_device=2)
+        try:
+            # one process on the card meanwhile, on the same weights and
+            # batches
+            ref = EnhanceTrainer(plus.train_config("bfloat16"), seed=SEED,
+                                 pretrained_state_dict=plus.sd, device=dev)
+            ref_grads = _first_step_grads(ref)
+            ref_loss = ref.train_epoch([_noise_batch(
+                DDP_BATCH_SEED, TRAIN_BATCH, TRAIN_SAMPLES)])
+            del ref
+            torch.cuda.empty_cache()
+            rest = _restoration_trainer(dev)
+            ref_rest, ref_stats = _restoration_steps(rest)
+            del rest
+            torch.cuda.empty_cache()
+        finally:
+            _ddp_wait(proc, out, "gloo")
+        log(f"phase 20: (b, c)'s launch with the single-process references "
+            f"{time.perf_counter() - t_part:.1f} s")
+        ranks = [json.loads((out / f"gloo_rank{r}.json").read_text())
+                 for r in (0, 1)]
+        grads = torch.load(out / "grads.pt", weights_only=True)
+        stats = torch.load(out / "stats.pt", weights_only=True)
+    check(all(r["backend"] == "gloo" and r["world"] == 2
+              and r["device"] == str(dev) for r in ranks),
+          "(b, c) two gloo ranks on the one card")
+    for r in ranks:
+        check(all(c == per_step for c in r["enhance"]["launches"]),
+              f"(b) rank {r['rank']}: {per_step} a step (got "
+              f"{r['enhance']['launches']})")
+        for k in launched:
+            launched[k] += sum(c.get(k, 0) for c in r["enhance"]["launches"])
+    loss = ranks[0]["enhance"]["losses"][0]
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    a_vec = torch.cat([grads[k].flatten() for k in sorted(ref_grads)])
+    b_vec = torch.cat([ref_grads[k].flatten() for k in sorted(ref_grads)])
+    cos = float(a_vec @ b_vec / (a_vec.norm() * b_vec.norm()))
+    norm_rel = float(abs(a_vec.norm() / b_vec.norm() - 1))
+    log(f"phase 20 (b) gloo, 2 ranks x 9 rows on the card against one "
+        f"process x 18: step-1 loss {loss:.6f} vs {ref_loss:.6f} (rel "
+        f"{loss_rel:.2e}, limit {DDP_LOSS_REL:g}); averaged gradient cosine "
+        f"{cos:.6f} (limit {DDP_GRAD_COS}), norm {a_vec.norm():.5f} vs "
+        f"{b_vec.norm():.5f} (rel {norm_rel:.2e}, limit "
+        f"{DDP_GRAD_NORM_REL}); ms a step (2 ranks sharing the card) "
+        f"{ranks[0]['enhance']['ms']}; on {card}")
+    check(sorted(grads) == sorted(ref_grads), "(b) the same gradients")
+    check(loss_rel <= DDP_LOSS_REL, "(b) step-1 loss within the limit")
+    check(cos >= DDP_GRAD_COS and norm_rel <= DDP_GRAD_NORM_REL,
+          "(b) averaged gradient within the limits")
+    got_rest = ranks[0]["restoration"]["losses"]
+    rest_rel = max(abs(g - w) / abs(w) for g, w in zip(got_rest, ref_rest))
+    bn = max((stats[k].double() - v.double()).abs().max().item()
+             for k, v in ref_stats.items())
+    log(f"phase 20 (c) gloo, 2 ranks x 64 rows, restoration line strict "
+        f"float32: losses {got_rest} vs {ref_rest} (rel {rest_rel:.2e}, "
+        f"limit {DDP_REST_LOSS_REL:g}); BatchNorm running statistics "
+        f"max |diff| {bn:.2e} (limit {DDP_BN_ABS:g}) over {len(ref_stats)} "
+        f"tensors; {ranks[0]['restoration']['seconds']:.1f} s for "
+        f"{DDP_REST_STEPS} steps; on {card}")
+    check(sorted(stats) == sorted(ref_stats) and bn <= DDP_BN_ABS,
+          "(c) BatchNorm statistics within the limit")
+    check(rest_rel <= DDP_REST_LOSS_REL, "(c) losses within the limit")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s; ranks' scan "
+        f"launches {launched}")
+    return launched
+
+
 def main():
+    if sys.argv[1:2] == ["--phase20"]:
+        return ddp_worker(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6018,6 +6370,8 @@ def main():
     for name, launched in phase_item5(dev).items():
         counts[name] += launched
     phase_image(dev)
+    for name, launched in phase_multi_gpu(dev, plus).items():
+        counts[name] += launched
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 

@@ -11,8 +11,9 @@ image restoration and image NPPC models), `losses.py`, `train/`
 (device choice, weight conversion both ways, config, logging, tracking, the report),
 `data/` (audio I/O, mixing, datasets, the image datasets, the batch loader, the
 LibriSpeech downloader, the native audio binding),
-`cli/` (inference, training, validation, metrics, corpus tools) and `csrc/` (the CUDA
-kernels, built with nvcc at first use).
+`parallel/` (the multi-process job on torch.distributed, the device mesh, each
+rank's rows), `cli/` (inference, training, the multi-process launcher, validation,
+metrics, corpus tools) and `csrc/` (the CUDA kernels, built with nvcc at first use).
 
 Importing the package builds nothing and touches no device. The entry points
 (`FullSubNetPlus`, `Inferencer`, `EnhanceTrainer`) run on CUDA unless the caller

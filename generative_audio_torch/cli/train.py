@@ -1,7 +1,7 @@
 """Training entry point.
 
     python -m generative_audio_torch.cli.train -C config.{json,toml,yaml} \
-        [-R] [--steps N] [--epochs N] [--device cpu]
+        [-R] [--steps N] [--epochs N] [--device cpu] [--distributed]
 
 Port of generative_audio_tpu/cli/train.py. The config's `line` picks the
 model line; the port trains all six. The `enhance` line (FullSubNet+ or
@@ -53,8 +53,23 @@ epoch N steps, looping the loader (LoopIterator); for the image lines it is
 the number of steps. `--device` is `cuda` (default; raises without a CUDA
 device) or `cpu`.
 
-`--distributed` raises NotImplementedError until multi-GPU training is
-ported (ROADMAP.md, queue A item 6).
+Multi-GPU training, as the JAX CLI does it: under cli/launch.py (the
+GAT_* environment) every line runs as one rank of the job without a flag;
+`--distributed` takes the job from torchrun's environment instead (a
+RuntimeError names the variables it lacks). Each rank takes its card
+(parallel.distributed.local_device: cuda:LOCAL_RANK in an NCCL job; the CPU
+with --device cpu, over gloo), loads its contiguous rows of every global
+batch (BatchLoader's host_id and num_hosts, DistributedBatches) and trains
+under DistributedDataParallel over a parallel.make_mesh(); the image lines
+draw the same batches on every rank and take their rows. Validation sets
+are not split: every rank validates and rank 0's score decides. Rank 0
+alone logs and writes checkpoints and reports; -R resumes every rank from
+rank 0's state.
+
+    python -m generative_audio_torch.cli.launch --nprocs 2 --backend gloo \
+        -- python -m generative_audio_torch.cli.train -C cfg.yaml --device cpu
+    torchrun --nproc-per-node 4 -m generative_audio_torch.cli.train \
+        -C cfg.yaml --distributed
 """
 from __future__ import annotations
 
@@ -87,14 +102,22 @@ def nppc_denoising_config(train):
     return build_dataclass(NPPCDenoisingTrainConfig, train)
 
 
-def _loader(dataset, loader_cfg, steps):
+def _loader(dataset, loader_cfg, steps, mesh=None):
+    """The BatchLoader (this rank's rows of each batch under a mesh),
+    looped for `steps` steps an epoch where given."""
     from generative_audio_torch.data import BatchLoader, LoopIterator
+    from generative_audio_torch.parallel import distributed as D
+    if mesh is not None:
+        loader_cfg = {**loader_cfg, "host_id": D.process_index(),
+                      "num_hosts": D.process_count()}
     loader = BatchLoader(dataset, **loader_cfg)
-    return loader if steps is None else LoopIterator(loader, n_steps=steps)
+    if steps is not None:
+        loader = LoopIterator(loader, n_steps=steps)
+    return loader if mesh is None else D.DistributedBatches(loader, mesh)
 
 
 def _train_enhance(args, raw, data_cfg, loader_cfg, checkpoint_dir, device,
-                   log):
+                   log, mesh):
     from generative_audio_torch.data import (
         AudioDataSetConfig, AudioDataset, DNSTrainConfig, DNSTrainDataset,
         DNSValidationDataset)
@@ -106,10 +129,10 @@ def _train_enhance(args, raw, data_cfg, loader_cfg, checkpoint_dir, device,
     else:
         dataset = AudioDataset(build_dataclass(AudioDataSetConfig, data_cfg),
                                seed=seed)
-    loader = _loader(dataset, loader_cfg, args.steps)
+    loader = _loader(dataset, loader_cfg, args.steps, mesh)
     trainer = EnhanceTrainer(
         build_dataclass(EnhanceTrainConfig, raw.get("train")),
-        checkpoint_dir=checkpoint_dir, device=device)
+        checkpoint_dir=checkpoint_dir, device=device, mesh=mesh)
     if args.resume:
         trainer.restore_latest()
     val_cfg = raw.get("validation")
@@ -130,44 +153,45 @@ def _train_enhance(args, raw, data_cfg, loader_cfg, checkpoint_dir, device,
 
 
 def _train_nppc_denoising(args, raw, data_cfg, loader_cfg, checkpoint_dir,
-                          device, log):
+                          device, log, mesh):
     from generative_audio_torch.data import AudioDataSetConfig, AudioDataset
     from generative_audio_torch.train import NPPCDenoisingTrainer
     if raw.get("validation"):
         raise ValueError("the nppc_denoising line takes no validation: block")
     dataset = AudioDataset(build_dataclass(AudioDataSetConfig, data_cfg),
                            seed=loader_cfg.get("seed", 0))
-    loader = _loader(dataset, loader_cfg, args.steps)
+    loader = _loader(dataset, loader_cfg, args.steps, mesh)
     trainer = NPPCDenoisingTrainer(nppc_denoising_config(raw.get("train")),
                                    checkpoint_dir=checkpoint_dir,
-                                   device=device)
+                                   device=device, mesh=mesh)
     if args.resume:
         trainer.restore_latest()
     trainer.train(loader, n_epochs=args.epochs or 1, log=log)
     return trainer
 
 
-def _inpainting_loader(data_cfg, loader_cfg, steps):
+def _inpainting_loader(data_cfg, loader_cfg, steps, mesh=None):
     from generative_audio_torch.data import (
         AudioInpaintingConfig, AudioInpaintingDataset, collate_inpainting)
     dataset = AudioInpaintingDataset(
         build_dataclass(AudioInpaintingConfig, data_cfg),
         seed=loader_cfg.get("seed", 0))
     return _loader(dataset, {**loader_cfg, "collate_fn": collate_inpainting},
-                   steps)
+                   steps, mesh)
 
 
 def _train_restoration(args, raw, data_cfg, loader_cfg, checkpoint_dir,
-                       device, log):
+                       device, log, mesh):
     from generative_audio_torch.train import (
         RestorationTrainConfig, RestorationTrainer)
-    loader = _inpainting_loader(data_cfg, loader_cfg, args.steps)
+    loader = _inpainting_loader(data_cfg, loader_cfg, args.steps, mesh)
     trainer = RestorationTrainer(
         build_dataclass(RestorationTrainConfig, raw.get("train")),
-        checkpoint_dir=checkpoint_dir, device=device)
+        checkpoint_dir=checkpoint_dir, device=device, mesh=mesh)
     if args.resume:
         trainer.restore_latest()
     val_cfg = raw.get("validation")
+    # not split over the ranks: each validates it whole
     val_loader = (_inpainting_loader(val_cfg, loader_cfg, None) if val_cfg
                   else None)
     trainer.train(loader, n_epochs=args.epochs or 1, val_loader=val_loader,
@@ -192,7 +216,7 @@ def restoration_checkpoint(directory):
 
 
 def _train_nppc_inpainting(args, raw, data_cfg, loader_cfg, checkpoint_dir,
-                           device, log):
+                           device, log, mesh):
     from generative_audio_torch.train import (
         NPPCInpaintingTrainConfig, NPPCInpaintingTrainer)
     if raw.get("validation"):
@@ -203,11 +227,11 @@ def _train_nppc_inpainting(args, raw, data_cfg, loader_cfg, checkpoint_dir,
             raw["pretrained_restoration_checkpoint"])
         log(f"frozen restoration UNet: {name} of "
             f"{raw['pretrained_restoration_checkpoint']}")
-    loader = _inpainting_loader(data_cfg, loader_cfg, args.steps)
+    loader = _inpainting_loader(data_cfg, loader_cfg, args.steps, mesh)
     trainer = NPPCInpaintingTrainer(
         build_dataclass(NPPCInpaintingTrainConfig, raw.get("train")),
         restoration_variables=restoration, checkpoint_dir=checkpoint_dir,
-        device=device)
+        device=device, mesh=mesh)
     if args.resume:
         trainer.restore_latest()
     trainer.train(loader, n_epochs=args.epochs or 1, log=log)
@@ -225,16 +249,16 @@ def _run_image(args, raw, trainer, log):
 
 
 def _train_image_restoration(args, raw, data_cfg, loader_cfg, checkpoint_dir,
-                             device, log):
+                             device, log, mesh):
     from generative_audio_torch.models import ImageRestorationConfig
     from generative_audio_torch.train import ImageRestorationTrainer
     cfg = build_dataclass(ImageRestorationConfig, raw.get("train"))
     return _run_image(args, raw, ImageRestorationTrainer(
-        cfg, checkpoint_dir=checkpoint_dir, device=device), log)
+        cfg, checkpoint_dir=checkpoint_dir, device=device, mesh=mesh), log)
 
 
 def _train_image_nppc(args, raw, data_cfg, loader_cfg, checkpoint_dir,
-                      device, log):
+                      device, log, mesh):
     import torch
     from generative_audio_torch.models import (
         ImageNPPCConfig, ImageRestorationConfig, ImageRestorationModel)
@@ -257,7 +281,7 @@ def _train_image_nppc(args, raw, data_cfg, loader_cfg, checkpoint_dir,
         log(f"frozen restoration net: latest of {rest_ckpt}")
     trainer = ImageNPPCTrainer(
         build_dataclass(ImageNPPCConfig, raw.get("train")), rest_model,
-        rest_vars, checkpoint_dir=checkpoint_dir, device=device)
+        rest_vars, checkpoint_dir=checkpoint_dir, device=device, mesh=mesh)
     return _run_image(args, raw, trainer, log)
 
 
@@ -283,13 +307,11 @@ def main(argv=None):
                              "loader)")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-GPU training (not ported yet)")
+                        help="multi-GPU training under torchrun: the job "
+                             "from its env:// variables (cli.launch's "
+                             "GAT_* environment needs no flag)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-GPU training is not ported yet "
-            "(ROADMAP.md, queue A item 6)")
 
     raw = load_config_file(args.configuration)
     line = raw.pop("line")
@@ -308,9 +330,22 @@ def main(argv=None):
         loader_cfg = {"global_batch_size": batch_size,
                       **raw.pop("dataloader", {})}
 
-    from generative_audio_torch.utils.device import resolve_device
-    return run(args, raw, data_cfg, loader_cfg, checkpoint_dir,
-               resolve_device(args.device), get_logger().info)
+    from generative_audio_torch.parallel import distributed as D
+    log = get_logger().info
+    mesh = None
+    distributed = D.initialize(
+        auto=args.distributed,
+        backend="gloo" if args.device == "cpu" else None)
+    device = D.local_device(args.device)
+    if distributed:
+        from generative_audio_torch.parallel import make_mesh
+        mesh = make_mesh(device_type=device.type)
+        log(f"distributed: rank {D.process_index()} of "
+            f"{D.process_count()} on {device}")
+        if not D.is_coordinator():
+            log = lambda *a, **k: None  # noqa: E731
+    return run(args, raw, data_cfg, loader_cfg, checkpoint_dir, device, log,
+               mesh)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed
 
 __all__ = ["cirm_mse_loss", "cirm_l1_loss", "si_snr_loss", "masked_mse_loss",
            "second_moment_lambda", "nppc_objective_real",
@@ -50,12 +51,25 @@ def si_snr_loss(enhanced: torch.Tensor, reference: torch.Tensor,
 
 
 def masked_mse_loss(pred: torch.Tensor, target: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, group=None) -> torch.Tensor:
     """MSE over the gap (mask == 0 is the inpainted region). The divisor is
-    max(sum(gap), 1), so a batch without a gap gives 0, not NaN."""
+    max(sum(gap), 1), so a batch without a gap gives 0, not NaN.
+
+    With a process group of W > 1 ranks (DistributedDataParallel's) the
+    batch is one rank's rows of a global batch: the divisor is the global
+    gap count (all-reduced) and the result W times this rank's share of the
+    global MSE, so that the mean over the ranks, which DDP takes of the
+    gradient, is the global batch's MSE and its gradient."""
     gap = 1.0 - mask
-    return (torch.sum(torch.square(pred - target) * gap)
-            / torch.clamp(torch.sum(gap), min=1.0))
+    count = torch.sum(gap)
+    scale = 1
+    if group is not None:
+        from generative_audio_torch.parallel.distributed import (
+            all_reduce_sum)
+        scale = torch.distributed.get_world_size(group)
+        count = all_reduce_sum(count.detach(), group)
+    return (torch.sum(torch.square(pred - target) * gap) * scale
+            / torch.clamp(count, min=1.0))
 
 
 def second_moment_lambda(step, grace: int,

@@ -14,7 +14,7 @@ across.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,9 +77,12 @@ class FullSubNet(nn.Module):
             output_activate_function=c.sb_output_activate_function, **common)
 
     def forward(self, noisy_mag: torch.Tensor,
-                num_groups: Optional[int] = None) -> torch.Tensor:
+                num_groups: Optional[int] = None,
+                global_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """num_groups overrides config.num_groups_in_drop_band for this call
-        (1 = full band), on the same parameters."""
+        (1 = full band), on the same parameters. global_rows places the
+        batch's rows in a global batch split over ranks, for drop_band
+        (ops.subband.drop_band)."""
         c = self.config
         if num_groups is None:
             num_groups = c.num_groups_in_drop_band
@@ -99,9 +102,10 @@ class FullSubNet(nn.Module):
         sb_input = self.norm(torch.cat([mag_unf, fb_unf], dim=2))
 
         num_freqs = f
-        if b > 1:
+        if (b if global_rows is None else global_rows[1]) > 1:
             sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
-                                 num_groups=num_groups)
+                                 num_groups=num_groups,
+                                 global_rows=global_rows)
             num_freqs = sb_input.shape[2]
             sb_input = sb_input.permute(0, 2, 1, 3)
 

@@ -21,7 +21,7 @@ JAX package's params across.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -121,9 +121,12 @@ class FullSubNetPlus(nn.Module):
 
     def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
                 noisy_imag: torch.Tensor,
-                num_groups: Optional[int] = None) -> torch.Tensor:
+                num_groups: Optional[int] = None,
+                global_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """num_groups overrides config.num_groups_in_drop_band for this call
-        (1 = full band), on the same parameters."""
+        (1 = full band), on the same parameters. global_rows places the
+        batch's rows in a global batch split over ranks, for drop_band
+        (ops.subband.drop_band)."""
         c = self.config
         if num_groups is None:
             num_groups = c.num_groups_in_drop_band
@@ -156,9 +159,10 @@ class FullSubNetPlus(nn.Module):
         sb_input = self.norm(torch.cat(unfolded, dim=2))
 
         num_freqs = f
-        if b > 1:
+        if (b if global_rows is None else global_rows[1]) > 1:
             sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
-                                 num_groups=num_groups)
+                                 num_groups=num_groups,
+                                 global_rows=global_rows)
             num_freqs = sb_input.shape[2]
             sb_input = sb_input.permute(0, 2, 1, 3)
 
@@ -213,7 +217,10 @@ class MultiDirectionFullSubNetPlus(nn.Module):
     def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
                 noisy_imag: torch.Tensor, enhanced_mag: torch.Tensor,
                 enhanced_real: torch.Tensor,
-                enhanced_imag: torch.Tensor) -> torch.Tensor:
+                enhanced_imag: torch.Tensor,
+                global_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """global_rows places the batch's rows in a global batch split over
+        ranks, for drop_band (ops.subband.drop_band)."""
         c = self.config
         n_dirs = c.n_directions
         if noisy_mag.ndim != 4 or noisy_mag.shape[1] != 1:
@@ -250,9 +257,10 @@ class MultiDirectionFullSubNetPlus(nn.Module):
         sb_input = self.norm(torch.cat(unfolded, dim=2))
 
         num_freqs = f
-        if b > 1:
+        if (b if global_rows is None else global_rows[1]) > 1:
             sb_input = drop_band(sb_input.permute(0, 2, 1, 3),
-                                 num_groups=c.num_groups_in_drop_band)
+                                 num_groups=c.num_groups_in_drop_band,
+                                 global_rows=global_rows)
             num_freqs = sb_input.shape[2]
             sb_input = sb_input.permute(0, 2, 1, 3)
 

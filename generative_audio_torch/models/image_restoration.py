@@ -15,7 +15,9 @@ widths, and ImageRestorationModel (data module + distortion + wrapped net).
 
 The distortions and the wrapper are nn.Modules, so that `.to(device)` moves
 the inpainting mask with the net. Randomness comes from an explicit
-torch.Generator on the tensor's device (the JAX functions take a PRNG key).
+torch.Generator on the tensor's device (the JAX functions take a PRNG key);
+`global_rows` (first row, global batch size) draws a rank's rows of the
+global batch's noise (parallel.distributed.draw_rows).
 Colorization.distort collapses the channel axis, and
 ImageRestorationModel.distort adds it back, as the JAX model does.
 """
@@ -29,11 +31,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from generative_audio_torch.nn.image_nets import ImageUNet, ResCNN, ResUNet
+from generative_audio_torch.parallel.distributed import draw_rows
 
 __all__ = ["Denoising", "Inpainting", "Colorization", "SuperResolution",
            "gen_mask", "make_distortion", "ImageRestorationWrapper",
            "ImageRestorationModel", "ImageRestorationConfig",
            "build_restoration_net", "pad_to_multiple", "unpad_from_multiple"]
+
+
+def _randn(x: torch.Tensor, generator: Optional[torch.Generator],
+           global_rows: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """N(0, 1) noise of x's shape; with global_rows = (first row, global
+    batch size) the global batch's draw at x's rows, so that the noise does
+    not depend on how many ranks share the batch."""
+    return draw_rows(lambda shape: torch.randn(
+        shape, generator=generator, device=x.device, dtype=x.dtype),
+        x.shape, global_rows)
 
 
 class Denoising(nn.Module):
@@ -46,9 +59,10 @@ class Denoising(nn.Module):
         self.clip_noise = clip_noise
 
     def distort(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        noise = torch.randn(x.shape, generator=generator, device=x.device,
-                            dtype=x.dtype)
+                generator: Optional[torch.Generator] = None,
+                global_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+        noise = _randn(x, generator, global_rows)
         x_distorted = x + noise * self.noise_std
         if self.clip_noise:
             x_distorted = x_distorted.clamp(0.0, 1.0)
@@ -80,7 +94,8 @@ class Inpainting(nn.Module):
                              persistent=False)
         self.fill = fill
 
-    def distort(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def distort(self, x: torch.Tensor, generator=None,
+                global_rows=None) -> torch.Tensor:
         return x * (1 - self.mask) + self.fill * self.mask
 
     def naive_restore(self, x):
@@ -93,7 +108,8 @@ class Inpainting(nn.Module):
 class Colorization(nn.Module):
     """Grayscale by the channel mean (reference :336)."""
 
-    def distort(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def distort(self, x: torch.Tensor, generator=None,
+                global_rows=None) -> torch.Tensor:
         return x.mean(dim=1)
 
     def naive_restore(self, x):
@@ -120,11 +136,12 @@ class SuperResolution(nn.Module):
             self.factor, dim=-1)
 
     def distort(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                global_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
         x = self._avg_pool(x)
         if self.noise_std > 0 and generator is not None:
-            x = x + torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype) * self.noise_std
+            x = x + _randn(x, generator, global_rows) * self.noise_std
         return x
 
     def naive_restore(self, x):
@@ -274,8 +291,10 @@ class ImageRestorationModel:
         return self
 
     def distort(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x_distorted = self.distortion.distort(x, generator)
+                generator: Optional[torch.Generator] = None,
+                global_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+        x_distorted = self.distortion.distort(x, generator, global_rows)
         if x_distorted.ndim == 3:    # colorization collapses the channels
             x_distorted = x_distorted[:, None]
         return x_distorted

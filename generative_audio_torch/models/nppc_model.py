@@ -21,7 +21,7 @@ mode.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -82,27 +82,35 @@ class DenoisingNPPCModel(nn.Module):
     def forward(self, noisy_waveform: torch.Tensor) -> torch.Tensor:
         return self.forward_with_pred_crm(noisy_waveform)[0]
 
-    def forward_with_pred_crm(self, noisy_waveform: torch.Tensor
+    def forward_with_pred_crm(self, noisy_waveform: torch.Tensor,
+                              head: Optional[nn.Module] = None,
+                              global_rows: Optional[Tuple[int, int]] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(w_mat, the enhancer's compressed cRM [B, 2, F, T]) from one
-        enhancer forward: the training objective needs both."""
+        enhancer forward: the training objective needs both. head: the
+        module called in place of audio_pc_wrapper (its
+        DistributedDataParallel in a multi-GPU step); global_rows: the rows'
+        place in a global batch split over ranks, for drop_band."""
         noisy_mag, noisy_real, noisy_imag = self._stft_triplet(noisy_waveform)
-        pred_crm_comp = self._enhancer(noisy_mag, noisy_real, noisy_imag)
+        pred_crm_comp = self._enhancer(noisy_mag, noisy_real, noisy_imag,
+                                       global_rows)
         pred_crm = decompress_cIRM(pred_crm_comp.permute(0, 2, 3, 1))
         enhanced_mag, enhanced_real, enhanced_imag = crm_to_stft_components(
             pred_crm, noisy_real[:, 0], noisy_imag[:, 0])
-        w_mat = self.audio_pc_wrapper(
+        w_mat = (self.audio_pc_wrapper if head is None else head)(
             noisy_mag, noisy_real, noisy_imag, enhanced_mag[:, None],
-            enhanced_real[:, None], enhanced_imag[:, None])
+            enhanced_real[:, None], enhanced_imag[:, None],
+            global_rows=global_rows)
         return w_mat, pred_crm_comp
 
     def get_pred_crm(self, noisy_waveform: torch.Tensor) -> torch.Tensor:
         """The frozen enhancer's compressed cRM [B, 2, F, T]."""
         return self._enhancer(*self._stft_triplet(noisy_waveform))
 
-    def _enhancer(self, mag, real, imag) -> torch.Tensor:
+    def _enhancer(self, mag, real, imag, global_rows=None) -> torch.Tensor:
         with torch.no_grad():
-            return self.pretrained_restoration_model(mag, real, imag)
+            return self.pretrained_restoration_model(
+                mag, real, imag, global_rows=global_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +132,10 @@ class InpaintingRestorationModel(RestorationWrapper):
         self.config = config
 
     def forward(self, x_in, mask, train: bool = False,
-                mc_dropout: bool = False, generator=None):
-        return super().forward(x_in, mask, train, mc_dropout, generator)
+                mc_dropout: bool = False, generator=None,
+                global_rows: Optional[Tuple[int, int]] = None):
+        return super().forward(x_in, mask, train, mc_dropout, generator,
+                               global_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,14 +169,18 @@ class InpaintingNPPCModel(nn.Module):
                                                      mask, train=False)
 
     def mc_restoration(self, masked_spec_mag_log: torch.Tensor,
-                       mask: torch.Tensor, generator=None) -> torch.Tensor:
+                       mask: torch.Tensor, generator=None,
+                       global_rows: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
         """MC-dropout samples of the frozen restoration model: dropout on,
         BatchNorm on its running statistics. With a sequence of P
-        generators the input holds P stacked passes, one per generator."""
+        generators the input holds P stacked passes, one per generator;
+        global_rows places each pass's rows in a global batch split over
+        ranks (nn.unet.dropout)."""
         with torch.no_grad():
             return self.pretrained_restoration_model(
                 masked_spec_mag_log, mask, train=False, mc_dropout=True,
-                generator=generator)
+                generator=generator, global_rows=global_rows)
 
     def forward(self, masked_spec_mag_norm: torch.Tensor, mask: torch.Tensor,
                 train: bool = False, generator=None) -> torch.Tensor:
@@ -175,11 +189,16 @@ class InpaintingNPPCModel(nn.Module):
 
     def forward_with_pred(self, masked_spec_mag_norm: torch.Tensor,
                           mask: torch.Tensor, train: bool = False,
-                          generator=None
+                          generator=None, head: Optional[nn.Module] = None,
+                          global_rows: Optional[Tuple[int, int]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(w_mat, the frozen prediction) from one frozen forward: the
-        training objective needs both."""
+        training objective needs both. head: the module called in place of
+        pc_wrapper (its DistributedDataParallel in a multi-GPU step);
+        global_rows: the rows' place in a global batch split over ranks,
+        for the dropout masks."""
         pred = self.get_pred_spec_mag_norm(masked_spec_mag_norm, mask)
         x = torch.cat([masked_spec_mag_norm, pred], dim=1)
-        return self.pc_wrapper(x, mask, train=train,
-                               generator=generator), pred
+        return (self.pc_wrapper if head is None else head)(
+            x, mask, train=train, generator=generator,
+            global_rows=global_rows), pred

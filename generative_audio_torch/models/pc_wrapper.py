@@ -9,6 +9,7 @@ Gram-Schmidt.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,9 +36,14 @@ class AudioPCWrapper(nn.Module):
             config, compute_dtype=compute_dtype, device=device)
 
     def forward(self, noisy_mag, noisy_real, noisy_imag, enhanced_mag,
-                enhanced_real, enhanced_imag) -> torch.Tensor:
+                enhanced_real, enhanced_imag,
+                global_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+        """global_rows: the rows' place in a global batch split over ranks
+        (drop_band's argument)."""
         crm = self.net(noisy_mag, noisy_real, noisy_imag, enhanced_mag,
-                       enhanced_real, enhanced_imag)      # [B, 2K, F', T]
+                       enhanced_real, enhanced_imag,
+                       global_rows=global_rows)           # [B, 2K, F', T]
         b, _, f, t = crm.shape
         return gram_schmidt_to_crm(
             crm.reshape(b, self.config.n_directions, 2, f, t))
@@ -63,6 +69,11 @@ class AudioInpaintingPCWrapper(nn.Module):
         self.net = UNet(config.in_channels, config.n_dirs, config.dropout)
 
     def forward(self, mag_spec: torch.Tensor, mask: torch.Tensor,
-                train: bool = False, generator=None) -> torch.Tensor:
-        pred = self.net(mag_spec, train=train, generator=generator)
+                train: bool = False, generator=None,
+                global_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+        """global_rows: the rows' place in a global batch split over ranks
+        (the dropout masks' argument, nn.unet.dropout)."""
+        pred = self.net(mag_spec, train=train, generator=generator,
+                        global_rows=global_rows)
         return gram_schmidt_to_spec_mag(pred * (1.0 - mask.expand(pred.shape)))

@@ -30,17 +30,28 @@ the batch. Then each draws the masks of its own 1/P slice, and each
 convolution runs slice by slice: cuDNN picks its algorithm by the batch, and
 a pass must give the same samples bit for bit whether it runs alone or
 stacked with others (everything else of the UNet is per sample).
+
+Under DistributedDataParallel (parallel/mesh.data_parallel) a batch is one
+rank's rows of a global batch: `global_rows` = (first row, global batch
+size) makes each mask the global batch's mask at those rows, and
+sync_batch_norm puts the BatchNorms on the global batch's statistics, so
+that a step does not depend on the number of ranks.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed
 import torch.nn.functional as F
 from torch import nn
 
+from generative_audio_torch.parallel.distributed import (
+    all_reduce_sum, draw_rows)
+
 __all__ = ["UNet", "UNet2", "RestorationWrapper", "UNetConfig",
-           "resize_align_corners"]
+           "resize_align_corners", "batch_norm", "sync_batch_norm",
+           "dropout"]
 
 Generators = Union[torch.Generator, Sequence[torch.Generator], None]
 
@@ -60,6 +71,16 @@ class UNetConfig:
         self.dropout = dropout
 
 
+def sync_batch_norm(module: nn.Module, group) -> nn.Module:
+    """Every BatchNorm2d of `module` takes its training statistics over the
+    global batch of `group`'s ranks (batch_norm); None takes them over this
+    process's batch again."""
+    for m in module.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.process_group = group
+    return module
+
+
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
                momentum: float = 0.9) -> torch.Tensor:
     """flax nn.BatchNorm(momentum, epsilon=1e-5) on bn's parameters and
@@ -67,10 +88,18 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
     variance: F.batch_norm updates it with the unbiased one, v_u, so the
     update is taken back by (1 - momentum) * v_u / n (n values a channel),
     where (1 - momentum) * v_u = running_var_new - momentum *
-    running_var_old."""
+    running_var_old.
+
+    Where sync_batch_norm gave bn a process group of more than one rank,
+    training normalises with the statistics of the global batch, as the
+    JAX mesh step does: the count, the sum and then the centred sum of
+    squares a channel are summed over the ranks, with their gradient."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
+    group = getattr(bn, "process_group", None)
+    if group is not None and torch.distributed.get_world_size(group) > 1:
+        return _global_batch_norm(bn, x, group, momentum)
     # autograd keeps the variance tensor it was given: update a copy
     new_var = bn.running_var.clone()
     out = F.batch_norm(x, bn.running_mean, new_var, bn.weight, bn.bias, True,
@@ -81,6 +110,28 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool,
                              / n)
         bn.num_batches_tracked.add_(1)
     return out
+
+
+def _global_batch_norm(bn, x, group, momentum):
+    """batch_norm in training over the global batch of `group`: two passes
+    (the mean, then the centred squares), each one all-reduce."""
+    dims = (0, 2, 3)
+    c = x.shape[1]
+    count = torch.full((1,), x.numel() // c, dtype=torch.float32,
+                       device=x.device)
+    sums = all_reduce_sum(torch.cat([x.float().sum(dims), count]), group)
+    n = sums[c]
+    mean = sums[:c] / n
+    centred = x.float() - mean.view(1, c, 1, 1)
+    var = all_reduce_sum(centred.square().sum(dims), group) / n
+    out = centred * torch.rsqrt(var + bn.eps).view(1, c, 1, 1)
+    out = out * bn.weight.view(1, c, 1, 1) + bn.bias.view(1, c, 1, 1)
+    with torch.no_grad():
+        bn.running_mean.mul_(momentum).add_(mean.detach(),
+                                            alpha=1.0 - momentum)
+        bn.running_var.mul_(momentum).add_(var.detach(), alpha=1.0 - momentum)
+        bn.num_batches_tracked.add_(1)
+    return out.to(x.dtype)
 
 
 def _parts(generator: Generators) -> int:
@@ -105,20 +156,41 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, parts: int) -> torch.Tensor:
     return torch.cat([_layout(conv(s)) for s in x.chunk(parts)])
 
 
-def dropout(x: torch.Tensor, p: float, generator: Generators) -> torch.Tensor:
+def _uniform(like: torch.Tensor, generator: Optional[torch.Generator],
+             global_rows: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """U[0, 1) of like's shape; with global_rows drawn at the global batch's
+    shape, in like's memory layout, and sliced to its rows."""
+    if global_rows is None:
+        return torch.empty_like(like).uniform_(generator=generator)
+    layout = (torch.channels_last if like.ndim == 4
+              and like.is_contiguous(memory_format=torch.channels_last)
+              and not like.is_contiguous() else torch.contiguous_format)
+    return draw_rows(
+        lambda shape: torch.empty(shape, dtype=like.dtype, device=like.device,
+                                  memory_format=layout
+                                  ).uniform_(generator=generator),
+        like.shape, global_rows)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Generators,
+            global_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Elementwise dropout: keep with probability 1 - p, kept values / (1-p).
-    A sequence of generators draws one mask per equal slice of the batch."""
+    A sequence of generators draws one mask per equal slice of the batch.
+    global_rows = (first row, global batch size) draws each mask at the
+    global batch's shape and keeps this batch's rows of it (one slice's rows
+    per generator), so that the masks do not depend on how many ranks
+    share the batch (parallel.distributed.draw_rows)."""
     keep = 1.0 - p
     parts = _parts(generator)
     if parts == 1:
         if not (generator is None or isinstance(generator, torch.Generator)):
             generator = generator[0]
-        u = torch.empty_like(x).uniform_(generator=generator)
+        u = _uniform(x, generator, global_rows)
     else:
         if x.shape[0] % parts:
             raise ValueError(f"batch {x.shape[0]} is not {parts} equal "
                              f"slices, one per generator")
-        u = torch.cat([torch.empty_like(s).uniform_(generator=g)
+        u = torch.cat([_uniform(s, g, global_rows)
                        for s, g in zip(x.chunk(parts), generator)])
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
@@ -137,13 +209,14 @@ class DoubleConv(nn.Module):
             nn.BatchNorm2d(out_ch), nn.LeakyReLU(0.2))
 
     def forward(self, x, train: bool = True, mc_dropout: bool = False,
-                generator: Generators = None, parts: int = 1):
+                generator: Generators = None, parts: int = 1,
+                global_rows: Optional[Tuple[int, int]] = None):
         c = self.conv
         for conv, bn in ((c[0], c[1]), (c[3], c[4])):
             x = F.leaky_relu(batch_norm(bn, _conv(conv, x, parts), train),
                              0.2)
         if self.dropout and (train or mc_dropout):
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, generator, global_rows)
         return x
 
 
@@ -156,9 +229,10 @@ class Down(nn.Module):
                                     DoubleConv(in_ch, out_ch, dropout))
 
     def forward(self, x, train: bool = True, mc_dropout: bool = False,
-                generator: Generators = None, parts: int = 1):
+                generator: Generators = None, parts: int = 1,
+                global_rows: Optional[Tuple[int, int]] = None):
         return self.mpconv[1](F.max_pool2d(x, 2), train, mc_dropout,
-                              generator, parts)
+                              generator, parts, global_rows)
 
 
 class Up(nn.Module):
@@ -170,13 +244,14 @@ class Up(nn.Module):
         self.conv = DoubleConv(in_ch, out_ch, dropout)
 
     def forward(self, x1, x2, train: bool = True, mc_dropout: bool = False,
-                generator: Generators = None, parts: int = 1):
+                generator: Generators = None, parts: int = 1,
+                global_rows: Optional[Tuple[int, int]] = None):
         x1 = resize_align_corners(x1, (x1.shape[2] * 2, x1.shape[3] * 2))
         dh = x2.shape[2] - x1.shape[2]
         dw = x2.shape[3] - x1.shape[3]
         x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
         return self.conv(torch.cat([x2, x1], dim=1), train, mc_dropout,
-                         generator, parts)
+                         generator, parts, global_rows)
 
 
 class _OutConv(nn.Module):
@@ -207,10 +282,13 @@ class UNet(nn.Module):
         self.outc = _OutConv(64, out_channels)
 
     def forward(self, x: torch.Tensor, train: bool = True,
-                mc_dropout: bool = False,
-                generator: Generators = None) -> torch.Tensor:
+                mc_dropout: bool = False, generator: Generators = None,
+                global_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+        """global_rows: the rows' place in a global batch split over ranks,
+        for the dropout masks (dropout)."""
         parts = _parts(generator)
-        md = (train, mc_dropout, generator, parts)
+        md = (train, mc_dropout, generator, parts, global_rows)
         plain = (train, False, None, parts)
         x1 = self.inc(_layout(x), *plain)
         x2 = self.down1(x1, *plain)
@@ -255,7 +333,8 @@ class _DecoderBlock(nn.Module):
 
 class UNet2(nn.Module):
     """The stride-2 encoder UNet of the SpeechInpainting paper. It has no
-    dropout: mc_dropout and generator are taken and change nothing, so that
+    dropout: mc_dropout, generator and global_rows are taken and change
+    nothing, so that
     RestorationWrapper can hold it."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1):
@@ -275,8 +354,9 @@ class UNet2(nn.Module):
                                   final=True)
 
     def forward(self, x: torch.Tensor, train: bool = True,
-                mc_dropout: bool = False,
-                generator: Generators = None) -> torch.Tensor:
+                mc_dropout: bool = False, generator: Generators = None,
+                global_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
         x = _layout(x)
         e1 = self.enc1(x, train)
         e2 = self.enc2(e1, train)
@@ -303,9 +383,11 @@ class RestorationWrapper(nn.Module):
 
     def forward(self, x_in: torch.Tensor, mask: torch.Tensor,
                 train: bool = True, mc_dropout: bool = False,
-                generator: Optional[Generators] = None) -> torch.Tensor:
+                generator: Optional[Generators] = None,
+                global_rows: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
         x = self.net(x_in, train=train, mc_dropout=mc_dropout,
-                     generator=generator)
+                     generator=generator, global_rows=global_rows)
         mask_b = mask.expand((mask.shape[0], x.shape[1]) + mask.shape[2:])
         known = x_in[:, :1].expand(x.shape) if x_in.shape[1] > 1 else x_in
         return known * mask_b + x * (1 - mask_b)

@@ -1,6 +1,8 @@
 """Sub-band unfolding and drop_band. Port of generative_audio_tpu/ops/subband.py."""
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -21,10 +23,19 @@ def band_unfold(x: torch.Tensor, num_neighbors: int) -> torch.Tensor:
     return windows.permute(0, 2, 1, 4, 3)             # [B, F, C, 2n+1, T]
 
 
-def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
+def drop_band(x: torch.Tensor, num_groups: int = 2,
+              global_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """[B, C, F, T] -> [B, C, F // G, T]: sample group g (samples g, g+G, ...)
-    keeps frequencies g, g+G, ...; the output batch is group-major."""
-    batch_size, _, num_freqs, _ = x.shape
+    keeps frequencies g, g+G, ...; the output batch is group-major.
+
+    global_rows = (first row, global batch size) places x's rows in a
+    global batch split over ranks (parallel.mesh.place_rows): a row's group
+    is its index in the global batch, and the check that the batch is
+    larger than G is taken on the global batch. Each rank's result is then
+    the global batch's result at that rank's rows, in the same order."""
+    first, batch_size = (0, x.shape[0]) if global_rows is None \
+        else global_rows
+    num_freqs = x.shape[2]
     if batch_size <= num_groups:
         raise ValueError(
             f"Batch size = {batch_size}, num_groups = {num_groups}. The batch "
@@ -33,6 +44,6 @@ def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
         return x
     if num_freqs % num_groups != 0:
         x = x[:, :, :num_freqs - (num_freqs % num_groups), :]
-        num_freqs = x.shape[2]
-    parts = [x[g::num_groups, :, g::num_groups, :] for g in range(num_groups)]
+    parts = [x[(g - first) % num_groups::num_groups, :, g::num_groups, :]
+             for g in range(num_groups)]
     return torch.cat(parts, dim=0)

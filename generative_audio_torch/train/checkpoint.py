@@ -6,8 +6,14 @@ a tree of dicts, lists, numbers and tensors (a model `state_dict`, an
 optimizer `state_dict`, the step, the best score); the sidecars
 (`config.json`, `latest_step.json`, `best_score.json`) are plain JSON, as in
 the JAX package. Files are written to a temporary name and renamed, so a
-reader never sees half a checkpoint. The JAX package's multi-host
-coordinator gate waits for the multi-GPU slice (ROADMAP.md, queue A item 6).
+reader never sees half a checkpoint.
+
+In a multi-process job (parallel/distributed.py) rank 0 alone writes
+(config.json, the .pt files, latest_step.json, best_score.json), as the
+JAX package's coordinator gate does, and every save ends at a barrier, so
+that no rank reads a checkpoint before it is whole; every rank reads.
+Checkpoints keep the model's own state_dict keys (no DDP `module.`
+prefix), so a checkpoint of N ranks loads into a single process.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from generative_audio_torch.parallel import distributed as D
 
 __all__ = ["CheckpointManager", "resume_latest"]
 
@@ -53,12 +61,19 @@ class CheckpointManager:
         tmp.write_text(text)
         os.replace(tmp, self.directory / name)
 
+    def write_text(self, name: str, text: str) -> None:
+        """A file beside the checkpoints, written by rank 0 alone; every
+        rank waits for it."""
+        if D.is_coordinator():
+            self._write_text(name, text)
+        D.barrier()
+
     # ------------------------------------------------------------ config ---
     def save_config(self, config) -> None:
         if dataclasses.is_dataclass(config):
             config = dataclasses.asdict(config)
-        self._write_text("config.json",
-                         json.dumps(config, indent=2, default=str))
+        self.write_text("config.json",
+                        json.dumps(config, indent=2, default=str))
 
     def load_config(self) -> Optional[Dict]:
         path = self.directory / "config.json"
@@ -74,22 +89,29 @@ class CheckpointManager:
         os.replace(tmp, self.path(name))
 
     def save_latest(self, state_tree, step: int) -> None:
-        self._save("latest", state_tree)
-        self._write_text("latest_step.json", json.dumps({"step": int(step)}))
+        if D.is_coordinator():
+            self._save("latest", state_tree)
+            self._write_text("latest_step.json",
+                             json.dumps({"step": int(step)}))
+        D.barrier()
 
     def save_step(self, state_tree, step: int) -> None:
-        self._save(f"step_{int(step):08d}", state_tree)
+        if D.is_coordinator():
+            self._save(f"step_{int(step):08d}", state_tree)
+        D.barrier()
 
     def save_best(self, state_tree, score: float, step: int,
                   extra: Optional[Dict] = None) -> None:
         """`extra` records the selection criterion beside the score, so that
         a resume can tell a score selected under another criterion."""
-        self._save("best", state_tree)
         meta = {"score": float(score), "step": int(step)}
         if extra:
             meta.update({k: (float(v) if isinstance(v, (int, float)) else v)
                          for k, v in extra.items()})
-        self._write_text("best_score.json", json.dumps(meta))
+        if D.is_coordinator():
+            self._save("best", state_tree)
+            self._write_text("best_score.json", json.dumps(meta))
+        D.barrier()
 
     # ---------------------------------------------------------- restore ----
     def restore(self, name: str, target_tree: Optional[Dict] = None,

@@ -14,10 +14,24 @@ recurrent layers run through ops.lstm.LSTMScan or ops.gru.GRUScan, whose
 forward and backward are the hand-written scan kernels. The trainer
 validates with eval/validator.ModelValidator (composite (STOI + WB-PESQ)/2,
 optionally blended with a probe set's), keeps the best model and writes
-report.html. Not ported yet: the multi-GPU step (ROADMAP.md, queue A item 6).
+report.html.
+
+With a mesh (parallel.make_mesh) the trainer is one rank of a multi-GPU
+job: the model trains under DistributedDataParallel (parallel.mesh.
+data_parallel), each step on this rank's rows of the global batch
+(parallel.mesh.place_rows), drop_band grouping each row by its index in the
+global batch, so the step is the single process's over the global batch;
+accum_steps > 1 adds the microbatches' gradients under DDP's no_sync. The
+losses it records are the global batch's (the mean over the ranks); every
+rank validates and takes rank 0's scores, so that all take the same
+best-model decision; rank 0 alone writes checkpoints and report.html; a
+resume takes rank 0's state on every rank. The JAX trainer takes a
+`subband_sharding` instead, which spreads the sub-band rows over the same
+data axis.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Callable, Optional, Tuple
@@ -35,6 +49,10 @@ from generative_audio_torch.ops.mask import (
     apply_crm, build_complex_ideal_ratio_mask_ri, decompress_cIRM)
 from generative_audio_torch.ops.stft import istft_ri, stft_ri
 from generative_audio_torch.ops.subband import drop_band
+from generative_audio_torch.parallel import distributed as D
+from generative_audio_torch.parallel.mesh import (
+    data_parallel, from_coordinator, mean_over_ranks, place_rows,
+    resume_from_coordinator)
 from generative_audio_torch.train.checkpoint import (
     CheckpointManager, resume_latest)
 from generative_audio_torch.train.state import TrainState, make_optimizer
@@ -87,11 +105,13 @@ def _model_config(config: EnhanceTrainConfig):
 
 
 def enhance_loss_fn(model: nn.Module, noisy: torch.Tensor,
-                    clean: torch.Tensor,
-                    config: EnhanceTrainConfig) -> torch.Tensor:
+                    clean: torch.Tensor, config: EnhanceTrainConfig,
+                    global_rows: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
     """Waveforms [B, L] on the model's device -> the scalar training loss.
     `model` is the FullSubNetPlus or FullSubNet that config.model_type
-    names."""
+    names, or its DistributedDataParallel; global_rows places the rows in a
+    global batch split over ranks (drop_band's argument)."""
     stft = (config.n_fft, config.hop_length, config.win_length)
     nr, ni = stft_ri(noisy, *stft)
     cr, ci = stft_ri(clean, *stft)
@@ -100,9 +120,10 @@ def enhance_loss_fn(model: nn.Module, noisy: torch.Tensor,
 
     def crm_of(num_groups: Optional[int] = None):                 # [B,2,F',T]
         if config.model_type == "fullsubnet":
-            return model(noisy_mag[:, None], num_groups=num_groups)
+            return model(noisy_mag[:, None], num_groups=num_groups,
+                         global_rows=global_rows)
         return model(noisy_mag[:, None], nr[:, None], ni[:, None],
-                     num_groups=num_groups)
+                     num_groups=num_groups, global_rows=global_rows)
 
     # The two full-band objectives run the same parameters with drop_band
     # off (num_groups=1): drop_band decimates the mask's frequencies and
@@ -123,7 +144,8 @@ def enhance_loss_fn(model: nn.Module, noisy: torch.Tensor,
                 + (1 - config.loss_alpha) * loss_cirm)
 
     gt_cirm = drop_band(gt_cirm.permute(0, 3, 1, 2),
-                        _model_config(config).num_groups_in_drop_band)
+                        _model_config(config).num_groups_in_drop_band,
+                        global_rows)
     crm = crm_of()
     if config.loss_type == "l1":
         return cirm_l1_loss(crm, gt_cirm)
@@ -151,15 +173,24 @@ def init_enhance_state(config: EnhanceTrainConfig, seed: int = 0,
 
 
 def make_enhance_train_step(config: EnhanceTrainConfig,
-                            accum_steps: int = 1) -> Callable:
-    """Returns step(state, noisy [B, L], clean [B, L]) -> (state, loss): one
-    optimizer update of `state` in place; the loss stays on the device.
+                            accum_steps: int = 1,
+                            net: Optional[nn.Module] = None) -> Callable:
+    """Returns step(state, noisy [B, L], clean [B, L], global_rows=None) ->
+    (state, loss): one optimizer update of `state` in place; the loss stays
+    on the device.
 
     accum_steps > 1 splits the batch into that many microbatches, adds up
     their gradients and makes ONE update with their mean; the loss returned
-    is the mean of the microbatch losses."""
+    is the mean of the microbatch losses. net: the module the step calls in
+    place of state.model, its DistributedDataParallel
+    (parallel.mesh.data_parallel) in a multi-GPU step, whose backward
+    averages the gradient over the ranks (after the last microbatch only:
+    the others run under its no_sync); global_rows: the batch's rows in the
+    global batch (parallel.mesh.place_rows), each microbatch then the same
+    share of a global microbatch."""
 
-    def train_step(state: TrainState, noisy, clean):
+    def train_step(state: TrainState, noisy, clean, global_rows=None):
+        model = state.model if net is None else net
         dev = next(state.model.parameters()).device
         noisy = torch.as_tensor(noisy, dtype=torch.float32).to(dev)
         clean = torch.as_tensor(clean, dtype=torch.float32).to(dev)
@@ -168,13 +199,19 @@ def make_enhance_train_step(config: EnhanceTrainConfig,
             raise ValueError(f"batch {b} is not a multiple of accum_steps "
                              f"{accum_steps}")
         micro = b // accum_steps
+        micro_rows = None if global_rows is None else (
+            global_rows[0] // accum_steps, global_rows[1] // accum_steps)
         state.model.train()
         loss_sum = torch.zeros((), device=dev)
         for k in range(accum_steps):
             rows = slice(k * micro, (k + 1) * micro)
-            loss = enhance_loss_fn(state.model, noisy[rows], clean[rows],
-                                   config)
-            (loss / accum_steps).backward()
+            sync = (model.no_sync() if k < accum_steps - 1
+                    and hasattr(model, "no_sync")
+                    else contextlib.nullcontext())
+            with sync:
+                loss = enhance_loss_fn(model, noisy[rows], clean[rows],
+                                       config, micro_rows)
+                (loss / accum_steps).backward()
             loss_sum += loss.detach()
         state.apply_gradients()
         return state, loss_sum / accum_steps
@@ -191,12 +228,14 @@ class EnhanceTrainer:
 
     def __init__(self, config: EnhanceTrainConfig, checkpoint_dir=None,
                  seed: int = 0, pretrained_state_dict=None, tracker=None,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config
         self.state = init_enhance_state(config, seed, device)
         if pretrained_state_dict is not None:
             self.state.model.load_state_dict(pretrained_state_dict)
-        self._step_fn = make_enhance_train_step(config)
+        self.mesh = mesh
+        self.net = data_parallel(self.state.model, mesh)
+        self._step_fn = make_enhance_train_step(config, net=self.net)
         self.ckpt = (CheckpointManager(checkpoint_dir, config)
                      if checkpoint_dir else None)
         self.best_score = -float("inf")
@@ -213,9 +252,11 @@ class EnhanceTrainer:
         # float(loss) per step would make the host wait for every step
         losses = []
         for noisy, clean in loader:
-            self.state, loss = self._step_fn(self.state, noisy, clean)
+            (noisy, clean), rows = place_rows((noisy, clean), self.mesh)
+            self.state, loss = self._step_fn(self.state, noisy, clean, rows)
             losses.append(loss)
-        avg = float(torch.stack(losses).mean().item()) if losses else 0.0
+        avg = (float(mean_over_ranks(torch.stack(losses), self.mesh)
+                     .mean().item()) if losses else 0.0)
         self.loss_history.append(avg)
         if self.tracker is not None:
             self.tracker.log({"train_loss": avg}, step=self.state.step)
@@ -292,14 +333,17 @@ class EnhanceTrainer:
             if val_dataset is None or epoch % validation_interval:
                 continue
             scores = self.validate(val_dataset)
+            if probe_dataset is not None:
+                scores["probe_composite"] = self.validate(
+                    probe_dataset)["composite"]
+            # every rank validated; rank 0's scores decide for all
+            scores = from_coordinator(scores, self.mesh)
             select = scores["composite"]
             if probe_dataset is not None:
-                probe = self.validate(probe_dataset)
-                scores["probe_composite"] = probe["composite"]
-                self.probe_history.append((step, probe["composite"]))
+                self.probe_history.append((step, scores["probe_composite"]))
                 if probe_weight > 0.0:
                     select = ((1.0 - probe_weight) * scores["composite"]
-                              + probe_weight * probe["composite"])
+                              + probe_weight * scores["probe_composite"])
                     scores["selection"] = select
             log(f"[Validate] Epoch {epoch}: {scores}")
             self.val_history.append((step, scores.get("composite") or 0.0))
@@ -320,7 +364,7 @@ class EnhanceTrainer:
                 # restore the score from before this validation
                 tree["best_score"] = float(self.best_score)
                 self.ckpt.save_latest(tree, step)
-        if self.ckpt:
+        if self.ckpt and D.is_coordinator():
             from generative_audio_torch.utils.report import (
                 write_training_report)
             write_training_report(
@@ -334,10 +378,10 @@ class EnhanceTrainer:
         trainer's; best_score.json wins when it holds a higher score."""
         _, restored = resume_latest(
             self.ckpt, self.state, extra={"best_score": self.best_score})
-        if restored is None:
-            return False
-        best_json = self.ckpt.best_score()
-        self.best_score = max(float(restored["best_score"]),
-                              best_json if best_json is not None
-                              else -float("inf"))
-        return True
+        if restored is not None:
+            best_json = self.ckpt.best_score()
+            self.best_score = max(float(restored["best_score"]),
+                                  best_json if best_json is not None
+                                  else -float("inf"))
+        return resume_from_coordinator(self, self.mesh, restored is not None,
+                                       "best_score")

@@ -26,8 +26,16 @@ default; raises without one) or "cpu"; the distortions draw from
 given), so noise draws differ from the JAX trainers' jax.random ones. The
 nets' convolutions run with cuDNN's TF32 in train_step
 (utils.device.conv_tf32); `loss_value`, `objective` and the benchmarks
-leave the flag as they find it. The multi-GPU step waits for ROADMAP.md,
-queue A item 6.
+leave the flag as they find it.
+
+With a mesh (parallel.make_mesh) each trainer is one rank of a multi-GPU
+job, as the JAX trainers take `mesh`: every rank draws the same batch
+order, takes its rows of each global batch, draws its rows of the global
+batch's distortion noise (global_rows) and trains the wrapper under
+DistributedDataParallel, so that a step is the single process's over the
+global batch; the recorded losses are the global batch's; every rank runs
+the benchmark and takes rank 0's score, so that all keep the same best
+parameters; rank 0 alone writes the checkpoints and report.html.
 """
 from __future__ import annotations
 
@@ -41,6 +49,9 @@ from generative_audio_torch.models.image_nppc import (
     ImageNPPCConfig, ImageNPPCModel)
 from generative_audio_torch.models.image_restoration import (
     ImageRestorationConfig, ImageRestorationModel)
+from generative_audio_torch.parallel import distributed as D
+from generative_audio_torch.parallel.mesh import (
+    data_parallel, from_coordinator, mean_over_ranks, place_rows)
 from generative_audio_torch.train.checkpoint import CheckpointManager
 from generative_audio_torch.train.state import TrainState, make_optimizer
 from generative_audio_torch.utils.device import conv_tf32, resolve_device
@@ -62,8 +73,9 @@ class _ImageTrainerBase:
     and report."""
 
     def __init__(self, checkpoint_dir, config_for_ckpt, seed: int, device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], mesh):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.ckpt = (CheckpointManager(checkpoint_dir, config_for_ckpt)
                      if checkpoint_dir else None)
         self.generator = generator or torch.Generator(
@@ -73,8 +85,9 @@ class _ImageTrainerBase:
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
 
     def _device_batch(self, batch) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(batch), dtype=torch.float32).to(
-            self.device, non_blocking=True)
+        return torch.as_tensor(
+            batch if isinstance(batch, torch.Tensor) else np.asarray(batch),
+            dtype=torch.float32).to(self.device, non_blocking=True)
 
     def _maybe_update_best(self, score: float) -> bool:
         """Keep a copy (not an alias) of the parameters where `score` is the
@@ -95,8 +108,9 @@ class _ImageTrainerBase:
             yield np.stack([np.asarray(dataset[int(i)]) for i in chunk])
 
     def step(self, x_org) -> float:
-        """One optimizer update on a batch of clean images; the loss."""
-        return float(self.train_step(x_org))
+        """One optimizer update on a batch of clean images; the loss (the
+        global batch's under a mesh)."""
+        return float(mean_over_ranks(self.train_step(x_org), self.mesh))
 
     def train(self, n_steps: int, batch_size: int = 32,
               benchmark_every: Optional[int] = None, log=print):
@@ -120,7 +134,9 @@ class _ImageTrainerBase:
             if benchmark_every and (step_i + 1) % benchmark_every == 0:
                 self._fetch(pending)
                 pending = []
-                score = self.benchmark(batch_size=batch_size)
+                # every rank ran it; rank 0's score decides for all
+                score = from_coordinator(
+                    self.benchmark(batch_size=batch_size), self.mesh)
                 is_best = self._maybe_update_best(score)
                 log(f"step {self.state.step}: loss={self.loss_history[-1]:.5f} "
                     f"benchmark={score:.5f}{' *best*' if is_best else ''}")
@@ -131,12 +147,14 @@ class _ImageTrainerBase:
             if self.best_params is not None:
                 self.ckpt.save_best({"params": self.best_params, "step": step},
                                     self.best_score, step)
-            self.write_report(self.ckpt.directory / "report.html")
+            if D.is_coordinator():
+                self.write_report(self.ckpt.directory / "report.html")
         return self.loss_history
 
     def _fetch(self, pending):
         if pending:
-            self.loss_history.extend(torch.stack(pending).cpu().tolist())
+            self.loss_history.extend(mean_over_ranks(
+                torch.stack(pending), self.mesh).cpu().tolist())
 
     def write_report(self, path):
         """One self-contained HTML report: the loss curve, a summary and the
@@ -183,21 +201,26 @@ class ImageRestorationTrainer(_ImageTrainerBase):
     def __init__(self, config: ImageRestorationConfig,
                  model: Optional[ImageRestorationModel] = None,
                  checkpoint_dir: Optional[str] = None, seed: int = 0,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 mesh=None):
         self.config = config
         self.model = model or _seeded(config.random_seed,
                                       lambda: ImageRestorationModel(config))
-        super().__init__(checkpoint_dir, config, seed, device, generator)
+        super().__init__(checkpoint_dir, config, seed, device, generator,
+                         mesh)
         self.model.to(self.device)
         wrapper = self.model.wrapper
         self.state = TrainState(wrapper, make_optimizer(
             wrapper.parameters(), config.lr, (0.9, 0.999)))
+        self.net = data_parallel(wrapper, mesh)
 
-    def loss_value(self, x_org: torch.Tensor,
-                   x_distorted: torch.Tensor) -> torch.Tensor:
+    def loss_value(self, x_org: torch.Tensor, x_distorted: torch.Tensor,
+                   net=None) -> torch.Tensor:
         """The MSE or MAE of the restored image against x_org (JAX:
-        _loss_value)."""
-        err = x_org - self.model.restore(x_distorted)
+        _loss_value); net: the module called in place of the wrapper (its
+        DistributedDataParallel in a multi-GPU step)."""
+        err = x_org - (self.model.restore(x_distorted) if net is None
+                       else net(x_distorted))
         if self.config.loss_type == "mse":
             return torch.mean(torch.square(err))
         if self.config.loss_type == "mae":
@@ -207,10 +230,11 @@ class ImageRestorationTrainer(_ImageTrainerBase):
     def train_step(self, x_org) -> torch.Tensor:
         """One Adam update on a batch of clean images; the loss, on the
         device."""
+        x_org, rows = place_rows(x_org, self.mesh)
         x_org = self._device_batch(x_org)
         with conv_tf32():
-            x_distorted = self.model.distort(x_org, self.generator)
-            loss = self.loss_value(x_org, x_distorted)
+            x_distorted = self.model.distort(x_org, self.generator, rows)
+            loss = self.loss_value(x_org, x_distorted, self.net)
             loss.backward()
         self.state.apply_gradients()
         return loss.detach()
@@ -263,32 +287,40 @@ class ImageNPPCTrainer(_ImageTrainerBase):
                  restoration_model: ImageRestorationModel,
                  restoration_variables=None,
                  checkpoint_dir: Optional[str] = None, seed: int = 0,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 mesh=None):
         self.config = config
         self.restoration_model = restoration_model
         if restoration_variables is not None:
             restoration_model.wrapper.load_state_dict(restoration_variables)
         self.model = _seeded(config.random_seed,
                              lambda: ImageNPPCModel(config, restoration_model))
-        super().__init__(checkpoint_dir, config, seed, device, generator)
+        super().__init__(checkpoint_dir, config, seed, device, generator,
+                         mesh)
         restoration_model.to(self.device)
         self.model.to(self.device)
         wrapper = self.model.wrapper
         self.state = TrainState(wrapper, make_optimizer(
             wrapper.parameters(), config.lr, (0.9, 0.999)))
+        self.net = data_parallel(wrapper, mesh)
 
     def process_batch(self, x_org: torch.Tensor,
-                      generator: Optional[torch.Generator]):
+                      generator: Optional[torch.Generator],
+                      global_rows=None):
         """(x_distorted, x_restored) of the frozen restoration model, without
-        gradient (JAX: _process_batch)."""
+        gradient (JAX: _process_batch); global_rows: the rows' place in the
+        global batch of a multi-GPU step, for the noise."""
         with torch.no_grad():
-            x_distorted = self.restoration_model.distort(x_org, generator)
+            x_distorted = self.restoration_model.distort(x_org, generator,
+                                                         global_rows)
             return x_distorted, self.restoration_model.restore(x_distorted)
 
-    def objective(self, x_org, x_distorted, x_restored, step):
+    def objective(self, x_org, x_distorted, x_restored, step, net=None):
         """(objective, reconst_err [B]) of the current directions (JAX:
-        _objective)."""
-        w_mat = self.model.get_dirs(x_distorted, x_restored)
+        _objective); net: the module called in place of the PC wrapper
+        (its DistributedDataParallel in a multi-GPU step)."""
+        w_mat = (self.model.get_dirs(x_distorted, x_restored) if net is None
+                 else net(x_distorted, x_restored))
         reconst_err, objective, _ = nppc_objective_real(
             w_mat, x_org - x_restored, step,
             self.config.second_moment_loss_grace,
@@ -298,12 +330,13 @@ class ImageNPPCTrainer(_ImageTrainerBase):
     def train_step(self, x_org) -> torch.Tensor:
         """One Adam update on a batch of clean images; the objective, on the
         device."""
+        x_org, rows = place_rows(x_org, self.mesh)
         x_org = self._device_batch(x_org)
         with conv_tf32():
-            x_distorted, x_restored = self.process_batch(x_org,
-                                                         self.generator)
+            x_distorted, x_restored = self.process_batch(
+                x_org, self.generator, rows)
             objective, _ = self.objective(x_org, x_distorted, x_restored,
-                                          self.state.step)
+                                          self.state.step, self.net)
             objective.backward()
         self.state.apply_gradients()
         return objective.detach()

@@ -21,7 +21,14 @@ the update, as the JAX trainers read state.step.
     ground-truth cIRM comes from the float32 STFTs of the noisy and clean
     waveforms; drop_band with the head's G is applied to both masks; the
     complex NPPC objective.
-The multi-GPU step waits for ROADMAP.md, queue A item 6.
+With a mesh (parallel.make_mesh) each trainer is one rank of a multi-GPU
+job: the PC head alone trains under DistributedDataParallel (the frozen
+model stays outside it, under no_grad), each step on this rank's rows of
+the global batch, drop_band, the dropout masks and the MC passes' masks
+drawn for the global batch (global_rows), so that the step is the single
+process's over the global batch; the PC UNet's BatchNorm takes the global
+batch's statistics. The recorded metrics are the global batch's; rank 0
+alone writes checkpoints; a resume takes rank 0's state on every rank.
 """
 from __future__ import annotations
 
@@ -41,6 +48,9 @@ from generative_audio_torch.ops.preprocess import preprocess_data
 from generative_audio_torch.ops.mask import build_complex_ideal_ratio_mask_ri
 from generative_audio_torch.ops.stft import stft_ri
 from generative_audio_torch.ops.subband import drop_band
+from generative_audio_torch.parallel.mesh import (
+    data_parallel, from_coordinator, mean_over_ranks, place_rows,
+    resume_from_coordinator)
 from generative_audio_torch.train.checkpoint import (
     CheckpointManager, resume_latest)
 from generative_audio_torch.train.state import TrainState, make_optimizer
@@ -88,11 +98,11 @@ class NPPCInpaintingTrainer:
     state_dict or the JAX variables (None keeps the seeded init). device:
     "cuda" (default; raises without one) or "cpu"; seed: the init, and with
     seed + 1 the generator of the PC UNet's dropout and of the MC passes'
-    seeds."""
+    seeds; mesh: a parallel.make_mesh() of a multi-GPU job, or None."""
 
     def __init__(self, config: NPPCInpaintingTrainConfig,
                  restoration_variables=None, checkpoint_dir=None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         self.config = config
         dev = resolve_device(device)
         with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
@@ -107,6 +117,8 @@ class NPPCInpaintingTrainer:
         self.state = TrainState(model, optimizer,
                                 clip_norm=config.max_grad_norm)
         self.device = dev
+        self.mesh = mesh
+        self.net = data_parallel(model.pc_wrapper, mesh)
         self.generator = torch.Generator(device=dev).manual_seed(seed + 1)
         self._mc_seeds = np.random.default_rng(seed + 1)
         self.ckpt = (CheckpointManager(checkpoint_dir, config)
@@ -141,21 +153,26 @@ class NPPCInpaintingTrainer:
         return [torch.Generator(device=self.device).manual_seed(int(s))
                 for s in seeds]
 
-    def objective(self, batch, step, train: bool):
+    def objective(self, batch, step, train: bool, global_rows=None):
         """(objective, reconst_err [B], log) of a batch (tensors on the
-        device), with the lambda of `step`."""
+        device), with the lambda of `step`; global_rows: the rows' place in
+        the global batch of a multi-GPU step, whose head is then the
+        DistributedDataParallel one."""
         c = self.config
         masked_spec, mask_frames, clean_spec = batch
         clean_norm_log, mask4, masked_norm_log = preprocess_data(
-            clean_spec, masked_spec, mask_frames)
+            clean_spec, masked_spec, mask_frames,
+            group=(self.mesh.get_group("data")
+                   if train and self.mesh is not None else None))
         model = self.state.model
         w_mat, pred = model.forward_with_pred(
             masked_norm_log, mask4, train=train,
-            generator=self.generator if train else None)
+            generator=self.generator if train else None,
+            head=self.net if train else None, global_rows=global_rows)
         if c.objective_variant == "mc_pca_aligned":
             baseline = calculate_unet_baseline(
-                model.mc_restoration, masked_norm_log, mask4,
-                self._mc_generators(train),
+                lambda x, m, g: model.mc_restoration(x, m, g, global_rows),
+                masked_norm_log, mask4, self._mc_generators(train),
                 n_components=c.model.pc_wrapper.n_dirs,
                 mc_chunk_size=c.mc_chunk_size)
             reconst_err, objective, log = nppc_objective_mc_aligned(
@@ -174,9 +191,11 @@ class NPPCInpaintingTrainer:
         """One optimizer update on a collate_inpainting batch; returns
         (objective, mean reconst_err), on the device."""
         state = self.state
+        batch, rows = place_rows(batch, self.mesh)
         with conv_tf32():
             objective, reconst_err, _ = self.objective(
-                device_batch(batch, self.device), state.step, train=True)
+                device_batch(batch, self.device), state.step, train=True,
+                global_rows=rows)
             objective.backward()
         state.apply_gradients()
         return objective.detach(), reconst_err.detach().mean()
@@ -198,7 +217,8 @@ class NPPCInpaintingTrainer:
                 msg = (f"step {step}: objective={self.loss_history[-1]:.5f} "
                        f"reconst_err={self.reconst_err_history[-1]:.5f}")
                 if val_loader is not None:
-                    v_obj, v_rec = self.validate(val_loader)
+                    v_obj, v_rec = from_coordinator(
+                        self.validate(val_loader), self.mesh)
                     msg += f" val={v_obj:.5f}/{v_rec:.5f}"
                 log(msg)
             if self.ckpt and step % self.config.save_interval == 0:
@@ -229,15 +249,18 @@ class NPPCInpaintingTrainer:
     def restore_latest(self) -> bool:
         """Resume from the latest checkpoint (`-R`): parameters (both UNets'
         and their BatchNorm statistics), the optimizer's state and the
-        step."""
+        step (rank 0's on every rank)."""
         new_state, _ = resume_latest(self.ckpt, self.state)
-        return new_state is not None
+        return resume_from_coordinator(self, self.mesh, new_state is not None)
 
 
 def _fetch(trainer, pending):
-    """(objective, reconst_err) pairs on the device -> the histories."""
+    """(objective, reconst_err) pairs on the device -> the histories (the
+    global batch's: the mean over the ranks)."""
     if pending:
-        values = torch.stack([torch.stack(p) for p in pending]).cpu()
+        values = mean_over_ranks(torch.stack([torch.stack(p)
+                                              for p in pending]),
+                                 trainer.mesh).cpu()
         trainer.loss_history.extend(values[:, 0].tolist())
         trainer.reconst_err_history.extend(values[:, 1].tolist())
 
@@ -270,11 +293,12 @@ class NPPCDenoisingTrainer:
     state_dict or the JAX param tree (None keeps the seeded init, as the JAX
     trainer keeps its random init). device: "cuda" (default; raises without
     one) or "cpu"; compute_dtype: bf16 on the card, float32 for the CPU
-    tests."""
+    tests; mesh: a parallel.make_mesh() of a multi-GPU job, or None."""
 
     def __init__(self, config: NPPCDenoisingTrainConfig,
                  restoration_params=None, checkpoint_dir=None, seed: int = 0,
-                 device=None, compute_dtype: torch.dtype = torch.bfloat16):
+                 device=None, compute_dtype: torch.dtype = torch.bfloat16,
+                 mesh=None):
         self.config = config
         dev = resolve_device(device)
         with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
@@ -289,23 +313,30 @@ class NPPCDenoisingTrainer:
         self.state = TrainState(model, optimizer,
                                 clip_norm=config.max_grad_norm)
         self.device = dev
+        self.mesh = mesh
+        self.net = data_parallel(model.audio_pc_wrapper, mesh)
         self.ckpt = (CheckpointManager(checkpoint_dir, config)
                      if checkpoint_dir else None)
         self.loss_history = []
         self.reconst_err_history = []
 
-    def objective(self, noisy: torch.Tensor, clean: torch.Tensor, step):
+    def objective(self, noisy: torch.Tensor, clean: torch.Tensor, step,
+                  global_rows=None, head=None):
         """(objective, reconst_err [B], log) of waveforms [B, L] on the
-        model's device, with the lambda of `step`."""
+        model's device, with the lambda of `step`; global_rows: the rows'
+        place in the global batch of a multi-GPU step (drop_band's
+        argument); head: the module called in place of the PC head (its
+        DistributedDataParallel in such a step)."""
         c = self.config
         s = c.model.stft
-        w_mat, pred_crm = self.state.model.forward_with_pred_crm(noisy)
+        w_mat, pred_crm = self.state.model.forward_with_pred_crm(
+            noisy, head=head, global_rows=global_rows)
         nr, ni = stft_ri(noisy, s.nfft, s.hop_length, s.win_length)
         cr, ci = stft_ri(clean, s.nfft, s.hop_length, s.win_length)
         gt_crm = build_complex_ideal_ratio_mask_ri(nr, ni, cr, ci)
         groups = c.model.pc_wrapper.num_groups_in_drop_band
-        gt_crm = drop_band(gt_crm.permute(0, 3, 1, 2), groups)
-        pred_crm = drop_band(pred_crm, groups)
+        gt_crm = drop_band(gt_crm.permute(0, 3, 1, 2), groups, global_rows)
+        pred_crm = drop_band(pred_crm, groups, global_rows)
         reconst_err, objective, log = nppc_objective_complex(
             w_mat, gt_crm, pred_crm, step,
             grace=c.second_moment_loss_grace,
@@ -315,11 +346,13 @@ class NPPCDenoisingTrainer:
     def train_step(self, noisy, clean) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer update on a batch of (noisy, clean) waveforms
         [B, L]; returns (objective, mean reconst_err), on the device."""
+        (noisy, clean), rows = place_rows((noisy, clean), self.mesh)
         noisy = torch.as_tensor(noisy, dtype=torch.float32).to(self.device)
         clean = torch.as_tensor(clean, dtype=torch.float32).to(self.device)
         state = self.state
         state.model.train()
-        objective, reconst_err, _ = self.objective(noisy, clean, state.step)
+        objective, reconst_err, _ = self.objective(
+            noisy, clean, state.step, global_rows=rows, head=self.net)
         objective.backward()
         state.apply_gradients()
         return objective.detach(), reconst_err.detach().mean()
@@ -354,6 +387,6 @@ class NPPCDenoisingTrainer:
 
     def restore_latest(self) -> bool:
         """Resume from the latest checkpoint (`-R`): step, parameters and the
-        optimizer's state."""
+        optimizer's state (rank 0's on every rank)."""
         new_state, _ = resume_latest(self.ckpt, self.state)
-        return new_state is not None
+        return resume_from_coordinator(self, self.mesh, new_state is not None)

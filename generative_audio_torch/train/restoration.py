@@ -12,8 +12,17 @@ across a resume; latest/ every save_interval steps and at the end, with a
 step-tagged copy and metrics_final_*.json.
 
 The UNet's convolutions run with cuDNN's TF32 (torch's default; scoped by
-utils.device.conv_tf32), forward and backward. The multi-GPU step waits for
-ROADMAP.md, queue A item 6.
+utils.device.conv_tf32), forward and backward.
+
+With a mesh (parallel.make_mesh) the trainer is one rank of a multi-GPU
+job: the UNet trains under DistributedDataParallel on this rank's rows of
+the global batch, with the global batch's BatchNorm statistics, its
+dropout masks drawn for the global batch and the masked MSE divided by the
+global gap count, so that the step is the single process's over the
+global batch. The recorded losses are the global batch's; every rank
+validates and takes rank 0's score, so that all take the same best/
+decision; rank 0 alone writes checkpoints; a resume takes rank 0's state
+and best_val on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +38,9 @@ from generative_audio_torch.losses import masked_mse_loss
 from generative_audio_torch.models.nppc_model import (
     InpaintingRestorationModel, UNetModelConfig)
 from generative_audio_torch.ops.preprocess import preprocess_data
+from generative_audio_torch.parallel.mesh import (
+    data_parallel, from_coordinator, mean_over_ranks, place_rows,
+    resume_from_coordinator)
 from generative_audio_torch.train.checkpoint import (
     CheckpointManager, resume_latest)
 from generative_audio_torch.train.state import TrainState, make_optimizer
@@ -58,9 +70,10 @@ class RestorationTrainConfig:
 
 def device_batch(batch, device):
     """(stft_masked [B, 2, F, T], mask_frames [B, T], stft_clean
-    [B, 2, F, T]) of a collate_inpainting batch as float32 tensors on
-    device."""
-    return tuple(torch.as_tensor(np.asarray(x), dtype=torch.float32
+    [B, 2, F, T]) of a collate_inpainting batch (numpy arrays, or tensors
+    on any device) as float32 tensors on device."""
+    return tuple(torch.as_tensor(x if isinstance(x, torch.Tensor)
+                                 else np.asarray(x), dtype=torch.float32
                                  ).to(device, non_blocking=True)
                  for x in batch[:3])
 
@@ -81,17 +94,18 @@ def save_run(trainer, step: int, final: bool, loss_key: str,
         if reconst_key:
             metrics[reconst_key] = (trainer.reconst_err_history[-1]
                                     if trainer.reconst_err_history else None)
-        (trainer.ckpt.directory / f"metrics_final_{ts}.json").write_text(
-            json.dumps(metrics, indent=4))
+        trainer.ckpt.write_text(f"metrics_final_{ts}.json",
+                                json.dumps(metrics, indent=4))
 
 
 class RestorationTrainer:
     """device: "cuda" (default; raises without one) or "cpu"; seed: the
     UNet's init (torch's default initialisers) and, with seed + 1, the
-    dropout masks' generator."""
+    dropout masks' generator; mesh: a parallel.make_mesh() of a multi-GPU
+    job, or None."""
 
     def __init__(self, config: RestorationTrainConfig, checkpoint_dir=None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         self.config = config
         dev = resolve_device(device)
         with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
@@ -105,6 +119,8 @@ class RestorationTrainer:
                                 clip_norm=config.clip_grad_norm,
                                 ema_decay=config.ema_decay)
         self.device = dev
+        self.mesh = mesh
+        self.net = data_parallel(model, mesh)
         self.generator = torch.Generator(device=dev).manual_seed(seed + 1)
         self.ckpt = (CheckpointManager(checkpoint_dir, config)
                      if checkpoint_dir else None)
@@ -112,17 +128,25 @@ class RestorationTrainer:
         self.val_loss_history = []
         self.best_val = float("inf")
 
-    def loss(self, batch, train: bool) -> torch.Tensor:
+    def loss(self, batch, train: bool, global_rows=None) -> torch.Tensor:
         """The gap's masked MSE of a batch (tensors on the device). With
-        train=False it is taken on the EMA parameters where there are."""
+        train=False it is taken on the EMA parameters where there are. In
+        training under a mesh the batch is this rank's rows of the global
+        batch at global_rows: the normalisation takes the global batch's
+        statistics and the loss is this rank's share of the global batch's
+        (ops.preprocess.preprocess_data, losses.masked_mse_loss with DDP's
+        group)."""
         masked_spec, mask_frames, clean_spec = batch
+        group = (self.mesh.get_group("data")
+                 if train and self.mesh is not None else None)
         clean_norm_log, mask4, masked_norm_log = preprocess_data(
-            clean_spec, masked_spec, mask_frames)
+            clean_spec, masked_spec, mask_frames, group=group)
         model = self.state.model
         if train:
-            out = model(masked_norm_log, mask4, train=True,
-                        generator=self.generator)
-        elif self.state.ema_params is not None:
+            out = self.net(masked_norm_log, mask4, train=True,
+                           generator=self.generator, global_rows=global_rows)
+            return masked_mse_loss(out, clean_norm_log, mask4, group=group)
+        if self.state.ema_params is not None:
             out = torch.func.functional_call(
                 model, self.state.ema_params, (masked_norm_log, mask4),
                 {"train": False})
@@ -132,9 +156,12 @@ class RestorationTrainer:
 
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer update on a collate_inpainting batch; returns the
-        loss, on the device."""
+        loss, on the device (under a mesh this rank's share times the
+        ranks: their mean is the global batch's loss)."""
+        batch, rows = place_rows(batch, self.mesh)
         with conv_tf32():
-            loss = self.loss(device_batch(batch, self.device), train=True)
+            loss = self.loss(device_batch(batch, self.device), train=True,
+                             global_rows=rows)
             loss.backward()
         self.state.apply_gradients()
         return loss.detach()
@@ -156,7 +183,9 @@ class RestorationTrainer:
                 pending = []
                 msg = f"step {step}: loss={self.loss_history[-1]:.5f}"
                 if val_loader is not None:
-                    val = self.validate(val_loader)
+                    # every rank validated; rank 0's score decides for all
+                    val = from_coordinator(self.validate(val_loader),
+                                           self.mesh)
                     self.val_loss_history.append((step, val))
                     msg += f" val_loss={val:.5f}"
                     # the NPPC head wraps the val-minimum model, not the
@@ -177,7 +206,8 @@ class RestorationTrainer:
 
     def _fetch(self, pending):
         if pending:
-            self.loss_history.extend(torch.stack(pending).cpu().tolist())
+            self.loss_history.extend(mean_over_ranks(
+                torch.stack(pending), self.mesh).cpu().tolist())
 
     def selected_state_dict(self):
         """The model's state_dict with the EMA parameters where there are:
@@ -207,9 +237,9 @@ class RestorationTrainer:
         best validation score, so that a resumed run cannot replace best/
         with a worse model."""
         new_state, _ = resume_latest(self.ckpt, self.state)
-        if new_state is None:
-            return False
-        best = self.ckpt.best_score()
-        if best is not None:
-            self.best_val = float(best)
-        return True
+        if new_state is not None:
+            best = self.ckpt.best_score()
+            if best is not None:
+                self.best_val = float(best)
+        return resume_from_coordinator(self, self.mesh, new_state is not None,
+                                       "best_val")

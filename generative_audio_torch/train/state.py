@@ -55,7 +55,9 @@ class TrainState:
 
     `apply_gradients()` consumes the `.grad` of every parameter: clip by the
     global norm (when clip_norm is set), one optimizer step, the EMA update,
-    step += 1, and the gradients are dropped."""
+    step += 1, and the gradients are dropped. Under DistributedDataParallel
+    the gradients it finds are already averaged over the ranks, so the clip
+    acts on the global batch's gradient, in optax's order."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  clip_norm: Optional[float] = None, ema_decay: float = 0.0):

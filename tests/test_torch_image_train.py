@@ -25,6 +25,7 @@ On the same (x_org, x_distorted):
 """
 import json
 import shutil
+import socket
 from pathlib import Path
 
 import jax
@@ -389,8 +390,36 @@ def test_cli_image_lines_refuse(tmp_path, monkeypatch, small_digits):
     with pytest.raises(ValueError, match="do not resume"):
         train_cli.main(["-C", str(REPO / "configs/image_restoration.yaml"),
                         "-R", "--steps", "1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    for var in ("MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                "GAT_COORDINATOR", "GAT_NUM_PROCESSES"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    with pytest.raises(RuntimeError, match="lacks MASTER_PORT, RANK, "
+                       "WORLD_SIZE, LOCAL_RANK"):
         train_cli.main(["-C", str(cfg), "--distributed", "--device", "cpu"])
+    # the launcher's environment starts the job without a flag: both image
+    # lines train as the one rank of a gloo world, under DDP
+    from generative_audio_torch.parallel import distributed as D
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for var, value in (("GAT_COORDINATOR", f"127.0.0.1:{port}"),
+                       ("GAT_NUM_PROCESSES", "1"), ("GAT_PROCESS_ID", "0"),
+                       ("GAT_BACKEND", "gloo"), ("GAT_TIMEOUT", "60")):
+        monkeypatch.setenv(var, value)
+    try:
+        rest = train_cli.main(["-C", str(REPO / "configs/image_restoration"
+                                         ".yaml"), "--steps", "1",
+                               "--device", "cpu"])
+        assert D.is_initialized() and rest.mesh is not None
+        assert type(rest.net).__name__ == "DistributedDataParallel"
+        assert rest.state.step == 1
+        nppc = train_cli.main(["-C", str(REPO / "configs/image_nppc.yaml"),
+                               "--steps", "1", "--device", "cpu"])
+        assert nppc.mesh is not None and nppc.state.step == 1
+        assert np.isfinite(nppc.loss_history).all()
+    finally:
+        D.shutdown()
 
 
 def test_image_trainer_needs_cuda_unless_asked_for_the_cpu(monkeypatch):

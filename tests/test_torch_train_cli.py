@@ -171,12 +171,15 @@ def test_train_cli_loss_history_equals_trainer(tmp_path, corpus, steps,
 @pytest.mark.parametrize("line,item", [
     ("restoration", 8), ("nppc_inpainting", 8),
     ("image_restoration", 9), ("image_nppc", 9), ("distributed", 6)])
-def test_train_cli_unported_raise(tmp_path, corpus, line, item):
-    """--distributed, still to port, raises naming its item of ROADMAP.md's
-    queue A. Items 8 and 9's lines are ported: they refuse this enhance-line
-    config in their own way (the restoration line's dataset has no
-    noisy_path, the nppc_inpainting line takes no validation: block, the
-    image lines take no data: block)."""
+def test_train_cli_unported_raise(tmp_path, corpus, monkeypatch, line,
+                                  item):
+    """Queue A's items 6, 8 and 9 are ported. --distributed (item 6) takes
+    the job from torchrun's environment: without its variables it raises a
+    RuntimeError naming them (a 2-rank run: tests/test_torch_distributed.py).
+    Items 8 and 9's lines refuse this enhance-line config in their own way
+    (the restoration line's dataset has no noisy_path, the nppc_inpainting
+    line takes no validation: block, the image lines take no data:
+    block)."""
     if line == "distributed":
         argv = ["-C", str(_config(tmp_path, corpus)), "--distributed"]
     else:
@@ -185,7 +188,12 @@ def test_train_cli_unported_raise(tmp_path, corpus, line, item):
         with pytest.raises(ValueError, match="noisy_path|validation|no data"):
             train_cli.main(argv + ["--device", "cpu"])
         return
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                "LOCAL_RANK", "GAT_COORDINATOR", "GAT_NUM_PROCESSES"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun's environment, which "
+                       "lacks MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, "
+                       "LOCAL_RANK"):
         train_cli.main(argv + ["--device", "cpu"])
 
 
