@@ -260,6 +260,20 @@ of which fails the run (non-zero exit, no result line):
      a rank), strict float32, two steps: losses and BatchNorm running
      statistics against one process. The ranks' C and D launches add to
      the kernels line's.
+ 21. the band axis on the one card, through cli.launch running this
+     script's --phase21 mode as gloo ranks sharing the card: (a) 2 ranks,
+     make_mesh(data=1, band=2): two EnhanceTrainer steps of FullSubNet+
+     and then of FullSubNet v1-GRU at full width on phase 20's batch of 18
+     (bf16), each rank's sub-band scans over its 1152 of the 2304 sub-band
+     rows (the v1 full-band GRU over all 18 rows); (b) 4 ranks,
+     make_mesh(data=2, band=2): two FullSubNet+ steps, 9 rows a data group
+     and 576 sub-band rows a rank. Against one process on the card: the
+     step-1 loss and gradient under phase 20's limits, every rank's
+     parameters bit for bit equal, exact launches a step on each rank,
+     each rank's step-1 scan launches (kernels C and D; the GRU forward
+     and backward) held on their operands against the plain versions; the
+     ms of each step and the split's and gather's share of it (CUDA events
+     around them). The ranks' launches add to the kernels line's.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -267,10 +281,11 @@ path of phase 16 and phase 18's model paths (whose launches add to kernel
 A's, in phases 14-16 to kernel B's too, in phases 15-16 and 18 to kernels
 C's and D's, and in phase 18 to the GRU kernels'), and in each rank of
 phase 20 around each DDP step and each cli.train run (whose launches add to
-kernels C's and D's). The second-to-last line of stdout is
+kernels C's and D's) and of phase 21 around each step (C's and D's, and the
+GRU kernels'). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
-20, run by cli.launch.
+20, `--phase21 PART OUT` one of phase 21, run by cli.launch.
 """
 import contextlib
 import dataclasses
@@ -3534,8 +3549,8 @@ def _instrumented_trainer(steps, validations, restores):
     make_step, validate = E.make_enhance_train_step, E.EnhanceTrainer.validate
     restore = E.EnhanceTrainer.restore_latest
 
-    def make_timed(config, accum_steps=1, net=None):
-        step = make_step(config, accum_steps, net)
+    def make_timed(config, accum_steps=1, net=None, subband_sharding=None):
+        step = make_step(config, accum_steps, net, subband_sharding)
 
         def timed(state, noisy, clean, global_rows=None):
             t0 = time.perf_counter()
@@ -5979,8 +5994,8 @@ DDP_TIMEOUT = 600          # seconds for a launch, its ranks included
 DDP_BATCH_SEED, DDP_REST_SEED = SEED + 20, SEED + 34
 
 
-def _ddp_launch(part, out, nprocs, backend, per_device=1):
-    """cli.launch of this script's `--phase20 part out` in a session of its
+def _ddp_launch(part, out, nprocs, backend, per_device=1, mode="--phase20"):
+    """cli.launch of this script's `mode part out` in a session of its
     own (so that a launch past its time is killed whole); returns the
     Popen, its output going to out/part.log."""
     import os
@@ -5989,7 +6004,7 @@ def _ddp_launch(part, out, nprocs, backend, per_device=1):
            "--nprocs", str(nprocs), "--backend", backend]
     if per_device > 1:
         cmd += ["--ranks-per-device", str(per_device)]
-    cmd += ["--", sys.executable, str(root / "chip_smoke.py"), "--phase20",
+    cmd += ["--", sys.executable, str(root / "chip_smoke.py"), mode,
             part, str(out)]
     env = dict(os.environ, GAT_TIMEOUT="300", PYTHONPATH=os.pathsep.join(
         [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(
@@ -6014,7 +6029,7 @@ def _ddp_wait(proc, out, part):
     for line in text.splitlines():
         if "hostname of the client socket" not in line:
             log(f"  [{part}] {line}")
-    check(proc.returncode == 0, f"phase 20 {part} launch exited 0 "
+    check(proc.returncode == 0, f"the {part} launch exited 0 "
           f"(got {proc.returncode})")
 
 
@@ -6166,7 +6181,9 @@ def ddp_worker(part, out):
 
 def phase_multi_gpu(dev, plus):
     """Phase 20 (see DDP_* above); returns the ranks' scan launches, which
-    the kernels line adds to the main path's."""
+    the kernels line adds to the main path's, and (b)'s single-process
+    reference: {"loss", "grads"} of FullSubNet+'s first step on the seeded
+    batch."""
     check(torch.distributed.is_available()
           and torch.distributed.is_nccl_available(),
           "torch.distributed with NCCL on this machine")
@@ -6254,18 +6271,14 @@ def phase_multi_gpu(dev, plus):
             launched[k] += sum(c.get(k, 0) for c in r["enhance"]["launches"])
     loss = ranks[0]["enhance"]["losses"][0]
     loss_rel = abs(loss - ref_loss) / abs(ref_loss)
-    a_vec = torch.cat([grads[k].flatten() for k in sorted(ref_grads)])
-    b_vec = torch.cat([ref_grads[k].flatten() for k in sorted(ref_grads)])
-    cos = float(a_vec @ b_vec / (a_vec.norm() * b_vec.norm()))
-    norm_rel = float(abs(a_vec.norm() / b_vec.norm() - 1))
+    cos, norm_rel, a_norm, b_norm = _grads_vs(grads, ref_grads)
     log(f"phase 20 (b) gloo, 2 ranks x 9 rows on the card against one "
         f"process x 18: step-1 loss {loss:.6f} vs {ref_loss:.6f} (rel "
         f"{loss_rel:.2e}, limit {DDP_LOSS_REL:g}); averaged gradient cosine "
-        f"{cos:.6f} (limit {DDP_GRAD_COS}), norm {a_vec.norm():.5f} vs "
-        f"{b_vec.norm():.5f} (rel {norm_rel:.2e}, limit "
+        f"{cos:.6f} (limit {DDP_GRAD_COS}), norm {a_norm:.5f} vs "
+        f"{b_norm:.5f} (rel {norm_rel:.2e}, limit "
         f"{DDP_GRAD_NORM_REL}); ms a step (2 ranks sharing the card) "
         f"{ranks[0]['enhance']['ms']}; on {card}")
-    check(sorted(grads) == sorted(ref_grads), "(b) the same gradients")
     check(loss_rel <= DDP_LOSS_REL, "(b) step-1 loss within the limit")
     check(cos >= DDP_GRAD_COS and norm_rel <= DDP_GRAD_NORM_REL,
           "(b) averaged gradient within the limits")
@@ -6284,12 +6297,263 @@ def phase_multi_gpu(dev, plus):
     check(rest_rel <= DDP_REST_LOSS_REL, "(c) losses within the limit")
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s; ranks' scan "
         f"launches {launched}")
+    return launched, {"loss": ref_loss, "grads": ref_grads}
+
+
+def _grads_vs(grads, ref_grads):
+    """(cosine, |norm ratio - 1|, norm, reference norm) of a gradient
+    against a reference, both {name: float64 tensor on the CPU} over the
+    same names."""
+    check(sorted(grads) == sorted(ref_grads), "the same gradients")
+    a = torch.cat([grads[k].flatten() for k in sorted(ref_grads)])
+    b = torch.cat([ref_grads[k].flatten() for k in sorted(ref_grads)])
+    a_norm, b_norm = float(a.norm()), float(b.norm())
+    return (float(a @ b) / (a_norm * b_norm), abs(a_norm / b_norm - 1),
+            a_norm, b_norm)
+
+
+# Phase 21: the band axis (make_mesh(data, band), subband_sharding) on the
+# one card, gloo ranks sharing it: (a) data=1 x band=2, FullSubNet+ and then
+# v1-GRU, BAND_STEPS steps each; (b) data=2 x band=2, FullSubNet+,
+# BAND_STEPS steps. The global batch is phase 20's (DDP_BATCH_SEED, 18 x
+# 3.072 s), so (b)'s data groups hold 9 rows each and FullSubNet+'s 2304
+# sub-band rows split into 1152 a rank in (a), 576 in (b). Each rank's
+# step-1 scan launches are recorded and held against the plain versions in
+# the rank (phases 3 and 10's limits), after the step's launches are
+# counted. The limits against one process are phase 20's (b)'s.
+BAND_STEPS = 2
+BAND_PARTS = {"band_a": (1, 2, ("plus", "v1_gru")), "band_b": (2, 2, ("plus",))}
+
+
+def _sub_band_rows(path):
+    """The sub-band model's rows in a training step on phase 20's batch:
+    the batch times the bins drop_band keeps a row."""
+    cfg = path.train_config("bfloat16")
+    model = cfg.model_v1 if cfg.model_type == "fullsubnet" else cfg.model
+    return TRAIN_BATCH * (model.num_freqs // model.num_groups_in_drop_band)
+
+
+@contextlib.contextmanager
+def _band_collective_events():
+    """While open, CUDA events around every forward and backward of the
+    split and the gather (parallel.distributed's _SplitRows and
+    _GatherRows); yields the list of (start, end) pairs they append to."""
+    from generative_audio_torch.parallel import distributed as D
+    events = []
+
+    def timed(fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            events.append((start, end))
+            return out
+        return staticmethod(run)
+
+    with contextlib.ExitStack() as stack:
+        for cls in (D._SplitRows, D._GatherRows):
+            for name in ("forward", "backward"):
+                stack.enter_context(mock.patch.object(
+                    cls, name, timed(getattr(cls, name))))
+        yield events
+
+
+def _state_digest(module):
+    """sha256 of every parameter's and buffer's bytes, in state-dict
+    order."""
+    import hashlib
+    digest = hashlib.sha256()
+    for t in module.state_dict().values():
+        digest.update(t.detach().cpu().contiguous().view(torch.uint8)
+                      .numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _band_steps(trainer, path, batch, L, G, what):
+    """BAND_STEPS steps of a band trainer: each one's loss, ms, launches
+    and ms inside the split and the gather, the rows of each sub-band model
+    call; step 1's scan launches recorded and, after the counts are read,
+    held on their operands against the plain versions."""
+    rows = []
+    hook = trainer.state.model.sb_model.register_forward_pre_hook(
+        lambda module, args: rows.append(args[0].shape[0]))
+    lstm = path.fwd.startswith("lstm")
+    steps = []
+    for step in range(BAND_STEPS):
+        L.reset_launch_counts()
+        record = ((_recorded_scans(L) if lstm else _recorded_calls(
+            G, fwd="gru_scan_tm", bwd="gru_scan_bwd_tm")) if step == 0
+            else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record as recorded, _band_collective_events() as events:
+            loss = trainer.train_epoch([batch])
+            torch.cuda.synchronize()
+        steps.append({
+            "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {k: v for k, v in L.launch_counts.items() if v},
+            "collective_ms": sum(a.elapsed_time(b) for a, b in events),
+            "collectives": len(events)})
+        if step == 0:
+            calls = recorded
+    hook.remove()
+    if lstm:
+        launch_rows = [out[0].shape[1] for _, out in calls["C"]]
+        dev = next(trainer.state.model.parameters()).device
+        _scans_vs_plain(L, dev, calls, what, len(calls["C"]))
+    else:
+        launch_rows = [out.shape[1] for _, out in calls["fwd"]]
+        _forward_scans_vs_plain(calls["fwd"], what)
+        _gru_bwd_vs_plain(calls["bwd"], what)
+    return {"steps": steps, "sb_rows": rows, "launch_rows": launch_rows}
+
+
+def band_worker(part, out):
+    """A rank of phase 21's launches (run by cli.launch)."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.parallel import distributed as D
+    from generative_audio_torch.parallel import make_mesh, subband_sharding
+    from generative_audio_torch.train import EnhanceTrainer
+    out = Path(out)
+    check(D.initialize(), "the launcher's environment starts the job")
+    dev = D.local_device("cuda")
+    data, band, runs = BAND_PARTS[part]
+    mesh = make_mesh(data, band, device_type="cuda")
+    rank = D.process_index()
+    sharding = subband_sharding(mesh)
+    plus, v1_gru, _ = model_paths()
+    batch = _noise_batch(DDP_BATCH_SEED, TRAIN_BATCH, TRAIN_SAMPLES)
+    result = {"rank": rank, "world": D.process_count(),
+              "backend": torch.distributed.get_backend(), "device": str(dev),
+              "band": [sharding.index, sharding.size]}
+    for name in runs:
+        path = plus if name == "plus" else v1_gru
+        trainer = EnhanceTrainer(path.train_config("bfloat16"), seed=SEED,
+                                 pretrained_state_dict=path.sd, device=dev,
+                                 mesh=mesh)
+        check(trainer.subband_sharding == sharding,
+              "the trainer takes subband_sharding(mesh)")
+        grads = _first_step_grads(trainer)
+        result[name] = _band_steps(trainer, path, batch, L, G,
+                                   f"{name} on band rank {sharding.index} "
+                                   f"of mesh {data}x{band}")
+        result[name]["digest"] = _state_digest(trainer.state.model)
+        if rank == 0:
+            torch.save(grads, out / f"{part}_{name}_grads.pt")
+        del trainer, grads
+        torch.cuda.empty_cache()
+    (out / f"{part}_rank{rank}.json").write_text(json.dumps(result))
+    D.shutdown()
+    return 0
+
+
+def _band_reference(dev, path, batch):
+    """One process's first step on the card: {"loss", "grads"}."""
+    from generative_audio_torch.train import EnhanceTrainer
+    ref = EnhanceTrainer(path.train_config("bfloat16"), seed=SEED,
+                         pretrained_state_dict=path.sd, device=dev)
+    grads = _first_step_grads(ref)
+    loss = ref.train_epoch([batch])
+    del ref
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grads": grads}
+
+
+def phase_band_axis(dev, plus, v1_gru, plus_ref):
+    """Phase 21 (see BAND_* above). plus_ref: phase 20's single-process
+    reference on the same weights and batch. Returns the ranks' scan
+    launches, which the kernels line adds to the main path's."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    paths = {"plus": plus, "v1_gru": v1_gru}
+    launched = dict.fromkeys(list(plus.per_step) + list(v1_gru.per_step), 0)
+    refs = {"plus": plus_ref}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        results = {}
+        for part, (data, band, runs) in BAND_PARTS.items():
+            nprocs = data * band
+            t_part = time.perf_counter()
+            proc = _ddp_launch(part, out, nprocs, "gloo", per_device=nprocs,
+                               mode="--phase21")
+            try:
+                if "v1_gru" in runs and "v1_gru" not in refs:
+                    # one process on the card meanwhile
+                    refs["v1_gru"] = _band_reference(dev, v1_gru, _noise_batch(
+                        DDP_BATCH_SEED, TRAIN_BATCH, TRAIN_SAMPLES))
+            finally:
+                _ddp_wait(proc, out, part)
+            log(f"phase 21 {part}: launch {time.perf_counter() - t_part:.1f} "
+                "s")
+            results[part] = (
+                [json.loads((out / f"{part}_rank{r}.json").read_text())
+                 for r in range(nprocs)],
+                {name: torch.load(out / f"{part}_{name}_grads.pt",
+                                  weights_only=True) for name in runs})
+    for part, (ranks, grads) in results.items():
+        data, band, runs = BAND_PARTS[part]
+        nprocs = data * band
+        check(all(r["backend"] == "gloo" and r["world"] == nprocs
+                  and r["device"] == str(dev)
+                  and r["band"] == [r["rank"] % band, band] for r in ranks),
+              f"{part}: {nprocs} gloo ranks on the one card, rank r at band "
+              "index r % band")
+        for name in runs:
+            per_step = paths[name].per_step
+            share = _sub_band_rows(paths[name]) // nprocs
+            for r in ranks:
+                run = r[name]
+                check(all(s["launches"] == per_step for s in run["steps"]),
+                      f"{part} {name} rank {r['rank']}: {per_step} a step "
+                      f"(got {[s['launches'] for s in run['steps']]})")
+                check(run["sb_rows"] == [share] * BAND_STEPS,
+                      f"{part} {name} rank {r['rank']}: the sub-band model "
+                      f"over {share} rows a step (got {run['sb_rows']})")
+                for k in launched:
+                    launched[k] += sum(s["launches"].get(k, 0)
+                                       for s in run["steps"])
+            digests = {r[name]["digest"] for r in ranks}
+            check(len(digests) == 1, f"{part} {name}: every rank's "
+                  f"parameters bit for bit equal after {BAND_STEPS} steps")
+            loss = ranks[0][name]["steps"][0]["loss"]
+            ref = refs[name]
+            loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+            cos, norm_rel, _, _ = _grads_vs(grads[name], ref["grads"])
+            for r in ranks:
+                run = r[name]
+                log(f"phase 21 {part} {name} rank {r['rank']} (band index "
+                    f"{r['band'][0]} of {band}, data group "
+                    f"{r['rank'] // band} of {data}): rows per scan launch "
+                    f"{run['launch_rows']}; losses "
+                    f"{[s['loss'] for s in run['steps']]}; ms a step "
+                    f"{[round(s['ms'], 1) for s in run['steps']]} (step 1 "
+                    f"with the records' copies); split and gather "
+                    f"{[round(s['collective_ms'], 2) for s in run['steps']]} "
+                    f"ms over {[s['collectives'] for s in run['steps']]} "
+                    f"calls, {100 * run['steps'][-1]['collective_ms'] / run['steps'][-1]['ms']:.1f}% "
+                    f"of step {BAND_STEPS}; {nprocs} ranks sharing {card}")
+            log(f"phase 21 {part} {name} against one process: step-1 loss "
+                f"{loss:.6f} vs {ref['loss']:.6f} (rel {loss_rel:.2e}, limit "
+                f"{DDP_LOSS_REL:g}); gradient cosine {cos:.6f} (limit "
+                f"{DDP_GRAD_COS}), norm rel {norm_rel:.2e} (limit "
+                f"{DDP_GRAD_NORM_REL}); on {card}")
+            check(loss_rel <= DDP_LOSS_REL,
+                  f"{part} {name}: step-1 loss within the limit")
+            check(cos >= DDP_GRAD_COS and norm_rel <= DDP_GRAD_NORM_REL,
+                  f"{part} {name}: the gradient within the limits")
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s; ranks' scan "
+        f"launches {launched}")
     return launched
 
 
 def main():
     if sys.argv[1:2] == ["--phase20"]:
         return ddp_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--phase21"]:
+        return band_worker(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6370,8 +6634,12 @@ def main():
     for name, launched in phase_item5(dev).items():
         counts[name] += launched
     phase_image(dev)
-    for name, launched in phase_multi_gpu(dev, plus).items():
-        counts[name] += launched
+    launched, plus_ref = phase_multi_gpu(dev, plus)
+    for name, n in launched.items():
+        counts[name] += n
+    for name, n in phase_band_axis(dev, plus, v1_gru, plus_ref).items():
+        counts[name] += n
+    del plus_ref
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 

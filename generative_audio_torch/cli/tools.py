@@ -6,9 +6,8 @@ FullSubNet_plus/speech_enhance/tools/ — gen_lst.py:1-19, collect_lst.py:1-99,
 resample_dir.py (sox there, scipy polyphase in a thread pool here),
 analyse.py:1-61, noisyspeech_synthesizer.py (rebuilt on data.mixing),
 dns_mos.py:13-116). Two differences: draw_hist writes an SVG histogram
-(the JAX tool draws a matplotlib PNG), and dns_mos_score takes its
-transport as `post_fn` only, since the default HTTP client needs the
-network.
+(the JAX tool draws a matplotlib PNG), and dns_mos_score POSTs through the
+standard library's urllib where the JAX tool imports requests.
 
 All tools are callable functions plus a
 `python -m generative_audio_torch.cli.tools <subcommand>` dispatcher.
@@ -271,16 +270,27 @@ SCORING_URI_DNSMOS = "https://dnsmos.azurewebsites.net/score"
 SCORING_URI_DNSMOS_P835 = "https://dnsmos.azurewebsites.net/v1/dnsmosp835/score"
 
 
+def _post_json(uri: str, headers: Dict[str, str], payload: str) -> Dict:
+    """POST the JSON text `payload` with `headers` to `uri` and return the
+    reply's JSON: what the JAX client's requests.post(uri, data=payload,
+    headers=headers).json() returns, through urllib.request (an HTTP error
+    status raises urllib.error.HTTPError)."""
+    import urllib.request
+    request = urllib.request.Request(uri, data=payload.encode("utf-8"),
+                                     headers=headers, method="POST")
+    with urllib.request.urlopen(request) as reply:
+        return json.loads(reply.read().decode("utf-8"))
+
+
 def dns_mos_score(testset_dir, score_file, method: str = "p808",
                   auth_key: Optional[str] = None, post_fn=None,
                   log=print) -> List[Dict]:
-    """POST each wav to the DNSMOS service through `post_fn(uri, headers,
-    payload) -> dict`, with file_mos.txt caching (dns_mos.py:25-116). The
-    port has no HTTP client of its own: the caller passes the transport."""
+    """POST each wav to the DNSMOS service, with file_mos.txt caching
+    (dns_mos.py:25-116). `post_fn(uri, headers, payload) -> dict` is
+    injectable for offline testing; by default `_post_json` (the standard
+    library's urllib, needing network egress)."""
     if post_fn is None:
-        raise NotImplementedError(
-            "dns_mos_score needs post_fn(uri, headers, payload) -> dict: the "
-            "port has no HTTP client (the DNSMOS service needs the network)")
+        post_fn = _post_json
 
     uri = SCORING_URI_DNSMOS_P835 if method == "p835" else SCORING_URI_DNSMOS
     headers = {"Content-Type": "application/json"}
@@ -385,7 +395,6 @@ def main(argv=None):
                                 snr_lower=args.snr_lower,
                                 snr_upper=args.snr_upper)
     elif args.cmd == "dns_mos":
-        # raises: the command line cannot hand over a transport
         dns_mos_score(args.testset_dir, args.score_file, args.method)
     elif args.cmd == "analyse":
         d1, d2 = read_metric_txt(args.file1), read_metric_txt(args.file2)

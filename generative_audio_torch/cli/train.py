@@ -60,7 +60,10 @@ RuntimeError names the variables it lacks). Each rank takes its card
 (parallel.distributed.local_device: cuda:LOCAL_RANK in an NCCL job; the CPU
 with --device cpu, over gloo), loads its contiguous rows of every global
 batch (BatchLoader's host_id and num_hosts, DistributedBatches) and trains
-under DistributedDataParallel over a parallel.make_mesh(); the image lines
+under DistributedDataParallel over a parallel.make_mesh(), the enhance line
+with its subband_sharding as the JAX CLI passes it (the CLI's mesh has
+band=1, so it splits nothing; a band job is built in code: README); the
+image lines
 draw the same batches on every rank and take their rows. Validation sets
 are not split: every rank validates and rank 0's score decides. Rank 0
 alone logs and writes checkpoints and reports; -R resumes every rank from
@@ -103,13 +106,13 @@ def nppc_denoising_config(train):
 
 
 def _loader(dataset, loader_cfg, steps, mesh=None):
-    """The BatchLoader (this rank's rows of each batch under a mesh),
-    looped for `steps` steps an epoch where given."""
+    """The BatchLoader (this rank's data group's rows of each batch under a
+    mesh), looped for `steps` steps an epoch where given."""
     from generative_audio_torch.data import BatchLoader, LoopIterator
     from generative_audio_torch.parallel import distributed as D
     if mesh is not None:
-        loader_cfg = {**loader_cfg, "host_id": D.process_index(),
-                      "num_hosts": D.process_count()}
+        loader_cfg = {**loader_cfg, "host_id": mesh.get_local_rank("data"),
+                      "num_hosts": mesh.size(0)}
     loader = BatchLoader(dataset, **loader_cfg)
     if steps is not None:
         loader = LoopIterator(loader, n_steps=steps)
@@ -121,6 +124,7 @@ def _train_enhance(args, raw, data_cfg, loader_cfg, checkpoint_dir, device,
     from generative_audio_torch.data import (
         AudioDataSetConfig, AudioDataset, DNSTrainConfig, DNSTrainDataset,
         DNSValidationDataset)
+    from generative_audio_torch.parallel import subband_sharding
     from generative_audio_torch.train import EnhanceTrainConfig, EnhanceTrainer
     seed = loader_cfg.get("seed", 0)
     if "clean_dataset" in data_cfg:         # DNS scp regime
@@ -132,7 +136,8 @@ def _train_enhance(args, raw, data_cfg, loader_cfg, checkpoint_dir, device,
     loader = _loader(dataset, loader_cfg, args.steps, mesh)
     trainer = EnhanceTrainer(
         build_dataclass(EnhanceTrainConfig, raw.get("train")),
-        checkpoint_dir=checkpoint_dir, device=device, mesh=mesh)
+        checkpoint_dir=checkpoint_dir, device=device, mesh=mesh,
+        subband_sharding=None if mesh is None else subband_sharding(mesh))
     if args.resume:
         trainer.restore_latest()
     val_cfg = raw.get("validation")

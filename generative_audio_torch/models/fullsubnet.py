@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from generative_audio_torch.models.fullsubnet_plus import sub_band
 from generative_audio_torch.nn.recurrent import SequenceModel
 from generative_audio_torch.ops.norms import get_norm
 from generative_audio_torch.ops.subband import band_unfold, drop_band
@@ -50,11 +51,14 @@ class FullSubNet(nn.Module):
     device: "cuda" (default; raises when there is no CUDA device) or "cpu".
     compute_dtype: bf16 (the default, what the CUDA kernels take) or float32
     (the CPU tests). gates_bytes_limit: see nn.recurrent; it applies to the
-    full-band and the sub-band model alike."""
+    full-band and the sub-band model alike. subband_sharding as for
+    FullSubNetPlus: it splits the sub-band model's rows, the full-band
+    model's B rows stay whole."""
 
     def __init__(self, config: FullSubNetConfig = FullSubNetConfig(),
                  compute_dtype: torch.dtype = torch.bfloat16, device=None,
-                 gates_bytes_limit: Optional[int] = None):
+                 gates_bytes_limit: Optional[int] = None,
+                 subband_sharding=None):
         super().__init__()
         c = config
         if c.sequence_model not in ("GRU", "LSTM"):
@@ -62,6 +66,7 @@ class FullSubNet(nn.Module):
         dev = resolve_device(device)
         self.config = c
         self.compute_dtype = compute_dtype
+        self.subband_sharding = subband_sharding
         self.norm = get_norm(c.norm_type)
         fb_w = c.fb_num_neighbors * 2 + 1
         sb_w = c.sb_num_neighbors * 2 + 1
@@ -78,11 +83,13 @@ class FullSubNet(nn.Module):
 
     def forward(self, noisy_mag: torch.Tensor,
                 num_groups: Optional[int] = None,
-                global_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                global_rows: Optional[Tuple[int, int]] = None,
+                subband_sharding=None) -> torch.Tensor:
         """num_groups overrides config.num_groups_in_drop_band for this call
         (1 = full band), on the same parameters. global_rows places the
         batch's rows in a global batch split over ranks, for drop_band
-        (ops.subband.drop_band)."""
+        (ops.subband.drop_band); subband_sharding overrides the module's
+        for this call."""
         c = self.config
         if num_groups is None:
             num_groups = c.num_groups_in_drop_band
@@ -110,6 +117,7 @@ class FullSubNet(nn.Module):
             sb_input = sb_input.permute(0, 2, 1, 3)
 
         sb_input = sb_input.reshape(b * num_freqs, sb_w + fb_w, t)
-        sb_mask = self.sb_model(sb_input)                   # [B*F, 2, T]
+        sb_mask = sub_band(self.sb_model, sb_input,         # [B*F, 2, T]
+                           subband_sharding or self.subband_sharding)
         sb_mask = sb_mask.reshape(b, num_freqs, 2, t)
         return sb_mask.permute(0, 2, 1, 3)[:, :, :, c.look_ahead:]

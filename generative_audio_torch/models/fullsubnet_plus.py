@@ -34,7 +34,8 @@ from generative_audio_torch.ops.subband import band_unfold, drop_band
 from generative_audio_torch.utils.device import resolve_device
 
 __all__ = ["FullSubNetPlusConfig", "FullSubNetPlus",
-           "MultiDirectionConfig", "MultiDirectionFullSubNetPlus", "attend"]
+           "MultiDirectionConfig", "MultiDirectionFullSubNetPlus", "attend",
+           "sub_band"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,22 +84,37 @@ def attend(y: torch.Tensor, attention: nn.Module,
     return y.reshape(b, ch * (f + pad), t)[:, :f]
 
 
+def sub_band(sb_model: nn.Module, rows: torch.Tensor,
+             sharding=None) -> torch.Tensor:
+    """sb_model over the fused [B*F', C, T] sub-band batch; with a
+    parallel.SubbandSharding, over this rank's block of the rows (the
+    place of the JAX models' with_sharding_constraint), the blocks of the
+    band's ranks gathered after it."""
+    if sharding is None:
+        return sb_model(rows)
+    return sharding.gather(sb_model(sharding.split(rows)), rows.shape[0])
+
+
 class FullSubNetPlus(nn.Module):
     """[B, 1, F, T] mag, real, imag -> [B, output_size, F, T] compressed cRM.
 
     device: "cuda" (default; raises when there is no CUDA device) or "cpu".
     compute_dtype: bf16 for serving (the default, as the JAX CLI and bench
     run it) or float32 (the CPU tests). gates_bytes_limit: see
-    nn.recurrent.LSTMLayer."""
+    nn.recurrent.LSTMLayer. subband_sharding (parallel.subband_sharding):
+    the sub-band model runs over this rank's block of the B*F' rows, see
+    `sub_band`; it adds no parameter or buffer."""
 
     def __init__(self, config: FullSubNetPlusConfig = FullSubNetPlusConfig(),
                  compute_dtype: torch.dtype = torch.bfloat16, device=None,
-                 gates_bytes_limit: Optional[int] = None):
+                 gates_bytes_limit: Optional[int] = None,
+                 subband_sharding=None):
         super().__init__()
         c = config
         dev = resolve_device(device)
         self.config = c
         self.compute_dtype = compute_dtype
+        self.subband_sharding = subband_sharding
         self.norm = get_norm(c.norm_type)
         for suffix in ("", "_real", "_imag"):
             self.add_module(f"channel_attention{suffix}", make_channel_attention(
@@ -122,11 +138,14 @@ class FullSubNetPlus(nn.Module):
     def forward(self, noisy_mag: torch.Tensor, noisy_real: torch.Tensor,
                 noisy_imag: torch.Tensor,
                 num_groups: Optional[int] = None,
-                global_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                global_rows: Optional[Tuple[int, int]] = None,
+                subband_sharding=None) -> torch.Tensor:
         """num_groups overrides config.num_groups_in_drop_band for this call
         (1 = full band), on the same parameters. global_rows places the
         batch's rows in a global batch split over ranks, for drop_band
-        (ops.subband.drop_band)."""
+        (ops.subband.drop_band). subband_sharding overrides the module's
+        for this call (the trainer's step passes its own, so that
+        validation on the same module stays unsplit)."""
         c = self.config
         if num_groups is None:
             num_groups = c.num_groups_in_drop_band
@@ -167,7 +186,8 @@ class FullSubNetPlus(nn.Module):
             sb_input = sb_input.permute(0, 2, 1, 3)
 
         sb_input = sb_input.reshape(b * num_freqs, sb_w + 3 * fb_w, t)
-        sb_mask = self.sb_model(sb_input)                   # [B*F, out, T]
+        sb_mask = sub_band(self.sb_model, sb_input,         # [B*F, out, T]
+                           subband_sharding or self.subband_sharding)
         sb_mask = sb_mask.reshape(b, num_freqs, c.output_size, t)
         return sb_mask.permute(0, 2, 1, 3)[:, :, :, c.look_ahead:]
 
@@ -185,16 +205,18 @@ class MultiDirectionFullSubNetPlus(nn.Module):
     B > 1, group-major batch order).
 
     As in the reference, the sub-band unfold takes the raw padded noisy
-    magnitude, not its attended stream as FullSubNetPlus does. device and
-    compute_dtype as for FullSubNetPlus."""
+    magnitude, not its attended stream as FullSubNetPlus does. device,
+    compute_dtype and subband_sharding as for FullSubNetPlus."""
 
     def __init__(self, config: MultiDirectionConfig = MultiDirectionConfig(),
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 subband_sharding=None):
         super().__init__()
         c = config
         dev = resolve_device(device)
         self.config = c
         self.compute_dtype = compute_dtype
+        self.subband_sharding = subband_sharding
         self.norm = get_norm(c.norm_type)
         for suffix in ("", "_real", "_imag"):
             self.add_module(f"channel_attention{suffix}", make_channel_attention(
@@ -218,9 +240,11 @@ class MultiDirectionFullSubNetPlus(nn.Module):
                 noisy_imag: torch.Tensor, enhanced_mag: torch.Tensor,
                 enhanced_real: torch.Tensor,
                 enhanced_imag: torch.Tensor,
-                global_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                global_rows: Optional[Tuple[int, int]] = None,
+                subband_sharding=None) -> torch.Tensor:
         """global_rows places the batch's rows in a global batch split over
-        ranks, for drop_band (ops.subband.drop_band)."""
+        ranks, for drop_band (ops.subband.drop_band); subband_sharding
+        overrides the module's for this call."""
         c = self.config
         n_dirs = c.n_directions
         if noisy_mag.ndim != 4 or noisy_mag.shape[1] != 1:
@@ -265,7 +289,8 @@ class MultiDirectionFullSubNetPlus(nn.Module):
             sb_input = sb_input.permute(0, 2, 1, 3)
 
         sb_input = sb_input.reshape(b * num_freqs, sb_w + 3 * fb_w, t)
-        sb_masks = self.sb_model(sb_input)                 # [B*F, 2K, T]
+        sb_masks = sub_band(self.sb_model, sb_input,       # [B*F, 2K, T]
+                            subband_sharding or self.subband_sharding)
         sb_masks = sb_masks.reshape(b, num_freqs, n_dirs, 2, t)
         out = sb_masks.permute(0, 2, 3, 1, 4)[..., c.look_ahead:]
         return out.reshape(b, 2 * n_dirs, num_freqs, -1)

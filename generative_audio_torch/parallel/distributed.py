@@ -44,7 +44,8 @@ __all__ = [
     "is_coordinator", "local_slice", "global_batch_from_local",
     "per_process_batch_size", "DistributedBatches", "replicate_global",
     "replicate_from_coordinator", "local_device", "barrier", "shutdown",
-    "draw_rows", "all_reduce_sum", "TORCHRUN_VARS",
+    "draw_rows", "all_reduce_sum", "row_blocks", "split_rows", "gather_rows",
+    "TORCHRUN_VARS",
 ]
 
 _ENV_COORD = "GAT_COORDINATOR"
@@ -207,21 +208,31 @@ def shutdown() -> None:
         _job = None
 
 
-def per_process_batch_size(global_batch_size: int) -> int:
+def _data_coordinate(mesh) -> Tuple[int, int]:
+    """(this rank's index on the data axis, the data axis's size): the
+    process itself and the process count without a mesh. The band ranks
+    of one data group share its rows."""
+    if mesh is None:
+        return process_index(), process_count()
+    return mesh.get_local_rank("data"), mesh.size(0)
+
+
+def per_process_batch_size(global_batch_size: int, mesh=None) -> int:
     """This process's share of the global batch (equal contiguous shards:
-    global_batch_size must divide)."""
-    n = process_count()
+    global_batch_size must divide), over the processes or, with a mesh,
+    over its data axis."""
+    _, n = _data_coordinate(mesh)
     assert global_batch_size % n == 0, (
         f"global batch {global_batch_size} not divisible by {n} processes")
     return global_batch_size // n
 
 
-def local_slice(global_batch_size: int) -> Tuple[int, int]:
+def local_slice(global_batch_size: int, mesh=None) -> Tuple[int, int]:
     """[start, stop) of this process's rows in the global batch: the
     indices to hand the host-side dataset (DistributedSampler's
-    contract)."""
-    per = per_process_batch_size(global_batch_size)
-    start = process_index() * per
+    contract). With a mesh, the rows of this rank's data group."""
+    per = per_process_batch_size(global_batch_size, mesh)
+    start = _data_coordinate(mesh)[0] * per
     return start, start + per
 
 
@@ -273,6 +284,87 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group is None or dist.get_world_size(group) == 1:
         return x
     return _AllReduceSum.apply(x, group)
+
+
+def row_blocks(rows: int, size: int) -> Tuple[int, ...]:
+    """The rows of each of `size` ranks when `rows` rows are split into
+    contiguous blocks in rank order: equal where `size` divides, else the
+    first rows % size blocks one row longer. GSPMD pads to equal blocks
+    instead; the port sends no padding through the scan kernels."""
+    if rows < size:
+        raise ValueError(f"{rows} rows cannot be split over {size} ranks")
+    return tuple(rows // size + (k < rows % size) for k in range(size))
+
+
+def _all_gather_rows(x: torch.Tensor, group,
+                     blocks: Tuple[int, ...]) -> torch.Tensor:
+    """Every rank's block of rows (this rank's is x), in rank order, as one
+    tensor: each block goes padded to the longest and is trimmed after. A
+    gloo group gathers a card's tensor through the host."""
+    longest = max(blocks)
+    if x.shape[0] < longest:
+        x = torch.cat([x, x.new_zeros((longest - x.shape[0],)
+                                      + tuple(x.shape[1:]))])
+    comm = x.contiguous()
+    if comm.is_cuda and dist.get_backend(group) != "nccl":
+        comm = comm.cpu()
+    parts = [torch.empty_like(comm) for _ in blocks]
+    dist.all_gather(parts, comm, group=group)
+    return torch.cat([p[:n] for p, n in zip(parts, blocks)]).to(x.device)
+
+
+def _own_block(x: torch.Tensor, index: int,
+               blocks: Tuple[int, ...]) -> torch.Tensor:
+    start = sum(blocks[:index])
+    return x[start:start + blocks[index]].clone()
+
+
+class _SplitRows(torch.autograd.Function):
+    """This rank's block of the rows; the gradient of every block reaches
+    every rank (an all-gather), so the layers before the split get the
+    gradient of all rows."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, blocks):
+        ctx.group, ctx.index, ctx.blocks = group, index, blocks
+        return _own_block(x, index, blocks)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_rows(grad, ctx.group, ctx.blocks), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's block of the rows on every rank; each block's gradient
+    is this rank's own upstream gradient at its rows (every rank computes
+    the same upstream gradient, so nothing is summed)."""
+
+    @staticmethod
+    def forward(ctx, x, group, index, blocks):
+        ctx.index, ctx.blocks = index, blocks
+        return _all_gather_rows(x, group, blocks)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_block(grad, ctx.index, ctx.blocks), None, None, None
+
+
+def split_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's contiguous block of x's rows (axis 0) among the ranks of
+    `group`, in rank order (row_blocks), with its gradient."""
+    blocks = row_blocks(x.shape[0], dist.get_world_size(group))
+    return _SplitRows.apply(x, group, dist.get_rank(group), blocks)
+
+
+def gather_rows(x: torch.Tensor, group, rows: int) -> torch.Tensor:
+    """The inverse of split_rows: the `rows` rows whose block on this rank
+    is x, from every rank of `group`, with its gradient."""
+    blocks = row_blocks(rows, dist.get_world_size(group))
+    index = dist.get_rank(group)
+    if x.shape[0] != blocks[index]:
+        raise ValueError(f"rank {index} of the band holds {x.shape[0]} rows, "
+                         f"its block of {rows} is {blocks[index]}")
+    return _GatherRows.apply(x, group, index, blocks)
 
 
 def _is_rows(x) -> bool:
@@ -333,10 +425,6 @@ class _Slot:
     on_cuda: bool
 
 
-def _group(mesh):
-    return mesh.get_group("data") if mesh is not None else dist.group.WORLD
-
-
 def replicate_from_coordinator(mesh, tree):
     """`tree` with rank 0's values on every rank: rank 0's structure,
     Python values and tensors (a model's and an optimizer's state_dict, the
@@ -346,8 +434,7 @@ def replicate_from_coordinator(mesh, tree):
     a job the tree is returned as it is."""
     if process_count() == 1:
         return tree
-    group = _group(mesh)
-    src = dist.get_global_rank(group, 0)
+    group, src = dist.group.WORLD, 0
     tensors = []
 
     def strip(x):

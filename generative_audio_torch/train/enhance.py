@@ -25,9 +25,15 @@ accum_steps > 1 adds the microbatches' gradients under DDP's no_sync. The
 losses it records are the global batch's (the mean over the ranks); every
 rank validates and takes rank 0's scores, so that all take the same
 best-model decision; rank 0 alone writes checkpoints and report.html; a
-resume takes rank 0's state on every rank. The JAX trainer takes a
-`subband_sharding` instead, which spreads the sub-band rows over the same
-data axis.
+resume takes rank 0's state on every rank. Under a mesh with band > 1
+(parallel.make_mesh(data, band)) the band ranks of a data group take the
+same rows, and the step splits the sub-band model's B*F' rows over them
+(`subband_sharding`, which the JAX trainer takes too): each rank runs the
+sub-band scans over its block, DDP averages the gradient over every rank
+and the sub-band model's gradient is then summed over the band
+(SubbandSharding.sum_over_band), so that every rank holds the single
+process's gradient of the global batch. Validation stays unsplit, as in
+the JAX trainer.
 """
 from __future__ import annotations
 
@@ -53,6 +59,8 @@ from generative_audio_torch.parallel import distributed as D
 from generative_audio_torch.parallel.mesh import (
     data_parallel, from_coordinator, mean_over_ranks, place_rows,
     resume_from_coordinator)
+from generative_audio_torch.parallel.mesh import (
+    subband_sharding as make_subband_sharding)
 from generative_audio_torch.train.checkpoint import (
     CheckpointManager, resume_latest)
 from generative_audio_torch.train.state import TrainState, make_optimizer
@@ -106,12 +114,14 @@ def _model_config(config: EnhanceTrainConfig):
 
 def enhance_loss_fn(model: nn.Module, noisy: torch.Tensor,
                     clean: torch.Tensor, config: EnhanceTrainConfig,
-                    global_rows: Optional[Tuple[int, int]] = None
-                    ) -> torch.Tensor:
+                    global_rows: Optional[Tuple[int, int]] = None,
+                    subband_sharding=None) -> torch.Tensor:
     """Waveforms [B, L] on the model's device -> the scalar training loss.
     `model` is the FullSubNetPlus or FullSubNet that config.model_type
     names, or its DistributedDataParallel; global_rows places the rows in a
-    global batch split over ranks (drop_band's argument)."""
+    global batch split over ranks (drop_band's argument); subband_sharding
+    (parallel.subband_sharding) splits the sub-band rows of every model
+    call over the band's ranks."""
     stft = (config.n_fft, config.hop_length, config.win_length)
     nr, ni = stft_ri(noisy, *stft)
     cr, ci = stft_ri(clean, *stft)
@@ -121,9 +131,11 @@ def enhance_loss_fn(model: nn.Module, noisy: torch.Tensor,
     def crm_of(num_groups: Optional[int] = None):                 # [B,2,F',T]
         if config.model_type == "fullsubnet":
             return model(noisy_mag[:, None], num_groups=num_groups,
-                         global_rows=global_rows)
+                         global_rows=global_rows,
+                         subband_sharding=subband_sharding)
         return model(noisy_mag[:, None], nr[:, None], ni[:, None],
-                     num_groups=num_groups, global_rows=global_rows)
+                     num_groups=num_groups, global_rows=global_rows,
+                     subband_sharding=subband_sharding)
 
     # The two full-band objectives run the same parameters with drop_band
     # off (num_groups=1): drop_band decimates the mask's frequencies and
@@ -174,7 +186,8 @@ def init_enhance_state(config: EnhanceTrainConfig, seed: int = 0,
 
 def make_enhance_train_step(config: EnhanceTrainConfig,
                             accum_steps: int = 1,
-                            net: Optional[nn.Module] = None) -> Callable:
+                            net: Optional[nn.Module] = None,
+                            subband_sharding=None) -> Callable:
     """Returns step(state, noisy [B, L], clean [B, L], global_rows=None) ->
     (state, loss): one optimizer update of `state` in place; the loss stays
     on the device.
@@ -187,7 +200,15 @@ def make_enhance_train_step(config: EnhanceTrainConfig,
     averages the gradient over the ranks (after the last microbatch only:
     the others run under its no_sync); global_rows: the batch's rows in the
     global batch (parallel.mesh.place_rows), each microbatch then the same
-    share of a global microbatch."""
+    share of a global microbatch; subband_sharding: the split of the
+    sub-band rows over a mesh's band axis (parallel.subband_sharding),
+    which needs that DDP (over every rank of the mesh) to complete the
+    gradient."""
+    band = 1 if subband_sharding is None else subband_sharding.size
+    if band > 1 and net is None:
+        raise ValueError("a subband_sharding over more than one rank needs "
+                         "net = parallel.mesh.data_parallel(model, mesh): "
+                         "its rows' gradients are completed over the mesh")
 
     def train_step(state: TrainState, noisy, clean, global_rows=None):
         model = state.model if net is None else net
@@ -210,9 +231,11 @@ def make_enhance_train_step(config: EnhanceTrainConfig,
                     else contextlib.nullcontext())
             with sync:
                 loss = enhance_loss_fn(model, noisy[rows], clean[rows],
-                                       config, micro_rows)
+                                       config, micro_rows, subband_sharding)
                 (loss / accum_steps).backward()
             loss_sum += loss.detach()
+        if band > 1:
+            subband_sharding.sum_over_band(state.model.sb_model.parameters())
         state.apply_gradients()
         return state, loss_sum / accum_steps
 
@@ -224,18 +247,26 @@ class EnhanceTrainer:
     (Trainer_Finetune, fullsubnet_plus/trainer/trainer.py:309-446 +
     base_trainer.py:305-342): epochs over a loader of (noisy, clean)
     batches, periodic validation with the composite (STOI + PESQ)/2 score,
-    latest, step-tagged and best checkpoints, resume."""
+    latest, step-tagged and best checkpoints, resume.
+
+    mesh: see the module's docstring; subband_sharding defaults to
+    parallel.subband_sharding(mesh) under a mesh (the identity at
+    band=1)."""
 
     def __init__(self, config: EnhanceTrainConfig, checkpoint_dir=None,
                  seed: int = 0, pretrained_state_dict=None, tracker=None,
-                 device=None, mesh=None):
+                 device=None, mesh=None, subband_sharding=None):
         self.config = config
         self.state = init_enhance_state(config, seed, device)
         if pretrained_state_dict is not None:
             self.state.model.load_state_dict(pretrained_state_dict)
         self.mesh = mesh
+        if subband_sharding is None and mesh is not None:
+            subband_sharding = make_subband_sharding(mesh)
+        self.subband_sharding = subband_sharding
         self.net = data_parallel(self.state.model, mesh)
-        self._step_fn = make_enhance_train_step(config, net=self.net)
+        self._step_fn = make_enhance_train_step(
+            config, net=self.net, subband_sharding=subband_sharding)
         self.ckpt = (CheckpointManager(checkpoint_dir, config)
                      if checkpoint_dir else None)
         self.best_score = -float("inf")

@@ -106,22 +106,73 @@ def test_backend_and_card_rules(monkeypatch):
 
 
 def test_band_axis_raises(world_of_one):
-    """make_mesh(band > 1) and subband_sharding name their ROADMAP item;
-    make_mesh needs a job."""
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        M.make_mesh(band=2)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        M.subband_sharding(None)
+    """make_mesh's (data, band) shape and its AssertionError cases, as the
+    JAX make_mesh's (tests/test_parallel.py:36-44); make_mesh and
+    subband_sharding need a job; subband_sharding at band=1 is the
+    identity. Meshes with band > 1 over real ranks are in
+    tests/test_torch_band_axis.py."""
+    assert M._mesh_shape(8, None, 1) == (8, 1)
+    assert M._mesh_shape(8, None, 2) == (4, 2)
+    assert M._mesh_shape(4, 2, 2) == (2, 2)
+    assert M._mesh_shape(4, 1, 4) == (1, 4)
+    for ranks, data, band in ((8, 3, 3), (8, None, 3), (4, 1, 2)):
+        with pytest.raises(AssertionError):
+            M._mesh_shape(ranks, data, band)
     with pytest.raises(RuntimeError, match="initialize"):
         M.make_mesh()
+    with pytest.raises(RuntimeError, match="make_mesh"):
+        M.subband_sharding(None)
     assert D.initialize()
+    with pytest.raises(AssertionError):
+        M.make_mesh(band=2)
+    with pytest.raises(AssertionError):
+        M.make_mesh(data=3, band=3)
     mesh = M.make_mesh()
     assert mesh.mesh_dim_names == ("data", "band")
     assert tuple(mesh.shape) == (1, 1)
+    sharding = M.subband_sharding(mesh)
+    assert (sharding.group, sharding.index, sharding.size) == (None, 0, 1)
+    rows = torch.randn(5, 3, 4, requires_grad=True)
+    assert sharding.split(rows) is rows
+    assert sharding.gather(rows, 5) is rows
+    rows.grad = torch.ones_like(rows)
+    sharding.sum_over_band([rows])
+    assert torch.equal(rows.grad, torch.ones_like(rows))
     assert [type(p).__name__ for p in M.data_sharding(mesh)] == [
         "Shard", "Replicate"]
     assert [type(p).__name__ for p in M.replicated(mesh)] == [
         "Replicate", "Replicate"]
+
+
+@pytest.mark.parametrize("rows,size,blocks", [
+    (16, 2, (8, 8)), (27, 4, (7, 7, 7, 6)), (2304, 2, (1152, 1152)),
+    (45, 4, (12, 11, 11, 11)), (3, 3, (1, 1, 1))])
+def test_row_blocks(rows, size, blocks):
+    """The sub-band rows' blocks: contiguous, in band-rank order, the first
+    rows % size one row longer."""
+    assert D.row_blocks(rows, size) == blocks
+    assert sum(blocks) == rows
+
+
+def test_row_blocks_need_a_row_a_rank():
+    with pytest.raises(ValueError, match="cannot be split"):
+        D.row_blocks(3, 4)
+
+
+def test_split_and_gather_rows_world_of_one(world_of_one):
+    """split_rows and gather_rows through a group of one rank: the rows
+    come back whole, and the gradient reaches every row."""
+    assert D.initialize()
+    group = torch.distributed.group.WORLD
+    x = torch.randn(7, 3, 5, requires_grad=True)
+    part = D.split_rows(x, group)
+    assert torch.equal(part, x)
+    y = D.gather_rows(part * 2, group, 7)
+    assert torch.equal(y, 2 * x)
+    y.sum().backward()
+    assert torch.equal(x.grad, torch.full_like(x, 2.0))
+    with pytest.raises(ValueError, match="holds 6 rows"):
+        D.gather_rows(x[:6], group, 7)
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])

@@ -336,9 +336,67 @@ def test_tools_equal_jax(tmp_path, case):
     if case == "collect_lst":
         assert outs["torch"][0]["clipped"] == 1
         assert outs["torch"][0]["too_short"] == 3
-    if case == "dns_mos":
-        with pytest.raises(NotImplementedError, match="post_fn"):
-            tools.dns_mos_score(src / "a", tmp_path / "x.csv")
+
+
+def test_dns_mos_default_transport(tmp_path, monkeypatch):
+    """dns_mos_score without post_fn POSTs through urllib to an HTTP server
+    on 127.0.0.1 (SCORING_URI_DNSMOS pointed at it): the server gets the
+    payloads and headers a post_fn gets, and the rows and the file_mos.txt
+    cache are the post_fn run's; a second call scores nothing new."""
+    import http.server
+    import threading
+    for k in ("http_proxy", "HTTP_PROXY", "https_proxy", "HTTPS_PROXY",
+              "all_proxy", "ALL_PROXY"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("no_proxy", "*")
+    _wavs(tmp_path / "a")
+    received = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            received.append((self.headers["Content-Type"],
+                             self.headers["Authorization"], body.decode()))
+            reply = json.dumps({"mos": len(body) % 97 / 20.0}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(reply)))
+            self.end_headers()
+            self.wfile.write(reply)
+
+        def log_message(self, *args):
+            pass
+
+    server = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        monkeypatch.setattr(tools, "SCORING_URI_DNSMOS",
+                            f"http://127.0.0.1:{server.server_port}/score")
+        quiet = lambda *a: None  # noqa: E731
+        rows = tools.dns_mos_score(tmp_path / "a", tmp_path / "http" / "s.csv",
+                                   auth_key="k", log=quiet)
+        again = tools.dns_mos_score(tmp_path / "a",
+                                    tmp_path / "http" / "s.csv",
+                                    auth_key="k", log=quiet)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    sent = []
+
+    def post(uri, headers, payload):
+        sent.append((headers["Content-Type"], headers["Authorization"],
+                     payload))
+        return {"mos": len(payload) % 97 / 20.0}
+
+    want = tools.dns_mos_score(tmp_path / "a", tmp_path / "fn" / "s.csv",
+                               auth_key="k", post_fn=post, log=quiet)
+    assert len(rows) == 3 and again == []
+    assert rows == want and received == sent
+    assert received[0][:2] == ("application/json", "Basic k")
+    assert ((tmp_path / "http" / "file_mos.txt").read_text()
+            == (tmp_path / "fn" / "file_mos.txt").read_text())
 
 
 def test_draw_hist_svg(tmp_path):
@@ -362,7 +420,7 @@ def test_draw_hist_svg(tmp_path):
     assert ">A<" in (tmp_path / "two.svg").read_text()
 
 
-def test_tools_dispatcher(tmp_path, capsys):
+def test_tools_dispatcher(tmp_path, capsys, monkeypatch):
     _wavs(tmp_path / "ds", n=1, seconds=0.5)
     tools.main(["gen_lst", "--dataset_dir", str(tmp_path / "ds"),
                 "--output_lst", str(tmp_path / "o.lst")])
@@ -376,6 +434,12 @@ def test_tools_dispatcher(tmp_path, capsys):
     assert tools.read_metric_txt(tmp_path / "d.txt") == {"x.wav": 0.5}
     assert "(1 entries present in only one file)" in capsys.readouterr().out
     assert (tmp_path / "h.svg").read_text().count('class="bar"') == 20
-    with pytest.raises(NotImplementedError):
-        tools.main(["dns_mos", "--testset_dir", str(tmp_path / "ds"),
-                    "--score_file", str(tmp_path / "s.csv")])
+    # dns_mos through the default transport, which is replaced here: no
+    # request leaves the process
+    sent = []
+    monkeypatch.setattr(tools, "_post_json", lambda uri, headers, payload:
+                        sent.append(uri) or {"mos": 3.5})
+    tools.main(["dns_mos", "--testset_dir", str(tmp_path / "ds"),
+                "--score_file", str(tmp_path / "s.csv")])
+    assert sent == [tools.SCORING_URI_DNSMOS]
+    assert "w0.wav" in (tmp_path / "file_mos.txt").read_text()
