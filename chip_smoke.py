@@ -274,6 +274,31 @@ of which fails the run (non-zero exit, no result line):
      and backward) held on their operands against the plain versions; the
      ms of each step and the split's and gather's share of it (CUDA events
      around them). The ranks' launches add to the kernels line's.
+ 22. the float32 compute mode, the JAX models' default dtype, at full width:
+     a float32 model on the card runs its recurrent layers on the mixed
+     route (bf16 gates from the fp32-accumulated projection plus the fp32
+     bias, rounded once; the scan kernels with float32 output) and the rest
+     in strict float32. (a) FullSubNet+: a 10 s request (2 kernel A
+     launches, float32 output) and a 30 s request under the lowered gates
+     limit (kernel B), against the float32 model on the CPU within
+     PATH_REL, every launch held on its operands against its plain version;
+     the 10 s request's ms beside the bf16 model's and beside float32 with
+     TF32; (b) five EnhanceTrainer steps at compute_dtype "float32", 18 x
+     3.072 s, exactly 2 C and 2 D a step, step 1's C and D on their
+     operands, step 1's loss and gradient against the bf16 step's, 4 x 1 s
+     against the CPU, the ms a step beside phase 6's; (c) a float32 v1-GRU
+     step (4 + 4 + 4 GRU launches, each on its operands) and a 10 s v1-GRU
+     request whose sub-band GRU takes the carry kernel, against the CPU;
+     (d) an NPPCDenoisingTrainer step at its default float32 (2 A, 2 C, 2
+     D), C and D on their operands, 4 x 1 s against the CPU; (e)
+     __graft_entry__.dryrun_multichip's configuration (a narrow
+     FullSubNet+, 8 x 4096 samples) over 2 gloo ranks of make_mesh(1, 2)
+     sharing the card, this script's --phase22 mode under cli.launch,
+     against one process; (f) the three examples of
+     generative_audio_torch/examples as subprocesses on the card, each
+     exiting 0 (the streaming demo asserts its bit-identity with
+     overlapped_chunk). Its launches, the ranks' included, add to the
+     kernels line's.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -282,10 +307,12 @@ A's, in phases 14-16 to kernel B's too, in phases 15-16 and 18 to kernels
 C's and D's, and in phase 18 to the GRU kernels'), and in each rank of
 phase 20 around each DDP step and each cli.train run (whose launches add to
 kernels C's and D's) and of phase 21 around each step (C's and D's, and the
-GRU kernels'). The second-to-last line of stdout is
+GRU kernels'), and around each part of phase 22 and in its ranks (A's, B's,
+C's, D's and the GRU kernels'). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
-20, `--phase21 PART OUT` one of phase 21, run by cli.launch.
+20, `--phase21 PART OUT` one of phase 21, `--phase22 graft OUT` one of
+phase 22, run by cli.launch.
 """
 import contextlib
 import dataclasses
@@ -317,7 +344,8 @@ TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_STEPS = 18, 49152, 5
 # FullSubNet v1's full-band model: H=512 over as many rows as clips.
 FB_HIDDEN, FB_SERVE_ROWS = 512, 8
 SEED = 0
-# The median ms of phase 6's training steps 2-5 by model, for phase 15.
+# The median ms of phase 6's training steps 2-5 by model (and of phase 16's
+# NPPC steps under "nppc"), for phases 15 and 22.
 STEP_MS = {}
 # Lowered gates limit of phase 4: a 30 s clip's gates (1.48 GB) exceed it.
 LONG_CLIP_GATES_LIMIT = 256 << 20
@@ -2551,16 +2579,18 @@ def phase_training(dev, path, counts):
     return trainer
 
 
-def phase_training_reference(dev, path):
-    """A batch of 4 x 1 s: the bf16 loss and gradients on the card against
-    the float32 model on the CPU."""
+def phase_training_reference(dev, path, dtype="bfloat16"):
+    """A batch of 4 x 1 s: the loss and gradients on the card in `dtype`
+    (bf16, or float32 on the recurrent layers' mixed route) against the
+    float32 model on the CPU."""
     import torch.nn.functional as F
     from generative_audio_torch.train import (
         enhance_loss_fn, init_enhance_state)
     noisy, clean = (torch.from_numpy(x) for x in
                     _noise_batch(SEED + 7, 4, 16000))
     grads, losses = {}, {}
-    for name, device, dtype in (("card", dev, "bfloat16"),
+    mode = "bf16" if dtype == "bfloat16" else "float32 (mixed)"
+    for name, device, dtype in (("card", dev, dtype),
                                 ("cpu", "cpu", "float32")):
         cfg = path.train_config(dtype)
         state = init_enhance_state(cfg, SEED, device)
@@ -2581,8 +2611,8 @@ def phase_training_reference(dev, path):
                      want.norm().item() / top, k))
     carrying = [r for r in rows if r[2] > 1e-3]
     worst = min(carrying)
-    log(f"train reference {path.name}: 4 x 1 s, bf16 on the card vs float32 on "
-        f"the CPU: loss {losses['card']:.6f} vs {losses['cpu']:.6f} (rel "
+    log(f"train reference {path.name}: 4 x 1 s, {mode} on the card vs float32 "
+        f"on the CPU: loss {losses['card']:.6f} vs {losses['cpu']:.6f} (rel "
         f"{rel:.3e}); of {len(rows)} parameter tensors {len(carrying)} carry "
         f"the gradient (norm above 1e-3 of the largest): lowest cosine "
         f"{worst[0]:.4f} ({worst[3]}), norm ratios "
@@ -2592,11 +2622,12 @@ def phase_training_reference(dev, path):
                 or ".sequence_model.weight_hh" in k:
             log(f"  {k}: cosine {cos:.5f}, norm ratio {ratio:.4f}, "
                 f"norm/largest {share:.2e}")
-    check(rel < TRAIN_LOSS_REL, f"bf16 loss vs float32 within {TRAIN_LOSS_REL}")
+    check(rel < TRAIN_LOSS_REL,
+          f"{mode} loss vs float32 within {TRAIN_LOSS_REL}")
     check(worst[0] > TRAIN_GRAD_COS
           and all(abs(r[1] - 1) < TRAIN_GRAD_RATIO for r in carrying),
-          f"bf16 gradients vs float32: cosine above {TRAIN_GRAD_COS}, norms "
-          f"within {TRAIN_GRAD_RATIO}")
+          f"{mode} gradients vs float32: cosine above {TRAIN_GRAD_COS}, "
+          f"norms within {TRAIN_GRAD_RATIO}")
 
 
 def _profile(fn, what):
@@ -4083,7 +4114,8 @@ def _scans_vs_plain(L, dev, calls, what, n):
           f"{len(calls['C'])} and {len(calls['D'])})")
     for i, ((gates, w_hh, reverse), (h_seq, c_seq)) in enumerate(calls["C"]):
         t_len, rows, h = h_seq.shape
-        shift = L.card_scan_plan(dev, h, rows, train=True).rows % rows or 1
+        hp = L.scan_hidden(h)           # the H the wrapper pads the layer to
+        shift = L.card_scan_plan(dev, hp, rows, train=True).rows % rows or 1
         p_h, p_c = L.lstm_scan_train_reference_tm(gates, w_hh, reverse)
         peak_c = p_c.float().abs().max().item()
         # phase 3's c limits hold at its peak |c| of about 2.5; a bf16 step
@@ -4102,7 +4134,7 @@ def _scans_vs_plain(L, dev, calls, what, n):
         faulty = within(h_seq.roll(shift, 1), c_seq.roll(shift, 1))
         log(f"kernel C on {what}, call {i + 1} (T={t_len} rows={rows} H={h}, "
             f"reverse={reverse}, plan "
-            f"{_plan_line(L, dev, h, rows, train=True)}): h max|err| "
+            f"{_plan_line(L, dev, hp, rows, train=True)}): h max|err| "
             f"{max_h:.3e}, c max|err| {max_c:.3e} mean {mean_c:.3e} (peak |h| "
             f"{p_h.float().abs().max().item():.3f}, |c| {peak_c:.3f}); rows "
             f"rolled by {shift}: h {faulty[0]:.3e}, c {faulty[1]:.3e} mean "
@@ -4120,7 +4152,7 @@ def _scans_vs_plain(L, dev, calls, what, n):
               f"kernel C on {what}'s call {i + 1} == its rows within "
               f"{TRAIN_ROWS} tiled rows bitwise")
         log(f"  == its rows within {TRAIN_ROWS} tiled rows bitwise (plan "
-            f"{_plan_line(L, dev, h, TRAIN_ROWS, train=True)})")
+            f"{_plan_line(L, dev, hp, TRAIN_ROWS, train=True)})")
         del tiled, h_t, c_t
     for i, ((gates, h_seq, c_seq, gout, w_hh, reverse, _), dg) in enumerate(
             calls["D"]):
@@ -4204,6 +4236,7 @@ def _nppc_training(dev, cfg, params, counts):
           and all(p.grad is None for p in enhancer.parameters()),
           "the frozen enhancer bit for bit unchanged, with no gradient")
     steady = statistics.median(times[1:])
+    STEP_MS["nppc"] = steady
     log(f"train nppc: batch {NPPC_BATCH} x {NPPC_SAMPLES / 16000:.3f} s, "
         f"{cfg.pc_wrapper.n_directions} directions, bf16: objectives "
         f"{' '.join(f'{x:.6f}' for x in objectives)}, reconst_err "
@@ -4215,16 +4248,18 @@ def _nppc_training(dev, cfg, params, counts):
     return trainer, (noisy, clean), total
 
 
-def _nppc_reference(dev, cfg, params):
+def _nppc_reference(dev, cfg, params, dtype=torch.bfloat16):
     """A 4 x 1 s batch: the objective, reconst_err and the head's gradients
-    in bf16 on the card against the float32 trainer on the CPU, at the
-    step where lambda reaches its scale (both terms of the objective)."""
+    on the card in `dtype` (bf16, or float32 on the recurrent layers' mixed
+    route) against the float32 trainer on the CPU, at the step where lambda
+    reaches its scale (both terms of the objective)."""
     import torch.nn.functional as F
     noisy, clean = (torch.from_numpy(x) for x in
                     _noise_batch(SEED + 23, NPPC_REF_BATCH, NPPC_REF_SAMPLES))
     step = NPPC_CLI_TRAIN["second_moment_loss_grace"]
+    mode = "bf16" if dtype == torch.bfloat16 else "float32 (mixed)"
     out = {}
-    for name, device, dtype in (("card", dev, torch.bfloat16),
+    for name, device, dtype in (("card", dev, dtype),
                                 ("cpu", "cpu", torch.float32)):
         trainer = _nppc_trainer(cfg, params, device, dtype)
         obj, rec, _ = trainer.objective(noisy.to(device), clean.to(device),
@@ -4246,7 +4281,7 @@ def _nppc_reference(dev, cfg, params):
     worst = min(carrying)
     ratios = [r[1] for r in carrying]
     log(f"nppc reference: {NPPC_REF_BATCH} x {NPPC_REF_SAMPLES / 16000:.0f} s "
-        f"at step {step}, bf16 on the card vs float32 on the CPU: objective "
+        f"at step {step}, {mode} on the card vs float32 on the CPU: objective "
         f"{out['card'][0]:.7f} vs {out['cpu'][0]:.7f} (rel {rel_obj:.3e}), "
         f"reconst_err {out['card'][1]:.7f} vs {out['cpu'][1]:.7f} (rel "
         f"{rel_rec:.3e}); of {len(rows)} head tensors {len(carrying)} carry "
@@ -4261,10 +4296,11 @@ def _nppc_reference(dev, cfg, params):
           f"the sub-band LSTM's 8 tensors carry the gradient (got "
           f"{[(r[3], r[2]) for r in scan]})")
     check(rel_obj < NPPC_OBJ_REL and rel_rec < NPPC_OBJ_REL,
-          f"bf16 objective and reconst_err vs float32 within {NPPC_OBJ_REL}")
+          f"{mode} objective and reconst_err vs float32 within "
+          f"{NPPC_OBJ_REL}")
     check(worst[0] > NPPC_GRAD_COS
           and all(abs(r - 1) < NPPC_GRAD_RATIO for r in ratios),
-          f"bf16 head gradients vs float32: cosine above {NPPC_GRAD_COS}, "
+          f"{mode} head gradients vs float32: cosine above {NPPC_GRAD_COS}, "
           f"norms within {NPPC_GRAD_RATIO}")
 
 
@@ -4397,12 +4433,16 @@ def _nppc_cli(dev, counts):
     n_dirs = [t.state.model.config.pc_wrapper.n_directions
               for t in (first, second)]
     log(f"nppc CLI: {NPPC_CLI_CLEAN} clean + {NPPC_CLI_NOISE} noise clips of "
-        f"{NPPC_CLI_SECONDS} s, batch 8 x 3.0 s, {NPPC_CLI_WORKERS} workers: "
+        f"{NPPC_CLI_SECONDS} s, batch 8 x 3.0 s, {NPPC_CLI_WORKERS} workers, "
+        f"the line's float32 (mixed route): "
         f"{n_dirs} directions, objectives {first.loss_history} then "
         f"{second.loss_history}, restores {restores}, steps "
         f"{' '.join(f'{s * 1e3:.1f}' for s, _ in steps)} ms, final metrics "
         f"{final}")
     check(n_dirs == [5, 5], "the yaml's n_dirs built 5 directions")
+    check(all(t.state.model.pretrained_restoration_model.compute_dtype
+              == torch.float32 for t in (first, second)),
+          "the nppc_denoising line trains in float32, the JAX line's dtype")
     check(len(steps) == n and all(got == per_step for _, got in steps),
           f"each CLI step launched {per_step} and nothing else")
     check(restores == [(True, 2 * NPPC_CLI_STEPS)]
@@ -5257,7 +5297,8 @@ def _forward_scans_vs_plain(calls, what):
     forward handed lstm_scan_tm or gru_scan_tm (as _recorded_calls records
     them), against the plain versions on the card rounded to the result's
     dtype, under phase 2's and phase 9's limits. The same limits must
-    reject each result with its rows rolled by one."""
+    reject each result with its rows rolled by one (its steps, where there
+    is one row)."""
     from generative_audio_torch.ops import gru as G
     from generative_audio_torch.ops import lstm as L
     for i, (args, out) in enumerate(calls):
@@ -5277,16 +5318,17 @@ def _forward_scans_vs_plain(calls, what):
                     err.max().item() < KERNEL_MAX_ABS
                     and err.mean().item() < mean_limit)
         max_e, mean_e, ok = within(out)
-        faulty = within(out.roll(1, 1))
+        axis = "rows" if out.shape[1] > 1 else "steps"
+        faulty = within(out.roll(1, 1 if out.shape[1] > 1 else 0))
         log(f"{kernel} on {what}, call {i + 1} (T={out.shape[0]} "
             f"rows={out.shape[1]} H={out.shape[2]}): max|err| {max_e:.3e} "
-            f"mean {mean_e:.3e}; rows rolled by 1: max {faulty[0]:.3e} mean "
-            f"{faulty[1]:.3e}")
+            f"mean {mean_e:.3e}; {axis} rolled by 1: max {faulty[0]:.3e} "
+            f"mean {faulty[1]:.3e}")
         check(torch.isfinite(out).all().item() and ok,
               f"{kernel} vs plain on {what}, call {i + 1} within "
               f"{KERNEL_MAX_ABS}/{mean_limit}")
-        check(not faulty[2], f"the {kernel} limits reject rows rolled by 1 "
-              f"({what}, call {i + 1})")
+        check(not faulty[2], f"the {kernel} limits reject {axis} rolled by "
+              f"1 ({what}, call {i + 1})")
 
 
 def _gru_bwd_vs_plain(calls, what):
@@ -6549,11 +6591,570 @@ def phase_band_axis(dev, plus, v1_gru, plus_ref):
     return launched
 
 
+
+# Phase 22: the float32 compute mode, the JAX models' default dtype, at full
+# width. A float32 model on the card runs its recurrent layers on the mixed
+# route of nn.recurrent (bf16 gates from the fp32-accumulated projection plus
+# the fp32 bias, the scan kernels with float32 output) and the rest in
+# strict float32 (utils.device.resolve_device turns TF32 off). (a) a 10 s
+# request and a 30 s request under LONG_CLIP_GATES_LIMIT (kernel B) of
+# FullSubNet+ against the float32 model on the CPU, kernels A and B held on
+# their operands, and the 10 s request's ms beside bf16's; (b)
+# TRAIN_STEPS EnhanceTrainer steps at 18 x 3.072 s, kernels C and D held on
+# their operands, step 1 against the bf16 step and 4 x 1 s against the CPU;
+# (c) a v1-GRU step and a chunked 10 s v1-GRU request (the GRU rows); (d)
+# an NPPCDenoisingTrainer step at its default dtype, 4 x 1 s against the
+# CPU; (e) __graft_entry__.dryrun_multichip's configuration (a narrow
+# FullSubNet+, its 8 x 4096-sample batch) over 2 gloo ranks of
+# make_mesh(1, 2) sharing the card against one process; (f) the three
+# examples as subprocesses on the card. (e) and (f) run while this process
+# holds the paths against the CPU; the timed parts come after them.
+F32_REQUESTS = 3              # timed 10 s requests of each mode
+F32_TIMED_STEPS = 3           # timed steps after step 1 in (c) and (d)
+F32_V1_SECONDS = 10           # the chunked v1-GRU request
+GRAFT_MODEL = {"num_freqs": 32, "sb_num_neighbors": 3,
+               "fb_model_hidden_size": 32, "sb_model_hidden_size": 16,
+               "num_groups_in_drop_band": 2}
+GRAFT_BATCH, GRAFT_SAMPLES = 8, 4096
+EXAMPLES = ("enhance_demo", "streaming_demo", "nppc_inpainting_demo")
+EXAMPLE_TIMEOUT = 300
+
+
+def _graft_config():
+    """__graft_entry__.dryrun_multichip's EnhanceTrainConfig (float32)."""
+    from generative_audio_torch.models import FullSubNetPlusConfig
+    from generative_audio_torch.train import EnhanceTrainConfig
+    return EnhanceTrainConfig(model=FullSubNetPlusConfig(**GRAFT_MODEL),
+                              n_fft=62, hop_length=32, win_length=62,
+                              compute_dtype="float32")
+
+
+def _graft_batch():
+    """Its batch at 8 devices (data 4 x band 2): 2 rows a data group."""
+    rng = np.random.default_rng(0)
+    return tuple(rng.standard_normal((GRAFT_BATCH, GRAFT_SAMPLES)).astype(
+        np.float32) for _ in range(2))
+
+
+@contextlib.contextmanager
+def _tf32(enabled):
+    """cuBLAS's and cuDNN's float32 with TF32 (enabled) or strict inside."""
+    from generative_audio_torch.utils.device import conv_tf32
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    try:
+        with conv_tf32(enabled):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _wall_ms(fn, n):
+    """Median wall ms of n synchronised calls of fn after one warm-up."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _carry_scans_vs_plain(calls, what):
+    """Kernel B's or the GRU carry kernel's results on the very operands a
+    chunked forward handed lstm_scan_carry_tm or gru_scan_carry_tm (as
+    _recorded_calls records them): the h sequence and the state after the
+    chunk against the plain versions on the card, under phase 2's and phase
+    9's limits. The same limits must reject each h sequence with its rows
+    rolled by one."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    worst = [0.0, 0.0]
+    for i, (args, out) in enumerate(calls):
+        if len(out) == 3:           # LSTM: (gates, w_hh, h0, c0, reverse, dt)
+            kernel, mean_limit = "kernel B", KERNEL_MEAN_ABS
+            want = L.lstm_scan_carry_reference_tm(
+                args[0].to(torch.bfloat16), *args[1:])
+        else:                       # GRU: (gates, w_hh, b_hh, h0, reverse, dt)
+            kernel, mean_limit = "GRU carry", GRU_FWD_MEAN_ABS
+            want = G.gru_scan_carry_reference_tm(
+                args[0].to(torch.bfloat16), *args[1:])
+
+        def within(seq):
+            err = (seq.float() - want[0].float()).abs()
+            return (err.max().item(), err.mean().item(),
+                    err.max().item() < KERNEL_MAX_ABS
+                    and err.mean().item() < mean_limit)
+        max_e, mean_e, ok = within(out[0])
+        state = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(out[1:], want[1:]))
+        faulty = within(out[0].roll(1, 1))
+        worst = [max(worst[0], max_e), max(worst[1], mean_e)]
+        check(torch.isfinite(out[0]).all().item() and ok
+              and state < KERNEL_MAX_ABS * max(1.0, C_PEAK),
+              f"{kernel} vs plain on {what}, chunk {i + 1} within "
+              f"{KERNEL_MAX_ABS}/{mean_limit} (state {state:.3e})")
+        check(not faulty[2], f"the {kernel} limits reject rows rolled by 1 "
+              f"({what}, chunk {i + 1})")
+    log(f"{kernel} on {what}: {len(calls)} chunks (T={calls[0][1][0].shape[0]}"
+        f" rows={calls[0][1][0].shape[1]} H={calls[0][1][0].shape[2]}, "
+        f"{calls[0][1][0].dtype} out), each within the limits and rejecting "
+        f"rows rolled by 1: worst max|err| {worst[0]:.3e}, mean {worst[1]:.3e}")
+
+
+def _f32_requests(dev, plus, v1_gru, counts, card):
+    """(a) and (c)'s requests, each against the float32 model on the CPU
+    within PATH_REL, every scan launch held on its operands against its
+    plain version, the scans' output float32: FullSubNet+ at full width, a
+    10 s request (2 kernel A launches) and a 30 s request under
+    LONG_CLIP_GATES_LIMIT (kernel B); FullSubNet v1-GRU, a 10 s request
+    whose sub-band GRU takes the carry kernel under that limit (the full
+    band: the forward). Returns their launches."""
+    from generative_audio_torch.nn import recurrent as R
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    check([layer.route(dev) for layer in
+           plus.model(torch.float32, dev).sb_model.sequence_model.layers]
+          == ["mixed", "mixed"], "the float32 sub-band LSTM takes the mixed "
+          "route on the card")
+    rng = np.random.default_rng(SEED + 80)
+    launched = {}
+    for path, seconds, limit, fwd_name, carry_name, module in (
+            (plus, 10, None, "lstm_scan_tm", "lstm_scan_carry_tm", L),
+            (plus, 30, LONG_CLIP_GATES_LIMIT, "lstm_scan_tm",
+             "lstm_scan_carry_tm", L),
+            (v1_gru, F32_V1_SECONDS, LONG_CLIP_GATES_LIMIT, "gru_scan_tm",
+             "gru_scan_carry_tm", G)):
+        wav = (rng.standard_normal(seconds * 16000) * 0.1).astype(np.float32)
+        inf = path.inferencer(path.model(torch.float32, dev,
+                                         gates_bytes_limit=limit), dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with _recorded_calls(R, fwd=fwd_name) as fwd, \
+                _recorded_calls(module, carry=carry_name) as carry:
+            before = dict(counts)
+            out = inf.enhance(wav)
+            got = _launched(counts, before)
+        # with the records' copies of the operands
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        n_carry = len(carry["carry"])
+        want = {k: n for k, n in ((path.fwd, len(fwd["fwd"])),
+                                  (path.carry, n_carry)) if n}
+        what = f"the float32 {path.name} {seconds} s request"
+        n_fwd = path.per_forward if limit is None else path.per_long_forward
+        check(got == want and len(fwd["fwd"]) == n_fwd
+              and (limit is None) == (n_carry == 0),
+              f"{what} launched {n_fwd} {path.fwd} and, above the gates "
+              f"limit only, {path.carry} (got {got})")
+        check(all(o.dtype == torch.float32 for _, o in fwd["fwd"])
+              and all(o[0].dtype == torch.float32 for _, o in carry["carry"]),
+              f"{what}: the scans return float32")
+        if fwd["fwd"]:
+            _forward_scans_vs_plain(fwd["fwd"], what)
+        if n_carry:
+            _carry_scans_vs_plain(carry["carry"], what)
+        del fwd, carry, inf
+        for k, n in got.items():
+            launched[k] = launched.get(k, 0) + n
+        ref = path.inferencer(path.model(torch.float32, "cpu"), "cpu")
+        rel = _rel(out, ref.enhance(wav))
+        log(f"phase 22 {what}: launched {got}, peak memory {peak:.2f} GiB "
+            f"with the records; against float32 on the CPU: max|err|/peak "
+            f"{rel:.3e} on {card}")
+        check(out.shape == wav.shape and np.isfinite(out).all()
+              and rel < PATH_REL,
+              f"{what} vs float32 on the CPU within {PATH_REL}")
+    torch.cuda.empty_cache()
+    return launched
+
+
+def _f32_request_times(dev, plus, card):
+    """(a)'s readings: a 10 s FullSubNet+ request's wall ms in float32
+    (strict, the port's choice), in bf16 and in float32 with TF32, in two
+    alternating rounds, and TF32's distance from strict float32."""
+    m32 = plus.model(torch.float32, dev)
+    inf32 = plus.inferencer(m32, dev)
+    inf16 = plus.inferencer(plus.model(torch.bfloat16, dev), dev)
+    wav = (np.random.default_rng(SEED + 82).standard_normal(10 * 16000)
+           * 0.1).astype(np.float32)
+    ms = {"float32": [], "bf16": [], "float32 TF32": []}
+    for _ in range(2):
+        ms["float32"].append(_wall_ms(lambda: inf32.enhance(wav),
+                                      F32_REQUESTS))
+        ms["bf16"].append(_wall_ms(lambda: inf16.enhance(wav), F32_REQUESTS))
+        with _tf32(True):
+            ms["float32 TF32"].append(_wall_ms(lambda: inf32.enhance(wav),
+                                               F32_REQUESTS))
+    strict = inf32.enhance(wav)
+    with _tf32(True):
+        loose = inf32.enhance(wav)
+    log(f"phase 22 (a) 10 s request, median wall ms of {F32_REQUESTS} in two "
+        f"alternating rounds: float32 (strict, the port's) {ms['float32']}, "
+        f"bf16 {ms['bf16']}, float32 with TF32 {ms['float32 TF32']}; TF32 "
+        f"vs strict max|err|/peak {_rel(loose, strict):.3e}; on {card}")
+    # a batch of 8 x 10 s: the hoisted float32 route's memory and time
+    from generative_audio_torch.ops import prepare_input_from_waveform
+    batch = torch.from_numpy(np.random.default_rng(SEED + 83).standard_normal(
+        (8, 160000)).astype(np.float32) * 0.1).to(dev)
+    inputs = prepare_input_from_waveform(batch, 512, 256, 512)[:plus.n_inputs]
+    line = []
+    with torch.inference_mode():
+        for name, model in (("float32", m32), ("bf16", inf16.model)):
+            model(*inputs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            out = model(*inputs)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+            check(torch.isfinite(out).all().item(),
+                  f"the {name} batch-8 x 10 s forward is finite")
+            del out
+            line.append(f"{name} {cuda_ms(lambda: model(*inputs), 3):.2f} ms, "
+                        f"{peak:.2f} GiB above its inputs")
+    log(f"phase 22 (a) batch 8 x 10 s forward: {'; '.join(line)}; on {card}")
+    del m32, inf32, inf16, inputs, batch
+    torch.cuda.empty_cache()
+
+
+def _f32_training(dev, plus, counts, card):
+    """(b): TRAIN_STEPS EnhanceTrainer steps of FullSubNet+ at
+    compute_dtype "float32" on phase 6's batch: exact launches, kernels C
+    and D of step 1 on their operands, every parameter's gradient, step 1's
+    loss and gradient against the bf16 trainer's on the same weights and
+    batch, the ms beside phase 6's, a profile of one step."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import EnhanceTrainer
+    batch = tuple(torch.from_numpy(x).to(dev) for x in
+                  _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
+    ref = EnhanceTrainer(plus.train_config("bfloat16"), seed=SEED,
+                         pretrained_state_dict=plus.sd, device=dev)
+    ref_grads = _first_step_grads(ref)
+    ref_loss = ref.train_epoch([batch])
+    del ref
+    trainer = EnhanceTrainer(plus.train_config("float32"), seed=SEED,
+                             pretrained_state_dict=plus.sd, device=dev)
+    check(trainer.state.model.compute_dtype == torch.float32,
+          "EnhanceTrainConfig(compute_dtype='float32') builds a float32 model")
+    grads = _first_step_grads(trainer)
+    verify = _first_grads(trainer.state.model.named_parameters(),
+                          "float32 parameter")
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    total = dict.fromkeys(plus.per_step, 0)
+    for step in range(TRAIN_STEPS):
+        before = dict(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (_recorded_scans(L) if step == 0
+              else contextlib.nullcontext()) as recorded:
+            losses.append(trainer.train_epoch([batch]))   # ends in a fetch
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = _launched(counts, before)
+        check(got == plus.per_step, f"float32 train step {step + 1} "
+              f"launched {plus.per_step} and nothing else (got {got})")
+        total = {k: total[k] + got[k] for k in total}
+        if step == 0:
+            verify()
+            _scans_vs_plain(L, dev, recorded,
+                            "the float32 FullSubNet+ step's layers", 2)
+            del recorded
+            # the records held the operands past the step
+            torch.cuda.reset_peak_memory_stats(dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          "float32 training losses finite, the fifth below the first")
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    cos, norm_rel, _, _ = _grads_vs(grads, ref_grads)
+    steady = statistics.median(times[1:])
+    log(f"phase 22 (b) float32 FullSubNet+ training, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SAMPLES / 16000:.3f} s: losses "
+        f"{' '.join(f'{x:.5f}' for x in losses)}; ms a step "
+        f"{' '.join(f'{x:.1f}' for x in times)}, median of steps "
+        f"2-{TRAIN_STEPS} {steady:.2f} ms against bf16's "
+        f"{STEP_MS.get(plus.name, float('nan')):.2f} (phase 6), peak memory "
+        f"of steps 2-{TRAIN_STEPS} {peak:.2f} GiB; step 1 against the bf16 "
+        f"step: loss {losses[0]:.6f} vs {ref_loss:.6f} (rel "
+        f"{loss_rel:.3e}), gradient cosine {cos:.6f}, norm rel "
+        f"{norm_rel:.3e}; on {card}")
+    check(loss_rel < TRAIN_LOSS_REL and cos > TRAIN_GRAD_COS
+          and norm_rel < TRAIN_GRAD_RATIO,
+          f"float32 step 1 vs bf16: loss within {TRAIN_LOSS_REL}, cosine "
+          f"above {TRAIN_GRAD_COS}, norm within {TRAIN_GRAD_RATIO}")
+    _profile(lambda: trainer.train_epoch([batch]),
+             f"float32 FullSubNet+ training step, batch {TRAIN_BATCH} x "
+             f"{TRAIN_SAMPLES / 16000:.3f} s")
+    del trainer, grads, ref_grads
+    torch.cuda.empty_cache()
+    return total
+
+
+def _f32_v1_gru(dev, v1_gru, counts, card):
+    """(c)'s training: FullSubNet v1-GRU in float32, one step on phase 6's
+    batch with exact launches, every GRU launch held on its operands (the
+    forward and the backward), a second step's ms beside phase 6's bf16."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.train import EnhanceTrainer
+    batch = tuple(torch.from_numpy(x).to(dev) for x in
+                  _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
+    trainer = EnhanceTrainer(v1_gru.train_config("float32"), seed=SEED,
+                             pretrained_state_dict=v1_gru.sd, device=dev)
+    verify = _first_grads(trainer.state.model.named_parameters(),
+                          "float32 v1-GRU parameter")
+    with _recorded_calls(G, fwd="gru_scan_tm", bwd="gru_scan_bwd_tm") as rec:
+        losses = [_count(counts, lambda: trainer.train_epoch([batch]),
+                         v1_gru.per_step, "float32 v1-GRU train step 1")]
+    verify()
+    what = "the float32 v1-GRU step"
+    check(len(rec["fwd"]) == 4 and len(rec["bwd"]) == 4,
+          f"{what}: 4 GRU forwards and 4 backwards")
+    _forward_scans_vs_plain(rec["fwd"], what)
+    _gru_bwd_vs_plain(rec["bwd"], what)
+    del rec
+    times = []
+    for step in range(2, F32_TIMED_STEPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_count(counts, lambda: trainer.train_epoch([batch]),
+                             v1_gru.per_step,
+                             f"float32 v1-GRU train step {step}"))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(np.isfinite(losses).all(), "float32 v1-GRU losses finite")
+    del trainer
+    log(f"phase 22 (c) float32 v1-GRU training: losses "
+        f"{' '.join(f'{x:.5f}' for x in losses)}; steps 2-"
+        f"{F32_TIMED_STEPS + 1} {' '.join(f'{x:.1f}' for x in times)} ms, "
+        f"median {statistics.median(times):.2f} against bf16's "
+        f"{STEP_MS.get(v1_gru.name, float('nan')):.2f} (phase 6) on {card}")
+    torch.cuda.empty_cache()
+    return {k: (F32_TIMED_STEPS + 1) * n for k, n in v1_gru.per_step.items()}
+
+
+def _f32_nppc(dev, cfg, params, counts, card):
+    """(d): NPPCDenoisingTrainer at its default compute dtype (float32, the
+    JAX line's), phase 16's configuration, weights and batch: exact
+    launches (kernel A for the frozen enhancer, C and D for the head), C
+    and D of step 1 on their operands, a finite objective, step 2's ms
+    beside phase 16's bf16."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import NPPCDenoisingTrainer
+    from generative_audio_torch.utils import convert
+    trainer = NPPCDenoisingTrainer(
+        _nppc_train_config(cfg),
+        restoration_params=params["pretrained_restoration_model"],
+        seed=SEED, device=dev)
+    trainer.state.model.audio_pc_wrapper.net.load_state_dict(
+        convert.convert_multidirection(params["audio_pc_wrapper"]["net"]))
+    model = trainer.state.model
+    check(model.pretrained_restoration_model.compute_dtype == torch.float32
+          and model.audio_pc_wrapper.net.compute_dtype == torch.float32,
+          "NPPCDenoisingTrainer's default dtype is float32")
+    noisy, clean = (torch.from_numpy(x).to(dev) for x in
+                    _noise_batch(SEED + 22, NPPC_BATCH, NPPC_SAMPLES))
+    per_step = {"lstm_scan_fwd": 2, "lstm_scan_fwd_train": 2,
+                "lstm_scan_bwd": 2}
+    verify = _first_grads(model.audio_pc_wrapper.named_parameters(),
+                          "float32 head")
+    with _recorded_scans(L) as recorded:
+        obj = _count(counts, lambda: trainer.train_step(noisy, clean)[0],
+                     per_step, "float32 nppc step 1").item()
+    verify()
+    _scans_vs_plain(L, dev, recorded, "the float32 nppc head's layers", 2)
+    del recorded
+    objectives, times = [obj], []
+    for step in range(2, F32_TIMED_STEPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        objectives.append(_count(
+            counts, lambda: trainer.train_step(noisy, clean)[0], per_step,
+            f"float32 nppc step {step}").item())            # a fetch
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(np.isfinite(objectives).all(), "float32 nppc objectives finite")
+    log(f"phase 22 (d) nppc_denoising at its default float32: objectives "
+        f"{' '.join(f'{x:.6f}' for x in objectives)}; steps 2-"
+        f"{F32_TIMED_STEPS + 1} {' '.join(f'{x:.1f}' for x in times)} ms, "
+        f"median {statistics.median(times):.2f} against bf16's "
+        f"{STEP_MS.get('nppc', float('nan')):.2f} (phase 16), batch "
+        f"{NPPC_BATCH} x {NPPC_SAMPLES / 16000:.3f} s, on {card}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {k: (F32_TIMED_STEPS + 1) * n for k, n in per_step.items()}
+
+
+def graft_worker(out):
+    """A rank of phase 22 (e) (run by cli.launch): one float32 EnhanceTrainer
+    step of __graft_entry__'s configuration on make_mesh(1, 2); kernels C
+    and D on their operands after the step's launches are read."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.parallel import distributed as D
+    from generative_audio_torch.parallel import make_mesh
+    from generative_audio_torch.train import EnhanceTrainer
+    out = Path(out)
+    check(D.initialize(), "the launcher's environment starts the job")
+    dev = D.local_device("cuda")
+    mesh = make_mesh(1, 2, device_type="cuda")
+    rank = D.process_index()
+    trainer = EnhanceTrainer(_graft_config(), seed=SEED, device=dev,
+                             mesh=mesh)
+    check(trainer.state.model.compute_dtype == torch.float32,
+          "the graft configuration trains in float32")
+    grads = _first_step_grads(trainer)
+    L.reset_launch_counts()
+    with _recorded_scans(L) as calls:
+        loss = trainer.train_epoch([_graft_batch()])
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in L.launch_counts.items() if v}
+    rows = [o[0].shape[1] for _, o in calls["C"]]
+    _scans_vs_plain(L, dev, calls, f"the graft band step on rank {rank}",
+                    len(calls["C"]))
+    result = {"rank": rank, "world": D.process_count(),
+              "backend": torch.distributed.get_backend(), "loss": loss,
+              "band": [trainer.subband_sharding.index,
+                       trainer.subband_sharding.size],
+              "launches": launches, "rows": rows, "step": trainer.state.step,
+              "digest": _state_digest(trainer.state.model)}
+    if rank == 0:
+        torch.save(grads, out / "graft_grads.pt")
+    (out / f"graft_rank{rank}.json").write_text(json.dumps(result))
+    D.shutdown()
+    return 0
+
+
+def _examples(root, out):
+    """(f): each example's module on the card in a session of its own, its
+    output to out/<name>.log; returns the Popens."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    procs = {}
+    for name in EXAMPLES:
+        with open(out / f"{name}.log", "w") as f:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"generative_audio_torch.examples.{name}"],
+                cwd=str(root), env=env, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True)
+    return procs
+
+
+def _graft_reference(dev, counts):
+    """(e)'s one process: the graft configuration's first float32 step on
+    the card, {"loss", "grads", "launched"}."""
+    from generative_audio_torch.train import EnhanceTrainer
+    ref = EnhanceTrainer(_graft_config(), seed=SEED, device=dev)
+    grads = _first_step_grads(ref)
+    before = dict(counts)
+    loss = ref.train_epoch([_graft_batch()])
+    return {"loss": loss, "grads": grads,
+            "launched": _launched(counts, before)}
+
+
+def _graft_and_examples_check(out, procs, ref, card):
+    """(e) and (f) after their processes ended: each example exited 0 (its
+    last lines printed), and the ranks' step against the one process's.
+    Returns the launches of (e), the ranks' and the one process's."""
+    for name, proc in procs.items():
+        for line in (out / f"{name}.log").read_text().splitlines()[-8:]:
+            log(f"  [{name}] {line}")
+        check(proc.returncode == 0, f"the example {name} exited 0 on the "
+              f"card (got {proc.returncode})")
+    ranks = [json.loads((out / f"graft_rank{r}.json").read_text())
+             for r in range(2)]
+    grads = torch.load(out / "graft_grads.pt", weights_only=True)
+    per_step = {"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2}
+    check(ref["launched"] == per_step,
+          f"the graft step in one process launched {per_step} (got "
+          f"{ref['launched']})")
+    rows = GRAFT_BATCH * (GRAFT_MODEL["num_freqs"]
+                          // GRAFT_MODEL["num_groups_in_drop_band"])
+    check(all(r["backend"] == "gloo" and r["world"] == 2 and r["step"] == 1
+              and r["band"] == [r["rank"], 2] and r["launches"] == per_step
+              and r["rows"] == [rows // 2] * 2 for r in ranks),
+          f"(e) 2 gloo ranks at band index r of 2, {per_step} each over "
+          f"{rows // 2} of the {rows} sub-band rows (got "
+          f"{[(r['band'], r['launches'], r['rows']) for r in ranks]})")
+    check(ranks[0]["digest"] == ranks[1]["digest"],
+          "(e) both ranks' parameters bit for bit equal after the step")
+    loss_rel = abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    cos, norm_rel, _, _ = _grads_vs(grads, ref["grads"])
+    log(f"phase 22 (e) the graft configuration's float32 step over 2 band "
+        f"ranks against one process: loss {ranks[0]['loss']:.6f} vs "
+        f"{ref['loss']:.6f} (rel {loss_rel:.2e}, limit {DDP_LOSS_REL:g}), "
+        f"gradient cosine {cos:.6f} (limit {DDP_GRAD_COS}), norm rel "
+        f"{norm_rel:.2e} (limit {DDP_GRAD_NORM_REL}); on {card}")
+    check(loss_rel <= DDP_LOSS_REL and cos >= DDP_GRAD_COS
+          and norm_rel <= DDP_GRAD_NORM_REL,
+          "(e) the band step within phase 20's limits of one process")
+    return {k: sum(r["launches"].get(k, 0) for r in ranks) + n
+            for k, n in ref["launched"].items()}
+
+
+def phase_float32(dev, plus, v1_gru):
+    """Phase 22 (see above). Returns the launches of its paths by kernel
+    (this process's and the ranks' of (e); not the comparisons)."""
+    import os
+    import signal
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.utils import convert
+    t_phase = time.perf_counter()
+    card = card_line()
+    counts = L.launch_counts
+    root = Path(__file__).resolve().parent
+    nppc_cfg = nppc_config()
+    nppc_params = convert.random_denoising_nppc_params(nppc_cfg,
+                                                       seed=SEED + 20)
+    total = {}
+
+    def add(launched):
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+
+    # (e) and (f) run while this process holds the paths against the CPU
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        launch = _ddp_launch("graft", out, 2, "gloo", per_device=2,
+                             mode="--phase22")
+        procs = _examples(root, out)
+        try:
+            L.reset_launch_counts()
+            add(_f32_requests(dev, plus, v1_gru, counts, card))
+            phase_training_reference(dev, plus, "float32")
+            _nppc_reference(dev, nppc_cfg, nppc_params, torch.float32)
+            L.reset_launch_counts()
+            ref = _graft_reference(dev, counts)
+        finally:
+            for proc in procs.values():
+                try:
+                    proc.wait(timeout=EXAMPLE_TIMEOUT)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+            _ddp_wait(launch, out, "graft")
+        add(_graft_and_examples_check(out, procs, ref, card))
+    del ref
+    log(f"phase 22 against the CPU, with (e) and (f) beside it: "
+        f"{time.perf_counter() - t_part:.1f} s")
+    # the timed parts, the card to this process alone
+    _f32_request_times(dev, plus, card)
+    for part in (lambda: _f32_training(dev, plus, counts, card),
+                 lambda: _f32_v1_gru(dev, v1_gru, counts, card),
+                 lambda: _f32_nppc(dev, nppc_cfg, nppc_params, counts, card)):
+        L.reset_launch_counts()
+        add(part())
+    log(f"launches on the float32 paths of phase 22: {total}")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     if sys.argv[1:2] == ["--phase20"]:
         return ddp_worker(*sys.argv[2:4])
     if sys.argv[1:2] == ["--phase21"]:
         return band_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--phase22"]:
+        return graft_worker(sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6640,6 +7241,8 @@ def main():
     for name, n in phase_band_axis(dev, plus, v1_gru, plus_ref).items():
         counts[name] += n
     del plus_ref
+    for name, n in phase_float32(dev, plus, v1_gru).items():
+        counts[name] += n
     counts.update(block_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 

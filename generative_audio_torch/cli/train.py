@@ -16,8 +16,10 @@ turns on in-loop validation and best-model selection. The dataset is
 seeded with the loader's `seed` (default 0), so a run is repeatable.
 The `nppc_denoising` line (`train:` is the NPPCDenoisingTrainConfig) trains
 uncertainty directions over a frozen FullSubNet+ on AudioDataset batches
-(global_batch_size 8 by default); as in the JAX CLI, no enhancer checkpoint
-is loaded, so the frozen enhancer keeps its seeded init. A `train.n_dirs`
+(global_batch_size 8 by default) in float32, the JAX line's compute dtype
+(on the card: bf16 gates into the scan kernels with float32 output); as in
+the JAX CLI, no enhancer checkpoint is loaded, so the frozen enhancer keeps
+its seeded init. A `train.n_dirs`
 key sets `model.pc_wrapper.n_directions`, the intent of
 configs/denoising_nppc.yaml, which the JAX CLI refuses as an unknown key.
 The line takes no `validation:` block (a ValueError).

@@ -49,8 +49,9 @@ class FullSubNet(nn.Module):
     """[B, 1, F, T] noisy magnitude -> [B, 2, F, T] compressed cRM.
 
     device: "cuda" (default; raises when there is no CUDA device) or "cpu".
-    compute_dtype: bf16 (the default, what the CUDA kernels take) or float32
-    (the CPU tests). gates_bytes_limit: see nn.recurrent; it applies to the
+    compute_dtype: bf16 (the default) or float32, the JAX model's default
+    (on the card the recurrent layers' mixed route, nn.recurrent; on the
+    CPU the float32 loop). gates_bytes_limit: see nn.recurrent; it applies to the
     full-band and the sub-band model alike. subband_sharding as for
     FullSubNetPlus: it splits the sub-band model's rows, the full-band
     model's B rows stay whole."""

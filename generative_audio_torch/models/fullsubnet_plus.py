@@ -100,7 +100,9 @@ class FullSubNetPlus(nn.Module):
 
     device: "cuda" (default; raises when there is no CUDA device) or "cpu".
     compute_dtype: bf16 for serving (the default, as the JAX CLI and bench
-    run it) or float32 (the CPU tests). gates_bytes_limit: see
+    run it) or float32, the JAX model's default (on the card the sub-band
+    LSTM's mixed route, nn.recurrent; on the CPU the float32 loop), with
+    the towers in float32. gates_bytes_limit: see
     nn.recurrent.LSTMLayer. subband_sharding (parallel.subband_sharding):
     the sub-band model runs over this rank's block of the B*F' rows, see
     `sub_band`; it adds no parameter or buffer."""

@@ -60,8 +60,9 @@ class DenoisingNPPCModel(nn.Module):
 
     Parameters: `pretrained_restoration_model.*` (the frozen FullSubNet+,
     requires_grad off) and `audio_pc_wrapper.net.*` (the head). device:
-    "cuda" (default; raises without one) or "cpu"; compute_dtype: bf16 on
-    the card, float32 for the CPU tests."""
+    "cuda" (default; raises without one) or "cpu"; compute_dtype: bf16 (the
+    default) or float32, the JAX model's default and NPPCDenoisingTrainer's
+    (on the card the recurrent layers' mixed route, nn.recurrent)."""
 
     def __init__(self, config: DenoisingNPPCConfig = DenoisingNPPCConfig(),
                  compute_dtype: torch.dtype = torch.bfloat16, device=None):

@@ -20,10 +20,16 @@ the time-chunked layer. Under autograd the same calls go through
 ops.lstm.LSTMScan or ops.gru.GRUScan (the training forward and the backward
 kernels); the projection's own backward (dx, dW_ih, db) is autograd's, in
 bf16 like its forward.
-In float32 (a constructor option, used by the CPU tests) the recurrence is
-the full-precision plain loop, the counterpart of the JAX lax.scan path,
-differentiated by autograd; the CUDA kernels take bf16 operands only, so
-float32 is refused on CUDA.
+In float32 (the JAX models' default compute dtype) the route depends on the
+tensors' device, where the JAX layers choose by pallas_available():
+  * on CUDA, the "mixed" route, the JAX layers' TPU route: bf16 gates made
+    once from the fp32-accumulated projection plus the fp32 bias
+    (ops.lstm.mixed_gates), the same scan kernels with float32 output (or
+    the chunked layer with that projection), and float32 everywhere else;
+  * on the CPU, the "float32" route: the full-precision plain loop, the
+    JAX lax.scan path, differentiated by autograd.
+`scan_kernels` runs the kernels' route on any device, so that the CPU tests
+hold the mixed route on the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ from generative_audio_torch.nn.tcn import TCNStack
 from generative_audio_torch.ops.gru import (
     gru_layer_tm_chunked, gru_scan_reference_tm, gru_scan_tm)
 from generative_audio_torch.ops.lstm import (
-    lstm_layer_tm_chunked, lstm_scan_reference_tm, lstm_scan_tm)
+    lstm_layer_tm_chunked, lstm_scan_reference_tm, lstm_scan_tm, mixed_gates)
 
 __all__ = ["LSTMLayer", "GRULayer", "SequenceModel", "ComplexSequenceModel",
            "default_gates_bytes_limit"]
@@ -67,8 +73,9 @@ class _RecurrentLayer(nn.Module):
     hold them under the checkpoint's names. A subclass sets `num_gates` (G)
     and the three routes of `_scan`.
 
-    gates_bytes_limit: above this size of the bf16 gates buffer the layer
-    runs the time-chunked projection. None derives it from the card's memory
+    compute_dtype: bf16 or float32 (see `route`). gates_bytes_limit: above
+    this size of the bf16 gates buffer the layer runs the time-chunked
+    projection. None derives it from the card's memory
     (default_gates_bytes_limit)."""
     num_gates: int
 
@@ -95,17 +102,43 @@ class _RecurrentLayer(nn.Module):
     def _scan_hoisted(self, x_tm, w_ih, w_hh, b_ih, b_hh, reverse):
         raise NotImplementedError
 
+    def route(self, device: torch.device) -> str:
+        """The route of a call on `device`: "bf16" for a bf16 layer; for a
+        float32 layer "mixed" on CUDA (the scan kernels over bf16 gates,
+        float32 out) and "float32" elsewhere (the plain float32 loop)."""
+        cdt = self.compute_dtype
+        if cdt == torch.bfloat16:
+            return "bf16"
+        if cdt != torch.float32:
+            raise ValueError(f"compute_dtype must be bfloat16 or float32, got {cdt}")
+        return "mixed" if device.type == "cuda" else "float32"
+
+    @property
+    def _mixed(self) -> bool:
+        return self.compute_dtype == torch.float32
+
+    def _gates(self, x_tm, w_ih, bias):
+        """The hoisted bf16 gates: in bf16 one F.linear with the bias in
+        bf16; in float32 mixed_gates (fp32 accumulation, the fp32 bias, one
+        rounding to bf16, as the JAX TPU route)."""
+        if self._mixed:
+            return mixed_gates(x_tm, w_ih.t(), bias)
+        cdt = self.compute_dtype
+        return F.linear(x_tm.to(cdt), w_ih.to(cdt), bias.to(cdt))
+
     def _scan(self, x_tm: torch.Tensor, w_ih, w_hh, b_ih, b_hh,
               reverse: bool) -> torch.Tensor:
-        cdt = self.compute_dtype
-        if cdt == torch.float32:
-            if x_tm.is_cuda:
-                raise NotImplementedError(
-                    "the CUDA scan kernels take bf16 operands; build the model "
-                    "with compute_dtype=torch.bfloat16 on CUDA")
+        if self.route(x_tm.device) == "float32":
             return self._scan_float32(x_tm, w_ih, w_hh, b_ih, b_hh, reverse)
-        if cdt != torch.bfloat16:
-            raise ValueError(f"compute_dtype must be bfloat16 or float32, got {cdt}")
+        return self.scan_kernels(x_tm, w_ih, w_hh, b_ih, b_hh, reverse)
+
+    def scan_kernels(self, x_tm: torch.Tensor, w_ih, w_hh, b_ih, b_hh,
+                     reverse: bool) -> torch.Tensor:
+        """One direction [T, B, F] -> [T, B, H] on the scan kernels' route
+        (bf16, or mixed for a float32 layer) whatever the device: CUDA
+        tensors launch the kernels, CPU tensors run their plain versions.
+        The hoisted gates, or the time-chunked layer above the gates
+        limit."""
         t_len, b, _ = x_tm.shape
         limit = self._limit(x_tm.device)
         row_bytes = b * self.num_gates * self.hidden_size * 2   # bf16 gates
@@ -128,7 +161,7 @@ class _RecurrentLayer(nn.Module):
 
 class LSTMLayer(_RecurrentLayer):
     """One LSTM layer (see _RecurrentLayer); gates in torch order i, f, g, o.
-    In bf16: ops.lstm.lstm_scan_tm over the hoisted gates, or
+    On the kernels' route: ops.lstm.lstm_scan_tm over the hoisted gates, or
     ops.lstm.lstm_layer_tm_chunked above the gates limit."""
     num_gates = 4
 
@@ -138,24 +171,24 @@ class LSTMLayer(_RecurrentLayer):
                                       compute_dtype=torch.float32)
 
     def _scan_chunked(self, x_tm, w_ih, w_hh, b_ih, b_hh, reverse, t_chunk):
-        cdt = self.compute_dtype
         return lstm_layer_tm_chunked(x_tm, w_ih.t(), w_hh.t(), b_ih + b_hh,
-                                     reverse, t_chunk, out_dtype=cdt,
-                                     proj_dtype=cdt)
+                                     reverse, t_chunk,
+                                     out_dtype=self.compute_dtype,
+                                     proj_dtype=torch.bfloat16,
+                                     mixed=self._mixed)
 
     def _scan_hoisted(self, x_tm, w_ih, w_hh, b_ih, b_hh, reverse):
         # hoisted projection: one matmul writes the bf16 gates time-major
-        cdt = self.compute_dtype
-        gates = F.linear(x_tm.to(cdt), w_ih.to(cdt), (b_ih + b_hh).to(cdt))
-        return lstm_scan_tm(gates, w_hh.t(), reverse, out_dtype=cdt)
+        return lstm_scan_tm(self._gates(x_tm, w_ih, b_ih + b_hh), w_hh.t(),
+                            reverse, out_dtype=self.compute_dtype)
 
 
 class GRULayer(_RecurrentLayer):
     """One GRU layer (see _RecurrentLayer); gates in torch order r, z, n.
     Only b_ih joins the hoisted x-side gates: b_hh goes to the scan, because
-    the candidate gate is tanh(x_n + r * (h W_hn + b_hn)). In bf16:
-    ops.gru.gru_scan_tm, or ops.gru.gru_layer_tm_chunked above the gates
-    limit."""
+    the candidate gate is tanh(x_n + r * (h W_hn + b_hn)). On the kernels'
+    route: ops.gru.gru_scan_tm, or ops.gru.gru_layer_tm_chunked above the
+    gates limit."""
     num_gates = 3
 
     def _scan_float32(self, x_tm, w_ih, w_hh, b_ih, b_hh, reverse):
@@ -164,15 +197,15 @@ class GRULayer(_RecurrentLayer):
                                      compute_dtype=torch.float32)
 
     def _scan_chunked(self, x_tm, w_ih, w_hh, b_ih, b_hh, reverse, t_chunk):
-        cdt = self.compute_dtype
         return gru_layer_tm_chunked(x_tm, w_ih.t(), w_hh.t(), b_ih, b_hh,
-                                    reverse, t_chunk, out_dtype=cdt,
-                                    proj_dtype=cdt)
+                                    reverse, t_chunk,
+                                    out_dtype=self.compute_dtype,
+                                    proj_dtype=torch.bfloat16,
+                                    mixed=self._mixed)
 
     def _scan_hoisted(self, x_tm, w_ih, w_hh, b_ih, b_hh, reverse):
-        cdt = self.compute_dtype
-        gates = F.linear(x_tm.to(cdt), w_ih.to(cdt), b_ih.to(cdt))
-        return gru_scan_tm(gates, w_hh.t(), b_hh, reverse, out_dtype=cdt)
+        return gru_scan_tm(self._gates(x_tm, w_ih, b_ih), w_hh.t(), b_hh,
+                           reverse, out_dtype=self.compute_dtype)
 
 
 class _RecurrentStack(nn.Module):

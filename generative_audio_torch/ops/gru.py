@@ -73,7 +73,7 @@ from generative_audio_torch.ops.lstm import (
     _unpad_units,
     _wants_grad, bwd_cluster_smem_bytes, bwd_cluster_step_us, card_bwd_plan,
     card_plan, check_smem, cluster_hidden, cluster_step_us, forward_hidden,
-    plan_bwd, plan_cluster_scan, sm_blocks)
+    mixed_gates, plan_bwd, plan_cluster_scan, sm_blocks)
 from generative_audio_torch.ops.lstm import _launch as _launch_entry
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
@@ -622,24 +622,30 @@ def gru_layer_tm_chunked(x_tm: torch.Tensor, w_ih: torch.Tensor,
                          b_hh: torch.Tensor, reverse: bool = False,
                          t_chunk: int = 128,
                          out_dtype: torch.dtype = torch.bfloat16,
-                         proj_dtype: Optional[torch.dtype] = None
-                         ) -> torch.Tensor:
+                         proj_dtype: Optional[torch.dtype] = None,
+                         mixed: bool = False) -> torch.Tensor:
     """Whole GRU layer, time-major, with the input projection hoisted one
     time chunk at a time: x_tm [T, B, F], w_ih [F, 3H], w_hh [H, 3H], b_ih,
     b_hh [3H] -> [T, B, H]. Only one chunk's [t_chunk, B, 3H] gates exist at
     a time. The projection runs in proj_dtype (default: bf16 on CUDA, float32
-    on the CPU, as the JAX function's TPU and interpret modes do); the gates
-    enter the scan as bf16 either way, so for the same gates the result is
-    bit-identical to gru_scan_tm. Under grad the backward needs the whole
+    on the CPU, as the JAX function's TPU and interpret modes do), or with
+    mixed=True as ops.lstm.mixed_gates (the JAX function's projection with
+    proj_dtype bf16: fp32 accumulation plus the fp32 b_ih, one rounding); the
+    gates enter the scan as bf16 either way, so for the same gates the result
+    is bit-identical to gru_scan_tm. Under grad the backward needs the whole
     gates buffer anyway, so the call takes the full hoisted projection and
     GRUScan, as the JAX function's VJP does."""
     t_len, b, _ = x_tm.shape
     hsz = w_hh.shape[0]
     pdt = proj_dtype or (torch.bfloat16 if x_tm.is_cuda else torch.float32)
     w_p, b_p = w_ih.t().to(pdt), b_ih.to(pdt)
+
+    def project(x):
+        return (mixed_gates(x, w_ih, b_ih, round_grads=False) if mixed
+                else F.linear(x.to(pdt), w_p, b_p))
+
     if _wants_grad(x_tm, w_ih, w_hh, b_ih, b_hh):
-        gates = F.linear(x_tm.to(pdt), w_p, b_p)
-        return GRUScan.apply(gates, w_hh, b_hh, reverse, out_dtype)
+        return GRUScan.apply(project(x_tm), w_hh, b_hh, reverse, out_dtype)
     h = torch.zeros(b, hsz, dtype=torch.float32, device=x_tm.device)
     out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=x_tm.device)
     starts = list(range(0, t_len, t_chunk))
@@ -647,7 +653,6 @@ def gru_layer_tm_chunked(x_tm: torch.Tensor, w_ih: torch.Tensor,
         starts = starts[::-1]
     for s in starts:
         e = min(s + t_chunk, t_len)
-        gates = F.linear(x_tm[s:e].to(pdt), w_p, b_p)
-        out[s:e], h = gru_scan_carry_tm(gates, w_hh, b_hh, h, reverse,
-                                        out_dtype)
+        out[s:e], h = gru_scan_carry_tm(project(x_tm[s:e]), w_hh, b_hh, h,
+                                        reverse, out_dtype)
     return out

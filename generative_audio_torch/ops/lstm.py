@@ -117,7 +117,7 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "unrolled_block_rows", "unrolled_block_smem_bytes", "ChainsPlan",
            "plan_chains_scan", "card_chains_scan_plan", "chain_warps",
            "chains_cluster_smem_bytes", "chains_step_us", "chain_cta_warps",
-           "chains_scan_plans"]
+           "chains_scan_plans", "MixedProjection", "mixed_gates"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -1587,6 +1587,69 @@ class LSTMScan(torch.autograd.Function):
         return dgates.to(ctx.gates_dtype), dw_hh, None, None
 
 
+# fp32 bytes of one block of MixedProjection's forward: the float32 product
+# exists one block at a time, so the route's peak is the bf16 gates plus one
+# block (the whole product would be twice the gates: 7.9 GB at 8 x 10 s x
+# 257 bins, H=384).
+_MIXED_BLOCK_BYTES = 256 << 20
+
+
+class MixedProjection(torch.autograd.Function):
+    """The hoisted input projection of a float32 model's recurrent layer on
+    the JAX package's TPU route: (x [..., F], w [F, G], bias [G]) -> gates
+    [..., G] bf16 = bf16(bf16(x) @ bf16(w) accumulated in fp32 + bias), the
+    fp32 bias added to the fp32 product and the sum rounded once, as
+    `jnp.einsum(..., preferred_element_type=float32) + bias` then
+    `.astype(bfloat16)` does. The product is computed in row blocks of
+    _MIXED_BLOCK_BYTES of fp32.
+
+    Backward, for the bf16 cotangent the scans return: dx = dgates @ bf16(w)^T
+    and dW = bf16(x)^T @ dgates with fp32 accumulation, returned in x's and
+    w's dtype; with round_grads each is first rounded to bf16, as the
+    transpose of the JAX einsum rounds to its bf16 operand's dtype (the
+    hoisted route; the JAX chunked layers' VJPs keep them fp32); dbias = the
+    fp32 sum of dgates."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, round_grads=True):
+        f, g = w.shape
+        xb = x.to(torch.bfloat16).reshape(-1, f)
+        wb = w.to(torch.bfloat16)
+        gates = torch.empty(xb.shape[0], g, dtype=torch.bfloat16,
+                            device=x.device)
+        bias32 = bias.float()
+        rows = max(1, _MIXED_BLOCK_BYTES // (4 * g))
+        for s in range(0, xb.shape[0], rows):
+            gates[s:s + rows] = _mm_f32(xb[s:s + rows], wb) + bias32
+        ctx.save_for_backward(xb, wb)
+        ctx.x_shape, ctx.dtypes = x.shape, (x.dtype, w.dtype, bias.dtype)
+        ctx.grad_dtype = torch.bfloat16 if round_grads else torch.float32
+        return gates.reshape(*x.shape[:-1], g)
+
+    @staticmethod
+    def backward(ctx, dgates):
+        xb, wb = ctx.saved_tensors
+        x_dtype, w_dtype, b_dtype = ctx.dtypes
+        dg = dgates.to(torch.bfloat16).reshape(-1, wb.shape[1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (_mm_f32(dg, wb.t()).to(ctx.grad_dtype).to(x_dtype)
+                  .reshape(ctx.x_shape))
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(xb.t(), dg).to(ctx.grad_dtype).to(w_dtype)
+        if ctx.needs_input_grad[2]:
+            db = dg.sum(0, dtype=torch.float32).to(b_dtype)
+        return dx, dw, db, None
+
+
+def mixed_gates(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                round_grads: bool = True) -> torch.Tensor:
+    """MixedProjection: x [..., F], w [F, G], bias [G] -> bf16 gates
+    [..., G], the fp32-accumulated projection plus the fp32 bias rounded to
+    bf16 once (the JAX TPU route of a float32 model)."""
+    return MixedProjection.apply(x, w, bias, round_grads)
+
+
 def _check_layer_shapes(x_tm: torch.Tensor, w_ih: torch.Tensor,
                         w_hh: torch.Tensor, bias: torch.Tensor,
                         out_dtype: torch.dtype) -> Tuple[int, int, int, int]:
@@ -1731,13 +1794,15 @@ def lstm_layer_tm_chunked(x_tm: torch.Tensor, w_ih: torch.Tensor,
                           w_hh: torch.Tensor, bias: torch.Tensor,
                           reverse: bool = False, t_chunk: int = 128,
                           out_dtype: torch.dtype = torch.bfloat16,
-                          proj_dtype: Optional[torch.dtype] = None
-                          ) -> torch.Tensor:
+                          proj_dtype: Optional[torch.dtype] = None,
+                          mixed: bool = False) -> torch.Tensor:
     """Whole LSTM layer, time-major, with the input projection hoisted one
     time chunk at a time: x_tm [T, B, F], w_ih [F, 4H], w_hh [H, 4H],
     bias [4H] -> [T, B, H]. Only one chunk's [t_chunk, B, 4H] gates exist
     at a time. The projection runs in proj_dtype (default: bf16 on CUDA,
-    float32 on the CPU, as the JAX function's TPU and interpret modes do);
+    float32 on the CPU, as the JAX function's TPU and interpret modes do),
+    or with mixed=True as mixed_gates (the JAX function's projection with
+    proj_dtype bf16: fp32 accumulation plus the fp32 bias, one rounding);
     the gates enter the scan as bf16 either way, so for the same gates the
     result is bit-identical to lstm_scan_tm. Under grad the backward needs
     the whole gates buffer anyway, so the call takes the full hoisted
@@ -1746,9 +1811,13 @@ def lstm_layer_tm_chunked(x_tm: torch.Tensor, w_ih: torch.Tensor,
     hsz = w_hh.shape[0]
     pdt = proj_dtype or (torch.bfloat16 if x_tm.is_cuda else torch.float32)
     w_p, b_p = w_ih.t().to(pdt), bias.to(pdt)
+
+    def project(x):
+        return (mixed_gates(x, w_ih, bias, round_grads=False) if mixed
+                else F.linear(x.to(pdt), w_p, b_p))
+
     if _wants_grad(x_tm, w_ih, w_hh, bias):
-        gates = F.linear(x_tm.to(pdt), w_p, b_p)
-        return LSTMScan.apply(gates, w_hh, reverse, out_dtype)
+        return LSTMScan.apply(project(x_tm), w_hh, reverse, out_dtype)
     h = torch.zeros(b, hsz, dtype=torch.float32, device=x_tm.device)
     c = torch.zeros_like(h)
     out = torch.empty(t_len, b, hsz, dtype=out_dtype, device=x_tm.device)
@@ -1757,7 +1826,6 @@ def lstm_layer_tm_chunked(x_tm: torch.Tensor, w_ih: torch.Tensor,
         starts = starts[::-1]
     for s in starts:
         e = min(s + t_chunk, t_len)
-        gates = F.linear(x_tm[s:e].to(pdt), w_p, b_p)
-        out[s:e], h, c = lstm_scan_carry_tm(gates, w_hh, h, c, reverse,
-                                            out_dtype)
+        out[s:e], h, c = lstm_scan_carry_tm(project(x_tm[s:e]), w_hh, h, c,
+                                            reverse, out_dtype)
     return out

@@ -9,9 +9,11 @@ hyperparameters batch 18, 3.072 s clips, n_fft 512 / hop 256, G = 2).
 Where the JAX package passes a params pytree and returns a new TrainState,
 the port passes the `nn.Module` and updates a `train.state.TrainState` in
 place. `model_type="fullsubnet"` trains FullSubNet v1 (`model_v1`, the
-magnitude-only model; the same loss otherwise). In bf16 on CUDA the
-recurrent layers run through ops.lstm.LSTMScan or ops.gru.GRUScan, whose
-forward and backward are the hand-written scan kernels. The trainer
+magnitude-only model; the same loss otherwise). On CUDA the recurrent
+layers run through ops.lstm.LSTMScan or ops.gru.GRUScan, whose forward and
+backward are the hand-written scan kernels, in bf16 and, with
+compute_dtype "float32", on the mixed route of nn.recurrent (bf16 gates,
+float32 output, the rest of the model in float32). The trainer
 validates with eval/validator.ModelValidator (composite (STOI + WB-PESQ)/2,
 optionally blended with a probe set's), keeps the best model and writes
 report.html.

@@ -292,12 +292,14 @@ class NPPCDenoisingTrainer:
     frozen. restoration_params: the enhancer's weights, a FullSubNet+
     state_dict or the JAX param tree (None keeps the seeded init, as the JAX
     trainer keeps its random init). device: "cuda" (default; raises without
-    one) or "cpu"; compute_dtype: bf16 on the card, float32 for the CPU
-    tests; mesh: a parallel.make_mesh() of a multi-GPU job, or None."""
+    one) or "cpu"; compute_dtype: float32 (the default, the JAX line's: on
+    the card the recurrent layers take the mixed route, bf16 gates into the
+    scan kernels with float32 output, and the rest runs in float32) or
+    bf16; mesh: a parallel.make_mesh() of a multi-GPU job, or None."""
 
     def __init__(self, config: NPPCDenoisingTrainConfig,
                  restoration_params=None, checkpoint_dir=None, seed: int = 0,
-                 device=None, compute_dtype: torch.dtype = torch.bfloat16,
+                 device=None, compute_dtype: torch.dtype = torch.float32,
                  mesh=None):
         self.config = config
         dev = resolve_device(device)
