@@ -53,14 +53,15 @@ of which fails the run (non-zero exit, no result line):
      training forward and backward; GRU forward, carry and backward) and
      the LSTM layer with the projection inside (lstm_layer_tm) at H=100
      and 200, which the wrappers zero-pad to the kernels' units, against its
-     plain version; then the single-block forwards the wrappers take where
-     no cluster holds H: against the clusters bit for bit at LSTM H=512 and
-     GRU H=640, every such wrapper at LSTM H=640 and 768 (lstm_layer_tm's
-     lstm_layer_fwd_block among them) and GRU H=768 against its plain
-     version, and each scan entry's time at H=768; then LSTMScan at H=768
-     and 1024 (kernel D's single block, dc in registers) against autograd
-     through the float32 recurrence, and kernel D's single block at H=1024
-     timed;
+     plain version; then the single-block forwards (kernel F's route where
+     no cluster holds H; the scans' under single_block_forwards()): against
+     the clusters bit for bit at LSTM H=512 and GRU H=640, every such
+     wrapper at LSTM H=640 and 768 (lstm_layer_tm's lstm_layer_fwd_block
+     among them) and GRU H=768 against its plain version, and each scan
+     entry's time at H=768; then phase 23; then LSTMScan at H=768 and 1024
+     (kernel C's streamed cluster, kernel D's single block, dc in
+     registers) against autograd through the float32 recurrence, and
+     kernel D's single block at H=1024 timed beside cuDNN's backward;
   9. the GRU forward and carry kernels against their plain versions at the
      sub-band serving shape (T=628, H=384, 2056 rows and a ragged count) and
      the full-band shape (H=512, 8 rows and 1 row), chunked against unchunked
@@ -299,6 +300,27 @@ of which fails the run (non-zero exit, no result line):
      exiting 0 (the streaming demo asserts its bit-identity with
      overlapped_chunk). Its launches, the ranks' included, add to the
      kernels line's.
+ 23. (run after phase 8's single blocks) the streamed cluster forwards
+     (csrc/lstm_scan.cu and csrc/gru_scan.cu, entries ending in `_stream`:
+     part of each CTA's W_hh^T slice resident, the rest streamed from L2
+     through a ring of bulk copies), the route of kernels A-C where no
+     resident cluster holds H (above 512) and of the GRU forward (above
+     640): each entry, forward and reverse, bf16 and fp32 out, B and the
+     GRU carry from a state, bit for bit against the single block at LSTM
+     H=640, 768, 1024 and GRU H=768, 1024, and under
+     ops.lstm.streamed_forwards() against the resident cluster at LSTM
+     H=384, 512 and GRU H=384, 640; against its plain version and timed at
+     H=768 x T=195 x 18 rows and H=768 x T=628 x 2056 rows beside the
+     single block (in turns), the bound, the plain version and cuDNN, with
+     the plan and its modelled step, failing where the plan takes the
+     streamed cluster and it is not the faster; then two model paths,
+     FullSubNet+ with a 768-unit sub-band LSTM and v1-GRU with a 1024-unit
+     full-band GRU: a 1 s clip against the float32 model on the CPU, and,
+     with exact launches, a 10 s request, a 30 s request under a lowered
+     gates limit (the carry entries; against the unchunked request) and
+     one bf16 EnhanceTrainer step of 4 x 1 s (its loss against the CPU's
+     float32 loss). Their launches are the streamed entries' in the
+     kernels line.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -308,7 +330,8 @@ C's and D's, and in phase 18 to the GRU kernels'), and in each rank of
 phase 20 around each DDP step and each cli.train run (whose launches add to
 kernels C's and D's) and of phase 21 around each step (C's and D's, and the
 GRU kernels'), and around each part of phase 22 and in its ranks (A's, B's,
-C's, D's and the GRU kernels'). The second-to-last line of stdout is
+C's, D's and the GRU kernels'), and around each request and step of
+phase 23's model paths (the streamed entries'). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
 20, `--phase21 PART OUT` one of phase 21, `--phase22 graft OUT` one of
@@ -422,9 +445,12 @@ LAYER_PATH_MAX_ABS, LAYER_PATH_MEAN_ABS = 1e-2, 5e-4
 SB_FEATURES = 34
 # Hidden sizes the kernels do not take as they are: the wrappers pad them.
 PADDED_HIDDEN = (100, 200)
-# Hidden sizes no cluster holds (LSTM above 512, GRU above 640): the
-# forwards take the single-block route. The GRU runs at the last.
+# Hidden sizes no resident cluster holds (LSTM above 512, GRU above 640):
+# the forwards take the streamed cluster, and the single block under
+# ops.lstm.single_block_forwards(). The GRU runs at the last.
 BLOCK_HIDDEN = (640, 768)
+ROUTE_NAMES = {"": "clusters", "_stream": "streamed clusters",
+               "_block": "single blocks"}
 
 
 def log(msg):
@@ -479,7 +505,8 @@ def phase_build():
         _cuda.load(name)
     return {**_cluster_registers(reports.get("lstm_scan", "")),
             **_bwd_registers(reports), **_staged_registers(reports),
-            **_chains_registers(reports.get("lstm_scan_bwd_chains", ""))}
+            **_chains_registers(reports.get("lstm_scan_bwd_chains", "")),
+            **_stream_registers(reports)}
 
 
 def _cluster_registers(report):
@@ -722,10 +749,11 @@ def library_lstm_ms(gates, w_hh):
         return cuda_ms(lambda: lstm(gates), iters=5)
 
 
-def library_lstm_train_ms(gates, w_hh, gout):
+def library_lstm_train_ms(gates, w_hh, gout=None):
     """cuDNN's LSTM as in library_lstm_ms, in training mode: the forward
     alone (it keeps its reserve space for a backward), and the forward plus
-    the backward to the gates and the weights. Timed only."""
+    the backward to the gates and the weights (None without gout). Timed
+    only."""
     h = w_hh.shape[0]
     lstm = torch.nn.LSTM(4 * h, h, device=gates.device, dtype=torch.bfloat16)
     with torch.no_grad():
@@ -740,7 +768,8 @@ def library_lstm_train_ms(gates, w_hh, gout):
         x.grad = None
         lstm.zero_grad(set_to_none=True)
 
-    return cuda_ms(lambda: lstm(x), iters=5), cuda_ms(both, iters=5)
+    return (cuda_ms(lambda: lstm(x), iters=5),
+            None if gout is None else cuda_ms(both, iters=5))
 
 
 def phase_train_kernels(dev, registers):
@@ -910,8 +939,9 @@ def _lstm_scan_grads_vs_float32(L, gates, w_hh, gout, reverse, tag):
 
 
 def phase_lstm_train_large(dev):
-    """LSTMScan (kernel C's and kernel D's single blocks) at H=768 and 1024,
-    which no cluster holds (kernel D's single block keeps dc in registers,
+    """LSTMScan (kernel C's streamed cluster and kernel D's single block)
+    at H=768 and 1024, which no resident cluster holds (kernel D's single
+    block keeps dc in registers,
     so it holds H up to 1024): both gradients against autograd through the
     float32 recurrence, forward and reverse, with the launches counted
     around it; and kernel D's single block at H=1024 against its plain
@@ -932,9 +962,9 @@ def phase_lstm_train_large(dev):
                 f"H={h} T={t_len} rows={rows} reverse={reverse}")
     launches = {k: n for k, n in L.launch_counts.items() if n}
     log(f"launches of LSTMScan at H=768 and 1024: {launches}")
-    check(launches == {"lstm_scan_fwd_train_block": 4, "lstm_scan_bwd": 4},
-          "LSTMScan at H=768 and 1024 runs kernel C's and kernel D's single "
-          "blocks once a gradient")
+    check(launches == {"lstm_scan_fwd_train_stream": 4, "lstm_scan_bwd": 4},
+          "LSTMScan at H=768 and 1024 runs kernel C's streamed cluster and "
+          "kernel D's single block once a gradient")
     h, t_len, rows = 1024, TRAIN_T, TRAIN_BATCH
     plan = L.card_bwd_scan_plan(dev, h, rows)
     check(plan.design == "block", f"kernel D at H={h} takes its single block")
@@ -953,10 +983,13 @@ def phase_lstm_train_large(dev):
           f"kernel D's single block vs plain at H={h}")
     ms = cuda_ms(lambda: L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh),
                  iters=3)
+    lib_fwd, lib_both = library_lstm_train_ms(gates, w_hh, gout)
     log(f"kernel D's single block at T={t_len} rows={rows} H={h}: {ms:.3f} ms "
         f"({plan.smem_bytes} B a block, dc in registers); max|err| "
         f"{err.max().item():.3e} mean {err.mean().item():.3e} (peak "
-        f"{peak:.3f}) on {card_line()}")
+        f"{peak:.3f}); cuDNN LSTM's backward {lib_both - lib_fwd:.3f} ms "
+        f"(training-mode forward {lib_fwd:.3f} ms, both {lib_both:.3f} ms) "
+        f"on {card_line()}")
 
 
 def phase_lstm_h512(dev, registers):
@@ -1109,7 +1142,7 @@ def _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows):
         err_f = (L.lstm_layer_tm(x, *layer, True, torch.float32)
                  - L.lstm_layer_reference_tm(x, *layer, True)).abs()
     torch.cuda.synchronize()
-    hp, route = L.forward_hidden(h, L.scan_smem_bytes)
+    hp, route, _ = L._forward_route(h, rows, dev)
     hf, route_f = L.layer_route(h, SB_FEATURES)
     log(f"LSTM {tag}: A max|err| {err_a.max().item():.3e} mean "
         f"{err_a.mean().item():.3e}; B (reverse, from a state) "
@@ -1118,7 +1151,7 @@ def _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows):
         f"{err_d.max().item():.3e} mean {err_d.mean().item():.3e} (peak "
         f"{peak:.3f}); F (reverse, F={SB_FEATURES}) "
         f"{err_f.max().item():.3e} mean {err_f.mean().item():.3e}; A-C at "
-        f"{hp} units ({'single blocks' if route else 'clusters'}), F at {hf} "
+        f"{hp} units ({ROUTE_NAMES[route]}), F at {hf} "
         f"({'single blocks' if route_f else 'clusters'}), D: "
         f"{_describe_bwd(L.card_bwd_scan_plan(dev, -(-h // 16) * 16, rows))}")
     check(err_f.max().item() < KERNEL_MAX_ABS
@@ -1159,13 +1192,13 @@ def _gru_wrappers_vs_plain(G, dev, gen, h, t_len, rows):
     peak_g = p_dgx.float().abs().max().item()
     rel_w, rel_b = _rel_norm(dw, p_dw), _rel_norm(db, p_db)
     torch.cuda.synchronize()
-    hp, route = G._forward_route(h)
+    hp, route, _ = G._forward_route(h, rows, dev)
     log(f"GRU {tag}: forward max|err| {err_f.max().item():.3e} mean "
         f"{err_f.mean().item():.3e}; carry (reverse, from h0) "
         f"{err_gc:.3e}; backward dgx {err_g.max().item():.3e} mean "
         f"{err_g.mean().item():.3e} (peak {peak_g:.3f}), dW_hh "
         f"{rel_w:.3e}, db_hh {rel_b:.3e}; forward at {hp} units "
-        f"({'single blocks' if route else 'clusters'}), backward: "
+        f"({ROUTE_NAMES[route]}), backward: "
         f"{_describe_bwd(G.card_bwd_scan_plan(dev, -(-h // 16) * 16, rows))}")
     check(err_f.max().item() < KERNEL_MAX_ABS
           and err_f.mean().item() < GRU_FWD_MEAN_ABS
@@ -1179,15 +1212,17 @@ def _gru_wrappers_vs_plain(G, dev, gen, h, t_len, rows):
 def phase_block_forwards(dev):
     """The single-block forward route (csrc/lstm_scan_block.cu,
     csrc/gru_scan_block.cu, and kernel F's csrc/lstm_layer_block.cu), which
-    the wrappers take where no cluster holds H: bit for bit against the
+    kernel F takes where no cluster holds H and the scan wrappers take
+    where its modelled time beats the streamed cluster's (phase 23), or
+    within ops.lstm.single_block_forwards(): bit for bit against the
     cluster entries where both run (LSTM H=512, GRU H=640, forward and
     reverse, bf16 and fp32 out, from a state; kernel F's in phase 12); every
     model-path scan wrapper and lstm_layer_tm at LSTM H=640 and 768 and GRU
-    H=768 against its plain version within the kernel limits, with the
-    launch counts set to 0 around them; and each scan entry at H=768, T=195,
-    18 rows against its plain
-    version, with its time beside bound, plain version and cuDNN. Returns
-    the entries' numbers for the kernels line and their launches."""
+    H=768 on the single-block route against its plain version within the
+    kernel limits, with the launch counts set to 0 around them; and each
+    scan entry at H=768, T=195, 18 rows against its plain version, with its
+    time beside bound, plain version and cuDNN. Returns the entries'
+    numbers for the kernels line and their launches."""
     from generative_audio_torch.ops import gru as G
     from generative_audio_torch.ops import lstm as L
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
@@ -1243,11 +1278,13 @@ def phase_block_forwards(dev):
         f"the cluster plan there: {_plan_line(G, dev, h, rows)}")
     del gates, gx
 
-    # the route itself: every model-path wrapper where no cluster fits
+    # the route itself: every model-path wrapper where no resident cluster
+    # fits, on the single-block route
     L.reset_launch_counts()
-    for h in BLOCK_HIDDEN:
-        _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows)
-    _gru_wrappers_vs_plain(G, dev, gen, BLOCK_HIDDEN[-1], t_len, rows)
+    with L.single_block_forwards():
+        for h in BLOCK_HIDDEN:
+            _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows)
+        _gru_wrappers_vs_plain(G, dev, gen, BLOCK_HIDDEN[-1], t_len, rows)
     launches = {k: L.launch_counts[k] for k in (
         "lstm_scan_fwd_block", "lstm_scan_fwd_carry_block",
         "lstm_scan_fwd_train_block", "lstm_layer_fwd_block",
@@ -1255,12 +1292,20 @@ def phase_block_forwards(dev):
     log(f"launches of the single-block forwards at LSTM H={BLOCK_HIDDEN} and "
         f"GRU H={BLOCK_HIDDEN[-1]}: {launches}")
     for name, n in launches.items():
-        check(n > 0, f"{name} launched by the wrappers at an H no cluster "
-              f"holds")
+        check(n > 0, f"{name} launched by the wrappers at an H no resident "
+              f"cluster holds")
 
     # each entry at H=768, the full-band training shape's T and rows
     h, t_len, rows = BLOCK_HIDDEN[-1], TRAIN_T, TRAIN_BATCH
     card = card_line()
+    with L.single_block_forwards():
+        return _block_entries(L, G, dev, gen, h, t_len, rows, card), launches
+
+
+def _block_entries(L, G, dev, gen, h, t_len, rows, card):
+    """Each single-block forward at (H, T, rows) against its plain version,
+    timed beside its bound, its plain version's time and cuDNN's; their
+    numbers for the kernels line."""
     w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
     gates = torch.randn(t_len, rows, 4 * h, generator=gen,
                         device=dev).to(torch.bfloat16)
@@ -1344,6 +1389,407 @@ def phase_block_forwards(dev):
         "gru_scan_fwd_carry_block": dict(max_abs_err=err_g, ms=ms_g,
                                          plain_ms=plain_g, bound_ms=b_g2,
                                          bound_by=by_g2, library_ms=lib_f)}
+    return kernels
+
+
+# Phase 23: the streamed cluster forwards (csrc/lstm_scan.cu and
+# csrc/gru_scan.cu, entries ending in `_stream`), the route of kernels A-C
+# and of the GRU forward where no resident cluster holds H.
+STREAM_HIDDEN = {"lstm": (640, 768, 1024), "gru": (768, 1024)}
+FORCED_HIDDEN = {"lstm": (384, 512), "gru": (384, 640)}
+STREAM_TIMED_H = 768
+STREAM_ENTRIES = {"lstm": ("lstm_scan_fwd_stream", "lstm_scan_fwd_carry_stream",
+                           "lstm_scan_fwd_train_stream"),
+                  "gru": ("gru_scan_fwd_stream", "gru_scan_fwd_carry_stream")}
+# The two model paths through them: FullSubNet+ whose sub-band LSTM has 768
+# units, FullSubNet v1-GRU whose full-band GRU has 1024; one training step of
+# each at STREAM_STEP_BATCH x 1 s; the 30 s v1-GRU request under a gates
+# limit below its full-band gates (11.5 MB), so that both GRUs take the
+# carry kernels.
+STREAM_SB_HIDDEN, STREAM_FB_HIDDEN = 768, 1024
+STREAM_REQUEST_SECONDS, STREAM_LONG_SECONDS = 10, 30
+STREAM_STEP_BATCH, STREAM_STEP_SAMPLES = 4, 16000
+STREAM_GRU_GATES_LIMIT = 8 << 20
+
+
+def _stream_registers(reports):
+    """{"stream A bf16": "... registers, ... spilled", ...} for the streamed
+    instances lstm_stream_kernel<OutT, CARRY, STREAM_C> and
+    gru_stream_kernel<OutT, CARRY>, from ptxas's reports."""
+    found, name, spill = {}, None, ""
+    out_type = {"13__nv_bfloat16": "bf16", "f": "fp32"}
+    for line in "\n".join(reports.get(s, "") for s in (
+            "lstm_scan", "gru_scan")).splitlines():
+        if "Compiling entry function" in line:
+            name, spill = None, ""
+            a = re.search(r"lstm_stream_kernelI(13__nv_bfloat16|f)Lb([01])ELb"
+                          r"([01])E", line)
+            g = re.search(r"gru_stream_kernelI(13__nv_bfloat16|f)Lb([01])E",
+                          line)
+            if a:
+                kernel = ("C" if a.group(3) == "1" else
+                          "B" if a.group(2) == "1" else "A")
+                name = f"stream {kernel} {out_type[a.group(1)]}"
+            elif g:
+                name = (f"stream GRU {'carry' if g.group(2) == '1' else 'fwd'}"
+                        f" {out_type[g.group(1)]}")
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
+    return found
+
+
+def _stream_identities(dev, L):
+    """Each streamed entry, forward and reverse, bf16 and fp32 out (B from a
+    random state), bit for bit against the single block at STREAM_HIDDEN
+    (the wrappers' route there) and, under ops.lstm.streamed_forwards(),
+    against the resident cluster at FORCED_HIDDEN (the planner's resident
+    k-steps and two), T=T_CHUNK x 40 rows; each comparison's streamed run
+    counted, once an entry."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.scripts import perf_stream_scan as PS
+    t_len, rows = T_CHUNK, 40
+    for kind in ("lstm", "gru"):
+        M = L if kind == "lstm" else G
+        cases = [(h, "single block", None) for h in STREAM_HIDDEN[kind]]
+        cases += [(h, "resident cluster", res) for h in FORCED_HIDDEN[kind]
+                  for res in (None, 2)]
+        for h, ref, resident in cases:
+            gates, weights, state = PS.inputs(kind, t_len, rows, h, dev,
+                                              seed=SEED + h + (resident or 1))
+            if ref == "single block":
+                check(M._forward_route(h, rows, dev)[1] == "_stream",
+                      f"the {kind} route at H={h} is the streamed cluster")
+                ref_ctx, got_ctx = L.single_block_forwards, contextlib.nullcontext
+            else:
+                ref_ctx = contextlib.nullcontext
+                got_ctx = lambda res=resident: L.streamed_forwards(res)  # noqa: E731
+            n = 0
+            for entry in PS.ENTRIES[kind]:
+                for reverse in (False, True):
+                    for out_dtype in (torch.bfloat16, torch.float32):
+                        if entry == "train" and out_dtype != torch.bfloat16:
+                            continue
+                        with ref_ctx():
+                            want = PS.run(kind, entry, gates, weights, state,
+                                          reverse, out_dtype)
+                        before = dict(L.launch_counts)
+                        with got_ctx():
+                            got = PS.run(kind, entry, gates, weights, state,
+                                         reverse, out_dtype)
+                        torch.cuda.synchronize()
+                        launched = _launched(L.launch_counts, before)
+                        name = {"fwd": 0, "carry": 1, "train": 2}[entry]
+                        check(launched == {STREAM_ENTRIES[kind][name]: 1},
+                              f"{kind} {entry} at H={h} launched its streamed "
+                              f"entry once (got {launched})")
+                        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                              f"{STREAM_ENTRIES[kind][name]} == the {ref} "
+                              f"bitwise (H={h}, reverse={reverse}, "
+                              f"{out_dtype}, resident {resident})")
+                        n += 1
+            log(f"{kind} streamed entries == the {ref} bitwise at H={h} "
+                f"T={t_len} rows={rows}: {n} calls (forward and reverse, "
+                f"bf16 and fp32 out, the carry from a state"
+                f"{'' if ref == 'single block' else f', resident {resident}'})")
+
+
+def _stream_bounds(kind, t_len, rows, h):
+    """(bound ms, by) of each streamed entry at (T, rows, H), as the single
+    blocks' (the state of B and of the GRU carry read and written once)."""
+    if kind == "lstm":
+        return (bound(t_len, rows, h),
+                bound(t_len, rows, h, extra_bytes=4 * rows * h * 4),
+                bound(t_len, rows, h, streams=6))
+    return (bound(t_len, rows, h, streams=4, gates=3, extra_bytes=3 * h * 4),
+            bound(t_len, rows, h, streams=4, gates=3,
+                  extra_bytes=3 * h * 4 + 2 * rows * h * 4))
+
+
+def _stream_times(dev, L, G, gen, t_len, rows, card):
+    """Each streamed entry at (H=STREAM_TIMED_H, T, rows) against its plain
+    version within the kernel limits (C's h == A's bitwise), timed beside
+    the single block (in turns: stream, block, block, stream), the bound,
+    the plain version and cuDNN, with the plan and its modelled step; fails
+    where the plan takes the streamed cluster and it is not the faster."""
+    h = STREAM_TIMED_H
+    out = {}
+    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    h0 = _uniform(gen, dev, (rows, h), 1.0)
+    c0 = torch.randn(rows, h, generator=gen, device=dev)
+    calls = {"lstm_scan_fwd_stream": (
+                 lambda: L.lstm_scan_tm(gates, w_hh),
+                 lambda: (L.lstm_scan_tm(gates, w_hh, False, torch.float32),),
+                 lambda: (L.lstm_scan_reference_tm(gates, w_hh),)),
+             "lstm_scan_fwd_carry_stream": (
+                 lambda: L.lstm_scan_carry_tm(gates, w_hh, h0, c0),
+                 lambda: L.lstm_scan_carry_tm(gates, w_hh, h0, c0, False,
+                                              torch.float32),
+                 lambda: L.lstm_scan_carry_reference_tm(gates, w_hh, h0, c0)),
+             "lstm_scan_fwd_train_stream": (
+                 lambda: L.lstm_scan_train_tm(gates, w_hh),
+                 lambda: L.lstm_scan_train_tm(gates, w_hh),
+                 lambda: L.lstm_scan_train_reference_tm(gates, w_hh))}
+    lib = library_lstm_ms(gates, w_hh)
+    lib_c = library_lstm_train_ms(gates, w_hh)[0]
+    libs = {"lstm_scan_fwd_stream": lib, "lstm_scan_fwd_carry_stream": lib,
+            "lstm_scan_fwd_train_stream": lib_c}
+    instances = {"lstm_scan_fwd_stream": (0, 0, 0),
+                 "lstm_scan_fwd_carry_stream": (0, 1, 0),
+                 "lstm_scan_fwd_train_stream": (0, 0, 1)}
+    out.update(_time_entries(dev, L, L, calls, libs, instances,
+                             _stream_bounds("lstm", t_len, rows, h), t_len,
+                             rows, h, card))
+    with torch.no_grad():
+        check(torch.equal(L.lstm_scan_train_tm(gates, w_hh)[0],
+                          L.lstm_scan_tm(gates, w_hh)),
+              f"lstm_scan_fwd_train_stream h == lstm_scan_fwd_stream h "
+              f"bitwise (T={t_len} rows={rows})")
+    del gates, calls
+    w_g, b_g = (_uniform(gen, dev, (h, 3 * h), h ** -0.5),
+                _uniform(gen, dev, (3 * h,), h ** -0.5))
+    gx = torch.randn(t_len, rows, 3 * h, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    calls = {"gru_scan_fwd_stream": (
+                 lambda: G.gru_scan_tm(gx, w_g, b_g),
+                 lambda: (G.gru_scan_tm(gx, w_g, b_g, False, torch.float32),),
+                 lambda: (G.gru_scan_reference_tm(gx, w_g, b_g),)),
+             "gru_scan_fwd_carry_stream": (
+                 lambda: G.gru_scan_carry_tm(gx, w_g, b_g, h0),
+                 lambda: G.gru_scan_carry_tm(gx, w_g, b_g, h0, False,
+                                             torch.float32),
+                 lambda: G.gru_scan_carry_reference_tm(gx, w_g, b_g, h0))}
+    lib = library_gru_ms(gx, w_g, b_g)
+    out.update(_time_entries(
+        dev, L, G, calls, dict.fromkeys(calls, lib),
+        {"gru_scan_fwd_stream": (0, 0), "gru_scan_fwd_carry_stream": (0, 1)},
+        _stream_bounds("gru", t_len, rows, h), t_len, rows, h, card))
+    return out
+
+
+def _time_entries(dev, L, M, calls, libs, instances, bounds, t_len, rows, h,
+                  card):
+    """_stream_times for the entries of one module M: calls maps an entry to
+    (its timed call, its fp32-output call, the plain version's call)."""
+    out = {}
+    for (name, (timed, f32, plain)), (b_ms, by) in zip(calls.items(), bounds):
+        with torch.no_grad():
+            got = f32()
+        want = plain()
+        errs = [(x.float() - y.float()).abs() for x, y in zip(got, want)]
+        max_err = max(e.max().item() for e in errs)
+        mean_err = max(e.mean().item() for e in errs)
+        # kernel C's c sequence: 8x the limits of h (C_PEAK); the GRU's mean
+        # its own (GRU_FWD_MEAN_ABS)
+        scale = 8 if name.endswith("train_stream") else 1
+        mean_limit = (GRU_FWD_MEAN_ABS if name.startswith("gru")
+                      else KERNEL_MEAN_ABS)
+        check(max_err < scale * KERNEL_MAX_ABS
+              and mean_err < scale * mean_limit,
+              f"{name} vs plain at H={h} T={t_len} rows={rows}")
+        del got, want, errs
+
+        def block():
+            with L.single_block_forwards():
+                return timed()
+
+        with torch.no_grad():
+            rounds = [cuda_ms(timed, iters=3), cuda_ms(block, iters=2),
+                      cuda_ms(block, iters=2), cuda_ms(timed, iters=3)]
+        ms, ms_block = min(rounds[0], rounds[3]), min(rounds[1:3])
+        plain_ms = cuda_ms(plain, iters=2)
+        plan = M.card_stream_plan(dev, h, rows, instances[name])
+        route = M._forward_route(h, rows, dev, instances[name])[1]
+        log(f"{name} at T={t_len} rows={rows} H={h}: {ms:.3f} ms, "
+            f"{1e3 * ms / t_len / plan.waves:.3f} us a step a wave (modelled "
+            f"{plan.step_us:.3f}); single block {ms_block:.3f} ms (rounds "
+            f"{' '.join(f'{r:.3f}' for r in rounds)}); max|err| {max_err:.3e} "
+            f"mean {mean_err:.3e}; bound {b_ms:.4f} ms by {by}; plain "
+            f"{plain_ms:.3f} ms; cuDNN {libs[name]:.3f} ms; route "
+            f"{ROUTE_NAMES[route]}; plan C={plan.cluster} x {plan.rows}, "
+            f"{plan.resident} k-steps resident, {plan.stages} stages, "
+            f"{plan.clusters} ({plan.active}), {plan.waves} waves, "
+            f"{plan.smem_bytes} B on {card}")
+        if route == "_stream":
+            check(ms < ms_block, f"{name} at T={t_len} rows={rows}: the plan "
+                  f"takes the streamed cluster, which must beat the single "
+                  f"block ({ms:.3f} against {ms_block:.3f} ms)")
+        out[name] = dict(max_abs_err=max_err, ms=ms, single_block_ms=ms_block,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                         library_ms=libs[name], route=route,
+                         plan=dataclasses.asdict(plan))
+    return out
+
+
+def stream_model_paths():
+    """FullSubNet+ with a 768-unit sub-band LSTM and FullSubNet v1-GRU with
+    a 1024-unit full-band GRU, numpy-made weights from SEED in the JAX
+    layout: the model paths of the streamed forwards."""
+    from generative_audio_torch import models as M
+    from generative_audio_torch.train import EnhanceTrainConfig
+    from generative_audio_torch.utils import convert
+    plus_cfg = M.FullSubNetPlusConfig(sb_model_hidden_size=STREAM_SB_HIDDEN)
+    plus = ModelPath(
+        name=f"FullSubNet+ sb H={STREAM_SB_HIDDEN}",
+        model_cls=M.FullSubNetPlus, config=plus_cfg,
+        sd=convert.convert_fullsubnet_plus(
+            convert.random_fullsubnet_plus_params(plus_cfg, seed=SEED + 31)),
+        mode="mag_complex_full_band_crm_mask", n_inputs=3,
+        fwd="lstm_scan_fwd_stream", carry="lstm_scan_fwd_carry_stream",
+        per_forward=2, per_long_forward=0,
+        train_config=lambda dtype: EnhanceTrainConfig(
+            model=M.FullSubNetPlusConfig(
+                sb_model_hidden_size=STREAM_SB_HIDDEN,
+                num_groups_in_drop_band=2), compute_dtype=dtype),
+        per_step={"lstm_scan_fwd_train_stream": 2, "lstm_scan_bwd": 2})
+    gru_cfg = M.FullSubNetConfig(sequence_model="GRU",
+                                 fb_model_hidden_size=STREAM_FB_HIDDEN,
+                                 num_groups_in_drop_band=1)
+    gru = ModelPath(
+        name=f"FullSubNet v1-GRU fb H={STREAM_FB_HIDDEN}",
+        model_cls=M.FullSubNet, config=gru_cfg,
+        sd=convert.convert_fullsubnet(
+            convert.random_fullsubnet_params(gru_cfg, seed=SEED + 32), "GRU"),
+        mode="full_band_crm_mask", n_inputs=1,
+        fwd="gru_scan_fwd_stream", carry="gru_scan_fwd_carry_stream",
+        per_forward=2, per_long_forward=0,
+        train_config=lambda dtype: EnhanceTrainConfig(
+            model_type="fullsubnet",
+            model_v1=M.FullSubNetConfig(sequence_model="GRU",
+                                        fb_model_hidden_size=STREAM_FB_HIDDEN),
+            compute_dtype=dtype),
+        per_step={"gru_scan_fwd_stream": 2, "gru_scan_fwd": 2,
+                  "gru_scan_bwd": 4, "gru_scan_bwd_dwhh": 4})
+    return plus, gru
+
+
+def _stream_path(dev, path, counts, gates_limit, serve_extra):
+    """One model path of the streamed forwards: the 1 s reference (card
+    against the float32 model on the CPU), then, with the counts set to 0
+    around each, a 10 s request, a 30 s request under `gates_limit`
+    (chunked; against the unchunked request on the card) and one bf16
+    training step through EnhanceTrainer (its loss against the float32
+    model's on the CPU), each with its exact launches. Returns the
+    launches of the three."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import (
+        EnhanceTrainer, enhance_loss_fn, init_enhance_state)
+    model = path.model(torch.bfloat16, dev)
+    phase_reference(dev, path, model)
+    total = dict.fromkeys(counts, 0)
+    rng = np.random.default_rng(SEED + 33)
+
+    def counted(what, fn, expected):
+        L.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in counts.items() if n}
+        check(launched == expected, f"{path.name} {what} launched {expected} "
+              f"(got {launched})")
+        for k, n in launched.items():
+            total[k] += n
+        return result
+
+    noisy = (rng.standard_normal(STREAM_REQUEST_SECONDS * 16000) * 0.1
+             ).astype(np.float32)
+    inf = path.inferencer(model, dev)
+    t0 = time.perf_counter()
+    out = counted(f"{STREAM_REQUEST_SECONDS} s request",
+                  lambda: inf.enhance(noisy),
+                  {path.fwd: path.per_forward, **serve_extra})
+    wall = (time.perf_counter() - t0) * 1e3
+    check(out.shape == noisy.shape and np.isfinite(out).all(),
+          f"{path.name} {STREAM_REQUEST_SECONDS} s request: shape and finite")
+    noisy = (rng.standard_normal(STREAM_LONG_SECONDS * 16000) * 0.1
+             ).astype(np.float32)
+    whole = inf.enhance(noisy)
+    chunked = path.inferencer(path.model(torch.bfloat16, dev,
+                                         gates_bytes_limit=gates_limit), dev)
+    L.reset_launch_counts()
+    long_out = chunked.enhance(noisy)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in counts.items() if n}
+    for k, n in launched.items():
+        total[k] += n
+    rel = np.abs(long_out - whole).max() / np.abs(whole).max()
+    check(launched.get(path.carry, 0) > 0 and path.fwd not in launched,
+          f"{path.name}: the {STREAM_LONG_SECONDS} s request took "
+          f"{path.carry} (got {launched})")
+    check(np.isfinite(long_out).all() and rel < PATH_REL,
+          f"{path.name}: {STREAM_LONG_SECONDS} s chunked vs unchunked within "
+          f"{PATH_REL}")
+    noisy_b, clean_b = (torch.from_numpy(x) for x in _noise_batch(
+        SEED + 34, STREAM_STEP_BATCH, STREAM_STEP_SAMPLES))
+    trainer = EnhanceTrainer(path.train_config("bfloat16"), seed=SEED,
+                             pretrained_state_dict=path.sd, device=dev)
+    loss = counted("training step", lambda: trainer.train_epoch(
+        [(noisy_b.to(dev), clean_b.to(dev))]), path.per_step)
+    cfg = path.train_config("float32")
+    state = init_enhance_state(cfg, SEED, "cpu")
+    state.model.load_state_dict(path.sd)
+    with torch.no_grad():
+        want = enhance_loss_fn(state.model, noisy_b, clean_b, cfg).item()
+    loss_rel = abs(loss - want) / abs(want)
+    log(f"{path.name}: {STREAM_REQUEST_SECONDS} s request {wall:.2f} ms (rtf "
+        f"{inf.last_rtf:.5f}); {STREAM_LONG_SECONDS} s under a "
+        f"{gates_limit / 2 ** 20:g} MiB gates limit, chunked vs "
+        f"unchunked max|err|/peak {rel:.3e}; a bf16 step of "
+        f"{STREAM_STEP_BATCH} x {STREAM_STEP_SAMPLES / 16000:.0f} s: loss "
+        f"{loss:.6f} against the CPU's float32 {want:.6f} (rel "
+        f"{loss_rel:.3e}); launches {dict((k, n) for k, n in total.items() if n)}"
+        f" on {card_line()}")
+    check(np.isfinite(loss) and loss_rel < TRAIN_LOSS_REL,
+          f"{path.name}: bf16 step loss vs float32 within {TRAIN_LOSS_REL}")
+    return total
+
+
+def phase_streamed_forwards(dev, registers):
+    """Phase 23: the streamed cluster forwards. (a) Each `_stream` entry bit
+    for bit against the single block at LSTM H=640, 768, 1024 and GRU
+    H=768, 1024 and, under ops.lstm.streamed_forwards(), against the
+    resident cluster at LSTM H=384, 512 and GRU H=384, 640; (b) each
+    against its plain version and timed at H=768 x T=195 x 18 rows and
+    H=768 x T=628 x 2056 rows beside the single block, the bound, the plain
+    version and cuDNN, the streamed route the faster wherever the plan
+    takes it; (c) the model paths: FullSubNet+ with a 768-unit sub-band
+    LSTM and v1-GRU with a 1024-unit full-band GRU, each a 10 s request, a
+    chunked 30 s request and a training step with exact launches, card
+    against CPU. Returns the entries' numbers (the 18-row shape; the
+    2056-row one under "sub_band") and their launches on (c)'s paths."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"streamed instances: {_registers_line(registers, 's')}")
+    _stream_identities(dev, L)
+    card = card_line()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    kernels = _stream_times(dev, L, G, gen, TRAIN_T, TRAIN_BATCH, card)
+    torch.cuda.empty_cache()        # the sub-band shape takes tens of GiB
+    for name, numbers in _stream_times(dev, L, G, gen, T_FRAMES, ROWS,
+                                       card).items():
+        kernels[name]["sub_band"] = numbers
+    torch.cuda.empty_cache()
+    plus, gru = stream_model_paths()
+    launches = dict.fromkeys(L.launch_counts, 0)
+    for path, limit, extra in ((plus, LONG_CLIP_GATES_LIMIT, {}),
+                               (gru, STREAM_GRU_GATES_LIMIT,
+                                {"gru_scan_fwd": 2})):
+        for k, n in _stream_path(dev, path, L.launch_counts, limit,
+                                 extra).items():
+            launches[k] += n
+    launches = {k: launches[k] for k in (*STREAM_ENTRIES["lstm"],
+                                         *STREAM_ENTRIES["gru"])}
+    log(f"launches of the streamed entries on their model paths: {launches}; "
+        f"phase 23 {time.perf_counter() - t0:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched on its model path")
     return kernels, launches
 
 
@@ -2201,8 +2647,9 @@ def phase_lstm_unroll(dev, registers):
     """Row 10: the K-step unrolled forward through scripts.perf_lstm_unroll,
     bit for bit against kernel A (at the script's and the serving row
     counts, and at H=100 and 200, which the wrapper pads) and, at H=640 and
-    768, which no cluster holds, its single block against
-    lstm_scan_fwd_block; against its plain version, and its times beside
+    768, which no cluster holds, its single block against kernel A's route
+    there (the streamed cluster); against its plain version, and its times
+    beside
     kernel A's (the single block's at H=768 beside lstm_scan_fwd_block),
     with its plans and registers. Returns both entries' numbers and their
     launches on this path."""
@@ -2229,7 +2676,8 @@ def phase_lstm_unroll(dev, registers):
                 torch.cuda.synchronize()
                 hp, route = L.unrolled_route(h, k)
                 expected["lstm_scan_fwd_unrolled" + route] += 1
-                a_entry = "lstm_scan_fwd" + L._forward_route(h)[1]
+                a_entry = "lstm_scan_fwd" + L._forward_route(h, rows,
+                                                             dev)[1]
                 check(torch.equal(got, want), f"lstm_scan_fwd_unrolled{route} "
                       f"K={k} == {a_entry} bitwise (H={h} rows={rows})")
                 where = (f"single block of {L.unrolled_block_rows(hp, k)} "
@@ -2263,7 +2711,8 @@ def phase_lstm_unroll(dev, registers):
         err_blk = err_blk.max().item()
         ms_blk = {k: cuda_ms(lambda k=k: PU.lstm_unrolled(gates, w, block_t=k),
                              iters=5) for k in L.UNROLL_STEPS}
-        ms_a_blk = cuda_ms(lambda: L.lstm_scan_tm(gates, w), iters=5)
+        with L.single_block_forwards():
+            ms_a_blk = cuda_ms(lambda: L.lstm_scan_tm(gates, w), iters=5)
         plain_blk = cuda_ms(lambda: PU.lstm_unrolled_reference(gates, w),
                             iters=2)
         lib_blk = library_lstm_ms(gates, w)
@@ -7177,6 +7626,8 @@ def main():
     phase_padded_hidden(dev)
     block_kernels, block_launches = phase_block_forwards(dev)
     kernels.update(block_kernels)
+    stream_kernels, stream_launches = phase_streamed_forwards(dev, registers)
+    kernels.update(stream_kernels)
     phase_lstm_train_large(dev)
     kernels.update(phase_gru_kernels(dev))
     kernels.update(phase_gru_train_kernels(dev, registers))
@@ -7217,12 +7668,23 @@ def main():
                                      f"{pallas}:1151"),
         # kernel F's single-block route where no cluster holds H
         "lstm_layer_fwd_block": (f"{csrc}/lstm_layer_block.cu",
-                                 f"{pallas}:542")}
+                                 f"{pallas}:542"),
+        # the streamed cluster of rows 1, 5, 2, 6 and 8 where no resident
+        # cluster holds H, on the model paths of phase 23
+        "lstm_scan_fwd_stream": (f"{csrc}/lstm_scan.cu", f"{pallas}:142"),
+        "lstm_scan_fwd_carry_stream": (f"{csrc}/lstm_scan.cu",
+                                       f"{pallas}:725"),
+        "lstm_scan_fwd_train_stream": (f"{csrc}/lstm_scan.cu",
+                                       f"{pallas}:205"),
+        "gru_scan_fwd_stream": (f"{csrc}/gru_scan.cu", f"{pallas}:907"),
+        "gru_scan_fwd_carry_stream": (f"{csrc}/gru_scan.cu",
+                                      f"{pallas}:1151")}
     plus, v1_gru, v1_lstm = model_paths()
     counts, plus_rtf = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
                                          "lstm_scan_fwd_train", "lstm_scan_bwd"])
     counts.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
-                                      and not k.endswith("_block")])[0])
+                                      and not k.endswith(("_block",
+                                                          "_stream"))])[0])
     for name, launched in phase_serving_modes(dev, plus, plus_rtf).items():
         counts[name] += launched
     for name, launched in phase_validation(dev, plus).items():
@@ -7244,6 +7706,7 @@ def main():
     for name, n in phase_float32(dev, plus, v1_gru).items():
         counts[name] += n
     counts.update(block_launches)
+    counts.update(stream_launches)
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 
     for phase in (lambda: phase_lstm_chains(

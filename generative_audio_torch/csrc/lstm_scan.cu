@@ -74,6 +74,37 @@
 //     returns its error. H must be a multiple of 8 * C (the wrappers pad it
 //     with zero units).
 //
+// The streamed variant (lstm_stream_kernel; entries lstm_scan_fwd_stream,
+// lstm_scan_fwd_carry_stream, lstm_scan_fwd_train_stream) runs kernels A, B
+// and C where no resident cluster holds the slice, in place of the single
+// block of csrc/lstm_scan_block.cu (above H = 512: at H = 768 a CTA of 16
+// needs 297,984 B of slice beside 65,024 B of h buffers, c and gates, over
+// the 232,448 B a block may use). It replaces the same TPU kernels,
+// generative_audio_tpu/ops/pallas_lstm.py:142 (_lstm_pallas_call), :205
+// (_lstm_pallas_call_train) and :725 (_lstm_pallas_call_carry), there.
+//   * What bounds it: the serial chain as above, plus the part of the slice
+//     that does not fit, which every CTA must read again at every step. At
+//     H = 768, C = 16 that is 160-190 KB a step a CTA from L2 (W_hh^T, 4.7
+//     MB, stays in the 50 MB L2), where the single block read all 4.7 MB a
+//     step through each CTA in dependent 4-byte loads.
+//   * Design: the cluster, the units, the h exchange, the gates and the cell
+//     are the resident kernel's. The slice is split by k: its first
+//     `resident` k-steps are copied into shared memory once, the others
+//     stream through a ring of `stages` slots of two k-steps (a k-pair),
+//     each filled by one cp.async.bulk from L2 that completes on the slot's
+//     mbarrier. The last warp of the CTA is the producer: one thread keeps
+//     the ring full, waiting on a slot's `empty` barrier, on which each
+//     consumer warp arrives once its fragments are in registers. The weight
+//     is constant, so the producer fills the next step's first slots while
+//     this step's exchange and cluster barrier run. One consumer warp takes
+//     one (m16 tile, 8 units) item, so every warp reads each slot once a
+//     step (at most 18 items a CTA).
+//   * Numerics: the same mma.sync m16n8k16, bf16 operands and fp32
+//     accumulators from zero, each accumulator's k-steps in order (the
+//     resident ones, then the streamed ones), and the same cell expression:
+//     h is bit-identical to the resident cluster's and to the single
+//     block's.
+//
 // Plain C interface for ctypes; each function returns the cudaError_t of
 // its launch (0 on success). Launches go to the caller's stream and do not
 // synchronise.
@@ -366,6 +397,324 @@ int max_clusters(int H, int C, int R, int* n) {
       n, lstm_cluster_kernel<OutT, CARRY, STREAM_C>, &cfg);
 }
 
+// ---- the streamed variant: H that no resident cluster holds ---------------
+//
+// The same cluster, units, h exchange, gates and cell as lstm_cluster_kernel;
+// only the W_hh^T slice moves. The wrapper packs wt once per call in MMA
+// fragment order, [C][H/32][4][U/8][32 lanes][8] bf16 (ops/lstm.py
+// _stream_weight): for CTA rank k and k-pair p (k-steps 2p and 2p + 1), gate
+// q, unit group g and lane (grp, tq), the B fragments (b0, b1) of both
+// k-steps of slice row q*H + k*U + 8g + grp. A k-pair of a CTA's slice is
+// then one contiguous piece of 256 U bytes, and a warp reads a gate's
+// fragments of both k-steps as one 16-byte load a lane, in 512 contiguous
+// bytes. The first `resident` k-steps (an even number) are copied into
+// shared memory once; the other H/32 - resident/2 k-pairs pass through a
+// ring of `stages` slots, one k-pair a slot, at every step.
+
+// Consumer warps of a CTA of the streamed variant at most: one (m16 tile, 8
+// units) item each, so that every warp reads each ring slot once a step.
+constexpr int STREAM_MAX_WARPS = 18;
+
+// Bytes of one k-pair (32 columns) of a CTA's slice of n gates x U units.
+__host__ __device__ inline size_t stream_pair_bytes(int U, int n_gates) {
+  return (size_t)n_gates * U * 64;
+}
+
+// Shared bytes of one CTA of the streamed variant, in the order the kernel
+// lays them out: the ring [stages][k-pair] and the resident k-pairs
+// [resident / 2][k-pair] in fragment order, h [2][R][H + PAD] bf16, own c
+// [R][U] fp32, x-side gates of two steps [2][R][4U] bf16, and the ring's
+// full and empty mbarriers [2][stages]. Every region is a multiple of 16
+// bytes when U % 8 == 0.
+size_t stream_smem(int H, int C, int R, int resident, int stages) {
+  const size_t U = H / C, hs = H + PAD, r = R;
+  return (stages + resident / 2) * stream_pair_bytes(U, 4) + 2 * r * hs * 2 +
+         r * U * 4 + 2 * r * 4 * U * 2 + 16 * stages;
+}
+
+// Warps of a CTA of the streamed variant: one consumer warp per item (at
+// least MIN_WARPS, which share the exchange's stores) and the producer.
+int stream_warps(int H, int C, int R) {
+  return max(MIN_WARPS, (R / 16) * (H / C / 8)) + 1;
+}
+
+template <typename OutT, bool CARRY, bool STREAM_C>
+__global__ void __launch_bounds__((STREAM_MAX_WARPS + 1) * 32, 1)
+lstm_stream_kernel(const __nv_bfloat16* __restrict__ gates,
+                   const __nv_bfloat16* __restrict__ wf,
+                   const float* __restrict__ h0, const float* __restrict__ c0,
+                   OutT* __restrict__ out, float* __restrict__ h_T,
+                   float* __restrict__ c_T, __nv_bfloat16* __restrict__ c_seq,
+                   int T, int B, int H, int R, int resident, int stages,
+                   int reverse) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  unsigned int cluster_id;
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(cluster_id));
+
+  const int U = H / C, U4 = 4 * U, hs = H + PAD, G4 = 4 * H;
+  const int col0 = rank * U;                  // first unit of this CTA
+  const int row0 = (int)cluster_id * R;       // first batch row of the cluster
+  const int nrows = min(R, B - row0);         // valid rows, at least 1
+  const int G = U / 8, KP = H / 32, KR = resident / 2, NS = KP - KR;
+  const int D = stages;
+  const uint32_t pair = (uint32_t)stream_pair_bytes(U, 4);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;                                   // [D][pair]
+  unsigned char* wres = ring + (size_t)D * pair;                // [KR][pair]
+  __nv_bfloat16* hbuf =
+      reinterpret_cast<__nv_bfloat16*>(wres + (size_t)KR * pair);  // [2][R][hs]
+  float* cf = reinterpret_cast<float*>(hbuf + 2 * R * hs);          // [R][U]
+  __nv_bfloat16* gx = reinterpret_cast<__nv_bfloat16*>(cf + R * U); // [2][R][4U]
+  uint64_t* full = reinterpret_cast<uint64_t*>(gx + 2 * R * U4);    // [D]
+  uint64_t* empty = full + D;                                       // [D]
+  // the last warp is the producer; the others are consumers
+  const int nthreads = blockDim.x, nwarps = nthreads / 32 - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tq = lane & 3;   // MMA fragment coordinates
+  // items: (m16 row tile, group of 8 units) pairs over valid rows, item i in
+  // consumer warp i
+  const int n_items = (nrows + 15) / 16 * G;
+
+  // this CTA's slice, k-pair after k-pair; the resident k-pairs, 16-byte copies
+  const unsigned char* wsrc =
+      reinterpret_cast<const unsigned char*>(wf) + (size_t)rank * KP * pair;
+  for (int i = threadIdx.x; i < KR * (int)(pair / 16); i += nthreads)
+    reinterpret_cast<uint4*>(wres)[i] = reinterpret_cast<const uint4*>(wsrc)[i];
+  // h_{-1}: all units in bf16 (buffer 0; buffer 1 zeroed); c_{-1}: own units
+  for (int i = threadIdx.x; i < R * H; i += nthreads) {
+    const int r = i / H, j = i % H;
+    float h = 0.0f, c = 0.0f;
+    if (CARRY && r < nrows) {
+      h = h0[(size_t)(row0 + r) * H + j];
+      c = c0[(size_t)(row0 + r) * H + j];
+    }
+    hbuf[r * hs + j] = __float2bfloat16(h);
+    hbuf[(R + r) * hs + j] = __float2bfloat16(0.0f);
+    if (j >= col0 && j < col0 + U) cf[r * U + j - col0] = c;
+  }
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < D; ++d) {
+      mbar_init(cta_addr(full + d), 1);
+      mbar_init(cta_addr(empty + d), n_items);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the producer: stage n (n < T * NS) is k-pair KR + n % NS of the slice
+  // into slot n % D, once the consumers have emptied the slot's previous
+  // stage n - D
+  const bool producer = warp == nwarps && lane == 0;
+  const int total = T * NS, ahead = min(D, NS);
+  int issued = 0;
+  auto produce = [&](int upto) {
+    for (upto = min(upto, total); issued < upto; ++issued) {
+      const int slot = issued % D, use = issued / D;
+      if (use > 0) xbar_wait(cta_addr(empty + slot), (use - 1) & 1);
+      xbar_expect(cta_addr(full + slot), pair);
+      bulk_from_global(cta_addr(ring + (size_t)slot * pair),
+                       wsrc + (size_t)(KR + issued % NS) * pair, pair,
+                       cta_addr(full + slot));
+    }
+  };
+  if (producer) produce(ahead);
+
+  // step t's x-side gates of this thread's own (row, unit) pairs, into tile
+  // `buf`; one cp.async group per call, empty when t is past the end
+  auto fetch_gates = [&](int t, int buf) {
+    for (int i = warp; i < n_items && t >= 0 && t < T; i += nwarps) {
+      const int jl = 8 * (i % G) + 2 * tq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = (i / G) * 16 + grp + 8 * half;
+        if (r >= nrows) continue;
+        const __nv_bfloat16* src =
+            gates + ((size_t)t * B + row0 + r) * G4 + col0 + jl;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          cp_async4(gx + (buf * R + r) * U4 + q * U + jl, src + q * H);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  const int dir = reverse ? -1 : 1, t0 = reverse ? T - 1 : 0;
+
+  fetch_gates(t0, 0);
+  fetch_gates(t0 + dir, 1);
+  cluster.sync();      // every CTA has started and filled its buffers
+  cp_async_wait<1>();  // step 0's gates (own copies)
+
+  for (int s = 0; s < T; ++s) {
+    const int t = t0 + dir * s;
+    const __nv_bfloat16* hcur = hbuf + (s & 1) * R * hs;
+    __nv_bfloat16* hnext = hbuf + ((s + 1) & 1) * R * hs;
+    const __nv_bfloat16* gcur = gx + (s & 1) * R * U4;
+
+    if (warp < n_items) {
+      const int mt = warp / G, g = warp % G;
+      float acc[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+
+      // the products of k-pair p, whose fragments lie at wp: k-step 2p for
+      // the four gates, then k-step 2p + 1, each accumulator in k order
+      const __nv_bfloat16* ap = hcur + (mt * 16 + grp) * hs + 2 * tq;
+      const int frag = g * 32 + lane;
+      auto pair_mma = [&](const unsigned char* wp, int p) {
+        uint32_t a[2][4];
+        load_a(a[0], ap + 32 * p, hs);        // A (16x16, row-major): h_{t-1}
+        load_a(a[1], ap + 32 * p + 16, hs);
+        uint4 b[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          b[q] = reinterpret_cast<const uint4*>(wp)[q * G * 32 + frag];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t b0[2] = {b[q].x, b[q].y};
+          mma16816(acc[q], a[0], b0);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t b1[2] = {b[q].z, b[q].w};
+          mma16816(acc[q], a[1], b1);
+        }
+      };
+      for (int p = 0; p < KR; ++p) pair_mma(wres + (size_t)p * pair, p);
+      for (int j = 0; j < NS; ++j) {
+        const int n = s * NS + j, slot = n % D;
+        xbar_wait(cta_addr(full + slot), (n / D) & 1);
+        pair_mma(ring + (size_t)slot * pair, KR + j);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(cta_addr(empty + slot));
+      }
+
+      // accumulator (half, e): row 16 mt + grp + 8 half, unit jl + e
+      const int jl = 8 * g + 2 * tq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = mt * 16 + grp + 8 * half;
+        const bool valid = r < nrows;
+        float z[4][2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float2 gv = make_float2(0.0f, 0.0f);
+          if (valid) gv = load_pair(gcur + r * U4 + q * U + jl);
+          z[q][0] = gv.x + acc[q][2 * half];
+          z[q][1] = gv.y + acc[q][2 * half + 1];
+        }
+        float hn[2], cn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float c = sigmoidf_(z[1][e]) * cf[r * U + jl + e] +
+                          sigmoidf_(z[0][e]) * tanhf(z[2][e]);
+          cn[e] = c;
+          hn[e] = sigmoidf_(z[3][e]) * tanhf(c);
+          cf[r * U + jl + e] = c;
+        }
+        store_pair(hnext + r * hs + col0 + jl, hn[0], hn[1]);
+        if (valid) {
+          const size_t o = ((size_t)t * B + row0 + r) * H + col0 + jl;
+          store_pair(out + o, hn[0], hn[1]);
+          if (STREAM_C) store_pair(c_seq + o, cn[0], cn[1]);
+          if (CARRY && s == T - 1) {
+            store_pair(h_T + (size_t)(row0 + r) * H + col0 + jl, hn[0], hn[1]);
+            store_pair(c_T + (size_t)(row0 + r) * H + col0 + jl, cn[0], cn[1]);
+          }
+        }
+      }
+    }
+    // the next step's first stages, as the consumers empty this step's last
+    // slots: their copies run under the exchange and the cluster barrier
+    if (producer) produce((s + 1) * NS + ahead);
+    __syncwarp();
+    fetch_gates(t + 2 * dir, s & 1);         // into the tile just read
+    __syncthreads();                          // the CTA's slice of h_t is in hnext
+
+    // hand the slice on to the other CTAs of the cluster, as
+    // lstm_cluster_kernel does
+    const int chunks = U / 8;
+    for (int i = threadIdx.x; i < nrows * chunks; i += nthreads) {
+      uint4* piece = reinterpret_cast<uint4*>(hnext + (i / chunks) * hs + col0 +
+                                              8 * (i % chunks));
+      const uint4 v = *piece;
+      for (int p = 1; p < C; ++p)
+        *cluster.map_shared_rank(piece, (rank + p) % C) = v;
+    }
+    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+    cp_async_wait<1>();
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+  }
+}
+
+template <typename OutT, bool CARRY, bool STREAM_C>
+cudaError_t prepare_stream(int C, size_t smem) {
+  auto kernel = lstm_stream_kernel<OutT, CARRY, STREAM_C>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+bool stream_plan_fits(int H, int C, int R, int resident, int stages) {
+  return plan_fits(H, C, R) &&
+         (R / 16) * (H / C / 8) <= STREAM_MAX_WARPS && resident >= 0 &&
+         resident % 2 == 0 && resident < H / 16 && stages >= 1;
+}
+
+template <typename OutT, bool CARRY, bool STREAM_C = false>
+int launch_stream(const void* gates, const void* wf, const void* h0,
+                  const void* c0, void* out, void* h_T, void* c_T,
+                  void* c_seq, int T, int B, int H, int reverse, int C, int R,
+                  int resident, int stages, int smem_bytes, void* stream) {
+  if (!stream_plan_fits(H, C, R, resident, stages) ||
+      (size_t)smem_bytes != stream_smem(H, C, R, resident, stages))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_stream<OutT, CARRY, STREAM_C>(C, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = cluster_attr(C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + R - 1) / R));
+  cfg.blockDim = dim3(32 * stream_warps(H, C, R));
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, lstm_stream_kernel<OutT, CARRY, STREAM_C>,
+                           (const __nv_bfloat16*)gates,
+                           (const __nv_bfloat16*)wf, (const float*)h0,
+                           (const float*)c0, (OutT*)out, (float*)h_T,
+                           (float*)c_T, (__nv_bfloat16*)c_seq, T, B, H, R,
+                           resident, stages, reverse);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT, bool CARRY, bool STREAM_C = false>
+int max_stream_clusters(int H, int C, int R, int resident, int stages,
+                        int* n) {
+  if (!stream_plan_fits(H, C, R, resident, stages))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = stream_smem(H, C, R, resident, stages);
+  cudaError_t err = prepare_stream<OutT, CARRY, STREAM_C>(C, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr = cluster_attr(C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(32 * stream_warps(H, C, R));
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      n, lstm_stream_kernel<OutT, CARRY, STREAM_C>, &cfg);
+}
+
 }  // namespace
 
 extern "C" {
@@ -425,6 +774,72 @@ int lstm_scan_max_clusters(int out_f32, int carry, int train, int H,
                  : max_clusters<float, false>(H, cluster, rows, n);
   return carry ? max_clusters<__nv_bfloat16, true>(H, cluster, rows, n)
                : max_clusters<__nv_bfloat16, false>(H, cluster, rows, n);
+}
+
+// The streamed variant of kernels A, B and C: the same arguments, with
+// wt replaced by wf, the W_hh^T slices packed in fragment order
+// ([cluster][H/32][4][U/8][32][8] bf16, ops/lstm.py _stream_weight), and a
+// plan that adds the resident k-steps (even, fewer than H/16) and the ring's
+// stages (two k-steps each); smem_bytes must be the layout's (ops/lstm.py
+// stream_smem_bytes), and rows / 16 x H / cluster / 8 at most 18.
+int lstm_scan_fwd_stream(const void* gates, const void* wf, void* out,
+                         int out_f32, int T, int B, int H, int reverse,
+                         int cluster, int rows, int resident, int stages,
+                         int smem_bytes, void* stream) {
+  if (out_f32)
+    return launch_stream<float, false>(gates, wf, nullptr, nullptr, out,
+                                       nullptr, nullptr, nullptr, T, B, H,
+                                       reverse, cluster, rows, resident,
+                                       stages, smem_bytes, stream);
+  return launch_stream<__nv_bfloat16, false>(
+      gates, wf, nullptr, nullptr, out, nullptr, nullptr, nullptr, T, B, H,
+      reverse, cluster, rows, resident, stages, smem_bytes, stream);
+}
+
+int lstm_scan_fwd_carry_stream(const void* gates, const void* wf,
+                               const void* h0, const void* c0, void* out,
+                               void* h_T, void* c_T, int out_f32, int T,
+                               int B, int H, int reverse, int cluster,
+                               int rows, int resident, int stages,
+                               int smem_bytes, void* stream) {
+  if (out_f32)
+    return launch_stream<float, true>(gates, wf, h0, c0, out, h_T, c_T,
+                                      nullptr, T, B, H, reverse, cluster,
+                                      rows, resident, stages, smem_bytes,
+                                      stream);
+  return launch_stream<__nv_bfloat16, true>(
+      gates, wf, h0, c0, out, h_T, c_T, nullptr, T, B, H, reverse, cluster,
+      rows, resident, stages, smem_bytes, stream);
+}
+
+int lstm_scan_fwd_train_stream(const void* gates, const void* wf,
+                               void* h_seq, void* c_seq, int T, int B, int H,
+                               int reverse, int cluster, int rows,
+                               int resident, int stages, int smem_bytes,
+                               void* stream) {
+  return launch_stream<__nv_bfloat16, false, true>(
+      gates, wf, nullptr, nullptr, h_seq, nullptr, nullptr, c_seq, T, B, H,
+      reverse, cluster, rows, resident, stages, smem_bytes, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the streamed instance (out_f32, carry,
+// train) with `resident` k-steps resident and a ring of `stages`, for a
+// cluster of `cluster` CTAs over `rows` rows at H.
+int lstm_scan_stream_max_clusters(int out_f32, int carry, int train,
+                                  int resident, int stages, int H,
+                                  int cluster, int rows, int* n) {
+  if (train)
+    return max_stream_clusters<__nv_bfloat16, false, true>(
+        H, cluster, rows, resident, stages, n);
+  if (out_f32)
+    return carry ? max_stream_clusters<float, true>(H, cluster, rows,
+                                                    resident, stages, n)
+                 : max_stream_clusters<float, false>(H, cluster, rows,
+                                                     resident, stages, n);
+  return carry ? max_stream_clusters<__nv_bfloat16, true>(
+                     H, cluster, rows, resident, stages, n)
+               : max_stream_clusters<__nv_bfloat16, false>(
+                     H, cluster, rows, resident, stages, n);
 }
 
 const char* lstm_scan_error_string(int err) {

@@ -1,6 +1,7 @@
 // What the scan sources (csrc/*.cu) share: the tile constants of a block,
-// the device helpers around one mma.sync m16n8k16 tile, and the bulk-copy
-// exchange of the cluster backwards. The constants have internal linkage
+// the device helpers around one mma.sync m16n8k16 tile, the bulk-copy
+// exchange of the cluster backwards and the W_hh^T ring of the streamed
+// cluster forwards. The constants have internal linkage
 // and the functions are inline, so a source may leave any unused.
 
 #pragma once
@@ -138,4 +139,31 @@ __device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src,
 // Wait until this thread's bulk copies have read their source.
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---- the W_hh^T ring of the streamed cluster forwards ----------------------
+// One producer thread copies a stage of the slice from global memory with one
+// cp.async.bulk that completes on the stage's `full` barrier; the consumer
+// warps wait on it and, once their fragments are in registers, arrive on the
+// stage's `empty` barrier, which the producer waits on before it refills the
+// slot.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global memory to dst (this CTA's shared
+// memory, 16-byte aligned), completing on the barrier `bar` of this CTA.
+__device__ __forceinline__ void bulk_from_global(uint32_t dst, const void* src,
+                                                 uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }

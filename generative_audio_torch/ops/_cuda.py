@@ -104,6 +104,14 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _P],
         "lstm_scan_fwd_train": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P],
+        # the streamed variant: ..., reverse, then its plan: cluster, rows,
+        # resident k-steps, stages, shared bytes
+        "lstm_scan_fwd_stream": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P],
+        "lstm_scan_fwd_carry_stream": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _I, _I, _I, _I, _I, _P],
+        "lstm_scan_fwd_train_stream": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _P],
     },
     "lstm_scan_block": {
         "lstm_scan_fwd_block": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -148,6 +156,12 @@ _SIGNATURES = {
         "gru_scan_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "gru_scan_fwd_carry": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P],
+        # the streamed variant: ..., reverse, then its plan: cluster, rows,
+        # resident k-steps, stages, shared bytes
+        "gru_scan_fwd_stream": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P],
+        "gru_scan_fwd_carry_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _P],
     },
     "gru_scan_block": {
         "gru_scan_fwd_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -165,12 +179,15 @@ _SIGNATURES = {
 SOURCES = tuple(_SIGNATURES)
 # Queries that launch nothing: the instance's flags (out_f32, carry; and
 # train for the LSTM forward; resident for the backwards; k and out_f32 for
-# the staged scans; n_chains, arrangement and resident for kernel G), then
-# H, cluster, rows and int* n.
+# the staged scans; n_chains, arrangement and resident for kernel G; and,
+# for the streamed forwards, those of their kernel, the resident k-steps and
+# the ring's stages), then H, cluster, rows and int* n.
 _QUERIES = {
     "lstm_scan": {
         "lstm_scan_max_clusters": [_I, _I, _I, _I, _I, _I,
                                    ctypes.POINTER(ctypes.c_int)],
+        "lstm_scan_stream_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I,
+                                          ctypes.POINTER(ctypes.c_int)],
     },
     "lstm_scan_staged": {
         "lstm_scan_staged_max_clusters": [_I, _I, _I, _I, _I,
@@ -179,6 +196,8 @@ _QUERIES = {
     "gru_scan": {
         "gru_scan_max_clusters": [_I, _I, _I, _I, _I,
                                   ctypes.POINTER(ctypes.c_int)],
+        "gru_scan_stream_max_clusters": [_I, _I, _I, _I, _I, _I, _I,
+                                         ctypes.POINTER(ctypes.c_int)],
     },
     "lstm_scan_bwd": {
         "lstm_scan_bwd_max_clusters": [_I, _I, _I, _I,

@@ -52,8 +52,11 @@ Any H runs on the card, as for the LSTM: the wrappers zero-pad H to the
 units their kernel takes (`scan_hidden` for the cluster forward, whole
 16-deep k-steps for the backward and the contraction; nothing at H = 384
 and 512) and slice the result back; above H = 640, where no cluster holds
-W_hh's slice, the forward takes the single-block route
-(csrc/gru_scan_block.cu) at H padded to 16. A padded unit sees zero gates, weights
+W_hh's slice, the forward takes ops/lstm.py `plan_forward`'s route: the
+streamed variant of the cluster (csrc/gru_scan.cu, entries ending in
+`_stream`, plan `plan_stream_scan` / `card_stream_plan`) or the single
+block (csrc/gru_scan_block.cu, at H padded to 16), whichever has the least
+waves x modelled step. A padded unit sees zero gates, weights
 and b_hh, so n = tanh(0 + r * 0) = 0 and it stays at h = 0, adds exact
 zeros to the real units' sums and gets zero dgates.
 """
@@ -61,19 +64,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from generative_audio_torch.ops.lstm import (
-    _PAD, _ROWS, _STEP_UNITS, CLUSTER_SIZES, H100_SMS, BwdPlan, ScanPlan,
-    _check_kernel_operand, _fragment_weight, _is_cuda, _kernel_operand,
-    _kernel_weight, _pad_gates, _pad_units, _padded_weight, _unpad_gates,
-    _unpad_units,
-    _wants_grad, bwd_cluster_smem_bytes, bwd_cluster_step_us, card_bwd_plan,
-    card_plan, check_smem, cluster_hidden, cluster_step_us, forward_hidden,
-    mixed_gates, plan_bwd, plan_cluster_scan, sm_blocks)
+    _PAD, _ROWS, _STEP_UNITS, H100_SMS, BwdPlan, ScanPlan, StreamPlan,
+    _check_kernel_operand, _device_sms, _fragment_weight, _is_cuda,
+    _kernel_operand, _kernel_weight, _pad_gates, _pad_units, _padded_weight,
+    _route_weight, _stream_args, _unpad_gates, _unpad_units, _wants_grad,
+    block_forward_step_us, bwd_cluster_smem_bytes, bwd_cluster_step_us,
+    card_bwd_plan, card_plan, card_stream, cluster_hidden, cluster_step_us,
+    mixed_gates, plan_bwd, plan_cluster_scan, plan_forward, plan_stream,
+    sm_blocks, stream_cluster_step_us, stream_fixed_bytes)
 from generative_audio_torch.ops.lstm import _launch as _launch_entry
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
@@ -85,7 +89,9 @@ __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "scan_hidden", "card_scan_plan", "DwhhPlan", "plan_dwhh",
            "gru_scan_bwd_streams_planned_tm", "bwd_block_smem_bytes",
            "bwd_smem_bytes_cluster", "bwd_step_us", "plan_bwd_scan",
-           "card_bwd_scan_plan", "block_smem_bytes"]
+           "card_bwd_scan_plan", "block_smem_bytes", "stream_smem_bytes",
+           "stream_step_us", "plan_stream_scan", "card_stream_plan",
+           "block_step_us"]
 
 # Batch rows per block of the backward scan, which writes one db_hh partial
 # per block: the kernel is told the number of partials and refuses another
@@ -95,8 +101,21 @@ _ROWS_PER_BLOCK = 16
 # an H100 SXM at 700 W: a step with one round of items, each further round
 # of the busiest warp, and one 16-byte store of the h exchange.
 _STEP_US, _ROUND_US, _STORE_US = 2.1, 2.7, 2.2e-3
-# The forward entries, whose C functions end in the launch plan.
+# The forward entries, whose C functions end in the launch plan, and their
+# streamed variants, whose C functions end in a StreamPlan's.
 _CLUSTER_ENTRIES = ("gru_scan_fwd", "gru_scan_fwd_carry")
+_STREAM_ENTRIES = ("gru_scan_fwd_stream", "gru_scan_fwd_carry_stream")
+# The streamed variant's step model (ops/lstm.py stream_cluster_step_us:
+# step, store, kilobyte, latency; microseconds): a least-squares fit to the
+# steps of 39 one-cluster plans (H = 768, 1024; C = 8 x 16 rows, C = 16 x
+# 16-48 rows; rings of 1-8 stages) on an H100 SXM at 700 W
+# (generative_audio_torch/scripts/perf_stream_scan.py), off by at most 1.50
+# us a step and 0.44 in the mean.
+_STREAM_PARTS = (3.6217, 1.9986e-3, 0.0106, 0.29)
+# The single-block forward's step model (ops/lstm.py block_forward_step_us:
+# step, fragment round, megabyte), fitted as the LSTM's to its steps at 18
+# and 2056 rows (H = 768, 1024) in the same sweep.
+_BLOCK_PARTS = (10.932, 0.43134, 0.58021)
 # The cluster backward's step model (ops/lstm.py bwd_cluster_step_us): a
 # step, a KB of the dgh exchange, a k-step of the second product, an item
 # and the stream term of an item (microseconds), fitted to the steps of five
@@ -152,13 +171,66 @@ def block_smem_bytes(hsz: int) -> int:
     return 2 * _ROWS * (hsz + _PAD) * 2 + _ROWS * hsz * 4 + 3 * hsz * 4
 
 
-def _forward_route(hsz: int) -> Tuple[int, str]:
-    """(H, entry suffix) of the forward for a layer of hsz units (ops/
-    lstm.py forward_hidden); raises when not even a single block fits."""
-    hp, suffix = forward_hidden(hsz, scan_smem_bytes)
-    if suffix:
-        check_smem(f"gru_scan_fwd_block at H={hp}", block_smem_bytes(hp))
-    return hp, suffix
+def stream_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                      stages: int) -> int:
+    """Shared memory of one CTA of the streamed forward (csrc/gru_scan.cu
+    `stream_smem`): the ring of `stages` k-pairs and the `resident` k-steps
+    of the W_hh^T slice in fragment order (3U x 16 bf16 a k-step), the h
+    buffers, the CTA's fp32 h and gates (ops/lstm.py stream_fixed_bytes),
+    its b_hh slice [3U] fp32 and the ring's two mbarriers a stage, with
+    U = H / cluster units."""
+    units = hsz // cluster
+    return ((2 * stages + resident) * 3 * units * 32
+            + stream_fixed_bytes(hsz, cluster, rows, 3, 3 * units * 4)
+            + 16 * stages)
+
+
+def stream_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                   stages: int) -> float:
+    """Modelled time of one step of one wave of the streamed forward (ops/
+    lstm.py stream_cluster_step_us with its fitted parts)."""
+    return stream_cluster_step_us(hsz, cluster, rows, resident, stages, 3,
+                                  _STREAM_PARTS)
+
+
+def plan_stream_scan(hsz: int, batch: int,
+                     max_clusters: Callable[[int, int, int, int, int], int],
+                     resident: Optional[int] = None) -> StreamPlan:
+    """The streamed forward's plan for `batch` rows of a layer of hsz units
+    (ops/lstm.py plan_stream with its layout and step model)."""
+    return plan_stream("GRU", hsz, batch, stream_smem_bytes, max_clusters,
+                       stream_step_us, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def card_stream_plan(device: torch.device, hsz: int, batch: int,
+                     instance: Tuple[int, int] = (0, 0),
+                     resident: Optional[int] = None) -> StreamPlan:
+    """The streamed plan the forward launches with on `device` (a CUDA
+    device) for `batch` rows of a layer of hsz units; instance (out_f32,
+    carry) as card_scan_plan's flags (occupancy from csrc/gru_scan.cu
+    `gru_scan_stream_max_clusters`)."""
+    return card_stream("gru_scan", plan_stream_scan, device, hsz, batch,
+                       instance, resident)
+
+
+def block_step_us(hsz: int, blocks: int) -> float:
+    """Modelled step of the single-block forward (csrc/gru_scan_block.cu;
+    ops/lstm.py block_forward_step_us with its parts)."""
+    return block_forward_step_us(hsz, blocks, 3, _BLOCK_PARTS)
+
+
+def _forward_route(hsz: int, batch: int, device: torch.device,
+                   instance: Tuple[int, int] = (0, 0)
+                   ) -> Tuple[int, str, Optional[StreamPlan]]:
+    """(H, entry suffix, streamed plan) of the forward for `batch` rows of a
+    layer of hsz units on `device` (ops/lstm.py plan_forward with this
+    kernel's layouts, step models and the card's occupancy of the streamed
+    instance; instance (out_f32, carry)); raises when nothing fits."""
+    return plan_forward(
+        "GRU", hsz, batch, scan_smem_bytes, block_smem_bytes, block_step_us,
+        lambda res: card_stream_plan(device, hsz, batch, instance, res),
+        _device_sms(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -214,14 +286,18 @@ def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int) -> BwdPlan:
     return card_bwd_plan("gru_scan_bwd", plan_bwd_scan, device, hsz, batch)
 
 
-def _launch(fn_name: str, *args, plan: Optional[BwdPlan] = None) -> None:
+def _launch(fn_name: str, *args,
+            plan: Optional[Union[BwdPlan, StreamPlan]] = None) -> None:
     """Launch csrc entry `fn_name` through the port's launch helper. The
     forward entries are cluster launches: their arguments end in (out_f32,
     T, B, H, reverse), and card_scan_plan's plan for (H, B) on the tensors'
-    card is appended to them. The backward scan's arguments end in (T, B, H,
-    reverse), and `plan` (default: card_bwd_scan_plan's for (H, B)) is
-    appended to them."""
-    if fn_name == "gru_scan_bwd":
+    card is appended to them; their streamed variants take `plan` (the
+    StreamPlan the wrapper packed W_hh for). The backward scan's arguments
+    end in (T, B, H, reverse), and `plan` (default: card_bwd_scan_plan's for
+    (H, B)) is appended to them."""
+    if fn_name in _STREAM_ENTRIES:
+        args = (*args, *_stream_args(fn_name, plan, args[-2]))
+    elif fn_name == "gru_scan_bwd":
         b, hsz = args[-3], args[-2]
         plan = plan or card_bwd_scan_plan(args[0].device, hsz, b)
         args = (*args, *plan.launch_args)
@@ -428,13 +504,15 @@ def gru_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     gates = gates_x.to(torch.bfloat16)
     if not _is_cuda(gates, w_hh, b_hh):
         return gru_scan_reference_tm(gates, w_hh, b_hh, reverse).to(out_dtype)
-    hp, route = _forward_route(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
+    out_f32 = out_dtype == torch.float32
+    hp, route, plan = _forward_route(hsz, max(b, 1), gates.device,
+                                     (int(out_f32), 0))
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     if t_len and b:
         _launch("gru_scan_fwd" + route, _pad_gates(gates, 3, hp),
-                _kernel_weight(w_hh, hp), _kernel_bias(b_hh, hp), out,
-                out_dtype == torch.float32, t_len, b, hp, reverse)
+                _route_weight(w_hh, hp, plan), _kernel_bias(b_hh, hp), out,
+                out_f32, t_len, b, hp, reverse, plan=plan)
     return _unpad_units(out, hsz)
 
 
@@ -455,18 +533,19 @@ def gru_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh, b_hh, h0):
         return gru_scan_carry_reference_tm(gates, w_hh, b_hh, h0, reverse,
                                            out_dtype)
-    hp, route = _forward_route(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     _check_kernel_operand("h0", h0, torch.float32)
     if not (t_len and b):
         return (torch.empty(t_len, b, hsz, dtype=out_dtype,
                             device=gates.device), h0.clone())
+    out_f32 = out_dtype == torch.float32
+    hp, route, plan = _forward_route(hsz, b, gates.device, (int(out_f32), 1))
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     h_t = torch.empty(b, hp, dtype=torch.float32, device=gates.device)
     _launch("gru_scan_fwd_carry" + route, _pad_gates(gates, 3, hp),
-            _kernel_weight(w_hh, hp), _kernel_bias(b_hh, hp),
-            _pad_units(h0, hp), out, h_t, out_dtype == torch.float32, t_len,
-            b, hp, reverse)
+            _route_weight(w_hh, hp, plan), _kernel_bias(b_hh, hp),
+            _pad_units(h0, hp), out, h_t, out_f32, t_len, b, hp, reverse,
+            plan=plan)
     return _unpad_units(out, hsz), _unpad_units(h_t, hsz)
 
 

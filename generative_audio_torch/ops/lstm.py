@@ -74,14 +74,24 @@ Any H runs on the card: the wrappers zero-pad H to the units their kernel
 takes (`scan_hidden` for kernels A-C, `unrolled_route` for E,
 `layer_route` for F, whole 16-deep k-steps for the backwards D and G) and
 slice the result back; at H = 384 and 512 nothing is padded. Where no
-cluster holds W_hh's slice (H above 512), kernels A-C, E and F take the
-single-block route (csrc/lstm_scan_block.cu, csrc/lstm_scan_unrolled_block.cu
-and csrc/lstm_layer_block.cu, entries ending in `_block`) at H padded to
-16, and kernel D its single block, which keeps dc in registers and so holds
-H up to 1024. A padded unit sees zero gates, zero weights and zero bias, so
+cluster holds W_hh's slice (H above 512), kernels A-C take the route of
+`plan_forward`: the streamed variant of their cluster (csrc/lstm_scan.cu,
+entries ending in `_stream`: the first k-steps of each CTA's slice resident,
+the rest streamed from L2 through a ring of bulk copies at every step; plan
+`plan_stream_scan`, `card_stream_plan`, at H padded to `stream_hidden`) or
+the single block (csrc/lstm_scan_block.cu, entries ending in `_block`, at H
+padded to 16), whichever has the least waves x modelled step; kernels E and
+F take their single blocks (csrc/lstm_scan_unrolled_block.cu and
+csrc/lstm_layer_block.cu), and kernel D its single block, which keeps dc in
+registers and so holds H up to 1024. `single_block_forwards()` and
+`streamed_forwards()` force the single block and the streamed cluster at
+any H, for holding them against the resident cluster, bit for bit. A
+padded unit sees zero gates, zero weights and zero bias, so
 it stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros to the real
 units' sums and gets zero dgates. What no design holds raises with the
-bytes: kernel D above H = 1024, kernel G above H = 512 (two chains) or
+bytes: kernels A-C and the GRU forwards above H = 2304 (the streamed
+cluster's 18 items a CTA; the single blocks stop at 1808 and 1648),
+kernel D above H = 1024, kernel G above H = 512 (two chains) or
 where neither its cluster nor its single block holds four chains, kernel E
 where not even a block of 4 rows holds K steps of gates (H above 1104 at
 K = 4).
@@ -92,6 +102,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Callable, List, Optional, Tuple, Union
 
 import torch
@@ -117,7 +128,12 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "unrolled_block_rows", "unrolled_block_smem_bytes", "ChainsPlan",
            "plan_chains_scan", "card_chains_scan_plan", "chain_warps",
            "chains_cluster_smem_bytes", "chains_step_us", "chain_cta_warps",
-           "chains_scan_plans", "MixedProjection", "mixed_gates"]
+           "chains_scan_plans", "MixedProjection", "mixed_gates",
+           "StreamPlan", "STREAM_STAGES", "stream_hidden",
+           "stream_fixed_bytes", "stream_smem_bytes", "stream_cluster_step_us",
+           "stream_step_us", "plan_stream", "plan_stream_scan",
+           "card_stream", "card_stream_plan", "block_forward_step_us",
+           "block_step_us", "plan_forward", "streamed_forwards"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -125,6 +141,9 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "lstm_scan_fwd_block": "lstm_scan_block",
               "lstm_scan_fwd_carry_block": "lstm_scan_block",
               "lstm_scan_fwd_train_block": "lstm_scan_block",
+              "lstm_scan_fwd_stream": "lstm_scan",
+              "lstm_scan_fwd_carry_stream": "lstm_scan",
+              "lstm_scan_fwd_train_stream": "lstm_scan",
               "lstm_scan_fwd_unrolled": "lstm_scan_staged",
               "lstm_scan_fwd_unrolled_block": "lstm_scan_unrolled_block",
               "lstm_layer_fwd": "lstm_scan_staged",
@@ -135,6 +154,8 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "gru_scan_fwd": "gru_scan", "gru_scan_fwd_carry": "gru_scan",
               "gru_scan_fwd_block": "gru_scan_block",
               "gru_scan_fwd_carry_block": "gru_scan_block",
+              "gru_scan_fwd_stream": "gru_scan",
+              "gru_scan_fwd_carry_stream": "gru_scan",
               "gru_scan_bwd": "gru_scan_bwd",
               "gru_scan_bwd_dwhh": "gru_scan_bwd"}
 launch_counts = dict.fromkeys(_SOURCE_OF, 0)
@@ -175,6 +196,33 @@ _LAYER_PARTS = (5.52, 1.13e-3, 0.0291)
 # The forward entries, whose C functions end in the launch plan.
 _CLUSTER_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry",
                     "lstm_scan_fwd_train")
+# Their streamed variants (csrc/lstm_scan.cu lstm_stream_kernel), whose C
+# functions end in a StreamPlan's launch arguments.
+_STREAM_ENTRIES = ("lstm_scan_fwd_stream", "lstm_scan_fwd_carry_stream",
+                   "lstm_scan_fwd_train_stream")
+# The ring depths (slots of one k-pair: two 16-deep k-steps of a CTA's W_hh^T
+# slice) the planner of the streamed forwards weighs, and the most (m16 tile,
+# 8 units) items a CTA of them takes: one consumer warp each.
+STREAM_STAGES = (1, 2, 3, 4, 6, 8)
+_STREAM_MAX_ITEMS = 18
+# stream_step_us's parts (microseconds): a step, one 16-byte store of the h
+# exchange, and, for each k-pair a CTA streams a step, the larger of its
+# kilobytes' time (bulk copies from L2 at about 95 GB/s an SM) and the copy
+# latency over the ring's stages. A least-squares fit to the steps of 57
+# one-cluster plans (H = 640, 768, 1024; C = 8 x 16 rows and C = 16 x 16-48
+# rows; rings of 1-8 stages; 0 to the most resident k-steps) on an H100 SXM
+# at 700 W (generative_audio_torch/scripts/perf_stream_scan.py), off by at
+# most 1.55 us a step and 0.45 in the mean; at each cluster shape its pick
+# was within 6% of the measured best.
+_STREAM_PARTS = (3.7616, 2.0149e-3, 0.0104, 0.36)
+# block_step_us's parts (microseconds): a step of the single-block forward
+# (csrc/lstm_scan_block.cu), each (round of a warp's 8-unit groups x 16-deep
+# k-step) of its dependent W_hh^T fragment loads from L2 (H^2 / 1024 of
+# them), or, where more, each MB of W_hh^T that the blocks of a wave read
+# from L2 a step. The first two a least-squares fit to its steps at 18 rows
+# (H = 640, 768, 1024), the last the most that its steps at 2056 rows (129
+# blocks a wave) need, on an H100 SXM at 700 W (the same sweep).
+_BLOCK_PARTS = (17.627, 0.33618, 0.35841)
 # SMs of an H100 SXM, and the shared memory of one of them (228 KB).
 H100_SMS = 132
 _SM_SHARED = 233472
@@ -591,13 +639,13 @@ def single_block_forwards():
 
 
 def forward_hidden(hsz: int, smem_bytes: SmemBytes) -> Tuple[int, str]:
-    """(H, entry suffix) a forward scan runs a layer of hsz units with:
+    """(H, entry suffix) kernels E and F run a layer of hsz units with:
     cluster_hidden's H and the cluster entries ("") where a cluster holds
-    the layer's W_hh slice, else hsz padded to whole 16-deep k-steps and the
-    single-block entries ("_block", csrc/lstm_scan_block.cu and
-    csrc/gru_scan_block.cu), which read W_hh from L2 and take any such H
-    whose 16 rows of state fit a block (always within
-    single_block_forwards())."""
+    the layer's W_hh slice, else hsz padded to whole 16-deep k-steps and
+    their single-block entries ("_block", csrc/lstm_scan_unrolled_block.cu
+    and csrc/lstm_layer_block.cu), which read W_hh from L2 (always within
+    single_block_forwards()). Kernels A-C and the GRU forwards take
+    plan_forward's route."""
     hp = None if _single_block[0] else _cluster_fit(hsz, smem_bytes)
     if hp is not None:
         return hp, ""
@@ -606,13 +654,13 @@ def forward_hidden(hsz: int, smem_bytes: SmemBytes) -> Tuple[int, str]:
 
 @functools.lru_cache(maxsize=None)
 def _max_clusters(source: str, device_index: int, instance: Tuple[int, ...],
-                  hsz: int, cluster: int, rows: int) -> int:
+                  hsz: int, cluster: int, rows: int, query: str = "") -> int:
     """cudaOccupancyMaxActiveClusters of a cluster scan instance on the card
-    (`<source>_max_clusters` of csrc/<source>.cu, with the instance's
-    flags)."""
+    (`query`, by default `<source>_max_clusters`, of csrc/<source>.cu, with
+    the instance's flags)."""
     from generative_audio_torch.ops import _cuda
     n = ctypes.c_int(0)
-    query = f"{source}_max_clusters"
+    query = query or f"{source}_max_clusters"
     with torch.cuda.device(device_index):
         err = getattr(_cuda.load(source), query)(*instance, hsz, cluster,
                                                  rows, ctypes.byref(n))
@@ -667,15 +715,6 @@ def block_smem_bytes(hsz: int) -> int:
     return 2 * _ROWS * (hsz + _PAD) * 2 + _ROWS * hsz * 4
 
 
-def _forward_route(hsz: int) -> Tuple[int, str]:
-    """(H, entry suffix) of kernels A-C for a layer of hsz units
-    (forward_hidden); raises when not even a single block fits."""
-    hp, suffix = forward_hidden(hsz, scan_smem_bytes)
-    if suffix:
-        check_smem(f"lstm_scan_fwd_block at H={hp}", block_smem_bytes(hp))
-    return hp, suffix
-
-
 @functools.lru_cache(maxsize=None)
 def card_scan_plan(device: torch.device, hsz: int, batch: int,
                    out_dtype: torch.dtype = torch.bfloat16,
@@ -684,6 +723,337 @@ def card_scan_plan(device: torch.device, hsz: int, batch: int,
     launch with on `device` (a CUDA device) for `batch` rows at H = hsz."""
     return card_plan("lstm_scan", plan_scan, device, hsz, batch,
                      (int(out_dtype == torch.float32), int(carry), int(train)))
+
+
+# ---- the streamed cluster forwards and the route of a forward --------------
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """Launch plan of the streamed variant of a cluster forward
+    (csrc/lstm_scan.cu and csrc/gru_scan.cu, entries ending in `_stream`):
+    clusters of `cluster` CTAs at H = `hidden` (the layer's units zero-padded
+    to stream_hidden's), each CTA owning hidden / cluster units, over `rows`
+    batch rows per cluster; the first `resident` 16-deep k-steps of each
+    CTA's W_hh^T slice stay in shared memory, the others stream from L2
+    through a ring of `stages` slots of two k-steps at every step."""
+    hidden: int           # H the kernel runs at
+    cluster: int          # CTAs per cluster
+    rows: int             # batch rows per cluster
+    resident: int         # k-steps of the slice in shared memory (even)
+    stages: int           # slots of the ring, a k-pair each
+    clusters: int         # clusters in the grid
+    active: int           # clusters the card runs at once (occupancy)
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+    step_us: float        # modelled time of one step of one wave
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int, int]:
+        """The C entries' last arguments before the stream."""
+        return (self.cluster, self.rows, self.resident, self.stages,
+                self.smem_bytes)
+
+
+# (H, cluster, rows, resident k-steps, stages) -> shared bytes of one CTA
+StreamSmemBytes = Callable[[int, int, int, int, int], int]
+
+
+def stream_hidden(hsz: int, cluster: int) -> int:
+    """The H a streamed cluster of `cluster` CTAs runs a layer of hsz units
+    at: hsz padded to whole groups of 8 units a CTA and whole k-pairs."""
+    unit = 8 * cluster * 32 // math.gcd(8 * cluster, 32)
+    return -(-hsz // unit) * unit
+
+
+def stream_fixed_bytes(hsz: int, cluster: int, rows: int, n_gates: int,
+                       extra: int = 0) -> int:
+    """Shared bytes of one CTA of a streamed forward besides its slice and
+    ring: two bf16 h buffers [rows][H + 8], the CTA's fp32 state [rows][U]
+    and x-side gates of two steps [2][rows][n U] bf16, plus `extra`."""
+    units, stride = hsz // cluster, hsz + _PAD
+    return (2 * rows * stride * 2 + rows * units * 4
+            + 2 * rows * n_gates * units * 2 + extra)
+
+
+def stream_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                      stages: int) -> int:
+    """Shared memory of one CTA of kernels A-C's streamed variant
+    (csrc/lstm_scan.cu `stream_smem`): the ring of `stages` k-pairs and the
+    `resident` k-steps of the W_hh^T slice in fragment order (4U x 16 bf16
+    a k-step), the h buffers, c and gates (stream_fixed_bytes) and the
+    ring's two mbarriers a stage, with U = H / cluster units."""
+    units = hsz // cluster
+    return ((2 * stages + resident) * 4 * units * 32
+            + stream_fixed_bytes(hsz, cluster, rows, 4) + 16 * stages)
+
+
+def stream_cluster_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                           stages: int, n_gates: int,
+                           parts: Tuple[float, float, float, float]) -> float:
+    """Modelled time of one step of one wave of a streamed forward, from
+    parts (step, store, kilobyte, latency) in microseconds: a step
+    (products, cell, cluster barrier, gates), the 16-byte stores of the h
+    exchange (rows * U / 8 to each of cluster - 1 peers), and for each
+    k-pair the CTA streams the larger of its kilobytes' copy time and a
+    copy's latency shared by the ring's stages."""
+    step_us, store_us, kb_us, latency_us = parts
+    units = hsz // cluster
+    pairs = hsz // 32 - resident // 2
+    return (step_us + rows * units // 8 * (cluster - 1) * store_us
+            + pairs * max(n_gates * units * 64 / 1024 * kb_us,
+                          latency_us / stages))
+
+
+def stream_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                   stages: int) -> float:
+    """Modelled time of one step of one wave of kernels A-C's streamed
+    variant (stream_cluster_step_us with its fitted parts)."""
+    return stream_cluster_step_us(hsz, cluster, rows, resident, stages, 4,
+                                  _STREAM_PARTS)
+
+
+def _stream_resident(hsz: int, cluster: int, rows: int, stages: int,
+                     smem_bytes: StreamSmemBytes,
+                     resident: Optional[int]) -> Optional[int]:
+    """The resident k-steps of a streamed CTA: `resident` where it is even,
+    leaves a k-pair streamed and fits SMEM_LIMIT with the ring, else (when
+    None) the most that do; None when none does."""
+    ksteps = hsz // 16
+    if resident is not None:
+        ok = (resident >= 0 and resident % 2 == 0 and resident < ksteps
+              and smem_bytes(hsz, cluster, rows, resident, stages)
+              <= SMEM_LIMIT)
+        return resident if ok else None
+    least = smem_bytes(hsz, cluster, rows, 0, stages)
+    if least > SMEM_LIMIT:
+        return None
+    pair = smem_bytes(hsz, cluster, rows, 2, stages) - least
+    return 2 * min((SMEM_LIMIT - least) // pair, ksteps // 2 - 1)
+
+
+def plan_stream(what: str, hsz: int, batch: int,
+                smem_bytes: StreamSmemBytes,
+                max_clusters: Callable[[int, int, int, int, int], int],
+                step_us: Callable[[int, int, int, int, int], float],
+                resident: Optional[int] = None) -> StreamPlan:
+    """A streamed forward's launch plan for `batch` rows of a layer of hsz
+    units.
+
+    For each cluster size C of CLUSTER_SIZES at H = stream_hidden(hsz, C),
+    each row count R (whole m16 tiles, balanced over the clusters) that
+    gives a CTA at most _STREAM_MAX_ITEMS (m16 tile, 8 units) items, and
+    each ring depth of STREAM_STAGES no deeper than the streamed k-pairs,
+    the CTA keeps the most resident k-steps that fit SMEM_LIMIT bytes
+    (`resident` itself where given), `max_clusters(H, C, R, resident,
+    stages)` (the card's cudaOccupancyMaxActiveClusters) run at once and a
+    step takes `step_us(H, C, R, resident, stages)`. The plan minimises
+    waves x step time; ties go to the smaller cluster, then to fewer
+    clusters and to the shallower ring. Raises ValueError with the reasons
+    when nothing fits."""
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    tiles = -(-batch // 16)
+    best, refused = None, []
+    for cluster in CLUSTER_SIZES:
+        hp = stream_hidden(hsz, cluster)
+        groups = hp // cluster // 8
+        if groups > _STREAM_MAX_ITEMS:
+            refused.append(f"C={cluster}: {groups} items at 16 rows, over "
+                           f"{_STREAM_MAX_ITEMS}")
+            continue
+        for per_cluster in range(1, tiles + 1):
+            clusters = -(-tiles // per_cluster)
+            rows = 16 * -(-tiles // clusters)        # balanced over clusters
+            if rows // 16 * groups > _STREAM_MAX_ITEMS:
+                break
+            for stages in STREAM_STAGES:
+                res = _stream_resident(hp, cluster, rows, stages, smem_bytes,
+                                       resident)
+                if res is None:
+                    if rows == 16:
+                        least = smem_bytes(hp, cluster, rows, resident or 0,
+                                           stages)
+                        refused.append(f"C={cluster}, {stages} stages: "
+                                       f"{least} B at 16 rows")
+                    continue
+                if stages > hp // 32 - res // 2:
+                    continue
+                active = max_clusters(hp, cluster, rows, res, stages)
+                if active < 1:
+                    refused.append(f"C={cluster}, R={rows}: the card runs no "
+                                   f"such cluster")
+                    continue
+                waves = -(-clusters // active)
+                step = step_us(hp, cluster, rows, res, stages)
+                key = (waves * step, cluster, clusters, stages)
+                if best is None or key < best[0]:
+                    best = (key, StreamPlan(
+                        hp, cluster, rows, res, stages, clusters, active,
+                        waves, smem_bytes(hp, cluster, rows, res, stages),
+                        step))
+    if best is None:
+        raise ValueError(f"no streamed plan for the {what} scan at H={hsz}, "
+                         f"{batch} rows: " + "; ".join(refused))
+    return best[1]
+
+
+def plan_stream_scan(hsz: int, batch: int,
+                     max_clusters: Callable[[int, int, int, int, int], int],
+                     resident: Optional[int] = None) -> StreamPlan:
+    """Kernels A-C's streamed plan for `batch` rows of a layer of hsz units
+    (plan_stream with their layout and step model)."""
+    return plan_stream("LSTM", hsz, batch, stream_smem_bytes, max_clusters,
+                       stream_step_us, resident)
+
+
+def card_stream(source: str, plan: Callable, device: torch.device,
+                hsz: int, batch: int, instance: Tuple[int, ...],
+                resident: Optional[int]) -> StreamPlan:
+    """`plan(hsz, batch, max_clusters, resident)` with the occupancy of
+    `source`'s streamed instance on `device` (`<source>_stream_max_clusters`
+    of csrc/<source>.cu)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return plan(hsz, batch, lambda h, c, r, res, stages: _max_clusters(
+        source, index, (*instance, res, stages), h, c, r,
+        f"{source}_stream_max_clusters"), resident)
+
+
+@functools.lru_cache(maxsize=None)
+def card_stream_plan(device: torch.device, hsz: int, batch: int,
+                     instance: Tuple[int, int, int] = (0, 0, 0),
+                     resident: Optional[int] = None) -> StreamPlan:
+    """The streamed plan kernels A-C launch with on `device` (a CUDA device)
+    for `batch` rows of a layer of hsz units; instance (out_f32, carry,
+    train) as card_scan_plan's flags."""
+    return card_stream("lstm_scan", plan_stream_scan, device, hsz, batch,
+                       instance, resident)
+
+
+def block_forward_step_us(hsz: int, blocks: int, n_gates: int,
+                          parts: Tuple[float, float, float]) -> float:
+    """Modelled time of one step of a wave of `blocks` blocks of a
+    single-block forward at H = hsz, from parts (step, fragment round,
+    megabyte) in microseconds: a step, each round of a warp's 8-unit groups
+    and 16-deep k-step (its dependent W_hh^T fragment loads from L2), or,
+    where more, each MB of W_hh^T that the wave's blocks read from L2."""
+    step_us, round_us, mb_us = parts
+    rounds = -(-hsz // 64) * (hsz // 16)
+    megabytes = blocks * n_gates * hsz * hsz * 2 / 1e6
+    return step_us + max(rounds * round_us, megabytes * mb_us)
+
+
+def plan_forward(what: str, hsz: int, batch: int, smem_bytes: SmemBytes,
+                 block_smem: Callable[[int], int],
+                 block_step: Callable[[int, int], float],
+                 stream_plan: Callable[[Optional[int]], StreamPlan],
+                 sms: int = H100_SMS) -> Tuple[int, str, Optional[StreamPlan]]:
+    """(H, entry suffix, streamed plan) of a forward scan for `batch` rows of
+    a layer of hsz units: the resident cluster ("", its plan appended at the
+    launch) at cluster_hidden's H where a cluster holds the layer's W_hh
+    slice; else the streamed cluster ("_stream", `stream_plan(None)`) or the
+    single block ("_block", H padded to 16, ceil(batch / 16) blocks of
+    block_smem(H) bytes, sm_blocks of them at once, block_step(H, blocks of
+    a wave) a step), whichever has the least waves x modelled step. Within
+    single_block_forwards() the single block, within streamed_forwards() the
+    streamed cluster (with its resident k-steps), at any H. The resident
+    cluster does the streamed cluster's work without the stream, and the
+    single block's modelled step is over 5x the resident cluster's at any
+    H that both hold, so where it fits it is not weighed."""
+    force = ("_block" if _single_block[0]
+             else "_stream" if _streamed else None)
+    if force is None:
+        hp = _cluster_fit(hsz, smem_bytes)
+        if hp is not None:
+            return hp, "", None
+    options, refused = [], []
+    if force != "_block":
+        try:
+            plan = stream_plan(_streamed[-1] if _streamed else None)
+            options.append((plan.waves * plan.step_us, 0,
+                            (plan.hidden, "_stream", plan)))
+        except ValueError as e:
+            refused.append(str(e))
+    hb = -(-hsz // _STEP_UNITS) * _STEP_UNITS
+    smem = block_smem(hb)
+    if force != "_stream":
+        if smem <= SMEM_LIMIT:
+            tiles = -(-batch // 16)
+            active = sm_blocks(smem, sms)
+            waves = -(-tiles // active)
+            options.append((waves * block_step(hb, min(tiles, active)), 1,
+                            (hb, "_block", None)))
+        else:
+            refused.append(f"the single block needs {smem} B of shared "
+                           f"memory, more than the {SMEM_LIMIT} B a block "
+                           f"may use")
+    if not options:
+        raise ValueError(f"no forward for the {what} scan at H={hsz}: "
+                         + "; ".join(refused))
+    return min(options, key=lambda o: o[:2])[2]
+
+
+_streamed: List[Optional[int]] = []   # set by streamed_forwards()
+
+
+@contextlib.contextmanager
+def streamed_forwards(resident_ksteps: Optional[int] = None):
+    """Within the block, the forward wrappers of both modules (kernels A-C
+    and the GRU forwards) take the streamed cluster at any H, with
+    `resident_ksteps` resident (an even number; None: the planner's): for
+    holding it against the resident cluster, which it equals bit for bit
+    where both run."""
+    _streamed.append(resident_ksteps)
+    try:
+        yield
+    finally:
+        _streamed.pop()
+
+
+def block_step_us(hsz: int, blocks: int) -> float:
+    """Modelled step of the LSTM single-block forward
+    (csrc/lstm_scan_block.cu; block_forward_step_us with its parts)."""
+    return block_forward_step_us(hsz, blocks, 4, _BLOCK_PARTS)
+
+
+def _forward_route(hsz: int, batch: int, device: torch.device,
+                   instance: Tuple[int, int, int] = (0, 0, 0)
+                   ) -> Tuple[int, str, Optional[StreamPlan]]:
+    """(H, entry suffix, streamed plan) of kernels A-C for `batch` rows of a
+    layer of hsz units on `device` (plan_forward with their layouts, step
+    models and the card's occupancy of the streamed instance; instance
+    (out_f32, carry, train)); raises when nothing fits."""
+    return plan_forward(
+        "LSTM", hsz, batch, scan_smem_bytes, block_smem_bytes, block_step_us,
+        lambda res: card_stream_plan(device, hsz, batch, instance, res),
+        _device_sms(device))
+
+
+def _device_sms(device: torch.device) -> int:
+    """The SMs of a CUDA device; H100_SMS for the CPU (the wrappers' kernel
+    branch on CPU tensors, as the tests take it)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return H100_SMS
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stream_weight(w_hh: torch.Tensor, hp: int, cluster: int) -> torch.Tensor:
+    """W_hh [H, n*H] -> the streamed entries' operand: zero-padded to hp
+    units, each CTA's W_hh^T slice (rows q*hp + k*U + u of the kernel weight,
+    U = hp / cluster) in MMA fragment order, k-pair after k-pair:
+    [cluster][hp/32][n][U/8][32 lanes][8] bf16 (lane (grp, tq) of unit group
+    g holds the B fragments (b0, b1) of k-steps 2p and 2p + 1 of row 8g +
+    grp: columns 32p + 16kk + 8half + 2tq + e in the order (kk, half, e), as
+    _fragment_rows)."""
+    wt = _kernel_weight(w_hh, hp)                      # [n*hp, hp]
+    n = wt.shape[0] // hp
+    units = hp // cluster
+    w = wt.reshape(n, cluster, units, hp).transpose(0, 1)   # [C][n][U][hp]
+    return w.reshape(cluster, n * units // 8, 8, hp // 32, 2, 2, 4, 2).permute(
+        0, 3, 1, 2, 6, 4, 5, 7).contiguous()
 
 
 def unrolled_smem_bytes(hsz: int, cluster: int, rows: int, k: int) -> int:
@@ -1219,7 +1589,8 @@ def card_chains_scan_plan(device: torch.device, hsz: int, batch: int,
 
 
 def _launch(fn_name: str, *args,
-            plan: Optional[Union[ScanPlan, BwdPlan]] = None) -> None:
+            plan: Optional[Union[ScanPlan, BwdPlan, StreamPlan]] = None
+            ) -> None:
     """Launch csrc entry `fn_name` (see _launch_kernel), of this module or
     of ops/gru.py (whose own _launch has appended any plan). Kernels A-C are
     cluster launches: their arguments end in (T, B, H, reverse), and
@@ -1230,7 +1601,9 @@ def _launch(fn_name: str, *args,
     card_chains_scan_plan's) and kernel E's
     (arguments ending in T, B, H, k; default card_unrolled_plan's) and
     kernel F's (ending in T, B, F, H, reverse; default card_layer_plan's
-    for the output type). Raises first, before any plan asks the card and
+    for the output type). The streamed variants of A-C take `plan` (the
+    StreamPlan the wrapper packed W_hh for; no default). Raises first,
+    before any plan asks the card and
     before anything is built, for a tensor off a 16-byte boundary: the
     wrappers hand every kernel aligned operands, and a misaligned read
     would end the CUDA context."""
@@ -1264,7 +1637,19 @@ def _launch(fn_name: str, *args,
                               torch.float32 if out_f32 else torch.bfloat16,
                               fn_name == "lstm_scan_fwd_carry", train)
         args = (*args, *plan.launch_args)
+    elif fn_name in _STREAM_ENTRIES:
+        args = (*args, *_stream_args(fn_name, plan, args[-2]))
     _launch_kernel(fn_name, *args)
+
+
+def _stream_args(fn_name: str, plan: Optional[StreamPlan],
+                 hsz: int) -> Tuple[int, ...]:
+    """A streamed entry's plan arguments; the wrappers hand the plan they
+    packed W_hh for, at the H it gives."""
+    if not isinstance(plan, StreamPlan) or plan.hidden != hsz:
+        raise ValueError(f"{fn_name} launches with the StreamPlan its "
+                         f"weight was packed for, at H={hsz}")
+    return plan.launch_args
 
 
 def _launch_kernel(fn_name: str, *args) -> None:
@@ -1345,13 +1730,25 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     if block_t != 1:
         return _scan_unrolled(gates, w_hh, block_t)
-    hp, route = _forward_route(hsz)
+    out_f32 = out_dtype == torch.float32
+    hp, route, plan = _forward_route(hsz, max(b, 1), gates.device,
+                                     (int(out_f32), 0, 0))
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     if t_len and b:
         _launch("lstm_scan_fwd" + route, _pad_gates(gates, 4, hp),
-                _kernel_weight(w_hh, hp), out, out_dtype == torch.float32,
-                t_len, b, hp, reverse)
+                _route_weight(w_hh, hp, plan), out, out_f32, t_len, b, hp,
+                reverse, plan=plan)
     return _unpad_units(out, hsz)
+
+
+def _route_weight(w_hh: torch.Tensor, hp: int,
+                  plan: Optional[StreamPlan]) -> torch.Tensor:
+    """The forward entries' W_hh operand at hp units (both modules): packed
+    for the streamed cluster of `plan`, else the kernel weight [n*hp,
+    hp]."""
+    if plan is None:
+        return _kernel_weight(w_hh, hp)
+    return _stream_weight(w_hh, hp, plan.cluster)
 
 
 def _scan_unrolled(gates: torch.Tensor, w_hh: torch.Tensor, block_t: int,
@@ -1409,19 +1806,22 @@ def lstm_scan_carry_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh, h0, c0):
         return lstm_scan_carry_reference_tm(gates, w_hh, h0, c0, reverse,
                                             out_dtype)
-    hp, route = _forward_route(hsz)
     _check_kernel_operand("gates_x", gates, torch.bfloat16)
     _check_kernel_operand("h0", h0, torch.float32)
     _check_kernel_operand("c0", c0, torch.float32)
     if not (t_len and b):
         return (torch.empty(t_len, b, hsz, dtype=out_dtype,
                             device=gates.device), h0.clone(), c0.clone())
+    out_f32 = out_dtype == torch.float32
+    hp, route, plan = _forward_route(hsz, b, gates.device,
+                                     (int(out_f32), 1, 0))
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=gates.device)
     h_t = torch.empty(b, hp, dtype=torch.float32, device=gates.device)
     c_t = torch.empty_like(h_t)
     _launch("lstm_scan_fwd_carry" + route, _pad_gates(gates, 4, hp),
-            _kernel_weight(w_hh, hp), _pad_units(h0, hp), _pad_units(c0, hp),
-            out, h_t, c_t, out_dtype == torch.float32, t_len, b, hp, reverse)
+            _route_weight(w_hh, hp, plan), _pad_units(h0, hp),
+            _pad_units(c0, hp), out, h_t, c_t, out_f32, t_len, b, hp, reverse,
+            plan=plan)
     return (_unpad_units(out, hsz), _unpad_units(h_t, hsz),
             _unpad_units(c_t, hsz))
 
@@ -1437,14 +1837,15 @@ def lstm_scan_train_tm(gates: torch.Tensor, w_hh: torch.Tensor,
     if not _is_cuda(gates, w_hh):
         return lstm_scan_train_reference_tm(gates.to(torch.bfloat16), w_hh,
                                             reverse)
-    hp, route = _forward_route(hsz)
     _check_kernel_operand("gates", gates, torch.bfloat16)
+    hp, route, plan = _forward_route(hsz, max(b, 1), gates.device, (0, 0, 1))
     h_seq = torch.empty(t_len, b, hp, dtype=torch.bfloat16,
                         device=gates.device)
     c_seq = torch.empty_like(h_seq)
     if t_len and b:
         _launch("lstm_scan_fwd_train" + route, _pad_gates(gates, 4, hp),
-                _kernel_weight(w_hh, hp), h_seq, c_seq, t_len, b, hp, reverse)
+                _route_weight(w_hh, hp, plan), h_seq, c_seq, t_len, b, hp,
+                reverse, plan=plan)
     return _unpad_units(h_seq, hsz), _unpad_units(c_seq, hsz)
 
 

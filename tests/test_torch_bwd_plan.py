@@ -20,6 +20,7 @@ import torch
 from generative_audio_torch.ops import _cuda
 from generative_audio_torch.ops import gru as tg
 from generative_audio_torch.ops import lstm as tl
+from torch_stream_stubs import stub_stream_plans
 
 torch.set_num_threads(2)
 KINDS = {"lstm": (tl, 4, "lstm_scan_bwd.cu"), "gru": (tg, 3, "gru_scan_bwd.cu")}
@@ -294,14 +295,23 @@ def test_cpu_branch_is_the_plain_version(kind):
 
 
 @pytest.mark.parametrize("module,hsz,route", [
-    (tl, 384, (384, "")), (tl, 512, (512, "")), (tl, 640, (640, "_block")),
-    (tl, 768, (768, "_block")), (tl, 1000, (1008, "_block")),
-    (tg, 640, (640, "")), (tg, 768, (768, "_block")),
-    (tg, 1024, (1024, "_block"))])
-def test_forward_route_by_hidden_size(module, hsz, route):
-    """The forwards take a cluster up to H=512 (LSTM) and 640 (GRU) and the
-    single-block entries above, at H padded to 16."""
-    assert module._forward_route(hsz) == route
+    (tl, 384, (384, "")), (tl, 512, (512, "")), (tl, 640, (640, "_stream")),
+    (tl, 768, (768, "_stream")), (tl, 1000, (1024, "_stream")),
+    (tg, 640, (640, "")), (tg, 768, (768, "_stream")),
+    (tg, 1024, (1024, "_stream"))])
+def test_forward_route_by_hidden_size(module, hsz, route, monkeypatch):
+    """The forwards take the resident cluster up to H=512 (LSTM) and 640
+    (GRU) and above the streamed cluster (at H padded to its units), whose
+    modelled time at 18 rows beats the single block's; within
+    single_block_forwards() the single block at H padded to 16."""
+    stub_stream_plans(monkeypatch)
+    cpu = torch.device("cpu")
+    hp, suffix, plan = module._forward_route(hsz, 18, cpu)
+    assert (hp, suffix) == route
+    assert (plan is None) == (suffix == "") and (not plan or plan.hidden == hp)
+    with tl.single_block_forwards():
+        assert module._forward_route(hsz, 18, cpu) == (
+            -(-hsz // 16) * 16, "_block", None)
 
 
 @pytest.mark.parametrize("module,source,hsz", [
@@ -350,4 +360,4 @@ def test_single_block_forwards_switch_the_route(entries):
         "lstm_scan_fwd_train_block"]
     for name, args in entries:            # ..., T, B, H = 32, reverse
         assert args[-3:] == (3, 32, 0)
-    assert tl._forward_route(24) == (64, "")
+    assert tl._forward_route(24, 3, torch.device("cpu")) == (64, "", None)

@@ -29,7 +29,8 @@ from generative_audio_tpu.ops import pallas_lstm as jl
 from generative_audio_torch.ops import gru as tg
 from generative_audio_torch.ops import lstm as tl
 from test_torch_lstm_backward import (BACKWARD_UNITS, FORWARD_UNITS, fill,
-                                      real_units, real_weight, strip)
+                                      real_units, real_weight, strip,
+                                      stub_stream_plans, unstream)
 
 torch.set_num_threads(2)
 H_ATOL = 5e-3
@@ -249,11 +250,14 @@ def fake_launch(fn_name, *args, plan=None):
     tests/test_torch_lstm_backward.py's fake does; the contraction, whose
     padded rows and columns come out zero, computes on what it is given. The
     single-block forwards ("_block") take the cluster entries' arguments at
-    H padded to whole k-steps."""
+    H padded to whole k-steps, the streamed ones ("_stream") with W_hh^T
+    packed for their plan."""
     tl.launch_counts[fn_name] += 1
     units = FORWARD_UNITS
     if fn_name.endswith("_block"):
         fn_name, units = fn_name[:-len("_block")], BACKWARD_UNITS
+    elif fn_name.endswith("_stream"):
+        fn_name, args, units = unstream(fn_name, args, plan, 3)
     if fn_name == "gru_scan_fwd":
         gates, wt, bhh, out, _, _, _, _, reverse = args
         h = real_units(wt, 3, units)
@@ -301,10 +305,12 @@ GRU_KERNELS = ("gru_scan_fwd", "gru_scan_fwd_carry", "gru_scan_bwd",
 
 @pytest.fixture
 def launches(monkeypatch):
-    """The CUDA branch of the wrappers on CPU tensors, with fake_launch."""
+    """The CUDA branch of the wrappers on CPU tensors, with fake_launch and
+    the streamed forwards' plans from a stub occupancy."""
     monkeypatch.setattr(tg, "_is_cuda", lambda *tensors: True)
     monkeypatch.setattr(tg, "_launch", fake_launch)
     monkeypatch.setattr(tl, "launch_counts", dict.fromkeys(tl.launch_counts, 0))
+    stub_stream_plans(monkeypatch)
     return tl.launch_counts
 
 
@@ -394,11 +400,12 @@ def test_kernel_operands_are_checked(launches):
                              torch.zeros(2, 16, dtype=torch.bfloat16))
     assert not any(launches.values())
     # no cluster of 16 holds the W_hh slice of H = 1024 in shared memory, so
-    # the forward takes the single-block route, as the JAX kernels take any H
+    # the forward takes the streamed cluster (part of the slice from L2 at
+    # every step), as the JAX kernels take any H
     gx, whh, bhh = _operands(2, 1, 1024, seed=96)
     big, whh, bhh = _bf16(gx), torch.from_numpy(whh), torch.from_numpy(bhh)
     got = tg.gru_scan_tm(big, whh, bhh)
-    assert launches == {**dict.fromkeys(launches, 0), "gru_scan_fwd_block": 1}
+    assert launches == {**dict.fromkeys(launches, 0), "gru_scan_fwd_stream": 1}
     assert torch.equal(got, tg.gru_scan_reference_tm(big, whh, bhh).to(
         torch.bfloat16))
 

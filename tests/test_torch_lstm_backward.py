@@ -25,6 +25,7 @@ import torch
 
 from generative_audio_tpu.ops import pallas_lstm as jl
 from generative_audio_torch.ops import lstm as tl
+from torch_stream_stubs import stub_stream_plans, unstream
 
 torch.set_num_threads(2)
 BF16 = dict(atol=1e-2, rtol=1e-2)
@@ -198,8 +199,10 @@ def strip(x, hsz, n=1):
 
 
 def real_weight(wt, hsz, n):
-    """W_hh [hsz, n*hsz] from the kernel operand W_hh^T [n*hp, hp]."""
-    return strip(wt.t()[:hsz], hsz, n)
+    """W_hh [hsz, n*hsz] from the kernel operand W_hh^T [n*hp, hp],
+    contiguous as the CPU branch's weight: the CPU's matmul may sum a
+    strided operand in another order."""
+    return strip(wt.t()[:hsz], hsz, n).contiguous()
 
 
 def fill(buf, value, n=1):
@@ -216,11 +219,15 @@ def fake_launch(fn_name, *args, plan=None):
     the launch as _launch does. It checks the zero padding of H the wrapper
     handed the kernel and computes on the real units, as the kernel's zero
     units leave them unchanged. The single-block forwards ("_block") take
-    the cluster entries' arguments at H padded to whole k-steps."""
+    the cluster entries' arguments at H padded to whole k-steps; the
+    streamed ones ("_stream") the cluster entries' with W_hh^T packed for
+    their plan (`plan=`), at H padded to stream_hidden's units."""
     tl.launch_counts[fn_name] += 1
     units = FORWARD_UNITS
     if fn_name.endswith("_block"):
         fn_name, units = fn_name[:-len("_block")], BACKWARD_UNITS
+    elif fn_name.endswith("_stream"):
+        fn_name, args, units = unstream(fn_name, args, plan, 4)
     if fn_name == "lstm_scan_fwd":
         gates, wt, out, _, _, _, _, reverse = args
         h = real_units(wt, 4, units)
@@ -254,10 +261,12 @@ def fake_launch(fn_name, *args, plan=None):
 
 @pytest.fixture
 def launches(monkeypatch):
-    """The CUDA branch of the wrappers on CPU tensors, with fake_launch."""
+    """The CUDA branch of the wrappers on CPU tensors, with fake_launch and
+    the streamed forwards' plans from stub_occupancy."""
     monkeypatch.setattr(tl, "_is_cuda", lambda *tensors: True)
     monkeypatch.setattr(tl, "_launch", fake_launch)
     monkeypatch.setattr(tl, "launch_counts", dict.fromkeys(tl.launch_counts, 0))
+    stub_stream_plans(monkeypatch)
     return tl.launch_counts
 
 
@@ -312,13 +321,13 @@ def test_kernel_operands_are_checked(launches):
         tl.lstm_scan_bwd_tm(gates, state, state[:2], state, whh)
     assert not any(launches.values())
     # no cluster of 16 holds the W_hh slice of H = 1024 in shared memory, so
-    # the training forward takes the single-block route, as the JAX kernels
-    # take any H
+    # the training forward takes the streamed cluster (part of the slice
+    # from L2 at every step), as the JAX kernels take any H
     big = _bf16(_rand((2, 1, 4 * 1024), seed=46))
     w_big = torch.from_numpy(_rand((1024, 4 * 1024), seed=47, scale=0.02))
     got = tl.lstm_scan_train_tm(big, w_big)
     assert launches == {**dict.fromkeys(launches, 0),
-                        "lstm_scan_fwd_train_block": 1}
+                        "lstm_scan_fwd_train_stream": 1}
     want = tl.lstm_scan_train_reference_tm(big, w_big)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -235,17 +235,29 @@ def test_sources_match_their_declared_signatures():
     entries = {**_cuda._SIGNATURES["lstm_scan"],
                **_cuda._QUERIES["lstm_scan"]}
     assert set(entries) == {"lstm_scan_fwd", "lstm_scan_fwd_carry",
-                            "lstm_scan_fwd_train", "lstm_scan_max_clusters"}
+                            "lstm_scan_fwd_train", "lstm_scan_max_clusters",
+                            "lstm_scan_fwd_stream",
+                            "lstm_scan_fwd_carry_stream",
+                            "lstm_scan_fwd_train_stream",
+                            "lstm_scan_stream_max_clusters"}
     for name, argtypes in entries.items():
         params = re.search(rf"\bint {name}\(([^)]*)\)", text).group(1)
         names = [p.split()[-1].lstrip("*") for p in params.split(",")]
         assert len(names) == len(argtypes), name
-        if name != "lstm_scan_max_clusters":
+        if name.endswith("_stream"):
+            assert names[-6:] == ["cluster", "rows", "resident", "stages",
+                                  "smem_bytes", "stream"]
+        elif not name.endswith("_max_clusters"):
             assert names[-4:] == ["cluster", "rows", "smem_bytes", "stream"]
     query = re.search(r"\bint lstm_scan_max_clusters\(([^)]*)\)", text)
     assert " ".join(query.group(1).split()) == (
         "int out_f32, int carry, int train, int H, int cluster, int rows, "
         "int* n")
+    query = re.search(r"\bint lstm_scan_stream_max_clusters\(([^)]*)\)",
+                      text)
+    assert " ".join(query.group(1).split()) == (
+        "int out_f32, int carry, int train, int resident, int stages, int H, "
+        "int cluster, int rows, int* n")
     body = re.search(r"size_t cluster_smem\(int H, int C, int R\) \{(.*?)\}",
                      text, re.S).group(1)
     assert "(4 * U + 2 * r) * hs * 2 + r * U * 4 + 2 * r * 4 * U * 2" in body

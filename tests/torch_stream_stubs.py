@@ -1,0 +1,47 @@
+"""Stand-ins for the card around the streamed cluster forwards, for the
+CPU tests that take the wrappers' CUDA branch on CPU tensors: a stub
+occupancy in place of the card's, and the unpacking of the streamed
+entries' W_hh operand for the fake launches. No JAX."""
+from generative_audio_torch.ops import lstm as tl
+
+
+def stub_occupancy(hsz, cluster, rows, resident, stages):
+    """Clusters an H100 runs at once, as a stand-in for the card's
+    cudaOccupancyMaxActiveClusters of a streamed forward: one CTA an SM."""
+    return 8 if cluster == 16 else 16
+
+
+def stub_stream_plans(monkeypatch):
+    """The streamed forwards' plans of both modules from stub_occupancy, in
+    place of the card's (card_stream_plan), for the wrappers' CUDA branch on
+    CPU tensors."""
+    from generative_audio_torch.ops import gru as tg
+    for module in (tl, tg):
+        monkeypatch.setattr(
+            module, "card_stream_plan",
+            lambda device, hsz, batch, instance=None, resident=None,
+            module=module: module.plan_stream_scan(hsz, batch,
+                                                   stub_occupancy, resident))
+
+
+def stream_weight_rows(wf, plan, n_gates):
+    """The kernel weight W_hh^T [n*hp, hp] from a streamed entry's operand
+    (ops/lstm.py _stream_weight undone), after checking its shape against
+    the plan it was packed for."""
+    hp, cluster = plan.hidden, plan.cluster
+    units = hp // cluster
+    assert tuple(wf.shape) == (cluster, hp // 32, n_gates * units // 8, 8, 4,
+                               2, 2, 2)
+    w = wf.permute(0, 2, 3, 1, 5, 6, 4, 7).reshape(cluster, n_gates, units, hp)
+    return w.transpose(0, 1).reshape(n_gates * hp, hp)
+
+
+def unstream(fn_name, args, plan, n_gates):
+    """(entry, arguments, units) of a streamed entry's launch as the cluster
+    entry's: W_hh^T unpacked, after checking the plan against the H the
+    wrapper passed (its arguments end in ..., B, H, reverse), and H padded
+    to stream_hidden's units."""
+    assert isinstance(plan, tl.StreamPlan) and plan.hidden == args[-2]
+    wt = stream_weight_rows(args[1], plan, n_gates)
+    return (fn_name[:-len("_stream")], (args[0], wt, *args[2:]),
+            tl.stream_hidden(1, plan.cluster))
