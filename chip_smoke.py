@@ -58,10 +58,9 @@ of which fails the run (non-zero exit, no result line):
      the clusters bit for bit at LSTM H=512 and GRU H=640, every such
      wrapper at LSTM H=640 and 768 (lstm_layer_tm's lstm_layer_fwd_block
      among them) and GRU H=768 against its plain version, and each scan
-     entry's time at H=768; then phase 23; then LSTMScan at H=768 and 1024
-     (kernel C's streamed cluster, kernel D's single block, dc in
-     registers) against autograd through the float32 recurrence, and
-     kernel D's single block at H=1024 timed beside cuDNN's backward;
+     entry's time at H=768; then phases 23 and 24; then LSTMScan at H=768
+     and 1024 (kernels C's and D's streamed clusters) against autograd
+     through the float32 recurrence;
   9. the GRU forward and carry kernels against their plain versions at the
      sub-band serving shape (T=628, H=384, 2056 rows and a ragged count) and
      the full-band shape (H=512, 8 rows and 1 row), chunked against unchunked
@@ -319,8 +318,26 @@ of which fails the run (non-zero exit, no result line):
      with exact launches, a 10 s request, a 30 s request under a lowered
      gates limit (the carry entries; against the unchunked request) and
      one bf16 EnhanceTrainer step of 4 x 1 s (its loss against the CPU's
-     float32 loss). Their launches are the streamed entries' in the
-     kernels line.
+     float32 loss; its backwards through phase 24's streamed backwards).
+     Their launches are the streamed entries' in the kernels line.
+ 24. (run after phase 23) the streamed cluster backwards
+     (csrc/scan_bwd_stream.cu, lstm_scan_bwd_stream and
+     gru_scan_bwd_stream: both W_hh operands streamed from L2 through a
+     ring each, the dgates tile whole or each CTA's slice read in place),
+     the route of kernel D and the GRU backward scan above H=512 where
+     their model beats the single block's: each bit for bit against the
+     single block at LSTM H=640, 768, 1024 and GRU H=640, 1024, 1072
+     (forward-reversed and not) and against the resident cluster under
+     forced streamed plans at H=384 and 512; against its plain version at
+     H=1536 and 2304; timed at H=1024 x 18, 768 x 2304 and 2304 x 18 rows
+     (T=195) beside the single block where it holds H (in turns), the
+     bound, the plain version and cuDNN's backward, failing where the plan
+     takes the streamed cluster and it is not the faster; then one bf16
+     EnhanceTrainer step of 4 x 1 s of a FullSubNet+ with a 1536-unit
+     sub-band LSTM (no single block trains it) with exact launches, its
+     loss against the CPU's float32. Their launches, and those of phase
+     23's training steps, are the streamed backwards' in the kernels
+     line.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -331,7 +348,8 @@ phase 20 around each DDP step and each cli.train run (whose launches add to
 kernels C's and D's) and of phase 21 around each step (C's and D's, and the
 GRU kernels'), and around each part of phase 22 and in its ranks (A's, B's,
 C's, D's and the GRU kernels'), and around each request and step of
-phase 23's model paths (the streamed entries'). The second-to-last line of stdout is
+phase 23's model paths (the streamed entries') and phase 24's training
+step (the streamed backwards'). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
 20, `--phase21 PART OUT` one of phase 21, `--phase22 graft OUT` one of
@@ -506,7 +524,7 @@ def phase_build():
     return {**_cluster_registers(reports.get("lstm_scan", "")),
             **_bwd_registers(reports), **_staged_registers(reports),
             **_chains_registers(reports.get("lstm_scan_bwd_chains", "")),
-            **_stream_registers(reports)}
+            **_stream_registers(reports), **_bwd_stream_registers(reports)}
 
 
 def _cluster_registers(report):
@@ -939,18 +957,18 @@ def _lstm_scan_grads_vs_float32(L, gates, w_hh, gout, reverse, tag):
 
 
 def phase_lstm_train_large(dev):
-    """LSTMScan (kernel C's streamed cluster and kernel D's single block)
-    at H=768 and 1024, which no resident cluster holds (kernel D's single
-    block keeps dc in registers,
-    so it holds H up to 1024): both gradients against autograd through the
-    float32 recurrence, forward and reverse, with the launches counted
-    around it; and kernel D's single block at H=1024 against its plain
-    version and timed."""
+    """LSTMScan (kernel C's and kernel D's streamed clusters) at H=768 and
+    1024, which no resident cluster holds: both gradients against autograd
+    through the float32 recurrence, forward and reverse, with the launches
+    counted around it. (Kernel D's single block at H=1024 is timed beside
+    the streamed cluster in phase 24.)"""
     from generative_audio_torch.ops import lstm as L
     gen = torch.Generator(device=dev).manual_seed(SEED + 24)
     t_len, rows = T_CHUNK, 40
     L.reset_launch_counts()
     for h in (BLOCK_HIDDEN[-1], 1024):
+        check(L.card_bwd_scan_plan(dev, h, rows).design == "stream",
+              f"kernel D at H={h} takes its streamed cluster")
         w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
         for reverse in (False, True):
             gates = torch.randn(t_len, rows, 4 * h, generator=gen,
@@ -962,34 +980,10 @@ def phase_lstm_train_large(dev):
                 f"H={h} T={t_len} rows={rows} reverse={reverse}")
     launches = {k: n for k, n in L.launch_counts.items() if n}
     log(f"launches of LSTMScan at H=768 and 1024: {launches}")
-    check(launches == {"lstm_scan_fwd_train_stream": 4, "lstm_scan_bwd": 4},
-          "LSTMScan at H=768 and 1024 runs kernel C's streamed cluster and "
-          "kernel D's single block once a gradient")
-    h, t_len, rows = 1024, TRAIN_T, TRAIN_BATCH
-    plan = L.card_bwd_scan_plan(dev, h, rows)
-    check(plan.design == "block", f"kernel D at H={h} takes its single block")
-    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
-    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
-                        device=dev).to(torch.bfloat16)
-    gout = torch.randn(t_len, rows, h, generator=gen,
-                       device=dev).to(torch.bfloat16)
-    h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh)
-    dg = L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh)
-    want = L.lstm_scan_bwd_reference_tm(gates, h_seq, c_seq, gout, w_hh)
-    err = (dg.float() - want.float()).abs()
-    peak = want.float().abs().max().item()
-    check(err.max().item() < BWD_MAX_REL * peak
-          and err.mean().item() < BWD_MEAN_REL * peak,
-          f"kernel D's single block vs plain at H={h}")
-    ms = cuda_ms(lambda: L.lstm_scan_bwd_tm(gates, h_seq, c_seq, gout, w_hh),
-                 iters=3)
-    lib_fwd, lib_both = library_lstm_train_ms(gates, w_hh, gout)
-    log(f"kernel D's single block at T={t_len} rows={rows} H={h}: {ms:.3f} ms "
-        f"({plan.smem_bytes} B a block, dc in registers); max|err| "
-        f"{err.max().item():.3e} mean {err.mean().item():.3e} (peak "
-        f"{peak:.3f}); cuDNN LSTM's backward {lib_both - lib_fwd:.3f} ms "
-        f"(training-mode forward {lib_fwd:.3f} ms, both {lib_both:.3f} ms) "
-        f"on {card_line()}")
+    check(launches == {"lstm_scan_fwd_train_stream": 4,
+                       "lstm_scan_bwd_stream": 4},
+          "LSTMScan at H=768 and 1024 runs kernel C's and kernel D's "
+          "streamed clusters once a gradient")
 
 
 def phase_lstm_h512(dev, registers):
@@ -1622,7 +1616,7 @@ def _time_entries(dev, L, M, calls, libs, instances, bounds, t_len, rows, h,
                   f"block ({ms:.3f} against {ms_block:.3f} ms)")
         out[name] = dict(max_abs_err=max_err, ms=ms, single_block_ms=ms_block,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                         library_ms=libs[name], route=route,
+                         library_ms=libs[name], scan_route=route,
                          plan=dataclasses.asdict(plan))
     return out
 
@@ -1647,7 +1641,7 @@ def stream_model_paths():
             model=M.FullSubNetPlusConfig(
                 sb_model_hidden_size=STREAM_SB_HIDDEN,
                 num_groups_in_drop_band=2), compute_dtype=dtype),
-        per_step={"lstm_scan_fwd_train_stream": 2, "lstm_scan_bwd": 2})
+        per_step={"lstm_scan_fwd_train_stream": 2, "lstm_scan_bwd_stream": 2})
     gru_cfg = M.FullSubNetConfig(sequence_model="GRU",
                                  fb_model_hidden_size=STREAM_FB_HIDDEN,
                                  num_groups_in_drop_band=1)
@@ -1665,7 +1659,8 @@ def stream_model_paths():
                                         fb_model_hidden_size=STREAM_FB_HIDDEN),
             compute_dtype=dtype),
         per_step={"gru_scan_fwd_stream": 2, "gru_scan_fwd": 2,
-                  "gru_scan_bwd": 4, "gru_scan_bwd_dwhh": 4})
+                  "gru_scan_bwd_stream": 2, "gru_scan_bwd": 2,
+                  "gru_scan_bwd_dwhh": 4})
     return plus, gru
 
 
@@ -1674,12 +1669,9 @@ def _stream_path(dev, path, counts, gates_limit, serve_extra):
     against the float32 model on the CPU), then, with the counts set to 0
     around each, a 10 s request, a 30 s request under `gates_limit`
     (chunked; against the unchunked request on the card) and one bf16
-    training step through EnhanceTrainer (its loss against the float32
-    model's on the CPU), each with its exact launches. Returns the
-    launches of the three."""
+    training step through EnhanceTrainer (_stream_step), each with its
+    exact launches. Returns the launches of the three."""
     from generative_audio_torch.ops import lstm as L
-    from generative_audio_torch.train import (
-        EnhanceTrainer, enhance_loss_fn, init_enhance_state)
     model = path.model(torch.bfloat16, dev)
     phase_reference(dev, path, model)
     total = dict.fromkeys(counts, 0)
@@ -1724,29 +1716,51 @@ def _stream_path(dev, path, counts, gates_limit, serve_extra):
     check(np.isfinite(long_out).all() and rel < PATH_REL,
           f"{path.name}: {STREAM_LONG_SECONDS} s chunked vs unchunked within "
           f"{PATH_REL}")
+    for k, n in _stream_step(dev, path, counts).items():
+        total[k] += n
+    log(f"{path.name}: {STREAM_REQUEST_SECONDS} s request {wall:.2f} ms (rtf "
+        f"{inf.last_rtf:.5f}); {STREAM_LONG_SECONDS} s under a "
+        f"{gates_limit / 2 ** 20:g} MiB gates limit, chunked vs "
+        f"unchunked max|err|/peak {rel:.3e}; launches "
+        f"{dict((k, n) for k, n in total.items() if n)} on {card_line()}")
+    return total
+
+
+def _stream_step(dev, path, counts):
+    """One bf16 EnhanceTrainer step of STREAM_STEP_BATCH x 1 s on `path`
+    with the counts set to 0 around it, its launches exactly the path's
+    per_step, its loss against the float32 model's on the CPU. Returns the
+    step's launches."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import (
+        EnhanceTrainer, enhance_loss_fn, init_enhance_state)
     noisy_b, clean_b = (torch.from_numpy(x) for x in _noise_batch(
         SEED + 34, STREAM_STEP_BATCH, STREAM_STEP_SAMPLES))
     trainer = EnhanceTrainer(path.train_config("bfloat16"), seed=SEED,
                              pretrained_state_dict=path.sd, device=dev)
-    loss = counted("training step", lambda: trainer.train_epoch(
-        [(noisy_b.to(dev), clean_b.to(dev))]), path.per_step)
+    L.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = trainer.train_epoch([(noisy_b.to(dev), clean_b.to(dev))])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = {k: n for k, n in counts.items() if n}
+    check(launched == path.per_step, f"{path.name} training step launched "
+          f"{path.per_step} (got {launched})")
+    del trainer
     cfg = path.train_config("float32")
     state = init_enhance_state(cfg, SEED, "cpu")
     state.model.load_state_dict(path.sd)
     with torch.no_grad():
         want = enhance_loss_fn(state.model, noisy_b, clean_b, cfg).item()
+    del state
     loss_rel = abs(loss - want) / abs(want)
-    log(f"{path.name}: {STREAM_REQUEST_SECONDS} s request {wall:.2f} ms (rtf "
-        f"{inf.last_rtf:.5f}); {STREAM_LONG_SECONDS} s under a "
-        f"{gates_limit / 2 ** 20:g} MiB gates limit, chunked vs "
-        f"unchunked max|err|/peak {rel:.3e}; a bf16 step of "
-        f"{STREAM_STEP_BATCH} x {STREAM_STEP_SAMPLES / 16000:.0f} s: loss "
-        f"{loss:.6f} against the CPU's float32 {want:.6f} (rel "
-        f"{loss_rel:.3e}); launches {dict((k, n) for k, n in total.items() if n)}"
-        f" on {card_line()}")
+    log(f"{path.name}: a bf16 step of {STREAM_STEP_BATCH} x "
+        f"{STREAM_STEP_SAMPLES / 16000:.0f} s in {wall:.1f} ms (the first, "
+        f"plans and packing included): loss {loss:.6f} against the CPU's "
+        f"float32 {want:.6f} (rel {loss_rel:.3e}); launches {launched}")
     check(np.isfinite(loss) and loss_rel < TRAIN_LOSS_REL,
           f"{path.name}: bf16 step loss vs float32 within {TRAIN_LOSS_REL}")
-    return total
+    return launched
 
 
 def phase_streamed_forwards(dev, registers):
@@ -1759,9 +1773,11 @@ def phase_streamed_forwards(dev, registers):
     version and cuDNN, the streamed route the faster wherever the plan
     takes it; (c) the model paths: FullSubNet+ with a 768-unit sub-band
     LSTM and v1-GRU with a 1024-unit full-band GRU, each a 10 s request, a
-    chunked 30 s request and a training step with exact launches, card
-    against CPU. Returns the entries' numbers (the 18-row shape; the
-    2056-row one under "sub_band") and their launches on (c)'s paths."""
+    chunked 30 s request and a training step with exact launches (its
+    backward through phase 24's streamed backwards), card against CPU.
+    Returns the entries' numbers (the 18-row shape; the 2056-row one under
+    "sub_band") and the launches of the streamed forwards and backwards on
+    (c)'s paths."""
     from generative_audio_torch.ops import gru as G
     from generative_audio_torch.ops import lstm as L
     t0 = time.perf_counter()
@@ -1785,12 +1801,303 @@ def phase_streamed_forwards(dev, registers):
                                  extra).items():
             launches[k] += n
     launches = {k: launches[k] for k in (*STREAM_ENTRIES["lstm"],
-                                         *STREAM_ENTRIES["gru"])}
+                                         *STREAM_ENTRIES["gru"],
+                                         *BWD_STREAM_ENTRIES.values())}
     log(f"launches of the streamed entries on their model paths: {launches}; "
         f"phase 23 {time.perf_counter() - t0:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} launched on its model path")
     return kernels, launches
+
+
+# Phase 24: the streamed cluster backwards (csrc/scan_bwd_stream.cu,
+# lstm_scan_bwd_stream and gru_scan_bwd_stream), the route of kernel D and
+# of the GRU backward scan above H=512 where the streamed cluster's modelled
+# waves x step beat the single block's, and the only one above the single
+# blocks' H (LSTM 1024, GRU 1072).
+BWD_STREAM_ENTRIES = {"lstm": "lstm_scan_bwd_stream",
+                      "gru": "gru_scan_bwd_stream"}
+BWD_STREAM_BLOCK_H = {"lstm": (640, 768, 1024), "gru": (640, 1024, 1072)}
+BWD_STREAM_FORCED_H = (384, 512)
+BWD_STREAM_PLAIN_H = (1536, 2304)
+# (H, rows) of the timings at T=TRAIN_T: the single block's widest kernel-D
+# shape, a 768-unit sub-band LSTM's training batch, the forwards' limit
+BWD_STREAM_TIMED = ((1024, TRAIN_BATCH), (768, TRAIN_ROWS),
+                    (2304, TRAIN_BATCH))
+BWD_STREAM_TIMED_KEYS = ("", "sub_band", "h2304")
+# the FullSubNet+ whose sub-band LSTM no single block trains
+BWD_STREAM_SB_HIDDEN = 1536
+
+
+def _bwd_stream_registers(reports):
+    """{"bwd stream D tile": "... registers, ... spilled", ...} for the
+    instances bwd_stream_kernel<NG, TILE> of csrc/scan_bwd_stream.cu, from
+    ptxas's report."""
+    found, name, spill = {}, None, ""
+    for line in reports.get("scan_bwd_stream", "").splitlines():
+        if "Compiling entry function" in line:
+            name, spill = None, ""
+            m = re.search(r"bwd_stream_kernelILi([34])ELb([01])E", line)
+            if m:
+                kind = "D" if m.group(1) == "4" else "GRU backward"
+                name = (f"bwd stream {kind} "
+                        f"{'tile' if m.group(2) == '1' else 'slices'}")
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
+    return found
+
+
+def _bwd_counted(L, entry, fn):
+    """fn()'s result, after checking that it launched `entry` once and
+    nothing else."""
+    before = dict(L.launch_counts)
+    out = fn()
+    torch.cuda.synchronize()
+    launched = _launched(L.launch_counts, before)
+    check(launched == {entry: 1}, f"{entry} launched once (got {launched})")
+    return out
+
+
+def _bwd_stream_identities(dev):
+    """Each streamed backward, forward-reversed and not, at T_CHUNK x 40
+    rows: the wrapper's route (the streamed cluster) bit for bit against the
+    single block at BWD_STREAM_BLOCK_H; and, at BWD_STREAM_FORCED_H, the
+    resident cluster (the route there) against forced streamed plans: the
+    planner's, with no slot resident, and with the dgates tile held the
+    other way. The GRU's dgx, dhn and every db_hh partial."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_bwd_scan as PB
+    t_len, rows = T_CHUNK, 40
+    for kind, M in (("lstm", L), ("gru", G)):
+        entry = BWD_STREAM_ENTRIES[kind]
+        for h in (*BWD_STREAM_BLOCK_H[kind], *BWD_STREAM_FORCED_H):
+            inputs = PB._INPUTS[kind](t_len, rows, h, dev, seed=SEED + 40 + h)
+            route = M.card_bwd_scan_plan(dev, h, rows)
+            if h in BWD_STREAM_FORCED_H:
+                check(route.design == "cluster", f"the {kind} backward at H={h} "
+                      f"takes the resident cluster")
+                ref, name = route, "the resident cluster"
+                p = M.card_bwd_stream_plan(dev, h, rows)
+                streamed = [p, M.card_bwd_stream_plan(dev, h, rows, 0),
+                            PB.stream_plan(kind, h, rows, p.cluster, p.rows,
+                                           None, p.stages, not p.tile, dev)]
+            else:
+                check(route.design == "stream", f"the {kind} backward at H={h} "
+                      f"takes the streamed cluster (got {_describe_bwd(route)})")
+                ref, name = _block_bwd_plan(M, dev, h, rows), "the single block"
+                streamed = [route]
+            n = 0
+            for reverse in (False, True):
+                want = PB.run(kind, inputs, ref, reverse)
+                for plan in streamed:
+                    if plan is None:
+                        continue
+                    got = _bwd_counted(L, entry, lambda: PB.run(
+                        kind, inputs, plan, reverse))
+                    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                          f"{entry} == {name} bitwise (H={h}, reverse="
+                          f"{reverse}, {_describe_bwd(plan)})")
+                    n += 1
+            log(f"{entry} == {name} bitwise at H={h} T={t_len} rows={rows}: "
+                f"{n} calls (forward-reversed and not; "
+                f"{'; '.join(_describe_bwd(p) for p in streamed if p)})")
+            del inputs
+
+
+def _bwd_stream_vs_plain(dev):
+    """Each streamed backward, the route above the single blocks' H,
+    against its plain version within the backward limits at
+    BWD_STREAM_PLAIN_H (T=16, 18 rows; the GRU's db_hh within BWD_DW_REL
+    of the norm)."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_bwd_scan as PB
+    t_len, rows = 16, TRAIN_BATCH
+    for kind, M in (("lstm", L), ("gru", G)):
+        entry = BWD_STREAM_ENTRIES[kind]
+        for h in BWD_STREAM_PLAIN_H:
+            inputs = PB._INPUTS[kind](t_len, rows, h, dev, seed=SEED + 50 + h)
+            plan = M.card_bwd_scan_plan(dev, h, rows)
+            check(plan.design == "stream", f"the {kind} backward at H={h} "
+                  f"takes the streamed cluster")
+            if kind == "lstm":
+                got = (_bwd_counted(L, entry,
+                                    lambda: L.lstm_scan_bwd_tm(*inputs)),)
+                want = (L.lstm_scan_bwd_reference_tm(*inputs),)
+            else:
+                got = _bwd_counted(L, entry,
+                                   lambda: G.gru_scan_bwd_streams_tm(*inputs))
+                want = G.gru_scan_bwd_streams_reference_tm(*inputs)
+            errs = []
+            for x, y in zip(got[:2], want[:2]):
+                err = (x.float() - y.float()).abs()
+                peak = y.float().abs().max().item()
+                errs.append(err.max().item() / peak)
+                check(torch.isfinite(x.float()).all().item()
+                      and err.max().item() < BWD_MAX_REL * peak
+                      and err.mean().item() < BWD_MEAN_REL * peak,
+                      f"{entry} vs plain within {BWD_MAX_REL}/{BWD_MEAN_REL} "
+                      f"of the peak at H={h}")
+            rel_b = _rel_norm(got[2], want[2]) if kind == "gru" else 0.0
+            check(rel_b < BWD_DW_REL, f"{entry} db_hh vs plain within "
+                  f"{BWD_DW_REL} at H={h}")
+            log(f"{entry} vs plain at H={h} T={t_len} rows={rows}: max|err|/"
+                f"peak {', '.join(f'{e:.3e}' for e in errs)}"
+                f"{f'; db_hh {rel_b:.3e} of the norm' if kind == 'gru' else ''}"
+                f"; {_describe_bwd(plan)}")
+            del inputs, got, want
+
+
+def _bwd_stream_times(dev, card):
+    """Each streamed backward at BWD_STREAM_TIMED (T=TRAIN_T) against its
+    plain version within the backward limits, timed beside the single block
+    where it holds H (in turns: stream, block, block, stream), the bound,
+    the plain version and cuDNN's backward, with the plan and its modelled
+    step; fails where the plan takes the streamed cluster and it is not the
+    faster. Returns each entry's numbers by shape."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_bwd_scan as PB
+    out = {entry: {} for entry in BWD_STREAM_ENTRIES.values()}
+    t_len = TRAIN_T
+    for kind, M in (("lstm", L), ("gru", G)):
+        entry = BWD_STREAM_ENTRIES[kind]
+        for (h, rows), key in zip(BWD_STREAM_TIMED, BWD_STREAM_TIMED_KEYS):
+            inputs = PB._INPUTS[kind](t_len, rows, h, dev, seed=SEED + 60 + h)
+            plan = M.card_bwd_scan_plan(dev, h, rows)
+            # the single blocks hold H up to 1024 (kernel D's dc in
+            # registers) and 1072 (the GRU's shared memory)
+            holds = (L.bwd_smem_bytes(h) if kind == "lstm"
+                     else G.bwd_block_smem_bytes(h)) <= L.SMEM_LIMIT and (
+                kind == "gru" or h <= 1024)
+            block = _block_bwd_plan(M, dev, h, rows) if holds else None
+            if kind == "lstm":
+                def timed():
+                    return L.lstm_scan_bwd_tm(*inputs)
+
+                def plain():
+                    return L.lstm_scan_bwd_reference_tm(*inputs)
+
+                gates, _, _, gout, w_hh = inputs
+                lib_f, lib_b = library_lstm_train_ms(gates, w_hh, gout)
+                b_ms, by = bound(t_len, rows, h, streams=11, products=2)
+            else:
+                def timed():
+                    return G.gru_scan_bwd_streams_tm(*inputs)
+
+                def plain():
+                    return G.gru_scan_bwd_streams_reference_tm(*inputs)
+
+                gates, _, gout, w_hh, b_hh = inputs
+                lib_f, lib_b = library_gru_train_ms(gates, w_hh, b_hh, gout)
+                b_ms, by = bound(t_len, rows, h, streams=9, products=2,
+                                 gates=3, extra_bytes=2 * 3 * h * 4)
+            got = timed() if kind == "gru" else (timed(),)
+            want = plain() if kind == "gru" else (plain(),)
+            err = (got[0].float() - want[0].float()).abs()
+            peak = want[0].float().abs().max().item()
+            max_err = err.max().item()
+            check(max_err < BWD_MAX_REL * peak
+                  and err.mean().item() < BWD_MEAN_REL * peak,
+                  f"{entry} route vs plain at H={h} rows={rows}")
+            del got, want, err
+
+            def in_block():
+                return PB.run(kind, inputs, block)
+
+            if holds:
+                rounds = [cuda_ms(timed, iters=3), cuda_ms(in_block, iters=2),
+                          cuda_ms(in_block, iters=2), cuda_ms(timed, iters=3)]
+                ms, ms_block = min(rounds[0], rounds[3]), min(rounds[1:3])
+            else:
+                rounds = [cuda_ms(timed, iters=3)]
+                ms, ms_block = rounds[0], None
+            plain_ms = cuda_ms(plain, iters=1, warmup=0)
+            log(f"{entry} route at T={t_len} rows={rows} H={h}: {ms:.3f} ms, "
+                f"{1e3 * ms / t_len / plan.waves:.3f} us a step a wave "
+                f"(modelled {plan.step_us:.3f}); single block "
+                f"{f'{ms_block:.3f} ms' if holds else 'does not hold H'} "
+                f"(rounds {' '.join(f'{r:.3f}' for r in rounds)}); max|err| "
+                f"{max_err:.3e} (peak {peak:.3f}); bound {b_ms:.4f} ms by {by}; "
+                f"plain {plain_ms:.3f} ms; cuDNN backward {lib_b - lib_f:.3f} "
+                f"ms (forward + backward {lib_b:.3f} less the training "
+                f"forward {lib_f:.3f}); {_describe_bwd(plan)} on {card}")
+            if plan.design == "stream" and holds:
+                check(ms < ms_block, f"{entry} at H={h} rows={rows}: the plan "
+                      f"takes the streamed cluster, which must beat the "
+                      f"single block ({ms:.3f} against {ms_block:.3f} ms)")
+            numbers = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=by,
+                           library_ms=lib_b - lib_f,
+                           single_block_ms=ms_block, scan_route=plan.design,
+                           plan=dataclasses.asdict(plan))
+            if key:
+                out[entry][key] = numbers
+            else:
+                out[entry].update(numbers)
+            del inputs
+            torch.cuda.empty_cache()
+    return out
+
+
+def _bwd_stream_model_step(dev):
+    """FullSubNet+ whose sub-band LSTM has BWD_STREAM_SB_HIDDEN units, which
+    no single block of kernel D trains: one bf16 EnhanceTrainer step of
+    STREAM_STEP_BATCH x 1 s with exact launches (kernel C's and kernel D's
+    streamed clusters, twice each), its loss against the float32 model's on
+    the CPU. Returns the step's launches."""
+    from generative_audio_torch import models as M
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import EnhanceTrainConfig
+    from generative_audio_torch.utils import convert
+    h = BWD_STREAM_SB_HIDDEN
+    cfg = M.FullSubNetPlusConfig(sb_model_hidden_size=h)
+    path = ModelPath(
+        name=f"FullSubNet+ sb H={h}", model_cls=M.FullSubNetPlus, config=cfg,
+        sd=convert.convert_fullsubnet_plus(
+            convert.random_fullsubnet_plus_params(cfg, seed=SEED + 36)),
+        mode="mag_complex_full_band_crm_mask", n_inputs=3,
+        fwd="lstm_scan_fwd_stream", carry="lstm_scan_fwd_carry_stream",
+        per_forward=2, per_long_forward=0,
+        train_config=lambda dtype: EnhanceTrainConfig(
+            model=M.FullSubNetPlusConfig(sb_model_hidden_size=h,
+                                         num_groups_in_drop_band=2),
+            compute_dtype=dtype),
+        per_step={"lstm_scan_fwd_train_stream": 2,
+                  "lstm_scan_bwd_stream": 2})
+    return _stream_step(dev, path, L.launch_counts)
+
+
+def phase_streamed_backwards(dev, registers):
+    """Phase 24: the streamed cluster backwards. (a) Each `_stream`
+    backward bit for bit against the single block at LSTM H=640, 768, 1024
+    and GRU H=640, 1024, 1072 (its route there) and against the resident
+    cluster under forced streamed plans at H=384 and 512; (b) against its
+    plain version at H=1536 and 2304; (c) timed at H=1024 x 18, H=768 x
+    2304 and H=2304 x 18 rows (T=195) beside the single block where it
+    holds H, the bound, the plain version and cuDNN's backward, the
+    streamed route the faster wherever the plan takes it; (d) one bf16
+    training step of a FullSubNet+ with a 1536-unit sub-band LSTM with
+    exact launches, its loss against the CPU's float32 (phase 23's model
+    paths train through both entries too). Returns the entries' numbers
+    and their launches on (d)'s path."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"streamed backward instances: {_registers_line(registers, 'b')}")
+    _bwd_stream_identities(dev)
+    _bwd_stream_vs_plain(dev)
+    kernels = _bwd_stream_times(dev, card_line())
+    launches = _bwd_stream_model_step(dev)
+    log(f"launches of the streamed backwards on phase 24's model path: "
+        f"{launches}; phase 24 {time.perf_counter() - t0:.1f} s")
+    return kernels, {k: launches.get(k, 0)
+                     for k in BWD_STREAM_ENTRIES.values()}
 
 
 def _gru_library(w_hh, b_hh):
@@ -1869,6 +2176,14 @@ def _bwd_plan_line(M, dev, h, rows):
 
 
 def _describe_bwd(plan):
+    if plan.design == "stream":
+        return (f"streamed cluster C={plan.cluster} x R={plan.rows} rows at "
+                f"H={plan.hidden}, {plan.resident} slots of each operand "
+                f"resident, rings of {plan.stages}, "
+                f"{'the whole dgates tile' if plan.tile else 'the slices read in place'}"
+                f", {plan.clusters} clusters, cudaOccupancyMaxActiveClusters "
+                f"{plan.active}, {plan.waves} wave(s), {plan.smem_bytes} B of "
+                f"shared memory a CTA, modelled {plan.step_us:.2f} us a step")
     if plan.design == "block":
         return (f"single block, {plan.clusters} blocks of 16 rows, "
                 f"{plan.active} at once, {plan.waves} wave(s), "
@@ -7628,6 +7943,9 @@ def main():
     kernels.update(block_kernels)
     stream_kernels, stream_launches = phase_streamed_forwards(dev, registers)
     kernels.update(stream_kernels)
+    bwd_stream_kernels, bwd_stream_launches = phase_streamed_backwards(
+        dev, registers)
+    kernels.update(bwd_stream_kernels)
     phase_lstm_train_large(dev)
     kernels.update(phase_gru_kernels(dev))
     kernels.update(phase_gru_train_kernels(dev, registers))
@@ -7678,7 +7996,14 @@ def main():
                                        f"{pallas}:205"),
         "gru_scan_fwd_stream": (f"{csrc}/gru_scan.cu", f"{pallas}:907"),
         "gru_scan_fwd_carry_stream": (f"{csrc}/gru_scan.cu",
-                                      f"{pallas}:1151")}
+                                      f"{pallas}:1151"),
+        # the streamed cluster backwards of rows 3 and 7 above H=512 where
+        # their model beats the single block's, on the training paths of
+        # phases 23 and 24
+        "lstm_scan_bwd_stream": (f"{csrc}/scan_bwd_stream.cu",
+                                 f"{pallas}:300"),
+        "gru_scan_bwd_stream": (f"{csrc}/scan_bwd_stream.cu",
+                                f"{pallas}:1019")}
     plus, v1_gru, v1_lstm = model_paths()
     counts, plus_rtf = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
                                          "lstm_scan_fwd_train", "lstm_scan_bwd"])
@@ -7707,6 +8032,8 @@ def main():
         counts[name] += n
     counts.update(block_launches)
     counts.update(stream_launches)
+    for name, n in bwd_stream_launches.items():
+        counts[name] += n
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))
 
     for phase in (lambda: phase_lstm_chains(
@@ -7720,8 +8047,8 @@ def main():
         dev, plus, kernels["lstm_scan_fwd"]["ms"], registers)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": counts[name], **kernels[name]}
+        {**kernels[name], "name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": counts[name]}
         for name, (source, replaces) in table.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -175,13 +175,22 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P],
         "gru_scan_bwd_dwhh": [_P, _P, _P, _P, _I, _I, _I, _P],
     },
+    "scan_bwd_stream": {
+        # the streamed cluster backwards: ..., reverse, then the plan:
+        # cluster, rows, resident slots, stages, tile, shared bytes
+        "lstm_scan_bwd_stream": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _P],
+        "gru_scan_bwd_stream": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 # Queries that launch nothing: the instance's flags (out_f32, carry; and
 # train for the LSTM forward; resident for the backwards; k and out_f32 for
-# the staged scans; n_chains, arrangement and resident for kernel G; and,
-# for the streamed forwards, those of their kernel, the resident k-steps and
-# the ring's stages), then H, cluster, rows and int* n.
+# the staged scans; n_chains, arrangement and resident for kernel G; for
+# the streamed forwards, those of their kernel, the resident k-steps and
+# the ring's stages; for the streamed backwards, tile, the resident slots
+# and the stages), then H, cluster, rows and int* n.
 _QUERIES = {
     "lstm_scan": {
         "lstm_scan_max_clusters": [_I, _I, _I, _I, _I, _I,
@@ -210,6 +219,12 @@ _QUERIES = {
     "gru_scan_bwd": {
         "gru_scan_bwd_max_clusters": [_I, _I, _I, _I,
                                       ctypes.POINTER(ctypes.c_int)],
+    },
+    "scan_bwd_stream": {
+        "lstm_scan_bwd_stream_max_clusters": [_I, _I, _I, _I, _I, _I,
+                                              ctypes.POINTER(ctypes.c_int)],
+        "gru_scan_bwd_stream_max_clusters": [_I, _I, _I, _I, _I, _I,
+                                             ctypes.POINTER(ctypes.c_int)],
     },
 }
 

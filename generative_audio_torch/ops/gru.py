@@ -9,10 +9,11 @@ Port of three kernels of generative_audio_tpu/ops/pallas_lstm.py:
     `_gru_pallas_call_carry` / `_gru_carry_kernel`, and
     `gru_layer_tm_chunked` chains it over time chunks as the JAX function of
     the same name does;
-  * `gru_scan_bwd_tm` (csrc/gru_scan_bwd.cu) replaces `_gru_pallas_call_bwd`
-    / `_gru_bwd_kernel`: the reverse-time backward that recomputes the
-    h-side gates from the bf16 h sequence and emits bf16 dgates_x, dW_hh and
-    db_hh. The TPU kernel accumulates dW_hh and db_hh in its own body, one
+  * `gru_scan_bwd_tm` (csrc/gru_scan_bwd.cu; above H = 512 also
+    csrc/scan_bwd_stream.cu `gru_scan_bwd_stream`) replaces
+    `_gru_pallas_call_bwd` / `_gru_bwd_kernel`: the reverse-time backward
+    that recomputes the h-side gates from the bf16 h sequence and emits
+    bf16 dgates_x, dW_hh and db_hh. The TPU kernel accumulates dW_hh and db_hh in its own body, one
     partial per batch block; here `gru_scan_bwd` (wrapper
     `gru_scan_bwd_streams_tm`) writes the dgates streams and db_hh partials
     per 16-row block, a second hand-written kernel (`gru_scan_bwd_dwhh`,
@@ -43,8 +44,10 @@ run as thread-block clusters: `plan_scan` (ops/lstm.py's
 `plan_cluster_scan` with this kernel's layout and step model) picks the
 cluster size and the rows per cluster from H, the row count, the
 shared-memory limit and the card's `cudaOccupancyMaxActiveClusters`.
-The backward scan runs as a thread-block cluster or as the single-block
-design (the same bits): `_launch` appends `card_bwd_scan_plan`'s plan.
+The backward scan runs as a thread-block cluster, as the single-block
+design or, above H = 512, as a streamed cluster (csrc/scan_bwd_stream.cu
+`gru_scan_bwd_stream`; the same bits), whichever ops/lstm.py `plan_bwd`
+models fastest: `_launch` appends `card_bwd_scan_plan`'s plan.
 `plan_dwhh` cuts the contraction's rows into slices. The planners are plain
 Python.
 
@@ -56,7 +59,9 @@ W_hh's slice, the forward takes ops/lstm.py `plan_forward`'s route: the
 streamed variant of the cluster (csrc/gru_scan.cu, entries ending in
 `_stream`, plan `plan_stream_scan` / `card_stream_plan`) or the single
 block (csrc/gru_scan_block.cu, at H padded to 16), whichever has the least
-waves x modelled step. A padded unit sees zero gates, weights
+waves x modelled step; the backward scan's streamed cluster runs at H
+padded to `stream_hidden`, up to H = 2304. A padded unit sees zero gates,
+weights
 and b_hh, so n = tanh(0 + r * 0) = 0 and it stays at h = 0, adds exact
 zeros to the real units' sums and gets zero dgates.
 """
@@ -70,13 +75,18 @@ import torch
 import torch.nn.functional as F
 
 from generative_audio_torch.ops.lstm import (
-    _PAD, _ROWS, _STEP_UNITS, H100_SMS, BwdPlan, ScanPlan, StreamPlan,
-    _check_kernel_operand, _device_sms, _fragment_weight, _is_cuda,
-    _kernel_operand, _kernel_weight, _pad_gates, _pad_units, _padded_weight,
-    _route_weight, _stream_args, _unpad_gates, _unpad_units, _wants_grad,
+    _BWD_RESIDENT_MAX, _PAD, _ROWS, _STEP_UNITS, H100_SMS, BwdPlan,
+    BwdStreamPlan, ScanPlan, StreamBwdClusters, StreamPlan,
+    _bwd_hidden, _card_stream_bwd_clusters, _check_kernel_operand,
+    _device_index, _device_sms, _fragment_weight, _is_cuda, _kernel_operand,
+    _kernel_weight, _pad_gates, _pad_units, _padded_weight,
+    _resident_occupancy, _route_weight, _stream_args, _stream_dh_weight,
+    _stream_weight, _unpad_gates, _unpad_units, _wants_grad,
     block_forward_step_us, bwd_cluster_smem_bytes, bwd_cluster_step_us,
-    card_bwd_plan, card_plan, card_stream, cluster_hidden, cluster_step_us,
-    mixed_gates, plan_bwd, plan_cluster_scan, plan_forward, plan_stream,
+    bwd_stream_cluster_step_us, card_bwd_plan, card_plan, card_stream,
+    bwd_stream_cluster_smem_bytes,
+    cluster_hidden, cluster_step_us, mixed_gates, plan_bwd,
+    plan_bwd_stream, plan_cluster_scan, plan_forward, plan_stream,
     sm_blocks, stream_cluster_step_us, stream_fixed_bytes)
 from generative_audio_torch.ops.lstm import _launch as _launch_entry
 
@@ -91,7 +101,9 @@ __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "bwd_smem_bytes_cluster", "bwd_step_us", "plan_bwd_scan",
            "card_bwd_scan_plan", "block_smem_bytes", "stream_smem_bytes",
            "stream_step_us", "plan_stream_scan", "card_stream_plan",
-           "block_step_us"]
+           "block_step_us", "BwdStreamPlan", "bwd_stream_smem_bytes",
+           "bwd_stream_step_us", "plan_bwd_stream_scan",
+           "card_bwd_stream_plan"]
 
 # Batch rows per block of the backward scan, which writes one db_hh partial
 # per block: the kernel is told the number of partials and refuses another
@@ -124,6 +136,12 @@ _BLOCK_PARTS = (10.932, 0.43134, 0.58021)
 # at H = 512, taken to grow with H.
 _BWD_PARTS = (2.66, 0.0305, 0.018, 0.177, 0.097)
 _BWD_BLOCK_US = 152.0
+# The streamed cluster backward's parts beyond the resident cluster's step
+# (ops/lstm.py bwd_stream_cluster_step_us: step, kilobyte, latency,
+# remote; microseconds): a least-squares fit to the steps of 43 one-cluster
+# plans on an H100 SXM at 700 W (as the LSTM's), off by at most 11.5 us a
+# step and 3.4 in the mean.
+_BWD_STREAM_PARTS = (7.09412, 0.00812, 0.59754, 0.05541)
 # The contraction's output tile (csrc/gru_scan_bwd.cu DW_TM x DW_TN) and the
 # rows of one pipeline stage, on which every slice begins (DW_TK).
 _DW_TILE_ROWS, _DW_TILE_COLS, _DW_STAGE_ROWS = 128, 256, 64
@@ -265,38 +283,89 @@ def bwd_step_us(hsz: int, cluster: int, rows: int, resident: bool) -> float:
     return bwd_cluster_step_us(hsz, cluster, rows, resident, 3, _BWD_PARTS)
 
 
+def bwd_stream_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                          stages: int, tile: bool) -> int:
+    """Shared memory of one CTA of the streamed cluster backward scan
+    (ops/lstm.py bwd_stream_cluster_smem_bytes with three gates)."""
+    return bwd_stream_cluster_smem_bytes(hsz, cluster, rows, resident, stages,
+                                         tile, 3)
+
+
+def bwd_stream_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                       stages: int, tile: bool) -> float:
+    """Modelled time of one step of one wave of the streamed cluster
+    backward scan (ops/lstm.py bwd_stream_cluster_step_us with this
+    kernel's fitted parts)."""
+    return bwd_stream_cluster_step_us(hsz, cluster, rows, resident, stages,
+                                      tile, 3, _BWD_PARTS, _BWD_STREAM_PARTS)
+
+
+def plan_bwd_stream_scan(hsz: int, batch: int,
+                         max_clusters: StreamBwdClusters,
+                         resident: Optional[int] = None) -> BwdStreamPlan:
+    """The backward scan's streamed plan for `batch` rows of a layer of hsz
+    units (ops/lstm.py plan_bwd_stream with its layout and step model)."""
+    return plan_bwd_stream("GRU", hsz, batch, 3, max_clusters,
+                           bwd_stream_step_us, resident)
+
+
 def plan_bwd_scan(hsz: int, batch: int,
                   max_clusters: Callable[[int, int, bool], int],
-                  sms: int = H100_SMS) -> BwdPlan:
+                  sms: int = H100_SMS,
+                  stream_clusters: Optional[StreamBwdClusters] = None
+                  ) -> Union[BwdPlan, BwdStreamPlan]:
     """The backward scan's plan for `batch` rows at H = hsz (a multiple of
-    16): the single-block design or a cluster (ops/lstm.py plan_bwd), on a
-    card of `sms` SMs."""
+    16): the single-block design, a resident cluster or, above H = 512, the
+    streamed cluster (ops/lstm.py plan_bwd), on a card of `sms` SMs; the
+    streamed cluster's occupancy from `stream_clusters` (default: the
+    resident cluster's)."""
+    stream_clusters = stream_clusters or _resident_occupancy(max_clusters)
     return plan_bwd("GRU", hsz, batch, max_clusters,
                     functools.partial(sm_blocks, sms=sms),
                     bwd_smem_bytes_cluster, bwd_step_us,
                     bwd_block_smem_bytes(hsz),
-                    _BWD_BLOCK_US * hsz / 384)
+                    _BWD_BLOCK_US * hsz / 384,
+                    lambda: plan_bwd_stream_scan(hsz, batch, stream_clusters))
 
 
 @functools.lru_cache(maxsize=None)
-def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int) -> BwdPlan:
+def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int
+                       ) -> Union[BwdPlan, BwdStreamPlan]:
     """The plan the backward scan launches with on `device` (a CUDA device)
     for `batch` rows at H = hsz (occupancy from csrc/gru_scan_bwd.cu
-    `gru_scan_bwd_max_clusters`)."""
+    `gru_scan_bwd_max_clusters` and csrc/scan_bwd_stream.cu
+    `gru_scan_bwd_stream_max_clusters`)."""
     return card_bwd_plan("gru_scan_bwd", plan_bwd_scan, device, hsz, batch)
 
 
+@functools.lru_cache(maxsize=None)
+def card_bwd_stream_plan(device: torch.device, hsz: int, batch: int,
+                         resident: Optional[int] = None) -> BwdStreamPlan:
+    """The backward scan's streamed plan on `device` (a CUDA device) at any
+    H, the resident cluster's included: for holding the streamed cluster
+    against the other designs through gru_scan_bwd_streams_planned_tm."""
+    return plan_bwd_stream_scan(
+        hsz, batch, _card_stream_bwd_clusters("gru_scan_bwd",
+                                              _device_index(device)),
+        resident)
+
+
 def _launch(fn_name: str, *args,
-            plan: Optional[Union[BwdPlan, StreamPlan]] = None) -> None:
+            plan: Optional[Union[BwdPlan, StreamPlan, BwdStreamPlan]] = None
+            ) -> None:
     """Launch csrc entry `fn_name` through the port's launch helper. The
     forward entries are cluster launches: their arguments end in (out_f32,
     T, B, H, reverse), and card_scan_plan's plan for (H, B) on the tensors'
     card is appended to them; their streamed variants take `plan` (the
     StreamPlan the wrapper packed W_hh for). The backward scan's arguments
     end in (T, B, H, reverse), and `plan` (default: card_bwd_scan_plan's for
-    (H, B)) is appended to them."""
+    (H, B)) is appended to them; its streamed cluster's arguments end the
+    same way, and `plan` (the BwdStreamPlan the wrapper packed W_hh for) is
+    appended to them."""
     if fn_name in _STREAM_ENTRIES:
         args = (*args, *_stream_args(fn_name, plan, args[-2]))
+    elif fn_name == "gru_scan_bwd_stream":
+        args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
     elif fn_name == "gru_scan_bwd":
         b, hsz = args[-3], args[-2]
         plan = plan or card_bwd_scan_plan(args[0].device, hsz, b)
@@ -558,20 +627,23 @@ def gru_scan_bwd_streams_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     the cotangent gout of h_seq, both [T, B, H] bf16, w_hh [H, 3H], b_hh [3H]
     -> (dgx [T, B, 3H] bf16, dhn [T, B, H] bf16, db_hh [3H] fp32). CUDA
     tensors run `gru_scan_bwd` with card_bwd_scan_plan's plan (a thread-block
-    cluster, or the single-block design: the same bits), which writes one
-    db_hh partial per 16-row tile of the batch; the partials are summed
-    here."""
+    cluster, or the single-block design), or above H = 512 the streamed
+    cluster `gru_scan_bwd_stream` where it is the plan (the same bits);
+    each writes one db_hh partial per 16-row tile of the batch; the
+    partials are summed here."""
     return _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse)
 
 
 def gru_scan_bwd_streams_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
                                     gout: torch.Tensor, w_hh: torch.Tensor,
-                                    b_hh: torch.Tensor, plan: BwdPlan,
+                                    b_hh: torch.Tensor,
+                                    plan: Union[BwdPlan, BwdStreamPlan],
                                     reverse: bool = False
                                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
     """gru_scan_bwd_streams_tm on CUDA tensors with a given launch plan (a
-    BwdPlan for the operands' H, padded to 16, and any design), returning
+    BwdPlan for the operands' H, padded to 16, and any design, or a
+    BwdStreamPlan for that H padded to its units), returning
     the per-tile db_hh partials [ceil(B / 16), 3H] unsummed, for holding the
     designs against each other bit for bit and timing plans."""
     if not _is_cuda(gates, h_seq, gout, w_hh, b_hh):
@@ -580,7 +652,7 @@ def gru_scan_bwd_streams_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
 
 
 def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
-              plan: Optional[BwdPlan] = None):
+              plan: Optional[Union[BwdPlan, BwdStreamPlan]] = None):
     t_len, b, hsz = _check_shapes(gates, w_hh, b_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("gout", gout)):
         if tuple(x.shape) != (t_len, b, hsz):
@@ -595,28 +667,40 @@ def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
     if not (t_len and b):
         return (torch.empty_like(gates), torch.empty_like(h_seq),
                 torch.zeros(3 * hsz, device=gates.device))
+    partials = plan is not None      # the planned wrapper's: unsummed
     hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
+    if plan is None and hp > _BWD_RESIDENT_MAX:
+        plan = card_bwd_scan_plan(gates.device, hp, b)
+    hp = _bwd_hidden(hp, plan)
     dgx = torch.empty(t_len, b, 3 * hp, dtype=torch.bfloat16,
                       device=gates.device)
     dhn = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=gates.device)
     db_blocks = torch.empty(-(-b // _ROWS_PER_BLOCK), 3 * hp,
                             dtype=torch.float32, device=gates.device)
-    # W_hh in both layouts: [3H, H] for the gates recompute (and in fragment
-    # order for the clusters'), [H, 3H] (the 3H axis contiguous) for
-    # dgates_h @ W_hh^T
-    wt = _kernel_weight(w_hh, hp)
-    operands = (_pad_gates(gates, 3, hp), _pad_units(h_seq, hp),
-                _pad_units(gout, hp), wt,
-                _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16),
-                _fragment_weight(wt), _kernel_bias(b_hh, hp), dgx, dhn,
-                db_blocks,
-                db_blocks.shape[0], t_len, b, hp, reverse)
-    if plan is None:
-        _launch("gru_scan_bwd", *operands)
-        db = db_blocks.sum(dim=0)
+    streams = (_pad_gates(gates, 3, hp), _pad_units(h_seq, hp),
+               _pad_units(gout, hp))
+    outputs = (_kernel_bias(b_hh, hp), dgx, dhn, db_blocks,
+               db_blocks.shape[0], t_len, b, hp, reverse)
+    if isinstance(plan, BwdStreamPlan):
+        # both W_hh operands in MMA fragment order, slot after slot: the
+        # recompute's W_hh^T slices and the second product's W_hh rows
+        _launch("gru_scan_bwd_stream", *streams,
+                _stream_weight(w_hh, hp, plan.cluster),
+                _stream_dh_weight(w_hh, hp, plan.cluster), *outputs,
+                plan=plan)
     else:
-        _launch("gru_scan_bwd", *operands, plan=plan)
-        db = db_blocks
+        # W_hh in both layouts: [3H, H] for the gates recompute (and in
+        # fragment order for the clusters'), [H, 3H] (the 3H axis
+        # contiguous) for dgates_h @ W_hh^T
+        wt = _kernel_weight(w_hh, hp)
+        operands = (*streams, wt,
+                    _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16),
+                    _fragment_weight(wt), *outputs)
+        if plan is None:
+            _launch("gru_scan_bwd", *operands)
+        else:
+            _launch("gru_scan_bwd", *operands, plan=plan)
+    db = db_blocks if partials else db_blocks.sum(dim=0)
     return (_unpad_gates(dgx, 3, hsz), _unpad_units(dhn, hsz),
             _unpad_gates(db, 3, hsz))
 

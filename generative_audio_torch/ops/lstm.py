@@ -12,9 +12,11 @@ Port of five kernels of generative_audio_tpu/ops/pallas_lstm.py:
   * `lstm_scan_train_tm` (kernel C, `lstm_scan_fwd_train`) replaces
     `_lstm_pallas_call_train` / `_lstm_train_kernel`: kernel A that also
     writes the bf16 c sequence;
-  * `lstm_scan_bwd_tm` (kernel D, csrc/lstm_scan_bwd.cu `lstm_scan_bwd`)
-    replaces `_lstm_pallas_call_bwd` / `_lstm_bwd_kernel`: the reverse-time
-    backward that recomputes the gates and emits bf16 dgates;
+  * `lstm_scan_bwd_tm` (kernel D, csrc/lstm_scan_bwd.cu `lstm_scan_bwd`;
+    above H = 512 also its streamed cluster, csrc/scan_bwd_stream.cu
+    `lstm_scan_bwd_stream`) replaces `_lstm_pallas_call_bwd` /
+    `_lstm_bwd_kernel`: the reverse-time backward that recomputes the gates
+    and emits bf16 dgates;
   * `lstm_layer_tm` without grad (kernel F, csrc/lstm_scan_staged.cu
     `lstm_layer_fwd`) replaces `_lstm_layer_pallas_call` /
     `_lstm_layer_kernel`: x_t @ W_ih inside the scan, no gates buffer; a
@@ -65,10 +67,10 @@ shared-memory limit, a step model fitted on the card and the card's
 clusters too, each with its own layout and step model through the same
 planner (`plan_unrolled`, `plan_layer`; `card_unrolled_plan`,
 `card_layer_plan`). Kernel D runs as a
-thread-block cluster or as the single-block design, which give the same
-dgates bit for bit: `_launch` appends `card_bwd_scan_plan`'s plan
-(`plan_bwd`, shared with the GRU backward, weighs the two by a step model
-fitted on the card).
+thread-block cluster, as the single-block design or, above H = 512, as a
+streamed cluster, which give the same dgates bit for bit: `plan_bwd`,
+shared with the GRU backward, weighs them by step models fitted on the
+card (`card_bwd_scan_plan`); `_launch` appends the plan.
 
 Any H runs on the card: the wrappers zero-pad H to the units their kernel
 takes (`scan_hidden` for kernels A-C, `unrolled_route` for E,
@@ -82,16 +84,18 @@ the rest streamed from L2 through a ring of bulk copies at every step; plan
 the single block (csrc/lstm_scan_block.cu, entries ending in `_block`, at H
 padded to 16), whichever has the least waves x modelled step; kernels E and
 F take their single blocks (csrc/lstm_scan_unrolled_block.cu and
-csrc/lstm_layer_block.cu), and kernel D its single block, which keeps dc in
-registers and so holds H up to 1024. `single_block_forwards()` and
+csrc/lstm_layer_block.cu), and kernel D its single block (dc in registers,
+H up to 1024) or its streamed cluster (csrc/scan_bwd_stream.cu: both W_hh
+operands streamed, at H padded to `stream_hidden`), whichever has the
+least waves x modelled step. `single_block_forwards()` and
 `streamed_forwards()` force the single block and the streamed cluster at
 any H, for holding them against the resident cluster, bit for bit. A
 padded unit sees zero gates, zero weights and zero bias, so
 it stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros to the real
 units' sums and gets zero dgates. What no design holds raises with the
-bytes: kernels A-C and the GRU forwards above H = 2304 (the streamed
-cluster's 18 items a CTA; the single blocks stop at 1808 and 1648),
-kernel D above H = 1024, kernel G above H = 512 (two chains) or
+bytes: kernels A-C, kernel D and the GRU forwards and backward above
+H = 2304 (the streamed clusters' 18 items a CTA; the single blocks stop at
+1808, 1024, 1648 and 1072), kernel G above H = 512 (two chains) or
 where neither its cluster nor its single block holds four chains, kernel E
 where not even a block of 4 rows holds K steps of gates (H above 1104 at
 K = 4).
@@ -133,7 +137,11 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "stream_fixed_bytes", "stream_smem_bytes", "stream_cluster_step_us",
            "stream_step_us", "plan_stream", "plan_stream_scan",
            "card_stream", "card_stream_plan", "block_forward_step_us",
-           "block_step_us", "plan_forward", "streamed_forwards"]
+           "block_step_us", "plan_forward", "streamed_forwards",
+           "BwdStreamPlan", "BWD_STREAM_STAGES", "bwd_warp_items",
+           "bwd_stream_cluster_smem_bytes", "bwd_stream_smem_bytes", "bwd_stream_cluster_step_us",
+           "bwd_stream_step_us", "plan_bwd_stream", "plan_bwd_stream_scan",
+           "card_bwd_stream_plan"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -157,7 +165,9 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "gru_scan_fwd_stream": "gru_scan",
               "gru_scan_fwd_carry_stream": "gru_scan",
               "gru_scan_bwd": "gru_scan_bwd",
-              "gru_scan_bwd_dwhh": "gru_scan_bwd"}
+              "gru_scan_bwd_dwhh": "gru_scan_bwd",
+              "lstm_scan_bwd_stream": "scan_bwd_stream",
+              "gru_scan_bwd_stream": "scan_bwd_stream"}
 launch_counts = dict.fromkeys(_SOURCE_OF, 0)
 
 # Dynamic shared memory a block may opt in to on sm_90 (H100): 227 KB.
@@ -200,6 +210,7 @@ _CLUSTER_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry",
 # functions end in a StreamPlan's launch arguments.
 _STREAM_ENTRIES = ("lstm_scan_fwd_stream", "lstm_scan_fwd_carry_stream",
                    "lstm_scan_fwd_train_stream")
+
 # The ring depths (slots of one k-pair: two 16-deep k-steps of a CTA's W_hh^T
 # slice) the planner of the streamed forwards weighs, and the most (m16 tile,
 # 8 units) items a CTA of them takes: one consumer warp each.
@@ -240,6 +251,25 @@ BWD_WARPS = 16
 # over T = 195) and 190 at H = 512, taken to grow with H.
 _BWD_PARTS = (4.12, 0.0435, 0.0, 0.163, 0.247)
 _BWD_BLOCK_US = 198.0
+# The streamed cluster backwards (csrc/scan_bwd_stream.cu): the ring depths
+# the planner weighs; the (m16 tile, 8 units) items a warp carries, the
+# warps of each role (compute, recompute) and the items of a CTA, at most;
+# and the H up to which a resident cluster or the single block is the route
+# (above it, where only the single block held H before, the planner weighs
+# the streamed cluster too).
+BWD_STREAM_STAGES = (1, 2, 3, 4, 6, 8)
+_BWD_ITEMS_PER_WARP, _BWD_ROLE_WARPS, _BWD_STREAM_MAX_ITEMS = 3, 7, 18
+_BWD_RESIDENT_MAX = 512
+# bwd_stream_step_us's parts beyond the resident cluster's step
+# (microseconds): a step; for each streamed slot, each KB of both rings'
+# slots and a copy's latency over the stages; and each k-step of the second
+# product whose A is pulled from the owners' slices (the dgates tile not
+# held whole). A least-squares fit to the steps of 31 one-cluster plans (H
+# = 768, 1024, 1536, 2304; C = 8 and 16; 16 and 32 rows; the whole tile and
+# the slices; rings of 1-8 stages, 0 to the most resident slots) on an H100
+# SXM at 700 W (generative_audio_torch/scripts/perf_bwd_scan.py --stream),
+# off by at most 12.6 us a step and 4.8 in the mean.
+_BWD_STREAM_PARTS = (9.62842, 0.0056, 0.5507, 0.10394)
 # Kernel G's cluster step model (chains_step_us): kernel D's step model plus
 # three parts (microseconds): a step, each k-step of the second product for
 # each chain a warp carries beyond its first, and each m16 row tile of the
@@ -1289,9 +1319,12 @@ def plan_bwd(what: str, hsz: int, batch: int,
              max_clusters: Callable[[int, int, bool], int],
              max_blocks: Callable[[int], int], smem_bytes: BwdSmemBytes,
              step_us: Callable[[int, int, int, bool], float],
-             block_smem: int, block_step_us: float) -> BwdPlan:
+             block_smem: int, block_step_us: float,
+             stream_plan: Optional[Callable[[], "BwdStreamPlan"]] = None
+             ) -> Union[BwdPlan, "BwdStreamPlan"]:
     """A backward scan's launch plan for `batch` rows at H = hsz: the
-    single-block design against every cluster shape, by modelled time.
+    single-block design, every resident cluster shape and, above H = 512,
+    the streamed cluster, by modelled time.
 
     The single-block design takes ceil(batch / 16) blocks of block_smem
     bytes, of which `max_blocks(block_smem)` run at once, each step taking
@@ -1301,20 +1334,26 @@ def plan_bwd(what: str, hsz: int, batch: int,
     BWD_WARPS a CTA) whose CTA fits SMEM_LIMIT bytes, with the recompute's
     slice resident or not, runs `max_clusters(C, R, resident)` (the card's
     cudaOccupancyMaxActiveClusters) at once and takes step_us(H, C, R,
-    resident) a step. The plan minimises waves x step time; ties go to the
-    single block, then to the smaller cluster, then to fewer clusters. Both
-    designs give the same bits. Raises ValueError when neither fits."""
+    resident) a step. Above H = 512, where no resident cluster holds H,
+    `stream_plan()` (plan_bwd_stream's best, at H padded to its units) is
+    weighed too. The plan minimises waves x step time; ties go to the single
+    block, then to the smaller cluster, to fewer clusters and to the
+    resident cluster. Every design gives the same bits. Raises ValueError
+    when none fits."""
     if batch < 1:
         raise ValueError(f"the scan needs at least one row, got {batch}")
     tiles = -(-batch // 16)
-    best = None
+    best, refused = None, []
 
     def offer(key, plan):
         nonlocal best
         if best is None or key < best[0]:
             best = (key, plan)
 
-    if block_smem <= SMEM_LIMIT and max_blocks(block_smem) >= 1:
+    if block_smem > SMEM_LIMIT:
+        refused.append(f"a block needs {block_smem} B of shared memory, "
+                       f"over {SMEM_LIMIT}")
+    elif max_blocks(block_smem) >= 1:
         active = max_blocks(block_smem)
         waves = -(-tiles // active)
         offer((waves * block_step_us, 1, tiles),
@@ -1339,10 +1378,17 @@ def plan_bwd(what: str, hsz: int, batch: int,
                 offer((waves * step, cluster, clusters),
                       BwdPlan(cluster, rows, resident, clusters, active, waves,
                               smem, step))
+    if stream_plan is not None and hsz > _BWD_RESIDENT_MAX:
+        try:
+            plan = stream_plan()
+            offer((plan.waves * plan.step_us, plan.cluster, plan.clusters, 1),
+                  plan)
+        except ValueError as e:
+            refused.append(str(e))
     if best is None:
+        refused.append("no resident cluster holds it")
         raise ValueError(f"no plan for the {what} backward scan at H={hsz}: "
-                         f"a block needs {block_smem} B of shared memory, "
-                         f"over {SMEM_LIMIT}, and no cluster holds it")
+                         + "; ".join(refused))
     return best[1]
 
 
@@ -1365,35 +1411,308 @@ def bwd_step_us(hsz: int, cluster: int, rows: int, resident: bool) -> float:
     return bwd_cluster_step_us(hsz, cluster, rows, resident, 4, _BWD_PARTS)
 
 
+# (H, cluster, rows, resident slots, stages, tile) -> clusters at once
+StreamBwdClusters = Callable[[int, int, int, int, int, bool], int]
+
+
+def _resident_occupancy(max_clusters: Callable[[int, int, bool], int]
+                        ) -> StreamBwdClusters:
+    """The streamed backward's occupancy where the caller gives only the
+    resident cluster's: the same clusters at once (one CTA an SM either
+    way)."""
+    return lambda h, c, r, res, stages, tile: max_clusters(c, r, False)
+
+
 def plan_bwd_scan(hsz: int, batch: int,
                   max_clusters: Callable[[int, int, bool], int],
-                  sms: int = H100_SMS) -> BwdPlan:
+                  sms: int = H100_SMS,
+                  stream_clusters: Optional[StreamBwdClusters] = None
+                  ) -> Union[BwdPlan, "BwdStreamPlan"]:
     """Kernel D's plan for `batch` rows at H = hsz (a multiple of 16): the
-    single-block design or a cluster (plan_bwd), on a card of `sms` SMs."""
+    single-block design, a resident cluster or, above H = 512, the streamed
+    cluster (plan_bwd), on a card of `sms` SMs; the streamed cluster's
+    occupancy from `stream_clusters` (default: the resident cluster's)."""
+    stream_clusters = stream_clusters or _resident_occupancy(max_clusters)
     return plan_bwd("LSTM", hsz, batch, max_clusters,
                     functools.partial(sm_blocks, sms=sms),
                     bwd_smem_bytes_cluster, bwd_step_us, bwd_smem_bytes(hsz),
-                    _BWD_BLOCK_US * hsz / 384)
+                    _BWD_BLOCK_US * hsz / 384,
+                    lambda: plan_bwd_stream_scan(hsz, batch, stream_clusters))
+
+
+def _card_stream_bwd_clusters(source: str, index: int) -> StreamBwdClusters:
+    """The card's occupancy of `source`'s streamed backward
+    (`<source>_stream_max_clusters` of csrc/scan_bwd_stream.cu)."""
+    return lambda h, c, r, res, stages, tile: _max_clusters(
+        "scan_bwd_stream", index, (int(tile), res, stages), h, c, r,
+        f"{source}_stream_max_clusters")
+
+
+def _device_index(device: torch.device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
 
 
 def card_bwd_plan(source: str, plan: Callable, device: torch.device,
-                  hsz: int, batch: int) -> BwdPlan:
-    """`plan(hsz, batch, max_clusters, sms)` with the occupancy of
-    `source`'s cluster backward and the SMs of `device` (a CUDA device)."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
+                  hsz: int, batch: int) -> Union[BwdPlan, "BwdStreamPlan"]:
+    """`plan(hsz, batch, max_clusters, sms, stream_clusters)` with the
+    occupancy of `source`'s cluster backward and of its streamed cluster
+    and the SMs of `device` (a CUDA device)."""
+    index = _device_index(device)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return plan(hsz, batch, lambda c, r, resident: _max_clusters(
-        source, index, (int(resident),), hsz, c, r), sms)
+        source, index, (int(resident),), hsz, c, r), sms,
+        _card_stream_bwd_clusters(source, index))
 
 
 @functools.lru_cache(maxsize=None)
-def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int) -> BwdPlan:
+def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int
+                       ) -> Union[BwdPlan, "BwdStreamPlan"]:
     """The plan kernel D launches with on `device` (a CUDA device) for
     `batch` rows at H = hsz (occupancy from csrc/lstm_scan_bwd.cu
-    `lstm_scan_bwd_max_clusters`)."""
+    `lstm_scan_bwd_max_clusters` and csrc/scan_bwd_stream.cu
+    `lstm_scan_bwd_stream_max_clusters`)."""
     return card_bwd_plan("lstm_scan_bwd", plan_bwd_scan, device, hsz, batch)
+
+
+# ---- the streamed cluster backwards ----------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BwdStreamPlan:
+    """Launch plan of a streamed cluster backward (csrc/scan_bwd_stream.cu
+    `lstm_scan_bwd_stream`, `gru_scan_bwd_stream`): clusters of `cluster`
+    CTAs at H = `hidden` (the layer's units zero-padded to stream_hidden's),
+    each CTA owning hidden / cluster units, over `rows` batch rows per
+    cluster. Both weight operands (the recompute's W_hh^T slice and the
+    second product's W_hh slice) come in hidden / 32 slots of n U 64 bytes;
+    the first `resident` slots of each stay in shared memory, the others
+    stream from L2 through a ring of `stages` slots each at every step. With
+    `tile` every CTA holds the whole dgates tile (the peers' slices arrive
+    by bulk copies), else only its own slice, which the peers read in
+    place."""
+    hidden: int           # H the kernel runs at
+    cluster: int          # CTAs per cluster
+    rows: int             # batch rows per cluster
+    resident: int         # slots of each operand in shared memory
+    stages: int           # slots of each ring
+    tile: bool            # the whole dgates tile in each CTA
+    clusters: int         # clusters in the grid
+    active: int           # clusters the card runs at once (occupancy)
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+    step_us: float        # modelled time of one step of one wave
+
+    @property
+    def design(self) -> str:
+        return "stream"
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int, int, int]:
+        """The C entries' last arguments before the stream."""
+        return (self.cluster, self.rows, self.resident, self.stages,
+                int(self.tile), self.smem_bytes)
+
+
+def bwd_warp_items(tiles: int, groups: int) -> int:
+    """(m16 tile, 8 units) items a warp of the streamed backwards carries
+    for `tiles` row tiles of `groups` unit groups a CTA (csrc
+    `warp_items`): the fewest that leave each role at most _BWD_ROLE_WARPS
+    warps; 0 where none does or the CTA has more than _BWD_STREAM_MAX_ITEMS
+    items."""
+    if tiles * groups > _BWD_STREAM_MAX_ITEMS:
+        return 0
+    for items in range(1, _BWD_ITEMS_PER_WARP + 1):
+        if tiles * -(-groups // items) <= _BWD_ROLE_WARPS:
+            return items
+    return 0
+
+
+def bwd_stream_cluster_smem_bytes(hsz: int, cluster: int, rows: int,
+                                  resident: int, stages: int, tile: bool,
+                                  n_gates: int) -> int:
+    """Shared memory of one CTA of a streamed backward (csrc/
+    scan_bwd_stream.cu `stream_bwd_smem`) with n gate columns a unit: two
+    rings of `stages` slots and `resident` slots of each operand (n U 64
+    bytes a slot), h_prev [rows][H + 8] bf16, the dgates tile [cluster][rows]
+    [bwd_slice_stride] (tile) or the CTA's slice [rows][bwd_slice_stride]
+    and a slot's A operand pulled from the owners' slices, double buffered
+    [2][rows][32 n + 8], bf16, the recompute's hand-over (22 bytes a (row,
+    unit)), the second product's k-step table (8 bytes a k-step) and the
+    mbarriers (16 + 32 stages bytes), with U = H / cluster units."""
+    units = hsz // cluster
+    return (2 * (stages + resident) * n_gates * units * 64
+            + rows * (hsz + _PAD) * 2
+            + (cluster if tile else 1) * rows
+            * bwd_slice_stride(units, n_gates) * 2
+            + (0 if tile else 2) * rows * (32 * n_gates + _PAD) * 2
+            + 22 * rows * units + n_gates * hsz // 16 * 8 + 16 + 32 * stages)
+
+
+def bwd_stream_cluster_step_us(hsz: int, cluster: int, rows: int,
+                               resident: int, stages: int, tile: bool,
+                               n_gates: int,
+                               cluster_parts: Tuple[float, ...],
+                               stream_parts: Tuple[float, ...]) -> float:
+    """Modelled time of one step of one wave of a streamed backward: the
+    resident cluster's step (bwd_cluster_step_us with cluster_parts, its
+    exchange only with the whole tile) plus stream_parts (step, kilobyte,
+    latency, remote; microseconds): a step, for each streamed slot of the
+    rings both rings' kilobytes' copy time and a copy's latency shared by
+    the stages, and without the tile each of the second product's n H / 16
+    k-steps that read the owners' slices in place."""
+    step_us, kb_us, latency_us, remote_us = stream_parts
+    parts = cluster_parts if tile else (cluster_parts[0], 0.0,
+                                        *cluster_parts[2:])
+    units = hsz // cluster
+    streamed = hsz // 32 - resident
+    return (bwd_cluster_step_us(hsz, cluster, rows, True, n_gates, parts)
+            + step_us + (0.0 if tile else n_gates * hsz // 16 * remote_us)
+            + streamed * (2 * n_gates * units * 64 / 1024 * kb_us
+                          + latency_us / stages))
+
+
+def bwd_stream_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                          stages: int, tile: bool) -> int:
+    """Shared memory of one CTA of kernel D's streamed cluster (four
+    gates)."""
+    return bwd_stream_cluster_smem_bytes(hsz, cluster, rows, resident, stages,
+                                         tile, 4)
+
+
+def bwd_stream_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                       stages: int, tile: bool) -> float:
+    """Modelled time of one step of one wave of kernel D's streamed cluster
+    (bwd_stream_cluster_step_us with its fitted parts)."""
+    return bwd_stream_cluster_step_us(hsz, cluster, rows, resident, stages,
+                                      tile, 4, _BWD_PARTS, _BWD_STREAM_PARTS)
+
+
+def _bwd_stream_resident(hsz: int, cluster: int, rows: int, stages: int,
+                         tile: bool, n_gates: int,
+                         resident: Optional[int]) -> Optional[int]:
+    """The resident slots of a streamed backward's CTA: `resident` where it
+    leaves a slot streamed and fits SMEM_LIMIT with the rings, else (when
+    None) the most that do; None when none does."""
+    def smem(res):
+        return bwd_stream_cluster_smem_bytes(hsz, cluster, rows, res, stages,
+                                             tile, n_gates)
+
+    slots = hsz // 32
+    if resident is not None:
+        ok = 0 <= resident < slots and smem(resident) <= SMEM_LIMIT
+        return resident if ok else None
+    if smem(0) > SMEM_LIMIT:
+        return None
+    return min((SMEM_LIMIT - smem(0)) // (smem(1) - smem(0)), slots - 1)
+
+
+def plan_bwd_stream(what: str, hsz: int, batch: int, n_gates: int,
+                    max_clusters: StreamBwdClusters,
+                    step_us: Callable[[int, int, int, int, int, bool], float],
+                    resident: Optional[int] = None) -> BwdStreamPlan:
+    """A streamed backward's launch plan for `batch` rows of a layer of hsz
+    units, n gate columns a unit.
+
+    For each cluster size C of CLUSTER_SIZES at H = stream_hidden(hsz, C),
+    each row count R (whole m16 tiles, balanced over the clusters) that
+    bwd_warp_items takes, the whole dgates tile or each CTA's slice, and
+    each ring depth of BWD_STREAM_STAGES no deeper than the streamed slots,
+    the CTA keeps the most resident slots that fit SMEM_LIMIT bytes
+    (`resident` itself where given), `max_clusters(H, C, R, resident,
+    stages, tile)` (the card's cudaOccupancyMaxActiveClusters) run at once
+    and a step takes `step_us(H, C, R, resident, stages, tile)`. The plan
+    minimises waves x step time; ties go to the smaller cluster, to fewer
+    clusters, to the shallower ring and to the whole tile. Raises
+    ValueError with the reasons when nothing fits (above H = 2304 no
+    cluster takes a layer: more than _BWD_STREAM_MAX_ITEMS items a CTA)."""
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    tiles = -(-batch // 16)
+    best, refused = None, []
+    for cluster in CLUSTER_SIZES:
+        hp = stream_hidden(hsz, cluster)
+        groups = hp // cluster // 8
+        if not bwd_warp_items(1, groups):
+            refused.append(f"C={cluster}: {groups} items at 16 rows, over "
+                           f"{_BWD_STREAM_MAX_ITEMS}")
+            continue
+        for per_cluster in range(1, tiles + 1):
+            clusters = -(-tiles // per_cluster)
+            rows = 16 * -(-tiles // clusters)        # balanced over clusters
+            if not bwd_warp_items(rows // 16, groups):
+                break
+            for tile in (True, False):
+                for stages in BWD_STREAM_STAGES:
+                    res = _bwd_stream_resident(hp, cluster, rows, stages, tile,
+                                               n_gates, resident)
+                    if res is None:
+                        if rows == 16 and stages == 1:
+                            least = bwd_stream_cluster_smem_bytes(
+                                hp, cluster, rows, resident or 0, stages,
+                                tile, n_gates)
+                            refused.append(
+                                f"C={cluster}, {'tile' if tile else 'slice'}"
+                                f": {least} B at 16 rows")
+                        continue
+                    if stages > hp // 32 - res:
+                        continue
+                    active = max_clusters(hp, cluster, rows, res, stages, tile)
+                    if active < 1:
+                        refused.append(f"C={cluster}, R={rows}: the card runs "
+                                       f"no such cluster")
+                        continue
+                    waves = -(-clusters // active)
+                    step = step_us(hp, cluster, rows, res, stages, tile)
+                    key = (waves * step, cluster, clusters, stages, not tile)
+                    if best is None or key < best[0]:
+                        best = (key, BwdStreamPlan(
+                            hp, cluster, rows, res, stages, tile, clusters,
+                            active, waves,
+                            bwd_stream_cluster_smem_bytes(
+                                hp, cluster, rows, res, stages, tile,
+                                n_gates),
+                            step))
+    if best is None:
+        raise ValueError(f"no streamed plan for the {what} backward scan at "
+                         f"H={hsz}, {batch} rows: " + "; ".join(refused))
+    return best[1]
+
+
+def plan_bwd_stream_scan(hsz: int, batch: int, max_clusters: StreamBwdClusters,
+                         resident: Optional[int] = None) -> BwdStreamPlan:
+    """Kernel D's streamed plan for `batch` rows of a layer of hsz units
+    (plan_bwd_stream with its layout and step model)."""
+    return plan_bwd_stream("LSTM", hsz, batch, 4, max_clusters,
+                           bwd_stream_step_us, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def card_bwd_stream_plan(device: torch.device, hsz: int, batch: int,
+                         resident: Optional[int] = None) -> BwdStreamPlan:
+    """Kernel D's streamed plan on `device` (a CUDA device) at any H, the
+    resident cluster's included: for holding the streamed cluster against
+    the other designs through lstm_scan_bwd_planned_tm."""
+    return plan_bwd_stream_scan(
+        hsz, batch, _card_stream_bwd_clusters("lstm_scan_bwd",
+                                              _device_index(device)),
+        resident)
+
+
+def _stream_dh_weight(w_hh: torch.Tensor, hp: int, cluster: int
+                      ) -> torch.Tensor:
+    """W_hh [H, n*H] -> the second product's operand of the streamed
+    backwards: zero-padded to hp units, the rows of each CTA's units (U =
+    hp / cluster) in MMA fragment order, k-pair after k-pair over the n hp
+    columns: [cluster][n hp/32][U/8][32 lanes][8] bf16 (lane (grp, tq) of
+    unit group g holds the B fragments (b0, b1) of k-steps 2p and 2p + 1 of
+    row 8g + grp: columns 32p + 16kk + 8half + 2tq + e in the order (kk,
+    half, e), as _fragment_rows). n consecutive k-pairs make one slot, as
+    one k-pair of _stream_weight's does."""
+    w = _padded_weight(w_hh, hp)                       # [hp, n*hp]
+    k = w.shape[1]
+    units = hp // cluster
+    return w.reshape(cluster, units // 8, 8, k // 32, 2, 2, 4, 2).permute(
+        0, 3, 1, 2, 6, 4, 5, 7).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1589,8 +1908,8 @@ def card_chains_scan_plan(device: torch.device, hsz: int, batch: int,
 
 
 def _launch(fn_name: str, *args,
-            plan: Optional[Union[ScanPlan, BwdPlan, StreamPlan]] = None
-            ) -> None:
+            plan: Optional[Union[ScanPlan, BwdPlan, StreamPlan,
+                                 BwdStreamPlan]] = None) -> None:
     """Launch csrc entry `fn_name` (see _launch_kernel), of this module or
     of ops/gru.py (whose own _launch has appended any plan). Kernels A-C are
     cluster launches: their arguments end in (T, B, H, reverse), and
@@ -1602,7 +1921,8 @@ def _launch(fn_name: str, *args,
     (arguments ending in T, B, H, k; default card_unrolled_plan's) and
     kernel F's (ending in T, B, F, H, reverse; default card_layer_plan's
     for the output type). The streamed variants of A-C take `plan` (the
-    StreamPlan the wrapper packed W_hh for; no default). Raises first,
+    StreamPlan the wrapper packed W_hh for; no default), and so does kernel
+    D's streamed cluster (the BwdStreamPlan). Raises first,
     before any plan asks the card and
     before anything is built, for a tensor off a 16-byte boundary: the
     wrappers hand every kernel aligned operands, and a misaligned read
@@ -1639,15 +1959,17 @@ def _launch(fn_name: str, *args,
         args = (*args, *plan.launch_args)
     elif fn_name in _STREAM_ENTRIES:
         args = (*args, *_stream_args(fn_name, plan, args[-2]))
+    elif fn_name == "lstm_scan_bwd_stream":
+        args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
     _launch_kernel(fn_name, *args)
 
 
-def _stream_args(fn_name: str, plan: Optional[StreamPlan],
-                 hsz: int) -> Tuple[int, ...]:
-    """A streamed entry's plan arguments; the wrappers hand the plan they
-    packed W_hh for, at the H it gives."""
-    if not isinstance(plan, StreamPlan) or plan.hidden != hsz:
-        raise ValueError(f"{fn_name} launches with the StreamPlan its "
+def _stream_args(fn_name: str, plan, hsz: int,
+                 kind: type = StreamPlan) -> Tuple[int, ...]:
+    """A streamed entry's plan arguments; the wrappers hand the plan (a
+    `kind`) they packed W_hh for, at the H it gives."""
+    if not isinstance(plan, kind) or plan.hidden != hsz:
+        raise ValueError(f"{fn_name} launches with the {kind.__name__} its "
                          f"weight was packed for, at H={hsz}")
     return plan.launch_args
 
@@ -1856,14 +2178,15 @@ def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     """The backward scan: bf16 gates [T, B, 4H], the residuals h_seq and
     c_seq of lstm_scan_train_tm and the cotangent gout of h_seq, all
     [T, B, H] bf16, w_hh [H, 4H] -> dgates [T, B, 4H] bf16. CUDA tensors run
-    kernel D with card_bwd_scan_plan's plan (a thread-block cluster, or the
-    single-block design: the same dgates bit for bit), or with n_chains = 2
-    or 4 kernel G with card_chains_scan_plan's (a forward that was not
-    reversed; its cluster, or its single block where no cluster holds H;
-    the same dgates bit for bit). Both zero-pad H to whole 16-deep k-steps.
-    Raises where no design holds H: kernel D above H = 1024, kernel G above
-    H = 512 (two chains) or where no cluster and no single block holds four
-    chains (ValueError with the bytes)."""
+    kernel D with card_bwd_scan_plan's plan (a thread-block cluster, the
+    single-block design or, above H = 512, the streamed cluster: the same
+    dgates bit for bit), or with n_chains = 2 or 4 kernel G with
+    card_chains_scan_plan's (a forward that was not reversed; its cluster,
+    or its single block where no cluster holds H; the same dgates bit for
+    bit). Both zero-pad H to whole 16-deep k-steps (the streamed cluster to
+    its plan's H). Raises where no design holds H: kernel D above H = 2304,
+    kernel G above H = 512 (two chains) or where no cluster and no single
+    block holds four chains (ValueError with the bytes)."""
     return _scan_bwd(gates, h_seq, c_seq, gout, w_hh, reverse, n_chains)
 
 
@@ -1884,7 +2207,8 @@ def lstm_scan_bwd_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
 
 def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
               gout: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
-              n_chains: int, plan: Optional[Union[BwdPlan, ChainsPlan]] = None
+              n_chains: int,
+              plan: Optional[Union[BwdPlan, ChainsPlan, BwdStreamPlan]] = None
               ) -> torch.Tensor:
     t_len, b, hsz = _check_shapes(gates, w_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("c_seq", c_seq), ("gout", gout)):
@@ -1902,34 +2226,58 @@ def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
     hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
     if n_chains != 1 and t_len and b:
         plan = plan or card_chains_scan_plan(gates.device, hp, b, n_chains)
+    elif plan is None and hp > _BWD_RESIDENT_MAX and t_len and b:
+        plan = card_bwd_scan_plan(gates.device, hp, b)
+    hp = _bwd_hidden(hp, plan)
     for name, x in (("gates", gates), ("h_seq", h_seq), ("c_seq", c_seq),
                     ("gout", gout)):
         _check_kernel_operand(name, x, torch.bfloat16)
     dgates = torch.empty(t_len, b, 4 * hp, dtype=torch.bfloat16,
                          device=gates.device)
-    if t_len and b:
-        # W_hh in both layouts: [4H, H] for the gates recompute (and in
-        # fragment order for the clusters'), [H, 4H] (the 4H axis
-        # contiguous) for dgates @ W_hh^T
-        wt = _kernel_weight(w_hh, hp)
-        w = _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16)
-        streams = (_pad_gates(gates, 4, hp), _pad_units(h_seq, hp),
-                   _pad_units(c_seq, hp), _pad_units(gout, hp))
-        shape = (t_len, b, hp)
-        if n_chains == 1:
-            operands = (*streams, wt, w, _fragment_weight(wt), dgates, *shape,
-                        reverse)
-            if plan is None:
-                _launch("lstm_scan_bwd", *operands)
-            else:
-                _launch("lstm_scan_bwd", *operands, plan=plan)
-        elif plan.design == "block":
-            _launch("lstm_scan_bwd_chains_block", *streams, wt, w, dgates,
-                    *shape, n_chains, *plan.launch_args)
+    if not (t_len and b):
+        return _unpad_gates(dgates, 4, hsz)
+    streams = (_pad_gates(gates, 4, hp), _pad_units(h_seq, hp),
+               _pad_units(c_seq, hp), _pad_units(gout, hp))
+    shape = (t_len, b, hp)
+    if isinstance(plan, BwdStreamPlan):
+        # both W_hh operands in MMA fragment order, slot after slot: the
+        # recompute's W_hh^T slices and the second product's W_hh rows
+        _launch("lstm_scan_bwd_stream", *streams,
+                _stream_weight(w_hh, hp, plan.cluster),
+                _stream_dh_weight(w_hh, hp, plan.cluster), dgates, *shape,
+                reverse, plan=plan)
+        return _unpad_gates(dgates, 4, hsz)
+    # W_hh in both layouts: [4H, H] for the gates recompute (and in fragment
+    # order for the clusters'), [H, 4H] (the 4H axis contiguous) for
+    # dgates @ W_hh^T
+    wt = _kernel_weight(w_hh, hp)
+    w = _kernel_operand(_padded_weight(w_hh, hp), torch.bfloat16)
+    if n_chains == 1:
+        operands = (*streams, wt, w, _fragment_weight(wt), dgates, *shape,
+                    reverse)
+        if plan is None:
+            _launch("lstm_scan_bwd", *operands)
         else:
-            _launch("lstm_scan_bwd_chains", *streams, w, _fragment_weight(wt),
-                    dgates, *shape, n_chains, plan=plan)
+            _launch("lstm_scan_bwd", *operands, plan=plan)
+    elif plan.design == "block":
+        _launch("lstm_scan_bwd_chains_block", *streams, wt, w, dgates,
+                *shape, n_chains, *plan.launch_args)
+    else:
+        _launch("lstm_scan_bwd_chains", *streams, w, _fragment_weight(wt),
+                dgates, *shape, n_chains, plan=plan)
     return _unpad_gates(dgates, 4, hsz)
+
+
+def _bwd_hidden(hp: int, plan) -> int:
+    """The H a backward runs a layer of hp units (a multiple of 16) at: hp,
+    or a streamed plan's H (hp padded to stream_hidden's units; raises for
+    a plan of another layer)."""
+    if not isinstance(plan, BwdStreamPlan):
+        return hp
+    if plan.hidden != stream_hidden(hp, plan.cluster):
+        raise ValueError(f"a streamed plan at H={plan.hidden} is for no layer "
+                         f"of {hp} units")
+    return plan.hidden
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

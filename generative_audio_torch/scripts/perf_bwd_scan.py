@@ -1,22 +1,33 @@
 """The LSTM and GRU backward scans (csrc/lstm_scan_bwd.cu `lstm_scan_bwd`,
-csrc/gru_scan_bwd.cu `gru_scan_bwd`) under forced launch plans, on the card.
+csrc/gru_scan_bwd.cu `gru_scan_bwd`, and their streamed clusters,
+csrc/scan_bwd_stream.cu `lstm_scan_bwd_stream`, `gru_scan_bwd_stream`)
+under forced launch plans, on the card.
 
-Each backward runs as the single-block design or as a thread-block cluster
-(ops.lstm.plan_bwd_scan, ops.gru.plan_bwd_scan). This script holds every
-cluster plan that fits against the single-block design bit for bit (LSTM
-dgates; GRU dgx, dhn and every db_hh partial) and times each plan, one
-cluster alone and a full batch of them, to fit the planners' step models.
+Each backward runs as the single-block design, as a thread-block cluster
+with its weight slices resident or, where no resident cluster holds H, as a
+streamed cluster (ops.lstm.plan_bwd_scan, ops.gru.plan_bwd_scan). This
+script holds every plan that fits against the single-block design bit for
+bit (LSTM dgates; GRU dgx, dhn and every db_hh partial) and times each
+plan, one cluster alone and a full batch of them, to fit the planners' step
+models; with --stream it does so for a spread of streamed plans (cluster
+size, rows, resident slots, ring depth, whole tile or slices) and prints the
+least-squares fit of the streamed step model's parts.
 
     # identity of every plan with the single block, at small shapes
     python -m generative_audio_torch.scripts.perf_bwd_scan --check
     # the identity, then the sweep at the training shapes
     python -m generative_audio_torch.scripts.perf_bwd_scan
+    # the streamed plans' identity at small shapes (--stream-check), then
+    # their sweep and fit (--stream)
+    python -m generative_audio_torch.scripts.perf_bwd_scan --stream-check
+    python -m generative_audio_torch.scripts.perf_bwd_scan --stream
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from generative_audio_torch.ops import gru as G
@@ -24,7 +35,8 @@ from generative_audio_torch.ops import lstm as L
 from generative_audio_torch.utils.device import cuda_ms, resolve_device
 
 __all__ = ["plans", "lstm_inputs", "gru_inputs", "run", "check", "sweep",
-           "main"]
+           "stream_plan", "stream_plans", "check_stream", "fit_stream_parts",
+           "sweep_stream", "main"]
 
 # the sub-band and full-band training shapes
 T, ROWS, H, FB_ROWS, FB_H = 195, 2304, 384, 18, 512
@@ -159,16 +171,189 @@ def sweep(device, card: str) -> None:
             del inputs
 
 
+# ---- the streamed clusters --------------------------------------------------
+
+_MODULES = {"lstm": L, "gru": G}
+_INPUTS = {"lstm": lstm_inputs, "gru": gru_inputs}
+# (T, rows, H) of the identity: the single block holds H (LSTM up to 1024,
+# GRU up to 1072) and, at 384 and 512, the resident cluster too
+STREAM_CHECK = {"lstm": ((5, 40, 384), (4, 17, 512), (4, 33, 640),
+                         (3, 18, 1024)),
+                "gru": ((5, 40, 384), (4, 17, 512), (4, 33, 640),
+                        (3, 18, 1072))}
+SWEEP_STREAM_HIDDEN = (768, 1024, 1536, 2304)
+
+
+def stream_plan(kind: str, hsz: int, batch: int, cluster: int, rows: int,
+                resident, stages: int, tile: bool, device):
+    """The BwdStreamPlan of (cluster, rows, resident slots, stages, tile)
+    for `batch` rows of a layer of hsz units with the card's occupancy,
+    resident None for the most that fit; None where it does not fit."""
+    M = _MODULES[kind]
+    n = 4 if kind == "lstm" else 3
+    hp = L.stream_hidden(hsz, cluster)
+    if not L.bwd_warp_items(rows // 16, hp // cluster // 8):
+        return None
+    res = L._bwd_stream_resident(hp, cluster, rows, stages, tile, n, resident)
+    if res is None or stages > hp // 32 - res:
+        return None
+    index = torch.device(device).index
+    active = L._card_stream_bwd_clusters(f"{kind}_scan_bwd", index)(
+        hp, cluster, rows, res, stages, tile)
+    if active < 1:
+        return None
+    clusters = -(-batch // rows)
+    return L.BwdStreamPlan(hp, cluster, rows, res, stages, tile, clusters,
+                           active, -(-clusters // active),
+                           M.bwd_stream_smem_bytes(hp, cluster, rows, res,
+                                                   stages, tile),
+                           M.bwd_stream_step_us(hp, cluster, rows, res,
+                                                stages, tile))
+
+
+def stream_plans(kind: str, hsz: int, batch: int, device) -> list:
+    """A spread of streamed plans at (H, batch): both cluster sizes, 16-48
+    rows, the whole tile and the slices, rings of 1-3 stages with no, one
+    and the most resident slots, each that fits."""
+    out = []
+    for cluster in L.CLUSTER_SIZES:
+        for rows in (16, 32, 48):
+            if rows > 16 * -(-batch // 16) + 16:
+                break
+            for tile in (True, False):
+                for stages in (1, 2, 3):
+                    for resident in (0, 1, None):
+                        plan = stream_plan(kind, hsz, batch, cluster, rows,
+                                           resident, stages, tile, device)
+                        if plan is not None and plan not in out:
+                            out.append(plan)
+    return out
+
+
+def check_stream(device, card: str = "") -> int:
+    """Every streamed plan of the spread == the single block and (at H =
+    384 and 512) the resident clusters bit for bit, forward and reverse, at
+    each shape of STREAM_CHECK. Returns the number of failures."""
+    failures = 0
+    for kind, shapes in STREAM_CHECK.items():
+        for i, (t_len, b, hsz) in enumerate(shapes):
+            inputs = _INPUTS[kind](t_len, b, hsz, device, seed=200 + i)
+            refs = [p for p in plans(kind, hsz, b, device)
+                    if p.cluster == 1 or hsz <= 512]
+            tried = 0
+            for reverse in (False, True):
+                wants = [run(kind, inputs, p, reverse) for p in refs]
+                for w in wants[1:]:
+                    if not all(torch.equal(x, y) for x, y in zip(w, wants[0])):
+                        failures += 1
+                        print(f"MISMATCH {kind} references", flush=True)
+                for plan in stream_plans(kind, hsz, b, device):
+                    got = run(kind, inputs, plan, reverse)
+                    torch.cuda.synchronize()
+                    tried += 1
+                    if not all(torch.equal(x, y)
+                               for x, y in zip(got, wants[0])):
+                        failures += 1
+                        print(f"MISMATCH {kind} T={t_len} rows={b} H={hsz} "
+                              f"reverse={reverse} {plan}", flush=True)
+            print(f"stream check {kind} T={t_len} rows={b} H={hsz}: {tried} "
+                  f"streamed runs against {len(refs)} reference plan(s) "
+                  f"{card}", flush=True)
+    print(f"stream check: {failures} mismatches", flush=True)
+    return failures
+
+
+def _stream_features(kind, plan):
+    """The terms of bwd_stream_cluster_step_us beyond the resident
+    cluster's step: (remote k-steps, streamed slots, KB of both rings'
+    slots, stages)."""
+    n = 4 if kind == "lstm" else 3
+    units = plan.hidden // plan.cluster
+    return (0 if plan.tile else n * plan.hidden // 16,
+            plan.hidden // 32 - plan.resident, 2 * n * units * 64 / 1024,
+            plan.stages)
+
+
+def fit_stream_parts(features, extra):
+    """bwd_stream_cluster_step_us's stream parts (step, kilobyte, latency,
+    remote) for the measured steps less the resident cluster's modelled
+    step (`extra`), by least squares: the terms are linear in each part.
+    Returns (parts, max |error|, mean |error|)."""
+    f, y = np.array(features, dtype=float), np.array(extra, dtype=float)
+    x = np.stack([np.ones(len(y)), f[:, 1] * f[:, 2], f[:, 1] / f[:, 3],
+                  f[:, 0]], axis=1)
+    coef, *_ = np.linalg.lstsq(x, y, rcond=None)
+    err = x @ coef - y
+    return (tuple(float(p) for p in coef), float(np.abs(err).max()),
+            float(np.abs(err).mean()))
+
+
+def sweep_stream(device, card: str) -> None:
+    """Per kind: one-cluster streamed plans timed at T steps (their
+    microseconds a step beside the model, and the least-squares fit of the
+    stream parts), then the planner's plan at 18 rows beside the single
+    block where it holds H."""
+    for kind in ("lstm", "gru"):
+        M = _MODULES[kind]
+        n = 4 if kind == "lstm" else 3
+        feats, extra = [], []
+        for hsz in SWEEP_STREAM_HIDDEN:
+            for rows in (16, 32):
+                inputs = _INPUTS[kind](T, rows, hsz, device, seed=hsz + rows)
+                for cluster in L.CLUSTER_SIZES:
+                    for tile in (True, False):
+                        for stages, resident in ((1, None), (2, None),
+                                                 (4, None), (8, None),
+                                                 (2, 0), (4, 0)):
+                            plan = stream_plan(kind, hsz, rows, cluster, rows,
+                                               resident, stages, tile, device)
+                            if plan is None:
+                                continue
+                            us = cuda_ms(lambda: run(kind, inputs, plan),
+                                         iters=3) * 1e3 / T
+                            base = L.bwd_cluster_step_us(
+                                plan.hidden, cluster, rows, True, n,
+                                M._BWD_PARTS if tile else
+                                (M._BWD_PARTS[0], 0.0, *M._BWD_PARTS[2:]))
+                            feats.append(_stream_features(kind, plan))
+                            extra.append(us - base)
+                            print(f"{kind} H={hsz} C={cluster} R={rows} "
+                                  f"tile={tile} resident={plan.resident} "
+                                  f"stages={plan.stages} "
+                                  f"smem={plan.smem_bytes}: {us:.3f} us a "
+                                  f"step (model {plan.step_us:.3f})",
+                                  flush=True)
+                del inputs
+        parts, worst, mean = fit_stream_parts(feats, extra)
+        print(f"{kind} streamed backward step fit (step, KB, latency, "
+              f"remote): {tuple(round(p, 5) for p in parts)}, off by at most "
+              f"{worst:.3f} us over {len(extra)} plans, mean {mean:.3f}; on "
+              f"{card}", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--check", action="store_true",
                         help="the identity at small shapes only")
+    parser.add_argument("--stream-check", action="store_true",
+                        help="the streamed plans' identity only")
+    parser.add_argument("--stream", action="store_true",
+                        help="the streamed plans' identity, sweep and fit")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     import subprocess
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
+    if args.stream_check or args.stream:
+        failures = check_stream(device, card)
+        if failures:
+            print(f"perf_bwd_scan: {failures} streamed plan(s) differ",
+                  file=sys.stderr)
+            return 1
+        if args.stream:
+            sweep_stream(device, card.splitlines()[device.index or 0])
+        return 0
     failures = check(device)
     if failures:
         print(f"perf_bwd_scan: {failures} plan(s) differ from the single "

@@ -155,25 +155,43 @@ def test_step_model_fits_the_sweep(kind):
 @pytest.mark.parametrize("kind,hsz", [("lstm", 768), ("gru", 768),
                                       ("gru", 1024), ("lstm", 112)])
 def test_single_block_where_no_cluster_fits(kind, hsz):
-    """At an H that no cluster takes (no multiple of 64, or no cluster's
-    slices fit) the plan is the single-block design, padded H and all."""
+    """At an H that no resident cluster takes (no multiple of 64, or no
+    cluster's slices fit) the plan is the single-block design, padded H and
+    all, up to H=512; above, where the single block held H alone before,
+    the streamed cluster (csrc/scan_bwd_stream.cu), whose modelled waves x
+    step beat the single block's at 40 rows, and the single block again
+    where the card runs no streamed cluster."""
     module = KINDS[kind][0]
     plan = module.plan_bwd_scan(hsz, 40, h100_clusters)
-    assert plan.design == "block" and plan.clusters == 3
-    assert plan.launch_args == (1, 16, 0, plan.smem_bytes)
+    block = module.plan_bwd_scan(hsz, 40, h100_clusters,
+                                 stream_clusters=lambda *a: 0)
+    assert block.design == "block" and block.clusters == 3
+    assert block.launch_args == (1, 16, 0, block.smem_bytes)
+    if hsz <= 512:
+        assert plan == block
+    else:
+        assert plan.design == "stream" and plan.hidden >= hsz
+        assert plan.waves * plan.step_us < block.waves * block.step_us
 
 
 def test_lstm_block_limit_is_the_parent_s():
     """Kernel D's single block needed 295 424 B at H=1024 while it kept dc
-    in shared memory; with dc in registers it needs 229 888 B and runs, so
-    the backward trains H up to 1024 on the card. Above that (H=1040) its
-    shared memory refuses, as the parent's did above 784."""
+    in shared memory; with dc in registers it needs 229 888 B and runs.
+    Above that (H=1040) its shared memory refuses, as the parent's did above
+    784, and the streamed cluster takes H (up to 2304, the forwards'
+    limit); above 2304 nothing does."""
     assert tl.bwd_smem_bytes(1024) == 229888 <= tl.SMEM_LIMIT
-    plan = tl.plan_bwd_scan(1024, 40, h100_clusters)
+    plan = tl.plan_bwd_scan(1024, 40, h100_clusters,
+                            stream_clusters=lambda *a: 0)
     assert plan.design == "block" and plan.smem_bytes == 229888
     assert tl.bwd_smem_bytes(1040) == 233472 > tl.SMEM_LIMIT
+    plan = tl.plan_bwd_scan(1040, 40, h100_clusters)
+    assert plan.design == "stream" and plan.hidden >= 1040
     with pytest.raises(ValueError, match="no plan for the LSTM backward"):
-        tl.plan_bwd_scan(1040, 40, h100_clusters)
+        tl.plan_bwd_scan(1040, 40, h100_clusters,
+                         stream_clusters=lambda *a: 0)
+    with pytest.raises(ValueError, match="no plan for the LSTM backward"):
+        tl.plan_bwd_scan(2320, 40, h100_clusters)
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))

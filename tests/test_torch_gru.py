@@ -250,14 +250,15 @@ def fake_launch(fn_name, *args, plan=None):
     tests/test_torch_lstm_backward.py's fake does; the contraction, whose
     padded rows and columns come out zero, computes on what it is given. The
     single-block forwards ("_block") take the cluster entries' arguments at
-    H padded to whole k-steps, the streamed ones ("_stream") with W_hh^T
-    packed for their plan."""
+    H padded to whole k-steps, the streamed ones ("_stream", forwards and
+    the backward scan) with W_hh packed for their plan."""
     tl.launch_counts[fn_name] += 1
-    units = FORWARD_UNITS
+    units, bwd_units = FORWARD_UNITS, BACKWARD_UNITS
     if fn_name.endswith("_block"):
         fn_name, units = fn_name[:-len("_block")], BACKWARD_UNITS
     elif fn_name.endswith("_stream"):
         fn_name, args, units = unstream(fn_name, args, plan, 3)
+        bwd_units = units
     if fn_name == "gru_scan_fwd":
         gates, wt, bhh, out, _, _, _, _, reverse = args
         h = real_units(wt, 3, units)
@@ -277,7 +278,7 @@ def fake_launch(fn_name, *args, plan=None):
         assert torch.equal(wt.t(), w) and bhh.dtype == torch.float32
         assert torch.equal(wf, tl._fragment_weight(wt))
         assert db_blocks.shape[0] == n_blocks == -(-b // 16)
-        h = real_units(wt, 3, BACKWARD_UNITS)
+        h = real_units(wt, 3, bwd_units)
         gates, h_seq, gout = strip(gates, h, 3), strip(h_seq, h), strip(gout, h)
         w, bhh = real_weight(wt, h, 3), strip(bhh, h, 3)
         for i in range(db_blocks.shape[0]):

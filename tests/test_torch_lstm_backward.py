@@ -220,14 +220,16 @@ def fake_launch(fn_name, *args, plan=None):
     handed the kernel and computes on the real units, as the kernel's zero
     units leave them unchanged. The single-block forwards ("_block") take
     the cluster entries' arguments at H padded to whole k-steps; the
-    streamed ones ("_stream") the cluster entries' with W_hh^T packed for
-    their plan (`plan=`), at H padded to stream_hidden's units."""
+    streamed ones ("_stream", forwards and the backward) the cluster
+    entries' with W_hh packed for their plan (`plan=`), at H padded to
+    stream_hidden's units."""
     tl.launch_counts[fn_name] += 1
-    units = FORWARD_UNITS
+    units, bwd_units = FORWARD_UNITS, BACKWARD_UNITS
     if fn_name.endswith("_block"):
         fn_name, units = fn_name[:-len("_block")], BACKWARD_UNITS
     elif fn_name.endswith("_stream"):
         fn_name, args, units = unstream(fn_name, args, plan, 4)
+        bwd_units = units
     if fn_name == "lstm_scan_fwd":
         gates, wt, out, _, _, _, _, reverse = args
         h = real_units(wt, 4, units)
@@ -251,7 +253,7 @@ def fake_launch(fn_name, *args, plan=None):
         gates, h_seq, c_seq, gout, wt, w, wf, dgates, _, _, _, reverse = args
         assert torch.equal(wt.t(), w) and torch.equal(wf,
                                                       tl._fragment_weight(wt))
-        h = real_units(wt, 4, BACKWARD_UNITS)
+        h = real_units(wt, 4, bwd_units)
         fill(dgates, tl.lstm_scan_bwd_reference_tm(
             strip(gates, h, 4), strip(h_seq, h), strip(c_seq, h),
             strip(gout, h), real_weight(wt, h, 4), bool(reverse)), 4)

@@ -263,4 +263,4 @@ def test_sources_match_their_declared_signatures():
     assert "(4 * U + 2 * r) * hs * 2 + r * U * 4 + 2 * r * 4 * U * 2" in body
     assert set(_cuda._QUERIES) == {"lstm_scan", "gru_scan", "lstm_scan_bwd",
                                    "gru_scan_bwd", "lstm_scan_staged",
-                                   "lstm_scan_bwd_chains"}
+                                   "lstm_scan_bwd_chains", "scan_bwd_stream"}

@@ -1,7 +1,7 @@
-"""Stand-ins for the card around the streamed cluster forwards, for the
-CPU tests that take the wrappers' CUDA branch on CPU tensors: a stub
-occupancy in place of the card's, and the unpacking of the streamed
-entries' W_hh operand for the fake launches. No JAX."""
+"""Stand-ins for the card around the streamed cluster forwards and
+backwards, for the CPU tests that take the wrappers' CUDA branch on CPU
+tensors: a stub occupancy in place of the card's, and the unpacking of the
+streamed entries' W_hh operands for the fake launches. No JAX."""
 from generative_audio_torch.ops import lstm as tl
 
 
@@ -24,6 +24,26 @@ def stub_stream_plans(monkeypatch):
                                                    stub_occupancy, resident))
 
 
+def stub_bwd_plans(monkeypatch):
+    """The backward scans' plans of both modules (card_bwd_scan_plan: the
+    single block, a resident cluster or the streamed cluster) from
+    stub_occupancy, in place of the card's."""
+    from generative_audio_torch.ops import gru as tg
+    for module in (tl, tg):
+        monkeypatch.setattr(
+            module, "card_bwd_scan_plan",
+            lambda device, hsz, batch, module=module: module.plan_bwd_scan(
+                hsz, batch,
+                lambda c, r, res: stub_occupancy(hsz, c, r, 0, 1),
+                stream_clusters=stub_stream_bwd_occupancy))
+
+
+def stub_stream_bwd_occupancy(hsz, cluster, rows, resident, stages, tile):
+    """Clusters of a streamed backward an H100 runs at once (one CTA an SM),
+    as stub_occupancy."""
+    return stub_occupancy(hsz, cluster, rows, resident, stages)
+
+
 def stream_weight_rows(wf, plan, n_gates):
     """The kernel weight W_hh^T [n*hp, hp] from a streamed entry's operand
     (ops/lstm.py _stream_weight undone), after checking its shape against
@@ -36,11 +56,36 @@ def stream_weight_rows(wf, plan, n_gates):
     return w.transpose(0, 1).reshape(n_gates * hp, hp)
 
 
+def stream_dh_weight_rows(wdh, plan, n_gates):
+    """The kernel weight W_hh [hp, n*hp] from a streamed backward's second
+    operand (ops/lstm.py _stream_dh_weight undone), after checking its shape
+    against the plan it was packed for."""
+    hp, cluster = plan.hidden, plan.cluster
+    units = hp // cluster
+    assert tuple(wdh.shape) == (cluster, n_gates * hp // 32, units // 8, 8, 4,
+                                2, 2, 2)
+    return wdh.permute(0, 2, 3, 1, 5, 6, 4, 7).reshape(hp, n_gates * hp)
+
+
+BWD_STREAM_ENTRIES = ("lstm_scan_bwd_stream", "gru_scan_bwd_stream")
+
+
 def unstream(fn_name, args, plan, n_gates):
     """(entry, arguments, units) of a streamed entry's launch as the cluster
     entry's: W_hh^T unpacked, after checking the plan against the H the
     wrapper passed (its arguments end in ..., B, H, reverse), and H padded
-    to stream_hidden's units."""
+    to stream_hidden's units. A streamed backward's two operands (the
+    recompute's W_hh^T and the second product's W_hh, each packed on its
+    own) become the cluster backward's three: wt, w and wt in fragment
+    order."""
+    if fn_name in BWD_STREAM_ENTRIES:
+        assert isinstance(plan, tl.BwdStreamPlan) and plan.hidden == args[-2]
+        k = 4 if n_gates == 4 else 3          # where the packed operands lie
+        wt = stream_weight_rows(args[k], plan, n_gates)
+        w = stream_dh_weight_rows(args[k + 1], plan, n_gates)
+        return (fn_name[:-len("_stream")],
+                (*args[:k], wt, w, tl._fragment_weight(wt), *args[k + 2:]),
+                tl.stream_hidden(1, plan.cluster))
     assert isinstance(plan, tl.StreamPlan) and plan.hidden == args[-2]
     wt = stream_weight_rows(args[1], plan, n_gates)
     return (fn_name[:-len("_stream")], (args[0], wt, *args[2:]),
