@@ -338,6 +338,25 @@ of which fails the run (non-zero exit, no result line):
      loss against the CPU's float32. Their launches, and those of phase
      23's training steps, are the streamed backwards' in the kernels
      line.
+ 25. (run after phase 24) kernels E and F as streamed clusters
+     (csrc/lstm_staged_stream.cu, lstm_scan_fwd_unrolled_stream and
+     lstm_layer_fwd_stream), the route of the unrolled forward and of
+     lstm_layer_tm above H=512: each bit for bit against its single block
+     at H=640, 768, 1024 (E at K=2 and 4, also against
+     lstm_scan_fwd_stream; F at F=34 and F=H, forward and reverse, bf16
+     and fp32 out) and, under ops.lstm.streamed_forwards(), against the
+     cluster at H=384 and 512; against its plain version at H=1536 and
+     2304 (E at its largest H, 2048 at K=4), with F's step at F=H there;
+     timed at H=768 x 18 rows (E T=192, F T=195) and x 2056 rows x T=628
+     (F=34 and 768) beside the single block (in turns), the bound, the
+     plain version and cuDNN's nn.LSTM, failing where the plan takes the
+     streamed cluster and it is not the faster; then the path, with the
+     counts set to 0 around each part: lstm_layer_tm over the sub-band
+     stacks of a 768- and a 1536-unit FullSubNet+ (one 8 x 10 s request)
+     against the model's hoisted stack, and lstm_unrolled and
+     lstm_scan_tm(block_t=K) at H=768, 1536, 2048 and 2304 against kernel
+     A's route, with the refusals above E's largest H. The path's launches
+     are the two entries' in the kernels line.
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -349,7 +368,8 @@ kernels C's and D's) and of phase 21 around each step (C's and D's, and the
 GRU kernels'), and around each part of phase 22 and in its ranks (A's, B's,
 C's, D's and the GRU kernels'), and around each request and step of
 phase 23's model paths (the streamed entries') and phase 24's training
-step (the streamed backwards'). The second-to-last line of stdout is
+step (the streamed backwards'), and around each part of phase 25's path
+(kernels E's and F's streamed clusters'). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
 20, `--phase21 PART OUT` one of phase 21, `--phase22 graft OUT` one of
@@ -524,7 +544,8 @@ def phase_build():
     return {**_cluster_registers(reports.get("lstm_scan", "")),
             **_bwd_registers(reports), **_staged_registers(reports),
             **_chains_registers(reports.get("lstm_scan_bwd_chains", "")),
-            **_stream_registers(reports), **_bwd_stream_registers(reports)}
+            **_stream_registers(reports), **_bwd_stream_registers(reports),
+            **_staged_stream_registers(reports)}
 
 
 def _cluster_registers(report):
@@ -1137,7 +1158,7 @@ def _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows):
                  - L.lstm_layer_reference_tm(x, *layer, True)).abs()
     torch.cuda.synchronize()
     hp, route, _ = L._forward_route(h, rows, dev)
-    hf, route_f = L.layer_route(h, SB_FEATURES)
+    hf, route_f, _ = L.layer_route(h, SB_FEATURES, rows, dev)
     log(f"LSTM {tag}: A max|err| {err_a.max().item():.3e} mean "
         f"{err_a.mean().item():.3e}; B (reverse, from a state) "
         f"{err_b:.3e}; C c_seq {err_c.max().item():.3e}, h == A bitwise "
@@ -1146,7 +1167,7 @@ def _lstm_wrappers_vs_plain(L, dev, gen, h, t_len, rows):
         f"{peak:.3f}); F (reverse, F={SB_FEATURES}) "
         f"{err_f.max().item():.3e} mean {err_f.mean().item():.3e}; A-C at "
         f"{hp} units ({ROUTE_NAMES[route]}), F at {hf} "
-        f"({'single blocks' if route_f else 'clusters'}), D: "
+        f"({ROUTE_NAMES[route_f]}), D: "
         f"{_describe_bwd(L.card_bwd_scan_plan(dev, -(-h // 16) * 16, rows))}")
     check(err_f.max().item() < KERNEL_MAX_ABS
           and err_f.mean().item() < KERNEL_MEAN_ABS,
@@ -1852,7 +1873,7 @@ def _bwd_stream_registers(reports):
     return found
 
 
-def _bwd_counted(L, entry, fn):
+def _counted(L, entry, fn):
     """fn()'s result, after checking that it launched `entry` once and
     nothing else."""
     before = dict(L.launch_counts)
@@ -1898,7 +1919,7 @@ def _bwd_stream_identities(dev):
                 for plan in streamed:
                     if plan is None:
                         continue
-                    got = _bwd_counted(L, entry, lambda: PB.run(
+                    got = _counted(L, entry, lambda: PB.run(
                         kind, inputs, plan, reverse))
                     check(all(torch.equal(x, y) for x, y in zip(got, want)),
                           f"{entry} == {name} bitwise (H={h}, reverse="
@@ -1927,11 +1948,11 @@ def _bwd_stream_vs_plain(dev):
             check(plan.design == "stream", f"the {kind} backward at H={h} "
                   f"takes the streamed cluster")
             if kind == "lstm":
-                got = (_bwd_counted(L, entry,
+                got = (_counted(L, entry,
                                     lambda: L.lstm_scan_bwd_tm(*inputs)),)
                 want = (L.lstm_scan_bwd_reference_tm(*inputs),)
             else:
-                got = _bwd_counted(L, entry,
+                got = _counted(L, entry,
                                    lambda: G.gru_scan_bwd_streams_tm(*inputs))
                 want = G.gru_scan_bwd_streams_reference_tm(*inputs)
             errs = []
@@ -2098,6 +2119,429 @@ def phase_streamed_backwards(dev, registers):
         f"{launches}; phase 24 {time.perf_counter() - t0:.1f} s")
     return kernels, {k: launches.get(k, 0)
                      for k in BWD_STREAM_ENTRIES.values()}
+
+
+# Phase 25: kernels E and F as streamed clusters (csrc/lstm_staged_stream.cu,
+# lstm_scan_fwd_unrolled_stream and lstm_layer_fwd_stream), their route
+# above H=512 where no resident cluster of lstm_scan_staged.cu holds H.
+STAGED_STREAM_ENTRIES = ("lstm_scan_fwd_unrolled_stream",
+                         "lstm_layer_fwd_stream")
+STAGED_BLOCK_H = (640, 768, 1024)       # against the single blocks
+STAGED_FORCED_H = (384, 512)            # against the clusters, forced
+STAGED_PLAIN_H = (1536, 2304)           # against the plain versions
+STAGED_TIMED_H = 768
+STAGED_E_T = 192                        # T=195 cut to whole groups of 4
+# E's largest H: 2304 at K=2, 2048 at K=4 (one group of 4 steps of gates
+# beside the h buffers); the path's unrolled forwards run at these H
+STAGED_E_LARGEST = {2: 2304, 4: 2048}
+STAGED_PATH_H = (768, 1536)
+
+
+def _staged_stream_registers(reports):
+    """{"E stream K=2": "... registers, ... spilled", "F stream bf16": ...}
+    for the instances of csrc/lstm_staged_stream.cu, from ptxas's report."""
+    found, name, spill = {}, None, ""
+    out_type = {"13__nv_bfloat16": "bf16", "f": "fp32"}
+    for line in reports.get("lstm_staged_stream", "").splitlines():
+        if "Compiling entry function" in line:
+            name, spill = None, ""
+            e = re.search(r"lstm_unrolled_stream_kernelILi(\d)E", line)
+            f = re.search(r"lstm_layer_stream_kernelI(13__nv_bfloat16|f)E",
+                          line)
+            if e:
+                name = f"E stream K={e.group(1)}"
+            elif f:
+                name = f"F stream {out_type[f.group(1)]}"
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
+    return found
+
+
+def _staged_identities(dev, L, PU, PS):
+    """Each streamed entry bit for bit, T=T_CHUNK x 40 rows: against its
+    single block at STAGED_BLOCK_H (E at K=2 and 4, also against kernel A's
+    route there, lstm_scan_fwd_stream; F at F=34 and F=H, forward and
+    reverse, bf16 and fp32 out), and, under ops.lstm.streamed_forwards()
+    (the planner's resident k-steps and two), against the cluster at
+    STAGED_FORCED_H (E also against lstm_scan_fwd_stream, forced)."""
+    t_len, rows = T_CHUNK, 40
+    for h in (*STAGED_BLOCK_H, *STAGED_FORCED_H):
+        forced = h in STAGED_FORCED_H
+        gates, w = PS.gates_inputs(t_len, rows, h, dev, seed=SEED + 70 + h)
+        n = 0
+        for k in L.UNROLL_STEPS:
+            route = L.unrolled_route(h, k, rows, dev)[1]
+            check(route == ("" if forced else "_stream"), f"kernel E's route "
+                  f"at H={h} K={k} (got {route!r})")
+            with torch.no_grad():
+                if forced:
+                    want = (PU.lstm_unrolled(gates, w, block_t=k),
+                            L.lstm_scan_tm(gates, w))
+                    for res in (None, 2):
+                        with L.streamed_forwards(res):
+                            got = _counted(L, STAGED_STREAM_ENTRIES[0],
+                                           lambda: PU.lstm_unrolled(
+                                               gates, w, block_t=k))
+                            a_stream = _counted(L, "lstm_scan_fwd_stream",
+                                                lambda: L.lstm_scan_tm(gates,
+                                                                       w))
+                        check(torch.equal(got, want[0])
+                              and torch.equal(got, want[1])
+                              and torch.equal(got, a_stream),
+                              f"lstm_scan_fwd_unrolled_stream == the cluster "
+                              f"and lstm_scan_fwd_stream bitwise (H={h} K={k} "
+                              f"resident {res})")
+                        n += 1
+                else:
+                    got = _counted(L, STAGED_STREAM_ENTRIES[0],
+                                   lambda: PU.lstm_unrolled(gates, w,
+                                                            block_t=k))
+                    with L.single_block_forwards():
+                        blk = PU.lstm_unrolled(gates, w, block_t=k)
+                    a_stream = _counted(L, "lstm_scan_fwd_stream",
+                                        lambda: L.lstm_scan_tm(gates, w))
+                    check(torch.equal(got, blk) and torch.equal(got, a_stream),
+                          f"lstm_scan_fwd_unrolled_stream == its single block "
+                          f"and lstm_scan_fwd_stream bitwise (H={h} K={k})")
+                    n += 1
+        del gates
+        for f in (SB_FEATURES, h):
+            inputs = PS.layer_inputs(t_len, rows, f, h, dev,
+                                     seed=SEED + 80 + h + f)
+            for reverse in (False, True):
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    with torch.no_grad():
+                        if forced:
+                            want = L.lstm_layer_tm(*inputs, reverse, out_dtype)
+                            for res in (None, 2):
+                                with L.streamed_forwards(res):
+                                    got = _counted(
+                                        L, STAGED_STREAM_ENTRIES[1],
+                                        lambda: L.lstm_layer_tm(
+                                            *inputs, reverse, out_dtype))
+                                check(torch.equal(got, want),
+                                      f"lstm_layer_fwd_stream == lstm_layer_"
+                                      f"fwd bitwise (H={h} F={f} reverse="
+                                      f"{reverse} {out_dtype} resident {res})")
+                                n += 1
+                        else:
+                            got = _counted(L, STAGED_STREAM_ENTRIES[1],
+                                           lambda: L.lstm_layer_tm(
+                                               *inputs, reverse, out_dtype))
+                            with L.single_block_forwards():
+                                want = L.lstm_layer_tm(*inputs, reverse,
+                                                       out_dtype)
+                            check(torch.equal(got, want),
+                                  f"lstm_layer_fwd_stream == lstm_layer_fwd_"
+                                  f"block bitwise (H={h} F={f} reverse="
+                                  f"{reverse} {out_dtype})")
+                            n += 1
+            del inputs
+        torch.cuda.synchronize()
+        log(f"kernels E and F streamed == the "
+            f"{'clusters (forced)' if forced else 'single blocks'} bitwise at "
+            f"H={h} T={t_len} rows={rows}: {n} calls (E at K=2 and 4, also "
+            f"== lstm_scan_fwd_stream; F at F={SB_FEATURES} and {h}, forward "
+            f"and reverse, bf16 and fp32 out"
+            f"{', resident the planner' + chr(39) + 's and 2' if forced else ''})")
+
+
+def _staged_vs_plain(dev, L, PU, PS, card):
+    """Each streamed entry against its plain version within the kernel
+    limits at STAGED_PLAIN_H (E at its largest H where below), T=16, 18
+    rows; and kernel F's step at H=1536 and 2304 with F=34 and F=H (W_ih^T
+    and W_hh^T together beyond the 50 MB L2 at H=2304), T=64."""
+    t_len, rows = 16, TRAIN_BATCH
+    for h in STAGED_PLAIN_H:
+        for k in L.UNROLL_STEPS:
+            he = min(h, STAGED_E_LARGEST[k])
+            gates, w = PS.gates_inputs(t_len, rows, he, dev,
+                                       seed=SEED + 90 + he)
+            got = _counted(L, STAGED_STREAM_ENTRIES[0],
+                           lambda: PU.lstm_unrolled(gates, w, block_t=k))
+            err = (got.float() - PU.lstm_unrolled_reference(gates, w).float()
+                   ).abs()
+            check(torch.isfinite(got.float()).all().item()
+                  and err.max().item() < KERNEL_MAX_ABS
+                  and err.mean().item() < KERNEL_MEAN_ABS,
+                  f"lstm_scan_fwd_unrolled_stream vs plain at H={he} K={k}")
+            log(f"lstm_scan_fwd_unrolled_stream K={k} vs plain at H={he} "
+                f"T={t_len} rows={rows}: max|err| {err.max().item():.3e} mean "
+                f"{err.mean().item():.3e}; plan "
+                f"{L.unrolled_route(he, k, rows, dev)[2]}")
+            del gates
+        for f in (SB_FEATURES, h):
+            inputs = PS.layer_inputs(t_len, rows, f, h, dev,
+                                     seed=SEED + 95 + h + f)
+            with torch.no_grad():
+                got = _counted(L, STAGED_STREAM_ENTRIES[1],
+                               lambda: L.lstm_layer_tm(*inputs, False,
+                                                       torch.float32))
+            err = (got - L.lstm_layer_reference_tm(*inputs)).abs()
+            check(torch.isfinite(got).all().item()
+                  and err.max().item() < KERNEL_MAX_ABS
+                  and err.mean().item() < KERNEL_MEAN_ABS,
+                  f"lstm_layer_fwd_stream vs plain at H={h} F={f}")
+            x64 = PS.layer_inputs(T_CHUNK, rows, f, h, dev, seed=SEED + 96)
+            with torch.no_grad():
+                ms = cuda_ms(lambda: L.lstm_layer_tm(*x64), iters=3)
+            plan = L.layer_route(h, f, rows, dev)[2]
+            log(f"lstm_layer_fwd_stream vs plain at H={h} F={f} T={t_len} "
+                f"rows={rows}: max|err| {err.max().item():.3e} mean "
+                f"{err.mean().item():.3e}; at T={T_CHUNK}: {ms:.3f} ms, "
+                f"{1e3 * ms / T_CHUNK:.2f} us a step (modelled "
+                f"{plan.step_us:.2f}), W_ih^T + W_hh^T "
+                f"{4 * h * (f + h) * 2 / 1e6:.1f} MB; plan {plan} on {card}")
+            del inputs, x64
+
+
+def _staged_times(dev, L, PU, PS, gen, rows, card):
+    """Each streamed entry at H=STAGED_TIMED_H and `rows` rows (E at
+    T=STAGED_E_T or T_FRAMES, both K; F at TRAIN_T or T_FRAMES, F=34 and
+    F=H) against its plain version, timed beside its single block (in
+    turns: stream, block, block, stream), the bound, the plain version and
+    cuDNN's nn.LSTM, with the plan; fails where the plan takes the streamed
+    cluster and it is not the faster. Returns both entries' numbers."""
+    h = STAGED_TIMED_H
+    out = {}
+    t_len = STAGED_E_T if rows == TRAIN_BATCH else T_FRAMES
+    gates, w = PS.gates_inputs(t_len, rows, h, dev, seed=SEED + 100 + rows)
+    numbers = {}
+    with torch.no_grad():
+        for k in L.UNROLL_STEPS:
+            got = PU.lstm_unrolled(gates, w, block_t=k)
+            want = PU.lstm_unrolled_reference(gates, w)
+            err = (got.float() - want.float()).abs()
+            max_err = err.max().item()
+            check(max_err < KERNEL_MAX_ABS
+                  and err.mean().item() < KERNEL_MEAN_ABS,
+                  f"lstm_scan_fwd_unrolled_stream vs plain at H={h} K={k} "
+                  f"rows={rows}")
+            del got, want, err
+
+            def timed(k=k):
+                return PU.lstm_unrolled(gates, w, block_t=k)
+
+            def block(k=k):
+                with L.single_block_forwards():
+                    return PU.lstm_unrolled(gates, w, block_t=k)
+
+            iters = 1 if rows > TRAIN_BATCH else 2
+            rounds = [cuda_ms(timed, iters=3), cuda_ms(block, iters=iters),
+                      cuda_ms(block, iters=iters), cuda_ms(timed, iters=3)]
+            ms, ms_block = min(rounds[0], rounds[3]), min(rounds[1:3])
+            hp, route, plan = L.unrolled_route(h, k, rows, dev)
+            log(f"lstm_scan_fwd_unrolled_stream K={k} at T={t_len} "
+                f"rows={rows} H={h}: {ms:.3f} ms, "
+                f"{1e3 * ms / t_len / plan.waves:.3f} us a step a wave "
+                f"(modelled {plan.step_us:.3f}); single block {ms_block:.3f} "
+                f"ms ({L.unrolled_block_rows(h, k)} rows a block; rounds "
+                f"{' '.join(f'{r:.3f}' for r in rounds)}); max|err| "
+                f"{max_err:.3e}; route {ROUTE_NAMES[route]}; plan {plan} on "
+                f"{card}")
+            if route == "_stream":
+                check(ms < ms_block, f"lstm_scan_fwd_unrolled_stream K={k} "
+                      f"at rows={rows}: the plan takes the streamed cluster, "
+                      f"which must beat the single block ({ms:.3f} against "
+                      f"{ms_block:.3f} ms)")
+            numbers[k] = dict(max_abs_err=max_err, ms=ms,
+                              single_block_ms=ms_block, scan_route=route,
+                              plan=dataclasses.asdict(plan))
+        plain = cuda_ms(lambda: PU.lstm_unrolled_reference(gates, w),
+                        iters=1)
+        lib = library_lstm_ms(gates, w)
+    b_ms, by = bound(t_len, rows, h)
+    log(f"lstm_scan_fwd_unrolled_stream at T={t_len} rows={rows} H={h}: "
+        f"bound {b_ms:.4f} ms by {by}; plain {plain:.3f} ms; cuDNN LSTM "
+        f"{lib:.3f} ms on {card}")
+    out[STAGED_STREAM_ENTRIES[0]] = dict(
+        **numbers[2], plain_ms=plain, bound_ms=b_ms, bound_by=by,
+        library_ms=lib, t=t_len, k4=numbers[4])
+    del gates
+
+    t_len = TRAIN_T if rows == TRAIN_BATCH else T_FRAMES
+    layers = {}
+    for f in (SB_FEATURES, h):
+        inputs = PS.layer_inputs(t_len, rows, f, h, dev, seed=SEED + 110 + f)
+        with torch.no_grad():
+            got = L.lstm_layer_tm(*inputs, False, torch.float32)
+            err = (got - L.lstm_layer_reference_tm(*inputs)).abs()
+            max_err = err.max().item()
+            check(max_err < KERNEL_MAX_ABS
+                  and err.mean().item() < KERNEL_MEAN_ABS,
+                  f"lstm_layer_fwd_stream vs plain at H={h} F={f} "
+                  f"rows={rows}")
+            del got, err
+
+            def timed():
+                return L.lstm_layer_tm(*inputs)
+
+            def block():
+                with L.single_block_forwards():
+                    return L.lstm_layer_tm(*inputs)
+
+            rounds = [cuda_ms(timed, iters=3), cuda_ms(block, iters=2),
+                      cuda_ms(block, iters=2), cuda_ms(timed, iters=3)]
+            ms, ms_block = min(rounds[0], rounds[3]), min(rounds[1:3])
+            plain = cuda_ms(lambda: L.lstm_layer_reference_tm(*inputs),
+                            iters=1)
+            lib = library_layer_ms(*inputs)
+        b_ms, by = _layer_bound(t_len, rows, f, h)
+        hp, route, plan = L.layer_route(h, f, rows, dev)
+        log(f"lstm_layer_fwd_stream F={f} at T={t_len} rows={rows} H={h}: "
+            f"{ms:.3f} ms, {1e3 * ms / t_len / plan.waves:.3f} us a step a "
+            f"wave (modelled {plan.step_us:.3f}); single block "
+            f"{ms_block:.3f} ms (rounds {' '.join(f'{r:.3f}' for r in rounds)})"
+            f"; max|err| {max_err:.3e}; bound {b_ms:.4f} ms by {by}; plain "
+            f"{plain:.3f} ms; cuDNN nn.LSTM({f}, {h}) {lib:.3f} ms; route "
+            f"{ROUTE_NAMES[route]}; plan {plan} on {card}")
+        if route == "_stream":
+            check(ms < ms_block, f"lstm_layer_fwd_stream F={f} at rows={rows}"
+                  f": the plan takes the streamed cluster, which must beat "
+                  f"the single block ({ms:.3f} against {ms_block:.3f} ms)")
+        layers[f] = dict(max_abs_err=max_err, ms=ms, single_block_ms=ms_block,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                         library_ms=lib, scan_route=route,
+                         plan=dataclasses.asdict(plan))
+        del inputs
+    out[STAGED_STREAM_ENTRIES[1]] = dict(**layers[SB_FEATURES], t=t_len,
+                                         f_equals_h=layers[h])
+    return out
+
+
+def _staged_path(dev, L, PU):
+    """The path, with the counts set to 0 before each part and read just
+    after: lstm_layer_tm over the real sub-band stack of the 768-unit and
+    the 1536-unit FullSubNet+ (phase 12's hook on one batch-8 x 10 s
+    request: layer 1 F=34, layer 2 F=H), both layers through the entry
+    point against the model's own hoisted stack within the layer path's
+    limits, two launches of lstm_layer_fwd_stream each; then lstm_unrolled
+    and lstm_scan_tm(block_t=k) at H=768, 1536 and E's largest H, bit for
+    bit against kernel A's route. Returns the launches."""
+    from generative_audio_torch import models as M
+    from generative_audio_torch.utils import convert
+    launches = dict.fromkeys(STAGED_STREAM_ENTRIES, 0)
+    for h in STAGED_PATH_H:
+        cfg = M.FullSubNetPlusConfig(sb_model_hidden_size=h)
+        path = ModelPath(
+            name=f"FullSubNet+ sb H={h}", model_cls=M.FullSubNetPlus,
+            config=cfg, sd=convert.convert_fullsubnet_plus(
+                convert.random_fullsubnet_plus_params(cfg, seed=SEED + 37)),
+            mode="mag_complex_full_band_crm_mask", n_inputs=3,
+            fwd="lstm_scan_fwd_stream", carry="lstm_scan_fwd_carry_stream",
+            per_forward=2, per_long_forward=0, train_config=None, per_step={})
+        x, hoisted, weights = _sub_band_stack(dev, path)
+        check(tuple(x.shape) == (T_FRAMES, ROWS, SB_FEATURES),
+              f"the sub-band input of {path.name}")
+        L.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y1 = L.lstm_layer_tm(x, *weights[0])
+            y2 = L.lstm_layer_tm(y1, *weights[1])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = {k: n for k, n in L.launch_counts.items() if n}
+        check(launched == {"lstm_layer_fwd_stream": 2}, f"{path.name}: the "
+              f"two layers launched lstm_layer_fwd_stream twice and nothing "
+              f"else (got {launched})")
+        launches["lstm_layer_fwd_stream"] += 2
+        err = (y2.float() - hoisted.float()).abs()
+        log(f"lstm_layer_tm x 2 over {path.name}'s sub-band input "
+            f"[{T_FRAMES}, {ROWS}, {SB_FEATURES}] vs the model's hoisted "
+            f"stack: max|err| {err.max().item():.3e} mean "
+            f"{err.mean().item():.3e}; {wall:.1f} ms the two layers; plans "
+            f"{L.layer_route(h, SB_FEATURES, ROWS, dev)[2]}, "
+            f"{L.layer_route(h, h, ROWS, dev)[2]}")
+        check(torch.isfinite(y2.float()).all().item()
+              and err.max().item() < LAYER_PATH_MAX_ABS
+              and err.mean().item() < LAYER_PATH_MEAN_ABS,
+              f"{path.name}: lstm_layer_tm stack vs the hoisted stack within "
+              f"{LAYER_PATH_MAX_ABS}/{LAYER_PATH_MEAN_ABS}")
+        del x, hoisted, weights, y1, y2, err
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    t_len, rows = T_CHUNK, 40
+    for h in sorted({768, 1536, *STAGED_E_LARGEST.values()}):
+        w = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+        gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            want = L.lstm_scan_tm(gates, w)                  # kernel A
+            for k in L.UNROLL_STEPS:
+                if h > STAGED_E_LARGEST[k]:
+                    continue
+                L.reset_launch_counts()
+                got = (PU.lstm_unrolled(gates, w, block_t=k),
+                       L.lstm_scan_tm(gates, w, block_t=k))
+                torch.cuda.synchronize()
+                launched = {n: c for n, c in L.launch_counts.items() if c}
+                check(launched == {"lstm_scan_fwd_unrolled_stream": 2},
+                      f"lstm_unrolled and lstm_scan_tm(block_t={k}) at H={h} "
+                      f"launched lstm_scan_fwd_unrolled_stream (got "
+                      f"{launched})")
+                launches["lstm_scan_fwd_unrolled_stream"] += 2
+                check(all(torch.equal(g, want) for g in got),
+                      f"kernel E streamed K={k} == kernel A's route bitwise "
+                      f"(H={h})")
+        a_route = L._forward_route(h, rows, dev)[1]
+        log(f"lstm_unrolled and lstm_scan_tm(block_t=k) at H={h} T={t_len} "
+            f"rows={rows} == lstm_scan_fwd{a_route} bitwise (K="
+            f"{', '.join(str(k) for k in L.UNROLL_STEPS if h <= STAGED_E_LARGEST[k])})")
+        del gates, want, got
+    for k, h in STAGED_E_LARGEST.items():
+        above = h + 64
+        try:
+            L.unrolled_route(above, k, rows, dev)
+        except ValueError as e:
+            log(f"kernel E at H={above} K={k} refused: {str(e)[:160]} ...")
+        else:
+            check(False, f"kernel E at H={above} K={k} must be refused")
+    return launches
+
+
+def phase_streamed_staged(dev, registers):
+    """Phase 25: kernels E and F as streamed clusters. (a) Each `_stream`
+    entry bit for bit against its single block at H=640, 768, 1024 (E at
+    K=2 and 4 and against lstm_scan_fwd_stream; F at F=34 and F=H, forward
+    and reverse, bf16 and fp32 out) and, under streamed_forwards(), against
+    the cluster at H=384 and 512; (b) against its plain version at H=1536
+    and 2304 (E at its largest H where below), with F's step at F=H where
+    its two weights outgrow L2, and timed at H=768 x 18 rows (E T=192, F
+    T=195) and x 2056 rows x T=628 (F=34 and 768) beside the single block,
+    the bound, the plain version and cuDNN, the streamed route the faster
+    wherever the plan takes it; (c) the path: lstm_layer_tm over the
+    sub-band stacks of the 768- and 1536-unit FullSubNet+, and lstm_unrolled
+    and lstm_scan_tm(block_t) at H=768, 1536, 2048 and 2304, with exact
+    launches. Returns the entries' numbers and their launches on (c)."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_lstm_unroll as PU
+    from generative_audio_torch.scripts import perf_staged_scan as PS
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log("kernels E and F streamed, instances: " + (", ".join(
+        f"{k} {v}" for k, v in sorted(registers.items()) if " stream " in k
+        and k[0] in "EF") or "not rebuilt in this run"))
+    card = card_line()
+    _staged_identities(dev, L, PU, PS)
+    _staged_vs_plain(dev, L, PU, PS, card)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 39)
+    kernels = _staged_times(dev, L, PU, PS, gen, TRAIN_BATCH, card)
+    torch.cuda.empty_cache()
+    for name, numbers in _staged_times(dev, L, PU, PS, gen, ROWS,
+                                       card).items():
+        kernels[name]["sub_band"] = numbers
+    torch.cuda.empty_cache()
+    launches = _staged_path(dev, L, PU)
+    log(f"launches of kernels E and F streamed on phase 25's path: "
+        f"{launches}; phase 25 {time.perf_counter() - t0:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched on its path")
+    return kernels, launches
 
 
 def _gru_library(w_hh, b_hh):
@@ -2962,12 +3406,12 @@ def phase_lstm_unroll(dev, registers):
     """Row 10: the K-step unrolled forward through scripts.perf_lstm_unroll,
     bit for bit against kernel A (at the script's and the serving row
     counts, and at H=100 and 200, which the wrapper pads) and, at H=640 and
-    768, which no cluster holds, its single block against kernel A's route
-    there (the streamed cluster); against its plain version, and its times
-    beside
-    kernel A's (the single block's at H=768 beside lstm_scan_fwd_block),
-    with its plans and registers. Returns both entries' numbers and their
-    launches on this path."""
+    768, which no cluster holds, its single block (within
+    single_block_forwards(): the route there is the streamed cluster, phase
+    25) against kernel A's route there (the streamed cluster); against its
+    plain version, and its times beside kernel A's (the single block's at
+    H=768 beside lstm_scan_fwd_block), with its plans and registers.
+    Returns both entries' numbers and their launches on this path."""
     from generative_audio_torch.ops import lstm as L
     from generative_audio_torch.scripts import perf_lstm_unroll as PU
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
@@ -2986,10 +3430,12 @@ def phase_lstm_unroll(dev, registers):
             gates = torch.randn(t_len, rows, 4 * h, generator=gen,
                                 device=dev).to(torch.bfloat16)
             for k in L.UNROLL_STEPS:
-                got = PU.lstm_unrolled(gates, w, block_t=k)      # the path
+                with (L.single_block_forwards() if h in BLOCK_HIDDEN
+                      else contextlib.nullcontext()):
+                    got = PU.lstm_unrolled(gates, w, block_t=k)  # the path
+                    hp, route, _ = L.unrolled_route(h, k)
                 want = L.lstm_scan_tm(gates, w)                  # kernel A
                 torch.cuda.synchronize()
-                hp, route = L.unrolled_route(h, k)
                 expected["lstm_scan_fwd_unrolled" + route] += 1
                 a_entry = "lstm_scan_fwd" + L._forward_route(h, rows,
                                                              dev)[1]
@@ -3017,16 +3463,18 @@ def phase_lstm_unroll(dev, registers):
         w = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
         gates = torch.randn(t_len, rows, 4 * h, generator=gen,
                             device=dev).to(torch.bfloat16)
-        got = PU.lstm_unrolled(gates, w)
+        with L.single_block_forwards():
+            got = PU.lstm_unrolled(gates, w)
         want = PU.lstm_unrolled_reference(gates, w)
         err_blk = (got.float() - want.float()).abs()
         check(err_blk.max().item() < KERNEL_MAX_ABS
               and err_blk.mean().item() < KERNEL_MEAN_ABS,
               f"lstm_scan_fwd_unrolled_block vs plain at H={h}")
         err_blk = err_blk.max().item()
-        ms_blk = {k: cuda_ms(lambda k=k: PU.lstm_unrolled(gates, w, block_t=k),
-                             iters=5) for k in L.UNROLL_STEPS}
         with L.single_block_forwards():
+            ms_blk = {k: cuda_ms(lambda k=k: PU.lstm_unrolled(gates, w,
+                                                              block_t=k),
+                                 iters=5) for k in L.UNROLL_STEPS}
             ms_a_blk = cuda_ms(lambda: L.lstm_scan_tm(gates, w), iters=5)
         plain_blk = cuda_ms(lambda: PU.lstm_unrolled_reference(gates, w),
                             iters=2)
@@ -7946,6 +8394,8 @@ def main():
     bwd_stream_kernels, bwd_stream_launches = phase_streamed_backwards(
         dev, registers)
     kernels.update(bwd_stream_kernels)
+    staged_kernels, staged_launches = phase_streamed_staged(dev, registers)
+    kernels.update(staged_kernels)
     phase_lstm_train_large(dev)
     kernels.update(phase_gru_kernels(dev))
     kernels.update(phase_gru_train_kernels(dev, registers))
@@ -8003,7 +8453,14 @@ def main():
         "lstm_scan_bwd_stream": (f"{csrc}/scan_bwd_stream.cu",
                                  f"{pallas}:300"),
         "gru_scan_bwd_stream": (f"{csrc}/scan_bwd_stream.cu",
-                                f"{pallas}:1019")}
+                                f"{pallas}:1019"),
+        # kernels F and E as streamed clusters above H=512, on phase 25's
+        # path (lstm_layer_tm over the sub-band stacks of the 768- and
+        # 1536-unit FullSubNet+; lstm_unrolled and lstm_scan_tm(block_t))
+        "lstm_layer_fwd_stream": (f"{csrc}/lstm_staged_stream.cu",
+                                  f"{pallas}:542"),
+        "lstm_scan_fwd_unrolled_stream": (f"{csrc}/lstm_staged_stream.cu",
+                                          "scripts/perf_lstm_unroll.py:59")}
     plus, v1_gru, v1_lstm = model_paths()
     counts, plus_rtf = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
                                          "lstm_scan_fwd_train", "lstm_scan_bwd"])
@@ -8032,6 +8489,7 @@ def main():
         counts[name] += n
     counts.update(block_launches)
     counts.update(stream_launches)
+    counts.update(staged_launches)
     for name, n in bwd_stream_launches.items():
         counts[name] += n
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))

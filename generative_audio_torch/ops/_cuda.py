@@ -127,6 +127,15 @@ _SIGNATURES = {
         "lstm_layer_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P],
     },
+    "lstm_staged_stream": {
+        # kernels E and F streamed: ..., k (E) or reverse (F), then the
+        # plan: cluster, rows, resident k-steps, stages, (E:) gate groups,
+        # shared bytes
+        "lstm_scan_fwd_unrolled_stream": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _P],
+        "lstm_layer_fwd_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _P],
+    },
     "lstm_scan_unrolled_block": {
         # ..., k, rows a block, shared bytes
         "lstm_scan_fwd_unrolled_block": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -189,8 +198,9 @@ SOURCES = tuple(_SIGNATURES)
 # train for the LSTM forward; resident for the backwards; k and out_f32 for
 # the staged scans; n_chains, arrangement and resident for kernel G; for
 # the streamed forwards, those of their kernel, the resident k-steps and
-# the ring's stages; for the streamed backwards, tile, the resident slots
-# and the stages), then H, cluster, rows and int* n.
+# the ring's stages; for the staged ones k, out_f32, the resident k-steps,
+# the stages and kernel E's gate groups; for the streamed backwards, tile,
+# the resident slots and the stages), then H, cluster, rows and int* n.
 _QUERIES = {
     "lstm_scan": {
         "lstm_scan_max_clusters": [_I, _I, _I, _I, _I, _I,
@@ -201,6 +211,10 @@ _QUERIES = {
     "lstm_scan_staged": {
         "lstm_scan_staged_max_clusters": [_I, _I, _I, _I, _I,
                                           ctypes.POINTER(ctypes.c_int)],
+    },
+    "lstm_staged_stream": {
+        "lstm_staged_stream_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I,
+                                            ctypes.POINTER(ctypes.c_int)],
     },
     "gru_scan": {
         "gru_scan_max_clusters": [_I, _I, _I, _I, _I,

@@ -18,16 +18,19 @@ Port of five kernels of generative_audio_tpu/ops/pallas_lstm.py:
     `_lstm_bwd_kernel`: the reverse-time backward that recomputes the gates
     and emits bf16 dgates;
   * `lstm_layer_tm` without grad (kernel F, csrc/lstm_scan_staged.cu
-    `lstm_layer_fwd`) replaces `_lstm_layer_pallas_call` /
-    `_lstm_layer_kernel`: x_t @ W_ih inside the scan, no gates buffer; a
-    thread-block cluster whose warps compute the next step's x product
-    while they wait at the step's cluster barrier.
+    `lstm_layer_fwd`; above H = 512 its streamed cluster,
+    csrc/lstm_staged_stream.cu `lstm_layer_fwd_stream`) replaces
+    `_lstm_layer_pallas_call` / `_lstm_layer_kernel`: x_t @ W_ih inside the
+    scan, no gates buffer; a thread-block cluster whose warps compute the
+    next step's x product while they wait at the step's cluster barrier.
 Two more kernels reorganise kernels A and D, bit for bit, and replace the
 kernels that the JAX package keeps in scripts/: `lstm_scan_tm(...,
 block_t=K)` (kernel E, csrc/lstm_scan_staged.cu `lstm_scan_fwd_unrolled`:
 kernel A's cluster whose x-side gates arrive by TMA, K steps at a time;
-above H = 512 its single block, csrc/lstm_scan_unrolled_block.cu
-`lstm_scan_fwd_unrolled_block`, equal to `lstm_scan_fwd_block`) and
+above H = 512 its streamed cluster, csrc/lstm_staged_stream.cu
+`lstm_scan_fwd_unrolled_stream`, or its single block,
+csrc/lstm_scan_unrolled_block.cu `lstm_scan_fwd_unrolled_block`, equal to
+`lstm_scan_fwd_block`) and
 `lstm_scan_bwd_tm(..., n_chains=N)` (kernel G, csrc/lstm_scan_bwd_chains.cu
 `lstm_scan_bwd_chains`: kernel D's cluster whose compute warps carry N
 independent accumulator chains each; where no cluster holds H its single
@@ -66,7 +69,9 @@ shared-memory limit, a step model fitted on the card and the card's
 `cudaOccupancyMaxActiveClusters`; it is plain Python. Kernels E and F are
 clusters too, each with its own layout and step model through the same
 planner (`plan_unrolled`, `plan_layer`; `card_unrolled_plan`,
-`card_layer_plan`). Kernel D runs as a
+`card_layer_plan`), and so are their streamed variants
+(`plan_unrolled_stream`, `plan_layer_stream`; `card_unrolled_stream_plan`,
+`card_layer_stream_plan`). Kernel D runs as a
 thread-block cluster, as the single-block design or, above H = 512, as a
 streamed cluster, which give the same dgates bit for bit: `plan_bwd`,
 shared with the GRU backward, weighs them by step models fitted on the
@@ -82,9 +87,12 @@ entries ending in `_stream`: the first k-steps of each CTA's slice resident,
 the rest streamed from L2 through a ring of bulk copies at every step; plan
 `plan_stream_scan`, `card_stream_plan`, at H padded to `stream_hidden`) or
 the single block (csrc/lstm_scan_block.cu, entries ending in `_block`, at H
-padded to 16), whichever has the least waves x modelled step; kernels E and
-F take their single blocks (csrc/lstm_scan_unrolled_block.cu and
-csrc/lstm_layer_block.cu), and kernel D its single block (dc in registers,
+padded to 16), whichever has the least waves x modelled step; so do
+kernels E and F between their streamed clusters (csrc/lstm_staged_stream.cu:
+the same ring, kernel E's gates by TMA K steps at a time, kernel F's x
+product between the arrive and the wait of the cluster barrier) and their
+single blocks (csrc/lstm_scan_unrolled_block.cu and
+csrc/lstm_layer_block.cu); kernel D takes its single block (dc in registers,
 H up to 1024) or its streamed cluster (csrc/scan_bwd_stream.cu: both W_hh
 operands streamed, at H padded to `stream_hidden`), whichever has the
 least waves x modelled step. `single_block_forwards()` and
@@ -93,12 +101,13 @@ any H, for holding them against the resident cluster, bit for bit. A
 padded unit sees zero gates, zero weights and zero bias, so
 it stays at h = c = 0 (g = tanh 0 = 0), adds exact zeros to the real
 units' sums and gets zero dgates. What no design holds raises with the
-bytes: kernels A-C, kernel D and the GRU forwards and backward above
-H = 2304 (the streamed clusters' 18 items a CTA; the single blocks stop at
-1808, 1024, 1648 and 1072), kernel G above H = 512 (two chains) or
-where neither its cluster nor its single block holds four chains, kernel E
-where not even a block of 4 rows holds K steps of gates (H above 1104 at
-K = 4).
+bytes: kernels A-C, kernel D, kernel F and the GRU forwards and backward
+above H = 2304 (the streamed clusters' 18 items a CTA; the single blocks
+stop at 1808, 1024, 1648 and 1072, kernel F's at 1776 for F = 34), kernel
+G above H = 512 (two chains) or where neither its cluster nor its single
+block holds four chains, kernel E where not even one group of K steps of
+gates fits beside its streamed CTA's h buffers (H above 2304 at K = 2,
+above 2048 at K = 4).
 """
 from __future__ import annotations
 
@@ -122,7 +131,7 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "card_scan_plan", "plan_cluster_scan", "cluster_hidden",
            "lstm_scan_bwd_planned_tm", "BwdPlan", "plan_bwd",
            "plan_bwd_scan", "card_bwd_scan_plan", "bwd_smem_bytes_cluster",
-           "bwd_step_us", "forward_hidden", "block_smem_bytes",
+           "bwd_step_us", "block_smem_bytes",
            "single_block_forwards", "unrolled_smem_bytes",
            "unrolled_step_us", "plan_unrolled", "card_unrolled_plan",
            "unrolled_hidden", "lstm_scan_unrolled_planned_tm",
@@ -141,7 +150,12 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "BwdStreamPlan", "BWD_STREAM_STAGES", "bwd_warp_items",
            "bwd_stream_cluster_smem_bytes", "bwd_stream_smem_bytes", "bwd_stream_cluster_step_us",
            "bwd_stream_step_us", "plan_bwd_stream", "plan_bwd_stream_scan",
-           "card_bwd_stream_plan"]
+           "card_bwd_stream_plan", "UnrolledStreamPlan",
+           "UNROLL_STREAM_GROUPS", "unrolled_stream_smem_bytes",
+           "layer_stream_smem_bytes", "unrolled_stream_step_us",
+           "layer_stream_step_us", "plan_unrolled_stream",
+           "plan_layer_stream", "card_unrolled_stream_plan",
+           "card_layer_stream_plan", "layer_block_step_us"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -156,6 +170,8 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "lstm_scan_fwd_unrolled_block": "lstm_scan_unrolled_block",
               "lstm_layer_fwd": "lstm_scan_staged",
               "lstm_layer_fwd_block": "lstm_layer_block",
+              "lstm_scan_fwd_unrolled_stream": "lstm_staged_stream",
+              "lstm_layer_fwd_stream": "lstm_staged_stream",
               "lstm_scan_bwd": "lstm_scan_bwd",
               "lstm_scan_bwd_chains": "lstm_scan_bwd_chains",
               "lstm_scan_bwd_chains_block": "lstm_scan_bwd",
@@ -234,6 +250,22 @@ _STREAM_PARTS = (3.7616, 2.0149e-3, 0.0104, 0.36)
 # (H = 640, 768, 1024), the last the most that its steps at 2056 rows (129
 # blocks a wave) need, on an H100 SXM at 700 W (the same sweep).
 _BLOCK_PARTS = (17.627, 0.33618, 0.35841)
+# Kernels E and F as streamed clusters (csrc/lstm_staged_stream.cu): the
+# gate-ring depths (K-step groups) kernel E's planner weighs, and the parts
+# of their step models (microseconds): stream_cluster_step_us's four (step,
+# store, kilobyte, latency), then kernel E's copy latency of a group of
+# gates where the ring holds one (over its K steps), and kernel F's x
+# k-step of one item (layer_step_us's term). Least-squares fits to the
+# steps of one-cluster plans at T = 192 (H = 640-2048; C = 8 x 16 rows and
+# C = 16 x 16-48 rows; rings of 1-8 stages, 0 to the most resident k-steps;
+# E at K = 2 and 4 with one and two gate groups, 264 plans; F at F = 34 and
+# F = H, 182 plans) on an H100 SXM at 700 W
+# (generative_audio_torch/scripts/perf_staged_scan.py --stream), off by 1.7
+# and 2.9 us a step in the mean; the most (18 and 24 us) at H = 2048 with a
+# ring of one stage, which the copy latency bounds harder than the model.
+UNROLL_STREAM_GROUPS = (2, 1)
+_UNROLL_STREAM_PARTS = (1.3956, 1.6442e-3, 0.0142, 0.65, 0.7715)
+_LAYER_STREAM_PARTS = (4.5232, 9.045e-4, 0.0178, 0.89, 0.02728)
 # SMs of an H100 SXM, and the shared memory of one of them (228 KB).
 H100_SMS = 132
 _SM_SHARED = 233472
@@ -632,7 +664,7 @@ def cluster_hidden(hsz: int, smem_bytes: SmemBytes) -> int:
     of 8 C (C of CLUSTER_SIZES) at or above hsz whose CTA of 16 rows fits
     SMEM_LIMIT bytes. hsz itself when it is such a multiple (384 and 512
     are). Raises ValueError when no cluster holds the layer's W_hh slice
-    (forward_hidden then takes the single-block route)."""
+    (plan_forward then weighs the streamed cluster and the single block)."""
     hp = _cluster_fit(hsz, smem_bytes)
     if hp is None:
         need = ", ".join(
@@ -666,20 +698,6 @@ def single_block_forwards():
         yield
     finally:
         _single_block[0] = False
-
-
-def forward_hidden(hsz: int, smem_bytes: SmemBytes) -> Tuple[int, str]:
-    """(H, entry suffix) kernels E and F run a layer of hsz units with:
-    cluster_hidden's H and the cluster entries ("") where a cluster holds
-    the layer's W_hh slice, else hsz padded to whole 16-deep k-steps and
-    their single-block entries ("_block", csrc/lstm_scan_unrolled_block.cu
-    and csrc/lstm_layer_block.cu), which read W_hh from L2 (always within
-    single_block_forwards()). Kernels A-C and the GRU forwards take
-    plan_forward's route."""
-    hp = None if _single_block[0] else _cluster_fit(hsz, smem_bytes)
-    if hp is not None:
-        return hp, ""
-    return -(-hsz // _STEP_UNITS) * _STEP_UNITS, "_block"
 
 
 @functools.lru_cache(maxsize=None)
@@ -978,19 +996,23 @@ def plan_forward(what: str, hsz: int, batch: int, smem_bytes: SmemBytes,
                  block_smem: Callable[[int], int],
                  block_step: Callable[[int, int], float],
                  stream_plan: Callable[[Optional[int]], StreamPlan],
-                 sms: int = H100_SMS) -> Tuple[int, str, Optional[StreamPlan]]:
+                 sms: int = H100_SMS,
+                 block_rows: Callable[[int], int] = lambda hb: _ROWS
+                 ) -> Tuple[int, str, Optional[StreamPlan]]:
     """(H, entry suffix, streamed plan) of a forward scan for `batch` rows of
     a layer of hsz units: the resident cluster ("", its plan appended at the
     launch) at cluster_hidden's H where a cluster holds the layer's W_hh
     slice; else the streamed cluster ("_stream", `stream_plan(None)`) or the
-    single block ("_block", H padded to 16, ceil(batch / 16) blocks of
-    block_smem(H) bytes, sm_blocks of them at once, block_step(H, blocks of
-    a wave) a step), whichever has the least waves x modelled step. Within
-    single_block_forwards() the single block, within streamed_forwards() the
-    streamed cluster (with its resident k-steps), at any H. The resident
-    cluster does the streamed cluster's work without the stream, and the
-    single block's modelled step is over 5x the resident cluster's at any
-    H that both hold, so where it fits it is not weighed."""
+    single block ("_block", H padded to 16, ceil(batch / block_rows(H))
+    blocks of block_smem(H) bytes, sm_blocks of them at once, block_step(H,
+    blocks of a wave) a step), whichever has the least waves x modelled
+    step. Within single_block_forwards() the single block, within
+    streamed_forwards() the streamed cluster (with its resident k-steps), at
+    any H. The resident cluster does the streamed cluster's work without the
+    stream, and the single block's modelled step is over 5x the resident
+    cluster's at any H that both hold, so where it fits it is not weighed.
+    Kernels A-C, the GRU forwards and kernels E and F take their routes
+    here."""
     force = ("_block" if _single_block[0]
              else "_stream" if _streamed else None)
     if force is None:
@@ -1009,7 +1031,7 @@ def plan_forward(what: str, hsz: int, batch: int, smem_bytes: SmemBytes,
     smem = block_smem(hb)
     if force != "_stream":
         if smem <= SMEM_LIMIT:
-            tiles = -(-batch // 16)
+            tiles = -(-batch // block_rows(hb))
             active = sm_blocks(smem, sms)
             waves = -(-tiles // active)
             options.append((waves * block_step(hb, min(tiles, active)), 1,
@@ -1029,8 +1051,8 @@ _streamed: List[Optional[int]] = []   # set by streamed_forwards()
 
 @contextlib.contextmanager
 def streamed_forwards(resident_ksteps: Optional[int] = None):
-    """Within the block, the forward wrappers of both modules (kernels A-C
-    and the GRU forwards) take the streamed cluster at any H, with
+    """Within the block, the forward wrappers of both modules (kernels A-C,
+    E and F and the GRU forwards) take the streamed cluster at any H, with
     `resident_ksteps` resident (an even number; None: the planner's): for
     holding it against the resident cluster, which it equals bit for bit
     where both run."""
@@ -1140,21 +1162,47 @@ def unrolled_block_rows(hsz: int, k: int) -> int:
         f"{rows} rows a block, more than the {SMEM_LIMIT} B a block may use")
 
 
-def unrolled_route(hsz: int, k: int) -> Tuple[int, str]:
-    """(H, entry suffix) kernel E runs a layer of hsz units with, k steps a
-    group: forward_hidden with its cluster layout, so the cluster ("") up
-    to H = 512 and the single block ("_block",
-    csrc/lstm_scan_unrolled_block.cu) at H padded to 16 above; raises when
-    not even a block of the fewest rows fits."""
-    hp, suffix = forward_hidden(
-        hsz, lambda h, c, r: unrolled_smem_bytes(h, c, r, k))
-    if suffix:
-        unrolled_block_rows(hp, k)
-    return hp, suffix
+def unrolled_route(hsz: int, k: int, batch: int = 1,
+                   device: Optional[torch.device] = None
+                   ) -> Tuple[int, str, Optional["UnrolledStreamPlan"]]:
+    """(H, entry suffix, streamed plan) kernel E runs `batch` rows of a
+    layer of hsz units with, k steps a group: plan_forward with kernel E's
+    layouts, so the cluster ("") where one holds the slice beside the gates
+    ring (up to H = 512), else the streamed cluster ("_stream",
+    csrc/lstm_staged_stream.cu, at H padded to stream_hidden's units) or the
+    single block ("_block", csrc/lstm_scan_unrolled_block.cu, at H padded to
+    16, unrolled_block_rows a block), whichever has the least modelled
+    waves x step. The streamed plan takes the occupancy of the card of
+    `device`; without a device, one cluster at a time (the layouts alone,
+    as the wrappers check what a CPU tensor asks for). Raises, naming the
+    bytes, where none holds the layer (H above 2048 at K = 4, above 2304
+    at K = 2)."""
+    def stream_plan(resident):
+        if device is None:
+            return plan_unrolled_stream(hsz, batch, k, lambda *a: 1, resident)
+        return card_unrolled_stream_plan(device, hsz, batch, k, resident)
+
+    return plan_forward(
+        f"LSTM unrolled (K={k})", hsz, batch,
+        lambda h, c, r: unrolled_smem_bytes(h, c, r, k),
+        lambda hb: unrolled_block_smem_bytes(hb, _unrolled_rows(hb, k), k),
+        block_step_us, stream_plan,
+        H100_SMS if device is None else _device_sms(device),
+        lambda hb: _unrolled_rows(hb, k))
+
+
+def _unrolled_rows(hsz: int, k: int) -> int:
+    """unrolled_block_rows, or the fewest rows where no block fits (whose
+    bytes plan_forward then names)."""
+    try:
+        return unrolled_block_rows(hsz, k)
+    except ValueError:
+        return UNROLLED_BLOCK_ROWS[-1]
 
 
 def unrolled_hidden(hsz: int, k: int) -> int:
-    """The H kernel E runs a layer of hsz units at (unrolled_route's)."""
+    """The H kernel E runs a layer of hsz units at (unrolled_route's, the
+    layouts alone); raises where no design holds it."""
     return unrolled_route(hsz, k)[0]
 
 
@@ -1223,17 +1271,190 @@ def layer_block_smem_bytes(hsz: int, f: int) -> int:
             + 2 * _ROWS * (-(-f // 16) * 16 + _PAD) * 2)
 
 
-def layer_route(hsz: int, f: int) -> Tuple[int, str]:
-    """(H, entry suffix) kernel F runs a layer of hsz units and f (even)
-    input features with: forward_hidden with kernel F's layout, so the
-    cluster ("") up to H = 512 and the single block ("_block",
-    csrc/lstm_layer_block.cu) above; raises when not even a single block
-    fits."""
-    hp, suffix = forward_hidden(hsz, layer_smem_bytes)
-    if suffix:
-        check_smem(f"lstm_layer_fwd_block at H={hp}",
-                   layer_block_smem_bytes(hp, f))
-    return hp, suffix
+def layer_block_step_us(hsz: int, blocks: int, f: int) -> float:
+    """Modelled step of kernel F's single block (csrc/lstm_layer_block.cu):
+    block_step_us's parts, with the x product's ceil(f / 16) k-steps of
+    W_ih^T fragment loads added to each 8-unit group's rounds and W_ih^T's
+    bytes to the wave's reads."""
+    step_us, round_us, mb_us = _BLOCK_PARTS
+    rounds = -(-hsz // 64) * (hsz // 16 + -(-f // 16))
+    megabytes = blocks * 4 * hsz * (hsz + f) * 2 / 1e6
+    return step_us + max(rounds * round_us, megabytes * mb_us)
+
+
+def layer_route(hsz: int, f: int, batch: int = 1,
+                device: Optional[torch.device] = None,
+                out_dtype: torch.dtype = torch.bfloat16
+                ) -> Tuple[int, str, Optional[StreamPlan]]:
+    """(H, entry suffix, streamed plan) kernel F runs `batch` rows of a
+    layer of hsz units and f (even) input features with: plan_forward with
+    kernel F's layouts, so the cluster ("") up to H = 512, else the
+    streamed cluster ("_stream", csrc/lstm_staged_stream.cu, at H padded to
+    stream_hidden's units) or the single block ("_block",
+    csrc/lstm_layer_block.cu, at H padded to 16), whichever has the least
+    modelled waves x step; the occupancy as unrolled_route's. Raises,
+    naming the bytes, where none holds the layer (H above 2304)."""
+    def stream_plan(resident):
+        if device is None:
+            return plan_layer_stream(hsz, batch, f, lambda *a: 1, resident)
+        return card_layer_stream_plan(device, hsz, batch, f, out_dtype,
+                                      resident)
+
+    return plan_forward(
+        f"LSTM layer (F={f})", hsz, batch, layer_smem_bytes,
+        lambda hb: layer_block_smem_bytes(hb, f),
+        lambda hb, blocks: layer_block_step_us(hb, blocks, f), stream_plan,
+        H100_SMS if device is None else _device_sms(device))
+
+
+# ---- kernels E and F as streamed clusters (csrc/lstm_staged_stream.cu) -----
+
+@dataclasses.dataclass(frozen=True)
+class UnrolledStreamPlan(StreamPlan):
+    """Launch plan of kernel E's streamed cluster (`lstm_scan_fwd_unrolled_
+    stream`): a StreamPlan whose CTAs also hold `groups` K-step groups of
+    x-side gates in a TMA ring (two: the copies run K to 2K steps ahead;
+    one: each group's copy waits under the exchange)."""
+    groups: int = 2       # K-step groups of gates in the ring
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int, int, int]:
+        """The C entry's last arguments before the stream."""
+        return (self.cluster, self.rows, self.resident, self.stages,
+                self.groups, self.smem_bytes)
+
+
+def unrolled_stream_smem_bytes(hsz: int, cluster: int, rows: int, k: int,
+                               resident: int, stages: int, groups: int
+                               ) -> int:
+    """Shared memory of one CTA of kernel E streamed
+    (csrc/lstm_staged_stream.cu `unrolled_stream_smem`): the TMA ring of
+    `groups` groups of k steps' gates [groups][4][k][rows][U] bf16 (128
+    bytes of slack to align it), the ring of `stages` k-pairs and the
+    `resident` k-steps of the W_hh^T slice in fragment order (4U x 16 bf16 a
+    k-step), two bf16 h buffers [rows][H + 8] and the mbarriers (two a
+    stage, one a group), with U = H / cluster units. c lives in registers."""
+    units, stride = hsz // cluster, hsz + _PAD
+    return (groups * 4 * k * rows * units * 2
+            + (2 * stages + resident) * 4 * units * 32
+            + 2 * rows * stride * 2 + 16 * stages + 8 * groups + 128)
+
+
+def layer_stream_smem_bytes(hsz: int, cluster: int, rows: int,
+                            resident: int, stages: int) -> int:
+    """Shared memory of one CTA of kernel F streamed
+    (csrc/lstm_staged_stream.cu `layer_stream_smem`): the ring and the
+    resident k-steps of the W_hh^T slice, two bf16 h buffers [rows][H + 8]
+    and the ring's mbarriers. c and the accumulators live in registers,
+    W_ih^T's fragments come from L2."""
+    units, stride = hsz // cluster, hsz + _PAD
+    return ((2 * stages + resident) * 4 * units * 32 + 2 * rows * stride * 2
+            + 16 * stages)
+
+
+def unrolled_stream_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                            stages: int, k: int, groups: int) -> float:
+    """Modelled time of one step of one wave of kernel E streamed:
+    stream_cluster_step_us with its own parts, plus, where the ring holds
+    one group of gates, a group's copy latency over its k steps."""
+    *parts, group_us = _UNROLL_STREAM_PARTS
+    return (stream_cluster_step_us(hsz, cluster, rows, resident, stages, 4,
+                                   tuple(parts))
+            + (group_us / k if groups == 1 else 0.0))
+
+
+def layer_stream_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                         stages: int, f: int) -> float:
+    """Modelled time of one step of one wave of kernel F streamed:
+    stream_cluster_step_us with its own parts, plus the x product's
+    ceil(f / 16) k-steps for each of the CTA's items (layer_step_us's
+    term)."""
+    *parts, kx_us = _LAYER_STREAM_PARTS
+    items = rows // 16 * (hsz // cluster // 8)
+    return (stream_cluster_step_us(hsz, cluster, rows, resident, stages, 4,
+                                   tuple(parts))
+            + -(-f // 16) * items * kx_us)
+
+
+# (H, cluster, rows, resident k-steps, stages, groups) -> clusters at once
+UnrolledStreamClusters = Callable[[int, int, int, int, int, int], int]
+
+
+def plan_unrolled_stream(hsz: int, batch: int, k: int,
+                         max_clusters: UnrolledStreamClusters,
+                         resident: Optional[int] = None
+                         ) -> UnrolledStreamPlan:
+    """Kernel E's streamed plan for `batch` rows of a layer of hsz units, k
+    steps a group: plan_stream with its layout and step model for each gate
+    ring of UNROLL_STREAM_GROUPS groups, the least modelled waves x step
+    (ties to the deeper ring). Raises ValueError with the bytes where not
+    even one group fits."""
+    best, refused = None, []
+    for groups in UNROLL_STREAM_GROUPS:
+        try:
+            plan = plan_stream(
+                f"LSTM unrolled (K={k}, {groups} gate group(s))", hsz, batch,
+                lambda h, c, r, res, st: unrolled_stream_smem_bytes(
+                    h, c, r, k, res, st, groups),
+                lambda h, c, r, res, st: max_clusters(h, c, r, res, st,
+                                                      groups),
+                lambda h, c, r, res, st: unrolled_stream_step_us(
+                    h, c, r, res, st, k, groups), resident)
+        except ValueError as e:
+            refused.append(str(e))
+            continue
+        if best is None or plan.waves * plan.step_us < (
+                best.waves * best.step_us):
+            best = UnrolledStreamPlan(**dataclasses.asdict(plan),
+                                      groups=groups)
+    if best is None:
+        raise ValueError("; ".join(refused))
+    return best
+
+
+def plan_layer_stream(hsz: int, batch: int, f: int,
+                      max_clusters: Callable[[int, int, int, int, int], int],
+                      resident: Optional[int] = None) -> StreamPlan:
+    """Kernel F's streamed plan for `batch` rows of a layer of hsz units and
+    f input features (plan_stream with its layout and step model)."""
+    return plan_stream(f"LSTM layer (F={f})", hsz, batch,
+                       layer_stream_smem_bytes, max_clusters,
+                       lambda h, c, r, res, st: layer_stream_step_us(
+                           h, c, r, res, st, f), resident)
+
+
+_STAGED_STREAM = "lstm_staged_stream"
+
+
+@functools.lru_cache(maxsize=None)
+def card_unrolled_stream_plan(device: torch.device, hsz: int, batch: int,
+                              k: int, resident: Optional[int] = None
+                              ) -> UnrolledStreamPlan:
+    """The streamed plan kernel E launches with on `device` (a CUDA device)
+    for `batch` rows of a layer of hsz units, k steps a group (occupancy
+    from csrc/lstm_staged_stream.cu `lstm_staged_stream_max_clusters` with
+    (k, 0, resident, stages, groups))."""
+    index = _device_index(device)
+    return plan_unrolled_stream(
+        hsz, batch, k, lambda h, c, r, res, stages, groups: _max_clusters(
+            _STAGED_STREAM, index, (k, 0, res, stages, groups), h, c, r),
+        resident)
+
+
+@functools.lru_cache(maxsize=None)
+def card_layer_stream_plan(device: torch.device, hsz: int, batch: int, f: int,
+                           out_dtype: torch.dtype = torch.bfloat16,
+                           resident: Optional[int] = None) -> StreamPlan:
+    """The streamed plan kernel F launches with on `device` for `batch` rows
+    of a layer of hsz units and f input features, occupancy from
+    `lstm_staged_stream_max_clusters` with (1, out_f32, resident, stages,
+    0)."""
+    index = _device_index(device)
+    out_f32 = int(out_dtype == torch.float32)
+    return plan_layer_stream(
+        hsz, batch, f, lambda h, c, r, res, stages: _max_clusters(
+            _STAGED_STREAM, index, (1, out_f32, res, stages, 0), h, c, r),
+        resident)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1921,8 +2142,9 @@ def _launch(fn_name: str, *args,
     (arguments ending in T, B, H, k; default card_unrolled_plan's) and
     kernel F's (ending in T, B, F, H, reverse; default card_layer_plan's
     for the output type). The streamed variants of A-C take `plan` (the
-    StreamPlan the wrapper packed W_hh for; no default), and so does kernel
-    D's streamed cluster (the BwdStreamPlan). Raises first,
+    StreamPlan the wrapper packed W_hh for; no default), and so do kernel
+    D's streamed cluster (the BwdStreamPlan) and kernels E's and F's
+    (an UnrolledStreamPlan, a StreamPlan). Raises first,
     before any plan asks the card and
     before anything is built, for a tensor off a 16-byte boundary: the
     wrappers hand every kernel aligned operands, and a misaligned read
@@ -1961,6 +2183,11 @@ def _launch(fn_name: str, *args,
         args = (*args, *_stream_args(fn_name, plan, args[-2]))
     elif fn_name == "lstm_scan_bwd_stream":
         args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
+    elif fn_name == "lstm_scan_fwd_unrolled_stream":
+        args = (*args, *_stream_args(fn_name, plan, args[-2],
+                                     UnrolledStreamPlan))
+    elif fn_name == "lstm_layer_fwd_stream":
+        args = (*args, *_stream_args(fn_name, plan, args[-2]))
     _launch_kernel(fn_name, *args)
 
 
@@ -2000,14 +2227,6 @@ def bwd_smem_bytes(hsz: int, n_chains: int = 1) -> int:
                        + _ROWS * hsz * 4)
 
 
-def check_smem(what: str, nbytes: int) -> None:
-    """Raise when a launch would ask for more shared memory than a block may
-    opt in to."""
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{what} needs {nbytes} B of shared memory per block, "
-                         f"more than the {SMEM_LIMIT} B a block may use")
-
-
 def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -2036,8 +2255,9 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
     kernel's input), w_hh [H, 4H] -> h sequence [T, B, H] in out_dtype.
     h and c start at zero. CUDA tensors run kernel A, or with block_t = 2
     or 4 kernel E (forward, bf16 output, T a multiple of block_t; the same
-    h bit for bit; H zero-padded to unrolled_route's units, the single
-    block above H = 512); when autograd
+    h bit for bit; H zero-padded to unrolled_route's units: the cluster up
+    to H = 512, above it the streamed cluster or the single block); when
+    autograd
     records and an input requires grad, the call goes through LSTMScan
     (kernels C and D) instead, on either device."""
     t_len, b, hsz = _check_shapes(gates_x, w_hh, out_dtype)
@@ -2074,34 +2294,55 @@ def _route_weight(w_hh: torch.Tensor, hp: int,
 
 
 def _scan_unrolled(gates: torch.Tensor, w_hh: torch.Tensor, block_t: int,
-                   plan: Optional[ScanPlan] = None) -> torch.Tensor:
-    """Kernel E on bf16 CUDA gates [T, B, 4H] at H padded to
-    unrolled_route's units: the cluster with `plan` (default:
-    card_unrolled_plan's), or above H = 512 the single block."""
+                   plan: Optional[Union[ScanPlan, UnrolledStreamPlan]] = None
+                   ) -> torch.Tensor:
+    """Kernel E on bf16 CUDA gates [T, B, 4H]: unrolled_route's design at
+    its H (zero-padded), or the design of a given plan (a ScanPlan: the
+    cluster; an UnrolledStreamPlan: the streamed cluster at its H)."""
     t_len, b, g4 = gates.shape
     hsz = g4 // 4
-    hp, route = unrolled_route(hsz, block_t)
-    if plan is not None and route:
-        raise ValueError(f"no cluster of kernel E takes H={hsz}")
+    if plan is None:
+        hp, route, plan = unrolled_route(hsz, block_t, max(b, 1),
+                                         gates.device)
+    elif isinstance(plan, UnrolledStreamPlan):
+        hp, route = plan.hidden, "_stream"
+    else:
+        hp, route = _staged_cluster_hidden(
+            "E", hsz, lambda h, c, r: unrolled_smem_bytes(h, c, r, block_t)), ""
     out = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=gates.device)
     if t_len and b:
-        operands = (_pad_gates(gates, 4, hp), _kernel_weight(w_hh, hp), out,
-                    t_len, b, hp, block_t)
-        if route:
+        tail = (out, t_len, b, hp, block_t)
+        if route == "_block":
             rows = unrolled_block_rows(hp, block_t)
-            _launch("lstm_scan_fwd_unrolled_block", *operands, rows,
+            _launch("lstm_scan_fwd_unrolled_block", _pad_gates(gates, 4, hp),
+                    _kernel_weight(w_hh, hp), *tail, rows,
                     unrolled_block_smem_bytes(hp, rows, block_t))
         else:
-            _launch("lstm_scan_fwd_unrolled", *operands, plan=plan)
+            _launch("lstm_scan_fwd_unrolled" + route,
+                    _pad_gates(gates, 4, hp),
+                    _route_weight(w_hh, hp, plan if route else None), *tail,
+                    plan=plan)
     return _unpad_units(out, hsz)
 
 
+def _staged_cluster_hidden(kernel: str, hsz: int, smem_bytes: SmemBytes
+                           ) -> int:
+    """The H kernel E's or F's resident cluster runs a layer of hsz units
+    at, for a given cluster plan; raises where no cluster holds it."""
+    hp = _cluster_fit(hsz, smem_bytes)
+    if hp is None:
+        raise ValueError(f"no cluster of kernel {kernel} takes H={hsz}")
+    return hp
+
+
 def lstm_scan_unrolled_planned_tm(gates: torch.Tensor, w_hh: torch.Tensor,
-                                  plan: ScanPlan, block_t: int
-                                  ) -> torch.Tensor:
+                                  plan: Union[ScanPlan, UnrolledStreamPlan],
+                                  block_t: int) -> torch.Tensor:
     """lstm_scan_tm(..., block_t) on CUDA tensors with a given launch plan
-    of kernel E (a ScanPlan of plan_unrolled's layout for the padded H), for
-    holding the plans against kernel A and timing them."""
+    of kernel E: a ScanPlan of plan_unrolled's layout (the cluster, at H
+    padded to its units) or an UnrolledStreamPlan (the streamed cluster, at
+    the plan's H), for holding the plans against kernel A and timing
+    them."""
     t_len, _, hsz = _check_shapes(gates, w_hh, torch.bfloat16)
     _check_unrolled(t_len, hsz, block_t, False, torch.bfloat16, False)
     if not _is_cuda(gates, w_hh):
@@ -2430,9 +2671,10 @@ def lstm_layer_tm(x_tm: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     """Whole LSTM layer, time-major, projection inside the scan: x_tm
     [T, B, F], w_ih [F, 4H], w_hh [H, 4H], bias [4H] -> [T, B, H] in
     out_dtype. CUDA tensors run kernel F, which computes x_t @ W_ih inside
-    the scan, so the [T, B, 4H] gates never exist: the cluster at H
-    zero-padded to layer_route's units (up to 512), the single block
-    (`lstm_layer_fwd_block`) above; CPU tensors run the plain version. When
+    the scan, so the [T, B, 4H] gates never exist: at H zero-padded to
+    layer_route's units, the cluster up to H = 512, above it the streamed
+    cluster (`lstm_layer_fwd_stream`, up to H = 2304) or the single block
+    (`lstm_layer_fwd_block`); CPU tensors run the plain version. When
     autograd records and an input requires grad, the call goes through
     LSTMLayerScan (hoisted projection, kernels C and D), as the JAX
     function's VJP does. The JAX function's `block_b` and `interpret` are
@@ -2448,11 +2690,13 @@ def lstm_layer_tm(x_tm: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
 
 def lstm_layer_planned_tm(x_tm: torch.Tensor, w_ih: torch.Tensor,
                           w_hh: torch.Tensor, bias: torch.Tensor,
-                          plan: ScanPlan, reverse: bool = False,
+                          plan: Union[ScanPlan, StreamPlan],
+                          reverse: bool = False,
                           out_dtype: torch.dtype = torch.bfloat16
                           ) -> torch.Tensor:
     """lstm_layer_tm on CUDA tensors without grad, with a given launch plan
-    of kernel F's cluster (a ScanPlan for the padded H), for holding the
+    of kernel F: a ScanPlan (the cluster, at H padded to its units) or a
+    StreamPlan (the streamed cluster, at the plan's H), for holding the
     plans against the single block and timing them."""
     _check_layer_shapes(x_tm, w_ih, w_hh, bias, out_dtype)
     if not _is_cuda(x_tm, w_ih, w_hh, bias):
@@ -2462,10 +2706,10 @@ def lstm_layer_planned_tm(x_tm: torch.Tensor, w_ih: torch.Tensor,
 
 def _layer_fwd(x_tm: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
                bias: torch.Tensor, reverse: bool, out_dtype: torch.dtype,
-               plan: Optional[ScanPlan] = None) -> torch.Tensor:
-    """Kernel F on CUDA tensors: the route by H (layer_route; the cluster
-    whenever a plan is given), W_ih, W_hh and the bias zero-padded to its
-    units, x with an even F."""
+               plan: Optional[Union[ScanPlan, StreamPlan]] = None
+               ) -> torch.Tensor:
+    """Kernel F on CUDA tensors: layer_route's design (or a given plan's),
+    W_ih, W_hh and the bias zero-padded to its units, x with an even F."""
     t_len, b, f = x_tm.shape
     hsz = w_hh.shape[0]
     x = x_tm.to(torch.bfloat16)
@@ -2473,21 +2717,25 @@ def _layer_fwd(x_tm: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
         x = F.pad(x, (0, 1))
     x = x.contiguous()
     f_even = x.shape[-1]
-    hp, route = layer_route(hsz, f_even)
-    if plan is not None and route:
-        raise ValueError(f"no cluster of kernel F takes H={hsz}")
+    if plan is None:
+        hp, route, plan = layer_route(hsz, f_even, max(b, 1), x.device,
+                                      out_dtype)
+    elif isinstance(plan, StreamPlan):
+        hp, route = plan.hidden, "_stream"
+    else:
+        hp, route = _staged_cluster_hidden("F", hsz, layer_smem_bytes), ""
     _check_kernel_operand("x_tm", x, torch.bfloat16)
     w_i = _pad_gates(w_ih, 4, hp)
     out = torch.empty(t_len, b, hp, dtype=out_dtype, device=x.device)
     if t_len and b:
-        tail = (_kernel_weight(w_hh, hp),
+        tail = (_route_weight(w_hh, hp, plan if route == "_stream" else None),
                 _kernel_operand(_pad_gates(bias, 4, hp), torch.float32), out,
                 out_dtype == torch.float32, t_len, b, f_even, hp, reverse)
-        if route:
+        if route == "_block":
             _launch("lstm_layer_fwd_block", x,
                     _kernel_input_weight(w_i, -(-f_even // 16) * 16), *tail)
         else:
-            _launch("lstm_layer_fwd", x, _fragment_rows(
+            _launch("lstm_layer_fwd" + route, x, _fragment_rows(
                 _kernel_input_weight(w_i, -(-f_even // 32) * 32)), *tail,
                 plan=plan)
     return _unpad_units(out, hsz)

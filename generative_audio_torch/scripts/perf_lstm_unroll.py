@@ -7,10 +7,13 @@ the group's gate tiles of its columns by TMA into a ring of two groups, and
 every thread waits for them once a group, so those loads leave the serial
 chain. The products and the cell are kernel A's, so the output is
 bit-identical. The wrapper pads H to the cluster's units; above H=512, where
-no cluster holds the ring, it takes kernel E's single block
-(csrc/lstm_scan_unrolled_block.cu `lstm_scan_fwd_unrolled_block`: 16, 8
-or 4 rows a block, the gates staged K steps ahead by cp.async), which is
-bit-identical to lstm_scan_fwd_block.
+no cluster holds the ring, it takes kernel E's streamed cluster
+(csrc/lstm_staged_stream.cu `lstm_scan_fwd_unrolled_stream`: the W_hh^T
+slice partly resident, partly streamed from L2, the gates by TMA in a ring
+of one or two groups; H up to 2304 at K=2 and 2048 at K=4), bit-identical
+to lstm_scan_fwd_stream, or, within single_block_forwards(), its single
+block (csrc/lstm_scan_unrolled_block.cu `lstm_scan_fwd_unrolled_block`:
+16, 8 or 4 rows a block), bit-identical to lstm_scan_fwd_block.
 
     # kernel A against K = 2 and 4 on the card (T=628, 2304 rows, H=384)
     python -m generative_audio_torch.scripts.perf_lstm_unroll

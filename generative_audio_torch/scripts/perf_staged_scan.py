@@ -1,18 +1,29 @@
 """The staged LSTM scans (csrc/lstm_scan_staged.cu: kernel E
-`lstm_scan_fwd_unrolled`, kernel F `lstm_layer_fwd`) under forced launch
-plans, on the card.
+`lstm_scan_fwd_unrolled`, kernel F `lstm_layer_fwd`; above H = 512 their
+streamed clusters, csrc/lstm_staged_stream.cu `lstm_scan_fwd_unrolled_stream`
+and `lstm_layer_fwd_stream`) under forced launch plans, on the card.
 
-Both run as thread-block clusters whose shape the planners choose
-(ops.lstm.plan_unrolled and plan_layer). This script holds every plan that
-fits against the kernel it must equal bit for bit (kernel E: kernel A,
-`lstm_scan_fwd`; kernel F: its single block, `lstm_layer_fwd_block`, the
-first design of kernel F) and times each plan, one cluster alone and a full
-batch of them, to fit the planners' step models.
+All run as thread-block clusters whose shape the planners choose
+(ops.lstm.plan_unrolled and plan_layer; plan_unrolled_stream and
+plan_layer_stream). This script holds every plan that fits against the
+kernel it must equal bit for bit (kernel E: kernel A, `lstm_scan_fwd`, or
+above H = 512 kernel A's single block; kernel F: its single block,
+`lstm_layer_fwd_block`, the first design of kernel F) and times each plan,
+one cluster alone and a full batch of them, to fit the planners' step
+models. `--stream` does so for the streamed clusters: a spread of plans
+(cluster size, rows, resident k-steps, ring depth and kernel E's gate
+groups) against the single blocks, then one-cluster plans timed at T = 192
+and the least-squares fit of `_UNROLL_STREAM_PARTS` and
+`_LAYER_STREAM_PARTS` of ops/lstm.py, and the planner's plans at 18 and
+2056 rows beside the single blocks.
 
     # identity of every plan, at small ragged shapes
     python -m generative_audio_torch.scripts.perf_staged_scan --check
     # the identity, then the sweep at the scripts' and sub-band shapes
     python -m generative_audio_torch.scripts.perf_staged_scan
+    # the streamed clusters: identity only, or identity, sweep and fit
+    python -m generative_audio_torch.scripts.perf_staged_scan --stream-check
+    python -m generative_audio_torch.scripts.perf_staged_scan --stream
 """
 from __future__ import annotations
 
@@ -20,13 +31,15 @@ import argparse
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from generative_audio_torch.ops import lstm as L
 from generative_audio_torch.utils.device import cuda_ms, resolve_device
 
 __all__ = ["unrolled_plans", "layer_plans", "gates_inputs", "layer_inputs",
-           "check", "sweep", "main"]
+           "check", "sweep", "unrolled_stream_plan", "layer_stream_plan",
+           "stream_check", "fit_parts", "stream_sweep", "main"]
 
 # kernel E at perf_lstm_unroll's shape, kernel F at FullSubNet+'s sub-band
 # layers (one batch of 8 x 10 s)
@@ -34,6 +47,7 @@ T, ROWS_E, ROWS_F, H = 628, 2304, 2056, 384
 SUB_BAND_F = (34, 384)
 MAX_ROWS = 96          # rows per cluster the sweep tries, at most
 _SOURCE = "lstm_scan_staged"
+_STREAM_SOURCE = "lstm_staged_stream"
 
 
 def _shapes(hsz, batch):
@@ -192,15 +206,288 @@ def sweep(device, card: str) -> None:
             del inputs
 
 
+# ---- the streamed clusters (csrc/lstm_staged_stream.cu) -------------------
+
+def _stream_fit(hp, cluster, rows, resident, stages, smem):
+    """The resident k-steps (None: the most that fit) of a streamed CTA at
+    (H, C, R, stages), or None where the plan does not fit."""
+    res = L._stream_resident(hp, cluster, rows, stages, smem, resident)
+    if (res is None or stages > hp // 32 - res // 2
+            or rows // 16 * (hp // cluster // 8) > L._STREAM_MAX_ITEMS):
+        return None
+    return res
+
+
+def unrolled_stream_plan(hsz, batch, k, cluster, rows, resident, stages,
+                         groups, device):
+    """Kernel E's UnrolledStreamPlan of (C, R, resident k-steps, stages,
+    gate groups) for `batch` rows at H = hsz with the card's occupancy,
+    resident None for the most that fit; None where it does not fit."""
+    hp = L.stream_hidden(hsz, cluster)
+    res = _stream_fit(hp, cluster, rows, resident, stages,
+                      lambda h, c, r, re, st: L.unrolled_stream_smem_bytes(
+                          h, c, r, k, re, st, groups))
+    if res is None:
+        return None
+    active = L._max_clusters(_STREAM_SOURCE, torch.device(device).index,
+                             (k, 0, res, stages, groups), hp, cluster, rows)
+    if active < 1:
+        return None
+    clusters = -(-batch // rows)
+    return L.UnrolledStreamPlan(
+        hp, cluster, rows, res, stages, clusters, active,
+        -(-clusters // active),
+        L.unrolled_stream_smem_bytes(hp, cluster, rows, k, res, stages,
+                                     groups),
+        L.unrolled_stream_step_us(hp, cluster, rows, res, stages, k, groups),
+        groups)
+
+
+def layer_stream_plan(hsz, batch, f, cluster, rows, resident, stages, device,
+                      out_dtype=torch.bfloat16):
+    """Kernel F's StreamPlan of (C, R, resident k-steps, stages) for `batch`
+    rows at H = hsz and f features with the card's occupancy; None where it
+    does not fit."""
+    hp = L.stream_hidden(hsz, cluster)
+    res = _stream_fit(hp, cluster, rows, resident, stages,
+                      L.layer_stream_smem_bytes)
+    if res is None:
+        return None
+    active = L._max_clusters(_STREAM_SOURCE, torch.device(device).index,
+                             (1, int(out_dtype == torch.float32), res,
+                              stages, 0), hp, cluster, rows)
+    if active < 1:
+        return None
+    clusters = -(-batch // rows)
+    return L.StreamPlan(hp, cluster, rows, res, stages, clusters, active,
+                        -(-clusters // active),
+                        L.layer_stream_smem_bytes(hp, cluster, rows, res,
+                                                  stages),
+                        L.layer_stream_step_us(hp, cluster, rows, res, stages,
+                                               f))
+
+
+STREAM_CHECK_E = ((8, 40, 640), (12, 33, 768), (4, 17, 1024), (4, 1, 1536))
+STREAM_CHECK_F = ((7, 40, 34, 640), (5, 33, 768, 768), (6, 17, 6, 1024),
+                  (3, 1, 1024, 1024))
+
+
+def stream_check(device) -> int:
+    """Every streamed plan of a spread (both cluster sizes where they hold
+    H, 16-48 rows, no, two and the most resident k-steps, rings of 1-3
+    stages, and kernel E's one and two gate groups) bit for bit against the
+    single block: kernel E (K = 2 and 4) against kernel A's single block,
+    kernel F (forward and reverse, fp32 out) against lstm_layer_fwd_block.
+    Returns the number of failures."""
+    failures = tried = 0
+    spread = [(c, r, res, st) for c in L.CLUSTER_SIZES for r in (16, 32, 48)
+              for res in (0, 2, None) for st in (1, 2, 3)]
+    with torch.no_grad():
+        for i, (t_len, b, hsz) in enumerate(STREAM_CHECK_E):
+            gates, w_hh = gates_inputs(t_len, b, hsz, device, seed=400 + i)
+            with L.single_block_forwards():
+                want = L.lstm_scan_tm(gates, w_hh)
+            for k in L.UNROLL_STEPS:
+                for groups in L.UNROLL_STREAM_GROUPS:
+                    for c, r, res, st in spread:
+                        plan = unrolled_stream_plan(hsz, b, k, c, r, res, st,
+                                                    groups, device)
+                        if plan is None:
+                            continue
+                        tried += 1
+                        got = L.lstm_scan_unrolled_planned_tm(gates, w_hh,
+                                                              plan, k)
+                        if not torch.equal(got, want):
+                            failures += 1
+                            print(f"MISMATCH unrolled T={t_len} rows={b} "
+                                  f"H={hsz} K={k} {plan}", flush=True)
+            print(f"stream check unrolled T={t_len} rows={b} H={hsz}",
+                  flush=True)
+        for i, (t_len, b, f, hsz) in enumerate(STREAM_CHECK_F):
+            inputs = layer_inputs(t_len, b, f, hsz, device, seed=500 + i)
+            for reverse in (False, True):
+                with L.single_block_forwards():
+                    want = L.lstm_layer_tm(*inputs, reverse, torch.float32)
+                for c, r, res, st in spread:
+                    plan = layer_stream_plan(hsz, b, f, c, r, res, st, device,
+                                             torch.float32)
+                    if plan is None:
+                        continue
+                    tried += 1
+                    got = L.lstm_layer_planned_tm(*inputs, plan, reverse,
+                                                  torch.float32)
+                    if not torch.equal(got, want):
+                        failures += 1
+                        print(f"MISMATCH layer T={t_len} rows={b} F={f} "
+                              f"H={hsz} reverse={reverse} {plan}", flush=True)
+            print(f"stream check layer T={t_len} rows={b} F={f} H={hsz}",
+                  flush=True)
+    torch.cuda.synchronize()
+    print(f"stream check: {tried} plans, {failures} mismatches", flush=True)
+    return failures
+
+
+def fit_parts(features, steps):
+    """The parts (step, store, kilobyte, latency, extra) of
+    stream_cluster_step_us plus one more linear term, for the measured
+    steps: features (stores, streamed k-pairs, KB a k-pair, stages, extra
+    term's factor). A grid over the kilobyte and latency parts, the others
+    by least squares at each; the least sum of squares. Returns (parts, max
+    |error|, mean |error|)."""
+    f, y = np.array(features, dtype=float), np.array(steps, dtype=float)
+    x = np.stack([np.ones(len(y)), f[:, 0], f[:, 4]], axis=1)
+    best = None
+    for kb in np.arange(0.0, 0.03, 0.0002):
+        for latency in np.arange(0.0, 1.5, 0.01):
+            stream = f[:, 1] * np.maximum(kb * f[:, 2], latency / f[:, 3])
+            coef, *_ = np.linalg.lstsq(x, y - stream, rcond=None)
+            err = x @ coef + stream - y
+            if best is None or (err ** 2).sum() < best[0]:
+                best = ((err ** 2).sum(), coef, kb, latency, err)
+    _, coef, kb, latency, err = best
+    parts = (float(coef[0]), float(coef[1]), float(kb), float(latency),
+             float(coef[2]))
+    return parts, float(np.abs(err).max()), float(np.abs(err).mean())
+
+
+def _features(plan, extra):
+    units = plan.hidden // plan.cluster
+    return (plan.rows * units // 8 * (plan.cluster - 1),
+            plan.hidden // 32 - plan.resident // 2, 4 * units * 64 / 1024,
+            plan.stages, extra)
+
+
+STREAM_T = 192                   # steps of the sweep: whole groups of 4
+STREAM_SWEEP_HIDDEN = (640, 768, 1024, 1536, 2048)
+STREAM_SWEEP_F = (34, None)      # kernel F's features: 34 and F = H
+STREAM_FULL_ROWS = (18, 2056)
+
+
+def stream_sweep(device, card: str) -> None:
+    """One-cluster plans of both streamed kernels timed at T = STREAM_T
+    (their microseconds a step against the models' terms, and the fit of
+    the parts), then the planner's plans at 18 and 2056 rows beside the
+    single blocks."""
+    ex, ey, fx, fy = [], [], [], []
+    spread = [(None, st) for st in L.STREAM_STAGES] + [(0, 2), (8, 2)]
+    with torch.no_grad():
+        for hsz in STREAM_SWEEP_HIDDEN:
+            for cluster in L.CLUSTER_SIZES:
+                for rows in (16, 32, 48):
+                    gates, w_hh = gates_inputs(STREAM_T, rows, hsz, device,
+                                               seed=hsz + rows)
+                    for k in L.UNROLL_STEPS:
+                        for groups in L.UNROLL_STREAM_GROUPS:
+                            for res, st in spread:
+                                plan = unrolled_stream_plan(
+                                    hsz, rows, k, cluster, rows, res, st,
+                                    groups, device)
+                                if plan is None:
+                                    continue
+                                us = cuda_ms(
+                                    lambda: L.lstm_scan_unrolled_planned_tm(
+                                        gates, w_hh, plan, k),
+                                    iters=3) * 1e3 / STREAM_T
+                                ex.append(_features(
+                                    plan, (groups == 1) / k))
+                                ey.append(us)
+                                print(f"unrolled stream H={hsz} K={k} "
+                                      f"C={cluster} R={rows} resident="
+                                      f"{plan.resident} stages={plan.stages}"
+                                      f" groups={groups} smem="
+                                      f"{plan.smem_bytes}: {us:.3f} us a "
+                                      f"step (model {plan.step_us:.3f})",
+                                      flush=True)
+                    del gates
+                    for f in STREAM_SWEEP_F:
+                        f = f or hsz
+                        inputs = layer_inputs(STREAM_T, rows, f, hsz, device,
+                                              seed=hsz + rows + f)
+                        for res, st in spread:
+                            plan = layer_stream_plan(hsz, rows, f, cluster,
+                                                     rows, res, st, device)
+                            if plan is None:
+                                continue
+                            us = cuda_ms(lambda: L.lstm_layer_planned_tm(
+                                *inputs, plan), iters=3) * 1e3 / STREAM_T
+                            items = rows // 16 * (plan.hidden // cluster // 8)
+                            fx.append(_features(plan, -(-f // 16) * items))
+                            fy.append(us)
+                            print(f"layer stream H={hsz} F={f} C={cluster} "
+                                  f"R={rows} resident={plan.resident} "
+                                  f"stages={plan.stages} smem="
+                                  f"{plan.smem_bytes}: {us:.3f} us a step "
+                                  f"(model {plan.step_us:.3f})", flush=True)
+                        del inputs
+        for name, x, y in (("unrolled", ex, ey), ("layer", fx, fy)):
+            parts, worst, mean = fit_parts(x, y)
+            print(f"{name} streamed step fit (step, store, KB, latency, "
+                  f"{'group' if name == 'unrolled' else 'x k-step'}): "
+                  f"{tuple(round(p, 7) for p in parts)}, off by at most "
+                  f"{worst:.3f} us over {len(y)} plans, mean {mean:.3f}; on "
+                  f"{card}", flush=True)
+        for hsz in (768, 1536):
+            for b in STREAM_FULL_ROWS:
+                gates, w_hh = gates_inputs(STREAM_T, b, hsz, device, seed=b)
+                for k in L.UNROLL_STEPS:
+                    plan = L.card_unrolled_stream_plan(device, hsz, b, k)
+                    ms = cuda_ms(lambda: L.lstm_scan_unrolled_planned_tm(
+                        gates, w_hh, plan, k), iters=3)
+                    block = "does not hold H"
+                    if L.unrolled_block_smem_bytes(
+                            hsz, L.UNROLLED_BLOCK_ROWS[-1], k) <= L.SMEM_LIMIT:
+                        with L.single_block_forwards():
+                            block = "%.3f ms" % cuda_ms(lambda: L.lstm_scan_tm(
+                                gates, w_hh, block_t=k), iters=1)
+                    print(f"unrolled H={hsz} K={k} rows={b} T={STREAM_T}: "
+                          f"planner's {plan} {ms:.3f} ms "
+                          f"({ms * 1e3 / STREAM_T / plan.waves:.3f} us a "
+                          f"step a wave); single block {block}", flush=True)
+                del gates
+                for f in (34, hsz):
+                    inputs = layer_inputs(STREAM_T, b, f, hsz, device, seed=f)
+                    plan = L.card_layer_stream_plan(device, hsz, b, f)
+                    ms = cuda_ms(lambda: L.lstm_layer_planned_tm(
+                        *inputs, plan), iters=3)
+                    block = "does not hold H"
+                    if L.layer_block_smem_bytes(hsz, f) <= L.SMEM_LIMIT:
+                        with L.single_block_forwards():
+                            block = "%.3f ms" % cuda_ms(
+                                lambda: L.lstm_layer_tm(*inputs), iters=1)
+                    print(f"layer H={hsz} F={f} rows={b} T={STREAM_T}: "
+                          f"planner's {plan} {ms:.3f} ms "
+                          f"({ms * 1e3 / STREAM_T / plan.waves:.3f} us a "
+                          f"step a wave); single block {block}", flush=True)
+                    del inputs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--check", action="store_true",
                         help="the identity at small shapes only")
+    parser.add_argument("--stream", action="store_true",
+                        help="the streamed clusters: identity, sweep, fit")
+    parser.add_argument("--stream-check", action="store_true",
+                        help="the streamed clusters' identity only")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
+    if args.stream or args.stream_check:
+        from generative_audio_torch.ops import _cuda
+        print(f"card: {card}", flush=True)
+        for name, log in _cuda.build([_STREAM_SOURCE, "lstm_scan_block",
+                                      "lstm_layer_block"]).items():
+            for line in log.splitlines():
+                if "entry function" in line or "registers" in line \
+                        or "spill" in line:
+                    print(f"ptxas {name}: {line.strip()}", flush=True)
+        if stream_check(device):
+            return 1
+        if args.stream:
+            stream_sweep(device, card.splitlines()[device.index or 0])
+        return 0
     failures = check(device)
     if failures:
         print(f"perf_staged_scan: {failures} plan(s) differ from the kernel "

@@ -20,6 +20,7 @@ import torch
 
 from generative_audio_torch.ops import _cuda
 from generative_audio_torch.ops import lstm as tl
+from torch_stream_stubs import stream_weight_rows, stub_stream_plans
 
 torch.set_num_threads(2)
 SOURCE = "lstm_scan_bwd_chains.cu"
@@ -346,17 +347,35 @@ def test_unrolled_block_smem_is_the_source_layout(hsz, rows, k):
                                        (600, (608, "_block")),
                                        (768, (768, "_block"))])
 def test_unrolled_wrapper_takes_the_block_above_the_cluster(entries, hsz,
-                                                            route):
-    """Kernel E takes its cluster up to H=512 (padded to its units) and its
-    single block above (padded to 16), handing the entry its rows a block
-    and shared bytes, with zero units in the gates and W_hh^T."""
+                                                            route,
+                                                            monkeypatch):
+    """Kernel E takes its cluster up to H=512 (padded to its units); above
+    it its streamed cluster (padded to stream_hidden's units, handing the
+    entry the plan it packed W_hh^T for) and, within
+    single_block_forwards(), its single block (padded to 16, handing the
+    entry its rows a block and shared bytes), with zero units in the gates
+    and W_hh^T."""
     calls, _ = entries
-    assert tl.unrolled_route(hsz, 4) == route
+    stub_stream_plans(monkeypatch)
     gates = torch.zeros(4, 9, 4 * hsz, dtype=torch.bfloat16).normal_()
     w_hh = torch.zeros(hsz, 4 * hsz).normal_(std=0.02)
     if route[1]:
         with torch.no_grad():
             out = tl.lstm_scan_tm(gates, w_hh, block_t=4)
+        (name, args), = calls
+        hp, suffix, plan = tl.unrolled_route(hsz, 4, 9, torch.device("cpu"))
+        assert name == "lstm_scan_fwd_unrolled_stream" and suffix == "_stream"
+        assert hp == tl.stream_hidden(hsz, plan.cluster)
+        assert args[3:] == (4, 9, hp, 4, *plan.launch_args)
+        assert not _zero_units(args[0], 4, hsz).any()
+        wt = stream_weight_rows(args[1], plan, 4)
+        assert not wt[:, hsz:].any() and not _zero_units(wt.t(), 4, hsz).any()
+        assert tuple(out.shape) == (4, 9, hsz)
+        calls.clear()
+        with tl.single_block_forwards():
+            assert tl.unrolled_route(hsz, 4) == (*route, None)
+            with torch.no_grad():
+                out = tl.lstm_scan_tm(gates, w_hh, block_t=4)
         (name, args), = calls
         hp = route[0]
         rows = tl.unrolled_block_rows(hp, 4)
@@ -371,4 +390,5 @@ def test_unrolled_wrapper_takes_the_block_above_the_cluster(entries, hsz,
             tl.lstm_scan_unrolled_planned_tm(
                 gates, w_hh, tl.plan_unrolled(512, 9, 4, h100_clusters), 4)
     else:
+        assert tl.unrolled_route(hsz, 4) == (*route, None)
         assert tl.unrolled_smem_bytes(hsz, 16, 16, 4) <= tl.SMEM_LIMIT

@@ -30,6 +30,7 @@ from test_torch_lstm_backward import (BACKWARD_UNITS, FORWARD_UNITS, fill,
                                       real_units, real_weight, strip)
 from test_torch_lstm_backward import fake_launch as scan_fake_launch
 from test_torch_staged_plan import unfragment
+from torch_stream_stubs import stream_weight_rows, stub_stream_plans
 
 torch.set_num_threads(2)
 BF16 = dict(atol=1e-2, rtol=1e-2)
@@ -123,16 +124,27 @@ def fake_launch(fn_name, *args, plan=None):
     """Stands in for ops.lstm._launch where there is no card: kernel F's
     plain version into the output buffer it was given, after checking the
     operand layout the wrapper built: x with an even F; H zero-padded to
-    the cluster's units (64) or, for the single block ("_block"), to 16,
-    in W_hh^T, W_ih^T and the fp32 bias; W_ih^T with zero columns to a
-    multiple of 32 and in fragment order for the cluster, of 16 as rows for
-    the single block. The scan kernels as tests/test_torch_lstm_backward.py
-    fakes them."""
-    if fn_name not in ("lstm_layer_fwd", "lstm_layer_fwd_block"):
+    the cluster's units (64), for the single block ("_block") to 16, for
+    the streamed cluster ("_stream") to stream_hidden's, in W_hh^T, W_ih^T
+    and the fp32 bias; W_ih^T with zero columns to a multiple of 32 and in
+    fragment order for the clusters, of 16 as rows for the single block;
+    the streamed cluster's W_hh^T packed for the plan it is handed, whose
+    shared bytes are its layout's. The scan kernels as
+    tests/test_torch_lstm_backward.py fakes them."""
+    if fn_name not in ("lstm_layer_fwd", "lstm_layer_fwd_block",
+                       "lstm_layer_fwd_stream"):
         return scan_fake_launch(fn_name, *args, plan=plan)
     x, w_in, wt, bias, out, out_f32, t_len, b, f, hp, reverse = args
     block = fn_name.endswith("_block")
-    hsz = real_units(wt, 4, BACKWARD_UNITS if block else FORWARD_UNITS)
+    units = BACKWARD_UNITS if block else FORWARD_UNITS
+    if fn_name.endswith("_stream"):
+        assert type(plan) is tl.StreamPlan and plan.hidden == hp
+        assert plan.smem_bytes == tl.layer_stream_smem_bytes(
+            hp, plan.cluster, plan.rows, plan.resident, plan.stages
+        ) <= tl.SMEM_LIMIT
+        wt = stream_weight_rows(wt, plan, 4)
+        units = tl.stream_hidden(1, plan.cluster)
+    hsz = real_units(wt, 4, units)
     f_pad = -(-f // (16 if block else 32)) * (16 if block else 32)
     wih_t = w_in if block else unfragment(w_in, 4 * hp, f_pad)
     assert x.dtype == wih_t.dtype == wt.dtype == torch.bfloat16
@@ -143,9 +155,11 @@ def fake_launch(fn_name, *args, plan=None):
     assert not wih_t[:, f:].any()
     assert w_in.is_contiguous() and x.is_contiguous()
     assert all(a.data_ptr() % 16 == 0 for a in (x, w_in, wt, bias, out))
+    # both weights contiguous, as the CPU branch hands them: the CPU's
+    # matmul may sum a strided operand in another order
     fill(out, tl.lstm_layer_reference_tm(
-        x, strip(wih_t[:, :f].t(), hsz, 4), real_weight(wt, hsz, 4),
-        strip(bias, hsz, 4), bool(reverse)))
+        x, strip(wih_t[:, :f].t(), hsz, 4).contiguous(),
+        real_weight(wt, hsz, 4), strip(bias, hsz, 4), bool(reverse)))
     tl.launch_counts[fn_name] += 1
 
 
@@ -155,6 +169,7 @@ def launches(monkeypatch):
     monkeypatch.setattr(tl, "_is_cuda", lambda *tensors: True)
     monkeypatch.setattr(tl, "_launch", fake_launch)
     monkeypatch.setattr(tl, "launch_counts", dict.fromkeys(tl.launch_counts, 0))
+    stub_stream_plans(monkeypatch)
     return tl.launch_counts
 
 
@@ -236,18 +251,24 @@ def test_padded_hidden_on_the_kernel_branch(launches, hsz, reverse):
 
 def test_single_block_route_above_what_a_cluster_holds(launches):
     """At H = 520 no cluster holds W_hh's slice: the wrapper takes the
-    single block (`lstm_layer_fwd_block`) at H padded to 528, with W_ih^T
-    as rows of 16-padded columns, and equals the CPU branch."""
+    streamed cluster (`lstm_layer_fwd_stream`, W_hh^T packed for its plan)
+    and, within single_block_forwards(), the single block
+    (`lstm_layer_fwd_block`) at H padded to 528, with W_ih^T as rows of
+    16-padded columns; both equal the CPU branch."""
     x, wi, wh, bias = _inputs_h(80, 520, f=5, t_len=2, b=3)
     args = [torch.from_numpy(a) for a in (x, wi, wh, bias)]
-    assert tl.layer_route(520, 6) == (528, "_block")
+    assert tl.layer_route(520, 6)[1] == "_stream"
     with torch.no_grad():
         got = tl.lstm_layer_tm(*args, True)
+        with tl.single_block_forwards():
+            assert tl.layer_route(520, 6) == (528, "_block", None)
+            blk = tl.lstm_layer_tm(*args, True)
     assert launches == {**dict.fromkeys(launches, 0),
-                        "lstm_layer_fwd_block": 1}
+                        "lstm_layer_fwd_stream": 1, "lstm_layer_fwd_block": 1}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tl, "_is_cuda", lambda *tensors: False)
-        assert torch.equal(got, tl.lstm_layer_tm(*args, True))
+        want = tl.lstm_layer_tm(*args, True)
+    assert torch.equal(got, want) and torch.equal(blk, want)
 
 
 def test_operands_off_16_bytes_are_copied(launches):

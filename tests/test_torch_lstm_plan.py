@@ -129,12 +129,23 @@ def test_scan_hidden_pads_to_a_cluster_multiple(hsz, padded):
 
 def test_scan_hidden_refuses_what_no_cluster_holds():
     """No cluster holds H = 1024: scan_hidden raises, and the wrappers take
-    the single-block route at H padded to 16 (forward_hidden)."""
+    plan_forward's route there (the streamed cluster, or within
+    single_block_forwards() the single block at H padded to 16); at H = 384
+    the resident cluster."""
     with pytest.raises(ValueError, match="too large for the cluster scan"):
         tl.scan_hidden(1024)
-    assert tl.forward_hidden(1024, tl.scan_smem_bytes) == (1024, "_block")
-    assert tl.forward_hidden(1000, tl.scan_smem_bytes) == (1008, "_block")
-    assert tl.forward_hidden(384, tl.scan_smem_bytes) == (384, "")
+
+    def route(hsz):
+        return tl.plan_forward(
+            "LSTM", hsz, 18, tl.scan_smem_bytes, tl.block_smem_bytes,
+            tl.block_step_us,
+            lambda res: tl.plan_stream_scan(hsz, 18, lambda *a: 8, res))
+
+    assert route(1024)[:2] == (1024, "_stream")
+    with tl.single_block_forwards():
+        assert route(1024) == (1024, "_block", None)
+        assert route(1000) == (1008, "_block", None)
+    assert route(384) == (384, "", None)
 
 
 def test_forward_launches_carry_the_plan(monkeypatch):
@@ -263,4 +274,5 @@ def test_sources_match_their_declared_signatures():
     assert "(4 * U + 2 * r) * hs * 2 + r * U * 4 + 2 * r * 4 * U * 2" in body
     assert set(_cuda._QUERIES) == {"lstm_scan", "gru_scan", "lstm_scan_bwd",
                                    "gru_scan_bwd", "lstm_scan_staged",
-                                   "lstm_scan_bwd_chains", "scan_bwd_stream"}
+                                   "lstm_scan_bwd_chains", "scan_bwd_stream",
+                                   "lstm_staged_stream"}

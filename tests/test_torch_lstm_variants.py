@@ -39,6 +39,7 @@ from generative_audio_torch.scripts import perf_lstm_unroll as tu
 from test_torch_lstm_backward import (BACKWARD_UNITS, FORWARD_UNITS, fill,
                                       real_units, real_weight, strip)
 from test_torch_lstm_backward import fake_launch as scan_fake_launch
+from torch_stream_stubs import stream_weight_rows, stub_stream_plans
 
 torch.set_num_threads(2)
 BF16 = dict(atol=1e-2, rtol=1e-2)
@@ -150,19 +151,28 @@ def fake_launch(fn_name, *args, plan=None):
     G compute what kernels A and D do, so each runs that plain version into
     the output buffer it was given, after checking the arguments the
     wrapper built (H zero-padded: for kernel E's cluster to its 64 units,
-    for its single block and for kernel G to 16; the multiple and the zero
-    units of the operands; the plan or the single block's rows and shared
-    bytes); the other kernels as tests/test_torch_lstm_backward.py fakes
-    them."""
+    for its streamed cluster to stream_hidden's, for its single block and
+    for kernel G to 16; the multiple and the zero units of the operands; the
+    plan, the streamed cluster's W_hh^T packed for its plan and the plan's
+    shared bytes, or the single block's rows and shared bytes); the other
+    kernels as tests/test_torch_lstm_backward.py fakes them."""
     if fn_name == "lstm_scan_fwd_unrolled":
         gates, wt, out, t_len, b, hp, k = args
         h = real_units(wt, 4, FORWARD_UNITS)
+    elif fn_name == "lstm_scan_fwd_unrolled_stream":
+        gates, wf, out, t_len, b, hp, k = args
+        assert isinstance(plan, tl.UnrolledStreamPlan) and plan.hidden == hp
+        assert plan.smem_bytes == tl.unrolled_stream_smem_bytes(
+            hp, plan.cluster, plan.rows, k, plan.resident, plan.stages,
+            plan.groups) <= tl.SMEM_LIMIT
+        wt = stream_weight_rows(wf, plan, 4)
+        h = real_units(wt, 4, tl.stream_hidden(1, plan.cluster))
     elif fn_name == "lstm_scan_fwd_unrolled_block":
         gates, wt, out, t_len, b, hp, k, rows, smem = args
         h = real_units(wt, 4, BACKWARD_UNITS)
         assert rows == tl.unrolled_block_rows(hp, k)
         assert smem == tl.unrolled_block_smem_bytes(hp, rows, k)
-        assert tl.unrolled_route(h, k) == (hp, "_block")
+        assert hp == -(-h // 16) * 16
     elif fn_name in ("lstm_scan_bwd_chains", "lstm_scan_bwd_chains_block"):
         if fn_name == "lstm_scan_bwd_chains":
             gates, h_seq, c_seq, gout, w, wf, dgates, _, b, hp, n_chains = args
@@ -210,6 +220,7 @@ def launches(monkeypatch):
     monkeypatch.setattr(tl, "_launch", fake_launch)
     monkeypatch.setattr(tl, "card_chains_scan_plan", card_chains_plan)
     monkeypatch.setattr(tl, "launch_counts", dict.fromkeys(tl.launch_counts, 0))
+    stub_stream_plans(monkeypatch)
     return tl.launch_counts
 
 
@@ -298,17 +309,22 @@ def test_refusals(launches, hsz, n_chains, design):
 @pytest.mark.parametrize("k", [2, 4])
 def test_lstm_unrolled_above_what_a_cluster_holds(launches, k):
     """Kernel E at H=640, which no cluster holds: on the CPU it equals
-    kernel A's plain version; on the card's branch it launches its single
-    block (rows and shared bytes checked by the fake) and gives the same
-    h as lstm_scan_tm, which takes lstm_scan_fwd_block."""
+    kernel A's plain version; on the card's branch it launches its streamed
+    cluster (W_hh^T packed for its plan, the plan's shared bytes checked by
+    the fake) and, within single_block_forwards(), its single block (rows
+    and shared bytes checked), each giving the same h as lstm_scan_tm,
+    which takes lstm_scan_fwd_stream (and lstm_scan_fwd_block)."""
     hsz = 640
     gates = _bf16(_rand((4, 9, 4 * hsz), 10, 0.5))
     w_hh = torch.from_numpy(_rand((hsz, 4 * hsz), 11, 0.02))
     got = tu.lstm_unrolled(gates, w_hh, block_t=k)
+    with tl.single_block_forwards():
+        blk = tu.lstm_unrolled(gates, w_hh, block_t=k)
     assert launches == {**dict.fromkeys(launches, 0),
+                        "lstm_scan_fwd_unrolled_stream": 1,
                         "lstm_scan_fwd_unrolled_block": 1}
     assert torch.equal(got, tl.lstm_scan_reference_tm(gates, w_hh).to(
-        torch.bfloat16))
+        torch.bfloat16)) and torch.equal(blk, got)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tl, "_is_cuda", lambda *tensors: False)
         assert torch.equal(tu.lstm_unrolled(gates, w_hh, block_t=k), got)

@@ -215,36 +215,51 @@ def test_unrolled_hidden(hsz, k, padded):
 
 def test_unrolled_refuses_what_no_cluster_holds():
     """Where no cluster holds kernel E (above H=512: a CTA of 16 at 16 rows
-    and K=4 needs 292 496 B at H=640) it takes its single block at H padded
-    to 16, with as many rows a block as fit; it refuses, on either device,
-    only where not even a block of 4 rows holds K steps of gates (H=1120,
-    K=4: 233 472 B)."""
+    and K=4 needs 292 496 B at H=640) it takes its streamed cluster at H
+    padded to stream_hidden's units, and within single_block_forwards() its
+    single block at H padded to 16, with as many rows a block as fit (none
+    at H=1120, K=4: 233 472 B at 4 rows). It refuses, on either device,
+    only where not even one group of K steps fits beside a streamed CTA's
+    h buffers: H=2048 runs at K=4, H=2064 needs 244 376 B (C=16, one stage,
+    one group)."""
     assert tl.unrolled_smem_bytes(640, 16, 16, 4) == 292496 > tl.SMEM_LIMIT
-    assert tl.unrolled_route(640, 4) == (640, "_block")
-    assert tl.unrolled_route(576, 2) == (576, "_block")
-    with pytest.raises(ValueError, match=r"H=1120, K=4 needs 233472 B"):
-        tl.unrolled_hidden(1120, 4)
-    gates = torch.zeros(4, 2, 4 * 1120, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="233472 B"):
-        tl.lstm_scan_tm(gates, torch.zeros(1120, 4 * 1120), block_t=4)
+    assert tl.unrolled_route(640, 4)[:2] == (640, "_stream")
+    assert tl.unrolled_route(576, 2)[:2] == (640, "_stream")
+    with tl.single_block_forwards():
+        assert tl.unrolled_route(640, 4) == (640, "_block", None)
+        assert tl.unrolled_route(576, 2) == (576, "_block", None)
+        with pytest.raises(ValueError, match=r"single block needs 233472 B"):
+            tl.unrolled_hidden(1120, 4)
+    assert tl.unrolled_hidden(1120, 4) == 1152
+    assert tl.unrolled_hidden(2048, 4) == 2048
+    with pytest.raises(ValueError, match=r"H=2064: .*244376 B at 16 rows"):
+        tl.unrolled_hidden(2064, 4)
+    gates = torch.zeros(4, 2, 4 * 2064, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="244376 B"):
+        tl.lstm_scan_tm(gates, torch.zeros(2064, 4 * 2064), block_t=4)
 
 
-@pytest.mark.parametrize("hsz,f,route", [
-    (8, 34, (64, "")), (20, 6, (64, "")), (100, 34, (128, "")),
-    (384, 34, (384, "")), (384, 384, (384, "")), (512, 384, (512, "")),
-    (520, 6, (528, "_block")), (640, 34, (640, "_block")),
-    (1000, 384, (1008, "_block"))])
-def test_layer_route_by_hidden_size(hsz, f, route):
-    """Kernel F takes a cluster up to H=512 and the single block above, at
-    H padded to 16."""
-    assert tl.layer_route(hsz, f) == route
+@pytest.mark.parametrize("hsz,f,route,block", [
+    (8, 34, (64, ""), 16), (20, 6, (64, ""), 32), (100, 34, (128, ""), 112),
+    (384, 34, (384, ""), 384), (384, 384, (384, ""), 384),
+    (512, 384, (512, ""), 512), (520, 6, (640, "_stream"), 528),
+    (640, 34, (640, "_stream"), 640), (1000, 384, (1024, "_stream"), 1008)])
+def test_layer_route_by_hidden_size(hsz, f, route, block):
+    """Kernel F takes a cluster up to H=512 and its streamed cluster above,
+    at H padded to stream_hidden's units (here clusters of 16); within
+    single_block_forwards() the single block, at H padded to 16."""
+    hp, suffix, plan = tl.layer_route(hsz, f)
+    assert (hp, suffix) == route
+    assert (plan is None) == (suffix == "")
+    with tl.single_block_forwards():
+        assert tl.layer_route(hsz, f) == (block, "_block", None)
 
 
 def test_single_block_forwards_take_the_layer_block():
     with tl.single_block_forwards():
-        assert tl.layer_route(384, 34) == (384, "_block")
-        assert tl.layer_route(20, 34) == (32, "_block")
-    assert tl.layer_route(384, 34) == (384, "")
+        assert tl.layer_route(384, 34) == (384, "_block", None)
+        assert tl.layer_route(20, 34) == (32, "_block", None)
+    assert tl.layer_route(384, 34) == (384, "", None)
 
 
 @pytest.fixture

@@ -188,16 +188,16 @@ def test_forcing_contexts(kind, monkeypatch):
     """streamed_forwards() takes the streamed cluster where the resident
     cluster holds H too (H=384), with the planner's or the given resident
     k-steps; single_block_forwards() the single block; after either the
-    route is the resident cluster's again. Neither changes kernels E and
-    F's routes."""
+    route is the resident cluster's again. Kernels E and F take the same
+    forced route (their streamed clusters since they have one)."""
     module = KINDS[kind][0]
     stub_stream_plans(monkeypatch)
     assert module._forward_route(384, 18, CPU) == (384, "", None)
     with tl.streamed_forwards():
         hp, suffix, plan = module._forward_route(384, 18, CPU)
         assert (hp, suffix) == (384, "_stream") and plan.resident > 0
-        assert tl.unrolled_route(384, 2) == (384, "")
-        assert tl.layer_route(384, 34) == (384, "")
+        assert tl.unrolled_route(384, 2)[:2] == (384, "_stream")
+        assert tl.layer_route(384, 34)[:2] == (384, "_stream")
     with tl.streamed_forwards(resident_ksteps=8):
         assert module._forward_route(384, 18, CPU)[2].resident == 8
         with tl.streamed_forwards(resident_ksteps=0):
@@ -209,17 +209,24 @@ def test_forcing_contexts(kind, monkeypatch):
 
 
 def test_e_and_f_routes_unchanged():
-    """Kernels E and F keep forward_hidden's routes: the cluster up to
-    H=512 and their single blocks above (no streamed variant of their
-    own)."""
-    assert tl.forward_hidden(512, tl.scan_smem_bytes) == (512, "")
-    assert tl.forward_hidden(768, tl.scan_smem_bytes) == (768, "_block")
+    """Kernels E and F take plan_forward's scheme as kernels A-C do: the
+    cluster up to H=512, above it their streamed clusters
+    (csrc/lstm_staged_stream.cu), whose modelled waves x step beat their
+    single blocks', at H padded to stream_hidden's units; their single
+    blocks, at H padded to 16, within single_block_forwards()."""
     for k in tl.UNROLL_STEPS:
-        assert tl.unrolled_route(512, k) == (512, "")
-        assert tl.unrolled_route(640, k) == (640, "_block")
-    assert tl.layer_route(512, 34) == (512, "")
-    assert tl.layer_route(768, 34) == (768, "_block")
-    assert tl.layer_route(1000, 384) == (1008, "_block")
+        assert tl.unrolled_route(512, k) == (512, "", None)
+        hp, suffix, plan = tl.unrolled_route(640, k)
+        assert (hp, suffix) == (640, "_stream") and plan.hidden == 640
+        with tl.single_block_forwards():
+            assert tl.unrolled_route(640, k) == (640, "_block", None)
+    assert tl.layer_route(512, 34) == (512, "", None)
+    assert tl.layer_route(768, 34)[:2] == (768, "_stream")
+    hp, suffix, plan = tl.layer_route(1000, 384)
+    assert suffix == "_stream" and hp == tl.stream_hidden(1000, plan.cluster)
+    with tl.single_block_forwards():
+        assert tl.layer_route(768, 34) == (768, "_block", None)
+        assert tl.layer_route(1000, 384) == (1008, "_block", None)
 
 
 @pytest.mark.parametrize("kind,cluster,hp", [("lstm", 16, 256),

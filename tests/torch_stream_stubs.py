@@ -2,6 +2,8 @@
 backwards, for the CPU tests that take the wrappers' CUDA branch on CPU
 tensors: a stub occupancy in place of the card's, and the unpacking of the
 streamed entries' W_hh operands for the fake launches. No JAX."""
+import torch
+
 from generative_audio_torch.ops import lstm as tl
 
 
@@ -13,8 +15,9 @@ def stub_occupancy(hsz, cluster, rows, resident, stages):
 
 def stub_stream_plans(monkeypatch):
     """The streamed forwards' plans of both modules from stub_occupancy, in
-    place of the card's (card_stream_plan), for the wrappers' CUDA branch on
-    CPU tensors."""
+    place of the card's (card_stream_plan; and kernels E's and F's,
+    card_unrolled_stream_plan and card_layer_stream_plan), for the
+    wrappers' CUDA branch on CPU tensors."""
     from generative_audio_torch.ops import gru as tg
     for module in (tl, tg):
         monkeypatch.setattr(
@@ -22,6 +25,16 @@ def stub_stream_plans(monkeypatch):
             lambda device, hsz, batch, instance=None, resident=None,
             module=module: module.plan_stream_scan(hsz, batch,
                                                    stub_occupancy, resident))
+    monkeypatch.setattr(
+        tl, "card_unrolled_stream_plan",
+        lambda device, hsz, batch, k, resident=None: tl.plan_unrolled_stream(
+            hsz, batch, k, lambda h, c, r, res, stages, groups:
+            stub_occupancy(h, c, r, res, stages), resident))
+    monkeypatch.setattr(
+        tl, "card_layer_stream_plan",
+        lambda device, hsz, batch, f, out_dtype=torch.bfloat16,
+        resident=None: tl.plan_layer_stream(hsz, batch, f, stub_occupancy,
+                                            resident))
 
 
 def stub_bwd_plans(monkeypatch):
