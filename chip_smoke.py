@@ -357,6 +357,26 @@ of which fails the run (non-zero exit, no result line):
      lstm_scan_tm(block_t=K) at H=768, 1536, 2048 and 2304 against kernel
      A's route, with the refusals above E's largest H. The path's launches
      are the two entries' in the kernels line.
+ 26. (run after phase 25) kernels A and B as wide clusters
+     (csrc/lstm_scan_wide.cu, lstm_scan_fwd_wide and
+     lstm_scan_fwd_carry_wide: one slice-major h buffer a CTA sent by bulk
+     copies, the gates by TMA, items of up to 3 x 3 m16 tiles x 8-unit
+     groups a warp), the route of both where a resident cluster holds H
+     and the wide cluster's modelled waves x step are the less (the 8 x 10
+     s batch): both bit for bit against the resident cluster at 2056,
+     2047 and 257 rows x T=628 and H=512 x 18 x 195, forward and reverse,
+     bf16 and fp32 out, B from a state and in chunks of T_CHUNK against
+     unchunked, at fp32 out against their plain versions; timed at 2056 and
+     257 rows beside the resident cluster (in turns), the plain version,
+     cuDNN and the bound, with the plan and the route's pick; then the
+     path, FullSubNet+ on the route with the counts set to 0 around each
+     part: a 10 s request and the batched 8 x 10 s forward (both
+     profiled) and that batch under a lowered gates limit (kernel B's
+     chunks). The path's launches add to the two entries' in the kernels
+     line. Phase 2 holds the resident cluster under
+     ops.lstm.resident_forwards(); the serving phases' launch checks name
+     kernel A's and B's entries as the route takes them at each call's
+     rows (routed).
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -369,7 +389,8 @@ GRU kernels'), and around each part of phase 22 and in its ranks (A's, B's,
 C's, D's and the GRU kernels'), and around each request and step of
 phase 23's model paths (the streamed entries') and phase 24's training
 step (the streamed backwards'), and around each part of phase 25's path
-(kernels E's and F's streamed clusters'). The second-to-last line of stdout is
+(kernels E's and F's streamed clusters') and of phase 26's (the wide
+clusters'). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
 20, `--phase21 PART OUT` one of phase 21, `--phase22 graft OUT` one of
@@ -545,7 +566,7 @@ def phase_build():
             **_bwd_registers(reports), **_staged_registers(reports),
             **_chains_registers(reports.get("lstm_scan_bwd_chains", "")),
             **_stream_registers(reports), **_bwd_stream_registers(reports),
-            **_staged_stream_registers(reports)}
+            **_staged_stream_registers(reports), **_wide_registers(reports)}
 
 
 def _cluster_registers(report):
@@ -1873,14 +1894,15 @@ def _bwd_stream_registers(reports):
     return found
 
 
-def _counted(L, entry, fn):
-    """fn()'s result, after checking that it launched `entry` once and
+def _counted(L, entry, fn, n=1):
+    """fn()'s result, after checking that it launched `entry` n times and
     nothing else."""
     before = dict(L.launch_counts)
     out = fn()
     torch.cuda.synchronize()
     launched = _launched(L.launch_counts, before)
-    check(launched == {entry: 1}, f"{entry} launched once (got {launched})")
+    check(launched == {entry: n}, f"{entry} launched {n} times (got "
+          f"{launched})")
     return out
 
 
@@ -2541,6 +2563,295 @@ def phase_streamed_staged(dev, registers):
         f"{launches}; phase 25 {time.perf_counter() - t0:.1f} s")
     for name, n in launches.items():
         check(n > 0, f"{name} launched on its path")
+    return kernels, launches
+
+
+# Phase 26: kernels A and B as wide clusters (csrc/lstm_scan_wide.cu,
+# lstm_scan_fwd_wide and lstm_scan_fwd_carry_wide), the route of both
+# wherever a resident cluster holds H and the wide cluster's modelled waves
+# x step beat the resident cluster's (ops.lstm.plan_forward): at the
+# sub-band batch (8 x 10 s, 2056 rows) one wave of up to 144 rows a
+# cluster where the resident cluster needs five of 32.
+WIDE_ENTRIES = ("lstm_scan_fwd_wide", "lstm_scan_fwd_carry_wide")
+# (H, T, rows) of the identities: the sub-band batch and its ragged count,
+# one 10 s request, the full band's training shape.
+WIDE_SHAPES = ((HIDDEN, T_FRAMES, ROWS), (HIDDEN, T_FRAMES, RAGGED_ROWS),
+               (HIDDEN, T_FRAMES, ROWS // 8), (FB_HIDDEN, TRAIN_T,
+                                                TRAIN_BATCH))
+
+
+def _wide_registers(reports):
+    """{"wide A bf16 3x3": "... registers, ... spilled", ...} for the
+    instances lstm_wide_kernel<OutT, CARRY, MT, NG> of csrc/lstm_scan_wide.cu
+    (kernel A, or B with CARRY; items of MT tiles x NG groups), from
+    ptxas's report."""
+    found, name, spill = {}, None, ""
+    out_type = {"13__nv_bfloat16": "bf16", "f": "fp32"}
+    for line in reports.get("lstm_scan_wide", "").splitlines():
+        if "Compiling entry function" in line:
+            name, spill = None, ""
+            w = re.search(r"lstm_wide_kernelI(13__nv_bfloat16|f)Lb([01])ELi"
+                          r"(\d)ELi(\d)E", line)
+            if w:
+                name = (f"wide {'B' if w.group(2) == '1' else 'A'} "
+                        f"{out_type[w.group(1)]} {w.group(3)}x{w.group(4)}")
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
+    return found
+
+
+def _wide_plan_line(plan):
+    return (f"C={plan.cluster} x {plan.rows} rows, items {plan.tiles}x"
+            f"{plan.groups}, {plan.resident} k-steps resident, "
+            f"{plan.stages} stages, {plan.clusters} clusters ({plan.active} "
+            f"at once), {plan.waves} waves, {plan.smem_bytes} B")
+
+
+def _chunked_carry(L, gates, w_hh, h0, c0, reverse, out_dtype):
+    """Kernel B over chunks of T_CHUNK steps, the state handed on (from the
+    later chunk when reversed): (h sequence, h_T, c_T)."""
+    t_len = gates.shape[0]
+    out = torch.empty(t_len, gates.shape[1], w_hh.shape[0], dtype=out_dtype,
+                      device=gates.device)
+    hs, cs = h0, c0
+    starts = list(range(0, t_len, T_CHUNK))
+    for s in (starts[::-1] if reverse else starts):
+        e = min(s + T_CHUNK, t_len)
+        out[s:e], hs, cs = L.lstm_scan_carry_tm(gates[s:e], w_hh, hs, cs,
+                                                reverse, out_dtype)
+    return out, hs, cs
+
+
+def _wide_identities(dev, L, gen):
+    """At each of WIDE_SHAPES, forward and reverse, bf16 and fp32 out: both
+    wide entries bit for bit against the resident cluster (kernel B from a
+    random state: h, h_T and c_T), kernel B from zero in chunks of T_CHUNK
+    against the unchunked forward and its final state, and at fp32 out
+    within the kernel limits of their plain versions; each wide run
+    counted. Returns each entry's largest max and mean error."""
+    worst = {name: [0.0, 0.0] for name in WIDE_ENTRIES}
+    for h, t_len, rows in WIDE_SHAPES:
+        w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+        gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        h0 = _uniform(gen, dev, (rows, h), 1.0)
+        c0 = torch.randn(rows, h, generator=gen, device=dev)
+        zero = torch.zeros(rows, h, device=dev)
+        n_chunks = -(-t_len // T_CHUNK)
+        plan = L.card_wide_plan(dev, h, rows)
+        for reverse in (False, True):
+            p_a = L.lstm_scan_reference_tm(gates, w_hh, reverse)
+            p_b = L.lstm_scan_carry_reference_tm(gates, w_hh, h0, c0, reverse)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                tag = (f"H={h} T={t_len} rows={rows} reverse={reverse} "
+                       f"{out_dtype}")
+                with torch.no_grad():
+                    with L.resident_forwards():
+                        a_res = L.lstm_scan_tm(gates, w_hh, reverse, out_dtype)
+                        b_res = L.lstm_scan_carry_tm(gates, w_hh, h0, c0,
+                                                     reverse, out_dtype)
+                        b_zero = L.lstm_scan_carry_tm(gates, w_hh, zero, zero,
+                                                      reverse, out_dtype)
+                    with L.wide_forwards():
+                        a = _counted(L, WIDE_ENTRIES[0], lambda: (
+                            L.lstm_scan_tm(gates, w_hh, reverse, out_dtype)))
+                        b = _counted(L, WIDE_ENTRIES[1], lambda: (
+                            L.lstm_scan_carry_tm(gates, w_hh, h0, c0, reverse,
+                                                 out_dtype)))
+                        chunked = _counted(
+                            L, WIDE_ENTRIES[1], lambda: _chunked_carry(
+                                L, gates, w_hh, zero, zero, reverse,
+                                out_dtype), n_chunks)
+                check(torch.equal(a, a_res),
+                      f"lstm_scan_fwd_wide == lstm_scan_fwd bitwise ({tag})")
+                check(all(torch.equal(x, y) for x, y in zip(b, b_res)),
+                      f"lstm_scan_fwd_carry_wide == lstm_scan_fwd_carry "
+                      f"bitwise: h, h_T, c_T ({tag})")
+                check(torch.equal(chunked[0], a_res)
+                      and all(torch.equal(x, y) for x, y in
+                              zip(chunked[1:], b_zero[1:])),
+                      f"lstm_scan_fwd_carry_wide in {n_chunks} chunks of "
+                      f"{T_CHUNK} == unchunked bitwise, its state too ({tag})")
+                # against the plain versions at fp32 out (bf16 out rounds h
+                # once more; it equals the resident cluster's, above)
+                for name, got, want in (((WIDE_ENTRIES[0], (a,), (p_a,)),
+                                         (WIDE_ENTRIES[1], b, p_b))
+                                        if out_dtype == torch.float32 else ()):
+                    errs = [(x.float() - y.float()).abs()
+                            for x, y in zip(got, want)]
+                    mx = max(e.max().item() for e in errs)
+                    mean = max(e.mean().item() for e in errs)
+                    check(mx < KERNEL_MAX_ABS and mean < KERNEL_MEAN_ABS,
+                          f"{name} vs plain within {KERNEL_MAX_ABS}/"
+                          f"{KERNEL_MEAN_ABS} ({tag}: {mx:.3e}/{mean:.3e})")
+                    worst[name] = [max(worst[name][0], mx),
+                                   max(worst[name][1], mean)]
+                del a, b, chunked, a_res, b_res, b_zero
+            del p_a, p_b
+        log(f"wide entries == the resident cluster bitwise at H={h} "
+            f"T={t_len} rows={rows} (forward and reverse, bf16 and fp32 out, "
+            f"B from a state and in {n_chunks} chunks of {T_CHUNK} == "
+            f"unchunked); wide plan {_wide_plan_line(plan)}; route "
+            f"{L._forward_route(h, rows, dev)[1] or 'resident'}")
+        del gates, h0, c0, zero
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _wide_times(dev, L, gen, rows, card, registers):
+    """Both wide entries at (H=HIDDEN, T=T_FRAMES, rows), bf16 out as the
+    path runs them, timed beside the resident cluster in turns (wide,
+    resident, resident, wide), with the plain version, cuDNN, the bound,
+    the plan, its modelled step and the route there."""
+    h, t_len = HIDDEN, T_FRAMES
+    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    h0 = _uniform(gen, dev, (rows, h), 1.0)
+    c0 = torch.randn(rows, h, generator=gen, device=dev)
+    library = library_lstm_ms(gates, w_hh)
+    out = {}
+    calls = {WIDE_ENTRIES[0]: (lambda: L.lstm_scan_tm(gates, w_hh),
+                               lambda: L.lstm_scan_reference_tm(gates, w_hh),
+                               bound(t_len, rows, h), (0, 0)),
+             WIDE_ENTRIES[1]: (lambda: L.lstm_scan_carry_tm(gates, w_hh, h0,
+                                                            c0),
+                               lambda: L.lstm_scan_carry_reference_tm(
+                                   gates, w_hh, h0, c0),
+                               bound(t_len, rows, h,
+                                     extra_bytes=4 * rows * h * 4), (0, 1))}
+    for name, (timed, plain, (b_ms, by), instance) in calls.items():
+
+        def wide():
+            with L.wide_forwards():
+                return timed()
+
+        def resident():
+            with L.resident_forwards():
+                return timed()
+
+        with torch.no_grad():
+            rounds = [cuda_ms(wide, iters=3), cuda_ms(resident, iters=3),
+                      cuda_ms(resident, iters=3), cuda_ms(wide, iters=3)]
+            plain_ms = cuda_ms(plain, iters=2)
+        ms, ms_res = min(rounds[0], rounds[3]), min(rounds[1:3])
+        plan = L.card_wide_plan(dev, h, rows, instance)
+        res_plan = L.card_scan_plan(dev, h, rows, carry=bool(instance[1]))
+        route = L._forward_route(h, rows, dev, (*instance, 0))[1]
+        log(f"{name} at T={t_len} rows={rows} H={h}: {ms:.3f} ms, "
+            f"{1e3 * ms / t_len / plan.waves:.3f} us a step a wave (modelled "
+            f"{plan.step_us:.3f}); resident cluster {ms_res:.3f} ms, "
+            f"{1e3 * ms_res / t_len / res_plan.waves:.3f} us a step a wave "
+            f"(modelled {L.scan_step_us(h, res_plan.cluster, res_plan.rows):.3f}"
+            f", {res_plan.waves} waves); rounds "
+            f"{' '.join(f'{r:.3f}' for r in rounds)}; bound {b_ms:.4f} ms by "
+            f"{by}; plain {plain_ms:.3f} ms; cuDNN {library:.3f} ms; plan "
+            f"{_wide_plan_line(plan)}; route "
+            f"{'wide' if route == '_wide' else 'resident'}; on {card}")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                         library_ms=library, resident_ms=ms_res,
+                         us_a_step=1e3 * ms / t_len / plan.waves,
+                         route="wide" if route == "_wide" else "resident",
+                         plan=dataclasses.asdict(plan))
+    log(f"wide instances: {_registers_line(registers, 'w')}")
+    del gates
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wide_path(dev, plus):
+    """FullSubNet+ on the route, the counts set to 0 around each part: one
+    10 s request (257 rows), the batched 8 x 10 s forward (2056 rows) and
+    the same batch under LONG_CLIP_GATES_LIMIT (kernel B in chunks at 2056
+    rows, against the unchunked forward); each part's launches exactly the
+    route's, the two forwards profiled. Returns the parts' launches."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.ops import prepare_input_from_waveform
+    model = plus.model(torch.bfloat16, dev)
+    total = dict.fromkeys(L.launch_counts, 0)
+
+    def counted(what, fn, expected):
+        L.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in L.launch_counts.items() if n}
+        check(launched == expected, f"{what} launched {expected}, the "
+              f"route's (got {launched})")
+        for k, n in launched.items():
+            total[k] += n
+        return result
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 260)
+    wav = torch.randn(8, 160000, generator=gen, device=dev) * 0.1
+    one = prepare_input_from_waveform(wav[:1], 512, 256, 512)[:plus.n_inputs]
+    batch = prepare_input_from_waveform(wav, 512, 256, 512)[:plus.n_inputs]
+    with torch.inference_mode():
+        counted("a 10 s request", lambda: model(*one),
+                routed_counts(("lstm_scan_fwd", ROWS // 8, 2)))
+        whole = counted("the batched 8 x 10 s forward", lambda: model(*batch),
+                        routed_counts(("lstm_scan_fwd", ROWS, 2)))
+        _profile(lambda: model(*one), "FullSubNet+ 10 s request on the "
+                 "route")
+        _profile(lambda: model(*batch), "FullSubNet+ batch 8 x 10 s forward "
+                 "on the route")
+        chunked_model = plus.model(torch.bfloat16, dev,
+                                   gates_bytes_limit=LONG_CLIP_GATES_LIMIT)
+        L.reset_launch_counts()
+        got = chunked_model(*batch)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in L.launch_counts.items() if n}
+        carry = routed("lstm_scan_fwd_carry", ROWS)
+        check(set(launched) == {carry} and launched[carry] > 0,
+              f"the batched 8 x 10 s forward under a "
+              f"{LONG_CLIP_GATES_LIMIT >> 20} MiB gates limit took {carry}, "
+              f"the route's, alone (got {launched})")
+        for k, n in launched.items():
+            total[k] += n
+        rel = ((got.float() - whole.float()).abs().max()
+               / whole.float().abs().max()).item()
+    log(f"FullSubNet+ batch 8 x 10 s chunked ({launched}) against unchunked: "
+        f"max|err|/peak {rel:.3e}")
+    check(torch.isfinite(got).all().item() and rel < PATH_REL,
+          f"chunked vs unchunked batched forward within {PATH_REL}")
+    return {k: n for k, n in total.items() if n}
+
+
+def phase_wide_forwards(dev, registers):
+    """Phase 26: kernels A and B as wide clusters. (a) Both entries bit for
+    bit against the resident cluster at 2056 and a ragged 2047 rows x
+    T=628, 257 rows x 628 and H=512 x 18 x 195 (forward and reverse, bf16
+    and fp32 out, B from a state and in 10 chunks of 64 against unchunked),
+    within the kernel limits of their plain versions; (b) timed at 2056 and
+    257 rows beside the resident cluster, the plain version, cuDNN and the
+    bound, with the plan the route weighs and its pick; (c) the path:
+    FullSubNet+ on the route, a 10 s request, the batched 8 x 10 s forward
+    (both profiled) and that batch chunked, with exact launches. Returns
+    the entries' numbers (2056 rows; 257 under "request") and the launches
+    of the wide entries on (c)."""
+    from generative_audio_torch.ops import lstm as L
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 261)
+    worst = _wide_identities(dev, L, gen)
+    kernels = _wide_times(dev, L, gen, ROWS, card, registers)
+    for name, numbers in _wide_times(dev, L, gen, ROWS // 8, card,
+                                     {}).items():
+        kernels[name]["request"] = numbers
+    for name in WIDE_ENTRIES:
+        kernels[name]["max_abs_err"], kernels[name]["mean_abs_err"] = \
+            worst[name]
+    plus, _, _ = model_paths()
+    path = _wide_path(dev, plus)
+    launches = {name: path.get(name, 0) for name in WIDE_ENTRIES}
+    log(f"launches on phase 26's path: {path}; phase 26 "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(any(launches.values()), "a wide entry launched on phase 26's path")
     return kernels, launches
 
 
@@ -3655,22 +3966,25 @@ def phase_serving(dev, path, model, counts):
     inf = path.inferencer(model, dev)
     rng = np.random.default_rng(SEED + 2)
     card = card_line()
+    fwd = routed(path.fwd, ROWS // 8)       # a clip's 257 sub-band rows
     for seconds in (3.0, 7.5, 10.0):
         noisy = (rng.standard_normal(int(seconds * 16000)) * 0.1).astype(np.float32)
-        before = counts[path.fwd]
+        before = dict(counts)
         t0 = time.perf_counter()
         out = inf.enhance(noisy)
         wall = (time.perf_counter() - t0) * 1e3
         check(out.shape == noisy.shape and np.isfinite(out).all(),
               f"{path.name} {seconds} s request: shape and finite")
-        check(counts[path.fwd] - before == path.per_forward,
-              f"{path.fwd} launched {path.per_forward} times per forward")
+        check(counts[fwd] - before[fwd] == path.per_forward,
+              f"{fwd} (the route's) launched {path.per_forward} times per "
+              f"forward (got {_launched(counts, before)})")
         log(f"serve {path.name} {seconds} s clip: rtf {inf.last_rtf:.5f}, "
             f"{wall:.2f} ms per call on {card}")
 
     clips = [((rng.standard_normal(160000) * 0.1).astype(np.float32), f"clip{i}")
              for i in range(8)]
-    before = counts[path.fwd]
+    fwd = routed(path.fwd, ROWS)            # the batch's 8 x 257 rows
+    before = counts[fwd]
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         inf.enhance_dir(clips, out_dir, log=lambda *_: None, batch_size=8)
@@ -3681,9 +3995,9 @@ def phase_serving(dev, path, model, counts):
             check(sr == 16000 and got.shape == noisy.shape
                   and np.isfinite(got).all(), f"enhance_dir output {name}")
     # the bucket is warmed once at its batch outside the timed window
-    check(counts[path.fwd] - before == 2 * path.per_forward,
-          f"{path.fwd} launched {path.per_forward} times for each of the "
-          f"batched forwards (warm-up and request)")
+    check(counts[fwd] - before == 2 * path.per_forward,
+          f"{fwd} (the route's) launched {path.per_forward} times for each "
+          f"of the batched forwards (warm-up and request)")
     log(f"serve {path.name} enhance_dir 8 x 10 s, batch 8: rtf "
         f"{inf.last_rtf:.5f}, {wall:.2f} ms on {card}")
     return inf.last_rtf
@@ -3698,14 +4012,15 @@ def phase_long_clip(dev, path, model, counts):
     before = dict(counts)
     inf = path.inferencer(chunked_model, dev)
     out = inf.enhance(noisy)
-    launched_c = counts[path.carry] - before[path.carry]
+    fwd, carry = routed(path.fwd, ROWS // 8), routed(path.carry, ROWS // 8)
+    launched_c = counts[carry] - before[carry]
     check(launched_c > 0
-          and counts[path.fwd] - before[path.fwd] == path.per_long_forward,
+          and counts[fwd] - before[fwd] == path.per_long_forward,
           f"{path.name}: the 30 s request took the chunked path "
-          f"({path.carry}, and {path.per_long_forward} {path.fwd})")
+          f"({carry}, the route's, and {path.per_long_forward} {fwd})")
     rel = np.abs(out - whole).max() / np.abs(whole).max()
     log(f"long clip {path.name} 30 s, gates limit {limit >> 20} MiB: "
-        f"{path.carry} launched {launched_c} times, rtf {inf.last_rtf:.5f}; "
+        f"{carry} launched {launched_c} times, rtf {inf.last_rtf:.5f}; "
         f"chunked vs unchunked max|err|/peak {rel:.3e}")
     check(out.shape == noisy.shape and np.isfinite(out).all() and rel < PATH_REL,
           f"{path.name}: chunked vs unchunked within {PATH_REL}")
@@ -3940,6 +4255,35 @@ def _count(counts, fn, expected, what):
     return out
 
 
+def routed(entry, rows, out_f32=False, hsz=HIDDEN):
+    """The entry kernel A ("lstm_scan_fwd") or B ("lstm_scan_fwd_carry")
+    launches for `rows` rows of an LSTM of hsz units on the card: the route
+    of ops.lstm.plan_forward, the wide cluster ("_wide") or the resident
+    one, whichever models faster there; any other entry as it is."""
+    if entry not in ("lstm_scan_fwd", "lstm_scan_fwd_carry"):
+        return entry
+    from generative_audio_torch.ops import lstm as L
+    return entry + L._forward_route(
+        hsz, rows, torch.device("cuda"),
+        (int(out_f32), int(entry == "lstm_scan_fwd_carry"), 0))[1]
+
+
+def routed_counts(*items):
+    """{entry: launches} of (entry, rows, launches[, out_f32]) items, each
+    entry of kernels A and B named as the route takes it at its rows."""
+    out = {}
+    for entry, rows, n, *f32 in items:
+        name = routed(entry, rows, *f32)
+        out[name] = out.get(name, 0) + n
+    return {k: n for k, n in out.items() if n}
+
+
+# The entries of kernels A and B, both designs (the resident cluster of
+# csrc/lstm_scan.cu and the wide one of csrc/lstm_scan_wide.cu).
+AB_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry", "lstm_scan_fwd_wide",
+              "lstm_scan_fwd_carry_wide")
+
+
 def _rel(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
@@ -4016,7 +4360,11 @@ def _serve_modes(dev, counts, card):
         model, ref = _card_and_cpu(make, SEED + 21 + i)
         cfg = InferencerConfig(inference_type=mode)
         inf = Inferencer(model, cfg, device=dev)
-        got = _count(counts, lambda: inf.enhance(noisy), {"lstm_scan_fwd": 2},
+        # the sub-band model over a clip's 257 rows, the full band's over 1
+        rows, h = ((ROWS // 8, HIDDEN) if mode == "sub_band_crm_mask"
+                   else (1, FB_HIDDEN))
+        got = _count(counts, lambda: inf.enhance(noisy),
+                     {routed("lstm_scan_fwd", rows, hsz=h): 2},
                      f"mode {mode}")
         want = Inferencer(ref, cfg, device="cpu").enhance(noisy)
         rel = _rel(got, want)
@@ -4038,9 +4386,11 @@ def _chunks_and_streams(dev, model, ref, counts, card):
     inf = Inferencer(model, cfg, device=dev)
     chunk = cfg.sr * CHUNK_SECONDS
     n_chunks = int(STREAM_SECONDS * cfg.sr / (chunk // 2)) + 1
-    per_run = {"lstm_scan_fwd": 2 * n_chunks}
+    # each chunk over the 257 rows of each stream, as the route takes them
+    per_run = {k: routed_counts(("lstm_scan_fwd", k * ROWS // 8,
+                                 2 * n_chunks)) for k in (1, 8)}
     noisy = _noise(SEED + 30, 8, STREAM_SECONDS * cfg.sr)
-    got = _count(counts, lambda: inf.enhance(noisy[0]), per_run,
+    got = _count(counts, lambda: inf.enhance(noisy[0]), per_run[1],
                  "overlapped_chunk")
     want = Inferencer(ref, cfg, device="cpu").enhance(noisy[0])
     rel = _rel(got, want)
@@ -4051,15 +4401,15 @@ def _chunks_and_streams(dev, model, ref, counts, card):
     check(got.shape == (STREAM_SECONDS * cfg.sr,) and np.isfinite(got).all()
           and rel < PATH_REL, f"overlapped_chunk vs the CPU within {PATH_REL}")
     offline = {1: got}
-    offline[8] = _count(counts, lambda: inf.overlapped_chunk(noisy), per_run,
-                        "overlapped_chunk, 8 rows")
+    offline[8] = _count(counts, lambda: inf.overlapped_chunk(noisy),
+                        per_run[8], "overlapped_chunk, 8 rows")
     for k in (1, 8):
         rows = noisy[0] if k == 1 else noisy
         for depth in (0, 2):
             stream = StreamingEnhancer(inf, n_streams=k, async_depth=depth)
             out = _count(counts,
                          lambda: _streamed(stream, rows, SEED + k + depth),
-                         per_run, f"stream K={k} depth {depth}")
+                         per_run[k], f"stream K={k} depth {depth}")
             check(np.array_equal(out, offline[k]),
                   f"K={k} streams, async_depth {depth} == overlapped_chunk of "
                   f"{k} rows bit for bit")
@@ -4122,9 +4472,14 @@ def _batched_dir(dev, inf, counts, card, phase4_rtf):
         out = {}
         for batch in (8, 1):
             # batch 8: each bucket warmed once at its batch, then served
+            # batch 8: each bucket (8 x 10 s, 5 x 7.5 s) warm and served;
+            # batch 1: each of the 13 clips, each over 257 rows
             _count(counts, lambda: inf.enhance_dir(
                 clips, Path(tmp) / str(batch), log=lambda *_: None,
-                batch_size=batch), {"lstm_scan_fwd": 8 if batch == 8 else 26},
+                batch_size=batch), routed_counts(
+                    ("lstm_scan_fwd", 8 * ROWS // 8, 4),
+                    ("lstm_scan_fwd", 5 * ROWS // 8, 4)) if batch == 8
+                else routed_counts(("lstm_scan_fwd", ROWS // 8, 26)),
                 f"enhance_dir, batch {batch}")
             out[batch] = {name: read_wav(Path(tmp) / str(batch) / f"{name}.wav")
                           for _, name in clips}
@@ -4333,8 +4688,8 @@ def _cli(dev, plus, counts, card):
                     "-I", str(root / "noisy"), "-O", str(root / device),
                     "--device", device]
             _count(counts, lambda: cli_main(argv),
-                   {"lstm_scan_fwd": 6} if device != "cpu" else {},
-                   f"the CLI on {device}")
+                   routed_counts(("lstm_scan_fwd", ROWS // 8, 6))
+                   if device != "cpu" else {}, f"the CLI on {device}")
         worst = 0.0
         for i in range(3):
             got = read_wav(root / str(dev) / f"c{i}.wav")[1]
@@ -4363,8 +4718,9 @@ def phase_serving_modes(dev, plus, phase4_rtf):
     _cli(dev, plus, counts, card)
     launched = {k: v for k, v in counts.items() if v}
     log(f"launches on the serving path of phase 13: {launched}")
-    check(set(launched) == {"lstm_scan_fwd"},
-          f"phase 13 launched kernel A and nothing else (got {launched})")
+    check(set(launched) <= {"lstm_scan_fwd", "lstm_scan_fwd_wide"},
+          f"phase 13 launched kernel A, as the route takes it at each call's "
+          f"rows, and nothing else (got {launched})")
     _stream_readings(dev, model, card)
     return launched
 
@@ -4515,9 +4871,12 @@ def phase_validation(dev, plus):
              for i, s in enumerate(PROBE_SECONDS)]
     frames = int(VAL_SECONDS[VAL_CHUNKED] * 16000) // 256 + 1 + 2
     n_chunks = _chunks(frames, 257, HIDDEN, VAL_GATES_LIMIT)
-    per_val = {"lstm_scan_fwd": 2 * (len(VAL_SECONDS) - 1),
-               "lstm_scan_fwd_carry": 2 * n_chunks}
-    per_probe = {"lstm_scan_fwd": 2 * len(PROBE_SECONDS)}
+    # each clip alone: 257 sub-band rows, as the route takes them
+    per_val = routed_counts(
+        ("lstm_scan_fwd", ROWS // 8, 2 * (len(VAL_SECONDS) - 1)),
+        ("lstm_scan_fwd_carry", ROWS // 8, 2 * n_chunks))
+    per_probe = routed_counts(("lstm_scan_fwd", ROWS // 8,
+                               2 * len(PROBE_SECONDS)))
     per_step = {"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2}
 
     readings = {"events": [], "launch_s": [], "host_s": [], "scores": []}
@@ -4655,8 +5014,7 @@ def phase_validation(dev, plus):
           and gaps["WB_PESQ"] <= VAL_PESQ_ABS,
           f"bf16 validation vs float32: |dSTOI| <= {VAL_STOI_ABS}, |dSI_SDR| "
           f"<= {VAL_SI_SDR_ABS} dB, |dWB_PESQ| <= {VAL_PESQ_ABS}")
-    return {k: v for k, v in launched.items()
-            if k in ("lstm_scan_fwd", "lstm_scan_fwd_carry")}
+    return {k: v for k, v in launched.items() if k in AB_ENTRIES}
 
 
 
@@ -4951,8 +5309,11 @@ def phase_corpus_training(dev):
         n_chunks = _chunks(int(CORPUS_VAL_SECONDS * 16000) // 256 + 3, 257,
                            HIDDEN, VAL_GATES_LIMIT)
         per_step = {"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2}
-        per_val = {"lstm_scan_fwd_carry": 2 * n_chunks * CORPUS_VAL}
-        per_probe = {"lstm_scan_fwd": 2 * CORPUS_PROBE}
+        # each clip alone: 257 sub-band rows, as the route takes them
+        per_val = routed_counts(("lstm_scan_fwd_carry", ROWS // 8,
+                                 2 * n_chunks * CORPUS_VAL))
+        per_probe = routed_counts(("lstm_scan_fwd", ROWS // 8,
+                                   2 * CORPUS_PROBE))
         log(f"train CLI: steps {[(r['step'], round(r['loss'], 5)) for r in steps]}"
             f"; validations {[(n, d) for n, d, _ in validations]}; restore "
             f"{restores}; best_score.json {meta}")
@@ -4996,7 +5357,8 @@ def phase_corpus_training(dev):
         written = json.loads((root / "validation_results.json").read_text())
         vlaunched = {k: v - vbefore[k] for k, v in L.launch_counts.items()
                      if v != vbefore[k]}
-        check(vlaunched == {"lstm_scan_fwd": 2 * CORPUS_VALIDATE_ITEMS},
+        check(vlaunched == routed_counts(("lstm_scan_fwd", ROWS // 8,
+                                          2 * CORPUS_VALIDATE_ITEMS)),
               f"the validate CLI launched kernel A twice a clip "
               f"({vlaunched})")
         check(written == means and all(
@@ -5004,11 +5366,12 @@ def phase_corpus_training(dev):
             for k in ("STOI", "SI_SDR")),
             f"validation_results.json with finite STOI and SI_SDR ({means})")
         launched = {k: v for k, v in L.launch_counts.items() if v}
-        want = {"lstm_scan_fwd_train": 2 * len(steps),
-                "lstm_scan_bwd": 2 * len(steps),
-                "lstm_scan_fwd_carry": 3 * per_val["lstm_scan_fwd_carry"],
-                "lstm_scan_fwd": 3 * per_probe["lstm_scan_fwd"]
-                + 2 * CORPUS_VALIDATE_ITEMS}
+        want = routed_counts(
+            ("lstm_scan_fwd_train", 0, 2 * len(steps)),
+            ("lstm_scan_bwd", 0, 2 * len(steps)),
+            ("lstm_scan_fwd_carry", ROWS // 8, 3 * 2 * n_chunks * CORPUS_VAL),
+            ("lstm_scan_fwd", ROWS // 8,
+             3 * 2 * CORPUS_PROBE + 2 * CORPUS_VALIDATE_ITEMS))
         check(launched == want,
               f"phase 15 launched {want} and nothing else (got {launched})")
         log(f"validate CLI: {CORPUS_VALIDATE_ITEMS} clips of 3 s, "
@@ -5069,8 +5432,7 @@ def phase_corpus_training(dev):
         del second
     log(f"phase 15: {time.perf_counter() - t_phase:.2f} s")
     return {k: v for k, v in launched.items()
-            if k in ("lstm_scan_fwd", "lstm_scan_fwd_carry",
-                     "lstm_scan_fwd_train", "lstm_scan_bwd")}
+            if k in (*AB_ENTRIES, "lstm_scan_fwd_train", "lstm_scan_bwd")}
 
 
 # Phase 16: the denoising-NPPC line at full width, bf16:
@@ -5171,9 +5533,10 @@ def _nppc_model_check(dev, cfg, sd, counts):
         w_card, crm_card = w_card.cpu(), crm_card.cpu()
         w_cpu, crm_cpu = cpu_model.forward_with_pred_crm(wav)
     launched = _launched(counts, before)
-    check(launched == {"lstm_scan_fwd": 4},
-          f"a 1 s forward launched 2 lstm_scan_fwd for the enhancer and 2 for "
-          f"the head, nothing else (got {launched})")
+    a_entry = routed("lstm_scan_fwd", ROWS // 8)
+    check(launched == {a_entry: 4},
+          f"a 1 s forward launched 2 {a_entry} (the route's at 257 rows) for "
+          f"the enhancer and 2 for the head, nothing else (got {launched})")
     check(w_card.dtype == torch.float32 and torch.isfinite(w_card).all()
           and w_card.shape == w_cpu.shape, "w_mat float32, finite, shaped")
     rel_w = ((w_card - w_cpu).abs().max() / w_cpu.abs().max()).item()
@@ -5266,9 +5629,11 @@ def _nppc_head_seeds(dev, cfg, counts):
     launched = _launched(counts, before)
     log(f"nppc head over {len(NPPC_HEAD_SEEDS)} seeds: worst {worst:.3e}; "
         f"launches {launched}")
-    check(launched == {"lstm_scan_fwd": 2 * len(NPPC_HEAD_SEEDS)},
-          f"each seed's head forward launched 2 lstm_scan_fwd, nothing else "
-          f"(got {launched})")
+    want = routed_counts(("lstm_scan_fwd", ROWS // 8,
+                          2 * len(NPPC_HEAD_SEEDS)))
+    check(launched == want,
+          f"each seed's head forward launched 2 of kernel A (the route's at "
+          f"257 rows), nothing else (got {launched})")
     return launched
 
 
@@ -5412,8 +5777,11 @@ def _nppc_training(dev, cfg, params, counts):
                     _noise_batch(SEED + 22, NPPC_BATCH, NPPC_SAMPLES))
     verify_grads = _first_grads(model.audio_pc_wrapper.named_parameters(),
                                 "head")
-    per_step = {"lstm_scan_fwd": 2, "lstm_scan_fwd_train": 2,
-                "lstm_scan_bwd": 2}
+    # the frozen enhancer's forward over the batch's sub-band rows, as the
+    # route takes them
+    per_step = routed_counts(("lstm_scan_fwd", NPPC_BATCH * ROWS // 8, 2),
+                             ("lstm_scan_fwd_train", 0, 2),
+                             ("lstm_scan_bwd", 0, 2))
     torch.cuda.reset_peak_memory_stats(dev)
     objectives, reconst, times = [], [], []
     total = dict.fromkeys(per_step, 0)
@@ -5530,7 +5898,8 @@ def _nppc_validation(dev, card_model, cpu_model, counts):
     noisy, clean = _speech_pair(SEED + 24, NPPC_VAL_SECONDS, NPPC_VAL_SNR)
     frames = len(noisy) // 256 + 1
     n_chunks = _chunks(frames + 2, 257, HIDDEN, VAL_GATES_LIMIT)
-    expected = {"lstm_scan_fwd_carry": 2 * 2 * n_chunks}
+    expected = routed_counts(("lstm_scan_fwd_carry", ROWS // 8,
+                              2 * 2 * n_chunks))
     layers = {m: m.gates_bytes_limit for m in card_model.modules()
               if isinstance(m, LSTMLayer)}
     for layer in layers:
@@ -5640,8 +6009,10 @@ def _nppc_cli(dev, counts):
         metrics = sorted((root / "ckpt").glob("metrics_final_*.json"))
         final = json.loads(metrics[-1].read_text()) if metrics else {}
     n = 3 * NPPC_CLI_STEPS
-    per_step = {"lstm_scan_fwd": 2, "lstm_scan_fwd_train": 2,
-                "lstm_scan_bwd": 2}
+    # the float32 enhancer's forward (float32 h) over a batch of 8 clips
+    per_step = routed_counts(("lstm_scan_fwd", 8 * ROWS // 8, 2, True),
+                             ("lstm_scan_fwd_train", 0, 2),
+                             ("lstm_scan_bwd", 0, 2))
     n_dirs = [t.state.model.config.pc_wrapper.n_directions
               for t in (first, second)]
     log(f"nppc CLI: {NPPC_CLI_CLEAN} clean + {NPPC_CLI_NOISE} noise clips of "
@@ -6409,7 +6780,8 @@ def _ten_second_requests(dev, path, model, counts):
     for i in range(VARIANT_REQUESTS + 1):
         t0 = time.perf_counter()
         out = _count(counts, lambda: inf.enhance(noisy),
-                     {path.fwd: path.per_forward}, f"{path.name} 10 s request")
+                     {routed(path.fwd, ROWS // 8): path.per_forward},
+                     f"{path.name} 10 s request")
         if i:
             readings.append(((time.perf_counter() - t0) * 1e3, inf.last_rtf))
     check(out.shape == noisy.shape and np.isfinite(out).all(),
@@ -6602,7 +6974,8 @@ def _complex(dev, counts):
         x = torch.from_numpy(_noise(SEED + 62, b, 2 * COMPLEX_FREQS, t) * 10)
         with torch.inference_mode(), _recorded_calls(
                 R, scan=f"{kind.lower()}_scan_tm") as recorded:
-            got = _count(counts, lambda: model(x.to(dev)), {fwd: 4},
+            got = _count(counts, lambda: model(x.to(dev)),
+                         {routed(fwd, 2 * b, hsz=COMPLEX_HIDDEN): 4},
                          f"complex {kind} forward").float().cpu()
         rows = [out.shape[1] for _, out in recorded["scan"]]
         check(rows == [2 * b] * 4,
@@ -7951,8 +8324,10 @@ def _f32_requests(dev, plus, v1_gru, counts, card):
         # with the records' copies of the operands
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         n_carry = len(carry["carry"])
-        want = {k: n for k, n in ((path.fwd, len(fwd["fwd"])),
-                                  (path.carry, n_carry)) if n}
+        want = {k: n for k, n in ((routed(path.fwd, ROWS // 8, True),
+                                   len(fwd["fwd"])),
+                                  (routed(path.carry, ROWS // 8, True),
+                                   n_carry)) if n}
         what = f"the float32 {path.name} {seconds} s request"
         n_fwd = path.per_forward if limit is None else path.per_long_forward
         check(got == want and len(fwd["fwd"]) == n_fwd
@@ -8164,8 +8539,10 @@ def _f32_nppc(dev, cfg, params, counts, card):
           "NPPCDenoisingTrainer's default dtype is float32")
     noisy, clean = (torch.from_numpy(x).to(dev) for x in
                     _noise_batch(SEED + 22, NPPC_BATCH, NPPC_SAMPLES))
-    per_step = {"lstm_scan_fwd": 2, "lstm_scan_fwd_train": 2,
-                "lstm_scan_bwd": 2}
+    per_step = routed_counts(("lstm_scan_fwd", NPPC_BATCH * ROWS // 8, 2,
+                              True),
+                             ("lstm_scan_fwd_train", 0, 2),
+                             ("lstm_scan_bwd", 0, 2))
     verify = _first_grads(model.audio_pc_wrapper.named_parameters(),
                           "float32 head")
     with _recorded_scans(L) as recorded:
@@ -8383,7 +8760,9 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(dev)}, {torch.cuda.device_count()} device(s)")
     registers = phase_build()
-    kernels = phase_kernels(dev, registers)
+    from generative_audio_torch.ops import lstm as L
+    with L.resident_forwards():     # the resident cluster, the witness
+        kernels = phase_kernels(dev, registers)
     kernels.update(phase_train_kernels(dev, registers))
     kernels["lstm_scan_bwd"]["full_band"] = phase_lstm_h512(dev, registers)
     phase_padded_hidden(dev)
@@ -8396,6 +8775,8 @@ def main():
     kernels.update(bwd_stream_kernels)
     staged_kernels, staged_launches = phase_streamed_staged(dev, registers)
     kernels.update(staged_kernels)
+    wide_kernels, wide_launches = phase_wide_forwards(dev, registers)
+    kernels.update(wide_kernels)
     phase_lstm_train_large(dev)
     kernels.update(phase_gru_kernels(dev))
     kernels.update(phase_gru_train_kernels(dev, registers))
@@ -8460,13 +8841,26 @@ def main():
         "lstm_layer_fwd_stream": (f"{csrc}/lstm_staged_stream.cu",
                                   f"{pallas}:542"),
         "lstm_scan_fwd_unrolled_stream": (f"{csrc}/lstm_staged_stream.cu",
-                                          "scripts/perf_lstm_unroll.py:59")}
+                                          "scripts/perf_lstm_unroll.py:59"),
+        # kernels A and B as wide clusters, the route at the sub-band batch
+        # (phase 26), on the serving paths where the route takes them
+        "lstm_scan_fwd_wide": (f"{csrc}/lstm_scan_wide.cu", f"{pallas}:142"),
+        "lstm_scan_fwd_carry_wide": (f"{csrc}/lstm_scan_wide.cu",
+                                     f"{pallas}:725")}
     plus, v1_gru, v1_lstm = model_paths()
-    counts, plus_rtf = drive(dev, plus, ["lstm_scan_fwd", "lstm_scan_fwd_carry",
-                                         "lstm_scan_fwd_train", "lstm_scan_bwd"])
-    counts.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
-                                      and not k.endswith(("_block",
-                                                          "_stream"))])[0])
+    # FullSubNet+'s kernels A and B as the route takes them at one clip's
+    # and at the batch's sub-band rows
+    plus_ab = {routed("lstm_scan_fwd", ROWS // 8), routed("lstm_scan_fwd", ROWS),
+               routed("lstm_scan_fwd_carry", ROWS // 8)}
+    counts = dict.fromkeys(L.launch_counts, 0)
+    launched, plus_rtf = drive(dev, plus, [*sorted(plus_ab),
+                                           "lstm_scan_fwd_train",
+                                           "lstm_scan_bwd"])
+    launched.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
+                                        and not k.endswith(("_block",
+                                                            "_stream"))])[0])
+    for name, n in launched.items():
+        counts[name] += n
     for name, launched in phase_serving_modes(dev, plus, plus_rtf).items():
         counts[name] += launched
     for name, launched in phase_validation(dev, plus).items():
@@ -8490,6 +8884,8 @@ def main():
     counts.update(block_launches)
     counts.update(stream_launches)
     counts.update(staged_launches)
+    for name, n in wide_launches.items():
+        counts[name] += n
     for name, n in bwd_stream_launches.items():
         counts[name] += n
     phase_reference(dev, v1_lstm, v1_lstm.model(torch.bfloat16, dev))

@@ -56,6 +56,16 @@ one to the other. The plain versions repeat the kernels' numerics: bf16
 gates upcast to fp32, h cast to bf16 before the product with bf16 W_hh,
 fp32 accumulation, fp32 c, dh and dc; bf16 h_seq, c_seq, gout and dgates.
 
+Kernels A and B have a third design for the sub-band batch, the wide
+cluster (csrc/lstm_scan_wide.cu, entries ending in `_wide`: one slice-major
+h buffer a CTA sent to the peers by bulk copies, the gates by TMA, c in
+registers, up to 3 x 3 m16 tiles x 8-unit groups of accumulators a warp, so
+that up to 144 rows fit a cluster of 8): where a resident cluster holds H,
+`plan_forward` takes whichever of the two has the least modelled waves x
+step on the card (`plan_wide_scan`, `card_wide_plan`; the wide one at the
+8 x 10 s batch, the resident one at a clip's 257 rows), bit for bit the
+same h. `wide_forwards()` and `resident_forwards()` force either.
+
 `launch_counts` counts kernel launches by kernel name, for the GRU kernels
 of ops/gru.py too (one dict and one launch helper for every kernel of the
 port); `_launch_kernel` adds one exactly where it launches, so a run can
@@ -155,7 +165,10 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "layer_stream_smem_bytes", "unrolled_stream_step_us",
            "layer_stream_step_us", "plan_unrolled_stream",
            "plan_layer_stream", "card_unrolled_stream_plan",
-           "card_layer_stream_plan", "layer_block_step_us"]
+           "card_layer_stream_plan", "layer_block_step_us", "WidePlan",
+           "WIDE_ITEMS", "wide_items", "wide_slice_stride", "wide_smem_bytes",
+           "wide_step_us", "plan_wide_scan", "card_wide_plan",
+           "wide_forwards", "resident_forwards"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -166,6 +179,8 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "lstm_scan_fwd_stream": "lstm_scan",
               "lstm_scan_fwd_carry_stream": "lstm_scan",
               "lstm_scan_fwd_train_stream": "lstm_scan",
+              "lstm_scan_fwd_wide": "lstm_scan_wide",
+              "lstm_scan_fwd_carry_wide": "lstm_scan_wide",
               "lstm_scan_fwd_unrolled": "lstm_scan_staged",
               "lstm_scan_fwd_unrolled_block": "lstm_scan_unrolled_block",
               "lstm_layer_fwd": "lstm_scan_staged",
@@ -997,27 +1012,48 @@ def plan_forward(what: str, hsz: int, batch: int, smem_bytes: SmemBytes,
                  block_step: Callable[[int, int], float],
                  stream_plan: Callable[[Optional[int]], StreamPlan],
                  sms: int = H100_SMS,
-                 block_rows: Callable[[int], int] = lambda hb: _ROWS
-                 ) -> Tuple[int, str, Optional[StreamPlan]]:
-    """(H, entry suffix, streamed plan) of a forward scan for `batch` rows of
-    a layer of hsz units: the resident cluster ("", its plan appended at the
-    launch) at cluster_hidden's H where a cluster holds the layer's W_hh
-    slice; else the streamed cluster ("_stream", `stream_plan(None)`) or the
-    single block ("_block", H padded to 16, ceil(batch / block_rows(H))
-    blocks of block_smem(H) bytes, sm_blocks of them at once, block_step(H,
-    blocks of a wave) a step), whichever has the least waves x modelled
-    step. Within single_block_forwards() the single block, within
-    streamed_forwards() the streamed cluster (with its resident k-steps), at
-    any H. The resident cluster does the streamed cluster's work without the
-    stream, and the single block's modelled step is over 5x the resident
-    cluster's at any H that both hold, so where it fits it is not weighed.
-    Kernels A-C, the GRU forwards and kernels E and F take their routes
-    here."""
+                 block_rows: Callable[[int], int] = lambda hb: _ROWS,
+                 wide_plan: Optional[Callable[[], "WidePlan"]] = None,
+                 resident_us: Optional[Callable[[int], float]] = None
+                 ) -> Tuple[int, str, Optional[Union[StreamPlan, "WidePlan"]]]:
+    """(H, entry suffix, plan) of a forward scan for `batch` rows of a layer
+    of hsz units: the resident cluster ("", its plan appended at the launch)
+    at cluster_hidden's H where a cluster holds the layer's W_hh slice; else
+    the streamed cluster ("_stream", `stream_plan(None)`) or the single
+    block ("_block", H padded to 16, ceil(batch / block_rows(H)) blocks of
+    block_smem(H) bytes, sm_blocks of them at once, block_step(H, blocks of
+    a wave) a step), whichever has the least waves x modelled step. Within
+    single_block_forwards() the single block, within streamed_forwards() the
+    streamed cluster (with its resident k-steps), at any H. The resident
+    cluster does the streamed cluster's work without the stream, and the
+    single block's modelled step is over 5x the resident cluster's at any H
+    that both hold, so where it fits it is not weighed.
+    Kernels A and B have a third design, the wide cluster ("_wide",
+    `wide_plan()`): where a resident cluster holds the slice, the route is
+    whichever of the two has the least modelled waves x step
+    (`resident_us(H)` for the resident cluster on the card; without it, as
+    for CPU tensors, which have no card's occupancy to weigh, the resident
+    cluster). Within wide_forwards() the wide cluster at any H its planner
+    holds, within resident_forwards() the resident cluster wherever it
+    fits. Kernels A-C, the GRU forwards and kernels E and F take their
+    routes here."""
     force = ("_block" if _single_block[0]
              else "_stream" if _streamed else None)
+    design = _design[-1] if _design and wide_plan is not None else None
+    if force is None and design == "_wide":
+        plan = wide_plan()
+        return plan.hidden, "_wide", plan
     if force is None:
         hp = _cluster_fit(hsz, smem_bytes)
         if hp is not None:
+            if wide_plan is None or resident_us is None or design == "":
+                return hp, "", None
+            try:
+                plan = wide_plan()
+            except ValueError:
+                return hp, "", None
+            if plan.waves * plan.step_us < resident_us(hp):
+                return plan.hidden, "_wide", plan
             return hp, "", None
     options, refused = [], []
     if force != "_block":
@@ -1049,6 +1085,34 @@ def plan_forward(what: str, hsz: int, batch: int, smem_bytes: SmemBytes,
 _streamed: List[Optional[int]] = []   # set by streamed_forwards()
 
 
+_design: List[str] = []   # set by wide_forwards() and resident_forwards()
+
+
+@contextlib.contextmanager
+def wide_forwards():
+    """Within the block, kernels A and B (lstm_scan_tm without grad,
+    lstm_scan_carry_tm) take the wide cluster at any H its planner holds:
+    for holding it against the resident cluster, which it equals bit for
+    bit."""
+    _design.append("_wide")
+    try:
+        yield
+    finally:
+        _design.pop()
+
+
+@contextlib.contextmanager
+def resident_forwards():
+    """Within the block, kernels A and B take the resident cluster wherever
+    a cluster holds H, whatever the wide cluster's model says: for holding
+    the wide cluster against it and timing both."""
+    _design.append("")
+    try:
+        yield
+    finally:
+        _design.pop()
+
+
 @contextlib.contextmanager
 def streamed_forwards(resident_ksteps: Optional[int] = None):
     """Within the block, the forward wrappers of both modules (kernels A-C,
@@ -1071,15 +1135,34 @@ def block_step_us(hsz: int, blocks: int) -> float:
 
 def _forward_route(hsz: int, batch: int, device: torch.device,
                    instance: Tuple[int, int, int] = (0, 0, 0)
-                   ) -> Tuple[int, str, Optional[StreamPlan]]:
-    """(H, entry suffix, streamed plan) of kernels A-C for `batch` rows of a
-    layer of hsz units on `device` (plan_forward with their layouts, step
-    models and the card's occupancy of the streamed instance; instance
-    (out_f32, carry, train)); raises when nothing fits."""
+                   ) -> Tuple[int, str, Optional[Union[StreamPlan,
+                                                       "WidePlan"]]]:
+    """(H, entry suffix, plan) of kernels A-C for `batch` rows of a layer of
+    hsz units on `device` (plan_forward with their layouts, step models and
+    the card's occupancy of the streamed instance; for kernels A and B also
+    the wide cluster's plan and, on a card, the resident cluster's modelled
+    time; instance (out_f32, carry, train)); raises when nothing fits."""
+    wide = resident = None
+    if not instance[2]:
+        wide = lambda: card_wide_plan(device, hsz, batch, instance[:2])
+        if _on_card(device):
+            dtype = torch.float32 if instance[0] else torch.bfloat16
+
+            def resident(hp):
+                plan = card_scan_plan(device, hp, batch, dtype,
+                                      bool(instance[1]))
+                return plan.waves * scan_step_us(hp, plan.cluster, plan.rows)
     return plan_forward(
         "LSTM", hsz, batch, scan_smem_bytes, block_smem_bytes, block_step_us,
         lambda res: card_stream_plan(device, hsz, batch, instance, res),
-        _device_sms(device))
+        _device_sms(device), wide_plan=wide, resident_us=resident)
+
+
+def _on_card(device: torch.device) -> bool:
+    """True for a CUDA device, whose occupancy the route can weigh; False
+    for the CPU (the wrappers' kernel branch on CPU tensors, as the tests
+    take it)."""
+    return torch.device(device).type == "cuda"
 
 
 def _device_sms(device: torch.device) -> int:
@@ -1106,6 +1189,226 @@ def _stream_weight(w_hh: torch.Tensor, hp: int, cluster: int) -> torch.Tensor:
     w = wt.reshape(n, cluster, units, hp).transpose(0, 1)   # [C][n][U][hp]
     return w.reshape(cluster, n * units // 8, 8, hp // 32, 2, 2, 4, 2).permute(
         0, 3, 1, 2, 6, 4, 5, 7).contiguous()
+
+
+# ---- the wide cluster forwards (kernels A and B, csrc/lstm_scan_wide.cu) ----
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """Launch plan of the wide cluster forwards (csrc/lstm_scan_wide.cu,
+    `lstm_scan_fwd_wide`, `lstm_scan_fwd_carry_wide`): clusters of `cluster`
+    CTAs at H = `hidden` (the layer's units zero-padded to stream_hidden's),
+    each CTA owning hidden / cluster units, over `rows` batch rows a cluster;
+    a warp's item is `tiles` m16 row tiles x `groups` 8-unit groups; the first
+    `resident` 16-deep k-steps of each CTA's W_hh^T slice stay in shared
+    memory, the others stream from L2 through a ring of `stages` slots of
+    two k-steps (no ring, 0 stages, where the whole slice is resident)."""
+    hidden: int           # H the kernel runs at
+    cluster: int          # CTAs per cluster
+    rows: int             # batch rows per cluster
+    tiles: int            # m16 row tiles of a warp's item
+    groups: int           # 8-unit groups of a warp's item
+    resident: int         # k-steps of the slice in shared memory (even)
+    stages: int           # slots of the ring, a k-pair each
+    clusters: int         # clusters in the grid
+    active: int           # clusters the card runs at once (occupancy)
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+    step_us: float        # modelled time of one step of one wave
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int, int, int, int]:
+        """The C entries' last arguments before the stream."""
+        return (self.cluster, self.rows, self.tiles, self.groups,
+                self.resident, self.stages, self.smem_bytes)
+
+
+# A wide warp's items, (m16 row tiles, 8-unit groups) (the kernel's
+# instances), the consumer warps of a CTA (at most: two warps a quarter of
+# the SM with the producer, so that the accumulators have 255 registers a
+# thread) and the largest TMA box side (the units of a CTA and its rows, at
+# most), as csrc/lstm_scan_wide.cu.
+WIDE_ITEMS = ((1, 2), (3, 2), (3, 3))
+_WIDE_MAX_ITEMS, _WIDE_BOX = 7, 256
+# wide_step_us's parts (microseconds): a step; each 1000 m16n8k16 products
+# of the CTA and of its busiest warp; each KB of the h exchange a CTA sends
+# (bulk copies; it grows with the rows, as the cell does); and, for each
+# k-pair a CTA streams, the larger of its kilobytes' time and a copy's
+# latency over the ring's stages. A least-squares fit to the steps of 63
+# one-cluster plans (H = 384, 512; C = 8 and 16; 16-144 rows; items 1 x 2,
+# 3 x 2, 3 x 3; no ring and rings of 1-4 stages) on an H100 SXM at 700 W
+# (generative_audio_torch/scripts/perf_wide_scan.py), off by at most 1.96
+# us a step and 0.66 in the mean.
+_WIDE_PARTS = (3.19326, 0.79373, 10.07302, 0.03826, 0.0, 0.24)
+# The ops of the wide entries, whose C functions end in a WidePlan's launch
+# arguments.
+_WIDE_ENTRIES = ("lstm_scan_fwd_wide", "lstm_scan_fwd_carry_wide")
+
+
+def wide_slice_stride(units: int) -> int:
+    """The row stride (bf16) of a CTA's h slice of `units` units in the wide
+    layout: units padded to an odd number of 16-byte pieces, so that the
+    eight row addresses of an ldmatrix lie in distinct banks."""
+    return 8 * ((units // 8) | 1)
+
+
+def wide_items(hsz: int, cluster: int, rows: int, tiles: int,
+               groups: int) -> int:
+    """Consumer warps of a wide CTA: one per item of `tiles` m16 tiles x
+    `groups` 8-unit groups (whole items: rows a multiple of 16 tiles, the
+    CTA's unit groups a multiple of `groups`)."""
+    return rows // 16 // tiles * (hsz // cluster // 8 // groups)
+
+
+def wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                    stages: int) -> int:
+    """Shared memory of one wide CTA (csrc/lstm_scan_wide.cu `wide_smem`):
+    128 bytes of slack to align the TMA boxes, one step of x-side gates
+    [4][rows][U] bf16, the ring of `stages` k-pairs and the `resident`
+    k-steps of the W_hh^T slice in fragment order (4U x 16 bf16 a k-step),
+    one bf16 h buffer slice-major [cluster][rows][wide_slice_stride(U)], the
+    A fragments' column offsets (8 bytes a k-step) and the mbarriers (the
+    ring's two a stage, the exchange's and the gates'), with U = H /
+    cluster units."""
+    units = hsz // cluster
+    return (128 + 8 * rows * units + (stages + resident // 2) * units * 256
+            + cluster * rows * wide_slice_stride(units) * 2 + hsz // 2
+            + 8 * (2 * stages + 2))
+
+
+def wide_step_us(hsz: int, cluster: int, rows: int, tiles: int, groups: int,
+                 resident: int, stages: int) -> float:
+    """Modelled time of one step of one wave of the wide cluster, from
+    _WIDE_PARTS: a step, the products of the CTA and of its busiest warp,
+    the KB of the bulk h exchange a CTA sends to its cluster - 1 peers, and
+    for each streamed k-pair the larger of its kilobytes' copy time and a
+    copy's latency shared by the ring's stages."""
+    step_us, cta_us, warp_us, x_us, kb_us, latency_us = _WIDE_PARTS
+    units, ksteps = hsz // cluster, hsz // 16
+    cta = rows // 16 * (units // 8) * 4 * ksteps / 1000
+    warp = tiles * groups * 4 * ksteps / 1000
+    sent = (rows * wide_slice_stride(units) * 2 * (cluster - 1)) / 1024
+    pairs = hsz // 32 - resident // 2
+    stream = pairs * max(units * 256 / 1024 * kb_us,
+                         latency_us / stages) if pairs else 0.0
+    return step_us + cta * cta_us + warp * warp_us + sent * x_us + stream
+
+
+def _wide_resident(hsz: int, cluster: int, rows: int, stages: int,
+                   resident: Optional[int]) -> Optional[int]:
+    """The resident k-steps of a wide CTA with a ring of `stages`: all of
+    them with no ring (stages 0); else `resident` where it is even, leaves
+    a k-pair streamed and fits SMEM_LIMIT, else (None) the most that do;
+    None when none does."""
+    ksteps = hsz // 16
+    if stages == 0:
+        ok = (resident in (None, ksteps) and wide_smem_bytes(
+            hsz, cluster, rows, ksteps, 0) <= SMEM_LIMIT)
+        return ksteps if ok else None
+    if resident is not None:
+        ok = (resident >= 0 and resident % 2 == 0 and resident < ksteps
+              and wide_smem_bytes(hsz, cluster, rows, resident, stages)
+              <= SMEM_LIMIT)
+        return resident if ok else None
+    least = wide_smem_bytes(hsz, cluster, rows, 0, stages)
+    if least > SMEM_LIMIT:
+        return None
+    pair = wide_smem_bytes(hsz, cluster, rows, 2, stages) - least
+    return 2 * min((SMEM_LIMIT - least) // pair, ksteps // 2 - 1)
+
+
+def plan_wide_scan(hsz: int, batch: int,
+                   max_clusters: Callable[[int, int, int, int, int, int, int],
+                                          int],
+                   resident: Optional[int] = None) -> WidePlan:
+    """The wide cluster's launch plan for `batch` rows of a layer of hsz
+    units.
+
+    For each cluster size C of CLUSTER_SIZES at H = stream_hidden(hsz, C)
+    whose CTAs hold at most _WIDE_BOX units, each item of WIDE_ITEMS (m16
+    tiles, 8-unit groups) that divides the CTA's unit groups, each row count
+    R (a multiple of the item's rows, at most _WIDE_BOX) that gives a CTA
+    at most _WIDE_MAX_ITEMS items, and each ring (none, with the whole slice
+    resident, or a depth of STREAM_STAGES no deeper than the streamed
+    k-pairs, with the most resident k-steps that fit, or `resident` itself
+    where given), whose CTA fits SMEM_LIMIT bytes, `max_clusters(H, C, R,
+    tiles, groups, resident, stages)` (the card's
+    cudaOccupancyMaxActiveClusters) run at once over ceil(batch / R)
+    clusters and a step takes wide_step_us. The plan minimises waves x step
+    time; ties go to the smaller cluster, then to fewer clusters, the
+    shallower ring and the smaller item. Raises ValueError with the reasons
+    when nothing fits."""
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    best, refused = None, []
+    for cluster in CLUSTER_SIZES:
+        hp = stream_hidden(hsz, cluster)
+        units = hp // cluster
+        items = [(t, g) for t, g in WIDE_ITEMS if units // 8 % g == 0]
+        if not items or units > _WIDE_BOX:
+            refused.append(f"C={cluster}: {units} units a CTA (whole items "
+                           f"of {sorted({g for _, g in WIDE_ITEMS})} 8-unit "
+                           f"groups, at most {_WIDE_BOX})")
+            continue
+        fitted = idle = False
+        for tiles, groups in items:
+            for rows in range(16 * tiles, _WIDE_BOX + 1, 16 * tiles):
+                if (wide_items(hp, cluster, rows, tiles, groups)
+                        > _WIDE_MAX_ITEMS or rows - 16 * tiles >= batch):
+                    break
+                clusters = -(-batch // rows)
+                for stages in (0, *STREAM_STAGES):
+                    res = _wide_resident(hp, cluster, rows, stages, resident)
+                    if res is None or (stages and stages >
+                                       hp // 32 - res // 2):
+                        continue
+                    fitted = True
+                    active = max_clusters(hp, cluster, rows, tiles, groups,
+                                          res, stages)
+                    if active < 1:
+                        idle = True
+                        continue
+                    waves = -(-clusters // active)
+                    step = wide_step_us(hp, cluster, rows, tiles, groups, res,
+                                        stages)
+                    key = (waves * step, cluster, clusters, stages,
+                           tiles * groups)
+                    if best is None or key < best[0]:
+                        best = (key, WidePlan(
+                            hp, cluster, rows, tiles, groups, res, stages,
+                            clusters, active, waves,
+                            wide_smem_bytes(hp, cluster, rows, res, stages),
+                            step))
+        if idle:
+            refused.append(f"C={cluster}: the card runs no such cluster")
+        if not fitted:
+            t, g = items[0]
+            refused.append(f"C={cluster}: "
+                           f"{wide_smem_bytes(hp, cluster, 16, 0, 1)} B and "
+                           f"{wide_items(hp, cluster, 16, t, g)} items at 16 "
+                           f"rows (at most {SMEM_LIMIT} B and "
+                           f"{_WIDE_MAX_ITEMS} items)")
+    if best is None:
+        raise ValueError(f"no wide plan for the LSTM scan at H={hsz}, "
+                         f"{batch} rows: " + "; ".join(refused))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def card_wide_plan(device: torch.device, hsz: int, batch: int,
+                   instance: Tuple[int, int] = (0, 0),
+                   resident: Optional[int] = None) -> WidePlan:
+    """The wide plan kernels A and B launch with on `device` (a CUDA device)
+    for `batch` rows of a layer of hsz units; instance (out_f32, carry) as
+    card_scan_plan's flags (lstm_scan_wide_max_clusters of
+    csrc/lstm_scan_wide.cu)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return plan_wide_scan(
+        hsz, batch, lambda h, c, r, tiles, groups, res, stages: _max_clusters(
+            "lstm_scan_wide", index, (*instance, tiles, groups, res, stages),
+            h, c, r), resident)
 
 
 def unrolled_smem_bytes(hsz: int, cluster: int, rows: int, k: int) -> int:
@@ -2130,7 +2433,7 @@ def card_chains_scan_plan(device: torch.device, hsz: int, batch: int,
 
 def _launch(fn_name: str, *args,
             plan: Optional[Union[ScanPlan, BwdPlan, StreamPlan,
-                                 BwdStreamPlan]] = None) -> None:
+                                 BwdStreamPlan, WidePlan]] = None) -> None:
     """Launch csrc entry `fn_name` (see _launch_kernel), of this module or
     of ops/gru.py (whose own _launch has appended any plan). Kernels A-C are
     cluster launches: their arguments end in (T, B, H, reverse), and
@@ -2144,7 +2447,8 @@ def _launch(fn_name: str, *args,
     for the output type). The streamed variants of A-C take `plan` (the
     StreamPlan the wrapper packed W_hh for; no default), and so do kernel
     D's streamed cluster (the BwdStreamPlan) and kernels E's and F's
-    (an UnrolledStreamPlan, a StreamPlan). Raises first,
+    (an UnrolledStreamPlan, a StreamPlan), and the wide entries of A and
+    B (the WidePlan the wrapper packed W_hh for). Raises first,
     before any plan asks the card and
     before anything is built, for a tensor off a 16-byte boundary: the
     wrappers hand every kernel aligned operands, and a misaligned read
@@ -2181,6 +2485,8 @@ def _launch(fn_name: str, *args,
         args = (*args, *plan.launch_args)
     elif fn_name in _STREAM_ENTRIES:
         args = (*args, *_stream_args(fn_name, plan, args[-2]))
+    elif fn_name in _WIDE_ENTRIES:
+        args = (*args, *_stream_args(fn_name, plan, args[-2], WidePlan))
     elif fn_name == "lstm_scan_bwd_stream":
         args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
     elif fn_name == "lstm_scan_fwd_unrolled_stream":
@@ -2284,10 +2590,11 @@ def lstm_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor,
 
 
 def _route_weight(w_hh: torch.Tensor, hp: int,
-                  plan: Optional[StreamPlan]) -> torch.Tensor:
+                  plan: Optional[Union[StreamPlan, WidePlan]]
+                  ) -> torch.Tensor:
     """The forward entries' W_hh operand at hp units (both modules): packed
-    for the streamed cluster of `plan`, else the kernel weight [n*hp,
-    hp]."""
+    for the streamed or wide cluster of `plan` (the same fragment order),
+    else the kernel weight [n*hp, hp]."""
     if plan is None:
         return _kernel_weight(w_hh, hp)
     return _stream_weight(w_hh, hp, plan.cluster)

@@ -220,14 +220,14 @@ def fake_launch(fn_name, *args, plan=None):
     handed the kernel and computes on the real units, as the kernel's zero
     units leave them unchanged. The single-block forwards ("_block") take
     the cluster entries' arguments at H padded to whole k-steps; the
-    streamed ones ("_stream", forwards and the backward) the cluster
-    entries' with W_hh packed for their plan (`plan=`), at H padded to
-    stream_hidden's units."""
+    streamed ones ("_stream", forwards and the backward) and the wide ones
+    of kernels A and B ("_wide") the cluster entries' with W_hh packed for
+    their plan (`plan=`), at H padded to stream_hidden's units."""
     tl.launch_counts[fn_name] += 1
     units, bwd_units = FORWARD_UNITS, BACKWARD_UNITS
     if fn_name.endswith("_block"):
         fn_name, units = fn_name[:-len("_block")], BACKWARD_UNITS
-    elif fn_name.endswith("_stream"):
+    elif fn_name.endswith(("_stream", "_wide")):
         fn_name, args, units = unstream(fn_name, args, plan, 4)
         bwd_units = units
     if fn_name == "lstm_scan_fwd":

@@ -275,4 +275,4 @@ def test_sources_match_their_declared_signatures():
     assert set(_cuda._QUERIES) == {"lstm_scan", "gru_scan", "lstm_scan_bwd",
                                    "gru_scan_bwd", "lstm_scan_staged",
                                    "lstm_scan_bwd_chains", "scan_bwd_stream",
-                                   "lstm_staged_stream"}
+                                   "lstm_staged_stream", "lstm_scan_wide"}

@@ -37,6 +37,29 @@ def stub_stream_plans(monkeypatch):
                                             resident))
 
 
+def stub_wide_occupancy(hsz, cluster, rows, tiles, groups, resident, stages):
+    """Clusters of the wide forwards an H100 runs at once (one CTA an SM),
+    as stub_occupancy."""
+    return stub_occupancy(hsz, cluster, rows, resident, stages)
+
+
+def stub_wide_route(monkeypatch):
+    """The plans kernels A and B weigh on a card (card_scan_plan,
+    card_wide_plan) from the stub occupancy, and the route weighing them
+    for CPU tensors as it does on a card (ops/lstm.py _on_card), for the
+    wrappers' CUDA branch on CPU tensors."""
+    monkeypatch.setattr(
+        tl, "card_scan_plan",
+        lambda device, hsz, batch, out_dtype=torch.bfloat16, carry=False,
+        train=False: tl.plan_scan(hsz, batch, lambda c, r: stub_occupancy(
+            hsz, c, r, 0, 1)))
+    monkeypatch.setattr(
+        tl, "card_wide_plan",
+        lambda device, hsz, batch, instance=(0, 0), resident=None:
+        tl.plan_wide_scan(hsz, batch, stub_wide_occupancy, resident))
+    monkeypatch.setattr(tl, "_on_card", lambda device: True)
+
+
 def stub_bwd_plans(monkeypatch):
     """The backward scans' plans of both modules (card_bwd_scan_plan: the
     single block, a resident cluster or the streamed cluster) from
@@ -84,10 +107,10 @@ BWD_STREAM_ENTRIES = ("lstm_scan_bwd_stream", "gru_scan_bwd_stream")
 
 
 def unstream(fn_name, args, plan, n_gates):
-    """(entry, arguments, units) of a streamed entry's launch as the cluster
-    entry's: W_hh^T unpacked, after checking the plan against the H the
-    wrapper passed (its arguments end in ..., B, H, reverse), and H padded
-    to stream_hidden's units. A streamed backward's two operands (the
+    """(entry, arguments, units) of a streamed (or wide: the same operand)
+    entry's launch as the cluster entry's: W_hh^T unpacked, after checking
+    the plan against the H the wrapper passed (its arguments end in ..., B,
+    H, reverse), and H padded to stream_hidden's units. A streamed backward's two operands (the
     recompute's W_hh^T and the second product's W_hh, each packed on its
     own) become the cluster backward's three: wt, w and wt in fragment
     order."""
@@ -99,7 +122,8 @@ def unstream(fn_name, args, plan, n_gates):
         return (fn_name[:-len("_stream")],
                 (*args[:k], wt, w, tl._fragment_weight(wt), *args[k + 2:]),
                 tl.stream_hidden(1, plan.cluster))
-    assert isinstance(plan, tl.StreamPlan) and plan.hidden == args[-2]
+    kind = tl.WidePlan if fn_name.endswith("_wide") else tl.StreamPlan
+    assert isinstance(plan, kind) and plan.hidden == args[-2]
     wt = stream_weight_rows(args[1], plan, n_gates)
-    return (fn_name[:-len("_stream")], (args[0], wt, *args[2:]),
+    return (fn_name.rsplit("_", 1)[0], (args[0], wt, *args[2:]),
             tl.stream_hidden(1, plan.cluster))
