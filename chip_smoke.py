@@ -377,6 +377,27 @@ of which fails the run (non-zero exit, no result line):
      ops.lstm.resident_forwards(); the serving phases' launch checks name
      kernel A's and B's entries as the route takes them at each call's
      rows (routed).
+ 27. (run after phase 26) kernel D as a wide cluster
+     (csrc/lstm_scan_bwd_wide.cu, lstm_scan_bwd_wide: the dgates exchange
+     read back from L2 by TMA in kernel D's k order, both W_hh operands
+     streamed, z, dh and dc of up to 2 x 3 m16 tiles x 8-unit groups in a
+     warp's registers), the route of kernel D where a resident cluster
+     holds H and the wide cluster's modelled waves x step are the less (the
+     sub-band training batch): every wide plan of a spread bit for bit
+     against the single block at small ragged shapes
+     (scripts/perf_bwd_scan.py check_wide); bit for bit against the
+     resident cluster and the single block at 2304, 2295 and 1024 rows x
+     T=195 and H=512 x 18 x 195, forward and reverse, within the dgates
+     limits of its plain version; timed at 2304 rows beside the resident
+     cluster (in turns), the plain version, cuDNN's backward and the bound,
+     with the plan, the route's pick and the instances' registers; then the
+     path, FullSubNet+'s bf16 training step on the route with exact
+     launches, its median beside the resident cluster's under
+     ops.lstm.resident_backwards() (in turns), its peak memory and a
+     profile. Phases 3, 8's full band and 12 hold the resident cluster
+     under resident_backwards(); the training phases' launch checks name
+     kernel D's entry as the route takes it at each step's sub-band rows
+     (routed, routed_step).
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -390,7 +411,8 @@ C's, D's and the GRU kernels'), and around each request and step of
 phase 23's model paths (the streamed entries') and phase 24's training
 step (the streamed backwards'), and around each part of phase 25's path
 (kernels E's and F's streamed clusters') and of phase 26's (the wide
-clusters'). The second-to-last line of stdout is
+clusters') and around each training step of phase 27's (kernel D's wide
+cluster). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
 20, `--phase21 PART OUT` one of phase 21, `--phase22 graft OUT` one of
@@ -566,7 +588,8 @@ def phase_build():
             **_bwd_registers(reports), **_staged_registers(reports),
             **_chains_registers(reports.get("lstm_scan_bwd_chains", "")),
             **_stream_registers(reports), **_bwd_stream_registers(reports),
-            **_staged_stream_registers(reports), **_wide_registers(reports)}
+            **_staged_stream_registers(reports), **_wide_registers(reports),
+            **_wide_bwd_registers(reports)}
 
 
 def _cluster_registers(report):
@@ -2855,6 +2878,232 @@ def phase_wide_forwards(dev, registers):
     return kernels, launches
 
 
+# Phase 27: kernel D as a wide cluster (csrc/lstm_scan_bwd_wide.cu).
+WIDE_BWD_ENTRY = "lstm_scan_bwd_wide"
+# (H, T, rows) of the identities: the sub-band training batch and its
+# ragged count, the NPPC head's 1024 rows, the full band's training shape.
+WIDE_BWD_SHAPES = ((HIDDEN, TRAIN_T, TRAIN_ROWS),
+                   (HIDDEN, TRAIN_T, TRAIN_RAGGED_ROWS),
+                   (HIDDEN, TRAIN_T, 1024), (FB_HIDDEN, TRAIN_T, TRAIN_BATCH))
+WIDE_BWD_STEPS = 4           # (c)'s timed steps of each design, in turns
+
+
+def _wide_bwd_registers(reports):
+    """{"wide D 1x3": "... registers, ... spilled", ...} for the instances
+    lstm_bwd_wide_kernel<MT, NG> of csrc/lstm_scan_bwd_wide.cu, from
+    ptxas's report."""
+    found, name, spill = {}, None, ""
+    for line in reports.get("lstm_scan_bwd_wide", "").splitlines():
+        if "Compiling entry function" in line:
+            name, spill = None, ""
+            w = re.search(r"lstm_bwd_wide_kernelILi(\d)ELi(\d)E", line)
+            if w:
+                name = f"wide D {w.group(1)}x{w.group(2)}"
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
+    return found
+
+
+def _wide_bwd_identities(dev, L, gen):
+    """At each of WIDE_BWD_SHAPES, forward and reverse: kernel D's wide
+    cluster (wide_backwards()) bit for bit against the resident cluster
+    (resident_backwards()) and the single block, and within the dgates
+    limits of its plain version; each wide run counted. Returns the
+    largest max and mean error against the plain version."""
+    worst = [0.0, 0.0]
+    for h, t_len, rows in WIDE_BWD_SHAPES:
+        w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+        gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        gout = torch.randn(t_len, rows, h, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        plan = L.card_bwd_wide_plan(dev, h, rows)
+        block = _block_bwd_plan(L, dev, h, rows)
+        for reverse in (False, True):
+            tag = f"H={h} T={t_len} rows={rows} reverse={reverse}"
+            h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh, reverse)
+            ops = (gates, h_seq, c_seq, gout, w_hh, reverse)
+            with L.wide_backwards():
+                wide = _counted(L, WIDE_BWD_ENTRY,
+                                lambda: L.lstm_scan_bwd_tm(*ops))
+            with L.resident_backwards():
+                resident = L.lstm_scan_bwd_tm(*ops)
+            single = L.lstm_scan_bwd_planned_tm(*ops[:5], block, reverse)
+            plain = L.lstm_scan_bwd_reference_tm(*ops)
+            torch.cuda.synchronize()
+            check(torch.equal(wide, resident) and torch.equal(wide, single),
+                  f"{WIDE_BWD_ENTRY} == the resident cluster and the single "
+                  f"block bitwise ({tag})")
+            err = (wide.float() - plain.float()).abs()
+            peak = plain.float().abs().max().item()
+            mx, mean = err.max().item() / peak, err.mean().item() / peak
+            check(torch.isfinite(wide.float()).all().item()
+                  and mx < BWD_MAX_REL and mean < BWD_MEAN_REL,
+                  f"{WIDE_BWD_ENTRY} vs plain within {BWD_MAX_REL}/"
+                  f"{BWD_MEAN_REL} of the peak ({tag}: {mx:.3e}/{mean:.3e})")
+            worst = [max(worst[0], err.max().item()),
+                     max(worst[1], err.mean().item())]
+            del h_seq, c_seq, wide, resident, single, plain, err
+        log(f"{WIDE_BWD_ENTRY} == the resident cluster and the single block "
+            f"bitwise at H={h} T={t_len} rows={rows} (forward and reverse); "
+            f"wide plan {_describe_bwd(plan)}; route "
+            f"{L.card_bwd_scan_plan(dev, h, rows).design}")
+        del gates, gout
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _wide_bwd_times(dev, L, gen, card, registers):
+    """Kernel D at the training shape (H=HIDDEN, T=TRAIN_T, TRAIN_ROWS):
+    the wide cluster timed beside the resident cluster in turns (wide,
+    resident, resident, wide), with the plain version, cuDNN's backward,
+    the bound, the plan, its waves and modelled step, the route's design
+    there, the instances' registers and the card."""
+    h, t_len, rows = HIDDEN, TRAIN_T, TRAIN_ROWS
+    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    gout = torch.randn(t_len, rows, h, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    h_seq, c_seq = L.lstm_scan_train_tm(gates, w_hh)
+    ops = (gates, h_seq, c_seq, gout, w_hh)
+    plan = L.card_bwd_wide_plan(dev, h, rows)
+    with L.resident_backwards():
+        res_plan = L.card_bwd_scan_plan(dev, h, rows)
+    rounds = [cuda_ms(lambda: L.lstm_scan_bwd_planned_tm(*ops, p), iters=3)
+              for p in (plan, res_plan, res_plan, plan)]
+    ms, ms_res = min(rounds[0], rounds[3]), min(rounds[1:3])
+    plain = cuda_ms(lambda: L.lstm_scan_bwd_reference_tm(*ops), iters=2)
+    lib_fwd, lib_both = library_lstm_train_ms(gates, w_hh, gout)
+    b_ms, by = bound(t_len, rows, h, streams=11, products=2)
+    route = L.card_bwd_scan_plan(dev, h, rows).design
+    log(f"{WIDE_BWD_ENTRY} at T={t_len} rows={rows} H={h}: {ms:.3f} ms, "
+        f"{1e3 * ms / t_len / plan.waves:.2f} us a step a wave (modelled "
+        f"{plan.step_us:.2f}); resident cluster {ms_res:.3f} ms "
+        f"({res_plan.waves} waves of {1e3 * ms_res / t_len / res_plan.waves:.2f}"
+        f" us); rounds {' '.join(f'{r:.3f}' for r in rounds)}; bound "
+        f"{b_ms:.4f} ms by {by}; plain {plain:.3f} ms; cuDNN LSTM backward "
+        f"{lib_both - lib_fwd:.3f} ms; plan {_describe_bwd(plan)}; route "
+        f"{route}; on {card}")
+    log(f"{WIDE_BWD_ENTRY} instances: " + (", ".join(
+        f"{k} {n}" for k, n in sorted(registers.items())
+        if k.startswith("wide D")) or "not rebuilt in this run"))
+    del ops, gates, gout, h_seq, c_seq
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                library_ms=lib_both - lib_fwd, resident_ms=ms_res,
+                us_a_step=1e3 * ms / t_len / plan.waves, design=route,
+                plan=dataclasses.asdict(plan))
+
+
+def _wide_bwd_path(dev, plus):
+    """FullSubNet+'s bf16 training step (EnhanceTrainConfig, 18 x 3.072 s,
+    2304 sub-band rows) on the route, with exact launches (2 of kernel D's
+    routed entry a step), its median beside the resident cluster's in turns
+    (WIDE_BWD_STEPS steps each: route, resident, resident, route), its peak
+    memory and a profile of one step. Returns the route's launches and the
+    readings."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import EnhanceTrainer
+    trainer = EnhanceTrainer(plus.train_config("bfloat16"), seed=SEED,
+                             pretrained_state_dict=plus.sd, device=dev)
+    noisy, clean = (torch.from_numpy(x).to(dev) for x in
+                    _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
+    per_step = routed_step(plus.per_step)
+    launched = dict.fromkeys(per_step, 0)
+
+    def steps(n, counted):
+        times = []
+        for _ in range(n):
+            L.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.train_epoch([(noisy, clean)])   # ends in a fetch
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = {k: v for k, v in L.launch_counts.items() if v}
+            check(np.isfinite(loss), "finite training loss on phase 27's path")
+            if counted:
+                check(got == per_step, f"phase 27's training step launched "
+                      f"{per_step} and nothing else (got {got})")
+                for k, v in got.items():
+                    launched[k] += v
+        return times
+
+    steps(1, True)                      # warm: the route's shapes
+    with L.resident_backwards():
+        steps(1, False)
+    route, resident = [], []
+    for part in ("route", "resident", "resident", "route"):
+        if part == "route":
+            route += steps(WIDE_BWD_STEPS, True)
+        else:
+            with L.resident_backwards():
+                resident += steps(WIDE_BWD_STEPS, False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps(1, True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    wall, busy, rows = _profile(
+        lambda: trainer.train_epoch([(noisy, clean)]),
+        f"FullSubNet+ training step on the route (kernel D "
+        f"{routed('lstm_scan_bwd', TRAIN_ROWS)})")
+    d_ms = sum(ms for key, ms, _ in rows if "bwd_wide" in key
+               or "bwd_cluster" in key)
+    out = dict(route_ms=statistics.median(route),
+               resident_ms=statistics.median(resident), peak_gib=peak,
+               profiled_ms=wall, busy_ms=busy, d_ms=d_ms)
+    log(f"phase 27 (c) FullSubNet+ bf16 step, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SAMPLES / 16000:.3f} s: on the route (kernel D "
+        f"{routed('lstm_scan_bwd', TRAIN_ROWS)}, {per_step} a step) median "
+        f"{out['route_ms']:.2f} ms of {' '.join(f'{x:.1f}' for x in route)}; "
+        f"resident_backwards() {out['resident_ms']:.2f} ms of "
+        f"{' '.join(f'{x:.1f}' for x in resident)}; peak memory {peak:.2f} "
+        f"GiB; profiled {wall:.2f} ms, busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%), kernel D {d_ms:.2f} ms; on "
+        f"{card_line()}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launched.items() if v}, out
+
+
+def phase_wide_backward(dev, registers):
+    """Phase 27: kernel D as a wide cluster. (a) Bit for bit against the
+    resident cluster and the single block at 2304, a ragged 2295 and 1024
+    rows x T=195 and H=512 x 18 x 195 (forward and reverse), within the
+    dgates limits of the plain version, and every wide plan of a spread ==
+    the single block at small ragged shapes (scripts/perf_bwd_scan.py
+    check_wide); (b) timed at 2304 x 195 beside the resident cluster, the
+    plain version, cuDNN's backward and the bound, with the plan, waves,
+    registers and the card; (c) the path: FullSubNet+'s bf16 training step
+    on the route with exact launches, its median beside the resident
+    cluster's, peak memory and a profile. Returns the entry's numbers and
+    its launches on (c)."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_bwd_scan as PB
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 270)
+    check(PB.check_wide(dev, card) == 0, "every wide plan of the spread == "
+          "the single block bitwise (scripts/perf_bwd_scan.py check_wide)")
+    worst = _wide_bwd_identities(dev, L, gen)
+    numbers = _wide_bwd_times(dev, L, gen, card, registers)
+    numbers["max_abs_err"], numbers["mean_abs_err"] = worst
+    plus, _, _ = model_paths()
+    launches, numbers["path"] = _wide_bwd_path(dev, plus)
+    log(f"launches on phase 27's path: {launches}; phase 27 "
+        f"{time.perf_counter() - t0:.1f} s")
+    routed_d = routed("lstm_scan_bwd", TRAIN_ROWS)
+    check(launches.get(routed_d, 0) == 2 * (2 * WIDE_BWD_STEPS + 2),
+          f"{routed_d} launched 2 a step on phase 27's path")
+    return {WIDE_BWD_ENTRY: numbers}, {WIDE_BWD_ENTRY: launches.get(
+        WIDE_BWD_ENTRY, 0)}
+
+
 def _gru_library(w_hh, b_hh):
     """cuDNN's GRU on the same x-side gates: nn.GRU(3H, H) with W_ih = I and
     b_ih = 0, so each step computes what the kernels do, plus one extra
@@ -2931,6 +3180,14 @@ def _bwd_plan_line(M, dev, h, rows):
 
 
 def _describe_bwd(plan):
+    if plan.design == "wide":
+        return (f"wide cluster C={plan.cluster} x R={plan.rows} rows at "
+                f"H={plan.hidden}, items {plan.tiles}x{plan.groups}, "
+                f"{plan.resident} k-steps resident, {plan.stages} stages, "
+                f"{plan.pieces} dgates pieces, {plan.clusters} clusters, "
+                f"cudaOccupancyMaxActiveClusters {plan.active}, {plan.waves} "
+                f"wave(s), {plan.smem_bytes} B of shared memory a CTA, "
+                f"modelled {plan.step_us:.2f} us a step")
     if plan.design == "stream":
         return (f"streamed cluster C={plan.cluster} x R={plan.rows} rows at "
                 f"H={plan.hidden}, {plan.resident} slots of each operand "
@@ -3514,9 +3771,10 @@ def phase_lstm_layer(dev, path, kernel_a_ms, registers):
      * gout.float()).sum().backward()
     torch.cuda.synchronize()
     launched = {k: L.launch_counts[k] - before[k] for k in before}
+    d_entry = routed("lstm_scan_bwd", TRAIN_ROWS)
     check(launched == {**dict.fromkeys(launched, 0), "lstm_scan_fwd_train": 1,
-                       "lstm_scan_bwd": 1},
-          f"LSTMLayerScan launched 1 lstm_scan_fwd_train and 1 lstm_scan_bwd "
+                       d_entry: 1},
+          f"LSTMLayerScan launched 1 lstm_scan_fwd_train and 1 {d_entry} "
           f"and nothing else (got {launched})")
     exact_in = [t.clone().requires_grad_() for t in (xg, *weights[0])]
     (L.lstm_layer_reference_tm(*exact_in, compute_dtype=torch.float32)
@@ -4077,7 +4335,8 @@ def phase_training(dev, path, counts):
     verify_grads = _first_grads(trainer.state.model.named_parameters(),
                                 "parameter")
     torch.cuda.reset_peak_memory_stats(dev)
-    expected = {**dict.fromkeys(counts, 0), **path.per_step}
+    per_step = routed_step(path.per_step)
+    expected = {**dict.fromkeys(counts, 0), **per_step}
     losses, times = [], []
     for step in range(TRAIN_STEPS):
         before = dict(counts)
@@ -4087,7 +4346,7 @@ def phase_training(dev, path, counts):
         times.append((time.perf_counter() - t0) * 1e3)
         launched = {k: counts[k] - before[k] for k in counts}
         check(launched == expected,
-              f"{path.name} train step {step + 1} launched {path.per_step} "
+              f"{path.name} train step {step + 1} launched {per_step} "
               f"and nothing else (got {launched})")
         if step == 0:
             verify_grads()
@@ -4179,6 +4438,7 @@ def _profile(fn, what):
         f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%), on {card_line()}")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
+    return wall, busy, rows
 
 
 def phase_profile(dev, path, model, trainer):
@@ -4217,7 +4477,7 @@ def drive(dev, path, kernels_of_path):
     trainer = phase_training(dev, path, L.launch_counts)
     training = dict(L.launch_counts)
     log(f"launches on the training path of {path.name}: {training}")
-    for name, per_step in path.per_step.items():
+    for name, per_step in routed_step(path.per_step).items():
         check(training[name] == per_step * TRAIN_STEPS,
               f"{name} launched {per_step} times per step on the training path")
     launched = {k: serving[k] + training[k] for k in serving}
@@ -4259,10 +4519,16 @@ def routed(entry, rows, out_f32=False, hsz=HIDDEN):
     """The entry kernel A ("lstm_scan_fwd") or B ("lstm_scan_fwd_carry")
     launches for `rows` rows of an LSTM of hsz units on the card: the route
     of ops.lstm.plan_forward, the wide cluster ("_wide") or the resident
-    one, whichever models faster there; any other entry as it is."""
+    one, whichever models faster there; kernel D ("lstm_scan_bwd") as
+    ops.lstm.plan_bwd takes it (the wide cluster, "_wide", or the resident
+    entry); any other entry as it is."""
+    from generative_audio_torch.ops import lstm as L
+    if entry == "lstm_scan_bwd":
+        plan = L.card_bwd_scan_plan(torch.device("cuda"), -(-hsz // 16) * 16,
+                                    rows)
+        return entry + ("_wide" if plan.design == "wide" else "")
     if entry not in ("lstm_scan_fwd", "lstm_scan_fwd_carry"):
         return entry
-    from generative_audio_torch.ops import lstm as L
     return entry + L._forward_route(
         hsz, rows, torch.device("cuda"),
         (int(out_f32), int(entry == "lstm_scan_fwd_carry"), 0))[1]
@@ -4278,10 +4544,19 @@ def routed_counts(*items):
     return {k: n for k, n in out.items() if n}
 
 
+def routed_step(per_step, rows=TRAIN_ROWS):
+    """A training step's {entry: launches} with kernel D's entry named as
+    the route takes it at `rows` sub-band rows (H=HIDDEN)."""
+    return routed_counts(*((k, rows, n) for k, n in per_step.items()))
+
+
 # The entries of kernels A and B, both designs (the resident cluster of
-# csrc/lstm_scan.cu and the wide one of csrc/lstm_scan_wide.cu).
+# csrc/lstm_scan.cu and the wide one of csrc/lstm_scan_wide.cu), and of
+# kernel D (the resident cluster of csrc/lstm_scan_bwd.cu and the wide one
+# of csrc/lstm_scan_bwd_wide.cu).
 AB_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry", "lstm_scan_fwd_wide",
               "lstm_scan_fwd_carry_wide")
+D_ENTRIES = ("lstm_scan_bwd", "lstm_scan_bwd_wide")
 
 
 def _rel(got, want):
@@ -4877,7 +5152,7 @@ def phase_validation(dev, plus):
         ("lstm_scan_fwd_carry", ROWS // 8, 2 * n_chunks))
     per_probe = routed_counts(("lstm_scan_fwd", ROWS // 8,
                                2 * len(PROBE_SECONDS)))
-    per_step = {"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2}
+    per_step = routed_step({"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2})
 
     readings = {"events": [], "launch_s": [], "host_s": [], "scores": []}
     with tempfile.TemporaryDirectory() as tmp:
@@ -5308,7 +5583,9 @@ def phase_corpus_training(dev):
         per_epoch = CORPUS_CLEAN // CORPUS_BATCH
         n_chunks = _chunks(int(CORPUS_VAL_SECONDS * 16000) // 256 + 3, 257,
                            HIDDEN, VAL_GATES_LIMIT)
-        per_step = {"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2}
+        corpus_rows = CORPUS_BATCH * TRAIN_ROWS // TRAIN_BATCH
+        per_step = routed_step({"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2},
+                               corpus_rows)
         # each clip alone: 257 sub-band rows, as the route takes them
         per_val = routed_counts(("lstm_scan_fwd_carry", ROWS // 8,
                                  2 * n_chunks * CORPUS_VAL))
@@ -5368,7 +5645,7 @@ def phase_corpus_training(dev):
         launched = {k: v for k, v in L.launch_counts.items() if v}
         want = routed_counts(
             ("lstm_scan_fwd_train", 0, 2 * len(steps)),
-            ("lstm_scan_bwd", 0, 2 * len(steps)),
+            ("lstm_scan_bwd", corpus_rows, 2 * len(steps)),
             ("lstm_scan_fwd_carry", ROWS // 8, 3 * 2 * n_chunks * CORPUS_VAL),
             ("lstm_scan_fwd", ROWS // 8,
              3 * 2 * CORPUS_PROBE + 2 * CORPUS_VALIDATE_ITEMS))
@@ -5432,7 +5709,7 @@ def phase_corpus_training(dev):
         del second
     log(f"phase 15: {time.perf_counter() - t_phase:.2f} s")
     return {k: v for k, v in launched.items()
-            if k in (*AB_ENTRIES, "lstm_scan_fwd_train", "lstm_scan_bwd")}
+            if k in (*AB_ENTRIES, "lstm_scan_fwd_train", *D_ENTRIES)}
 
 
 # Phase 16: the denoising-NPPC line at full width, bf16:
@@ -5444,6 +5721,9 @@ def phase_corpus_training(dev):
 NPPC_ENHANCER = {"num_groups_in_drop_band": 1}
 NPPC_HEAD = {"n_directions": 5, "num_groups_in_drop_band": 2}
 NPPC_BATCH, NPPC_SAMPLES, NPPC_STEPS = 8, 49152, 5
+# the head's sub-band rows of a step: 128 of the 257 bins a clip (drop_band
+# of 2 groups), over which its scans run
+NPPC_HEAD_ROWS = NPPC_BATCH * TRAIN_ROWS // TRAIN_BATCH
 NPPC_REF_BATCH, NPPC_REF_SAMPLES = 4, 16000
 NPPC_VAL_SECONDS, NPPC_VAL_SNR = 6.0, 5.0
 # configs/denoising_nppc.yaml's train: block, as JSON (the card's machine
@@ -5781,7 +6061,7 @@ def _nppc_training(dev, cfg, params, counts):
     # route takes them
     per_step = routed_counts(("lstm_scan_fwd", NPPC_BATCH * ROWS // 8, 2),
                              ("lstm_scan_fwd_train", 0, 2),
-                             ("lstm_scan_bwd", 0, 2))
+                             ("lstm_scan_bwd", NPPC_HEAD_ROWS, 2))
     torch.cuda.reset_peak_memory_stats(dev)
     objectives, reconst, times = [], [], []
     total = dict.fromkeys(per_step, 0)
@@ -6012,7 +6292,7 @@ def _nppc_cli(dev, counts):
     # the float32 enhancer's forward (float32 h) over a batch of 8 clips
     per_step = routed_counts(("lstm_scan_fwd", 8 * ROWS // 8, 2, True),
                              ("lstm_scan_fwd_train", 0, 2),
-                             ("lstm_scan_bwd", 0, 2))
+                             ("lstm_scan_bwd", 8 * ROWS // 8, 2))
     n_dirs = [t.state.model.config.pc_wrapper.n_directions
               for t in (first, second)]
     log(f"nppc CLI: {NPPC_CLI_CLEAN} clean + {NPPC_CLI_NOISE} noise clips of "
@@ -6802,7 +7082,7 @@ def _variant_training_step(dev, path, counts):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = _count(counts, lambda: trainer.train_epoch([(noisy, clean)]),
-                  path.per_step, f"{path.name} training step")
+                  routed_step(path.per_step), f"{path.name} training step")
     ms = (time.perf_counter() - t0) * 1e3
     verify()
     check(np.isfinite(loss), f"{path.name}: finite training loss")
@@ -6966,7 +7246,8 @@ def _complex(dev, counts):
     card = card_line()
     for kind, fwd, per_step in (
             ("LSTM", "lstm_scan_fwd",
-             {"lstm_scan_fwd_train": 4, "lstm_scan_bwd": 4}),
+             routed_counts(("lstm_scan_fwd_train", 0, 4),
+                           ("lstm_scan_bwd", 2 * COMPLEX_TRAIN[0], 4))),
             ("GRU", "gru_scan_fwd",
              {"gru_scan_fwd": 4, "gru_scan_bwd": 4, "gru_scan_bwd_dwhh": 4})):
         model, ref = _complex_models(kind, dev, SEED + 60)
@@ -7817,8 +8098,11 @@ def phase_multi_gpu(dev, plus):
     from generative_audio_torch.train import EnhanceTrainer
     t_phase = time.perf_counter()
     card = card_line()
-    launched = {"lstm_scan_fwd_train": 0, "lstm_scan_bwd": 0}
-    per_step = plus.per_step
+    launched = dict.fromkeys(("lstm_scan_fwd_train", *D_ENTRIES), 0)
+    per_step = routed_step(plus.per_step)
+    # (a)'s cli.train steps: phase 15's corpus batch
+    cli_step = routed_step(plus.per_step, CORPUS_BATCH * TRAIN_ROWS
+                           // TRAIN_BATCH)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
         data, _, _, _, _ = _write_corpus(out / "corpus")
@@ -7858,8 +8142,8 @@ def phase_multi_gpu(dev, plus):
                   f"(a) cli.train run {i + 1} under DDP at step "
                   f"{DDP_CLI_STEPS * (i + 1)}")
             check(run["launches"] == {k: v * DDP_CLI_STEPS for k, v in
-                                      per_step.items()},
-                  f"(a) cli.train run {i + 1}: {per_step} a step")
+                                      cli_step.items()},
+                  f"(a) cli.train run {i + 1}: {cli_step} a step")
         for k in launched:
             launched[k] += sum(c.get(k, 0) for c in a["ddp"]["launches"]) + \
                 sum(run["launches"].get(k, 0) for run in a["cli"])
@@ -7890,9 +8174,11 @@ def phase_multi_gpu(dev, plus):
     check(all(r["backend"] == "gloo" and r["world"] == 2
               and r["device"] == str(dev) for r in ranks),
           "(b, c) two gloo ranks on the one card")
+    # each rank's sub-band model over its 9 clips' rows
+    rank_step = routed_step(plus.per_step, TRAIN_ROWS // 2)
     for r in ranks:
-        check(all(c == per_step for c in r["enhance"]["launches"]),
-              f"(b) rank {r['rank']}: {per_step} a step (got "
+        check(all(c == rank_step for c in r["enhance"]["launches"]),
+              f"(b) rank {r['rank']}: {rank_step} a step (got "
               f"{r['enhance']['launches']})")
         for k in launched:
             launched[k] += sum(c.get(k, 0) for c in r["enhance"]["launches"])
@@ -8096,7 +8382,8 @@ def phase_band_axis(dev, plus, v1_gru, plus_ref):
     t_phase = time.perf_counter()
     card = card_line()
     paths = {"plus": plus, "v1_gru": v1_gru}
-    launched = dict.fromkeys(list(plus.per_step) + list(v1_gru.per_step), 0)
+    launched = dict.fromkeys(list(plus.per_step) + list(v1_gru.per_step)
+                             + list(D_ENTRIES), 0)
     refs = {"plus": plus_ref}
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
@@ -8129,8 +8416,8 @@ def phase_band_axis(dev, plus, v1_gru, plus_ref):
               f"{part}: {nprocs} gloo ranks on the one card, rank r at band "
               "index r % band")
         for name in runs:
-            per_step = paths[name].per_step
             share = _sub_band_rows(paths[name]) // nprocs
+            per_step = routed_step(paths[name].per_step, share)
             for r in ranks:
                 run = r[name]
                 check(all(s["launches"] == per_step for s in run["steps"]),
@@ -8429,7 +8716,8 @@ def _f32_training(dev, plus, counts, card):
                           "float32 parameter")
     torch.cuda.reset_peak_memory_stats(dev)
     losses, times = [], []
-    total = dict.fromkeys(plus.per_step, 0)
+    per_step = routed_step(plus.per_step)
+    total = dict.fromkeys(per_step, 0)
     for step in range(TRAIN_STEPS):
         before = dict(counts)
         torch.cuda.synchronize()
@@ -8439,8 +8727,8 @@ def _f32_training(dev, plus, counts, card):
             losses.append(trainer.train_epoch([batch]))   # ends in a fetch
         times.append((time.perf_counter() - t0) * 1e3)
         got = _launched(counts, before)
-        check(got == plus.per_step, f"float32 train step {step + 1} "
-              f"launched {plus.per_step} and nothing else (got {got})")
+        check(got == per_step, f"float32 train step {step + 1} "
+              f"launched {per_step} and nothing else (got {got})")
         total = {k: total[k] + got[k] for k in total}
         if step == 0:
             verify()
@@ -8542,7 +8830,7 @@ def _f32_nppc(dev, cfg, params, counts, card):
     per_step = routed_counts(("lstm_scan_fwd", NPPC_BATCH * ROWS // 8, 2,
                               True),
                              ("lstm_scan_fwd_train", 0, 2),
-                             ("lstm_scan_bwd", 0, 2))
+                             ("lstm_scan_bwd", NPPC_HEAD_ROWS, 2))
     verify = _first_grads(model.audio_pc_wrapper.named_parameters(),
                           "float32 head")
     with _recorded_scans(L) as recorded:
@@ -8763,8 +9051,10 @@ def main():
     from generative_audio_torch.ops import lstm as L
     with L.resident_forwards():     # the resident cluster, the witness
         kernels = phase_kernels(dev, registers)
-    kernels.update(phase_train_kernels(dev, registers))
-    kernels["lstm_scan_bwd"]["full_band"] = phase_lstm_h512(dev, registers)
+    with L.resident_backwards():    # kernel D's resident cluster, likewise
+        kernels.update(phase_train_kernels(dev, registers))
+        kernels["lstm_scan_bwd"]["full_band"] = phase_lstm_h512(dev,
+                                                                registers)
     phase_padded_hidden(dev)
     block_kernels, block_launches = phase_block_forwards(dev)
     kernels.update(block_kernels)
@@ -8777,6 +9067,8 @@ def main():
     kernels.update(staged_kernels)
     wide_kernels, wide_launches = phase_wide_forwards(dev, registers)
     kernels.update(wide_kernels)
+    wide_bwd_kernels, wide_bwd_launches = phase_wide_backward(dev, registers)
+    kernels.update(wide_bwd_kernels)
     phase_lstm_train_large(dev)
     kernels.update(phase_gru_kernels(dev))
     kernels.update(phase_gru_train_kernels(dev, registers))
@@ -8846,7 +9138,11 @@ def main():
         # (phase 26), on the serving paths where the route takes them
         "lstm_scan_fwd_wide": (f"{csrc}/lstm_scan_wide.cu", f"{pallas}:142"),
         "lstm_scan_fwd_carry_wide": (f"{csrc}/lstm_scan_wide.cu",
-                                     f"{pallas}:725")}
+                                     f"{pallas}:725"),
+        # kernel D as a wide cluster, the route at the sub-band training
+        # batch (phase 27), on the training paths where the route takes it
+        "lstm_scan_bwd_wide": (f"{csrc}/lstm_scan_bwd_wide.cu",
+                               f"{pallas}:300")}
     plus, v1_gru, v1_lstm = model_paths()
     # FullSubNet+'s kernels A and B as the route takes them at one clip's
     # and at the batch's sub-band rows
@@ -8855,7 +9151,8 @@ def main():
     counts = dict.fromkeys(L.launch_counts, 0)
     launched, plus_rtf = drive(dev, plus, [*sorted(plus_ab),
                                            "lstm_scan_fwd_train",
-                                           "lstm_scan_bwd"])
+                                           routed("lstm_scan_bwd",
+                                                  TRAIN_ROWS)])
     launched.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
                                         and not k.endswith(("_block",
                                                             "_stream"))])[0])
@@ -8884,7 +9181,7 @@ def main():
     counts.update(block_launches)
     counts.update(stream_launches)
     counts.update(staged_launches)
-    for name, n in wide_launches.items():
+    for name, n in {**wide_launches, **wide_bwd_launches}.items():
         counts[name] += n
     for name, n in bwd_stream_launches.items():
         counts[name] += n
@@ -8893,7 +9190,8 @@ def main():
     for phase in (lambda: phase_lstm_chains(
                       dev, kernels["lstm_scan_bwd"]["library_ms"], registers),
                   lambda: phase_lstm_unroll(dev, registers)):
-        numbers, launches = phase()
+        with L.resident_backwards():    # kernel G against D's resident cluster
+            numbers, launches = phase()
         kernels.update(numbers)
         counts.update(launches)
     (kernels["lstm_layer_fwd"], counts["lstm_layer_fwd"],

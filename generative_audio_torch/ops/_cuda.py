@@ -202,6 +202,16 @@ _SIGNATURES = {
         "gru_scan_bwd_stream": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
+    "lstm_scan_bwd_wide": {
+        # kernel D as a wide cluster: ..., reverse, then the plan: cluster,
+        # rows, tiles and groups an item, resident k-steps, the two rings'
+        # stages, shared bytes (and, traced, the trace buffer)
+        "lstm_scan_bwd_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "lstm_scan_bwd_wide_trace": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                     _P],
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 # Queries that launch nothing: the instance's flags (out_f32, carry; and
@@ -211,7 +221,9 @@ SOURCES = tuple(_SIGNATURES)
 # the ring's stages; for the wide forwards out_f32, carry, the tiles and
 # groups an item, the resident k-steps and the stages; for the staged ones k, out_f32, the resident k-steps,
 # the stages and kernel E's gate groups; for the streamed backwards, tile,
-# the resident slots and the stages), then H, cluster, rows and int* n.
+# the resident slots and the stages; for kernel D's wide cluster the tiles
+# and groups an item, the resident k-steps and both rings' stages), then H,
+# cluster, rows and int* n.
 _QUERIES = {
     "lstm_scan": {
         "lstm_scan_max_clusters": [_I, _I, _I, _I, _I, _I,
@@ -254,6 +266,10 @@ _QUERIES = {
                                               ctypes.POINTER(ctypes.c_int)],
         "gru_scan_bwd_stream_max_clusters": [_I, _I, _I, _I, _I, _I,
                                              ctypes.POINTER(ctypes.c_int)],
+    },
+    "lstm_scan_bwd_wide": {
+        "lstm_scan_bwd_wide_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I,
+                                            ctypes.POINTER(ctypes.c_int)],
     },
 }
 

@@ -64,7 +64,15 @@ that up to 144 rows fit a cluster of 8): where a resident cluster holds H,
 `plan_forward` takes whichever of the two has the least modelled waves x
 step on the card (`plan_wide_scan`, `card_wide_plan`; the wide one at the
 8 x 10 s batch, the resident one at a clip's 257 rows), bit for bit the
-same h. `wide_forwards()` and `resident_forwards()` force either.
+same h. `wide_forwards()` and `resident_forwards()` force either. Kernel D
+has a wide cluster too (csrc/lstm_scan_bwd_wide.cu `lstm_scan_bwd_wide`:
+the dgates exchange read back from L2 by TMA in kernel D's k order, both
+W_hh operands streamed, z, dh and dc of up to 2 x 3 m16 tiles x 8-unit
+groups in a warp's registers, so that 80 rows fit a cluster of 8): where
+a resident cluster holds H, `plan_bwd` weighs it against the resident
+cluster by modelled waves x step on the card (`plan_bwd_wide`,
+`card_bwd_wide_plan`), bit for bit the same dgates; `wide_backwards()` and
+`resident_backwards()` force either.
 
 `launch_counts` counts kernel launches by kernel name, for the GRU kernels
 of ops/gru.py too (one dict and one launch helper for every kernel of the
@@ -168,7 +176,10 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "card_layer_stream_plan", "layer_block_step_us", "WidePlan",
            "WIDE_ITEMS", "wide_items", "wide_slice_stride", "wide_smem_bytes",
            "wide_step_us", "plan_wide_scan", "card_wide_plan",
-           "wide_forwards", "resident_forwards"]
+           "wide_forwards", "resident_forwards", "BwdWidePlan",
+           "BWD_WIDE_ITEMS", "BWD_WIDE_STAGES", "bwd_wide_items",
+           "bwd_wide_smem_bytes", "bwd_wide_step_us", "plan_bwd_wide",
+           "card_bwd_wide_plan", "wide_backwards", "resident_backwards"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -198,7 +209,8 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "gru_scan_bwd": "gru_scan_bwd",
               "gru_scan_bwd_dwhh": "gru_scan_bwd",
               "lstm_scan_bwd_stream": "scan_bwd_stream",
-              "gru_scan_bwd_stream": "scan_bwd_stream"}
+              "gru_scan_bwd_stream": "scan_bwd_stream",
+              "lstm_scan_bwd_wide": "lstm_scan_bwd_wide"}
 launch_counts = dict.fromkeys(_SOURCE_OF, 0)
 
 # Dynamic shared memory a block may opt in to on sm_90 (H100): 227 KB.
@@ -1844,11 +1856,13 @@ def plan_bwd(what: str, hsz: int, batch: int,
              max_blocks: Callable[[int], int], smem_bytes: BwdSmemBytes,
              step_us: Callable[[int, int, int, bool], float],
              block_smem: int, block_step_us: float,
-             stream_plan: Optional[Callable[[], "BwdStreamPlan"]] = None
-             ) -> Union[BwdPlan, "BwdStreamPlan"]:
+             stream_plan: Optional[Callable[[], "BwdStreamPlan"]] = None,
+             wide_plan: Optional[Callable[[], "BwdWidePlan"]] = None
+             ) -> Union[BwdPlan, "BwdStreamPlan", "BwdWidePlan"]:
     """A backward scan's launch plan for `batch` rows at H = hsz: the
-    single-block design, every resident cluster shape and, above H = 512,
-    the streamed cluster, by modelled time.
+    single-block design, every resident cluster shape, up to H = 512 the
+    wide cluster (kernel D) and above it the streamed cluster, by modelled
+    time.
 
     The single-block design takes ceil(batch / 16) blocks of block_smem
     bytes, of which `max_blocks(block_smem)` run at once, each step taking
@@ -1860,12 +1874,18 @@ def plan_bwd(what: str, hsz: int, batch: int,
     cudaOccupancyMaxActiveClusters) at once and takes step_us(H, C, R,
     resident) a step. Above H = 512, where no resident cluster holds H,
     `stream_plan()` (plan_bwd_stream's best, at H padded to its units) is
-    weighed too. The plan minimises waves x step time; ties go to the single
-    block, then to the smaller cluster, to fewer clusters and to the
-    resident cluster. Every design gives the same bits. Raises ValueError
-    when none fits."""
+    weighed too; up to H = 512, where a resident cluster holds H,
+    `wide_plan()` (plan_bwd_wide's best, at H padded to its units) where
+    given. The plan minimises waves x step time;
+    ties go to the single block, then to the smaller cluster, to fewer
+    clusters and to the resident cluster. Every design gives the same bits.
+    Within wide_backwards() the wide plan at any H it holds, within
+    resident_backwards() no wide plan. Raises ValueError when none fits."""
     if batch < 1:
         raise ValueError(f"the scan needs at least one row, got {batch}")
+    design = _bwd_design[-1] if _bwd_design and wide_plan is not None else None
+    if design == "_wide":
+        return wide_plan()
     tiles = -(-batch // 16)
     best, refused = None, []
 
@@ -1906,6 +1926,14 @@ def plan_bwd(what: str, hsz: int, batch: int,
         try:
             plan = stream_plan()
             offer((plan.waves * plan.step_us, plan.cluster, plan.clusters, 1),
+                  plan)
+        except ValueError as e:
+            refused.append(str(e))
+    if (wide_plan is not None and design is None and hsz <= _BWD_RESIDENT_MAX
+            and any(hsz % (8 * c) == 0 for c in CLUSTER_SIZES)):
+        try:
+            plan = wide_plan()
+            offer((plan.waves * plan.step_us, plan.cluster, plan.clusters, 2),
                   plan)
         except ValueError as e:
             refused.append(str(e))
@@ -1950,18 +1978,23 @@ def _resident_occupancy(max_clusters: Callable[[int, int, bool], int]
 def plan_bwd_scan(hsz: int, batch: int,
                   max_clusters: Callable[[int, int, bool], int],
                   sms: int = H100_SMS,
-                  stream_clusters: Optional[StreamBwdClusters] = None
-                  ) -> Union[BwdPlan, "BwdStreamPlan"]:
+                  stream_clusters: Optional[StreamBwdClusters] = None,
+                  wide_clusters: Optional[WideBwdClusters] = None
+                  ) -> Union[BwdPlan, "BwdStreamPlan", "BwdWidePlan"]:
     """Kernel D's plan for `batch` rows at H = hsz (a multiple of 16): the
-    single-block design, a resident cluster or, above H = 512, the streamed
-    cluster (plan_bwd), on a card of `sms` SMs; the streamed cluster's
-    occupancy from `stream_clusters` (default: the resident cluster's)."""
+    single-block design, a resident cluster, up to H = 512 the wide cluster
+    or above it the streamed cluster (plan_bwd), on a card of `sms` SMs; the
+    streamed and the wide cluster's occupancy from `stream_clusters` and
+    `wide_clusters` (default: the resident cluster's)."""
     stream_clusters = stream_clusters or _resident_occupancy(max_clusters)
+    wide_clusters = wide_clusters or (
+        lambda h, c, r, *plan: max_clusters(c, r, False))
     return plan_bwd("LSTM", hsz, batch, max_clusters,
                     functools.partial(sm_blocks, sms=sms),
                     bwd_smem_bytes_cluster, bwd_step_us, bwd_smem_bytes(hsz),
                     _BWD_BLOCK_US * hsz / 384,
-                    lambda: plan_bwd_stream_scan(hsz, batch, stream_clusters))
+                    lambda: plan_bwd_stream_scan(hsz, batch, stream_clusters),
+                    lambda: plan_bwd_wide(hsz, batch, wide_clusters))
 
 
 def _card_stream_bwd_clusters(source: str, index: int) -> StreamBwdClusters:
@@ -1989,14 +2022,28 @@ def card_bwd_plan(source: str, plan: Callable, device: torch.device,
         _card_stream_bwd_clusters(source, index))
 
 
-@functools.lru_cache(maxsize=None)
 def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int
-                       ) -> Union[BwdPlan, "BwdStreamPlan"]:
+                       ) -> Union[BwdPlan, "BwdStreamPlan", "BwdWidePlan"]:
     """The plan kernel D launches with on `device` (a CUDA device) for
     `batch` rows at H = hsz (occupancy from csrc/lstm_scan_bwd.cu
-    `lstm_scan_bwd_max_clusters` and csrc/scan_bwd_stream.cu
-    `lstm_scan_bwd_stream_max_clusters`)."""
-    return card_bwd_plan("lstm_scan_bwd", plan_bwd_scan, device, hsz, batch)
+    `lstm_scan_bwd_max_clusters`, csrc/scan_bwd_stream.cu
+    `lstm_scan_bwd_stream_max_clusters` and csrc/lstm_scan_bwd_wide.cu
+    `lstm_scan_bwd_wide_max_clusters`), within the design that
+    wide_backwards() or resident_backwards() forces."""
+    return _card_bwd_scan_plan(device, hsz, batch,
+                               _bwd_design[-1] if _bwd_design else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_bwd_scan_plan(device: torch.device, hsz: int, batch: int,
+                        design: Optional[str]
+                        ) -> Union[BwdPlan, "BwdStreamPlan", "BwdWidePlan"]:
+    """card_bwd_scan_plan under `design` (the forced design, part of the
+    key: plan_bwd reads it)."""
+    index = _device_index(device)
+    return card_bwd_plan("lstm_scan_bwd", functools.partial(
+        plan_bwd_scan, wide_clusters=_card_wide_bwd_clusters(index)),
+        device, hsz, batch)
 
 
 # ---- the streamed cluster backwards ----------------------------------------
@@ -2239,6 +2286,263 @@ def _stream_dh_weight(w_hh: torch.Tensor, hp: int, cluster: int
         0, 3, 1, 2, 6, 4, 5, 7).contiguous()
 
 
+# ---- kernel D as a wide cluster (csrc/lstm_scan_bwd_wide.cu) ---------------
+
+@dataclasses.dataclass(frozen=True)
+class BwdWidePlan:
+    """Launch plan of kernel D's wide cluster (csrc/lstm_scan_bwd_wide.cu
+    `lstm_scan_bwd_wide`): clusters of `cluster` CTAs at H = `hidden` (the
+    layer's units zero-padded to stream_hidden's), each CTA owning hidden /
+    cluster units, over `rows` batch rows a cluster; a warp's item is
+    `tiles` m16 row tiles x `groups` 8-unit groups; the first `resident`
+    16-deep k-steps of the recompute's W_hh^T slice stay in shared memory,
+    the others stream from L2 through a ring of `stages` k-pairs (no ring,
+    0 stages, where the whole slice is resident); the second product's ring
+    holds `pieces` pieces of 64 dgates columns (read back from L2 by TMA)
+    and the W_hh rows of their k-steps."""
+    hidden: int           # H the kernel runs at
+    cluster: int          # CTAs per cluster
+    rows: int             # batch rows per cluster
+    tiles: int            # m16 row tiles of a warp's item
+    groups: int           # 8-unit groups of a warp's item
+    resident: int         # k-steps of the W_hh^T slice in shared memory
+    stages: int           # slots of the recompute's ring, a k-pair each
+    pieces: int           # slots of the second product's ring
+    clusters: int         # clusters in the grid
+    active: int           # clusters the card runs at once (occupancy)
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+    step_us: float        # modelled time of one step of one wave
+
+    @property
+    def design(self) -> str:
+        return "wide"
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int, int, int, int, int]:
+        """The C entry's last arguments before the stream."""
+        return (self.cluster, self.rows, self.tiles, self.groups,
+                self.resident, self.stages, self.pieces, self.smem_bytes)
+
+
+# A wide backward warp's items, (m16 row tiles, 8-unit groups) (the
+# kernel's instances), and the consumer warps of a CTA each takes at most
+# (with the two producers, so that a thread holds the item's z, dh and dc
+# in registers: 255 of them for 2 x 3, 168 for 1 x 3, 128 for 1 x 2); the
+# second product's ring depths the planner weighs; the largest TMA box
+# side (the units of a CTA and its rows, at most), as
+# csrc/lstm_scan_bwd_wide.cu.
+BWD_WIDE_ITEMS = ((1, 2), (1, 3), (2, 3))
+_BWD_WIDE_MAX_ITEMS = {(1, 2): 14, (1, 3): 10, (2, 3): 6}
+BWD_WIDE_STAGES = (1, 2, 3, 4, 6)
+_BWD_WIDE_BOX = 256
+# bwd_wide_step_us's parts (microseconds): a step; each 1000 m16n8k16
+# products of the CTA and of its busiest warp (both products); and a
+# copy's latency, shared by the stages of its ring, for each streamed slot
+# of both rings. A least-squares fit to the steps of 238 one-cluster plans
+# (H = 384, 512; C = 8 and 16; 16-96 rows; items 1 x 2, 1 x 3, 2 x 3;
+# rings of 1-4 pieces, recompute rings of none, 1 and 3 stages) on an H100
+# SXM at 700 W (generative_audio_torch/scripts/perf_bwd_scan.py --wide),
+# off by at most 4.09 us a step and 0.90 in the mean. (A term for the KB a
+# CTA reads from L2 fitted at -0.0016 us a KB and is left out.)
+_BWD_WIDE_PARTS = (4.97593, 1.39495, 4.42631, 0.34941)
+# (H, cluster, rows, tiles, groups, resident k-steps, stages, pieces) ->
+# clusters at once
+WideBwdClusters = Callable[[int, int, int, int, int, int, int, int], int]
+
+
+def bwd_wide_items(hsz: int, cluster: int, rows: int, tiles: int,
+                   groups: int) -> int:
+    """Consumer warps of a wide backward CTA: one per item of `tiles` m16
+    tiles x `groups` 8-unit groups."""
+    return rows // 16 // tiles * (hsz // cluster // 8 // groups)
+
+
+def bwd_wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                        stages: int, pieces: int) -> int:
+    """Shared memory of one wide backward CTA (csrc/lstm_scan_bwd_wide.cu
+    `wide_bwd_smem`): 1024 bytes of slack to align the swizzled boxes,
+    h_prev [H/64][rows][64] bf16, the second product's ring of `pieces`
+    slots (a dgates piece [rows][64] and the W_hh rows of its k-steps
+    [U][64], bf16), the recompute's ring of `stages` k-pairs and its
+    `resident` k-steps of the W_hh^T slice in fragment order (4U x 32 bf16
+    a k-pair), the cell's operands [7][rows][U] bf16 and the mbarriers
+    (both rings' two a slot, the h tile's and the operands' two each), with
+    U = H / cluster units."""
+    units = hsz // cluster
+    return (1024 + rows * 128 * (hsz // 64 + pieces) + pieces * units * 128
+            + (stages + resident // 2) * units * 256 + 14 * rows * units
+            + 8 * (2 * stages + 2 * pieces + 4))
+
+
+def bwd_wide_step_us(hsz: int, cluster: int, rows: int, tiles: int,
+                     groups: int, resident: int, stages: int,
+                     pieces: int) -> float:
+    """Modelled time of one step of one wave of the wide backward, from
+    _BWD_WIDE_PARTS: a step, the products (both: the recompute's 4U columns
+    over H and dh's U columns over 4H) of the CTA and of its busiest warp,
+    and a copy's latency over the ring's depth for each streamed k-pair of
+    the recompute's ring and each dgates piece of the second product's."""
+    step_us, cta_us, warp_us, latency_us = _BWD_WIDE_PARTS
+    units, ksteps = hsz // cluster, hsz // 16
+    cta = rows // 16 * (units // 8) * 8 * ksteps / 1000
+    warp = tiles * groups * 8 * ksteps / 1000
+    streamed = hsz // 32 - resident // 2
+    slots = (streamed / stages if streamed else 0.0) + hsz // 16 / pieces
+    return step_us + cta * cta_us + warp * warp_us + slots * latency_us
+
+
+def _bwd_wide_resident(hsz: int, cluster: int, rows: int, stages: int,
+                       pieces: int, resident: Optional[int]) -> Optional[int]:
+    """The resident k-steps of a wide backward CTA with rings of `stages`
+    and `pieces`: all of them with no recompute ring (stages 0); else
+    `resident` where it is even, leaves a k-pair streamed and fits
+    SMEM_LIMIT, else (None) the most that do; None when none does."""
+    ksteps = hsz // 16
+
+    def smem(res, st):
+        return bwd_wide_smem_bytes(hsz, cluster, rows, res, st, pieces)
+
+    if stages == 0:
+        ok = resident in (None, ksteps) and smem(ksteps, 0) <= SMEM_LIMIT
+        return ksteps if ok else None
+    if resident is not None:
+        ok = (resident >= 0 and resident % 2 == 0 and resident < ksteps
+              and smem(resident, stages) <= SMEM_LIMIT)
+        return resident if ok else None
+    least = smem(0, stages)
+    if least > SMEM_LIMIT:
+        return None
+    pair = smem(2, stages) - least
+    return 2 * min((SMEM_LIMIT - least) // pair, ksteps // 2 - 1)
+
+
+def plan_bwd_wide(hsz: int, batch: int, max_clusters: WideBwdClusters,
+                  resident: Optional[int] = None) -> BwdWidePlan:
+    """Kernel D's wide plan for `batch` rows of a layer of hsz units.
+
+    For each cluster size C of CLUSTER_SIZES at H = stream_hidden(hsz, C)
+    whose CTAs hold at most _BWD_WIDE_BOX units, each item of
+    BWD_WIDE_ITEMS (m16 tiles, 8-unit groups) that divides the CTA's unit
+    groups, each row count R (a multiple of the item's rows, at most
+    _BWD_WIDE_BOX) that gives a CTA at most the item's consumer warps, each
+    recompute ring (none, with the whole slice resident, or a depth of
+    STREAM_STAGES no deeper than the streamed k-pairs, with the most
+    resident k-steps that fit, or `resident` itself where given) and each
+    second ring of BWD_WIDE_STAGES pieces, whose CTA fits SMEM_LIMIT bytes,
+    `max_clusters(H, C, R, tiles, groups, resident, stages, pieces)` (the
+    card's cudaOccupancyMaxActiveClusters) run at once over ceil(batch / R)
+    clusters and a step takes bwd_wide_step_us. The plan minimises waves x
+    step time; ties go to the smaller cluster, then to fewer clusters, the
+    shallower rings and the smaller item. Raises ValueError with the
+    reasons when nothing fits."""
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    best, refused = None, []
+    for cluster in CLUSTER_SIZES:
+        hp = stream_hidden(hsz, cluster)
+        units = hp // cluster
+        items = [(t, g) for t, g in BWD_WIDE_ITEMS if units // 8 % g == 0]
+        if not items or units > _BWD_WIDE_BOX:
+            refused.append(f"C={cluster}: {units} units a CTA (whole items "
+                           f"of {sorted({g for _, g in BWD_WIDE_ITEMS})} "
+                           f"8-unit groups, at most {_BWD_WIDE_BOX})")
+            continue
+        fitted = idle = False
+        for tiles, groups in items:
+            for rows in range(16 * tiles, _BWD_WIDE_BOX + 1, 16 * tiles):
+                if (bwd_wide_items(hp, cluster, rows, tiles, groups)
+                        > _BWD_WIDE_MAX_ITEMS[tiles, groups]
+                        or rows - 16 * tiles >= batch):
+                    break
+                clusters = -(-batch // rows)
+                for pieces in BWD_WIDE_STAGES:
+                    for stages in (0, *STREAM_STAGES):
+                        res = _bwd_wide_resident(hp, cluster, rows, stages,
+                                                 pieces, resident)
+                        if res is None or (stages and stages >
+                                           hp // 32 - res // 2):
+                            continue
+                        fitted = True
+                        active = max_clusters(hp, cluster, rows, tiles,
+                                              groups, res, stages, pieces)
+                        if active < 1:
+                            idle = True
+                            continue
+                        waves = -(-clusters // active)
+                        step = bwd_wide_step_us(hp, cluster, rows, tiles,
+                                                groups, res, stages, pieces)
+                        key = (waves * step, cluster, clusters, stages,
+                               pieces, tiles * groups)
+                        if best is None or key < best[0]:
+                            best = (key, BwdWidePlan(
+                                hp, cluster, rows, tiles, groups, res,
+                                stages, pieces, clusters, active, waves,
+                                bwd_wide_smem_bytes(hp, cluster, rows, res,
+                                                    stages, pieces),
+                                step))
+        if idle:
+            refused.append(f"C={cluster}: the card runs no such cluster")
+        if not fitted:
+            t, g = items[0]
+            refused.append(f"C={cluster}: "
+                           f"{bwd_wide_smem_bytes(hp, cluster, 16 * t, 0, 1, 1)}"
+                           f" B and {bwd_wide_items(hp, cluster, 16 * t, t, g)}"
+                           f" items at {16 * t} rows (at most {SMEM_LIMIT} B "
+                           f"and {_BWD_WIDE_MAX_ITEMS[t, g]} items)")
+    if best is None:
+        raise ValueError(f"no wide plan for the LSTM backward scan at "
+                         f"H={hsz}, {batch} rows: " + "; ".join(refused))
+    return best[1]
+
+
+def _card_wide_bwd_clusters(index: int) -> WideBwdClusters:
+    """The card's occupancy of the wide backward
+    (`lstm_scan_bwd_wide_max_clusters` of csrc/lstm_scan_bwd_wide.cu)."""
+    return lambda h, c, r, tiles, groups, res, stages, pieces: _max_clusters(
+        "lstm_scan_bwd_wide", index, (tiles, groups, res, stages, pieces), h,
+        c, r)
+
+
+@functools.lru_cache(maxsize=None)
+def card_bwd_wide_plan(device: torch.device, hsz: int, batch: int,
+                       resident: Optional[int] = None) -> BwdWidePlan:
+    """Kernel D's wide plan on `device` (a CUDA device) at any H its planner
+    holds, for holding it against the other designs through
+    lstm_scan_bwd_planned_tm and timing it."""
+    return plan_bwd_wide(hsz, batch,
+                         _card_wide_bwd_clusters(_device_index(device)),
+                         resident)
+
+
+_bwd_design: List[str] = []   # set by wide_backwards(), resident_backwards()
+
+
+@contextlib.contextmanager
+def wide_backwards():
+    """Within the block, kernel D (lstm_scan_bwd_tm, LSTMScan's backward)
+    takes the wide cluster at any H its planner holds: for holding it
+    against the resident cluster, which it equals bit for bit."""
+    _bwd_design.append("_wide")
+    try:
+        yield
+    finally:
+        _bwd_design.pop()
+
+
+@contextlib.contextmanager
+def resident_backwards():
+    """Within the block, kernel D's plan weighs no wide cluster (the single
+    block, the resident cluster and, above H = 512, the streamed cluster,
+    as before it): for holding the wide cluster against it and timing
+    both."""
+    _bwd_design.append("")
+    try:
+        yield
+    finally:
+        _bwd_design.pop()
+
+
 @dataclasses.dataclass(frozen=True)
 class ChainsPlan:
     """Launch plan of kernel G with `chains` chains a warp: its cluster
@@ -2433,13 +2737,15 @@ def card_chains_scan_plan(device: torch.device, hsz: int, batch: int,
 
 def _launch(fn_name: str, *args,
             plan: Optional[Union[ScanPlan, BwdPlan, StreamPlan,
-                                 BwdStreamPlan, WidePlan]] = None) -> None:
+                                 BwdStreamPlan, WidePlan, BwdWidePlan]] = None
+            ) -> None:
     """Launch csrc entry `fn_name` (see _launch_kernel), of this module or
     of ops/gru.py (whose own _launch has appended any plan). Kernels A-C are
     cluster launches: their arguments end in (T, B, H, reverse), and
     card_scan_plan's plan for (H, B) on the tensors' card is appended to
     them. Kernel D's arguments end the same way, and `plan` (default:
-    card_bwd_scan_plan's for (H, B)) is appended to them; so are kernel G's
+    card_bwd_scan_plan's for (H, B) without the wide cluster, which takes
+    other operands) is appended to them; so are kernel G's
     cluster's (arguments ending in T, B, H, n_chains; default
     card_chains_scan_plan's) and kernel E's
     (arguments ending in T, B, H, k; default card_unrolled_plan's) and
@@ -2447,8 +2753,9 @@ def _launch(fn_name: str, *args,
     for the output type). The streamed variants of A-C take `plan` (the
     StreamPlan the wrapper packed W_hh for; no default), and so do kernel
     D's streamed cluster (the BwdStreamPlan) and kernels E's and F's
-    (an UnrolledStreamPlan, a StreamPlan), and the wide entries of A and
-    B (the WidePlan the wrapper packed W_hh for). Raises first,
+    (an UnrolledStreamPlan, a StreamPlan), the wide entries of A and
+    B (the WidePlan the wrapper packed W_hh for) and kernel D's wide
+    cluster (the BwdWidePlan). Raises first,
     before any plan asks the card and
     before anything is built, for a tensor off a 16-byte boundary: the
     wrappers hand every kernel aligned operands, and a misaligned read
@@ -2469,7 +2776,12 @@ def _launch(fn_name: str, *args,
         args = (*args, *plan.launch_args)
     elif fn_name == "lstm_scan_bwd":
         b, hsz = args[-3], args[-2]
-        plan = plan or card_bwd_scan_plan(args[0].device, hsz, b)
+        if plan is None:        # the wrapper asked already where wide weighs
+            with resident_backwards():
+                plan = card_bwd_scan_plan(args[0].device, hsz, b)
+        if not isinstance(plan, BwdPlan):
+            raise ValueError(f"lstm_scan_bwd launches with a BwdPlan, got "
+                             f"{type(plan).__name__}")
         args = (*args, *plan.launch_args)
     elif fn_name == "lstm_scan_bwd_chains":
         b, hsz, n_chains = args[-3:]
@@ -2489,6 +2801,8 @@ def _launch(fn_name: str, *args,
         args = (*args, *_stream_args(fn_name, plan, args[-2], WidePlan))
     elif fn_name == "lstm_scan_bwd_stream":
         args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
+    elif fn_name == "lstm_scan_bwd_wide":
+        args = (*args, *_stream_args(fn_name, plan, args[-2], BwdWidePlan))
     elif fn_name == "lstm_scan_fwd_unrolled_stream":
         args = (*args, *_stream_args(fn_name, plan, args[-2],
                                      UnrolledStreamPlan))
@@ -2727,8 +3041,10 @@ def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     c_seq of lstm_scan_train_tm and the cotangent gout of h_seq, all
     [T, B, H] bf16, w_hh [H, 4H] -> dgates [T, B, 4H] bf16. CUDA tensors run
     kernel D with card_bwd_scan_plan's plan (a thread-block cluster, the
-    single-block design or, above H = 512, the streamed cluster: the same
-    dgates bit for bit), or with n_chains = 2 or 4 kernel G with
+    single-block design, up to H = 512 the wide cluster or above it the
+    streamed cluster: the same dgates bit for bit; on a card the plan
+    weighs the wide cluster, on CPU tensors, which have no card's occupancy,
+    only within wide_backwards()), or with n_chains = 2 or 4 kernel G with
     card_chains_scan_plan's (a forward that was not reversed; its cluster,
     or its single block where no cluster holds H; the same dgates bit for
     bit). Both zero-pad H to whole 16-deep k-steps (the streamed cluster to
@@ -2741,12 +3057,14 @@ def lstm_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,
 def lstm_scan_bwd_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
                              c_seq: torch.Tensor, gout: torch.Tensor,
                              w_hh: torch.Tensor,
-                             plan: Union[BwdPlan, ChainsPlan],
+                             plan: Union[BwdPlan, BwdStreamPlan, BwdWidePlan,
+                                         ChainsPlan],
                              reverse: bool = False) -> torch.Tensor:
     """lstm_scan_bwd_tm on CUDA tensors with a given launch plan: of kernel
-    D (a BwdPlan for the operands' H, padded to 16, and any design) or of
-    kernel G (a ChainsPlan, whose chains it runs), for holding the designs
-    against each other and timing plans."""
+    D (a BwdPlan for the operands' H, padded to 16, and any design; a
+    BwdStreamPlan or a BwdWidePlan at its H) or of kernel G (a ChainsPlan,
+    whose chains it runs), for holding the designs against each other and
+    timing plans."""
     if not _is_cuda(gates, h_seq, c_seq, gout, w_hh):
         raise ValueError("a launch plan is for CUDA tensors")
     n_chains = plan.chains if isinstance(plan, ChainsPlan) else 1
@@ -2756,7 +3074,8 @@ def lstm_scan_bwd_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
 def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
               gout: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
               n_chains: int,
-              plan: Optional[Union[BwdPlan, ChainsPlan, BwdStreamPlan]] = None
+              plan: Optional[Union[BwdPlan, ChainsPlan, BwdStreamPlan,
+                                   BwdWidePlan]] = None
               ) -> torch.Tensor:
     t_len, b, hsz = _check_shapes(gates, w_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("c_seq", c_seq), ("gout", gout)):
@@ -2774,7 +3093,10 @@ def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
     hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
     if n_chains != 1 and t_len and b:
         plan = plan or card_chains_scan_plan(gates.device, hp, b, n_chains)
-    elif plan is None and hp > _BWD_RESIDENT_MAX and t_len and b:
+    elif plan is None and t_len and b and (
+            hp > _BWD_RESIDENT_MAX or _on_card(gates.device) or _bwd_design):
+        # on a card the plan weighs the wide cluster, so the wrapper asks
+        # for it first (the wide entry takes other operands)
         plan = card_bwd_scan_plan(gates.device, hp, b)
     hp = _bwd_hidden(hp, plan)
     for name, x in (("gates", gates), ("h_seq", h_seq), ("c_seq", c_seq),
@@ -2787,10 +3109,10 @@ def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
     streams = (_pad_gates(gates, 4, hp), _pad_units(h_seq, hp),
                _pad_units(c_seq, hp), _pad_units(gout, hp))
     shape = (t_len, b, hp)
-    if isinstance(plan, BwdStreamPlan):
+    if isinstance(plan, (BwdStreamPlan, BwdWidePlan)):
         # both W_hh operands in MMA fragment order, slot after slot: the
         # recompute's W_hh^T slices and the second product's W_hh rows
-        _launch("lstm_scan_bwd_stream", *streams,
+        _launch("lstm_scan_bwd_" + plan.design, *streams,
                 _stream_weight(w_hh, hp, plan.cluster),
                 _stream_dh_weight(w_hh, hp, plan.cluster), dgates, *shape,
                 reverse, plan=plan)
@@ -2818,13 +3140,13 @@ def _scan_bwd(gates: torch.Tensor, h_seq: torch.Tensor, c_seq: torch.Tensor,
 
 def _bwd_hidden(hp: int, plan) -> int:
     """The H a backward runs a layer of hp units (a multiple of 16) at: hp,
-    or a streamed plan's H (hp padded to stream_hidden's units; raises for
-    a plan of another layer)."""
-    if not isinstance(plan, BwdStreamPlan):
+    or a streamed or wide plan's H (hp padded to stream_hidden's units;
+    raises for a plan of another layer)."""
+    if not isinstance(plan, (BwdStreamPlan, BwdWidePlan)):
         return hp
     if plan.hidden != stream_hidden(hp, plan.cluster):
-        raise ValueError(f"a streamed plan at H={plan.hidden} is for no layer "
-                         f"of {hp} units")
+        raise ValueError(f"a {plan.design} plan at H={plan.hidden} is for no "
+                         f"layer of {hp} units")
     return plan.hidden
 
 

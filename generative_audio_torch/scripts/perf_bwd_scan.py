@@ -1,6 +1,7 @@
 """The LSTM and GRU backward scans (csrc/lstm_scan_bwd.cu `lstm_scan_bwd`,
-csrc/gru_scan_bwd.cu `gru_scan_bwd`, and their streamed clusters,
-csrc/scan_bwd_stream.cu `lstm_scan_bwd_stream`, `gru_scan_bwd_stream`)
+csrc/gru_scan_bwd.cu `gru_scan_bwd`, their streamed clusters,
+csrc/scan_bwd_stream.cu `lstm_scan_bwd_stream`, `gru_scan_bwd_stream`, and
+kernel D's wide cluster, csrc/lstm_scan_bwd_wide.cu `lstm_scan_bwd_wide`)
 under forced launch plans, on the card.
 
 Each backward runs as the single-block design, as a thread-block cluster
@@ -11,7 +12,11 @@ bit (LSTM dgates; GRU dgx, dhn and every db_hh partial) and times each
 plan, one cluster alone and a full batch of them, to fit the planners' step
 models; with --stream it does so for a spread of streamed plans (cluster
 size, rows, resident slots, ring depth, whole tile or slices) and prints the
-least-squares fit of the streamed step model's parts.
+least-squares fit of the streamed step model's parts; with --wide the same
+for a spread of kernel D's wide plans (cluster size, item, rows, both
+rings' depths, resident k-steps), then the planner's wide plan at the
+training shape beside the resident cluster in turns, with a clock64 trace
+of its steps.
 
     # identity of every plan with the single block, at small shapes
     python -m generative_audio_torch.scripts.perf_bwd_scan --check
@@ -21,6 +26,10 @@ least-squares fit of the streamed step model's parts.
     # their sweep and fit (--stream)
     python -m generative_audio_torch.scripts.perf_bwd_scan --stream-check
     python -m generative_audio_torch.scripts.perf_bwd_scan --stream
+    # kernel D's wide plans: their identity at small ragged shapes
+    # (--wide-check), then their sweep, fit and trace (--wide)
+    python -m generative_audio_torch.scripts.perf_bwd_scan --wide-check
+    python -m generative_audio_torch.scripts.perf_bwd_scan --wide
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ from generative_audio_torch.utils.device import cuda_ms, resolve_device
 
 __all__ = ["plans", "lstm_inputs", "gru_inputs", "run", "check", "sweep",
            "stream_plan", "stream_plans", "check_stream", "fit_stream_parts",
-           "sweep_stream", "main"]
+           "sweep_stream", "wide_plan", "wide_plans", "check_wide",
+           "fit_wide_parts", "wide_trace", "sweep_wide", "main"]
 
 # the sub-band and full-band training shapes
 T, ROWS, H, FB_ROWS, FB_H = 195, 2304, 384, 18, 512
@@ -331,6 +341,221 @@ def sweep_stream(device, card: str) -> None:
               f"{card}", flush=True)
 
 
+# ---- kernel D's wide cluster -------------------------------------------------
+
+# (T, rows, H) of the identity: ragged row counts, T = 1, and H = 128 and
+# 512, where only 1 x 2 items fit
+WIDE_CHECK = ((7, 40, 384), (6, 17, 384), (1, 17, 384), (5, 33, 512),
+              (6, 100, 128))
+
+
+def wide_plan(hsz: int, batch: int, cluster: int, rows: int, tiles: int,
+              groups: int, resident, stages: int, pieces: int, device):
+    """The BwdWidePlan of (cluster, rows, item, resident k-steps, stages,
+    pieces) for `batch` rows of a layer of hsz units with the card's
+    occupancy, resident None for the most that fit; None where it does not
+    fit."""
+    hp = L.stream_hidden(hsz, cluster)
+    units = hp // cluster
+    if (units // 8 % groups or units > L._BWD_WIDE_BOX or rows % (16 * tiles)
+            or L.bwd_wide_items(hp, cluster, rows, tiles, groups)
+            > L._BWD_WIDE_MAX_ITEMS[tiles, groups]):
+        return None
+    res = L._bwd_wide_resident(hp, cluster, rows, stages, pieces, resident)
+    if res is None or (stages and stages > hp // 32 - res // 2):
+        return None
+    active = L._card_wide_bwd_clusters(torch.device(device).index)(
+        hp, cluster, rows, tiles, groups, res, stages, pieces)
+    if active < 1:
+        return None
+    clusters = -(-batch // rows)
+    return L.BwdWidePlan(hp, cluster, rows, tiles, groups, res, stages, pieces,
+                         clusters, active, -(-clusters // active),
+                         L.bwd_wide_smem_bytes(hp, cluster, rows, res, stages,
+                                               pieces),
+                         L.bwd_wide_step_us(hp, cluster, rows, tiles, groups,
+                                            res, stages, pieces))
+
+
+def wide_plans(hsz: int, batch: int, device, rows_list=None) -> list:
+    """A spread of wide plans at (H, batch): both cluster sizes, every item,
+    rows from one item's tile up to the item's limit (or `rows_list`),
+    rings of 1-4 pieces and recompute rings of none (all resident), 1 and 3
+    stages with no and the most resident k-steps, each that fits."""
+    out = []
+    for cluster in L.CLUSTER_SIZES:
+        for tiles, groups in L.BWD_WIDE_ITEMS:
+            for rows in rows_list or range(16 * tiles, 16 * -(-batch // 16)
+                                           + 16 * tiles, 16 * tiles):
+                for pieces in (1, 2, 4):
+                    for stages, resident in ((0, None), (1, None), (3, 0),
+                                             (3, None)):
+                        plan = wide_plan(hsz, batch, cluster, rows, tiles,
+                                         groups, resident, stages, pieces,
+                                         device)
+                        if plan is not None and plan not in out:
+                            out.append(plan)
+    return out
+
+
+def check_wide(device, card: str = "") -> int:
+    """Every wide plan of the spread == the single block and the resident
+    clusters bit for bit, forward and reverse, at each shape of
+    WIDE_CHECK. Returns the number of failures."""
+    failures = 0
+    for i, (t_len, b, hsz) in enumerate(WIDE_CHECK):
+        inputs = lstm_inputs(t_len, b, hsz, device, seed=300 + i)
+        refs = plans("lstm", hsz, b, device)
+        tried = 0
+        for reverse in (False, True):
+            wants = [run("lstm", inputs, p, reverse) for p in refs]
+            for w in wants[1:]:
+                if not torch.equal(w[0], wants[0][0]):
+                    failures += 1
+                    print("MISMATCH lstm references", flush=True)
+            for plan in wide_plans(hsz, b, device):
+                got = run("lstm", inputs, plan, reverse)
+                torch.cuda.synchronize()
+                tried += 1
+                if not torch.equal(got[0], wants[0][0]):
+                    failures += 1
+                    print(f"MISMATCH T={t_len} rows={b} H={hsz} reverse="
+                          f"{reverse} {plan}", flush=True)
+        print(f"wide check T={t_len} rows={b} H={hsz}: {tried} wide runs "
+              f"against {len(refs)} reference plan(s) {card}", flush=True)
+    print(f"wide check: {failures} mismatches", flush=True)
+    return failures
+
+
+def _wide_features(plan):
+    """The terms of bwd_wide_step_us: (1, CTA products, warp products,
+    streamed slots over their rings' depths)."""
+    hp, c, r = plan.hidden, plan.cluster, plan.rows
+    units, ksteps = hp // c, hp // 16
+    streamed = hp // 32 - plan.resident // 2
+    return (1.0, r // 16 * (units // 8) * 8 * ksteps / 1000,
+            plan.tiles * plan.groups * 8 * ksteps / 1000,
+            (streamed / plan.stages if streamed else 0.0)
+            + hp // 16 / plan.pieces)
+
+
+def fit_wide_parts(features, steps):
+    """_BWD_WIDE_PARTS for the measured steps by least squares (the model
+    is linear in its parts). Returns (parts, max |error|, mean |error|)."""
+    x, y = np.array(features, dtype=float), np.array(steps, dtype=float)
+    coef, *_ = np.linalg.lstsq(x, y, rcond=None)
+    err = x @ coef - y
+    return (tuple(float(p) for p in coef), float(np.abs(err).max()),
+            float(np.abs(err).mean()))
+
+
+def wide_trace(inputs, plan, reverse: bool = False):
+    """One launch of lstm_scan_bwd_wide_trace under `plan` (its operands
+    packed as lstm_scan_bwd_planned_tm packs them): the clock64 readings of
+    the first CTA's consumer warp 0 and exchange producer, [steps][8]
+    int64 (csrc/lstm_scan_bwd_wide.cu TRACE_POINTS), and the dgates."""
+    from generative_audio_torch.ops import _cuda
+    g, h_seq, c_seq, gout, w_hh = inputs
+    t_len, b, _ = g.shape
+    hp = plan.hidden
+    ops = (L._pad_gates(g, 4, hp), L._pad_units(h_seq, hp),
+           L._pad_units(c_seq, hp), L._pad_units(gout, hp),
+           L._stream_weight(w_hh, hp, plan.cluster),
+           L._stream_dh_weight(w_hh, hp, plan.cluster))
+    dgates = torch.empty(t_len, b, 4 * hp, dtype=torch.bfloat16,
+                         device=g.device)
+    trace = torch.zeros(64, 8, dtype=torch.int64, device=g.device)
+    lib = _cuda.load("lstm_scan_bwd_wide")
+    err = lib.lstm_scan_bwd_wide_trace(
+        *[x.data_ptr() for x in ops], dgates.data_ptr(), t_len, b, hp,
+        int(reverse), *plan.launch_args, trace.data_ptr(),
+        _cuda.stream_handle(g.device))
+    _cuda.check("lstm_scan_bwd_wide", err, "lstm_scan_bwd_wide_trace")
+    torch.cuda.synchronize()
+    return trace.cpu(), dgates
+
+
+def _print_trace(trace, us_per_step: float, t_len: int, card: str) -> None:
+    """The phases of a traced step in microseconds (the SM clock scaled by
+    the measured step): operands' wait, cell + arrive, recompute, the
+    first dgates piece's wait, the rest of the second product, the
+    barrier's wait; the mean over steps 1 .. min(T, 64) - 2."""
+    n = min(t_len, trace.shape[0]) - 1
+    rows = trace[1:n].double()
+    steps = rows[1:, 0] - rows[:-1, 0]
+    scale = us_per_step / float(steps.mean())
+    names = ("operands' wait", "cell + arrive", "recompute",
+             "first piece's wait", "second product", "barrier wait")
+    spans = [rows[:, i + 1] - rows[:, i] for i in range(6)]
+    exchange = rows[:, 7] - rows[:, 2]
+    print("trace (us, mean over steps 1-%d): " % (n - 1) + ", ".join(
+        f"{name} {float(x.mean()) * scale:.2f}" for name, x in
+        zip(names, spans)) + f"; step {us_per_step:.2f}; the exchange "
+        f"producer's barrier done {float(exchange.mean()) * scale:.2f} after "
+        f"the cell; {card}", flush=True)
+
+
+def sweep_wide(device, card: str) -> None:
+    """One-cluster wide plans timed at T steps (their microseconds a step
+    beside the model, and the least-squares fit of _BWD_WIDE_PARTS); then
+    the planner's wide plan (the card's occupancy) at the training shape
+    and at 2295 and 1024 rows, each in turns against the resident cluster
+    (wide, resident, resident, wide), and the trace of the training
+    shape's plan."""
+    feats, steps = [], []
+    for hsz in (H, FB_H):
+        for rows in (16, 32, 48, 64, 80, 96):
+            inputs = lstm_inputs(T, rows, hsz, device, seed=hsz + rows)
+            for plan in wide_plans(hsz, rows, device, (rows,)):
+                if plan.pieces == 1 and plan.stages == 1:
+                    continue
+                us = cuda_ms(lambda: run("lstm", inputs, plan),
+                             iters=3) * 1e3 / T
+                feats.append(_wide_features(plan))
+                steps.append(us)
+                print(f"wide H={hsz} C={plan.cluster} R={rows} item "
+                      f"{plan.tiles}x{plan.groups} resident={plan.resident}"
+                      f" stages={plan.stages} pieces={plan.pieces} "
+                      f"smem={plan.smem_bytes}: {us:.3f} us a step (model "
+                      f"{plan.step_us:.3f})", flush=True)
+            del inputs
+    parts, worst, mean = fit_wide_parts(feats, steps)
+    print(f"wide backward step fit (step, CTA, warp, latency): "
+          f"{tuple(round(p, 5) for p in parts)}, off by at most {worst:.3f} "
+          f"us over {len(steps)} plans, mean {mean:.3f}; on {card}",
+          flush=True)
+    for b in (ROWS, ROWS - 9, 1024):
+        inputs = lstm_inputs(T, b, H, device, seed=b)
+        plan = L.card_bwd_wide_plan(device, H, b)
+        with L.resident_backwards():
+            res = L.card_bwd_scan_plan(device, H, b)
+        rounds = [cuda_ms(lambda: run("lstm", inputs, p), iters=3)
+                  for p in (plan, res, res, plan)]
+        ms, ms_res = min(rounds[0], rounds[3]), min(rounds[1:3])
+        print(f"wide plan at T={T} rows={b} H={H}: {plan}; {ms:.3f} ms, "
+              f"{1e3 * ms / T / plan.waves:.2f} us a step a wave (model "
+              f"{plan.step_us:.2f}); resident {res.cluster} x {res.rows}, "
+              f"{res.waves} waves: {ms_res:.3f} ms; rounds "
+              f"{' '.join(f'{r:.3f}' for r in rounds)}; on {card}",
+              flush=True)
+        if b == ROWS:
+            trace, _ = wide_trace(inputs, plan)
+            _print_trace(trace, 1e3 * ms / T / plan.waves, T, card)
+            # the gate recompute hoisted out of the chain would be one
+            # product of every step's h_prev with W_hh, z written in fp32:
+            # a cuBLAS call of that shape (not kernel D's k order) as the
+            # floor of such a pass
+            h_prev = inputs[1].reshape(-1, H)
+            w = inputs[4].to(torch.bfloat16)
+            mm = cuda_ms(lambda: torch.mm(h_prev, w, out_dtype=torch.float32),
+                         iters=3)
+            print(f"a hoisted recompute's product as one torch.mm "
+                  f"[{h_prev.shape[0]}, {H}] x [{H}, {4 * H}], fp32 out: "
+                  f"{mm:.3f} ms, z {h_prev.shape[0] * 4 * H * 4 / 1e9:.2f} GB "
+                  f"written and read back; on {card}", flush=True)
+        del inputs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--check", action="store_true",
@@ -339,12 +564,25 @@ def main(argv=None) -> int:
                         help="the streamed plans' identity only")
     parser.add_argument("--stream", action="store_true",
                         help="the streamed plans' identity, sweep and fit")
+    parser.add_argument("--wide-check", action="store_true",
+                        help="kernel D's wide plans' identity only")
+    parser.add_argument("--wide", action="store_true",
+                        help="the wide plans' identity, sweep, fit and trace")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     import subprocess
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
+    if args.wide_check or args.wide:
+        failures = check_wide(device, card)
+        if failures:
+            print(f"perf_bwd_scan: {failures} wide plan(s) differ",
+                  file=sys.stderr)
+            return 1
+        if args.wide:
+            sweep_wide(device, card.splitlines()[device.index or 0])
+        return 0
     if args.stream_check or args.stream:
         failures = check_stream(device, card)
         if failures:

@@ -131,11 +131,12 @@ def sweep(device, card: str) -> list:
     t_len = 195
     for b, hsz in ((2304, 384), (18, 512)):
         inputs = make_inputs(t_len, b, hsz, device, seed=7)
-        d_ms = cuda_ms(lambda: L.lstm_scan_bwd_tm(*inputs), iters=3)
-        d_plan = L.card_bwd_scan_plan(device, hsz, b)
-        d_one = [x[:, :d_plan.rows].contiguous() for x in inputs[:4]]
-        d_one_ms = cuda_ms(lambda: L.lstm_scan_bwd_tm(*d_one, inputs[4]),
-                           iters=3)
+        with L.resident_backwards():   # the cluster kernel G is built on
+            d_ms = cuda_ms(lambda: L.lstm_scan_bwd_tm(*inputs), iters=3)
+            d_plan = L.card_bwd_scan_plan(device, hsz, b)
+            d_one = [x[:, :d_plan.rows].contiguous() for x in inputs[:4]]
+            d_one_ms = cuda_ms(lambda: L.lstm_scan_bwd_tm(*d_one, inputs[4]),
+                               iters=3)
         print(f"kernel D H={hsz} T={t_len} rows={b} C={d_plan.cluster} "
               f"R={d_plan.rows}: {d_ms:.3f} ms, "
               f"{1e3 * d_ms / t_len / d_plan.waves:.2f} us a step a wave; one "

@@ -112,8 +112,12 @@ MODEL_PLANS = {(384, 2304): (8, 16, False, 144), (384, 2295): (8, 16, False, 144
 @pytest.mark.parametrize("kind", sorted(KINDS))
 @pytest.mark.parametrize("hsz,batch", sorted(MODEL_PLANS))
 def test_plan_at_the_model_shapes(kind, hsz, batch):
+    """The resident cluster's plans (for kernel D within
+    resident_backwards(): its wide cluster, the route at the sub-band
+    batch, has tests of its own in tests/test_torch_wide_bwd.py)."""
     module, n_gates, _ = KINDS[kind]
-    plan = module.plan_bwd_scan(hsz, batch, h100_clusters)
+    with tl.resident_backwards():
+        plan = module.plan_bwd_scan(hsz, batch, h100_clusters)
     assert plan.design == "cluster"
     assert (plan.cluster, plan.rows, plan.resident, plan.clusters) == \
         MODEL_PLANS[hsz, batch]

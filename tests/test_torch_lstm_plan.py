@@ -152,7 +152,8 @@ def test_forward_launches_carry_the_plan(monkeypatch):
     """Kernels A-C's C functions end in the plan: `_launch` appends
     card_scan_plan's (cluster, rows, shared bytes) for (H, B) of the call
     with the instance's flags; kernel D's end in card_bwd_scan_plan's
-    (cluster, rows, resident, shared bytes) and kernel G's cluster's in
+    (cluster, rows, resident, shared bytes; without the wide cluster, whose
+    entry takes other operands) and kernel G's cluster's in
     card_chains_scan_plan's (cluster, rows, resident, arrangement, shared
     bytes); other entries pass as they are."""
     calls, plans = [], []
@@ -191,7 +192,9 @@ def test_forward_launches_carry_the_plan(monkeypatch):
                          *full.launch_args))
     assert calls[2] == ("lstm_scan_fwd_train",
                         (x, x, x, x, 195, 2304, 384, 0, *train.launch_args))
-    bwd = tl.plan_bwd_scan(384, 2304, lambda c, r, res: h100_clusters(c, r))
+    with tl.resident_backwards():   # the resident entry's default plan
+        bwd = tl.plan_bwd_scan(384, 2304, lambda c, r, res:
+                               h100_clusters(c, r))
     assert calls[3] == ("lstm_scan_bwd",
                         (x, x, x, x, x, x, x, x, 195, 2304, 384, 0,
                          *bwd.launch_args))
@@ -275,4 +278,5 @@ def test_sources_match_their_declared_signatures():
     assert set(_cuda._QUERIES) == {"lstm_scan", "gru_scan", "lstm_scan_bwd",
                                    "gru_scan_bwd", "lstm_scan_staged",
                                    "lstm_scan_bwd_chains", "scan_bwd_stream",
-                                   "lstm_staged_stream", "lstm_scan_wide"}
+                                   "lstm_staged_stream", "lstm_scan_wide",
+                                   "lstm_scan_bwd_wide"}

@@ -103,23 +103,26 @@ def stream_dh_weight_rows(wdh, plan, n_gates):
     return wdh.permute(0, 2, 3, 1, 5, 6, 4, 7).reshape(hp, n_gates * hp)
 
 
-BWD_STREAM_ENTRIES = ("lstm_scan_bwd_stream", "gru_scan_bwd_stream")
+BWD_STREAM_ENTRIES = ("lstm_scan_bwd_stream", "gru_scan_bwd_stream",
+                      "lstm_scan_bwd_wide")
 
 
 def unstream(fn_name, args, plan, n_gates):
     """(entry, arguments, units) of a streamed (or wide: the same operand)
     entry's launch as the cluster entry's: W_hh^T unpacked, after checking
     the plan against the H the wrapper passed (its arguments end in ..., B,
-    H, reverse), and H padded to stream_hidden's units. A streamed backward's two operands (the
-    recompute's W_hh^T and the second product's W_hh, each packed on its
-    own) become the cluster backward's three: wt, w and wt in fragment
-    order."""
+    H, reverse), and H padded to stream_hidden's units. A streamed or wide
+    backward's two operands (the recompute's W_hh^T and the second
+    product's W_hh, each packed on its own) become the cluster backward's
+    three: wt, w and wt in fragment order."""
     if fn_name in BWD_STREAM_ENTRIES:
-        assert isinstance(plan, tl.BwdStreamPlan) and plan.hidden == args[-2]
+        kind = (tl.BwdWidePlan if fn_name.endswith("_wide")
+                else tl.BwdStreamPlan)
+        assert isinstance(plan, kind) and plan.hidden == args[-2]
         k = 4 if n_gates == 4 else 3          # where the packed operands lie
         wt = stream_weight_rows(args[k], plan, n_gates)
         w = stream_dh_weight_rows(args[k + 1], plan, n_gates)
-        return (fn_name[:-len("_stream")],
+        return (fn_name.rsplit("_", 1)[0],
                 (*args[:k], wt, w, tl._fragment_weight(wt), *args[k + 2:]),
                 tl.stream_hidden(1, plan.cluster))
     kind = tl.WidePlan if fn_name.endswith("_wide") else tl.StreamPlan
