@@ -398,6 +398,26 @@ of which fails the run (non-zero exit, no result line):
      under resident_backwards(); the training phases' launch checks name
      kernel D's entry as the route takes it at each step's sub-band rows
      (routed, routed_step).
+ 28. (run after phase 10) the GRU training backward (TPU row 7): the scan
+     as a wide cluster (csrc/gru_scan_bwd_wide.cu, gru_scan_bwd_wide:
+     kernel D's wide design with the GRU cell, the dgh exchange read back
+     from L2 by TMA from dgx's r and z columns and from dhn), the route of
+     the GRU backward where its modelled waves x step are the less (v1's
+     sub-band training batch), every GRU wide plan of a spread and the
+     scan at 2304, 2295, 1024 rows x T=195 and H=512 x 18 x 195 bit for
+     bit against the resident cluster and the single block (dgx, dhn,
+     every db_hh partial) and within row 7's limits of the plain version;
+     timed at 2304 rows beside the resident cluster (in turns), the plain
+     version, cuDNN's GRU backward and the bound; the dW_hh contraction's
+     second design (one wgmma group in flight, slices by ops.gru.plan_dwhh)
+     beside its first (plan_dwhh_first) and one torch.mm in turns at N =
+     446 976 and 3492, bit for bit in two runs and within DWHH_ORDER_REL of
+     both; then FullSubNet v1-GRU's bf16 training step on the routes with
+     exact launches beside resident_backwards() with the first contraction
+     (in turns), its peak memory and a profile. Phase 10 holds the GRU's
+     resident cluster under resident_backwards(); the v1-GRU launch checks
+     name the GRU backward's entry as the route takes it at each scan's
+     rows (routed, routed_step).
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -411,8 +431,8 @@ C's, D's and the GRU kernels'), and around each request and step of
 phase 23's model paths (the streamed entries') and phase 24's training
 step (the streamed backwards'), and around each part of phase 25's path
 (kernels E's and F's streamed clusters') and of phase 26's (the wide
-clusters') and around each training step of phase 27's (kernel D's wide
-cluster). The second-to-last line of stdout is
+clusters') and around each training step of phases 27 and 28 (the wide
+backwards'). The second-to-last line of stdout is
 the `kernels` JSON, the last line the device JSON. Exits non-zero without a
 CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
 20, `--phase21 PART OUT` one of phase 21, `--phase22 graft OUT` one of
@@ -1723,8 +1743,10 @@ def stream_model_paths():
             model_v1=M.FullSubNetConfig(sequence_model="GRU",
                                         fb_model_hidden_size=STREAM_FB_HIDDEN),
             compute_dtype=dtype),
+        # the sub-band GRU's backward named by the route at its rows
         per_step={"gru_scan_fwd_stream": 2, "gru_scan_fwd": 2,
-                  "gru_scan_bwd_stream": 2, "gru_scan_bwd": 2,
+                  "gru_scan_bwd_stream": 2,
+                  routed("gru_scan_bwd", STREAM_STEP_BATCH * (257 // 2)): 2,
                   "gru_scan_bwd_dwhh": 4})
     return plus, gru
 
@@ -2889,16 +2911,19 @@ WIDE_BWD_STEPS = 4           # (c)'s timed steps of each design, in turns
 
 
 def _wide_bwd_registers(reports):
-    """{"wide D 1x3": "... registers, ... spilled", ...} for the instances
-    lstm_bwd_wide_kernel<MT, NG> of csrc/lstm_scan_bwd_wide.cu, from
-    ptxas's report."""
+    """{"wide D 1x3": "... registers, ... spilled", "wide G 1x3": ...} for
+    the instances lstm_bwd_wide_kernel<MT, NG> of csrc/lstm_scan_bwd_wide.cu
+    (kernel D) and gru_bwd_wide_kernel<MT, NG> of csrc/gru_scan_bwd_wide.cu
+    (the GRU backward), from ptxas's reports."""
     found, name, spill = {}, None, ""
-    for line in reports.get("lstm_scan_bwd_wide", "").splitlines():
+    for line in "\n".join(reports.get(s, "") for s in (
+            "lstm_scan_bwd_wide", "gru_scan_bwd_wide")).splitlines():
         if "Compiling entry function" in line:
             name, spill = None, ""
-            w = re.search(r"lstm_bwd_wide_kernelILi(\d)ELi(\d)E", line)
+            w = re.search(r"(lstm|gru)_bwd_wide_kernelILi(\d)ELi(\d)E", line)
             if w:
-                name = f"wide D {w.group(1)}x{w.group(2)}"
+                kind = "D" if w.group(1) == "lstm" else "G"
+                name = f"wide {kind} {w.group(2)}x{w.group(3)}"
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            line)
         if stores and name:
@@ -3088,8 +3113,9 @@ def phase_wide_backward(dev, registers):
     torch.cuda.empty_cache()
     card = card_line()
     gen = torch.Generator(device=dev).manual_seed(SEED + 270)
-    check(PB.check_wide(dev, card) == 0, "every wide plan of the spread == "
-          "the single block bitwise (scripts/perf_bwd_scan.py check_wide)")
+    check(PB.check_wide(dev, card, ("lstm",)) == 0,
+          "every wide plan of the spread == the single block bitwise "
+          "(scripts/perf_bwd_scan.py check_wide)")
     worst = _wide_bwd_identities(dev, L, gen)
     numbers = _wide_bwd_times(dev, L, gen, card, registers)
     numbers["max_abs_err"], numbers["mean_abs_err"] = worst
@@ -3102,6 +3128,308 @@ def phase_wide_backward(dev, registers):
           f"{routed_d} launched 2 a step on phase 27's path")
     return {WIDE_BWD_ENTRY: numbers}, {WIDE_BWD_ENTRY: launches.get(
         WIDE_BWD_ENTRY, 0)}
+
+
+# Phase 28: the GRU backward (TPU row 7) for Hopper: the scan as a wide
+# cluster (csrc/gru_scan_bwd_wide.cu) and the dW_hh contraction with one
+# wgmma group in flight and slices by a model of the card (csrc/
+# gru_scan_bwd.cu, ops/gru.py plan_dwhh).
+GRU_WIDE_ENTRY = "gru_scan_bwd_wide"
+# (H, T, rows) of the identities: v1's sub-band training batch and its
+# ragged count, 1024 rows, the full band's training shape.
+GRU_WIDE_SHAPES = ((HIDDEN, TRAIN_T, TRAIN_ROWS),
+                   (HIDDEN, TRAIN_T, TRAIN_RAGGED_ROWS),
+                   (HIDDEN, TRAIN_T, 1024), (FB_HIDDEN, TRAIN_T, TRAIN_BATCH))
+GRU_WIDE_STEPS = 8           # (d)'s timed steps of each design, in turns
+# The contraction's new design against its first and torch.mm: its two
+# runs are bit for bit; against the plain version (a float32 matmul) the
+# kernels' limit DWHH_ALONE_REL; against the first design and torch.mm
+# (the same fp32 sums in other orders: at N = 446 976 unit-normal rows an
+# fp32 rounding of about sqrt(N) x 2^-24 of the norm, 4.1-4.5e-5 measured)
+# 2e-4 of the norm.
+DWHH_ORDER_REL = 2e-4
+
+
+def _gru_wide_identities(dev, G, gen):
+    """At each of GRU_WIDE_SHAPES, forward and reverse: the wide cluster
+    (wide_backwards()) bit for bit against the resident cluster
+    (resident_backwards()) and the single block (dgx, dhn, every db_hh
+    partial), and within row 7's limits of its plain version (dgx of the
+    peak, dW_hh and db_hh of the norm); each wide run counted. Returns the
+    largest max and mean dgx error against the plain version."""
+    from generative_audio_torch.ops import lstm as L
+    worst = [0.0, 0.0]
+    for h, t_len, rows in GRU_WIDE_SHAPES:
+        w_hh = _uniform(gen, dev, (h, 3 * h), h ** -0.5)
+        b_hh = _uniform(gen, dev, (3 * h,), h ** -0.5)
+        gates = torch.randn(t_len, rows, 3 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        gout = torch.randn(t_len, rows, h, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        plan = G.card_bwd_wide_plan(dev, h, rows)
+        block = _block_bwd_plan(G, dev, h, rows)
+        for reverse in (False, True):
+            tag = f"H={h} T={t_len} rows={rows} reverse={reverse}"
+            with torch.no_grad():
+                h_seq = G.gru_scan_tm(gates, w_hh, b_hh, reverse)
+            ops = (gates, h_seq, gout, w_hh, b_hh)
+            with L.wide_backwards():
+                wide = _counted(L, GRU_WIDE_ENTRY,
+                                lambda: G.gru_scan_bwd_streams_planned_tm(
+                                    *ops, G.card_bwd_scan_plan(dev, h, rows),
+                                    reverse))
+            with L.resident_backwards():
+                resident = G.gru_scan_bwd_streams_planned_tm(
+                    *ops, G.card_bwd_scan_plan(dev, h, rows), reverse)
+            single = G.gru_scan_bwd_streams_planned_tm(*ops, block, reverse)
+            p_dgx, p_dhn, p_db = G.gru_scan_bwd_streams_reference_tm(
+                *ops, reverse)
+            dw = G.gru_dwhh(*G.shifted_rows(h_seq, wide[0], wide[1], reverse))
+            p_dw = G.gru_dwhh_reference(*G.shifted_rows(h_seq, p_dgx, p_dhn,
+                                                        reverse))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) and torch.equal(a, c)
+                      for a, b, c in zip(wide, resident, single)),
+                  f"{GRU_WIDE_ENTRY} == the resident cluster and the single "
+                  f"block bitwise (dgx, dhn, {wide[2].shape[0]} db_hh "
+                  f"partials; {tag})")
+            err = (wide[0].float() - p_dgx.float()).abs()
+            peak = p_dgx.float().abs().max().item()
+            mx, mean = err.max().item() / peak, err.mean().item() / peak
+            rel_w = _rel_norm(dw, p_dw)
+            rel_b = _rel_norm(wide[2].sum(dim=0), p_db)
+            check(torch.isfinite(wide[0].float()).all().item()
+                  and mx < BWD_MAX_REL and mean < BWD_MEAN_REL
+                  and rel_w < BWD_DW_REL and rel_b < BWD_DW_REL,
+                  f"{GRU_WIDE_ENTRY} vs plain within {BWD_MAX_REL}/"
+                  f"{BWD_MEAN_REL} of the peak, dW_hh and db_hh within "
+                  f"{BWD_DW_REL} of the norm ({tag}: {mx:.3e}/{mean:.3e}, "
+                  f"{rel_w:.3e}, {rel_b:.3e})")
+            worst = [max(worst[0], err.max().item()),
+                     max(worst[1], err.mean().item())]
+            del h_seq, wide, resident, single, p_dgx, p_dhn, err
+        log(f"{GRU_WIDE_ENTRY} == the resident cluster and the single block "
+            f"bitwise at H={h} T={t_len} rows={rows} (forward and reverse; "
+            f"dgx, dhn, db_hh partials); wide plan {_describe_bwd(plan)}; "
+            f"route {G.card_bwd_scan_plan(dev, h, rows).design}")
+        del gates, gout
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _gru_wide_times(dev, G, gen, card, registers):
+    """The scan at v1's sub-band training shape (H=HIDDEN, T=TRAIN_T,
+    TRAIN_ROWS): the wide cluster beside the resident cluster in turns
+    (wide, resident, resident, wide), with the plain version, cuDNN's GRU
+    backward, the bound, the plan, its waves and modelled step, the
+    route's design there, the instances' registers and the card."""
+    from generative_audio_torch.ops import lstm as L
+    h, t_len, rows = HIDDEN, TRAIN_T, TRAIN_ROWS
+    w_hh = _uniform(gen, dev, (h, 3 * h), h ** -0.5)
+    b_hh = _uniform(gen, dev, (3 * h,), h ** -0.5)
+    gates = torch.randn(t_len, rows, 3 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    gout = torch.randn(t_len, rows, h, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        h_seq = G.gru_scan_tm(gates, w_hh, b_hh)
+    ops = (gates, h_seq, gout, w_hh, b_hh)
+    plan = G.card_bwd_wide_plan(dev, h, rows)
+    with L.resident_backwards():
+        res_plan = G.card_bwd_scan_plan(dev, h, rows)
+    rounds = [cuda_ms(lambda: G.gru_scan_bwd_streams_planned_tm(*ops, p),
+                      iters=3) for p in (plan, res_plan, res_plan, plan)]
+    ms, ms_res = min(rounds[0], rounds[3]), min(rounds[1:3])
+    plain = cuda_ms(lambda: G.gru_scan_bwd_streams_reference_tm(*ops),
+                    iters=2)
+    lib_fwd, lib_both = library_gru_train_ms(gates, w_hh, b_hh, gout)
+    b_ms, by = bound(t_len, rows, h, streams=9, products=2, gates=3,
+                     extra_bytes=2 * 3 * h * 4)
+    route = G.card_bwd_scan_plan(dev, h, rows).design
+    log(f"{GRU_WIDE_ENTRY} at T={t_len} rows={rows} H={h}: {ms:.3f} ms, "
+        f"{1e3 * ms / t_len / plan.waves:.2f} us a step a wave (modelled "
+        f"{plan.step_us:.2f}); resident cluster {ms_res:.3f} ms "
+        f"({res_plan.waves} waves of "
+        f"{1e3 * ms_res / t_len / res_plan.waves:.2f} us); rounds "
+        f"{' '.join(f'{r:.3f}' for r in rounds)}; bound "
+        f"{b_ms:.4f} ms by {by}; plain {plain:.3f} ms; cuDNN GRU backward "
+        f"{lib_both - lib_fwd:.3f} ms (dW_hh, db_hh included); plan "
+        f"{_describe_bwd(plan)}; route {route}; on {card}")
+    log(f"{GRU_WIDE_ENTRY} instances: " + (", ".join(
+        f"{k} {n}" for k, n in sorted(registers.items())
+        if k.startswith("wide G")) or "not rebuilt in this run"))
+    del ops, gates, gout, h_seq
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                library_ms=lib_both - lib_fwd, resident_ms=ms_res,
+                us_a_step=1e3 * ms / t_len / plan.waves, design=route,
+                plan=dataclasses.asdict(plan))
+
+
+def _gru_dwhh_times(dev, card):
+    """The contraction at N = 194 x TRAIN_ROWS (H=HIDDEN) and 194 x
+    TRAIN_BATCH (H=FB_HIDDEN) by scripts/perf_bwd_scan.py dwhh_rounds:
+    plan_dwhh's plan, the first design's (plan_dwhh_first) and one
+    fp32-output torch.mm of the same product in turns, with the bound; the
+    new one twice, bit for bit, and within DWHH_ALONE_REL of the plain
+    version and DWHH_ORDER_REL of the first design and torch.mm. Returns
+    the numbers of both shapes."""
+    from generative_audio_torch.scripts import perf_bwd_scan as PB
+    out = {}
+    for key, h, n in (("sub_band", HIDDEN, (TRAIN_T - 1) * TRAIN_ROWS),
+                      ("full_band", FB_HIDDEN, (TRAIN_T - 1) * TRAIN_BATCH)):
+        r = PB.dwhh_rounds(dev, h, n, seed=SEED + 280 + h)
+        new, first, best, rel = r["new"], r["first"], r["best"], r["rel"]
+        b_ms, by = _larger(n * 4 * h * 2 + h * 3 * h * 4, 2 * n * h * 3 * h)
+        rounds = " ".join(f"{o} {t:.4f}" for o, t in zip(r["order"],
+                                                         r["times"]))
+        log(f"GRU dW_hh contraction at H={h} over N={n}: new {best['new']:.4f}"
+            f" ms ({new.tiles} tiles, {new.slices} slices, narrow "
+            f"{new.narrow_tiles} x {new.narrow_slices}, one wgmma group in "
+            f"flight; modelled {new.us / 1e3:.4f}), first design "
+            f"{best['first']:.4f} ms ({first.slices} slices, every group "
+            f"waited for), torch.mm fp32 out {best['mm']:.4f} ms; rounds "
+            f"{rounds}; device time (profiler, the sum included) new "
+            f"{r['device_us']['new']:.2f} us, first "
+            f"{r['device_us']['first']:.2f}, torch.mm "
+            f"{r['device_us']['mm']:.2f}; bound {b_ms:.4f} ms by {by}; plain "
+            f"{r['plain_ms']:.3f} ms; two runs bit for bit: {r['repeats']}; "
+            f"|new - x| / |x|: plain {rel['plain']:.3e}, first "
+            f"{rel['first']:.3e}, torch.mm {rel['mm']:.3e}; on {card}")
+        check(r["repeats"], f"the contraction repeats bit for bit (H={h}, "
+              f"N={n})")
+        check(rel["plain"] < DWHH_ALONE_REL and rel["first"] < DWHH_ORDER_REL
+              and rel["mm"] < DWHH_ORDER_REL,
+              f"the contraction within {DWHH_ALONE_REL} of plain and "
+              f"{DWHH_ORDER_REL} of the first design and torch.mm (H={h}, "
+              f"N={n})")
+        out[key] = dict(ms=best["new"], first_ms=best["first"],
+                        library_ms=best["mm"], bound_ms=b_ms, bound_by=by,
+                        plain_ms=r["plain_ms"], rel=rel,
+                        device_us=r["device_us"],
+                        plan=dataclasses.asdict(new))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gru_wide_path(dev, v1_gru):
+    """FullSubNet v1-GRU's bf16 training step (EnhanceTrainConfig, 18 x
+    3.072 s: the sub-band GRU over 2304 rows, the full band over 18) on the
+    new routes, with exact launches (4 forwards, 4 backward scans named by
+    the route at their rows, 4 contractions a step), its median beside
+    resident_backwards() with the first design's contraction in turns
+    (GRU_WIDE_STEPS steps each: route, first, first, route), its peak
+    memory and a profile of one step. Returns the route's launches and the
+    readings."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.train import EnhanceTrainer
+    trainer = EnhanceTrainer(v1_gru.train_config("bfloat16"), seed=SEED,
+                             pretrained_state_dict=v1_gru.sd, device=dev)
+    noisy, clean = (torch.from_numpy(x).to(dev) for x in
+                    _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
+    per_step = routed_step(v1_gru.per_step)
+    launched = dict.fromkeys(per_step, 0)
+
+    @contextlib.contextmanager
+    def first_design():
+        with L.resident_backwards(), mock.patch.object(
+                G, "plan_dwhh",
+                lambda n, h, sms=None: G.plan_dwhh_first(n, h)):
+            yield
+
+    def steps(n, counted):
+        times = []
+        for _ in range(n):
+            L.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.train_epoch([(noisy, clean)])   # ends in a fetch
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = {k: v for k, v in L.launch_counts.items() if v}
+            check(np.isfinite(loss), "finite training loss on phase 28's path")
+            if counted:
+                check(got == per_step, f"phase 28's training step launched "
+                      f"{per_step} and nothing else (got {got})")
+                for k, v in got.items():
+                    launched[k] += v
+        return times
+
+    steps(1, True)                      # warm: the route's shapes
+    with first_design():
+        steps(1, False)
+    route, first = [], []
+    for part in ("route", "first", "first", "route"):
+        if part == "route":
+            route += steps(GRU_WIDE_STEPS // 2, True)
+        else:
+            with first_design():
+                first += steps(GRU_WIDE_STEPS // 2, False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps(1, True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    wall, busy, rows = _profile(
+        lambda: trainer.train_epoch([(noisy, clean)]),
+        f"FullSubNet v1-GRU training step on the route ({per_step})")
+    scan_ms = sum(ms for key, ms, _ in rows if "gru_bwd" in key)
+    dwhh_ms = sum(ms for key, ms, _ in rows if "dwhh" in key)
+    out = dict(route_ms=statistics.median(route),
+               first_ms=statistics.median(first), peak_gib=peak,
+               profiled_ms=wall, busy_ms=busy, scan_ms=scan_ms,
+               dwhh_ms=dwhh_ms)
+    log(f"phase 28 (d) FullSubNet v1-GRU bf16 step, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SAMPLES / 16000:.3f} s: on the routes ({per_step} a step) "
+        f"median {out['route_ms']:.2f} ms of "
+        f"{' '.join(f'{x:.1f}' for x in route)}; resident_backwards() with the"
+        f" first contraction {out['first_ms']:.2f} ms of "
+        f"{' '.join(f'{x:.1f}' for x in first)}; peak memory {peak:.2f} GiB; "
+        f"profiled {wall:.2f} ms, busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%), backward scans {scan_ms:.2f} ms, "
+        f"contractions {dwhh_ms:.2f} ms; on {card_line()}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launched.items() if v}, out
+
+
+def phase_gru_wide_backward(dev, registers):
+    """Phase 28: the GRU backward (TPU row 7). (a) The wide scan bit for bit
+    against the resident cluster and the single block (dgx, dhn, every db_hh
+    partial) at 2304, a ragged 2295 and 1024 rows x T=195 and H=512 x 18 x
+    195 (forward and reverse), within row 7's limits of the plain version,
+    and every wide plan of a spread == the single block at small ragged
+    shapes, T=1 among them (scripts/perf_bwd_scan.py check_wide); (b) timed
+    at 2304 x 195 beside the resident cluster, the plain version, cuDNN's
+    backward and the bound, with the plan, waves, registers and the card;
+    (c) the contraction's new and first designs and torch.mm at N = 446 976
+    (H=384) and 3492 (H=512) in turns, with the bound, twice bit for bit;
+    (d) the path: FullSubNet v1-GRU's bf16 training step on the routes with
+    exact launches, its median beside resident_backwards() with the first
+    contraction, peak memory and a profile. Returns the entries' numbers
+    and the wide entry's launches on (d)."""
+    from generative_audio_torch.ops import gru as G
+    from generative_audio_torch.scripts import perf_bwd_scan as PB
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 280)
+    check(PB.check_wide(dev, card, ("gru",)) == 0, "every GRU wide plan of "
+          "the spread == the single block bitwise (scripts/perf_bwd_scan.py "
+          "check_wide)")
+    worst = _gru_wide_identities(dev, G, gen)
+    numbers = _gru_wide_times(dev, G, gen, card, registers)
+    numbers["max_abs_err"], numbers["mean_abs_err"] = worst
+    contraction = _gru_dwhh_times(dev, card)
+    _, v1_gru, _ = model_paths()
+    launches, numbers["path"] = _gru_wide_path(dev, v1_gru)
+    log(f"launches on phase 28's path: {launches}; phase 28 "
+        f"{time.perf_counter() - t0:.1f} s")
+    steps = GRU_WIDE_STEPS + 2
+    expected = {k: n * steps for k, n in routed_step(v1_gru.per_step).items()}
+    check(launches == expected, f"phase 28's path launched {expected} "
+          f"(got {launches})")
+    return ({GRU_WIDE_ENTRY: numbers,
+             "gru_scan_bwd_dwhh": {"contraction": contraction}},
+            {GRU_WIDE_ENTRY: launches.get(GRU_WIDE_ENTRY, 0)})
 
 
 def _gru_library(w_hh, b_hh):
@@ -3564,9 +3892,10 @@ def _time_dwhh(G, h_seq, dgx, dhn, card):
     # h_prev, the 2H columns of dgx it needs and dhn in, one fp32 [H, 3H]
     # out (the per-slice partials are the design's own)
     b_w, by_w = _larger(n * 4 * h * 2 + h * 3 * h * 4, 2 * n * h * 3 * h)
-    plan = G.plan_dwhh(n, h)
+    plan = G.plan_dwhh(n, h, G._device_sms(h_prev.device))
     log(f"GRU dW_hh contraction at H={h} over N={n} rows, {plan.tiles} tiles "
-        f"x {plan.slices} slices of {plan.rows_per_slice} rows and their sum: "
+        f"x {plan.slices} slices of {plan.rows_per_slice} rows (narrow "
+        f"{plan.narrow_tiles} x {plan.narrow_slices}) and their sum: "
         f"{ms_w:.3f} ms (bound {b_w:.3f} ms by {by_w}; plain {plain_w:.3f} ms; "
         f"torch.mm with fp32 output {lib_w:.3f} ms) on {card}")
     return dict(ms=ms_w, plain_ms=plain_w, bound_ms=b_w, bound_by=by_w,
@@ -4519,12 +4848,15 @@ def routed(entry, rows, out_f32=False, hsz=HIDDEN):
     """The entry kernel A ("lstm_scan_fwd") or B ("lstm_scan_fwd_carry")
     launches for `rows` rows of an LSTM of hsz units on the card: the route
     of ops.lstm.plan_forward, the wide cluster ("_wide") or the resident
-    one, whichever models faster there; kernel D ("lstm_scan_bwd") as
-    ops.lstm.plan_bwd takes it (the wide cluster, "_wide", or the resident
-    entry); any other entry as it is."""
+    one, whichever models faster there; kernel D ("lstm_scan_bwd") and the
+    GRU backward scan ("gru_scan_bwd", a layer of hsz units) as
+    ops.lstm.plan_bwd takes them (the wide cluster, "_wide", or the
+    resident entry); any other entry as it is."""
+    from generative_audio_torch.ops import gru as G
     from generative_audio_torch.ops import lstm as L
-    if entry == "lstm_scan_bwd":
-        plan = L.card_bwd_scan_plan(torch.device("cuda"), -(-hsz // 16) * 16,
+    if entry in ("lstm_scan_bwd", "gru_scan_bwd"):
+        M = L if entry == "lstm_scan_bwd" else G
+        plan = M.card_bwd_scan_plan(torch.device("cuda"), -(-hsz // 16) * 16,
                                     rows)
         return entry + ("_wide" if plan.design == "wide" else "")
     if entry not in ("lstm_scan_fwd", "lstm_scan_fwd_carry"):
@@ -4535,19 +4867,29 @@ def routed(entry, rows, out_f32=False, hsz=HIDDEN):
 
 
 def routed_counts(*items):
-    """{entry: launches} of (entry, rows, launches[, out_f32]) items, each
-    entry of kernels A and B named as the route takes it at its rows."""
+    """{entry: launches} of (entry, rows, launches[, out_f32[, hsz]]) items,
+    each entry of kernels A, B and D and of the GRU backward scan named as
+    the route takes it at its rows."""
     out = {}
-    for entry, rows, n, *f32 in items:
-        name = routed(entry, rows, *f32)
+    for entry, rows, n, *rest in items:
+        name = routed(entry, rows, *rest)
         out[name] = out.get(name, 0) + n
     return {k: n for k, n in out.items() if n}
 
 
-def routed_step(per_step, rows=TRAIN_ROWS):
+def routed_step(per_step, rows=TRAIN_ROWS, fb_rows=TRAIN_BATCH):
     """A training step's {entry: launches} with kernel D's entry named as
-    the route takes it at `rows` sub-band rows (H=HIDDEN)."""
-    return routed_counts(*((k, rows, n) for k, n in per_step.items()))
+    the route takes it at `rows` sub-band rows (H=HIDDEN), and the GRU
+    backward scan's (v1-GRU: half its launches over those rows, half over
+    the full band's `fb_rows` at H=FB_HIDDEN) likewise."""
+    items = []
+    for k, n in per_step.items():
+        if k == "gru_scan_bwd":
+            items += [(k, rows, n // 2), (k, fb_rows, n - n // 2, False,
+                                          FB_HIDDEN)]
+        else:
+            items.append((k, rows, n))
+    return routed_counts(*items)
 
 
 # The entries of kernels A and B, both designs (the resident cluster of
@@ -4557,6 +4899,7 @@ def routed_step(per_step, rows=TRAIN_ROWS):
 AB_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry", "lstm_scan_fwd_wide",
               "lstm_scan_fwd_carry_wide")
 D_ENTRIES = ("lstm_scan_bwd", "lstm_scan_bwd_wide")
+GRU_BWD_ENTRIES = ("gru_scan_bwd", "gru_scan_bwd_wide")
 
 
 def _rel(got, want):
@@ -7249,7 +7592,10 @@ def _complex(dev, counts):
              routed_counts(("lstm_scan_fwd_train", 0, 4),
                            ("lstm_scan_bwd", 2 * COMPLEX_TRAIN[0], 4))),
             ("GRU", "gru_scan_fwd",
-             {"gru_scan_fwd": 4, "gru_scan_bwd": 4, "gru_scan_bwd_dwhh": 4})):
+             routed_counts(("gru_scan_fwd", 0, 4),
+                           ("gru_scan_bwd", 2 * COMPLEX_TRAIN[0], 4, False,
+                            COMPLEX_HIDDEN),
+                           ("gru_scan_bwd_dwhh", 0, 4)))):
         model, ref = _complex_models(kind, dev, SEED + 60)
         b, t = COMPLEX_SERVE
         x = torch.from_numpy(_noise(SEED + 62, b, 2 * COMPLEX_FREQS, t) * 10)
@@ -8383,7 +8729,7 @@ def phase_band_axis(dev, plus, v1_gru, plus_ref):
     card = card_line()
     paths = {"plus": plus, "v1_gru": v1_gru}
     launched = dict.fromkeys(list(plus.per_step) + list(v1_gru.per_step)
-                             + list(D_ENTRIES), 0)
+                             + list(D_ENTRIES) + list(GRU_BWD_ENTRIES), 0)
     refs = {"plus": plus_ref}
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
@@ -8777,9 +9123,10 @@ def _f32_v1_gru(dev, v1_gru, counts, card):
                              pretrained_state_dict=v1_gru.sd, device=dev)
     verify = _first_grads(trainer.state.model.named_parameters(),
                           "float32 v1-GRU parameter")
+    per_step = routed_step(v1_gru.per_step)
     with _recorded_calls(G, fwd="gru_scan_tm", bwd="gru_scan_bwd_tm") as rec:
         losses = [_count(counts, lambda: trainer.train_epoch([batch]),
-                         v1_gru.per_step, "float32 v1-GRU train step 1")]
+                         per_step, "float32 v1-GRU train step 1")]
     verify()
     what = "the float32 v1-GRU step"
     check(len(rec["fwd"]) == 4 and len(rec["bwd"]) == 4,
@@ -8792,8 +9139,7 @@ def _f32_v1_gru(dev, v1_gru, counts, card):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses.append(_count(counts, lambda: trainer.train_epoch([batch]),
-                             v1_gru.per_step,
-                             f"float32 v1-GRU train step {step}"))
+                             per_step, f"float32 v1-GRU train step {step}"))
         times.append((time.perf_counter() - t0) * 1e3)
     check(np.isfinite(losses).all(), "float32 v1-GRU losses finite")
     del trainer
@@ -8803,7 +9149,7 @@ def _f32_v1_gru(dev, v1_gru, counts, card):
         f"median {statistics.median(times):.2f} against bf16's "
         f"{STEP_MS.get(v1_gru.name, float('nan')):.2f} (phase 6) on {card}")
     torch.cuda.empty_cache()
-    return {k: (F32_TIMED_STEPS + 1) * n for k, n in v1_gru.per_step.items()}
+    return {k: (F32_TIMED_STEPS + 1) * n for k, n in per_step.items()}
 
 
 def _f32_nppc(dev, cfg, params, counts, card):
@@ -9071,7 +9417,13 @@ def main():
     kernels.update(wide_bwd_kernels)
     phase_lstm_train_large(dev)
     kernels.update(phase_gru_kernels(dev))
-    kernels.update(phase_gru_train_kernels(dev, registers))
+    with L.resident_backwards():    # the GRU's resident cluster, the witness
+        kernels.update(phase_gru_train_kernels(dev, registers))
+    gru_wide_kernels, gru_wide_launches = phase_gru_wide_backward(dev,
+                                                                  registers)
+    kernels["gru_scan_bwd_dwhh"].update(gru_wide_kernels.pop(
+        "gru_scan_bwd_dwhh"))
+    kernels.update(gru_wide_kernels)
 
     pallas = "generative_audio_tpu/ops/pallas_lstm.py"
     csrc = "generative_audio_torch/csrc"
@@ -9142,7 +9494,11 @@ def main():
         # kernel D as a wide cluster, the route at the sub-band training
         # batch (phase 27), on the training paths where the route takes it
         "lstm_scan_bwd_wide": (f"{csrc}/lstm_scan_bwd_wide.cu",
-                               f"{pallas}:300")}
+                               f"{pallas}:300"),
+        # the GRU backward scan as a wide cluster, the route at v1's
+        # sub-band training batch (phase 28), on the v1-GRU training paths
+        "gru_scan_bwd_wide": (f"{csrc}/gru_scan_bwd_wide.cu",
+                              f"{pallas}:1019")}
     plus, v1_gru, v1_lstm = model_paths()
     # FullSubNet+'s kernels A and B as the route takes them at one clip's
     # and at the batch's sub-band rows
@@ -9181,7 +9537,8 @@ def main():
     counts.update(block_launches)
     counts.update(stream_launches)
     counts.update(staged_launches)
-    for name, n in {**wide_launches, **wide_bwd_launches}.items():
+    for name, n in {**wide_launches, **wide_bwd_launches,
+                    **gru_wide_launches}.items():
         counts[name] += n
     for name, n in bwd_stream_launches.items():
         counts[name] += n

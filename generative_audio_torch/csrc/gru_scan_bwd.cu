@@ -48,7 +48,7 @@
 // is what the simple design pays. The contraction does 2*N*H*3H = 0.40 TFLOP
 // (0.40 ms) and must move N*(H + 2H + H)*2 B = 1.4 GB in and one fp32
 // [H, 3H] out (0.41 ms): at the ridge too. The fp32 partials per slice are
-// this design's own traffic on top of that (14 MB at 8 slices), and so are
+// this design's own traffic on top of that (1.8 MB a slice), and so are
 // the operand rows each output tile reads again: A once per column tile, D
 // once per row tile.
 //
@@ -106,11 +106,19 @@
 //   * Two consumer warpgroups each run wgmma m64n256k16 on 64 of the tile's
 //     rows, both operands MN-major in shared memory (the contraction index
 //     is the slow axis of A and of D, which the transpose flags take as
-//     stored: no ldmatrix.trans pass), with the fp32 sum in registers.
-//   * The slices (ops/gru.py plan_dwhh) make tiles x slices about one wave
-//     of the card's SMs, so the CTAs that share a slice read its rows while
-//     they are in L2: 15 tiles x 8 slices at H = 384; at the full-band
-//     shape (H = 512, N = 3492) 24 tiles and one slice.
+//     stored: no ldmatrix.trans pass), with the fp32 sum in registers. One
+//     stage's group of products stays in flight while the next stage's is
+//     issued (wait_group 1); the slot of a stage goes back to the producer
+//     after the wait that retires its group. (The first design waited for
+//     every group at once, wait_group 0; the entry still takes it.)
+//   * The slices (ops/gru.py plan_dwhh) fill the card's SMs by a model:
+//     each extra slice shortens every CTA's run of stages and adds one fp32
+//     partial [H, 3H] written here and read back by the caller's sum (1.8
+//     MB at H = 384, 3.1 MB at H = 512). A narrow tile (dhn's ragged last
+//     one at H = 384, 4 boxes a stage against 6) may take fewer slices than
+//     the others, so that the tiles' runs come out even: 12 tiles x 9
+//     slices and 3 x 8 fill 132 SMs at H = 384; the full band (H = 512, N =
+//     3492, 24 tiles, 55 stages) takes a few slices where it took one.
 //   * The TMA descriptors are encoded on the host for each call with
 //     cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint, and
 //     passed as __grid_constant__ kernel parameters.
@@ -828,16 +836,90 @@ __device__ __forceinline__ void wgmma_m64n256k16_tt(float (&d)[128],
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 16] @ B[16 x 128], as wgmma_m64n256k16_tt on the
+// first 128 columns: the first 64 accumulators of d.
+__device__ __forceinline__ void wgmma_m64n128k16_tt(float (&d)[128],
+                                                    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// A consumer warpgroup's stages: wait for the stage's boxes, run its four
+// k16 products (m64n128k16 for HALF_N, else m64n256k16) on its 64 rows,
+// and hand the slot back to the producer once the wait that retires its
+// group returns: at once (INFLIGHT 0), or after the next stage's products
+// were issued (INFLIGHT 1). The loop holds no branch around its products:
+// with one there, the products ran slower a stage on an H100 than with
+// every group waited for.
+template <int INFLIGHT, bool HALF_N>
+__device__ __forceinline__ void dwhh_stages(float (&acc)[128], uint32_t base,
+                                            uint32_t full, uint32_t empty,
+                                            int iters, int wg, bool leader) {
+  for (int it = 0; it < iters; ++it) {
+    const int s = it % DW_STAGES;
+    mbar_wait(full + 8 * s, (it / DW_STAGES) & 1);
+    const uint32_t a_tile = base + s * DW_STAGE + wg * DW_BOX;
+    const uint32_t d_tile = base + s * DW_STAGE + (DW_TM / 64) * DW_BOX;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < DW_TK / 16; ++kk) {   // 16 rows = 2048 B of a box
+      const uint64_t da = wgmma_desc(a_tile + 2048 * kk, DW_BOX, 1024);
+      const uint64_t db = wgmma_desc(d_tile + 2048 * kk, DW_BOX, 1024);
+      if constexpr (HALF_N)
+        wgmma_m64n128k16_tt(acc, da, db);
+      else
+        wgmma_m64n256k16_tt(acc, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if constexpr (INFLIGHT == 1) {
+      // the group of stage it - 1 has retired: its slot may be refilled
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (leader && it > 0) mbar_arrive(empty + 8 * ((it - 1) % DW_STAGES));
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (leader) mbar_arrive(empty + 8 * s);
+    }
+  }
+  if constexpr (INFLIGHT == 1)
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
 // part[z] = A[n0:n1]^T @ D[n0:n1] for one 128 x 256 tile of dW_hh. The tile's
 // columns come whole from dgx (the first 2H) or from dhn. Warp 8 keeps
 // DW_STAGES stages of TMA boxes in flight; warpgroups 0 and 1 each run
 // wgmma on 64 of the tile's rows.
+//   * INFLIGHT 0 is the first design: every stage's group waited for at
+//     once, m64n256k16 on every tile.
+//   * INFLIGHT 1: one group of products stays in flight while the next
+//     stage's is issued; a tile of at most 128 columns runs m64n128k16
+//     (half the products), and a warpgroup whose 64 rows lie beyond H runs
+//     none.
+// A tile of fewer columns than DW_TN (dhn's ragged last one) is narrow: it
+// is cut into `narrow_slices` slices of narrow_rows rows, and its partials
+// z >= narrow_slices are written zero.
+template <int INFLIGHT>
 __global__ void __launch_bounds__(DW_THREADS, 1)
 gru_dwhh_kernel(const __grid_constant__ CUtensorMap map_a,    // h_prev [N, H]
                 const __grid_constant__ CUtensorMap map_d1,   // dgx [N, :2H]
                 const __grid_constant__ CUtensorMap map_d2,   // dhn [N, H]
                 float* __restrict__ part,                     // [slices, H, 3H]
-                int N, int H, int rows_per_slice) {
+                int N, int H, int rows_per_slice, int narrow_slices,
+                int narrow_rows) {
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the stages to it
   const uint32_t raw = smem_u32(smem_raw);
@@ -850,8 +932,15 @@ gru_dwhh_kernel(const __grid_constant__ CUtensorMap map_a,    // h_prev [N, H]
   const int c0 = ((int)blockIdx.y - (from_d2 ? n_d1 : 0)) * DW_TN;
   const int c_end = from_d2 ? H : 2 * H;      // columns of the source
   const int m0 = blockIdx.x * DW_TM;
-  const int n0 = blockIdx.z * rows_per_slice;
-  const int n1 = min(N, n0 + rows_per_slice);
+  // boxes wholly outside the tile's rows or its source's columns are not
+  // loaded: they could only reach outputs that are not written
+  const int a_boxes = min(DW_TM / 64, (H - m0 + 63) / 64);
+  const int d_boxes = min(DW_TN / 64, (c_end - c0 + 63) / 64);
+  const bool narrow = d_boxes < DW_TN / 64;
+  const int per = narrow ? narrow_rows : rows_per_slice;
+  const int n0 = blockIdx.z * per;
+  const int n1 = narrow && (int)blockIdx.z >= narrow_slices ? n0
+                                                            : min(N, n0 + per);
   const int iters = n1 > n0 ? (n1 - n0 + DW_TK - 1) / DW_TK : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -866,10 +955,6 @@ gru_dwhh_kernel(const __grid_constant__ CUtensorMap map_a,    // h_prev [N, H]
 
   if (warp == 8) {
     if (lane != 0) return;
-    // boxes wholly outside the tile's rows or its source's columns are not
-    // loaded: they could only reach outputs that are not written
-    const int a_boxes = min(DW_TM / 64, (H - m0 + 63) / 64);
-    const int d_boxes = min(DW_TN / 64, (c_end - c0 + 63) / 64);
     const int bytes = (a_boxes + d_boxes) * DW_BOX;
     const CUtensorMap* dmap = from_d2 ? &map_d2 : &map_d1;
     for (int it = 0; it < iters; ++it) {
@@ -886,27 +971,28 @@ gru_dwhh_kernel(const __grid_constant__ CUtensorMap map_a,    // h_prev [N, H]
     return;
   }
 
-  const int wg = warp >> 2;                   // rows m0 + 64 wg .. + 63
+  const int wg = warp >> 2;                 // rows m0 + 64 wg .. + 63
+  const bool leader = (threadIdx.x & 127) == 0;
+  // the first design (INFLIGHT 0) ran n256 and both warpgroups everywhere
+  const bool mma_on = !INFLIGHT || m0 + 64 * wg < H;   // warpgroup-uniform
+  const bool half_n = INFLIGHT && d_boxes <= 2;
   float acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  for (int it = 0; it < iters; ++it) {
-    const int s = it % DW_STAGES;
-    mbar_wait(full + 8 * s, (it / DW_STAGES) & 1);
-    const uint32_t a_tile = base + s * DW_STAGE + wg * DW_BOX;
-    const uint32_t d_tile = base + s * DW_STAGE + (DW_TM / 64) * DW_BOX;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < DW_TK / 16; ++kk)   // 16 rows = 2048 bytes of a box
-      wgmma_m64n256k16_tt(acc, wgmma_desc(a_tile + 2048 * kk, DW_BOX, 1024),
-                          wgmma_desc(d_tile + 2048 * kk, DW_BOX, 1024));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    if ((threadIdx.x & 127) == 0) mbar_arrive(empty + 8 * s);
+  if (!mma_on) {            // rows beyond H: only hand the slots back
+    for (int it = 0; it < iters; ++it) {
+      const int s = it % DW_STAGES;
+      mbar_wait(full + 8 * s, (it / DW_STAGES) & 1);
+      if (leader) mbar_arrive(empty + 8 * s);
+    }
+  } else if (half_n) {
+    dwhh_stages<INFLIGHT, true>(acc, base, full, empty, iters, wg, leader);
+  } else {
+    dwhh_stages<INFLIGHT, false>(acc, base, full, empty, iters, wg, leader);
   }
 
-  // accumulator 4i + 2 half + e: row 16 (warp % 4) + lane/4 + 8 half of the
-  // warpgroup's 64, column 8i + 2 (lane % 4) + e of the tile's 256
+  // accumulator 4i + 2 half + e: row 16 (warp % 4) + lane/4 + 8 half of
+  // the warpgroup's 64, column 8i + 2 (lane % 4) + e of the tile's 256
   const int G3 = 3 * H, col_off = from_d2 ? 2 * H : 0;
   float* out = part + (size_t)blockIdx.z * H * G3;
   const int m = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
@@ -1021,15 +1107,25 @@ int gru_scan_bwd_max_clusters(int resident, int H, int cluster, int rows,
 
 // The contraction. a [N, H], d1 [N, 3H], d2 [N, H], all bf16, 16-byte
 // aligned, H a multiple of 8 -> part [n_slices, H, 3H] fp32 with sum over
-// slices = a^T @ [d1[:, :2H], d2]. Slice z takes rows [z*P, (z+1)*P) with
-// P = ceil(ceil(N / n_slices) / 64) * 64 (ops/gru.py plan_dwhh); every
-// element of part is written, zero for an empty slice.
+// slices = a^T @ [d1[:, :2H], d2]. Slice z of a tile takes rows [z*P,
+// (z+1)*P) with P = ceil(ceil(N / n_slices) / 64) * 64, and of a narrow tile
+// (one that loads fewer boxes a stage) rows [z*P', (z+1)*P') with P' from
+// narrow_slices (1 <= narrow_slices <= n_slices) the same way, the partials
+// beyond written zero (ops/gru.py plan_dwhh); every element of part is
+// written, zero for an empty slice. in_flight (0 or 1): wgmma groups of a
+// stage left running while the next stage's are issued; 1 also runs the
+// half-width product on a tile of at most 128 columns and none in a
+// warpgroup beyond H, 0 is the first design's loop as it was.
 int gru_scan_bwd_dwhh(const void* a, const void* d1, const void* d2,
-                      void* part, int N, int H, int n_slices, void* stream) {
-  if (N <= 0 || H <= 0 || H % 8 || n_slices <= 0)
+                      void* part, int N, int H, int n_slices,
+                      int narrow_slices, int in_flight, void* stream) {
+  if (N <= 0 || H <= 0 || H % 8 || n_slices <= 0 || narrow_slices <= 0 ||
+      narrow_slices > n_slices || (in_flight != 0 && in_flight != 1))
     return (int)cudaErrorInvalidValue;
-  int rows_per_slice = (N + n_slices - 1) / n_slices;
-  rows_per_slice = (rows_per_slice + DW_TK - 1) / DW_TK * DW_TK;
+  auto rows_of = [N](int slices) {
+    const int per = (N + slices - 1) / slices;
+    return (per + DW_TK - 1) / DW_TK * DW_TK;
+  };
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap map_a, map_d1, map_d2;
@@ -1037,15 +1133,16 @@ int gru_scan_bwd_dwhh(const void* a, const void* d1, const void* d2,
       !make_map(encode, &map_d1, d1, N, 2 * H, 3 * H) ||
       !make_map(encode, &map_d2, d2, N, H, H))
     return (int)cudaErrorInvalidValue;
+  auto kernel = in_flight ? gru_dwhh_kernel<1> : gru_dwhh_kernel<0>;
   cudaError_t err = cudaFuncSetAttribute(
-      gru_dwhh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DW_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DW_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H + DW_TM - 1) / DW_TM,
                   (2 * H + DW_TN - 1) / DW_TN + (H + DW_TN - 1) / DW_TN,
                   n_slices);
-  gru_dwhh_kernel<<<grid, DW_THREADS, DW_SMEM, (cudaStream_t)stream>>>(
-      map_a, map_d1, map_d2, (float*)part, N, H, rows_per_slice);
+  kernel<<<grid, DW_THREADS, DW_SMEM, (cudaStream_t)stream>>>(
+      map_a, map_d1, map_d2, (float*)part, N, H, rows_of(n_slices),
+      narrow_slices, rows_of(narrow_slices));
   return (int)cudaGetLastError();
 }
 

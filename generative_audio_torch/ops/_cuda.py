@@ -192,7 +192,9 @@ _SIGNATURES = {
         # shared bytes
         "gru_scan_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P],
-        "gru_scan_bwd_dwhh": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # ..., N, H, then the plan: slices, narrow tiles' slices, wgmma
+        # groups left in flight
+        "gru_scan_bwd_dwhh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "scan_bwd_stream": {
         # the streamed cluster backwards: ..., reverse, then the plan:
@@ -212,6 +214,13 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                      _P],
     },
+    "gru_scan_bwd_wide": {
+        # the GRU backward scan as a wide cluster: ..., n_blocks, T, B, H,
+        # reverse, then the plan: cluster, rows, tiles and groups an item,
+        # resident k-steps, the two rings' stages, shared bytes
+        "gru_scan_bwd_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 # Queries that launch nothing: the instance's flags (out_f32, carry; and
@@ -222,7 +231,8 @@ SOURCES = tuple(_SIGNATURES)
 # groups an item, the resident k-steps and the stages; for the staged ones k, out_f32, the resident k-steps,
 # the stages and kernel E's gate groups; for the streamed backwards, tile,
 # the resident slots and the stages; for kernel D's wide cluster the tiles
-# and groups an item, the resident k-steps and both rings' stages), then H,
+# and groups an item, the resident k-steps and both rings' stages, and the
+# GRU backward's the same), then H,
 # cluster, rows and int* n.
 _QUERIES = {
     "lstm_scan": {
@@ -270,6 +280,10 @@ _QUERIES = {
     "lstm_scan_bwd_wide": {
         "lstm_scan_bwd_wide_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I,
                                             ctypes.POINTER(ctypes.c_int)],
+    },
+    "gru_scan_bwd_wide": {
+        "gru_scan_bwd_wide_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I,
+                                           ctypes.POINTER(ctypes.c_int)],
     },
 }
 

@@ -9,7 +9,8 @@ Port of three kernels of generative_audio_tpu/ops/pallas_lstm.py:
     `_gru_pallas_call_carry` / `_gru_carry_kernel`, and
     `gru_layer_tm_chunked` chains it over time chunks as the JAX function of
     the same name does;
-  * `gru_scan_bwd_tm` (csrc/gru_scan_bwd.cu; above H = 512 also
+  * `gru_scan_bwd_tm` (csrc/gru_scan_bwd.cu; at the sub-band batch
+    csrc/gru_scan_bwd_wide.cu `gru_scan_bwd_wide`, above H = 512
     csrc/scan_bwd_stream.cu `gru_scan_bwd_stream`) replaces
     `_gru_pallas_call_bwd` / `_gru_bwd_kernel`: the reverse-time backward
     that recomputes the h-side gates from the bf16 h sequence and emits
@@ -45,11 +46,18 @@ run as thread-block clusters: `plan_scan` (ops/lstm.py's
 cluster size and the rows per cluster from H, the row count, the
 shared-memory limit and the card's `cudaOccupancyMaxActiveClusters`.
 The backward scan runs as a thread-block cluster, as the single-block
-design or, above H = 512, as a streamed cluster (csrc/scan_bwd_stream.cu
-`gru_scan_bwd_stream`; the same bits), whichever ops/lstm.py `plan_bwd`
-models fastest: `_launch` appends `card_bwd_scan_plan`'s plan.
-`plan_dwhh` cuts the contraction's rows into slices. The planners are plain
-Python.
+design, up to H = 512 as a wide cluster (csrc/gru_scan_bwd_wide.cu
+`gru_scan_bwd_wide`: kernel D's wide design with the GRU cell, the dgh
+exchange read back from L2 by TMA, both W_hh operands streamed, so that
+up to 96 rows fit a cluster of 8) or, above H = 512, as a streamed cluster
+(csrc/scan_bwd_stream.cu `gru_scan_bwd_stream`), all the same bits,
+whichever ops/lstm.py `plan_bwd` models fastest on the card: the wrapper
+asks `card_bwd_scan_plan` first and packs W_hh for a wide or streamed
+plan; `_launch` appends the plan. `wide_backwards()` and
+`resident_backwards()` of ops/lstm.py force either design here too.
+`plan_dwhh` cuts the contraction's rows into slices by a model of the
+card (`dwhh_us`), `plan_dwhh_first` as the first design did. The planners
+are plain Python.
 
 Any H runs on the card, as for the LSTM: the wrappers zero-pad H to the
 units their kernel takes (`scan_hidden` for the cluster forward, whole
@@ -76,18 +84,21 @@ import torch.nn.functional as F
 
 from generative_audio_torch.ops.lstm import (
     _BWD_RESIDENT_MAX, _PAD, _ROWS, _STEP_UNITS, H100_SMS, BwdPlan,
-    BwdStreamPlan, ScanPlan, StreamBwdClusters, StreamPlan,
-    _bwd_hidden, _card_stream_bwd_clusters, _check_kernel_operand,
-    _device_index, _device_sms, _fragment_weight, _is_cuda, _kernel_operand,
-    _kernel_weight, _pad_gates, _pad_units, _padded_weight,
+    BwdStreamPlan, BwdWidePlan, ScanPlan, StreamBwdClusters, StreamPlan,
+    WideBwdClusters, _bwd_design, _bwd_hidden, _card_stream_bwd_clusters,
+    _card_wide_bwd_clusters, _check_kernel_operand, _device_index,
+    _device_sms, _fragment_weight, _is_cuda, _kernel_operand,
+    _kernel_weight, _on_card, _pad_gates, _pad_units, _padded_weight,
     _resident_occupancy, _route_weight, _stream_args, _stream_dh_weight,
     _stream_weight, _unpad_gates, _unpad_units, _wants_grad,
     block_forward_step_us, bwd_cluster_smem_bytes, bwd_cluster_step_us,
-    bwd_stream_cluster_step_us, card_bwd_plan, card_plan, card_stream,
+    bwd_stream_cluster_step_us, bwd_wide_cluster_smem_bytes,
+    bwd_wide_cluster_step_us, card_bwd_plan, card_plan, card_stream,
     bwd_stream_cluster_smem_bytes,
     cluster_hidden, cluster_step_us, mixed_gates, plan_bwd,
-    plan_bwd_stream, plan_cluster_scan, plan_forward, plan_stream,
-    sm_blocks, stream_cluster_step_us, stream_fixed_bytes)
+    plan_bwd_stream, plan_bwd_wide_cluster, plan_cluster_scan,
+    plan_forward, plan_stream, resident_backwards, sm_blocks,
+    stream_cluster_step_us, stream_fixed_bytes)
 from generative_audio_torch.ops.lstm import _launch as _launch_entry
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
@@ -103,7 +114,9 @@ __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "stream_step_us", "plan_stream_scan", "card_stream_plan",
            "block_step_us", "BwdStreamPlan", "bwd_stream_smem_bytes",
            "bwd_stream_step_us", "plan_bwd_stream_scan",
-           "card_bwd_stream_plan"]
+           "card_bwd_stream_plan", "bwd_wide_smem_bytes", "bwd_wide_step_us",
+           "plan_bwd_wide_scan", "card_bwd_wide_plan", "dwhh_us",
+           "plan_dwhh_first"]
 
 # Batch rows per block of the backward scan, which writes one db_hh partial
 # per block: the kernel is told the number of partials and refuses another
@@ -142,11 +155,37 @@ _BWD_BLOCK_US = 152.0
 # plans on an H100 SXM at 700 W (as the LSTM's), off by at most 11.5 us a
 # step and 3.4 in the mean.
 _BWD_STREAM_PARTS = (7.09412, 0.00812, 0.59754, 0.05541)
+# The wide backward scan's step model (ops/lstm.py
+# bwd_wide_cluster_step_us with three gates: step, CTA, warp, latency;
+# microseconds): a least-squares fit to the steps of 121 one-cluster plans
+# (H = 384 at 16-96 rows, H = 512 at 16 and 48; C = 8 and 16; items 1 x 2,
+# 1 x 3, 2 x 3; rings of 1-4 pieces, recompute rings of none, 1 and 3
+# stages) on an H100 SXM at 700 W (generative_audio_torch/scripts/
+# perf_bwd_scan.py --wide --kind gru), off by at most 2.07 us a step and
+# 0.65 in the mean.
+_BWD_WIDE_PARTS = (4.82735, 1.56704, 2.67486, 0.35465)
 # The contraction's output tile (csrc/gru_scan_bwd.cu DW_TM x DW_TN) and the
 # rows of one pipeline stage, on which every slice begins (DW_TK).
 _DW_TILE_ROWS, _DW_TILE_COLS, _DW_STAGE_ROWS = 128, 256, 64
-# A slice of the contraction reads at least 8 times the bytes its fp32
-# partial writes: rows * 4H * 2 B >= 8 * H * 3H * 4 B, so rows >= 12 H.
+# dwhh_us's parts: a 64-row stage of a full tile's products (2 x 128 x 256
+# x 64 operations; 0.56 us at one SM's share of the 989 TFLOP/s bf16 peak)
+# where few CTAs run, the microseconds each working CTA above a knee adds
+# to every CTA's stage (the card's shared rate), the knee, and one MB of a
+# fp32 partial written by the kernel and read back by the sum (2 MB of
+# traffic at 3.35 TB/s). The first three fitted to the contraction at N =
+# 446 976, H = 384 cut into 1-9 slices (15-132 CTAs) on an H100 SXM at 700
+# W (generative_audio_torch/scripts/perf_bwd_scan.py --dwhh): 0.578 us a
+# stage at 15 CTAs, 0.768 at 132, off by at most 0.025 us a stage.
+_DW_STAGE_US, _DW_SHARED_US, _DW_FREE_CTAS = 0.5783, 0.002498, 56.0
+_DW_PARTIAL_US_PER_MB = 0.597
+# A stage of a tile of at most 128 columns (m64n128k16, half the products,
+# four boxes of six) against a full tile's: 0.72 where the narrow tiles'
+# run bound the contraction at 126 CTAs (9 slices, 6 for the narrow tiles;
+# chip_smoke.py phase 28 on an H100 SXM at 700 W).
+_DW_HALF_SHARE = 0.72
+# The first design's slices: each at least 12 H rows long (it reads 8
+# times the bytes its fp32 partial writes: rows * 4H * 2 B >= 8 * H * 3H *
+# 4 B), tiles x slices within one wave.
 _DW_ROWS_PER_UNIT = 12
 
 
@@ -309,33 +348,95 @@ def plan_bwd_stream_scan(hsz: int, batch: int,
                            bwd_stream_step_us, resident)
 
 
+def bwd_wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                        stages: int, pieces: int) -> int:
+    """Shared memory of one CTA of the wide backward scan (csrc/
+    gru_scan_bwd_wide.cu `wide_bwd_smem`; ops/lstm.py
+    bwd_wide_cluster_smem_bytes with three gates: the cell's operands are
+    the 3 gates, gout and h_prev)."""
+    return bwd_wide_cluster_smem_bytes(hsz, cluster, rows, resident, stages,
+                                       pieces, 3)
+
+
+def bwd_wide_step_us(hsz: int, cluster: int, rows: int, tiles: int,
+                     groups: int, resident: int, stages: int,
+                     pieces: int) -> float:
+    """Modelled time of one step of one wave of the wide backward scan
+    (ops/lstm.py bwd_wide_cluster_step_us with three gates and this
+    kernel's parts)."""
+    return bwd_wide_cluster_step_us(hsz, cluster, rows, tiles, groups,
+                                    resident, stages, pieces, 3,
+                                    _BWD_WIDE_PARTS)
+
+
+def plan_bwd_wide_scan(hsz: int, batch: int, max_clusters: WideBwdClusters,
+                       resident: Optional[int] = None) -> BwdWidePlan:
+    """The backward scan's wide plan for `batch` rows of a layer of hsz
+    units (ops/lstm.py plan_bwd_wide_cluster with this kernel's layout and
+    step model)."""
+    return plan_bwd_wide_cluster("GRU", hsz, batch, max_clusters,
+                                 bwd_wide_smem_bytes, bwd_wide_step_us,
+                                 resident)
+
+
+@functools.lru_cache(maxsize=None)
+def card_bwd_wide_plan(device: torch.device, hsz: int, batch: int,
+                       resident: Optional[int] = None) -> BwdWidePlan:
+    """The wide plan on `device` (a CUDA device) at any H its planner holds
+    (occupancy from csrc/gru_scan_bwd_wide.cu
+    `gru_scan_bwd_wide_max_clusters`), for holding it against the other
+    designs through gru_scan_bwd_streams_planned_tm and timing it."""
+    return plan_bwd_wide_scan(
+        hsz, batch, _card_wide_bwd_clusters(_device_index(device),
+                                            "gru_scan_bwd_wide"), resident)
+
+
 def plan_bwd_scan(hsz: int, batch: int,
                   max_clusters: Callable[[int, int, bool], int],
                   sms: int = H100_SMS,
-                  stream_clusters: Optional[StreamBwdClusters] = None
-                  ) -> Union[BwdPlan, BwdStreamPlan]:
+                  stream_clusters: Optional[StreamBwdClusters] = None,
+                  wide_clusters: Optional[WideBwdClusters] = None
+                  ) -> Union[BwdPlan, BwdStreamPlan, BwdWidePlan]:
     """The backward scan's plan for `batch` rows at H = hsz (a multiple of
-    16): the single-block design, a resident cluster or, above H = 512, the
-    streamed cluster (ops/lstm.py plan_bwd), on a card of `sms` SMs; the
-    streamed cluster's occupancy from `stream_clusters` (default: the
-    resident cluster's)."""
+    16): the single-block design, a resident cluster, up to H = 512 the
+    wide cluster or above it the streamed cluster (ops/lstm.py plan_bwd),
+    on a card of `sms` SMs; the streamed and the wide cluster's occupancy
+    from `stream_clusters` and `wide_clusters` (default: the resident
+    cluster's)."""
     stream_clusters = stream_clusters or _resident_occupancy(max_clusters)
+    wide_clusters = wide_clusters or (
+        lambda h, c, r, *plan: max_clusters(c, r, False))
     return plan_bwd("GRU", hsz, batch, max_clusters,
                     functools.partial(sm_blocks, sms=sms),
                     bwd_smem_bytes_cluster, bwd_step_us,
                     bwd_block_smem_bytes(hsz),
                     _BWD_BLOCK_US * hsz / 384,
-                    lambda: plan_bwd_stream_scan(hsz, batch, stream_clusters))
+                    lambda: plan_bwd_stream_scan(hsz, batch, stream_clusters),
+                    lambda: plan_bwd_wide_scan(hsz, batch, wide_clusters))
+
+
+def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int
+                       ) -> Union[BwdPlan, BwdStreamPlan, BwdWidePlan]:
+    """The plan the backward scan launches with on `device` (a CUDA device)
+    for `batch` rows at H = hsz (occupancy from csrc/gru_scan_bwd.cu
+    `gru_scan_bwd_max_clusters`, csrc/scan_bwd_stream.cu
+    `gru_scan_bwd_stream_max_clusters` and csrc/gru_scan_bwd_wide.cu
+    `gru_scan_bwd_wide_max_clusters`), within the design that
+    wide_backwards() or resident_backwards() forces."""
+    return _card_bwd_scan_plan(device, hsz, batch,
+                               _bwd_design[-1] if _bwd_design else None)
 
 
 @functools.lru_cache(maxsize=None)
-def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int
-                       ) -> Union[BwdPlan, BwdStreamPlan]:
-    """The plan the backward scan launches with on `device` (a CUDA device)
-    for `batch` rows at H = hsz (occupancy from csrc/gru_scan_bwd.cu
-    `gru_scan_bwd_max_clusters` and csrc/scan_bwd_stream.cu
-    `gru_scan_bwd_stream_max_clusters`)."""
-    return card_bwd_plan("gru_scan_bwd", plan_bwd_scan, device, hsz, batch)
+def _card_bwd_scan_plan(device: torch.device, hsz: int, batch: int,
+                        design: Optional[str]
+                        ) -> Union[BwdPlan, BwdStreamPlan, BwdWidePlan]:
+    """card_bwd_scan_plan under `design` (the forced design, part of the
+    key: plan_bwd reads it)."""
+    return card_bwd_plan("gru_scan_bwd", functools.partial(
+        plan_bwd_scan, wide_clusters=_card_wide_bwd_clusters(
+            _device_index(device), "gru_scan_bwd_wide")),
+        device, hsz, batch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -351,24 +452,37 @@ def card_bwd_stream_plan(device: torch.device, hsz: int, batch: int,
 
 
 def _launch(fn_name: str, *args,
-            plan: Optional[Union[BwdPlan, StreamPlan, BwdStreamPlan]] = None
-            ) -> None:
+            plan: Optional[Union[BwdPlan, StreamPlan, BwdStreamPlan,
+                                 BwdWidePlan, "DwhhPlan"]] = None) -> None:
     """Launch csrc entry `fn_name` through the port's launch helper. The
     forward entries are cluster launches: their arguments end in (out_f32,
     T, B, H, reverse), and card_scan_plan's plan for (H, B) on the tensors'
     card is appended to them; their streamed variants take `plan` (the
     StreamPlan the wrapper packed W_hh for). The backward scan's arguments
     end in (T, B, H, reverse), and `plan` (default: card_bwd_scan_plan's for
-    (H, B)) is appended to them; its streamed cluster's arguments end the
-    same way, and `plan` (the BwdStreamPlan the wrapper packed W_hh for) is
+    (H, B) without the wide cluster, which takes other operands) is
+    appended to them; its streamed and wide clusters' arguments end the
+    same way, and `plan` (the BwdStreamPlan or BwdWidePlan the wrapper
+    packed W_hh for) is appended to them. The contraction's arguments end
+    in (N, H), and `plan` (a DwhhPlan; default plan_dwhh's for (N, H)) is
     appended to them."""
     if fn_name in _STREAM_ENTRIES:
         args = (*args, *_stream_args(fn_name, plan, args[-2]))
     elif fn_name == "gru_scan_bwd_stream":
         args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
+    elif fn_name == "gru_scan_bwd_wide":
+        args = (*args, *_stream_args(fn_name, plan, args[-2], BwdWidePlan))
     elif fn_name == "gru_scan_bwd":
         b, hsz = args[-3], args[-2]
-        plan = plan or card_bwd_scan_plan(args[0].device, hsz, b)
+        if plan is None:        # the wrapper asked already where wide weighs
+            with resident_backwards():
+                plan = card_bwd_scan_plan(args[0].device, hsz, b)
+        if not isinstance(plan, BwdPlan):
+            raise ValueError(f"gru_scan_bwd launches with a BwdPlan, got "
+                             f"{type(plan).__name__}")
+        args = (*args, *plan.launch_args)
+    elif fn_name == "gru_scan_bwd_dwhh":
+        plan = plan or plan_dwhh(*args[-2:])
         args = (*args, *plan.launch_args)
     elif fn_name in _CLUSTER_ENTRIES:
         out_f32, _, b, hsz, _ = args[-5:]
@@ -382,28 +496,120 @@ def _launch(fn_name: str, *args,
 @dataclasses.dataclass(frozen=True)
 class DwhhPlan:
     """How the dW_hh contraction (csrc/gru_scan_bwd.cu) cuts its N rows:
-    slice z takes rows [z * rows_per_slice, (z + 1) * rows_per_slice) of
-    the first N (whole 64-row stages; the last slice may be shorter), one
-    CTA per 128 x 256 output tile and slice."""
+    one CTA per 128 x 256 output tile and slice; slice z of a tile takes
+    rows [z * rows_per_slice, (z + 1) * rows_per_slice) of the first N
+    (whole 64-row stages; the last slice may be shorter), and of a narrow
+    tile (fewer than 256 columns: the ragged last one of dgx's 2H or dhn's
+    H) [z * narrow_rows, (z + 1) * narrow_rows) for z below narrow_slices,
+    its partials beyond written zero. `in_flight` wgmma
+    groups of a stage run on while the next stage's are issued (0: the
+    first design's wait for every group). The caller sums the `slices`
+    partials in a fixed order."""
     tiles: int
     slices: int
     rows_per_slice: int
+    narrow_tiles: int = 0
+    narrow_slices: int = 0
+    narrow_rows: int = 0
+    in_flight: int = 1
+    us: float = 0.0       # dwhh_us of the plan (0 for the first design's)
+
+    def __post_init__(self):
+        if not self.narrow_slices:       # no narrow tile: as the others
+            object.__setattr__(self, "narrow_slices", self.slices)
+            object.__setattr__(self, "narrow_rows", self.rows_per_slice)
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int]:
+        """The C entry's last arguments before the stream."""
+        return self.slices, self.narrow_slices, self.in_flight
 
 
-def plan_dwhh(n: int, hsz: int) -> DwhhPlan:
-    """The contraction's slices over n >= 1 rows at H = hsz: as many as keep
-    tiles x slices within one wave of H100_SMS and every slice at least
-    12 H rows long, and at least one. Slices begin on whole stages and none
-    is empty: rows_per_slice is what the kernel takes for the count,
-    ceil(ceil(n / slices) / 64) * 64."""
-    def per_slice(slices):
-        return -(-(-(-n // slices)) // _DW_STAGE_ROWS) * _DW_STAGE_ROWS
+def _dwhh_rows(n: int, slices: int) -> int:
+    """Rows of each slice when n rows are cut into `slices` (whole 64-row
+    stages), as the kernel cuts them: ceil(ceil(n / slices) / 64) * 64."""
+    return -(-(-(-n // slices)) // _DW_STAGE_ROWS) * _DW_STAGE_ROWS
 
-    tiles = -(-hsz // _DW_TILE_ROWS) * (-(-2 * hsz // _DW_TILE_COLS)
-                                       + -(-hsz // _DW_TILE_COLS))
+
+def _dwhh_tiles(hsz: int) -> Tuple[int, int, float]:
+    """(full tiles, narrow tiles, the share of a full tile's stage a narrow
+    tile's takes) of the contraction's grid at H = hsz: a tile of fewer
+    than _DW_TILE_COLS columns (the ragged last one of dgx's 2H or dhn's H)
+    is narrow, as csrc/gru_scan_bwd.cu decides; at most 128 columns run
+    m64n128k16, whose stage takes _DW_HALF_SHARE of a full one's."""
+    rows = -(-hsz // _DW_TILE_ROWS)
+    cols = [min(_DW_TILE_COLS, extent - c) for extent in (2 * hsz, hsz)
+            for c in range(0, extent, _DW_TILE_COLS)]
+    narrow = [c for c in cols if c < _DW_TILE_COLS]
+    share = max((_DW_HALF_SHARE if c <= 128 else 1.0 for c in narrow),
+                default=0.0)
+    return rows * (len(cols) - len(narrow)), rows * len(narrow), share
+
+
+def dwhh_us(n: int, hsz: int, slices: int, narrow_slices: int,
+            sms: int = H100_SMS) -> float:
+    """Modelled time of the contraction over n rows at H = hsz cut into
+    `slices` (narrow tiles: `narrow_slices`) on a card of `sms` SMs, the
+    sum of its partials included: once per wave, the longest run of stages
+    of a CTA (a narrow tile's stage its share of a full one's) at the stage
+    time of as many working CTAs as the wave holds (_DW_STAGE_US, and
+    _DW_SHARED_US for each above _DW_FREE_CTAS), and the fp32 partials
+    written and read back (_DW_PARTIAL_US_PER_MB a MB) where there is more
+    than one."""
+    full, narrow, share = _dwhh_tiles(hsz)
+    run = 0.0
+    for tiles, count, weight in ((full, slices, 1.0),
+                                 (narrow, narrow_slices, share)):
+        if tiles:
+            run = max(run, _dwhh_rows(n, count) // _DW_STAGE_ROWS * weight)
+    working = full * slices + narrow * narrow_slices
+    waves = -(-working // sms)
+    stage = _DW_STAGE_US + _DW_SHARED_US * max(
+        0.0, min(working, sms) - _DW_FREE_CTAS)
+    partial_mb = hsz * 3 * hsz * 4 / 1e6
+    return (waves * run * stage
+            + (slices * partial_mb * _DW_PARTIAL_US_PER_MB
+               if slices > 1 else 0.0))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_dwhh(n: int, hsz: int, sms: int = H100_SMS) -> DwhhPlan:
+    """The contraction's plan over n >= 1 rows at H = hsz on a card of
+    `sms` SMs: the slices of the full tiles of least dwhh_us, weighing the
+    SMs each extra slice fills against the fp32 partial it adds (ties go
+    to fewer slices); the narrow tiles take as many slices, up to as many,
+    as the SMs the full tiles leave hold (in the sweep of perf_bwd_scan.py
+    --dwhh each slice count ran faster the more SMs it filled, up to one
+    wave). Slices begin on
+    whole stages and none is empty: a count is reduced to the slices its
+    rows per slice make, ceil(n / rows_per_slice). One wgmma group stays in
+    flight."""
+    full, narrow, _ = _dwhh_tiles(hsz)
+    best = None
+    for slices in range(1, max(1, (sms - narrow) // max(full, 1)) + 1):
+        slices = -(-n // _dwhh_rows(n, slices))        # no empty slice
+        narrow_slices = (max(1, min(slices, (sms - full * slices) // narrow))
+                         if narrow else slices)
+        narrow_slices = -(-n // _dwhh_rows(n, narrow_slices))
+        us = dwhh_us(n, hsz, slices, narrow_slices, sms)
+        if best is None or (us, slices) < best[0]:
+            best = ((us, slices), DwhhPlan(
+                full + narrow, slices, _dwhh_rows(n, slices), narrow,
+                narrow_slices, _dwhh_rows(n, narrow_slices), 1, us))
+    return best[1]
+
+
+def plan_dwhh_first(n: int, hsz: int) -> DwhhPlan:
+    """The first design's plan, for timing against plan_dwhh's: as many
+    slices as keep tiles x slices within one wave of H100_SMS and every
+    slice at least 12 H rows long, and at least one, the same for every
+    tile; each stage's wgmma groups waited for at once."""
+    full, narrow, _ = _dwhh_tiles(hsz)
+    tiles = full + narrow
     slices = max(1, min(H100_SMS // tiles, n // (_DW_ROWS_PER_UNIT * hsz)))
-    slices = -(-n // per_slice(slices))           # no empty slice
-    return DwhhPlan(tiles, slices, per_slice(slices))
+    slices = -(-n // _dwhh_rows(n, slices))           # no empty slice
+    return DwhhPlan(tiles, slices, _dwhh_rows(n, slices), narrow, slices,
+                    _dwhh_rows(n, slices), 0)
 
 
 def _scan_plain(gates: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
@@ -627,23 +833,26 @@ def gru_scan_bwd_streams_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     the cotangent gout of h_seq, both [T, B, H] bf16, w_hh [H, 3H], b_hh [3H]
     -> (dgx [T, B, 3H] bf16, dhn [T, B, H] bf16, db_hh [3H] fp32). CUDA
     tensors run `gru_scan_bwd` with card_bwd_scan_plan's plan (a thread-block
-    cluster, or the single-block design), or above H = 512 the streamed
-    cluster `gru_scan_bwd_stream` where it is the plan (the same bits);
-    each writes one db_hh partial per 16-row tile of the batch; the
-    partials are summed here."""
+    cluster, or the single-block design), or where it is the plan the wide
+    cluster `gru_scan_bwd_wide` (up to H = 512; on a card the plan weighs
+    it, on CPU tensors, which have no card's occupancy, only within
+    wide_backwards()) or above H = 512 the streamed cluster
+    `gru_scan_bwd_stream` (the same bits); each writes one db_hh partial
+    per 16-row tile of the batch; the partials are summed here."""
     return _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse)
 
 
 def gru_scan_bwd_streams_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
                                     gout: torch.Tensor, w_hh: torch.Tensor,
                                     b_hh: torch.Tensor,
-                                    plan: Union[BwdPlan, BwdStreamPlan],
+                                    plan: Union[BwdPlan, BwdStreamPlan,
+                                                BwdWidePlan],
                                     reverse: bool = False
                                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
     """gru_scan_bwd_streams_tm on CUDA tensors with a given launch plan (a
     BwdPlan for the operands' H, padded to 16, and any design, or a
-    BwdStreamPlan for that H padded to its units), returning
+    BwdStreamPlan or BwdWidePlan for that H padded to its units), returning
     the per-tile db_hh partials [ceil(B / 16), 3H] unsummed, for holding the
     designs against each other bit for bit and timing plans."""
     if not _is_cuda(gates, h_seq, gout, w_hh, b_hh):
@@ -652,7 +861,8 @@ def gru_scan_bwd_streams_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
 
 
 def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
-              plan: Optional[Union[BwdPlan, BwdStreamPlan]] = None):
+              plan: Optional[Union[BwdPlan, BwdStreamPlan,
+                                   BwdWidePlan]] = None):
     t_len, b, hsz = _check_shapes(gates, w_hh, b_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("gout", gout)):
         if tuple(x.shape) != (t_len, b, hsz):
@@ -669,7 +879,10 @@ def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
                 torch.zeros(3 * hsz, device=gates.device))
     partials = plan is not None      # the planned wrapper's: unsummed
     hp = -(-hsz // _STEP_UNITS) * _STEP_UNITS
-    if plan is None and hp > _BWD_RESIDENT_MAX:
+    if plan is None and (hp > _BWD_RESIDENT_MAX or _on_card(gates.device)
+                         or _bwd_design):
+        # on a card the plan weighs the wide cluster, so the wrapper asks
+        # for it first (the wide entry takes other operands)
         plan = card_bwd_scan_plan(gates.device, hp, b)
     hp = _bwd_hidden(hp, plan)
     dgx = torch.empty(t_len, b, 3 * hp, dtype=torch.bfloat16,
@@ -681,10 +894,10 @@ def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
                _pad_units(gout, hp))
     outputs = (_kernel_bias(b_hh, hp), dgx, dhn, db_blocks,
                db_blocks.shape[0], t_len, b, hp, reverse)
-    if isinstance(plan, BwdStreamPlan):
+    if isinstance(plan, (BwdStreamPlan, BwdWidePlan)):
         # both W_hh operands in MMA fragment order, slot after slot: the
         # recompute's W_hh^T slices and the second product's W_hh rows
-        _launch("gru_scan_bwd_stream", *streams,
+        _launch("gru_scan_bwd_" + plan.design, *streams,
                 _stream_weight(w_hh, hp, plan.cluster),
                 _stream_dh_weight(w_hh, hp, plan.cluster), *outputs,
                 plan=plan)
@@ -705,13 +918,15 @@ def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
             _unpad_gates(db, 3, hsz))
 
 
-def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor
-             ) -> torch.Tensor:
+def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor,
+             plan: Optional[DwhhPlan] = None) -> torch.Tensor:
     """The dW_hh contraction: h_prev [N, H], dgx [N, 3H], dhn [N, H], all
     bf16 (see shifted_rows) -> h_prev^T @ [dgx[:, :2H], dhn] as fp32
     [H, 3H]. CUDA tensors run `gru_scan_bwd_dwhh`, which writes one partial
-    per slice of the N rows (plan_dwhh); the partials are summed here in a
-    fixed order, so a result repeats bit for bit. The kernel reads its
+    per slice of the N rows (`plan`, by default plan_dwhh's for the card's
+    SMs; plan_dwhh_first's is the first design's); the partials are summed
+    here in a fixed order (one slice is the result itself), so a result
+    repeats bit for bit. The kernel reads its
     operands through TMA descriptors: they must be contiguous and 16-byte
     aligned, as shifted_rows' views of contiguous streams are at an H that
     needs no padding, and as the padded copies are at any other H."""
@@ -730,11 +945,12 @@ def gru_dwhh(h_prev: torch.Tensor, dgx: torch.Tensor, dhn: torch.Tensor
                 _pad_units(dhn, hp))
     for name, x in zip(("h_prev", "dgx", "dhn"), operands):
         _check_kernel_operand(name, x, torch.bfloat16)
-    plan = plan_dwhh(n, hp)
+    plan = plan or plan_dwhh(n, hp, _device_sms(h_prev.device))
     slices = torch.empty(plan.slices, hp, 3 * hp, dtype=torch.float32,
                          device=h_prev.device)
-    _launch("gru_scan_bwd_dwhh", *operands, slices, n, hp, plan.slices)
-    return _unpad_gates(slices.sum(dim=0)[:hsz], 3, hsz)
+    _launch("gru_scan_bwd_dwhh", *operands, slices, n, hp, plan=plan)
+    out = slices[0] if plan.slices == 1 else slices.sum(dim=0)
+    return _unpad_gates(out[:hsz], 3, hsz)
 
 
 def gru_scan_bwd_tm(gates: torch.Tensor, h_seq: torch.Tensor,

@@ -72,7 +72,8 @@ groups in a warp's registers, so that 80 rows fit a cluster of 8): where
 a resident cluster holds H, `plan_bwd` weighs it against the resident
 cluster by modelled waves x step on the card (`plan_bwd_wide`,
 `card_bwd_wide_plan`), bit for bit the same dgates; `wide_backwards()` and
-`resident_backwards()` force either.
+`resident_backwards()` force either, for the GRU backward scan's wide
+cluster (ops/gru.py, csrc/gru_scan_bwd_wide.cu) too.
 
 `launch_counts` counts kernel launches by kernel name, for the GRU kernels
 of ops/gru.py too (one dict and one launch helper for every kernel of the
@@ -179,7 +180,9 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "wide_forwards", "resident_forwards", "BwdWidePlan",
            "BWD_WIDE_ITEMS", "BWD_WIDE_STAGES", "bwd_wide_items",
            "bwd_wide_smem_bytes", "bwd_wide_step_us", "plan_bwd_wide",
-           "card_bwd_wide_plan", "wide_backwards", "resident_backwards"]
+           "card_bwd_wide_plan", "wide_backwards", "resident_backwards",
+           "bwd_wide_cluster_smem_bytes", "bwd_wide_cluster_step_us",
+           "plan_bwd_wide_cluster"]
 
 # kernel entry -> the csrc source that holds it
 _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
@@ -210,7 +213,8 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "gru_scan_bwd_dwhh": "gru_scan_bwd",
               "lstm_scan_bwd_stream": "scan_bwd_stream",
               "gru_scan_bwd_stream": "scan_bwd_stream",
-              "lstm_scan_bwd_wide": "lstm_scan_bwd_wide"}
+              "lstm_scan_bwd_wide": "lstm_scan_bwd_wide",
+              "gru_scan_bwd_wide": "gru_scan_bwd_wide"}
 launch_counts = dict.fromkeys(_SOURCE_OF, 0)
 
 # Dynamic shared memory a block may opt in to on sm_90 (H100): 227 KB.
@@ -1861,8 +1865,8 @@ def plan_bwd(what: str, hsz: int, batch: int,
              ) -> Union[BwdPlan, "BwdStreamPlan", "BwdWidePlan"]:
     """A backward scan's launch plan for `batch` rows at H = hsz: the
     single-block design, every resident cluster shape, up to H = 512 the
-    wide cluster (kernel D) and above it the streamed cluster, by modelled
-    time.
+    wide cluster (kernel D's or the GRU's) and above it the streamed
+    cluster, by modelled time.
 
     The single-block design takes ceil(batch / 16) blocks of block_smem
     bytes, of which `max_blocks(block_smem)` run at once, each step taking
@@ -1875,8 +1879,8 @@ def plan_bwd(what: str, hsz: int, batch: int,
     resident) a step. Above H = 512, where no resident cluster holds H,
     `stream_plan()` (plan_bwd_stream's best, at H padded to its units) is
     weighed too; up to H = 512, where a resident cluster holds H,
-    `wide_plan()` (plan_bwd_wide's best, at H padded to its units) where
-    given. The plan minimises waves x step time;
+    `wide_plan()` (the wide planner's best, plan_bwd_wide_cluster, at H
+    padded to its units) where given. The plan minimises waves x step time;
     ties go to the single block, then to the smaller cluster, to fewer
     clusters and to the resident cluster. Every design gives the same bits.
     Within wide_backwards() the wide plan at any H it holds, within
@@ -2358,50 +2362,83 @@ def bwd_wide_items(hsz: int, cluster: int, rows: int, tiles: int,
     return rows // 16 // tiles * (hsz // cluster // 8 // groups)
 
 
-def bwd_wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
-                        stages: int, pieces: int) -> int:
-    """Shared memory of one wide backward CTA (csrc/lstm_scan_bwd_wide.cu
+def bwd_wide_cluster_smem_bytes(hsz: int, cluster: int, rows: int,
+                                resident: int, stages: int, pieces: int,
+                                n_gates: int) -> int:
+    """Shared memory of one CTA of a wide backward with n gate columns a
+    unit (csrc/lstm_scan_bwd_wide.cu and csrc/gru_scan_bwd_wide.cu
     `wide_bwd_smem`): 1024 bytes of slack to align the swizzled boxes,
     h_prev [H/64][rows][64] bf16, the second product's ring of `pieces`
     slots (a dgates piece [rows][64] and the W_hh rows of its k-steps
     [U][64], bf16), the recompute's ring of `stages` k-pairs and its
-    `resident` k-steps of the W_hh^T slice in fragment order (4U x 32 bf16
-    a k-pair), the cell's operands [7][rows][U] bf16 and the mbarriers
-    (both rings' two a slot, the h tile's and the operands' two each), with
-    U = H / cluster units."""
+    `resident` k-steps of the W_hh^T slice in fragment order (n U x 32 bf16
+    a k-pair), the cell's operands [n + 3][rows][U] bf16 (LSTM: 4 gates,
+    c_t, c_prev, gout; GRU, n = 3: [n + 2], 3 gates, gout, h_prev) and the
+    mbarriers (both rings' two a slot, the h tile's and the operands' two
+    each), with U = H / cluster units."""
     units = hsz // cluster
+    operands = n_gates + (3 if n_gates == 4 else 2)
     return (1024 + rows * 128 * (hsz // 64 + pieces) + pieces * units * 128
-            + (stages + resident // 2) * units * 256 + 14 * rows * units
-            + 8 * (2 * stages + 2 * pieces + 4))
+            + (stages + resident // 2) * units * 64 * n_gates
+            + 2 * operands * rows * units + 8 * (2 * stages + 2 * pieces + 4))
+
+
+def bwd_wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                        stages: int, pieces: int) -> int:
+    """Shared memory of one CTA of kernel D's wide cluster
+    (bwd_wide_cluster_smem_bytes with four gates)."""
+    return bwd_wide_cluster_smem_bytes(hsz, cluster, rows, resident, stages,
+                                       pieces, 4)
+
+
+def bwd_wide_cluster_step_us(hsz: int, cluster: int, rows: int, tiles: int,
+                             groups: int, resident: int, stages: int,
+                             pieces: int, n_gates: int,
+                             parts: Tuple[float, float, float, float]
+                             ) -> float:
+    """Modelled time of one step of one wave of a wide backward with n gate
+    columns a unit, from parts (step, CTA, warp, latency; microseconds): a
+    step, each 1000 m16n8k16 products (both: the recompute's n U columns
+    over H and dh's U columns over n H) of the CTA and of its busiest warp,
+    and a copy's latency over the ring's depth for each streamed k-pair of
+    the recompute's ring and each dgates piece of the second product's."""
+    step_us, cta_us, warp_us, latency_us = parts
+    units, ksteps = hsz // cluster, hsz // 16
+    cta = rows // 16 * (units // 8) * 2 * n_gates * ksteps / 1000
+    warp = tiles * groups * 2 * n_gates * ksteps / 1000
+    streamed = hsz // 32 - resident // 2
+    slots = ((streamed / stages if streamed else 0.0)
+             + n_gates * hsz // 64 / pieces)
+    return step_us + cta * cta_us + warp * warp_us + slots * latency_us
 
 
 def bwd_wide_step_us(hsz: int, cluster: int, rows: int, tiles: int,
                      groups: int, resident: int, stages: int,
                      pieces: int) -> float:
-    """Modelled time of one step of one wave of the wide backward, from
-    _BWD_WIDE_PARTS: a step, the products (both: the recompute's 4U columns
-    over H and dh's U columns over 4H) of the CTA and of its busiest warp,
-    and a copy's latency over the ring's depth for each streamed k-pair of
-    the recompute's ring and each dgates piece of the second product's."""
-    step_us, cta_us, warp_us, latency_us = _BWD_WIDE_PARTS
-    units, ksteps = hsz // cluster, hsz // 16
-    cta = rows // 16 * (units // 8) * 8 * ksteps / 1000
-    warp = tiles * groups * 8 * ksteps / 1000
-    streamed = hsz // 32 - resident // 2
-    slots = (streamed / stages if streamed else 0.0) + hsz // 16 / pieces
-    return step_us + cta * cta_us + warp * warp_us + slots * latency_us
+    """Modelled time of one step of one wave of kernel D's wide cluster
+    (bwd_wide_cluster_step_us with four gates and _BWD_WIDE_PARTS)."""
+    return bwd_wide_cluster_step_us(hsz, cluster, rows, tiles, groups,
+                                    resident, stages, pieces, 4,
+                                    _BWD_WIDE_PARTS)
+
+
+# (H, cluster, rows, resident k-steps, stages, pieces) -> shared bytes
+WideBwdSmemBytes = Callable[[int, int, int, int, int, int], int]
 
 
 def _bwd_wide_resident(hsz: int, cluster: int, rows: int, stages: int,
-                       pieces: int, resident: Optional[int]) -> Optional[int]:
-    """The resident k-steps of a wide backward CTA with rings of `stages`
-    and `pieces`: all of them with no recompute ring (stages 0); else
-    `resident` where it is even, leaves a k-pair streamed and fits
-    SMEM_LIMIT, else (None) the most that do; None when none does."""
+                       pieces: int, resident: Optional[int],
+                       smem_bytes: WideBwdSmemBytes = bwd_wide_smem_bytes
+                       ) -> Optional[int]:
+    """The resident k-steps of a wide backward CTA (layout `smem_bytes`,
+    kernel D's by default) with rings of `stages` and `pieces`: all of them
+    with no recompute ring (stages 0); else `resident` where it is even,
+    leaves a k-pair streamed and fits SMEM_LIMIT, else (None) the most that
+    do; None when none does."""
     ksteps = hsz // 16
 
     def smem(res, st):
-        return bwd_wide_smem_bytes(hsz, cluster, rows, res, st, pieces)
+        return smem_bytes(hsz, cluster, rows, res, st, pieces)
 
     if stages == 0:
         ok = resident in (None, ksteps) and smem(ksteps, 0) <= SMEM_LIMIT
@@ -2417,9 +2454,14 @@ def _bwd_wide_resident(hsz: int, cluster: int, rows: int, stages: int,
     return 2 * min((SMEM_LIMIT - least) // pair, ksteps // 2 - 1)
 
 
-def plan_bwd_wide(hsz: int, batch: int, max_clusters: WideBwdClusters,
-                  resident: Optional[int] = None) -> BwdWidePlan:
-    """Kernel D's wide plan for `batch` rows of a layer of hsz units.
+def plan_bwd_wide_cluster(what: str, hsz: int, batch: int,
+                          max_clusters: WideBwdClusters,
+                          smem_bytes: WideBwdSmemBytes,
+                          step_us: Callable[..., float],
+                          resident: Optional[int] = None) -> BwdWidePlan:
+    """A wide backward's launch plan for `batch` rows of a layer of hsz
+    units, with its layout `smem_bytes` and step model `step_us` (H,
+    cluster, rows, tiles, groups, resident, stages, pieces).
 
     For each cluster size C of CLUSTER_SIZES at H = stream_hidden(hsz, C)
     whose CTAs hold at most _BWD_WIDE_BOX units, each item of
@@ -2432,8 +2474,8 @@ def plan_bwd_wide(hsz: int, batch: int, max_clusters: WideBwdClusters,
     second ring of BWD_WIDE_STAGES pieces, whose CTA fits SMEM_LIMIT bytes,
     `max_clusters(H, C, R, tiles, groups, resident, stages, pieces)` (the
     card's cudaOccupancyMaxActiveClusters) run at once over ceil(batch / R)
-    clusters and a step takes bwd_wide_step_us. The plan minimises waves x
-    step time; ties go to the smaller cluster, then to fewer clusters, the
+    clusters and a step takes step_us. The plan minimises waves x step
+    time; ties go to the smaller cluster, then to fewer clusters, the
     shallower rings and the smaller item. Raises ValueError with the
     reasons when nothing fits."""
     if batch < 1:
@@ -2459,7 +2501,7 @@ def plan_bwd_wide(hsz: int, batch: int, max_clusters: WideBwdClusters,
                 for pieces in BWD_WIDE_STAGES:
                     for stages in (0, *STREAM_STAGES):
                         res = _bwd_wide_resident(hp, cluster, rows, stages,
-                                                 pieces, resident)
+                                                 pieces, resident, smem_bytes)
                         if res is None or (stages and stages >
                                            hp // 32 - res // 2):
                             continue
@@ -2470,38 +2512,48 @@ def plan_bwd_wide(hsz: int, batch: int, max_clusters: WideBwdClusters,
                             idle = True
                             continue
                         waves = -(-clusters // active)
-                        step = bwd_wide_step_us(hp, cluster, rows, tiles,
-                                                groups, res, stages, pieces)
+                        step = step_us(hp, cluster, rows, tiles, groups, res,
+                                       stages, pieces)
                         key = (waves * step, cluster, clusters, stages,
                                pieces, tiles * groups)
                         if best is None or key < best[0]:
                             best = (key, BwdWidePlan(
                                 hp, cluster, rows, tiles, groups, res,
                                 stages, pieces, clusters, active, waves,
-                                bwd_wide_smem_bytes(hp, cluster, rows, res,
-                                                    stages, pieces),
+                                smem_bytes(hp, cluster, rows, res, stages,
+                                           pieces),
                                 step))
         if idle:
             refused.append(f"C={cluster}: the card runs no such cluster")
         if not fitted:
             t, g = items[0]
             refused.append(f"C={cluster}: "
-                           f"{bwd_wide_smem_bytes(hp, cluster, 16 * t, 0, 1, 1)}"
+                           f"{smem_bytes(hp, cluster, 16 * t, 0, 1, 1)}"
                            f" B and {bwd_wide_items(hp, cluster, 16 * t, t, g)}"
                            f" items at {16 * t} rows (at most {SMEM_LIMIT} B "
                            f"and {_BWD_WIDE_MAX_ITEMS[t, g]} items)")
     if best is None:
-        raise ValueError(f"no wide plan for the LSTM backward scan at "
+        raise ValueError(f"no wide plan for the {what} backward scan at "
                          f"H={hsz}, {batch} rows: " + "; ".join(refused))
     return best[1]
 
 
-def _card_wide_bwd_clusters(index: int) -> WideBwdClusters:
-    """The card's occupancy of the wide backward
-    (`lstm_scan_bwd_wide_max_clusters` of csrc/lstm_scan_bwd_wide.cu)."""
+def plan_bwd_wide(hsz: int, batch: int, max_clusters: WideBwdClusters,
+                  resident: Optional[int] = None) -> BwdWidePlan:
+    """Kernel D's wide plan for `batch` rows of a layer of hsz units
+    (plan_bwd_wide_cluster with its layout and step model)."""
+    return plan_bwd_wide_cluster("LSTM", hsz, batch, max_clusters,
+                                 bwd_wide_smem_bytes, bwd_wide_step_us,
+                                 resident)
+
+
+def _card_wide_bwd_clusters(index: int, source: str = "lstm_scan_bwd_wide"
+                            ) -> WideBwdClusters:
+    """The card's occupancy of a wide backward
+    (`<source>_max_clusters` of csrc/<source>.cu: kernel D's by default,
+    or the GRU's, gru_scan_bwd_wide)."""
     return lambda h, c, r, tiles, groups, res, stages, pieces: _max_clusters(
-        "lstm_scan_bwd_wide", index, (tiles, groups, res, stages, pieces), h,
-        c, r)
+        source, index, (tiles, groups, res, stages, pieces), h, c, r)
 
 
 @functools.lru_cache(maxsize=None)
@@ -2521,8 +2573,10 @@ _bwd_design: List[str] = []   # set by wide_backwards(), resident_backwards()
 @contextlib.contextmanager
 def wide_backwards():
     """Within the block, kernel D (lstm_scan_bwd_tm, LSTMScan's backward)
-    takes the wide cluster at any H its planner holds: for holding it
-    against the resident cluster, which it equals bit for bit."""
+    and the GRU backward scan (ops/gru.py gru_scan_bwd_streams_tm, GRUScan's
+    backward) take their wide cluster at any H its planner holds: for
+    holding it against the resident cluster, which it equals bit for
+    bit."""
     _bwd_design.append("_wide")
     try:
         yield
@@ -2532,10 +2586,10 @@ def wide_backwards():
 
 @contextlib.contextmanager
 def resident_backwards():
-    """Within the block, kernel D's plan weighs no wide cluster (the single
-    block, the resident cluster and, above H = 512, the streamed cluster,
-    as before it): for holding the wide cluster against it and timing
-    both."""
+    """Within the block, the plans of kernel D and of the GRU backward scan
+    weigh no wide cluster (the single block, the resident cluster and,
+    above H = 512, the streamed cluster, as before it): for holding the
+    wide cluster against it and timing both."""
     _bwd_design.append("")
     try:
         yield

@@ -1,7 +1,8 @@
 """The LSTM and GRU backward scans (csrc/lstm_scan_bwd.cu `lstm_scan_bwd`,
 csrc/gru_scan_bwd.cu `gru_scan_bwd`, their streamed clusters,
 csrc/scan_bwd_stream.cu `lstm_scan_bwd_stream`, `gru_scan_bwd_stream`, and
-kernel D's wide cluster, csrc/lstm_scan_bwd_wide.cu `lstm_scan_bwd_wide`)
+kernel D's wide cluster, csrc/lstm_scan_bwd_wide.cu `lstm_scan_bwd_wide`,
+and the GRU backward's, csrc/gru_scan_bwd_wide.cu `gru_scan_bwd_wide`)
 under forced launch plans, on the card.
 
 Each backward runs as the single-block design, as a thread-block cluster
@@ -13,10 +14,12 @@ plan, one cluster alone and a full batch of them, to fit the planners' step
 models; with --stream it does so for a spread of streamed plans (cluster
 size, rows, resident slots, ring depth, whole tile or slices) and prints the
 least-squares fit of the streamed step model's parts; with --wide the same
-for a spread of kernel D's wide plans (cluster size, item, rows, both
-rings' depths, resident k-steps), then the planner's wide plan at the
-training shape beside the resident cluster in turns, with a clock64 trace
-of its steps.
+for a spread of the wide plans of kernel D and of the GRU backward
+(cluster size, item, rows, both rings' depths, resident k-steps), then the
+planner's wide plan at the training shape beside the resident cluster in
+turns, with a clock64 trace of kernel D's steps, and the GRU's dW_hh
+contraction (csrc/gru_scan_bwd.cu `gru_scan_bwd_dwhh`): plan_dwhh's plan
+against the first design's and torch.mm, and a sweep of slice counts.
 
     # identity of every plan with the single block, at small shapes
     python -m generative_audio_torch.scripts.perf_bwd_scan --check
@@ -26,10 +29,13 @@ of its steps.
     # their sweep and fit (--stream)
     python -m generative_audio_torch.scripts.perf_bwd_scan --stream-check
     python -m generative_audio_torch.scripts.perf_bwd_scan --stream
-    # kernel D's wide plans: their identity at small ragged shapes
-    # (--wide-check), then their sweep, fit and trace (--wide)
+    # the wide plans of kernel D and the GRU: their identity at small
+    # ragged shapes (--wide-check), then their sweeps, fits, kernel D's
+    # trace and the GRU's contraction (--wide); --kind lstm or gru for one
     python -m generative_audio_torch.scripts.perf_bwd_scan --wide-check
-    python -m generative_audio_torch.scripts.perf_bwd_scan --wide
+    python -m generative_audio_torch.scripts.perf_bwd_scan --wide --kind gru
+    # the GRU's dW_hh contraction alone (--wide --kind gru runs it too)
+    python -m generative_audio_torch.scripts.perf_bwd_scan --dwhh
 """
 from __future__ import annotations
 
@@ -46,7 +52,9 @@ from generative_audio_torch.utils.device import cuda_ms, resolve_device
 __all__ = ["plans", "lstm_inputs", "gru_inputs", "run", "check", "sweep",
            "stream_plan", "stream_plans", "check_stream", "fit_stream_parts",
            "sweep_stream", "wide_plan", "wide_plans", "check_wide",
-           "fit_wide_parts", "wide_trace", "sweep_wide", "main"]
+           "fit_wide_parts", "wide_trace", "sweep_wide", "sweep_gru_wide",
+           "dwhh_inputs", "device_us", "dwhh_rounds", "dwhh_times",
+           "main"]
 
 # the sub-band and full-band training shapes
 T, ROWS, H, FB_ROWS, FB_H = 195, 2304, 384, 18, 512
@@ -341,47 +349,56 @@ def sweep_stream(device, card: str) -> None:
               f"{card}", flush=True)
 
 
-# ---- kernel D's wide cluster -------------------------------------------------
+# ---- the wide clusters: kernel D's and the GRU backward's ------------------
 
 # (T, rows, H) of the identity: ragged row counts, T = 1, and H = 128 and
 # 512, where only 1 x 2 items fit
 WIDE_CHECK = ((7, 40, 384), (6, 17, 384), (1, 17, 384), (5, 33, 512),
               (6, 100, 128))
+# (H, rows) of the GRU's one-cluster sweep
+GRU_SWEEP = ((384, 16), (384, 48), (384, 80), (384, 96), (512, 16),
+             (512, 48))
 
 
 def wide_plan(hsz: int, batch: int, cluster: int, rows: int, tiles: int,
-              groups: int, resident, stages: int, pieces: int, device):
+              groups: int, resident, stages: int, pieces: int, device,
+              kind: str = "lstm"):
     """The BwdWidePlan of (cluster, rows, item, resident k-steps, stages,
     pieces) for `batch` rows of a layer of hsz units with the card's
-    occupancy, resident None for the most that fit; None where it does not
-    fit."""
+    occupancy of `kind`'s wide backward (kernel D's, or the GRU's),
+    resident None for the most that fit; None where it does not fit."""
+    M = _MODULES[kind]
     hp = L.stream_hidden(hsz, cluster)
     units = hp // cluster
     if (units // 8 % groups or units > L._BWD_WIDE_BOX or rows % (16 * tiles)
             or L.bwd_wide_items(hp, cluster, rows, tiles, groups)
             > L._BWD_WIDE_MAX_ITEMS[tiles, groups]):
         return None
-    res = L._bwd_wide_resident(hp, cluster, rows, stages, pieces, resident)
+    res = L._bwd_wide_resident(hp, cluster, rows, stages, pieces, resident,
+                               M.bwd_wide_smem_bytes)
     if res is None or (stages and stages > hp // 32 - res // 2):
         return None
-    active = L._card_wide_bwd_clusters(torch.device(device).index)(
+    active = L._card_wide_bwd_clusters(torch.device(device).index,
+                                       f"{kind}_scan_bwd_wide")(
         hp, cluster, rows, tiles, groups, res, stages, pieces)
     if active < 1:
         return None
     clusters = -(-batch // rows)
     return L.BwdWidePlan(hp, cluster, rows, tiles, groups, res, stages, pieces,
                          clusters, active, -(-clusters // active),
-                         L.bwd_wide_smem_bytes(hp, cluster, rows, res, stages,
+                         M.bwd_wide_smem_bytes(hp, cluster, rows, res, stages,
                                                pieces),
-                         L.bwd_wide_step_us(hp, cluster, rows, tiles, groups,
+                         M.bwd_wide_step_us(hp, cluster, rows, tiles, groups,
                                             res, stages, pieces))
 
 
-def wide_plans(hsz: int, batch: int, device, rows_list=None) -> list:
-    """A spread of wide plans at (H, batch): both cluster sizes, every item,
-    rows from one item's tile up to the item's limit (or `rows_list`),
-    rings of 1-4 pieces and recompute rings of none (all resident), 1 and 3
-    stages with no and the most resident k-steps, each that fits."""
+def wide_plans(hsz: int, batch: int, device, rows_list=None,
+               kind: str = "lstm") -> list:
+    """A spread of `kind`'s wide plans at (H, batch): both cluster sizes,
+    every item, rows from one item's tile up to the item's limit (or
+    `rows_list`), rings of 1-4 pieces and recompute rings of none (all
+    resident), 1 and 3 stages with no and the most resident k-steps, each
+    that fits."""
     out = []
     for cluster in L.CLUSTER_SIZES:
         for tiles, groups in L.BWD_WIDE_ITEMS:
@@ -392,56 +409,62 @@ def wide_plans(hsz: int, batch: int, device, rows_list=None) -> list:
                                              (3, None)):
                         plan = wide_plan(hsz, batch, cluster, rows, tiles,
                                          groups, resident, stages, pieces,
-                                         device)
+                                         device, kind)
                         if plan is not None and plan not in out:
                             out.append(plan)
     return out
 
 
-def check_wide(device, card: str = "") -> int:
+def check_wide(device, card: str = "", kinds=("lstm", "gru")) -> int:
     """Every wide plan of the spread == the single block and the resident
-    clusters bit for bit, forward and reverse, at each shape of
-    WIDE_CHECK. Returns the number of failures."""
+    clusters bit for bit (LSTM dgates; GRU dgx, dhn and every db_hh
+    partial), forward and reverse, at each shape of WIDE_CHECK, for each
+    kind. Returns the number of failures."""
     failures = 0
-    for i, (t_len, b, hsz) in enumerate(WIDE_CHECK):
-        inputs = lstm_inputs(t_len, b, hsz, device, seed=300 + i)
-        refs = plans("lstm", hsz, b, device)
-        tried = 0
-        for reverse in (False, True):
-            wants = [run("lstm", inputs, p, reverse) for p in refs]
-            for w in wants[1:]:
-                if not torch.equal(w[0], wants[0][0]):
-                    failures += 1
-                    print("MISMATCH lstm references", flush=True)
-            for plan in wide_plans(hsz, b, device):
-                got = run("lstm", inputs, plan, reverse)
-                torch.cuda.synchronize()
-                tried += 1
-                if not torch.equal(got[0], wants[0][0]):
-                    failures += 1
-                    print(f"MISMATCH T={t_len} rows={b} H={hsz} reverse="
-                          f"{reverse} {plan}", flush=True)
-        print(f"wide check T={t_len} rows={b} H={hsz}: {tried} wide runs "
-              f"against {len(refs)} reference plan(s) {card}", flush=True)
+    for kind in kinds:
+        for i, (t_len, b, hsz) in enumerate(WIDE_CHECK):
+            inputs = _INPUTS[kind](t_len, b, hsz, device, seed=300 + i)
+            refs = plans(kind, hsz, b, device)
+            tried = 0
+            for reverse in (False, True):
+                wants = [run(kind, inputs, p, reverse) for p in refs]
+                for w in wants[1:]:
+                    if not all(torch.equal(x, y) for x, y in zip(w, wants[0])):
+                        failures += 1
+                        print(f"MISMATCH {kind} references", flush=True)
+                for plan in wide_plans(hsz, b, device, kind=kind):
+                    got = run(kind, inputs, plan, reverse)
+                    torch.cuda.synchronize()
+                    tried += 1
+                    if not all(torch.equal(x, y)
+                               for x, y in zip(got, wants[0])):
+                        failures += 1
+                        print(f"MISMATCH {kind} T={t_len} rows={b} H={hsz} "
+                              f"reverse={reverse} {plan}", flush=True)
+            print(f"wide check {kind} T={t_len} rows={b} H={hsz}: {tried} "
+                  f"wide runs against {len(refs)} reference plan(s) {card}",
+                  flush=True)
     print(f"wide check: {failures} mismatches", flush=True)
     return failures
 
 
-def _wide_features(plan):
-    """The terms of bwd_wide_step_us: (1, CTA products, warp products,
-    streamed slots over their rings' depths)."""
+def _wide_features(plan, kind: str = "lstm"):
+    """The terms of bwd_wide_cluster_step_us: (1, CTA products, warp
+    products, streamed slots over their rings' depths)."""
+    n = 4 if kind == "lstm" else 3
     hp, c, r = plan.hidden, plan.cluster, plan.rows
     units, ksteps = hp // c, hp // 16
     streamed = hp // 32 - plan.resident // 2
-    return (1.0, r // 16 * (units // 8) * 8 * ksteps / 1000,
-            plan.tiles * plan.groups * 8 * ksteps / 1000,
+    return (1.0, r // 16 * (units // 8) * 2 * n * ksteps / 1000,
+            plan.tiles * plan.groups * 2 * n * ksteps / 1000,
             (streamed / plan.stages if streamed else 0.0)
-            + hp // 16 / plan.pieces)
+            + n * hp // 64 / plan.pieces)
 
 
 def fit_wide_parts(features, steps):
-    """_BWD_WIDE_PARTS for the measured steps by least squares (the model
-    is linear in its parts). Returns (parts, max |error|, mean |error|)."""
+    """A wide backward's step parts for the measured steps by least squares
+    (the model is linear in its parts). Returns (parts, max |error|, mean
+    |error|)."""
     x, y = np.array(features, dtype=float), np.array(steps, dtype=float)
     coef, *_ = np.linalg.lstsq(x, y, rcond=None)
     err = x @ coef - y
@@ -496,12 +519,12 @@ def _print_trace(trace, us_per_step: float, t_len: int, card: str) -> None:
 
 
 def sweep_wide(device, card: str) -> None:
-    """One-cluster wide plans timed at T steps (their microseconds a step
-    beside the model, and the least-squares fit of _BWD_WIDE_PARTS); then
-    the planner's wide plan (the card's occupancy) at the training shape
-    and at 2295 and 1024 rows, each in turns against the resident cluster
-    (wide, resident, resident, wide), and the trace of the training
-    shape's plan."""
+    """Kernel D's one-cluster wide plans timed at T steps (their
+    microseconds a step beside the model, and the least-squares fit of
+    _BWD_WIDE_PARTS); then the planner's wide plan (the card's occupancy)
+    at the training shape and at 2295 and 1024 rows, each in turns against
+    the resident cluster (wide, resident, resident, wide), and the trace of
+    the training shape's plan."""
     feats, steps = [], []
     for hsz in (H, FB_H):
         for rows in (16, 32, 48, 64, 80, 96):
@@ -556,6 +579,165 @@ def sweep_wide(device, card: str) -> None:
         del inputs
 
 
+def sweep_gru_wide(device, card: str) -> None:
+    """The GRU backward's wide cluster: one-cluster plans of GRU_SWEEP timed
+    at T steps beside the model, the least-squares fit of its parts
+    (ops/gru.py _BWD_WIDE_PARTS), then the planner's plan at the training
+    shape, 2295 and 1024 rows in turns against the resident cluster (wide,
+    resident, resident, wide)."""
+    feats, steps = [], []
+    for hsz, rows in GRU_SWEEP:
+        inputs = gru_inputs(T, rows, hsz, device, seed=hsz + rows)
+        for plan in wide_plans(hsz, rows, device, (rows,), "gru"):
+            if plan.pieces == 1 and plan.stages == 1:
+                continue
+            us = cuda_ms(lambda: run("gru", inputs, plan), iters=3) * 1e3 / T
+            feats.append(_wide_features(plan, "gru"))
+            steps.append(us)
+            print(f"gru wide H={hsz} C={plan.cluster} R={rows} item "
+                  f"{plan.tiles}x{plan.groups} resident={plan.resident} "
+                  f"stages={plan.stages} pieces={plan.pieces} "
+                  f"smem={plan.smem_bytes}: {us:.3f} us a step (model "
+                  f"{plan.step_us:.3f})", flush=True)
+        del inputs
+    parts, worst, mean = fit_wide_parts(feats, steps)
+    print(f"gru wide backward step fit (step, CTA, warp, latency): "
+          f"{tuple(round(p, 5) for p in parts)}, off by at most {worst:.3f} "
+          f"us over {len(steps)} plans, mean {mean:.3f}; on {card}",
+          flush=True)
+    for b in (ROWS, ROWS - 9, 1024):
+        inputs = gru_inputs(T, b, H, device, seed=b)
+        plan = G.card_bwd_wide_plan(device, H, b)
+        with L.resident_backwards():
+            res = G.card_bwd_scan_plan(device, H, b)
+        rounds = [cuda_ms(lambda: run("gru", inputs, p), iters=3)
+                  for p in (plan, res, res, plan)]
+        ms, ms_res = min(rounds[0], rounds[3]), min(rounds[1:3])
+        print(f"gru wide plan at T={T} rows={b} H={H}: {plan}; {ms:.3f} ms, "
+              f"{1e3 * ms / T / plan.waves:.2f} us a step a wave (model "
+              f"{plan.step_us:.2f}); resident {res.cluster} x {res.rows}, "
+              f"{res.waves} waves: {ms_res:.3f} ms; rounds "
+              f"{' '.join(f'{r:.3f}' for r in rounds)}; route "
+              f"{G.card_bwd_scan_plan(device, H, b).design}; on {card}",
+              flush=True)
+        del inputs
+
+
+# (H, N) of the contraction: the sub-band training layer's shifted rows
+# (194 x 2304) and the full band's (194 x 18)
+DWHH_SHAPES = ((H, (T - 1) * ROWS), (FB_H, (T - 1) * FB_ROWS))
+
+
+def dwhh_inputs(n: int, hsz: int, device, seed: int):
+    """bf16 h_prev [n, H], dgx [n, 3H], dhn [n, H] (unit normal)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(n, k * hsz, generator=gen, device=device).to(
+        torch.bfloat16) for k in (1, 3, 1))
+
+
+def device_us(fn, n: int = 20) -> float:
+    """Microseconds of device time a call of fn (every kernel it launches,
+    by torch.profiler), over n calls after one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / n
+
+
+def dwhh_rounds(device, hsz: int, n: int, seed: int) -> dict:
+    """The contraction over n rows at H = hsz (dwhh_inputs of `seed`):
+    plan_dwhh's plan for the card's SMs (`new`), the first design's
+    (`first`, plan_dwhh_first) and one fp32-output torch.mm of the same
+    product (`mm`) in turns (new, first, mm, mm, first, new) by CUDA events
+    (`times` in `order`, `best` of each), and by the profiler's device
+    time (`device_us`); the new plan twice (`repeats`: bit for bit);
+    |new - x| / |x| for x the first design's, torch.mm's and the plain
+    version's results (`rel`), and the plain version's time
+    (`plain_ms`)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    h_prev, dgx, dhn = dwhh_inputs(n, hsz, device, seed)
+    dg = torch.cat([dgx[:, :2 * hsz], dhn], dim=-1)
+    new, first = G.plan_dwhh(n, hsz, sms), G.plan_dwhh_first(n, hsz)
+    calls = {"new": lambda: G.gru_dwhh(h_prev, dgx, dhn, new),
+             "first": lambda: G.gru_dwhh(h_prev, dgx, dhn, first),
+             "mm": lambda: torch.mm(h_prev.t(), dg, out_dtype=torch.float32)}
+    order = ("new", "first", "mm", "mm", "first", "new")
+    times = [cuda_ms(calls[k], iters=10) for k in order]
+    best = {k: min(t for o, t in zip(order, times) if o == k) for k in calls}
+    a, b = calls["new"](), calls["new"]()
+    others = {"first": calls["first"](), "mm": calls["mm"](),
+              "plain": G.gru_dwhh_reference(h_prev, dgx, dhn)}
+    plain_ms = cuda_ms(lambda: G.gru_dwhh_reference(h_prev, dgx, dhn),
+                       iters=2)
+    torch.cuda.synchronize()
+    rel = {k: ((a - x).norm() / x.norm()).item() for k, x in others.items()}
+    return dict(new=new, first=first, order=order, times=times, best=best,
+                device_us={k: device_us(f) for k, f in calls.items()},
+                repeats=torch.equal(a, b), rel=rel, plain_ms=plain_ms)
+
+
+def dwhh_times(device, card: str) -> None:
+    """The dW_hh contraction at DWHH_SHAPES: dwhh_rounds (the two designs
+    and torch.mm in turns, events and device time, two runs bit for bit,
+    the differences), then every slice count up to two waves (the narrow
+    tiles one slice fewer) timed beside dwhh_us, and the fit of its
+    stage's parts (ops/gru.py _DW_STAGE_US from the run of fewest CTAs,
+    _DW_SHARED_US and _DW_FREE_CTAS a line through the excess of a stage
+    over the runs of one wave at H = 384 and at least a third of the
+    SMs)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    runs = []             # (N, working CTAs, microseconds a stage)
+    for hsz, n in DWHH_SHAPES:
+        r = dwhh_rounds(device, hsz, n, seed=n)
+        rounds = " ".join(f"{o} {t:.4f}" for o, t in zip(r["order"],
+                                                         r["times"]))
+        print(f"dW_hh H={hsz} N={n}: new {r['new']} {r['best']['new']:.4f} "
+              f"ms; first design {r['first']} {r['best']['first']:.4f} ms; "
+              f"torch.mm fp32 out {r['best']['mm']:.4f} ms; device time "
+              f"(profiler) new {r['device_us']['new']:.2f} us, first "
+              f"{r['device_us']['first']:.2f}, torch.mm "
+              f"{r['device_us']['mm']:.2f}; rounds {rounds}; two runs bit "
+              f"for bit: {r['repeats']}; |new - x| / |x|: "
+              f"first {r['rel']['first']:.3e}, torch.mm {r['rel']['mm']:.3e}"
+              f", plain {r['rel']['plain']:.3e}; on {card}", flush=True)
+        h_prev, dgx, dhn = dwhh_inputs(n, hsz, device, seed=n)
+        full, narrow, share = G._dwhh_tiles(hsz)
+        for slices in range(1, 2 * sms // (full + narrow) + 1):
+            plan = G.DwhhPlan(full + narrow, slices, G._dwhh_rows(n, slices),
+                              narrow, max(1, slices - 1) if narrow else 0,
+                              G._dwhh_rows(n, max(1, slices - 1)), 1)
+            if plan.rows_per_slice * (slices - 1) >= n:
+                continue
+            ms = cuda_ms(lambda: G.gru_dwhh(h_prev, dgx, dhn, plan), iters=5)
+            us = G.dwhh_us(n, hsz, slices, plan.narrow_slices, sms)
+            working = full * slices + narrow * plan.narrow_slices
+            run = max(plan.rows_per_slice // 64 if full else 0,
+                      plan.narrow_rows // 64 * share if narrow else 0)
+            if working <= sms:
+                runs.append((n, working, 1e3 * ms / run))
+            print(f"dW_hh H={hsz} N={n} slices {slices} (narrow "
+                  f"{plan.narrow_slices}), {working} CTAs on {sms} SMs: "
+                  f"{ms:.4f} ms (model {us / 1e3:.4f}); on {card}",
+                  flush=True)
+        del h_prev, dgx, dhn
+    sub = DWHH_SHAPES[0][1]
+    fewest = min(w for n, w, _ in runs if n == sub)
+    base = next(st for n, w, st in runs if n == sub and w == fewest)
+    pts = [(w, st - base) for n, w, st in runs if n == sub and w >= sms / 3]
+    x = np.array([(w, 1.0) for w, _ in pts], dtype=float)
+    y = np.array([e for _, e in pts], dtype=float)
+    (slope, icept), *_ = np.linalg.lstsq(x, y, rcond=None)
+    err = x @ np.array([slope, icept]) - y
+    print(f"dW_hh stage fit (stage us, us a CTA above the knee, knee): "
+          f"({base:.4f}, {float(slope):.6f}, {float(-icept / slope):.1f}), "
+          f"off by at most {float(np.abs(err).max()):.4f} us a stage over "
+          f"{len(y)} runs; on {card}", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--check", action="store_true",
@@ -565,23 +747,40 @@ def main(argv=None) -> int:
     parser.add_argument("--stream", action="store_true",
                         help="the streamed plans' identity, sweep and fit")
     parser.add_argument("--wide-check", action="store_true",
-                        help="kernel D's wide plans' identity only")
+                        help="the wide plans' identity only")
     parser.add_argument("--wide", action="store_true",
-                        help="the wide plans' identity, sweep, fit and trace")
+                        help="the wide plans' identity, sweep and fit (and "
+                             "kernel D's trace, the GRU's contraction)")
+    parser.add_argument("--dwhh", action="store_true",
+                        help="the GRU's dW_hh contraction alone: its designs "
+                             "against torch.mm and every slice count")
+    parser.add_argument("--kind", choices=("lstm", "gru", "both"),
+                        default="both",
+                        help="the wide backward(s) --wide and --wide-check "
+                             "take: kernel D's, the GRU's or both")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     import subprocess
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
+    if args.dwhh:
+        dwhh_times(device, card.splitlines()[device.index or 0])
+        return 0
     if args.wide_check or args.wide:
-        failures = check_wide(device, card)
+        kinds = ("lstm", "gru") if args.kind == "both" else (args.kind,)
+        failures = check_wide(device, card, kinds)
         if failures:
             print(f"perf_bwd_scan: {failures} wide plan(s) differ",
                   file=sys.stderr)
             return 1
         if args.wide:
-            sweep_wide(device, card.splitlines()[device.index or 0])
+            card = card.splitlines()[device.index or 0]
+            if "lstm" in kinds:
+                sweep_wide(device, card)
+            if "gru" in kinds:
+                sweep_gru_wide(device, card)
+                dwhh_times(device, card)
         return 0
     if args.stream_check or args.stream:
         failures = check_stream(device, card)

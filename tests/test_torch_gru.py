@@ -251,12 +251,15 @@ def fake_launch(fn_name, *args, plan=None):
     padded rows and columns come out zero, computes on what it is given. The
     single-block forwards ("_block") take the cluster entries' arguments at
     H padded to whole k-steps, the streamed ones ("_stream", forwards and
-    the backward scan) with W_hh packed for their plan."""
+    the backward scan) and the wide backward scan ("_wide") with W_hh
+    packed for their plan. The contraction cuts the rows as its plan says:
+    slices of the full tiles, narrow tiles' own count, the partials beyond
+    it zero in the narrow tiles' columns."""
     tl.launch_counts[fn_name] += 1
     units, bwd_units = FORWARD_UNITS, BACKWARD_UNITS
     if fn_name.endswith("_block"):
         fn_name, units = fn_name[:-len("_block")], BACKWARD_UNITS
-    elif fn_name.endswith("_stream"):
+    elif fn_name.endswith(("_stream", "_wide")):
         fn_name, args, units = unstream(fn_name, args, plan, 3)
         bwd_units = units
     if fn_name == "gru_scan_fwd":
@@ -289,13 +292,22 @@ def fake_launch(fn_name, *args, plan=None):
             fill(dgx[:, rows], dg, 3), fill(dhn[:, rows], dn)
             fill(db_blocks[i], db, 3)
     elif fn_name == "gru_scan_bwd_dwhh":
-        h_prev, dgx, dhn, part, n, hsz, n_slices = args
+        h_prev, dgx, dhn, part, n, hsz = args
         assert h_prev.shape[0] == dgx.shape[0] == dhn.shape[0] == n
         assert h_prev.shape[1] == hsz and hsz % BACKWARD_UNITS == 0
-        per = -(-n // n_slices)
-        for i in range(n_slices):
-            rows = slice(per * i, per * (i + 1))
-            part[i] = tg.gru_dwhh_reference(h_prev[rows], dgx[rows], dhn[rows])
+        assert part.shape[0] == plan.slices
+        full = tg.gru_dwhh_reference(h_prev, dgx, dhn)
+        narrow = torch.zeros_like(full, dtype=torch.bool)
+        for c0, c1 in ((0, 2 * hsz), (2 * hsz, 3 * hsz)):   # ragged columns
+            for c in range(c0, c1, 256):
+                narrow[:, c:min(c + 256, c1)] = c1 - c < 256
+        for i in range(plan.slices):
+            rows = slice(plan.rows_per_slice * i, plan.rows_per_slice * (i + 1))
+            got = tg.gru_dwhh_reference(h_prev[rows], dgx[rows], dhn[rows])
+            rows = slice(plan.narrow_rows * i, plan.narrow_rows * (i + 1))
+            got_n = (tg.gru_dwhh_reference(h_prev[rows], dgx[rows], dhn[rows])
+                     if i < plan.narrow_slices else torch.zeros_like(full))
+            part[i] = torch.where(narrow, got_n, got)
     else:
         raise KeyError(fn_name)
 

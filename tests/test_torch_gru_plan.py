@@ -114,27 +114,59 @@ def test_scan_plan_weighs_occupancy():
 
 @pytest.mark.parametrize("hsz,n", DWHH_SHAPES)
 def test_dwhh_slices_cover_the_rows(hsz, n):
+    """The slices of the full tiles and of the narrow ones each cover the N
+    rows in whole 64-row stages, none empty, as the kernel cuts them; the
+    working CTAs fill at most one wave of the card's SMs; the partials are
+    `slices`, summed in a fixed order (slice 0 first) by the wrapper."""
     plan = tg.plan_dwhh(n, hsz)
-    per = plan.rows_per_slice                 # as the kernel cuts the rows
-    bounds = [(z * per, min(n, (z + 1) * per)) for z in range(plan.slices)]
-    assert len(bounds) == plan.slices >= 1
-    assert bounds[0][0] == 0 and bounds[-1][1] == n
-    for (_, end), (begin, _) in zip(bounds, bounds[1:]):
-        assert end == begin and begin % 64 == 0   # whole 64-row stages
-    assert all(end > begin for begin, end in bounds)   # none empty
-    assert plan.rows_per_slice % 64 == 0
-    # the kernel's own rows per slice for this count
-    assert plan.rows_per_slice == -(-(-(-n // plan.slices)) // 64) * 64
-    assert plan.tiles * plan.slices <= tg.H100_SMS or plan.slices == 1
+    full, narrow, _ = tg._dwhh_tiles(hsz)
+    assert plan.tiles == full + narrow and plan.narrow_tiles == narrow
+    assert 1 <= plan.narrow_slices <= plan.slices
+    for per, count in ((plan.rows_per_slice, plan.slices),
+                       (plan.narrow_rows, plan.narrow_slices)):
+        bounds = [(z * per, min(n, (z + 1) * per)) for z in range(count)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == n
+        for (_, end), (begin, _) in zip(bounds, bounds[1:]):
+            assert end == begin and begin % 64 == 0   # whole 64-row stages
+        assert all(end > begin for begin, end in bounds)   # none empty
+        assert per % 64 == 0
+        # the kernel's own rows per slice for this count
+        assert per == -(-(-(-n // count)) // 64) * 64
+    assert (full * plan.slices + narrow * plan.narrow_slices <= tg.H100_SMS
+            or plan.slices == 1)
+    assert plan.in_flight == 1 and plan.launch_args == (
+        plan.slices, plan.narrow_slices, 1)
+    assert plan.us == tg.dwhh_us(n, hsz, plan.slices, plan.narrow_slices)
 
 
 def test_dwhh_plan_at_the_model_shapes():
-    """15 tiles of 128 x 256 and 8 slices (120 CTAs) at the sub-band
-    training shape; 24 tiles and no split at the full band."""
+    """At the sub-band training shape the 12 full tiles take 9 slices and
+    dhn's 3 ragged ones (128 columns) 8, 132 CTAs, where the first design's
+    plan (plan_dwhh_first) ran 15 x 8 = 120; at the full band 24 tiles take
+    4 slices where the first design took one. The narrow tiles fill what
+    the full tiles leave of the card, and no other slice count of the full
+    tiles models faster within one wave."""
     sub = tg.plan_dwhh(194 * 2304, 384)
-    assert (sub.tiles, sub.slices) == (15, 8)
+    assert (sub.tiles, sub.slices, sub.narrow_tiles, sub.narrow_slices) == (
+        15, 9, 3, 8)
     full = tg.plan_dwhh(194 * 18, 512)
-    assert (full.tiles, full.slices) == (24, 1)
+    assert (full.tiles, full.slices, full.narrow_tiles) == (24, 4, 0)
+    for n, hsz, plan in ((194 * 2304, 384, sub), (194 * 18, 512, full)):
+        f, w, _ = tg._dwhh_tiles(hsz)
+        assert f * plan.slices + w * plan.narrow_slices <= tg.H100_SMS
+        if w:
+            assert (plan.narrow_slices == plan.slices or f * plan.slices
+                    + w * (plan.narrow_slices + 1) > tg.H100_SMS)
+        for slices in range(1, (tg.H100_SMS - w) // f + 1):
+            narrow = (max(1, min(slices, (tg.H100_SMS - f * slices) // w))
+                      if w else slices)
+            assert plan.us <= tg.dwhh_us(n, hsz, slices, narrow) + 1e-9
+    first = tg.plan_dwhh_first(194 * 2304, 384)
+    assert (first.tiles, first.slices, first.narrow_slices,
+            first.in_flight) == (15, 8, 8, 0)
+    first = tg.plan_dwhh_first(194 * 18, 512)
+    assert (first.tiles, first.slices, first.in_flight) == (24, 1, 0)
+    assert first.launch_args == (1, 1, 0)
 
 
 def test_forward_launches_carry_the_plan(monkeypatch):
@@ -150,23 +182,24 @@ def test_forward_launches_carry_the_plan(monkeypatch):
     x = torch.zeros(2, 16)
     tg._launch("gru_scan_fwd", x, x, x, x, 0, 628, 2056, 384, 1)
     tg._launch("gru_scan_fwd_carry", x, x, x, x, x, x, 1, 64, 18, 512, 0)
-    tg._launch("gru_scan_bwd_dwhh", x, x, x, x, 5, 16, 1)
+    tg._launch("gru_scan_bwd_dwhh", x, x, x, x, 5, 16)
     sub, full = tg.plan_scan(384, 2056, h100_clusters), \
         tg.plan_scan(512, 18, h100_clusters)
     assert calls[0] == ("gru_scan_fwd",
                         (x, x, x, x, 0, 628, 2056, 384, 1, *sub.launch_args))
     assert calls[1] == ("gru_scan_fwd_carry", (x, x, x, x, x, x, 1, 64, 18,
                                                512, 0, *full.launch_args))
-    assert calls[2] == ("gru_scan_bwd_dwhh", (x, x, x, x, 5, 16, 1))
+    assert calls[2] == ("gru_scan_bwd_dwhh",
+                        (x, x, x, x, 5, 16, *tg.plan_dwhh(5, 16).launch_args))
 
 
 def test_contraction_launch_uses_the_plan(monkeypatch):
-    """gru_dwhh on the kernel's branch hands the kernel plan_dwhh's slice
-    count and sums that many partials."""
+    """gru_dwhh on the kernel's branch hands the kernel plan_dwhh's plan
+    (or the one it is given) and sums that many partials."""
     seen = {}
 
-    def fake_launch(name, h_prev, dgx, dhn, part, n, hsz, n_slices):
-        seen.update(name=name, n=n, slices=n_slices, parts=part.shape[0])
+    def fake_launch(name, h_prev, dgx, dhn, part, n, hsz, plan):
+        seen.update(name=name, n=n, slices=plan.slices, parts=part.shape[0])
         part.zero_()
         tl.launch_counts[name] += 1
 
@@ -183,6 +216,10 @@ def test_contraction_launch_uses_the_plan(monkeypatch):
     assert seen == dict(name="gru_scan_bwd_dwhh", n=n, slices=want, parts=want)
     assert out.shape == (hsz, 3 * hsz)
     assert tl.launch_counts["gru_scan_bwd_dwhh"] == 1
+    first = tg.plan_dwhh_first(n, hsz)
+    tg.gru_dwhh(h_prev, dgx, dhn, plan=first)
+    assert seen["slices"] == seen["parts"] == first.slices
+    assert tl.launch_counts["gru_scan_bwd_dwhh"] == 2
 
 
 def test_queries_match_their_declared_signatures():

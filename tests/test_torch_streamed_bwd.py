@@ -168,8 +168,9 @@ def test_a_plan_for_every_hidden_up_to_2304(kind):
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_route_weighs_the_three_designs(kind, monkeypatch):
     """The least waves x modelled step: the resident cluster at the
-    sub-band shape (no streamed plan weighed up to H=512; for kernel D
-    within resident_backwards(), outside it its wide cluster); the streamed
+    sub-band shape (no streamed plan weighed up to H=512; within
+    resident_backwards(), outside it the wide cluster of both kernels); the
+    streamed
     cluster at H=768 and 18 rows, whose model beats the single block's;
     the single block where no streamed cluster runs on the card or its
     model wins (a stand-in step); above the single block's H only the
@@ -178,8 +179,8 @@ def test_route_weighs_the_three_designs(kind, monkeypatch):
     with tl.resident_backwards():
         assert module.plan_bwd_scan(384, 2304, resident_clusters).design == \
             "cluster"
-    assert module.plan_bwd_scan(384, 2304, resident_clusters).design == (
-        "wide" if kind == "lstm" else "cluster")
+    assert module.plan_bwd_scan(384, 2304, resident_clusters).design == \
+        "wide"
     stream = module.plan_bwd_scan(768, 18, resident_clusters)
     block = module.plan_bwd_scan(768, 18, resident_clusters,
                                  stream_clusters=lambda *a: 0)

@@ -305,8 +305,8 @@ def _modelled_resident(hsz, rows):
 def test_route_weighs_wide_against_resident(hsz):
     """plan_bwd_scan takes the wide cluster where its modelled waves x step
     beat the resident cluster's (and the single block's), at every row
-    count, and else keeps the resident plan; the GRU's plan never weighs
-    it."""
+    count, and else keeps the resident plan; the GRU's plan weighs its own
+    wide cluster the same way (tests/test_torch_gru_wide_bwd.py)."""
     for rows in TRAIN_ROWS + (1, 18, 257, 2056):
         wide = tl.plan_bwd_wide(hsz, rows, stub_wide_bwd_occupancy)
         with tl.resident_backwards():
@@ -316,22 +316,27 @@ def test_route_weighs_wide_against_resident(hsz):
             assert got == wide, rows
         else:
             assert got == resident, rows
-        assert tg.plan_bwd_scan(hsz, rows, _h100).design in ("cluster",
-                                                            "block")
+        gru_wide = tg.plan_bwd_wide_scan(hsz, rows, stub_wide_bwd_occupancy)
+        assert tg.plan_bwd_scan(hsz, rows, _h100) != wide
+        assert tg.plan_bwd_scan(hsz, rows, _h100).design in (
+            "cluster", "block", "wide")
+        if tg.plan_bwd_scan(hsz, rows, _h100).design == "wide":
+            assert tg.plan_bwd_scan(hsz, rows, _h100) == gru_wide
     assert tl.plan_bwd_scan(384, 2304, _h100).design == "wide"
 
 
 def test_context_managers_force_their_design():
     """wide_backwards() forces the wide plan at any row count (18 rows
     too), resident_backwards() the plan without it; the innermost wins, the
-    GRU's plan and kernel G's are untouched, and the forwards' context
-    managers move no backward."""
+    GRU's plan is forced alike (its own wide plan), kernel G's is
+    untouched, and the forwards' context managers move no backward."""
     assert tl.plan_bwd_scan(384, 18, _h100).design == "cluster"
     with tl.wide_backwards():
         for rows in (1, 18, 2304):
             assert tl.plan_bwd_scan(384, rows, _h100) == tl.plan_bwd_wide(
                 384, rows, stub_wide_bwd_occupancy)
-        assert tg.plan_bwd_scan(384, 18, _h100).design == "cluster"
+        assert tg.plan_bwd_scan(384, 18, _h100) == tg.plan_bwd_wide_scan(
+            384, 18, stub_wide_bwd_occupancy)
         with tl.resident_backwards():
             assert tl.plan_bwd_scan(384, 2304, _h100).design == "cluster"
         assert tl.plan_bwd_scan(384, 2304, _h100).design == "wide"

@@ -104,7 +104,7 @@ def stream_dh_weight_rows(wdh, plan, n_gates):
 
 
 BWD_STREAM_ENTRIES = ("lstm_scan_bwd_stream", "gru_scan_bwd_stream",
-                      "lstm_scan_bwd_wide")
+                      "lstm_scan_bwd_wide", "gru_scan_bwd_wide")
 
 
 def unstream(fn_name, args, plan, n_gates):
