@@ -359,14 +359,18 @@ of which fails the run (non-zero exit, no result line):
      are the two entries' in the kernels line.
  26. (run after phase 25) kernels A and B as wide clusters
      (csrc/lstm_scan_wide.cu, lstm_scan_fwd_wide and
-     lstm_scan_fwd_carry_wide: one slice-major h buffer a CTA sent by bulk
-     copies, the gates by TMA, items of up to 3 x 3 m16 tiles x 8-unit
-     groups a warp), the route of both where a resident cluster holds H
-     and the wide cluster's modelled waves x step are the less (the 8 x 10
-     s batch): both bit for bit against the resident cluster at 2056,
-     2047 and 257 rows x T=628 and H=512 x 18 x 195, forward and reverse,
-     bf16 and fp32 out, B from a state and in chunks of T_CHUNK against
-     unchunked, at fp32 out against their plain versions; timed at 2056 and
+     lstm_scan_fwd_carry_wide: each step's product on warpgroup MMA
+     (wgmma), one h buffer a CTA sent by bulk copies, the gates by
+     TMA), the route of both where a resident cluster holds H and the wide
+     cluster's modelled waves x step are the less (the 8 x 10 s batch):
+     whether wgmma's fp32 sums equal mma.sync's bit for bit (the answer
+     and the worst difference against the resident cluster, which must be
+     WGMMA_EQUALS_MMA_SYNC), every instance's registers without a spill,
+     both bit for bit against the resident cluster at 2056, 2047 and 257
+     rows x T=628 and H=512 x 18 x 195, forward and reverse, bf16 and fp32
+     out, B from a state and in chunks of T_CHUNK against unchunked, two
+     runs of one plan against each other, at fp32 out against their plain
+     versions; timed at 2056 and
      257 rows beside the resident cluster (in turns), the plain version,
      cuDNN and the bound, with the plan and the route's pick; then the
      path, FullSubNet+ on the route with the counts set to 0 around each
@@ -2612,12 +2616,16 @@ def phase_streamed_staged(dev, registers):
 
 
 # Phase 26: kernels A and B as wide clusters (csrc/lstm_scan_wide.cu,
-# lstm_scan_fwd_wide and lstm_scan_fwd_carry_wide), the route of both
-# wherever a resident cluster holds H and the wide cluster's modelled waves
-# x step beat the resident cluster's (ops.lstm.plan_forward): at the
-# sub-band batch (8 x 10 s, 2056 rows) one wave of up to 144 rows a
-# cluster where the resident cluster needs five of 32.
+# lstm_scan_fwd_wide and lstm_scan_fwd_carry_wide, the products on wgmma),
+# the route of both wherever a resident cluster holds H and the wide
+# cluster's modelled waves x step beat the resident cluster's
+# (ops.lstm.plan_forward): at the sub-band batch (8 x 10 s, 2056 rows) one
+# wave of 144 rows a cluster where the resident cluster needs five of 32.
 WIDE_ENTRIES = ("lstm_scan_fwd_wide", "lstm_scan_fwd_carry_wide")
+# Whether wgmma's fp32 sums equal mma.sync's bit for bit with the k16 steps
+# in the same order, as found on an H100: the wide design is held
+# bit for bit against the resident cluster while this holds.
+WGMMA_EQUALS_MMA_SYNC = True
 # (H, T, rows) of the identities: the sub-band batch and its ragged count,
 # one 10 s request, the full band's training shape.
 WIDE_SHAPES = ((HIDDEN, T_FRAMES, ROWS), (HIDDEN, T_FRAMES, RAGGED_ROWS),
@@ -2626,20 +2634,18 @@ WIDE_SHAPES = ((HIDDEN, T_FRAMES, ROWS), (HIDDEN, T_FRAMES, RAGGED_ROWS),
 
 
 def _wide_registers(reports):
-    """{"wide A bf16 3x3": "... registers, ... spilled", ...} for the
-    instances lstm_wide_kernel<OutT, CARRY, MT, NG> of csrc/lstm_scan_wide.cu
-    (kernel A, or B with CARRY; items of MT tiles x NG groups), from
-    ptxas's report."""
+    """{"wide 144 rows": "... registers, ... spilled", ...} for the
+    instances lstm_wide_kernel<N> of csrc/lstm_scan_wide.cu (N rows a
+    cluster; kernels A and B, both output types), from ptxas's report (the
+    registers a thread launches with; the consumers take more by
+    setmaxnreg)."""
     found, name, spill = {}, None, ""
-    out_type = {"13__nv_bfloat16": "bf16", "f": "fp32"}
     for line in reports.get("lstm_scan_wide", "").splitlines():
         if "Compiling entry function" in line:
             name, spill = None, ""
-            w = re.search(r"lstm_wide_kernelI(13__nv_bfloat16|f)Lb([01])ELi"
-                          r"(\d)ELi(\d)E", line)
+            w = re.search(r"lstm_wide_kernelILi(\d+)E", line)
             if w:
-                name = (f"wide {'B' if w.group(2) == '1' else 'A'} "
-                        f"{out_type[w.group(1)]} {w.group(3)}x{w.group(4)}")
+                name = f"wide {int(w.group(1)):3d} rows"
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            line)
         if stores and name:
@@ -2651,8 +2657,8 @@ def _wide_registers(reports):
 
 
 def _wide_plan_line(plan):
-    return (f"C={plan.cluster} x {plan.rows} rows, items {plan.tiles}x"
-            f"{plan.groups}, {plan.resident} k-steps resident, "
+    return (f"C={plan.cluster} x {plan.rows} rows, {plan.warpgroups} "
+            f"warpgroups, {plan.resident} k-steps resident, "
             f"{plan.stages} stages, {plan.clusters} clusters ({plan.active} "
             f"at once), {plan.waves} waves, {plan.smem_bytes} B")
 
@@ -2676,10 +2682,15 @@ def _wide_identities(dev, L, gen):
     """At each of WIDE_SHAPES, forward and reverse, bf16 and fp32 out: both
     wide entries bit for bit against the resident cluster (kernel B from a
     random state: h, h_T and c_T), kernel B from zero in chunks of T_CHUNK
-    against the unchunked forward and its final state, and at fp32 out
-    within the kernel limits of their plain versions; each wide run
-    counted. Returns each entry's largest max and mean error."""
+    against the unchunked forward and its final state, kernel A twice
+    against itself, and at fp32 out within the kernel limits of their
+    plain versions; each wide run counted. First, whether the wide entries'
+    wgmma sums equal the resident cluster's mma.sync sums bit for bit over
+    all of them, with the worst difference, which must be
+    WGMMA_EQUALS_MMA_SYNC's answer. Returns each entry's largest max and
+    mean error against plain."""
     worst = {name: [0.0, 0.0] for name in WIDE_ENTRIES}
+    sums = [True, 0.0]       # every wide output == the resident's; worst
     for h, t_len, rows in WIDE_SHAPES:
         w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
         gates = torch.randn(t_len, rows, 4 * h, generator=gen,
@@ -2705,6 +2716,8 @@ def _wide_identities(dev, L, gen):
                     with L.wide_forwards():
                         a = _counted(L, WIDE_ENTRIES[0], lambda: (
                             L.lstm_scan_tm(gates, w_hh, reverse, out_dtype)))
+                        again = _counted(L, WIDE_ENTRIES[0], lambda: (
+                            L.lstm_scan_tm(gates, w_hh, reverse, out_dtype)))
                         b = _counted(L, WIDE_ENTRIES[1], lambda: (
                             L.lstm_scan_carry_tm(gates, w_hh, h0, c0, reverse,
                                                  out_dtype)))
@@ -2712,6 +2725,12 @@ def _wide_identities(dev, L, gen):
                             L, WIDE_ENTRIES[1], lambda: _chunked_carry(
                                 L, gates, w_hh, zero, zero, reverse,
                                 out_dtype), n_chunks)
+                for x, y in zip((a, *b), (a_res, *b_res)):
+                    sums[0] = sums[0] and torch.equal(x, y)
+                    sums[1] = max(sums[1], (x.float() - y.float()).abs()
+                                  .max().item())
+                check(torch.equal(a, again), f"two runs of lstm_scan_fwd_wide "
+                      f"under one plan bitwise ({tag})")
                 check(torch.equal(a, a_res),
                       f"lstm_scan_fwd_wide == lstm_scan_fwd bitwise ({tag})")
                 check(all(torch.equal(x, y) for x, y in zip(b, b_res)),
@@ -2736,7 +2755,7 @@ def _wide_identities(dev, L, gen):
                           f"{KERNEL_MEAN_ABS} ({tag}: {mx:.3e}/{mean:.3e})")
                     worst[name] = [max(worst[name][0], mx),
                                    max(worst[name][1], mean)]
-                del a, b, chunked, a_res, b_res, b_zero
+                del a, again, b, chunked, a_res, b_res, b_zero
             del p_a, p_b
         log(f"wide entries == the resident cluster bitwise at H={h} "
             f"T={t_len} rows={rows} (forward and reverse, bf16 and fp32 out, "
@@ -2745,10 +2764,16 @@ def _wide_identities(dev, L, gen):
             f"{L._forward_route(h, rows, dev)[1] or 'resident'}")
         del gates, h0, c0, zero
         torch.cuda.empty_cache()
+    log(f"wgmma's fp32 sums == mma.sync's bit for bit (the wide entries "
+        f"against the resident cluster at every shape above): {sums[0]}, "
+        f"worst |difference| {sums[1]:.3e}")
+    check(sums[0] == WGMMA_EQUALS_MMA_SYNC,
+          f"wgmma's sums equal mma.sync's: {WGMMA_EQUALS_MMA_SYNC} as found "
+          f"before")
     return worst
 
 
-def _wide_times(dev, L, gen, rows, card, registers):
+def _wide_times(dev, L, gen, rows, card):
     """Both wide entries at (H=HIDDEN, T=T_FRAMES, rows), bf16 out as the
     path runs them, timed beside the resident cluster in turns (wide,
     resident, resident, wide), with the plain version, cuDNN, the bound,
@@ -2785,7 +2810,7 @@ def _wide_times(dev, L, gen, rows, card, registers):
                       cuda_ms(resident, iters=3), cuda_ms(wide, iters=3)]
             plain_ms = cuda_ms(plain, iters=2)
         ms, ms_res = min(rounds[0], rounds[3]), min(rounds[1:3])
-        plan = L.card_wide_plan(dev, h, rows, instance)
+        plan = L.card_wide_plan(dev, h, rows)
         res_plan = L.card_scan_plan(dev, h, rows, carry=bool(instance[1]))
         route = L._forward_route(h, rows, dev, (*instance, 0))[1]
         log(f"{name} at T={t_len} rows={rows} H={h}: {ms:.3f} ms, "
@@ -2803,7 +2828,6 @@ def _wide_times(dev, L, gen, rows, card, registers):
                          us_a_step=1e3 * ms / t_len / plan.waves,
                          route="wide" if route == "_wide" else "resident",
                          plan=dataclasses.asdict(plan))
-    log(f"wide instances: {_registers_line(registers, 'w')}")
     del gates
     torch.cuda.empty_cache()
     return out
@@ -2867,11 +2891,14 @@ def _wide_path(dev, plus):
 
 
 def phase_wide_forwards(dev, registers):
-    """Phase 26: kernels A and B as wide clusters. (a) Both entries bit for
-    bit against the resident cluster at 2056 and a ragged 2047 rows x
-    T=628, 257 rows x 628 and H=512 x 18 x 195 (forward and reverse, bf16
-    and fp32 out, B from a state and in 10 chunks of 64 against unchunked),
-    within the kernel limits of their plain versions; (b) timed at 2056 and
+    """Phase 26: kernels A and B as wide clusters, the products on wgmma.
+    (a) No instance spills; both entries bit for bit against the resident
+    cluster at 2056 and a ragged 2047 rows x T=628, 257 rows x 628 and
+    H=512 x 18 x 195 (forward and reverse, bf16 and fp32 out, B from a
+    state and in 10 chunks of 64 against unchunked, A against a second run
+    of itself), within the kernel limits of their plain versions, and the
+    answer whether wgmma's sums equal mma.sync's, with the worst
+    difference; (b) timed at 2056 and
     257 rows beside the resident cluster, the plain version, cuDNN and the
     bound, with the plan the route weighs and its pick; (c) the path:
     FullSubNet+ on the route, a 10 s request, the batched 8 x 10 s forward
@@ -2882,11 +2909,14 @@ def phase_wide_forwards(dev, registers):
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     card = card_line()
+    wide = {k: v for k, v in registers.items() if k.startswith("wide")}
+    log(f"wide instances: {_registers_line(wide, 'w')}")
+    check(all(v.endswith(" 0/0 B spilled") for v in wide.values()),
+          "no wide instance spills")
     gen = torch.Generator(device=dev).manual_seed(SEED + 261)
     worst = _wide_identities(dev, L, gen)
-    kernels = _wide_times(dev, L, gen, ROWS, card, registers)
-    for name, numbers in _wide_times(dev, L, gen, ROWS // 8, card,
-                                     {}).items():
+    kernels = _wide_times(dev, L, gen, ROWS, card)
+    for name, numbers in _wide_times(dev, L, gen, ROWS // 8, card).items():
         kernels[name]["request"] = numbers
     for name in WIDE_ENTRIES:
         kernels[name]["max_abs_err"], kernels[name]["mean_abs_err"] = \

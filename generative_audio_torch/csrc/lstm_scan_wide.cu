@@ -1,6 +1,6 @@
 // LSTM forward scan over precomputed time-major gates, kernels A and B
 // redesigned for the sub-band batch (H <= 512 over thousands of rows), for
-// sm_90a.
+// sm_90a, with each step's product on Hopper's warpgroup MMA (wgmma).
 //
 // Replaces the same TPU kernels as csrc/lstm_scan.cu's resident cluster,
 // where ops/lstm.py plan_forward's step models find this design faster:
@@ -10,74 +10,83 @@
 //   * kernel B (lstm_scan_fwd_carry_wide) <- :725 _lstm_pallas_call_carry /
 //     _lstm_carry_kernel (h0, c0 in; h_T, c_T out), used by
 //     lstm_layer_tm_chunked.
-// What it computes is lstm_scan.cu's, bit for bit (see Numerics below):
+// What it computes is lstm_scan.cu's:
 //   z   = float(gates[t, b, :]) + bf16(h_{t-1}) @ W_hh    (fp32 accumulation)
 //   c_t = sigmoid(z_f) * c_{t-1} + sigmoid(z_i) * tanh(z_g)
 //   h_t = sigmoid(z_o) * tanh(c_t)
 // gates [T, B, 4H] bf16 (torch gate order i, f, g, o), h [T, B, H] in bf16
-// or fp32, W_hh^T packed by the wrapper in MMA fragment order, as the
-// streamed variant of lstm_scan.cu takes it (ops/lstm.py _stream_weight:
-// [C][H/32][4][U/8][32 lanes][8] bf16). reverse=1 walks t from T-1 to 0.
+// or fp32, W_hh^T packed by the wrapper for wgmma (ops/lstm.py
+// _wide_weight, below). reverse=1 walks t from T-1 to 0.
 //
 // What bounds it on an H100. At the serving shape (8 x 10 s: T = 628, 2056
 // rows, H = 384) a layer does 1.52 TFLOP of bf16 products and moves 4.96 GB
-// (gates in, h out): about 1.5 ms either way. The resident cluster of
-// lstm_scan.cu holds each CTA's whole W_hh^T slice and two h buffers, so it
-// fits 32 rows a cluster of 8: 65 clusters, of which the card runs 15 at
-// once, five waves of the 628-step serial chain, each step a few microseconds
-// of latency (products, cell, the h exchange as 16-byte DSMEM stores, the
-// cluster barrier) over little arithmetic. This design fits up to 144 rows a
-// cluster of 8 (one wave of 15 clusters), so the chain runs once, each step
-// doing about five times the arithmetic:
-//   * h once a CTA, not twice, laid out slice-major [C][R][SU] bf16 (SU = U
-//     units padded to an odd number of 16-byte pieces, so that ldmatrix's
-//     eight row addresses fall in distinct banks): the slice of CTA k's units
-//     is one contiguous block in every CTA. After its cell a CTA writes its
-//     new slice into its own buffer and sends it to each peer with one
-//     cp.async.bulk (shared::cta to shared::cluster) that completes on the
-//     peer's mbarrier: C - 1 bulk copies a step in place of R * U / 8 * (C-1)
-//     16-byte stores. With one buffer, a peer may overwrite h_{t-1} only
-//     after every CTA has read it: each thread arrives on the cluster barrier
-//     right after its products and waits on it after its cell, so the
-//     barrier's latency lies under the cell arithmetic; the data of step t
-//     is then waited for on the CTA's own mbarrier.
+// (gates in, h out): about 1.5 ms either way. The chain of 628 steps is
+// serial, so the card runs it once, in one wave of clusters of 8 CTAs (one
+// an SM) over up to 160 rows each; a step is the CTA's product, the cell
+// and the exchange of h. Issued as warp-level mma.sync m16n8k16, the
+// product ran at about a fifth of an SM's tensor rate; here:
+//   * The product of a CTA is Z^T [4U x R] = W_hh^T slice [4U x H] . h^T
+//     [H x R]: M = the CTA's 4U gate columns (U = H / C units, a multiple of
+//     16: one warpgroup of four consumer warps a 64 columns, at most three),
+//     N = the cluster's R rows (an instance a row count, wgmma's N), K = H.
+//     Each warpgroup issues wgmma m64nRk16 with both operands in shared
+//     memory by descriptor, K-major without swizzle (core matrices of 8
+//     rows x 16 bytes): A from the W_hh^T ring or the resident k-pairs, B
+//     from the h buffer. The k16 steps run in the order of the resident
+//     cluster: the resident k-pairs, then the streamed ones, k ascending.
+//     The accumulators (R / 2 a thread) and c (R / 8) want more than the
+//     128 registers a thread that a CTA of 16 warps launches with: the
+//     producer's warpgroup hands its registers to the consumers
+//     (setmaxnreg, 152 a consumer thread).
 //   * W_hh^T: the first `resident` k-steps of the CTA's slice stay in shared
 //     memory, the others stream from L2 (the whole W_hh^T, 1.18 MB at H =
 //     384, stays there) through a ring of `stages` slots of one k-pair, each
 //     filled by one bulk copy that completes on the slot's mbarrier, from a
-//     producer warp: lstm_scan.cu's streamed ring.
+//     producer warp (the first of the last warpgroup). A k-pair is [4 k8
+//     groups][4U rows][8] bf16, so that one bulk copy fills a slot. Its 4U
+//     rows are ordered so that the cell finds a unit's four gates in one
+//     lane pair: row 64 wg + 16 w + 8 hi + r of warpgroup wg's warp w is
+//     gate 2 hi + (r & 1) of unit 16 wg + 4 w + r / 2. A thread holds accumulator rows lane / 4 and
+//     lane / 4 + 8 of its warp's 16 (gates i and g, or f and o, of one
+//     unit), and its partner lane ^ 4 the other two; one exchange of two
+//     values by shuffle gives each of the pair the four gates of one of the
+//     two columns it holds.
+//   * h once a CTA, [H / 8][R][8] bf16 (h_index): the k16 step k reads unit
+//     groups 2k and 2k + 1, R core matrices of 16 bytes each, and the slice
+//     of CTA k's units is one contiguous block in every CTA. After its cell
+//     a CTA writes its new slice into its own buffer (generic stores,
+//     fenced to the async proxy) and sends it to each peer with one
+//     cp.async.bulk (shared::cta to shared::cluster) that completes on the
+//     peer's mbarrier: C - 1 bulk copies a step. With one buffer, a peer may
+//     overwrite h_{t-1} only after every CTA's wgmma has read it: each
+//     thread arrives on the cluster barrier after wgmma.wait_group 0 and
+//     waits on it after its cell.
+//   * A ring slot goes back to the producer once the wgmma group that read
+//     it has completed: each streamed k-pair is one commit group, and
+//     wait_group 1 after the next pair's commit retires it.
 //   * The x-side gates of step t arrive by TMA (a 3-D tensor map over
 //     [T][B][4H], four boxes of R rows x U units a step, one per gate) into
 //     one buffer, issued right after step t-1's cell has read it, so the
 //     copy runs under the exchange and the products; rows beyond B read as
-//     zero. c stays in registers.
-//   * A warp owns an item of MT m16 row tiles x NG 8-unit groups (template
-//     parameters: 1 x 2, 3 x 2 or 3 x 3) and keeps all their accumulators
-//     (MT x NG x 4 gates x 4): each W_hh^T fragment it loads serves every
-//     tile and each h fragment (ldmatrix.x4) every group, which cuts the
-//     shared-memory reads of a step by 2.6-3x against one (tile, group) a
-//     warp. The loops have no runtime bounds, so consecutive products go to
-//     independent accumulators. At most seven consumer warps and the
-//     producer: two warps a quarter of the SM, so that a thread may hold
-//     255 registers and the accumulators do not spill (ten warps left 168,
-//     and the 3 x 2 item spilled).
+//     zero. c stays in registers: a thread owns one unit of R / 8 rows.
 //   * bf16 h is written to global memory from the CTA's slice in 16-byte
-//     pieces; fp32 h from the registers as float2.
+//     pieces; fp32 h from the registers.
 //
-// Numerics: the same mma.sync m16n8k16, bf16 operands (ldmatrix gives the
-// A fragment load_a gives), fp32 accumulators from zero, each accumulator's
-// k-steps in order (the resident ones, then the streamed ones), and the same
-// cell expression as lstm_scan.cu, so h (and kernel B's h_T, c_T) are
-// bit-identical to its resident cluster's, and a chunked run to an
-// unchunked one.
+// Numerics: fp32 accumulators from zero, bf16 operands, the k16 steps in
+// the resident cluster's order and the same cell expression as
+// lstm_scan.cu. On an H100 wgmma's sums equal mma.sync's bit for bit, so h
+// (and kernel B's h_T, c_T) equal the resident cluster's (chip_smoke.py
+// phase 26 holds both to it); a chunked run of kernel B equals an unchunked
+// one bit for bit, and two runs of one plan agree.
 //
-// The launch plan (C, R, tiles an item, resident k-steps, stages, shared
-// bytes) comes from the caller (ops/lstm.py plan_wide_scan, against
+// The launch plan (C, R, resident k-steps, stages, shared bytes) comes from
+// the caller (ops/lstm.py plan_wide_scan, against
 // cudaOccupancyMaxActiveClusters of lstm_scan_wide_max_clusters below); the
 // entries refuse a plan whose bytes are not this layout's. H must be a
-// multiple of 8 * groups * C and of 32 (the wrappers pad it with zero
-// units), R a multiple of 16 * tiles, and U = H / C and R at most 256 (a
-// TMA box).
+// multiple of 16 C with at most 48 units a CTA (the wrappers pad it with
+// zero units), R one of the instances' row counts (WIDE_INSTANCES).
+// lstm_scan_wide_trace also writes a clock64 trace of the first steps of
+// one warp (see TRACE_POINTS).
 //
 // Plain C interface for ctypes; each function returns the cudaError_t of its
 // launch (0 on success). Launches go to the caller's stream and do not
@@ -92,52 +101,265 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int WIDE_MAX_ITEMS = 7;   // consumer warps of a CTA, at most
+// Consumer warpgroups of a CTA, at most, and the threads of a CTA with the
+// producer's warpgroup. Registers are handed out four warps at a time, so
+// a CTA of 16 warps launches with 128 a thread; the producer's warpgroup
+// gives up all but WIDE_PRODUCER_REGS of its own and the consumers take
+// WIDE_CONSUMER_REGS (setmaxnreg): 12 x 152 + 4 x 56 = 16 x 128.
+constexpr int WIDE_MAX_WG = 3;
+constexpr int WIDE_THREADS = (WIDE_MAX_WG + 1) * 128;
+constexpr int WIDE_CONSUMER_REGS = 152, WIDE_PRODUCER_REGS = 56;
 
-// Row stride (bf16) of a CTA's h slice of U units: U padded to an odd number
-// of 16-byte pieces.
-__host__ __device__ inline int slice_stride(int U) { return 8 * ((U / 8) | 1); }
+// Steps of a trace, and the clock64 readings of each: consumer warp 0 of
+// the first CTA at the step's start, when its products have completed,
+// after the CTA's barrier (every warpgroup's products done), when the
+// step's gates have arrived, after its cell, after the cluster barrier's
+// wait and at the step's end (the peers' slices arrived); then the clocks
+// it spent waiting for ring slots in the step.
+constexpr int TRACE_STEPS = 64, TRACE_POINTS = 8;
 
 // Bytes of one k-pair (32 columns) of a CTA's W_hh^T slice of 4 gates x U.
 __host__ __device__ inline size_t pair_bytes(int U) { return (size_t)U * 256; }
 
+// Element offset of h(unit u, row n) in the h buffer [H / 8][R][8] bf16.
+__host__ __device__ inline int h_index(int u, int n, int R) {
+  return ((u >> 3) * R + n) * 8 + (u & 7);
+}
+
 // Shared bytes of one CTA, in the order the kernel lays them out: 128 bytes
 // of slack to align the gates to 128, one step of x-side gates [4][R][U]
 // bf16 (the TMA boxes), the ring [stages][k-pair] and the resident k-pairs
-// [resident / 2][k-pair] in fragment order, h [C][R][SU] bf16, the
-// A-fragment column offsets of the k-steps [H / 16][2] int, and the
-// mbarriers: the ring's full and empty [2][stages], the exchange's and the
-// gates'.
+// [resident / 2][k-pair], h [H / 8][R][8] bf16, and the mbarriers: the
+// ring's full and empty [2][stages], the exchange's and the gates'.
 size_t wide_smem(int H, int C, int R, int resident, int stages) {
-  const size_t U = H / C, su = slice_stride(H / C), c = C, r = R;
+  const size_t U = H / C, r = R;
   return 128 + 8 * r * U + (stages + resident / 2) * pair_bytes(U) +
-         c * r * su * 2 + H / 2 + 8 * (2 * stages + 2);
+         2 * r * H + 8 * (2 * stages + 2);
 }
 
-// Consumer warps of a CTA: one per item of `mt` m16 tiles x `ng` unit
-// groups.
-int wide_items(int H, int C, int R, int mt, int ng) {
-  return R / 16 / mt * (H / C / 8 / ng);
+// wgmma descriptor of a K-major operand in shared memory without swizzle:
+// start address, leading byte offset (between the core matrices of a k16
+// step along K) and stride byte offset (between core matrices 8 rows apart
+// along M or N), all >> 4.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t lbo,
+                                                uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
-// mma.sync m16n8k16 as lstm_scan.cu's (not volatile: the compiler may move
-// fragment loads ahead of it; the order of the products into one
-// accumulator is their data dependence).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d[64 x N] (+)= A[64 x 16] @ B[16 x N], bf16, both K-major in shared
+// memory, fp32 in registers; `scale` 0 overwrites d (the first k16 step).
+template <int N>
+__device__ __forceinline__ void wgmma_rows(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale);
+
+template <>
+__device__ __forceinline__ void wgmma_rows<16>(float (&d)[8], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale));
 }
 
-// The A fragment (16x16, row-major) of an m16 tile: lane l gives the address
-// of row l & 15, columns 8 (l >> 4) .. + 7 of the k-step.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4],
-                                            const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(cta_addr(p)));
+template <>
+__device__ __forceinline__ void wgmma_rows<32>(float (&d)[16], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rows<48>(float (&d)[24], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23},"
+      " %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rows<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rows<80>(float (&d)[40], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39},"
+      " %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rows<96>(float (&d)[48], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47},"
+      " %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rows<112>(float (&d)[56], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55},"
+      " %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rows<128>(float (&d)[64], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rows<144>(float (&d)[72], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71},"
+      " %72, %73, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rows<160>(float (&d)[80], uint64_t da,
+                                               uint64_t db,
+                                               int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79},"
+      " %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+// The accumulators as the wgmma pipeline leaves them: the compiler may not
+// move their reads or writes across this point.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ long long clock_now() {
+  long long c;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c));
+  return c;
 }
 
 // One box {col, row, t} of a 3-D tensor map into shared memory, completing
@@ -153,22 +375,23 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-template <typename OutT, bool CARRY, int MT, int NG>
-__global__ void __launch_bounds__((WIDE_MAX_ITEMS + 1) * 32, 1)
+template <int N>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
 lstm_wide_kernel(const __grid_constant__ CUtensorMap gmap,  // gates [T, B, 4H]
                  const __nv_bfloat16* __restrict__ wf,
                  const float* __restrict__ h0, const float* __restrict__ c0,
-                 OutT* __restrict__ out, float* __restrict__ h_T,
-                 float* __restrict__ c_T, int T, int B, int H, int R,
-                 int resident, int stages, int reverse) {
+                 void* __restrict__ out, float* __restrict__ h_T,
+                 float* __restrict__ c_T, long long* __restrict__ trace,
+                 int T, int B, int H, int resident, int stages, int reverse,
+                 int out_f32, int carry) {
+  constexpr int R = N;                        // rows a cluster
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   unsigned int cluster_id;
   asm("mov.u32 %0, %%clusterid.x;" : "=r"(cluster_id));
 
-  const int U = H / C, G = U / 8, GB = G / NG;
-  const int SU = slice_stride(U), KS = H / 16, KP = H / 32;
+  const int U = H / C, KP = H / 32;
   const int KR = resident / 2, NS = KP - KR, D = stages;
   const int col0 = rank * U;                  // first unit of this CTA
   const int row0 = (int)cluster_id * R;       // first batch row of the cluster
@@ -185,43 +408,39 @@ lstm_wide_kernel(const __grid_constant__ CUtensorMap gmap,  // gates [T, B, 4H]
   unsigned char* ring = smem + (size_t)8 * box;                     // [D][pair]
   unsigned char* wres = ring + (size_t)D * pair;                    // [KR][pair]
   __nv_bfloat16* hbuf =
-      reinterpret_cast<__nv_bfloat16*>(wres + (size_t)KR * pair);  // [C][R][SU]
-  int2* koff = reinterpret_cast<int2*>(hbuf + (size_t)C * R * SU);  // [KS]
-  uint64_t* full = reinterpret_cast<uint64_t*>(koff + KS);          // [D]
+      reinterpret_cast<__nv_bfloat16*>(wres + (size_t)KR * pair);  // [H/8][R][8]
+  uint64_t* full = reinterpret_cast<uint64_t*>(hbuf + (size_t)H * R);  // [D]
   uint64_t* empty = full + D;                                       // [D]
   uint64_t* hfull = empty + D;                                      // [1]
   uint64_t* gfull = hfull + 1;                                      // [1]
-  __nv_bfloat16* hown = hbuf + (size_t)rank * R * SU;               // [R][SU]
+  __nv_bfloat16* hown = hbuf + (size_t)rank * U * R;                // [U/8][R][8]
 
-  // the last warp is the producer; the others are consumers
-  const int nthreads = blockDim.x, nwarps = nthreads / 32 - 1;
+  // warps 0 .. 4 U / 16 - 1 are consumers, a warpgroup a 16 units; the
+  // last warpgroup's first warp is the producer, the rest of it idle
+  const int nthreads = blockDim.x, ncons = U / 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tq = lane & 3;   // MMA fragment coordinates
-  const int vt = (nrows + 15) / 16;           // m16 tiles with a valid row
-  const int n_items = (vt + MT - 1) / MT * GB;
+  const bool consumer = warp < ncons;
+  const bool tracing = trace != nullptr && cluster_id == 0 && rank == 0 &&
+                       threadIdx.x == 0;
 
   // this CTA's slice, k-pair after k-pair; the resident k-pairs, 16-byte copies
   const unsigned char* wsrc =
       reinterpret_cast<const unsigned char*>(wf) + (size_t)rank * KP * pair;
   for (int i = threadIdx.x; i < KR * (int)(pair / 16); i += nthreads)
     reinterpret_cast<uint4*>(wres)[i] = reinterpret_cast<const uint4*>(wsrc)[i];
-  // h_{-1} in every slice, bf16; zero in the padding and beyond the rows
-  for (int i = threadIdx.x; i < C * R * SU; i += nthreads) {
-    const int s = i / (R * SU), r = (i / SU) % R, j = i % SU;
+  // h_{-1} in every slice, bf16 (element i is h_index(u, r, R)); zero beyond
+  // the rows
+  for (int i = threadIdx.x; i < H * R; i += nthreads) {
+    const int u = i / (8 * R) * 8 + i % 8, r = i / 8 % R;
     float h = 0.0f;
-    if (CARRY && r < nrows && j < U) h = h0[(size_t)(row0 + r) * H + s * U + j];
+    if (carry && r < nrows) h = h0[(size_t)(row0 + r) * H + u];
     hbuf[i] = __float2bfloat16(h);
   }
-  // k-step k's A columns 16k + 8 half lie in the slice of the CTA that owns
-  // them: their offset in hbuf
-  for (int k = threadIdx.x; k < KS; k += nthreads) {
-    const int a = 16 * k, b = 16 * k + 8;
-    koff[k] = make_int2((a / U) * R * SU + a % U, (b / U) * R * SU + b % U);
-  }
+  fence_proxy_async();   // the resident k-pairs and h are read by wgmma
   if (threadIdx.x == 0) {
     for (int d = 0; d < D; ++d) {
       mbar_init(cta_addr(full + d), 1);
-      mbar_init(cta_addr(empty + d), n_items);
+      mbar_init(cta_addr(empty + d), ncons);
     }
     mbar_init(cta_addr(hfull), 1);
     mbar_init(cta_addr(gfull), 1);
@@ -242,7 +461,7 @@ lstm_wide_kernel(const __grid_constant__ CUtensorMap gmap,  // gates [T, B, 4H]
 
   // the producer: stage n (n < T * NS) is k-pair KR + n % NS of the slice
   // into slot n % D, once the consumers have emptied its previous stage n - D
-  const bool producer = warp == nwarps && lane == 0;
+  const bool producer = warp == ncons && lane == 0;
   const int total = T * NS, ahead = min(D, NS);
   int issued = 0;
   auto produce = [&](int upto) {
@@ -257,138 +476,151 @@ lstm_wide_kernel(const __grid_constant__ CUtensorMap gmap,  // gates [T, B, 4H]
   };
   if (producer) produce(ahead);
 
-  // this warp's item: tiles m0 .. m0 + MT - 1, unit groups g0 .. g0 + NG - 1
-  const bool consumer = warp < n_items;
-  const int m0 = warp / GB * MT, g0 = warp % GB * NG;
-  // c of (tile m, group n): index 2 * half + e is row (m0 + m) * 16 + grp +
-  // 8 half, unit col0 + 8 (g0 + n) + 2 tq + e
-  float cst[MT][NG][4];
+  // this thread's unit of the CTA (its lane pair's), and which of the two
+  // columns of each 8-row chunk its cell takes (the one of its gates' pair
+  // that its partner's exchange completes): row 8 i + 2 tq + e of chunk i
+  const int wg = warp >> 2, r8 = lane >> 2, tq = lane & 3, e = r8 & 1;
+  const int ul = 16 * wg + 4 * (warp & 3) + (r8 >> 1);
+  float cst[N / 8];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NG; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = (m0 + m) * 16 + grp + 8 * (i >> 1);
-        cst[m][n][i] = 0.0f;
-        if (CARRY && consumer && r < nrows)
-          cst[m][n][i] =
-              c0[(size_t)(row0 + r) * H + col0 + 8 * (g0 + n) + 2 * tq + (i & 1)];
-      }
+  for (int i = 0; i < N / 8; ++i) {
+    const int n = 8 * i + 2 * tq + e;
+    cst[i] = 0.0f;
+    if (carry && consumer && n < nrows)
+      cst[i] = c0[(size_t)(row0 + n) * H + col0 + ul];
+  }
   cluster.sync();      // every CTA has started and filled its buffers
 
-  const __nv_bfloat16* arow = hbuf + (size_t)(m0 * 16 + (lane & 15)) * SU;
-  const int ahalf = lane >> 4;
+  // The steps, in two paths that meet at the same barriers a step: the
+  // cluster barrier's arrive and wait and two CTA barriers (bar 1 of every
+  // thread), so that each path's registers are its own.
+  auto cta_sync = [&]() {
+    asm volatile("bar.sync 1, %0;\n" :: "r"(nthreads) : "memory");
+  };
+  if (!consumer) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(WIDE_PRODUCER_REGS));
+    for (int s = 0; s < T; ++s) {
+      // the next step's first stages, as the consumers empty this step's
+      // slots: their copies run under the cell and the exchange
+      if (producer) produce((s + 1) * NS + ahead);
+      __syncwarp();
+      asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+      cta_sync();
+      asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+      if (s == T - 1 && out_f32) break;
+      cta_sync();
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(WIDE_CONSUMER_REGS));
+
+  // descriptors: A, this warpgroup's 64 gate rows of a k-pair [4][4U][8]
+  // (k8 groups 4U x 16 bytes apart, 8 rows 128 bytes apart); B, the k16
+  // step's two unit groups of h [H / 8][R][8] (R x 16 bytes apart, 8 rows
+  // 128 bytes apart)
+  const uint32_t a_lbo = 64 * U, b_lbo = 16 * R;
+  const uint32_t a_wg = 1024 * wg, hbase = cta_addr(hbuf);
+  const uint32_t ring_a = cta_addr(ring) + a_wg, wres_a = cta_addr(wres) + a_wg;
+  const int cthreads = 32 * ncons;
   for (int s = 0; s < T; ++s) {
     const int t = t0 + dir * s;
     const bool last = s == T - 1;
+    long long waited = 0;
+    if (tracing && s < TRACE_STEPS)
+      trace[s * TRACE_POINTS] = clock_now();
+    // the strides of the cell's addresses, opaque to the compiler a step at
+    // a time: hoisted out of the loop, an unrolled cell's addresses (three
+    // a chunk) outgrew the registers
+    int Us = U, Hs = H;
+    asm volatile("" : "+r"(Us), "+r"(Hs));
 
-    float acc[MT][NG][4][4];
+    // the products of k-pair p, whose A rows lie at `a` (a shared address):
+    // k-step 2p, then 2p + 1; the first overwrites the accumulators
+    float acc[N / 2];
+    int scale = 0;
+    auto pair_mma = [&](uint32_t a, int p) {
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int n = 0; n < NG; ++n)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][n][q][e] = 0.0f;
-
-    if (consumer) {
-      // the products of k-pair p, whose fragments lie at wp: k-step 2p, then
-      // 2p + 1, each for every gate and (tile, group) accumulator, the
-      // consecutive products on different accumulators; the fragments of
-      // one k-step at a time, to keep the registers for the accumulators
-      auto pair_mma = [&](const unsigned char* wp, int p) {
-        const uint2* wb = reinterpret_cast<const uint2*>(wp);
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const int2 o = koff[2 * p + kk];
-          const int off = ahalf ? o.y : o.x;
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int m = 0; m < MT; ++m)
-            ldmatrix_x4(a[m], arow + m * 16 * SU + off);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            uint2 b[NG];
-#pragma unroll
-            for (int n = 0; n < NG; ++n)
-              b[n] = wb[((q * G + g0 + n) * 32 + lane) * 2 + kk];
-#pragma unroll
-            for (int m = 0; m < MT; ++m)
-#pragma unroll
-              for (int n = 0; n < NG; ++n)
-                mma16816(acc[m][n][q], a[m], b[n].x, b[n].y);
-          }
-        }
-      };
-      for (int p = 0; p < KR; ++p) pair_mma(wres + (size_t)p * pair, p);
-      for (int j = 0; j < NS; ++j) {
-        const int n = s * NS + j, slot = n % D;
-        xbar_wait(cta_addr(full + slot), (n / D) & 1);
-        pair_mma(ring + (size_t)slot * pair, KR + j);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(cta_addr(empty + slot));
+      for (int kk = 0; kk < 2; ++kk) {
+        wgmma_rows<N>(acc, kmajor_desc(a + 2 * kk * a_lbo, a_lbo, 128),
+                      kmajor_desc(hbase + (2 * p + kk) * 2 * b_lbo, b_lbo,
+                                  128),
+                      scale);
+        scale = 1;
       }
+    };
+    fence_acc<N>(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int p = 0; p < KR; ++p) pair_mma(wres_a + p * pair, p);
+    for (int j = 0; j < NS; ++j) {
+      const int n = s * NS + j, slot = n % D;
+      const long long w0 = tracing ? clock_now() : 0;
+      xbar_wait(cta_addr(full + slot), (n / D) & 1);
+      if (tracing) waited += clock_now() - w0;
+      pair_mma(ring_a + slot * pair, KR + j);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the group of the previous k-pair has completed: its slot may be
+      // refilled (so a ring needs two slots)
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (j > 0 && lane == 0) mbar_arrive(cta_addr(empty + (n - 1) % D));
     }
-    // the next step's first stages, as the consumers empty this step's last
-    // slots: their copies run under the cell and the exchange
-    if (producer) produce((s + 1) * NS + ahead);
-    __syncwarp();
-    // this CTA has read h_{t-1}: peers may overwrite it once all have; its
-    // own slice, which only this CTA reads, once its warps have
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc<N>(acc);
+    if (NS > 0 && lane == 0)
+      mbar_arrive(cta_addr(empty + (s * NS + NS - 1) % D));
+    if (tracing && s < TRACE_STEPS) trace[s * TRACE_POINTS + 1] = clock_now();
+    // this CTA's wgmma has read h_{t-1}: peers may overwrite it once all
+    // have; its own slice, which only this CTA reads, once its warps have
     asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-    __syncthreads();
+    cta_sync();
+    if (tracing && s < TRACE_STEPS) trace[s * TRACE_POINTS + 2] = clock_now();
 
     // the cell, on the accumulators; bf16 h_t into the CTA's own slice
-    if (consumer) {
-      xbar_wait(cta_addr(gfull), s & 1);      // step t's gates
+    xbar_wait(cta_addr(gfull), s & 1);      // step t's gates
+    if (tracing && s < TRACE_STEPS) trace[s * TRACE_POINTS + 3] = clock_now();
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int n = 0; n < NG; ++n)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = (m0 + m) * 16 + grp + 8 * half;
-            const int jl = 8 * (g0 + n) + 2 * tq;
-            const bool valid = r < nrows;
-            float z[4][2];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float2 gv = load_pair(gx + q * box + r * U + jl);
-              z[q][0] = gv.x + acc[m][n][q][2 * half];
-              z[q][1] = gv.y + acc[m][n][q][2 * half + 1];
-            }
-            float hn[2], cn[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float c = sigmoidf_(z[1][e]) * cst[m][n][2 * half + e] +
-                              sigmoidf_(z[0][e]) * tanhf(z[2][e]);
-              cn[e] = c;
-              hn[e] = sigmoidf_(z[3][e]) * tanhf(c);
-              cst[m][n][2 * half + e] = c;
-            }
-            store_pair(hown + r * SU + jl, hn[0], hn[1]);
-            if (valid) {
-              const size_t o = ((size_t)t * B + row0 + r) * H + col0 + jl;
-              if (sizeof(OutT) == 4) store_pair(out + o, hn[0], hn[1]);
-              if (CARRY && last) {
-                store_pair(h_T + (size_t)(row0 + r) * H + col0 + jl, hn[0],
-                           hn[1]);
-                store_pair(c_T + (size_t)(row0 + r) * H + col0 + jl, cn[0],
-                           cn[1]);
-              }
-            }
-          }
-      fence_proxy_async();   // the slice is read by the bulk copies below
+    for (int i = 0; i < N / 8; ++i) {
+      // accumulators 4i, 4i + 1: this thread's first gate (i, or f for odd
+      // e) at columns 8i + 2 tq, + 1; 4i + 2, 4i + 3: its second (g or o);
+      // the partner sends its two gates of this thread's column
+      const float ra =
+          __shfl_xor_sync(0xffffffffu, e ? acc[4 * i] : acc[4 * i + 1], 4);
+      const float rb =
+          __shfl_xor_sync(0xffffffffu, e ? acc[4 * i + 2] : acc[4 * i + 3], 4);
+      const float zi = e ? ra : acc[4 * i], zf = e ? acc[4 * i + 1] : ra;
+      const float zg = e ? rb : acc[4 * i + 2], zo = e ? acc[4 * i + 3] : rb;
+      const int n = 8 * i + 2 * tq + e;
+      const __nv_bfloat16* gp = gx + n * Us + ul;
+      const float z0 = __bfloat162float(gp[0]) + zi;
+      const float z1 = __bfloat162float(gp[box]) + zf;
+      const float z2 = __bfloat162float(gp[2 * box]) + zg;
+      const float z3 = __bfloat162float(gp[3 * box]) + zo;
+      const float c = sigmoidf_(z1) * cst[i] + sigmoidf_(z0) * tanhf(z2);
+      const float h = sigmoidf_(z3) * tanhf(c);
+      cst[i] = c;
+      hown[h_index(ul, n, R)] = __float2bfloat16(h);
+      if (n < nrows) {
+        const size_t o = (size_t)(row0 + n) * Hs + col0 + ul;
+        if (out_f32) reinterpret_cast<float*>(out)[(size_t)t * B * Hs + o] = h;
+        if (carry && last) {
+          h_T[o] = h;
+          c_T[o] = c;
+        }
+      }
     }
+    fence_proxy_async();   // the slice is read by the bulk copies and wgmma
+    if (tracing && s < TRACE_STEPS) trace[s * TRACE_POINTS + 4] = clock_now();
     // every CTA has read h_{t-1}
     asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-    if (last && sizeof(OutT) == 4) break;
-    __syncthreads();       // the slice is whole; the gates tile is read
-    // ... and on to each peer (rank+1, rank+2, ...): one bulk copy of its
-    // valid rows, completing on the peer's barrier; the next step's gates
-    const uint32_t bytes = (uint32_t)nrows * SU * 2;
+    if (tracing && s < TRACE_STEPS) trace[s * TRACE_POINTS + 5] = clock_now();
+    if (last && out_f32) break;
+    cta_sync();            // the slice is whole; the gates tile is read
+    // ... and on to each peer (rank+1, rank+2, ...): one bulk copy of the
+    // slice through its last valid row, completing on the peer's barrier;
+    // the next step's gates
+    const uint32_t bytes = (uint32_t)(((U / 8 - 1) * R + nrows) * 16);
     if (!last) {
       if (threadIdx.x == 0) {
         xbar_expect(cta_addr(hfull), (C - 1) * bytes);
@@ -401,25 +633,30 @@ lstm_wide_kernel(const __grid_constant__ CUtensorMap gmap,  // gates [T, B, 4H]
                      peer_addr(cta_addr(hfull), peer));
       }
     }
-    if (sizeof(OutT) == 2) {   // bf16 h out, 16-byte pieces of the slice
+    if (!out_f32) {        // bf16 h out, 16-byte pieces of the slice
       const int chunks = U / 8;
-      for (int i = threadIdx.x; i < nrows * chunks; i += nthreads) {
-        const int r = i / chunks, j = 8 * (i % chunks);
-        *reinterpret_cast<uint4*>(out + ((size_t)t * B + row0 + r) * H + col0 +
-                                  j) =
-            *reinterpret_cast<const uint4*>(hown + r * SU + j);
+      __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
+      for (int i = threadIdx.x; i < nrows * chunks; i += cthreads) {
+        const int r = i / chunks, g = i % chunks;
+        *reinterpret_cast<uint4*>(o + ((size_t)t * B + row0 + r) * H + col0 +
+                                  8 * g) =
+            *reinterpret_cast<const uint4*>(hown + h_index(8 * g, r, R));
       }
     }
     if (!last) {
       xbar_wait(cta_addr(hfull), s & 1);      // the peers' slices of h_t
       if (threadIdx.x < C - 1) bulk_wait_read();   // before hown is written
     }
+    if (tracing && s < TRACE_STEPS) {
+      trace[s * TRACE_POINTS + 6] = clock_now();
+      trace[s * TRACE_POINTS + 7] = waited;
+    }
   }
 }
 
-template <typename OutT, bool CARRY, int MT, int NG>
+template <int N>
 cudaError_t prepare(int C, size_t smem) {
-  auto kernel = lstm_wide_kernel<OutT, CARRY, MT, NG>;
+  auto kernel = lstm_wide_kernel<N>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && C > 8)
@@ -428,20 +665,23 @@ cudaError_t prepare(int C, size_t smem) {
   return err;
 }
 
-// The instances: (tiles, groups) of an item.
-bool item_fits(int mt, int ng) {
-  return (mt == 1 && ng == 2) || (mt == 3 && (ng == 2 || ng == 3));
+// The instances: rows a cluster (wgmma's N).
+#define WIDE_INSTANCES(X) \
+  X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160)
+
+bool rows_fit(int R) {
+#define WIDE_IS(N) if (R == N) return true;
+  WIDE_INSTANCES(WIDE_IS)
+#undef WIDE_IS
+  return false;
 }
 
-bool plan_fits(int H, int C, int R, int mt, int ng, int resident,
-               int stages) {
-  if (!((C == 8 || C == 16) && H > 0 && item_fits(mt, ng) &&
-        H % (8 * ng * C) == 0 && H % 32 == 0 && H / C <= 256 && R > 0 &&
-        R <= 256 && R % (16 * mt) == 0))
+bool plan_fits(int H, int C, int R, int resident, int stages) {
+  if (!((C == 8 || C == 16) && H > 0 && H % (16 * C) == 0 &&
+        H / C / 16 <= WIDE_MAX_WG && rows_fit(R)))
     return false;
-  return wide_items(H, C, R, mt, ng) <= WIDE_MAX_ITEMS && resident >= 0 &&
-         resident % 2 == 0 && resident <= H / 16 && stages >= 0 &&
-         (stages == 0) == (resident == H / 16);
+  return resident >= 0 && resident % 2 == 0 && resident <= H / 16 &&
+         (stages == 0 || stages >= 2) && (stages == 0) == (resident == H / 16);
 }
 
 cudaLaunchAttribute cluster_attr(int C) {
@@ -494,64 +734,53 @@ bool gates_map(CUtensorMap* map, const void* gates, int T, int B, int H,
 }
 
 // The instance's launch (gates given) or, with n set, its occupancy query.
-template <typename OutT, bool CARRY, int MT, int NG>
+template <int N>
 int run(const void* gates, const void* wf, const void* h0, const void* c0,
-        void* out, void* h_T, void* c_T, int T, int B, int H, int reverse,
-        int C, int R, int resident, int stages, size_t smem, void* stream,
-        int* n) {
-  cudaError_t err = prepare<OutT, CARRY, MT, NG>(C, smem);
+        void* out, void* h_T, void* c_T, void* trace, int T, int B, int H,
+        int reverse, int out_f32, int carry, int C, int resident, int stages,
+        size_t smem, void* stream, int* n) {
+  cudaError_t err = prepare<N>(C, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr = cluster_attr(C);
   cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(32 * (wide_items(H, C, R, MT, NG) + 1));
+  cfg.blockDim = dim3(128 * (H / C / 16 + 1));
   cfg.dynamicSmemBytes = smem;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  auto kernel = lstm_wide_kernel<OutT, CARRY, MT, NG>;
+  auto kernel = lstm_wide_kernel<N>;
   if (n != nullptr) {
     cfg.gridDim = dim3(C);
     return (int)cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
   }
   CUtensorMap map = {};
-  if (!gates_map(&map, gates, T, B, H, H / C, R))
+  if (!gates_map(&map, gates, T, B, H, H / C, N))
     return (int)cudaErrorInvalidValue;
-  cfg.gridDim = dim3(C * ((B + R - 1) / R));
+  cfg.gridDim = dim3(C * ((B + N - 1) / N));
   cfg.stream = (cudaStream_t)stream;
   err = cudaLaunchKernelEx(&cfg, kernel, map, (const __nv_bfloat16*)wf,
-                           (const float*)h0, (const float*)c0, (OutT*)out,
-                           (float*)h_T, (float*)c_T, T, B, H, R, resident,
-                           stages, reverse);
+                           (const float*)h0, (const float*)c0, out,
+                           (float*)h_T, (float*)c_T, (long long*)trace, T, B,
+                           H, resident, stages, reverse, out_f32, carry);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// A launch (n null) or an occupancy query of the instance (out_f32, carry)
-// for the plan, refusing a plan the kernel does not take or shared bytes
-// that are not its layout's.
+// A launch (n null) or an occupancy query of the instance for the plan,
+// refusing a plan the kernel does not take or shared bytes that are not
+// its layout's.
 int dispatch(int out_f32, int carry, const void* gates, const void* wf,
              const void* h0, const void* c0, void* out, void* h_T, void* c_T,
-             int T, int B, int H, int reverse, int C, int R, int mt, int ng,
+             void* trace, int T, int B, int H, int reverse, int C, int R,
              int resident, int stages, size_t smem_bytes, void* stream,
              int* n) {
-  if (!plan_fits(H, C, R, mt, ng, resident, stages) ||
+  if (!plan_fits(H, C, R, resident, stages) ||
       smem_bytes != wide_smem(H, C, R, resident, stages))
     return (int)cudaErrorInvalidValue;
-#define WIDE_RUN(OutT, CARRY, MT, NG)                                        \
-  run<OutT, CARRY, MT, NG>(gates, wf, h0, c0, out, h_T, c_T, T, B, H,        \
-                           reverse, C, R, resident, stages, smem_bytes,      \
-                           stream, n)
-#define WIDE_ITEM(MT, NG)                                                    \
-  if (mt == MT && ng == NG) {                                                \
-    if (out_f32)                                                             \
-      return carry ? WIDE_RUN(float, true, MT, NG)                           \
-                   : WIDE_RUN(float, false, MT, NG);                         \
-    return carry ? WIDE_RUN(__nv_bfloat16, true, MT, NG)                     \
-                 : WIDE_RUN(__nv_bfloat16, false, MT, NG);                   \
-  }
-  WIDE_ITEM(1, 2)
-  WIDE_ITEM(3, 2)
-  WIDE_ITEM(3, 3)
-#undef WIDE_ITEM
+#define WIDE_RUN(N)                                                          \
+  if (R == N)                                                                \
+    return run<N>(gates, wf, h0, c0, out, h_T, c_T, trace, T, B, H, reverse, \
+                  out_f32, carry, C, resident, stages, smem_bytes, stream, n);
+  WIDE_INSTANCES(WIDE_RUN)
 #undef WIDE_RUN
   return (int)cudaErrorInvalidValue;
 }
@@ -560,23 +789,21 @@ int dispatch(int out_f32, int carry, const void* gates, const void* wf,
 
 extern "C" {
 
-// Kernel A. gates [T, B, 4H] bf16, wf (W_hh^T in fragment order, see above)
+// Kernel A. gates [T, B, 4H] bf16, wf (W_hh^T packed for wgmma, see above)
 // -> out [T, B, H] (bf16, or fp32 when out_f32), as clusters of `cluster`
-// CTAs (8 or 16; H a multiple of 8 * groups * cluster and of 32, H /
-// cluster at most 256) over `rows` batch rows each (a multiple of 16 *
-// tiles, at most 256), items of `tiles` m16 tiles x `groups` 8-unit groups
-// (1 x 2, 3 x 2 or 3 x 3; at most seven items a CTA), `resident` k-steps of
-// each slice resident (even; all H / 16 with no ring) and a ring of
-// `stages` k-pairs (0 only then); smem_bytes must be the layout's
+// CTAs (8 or 16; H a multiple of 16 * cluster, at most 48 units a CTA) over
+// `rows` batch rows each (an instance's: 16, 32, ..., 160), `resident`
+// k-steps of each slice resident (even; all H / 16 with no ring) and a ring
+// of `stages` k-pairs (at least 2; 0 only then); smem_bytes must be the
+// layout's
 // (ops/lstm.py wide_smem_bytes).
 int lstm_scan_fwd_wide(const void* gates, const void* wf, void* out,
                        int out_f32, int T, int B, int H, int reverse,
-                       int cluster, int rows, int tiles, int groups,
-                       int resident, int stages, int smem_bytes,
-                       void* stream) {
+                       int cluster, int rows, int resident, int stages,
+                       int smem_bytes, void* stream) {
   return dispatch(out_f32, 0, gates, wf, nullptr, nullptr, out, nullptr,
-                  nullptr, T, B, H, reverse, cluster, rows, tiles, groups,
-                  resident, stages, (size_t)smem_bytes, stream, nullptr);
+                  nullptr, nullptr, T, B, H, reverse, cluster, rows, resident,
+                  stages, (size_t)smem_bytes, stream, nullptr);
 }
 
 // Kernel B. As kernel A, plus h0, c0 [B, H] fp32 in and h_T, c_T [B, H]
@@ -585,23 +812,34 @@ int lstm_scan_fwd_carry_wide(const void* gates, const void* wf,
                              const void* h0, const void* c0, void* out,
                              void* h_T, void* c_T, int out_f32, int T, int B,
                              int H, int reverse, int cluster, int rows,
-                             int tiles, int groups, int resident, int stages,
-                             int smem_bytes, void* stream) {
-  return dispatch(out_f32, 1, gates, wf, h0, c0, out, h_T, c_T, T, B, H,
-                  reverse, cluster, rows, tiles, groups, resident, stages,
+                             int resident, int stages, int smem_bytes,
+                             void* stream) {
+  return dispatch(out_f32, 1, gates, wf, h0, c0, out, h_T, c_T, nullptr, T,
+                  B, H, reverse, cluster, rows, resident, stages,
                   (size_t)smem_bytes, stream, nullptr);
 }
 
-// cudaOccupancyMaxActiveClusters of the instance (out_f32, carry) with the
-// plan's item (tiles x groups), resident k-steps and stages, for a cluster
-// of `cluster` CTAs over `rows` rows at H: *n clusters can run at once.
-int lstm_scan_wide_max_clusters(int out_f32, int carry, int tiles,
-                                int groups, int resident, int stages, int H,
-                                int cluster, int rows, int* n) {
-  return dispatch(out_f32, carry, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, 0, 0, H, 0, cluster, rows, tiles, groups,
-                  resident, stages, wide_smem(H, cluster, rows, resident,
-                                              stages), nullptr, n);
+// Kernel A that also writes trace [TRACE_STEPS][TRACE_POINTS] int64 (the
+// clock64 readings of the first CTA's consumer warp 0; see TRACE_POINTS).
+int lstm_scan_wide_trace(const void* gates, const void* wf, void* out,
+                         int out_f32, int T, int B, int H, int reverse,
+                         int cluster, int rows, int resident, int stages,
+                         int smem_bytes, void* trace, void* stream) {
+  if (trace == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(out_f32, 0, gates, wf, nullptr, nullptr, out, nullptr,
+                  nullptr, trace, T, B, H, reverse, cluster, rows, resident,
+                  stages, (size_t)smem_bytes, stream, nullptr);
+}
+
+// cudaOccupancyMaxActiveClusters of the instance of `rows` rows with the
+// plan's resident k-steps and stages, for a cluster of `cluster` CTAs at H:
+// *n clusters can run at once.
+int lstm_scan_wide_max_clusters(int resident, int stages, int H, int cluster,
+                                int rows, int* n) {
+  return dispatch(0, 0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, 0, 0, H, 0, cluster, rows, resident,
+                  stages, wide_smem(H, cluster, rows, resident, stages),
+                  nullptr, n);
 }
 
 const char* lstm_scan_wide_error_string(int err) {

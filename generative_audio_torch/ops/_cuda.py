@@ -115,13 +115,14 @@ _SIGNATURES = {
     },
     "lstm_scan_wide": {
         # kernels A and B as wide clusters: ..., reverse, then the plan:
-        # cluster, rows, tiles and groups an item, resident k-steps,
-        # stages, shared bytes
+        # cluster, rows, resident k-steps, stages, shared bytes (and,
+        # traced, the trace buffer)
         "lstm_scan_fwd_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _P],
+                               _I, _I, _P],
         "lstm_scan_fwd_carry_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                     _P],
+                                     _I, _I, _I, _I, _I, _I, _I, _P],
+        "lstm_scan_wide_trace": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P, _P],
     },
     "lstm_scan_block": {
         "lstm_scan_fwd_block": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -227,8 +228,8 @@ SOURCES = tuple(_SIGNATURES)
 # train for the LSTM forward; resident for the backwards; k and out_f32 for
 # the staged scans; n_chains, arrangement and resident for kernel G; for
 # the streamed forwards, those of their kernel, the resident k-steps and
-# the ring's stages; for the wide forwards out_f32, carry, the tiles and
-# groups an item, the resident k-steps and the stages; for the staged ones k, out_f32, the resident k-steps,
+# the ring's stages; for the wide forwards the resident k-steps and the
+# stages; for the staged ones k, out_f32, the resident k-steps,
 # the stages and kernel E's gate groups; for the streamed backwards, tile,
 # the resident slots and the stages; for kernel D's wide cluster the tiles
 # and groups an item, the resident k-steps and both rings' stages, and the
@@ -242,7 +243,7 @@ _QUERIES = {
                                           ctypes.POINTER(ctypes.c_int)],
     },
     "lstm_scan_wide": {
-        "lstm_scan_wide_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
+        "lstm_scan_wide_max_clusters": [_I, _I, _I, _I, _I,
                                         ctypes.POINTER(ctypes.c_int)],
     },
     "lstm_scan_staged": {

@@ -57,14 +57,15 @@ gates upcast to fp32, h cast to bf16 before the product with bf16 W_hh,
 fp32 accumulation, fp32 c, dh and dc; bf16 h_seq, c_seq, gout and dgates.
 
 Kernels A and B have a third design for the sub-band batch, the wide
-cluster (csrc/lstm_scan_wide.cu, entries ending in `_wide`: one slice-major
-h buffer a CTA sent to the peers by bulk copies, the gates by TMA, c in
-registers, up to 3 x 3 m16 tiles x 8-unit groups of accumulators a warp, so
-that up to 144 rows fit a cluster of 8): where a resident cluster holds H,
-`plan_forward` takes whichever of the two has the least modelled waves x
-step on the card (`plan_wide_scan`, `card_wide_plan`; the wide one at the
-8 x 10 s batch, the resident one at a clip's 257 rows), bit for bit the
-same h. `wide_forwards()` and `resident_forwards()` force either. Kernel D
+cluster (csrc/lstm_scan_wide.cu, entries ending in `_wide`: each step's
+product on warpgroup MMA (wgmma), M the CTA's gate columns, N the cluster's
+rows, one h buffer a CTA sent to the peers by bulk copies, the gates by
+TMA, c in registers, so that up to 160 rows fit a cluster of 8): where a
+resident cluster holds H, `plan_forward` takes whichever of the two has the
+least modelled waves x step on the card (`plan_wide_scan`,
+`card_wide_plan`; the wide one at the 8 x 10 s batch, the resident one at
+a clip's 257 rows). `wide_forwards()` and `resident_forwards()` force
+either. Kernel D
 has a wide cluster too (csrc/lstm_scan_bwd_wide.cu `lstm_scan_bwd_wide`:
 the dgates exchange read back from L2 by TMA in kernel D's k order, both
 W_hh operands streamed, z, dh and dc of up to 2 x 3 m16 tiles x 8-unit
@@ -175,8 +176,8 @@ __all__ = ["lstm_scan_tm", "lstm_scan_reference_tm", "lstm_scan_carry_tm",
            "layer_stream_step_us", "plan_unrolled_stream",
            "plan_layer_stream", "card_unrolled_stream_plan",
            "card_layer_stream_plan", "layer_block_step_us", "WidePlan",
-           "WIDE_ITEMS", "wide_items", "wide_slice_stride", "wide_smem_bytes",
-           "wide_step_us", "plan_wide_scan", "card_wide_plan",
+           "WIDE_ROWS", "WIDE_STAGES", "wide_hidden", "wide_smem_bytes", "wide_step_us",
+           "plan_wide_scan", "card_wide_plan",
            "wide_forwards", "resident_forwards", "BwdWidePlan",
            "BWD_WIDE_ITEMS", "BWD_WIDE_STAGES", "bwd_wide_items",
            "bwd_wide_smem_bytes", "bwd_wide_step_us", "plan_bwd_wide",
@@ -1160,7 +1161,7 @@ def _forward_route(hsz: int, batch: int, device: torch.device,
     time; instance (out_f32, carry, train)); raises when nothing fits."""
     wide = resident = None
     if not instance[2]:
-        wide = lambda: card_wide_plan(device, hsz, batch, instance[:2])
+        wide = lambda: card_wide_plan(device, hsz, batch)
         if _on_card(device):
             dtype = torch.float32 if instance[0] else torch.bfloat16
 
@@ -1213,17 +1214,15 @@ def _stream_weight(w_hh: torch.Tensor, hp: int, cluster: int) -> torch.Tensor:
 class WidePlan:
     """Launch plan of the wide cluster forwards (csrc/lstm_scan_wide.cu,
     `lstm_scan_fwd_wide`, `lstm_scan_fwd_carry_wide`): clusters of `cluster`
-    CTAs at H = `hidden` (the layer's units zero-padded to stream_hidden's),
-    each CTA owning hidden / cluster units, over `rows` batch rows a cluster;
-    a warp's item is `tiles` m16 row tiles x `groups` 8-unit groups; the first
+    CTAs at H = `hidden` (the layer's units zero-padded to wide_hidden's),
+    each CTA owning hidden / cluster units (a warpgroup of wgmma a 16 of
+    them), over `rows` batch rows a cluster (wgmma's N); the first
     `resident` 16-deep k-steps of each CTA's W_hh^T slice stay in shared
     memory, the others stream from L2 through a ring of `stages` slots of
     two k-steps (no ring, 0 stages, where the whole slice is resident)."""
     hidden: int           # H the kernel runs at
     cluster: int          # CTAs per cluster
     rows: int             # batch rows per cluster
-    tiles: int            # m16 row tiles of a warp's item
-    groups: int           # 8-unit groups of a warp's item
     resident: int         # k-steps of the slice in shared memory (even)
     stages: int           # slots of the ring, a k-pair each
     clusters: int         # clusters in the grid
@@ -1233,47 +1232,49 @@ class WidePlan:
     step_us: float        # modelled time of one step of one wave
 
     @property
-    def launch_args(self) -> Tuple[int, int, int, int, int, int, int]:
+    def warpgroups(self) -> int:
+        """Consumer warpgroups of a CTA: one a 16 units (64 gate columns)."""
+        return self.hidden // self.cluster // 16
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int, int]:
         """The C entries' last arguments before the stream."""
-        return (self.cluster, self.rows, self.tiles, self.groups,
-                self.resident, self.stages, self.smem_bytes)
+        return (self.cluster, self.rows, self.resident, self.stages,
+                self.smem_bytes)
 
 
-# A wide warp's items, (m16 row tiles, 8-unit groups) (the kernel's
-# instances), the consumer warps of a CTA (at most: two warps a quarter of
-# the SM with the producer, so that the accumulators have 255 registers a
-# thread) and the largest TMA box side (the units of a CTA and its rows, at
-# most), as csrc/lstm_scan_wide.cu.
-WIDE_ITEMS = ((1, 2), (3, 2), (3, 3))
-_WIDE_MAX_ITEMS, _WIDE_BOX = 7, 256
-# wide_step_us's parts (microseconds): a step; each 1000 m16n8k16 products
-# of the CTA and of its busiest warp; each KB of the h exchange a CTA sends
-# (bulk copies; it grows with the rows, as the cell does); and, for each
-# k-pair a CTA streams, the larger of its kilobytes' time and a copy's
-# latency over the ring's stages. A least-squares fit to the steps of 63
-# one-cluster plans (H = 384, 512; C = 8 and 16; 16-144 rows; items 1 x 2,
-# 3 x 2, 3 x 3; no ring and rings of 1-4 stages) on an H100 SXM at 700 W
-# (generative_audio_torch/scripts/perf_wide_scan.py), off by at most 1.96
-# us a step and 0.66 in the mean.
-_WIDE_PARTS = (3.19326, 0.79373, 10.07302, 0.03826, 0.0, 0.24)
+# The kernel's instances, rows a cluster (wgmma's N: multiples of 16 whose
+# accumulators and c, rows / 2 + rows / 8 registers a thread, fit the 152 a
+# thread of three warpgroups and the producer leave), and its consumer
+# warpgroups a CTA, at most, as csrc/lstm_scan_wide.cu.
+WIDE_ROWS = (16, 32, 48, 64, 80, 96, 112, 128, 144, 160)
+_WIDE_MAX_WARPGROUPS = 3
+# Depths of the wide ring: a slot goes back to the producer once the next
+# k-pair's products are issued, so a ring holds two slots at least.
+WIDE_STAGES = (2, 3, 4, 6, 8)
+# wide_step_us's parts (microseconds): a step; each 1000 m64n8k16 blocks of
+# a CTA's wgmma products; each 8-row chunk a thread's cell takes (one cell,
+# two shuffles); each KB of the h exchange a CTA sends (bulk copies); and,
+# for each k-pair a CTA streams, the larger of its kilobytes' time and a
+# copy's latency over the ring's stages. A least-squares fit to the steps of
+# 109 one-cluster plans (H = 384 at C = 8 and 16, H = 512 at C = 16; 16-160
+# rows; no ring and rings of 2-6 stages) on an H100 SXM at 700 W
+# (generative_audio_torch/scripts/perf_wide_scan.py), off by at most 2.53
+# us a step and 0.55 in the mean. The products, the cell and the exchange
+# all grow with the rows, and the sweep's two CTA layouts do not tell them
+# apart: the fit puts the products' time in the cell's part (the clock64
+# trace of the script measures the split).
+_WIDE_PARTS = (3.24517, 0.0345, 0.38219, 0.0417, 0.0295, 0.8)
 # The ops of the wide entries, whose C functions end in a WidePlan's launch
 # arguments.
 _WIDE_ENTRIES = ("lstm_scan_fwd_wide", "lstm_scan_fwd_carry_wide")
 
 
-def wide_slice_stride(units: int) -> int:
-    """The row stride (bf16) of a CTA's h slice of `units` units in the wide
-    layout: units padded to an odd number of 16-byte pieces, so that the
-    eight row addresses of an ldmatrix lie in distinct banks."""
-    return 8 * ((units // 8) | 1)
-
-
-def wide_items(hsz: int, cluster: int, rows: int, tiles: int,
-               groups: int) -> int:
-    """Consumer warps of a wide CTA: one per item of `tiles` m16 tiles x
-    `groups` 8-unit groups (whole items: rows a multiple of 16 tiles, the
-    CTA's unit groups a multiple of `groups`)."""
-    return rows // 16 // tiles * (hsz // cluster // 8 // groups)
+def wide_hidden(hsz: int, cluster: int) -> int:
+    """The H a wide cluster of `cluster` CTAs runs a layer of hsz units at:
+    hsz padded to whole warpgroups of 16 units a CTA (whole k-pairs)."""
+    unit = 16 * cluster
+    return -(-hsz // unit) * unit
 
 
 def wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
@@ -1281,33 +1282,31 @@ def wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
     """Shared memory of one wide CTA (csrc/lstm_scan_wide.cu `wide_smem`):
     128 bytes of slack to align the TMA boxes, one step of x-side gates
     [4][rows][U] bf16, the ring of `stages` k-pairs and the `resident`
-    k-steps of the W_hh^T slice in fragment order (4U x 16 bf16 a k-step),
-    one bf16 h buffer slice-major [cluster][rows][wide_slice_stride(U)], the
-    A fragments' column offsets (8 bytes a k-step) and the mbarriers (the
-    ring's two a stage, the exchange's and the gates'), with U = H /
-    cluster units."""
+    k-steps of the W_hh^T slice (4U x 16 bf16 a k-step), the bf16 h buffer
+    [H / 8][rows][8] and the mbarriers (the ring's two a stage, the
+    exchange's and the gates'), with U = H / cluster units."""
     units = hsz // cluster
     return (128 + 8 * rows * units + (stages + resident // 2) * units * 256
-            + cluster * rows * wide_slice_stride(units) * 2 + hsz // 2
-            + 8 * (2 * stages + 2))
+            + 2 * rows * hsz + 8 * (2 * stages + 2))
 
 
-def wide_step_us(hsz: int, cluster: int, rows: int, tiles: int, groups: int,
-                 resident: int, stages: int) -> float:
+def wide_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                 stages: int) -> float:
     """Modelled time of one step of one wave of the wide cluster, from
-    _WIDE_PARTS: a step, the products of the CTA and of its busiest warp,
-    the KB of the bulk h exchange a CTA sends to its cluster - 1 peers, and
-    for each streamed k-pair the larger of its kilobytes' copy time and a
-    copy's latency shared by the ring's stages."""
-    step_us, cta_us, warp_us, x_us, kb_us, latency_us = _WIDE_PARTS
+    _WIDE_PARTS: a step, the CTA's wgmma products, the cell's 8-row chunks
+    a thread, the KB of the bulk h exchange a CTA sends to its cluster - 1
+    peers (its slice through the last row), and for each streamed k-pair
+    the larger of its kilobytes' copy time and a copy's latency shared by
+    the ring's stages."""
+    step_us, cta_us, cell_us, x_us, kb_us, latency_us = _WIDE_PARTS
     units, ksteps = hsz // cluster, hsz // 16
-    cta = rows // 16 * (units // 8) * 4 * ksteps / 1000
-    warp = tiles * groups * 4 * ksteps / 1000
-    sent = (rows * wide_slice_stride(units) * 2 * (cluster - 1)) / 1024
+    cta = units // 16 * (rows // 8) * ksteps / 1000
+    sent = rows * units * 2 * (cluster - 1) / 1024
     pairs = hsz // 32 - resident // 2
     stream = pairs * max(units * 256 / 1024 * kb_us,
                          latency_us / stages) if pairs else 0.0
-    return step_us + cta * cta_us + warp * warp_us + sent * x_us + stream
+    return (step_us + cta * cta_us + rows // 8 * cell_us + sent * x_us
+            + stream)
 
 
 def _wide_resident(hsz: int, cluster: int, rows: int, stages: int,
@@ -1334,76 +1333,62 @@ def _wide_resident(hsz: int, cluster: int, rows: int, stages: int,
 
 
 def plan_wide_scan(hsz: int, batch: int,
-                   max_clusters: Callable[[int, int, int, int, int, int, int],
-                                          int],
+                   max_clusters: Callable[[int, int, int, int, int], int],
                    resident: Optional[int] = None) -> WidePlan:
     """The wide cluster's launch plan for `batch` rows of a layer of hsz
     units.
 
-    For each cluster size C of CLUSTER_SIZES at H = stream_hidden(hsz, C)
-    whose CTAs hold at most _WIDE_BOX units, each item of WIDE_ITEMS (m16
-    tiles, 8-unit groups) that divides the CTA's unit groups, each row count
-    R (a multiple of the item's rows, at most _WIDE_BOX) that gives a CTA
-    at most _WIDE_MAX_ITEMS items, and each ring (none, with the whole slice
-    resident, or a depth of STREAM_STAGES no deeper than the streamed
+    For each cluster size C of CLUSTER_SIZES at H = wide_hidden(hsz, C)
+    whose CTAs need at most _WIDE_MAX_WARPGROUPS warpgroups (16 units
+    each), each row count R of WIDE_ROWS up to the first that holds the
+    batch in one cluster, and each ring (none, with the whole slice
+    resident, or a depth of WIDE_STAGES no deeper than the streamed
     k-pairs, with the most resident k-steps that fit, or `resident` itself
     where given), whose CTA fits SMEM_LIMIT bytes, `max_clusters(H, C, R,
-    tiles, groups, resident, stages)` (the card's
-    cudaOccupancyMaxActiveClusters) run at once over ceil(batch / R)
-    clusters and a step takes wide_step_us. The plan minimises waves x step
-    time; ties go to the smaller cluster, then to fewer clusters, the
-    shallower ring and the smaller item. Raises ValueError with the reasons
-    when nothing fits."""
+    resident, stages)` (the card's cudaOccupancyMaxActiveClusters) run at
+    once over ceil(batch / R) clusters and a step takes wide_step_us. The
+    plan minimises waves x step time; ties go to the smaller cluster, then
+    to fewer clusters and the shallower ring. Raises ValueError with the
+    reasons when nothing fits."""
     if batch < 1:
         raise ValueError(f"the scan needs at least one row, got {batch}")
     best, refused = None, []
     for cluster in CLUSTER_SIZES:
-        hp = stream_hidden(hsz, cluster)
+        hp = wide_hidden(hsz, cluster)
         units = hp // cluster
-        items = [(t, g) for t, g in WIDE_ITEMS if units // 8 % g == 0]
-        if not items or units > _WIDE_BOX:
-            refused.append(f"C={cluster}: {units} units a CTA (whole items "
-                           f"of {sorted({g for _, g in WIDE_ITEMS})} 8-unit "
-                           f"groups, at most {_WIDE_BOX})")
+        if units // 16 > _WIDE_MAX_WARPGROUPS:
+            refused.append(f"C={cluster}: {units} units a CTA need "
+                           f"{units // 16} warpgroups of 16 (at most "
+                           f"{_WIDE_MAX_WARPGROUPS})")
             continue
         fitted = idle = False
-        for tiles, groups in items:
-            for rows in range(16 * tiles, _WIDE_BOX + 1, 16 * tiles):
-                if (wide_items(hp, cluster, rows, tiles, groups)
-                        > _WIDE_MAX_ITEMS or rows - 16 * tiles >= batch):
-                    break
-                clusters = -(-batch // rows)
-                for stages in (0, *STREAM_STAGES):
-                    res = _wide_resident(hp, cluster, rows, stages, resident)
-                    if res is None or (stages and stages >
-                                       hp // 32 - res // 2):
-                        continue
-                    fitted = True
-                    active = max_clusters(hp, cluster, rows, tiles, groups,
-                                          res, stages)
-                    if active < 1:
-                        idle = True
-                        continue
-                    waves = -(-clusters // active)
-                    step = wide_step_us(hp, cluster, rows, tiles, groups, res,
-                                        stages)
-                    key = (waves * step, cluster, clusters, stages,
-                           tiles * groups)
-                    if best is None or key < best[0]:
-                        best = (key, WidePlan(
-                            hp, cluster, rows, tiles, groups, res, stages,
-                            clusters, active, waves,
-                            wide_smem_bytes(hp, cluster, rows, res, stages),
-                            step))
+        for rows in WIDE_ROWS:
+            if rows - 16 >= batch:
+                break
+            clusters = -(-batch // rows)
+            for stages in (0, *WIDE_STAGES):
+                res = _wide_resident(hp, cluster, rows, stages, resident)
+                if res is None or (stages and stages > hp // 32 - res // 2):
+                    continue
+                fitted = True
+                active = max_clusters(hp, cluster, rows, res, stages)
+                if active < 1:
+                    idle = True
+                    continue
+                waves = -(-clusters // active)
+                step = wide_step_us(hp, cluster, rows, res, stages)
+                key = (waves * step, cluster, clusters, stages)
+                if best is None or key < best[0]:
+                    best = (key, WidePlan(
+                        hp, cluster, rows, res, stages, clusters, active,
+                        waves, wide_smem_bytes(hp, cluster, rows, res,
+                                               stages), step))
         if idle:
             refused.append(f"C={cluster}: the card runs no such cluster")
         if not fitted:
-            t, g = items[0]
             refused.append(f"C={cluster}: "
-                           f"{wide_smem_bytes(hp, cluster, 16, 0, 1)} B and "
-                           f"{wide_items(hp, cluster, 16, t, g)} items at 16 "
-                           f"rows (at most {SMEM_LIMIT} B and "
-                           f"{_WIDE_MAX_ITEMS} items)")
+                           f"{wide_smem_bytes(hp, cluster, 16, 0, 2)} B at 16 "
+                           f"rows (at most {SMEM_LIMIT} B)")
     if best is None:
         raise ValueError(f"no wide plan for the LSTM scan at H={hsz}, "
                          f"{batch} rows: " + "; ".join(refused))
@@ -1412,19 +1397,32 @@ def plan_wide_scan(hsz: int, batch: int,
 
 @functools.lru_cache(maxsize=None)
 def card_wide_plan(device: torch.device, hsz: int, batch: int,
-                   instance: Tuple[int, int] = (0, 0),
                    resident: Optional[int] = None) -> WidePlan:
     """The wide plan kernels A and B launch with on `device` (a CUDA device)
-    for `batch` rows of a layer of hsz units; instance (out_f32, carry) as
-    card_scan_plan's flags (lstm_scan_wide_max_clusters of
-    csrc/lstm_scan_wide.cu)."""
+    for `batch` rows of a layer of hsz units (lstm_scan_wide_max_clusters
+    of csrc/lstm_scan_wide.cu; one instance serves both entries and both
+    output types)."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
     return plan_wide_scan(
-        hsz, batch, lambda h, c, r, tiles, groups, res, stages: _max_clusters(
-            "lstm_scan_wide", index, (*instance, tiles, groups, res, stages),
-            h, c, r), resident)
+        hsz, batch, lambda h, c, r, res, stages: _max_clusters(
+            "lstm_scan_wide", index, (res, stages), h, c, r), resident)
+
+
+def _wide_weight(w_hh: torch.Tensor, hp: int, cluster: int) -> torch.Tensor:
+    """W_hh [H, 4H] -> the wide entries' operand: zero-padded to hp units,
+    each CTA's W_hh^T slice (rows q*hp + k*U + u of the kernel weight, U =
+    hp / cluster) k-pair after k-pair as wgmma's K-major A operand:
+    [cluster][hp/32][4 k8 groups][4U rows][8] bf16, row m = 64 wg + 16 w +
+    8 hi + r holding gate q = 2 hi + (r & 1) of unit u = 16 wg + 4 w + r // 2
+    (csrc/lstm_scan_wide.cu), columns 32p + 8 kg .. + 7."""
+    wt = _kernel_weight(w_hh, hp)                      # [4*hp, hp]
+    units = hp // cluster
+    # [hi][rb][C][wg][w][r2][p][kg][j] -> [C][p][kg][wg][w][hi][r2][rb][j]
+    w = wt.reshape(2, 2, cluster, units // 16, 4, 4, hp // 32, 4, 8)
+    return w.permute(2, 6, 7, 3, 4, 0, 5, 1, 8).reshape(
+        cluster, hp // 32, 4, 4 * units, 8).contiguous()
 
 
 def unrolled_smem_bytes(hsz: int, cluster: int, rows: int, k: int) -> int:
@@ -2961,10 +2959,12 @@ def _route_weight(w_hh: torch.Tensor, hp: int,
                   plan: Optional[Union[StreamPlan, WidePlan]]
                   ) -> torch.Tensor:
     """The forward entries' W_hh operand at hp units (both modules): packed
-    for the streamed or wide cluster of `plan` (the same fragment order),
-    else the kernel weight [n*hp, hp]."""
+    for the streamed cluster of `plan` (fragment order) or the wide one
+    (wgmma's order), else the kernel weight [n*hp, hp]."""
     if plan is None:
         return _kernel_weight(w_hh, hp)
+    if isinstance(plan, WidePlan):
+        return _wide_weight(w_hh, hp, plan.cluster)
     return _stream_weight(w_hh, hp, plan.cluster)
 
 

@@ -37,7 +37,7 @@ def stub_stream_plans(monkeypatch):
                                             resident))
 
 
-def stub_wide_occupancy(hsz, cluster, rows, tiles, groups, resident, stages):
+def stub_wide_occupancy(hsz, cluster, rows, resident, stages):
     """Clusters of the wide forwards an H100 runs at once (one CTA an SM),
     as stub_occupancy."""
     return stub_occupancy(hsz, cluster, rows, resident, stages)
@@ -55,7 +55,7 @@ def stub_wide_route(monkeypatch):
             hsz, c, r, 0, 1)))
     monkeypatch.setattr(
         tl, "card_wide_plan",
-        lambda device, hsz, batch, instance=(0, 0), resident=None:
+        lambda device, hsz, batch, resident=None:
         tl.plan_wide_scan(hsz, batch, stub_wide_occupancy, resident))
     monkeypatch.setattr(tl, "_on_card", lambda device: True)
 
@@ -92,6 +92,24 @@ def stream_weight_rows(wf, plan, n_gates):
     return w.transpose(0, 1).reshape(n_gates * hp, hp)
 
 
+def wide_weight_rows(wf, plan):
+    """The kernel weight W_hh^T [4hp, hp] from a wide forward's operand
+    (ops/lstm.py _wide_weight undone by its index map: row m = 64 wg + 16 w
+    + 8 hi + r of k-pair p's k8 group kg is gate 2 hi + (r & 1) of the CTA's
+    unit 16 wg + 4 w + r // 2, columns 32 p + 8 kg .. + 7), after checking
+    its shape against the plan it was packed for."""
+    hp, cluster = plan.hidden, plan.cluster
+    units = hp // cluster
+    assert tuple(wf.shape) == (cluster, hp // 32, 4, 4 * units, 8)
+    c, p, kg, m, j = torch.meshgrid(*(torch.arange(n) for n in wf.shape),
+                                    indexing="ij")
+    wg, w, hi, r = m // 64, m // 16 % 4, m // 8 % 2, m % 8
+    gate, unit = 2 * hi + r % 2, 16 * wg + 4 * w + r // 2
+    wt = torch.full((4 * hp, hp), float("nan"), dtype=wf.dtype)
+    wt[gate * hp + c * units + unit, 32 * p + 8 * kg + j] = wf
+    return wt
+
+
 def stream_dh_weight_rows(wdh, plan, n_gates):
     """The kernel weight W_hh [hp, n*hp] from a streamed backward's second
     operand (ops/lstm.py _stream_dh_weight undone), after checking its shape
@@ -108,10 +126,11 @@ BWD_STREAM_ENTRIES = ("lstm_scan_bwd_stream", "gru_scan_bwd_stream",
 
 
 def unstream(fn_name, args, plan, n_gates):
-    """(entry, arguments, units) of a streamed (or wide: the same operand)
-    entry's launch as the cluster entry's: W_hh^T unpacked, after checking
+    """(entry, arguments, units) of a streamed or wide entry's launch as the
+    cluster entry's: W_hh^T unpacked, after checking
     the plan against the H the wrapper passed (its arguments end in ..., B,
-    H, reverse), and H padded to stream_hidden's units. A streamed or wide
+    H, reverse), and H padded to stream_hidden's units (the wide forwards'
+    to wide_hidden's). A streamed or wide
     backward's two operands (the recompute's W_hh^T and the second
     product's W_hh, each packed on its own) become the cluster backward's
     three: wt, w and wt in fragment order."""
@@ -125,8 +144,12 @@ def unstream(fn_name, args, plan, n_gates):
         return (fn_name.rsplit("_", 1)[0],
                 (*args[:k], wt, w, tl._fragment_weight(wt), *args[k + 2:]),
                 tl.stream_hidden(1, plan.cluster))
-    kind = tl.WidePlan if fn_name.endswith("_wide") else tl.StreamPlan
-    assert isinstance(plan, kind) and plan.hidden == args[-2]
+    if fn_name.endswith("_wide"):
+        assert isinstance(plan, tl.WidePlan) and plan.hidden == args[-2]
+        return (fn_name.rsplit("_", 1)[0],
+                (args[0], wide_weight_rows(args[1], plan), *args[2:]),
+                tl.wide_hidden(1, plan.cluster))
+    assert isinstance(plan, tl.StreamPlan) and plan.hidden == args[-2]
     wt = stream_weight_rows(args[1], plan, n_gates)
     return (fn_name.rsplit("_", 1)[0], (args[0], wt, *args[2:]),
             tl.stream_hidden(1, plan.cluster))
