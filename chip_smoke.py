@@ -422,6 +422,27 @@ of which fails the run (non-zero exit, no result line):
      resident cluster under resident_backwards(); the v1-GRU launch checks
      name the GRU backward's entry as the route takes it at each scan's
      rows (routed, routed_step).
+ 29. (run after phase 27) kernel C as a wide cluster
+     (csrc/lstm_scan_wide.cu, lstm_scan_fwd_train_wide: kernel A's wide
+     cluster, products on wgmma, that also stores the bf16 c sequence from
+     the registers that hold c, so its instances and plans are kernel
+     A's), the route of kernel C where a resident cluster holds H and the
+     wide cluster's modelled waves x step are the less (the sub-band
+     training batch): the instances' registers without a spill; h_seq and
+     c_seq bit for bit against the resident cluster at 2304, 2295 and 1024
+     rows x T=195 and H=512 x 18 x 195, forward and reverse, h against the
+     wide kernel A's, two runs of one plan against each other, both within
+     phase 3's limits of the plain version; timed at 2304 and 1024 rows
+     beside the resident cluster (in turns), the plain version, cuDNN's
+     training forward and the bound, with both plans and the route's
+     pick; then the path, FullSubNet+'s bf16 training step on the route
+     beside ops.lstm.resident_forwards() (in turns) with exact launches,
+     medians and a profile of each. The route's launches add to the wide
+     entry's in the kernels line, resident_forwards()' to the resident
+     entry's (its own path). Phases 3 and 8 hold kernel C's resident
+     cluster under resident_forwards(); the training phases' launch checks
+     name kernel C's entry as the route takes it at each step's sub-band
+     rows (routed, routed_step).
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -435,12 +456,12 @@ C's, D's and the GRU kernels'), and around each request and step of
 phase 23's model paths (the streamed entries') and phase 24's training
 step (the streamed backwards'), and around each part of phase 25's path
 (kernels E's and F's streamed clusters') and of phase 26's (the wide
-clusters') and around each training step of phases 27 and 28 (the wide
-backwards'). The second-to-last line of stdout is
-the `kernels` JSON, the last line the device JSON. Exits non-zero without a
-CUDA device. `python3 chip_smoke.py --phase20 PART OUT` is a rank of phase
-20, `--phase21 PART OUT` one of phase 21, `--phase22 graft OUT` one of
-phase 22, run by cli.launch.
+clusters') and around each training step of phases 27, 28 and 29 (the
+wide backwards' and kernel C's two designs'). The second-to-last line of
+stdout is the `kernels` JSON, the last line the device JSON. Exits
+non-zero without a CUDA device. `python3 chip_smoke.py --phase20 PART
+OUT` is a rank of phase 20, `--phase21 PART OUT` one of phase 21,
+`--phase22 graft OUT` one of phase 22, run by cli.launch.
 """
 import contextlib
 import dataclasses
@@ -3056,73 +3077,101 @@ def _wide_bwd_times(dev, L, gen, card, registers):
                 plan=dataclasses.asdict(plan))
 
 
-def _wide_bwd_path(dev, plus):
-    """FullSubNet+'s bf16 training step (EnhanceTrainConfig, 18 x 3.072 s,
-    2304 sub-band rows) on the route, with exact launches (2 of kernel D's
-    routed entry a step), its median beside the resident cluster's in turns
-    (WIDE_BWD_STEPS steps each: route, resident, resident, route), its peak
-    memory and a profile of one step. Returns the route's launches and the
-    readings."""
+def _steps_in_turns(dev, path, witness, n, what):
+    """`path`'s bf16 training step (its EnhanceTrainConfig, TRAIN_BATCH x
+    TRAIN_SAMPLES) on the route beside `witness()`, a context manager that
+    forces the design the route replaced: one warm step of each design, n
+    steps of each in turns (route, witness, witness, route), then one step
+    of each for its peak memory and a profile of one more. Every step's
+    launches are exactly its design's (routed_step of path.per_step, named
+    under witness() for the witness). Returns {"route": ..., "witness":
+    ...}, each with the step's launches (per_step), the launches of all
+    its counted steps (launched), the timed steps (times, ms) and their
+    median, the peak memory (GiB) and the profile (_profile's wall, busy
+    and rows)."""
     from generative_audio_torch.ops import lstm as L
     from generative_audio_torch.train import EnhanceTrainer
-    trainer = EnhanceTrainer(plus.train_config("bfloat16"), seed=SEED,
-                             pretrained_state_dict=plus.sd, device=dev)
+    trainer = EnhanceTrainer(path.train_config("bfloat16"), seed=SEED,
+                             pretrained_state_dict=path.sd, device=dev)
     noisy, clean = (torch.from_numpy(x).to(dev) for x in
                     _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
-    per_step = routed_step(plus.per_step)
-    launched = dict.fromkeys(per_step, 0)
+    designs = {"route": contextlib.nullcontext, "witness": witness}
+    out = {}
+    for part, design in designs.items():
+        with design():
+            out[part] = dict(per_step=routed_step(path.per_step), launched={},
+                             times=[])
 
-    def steps(n, counted):
+    def steps(k, part):
         times = []
-        for _ in range(n):
+        for _ in range(k):
             L.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss = trainer.train_epoch([(noisy, clean)])   # ends in a fetch
             times.append((time.perf_counter() - t0) * 1e3)
-            got = {k: v for k, v in L.launch_counts.items() if v}
-            check(np.isfinite(loss), "finite training loss on phase 27's path")
-            if counted:
-                check(got == per_step, f"phase 27's training step launched "
-                      f"{per_step} and nothing else (got {got})")
-                for k, v in got.items():
-                    launched[k] += v
+            got = {key: v for key, v in L.launch_counts.items() if v}
+            check(np.isfinite(loss), f"finite training loss on {what}")
+            check(got == out[part]["per_step"], f"{what}'s training step "
+                  f"({part}) launched {out[part]['per_step']} and nothing "
+                  f"else (got {got})")
+            for key, v in got.items():
+                out[part]["launched"][key] = (
+                    out[part]["launched"].get(key, 0) + v)
         return times
 
-    steps(1, True)                      # warm: the route's shapes
-    with L.resident_backwards():
-        steps(1, False)
-    route, resident = [], []
-    for part in ("route", "resident", "resident", "route"):
-        if part == "route":
-            route += steps(WIDE_BWD_STEPS, True)
-        else:
-            with L.resident_backwards():
-                resident += steps(WIDE_BWD_STEPS, False)
-    torch.cuda.reset_peak_memory_stats(dev)
-    steps(1, True)
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    wall, busy, rows = _profile(
-        lambda: trainer.train_epoch([(noisy, clean)]),
-        f"FullSubNet+ training step on the route (kernel D "
-        f"{routed('lstm_scan_bwd', TRAIN_ROWS)})")
+    for part in designs:                # warm: each design's shapes
+        with designs[part]():
+            steps(1, part)
+    for part in ("route", "witness", "witness", "route"):
+        with designs[part]():
+            out[part]["times"] += steps(n, part)
+    for part, r in out.items():
+        r["median_ms"] = statistics.median(r["times"])
+        with designs[part]():
+            torch.cuda.reset_peak_memory_stats(dev)
+            steps(1, part)
+            r["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            r["profile"] = _profile(
+                lambda: trainer.train_epoch([(noisy, clean)]),
+                f"{path.name} training step ({part}: {r['per_step']})")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _times_line(times):
+    return " ".join(f"{x:.1f}" for x in times)
+
+
+def _wide_bwd_path(dev, plus):
+    """FullSubNet+'s bf16 training step (EnhanceTrainConfig, 18 x 3.072 s,
+    2304 sub-band rows) on the route, with exact launches (2 of kernel D's
+    routed entry a step), its median beside the resident cluster's in turns
+    (WIDE_BWD_STEPS steps each: route, resident, resident, route), its peak
+    memory and a profile of one step (_steps_in_turns under
+    resident_backwards()). Returns the route's launches and the
+    readings."""
+    from generative_audio_torch.ops import lstm as L
+    res = _steps_in_turns(dev, plus, L.resident_backwards, WIDE_BWD_STEPS,
+                          "phase 27's path")
+    route, resident = res["route"], res["witness"]
+    wall, busy, rows = route["profile"]
     d_ms = sum(ms for key, ms, _ in rows if "bwd_wide" in key
                or "bwd_cluster" in key)
-    out = dict(route_ms=statistics.median(route),
-               resident_ms=statistics.median(resident), peak_gib=peak,
-               profiled_ms=wall, busy_ms=busy, d_ms=d_ms)
+    out = dict(route_ms=route["median_ms"], resident_ms=resident["median_ms"],
+               peak_gib=route["peak_gib"], profiled_ms=wall, busy_ms=busy,
+               d_ms=d_ms)
     log(f"phase 27 (c) FullSubNet+ bf16 step, batch {TRAIN_BATCH} x "
         f"{TRAIN_SAMPLES / 16000:.3f} s: on the route (kernel D "
-        f"{routed('lstm_scan_bwd', TRAIN_ROWS)}, {per_step} a step) median "
-        f"{out['route_ms']:.2f} ms of {' '.join(f'{x:.1f}' for x in route)}; "
+        f"{routed('lstm_scan_bwd', TRAIN_ROWS)}, {route['per_step']} a step) "
+        f"median {out['route_ms']:.2f} ms of {_times_line(route['times'])}; "
         f"resident_backwards() {out['resident_ms']:.2f} ms of "
-        f"{' '.join(f'{x:.1f}' for x in resident)}; peak memory {peak:.2f} "
+        f"{_times_line(resident['times'])}; peak memory {out['peak_gib']:.2f} "
         f"GiB; profiled {wall:.2f} ms, busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%), kernel D {d_ms:.2f} ms; on "
         f"{card_line()}")
-    del trainer
-    torch.cuda.empty_cache()
-    return {k: v for k, v in launched.items() if v}, out
+    return route["launched"], out
 
 
 def phase_wide_backward(dev, registers):
@@ -3158,6 +3207,215 @@ def phase_wide_backward(dev, registers):
           f"{routed_d} launched 2 a step on phase 27's path")
     return {WIDE_BWD_ENTRY: numbers}, {WIDE_BWD_ENTRY: launches.get(
         WIDE_BWD_ENTRY, 0)}
+
+
+# Phase 29: kernel C as a wide cluster (csrc/lstm_scan_wide.cu
+# lstm_scan_fwd_train_wide: kernel A's wide cluster, products on wgmma, that
+# also stores the bf16 c sequence from the registers that hold c), the route
+# of lstm_scan_train_tm wherever a resident cluster holds H and the wide
+# cluster's modelled waves x step beat the resident cluster's: at the
+# training batch (2304 rows) one wave of 160 rows a cluster where the
+# resident cluster needs five of 32.
+WIDE_C_ENTRY = "lstm_scan_fwd_train_wide"
+# (H, T, rows) of the identities: the sub-band training batch and its
+# ragged count, the NPPC head's 1024 rows, the full band's training shape.
+WIDE_C_SHAPES = ((HIDDEN, TRAIN_T, TRAIN_ROWS),
+                 (HIDDEN, TRAIN_T, TRAIN_RAGGED_ROWS),
+                 (HIDDEN, TRAIN_T, 1024), (FB_HIDDEN, TRAIN_T, TRAIN_BATCH))
+WIDE_C_STEPS = 4             # (c)'s timed steps of each design, in turns
+
+
+def _wide_c_identities(dev, L, gen):
+    """At each of WIDE_C_SHAPES, forward and reverse: kernel C's wide
+    cluster (wide_forwards()) bit for bit against the resident cluster
+    (resident_forwards(): h_seq and c_seq), its h_seq against the wide
+    kernel A's bf16 h, two runs of one plan against each other, and both
+    sequences within phase 3's limits of the plain version; each wide run
+    counted. Returns the largest max and mean error against plain (c_seq's,
+    the larger)."""
+    worst = [0.0, 0.0]
+    for h, t_len, rows in WIDE_C_SHAPES:
+        w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+        gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        plan = L.card_wide_plan(dev, h, rows)
+        for reverse in (False, True):
+            tag = f"H={h} T={t_len} rows={rows} reverse={reverse}"
+            with L.wide_forwards():
+                wide = _counted(L, WIDE_C_ENTRY, lambda: L.lstm_scan_train_tm(
+                    gates, w_hh, reverse))
+                again = _counted(L, WIDE_C_ENTRY, lambda: (
+                    L.lstm_scan_train_tm(gates, w_hh, reverse)))
+                with torch.no_grad():
+                    h_a = _counted(L, WIDE_ENTRIES[0], lambda: (
+                        L.lstm_scan_tm(gates, w_hh, reverse)))
+            with L.resident_forwards():
+                resident = _counted(L, "lstm_scan_fwd_train", lambda: (
+                    L.lstm_scan_train_tm(gates, w_hh, reverse)))
+            plain = L.lstm_scan_train_reference_tm(gates, w_hh, reverse)
+            torch.cuda.synchronize()
+            diff = max((x.float() - y.float()).abs().max().item()
+                       for x, y in zip(wide, resident))
+            check(all(torch.equal(x, y) for x, y in zip(wide, resident)),
+                  f"{WIDE_C_ENTRY} == lstm_scan_fwd_train bitwise: h_seq "
+                  f"and c_seq ({tag}; worst |difference| {diff:.3e})")
+            check(torch.equal(wide[0], h_a), f"{WIDE_C_ENTRY} h == "
+                  f"{WIDE_ENTRIES[0]} h bitwise ({tag})")
+            check(all(torch.equal(x, y) for x, y in zip(wide, again)),
+                  f"two runs of {WIDE_C_ENTRY} under one plan bitwise ({tag})")
+            err_h, err_c = ((x.float() - y.float()).abs()
+                            for x, y in zip(wide, plain))
+            # phase 3's limits: c is O(1) and rounded to bf16 on both sides
+            check(all(torch.isfinite(x.float()).all().item() for x in wide)
+                  and err_c.max().item() < 8 * KERNEL_MAX_ABS
+                  and err_c.mean().item() < 8 * KERNEL_MEAN_ABS
+                  and err_h.max().item() < 8 * KERNEL_MAX_ABS,
+                  f"{WIDE_C_ENTRY} vs plain within {8 * KERNEL_MAX_ABS}/"
+                  f"{8 * KERNEL_MEAN_ABS} ({tag}: c {err_c.max().item():.3e}/"
+                  f"{err_c.mean().item():.3e}, h {err_h.max().item():.3e})")
+            worst = [max(worst[0], err_c.max().item(), err_h.max().item()),
+                     max(worst[1], err_c.mean().item(), err_h.mean().item())]
+            del wide, again, h_a, resident, plain, err_h, err_c
+        log(f"{WIDE_C_ENTRY} == the resident cluster bitwise (h_seq, c_seq), "
+            f"its h == {WIDE_ENTRIES[0]}'s, two runs equal, at H={h} "
+            f"T={t_len} rows={rows} (forward and reverse); wide plan "
+            f"{_wide_plan_line(plan)}; route "
+            f"{L._forward_route(h, rows, dev, (0, 0, 1))[1] or 'resident'}")
+        del gates
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _wide_c_times(dev, L, gen, rows, card):
+    """Kernel C at (H=HIDDEN, T=TRAIN_T, rows): the wide cluster timed
+    beside the resident cluster in turns (wide, resident, resident, wide),
+    with the plain version, cuDNN's training forward, the bound, both plans
+    with their waves and modelled steps, and the route's pick."""
+    h, t_len = HIDDEN, TRAIN_T
+    w_hh = _uniform(gen, dev, (h, 4 * h), h ** -0.5)
+    gates = torch.randn(t_len, rows, 4 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+
+    def wide():
+        with L.wide_forwards():
+            return L.lstm_scan_train_tm(gates, w_hh)
+
+    def resident():
+        with L.resident_forwards():
+            return L.lstm_scan_train_tm(gates, w_hh)
+
+    rounds = [cuda_ms(wide, iters=3), cuda_ms(resident, iters=3),
+              cuda_ms(resident, iters=3), cuda_ms(wide, iters=3)]
+    ms, ms_res = min(rounds[0], rounds[3]), min(rounds[1:3])
+    plain = cuda_ms(lambda: L.lstm_scan_train_reference_tm(gates, w_hh),
+                    iters=2)
+    library = library_lstm_train_ms(gates, w_hh)[0]
+    b_ms, by = bound(t_len, rows, h, streams=6)   # gates in, h and c out
+    plan = L.card_wide_plan(dev, h, rows)
+    res_plan = L.card_scan_plan(dev, h, rows, train=True)
+    res_us = L.scan_step_us(h, res_plan.cluster, res_plan.rows)
+    route = L._forward_route(h, rows, dev, (0, 0, 1))[1]
+    log(f"{WIDE_C_ENTRY} at T={t_len} rows={rows} H={h}: {ms:.3f} ms, "
+        f"{1e3 * ms / t_len / plan.waves:.3f} us a step a wave (modelled "
+        f"{plan.step_us:.3f}: {plan.waves * plan.step_us * t_len / 1e3:.3f} "
+        f"ms); resident cluster {ms_res:.3f} ms, "
+        f"{1e3 * ms_res / t_len / res_plan.waves:.3f} us a step a wave "
+        f"(modelled {res_us:.3f}, {res_plan.waves} waves: "
+        f"{res_plan.waves * res_us * t_len / 1e3:.3f} ms); rounds "
+        f"{' '.join(f'{r:.3f}' for r in rounds)}; bound {b_ms:.4f} ms by "
+        f"{by}; plain {plain:.3f} ms; cuDNN LSTM forward, training mode, "
+        f"{library:.3f} ms; plan {_wide_plan_line(plan)}; route "
+        f"{'wide' if route == '_wide' else 'resident'}; on {card}")
+    del gates
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                library_ms=library, resident_ms=ms_res,
+                us_a_step=1e3 * ms / t_len / plan.waves,
+                design="wide" if route == "_wide" else "resident",
+                plan=dataclasses.asdict(plan))
+
+
+def _wide_c_path(dev, plus):
+    """FullSubNet+'s bf16 training step (EnhanceTrainConfig, 18 x 3.072 s,
+    2304 sub-band rows) on the route, with exact launches (2 of kernel C's
+    routed entry and 2 of kernel D's a step), its median beside
+    resident_forwards()' (kernel C's resident cluster, launches as exact)
+    in turns (WIDE_C_STEPS steps each: route, resident, resident, route)
+    and a profile of one step of each (_steps_in_turns). Returns the
+    launches of both designs' steps and the readings."""
+    from generative_audio_torch.ops import lstm as L
+    res = _steps_in_turns(dev, plus, L.resident_forwards, WIDE_C_STEPS,
+                          "phase 29's path")
+    out = {"route_ms": res["route"]["median_ms"],
+           "resident_ms": res["witness"]["median_ms"]}
+    launched = {}
+    for part, r in res.items():
+        wall, busy, rows = r["profile"]
+        c_ms = sum(ms for key, ms, _ in rows if "lstm_wide_kernel" in key
+                   or "lstm_cluster_kernel" in key)
+        d_ms = sum(ms for key, ms, _ in rows if "bwd_wide" in key
+                   or "bwd_cluster" in key)
+        out["route" if part == "route" else "resident"] = dict(
+            profiled_ms=wall, busy_ms=busy, c_ms=c_ms, d_ms=d_ms,
+            peak_gib=r["peak_gib"])
+        for k, n in r["launched"].items():
+            launched[k] = launched.get(k, 0) + n
+    log(f"phase 29 (c) FullSubNet+ bf16 step, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SAMPLES / 16000:.3f} s: on the route "
+        f"({res['route']['per_step']} a step) median {out['route_ms']:.2f} ms "
+        f"of {_times_line(res['route']['times'])}; resident_forwards() "
+        f"({res['witness']['per_step']}) {out['resident_ms']:.2f} ms of "
+        f"{_times_line(res['witness']['times'])}; profiled: " + "; ".join(
+            f"{part} {r['profiled_ms']:.2f} ms, busy {r['busy_ms']:.2f} "
+            f"({100 * r['busy_ms'] / r['profiled_ms']:.1f}%), kernel C "
+            f"{r['c_ms']:.2f} ms, kernel D {r['d_ms']:.2f} ms "
+            f"({100 * (r['c_ms'] + r['d_ms']) / r['busy_ms']:.1f}% of busy), "
+            f"peak memory {r['peak_gib']:.2f} GiB"
+            for part, r in (("route", out["route"]),
+                            ("resident", out["resident"])))
+        + f"; on {card_line()}")
+    return launched, out
+
+
+def phase_wide_train(dev, registers):
+    """Phase 29: kernel C as a wide cluster. (a) Every instance's registers
+    without a spill (kernel C runs kernel A's instances); bit for bit
+    against the resident cluster (h_seq and c_seq) at 2304, a ragged 2295
+    and 1024 rows x T=195 and H=512 x 18 x 195, forward and reverse, its h
+    against the wide kernel A's, two runs against each other, within phase
+    3's limits of the plain version; (b) timed at 2304 and 1024 rows beside
+    the resident cluster (in turns), the plain version, cuDNN's training
+    forward and the bound, with both plans and the route's pick; (c) the
+    path: FullSubNet+'s bf16 training step on the route beside
+    resident_forwards() in turns, exact launches, medians and a profile of
+    each. Returns the entry's numbers and the launches of (c) (the route's
+    and, for the resident entry, resident_forwards()' steps)."""
+    from generative_audio_torch.ops import lstm as L
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    wide = {k: v for k, v in registers.items() if k.startswith("wide ")
+            and k.endswith(" rows")}
+    log(f"kernel C's wide instances (kernel A's): "
+        f"{_registers_line(wide, 'w')}")
+    check(all(v.endswith(" 0/0 B spilled") for v in wide.values()),
+          "no wide instance of kernel C spills")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 290)
+    worst = _wide_c_identities(dev, L, gen)
+    numbers = _wide_c_times(dev, L, gen, TRAIN_ROWS, card)
+    numbers["nppc_head"] = _wide_c_times(dev, L, gen, 1024, card)
+    numbers["max_abs_err"], numbers["mean_abs_err"] = worst
+    plus, _, _ = model_paths()
+    launches, numbers["path"] = _wide_c_path(dev, plus)
+    log(f"launches on phase 29's path: {launches}; phase 29 "
+        f"{time.perf_counter() - t0:.1f} s")
+    routed_c = routed("lstm_scan_fwd_train", TRAIN_ROWS)
+    check(routed_c == WIDE_C_ENTRY
+          and launches.get(routed_c, 0) == 2 * (2 * WIDE_C_STEPS + 2),
+          f"{WIDE_C_ENTRY} is the route at {TRAIN_ROWS} rows and launched 2 "
+          f"a step on phase 29's path")
+    return {WIDE_C_ENTRY: numbers}, {
+        k: launches.get(k, 0) for k in C_ENTRIES}
 
 
 # Phase 28: the GRU backward (TPU row 7) for Hopper: the scan as a wide
@@ -3348,18 +3606,11 @@ def _gru_wide_path(dev, v1_gru):
     new routes, with exact launches (4 forwards, 4 backward scans named by
     the route at their rows, 4 contractions a step), its median beside
     resident_backwards() with the first design's contraction in turns
-    (GRU_WIDE_STEPS steps each: route, first, first, route), its peak
-    memory and a profile of one step. Returns the route's launches and the
-    readings."""
+    (GRU_WIDE_STEPS // 2 steps each: route, first, first, route), its peak
+    memory and a profile of one step (_steps_in_turns). Returns the route's
+    launches and the readings."""
     from generative_audio_torch.ops import gru as G
     from generative_audio_torch.ops import lstm as L
-    from generative_audio_torch.train import EnhanceTrainer
-    trainer = EnhanceTrainer(v1_gru.train_config("bfloat16"), seed=SEED,
-                             pretrained_state_dict=v1_gru.sd, device=dev)
-    noisy, clean = (torch.from_numpy(x).to(dev) for x in
-                    _noise_batch(SEED + 6, TRAIN_BATCH, TRAIN_SAMPLES))
-    per_step = routed_step(v1_gru.per_step)
-    launched = dict.fromkeys(per_step, 0)
 
     @contextlib.contextmanager
     def first_design():
@@ -3368,57 +3619,25 @@ def _gru_wide_path(dev, v1_gru):
                 lambda n, h, sms=None: G.plan_dwhh_first(n, h)):
             yield
 
-    def steps(n, counted):
-        times = []
-        for _ in range(n):
-            L.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss = trainer.train_epoch([(noisy, clean)])   # ends in a fetch
-            times.append((time.perf_counter() - t0) * 1e3)
-            got = {k: v for k, v in L.launch_counts.items() if v}
-            check(np.isfinite(loss), "finite training loss on phase 28's path")
-            if counted:
-                check(got == per_step, f"phase 28's training step launched "
-                      f"{per_step} and nothing else (got {got})")
-                for k, v in got.items():
-                    launched[k] += v
-        return times
-
-    steps(1, True)                      # warm: the route's shapes
-    with first_design():
-        steps(1, False)
-    route, first = [], []
-    for part in ("route", "first", "first", "route"):
-        if part == "route":
-            route += steps(GRU_WIDE_STEPS // 2, True)
-        else:
-            with first_design():
-                first += steps(GRU_WIDE_STEPS // 2, False)
-    torch.cuda.reset_peak_memory_stats(dev)
-    steps(1, True)
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    wall, busy, rows = _profile(
-        lambda: trainer.train_epoch([(noisy, clean)]),
-        f"FullSubNet v1-GRU training step on the route ({per_step})")
+    res = _steps_in_turns(dev, v1_gru, first_design, GRU_WIDE_STEPS // 2,
+                          "phase 28's path")
+    route, first = res["route"], res["witness"]
+    wall, busy, rows = route["profile"]
     scan_ms = sum(ms for key, ms, _ in rows if "gru_bwd" in key)
     dwhh_ms = sum(ms for key, ms, _ in rows if "dwhh" in key)
-    out = dict(route_ms=statistics.median(route),
-               first_ms=statistics.median(first), peak_gib=peak,
-               profiled_ms=wall, busy_ms=busy, scan_ms=scan_ms,
-               dwhh_ms=dwhh_ms)
+    out = dict(route_ms=route["median_ms"], first_ms=first["median_ms"],
+               peak_gib=route["peak_gib"], profiled_ms=wall, busy_ms=busy,
+               scan_ms=scan_ms, dwhh_ms=dwhh_ms)
     log(f"phase 28 (d) FullSubNet v1-GRU bf16 step, batch {TRAIN_BATCH} x "
-        f"{TRAIN_SAMPLES / 16000:.3f} s: on the routes ({per_step} a step) "
-        f"median {out['route_ms']:.2f} ms of "
-        f"{' '.join(f'{x:.1f}' for x in route)}; resident_backwards() with the"
-        f" first contraction {out['first_ms']:.2f} ms of "
-        f"{' '.join(f'{x:.1f}' for x in first)}; peak memory {peak:.2f} GiB; "
-        f"profiled {wall:.2f} ms, busy {busy:.2f} ms "
+        f"{TRAIN_SAMPLES / 16000:.3f} s: on the routes ({route['per_step']} a "
+        f"step) median {out['route_ms']:.2f} ms of "
+        f"{_times_line(route['times'])}; resident_backwards() with the first "
+        f"contraction {out['first_ms']:.2f} ms of "
+        f"{_times_line(first['times'])}; peak memory {out['peak_gib']:.2f} "
+        f"GiB; profiled {wall:.2f} ms, busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f}%), backward scans {scan_ms:.2f} ms, "
         f"contractions {dwhh_ms:.2f} ms; on {card_line()}")
-    del trainer
-    torch.cuda.empty_cache()
-    return {k: v for k, v in launched.items() if v}, out
+    return route["launched"], out
 
 
 def phase_gru_wide_backward(dev, registers):
@@ -4130,11 +4349,11 @@ def phase_lstm_layer(dev, path, kernel_a_ms, registers):
      * gout.float()).sum().backward()
     torch.cuda.synchronize()
     launched = {k: L.launch_counts[k] - before[k] for k in before}
+    c_entry = routed("lstm_scan_fwd_train", TRAIN_ROWS)
     d_entry = routed("lstm_scan_bwd", TRAIN_ROWS)
-    check(launched == {**dict.fromkeys(launched, 0), "lstm_scan_fwd_train": 1,
-                       d_entry: 1},
-          f"LSTMLayerScan launched 1 lstm_scan_fwd_train and 1 {d_entry} "
-          f"and nothing else (got {launched})")
+    check(launched == {**dict.fromkeys(launched, 0), c_entry: 1, d_entry: 1},
+          f"LSTMLayerScan launched 1 {c_entry} and 1 {d_entry} and nothing "
+          f"else (got {launched})")
     exact_in = [t.clone().requires_grad_() for t in (xg, *weights[0])]
     (L.lstm_layer_reference_tm(*exact_in, compute_dtype=torch.float32)
      * gout.float()).sum().backward()
@@ -4777,7 +4996,9 @@ def phase_training_reference(dev, path, dtype="bfloat16"):
 
 def _profile(fn, what):
     """torch.profiler's device time by kernel for one call of fn, against
-    its wall time."""
+    its wall time. A user annotation's range on the device timeline (the
+    optimizer's "Optimizer.step#Adam.step") spans kernels and the gaps
+    between them, so it is left out of the device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -4790,7 +5011,9 @@ def _profile(fn, what):
         wall = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy = sum(ms for _, ms, _ in rows)
     check(busy > 0, f"torch.profiler recorded device time for {what}")
     log(f"profile: {what}, wall {wall:.2f} ms (profiled), "
@@ -4875,10 +5098,12 @@ def _count(counts, fn, expected, what):
 
 
 def routed(entry, rows, out_f32=False, hsz=HIDDEN):
-    """The entry kernel A ("lstm_scan_fwd") or B ("lstm_scan_fwd_carry")
-    launches for `rows` rows of an LSTM of hsz units on the card: the route
-    of ops.lstm.plan_forward, the wide cluster ("_wide") or the resident
-    one, whichever models faster there; kernel D ("lstm_scan_bwd") and the
+    """The entry kernel A ("lstm_scan_fwd"), B ("lstm_scan_fwd_carry") or C
+    ("lstm_scan_fwd_train") launches for `rows` rows of an LSTM of hsz
+    units on the card: the route of ops.lstm.plan_forward, the wide cluster
+    ("_wide") or the resident one, whichever models faster there (within
+    resident_forwards() or wide_forwards(), the one it forces); kernel D
+    ("lstm_scan_bwd") and the
     GRU backward scan ("gru_scan_bwd", a layer of hsz units) as
     ops.lstm.plan_bwd takes them (the wide cluster, "_wide", or the
     resident entry); any other entry as it is."""
@@ -4889,17 +5114,19 @@ def routed(entry, rows, out_f32=False, hsz=HIDDEN):
         plan = M.card_bwd_scan_plan(torch.device("cuda"), -(-hsz // 16) * 16,
                                     rows)
         return entry + ("_wide" if plan.design == "wide" else "")
-    if entry not in ("lstm_scan_fwd", "lstm_scan_fwd_carry"):
+    if entry not in ("lstm_scan_fwd", "lstm_scan_fwd_carry",
+                     "lstm_scan_fwd_train"):
         return entry
     return entry + L._forward_route(
         hsz, rows, torch.device("cuda"),
-        (int(out_f32), int(entry == "lstm_scan_fwd_carry"), 0))[1]
+        (int(out_f32), int(entry == "lstm_scan_fwd_carry"),
+         int(entry == "lstm_scan_fwd_train")))[1]
 
 
 def routed_counts(*items):
     """{entry: launches} of (entry, rows, launches[, out_f32[, hsz]]) items,
-    each entry of kernels A, B and D and of the GRU backward scan named as
-    the route takes it at its rows."""
+    each entry of kernels A-D and of the GRU backward scan named as the
+    route takes it at its rows."""
     out = {}
     for entry, rows, n, *rest in items:
         name = routed(entry, rows, *rest)
@@ -4908,8 +5135,9 @@ def routed_counts(*items):
 
 
 def routed_step(per_step, rows=TRAIN_ROWS, fb_rows=TRAIN_BATCH):
-    """A training step's {entry: launches} with kernel D's entry named as
-    the route takes it at `rows` sub-band rows (H=HIDDEN), and the GRU
+    """A training step's {entry: launches} with kernel C's and D's entries
+    named as the route takes them at `rows` sub-band rows (H=HIDDEN), and
+    the GRU
     backward scan's (v1-GRU: half its launches over those rows, half over
     the full band's `fb_rows` at H=FB_HIDDEN) likewise."""
     items = []
@@ -4922,12 +5150,13 @@ def routed_step(per_step, rows=TRAIN_ROWS, fb_rows=TRAIN_BATCH):
     return routed_counts(*items)
 
 
-# The entries of kernels A and B, both designs (the resident cluster of
+# The entries of kernels A, B and C, both designs (the resident cluster of
 # csrc/lstm_scan.cu and the wide one of csrc/lstm_scan_wide.cu), and of
 # kernel D (the resident cluster of csrc/lstm_scan_bwd.cu and the wide one
 # of csrc/lstm_scan_bwd_wide.cu).
 AB_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry", "lstm_scan_fwd_wide",
               "lstm_scan_fwd_carry_wide")
+C_ENTRIES = ("lstm_scan_fwd_train", "lstm_scan_fwd_train_wide")
 D_ENTRIES = ("lstm_scan_bwd", "lstm_scan_bwd_wide")
 GRU_BWD_ENTRIES = ("gru_scan_bwd", "gru_scan_bwd_wide")
 
@@ -6017,7 +6246,7 @@ def phase_corpus_training(dev):
             f"validation_results.json with finite STOI and SI_SDR ({means})")
         launched = {k: v for k, v in L.launch_counts.items() if v}
         want = routed_counts(
-            ("lstm_scan_fwd_train", 0, 2 * len(steps)),
+            ("lstm_scan_fwd_train", corpus_rows, 2 * len(steps)),
             ("lstm_scan_bwd", corpus_rows, 2 * len(steps)),
             ("lstm_scan_fwd_carry", ROWS // 8, 3 * 2 * n_chunks * CORPUS_VAL),
             ("lstm_scan_fwd", ROWS // 8,
@@ -6082,7 +6311,7 @@ def phase_corpus_training(dev):
         del second
     log(f"phase 15: {time.perf_counter() - t_phase:.2f} s")
     return {k: v for k, v in launched.items()
-            if k in (*AB_ENTRIES, "lstm_scan_fwd_train", *D_ENTRIES)}
+            if k in (*AB_ENTRIES, *C_ENTRIES, *D_ENTRIES)}
 
 
 # Phase 16: the denoising-NPPC line at full width, bf16:
@@ -6433,7 +6662,7 @@ def _nppc_training(dev, cfg, params, counts):
     # the frozen enhancer's forward over the batch's sub-band rows, as the
     # route takes them
     per_step = routed_counts(("lstm_scan_fwd", NPPC_BATCH * ROWS // 8, 2),
-                             ("lstm_scan_fwd_train", 0, 2),
+                             ("lstm_scan_fwd_train", NPPC_HEAD_ROWS, 2),
                              ("lstm_scan_bwd", NPPC_HEAD_ROWS, 2))
     torch.cuda.reset_peak_memory_stats(dev)
     objectives, reconst, times = [], [], []
@@ -6664,7 +6893,7 @@ def _nppc_cli(dev, counts):
     n = 3 * NPPC_CLI_STEPS
     # the float32 enhancer's forward (float32 h) over a batch of 8 clips
     per_step = routed_counts(("lstm_scan_fwd", 8 * ROWS // 8, 2, True),
-                             ("lstm_scan_fwd_train", 0, 2),
+                             ("lstm_scan_fwd_train", 8 * ROWS // 8, 2),
                              ("lstm_scan_bwd", 8 * ROWS // 8, 2))
     n_dirs = [t.state.model.config.pc_wrapper.n_directions
               for t in (first, second)]
@@ -7619,7 +7848,7 @@ def _complex(dev, counts):
     card = card_line()
     for kind, fwd, per_step in (
             ("LSTM", "lstm_scan_fwd",
-             routed_counts(("lstm_scan_fwd_train", 0, 4),
+             routed_counts(("lstm_scan_fwd_train", 2 * COMPLEX_TRAIN[0], 4),
                            ("lstm_scan_bwd", 2 * COMPLEX_TRAIN[0], 4))),
             ("GRU", "gru_scan_fwd",
              routed_counts(("gru_scan_fwd", 0, 4),
@@ -8474,7 +8703,7 @@ def phase_multi_gpu(dev, plus):
     from generative_audio_torch.train import EnhanceTrainer
     t_phase = time.perf_counter()
     card = card_line()
-    launched = dict.fromkeys(("lstm_scan_fwd_train", *D_ENTRIES), 0)
+    launched = dict.fromkeys((*C_ENTRIES, *D_ENTRIES), 0)
     per_step = routed_step(plus.per_step)
     # (a)'s cli.train steps: phase 15's corpus batch
     cli_step = routed_step(plus.per_step, CORPUS_BATCH * TRAIN_ROWS
@@ -8759,7 +8988,8 @@ def phase_band_axis(dev, plus, v1_gru, plus_ref):
     card = card_line()
     paths = {"plus": plus, "v1_gru": v1_gru}
     launched = dict.fromkeys(list(plus.per_step) + list(v1_gru.per_step)
-                             + list(D_ENTRIES) + list(GRU_BWD_ENTRIES), 0)
+                             + list(C_ENTRIES) + list(D_ENTRIES)
+                             + list(GRU_BWD_ENTRIES), 0)
     refs = {"plus": plus_ref}
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp)
@@ -9205,7 +9435,7 @@ def _f32_nppc(dev, cfg, params, counts, card):
                     _noise_batch(SEED + 22, NPPC_BATCH, NPPC_SAMPLES))
     per_step = routed_counts(("lstm_scan_fwd", NPPC_BATCH * ROWS // 8, 2,
                               True),
-                             ("lstm_scan_fwd_train", 0, 2),
+                             ("lstm_scan_fwd_train", NPPC_HEAD_ROWS, 2),
                              ("lstm_scan_bwd", NPPC_HEAD_ROWS, 2))
     verify = _first_grads(model.audio_pc_wrapper.named_parameters(),
                           "float32 head")
@@ -9315,16 +9545,24 @@ def _graft_and_examples_check(out, procs, ref, card):
     ranks = [json.loads((out / f"graft_rank{r}.json").read_text())
              for r in range(2)]
     grads = torch.load(out / "graft_grads.pt", weights_only=True)
-    per_step = {"lstm_scan_fwd_train": 2, "lstm_scan_bwd": 2}
-    check(ref["launched"] == per_step,
-          f"the graft step in one process launched {per_step} (got "
-          f"{ref['launched']})")
     rows = GRAFT_BATCH * (GRAFT_MODEL["num_freqs"]
                           // GRAFT_MODEL["num_groups_in_drop_band"])
+
+    def per_step(n):        # the step's scans over n sub-band rows, routed
+        return routed_counts(*((k, n, 2, False,
+                                GRAFT_MODEL["sb_model_hidden_size"])
+                               for k in ("lstm_scan_fwd_train",
+                                         "lstm_scan_bwd")))
+
+    check(ref["launched"] == per_step(rows),
+          f"the graft step in one process launched {per_step(rows)} (got "
+          f"{ref['launched']})")
     check(all(r["backend"] == "gloo" and r["world"] == 2 and r["step"] == 1
-              and r["band"] == [r["rank"], 2] and r["launches"] == per_step
+              and r["band"] == [r["rank"], 2]
+              and r["launches"] == per_step(rows // 2)
               and r["rows"] == [rows // 2] * 2 for r in ranks),
-          f"(e) 2 gloo ranks at band index r of 2, {per_step} each over "
+          f"(e) 2 gloo ranks at band index r of 2, {per_step(rows // 2)} "
+          f"each over "
           f"{rows // 2} of the {rows} sub-band rows (got "
           f"{[(r['band'], r['launches'], r['rows']) for r in ranks]})")
     check(ranks[0]["digest"] == ranks[1]["digest"],
@@ -9427,7 +9665,8 @@ def main():
     from generative_audio_torch.ops import lstm as L
     with L.resident_forwards():     # the resident cluster, the witness
         kernels = phase_kernels(dev, registers)
-    with L.resident_backwards():    # kernel D's resident cluster, likewise
+    # kernels C's and D's resident clusters, likewise
+    with L.resident_backwards(), L.resident_forwards():
         kernels.update(phase_train_kernels(dev, registers))
         kernels["lstm_scan_bwd"]["full_band"] = phase_lstm_h512(dev,
                                                                 registers)
@@ -9445,6 +9684,8 @@ def main():
     kernels.update(wide_kernels)
     wide_bwd_kernels, wide_bwd_launches = phase_wide_backward(dev, registers)
     kernels.update(wide_bwd_kernels)
+    wide_c_kernels, wide_c_launches = phase_wide_train(dev, registers)
+    kernels.update(wide_c_kernels)
     phase_lstm_train_large(dev)
     kernels.update(phase_gru_kernels(dev))
     with L.resident_backwards():    # the GRU's resident cluster, the witness
@@ -9525,6 +9766,10 @@ def main():
         # batch (phase 27), on the training paths where the route takes it
         "lstm_scan_bwd_wide": (f"{csrc}/lstm_scan_bwd_wide.cu",
                                f"{pallas}:300"),
+        # kernel C as a wide cluster, the route at the sub-band training
+        # batch (phase 29), on the training paths where the route takes it
+        "lstm_scan_fwd_train_wide": (f"{csrc}/lstm_scan_wide.cu",
+                                     f"{pallas}:205"),
         # the GRU backward scan as a wide cluster, the route at v1's
         # sub-band training batch (phase 28), on the v1-GRU training paths
         "gru_scan_bwd_wide": (f"{csrc}/gru_scan_bwd_wide.cu",
@@ -9536,7 +9781,8 @@ def main():
                routed("lstm_scan_fwd_carry", ROWS // 8)}
     counts = dict.fromkeys(L.launch_counts, 0)
     launched, plus_rtf = drive(dev, plus, [*sorted(plus_ab),
-                                           "lstm_scan_fwd_train",
+                                           routed("lstm_scan_fwd_train",
+                                                  TRAIN_ROWS),
                                            routed("lstm_scan_bwd",
                                                   TRAIN_ROWS)])
     launched.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
@@ -9568,7 +9814,7 @@ def main():
     counts.update(stream_launches)
     counts.update(staged_launches)
     for name, n in {**wide_launches, **wide_bwd_launches,
-                    **gru_wide_launches}.items():
+                    **gru_wide_launches, **wide_c_launches}.items():
         counts[name] += n
     for name, n in bwd_stream_launches.items():
         counts[name] += n

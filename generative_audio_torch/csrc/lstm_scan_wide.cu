@@ -1,4 +1,4 @@
-// LSTM forward scan over precomputed time-major gates, kernels A and B
+// LSTM forward scan over precomputed time-major gates, kernels A, B and C
 // redesigned for the sub-band batch (H <= 512 over thousands of rows), for
 // sm_90a, with each step's product on Hopper's warpgroup MMA (wgmma).
 //
@@ -9,7 +9,11 @@
 //     zero), used by lstm_scan_tm without grad;
 //   * kernel B (lstm_scan_fwd_carry_wide) <- :725 _lstm_pallas_call_carry /
 //     _lstm_carry_kernel (h0, c0 in; h_T, c_T out), used by
-//     lstm_layer_tm_chunked.
+//     lstm_layer_tm_chunked;
+//   * kernel C (lstm_scan_fwd_train_wide) <- :205 _lstm_pallas_call_train /
+//     _lstm_train_kernel (kernel A with bf16 h that also writes the bf16 c
+//     sequence, the residuals of the backward), used by lstm_scan_train_tm
+//     (LSTMScan's forward).
 // What it computes is lstm_scan.cu's:
 //   z   = float(gates[t, b, :]) + bf16(h_{t-1}) @ W_hh    (fp32 accumulation)
 //   c_t = sigmoid(z_f) * c_{t-1} + sigmoid(z_i) * tanh(z_g)
@@ -70,19 +74,25 @@
 //     copy runs under the exchange and the products; rows beyond B read as
 //     zero. c stays in registers: a thread owns one unit of R / 8 rows.
 //   * bf16 h is written to global memory from the CTA's slice in 16-byte
-//     pieces; fp32 h from the registers.
+//     pieces; fp32 h from the registers. Kernel C's bf16 c goes from the
+//     registers too, each thread its unit's value of each of its rows (a
+//     warp's store covers 4 units x 8 rows), so that its layout is kernel
+//     A's: a staged c slice [U / 8][R][8] would take 15 360 bytes at 160
+//     rows and 48 units, a stage of the ring.
 //
 // Numerics: fp32 accumulators from zero, bf16 operands, the k16 steps in
 // the resident cluster's order and the same cell expression as
 // lstm_scan.cu. On an H100 wgmma's sums equal mma.sync's bit for bit, so h
-// (and kernel B's h_T, c_T) equal the resident cluster's (chip_smoke.py
-// phase 26 holds both to it); a chunked run of kernel B equals an unchunked
-// one bit for bit, and two runs of one plan agree.
+// (and kernel B's h_T, c_T, kernel C's c sequence) equal the resident
+// cluster's (chip_smoke.py phases 26 and 29 hold them to it); kernel C's h
+// equals kernel A's; a chunked run of kernel B equals an unchunked one bit
+// for bit, and two runs of one plan agree.
 //
 // The launch plan (C, R, resident k-steps, stages, shared bytes) comes from
 // the caller (ops/lstm.py plan_wide_scan, against
-// cudaOccupancyMaxActiveClusters of lstm_scan_wide_max_clusters below); the
-// entries refuse a plan whose bytes are not this layout's. H must be a
+// cudaOccupancyMaxActiveClusters of lstm_scan_wide_max_clusters below; one
+// instance a row count serves all three entries); the entries refuse a plan
+// whose bytes are not this layout's. H must be a
 // multiple of 16 C with at most 48 units a CTA (the wrappers pad it with
 // zero units), R one of the instances' row counts (WIDE_INSTANCES).
 // lstm_scan_wide_trace also writes a clock64 trace of the first steps of
@@ -380,8 +390,9 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
 lstm_wide_kernel(const __grid_constant__ CUtensorMap gmap,  // gates [T, B, 4H]
                  const __nv_bfloat16* __restrict__ wf,
                  const float* __restrict__ h0, const float* __restrict__ c0,
-                 void* __restrict__ out, float* __restrict__ h_T,
-                 float* __restrict__ c_T, long long* __restrict__ trace,
+                 void* __restrict__ out, __nv_bfloat16* __restrict__ c_seq,
+                 float* __restrict__ h_T, float* __restrict__ c_T,
+                 long long* __restrict__ trace,
                  int T, int B, int H, int resident, int stages, int reverse,
                  int out_f32, int carry) {
   constexpr int R = N;                        // rows a cluster
@@ -604,6 +615,8 @@ lstm_wide_kernel(const __grid_constant__ CUtensorMap gmap,  // gates [T, B, 4H]
       if (n < nrows) {
         const size_t o = (size_t)(row0 + n) * Hs + col0 + ul;
         if (out_f32) reinterpret_cast<float*>(out)[(size_t)t * B * Hs + o] = h;
+        if (c_seq != nullptr)     // kernel C
+          c_seq[(size_t)t * B * Hs + o] = __float2bfloat16(c);
         if (carry && last) {
           h_T[o] = h;
           c_T[o] = c;
@@ -736,7 +749,8 @@ bool gates_map(CUtensorMap* map, const void* gates, int T, int B, int H,
 // The instance's launch (gates given) or, with n set, its occupancy query.
 template <int N>
 int run(const void* gates, const void* wf, const void* h0, const void* c0,
-        void* out, void* h_T, void* c_T, void* trace, int T, int B, int H,
+        void* out, void* c_seq, void* h_T, void* c_T, void* trace, int T,
+        int B, int H,
         int reverse, int out_f32, int carry, int C, int resident, int stages,
         size_t smem, void* stream, int* n) {
   cudaError_t err = prepare<N>(C, smem);
@@ -759,8 +773,9 @@ int run(const void* gates, const void* wf, const void* h0, const void* c0,
   cfg.stream = (cudaStream_t)stream;
   err = cudaLaunchKernelEx(&cfg, kernel, map, (const __nv_bfloat16*)wf,
                            (const float*)h0, (const float*)c0, out,
-                           (float*)h_T, (float*)c_T, (long long*)trace, T, B,
-                           H, resident, stages, reverse, out_f32, carry);
+                           (__nv_bfloat16*)c_seq, (float*)h_T, (float*)c_T,
+                           (long long*)trace, T, B, H, resident, stages,
+                           reverse, out_f32, carry);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -769,8 +784,9 @@ int run(const void* gates, const void* wf, const void* h0, const void* c0,
 // refusing a plan the kernel does not take or shared bytes that are not
 // its layout's.
 int dispatch(int out_f32, int carry, const void* gates, const void* wf,
-             const void* h0, const void* c0, void* out, void* h_T, void* c_T,
-             void* trace, int T, int B, int H, int reverse, int C, int R,
+             const void* h0, const void* c0, void* out, void* c_seq,
+             void* h_T, void* c_T, void* trace, int T, int B, int H,
+             int reverse, int C, int R,
              int resident, int stages, size_t smem_bytes, void* stream,
              int* n) {
   if (!plan_fits(H, C, R, resident, stages) ||
@@ -778,8 +794,9 @@ int dispatch(int out_f32, int carry, const void* gates, const void* wf,
     return (int)cudaErrorInvalidValue;
 #define WIDE_RUN(N)                                                          \
   if (R == N)                                                                \
-    return run<N>(gates, wf, h0, c0, out, h_T, c_T, trace, T, B, H, reverse, \
-                  out_f32, carry, C, resident, stages, smem_bytes, stream, n);
+    return run<N>(gates, wf, h0, c0, out, c_seq, h_T, c_T, trace, T, B, H,  \
+                  reverse, out_f32, carry, C, resident, stages, smem_bytes,  \
+                  stream, n);
   WIDE_INSTANCES(WIDE_RUN)
 #undef WIDE_RUN
   return (int)cudaErrorInvalidValue;
@@ -802,8 +819,8 @@ int lstm_scan_fwd_wide(const void* gates, const void* wf, void* out,
                        int cluster, int rows, int resident, int stages,
                        int smem_bytes, void* stream) {
   return dispatch(out_f32, 0, gates, wf, nullptr, nullptr, out, nullptr,
-                  nullptr, nullptr, T, B, H, reverse, cluster, rows, resident,
-                  stages, (size_t)smem_bytes, stream, nullptr);
+                  nullptr, nullptr, nullptr, T, B, H, reverse, cluster, rows,
+                  resident, stages, (size_t)smem_bytes, stream, nullptr);
 }
 
 // Kernel B. As kernel A, plus h0, c0 [B, H] fp32 in and h_T, c_T [B, H]
@@ -814,9 +831,22 @@ int lstm_scan_fwd_carry_wide(const void* gates, const void* wf,
                              int H, int reverse, int cluster, int rows,
                              int resident, int stages, int smem_bytes,
                              void* stream) {
-  return dispatch(out_f32, 1, gates, wf, h0, c0, out, h_T, c_T, nullptr, T,
-                  B, H, reverse, cluster, rows, resident, stages,
+  return dispatch(out_f32, 1, gates, wf, h0, c0, out, nullptr, h_T, c_T,
+                  nullptr, T, B, H, reverse, cluster, rows, resident, stages,
                   (size_t)smem_bytes, stream, nullptr);
+}
+
+// Kernel C. As kernel A with bf16 out (h_seq), plus c_seq [T, B, H] bf16
+// out: c_t after each step, rounded once (the state itself stays fp32 in
+// registers). The same instances, plans and shared bytes as kernel A.
+int lstm_scan_fwd_train_wide(const void* gates, const void* wf, void* h_seq,
+                             void* c_seq, int T, int B, int H, int reverse,
+                             int cluster, int rows, int resident, int stages,
+                             int smem_bytes, void* stream) {
+  if (c_seq == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(0, 0, gates, wf, nullptr, nullptr, h_seq, c_seq, nullptr,
+                  nullptr, nullptr, T, B, H, reverse, cluster, rows, resident,
+                  stages, (size_t)smem_bytes, stream, nullptr);
 }
 
 // Kernel A that also writes trace [TRACE_STEPS][TRACE_POINTS] int64 (the
@@ -827,8 +857,8 @@ int lstm_scan_wide_trace(const void* gates, const void* wf, void* out,
                          int smem_bytes, void* trace, void* stream) {
   if (trace == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch(out_f32, 0, gates, wf, nullptr, nullptr, out, nullptr,
-                  nullptr, trace, T, B, H, reverse, cluster, rows, resident,
-                  stages, (size_t)smem_bytes, stream, nullptr);
+                  nullptr, nullptr, trace, T, B, H, reverse, cluster, rows,
+                  resident, stages, (size_t)smem_bytes, stream, nullptr);
 }
 
 // cudaOccupancyMaxActiveClusters of the instance of `rows` rows with the
@@ -837,9 +867,9 @@ int lstm_scan_wide_trace(const void* gates, const void* wf, void* out,
 int lstm_scan_wide_max_clusters(int resident, int stages, int H, int cluster,
                                 int rows, int* n) {
   return dispatch(0, 0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, 0, 0, H, 0, cluster, rows, resident,
-                  stages, wide_smem(H, cluster, rows, resident, stages),
-                  nullptr, n);
+                  nullptr, nullptr, nullptr, 0, 0, H, 0, cluster, rows,
+                  resident, stages,
+                  wide_smem(H, cluster, rows, resident, stages), nullptr, n);
 }
 
 const char* lstm_scan_wide_error_string(int err) {

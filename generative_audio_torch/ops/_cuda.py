@@ -114,13 +114,15 @@ _SIGNATURES = {
                                        _I, _I, _I, _P],
     },
     "lstm_scan_wide": {
-        # kernels A and B as wide clusters: ..., reverse, then the plan:
+        # kernels A, B and C as wide clusters: ..., reverse, then the plan:
         # cluster, rows, resident k-steps, stages, shared bytes (and,
         # traced, the trace buffer)
         "lstm_scan_fwd_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P],
         "lstm_scan_fwd_carry_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _I, _I, _I, _I, _P],
+        "lstm_scan_fwd_train_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _P],
         "lstm_scan_wide_trace": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _P, _P],
     },

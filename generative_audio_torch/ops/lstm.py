@@ -9,9 +9,10 @@ Port of five kernels of generative_audio_tpu/ops/pallas_lstm.py:
     `_lstm_pallas_call_carry` / `_lstm_carry_kernel`, and
     `lstm_layer_tm_chunked` chains it over time chunks as the JAX function
     of the same name does;
-  * `lstm_scan_train_tm` (kernel C, `lstm_scan_fwd_train`) replaces
-    `_lstm_pallas_call_train` / `_lstm_train_kernel`: kernel A that also
-    writes the bf16 c sequence;
+  * `lstm_scan_train_tm` (kernel C, `lstm_scan_fwd_train`; at the sub-band
+    training batch its wide cluster, csrc/lstm_scan_wide.cu
+    `lstm_scan_fwd_train_wide`) replaces `_lstm_pallas_call_train` /
+    `_lstm_train_kernel`: kernel A that also writes the bf16 c sequence;
   * `lstm_scan_bwd_tm` (kernel D, csrc/lstm_scan_bwd.cu `lstm_scan_bwd`;
     above H = 512 also its streamed cluster, csrc/scan_bwd_stream.cu
     `lstm_scan_bwd_stream`) replaces `_lstm_pallas_call_bwd` /
@@ -56,15 +57,16 @@ one to the other. The plain versions repeat the kernels' numerics: bf16
 gates upcast to fp32, h cast to bf16 before the product with bf16 W_hh,
 fp32 accumulation, fp32 c, dh and dc; bf16 h_seq, c_seq, gout and dgates.
 
-Kernels A and B have a third design for the sub-band batch, the wide
+Kernels A, B and C have a third design for the sub-band batch, the wide
 cluster (csrc/lstm_scan_wide.cu, entries ending in `_wide`: each step's
 product on warpgroup MMA (wgmma), M the CTA's gate columns, N the cluster's
 rows, one h buffer a CTA sent to the peers by bulk copies, the gates by
-TMA, c in registers, so that up to 160 rows fit a cluster of 8): where a
-resident cluster holds H, `plan_forward` takes whichever of the two has the
-least modelled waves x step on the card (`plan_wide_scan`,
-`card_wide_plan`; the wide one at the 8 x 10 s batch, the resident one at
-a clip's 257 rows). `wide_forwards()` and `resident_forwards()` force
+TMA, c in registers (kernel C stores its bf16 c from there), so that up to
+160 rows fit a cluster of 8): where a resident cluster holds H,
+`plan_forward` takes whichever of the two has the least modelled waves x
+step on the card (`plan_wide_scan`, `card_wide_plan`; the wide one at the
+8 x 10 s batch and at the 2304-row training batch, the resident one at a
+clip's 257 rows). `wide_forwards()` and `resident_forwards()` force
 either. Kernel D
 has a wide cluster too (csrc/lstm_scan_bwd_wide.cu `lstm_scan_bwd_wide`:
 the dgates exchange read back from L2 by TMA in kernel D's k order, both
@@ -196,6 +198,7 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "lstm_scan_fwd_train_stream": "lstm_scan",
               "lstm_scan_fwd_wide": "lstm_scan_wide",
               "lstm_scan_fwd_carry_wide": "lstm_scan_wide",
+              "lstm_scan_fwd_train_wide": "lstm_scan_wide",
               "lstm_scan_fwd_unrolled": "lstm_scan_staged",
               "lstm_scan_fwd_unrolled_block": "lstm_scan_unrolled_block",
               "lstm_layer_fwd": "lstm_scan_staged",
@@ -1045,7 +1048,7 @@ def plan_forward(what: str, hsz: int, batch: int, smem_bytes: SmemBytes,
     cluster does the streamed cluster's work without the stream, and the
     single block's modelled step is over 5x the resident cluster's at any H
     that both hold, so where it fits it is not weighed.
-    Kernels A and B have a third design, the wide cluster ("_wide",
+    Kernels A, B and C have a third design, the wide cluster ("_wide",
     `wide_plan()`): where a resident cluster holds the slice, the route is
     whichever of the two has the least modelled waves x step
     (`resident_us(H)` for the resident cluster on the card; without it, as
@@ -1107,10 +1110,10 @@ _design: List[str] = []   # set by wide_forwards() and resident_forwards()
 
 @contextlib.contextmanager
 def wide_forwards():
-    """Within the block, kernels A and B (lstm_scan_tm without grad,
-    lstm_scan_carry_tm) take the wide cluster at any H its planner holds:
-    for holding it against the resident cluster, which it equals bit for
-    bit."""
+    """Within the block, kernels A, B and C (lstm_scan_tm without grad,
+    lstm_scan_carry_tm, lstm_scan_train_tm and so LSTMScan's forward) take
+    the wide cluster at any H its planner holds: for holding it against the
+    resident cluster, which it equals bit for bit."""
     _design.append("_wide")
     try:
         yield
@@ -1120,9 +1123,9 @@ def wide_forwards():
 
 @contextlib.contextmanager
 def resident_forwards():
-    """Within the block, kernels A and B take the resident cluster wherever
-    a cluster holds H, whatever the wide cluster's model says: for holding
-    the wide cluster against it and timing both."""
+    """Within the block, kernels A, B and C take the resident cluster
+    wherever a cluster holds H, whatever the wide cluster's model says: for
+    holding the wide cluster against it and timing both."""
     _design.append("")
     try:
         yield
@@ -1156,19 +1159,20 @@ def _forward_route(hsz: int, batch: int, device: torch.device,
                                                        "WidePlan"]]]:
     """(H, entry suffix, plan) of kernels A-C for `batch` rows of a layer of
     hsz units on `device` (plan_forward with their layouts, step models and
-    the card's occupancy of the streamed instance; for kernels A and B also
-    the wide cluster's plan and, on a card, the resident cluster's modelled
-    time; instance (out_f32, carry, train)); raises when nothing fits."""
-    wide = resident = None
-    if not instance[2]:
-        wide = lambda: card_wide_plan(device, hsz, batch)
-        if _on_card(device):
-            dtype = torch.float32 if instance[0] else torch.bfloat16
+    the card's occupancy of the streamed instance, the wide cluster's plan
+    and, on a card, the modelled time of the instance's resident cluster;
+    instance (out_f32, carry, train)); raises when nothing fits. The wide
+    plan is one for all three kernels: kernel C adds no shared bytes to
+    kernel A's layout."""
+    wide = lambda: card_wide_plan(device, hsz, batch)
+    resident = None
+    if _on_card(device):
+        dtype = torch.float32 if instance[0] else torch.bfloat16
 
-            def resident(hp):
-                plan = card_scan_plan(device, hp, batch, dtype,
-                                      bool(instance[1]))
-                return plan.waves * scan_step_us(hp, plan.cluster, plan.rows)
+        def resident(hp):
+            plan = card_scan_plan(device, hp, batch, dtype, bool(instance[1]),
+                                  bool(instance[2]))
+            return plan.waves * scan_step_us(hp, plan.cluster, plan.rows)
     return plan_forward(
         "LSTM", hsz, batch, scan_smem_bytes, block_smem_bytes, block_step_us,
         lambda res: card_stream_plan(device, hsz, batch, instance, res),
@@ -1208,18 +1212,20 @@ def _stream_weight(w_hh: torch.Tensor, hp: int, cluster: int) -> torch.Tensor:
         0, 3, 1, 2, 6, 4, 5, 7).contiguous()
 
 
-# ---- the wide cluster forwards (kernels A and B, csrc/lstm_scan_wide.cu) ----
+# ---- the wide cluster forwards (kernels A-C, csrc/lstm_scan_wide.cu) ----
 
 @dataclasses.dataclass(frozen=True)
 class WidePlan:
     """Launch plan of the wide cluster forwards (csrc/lstm_scan_wide.cu,
-    `lstm_scan_fwd_wide`, `lstm_scan_fwd_carry_wide`): clusters of `cluster`
-    CTAs at H = `hidden` (the layer's units zero-padded to wide_hidden's),
-    each CTA owning hidden / cluster units (a warpgroup of wgmma a 16 of
-    them), over `rows` batch rows a cluster (wgmma's N); the first
-    `resident` 16-deep k-steps of each CTA's W_hh^T slice stay in shared
-    memory, the others stream from L2 through a ring of `stages` slots of
-    two k-steps (no ring, 0 stages, where the whole slice is resident)."""
+    `lstm_scan_fwd_wide`, `lstm_scan_fwd_carry_wide`,
+    `lstm_scan_fwd_train_wide`: one layout for all three): clusters of
+    `cluster` CTAs at H = `hidden` (the layer's units zero-padded to
+    wide_hidden's), each CTA owning hidden / cluster units (a warpgroup of
+    wgmma a 16 of them), over `rows` batch rows a cluster (wgmma's N);
+    the first `resident` 16-deep k-steps of each CTA's W_hh^T slice stay in
+    shared memory, the others stream from L2 through a ring of `stages`
+    slots of two k-steps (no ring, 0 stages, where the whole slice is
+    resident)."""
     hidden: int           # H the kernel runs at
     cluster: int          # CTAs per cluster
     rows: int             # batch rows per cluster
@@ -1267,7 +1273,8 @@ WIDE_STAGES = (2, 3, 4, 6, 8)
 _WIDE_PARTS = (3.24517, 0.0345, 0.38219, 0.0417, 0.0295, 0.8)
 # The ops of the wide entries, whose C functions end in a WidePlan's launch
 # arguments.
-_WIDE_ENTRIES = ("lstm_scan_fwd_wide", "lstm_scan_fwd_carry_wide")
+_WIDE_ENTRIES = ("lstm_scan_fwd_wide", "lstm_scan_fwd_carry_wide",
+                 "lstm_scan_fwd_train_wide")
 
 
 def wide_hidden(hsz: int, cluster: int) -> int:
@@ -1398,10 +1405,12 @@ def plan_wide_scan(hsz: int, batch: int,
 @functools.lru_cache(maxsize=None)
 def card_wide_plan(device: torch.device, hsz: int, batch: int,
                    resident: Optional[int] = None) -> WidePlan:
-    """The wide plan kernels A and B launch with on `device` (a CUDA device)
-    for `batch` rows of a layer of hsz units (lstm_scan_wide_max_clusters
-    of csrc/lstm_scan_wide.cu; one instance serves both entries and both
-    output types)."""
+    """The wide plan kernels A, B and C launch with on `device` (a CUDA
+    device) for `batch` rows of a layer of hsz units
+    (lstm_scan_wide_max_clusters of csrc/lstm_scan_wide.cu; one instance
+    serves the three entries and both output types, and kernel C's c
+    sequence, stored from registers, adds no shared bytes, so the occupancy
+    and the cache key are the same for all)."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
@@ -2805,8 +2814,8 @@ def _launch(fn_name: str, *args,
     for the output type). The streamed variants of A-C take `plan` (the
     StreamPlan the wrapper packed W_hh for; no default), and so do kernel
     D's streamed cluster (the BwdStreamPlan) and kernels E's and F's
-    (an UnrolledStreamPlan, a StreamPlan), the wide entries of A and
-    B (the WidePlan the wrapper packed W_hh for) and kernel D's wide
+    (an UnrolledStreamPlan, a StreamPlan), the wide entries of A, B
+    and C (the WidePlan the wrapper packed W_hh for) and kernel D's wide
     cluster (the BwdWidePlan). Raises first,
     before any plan asks the card and
     before anything is built, for a tensor off a 16-byte boundary: the
@@ -3070,7 +3079,13 @@ def lstm_scan_train_tm(gates: torch.Tensor, w_hh: torch.Tensor,
     """The training forward: bf16 gates [T, B, 4H], w_hh [H, 4H] ->
     (h_seq, c_seq) [T, B, H] bf16, the residuals lstm_scan_bwd_tm needs.
     h_seq equals lstm_scan_tm's bf16 output bit for bit. CUDA tensors run
-    kernel C."""
+    kernel C on the route of _forward_route: its wide cluster
+    (`lstm_scan_fwd_train_wide`, W_hh^T packed for the WidePlan, which the
+    entry is handed) where a resident cluster holds H and the wide one
+    models faster on the card (the 2304-row sub-band training batch), else
+    the resident cluster, the streamed cluster or the single block; the
+    same h_seq and c_seq bit for bit. CPU tensors never weigh the wide
+    cluster unless wide_forwards() forces it."""
     t_len, b, hsz = _check_shapes(gates, w_hh, torch.bfloat16)
     if not _is_cuda(gates, w_hh):
         return lstm_scan_train_reference_tm(gates.to(torch.bfloat16), w_hh,

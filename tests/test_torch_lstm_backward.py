@@ -221,8 +221,9 @@ def fake_launch(fn_name, *args, plan=None):
     units leave them unchanged. The single-block forwards ("_block") take
     the cluster entries' arguments at H padded to whole k-steps; the
     streamed ones ("_stream", forwards and the backward) and the wide ones
-    of kernels A and B ("_wide") the cluster entries' with W_hh packed for
-    their plan (`plan=`), at H padded to stream_hidden's units."""
+    of kernels A, B, C and D ("_wide") the cluster entries' with W_hh
+    packed for their plan (`plan=`), at H padded to stream_hidden's
+    units."""
     tl.launch_counts[fn_name] += 1
     units, bwd_units = FORWARD_UNITS, BACKWARD_UNITS
     if fn_name.endswith("_block"):

@@ -334,11 +334,11 @@ def test_refusals_name_the_bytes():
 
 
 def test_sources_declare_their_entries():
-    """Without a compiler: both entries and the traced one take the
+    """Without a compiler: the three entries and the traced one take the
     arguments ops/_cuda.py declares, ending in their plan and the stream,
     the occupancy query its plan's ring, the instances are WIDE_ROWS and
     their products wgmma, the entries refuse bytes that are not the
-    layout's, and the launch counts know both entries."""
+    layout's, and the launch counts know the three entries."""
     text = (_cuda.CSRC / SOURCE).read_text()
     tail = ["reverse", "cluster", "rows", "resident", "stages", "smem_bytes",
             "stream"]
@@ -393,28 +393,29 @@ def _modelled_resident(hsz, rows):
 
 @pytest.mark.parametrize("hsz", [384, 512])
 def test_route_weighs_wide_against_resident(hsz, monkeypatch):
-    """On a card (stubbed) kernels A and B take the wide cluster where its
-    modelled waves x step beat the resident cluster's, at every row count,
-    for each output type; kernel C keeps the resident cluster; on CPU
-    tensors, with no occupancy to weigh, the resident cluster."""
+    """On a card (stubbed) kernels A, B and C take the wide cluster where
+    its modelled waves x step beat the resident cluster's, at every row
+    count, for each output type (kernel C's layout is kernel A's, so its
+    wide plan is theirs); on CPU tensors, with no occupancy to weigh, the
+    resident cluster."""
     assert tl._forward_route(hsz, 2056, CPU) == (hsz, "", None)
     stub_wide_route(monkeypatch)
     for rows in MODEL_ROWS + (1, 2047):
         wide = tl.plan_wide_scan(hsz, rows, stub_wide_occupancy)
         faster = wide.waves * wide.step_us < _modelled_resident(hsz, rows)
-        for instance in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0)):
+        for instance in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
+                         (0, 0, 1)):
             got = tl._forward_route(hsz, rows, CPU, instance)
             assert got == ((wide.hidden, "_wide", wide) if faster
                            else (hsz, "", None)), (rows, instance)
-        assert tl._forward_route(hsz, rows, CPU, (0, 0, 1)) == (hsz, "", None)
     assert tl._forward_route(384, 2056, CPU)[1] == "_wide"
 
 
 def test_context_managers_force_their_route(monkeypatch):
-    """wide_forwards() forces the wide cluster for kernels A and B at any
-    row count (and on CPU tensors), resident_forwards() the resident
-    cluster; neither moves kernel C, the GRU forwards or kernels E and F,
-    and single_block_forwards() / streamed_forwards() still win."""
+    """wide_forwards() forces the wide cluster for kernels A, B and C at
+    any row count (and on CPU tensors), resident_forwards() the resident
+    cluster; neither moves the GRU forwards or kernels E and F, and
+    single_block_forwards() / streamed_forwards() still win."""
     stub_wide_route(monkeypatch)
     with tl.resident_forwards():
         assert tl._forward_route(384, 2056, CPU) == (384, "", None)
@@ -427,7 +428,8 @@ def test_context_managers_force_their_route(monkeypatch):
             hp, suffix, plan = tl._forward_route(384, rows, CPU, (1, 1, 0))
             assert suffix == "_wide" and plan == tl.plan_wide_scan(
                 384, rows, stub_wide_occupancy)
-        assert tl._forward_route(384, 18, CPU, (0, 0, 1)) == (384, "", None)
+        assert tl._forward_route(384, 18, CPU, (0, 0, 1)) == (
+            384, "_wide", tl.plan_wide_scan(384, 18, stub_wide_occupancy))
         assert tg._forward_route(384, 18, CPU) == (384, "", None)
         assert tl.layer_route(384, 34, 18, CPU) == (384, "", None)
         assert tl.unrolled_route(384, 2, 18, CPU) == (384, "", None)

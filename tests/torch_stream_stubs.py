@@ -43,6 +43,15 @@ def stub_wide_occupancy(hsz, cluster, rows, resident, stages):
     return stub_occupancy(hsz, cluster, rows, resident, stages)
 
 
+def card_wide_occupancy(hsz, cluster, rows, resident, stages):
+    """Clusters of the wide forwards the card runs at once as an H100 SXM
+    reports them (cudaOccupancyMaxActiveClusters, one CTA an SM): 15
+    clusters of 8 and 7 of 16, as PERF.md's table reads for every design
+    of one CTA an SM, where stub_occupancy's 16 and 8 are the SMs over the
+    cluster size."""
+    return 7 if cluster == 16 else 15
+
+
 def stub_wide_route(monkeypatch):
     """The plans kernels A and B weigh on a card (card_scan_plan,
     card_wide_plan) from the stub occupancy, and the route weighing them
