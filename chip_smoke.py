@@ -443,6 +443,32 @@ of which fails the run (non-zero exit, no result line):
      cluster under resident_forwards(); the training phases' launch checks
      name kernel C's entry as the route takes it at each step's sub-band
      rows (routed, routed_step).
+ 30. (run after phase 28) the GRU forward and carry (TPU rows 6 and 8) as
+     wide clusters (csrc/gru_scan_wide.cu, gru_scan_fwd_wide and
+     gru_scan_fwd_carry_wide: kernel A's wide design with the GRU cell,
+     each step's product on wgmma with a fourth gate row of zeros a unit,
+     W_hh^T streamed from L2 through a ring, one h buffer a CTA sent by
+     bulk copies, the gates by TMA), the route of both where a resident
+     cluster holds H and the wide cluster's modelled waves x step are the
+     less: the instances' registers without a spill; both bit for bit
+     against the resident cluster at 2056, 2047 and 257 rows x T=628,
+     2304, 2295 and 1024 rows x T=195 and H=512 x 18 x 195 and x 8 x 628,
+     forward and reverse, bf16 and fp32 out, the carry from a state and in
+     chunks of T_CHUNK against unchunked, two runs against each other,
+     within the GRU forward's limits of the plain version; timed at 2056 x
+     628 (both entries), 2304 x 195, 257 x 628 and H=512 x 18 x 195 beside
+     the resident cluster (in turns), the plain version, cuDNN's nn.GRU
+     and the bound, with both plans and the route's pick (failing where
+     the route takes the slower design), and the planner's plan at 2304
+     rows against the one-wave plan of 160 rows; then the path, FullSubNet
+     v1-GRU's batched 8 x 10 s forward (exact launches, profiled on the
+     route and under resident_forwards()) and its bf16 training step on
+     the route beside resident_forwards() in turns, with exact launches,
+     medians and profiles. Phases 9 and 10 hold the GRU's resident cluster
+     under resident_forwards(); the v1-GRU launch checks name the GRU
+     forward's and carry's entries as the route takes them at each call's
+     rows, sub-band and full band (routed, routed_counts, routed_step,
+     forward_counts).
 The launch counts are set to 0 just before each model's serving phases and
 read just after, again around each model's five training steps, around
 each variant's own path in phase 12 and around phases 13, 14 and 15, each
@@ -457,7 +483,9 @@ phase 23's model paths (the streamed entries') and phase 24's training
 step (the streamed backwards'), and around each part of phase 25's path
 (kernels E's and F's streamed clusters') and of phase 26's (the wide
 clusters') and around each training step of phases 27, 28 and 29 (the
-wide backwards' and kernel C's two designs'). The second-to-last line of
+wide backwards' and kernel C's two designs') and around phase 30's
+forward and each of its training steps (the GRU forward's two designs').
+The second-to-last line of
 stdout is the `kernels` JSON, the last line the device JSON. Exits
 non-zero without a CUDA device. `python3 chip_smoke.py --phase20 PART
 OUT` is a rank of phase 20, `--phase21 PART OUT` one of phase 21,
@@ -634,7 +662,7 @@ def phase_build():
             **_chains_registers(reports.get("lstm_scan_bwd_chains", "")),
             **_stream_registers(reports), **_bwd_stream_registers(reports),
             **_staged_stream_registers(reports), **_wide_registers(reports),
-            **_wide_bwd_registers(reports)}
+            **_wide_bwd_registers(reports), **_gru_wide_registers(reports)}
 
 
 def _cluster_registers(report):
@@ -1769,7 +1797,8 @@ def stream_model_paths():
                                         fb_model_hidden_size=STREAM_FB_HIDDEN),
             compute_dtype=dtype),
         # the sub-band GRU's backward named by the route at its rows
-        per_step={"gru_scan_fwd_stream": 2, "gru_scan_fwd": 2,
+        per_step={"gru_scan_fwd_stream": 2,
+                  routed("gru_scan_fwd", STREAM_STEP_BATCH * (257 // 2)): 2,
                   "gru_scan_bwd_stream": 2,
                   routed("gru_scan_bwd", STREAM_STEP_BATCH * (257 // 2)): 2,
                   "gru_scan_bwd_dwhh": 4})
@@ -1908,7 +1937,7 @@ def phase_streamed_forwards(dev, registers):
     launches = dict.fromkeys(L.launch_counts, 0)
     for path, limit, extra in ((plus, LONG_CLIP_GATES_LIMIT, {}),
                                (gru, STREAM_GRU_GATES_LIMIT,
-                                {"gru_scan_fwd": 2})):
+                                {routed("gru_scan_fwd", ROWS // 8): 2})):
         for k, n in _stream_path(dev, path, L.launch_counts, limit,
                                  extra).items():
             launches[k] += n
@@ -3681,6 +3710,397 @@ def phase_gru_wide_backward(dev, registers):
             {GRU_WIDE_ENTRY: launches.get(GRU_WIDE_ENTRY, 0)})
 
 
+# Phase 30: the GRU forward and carry (TPU rows 6 and 8) as wide clusters
+# (csrc/gru_scan_wide.cu): kernel A's wide design with the GRU cell.
+GRU_FWD_WIDE = ("gru_scan_fwd_wide", "gru_scan_fwd_carry_wide")
+# (H, T, rows) of the identities: v1's sub-band serving batch, a ragged
+# count and one 10 s request; its sub-band training batch, a ragged count
+# and 1024 rows; the full band's training and serving shapes.
+GRU_FWD_WIDE_SHAPES = ((HIDDEN, T_FRAMES, ROWS),
+                       (HIDDEN, T_FRAMES, RAGGED_ROWS),
+                       (HIDDEN, T_FRAMES, ROWS // 8),
+                       (HIDDEN, TRAIN_T, TRAIN_ROWS),
+                       (HIDDEN, TRAIN_T, TRAIN_RAGGED_ROWS),
+                       (HIDDEN, TRAIN_T, 1024),
+                       (FB_HIDDEN, TRAIN_T, TRAIN_BATCH),
+                       (FB_HIDDEN, T_FRAMES, FB_SERVE_ROWS))
+GRU_FWD_WIDE_STEPS = 4       # (c)'s timed steps of each design, in turns
+
+
+def _gru_wide_registers(reports):
+    """{"gru wide 144 rows": "... registers, ... spilled", ...} for the
+    instances gru_wide_kernel<N> of csrc/gru_scan_wide.cu (N rows a
+    cluster; both entries, both output types), from ptxas's report (the
+    registers a thread launches with; the consumers take more by
+    setmaxnreg)."""
+    found, name, spill = {}, None, ""
+    for line in reports.get("gru_scan_wide", "").splitlines():
+        if "Compiling entry function" in line:
+            name, spill = None, ""
+            w = re.search(r"gru_wide_kernelILi(\d+)E", line)
+            if w:
+                name = f"gru wide {int(w.group(1)):3d} rows"
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           line)
+        if stores and name:
+            spill = f"{stores.group(1)}/{stores.group(2)} B spilled"
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            found[name], name = f"{used.group(1)} registers, {spill}", None
+    return found
+
+
+def _gru_chunked_carry(G, gates, w_hh, b_hh, h0, reverse, out_dtype):
+    """The GRU carry over chunks of T_CHUNK steps, the state handed on
+    (from the later chunk when reversed): (h sequence, h_T)."""
+    t_len = gates.shape[0]
+    out = torch.empty(t_len, gates.shape[1], w_hh.shape[0], dtype=out_dtype,
+                      device=gates.device)
+    hs = h0
+    starts = list(range(0, t_len, T_CHUNK))
+    for s in (starts[::-1] if reverse else starts):
+        e = min(s + T_CHUNK, t_len)
+        out[s:e], hs = G.gru_scan_carry_tm(gates[s:e], w_hh, b_hh, hs,
+                                           reverse, out_dtype)
+    return out, hs
+
+
+def _gru_fwd_wide_identities(dev, G, gen):
+    """At each of GRU_FWD_WIDE_SHAPES, forward and reverse, bf16 and fp32
+    out: both wide entries (wide_forwards()) bit for bit against the
+    resident cluster (resident_forwards(); the carry from a random state:
+    h and h_T), the carry from zero in chunks of T_CHUNK against the
+    unchunked forward and its final state, the forward twice against
+    itself, and at fp32 out within the GRU forward's limits of the plain
+    versions; each wide run counted. Returns each entry's largest max and
+    mean error against plain."""
+    from generative_audio_torch.ops import lstm as L
+    worst = {name: [0.0, 0.0] for name in GRU_FWD_WIDE}
+    for h, t_len, rows in GRU_FWD_WIDE_SHAPES:
+        w_hh = _uniform(gen, dev, (h, 3 * h), h ** -0.5)
+        b_hh = _uniform(gen, dev, (3 * h,), h ** -0.5)
+        gates = torch.randn(t_len, rows, 3 * h, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        h0 = _uniform(gen, dev, (rows, h), 1.0)
+        zero = torch.zeros(rows, h, device=dev)
+        n_chunks = -(-t_len // T_CHUNK)
+        plan = G.card_gru_wide_plan(dev, h, rows)
+        for reverse in (False, True):
+            p_f = G.gru_scan_reference_tm(gates, w_hh, b_hh, reverse)
+            p_c = G.gru_scan_carry_reference_tm(gates, w_hh, b_hh, h0,
+                                                reverse)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                tag = (f"H={h} T={t_len} rows={rows} reverse={reverse} "
+                       f"{out_dtype}")
+                with torch.no_grad():
+                    with L.resident_forwards():
+                        f_res = _counted(L, "gru_scan_fwd", lambda: (
+                            G.gru_scan_tm(gates, w_hh, b_hh, reverse,
+                                          out_dtype)))
+                        c_res = G.gru_scan_carry_tm(gates, w_hh, b_hh, h0,
+                                                    reverse, out_dtype)
+                        c_zero = G.gru_scan_carry_tm(gates, w_hh, b_hh, zero,
+                                                     reverse, out_dtype)
+                    with L.wide_forwards():
+                        f = _counted(L, GRU_FWD_WIDE[0], lambda: (
+                            G.gru_scan_tm(gates, w_hh, b_hh, reverse,
+                                          out_dtype)))
+                        again = _counted(L, GRU_FWD_WIDE[0], lambda: (
+                            G.gru_scan_tm(gates, w_hh, b_hh, reverse,
+                                          out_dtype)))
+                        c = _counted(L, GRU_FWD_WIDE[1], lambda: (
+                            G.gru_scan_carry_tm(gates, w_hh, b_hh, h0,
+                                                reverse, out_dtype)))
+                        chunked = _counted(
+                            L, GRU_FWD_WIDE[1], lambda: _gru_chunked_carry(
+                                G, gates, w_hh, b_hh, zero, reverse,
+                                out_dtype), n_chunks)
+                diff = max((x.float() - y.float()).abs().max().item()
+                           for x, y in zip((f, *c), (f_res, *c_res)))
+                check(torch.equal(f, f_res), f"{GRU_FWD_WIDE[0]} == "
+                      f"gru_scan_fwd bitwise ({tag}; worst |difference| of "
+                      f"both entries {diff:.3e})")
+                check(all(torch.equal(x, y) for x, y in zip(c, c_res)),
+                      f"{GRU_FWD_WIDE[1]} == gru_scan_fwd_carry bitwise: h, "
+                      f"h_T ({tag})")
+                check(torch.equal(f, again), f"two runs of {GRU_FWD_WIDE[0]} "
+                      f"under one plan bitwise ({tag})")
+                check(torch.equal(chunked[0], f_res)
+                      and torch.equal(chunked[1], c_zero[1]),
+                      f"{GRU_FWD_WIDE[1]} in {n_chunks} chunks of {T_CHUNK} "
+                      f"== unchunked bitwise, its state too ({tag})")
+                for name, got, want in (((GRU_FWD_WIDE[0], (f,), (p_f,)),
+                                         (GRU_FWD_WIDE[1], c, p_c))
+                                        if out_dtype == torch.float32 else ()):
+                    errs = [(x.float() - y.float()).abs()
+                            for x, y in zip(got, want)]
+                    mx = max(e.max().item() for e in errs)
+                    mean = max(e.mean().item() for e in errs)
+                    check(all(torch.isfinite(x).all().item() for x in got)
+                          and mx < KERNEL_MAX_ABS and mean < GRU_FWD_MEAN_ABS,
+                          f"{name} vs plain within {KERNEL_MAX_ABS}/"
+                          f"{GRU_FWD_MEAN_ABS} ({tag}: {mx:.3e}/{mean:.3e})")
+                    worst[name] = [max(worst[name][0], mx),
+                                   max(worst[name][1], mean)]
+                del f, again, c, chunked, f_res, c_res, c_zero
+            del p_f, p_c
+        log(f"GRU wide entries == the resident cluster bitwise at H={h} "
+            f"T={t_len} rows={rows} (forward and reverse, bf16 and fp32 out, "
+            f"the carry from a state and in {n_chunks} chunks of {T_CHUNK} "
+            f"== unchunked, two runs equal); wide plan "
+            f"{_wide_plan_line(plan)}; route "
+            f"{G._forward_route(h, rows, dev)[1] or 'resident'}")
+        del gates, h0, zero
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _gru_fwd_wide_times(dev, G, gen, h, t_len, rows, card, carry=True):
+    """The GRU forward (and, with `carry`, the carry in one chunk) at (h,
+    t_len, rows), bf16 out as the paths run them: the wide cluster timed
+    beside the resident cluster in turns (wide, resident, resident, wide),
+    with the plain version, cuDNN's nn.GRU, the bound, both plans with
+    their waves and modelled steps, and the route's pick."""
+    from generative_audio_torch.ops import lstm as L
+    w_hh = _uniform(gen, dev, (h, 3 * h), h ** -0.5)
+    b_hh = _uniform(gen, dev, (3 * h,), h ** -0.5)
+    gates = torch.randn(t_len, rows, 3 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    h0 = _uniform(gen, dev, (rows, h), 1.0)
+    library = library_gru_ms(gates, w_hh, b_hh)
+    # gates in (3 streams of H), h out (1), W_hh, b_hh; the carry also
+    # reads and writes the fp32 state once
+    calls = {GRU_FWD_WIDE[0]: (
+        lambda: G.gru_scan_tm(gates, w_hh, b_hh),
+        lambda: G.gru_scan_reference_tm(gates, w_hh, b_hh),
+        bound(t_len, rows, h, streams=4, gates=3, extra_bytes=3 * h * 4),
+        (0, 0))}
+    if carry:
+        calls[GRU_FWD_WIDE[1]] = (
+            lambda: G.gru_scan_carry_tm(gates, w_hh, b_hh, h0),
+            lambda: G.gru_scan_carry_reference_tm(gates, w_hh, b_hh, h0),
+            bound(t_len, rows, h, streams=4, gates=3,
+                  extra_bytes=3 * h * 4 + 2 * rows * h * 4), (0, 1))
+    out = {}
+    for name, (timed, plain, (b_ms, by), instance) in calls.items():
+
+        def wide():
+            with L.wide_forwards():
+                return timed()
+
+        def resident():
+            with L.resident_forwards():
+                return timed()
+
+        with torch.no_grad():
+            rounds = [cuda_ms(wide, iters=3), cuda_ms(resident, iters=3),
+                      cuda_ms(resident, iters=3), cuda_ms(wide, iters=3)]
+            plain_ms = cuda_ms(plain, iters=2)
+        ms, ms_res = min(rounds[0], rounds[3]), min(rounds[1:3])
+        plan = G.card_gru_wide_plan(dev, h, rows)
+        res_plan = G.card_scan_plan(dev, h, rows, carry=bool(instance[1]))
+        res_us = G.scan_step_us(h, res_plan.cluster, res_plan.rows)
+        route = G._forward_route(h, rows, dev, instance)[1]
+        log(f"{name} at T={t_len} rows={rows} H={h}: {ms:.3f} ms, "
+            f"{1e3 * ms / t_len / plan.waves:.3f} us a step a wave (modelled "
+            f"{plan.step_us:.3f}, {plan.waves} waves: "
+            f"{plan.waves * plan.step_us * t_len / 1e3:.3f} ms); resident "
+            f"cluster {ms_res:.3f} ms, "
+            f"{1e3 * ms_res / t_len / res_plan.waves:.3f} us a step a wave "
+            f"(modelled {res_us:.3f}, {res_plan.waves} waves: "
+            f"{res_plan.waves * res_us * t_len / 1e3:.3f} ms); rounds "
+            f"{' '.join(f'{r:.3f}' for r in rounds)}; bound {b_ms:.4f} ms by "
+            f"{by}; plain {plain_ms:.3f} ms; cuDNN GRU {library:.3f} ms; plan "
+            f"{_wide_plan_line(plan)}; route "
+            f"{'wide' if route == '_wide' else 'resident'}; on {card}")
+        check((route == "_wide") == (ms < ms_res) or abs(ms - ms_res) < 0.02
+              * ms_res, f"the route at H={h} x {rows} rows takes the faster "
+              f"design ({name}: wide {ms:.3f} ms, resident {ms_res:.3f} ms, "
+              f"route {route or 'resident'})")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                         library_ms=library, resident_ms=ms_res,
+                         us_a_step=1e3 * ms / t_len / plan.waves,
+                         resident_us_a_step=1e3 * ms_res / t_len
+                         / res_plan.waves,
+                         route="wide" if route == "_wide" else "resident",
+                         plan=dataclasses.asdict(plan))
+    del gates, h0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gru_one_wave_at_2304(dev, G, gen, card):
+    """At the training batch (2304 rows x T=195) the planner's wide plan
+    against the one-wave plan of 160 rows a cluster (the most rows, W_hh^T
+    streamed), forced, in turns, with the model's step of each: whether
+    the model's pick is the faster."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.scripts import perf_wide_scan as PW
+    h, t_len, rows = HIDDEN, TRAIN_T, TRAIN_ROWS
+    w_hh = _uniform(gen, dev, (h, 3 * h), h ** -0.5)
+    b_hh = _uniform(gen, dev, (3 * h,), h ** -0.5)
+    gates = torch.randn(t_len, rows, 3 * h, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    plan = G.card_gru_wide_plan(dev, h, rows)
+    one = min((p for p in (PW.wide_plan(h, rows, 8, 160, None, stages, dev,
+                                        "gru") for stages in (2, 3, 4))
+               if p is not None), key=lambda p: p.step_us)
+
+    def timed(p):
+        def run():
+            with PW.forced(p), torch.no_grad():
+                return G.gru_scan_tm(gates, w_hh, b_hh)
+        return run
+
+    with torch.no_grad(), L.wide_forwards():
+        want = G.gru_scan_tm(gates, w_hh, b_hh)
+    check(torch.equal(timed(one)(), want), "the one-wave wide plan == the "
+          "planner's bitwise at 2304 rows")
+    rounds = [cuda_ms(timed(p), iters=3) for p in (plan, one, one, plan)]
+    ms, ms_one = min(rounds[0], rounds[3]), min(rounds[1:3])
+    log(f"GRU wide at T={t_len} rows={rows} H={h}: the planner's "
+        f"{_wide_plan_line(plan)} {ms:.3f} ms (modelled "
+        f"{plan.waves * plan.step_us * t_len / 1e3:.3f}); one wave "
+        f"{_wide_plan_line(one)} {ms_one:.3f} ms (modelled "
+        f"{one.waves * one.step_us * t_len / 1e3:.3f}); rounds "
+        f"{' '.join(f'{r:.3f}' for r in rounds)}; the model picks the "
+        f"{'faster' if ms <= ms_one * 1.02 else 'SLOWER'}; on {card}")
+    del gates, want
+    torch.cuda.empty_cache()
+    return dict(ms=ms, one_wave_ms=ms_one, one_wave=dataclasses.asdict(one))
+
+
+def _gru_fwd_wide_path(dev, v1_gru):
+    """FullSubNet v1-GRU on the route, the counts set to 0 around each
+    part: the batched 8 x 10 s forward (the sub-band GRU over 2056 rows,
+    the full band over 8), profiled, with exact launches; then its bf16
+    training step (18 x 3.072 s: the sub-band GRU over 2304 rows, the full
+    band over 18) on the route beside resident_forwards() in turns
+    (GRU_FWD_WIDE_STEPS steps each: route, resident, resident, route),
+    exact launches, medians and a profile of each (_steps_in_turns).
+    Returns the launches of both and the readings."""
+    from generative_audio_torch.ops import lstm as L
+    from generative_audio_torch.ops import prepare_input_from_waveform
+    model = v1_gru.model(torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 300)
+    wav = torch.randn(8, 160000, generator=gen, device=dev) * 0.1
+    batch = prepare_input_from_waveform(wav, 512, 256, 512)[:v1_gru.n_inputs]
+    expected = forward_counts(v1_gru, 8)
+    launched = {}
+    with torch.inference_mode():
+        model(*batch)
+        torch.cuda.synchronize()
+        L.reset_launch_counts()
+        model(*batch)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in L.launch_counts.items() if n}
+        check(got == expected, f"v1-GRU's batched 8 x 10 s forward launched "
+              f"{expected}, the route's (got {got})")
+        for k, n in got.items():
+            launched[k] = launched.get(k, 0) + n
+        fwd_profile = _profile(lambda: model(*batch), "FullSubNet v1-GRU batch "
+                               f"8 x 10 s forward on the route ({expected})")
+        with L.resident_forwards():
+            res_profile = _profile(lambda: model(*batch), "FullSubNet v1-GRU "
+                                   "batch 8 x 10 s forward under "
+                                   "resident_forwards()")
+    del model
+    torch.cuda.empty_cache()
+    res = _steps_in_turns(dev, v1_gru, L.resident_forwards,
+                          GRU_FWD_WIDE_STEPS, "phase 30's path")
+    out = {"forward": {}, "route_ms": res["route"]["median_ms"],
+           "resident_ms": res["witness"]["median_ms"]}
+    for part, (wall, busy, rows) in (("route", fwd_profile),
+                                     ("resident", res_profile)):
+        out["forward"][part] = dict(
+            profiled_ms=wall, busy_ms=busy,
+            gru_fwd_ms=sum(ms for key, ms, _ in rows
+                           if "gru_wide_kernel" in key
+                           or "gru_cluster_kernel" in key))
+    for part, r in res.items():
+        wall, busy, rows = r["profile"]
+        key = "route" if part == "route" else "resident"
+        out[key] = dict(profiled_ms=wall, busy_ms=busy,
+                        gru_fwd_ms=sum(ms for k, ms, _ in rows
+                                       if "gru_wide_kernel" in k
+                                       or "gru_cluster_kernel" in k),
+                        peak_gib=r["peak_gib"], per_step=r["per_step"])
+        for k, n in r["launched"].items():
+            launched[k] = launched.get(k, 0) + n
+    log(f"phase 30 (c) FullSubNet v1-GRU batch 8 x 10 s forward: profiled "
+        + "; ".join(f"{part} {r['profiled_ms']:.2f} ms, busy "
+                    f"{r['busy_ms']:.2f} ({100 * r['busy_ms'] / r['profiled_ms']:.1f}%),"
+                    f" GRU forwards {r['gru_fwd_ms']:.2f} ms"
+                    for part, r in out["forward"].items()))
+    log(f"phase 30 (c) FullSubNet v1-GRU bf16 step, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SAMPLES / 16000:.3f} s: on the route "
+        f"({res['route']['per_step']} a step) median {out['route_ms']:.2f} ms "
+        f"of {_times_line(res['route']['times'])}; resident_forwards() "
+        f"({res['witness']['per_step']}) {out['resident_ms']:.2f} ms of "
+        f"{_times_line(res['witness']['times'])}; profiled: " + "; ".join(
+            f"{part} {r['profiled_ms']:.2f} ms, busy {r['busy_ms']:.2f} "
+            f"({100 * r['busy_ms'] / r['profiled_ms']:.1f}%), GRU forwards "
+            f"{r['gru_fwd_ms']:.2f} ms, peak memory {r['peak_gib']:.2f} GiB"
+            for part, r in (("route", out["route"]),
+                            ("resident", out["resident"])))
+        + f"; on {card_line()}")
+    return launched, out
+
+
+def phase_gru_wide_forwards(dev, registers):
+    """Phase 30: the GRU forward and carry (TPU rows 6 and 8) as wide
+    clusters. (a) No instance spills; both entries bit for bit against the
+    resident cluster at 2056, a ragged 2047 and 257 rows x T=628, 2304, a
+    ragged 2295 and 1024 rows x T=195 and H=512 x 18 x 195 and x 8 x 628
+    (forward and reverse, bf16 and fp32 out, the carry from a state and in
+    chunks of 64 against unchunked, two runs of the forward against each
+    other), within the GRU forward's limits of the plain versions; (b)
+    timed at 2056 x 628 (both entries), 2304 x 195, 257 x 628 and the full
+    band's 18 x 195 beside the resident cluster in turns, the plain
+    version, cuDNN's nn.GRU and the bound, with both plans and the route's
+    pick, failing where the route takes the slower design; the planner's
+    plan at 2304 rows against the one-wave plan of 160 rows; (c) the path:
+    FullSubNet v1-GRU's batched 8 x 10 s forward, profiled on the route
+    and under resident_forwards(), and its bf16 training step on the route
+    beside resident_forwards() in turns, exact launches, medians and
+    profiles. Returns the entries' numbers and their launches on (c)."""
+    from generative_audio_torch.ops import gru as G
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    wide = {k: v for k, v in registers.items() if k.startswith("gru wide")}
+    log(f"GRU wide instances: " + (", ".join(
+        f"{k} {n}" for k, n in sorted(wide.items()))
+        or "not rebuilt in this run"))
+    check(all(v.endswith(" 0/0 B spilled") for v in wide.values()),
+          "no GRU wide instance spills")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 301)
+    worst = _gru_fwd_wide_identities(dev, G, gen)
+    kernels = _gru_fwd_wide_times(dev, G, gen, HIDDEN, T_FRAMES, ROWS, card)
+    for key, (h, t_len, rows) in (("train", (HIDDEN, TRAIN_T, TRAIN_ROWS)),
+                                  ("request", (HIDDEN, T_FRAMES, ROWS // 8)),
+                                  ("full_band", (FB_HIDDEN, TRAIN_T,
+                                                 TRAIN_BATCH))):
+        kernels[GRU_FWD_WIDE[0]][key] = _gru_fwd_wide_times(
+            dev, G, gen, h, t_len, rows, card, carry=False)[GRU_FWD_WIDE[0]]
+    kernels[GRU_FWD_WIDE[0]]["train"]["planner"] = _gru_one_wave_at_2304(
+        dev, G, gen, card)
+    for name in GRU_FWD_WIDE:
+        kernels[name]["max_abs_err"], kernels[name]["mean_abs_err"] = \
+            worst[name]
+    _, v1_gru, _ = model_paths()
+    launches, kernels[GRU_FWD_WIDE[0]]["path"] = _gru_fwd_wide_path(dev,
+                                                                   v1_gru)
+    log(f"launches on phase 30's path: {launches}; phase 30 "
+        f"{time.perf_counter() - t0:.1f} s")
+    for rows, what in ((ROWS, "serving"), (TRAIN_ROWS, "training")):
+        check(routed("gru_scan_fwd", rows) == GRU_FWD_WIDE[0]
+              and launches.get(GRU_FWD_WIDE[0], 0) > 0,
+              f"{GRU_FWD_WIDE[0]} is the route at v1's {rows} sub-band "
+              f"{what} rows and launched on phase 30's path")
+    return kernels, {k: launches.get(k, 0) for k in GRU_FWD_ENTRIES}
+
+
 def _gru_library(w_hh, b_hh):
     """cuDNN's GRU on the same x-side gates: nn.GRU(3H, H) with W_ih = I and
     b_ih = 0, so each step computes what the kernels do, plus one extra
@@ -4699,6 +5119,9 @@ class ModelPath:
     per_long_forward: int       # fwd launches on the chunked 30 s clip
     train_config: Callable      # compute_dtype -> EnhanceTrainConfig
     per_step: dict              # launches per training step
+    # of per_forward, the full band's (H=FB_HIDDEN over one row a clip);
+    # the rest and per_long_forward's are the sub-band's
+    fb_forward: int = 0
 
     def model(self, dtype, device, gates_bytes_limit=None):
         m = self.model_cls(self.config, compute_dtype=dtype, device=device,
@@ -4744,7 +5167,7 @@ def model_paths():
             mode="full_band_crm_mask", n_inputs=1,
             fwd=f"{family}_scan_fwd", carry=f"{family}_scan_fwd_carry",
             # at 30 s the full-band model stays unchunked
-            per_forward=4, per_long_forward=2,
+            per_forward=4, per_long_forward=2, fb_forward=2,
             train_config=lambda dtype, kind=kind: EnhanceTrainConfig(
                 model_type="fullsubnet",
                 model_v1=M.FullSubNetConfig(sequence_model=kind),
@@ -4798,11 +5221,25 @@ def phase_reference(dev, path, model, streams=None):
           f"{what}: wav vs float32 reference within {PATH_REL}")
 
 
+def forward_counts(path, clips, n=1):
+    """{entry: launches} of n unchunked forwards of `path` over `clips`
+    clips: the sub-band model's over 257 rows a clip, the full band's (its
+    fb_forward launches, H=FB_HIDDEN) over one row a clip, each named as
+    the route takes it."""
+    return routed_counts(
+        (path.fwd, clips * ROWS // 8, n * (path.per_forward - path.fb_forward)),
+        (path.fwd, clips, n * path.fb_forward, False, FB_HIDDEN))
+
+
+def _counts_hold(counts, before, expected):
+    return all(counts[k] - before[k] == n for k, n in expected.items())
+
+
 def phase_serving(dev, path, model, counts):
     inf = path.inferencer(model, dev)
     rng = np.random.default_rng(SEED + 2)
     card = card_line()
-    fwd = routed(path.fwd, ROWS // 8)       # a clip's 257 sub-band rows
+    expected = forward_counts(path, 1)      # a clip's 257 sub-band rows
     for seconds in (3.0, 7.5, 10.0):
         noisy = (rng.standard_normal(int(seconds * 16000)) * 0.1).astype(np.float32)
         before = dict(counts)
@@ -4811,16 +5248,16 @@ def phase_serving(dev, path, model, counts):
         wall = (time.perf_counter() - t0) * 1e3
         check(out.shape == noisy.shape and np.isfinite(out).all(),
               f"{path.name} {seconds} s request: shape and finite")
-        check(counts[fwd] - before[fwd] == path.per_forward,
-              f"{fwd} (the route's) launched {path.per_forward} times per "
-              f"forward (got {_launched(counts, before)})")
+        check(_counts_hold(counts, before, expected),
+              f"{expected} (the route's) launched per forward (got "
+              f"{_launched(counts, before)})")
         log(f"serve {path.name} {seconds} s clip: rtf {inf.last_rtf:.5f}, "
             f"{wall:.2f} ms per call on {card}")
 
     clips = [((rng.standard_normal(160000) * 0.1).astype(np.float32), f"clip{i}")
              for i in range(8)]
-    fwd = routed(path.fwd, ROWS)            # the batch's 8 x 257 rows
-    before = counts[fwd]
+    expected = forward_counts(path, 8, 2)   # the batch's 8 x 257 rows
+    before = dict(counts)
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
         inf.enhance_dir(clips, out_dir, log=lambda *_: None, batch_size=8)
@@ -4831,9 +5268,9 @@ def phase_serving(dev, path, model, counts):
             check(sr == 16000 and got.shape == noisy.shape
                   and np.isfinite(got).all(), f"enhance_dir output {name}")
     # the bucket is warmed once at its batch outside the timed window
-    check(counts[fwd] - before == 2 * path.per_forward,
-          f"{fwd} (the route's) launched {path.per_forward} times for each "
-          f"of the batched forwards (warm-up and request)")
+    check(_counts_hold(counts, before, expected),
+          f"{expected} (the route's) launched for the two batched forwards "
+          f"(warm-up and request; got {_launched(counts, before)})")
     log(f"serve {path.name} enhance_dir 8 x 10 s, batch 8: rtf "
         f"{inf.last_rtf:.5f}, {wall:.2f} ms on {card}")
     return inf.last_rtf
@@ -4848,7 +5285,10 @@ def phase_long_clip(dev, path, model, counts):
     before = dict(counts)
     inf = path.inferencer(chunked_model, dev)
     out = inf.enhance(noisy)
-    fwd, carry = routed(path.fwd, ROWS // 8), routed(path.carry, ROWS // 8)
+    # the sub-band model in chunks; the full band's forwards unchunked
+    fwd = (routed(path.fwd, 1, False, FB_HIDDEN) if path.fb_forward
+           else routed(path.fwd, ROWS // 8))
+    carry = routed(path.carry, ROWS // 8)
     launched_c = counts[carry] - before[carry]
     check(launched_c > 0
           and counts[fwd] - before[fwd] == path.per_long_forward,
@@ -5102,7 +5542,9 @@ def routed(entry, rows, out_f32=False, hsz=HIDDEN):
     ("lstm_scan_fwd_train") launches for `rows` rows of an LSTM of hsz
     units on the card: the route of ops.lstm.plan_forward, the wide cluster
     ("_wide") or the resident one, whichever models faster there (within
-    resident_forwards() or wide_forwards(), the one it forces); kernel D
+    resident_forwards() or wide_forwards(), the one it forces); the GRU
+    forward ("gru_scan_fwd") and carry ("gru_scan_fwd_carry") of a layer of
+    hsz units likewise (ops.gru's route); kernel D
     ("lstm_scan_bwd") and the
     GRU backward scan ("gru_scan_bwd", a layer of hsz units) as
     ops.lstm.plan_bwd takes them (the wide cluster, "_wide", or the
@@ -5114,6 +5556,10 @@ def routed(entry, rows, out_f32=False, hsz=HIDDEN):
         plan = M.card_bwd_scan_plan(torch.device("cuda"), -(-hsz // 16) * 16,
                                     rows)
         return entry + ("_wide" if plan.design == "wide" else "")
+    if entry in ("gru_scan_fwd", "gru_scan_fwd_carry"):
+        return entry + G._forward_route(
+            hsz, max(rows, 1), torch.device("cuda"),
+            (int(out_f32), int(entry == "gru_scan_fwd_carry")))[1]
     if entry not in ("lstm_scan_fwd", "lstm_scan_fwd_carry",
                      "lstm_scan_fwd_train"):
         return entry
@@ -5137,12 +5583,12 @@ def routed_counts(*items):
 def routed_step(per_step, rows=TRAIN_ROWS, fb_rows=TRAIN_BATCH):
     """A training step's {entry: launches} with kernel C's and D's entries
     named as the route takes them at `rows` sub-band rows (H=HIDDEN), and
-    the GRU
-    backward scan's (v1-GRU: half its launches over those rows, half over
+    the GRU forward's and
+    backward scan's (v1-GRU: half their launches over those rows, half over
     the full band's `fb_rows` at H=FB_HIDDEN) likewise."""
     items = []
     for k, n in per_step.items():
-        if k == "gru_scan_bwd":
+        if k in ("gru_scan_fwd", "gru_scan_bwd"):
             items += [(k, rows, n // 2), (k, fb_rows, n - n // 2, False,
                                           FB_HIDDEN)]
         else:
@@ -5156,6 +5602,10 @@ def routed_step(per_step, rows=TRAIN_ROWS, fb_rows=TRAIN_BATCH):
 # of csrc/lstm_scan_bwd_wide.cu).
 AB_ENTRIES = ("lstm_scan_fwd", "lstm_scan_fwd_carry", "lstm_scan_fwd_wide",
               "lstm_scan_fwd_carry_wide")
+# The GRU forward's and carry's entries, both designs (csrc/gru_scan.cu's
+# resident cluster, csrc/gru_scan_wide.cu's wide one).
+GRU_FWD_ENTRIES = ("gru_scan_fwd", "gru_scan_fwd_carry", "gru_scan_fwd_wide",
+                   "gru_scan_fwd_carry_wide")
 C_ENTRIES = ("lstm_scan_fwd_train", "lstm_scan_fwd_train_wide")
 D_ENTRIES = ("lstm_scan_bwd", "lstm_scan_bwd_wide")
 GRU_BWD_ENTRIES = ("gru_scan_bwd", "gru_scan_bwd_wide")
@@ -7851,7 +8301,8 @@ def _complex(dev, counts):
              routed_counts(("lstm_scan_fwd_train", 2 * COMPLEX_TRAIN[0], 4),
                            ("lstm_scan_bwd", 2 * COMPLEX_TRAIN[0], 4))),
             ("GRU", "gru_scan_fwd",
-             routed_counts(("gru_scan_fwd", 0, 4),
+             routed_counts(("gru_scan_fwd", 2 * COMPLEX_TRAIN[0], 4, False,
+                            COMPLEX_HIDDEN),
                            ("gru_scan_bwd", 2 * COMPLEX_TRAIN[0], 4, False,
                             COMPLEX_HIDDEN),
                            ("gru_scan_bwd_dwhh", 0, 4)))):
@@ -8989,6 +9440,7 @@ def phase_band_axis(dev, plus, v1_gru, plus_ref):
     paths = {"plus": plus, "v1_gru": v1_gru}
     launched = dict.fromkeys(list(plus.per_step) + list(v1_gru.per_step)
                              + list(C_ENTRIES) + list(D_ENTRIES)
+                             + list(GRU_FWD_ENTRIES)
                              + list(GRU_BWD_ENTRIES), 0)
     refs = {"plus": plus_ref}
     with tempfile.TemporaryDirectory() as tmp:
@@ -9217,7 +9669,10 @@ def _f32_requests(dev, plus, v1_gru, counts, card):
         # with the records' copies of the operands
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         n_carry = len(carry["carry"])
-        want = {k: n for k, n in ((routed(path.fwd, ROWS // 8, True),
+        # under the gates limit v1's forwards are its full band's
+        want = {k: n for k, n in ((routed(path.fwd, ROWS // 8, True)
+                                   if limit is None or not path.fb_forward
+                                   else routed(path.fwd, 1, True, FB_HIDDEN),
                                    len(fwd["fwd"])),
                                   (routed(path.carry, ROWS // 8, True),
                                    n_carry)) if n}
@@ -9687,14 +10142,18 @@ def main():
     wide_c_kernels, wide_c_launches = phase_wide_train(dev, registers)
     kernels.update(wide_c_kernels)
     phase_lstm_train_large(dev)
-    kernels.update(phase_gru_kernels(dev))
-    with L.resident_backwards():    # the GRU's resident cluster, the witness
+    with L.resident_forwards():     # the GRU's resident cluster, the witness
+        kernels.update(phase_gru_kernels(dev))
+    with L.resident_backwards(), L.resident_forwards():   # likewise
         kernels.update(phase_gru_train_kernels(dev, registers))
     gru_wide_kernels, gru_wide_launches = phase_gru_wide_backward(dev,
                                                                   registers)
     kernels["gru_scan_bwd_dwhh"].update(gru_wide_kernels.pop(
         "gru_scan_bwd_dwhh"))
     kernels.update(gru_wide_kernels)
+    gru_fwd_kernels, gru_fwd_launches = phase_gru_wide_forwards(dev,
+                                                                registers)
+    kernels.update(gru_fwd_kernels)
 
     pallas = "generative_audio_tpu/ops/pallas_lstm.py"
     csrc = "generative_audio_torch/csrc"
@@ -9773,7 +10232,13 @@ def main():
         # the GRU backward scan as a wide cluster, the route at v1's
         # sub-band training batch (phase 28), on the v1-GRU training paths
         "gru_scan_bwd_wide": (f"{csrc}/gru_scan_bwd_wide.cu",
-                              f"{pallas}:1019")}
+                              f"{pallas}:1019"),
+        # the GRU forward and carry as wide clusters, the route at v1's
+        # sub-band batches (phase 30), on the v1-GRU paths where the route
+        # takes them
+        "gru_scan_fwd_wide": (f"{csrc}/gru_scan_wide.cu", f"{pallas}:907"),
+        "gru_scan_fwd_carry_wide": (f"{csrc}/gru_scan_wide.cu",
+                                    f"{pallas}:1151")}
     plus, v1_gru, v1_lstm = model_paths()
     # FullSubNet+'s kernels A and B as the route takes them at one clip's
     # and at the batch's sub-band rows
@@ -9785,9 +10250,12 @@ def main():
                                                   TRAIN_ROWS),
                                            routed("lstm_scan_bwd",
                                                   TRAIN_ROWS)])
-    launched.update(drive(dev, v1_gru, [k for k in table if k.startswith("gru_")
-                                        and not k.endswith(("_block",
-                                                            "_stream"))])[0])
+    # v1-GRU's forwards, carry and backward scans as the route takes them
+    # at each call's rows (sub-band and full band)
+    v1_kernels = {*forward_counts(v1_gru, 1), *forward_counts(v1_gru, 8),
+                  routed("gru_scan_fwd_carry", ROWS // 8),
+                  *routed_step(v1_gru.per_step)}
+    launched.update(drive(dev, v1_gru, sorted(v1_kernels))[0])
     for name, n in launched.items():
         counts[name] += n
     for name, launched in phase_serving_modes(dev, plus, plus_rtf).items():
@@ -9815,6 +10283,8 @@ def main():
     counts.update(staged_launches)
     for name, n in {**wide_launches, **wide_bwd_launches,
                     **gru_wide_launches, **wide_c_launches}.items():
+        counts[name] += n
+    for name, n in gru_fwd_launches.items():
         counts[name] += n
     for name, n in bwd_stream_launches.items():
         counts[name] += n

@@ -3,8 +3,10 @@
 // ldmatrix helpers that read A fragments out of TMA's swizzled boxes, the
 // 3-D TMA load, the fences and cluster barrier halves of the dgates
 // exchange through L2, and the host side of their launches (the cluster
-// attribute and the tensor maps). Internal linkage: a source includes it
-// once and may leave any unused.
+// attribute and the tensor maps). The wide cluster forwards
+// (csrc/scan_fwd_wide.cuh) take the TMA load and the host side from here
+// too. Internal linkage: a source includes it once and may leave any
+// unused.
 
 #pragma once
 
@@ -43,7 +45,7 @@ __device__ __forceinline__ void load_a_box(uint32_t (&a)[4], uint32_t box,
 }
 
 // One box {col, row, t} of a 3-D tensor map into shared memory, completing
-// on the mbarrier `bar` (as csrc/lstm_scan_wide.cu's).
+// on the mbarrier `bar`.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
                                             int col, int row, int t,
                                             uint32_t bar) {
@@ -79,7 +81,7 @@ cudaLaunchAttribute cluster_attr(int C) {
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query, so the library links no libcuda (as lstm_scan_wide.cu).
+// query, so the library links no libcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,

@@ -185,6 +185,17 @@ _SIGNATURES = {
         "gru_scan_fwd_carry_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _I, _P],
     },
+    "gru_scan_wide": {
+        # the GRU forwards as wide clusters: ..., reverse, then the plan:
+        # cluster, rows, resident k-steps, stages, shared bytes (and,
+        # traced, the trace buffer)
+        "gru_scan_fwd_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P],
+        "gru_scan_fwd_carry_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _P],
+        "gru_scan_wide_trace": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P, _P],
+    },
     "gru_scan_block": {
         "gru_scan_fwd_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "gru_scan_fwd_carry_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -230,8 +241,8 @@ SOURCES = tuple(_SIGNATURES)
 # train for the LSTM forward; resident for the backwards; k and out_f32 for
 # the staged scans; n_chains, arrangement and resident for kernel G; for
 # the streamed forwards, those of their kernel, the resident k-steps and
-# the ring's stages; for the wide forwards the resident k-steps and the
-# stages; for the staged ones k, out_f32, the resident k-steps,
+# the ring's stages; for the wide forwards (the LSTM's and the GRU's) the
+# resident k-steps and the stages; for the staged ones k, out_f32, the resident k-steps,
 # the stages and kernel E's gate groups; for the streamed backwards, tile,
 # the resident slots and the stages; for kernel D's wide cluster the tiles
 # and groups an item, the resident k-steps and both rings' stages, and the
@@ -247,6 +258,10 @@ _QUERIES = {
     "lstm_scan_wide": {
         "lstm_scan_wide_max_clusters": [_I, _I, _I, _I, _I,
                                         ctypes.POINTER(ctypes.c_int)],
+    },
+    "gru_scan_wide": {
+        "gru_scan_wide_max_clusters": [_I, _I, _I, _I, _I,
+                                       ctypes.POINTER(ctypes.c_int)],
     },
     "lstm_scan_staged": {
         "lstm_scan_staged_max_clusters": [_I, _I, _I, _I, _I,

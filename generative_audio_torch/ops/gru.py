@@ -3,9 +3,11 @@ their plain PyTorch versions, and the autograd Function that trains through
 them.
 
 Port of three kernels of generative_audio_tpu/ops/pallas_lstm.py:
-  * `gru_scan_tm` without grad (csrc/gru_scan.cu `gru_scan_fwd`) replaces
+  * `gru_scan_tm` without grad (csrc/gru_scan.cu `gru_scan_fwd`; at the
+    sub-band batch csrc/gru_scan_wide.cu `gru_scan_fwd_wide`) replaces
     `_gru_pallas_call` / `_gru_kernel`;
-  * `gru_scan_carry_tm` (`gru_scan_fwd_carry`, the same template) replaces
+  * `gru_scan_carry_tm` (`gru_scan_fwd_carry`, the same template, or
+    `gru_scan_fwd_carry_wide`) replaces
     `_gru_pallas_call_carry` / `_gru_carry_kernel`, and
     `gru_layer_tm_chunked` chains it over time chunks as the JAX function of
     the same name does;
@@ -45,6 +47,16 @@ run as thread-block clusters: `plan_scan` (ops/lstm.py's
 `plan_cluster_scan` with this kernel's layout and step model) picks the
 cluster size and the rows per cluster from H, the row count, the
 shared-memory limit and the card's `cudaOccupancyMaxActiveClusters`.
+Where a resident cluster holds H, the forwards have a second design, the
+wide cluster (csrc/gru_scan_wide.cu, entries ending in `_wide`: kernel
+A's wide design of csrc/lstm_scan_wide.cu with the GRU cell, each step's
+product on wgmma with a fourth gate row of zeros a unit, W_hh^T streamed
+from L2 through a ring, so that up to 160 rows fit a cluster), the same
+bits; the route takes whichever has the least modelled waves x step on the
+card (`plan_gru_wide_scan`, `card_gru_wide_plan`, `gru_wide_step_us`), and
+ops/lstm.py's `wide_forwards()` / `resident_forwards()` force either here
+too. The wrapper packs W_hh for the plan (ops/lstm.py `_wide_weight` with
+three gates) and `_launch` appends it.
 The backward scan runs as a thread-block cluster, as the single-block
 design, up to H = 512 as a wide cluster (csrc/gru_scan_bwd_wide.cu
 `gru_scan_bwd_wide`: kernel D's wide design with the GRU cell, the dgh
@@ -85,10 +97,12 @@ import torch.nn.functional as F
 from generative_audio_torch.ops.lstm import (
     _BWD_RESIDENT_MAX, _PAD, _ROWS, _STEP_UNITS, H100_SMS, BwdPlan,
     BwdStreamPlan, BwdWidePlan, ScanPlan, StreamBwdClusters, StreamPlan,
-    WideBwdClusters, _bwd_design, _bwd_hidden, _card_stream_bwd_clusters,
+    WideBwdClusters, WidePlan, _bwd_design, _bwd_hidden,
+    _card_stream_bwd_clusters,
     _card_wide_bwd_clusters, _check_kernel_operand, _device_index,
     _device_sms, _fragment_weight, _is_cuda, _kernel_operand,
-    _kernel_weight, _on_card, _pad_gates, _pad_units, _padded_weight,
+    _kernel_weight, _max_clusters, _on_card, _pad_gates, _pad_units,
+    _padded_weight, _wide_args,
     _resident_occupancy, _route_weight, _stream_args, _stream_dh_weight,
     _stream_weight, _unpad_gates, _unpad_units, _wants_grad,
     block_forward_step_us, bwd_cluster_smem_bytes, bwd_cluster_step_us,
@@ -97,8 +111,8 @@ from generative_audio_torch.ops.lstm import (
     bwd_stream_cluster_smem_bytes,
     cluster_hidden, cluster_step_us, mixed_gates, plan_bwd,
     plan_bwd_stream, plan_bwd_wide_cluster, plan_cluster_scan,
-    plan_forward, plan_stream, resident_backwards, sm_blocks,
-    stream_cluster_step_us, stream_fixed_bytes)
+    plan_forward, plan_stream, plan_wide_scan, resident_backwards, sm_blocks,
+    stream_cluster_step_us, stream_fixed_bytes, wide_smem_bytes, wide_step_us)
 from generative_audio_torch.ops.lstm import _launch as _launch_entry
 
 __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
@@ -116,7 +130,8 @@ __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "bwd_stream_step_us", "plan_bwd_stream_scan",
            "card_bwd_stream_plan", "bwd_wide_smem_bytes", "bwd_wide_step_us",
            "plan_bwd_wide_scan", "card_bwd_wide_plan", "dwhh_us",
-           "plan_dwhh_first"]
+           "plan_dwhh_first", "WidePlan", "gru_wide_smem_bytes",
+           "gru_wide_step_us", "plan_gru_wide_scan", "card_gru_wide_plan"]
 
 # Batch rows per block of the backward scan, which writes one db_hh partial
 # per block: the kernel is told the number of partials and refuses another
@@ -130,6 +145,18 @@ _STEP_US, _ROUND_US, _STORE_US = 2.1, 2.7, 2.2e-3
 # streamed variants, whose C functions end in a StreamPlan's.
 _CLUSTER_ENTRIES = ("gru_scan_fwd", "gru_scan_fwd_carry")
 _STREAM_ENTRIES = ("gru_scan_fwd_stream", "gru_scan_fwd_carry_stream")
+# The wide cluster's entries, whose C functions end in a WidePlan's (three
+# gates).
+_WIDE_ENTRIES = ("gru_scan_fwd_wide", "gru_scan_fwd_carry_wide")
+# gru_wide_step_us's parts (ops/lstm.py wide_step_us: step, CTA, cell,
+# exchange KB, kilobyte, latency; microseconds): a least-squares fit to the
+# steps of 114 one-cluster plans (H = 384 at C = 8 and 16, H = 512 at C =
+# 16; 16-160 rows; no ring and rings of 2-6 stages) on an H100 SXM at 700 W
+# (generative_audio_torch/scripts/perf_wide_scan.py --kind gru), off by at
+# most 1.44 us a step and 0.38 in the mean. With them the route takes the
+# wide cluster at every row count of FullSubNet v1-GRU's paths, the faster
+# design at each as measured there.
+_GRU_WIDE_PARTS = (2.69036, 0.02889, 0.32044, 0.04523, 0.0295, 0.78)
 # The streamed variant's step model (ops/lstm.py stream_cluster_step_us:
 # step, store, kilobyte, latency; microseconds): a least-squares fit to the
 # steps of 39 one-cluster plans (H = 768, 1024; C = 8 x 16 rows, C = 16 x
@@ -277,17 +304,67 @@ def block_step_us(hsz: int, blocks: int) -> float:
     return block_forward_step_us(hsz, blocks, 3, _BLOCK_PARTS)
 
 
+def gru_wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
+                        stages: int) -> int:
+    """Shared memory of one CTA of the wide forward (csrc/scan_fwd_wide.cuh
+    `wide_smem` with three gate boxes; ops/lstm.py wide_smem_bytes)."""
+    return wide_smem_bytes(hsz, cluster, rows, resident, stages, 3)
+
+
+def gru_wide_step_us(hsz: int, cluster: int, rows: int, resident: int,
+                     stages: int) -> float:
+    """Modelled time of one step of one wave of the wide forward (ops/
+    lstm.py wide_step_us with this kernel's fitted parts)."""
+    return wide_step_us(hsz, cluster, rows, resident, stages,
+                        _GRU_WIDE_PARTS)
+
+
+def plan_gru_wide_scan(hsz: int, batch: int,
+                       max_clusters: Callable[[int, int, int, int, int], int],
+                       resident: Optional[int] = None) -> WidePlan:
+    """The wide forward's plan for `batch` rows of a layer of hsz units
+    (ops/lstm.py plan_wide_scan with three gates and this kernel's step
+    model); raises ValueError with each cluster size's reason when nothing
+    fits."""
+    return plan_wide_scan(hsz, batch, max_clusters, resident, "GRU", 3,
+                          gru_wide_step_us)
+
+
+@functools.lru_cache(maxsize=None)
+def card_gru_wide_plan(device: torch.device, hsz: int, batch: int,
+                       resident: Optional[int] = None) -> WidePlan:
+    """The wide plan both forward entries launch with on `device` (a CUDA
+    device) for `batch` rows of a layer of hsz units (occupancy from
+    csrc/gru_scan_wide.cu `gru_scan_wide_max_clusters`; one instance serves
+    both entries and both output types)."""
+    index = _device_index(device)
+    return plan_gru_wide_scan(
+        hsz, batch, lambda h, c, r, res, stages: _max_clusters(
+            "gru_scan_wide", index, (res, stages), h, c, r), resident)
+
+
 def _forward_route(hsz: int, batch: int, device: torch.device,
                    instance: Tuple[int, int] = (0, 0)
-                   ) -> Tuple[int, str, Optional[StreamPlan]]:
-    """(H, entry suffix, streamed plan) of the forward for `batch` rows of a
-    layer of hsz units on `device` (ops/lstm.py plan_forward with this
-    kernel's layouts, step models and the card's occupancy of the streamed
-    instance; instance (out_f32, carry)); raises when nothing fits."""
+                   ) -> Tuple[int, str, Optional[Union[StreamPlan, WidePlan]]]:
+    """(H, entry suffix, plan) of the forward for `batch` rows of a layer of
+    hsz units on `device` (ops/lstm.py plan_forward with this kernel's
+    layouts, step models, the card's occupancy of the streamed instance,
+    the wide cluster's plan and, on a card, the modelled time of the
+    instance's resident cluster; instance (out_f32, carry)); raises when
+    nothing fits. On CPU tensors the route weighs no wide cluster unless
+    wide_forwards() forces it."""
+    wide = lambda: card_gru_wide_plan(device, hsz, batch)
+    resident = None
+    if _on_card(device):
+        dtype = torch.float32 if instance[0] else torch.bfloat16
+
+        def resident(hp):
+            plan = card_scan_plan(device, hp, batch, dtype, bool(instance[1]))
+            return plan.waves * scan_step_us(hp, plan.cluster, plan.rows)
     return plan_forward(
         "GRU", hsz, batch, scan_smem_bytes, block_smem_bytes, block_step_us,
         lambda res: card_stream_plan(device, hsz, batch, instance, res),
-        _device_sms(device))
+        _device_sms(device), wide_plan=wide, resident_us=resident)
 
 
 @functools.lru_cache(maxsize=None)
@@ -453,12 +530,14 @@ def card_bwd_stream_plan(device: torch.device, hsz: int, batch: int,
 
 def _launch(fn_name: str, *args,
             plan: Optional[Union[BwdPlan, StreamPlan, BwdStreamPlan,
-                                 BwdWidePlan, "DwhhPlan"]] = None) -> None:
+                                 BwdWidePlan, WidePlan, "DwhhPlan"]] = None
+            ) -> None:
     """Launch csrc entry `fn_name` through the port's launch helper. The
     forward entries are cluster launches: their arguments end in (out_f32,
     T, B, H, reverse), and card_scan_plan's plan for (H, B) on the tensors'
     card is appended to them; their streamed variants take `plan` (the
-    StreamPlan the wrapper packed W_hh for). The backward scan's arguments
+    StreamPlan the wrapper packed W_hh for), and their wide ones the
+    WidePlan of three gates the wrapper packed W_hh for. The backward scan's arguments
     end in (T, B, H, reverse), and `plan` (default: card_bwd_scan_plan's for
     (H, B) without the wide cluster, which takes other operands) is
     appended to them; its streamed and wide clusters' arguments end the
@@ -468,6 +547,8 @@ def _launch(fn_name: str, *args,
     appended to them."""
     if fn_name in _STREAM_ENTRIES:
         args = (*args, *_stream_args(fn_name, plan, args[-2]))
+    elif fn_name in _WIDE_ENTRIES:
+        args = (*args, *_wide_args(fn_name, plan, args[-2], 3))
     elif fn_name == "gru_scan_bwd_stream":
         args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
     elif fn_name == "gru_scan_bwd_wide":
@@ -770,7 +851,11 @@ def gru_scan_tm(gates_x: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """GRU recurrence, time-major: gates_x [T, B, 3H] (cast to bf16 as the
     kernel's input), w_hh [H, 3H], b_hh [3H] -> h sequence [T, B, H] in
-    out_dtype. h starts at zero. CUDA tensors run the forward kernel; when
+    out_dtype. h starts at zero. CUDA tensors run the forward kernel on the
+    route of _forward_route (the wide cluster where a resident cluster holds
+    H and the wide one models faster on the card, W_hh packed for its
+    WidePlan; else the resident cluster, the streamed cluster or the single
+    block; the same h bit for bit); when
     autograd records and an input requires grad, the call goes through
     GRUScan instead, on either device."""
     t_len, b, hsz = _check_shapes(gates_x, w_hh, b_hh, out_dtype)

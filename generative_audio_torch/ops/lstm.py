@@ -67,7 +67,9 @@ TMA, c in registers (kernel C stores its bf16 c from there), so that up to
 step on the card (`plan_wide_scan`, `card_wide_plan`; the wide one at the
 8 x 10 s batch and at the 2304-row training batch, the resident one at a
 clip's 257 rows). `wide_forwards()` and `resident_forwards()` force
-either. Kernel D
+either, for the GRU forwards' wide cluster (ops/gru.py,
+csrc/gru_scan_wide.cu, the same design with a fourth gate row of zeros a
+unit; csrc/scan_fwd_wide.cuh holds what both share) too. Kernel D
 has a wide cluster too (csrc/lstm_scan_bwd_wide.cu `lstm_scan_bwd_wide`:
 the dgates exchange read back from L2 by TMA in kernel D's k order, both
 W_hh operands streamed, z, dh and dc of up to 2 x 3 m16 tiles x 8-unit
@@ -213,6 +215,8 @@ _SOURCE_OF = {"lstm_scan_fwd": "lstm_scan", "lstm_scan_fwd_carry": "lstm_scan",
               "gru_scan_fwd_carry_block": "gru_scan_block",
               "gru_scan_fwd_stream": "gru_scan",
               "gru_scan_fwd_carry_stream": "gru_scan",
+              "gru_scan_fwd_wide": "gru_scan_wide",
+              "gru_scan_fwd_carry_wide": "gru_scan_wide",
               "gru_scan_bwd": "gru_scan_bwd",
               "gru_scan_bwd_dwhh": "gru_scan_bwd",
               "lstm_scan_bwd_stream": "scan_bwd_stream",
@@ -1048,8 +1052,9 @@ def plan_forward(what: str, hsz: int, batch: int, smem_bytes: SmemBytes,
     cluster does the streamed cluster's work without the stream, and the
     single block's modelled step is over 5x the resident cluster's at any H
     that both hold, so where it fits it is not weighed.
-    Kernels A, B and C have a third design, the wide cluster ("_wide",
-    `wide_plan()`): where a resident cluster holds the slice, the route is
+    Kernels A, B and C and the GRU forwards have a third design, the wide
+    cluster ("_wide", `wide_plan()`): where a resident cluster holds the
+    slice, the route is
     whichever of the two has the least modelled waves x step
     (`resident_us(H)` for the resident cluster on the card; without it, as
     for CPU tensors, which have no card's occupancy to weigh, the resident
@@ -1111,9 +1116,10 @@ _design: List[str] = []   # set by wide_forwards() and resident_forwards()
 @contextlib.contextmanager
 def wide_forwards():
     """Within the block, kernels A, B and C (lstm_scan_tm without grad,
-    lstm_scan_carry_tm, lstm_scan_train_tm and so LSTMScan's forward) take
-    the wide cluster at any H its planner holds: for holding it against the
-    resident cluster, which it equals bit for bit."""
+    lstm_scan_carry_tm, lstm_scan_train_tm and so LSTMScan's forward) and
+    the GRU forward and carry (ops/gru.py) take the wide cluster at any H
+    its planner holds: for holding it against the resident cluster, which
+    it equals bit for bit."""
     _design.append("_wide")
     try:
         yield
@@ -1123,9 +1129,10 @@ def wide_forwards():
 
 @contextlib.contextmanager
 def resident_forwards():
-    """Within the block, kernels A, B and C take the resident cluster
-    wherever a cluster holds H, whatever the wide cluster's model says: for
-    holding the wide cluster against it and timing both."""
+    """Within the block, kernels A, B and C and the GRU forward and carry
+    take the resident cluster wherever a cluster holds H, whatever the wide
+    cluster's model says: for holding the wide cluster against it and
+    timing both."""
     _design.append("")
     try:
         yield
@@ -1218,14 +1225,18 @@ def _stream_weight(w_hh: torch.Tensor, hp: int, cluster: int) -> torch.Tensor:
 class WidePlan:
     """Launch plan of the wide cluster forwards (csrc/lstm_scan_wide.cu,
     `lstm_scan_fwd_wide`, `lstm_scan_fwd_carry_wide`,
-    `lstm_scan_fwd_train_wide`: one layout for all three): clusters of
+    `lstm_scan_fwd_train_wide`: one layout for all three; with `gates` 3,
+    csrc/gru_scan_wide.cu's `gru_scan_fwd_wide` and
+    `gru_scan_fwd_carry_wide`): clusters of
     `cluster` CTAs at H = `hidden` (the layer's units zero-padded to
     wide_hidden's), each CTA owning hidden / cluster units (a warpgroup of
     wgmma a 16 of them), over `rows` batch rows a cluster (wgmma's N);
     the first `resident` 16-deep k-steps of each CTA's W_hh^T slice stay in
     shared memory, the others stream from L2 through a ring of `stages`
     slots of two k-steps (no ring, 0 stages, where the whole slice is
-    resident)."""
+    resident). `gates` is the cell's: 4 for the LSTM, 3 for the GRU, whose
+    W_hh^T is packed with a fourth gate row of zeros a unit (_wide_weight)
+    and whose x-side gates are three boxes a step."""
     hidden: int           # H the kernel runs at
     cluster: int          # CTAs per cluster
     rows: int             # batch rows per cluster
@@ -1236,6 +1247,7 @@ class WidePlan:
     waves: int            # rounds of clusters, one after another
     smem_bytes: int       # dynamic shared memory of one CTA
     step_us: float        # modelled time of one step of one wave
+    gates: int = 4        # the cell's gates (4 LSTM, 3 GRU)
 
     @property
     def warpgroups(self) -> int:
@@ -1285,27 +1297,31 @@ def wide_hidden(hsz: int, cluster: int) -> int:
 
 
 def wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
-                    stages: int) -> int:
-    """Shared memory of one wide CTA (csrc/lstm_scan_wide.cu `wide_smem`):
+                    stages: int, gates: int = 4) -> int:
+    """Shared memory of one wide CTA (csrc/scan_fwd_wide.cuh `wide_smem`):
     128 bytes of slack to align the TMA boxes, one step of x-side gates
-    [4][rows][U] bf16, the ring of `stages` k-pairs and the `resident`
-    k-steps of the W_hh^T slice (4U x 16 bf16 a k-step), the bf16 h buffer
-    [H / 8][rows][8] and the mbarriers (the ring's two a stage, the
-    exchange's and the gates'), with U = H / cluster units."""
+    [gates][rows][U] bf16, the ring of `stages` k-pairs and the `resident`
+    k-steps of the W_hh^T slice (4U x 16 bf16 a k-step, the GRU's fourth
+    gate row a unit zero), the bf16 h buffer [H / 8][rows][8] and the
+    mbarriers (the ring's two a stage, the exchange's and the gates'), with
+    U = H / cluster units."""
     units = hsz // cluster
-    return (128 + 8 * rows * units + (stages + resident // 2) * units * 256
-            + 2 * rows * hsz + 8 * (2 * stages + 2))
+    return (128 + 2 * gates * rows * units
+            + (stages + resident // 2) * units * 256 + 2 * rows * hsz
+            + 8 * (2 * stages + 2))
 
 
 def wide_step_us(hsz: int, cluster: int, rows: int, resident: int,
-                 stages: int) -> float:
+                 stages: int, parts: Tuple[float, ...] = _WIDE_PARTS
+                 ) -> float:
     """Modelled time of one step of one wave of the wide cluster, from
-    _WIDE_PARTS: a step, the CTA's wgmma products, the cell's 8-row chunks
+    `parts` (kernels A-C's _WIDE_PARTS; the GRU's own): a step, the CTA's
+    wgmma products, the cell's 8-row chunks
     a thread, the KB of the bulk h exchange a CTA sends to its cluster - 1
     peers (its slice through the last row), and for each streamed k-pair
     the larger of its kilobytes' copy time and a copy's latency shared by
     the ring's stages."""
-    step_us, cta_us, cell_us, x_us, kb_us, latency_us = _WIDE_PARTS
+    step_us, cta_us, cell_us, x_us, kb_us, latency_us = parts
     units, ksteps = hsz // cluster, hsz // 16
     cta = units // 16 * (rows // 8) * ksteps / 1000
     sent = rows * units * 2 * (cluster - 1) / 1024
@@ -1317,33 +1333,38 @@ def wide_step_us(hsz: int, cluster: int, rows: int, resident: int,
 
 
 def _wide_resident(hsz: int, cluster: int, rows: int, stages: int,
-                   resident: Optional[int]) -> Optional[int]:
-    """The resident k-steps of a wide CTA with a ring of `stages`: all of
+                   resident: Optional[int], gates: int = 4) -> Optional[int]:
+    """The resident k-steps of a wide CTA of a `gates`-gate cell with a
+    ring of `stages`: all of
     them with no ring (stages 0); else `resident` where it is even, leaves
     a k-pair streamed and fits SMEM_LIMIT, else (None) the most that do;
     None when none does."""
     ksteps = hsz // 16
+    smem = functools.partial(wide_smem_bytes, hsz, cluster, rows,
+                             gates=gates)
     if stages == 0:
-        ok = (resident in (None, ksteps) and wide_smem_bytes(
-            hsz, cluster, rows, ksteps, 0) <= SMEM_LIMIT)
+        ok = resident in (None, ksteps) and smem(ksteps, 0) <= SMEM_LIMIT
         return ksteps if ok else None
     if resident is not None:
         ok = (resident >= 0 and resident % 2 == 0 and resident < ksteps
-              and wide_smem_bytes(hsz, cluster, rows, resident, stages)
-              <= SMEM_LIMIT)
+              and smem(resident, stages) <= SMEM_LIMIT)
         return resident if ok else None
-    least = wide_smem_bytes(hsz, cluster, rows, 0, stages)
+    least = smem(0, stages)
     if least > SMEM_LIMIT:
         return None
-    pair = wide_smem_bytes(hsz, cluster, rows, 2, stages) - least
+    pair = smem(2, stages) - least
     return 2 * min((SMEM_LIMIT - least) // pair, ksteps // 2 - 1)
 
 
 def plan_wide_scan(hsz: int, batch: int,
                    max_clusters: Callable[[int, int, int, int, int], int],
-                   resident: Optional[int] = None) -> WidePlan:
+                   resident: Optional[int] = None, what: str = "LSTM",
+                   gates: int = 4,
+                   step_us: Callable[..., float] = wide_step_us) -> WidePlan:
     """The wide cluster's launch plan for `batch` rows of a layer of hsz
-    units.
+    units of the `what` scan, whose cell has `gates` gates (the layout's
+    bytes, wide_smem_bytes) and whose step `step_us` models (kernels A-C's
+    by default; the GRU's, ops/gru.py gru_wide_step_us).
 
     For each cluster size C of CLUSTER_SIZES at H = wide_hidden(hsz, C)
     whose CTAs need at most _WIDE_MAX_WARPGROUPS warpgroups (16 units
@@ -1353,7 +1374,7 @@ def plan_wide_scan(hsz: int, batch: int,
     k-pairs, with the most resident k-steps that fit, or `resident` itself
     where given), whose CTA fits SMEM_LIMIT bytes, `max_clusters(H, C, R,
     resident, stages)` (the card's cudaOccupancyMaxActiveClusters) run at
-    once over ceil(batch / R) clusters and a step takes wide_step_us. The
+    once over ceil(batch / R) clusters and a step takes step_us. The
     plan minimises waves x step time; ties go to the smaller cluster, then
     to fewer clusters and the shallower ring. Raises ValueError with the
     reasons when nothing fits."""
@@ -1374,7 +1395,8 @@ def plan_wide_scan(hsz: int, batch: int,
                 break
             clusters = -(-batch // rows)
             for stages in (0, *WIDE_STAGES):
-                res = _wide_resident(hp, cluster, rows, stages, resident)
+                res = _wide_resident(hp, cluster, rows, stages, resident,
+                                     gates)
                 if res is None or (stages and stages > hp // 32 - res // 2):
                     continue
                 fitted = True
@@ -1383,21 +1405,21 @@ def plan_wide_scan(hsz: int, batch: int,
                     idle = True
                     continue
                 waves = -(-clusters // active)
-                step = wide_step_us(hp, cluster, rows, res, stages)
+                step = step_us(hp, cluster, rows, res, stages)
                 key = (waves * step, cluster, clusters, stages)
                 if best is None or key < best[0]:
                     best = (key, WidePlan(
                         hp, cluster, rows, res, stages, clusters, active,
                         waves, wide_smem_bytes(hp, cluster, rows, res,
-                                               stages), step))
+                                               stages, gates), step, gates))
         if idle:
             refused.append(f"C={cluster}: the card runs no such cluster")
         if not fitted:
             refused.append(f"C={cluster}: "
-                           f"{wide_smem_bytes(hp, cluster, 16, 0, 2)} B at 16 "
-                           f"rows (at most {SMEM_LIMIT} B)")
+                           f"{wide_smem_bytes(hp, cluster, 16, 0, 2, gates)} "
+                           f"B at 16 rows (at most {SMEM_LIMIT} B)")
     if best is None:
-        raise ValueError(f"no wide plan for the LSTM scan at H={hsz}, "
+        raise ValueError(f"no wide plan for the {what} scan at H={hsz}, "
                          f"{batch} rows: " + "; ".join(refused))
     return best[1]
 
@@ -1420,13 +1442,17 @@ def card_wide_plan(device: torch.device, hsz: int, batch: int,
 
 
 def _wide_weight(w_hh: torch.Tensor, hp: int, cluster: int) -> torch.Tensor:
-    """W_hh [H, 4H] -> the wide entries' operand: zero-padded to hp units,
+    """W_hh [H, 4H] (or a GRU's [H, 3H]) -> the wide entries' operand:
+    zero-padded to hp units,
     each CTA's W_hh^T slice (rows q*hp + k*U + u of the kernel weight, U =
     hp / cluster) k-pair after k-pair as wgmma's K-major A operand:
     [cluster][hp/32][4 k8 groups][4U rows][8] bf16, row m = 64 wg + 16 w +
     8 hi + r holding gate q = 2 hi + (r & 1) of unit u = 16 wg + 4 w + r // 2
-    (csrc/lstm_scan_wide.cu), columns 32p + 8 kg .. + 7."""
-    wt = _kernel_weight(w_hh, hp)                      # [4*hp, hp]
+    (csrc/lstm_scan_wide.cu), columns 32p + 8 kg .. + 7. A GRU's gates r, z,
+    n take q = 0, 1, 2 and q = 3 is a row of zeros (csrc/gru_scan_wide.cu)."""
+    wt = _kernel_weight(w_hh, hp)                      # [n*hp, hp]
+    if wt.shape[0] == 3 * hp:                          # the GRU: (r, z, n, 0)
+        wt = torch.cat([wt, wt.new_zeros(hp, hp)])
     units = hp // cluster
     # [hi][rb][C][wg][w][r2][p][kg][j] -> [C][p][kg][wg][w][hi][r2][rb][j]
     w = wt.reshape(2, 2, cluster, units // 16, 4, 4, hp // 32, 4, 8)
@@ -2859,7 +2885,7 @@ def _launch(fn_name: str, *args,
     elif fn_name in _STREAM_ENTRIES:
         args = (*args, *_stream_args(fn_name, plan, args[-2]))
     elif fn_name in _WIDE_ENTRIES:
-        args = (*args, *_stream_args(fn_name, plan, args[-2], WidePlan))
+        args = (*args, *_wide_args(fn_name, plan, args[-2], 4))
     elif fn_name == "lstm_scan_bwd_stream":
         args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
     elif fn_name == "lstm_scan_bwd_wide":
@@ -2880,6 +2906,17 @@ def _stream_args(fn_name: str, plan, hsz: int,
         raise ValueError(f"{fn_name} launches with the {kind.__name__} its "
                          f"weight was packed for, at H={hsz}")
     return plan.launch_args
+
+
+def _wide_args(fn_name: str, plan, hsz: int, gates: int) -> Tuple[int, ...]:
+    """A wide entry's plan arguments: the WidePlan of a `gates`-gate cell
+    the wrapper packed W_hh for, at the H it gives (an LSTM's plan never
+    launches the GRU's entry, nor the other way round)."""
+    args = _stream_args(fn_name, plan, hsz, WidePlan)
+    if plan.gates != gates:
+        raise ValueError(f"{fn_name} launches with a WidePlan of {gates} "
+                         f"gates, got {plan.gates}")
+    return args
 
 
 def _launch_kernel(fn_name: str, *args) -> None:
@@ -2969,10 +3006,15 @@ def _route_weight(w_hh: torch.Tensor, hp: int,
                   ) -> torch.Tensor:
     """The forward entries' W_hh operand at hp units (both modules): packed
     for the streamed cluster of `plan` (fragment order) or the wide one
-    (wgmma's order), else the kernel weight [n*hp, hp]."""
+    (wgmma's order; raises where the plan is for another cell's gates),
+    else the kernel weight [n*hp, hp]."""
     if plan is None:
         return _kernel_weight(w_hh, hp)
     if isinstance(plan, WidePlan):
+        gates = w_hh.shape[1] // w_hh.shape[0]
+        if plan.gates != gates:
+            raise ValueError(f"a WidePlan of {plan.gates} gates packs no "
+                             f"W_hh of {gates} gates")
         return _wide_weight(w_hh, hp, plan.cluster)
     return _stream_weight(w_hh, hp, plan.cluster)
 

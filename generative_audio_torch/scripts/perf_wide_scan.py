@@ -1,6 +1,9 @@
 """The wide cluster forwards of kernels A and B (csrc/lstm_scan_wide.cu
 `lstm_scan_fwd_wide`, `lstm_scan_fwd_carry_wide`: the step's product on
-warpgroup MMA) under forced launch plans, on the card.
+warpgroup MMA) and, with `--kind gru`, of the GRU forward and carry
+(csrc/gru_scan_wide.cu `gru_scan_fwd_wide`, `gru_scan_fwd_carry_wide`: the
+same design with a fourth gate row of zeros a unit) under forced launch
+plans, on the card.
 
 Where a resident cluster holds W_hh's slice (H up to 512), the wrappers of
 kernels A and B take the wide cluster or the resident one, whichever has the
@@ -12,7 +15,11 @@ plans of one cluster alone (the sweep that the wide step model,
 fit), the planner's plans at the sub-band batches beside the resident
 cluster, and a clock64 trace of one step of the 8 x 10 s batch's plan
 (`lstm_scan_wide_trace`: the products, the ring's waits, the cell, the
-cluster barrier and the exchange), after perf_stream_scan.py.
+cluster barrier and the exchange), after perf_stream_scan.py. For the GRU
+(the GRU's wide step model, `_GRU_WIDE_PARTS` of ops/gru.py, is its own
+fit) the plans are timed at every row count of FullSubNet v1-GRU's paths,
+sub-band (H=384) and full band (H=512), with the route's pick beside the
+measured times; the trace runs `gru_scan_wide_trace`.
 
     # identity of the plans, at small ragged shapes
     python -m generative_audio_torch.scripts.perf_wide_scan --check
@@ -20,6 +27,8 @@ cluster barrier and the exchange), after perf_stream_scan.py.
     python -m generative_audio_torch.scripts.perf_wide_scan
     # the identity, then the plans and the trace
     python -m generative_audio_torch.scripts.perf_wide_scan --trace
+    # the same for the GRU's wide cluster
+    python -m generative_audio_torch.scripts.perf_wide_scan --kind gru
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import sys
 import numpy as np
 import torch
 
+from generative_audio_torch.ops import gru as G
 from generative_audio_torch.ops import lstm as L
 from generative_audio_torch.scripts.perf_stream_scan import inputs, run
 from generative_audio_torch.utils.device import cuda_ms, resolve_device
@@ -45,46 +55,60 @@ FULL = ((628, 257), (628, 2056))   # (T, rows): one 10 s request, 8 x 10 s
 ENTRIES = ("fwd", "carry")
 CHECK_SHAPES = ((6, 40, 256), (5, 33, 384), (4, 17, 512), (3, 1, 384),
                 (5, 150, 384))
+# (T, rows, H) of the GRU's plans: FullSubNet v1-GRU's sub-band GRU (H=384)
+# over one 10 s request, the 8 x 10 s batch, the training batch (2304 rows
+# after drop_band), a rank's half of it on the band axis and the NPPC-sized
+# 1024 rows; its full-band GRU (H=512) over one clip, 8 and 18.
+GRU_FULL = ((628, 257, 384), (628, 2056, 384), (195, 2304, 384),
+            (195, 1152, 384), (195, 1024, 384), (628, 1, 512),
+            (628, 8, 512), (195, 18, 512))
+# Per kind: the module's gate count, wide source, step model and card plan.
+KINDS = {"lstm": (4, "lstm_scan_wide", L.wide_step_us, "card_wide_plan", L),
+         "gru": (3, "gru_scan_wide", G.gru_wide_step_us,
+                 "card_gru_wide_plan", G)}
 
 
 def wide_plan(hsz: int, batch: int, cluster: int, rows: int, resident,
-              stages: int, device):
+              stages: int, device, kind: str = "lstm"):
     """The WidePlan of (cluster, rows, resident k-steps, stages) for
     `batch` rows at H = hsz with the card's occupancy, resident None for
     the most that fit (all of them with no ring); None where it does not
     fit."""
+    gates, source, step_us, _, _ = KINDS[kind]
     hp = L.wide_hidden(hsz, cluster)
     if rows not in L.WIDE_ROWS or hp // cluster // 16 > L._WIDE_MAX_WARPGROUPS:
         return None
-    res = L._wide_resident(hp, cluster, rows, stages, resident)
+    res = L._wide_resident(hp, cluster, rows, stages, resident, gates)
     if res is None or (stages and stages > hp // 32 - res // 2):
         return None
     index = torch.device(device).index
-    active = L._max_clusters("lstm_scan_wide", index, (res, stages), hp,
-                             cluster, rows)
+    active = L._max_clusters(source, index, (res, stages), hp, cluster, rows)
     if active < 1:
         return None
     clusters = -(-batch // rows)
     return L.WidePlan(hp, cluster, rows, res, stages, clusters, active,
                       -(-clusters // active),
-                      L.wide_smem_bytes(hp, cluster, rows, res, stages),
-                      L.wide_step_us(hp, cluster, rows, res, stages))
+                      L.wide_smem_bytes(hp, cluster, rows, res, stages,
+                                        gates),
+                      step_us(hp, cluster, rows, res, stages), gates)
 
 
 @contextlib.contextmanager
 def forced(plan):
-    """Within the block, kernels A and B take the wide cluster with `plan`
+    """Within the block, the wide entries of the plan's cell (kernels A and
+    B, or the GRU's forward and carry) take the wide cluster with `plan`
     (whatever the instance and the row count)."""
-    saved = L.card_wide_plan
-    L.card_wide_plan = lambda *args, **kwargs: plan
+    _, _, _, name, module = KINDS["lstm" if plan.gates == 4 else "gru"]
+    saved = getattr(module, name)
+    setattr(module, name, lambda *args, **kwargs: plan)
     try:
         with L.wide_forwards():
             yield
     finally:
-        L.card_wide_plan = saved
+        setattr(module, name, saved)
 
 
-def _spread(hsz, b, device):
+def _spread(hsz, b, device, kind="lstm"):
     """A spread of wide plans at (hsz, b rows): both cluster sizes, 16 to 96
     rows, no ring and rings of 2-3 stages with none, two and the most
     resident k-steps."""
@@ -93,18 +117,18 @@ def _spread(hsz, b, device):
             for resident, stages in ((None, 0), (0, 2), (2, 2), (None, 2),
                                      (None, 3)):
                 plan = wide_plan(hsz, b, cluster, rows, resident, stages,
-                                 device)
+                                 device, kind)
                 if plan is not None:
                     yield plan
 
 
-def check(device) -> int:
+def check(device, kind: str = "lstm") -> int:
     """Both entries == the resident cluster bit for bit under each plan of
     a spread, forward and reverse, bf16 and fp32 out (the carry from a
     random state), at each (T, rows, H). Returns the number of failures."""
     failures = 0
     for t_len, b, hsz in CHECK_SHAPES:
-        gates, weights, state = inputs("lstm", t_len, b, hsz, device,
+        gates, weights, state = inputs(kind, t_len, b, hsz, device,
                                        seed=t_len * b + hsz)
         want = {}
         with L.resident_forwards():
@@ -112,22 +136,22 @@ def check(device) -> int:
                 for reverse in (False, True):
                     for out_dtype in (torch.bfloat16, torch.float32):
                         want[entry, reverse, out_dtype] = run(
-                            "lstm", entry, gates, weights, state, reverse,
+                            kind, entry, gates, weights, state, reverse,
                             out_dtype)
         tried = 0
-        for plan in _spread(hsz, b, device):
+        for plan in _spread(hsz, b, device, kind):
             tried += 1
             with forced(plan):
                 for key, res in want.items():
-                    got = run("lstm", key[0], gates, weights, state, *key[1:])
+                    got = run(kind, key[0], gates, weights, state, *key[1:])
                     if not all(torch.equal(x, y) for x, y in zip(got, res)):
                         failures += 1
                         print(f"MISMATCH {key} T={t_len} rows={b} H={hsz} "
                               f"{plan}", flush=True)
         torch.cuda.synchronize()
-        print(f"check T={t_len} rows={b} H={hsz}: {tried} plans x "
+        print(f"check {kind} T={t_len} rows={b} H={hsz}: {tried} plans x "
               f"{len(want)} calls against the resident cluster", flush=True)
-    print(f"check: {failures} mismatches", flush=True)
+    print(f"check {kind}: {failures} mismatches", flush=True)
     return failures
 
 
@@ -166,23 +190,24 @@ def _time(fn, iters=3):
     return cuda_ms(fn, iters=iters)
 
 
-def sweep(device, card: str) -> None:
+def sweep(device, card: str, kind: str = "lstm") -> tuple:
     """One-cluster wide plans timed at T steps (their microseconds a step
-    against the model's terms), and the fit of the parts."""
+    against the model's terms), and the fit of the parts; returns the
+    fit (parts, max error, mean error)."""
     xs, ys = [], []
     for hsz in SWEEP_HIDDEN:
         for rows in SWEEP_ROWS:
-            gates, weights, state = inputs("lstm", T, rows, hsz, device,
+            gates, weights, state = inputs(kind, T, rows, hsz, device,
                                            seed=hsz + rows)
             for cluster in L.CLUSTER_SIZES:
                 for resident, stages in ((None, 0), (None, 2), (None, 3),
                                          (None, 4), (None, 6), (0, 2)):
                     plan = wide_plan(hsz, rows, cluster, rows, resident,
-                                     stages, device)
+                                     stages, device, kind)
                     if plan is None:
                         continue
                     with forced(plan):
-                        us = _time(lambda: run("lstm", "fwd", gates,
+                        us = _time(lambda: run(kind, "fwd", gates,
                                                weights, state)) * 1e3 / T
                     xs.append(_features(plan))
                     ys.append(us)
@@ -191,27 +216,34 @@ def sweep(device, card: str) -> None:
                           f"smem={plan.smem_bytes}: {us:.3f} us a step "
                           f"(model {plan.step_us:.3f})", flush=True)
     parts, worst, mean = fit_wide_parts(xs, ys)
-    print(f"wide step fit (step, CTA, cell, exchange KB, KB, latency): "
-          f"{tuple(round(p, 5) for p in parts)}, off by at most {worst:.3f} "
-          f"us over {len(ys)} plans, mean {mean:.3f}; on {card}", flush=True)
+    print(f"{kind} wide step fit (step, CTA, cell, exchange KB, KB, "
+          f"latency): {tuple(round(p, 5) for p in parts)}, off by at most "
+          f"{worst:.3f} us over {len(ys)} plans, mean {mean:.3f}; on {card}",
+          flush=True)
+    return parts, worst, mean
 
 
-def wide_trace(gates, w_hh, plan):
-    """One launch of lstm_scan_wide_trace (kernel A, bf16 out) under `plan`:
-    the clock64 readings of the first CTA's consumer warp 0, [steps][8]
-    int64 (csrc/lstm_scan_wide.cu TRACE_POINTS), and h."""
+def wide_trace(gates, weights, plan):
+    """One launch of the traced entry (lstm_scan_wide_trace, kernel A; or
+    gru_scan_wide_trace, the GRU forward; bf16 out) under `plan`: the
+    clock64 readings of the first CTA's consumer warp 0, [steps][8] int64
+    (csrc/scan_fwd_wide.cuh TRACE_POINTS), and h."""
     from generative_audio_torch.ops import _cuda
     t_len, b, _ = gates.shape
-    hp = plan.hidden
+    hp, w_hh = plan.hidden, weights[0]
+    source = "lstm_scan_wide" if plan.gates == 4 else "gru_scan_wide"
     out = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=gates.device)
     trace = torch.zeros(64, 8, dtype=torch.int64, device=gates.device)
-    lib = _cuda.load("lstm_scan_wide")
-    err = lib.lstm_scan_wide_trace(
-        L._pad_gates(gates, 4, hp).data_ptr(),
-        L._wide_weight(w_hh, hp, plan.cluster).data_ptr(), out.data_ptr(), 0,
-        t_len, b, hp, 0, *plan.launch_args, trace.data_ptr(),
+    operands = [L._pad_gates(gates, plan.gates, hp),
+                L._wide_weight(w_hh, hp, plan.cluster)]
+    if plan.gates == 3:                                 # b_hh
+        operands.append(G._kernel_bias(weights[1], hp))
+    lib = _cuda.load(source)
+    err = getattr(lib, f"{source}_trace")(
+        *(x.data_ptr() for x in operands), out.data_ptr(), 0, t_len, b, hp,
+        0, *plan.launch_args, trace.data_ptr(),
         _cuda.stream_handle(gates.device))
-    _cuda.check("lstm_scan_wide", err, "lstm_scan_wide_trace")
+    _cuda.check(source, err, f"{source}_trace")
     torch.cuda.synchronize()
     return trace.cpu(), L._unpad_units(out, w_hh.shape[0])
 
@@ -236,42 +268,56 @@ def print_trace(trace, us_per_step: float, t_len: int, card: str) -> None:
         + f"; step {us_per_step:.2f}; {card}", flush=True)
 
 
-def plans(device, card: str) -> None:
-    """At the sub-band batches the planner's wide plan and the resident
-    cluster's, each timed in turns (wide, resident, resident, wide), with
-    the route plan_forward takes there; at 2056 rows the trace of a step."""
-    for t_len, b in FULL:
-        gates, weights, state = inputs("lstm", t_len, b, 384, device, seed=b)
-        plan = L.card_wide_plan(device, 384, b)
-        resident = L.card_scan_plan(device, 384, b)
-        route = L._forward_route(384, b, device)[1] or "resident"
+def plans(device, card: str, kind: str = "lstm") -> list:
+    """At the sub-band batches (for the GRU at every row count of v1's
+    paths, GRU_FULL) the planner's wide plan and the resident cluster's,
+    each timed in turns (wide, resident, resident, wide), with the route
+    plan_forward takes there, and whether it took the faster; at 2056 rows
+    the trace of a step. Returns the rows' readings."""
+    _, _, _, name, M = KINDS[kind]
+    shapes = (((t, b, 384) for t, b in FULL) if kind == "lstm"
+              else GRU_FULL)
+    out = []
+    for t_len, b, hsz in shapes:
+        gates, weights, state = inputs(kind, t_len, b, hsz, device, seed=b)
+        plan = getattr(M, name)(device, hsz, b)
+        resident = M.card_scan_plan(device, hsz, b)
+        route = M._forward_route(hsz, b, device)[1] or "resident"
 
         def wide():
             with forced(plan):
-                return run("lstm", "fwd", gates, weights, state)
+                return run(kind, "fwd", gates, weights, state)
 
         def res():
             with L.resident_forwards():
-                return run("lstm", "fwd", gates, weights, state)
+                return run(kind, "fwd", gates, weights, state)
 
         rounds = [_time(wide), _time(res), _time(res), _time(wide)]
         wide_ms, res_ms = min(rounds[0], rounds[3]), min(rounds[1:3])
-        print(f"H=384 rows={b} T={t_len}: wide {plan} {wide_ms:.3f} ms "
-              f"({wide_ms * 1e3 / t_len / plan.waves:.3f} us a step a wave, "
-              f"model {plan.step_us:.3f}); resident {resident} {res_ms:.3f} "
-              f"ms ({res_ms * 1e3 / t_len / resident.waves:.3f} us a step a "
-              f"wave, model {L.scan_step_us(384, resident.cluster, resident.rows):.3f}); "
-              f"rounds {' '.join(f'{r:.3f}' for r in rounds)}; route {route}; "
+        res_model = M.scan_step_us(hsz, resident.cluster, resident.rows)
+        faster = "_wide" if wide_ms < res_ms else "resident"
+        print(f"{kind} H={hsz} rows={b} T={t_len}: wide {plan} {wide_ms:.3f} "
+              f"ms ({wide_ms * 1e3 / t_len / plan.waves:.3f} us a step a "
+              f"wave, model {plan.step_us:.3f}); resident {resident} "
+              f"{res_ms:.3f} ms ({res_ms * 1e3 / t_len / resident.waves:.3f} "
+              f"us a step a wave, model {res_model:.3f}); rounds "
+              f"{' '.join(f'{r:.3f}' for r in rounds)}; route {route}, "
+              f"faster {faster}{'' if route == faster else ' (MISPICK)'}; "
               f"on {card}", flush=True)
+        out.append(dict(t=t_len, rows=b, hidden=hsz, wide_ms=wide_ms,
+                        resident_ms=res_ms, route=route, faster=faster))
         if b == 2056:
-            trace, h = wide_trace(gates, weights[0], plan)
+            trace, h = wide_trace(gates, weights, plan)
             with L.resident_forwards():
-                want = run("lstm", "fwd", gates, weights, state)[0]
+                want = run(kind, "fwd", gates, weights, state)[0]
             if not torch.equal(h, want):
                 raise RuntimeError("the traced kernel differs from the "
                                    "resident cluster")
             print_trace(trace, wide_ms * 1e3 / t_len / plan.waves, t_len,
                         card)
+        del gates, weights, state
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -281,6 +327,8 @@ def main(argv=None) -> int:
     parser.add_argument("--trace", action="store_true",
                         help="the identity, the plans and the trace, no "
                              "sweep")
+    parser.add_argument("--kind", choices=tuple(KINDS), default="lstm",
+                        help="kernels A and B (lstm) or the GRU forwards")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")
     card = subprocess.run(
@@ -289,7 +337,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[torch.cuda.current_device()]
     print(f"card: {card}", flush=True)
     from generative_audio_torch.ops import _cuda
-    reports = _cuda.build(["lstm_scan", "lstm_scan_wide"])
+    reports = _cuda.build(["lstm_scan", "lstm_scan_wide"] if args.kind ==
+                          "lstm" else ["gru_scan", "gru_scan_wide"])
     name = None
     for line in "\n".join(reports.values()).splitlines():
         if "Compiling entry function" in line:
@@ -297,12 +346,12 @@ def main(argv=None) -> int:
         if "C75" in line or name and ("registers" in line
                                       or "spill" in line):
             print(f"ptxas {name}: {line.strip()}", flush=True)
-    if check(device):
+    if check(device, args.kind):
         return 1
     if not args.check:
         if not args.trace:
-            sweep(device, card)
-        plans(device, card)
+            sweep(device, card, args.kind)
+        plans(device, card, args.kind)
     return 0
 
 

@@ -279,4 +279,5 @@ def test_sources_match_their_declared_signatures():
                                    "gru_scan_bwd", "lstm_scan_staged",
                                    "lstm_scan_bwd_chains", "scan_bwd_stream",
                                    "lstm_staged_stream", "lstm_scan_wide",
-                                   "lstm_scan_bwd_wide", "gru_scan_bwd_wide"}
+                                   "lstm_scan_bwd_wide", "gru_scan_bwd_wide",
+                                   "gru_scan_wide"}

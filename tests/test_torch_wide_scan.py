@@ -46,6 +46,9 @@ torch.set_num_threads(2)
 BF16 = dict(atol=1e-2, rtol=1e-2)
 CPU = torch.device("cpu")
 SOURCE = "lstm_scan_wide.cu"
+# The layout, the ring, the products and the exchange kernels A-C share
+# with the GRU's wide cluster.
+SHARED = "scan_fwd_wide.cuh"
 MODEL_ROWS = (18, 257, 2056, 2304)
 
 
@@ -54,11 +57,17 @@ def _rand(shape, seed, scale=0.5):
             ).astype(np.float32)
 
 
+def _source_text(source=SOURCE):
+    """The source and the shared header it includes."""
+    return (_cuda.CSRC / source).read_text() + (_cuda.CSRC / SHARED
+                                                ).read_text()
+
+
 def _source_fn(name, **env):
     """The source's function `name` evaluated: its return expression with
     the casts dropped and integer division, its `const size_t` locals
     first."""
-    text = (_cuda.CSRC / SOURCE).read_text()
+    text = _source_text()
     body = re.search(rf"\b{name}\([^)]*\) \{{(.*?)\}}", text, re.S).group(1)
 
     def py(expr):
@@ -72,12 +81,13 @@ def _source_fn(name, **env):
     return eval(py(body[body.rindex("return") + 6:]), {}, env)
 
 
-def _source_smem(hsz, cluster, rows, resident, stages):
+def _source_smem(hsz, cluster, rows, resident, stages, boxes=4):
     def pair_bytes(units):
         return _source_fn("pair_bytes", U=units)
 
     return _source_fn("wide_smem", H=hsz, C=cluster, R=rows,
-                      resident=resident, stages=stages, pair_bytes=pair_bytes)
+                      resident=resident, stages=stages, boxes=boxes,
+                      pair_bytes=pair_bytes)
 
 
 def _source_h_index(unit, row, rows):
@@ -181,9 +191,9 @@ def _descriptor_read(buf, start, lbo, sbo, rows):
 def _source_descriptors(units, rows):
     """The source's byte offsets of the products: (A's leading byte offset,
     B's, a warpgroup's offset per warpgroup, the stride byte offset)."""
-    text = (_cuda.CSRC / SOURCE).read_text()
-    lbo = re.search(r"const uint32_t a_lbo = (.*?), b_lbo = (.*?);", text)
-    wg = re.search(r"const uint32_t a_wg = (.*?) \* wg,", text)
+    text = _source_text()
+    lbo = re.search(r"m.a_lbo = (.*?);\s*m.b_lbo = (.*?);", text)
+    wg = re.search(r"m.ring_a = cta_addr\(w.ring\) \+ (.*?) \* wg;", text)
     env = {"U": units, "R": rows}
     sbo = set(re.findall(r"kmajor_desc\([^;]*?_lbo,\s*(\d+)\)", text,
                          re.S))
@@ -339,7 +349,7 @@ def test_sources_declare_their_entries():
     the occupancy query its plan's ring, the instances are WIDE_ROWS and
     their products wgmma, the entries refuse bytes that are not the
     layout's, and the launch counts know the three entries."""
-    text = (_cuda.CSRC / SOURCE).read_text()
+    text = _source_text()
     tail = ["reverse", "cluster", "rows", "resident", "stages", "smem_bytes",
             "stream"]
     sigs = _cuda._SIGNATURES["lstm_scan_wide"]
@@ -368,7 +378,7 @@ def test_sources_declare_their_entries():
                 in text)
     assert "WIDE_MAX_WG = 3;" in text and tl._WIDE_MAX_WARPGROUPS == 3
     assert "(stages == 0 || stages >= 2)" in text
-    assert "smem_bytes != wide_smem(H, C, R, resident, stages)" in text
+    assert "smem_bytes != wide_smem(H, C, R, resident, stages, 4)" in text
     assert "lstm_scan_wide" in _cuda.SOURCES
 
 
@@ -414,9 +424,13 @@ def test_route_weighs_wide_against_resident(hsz, monkeypatch):
 def test_context_managers_force_their_route(monkeypatch):
     """wide_forwards() forces the wide cluster for kernels A, B and C at
     any row count (and on CPU tensors), resident_forwards() the resident
-    cluster; neither moves the GRU forwards or kernels E and F, and
+    cluster; the GRU forwards follow them to their own wide cluster (a plan
+    of three gates), neither moves kernels E and F, and
     single_block_forwards() / streamed_forwards() still win."""
     stub_wide_route(monkeypatch)
+    monkeypatch.setattr(
+        tg, "card_gru_wide_plan", lambda device, hsz, batch, resident=None:
+        tg.plan_gru_wide_scan(hsz, batch, stub_wide_occupancy, resident))
     with tl.resident_forwards():
         assert tl._forward_route(384, 2056, CPU) == (384, "", None)
         with tl.wide_forwards():
@@ -430,7 +444,8 @@ def test_context_managers_force_their_route(monkeypatch):
                 384, rows, stub_wide_occupancy)
         assert tl._forward_route(384, 18, CPU, (0, 0, 1)) == (
             384, "_wide", tl.plan_wide_scan(384, 18, stub_wide_occupancy))
-        assert tg._forward_route(384, 18, CPU) == (384, "", None)
+        assert tg._forward_route(384, 18, CPU) == (
+            384, "_wide", tg.plan_gru_wide_scan(384, 18, stub_wide_occupancy))
         assert tl.layer_route(384, 34, 18, CPU) == (384, "", None)
         assert tl.unrolled_route(384, 2, 18, CPU) == (384, "", None)
         with tl.single_block_forwards():

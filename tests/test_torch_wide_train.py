@@ -107,7 +107,7 @@ def test_training_layout_is_kernel_as(hsz, rows):
             "rows, resident, stages, (size_t)smem_bytes, stream, nullptr);"
             in body)
     text = (_cuda.CSRC / SOURCE).read_text()
-    assert "smem_bytes != wide_smem(H, C, R, resident, stages)" in text
+    assert "smem_bytes != wide_smem(H, C, R, resident, stages, 4)" in text
     assert text.count("c_seq[(size_t)t * B * Hs + o] = "
                       "__float2bfloat16(c);") == 1
     # the other entries hand the kernel no c sequence

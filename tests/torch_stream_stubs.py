@@ -106,7 +106,9 @@ def wide_weight_rows(wf, plan):
     (ops/lstm.py _wide_weight undone by its index map: row m = 64 wg + 16 w
     + 8 hi + r of k-pair p's k8 group kg is gate 2 hi + (r & 1) of the CTA's
     unit 16 wg + 4 w + r // 2, columns 32 p + 8 kg .. + 7), after checking
-    its shape against the plan it was packed for."""
+    its shape against the plan it was packed for; for a GRU's plan (three
+    gates) [3hp, hp], after checking that the fourth gate's rows are
+    zero."""
     hp, cluster = plan.hidden, plan.cluster
     units = hp // cluster
     assert tuple(wf.shape) == (cluster, hp // 32, 4, 4 * units, 8)
@@ -116,6 +118,9 @@ def wide_weight_rows(wf, plan):
     gate, unit = 2 * hi + r % 2, 16 * wg + 4 * w + r // 2
     wt = torch.full((4 * hp, hp), float("nan"), dtype=wf.dtype)
     wt[gate * hp + c * units + unit, 32 * p + 8 * kg + j] = wf
+    if plan.gates == 3:
+        assert not wt[3 * hp:].any()
+        return wt[:3 * hp]
     return wt
 
 
