@@ -403,12 +403,14 @@ of which fails the run (non-zero exit, no result line):
      kernel D's entry as the route takes it at each step's sub-band rows
      (routed, routed_step).
  28. (run after phase 10) the GRU training backward (TPU row 7): the scan
-     as a wide cluster (csrc/gru_scan_bwd_wide.cu, gru_scan_bwd_wide:
-     kernel D's wide design with the GRU cell, the dgh exchange read back
-     from L2 by TMA from dgx's r and z columns and from dhn), the route of
-     the GRU backward where its modelled waves x step are the less (v1's
-     sub-band training batch), every GRU wide plan of a spread and the
-     scan at 2304, 2295, 1024 rows x T=195 and H=512 x 18 x 195 bit for
+     as a wide cluster (csrc/gru_scan_bwd_wide.cu, gru_scan_bwd_wide: both
+     products on wgmma with a warpgroup a 64 rows, up to 192 rows a
+     cluster of 8, h_prev, the cell's operands and the dgh pieces read
+     back from L2 through one TMA ring), the route of the GRU backward
+     where its modelled waves x step are the less (v1's sub-band training
+     batch, one wave), its instances' registers without a spill, every
+     GRU wide plan of a spread and the scan at 2304, 2295, 1152, 1024 rows
+     x T=195 and H=512 x 18 x 195 bit for
      bit against the resident cluster and the single block (dgx, dhn,
      every db_hh partial) and within row 7's limits of the plain version;
      timed at 2304 rows beside the resident cluster (in turns), the plain
@@ -2991,19 +2993,24 @@ WIDE_BWD_STEPS = 4           # (c)'s timed steps of each design, in turns
 
 
 def _wide_bwd_registers(reports):
-    """{"wide D 1x3": "... registers, ... spilled", "wide G 1x3": ...} for
-    the instances lstm_bwd_wide_kernel<MT, NG> of csrc/lstm_scan_bwd_wide.cu
-    (kernel D) and gru_bwd_wide_kernel<MT, NG> of csrc/gru_scan_bwd_wide.cu
-    (the GRU backward), from ptxas's reports."""
+    """{"wide D 1x3": "... registers, ... spilled", "wide G U=48 R=192": ...,
+    "traced G U=48 R=192": ...} for the instances lstm_bwd_wide_kernel<MT,
+    NG> of csrc/lstm_scan_bwd_wide.cu (kernel D) and gru_bwd_wide_kernel<U,
+    R, TRACE> of csrc/gru_scan_bwd_wide.cu (the GRU backward; the traced
+    twin, which no plan launches, apart), from ptxas's reports."""
     found, name, spill = {}, None, ""
     for line in "\n".join(reports.get(s, "") for s in (
             "lstm_scan_bwd_wide", "gru_scan_bwd_wide")).splitlines():
         if "Compiling entry function" in line:
             name, spill = None, ""
-            w = re.search(r"(lstm|gru)_bwd_wide_kernelILi(\d)ELi(\d)E", line)
+            w = re.search(r"lstm_bwd_wide_kernelILi(\d)ELi(\d)E", line)
+            g = re.search(r"gru_bwd_wide_kernelILi(\d+)ELi(\d+)ELb(\d)E",
+                          line)
             if w:
-                kind = "D" if w.group(1) == "lstm" else "G"
-                name = f"wide {kind} {w.group(2)}x{w.group(3)}"
+                name = f"wide D {w.group(1)}x{w.group(2)}"
+            elif g:
+                name = (f"{'traced' if g.group(3) == '1' else 'wide'} G "
+                        f"U={g.group(1)} R={g.group(2)}")
         stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            line)
         if stores and name:
@@ -3453,9 +3460,11 @@ def phase_wide_train(dev, registers):
 # gru_scan_bwd.cu, ops/gru.py plan_dwhh).
 GRU_WIDE_ENTRY = "gru_scan_bwd_wide"
 # (H, T, rows) of the identities: v1's sub-band training batch and its
-# ragged count, 1024 rows, the full band's training shape.
+# ragged count, a band rank's half of it, 1024 rows, the full band's
+# training shape.
 GRU_WIDE_SHAPES = ((HIDDEN, TRAIN_T, TRAIN_ROWS),
                    (HIDDEN, TRAIN_T, TRAIN_RAGGED_ROWS),
+                   (HIDDEN, TRAIN_T, TRAIN_ROWS // 2),
                    (HIDDEN, TRAIN_T, 1024), (FB_HIDDEN, TRAIN_T, TRAIN_BATCH))
 GRU_WIDE_STEPS = 8           # (d)'s timed steps of each design, in turns
 # The contraction's new design against its first and torch.mm: its two
@@ -3689,6 +3698,13 @@ def phase_gru_wide_backward(dev, registers):
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     card = card_line()
+    wide = {k: v for k, v in registers.items() if k.startswith("wide G")}
+    log(f"{GRU_WIDE_ENTRY} instances (units, rows; wgmma): "
+        f"{_registers_line(wide, 'w')}; its traced twin, which no plan "
+        f"launches: " + ", ".join(f"{k} {v}" for k, v in registers.items()
+                                  if k.startswith("traced G")))
+    check(all(v.endswith(" 0/0 B spilled") for v in wide.values()),
+          f"no instance of {GRU_WIDE_ENTRY} spills")
     gen = torch.Generator(device=dev).manual_seed(SEED + 280)
     check(PB.check_wide(dev, card, ("gru",)) == 0, "every GRU wide plan of "
           "the spread == the single block bitwise (scripts/perf_bwd_scan.py "
@@ -4177,6 +4193,13 @@ def _bwd_plan_line(M, dev, h, rows):
 
 
 def _describe_bwd(plan):
+    if plan.design == "wide" and not hasattr(plan, "tiles"):
+        return (f"wide cluster (wgmma) C={plan.cluster} x R={plan.rows} rows "
+                f"at H={plan.hidden}, {plan.warpgroups} warpgroups, a ring of "
+                f"{plan.stages} slots, {plan.clusters} clusters, "
+                f"cudaOccupancyMaxActiveClusters {plan.active}, {plan.waves} "
+                f"wave(s), {plan.smem_bytes} B of shared memory a CTA, "
+                f"modelled {plan.step_us:.2f} us a step")
     if plan.design == "wide":
         return (f"wide cluster C={plan.cluster} x R={plan.rows} rows at "
                 f"H={plan.hidden}, items {plan.tiles}x{plan.groups}, "

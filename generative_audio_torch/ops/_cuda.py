@@ -230,10 +230,12 @@ _SIGNATURES = {
     },
     "gru_scan_bwd_wide": {
         # the GRU backward scan as a wide cluster: ..., n_blocks, T, B, H,
-        # reverse, then the plan: cluster, rows, tiles and groups an item,
-        # resident k-steps, the two rings' stages, shared bytes
+        # reverse, then the plan: cluster, rows, the ring's stages, shared
+        # bytes (and, traced, the trace buffer)
         "gru_scan_bwd_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _P],
+        "gru_scan_bwd_wide_trace": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -245,8 +247,8 @@ SOURCES = tuple(_SIGNATURES)
 # resident k-steps and the stages; for the staged ones k, out_f32, the resident k-steps,
 # the stages and kernel E's gate groups; for the streamed backwards, tile,
 # the resident slots and the stages; for kernel D's wide cluster the tiles
-# and groups an item, the resident k-steps and both rings' stages, and the
-# GRU backward's the same), then H,
+# and groups an item, the resident k-steps and both rings' stages, for the
+# GRU backward's its ring's stages), then H,
 # cluster, rows and int* n.
 _QUERIES = {
     "lstm_scan": {
@@ -300,7 +302,7 @@ _QUERIES = {
                                             ctypes.POINTER(ctypes.c_int)],
     },
     "gru_scan_bwd_wide": {
-        "gru_scan_bwd_wide_max_clusters": [_I, _I, _I, _I, _I, _I, _I, _I,
+        "gru_scan_bwd_wide_max_clusters": [_I, _I, _I, _I,
                                            ctypes.POINTER(ctypes.c_int)],
     },
 }

@@ -59,9 +59,11 @@ too. The wrapper packs W_hh for the plan (ops/lstm.py `_wide_weight` with
 three gates) and `_launch` appends it.
 The backward scan runs as a thread-block cluster, as the single-block
 design, up to H = 512 as a wide cluster (csrc/gru_scan_bwd_wide.cu
-`gru_scan_bwd_wide`: kernel D's wide design with the GRU cell, the dgh
-exchange read back from L2 by TMA, both W_hh operands streamed, so that
-up to 96 rows fit a cluster of 8) or, above H = 512, as a streamed cluster
+`gru_scan_bwd_wide`: both products on wgmma with a warpgroup a 64 rows,
+the dgh exchange read back from L2 by TMA, h_prev, the dgh pieces and
+both W_hh operands through one ring, so that up to 192 rows fit a cluster
+of 8; its own plan, `GruBwdWidePlan`, `plan_bwd_wide_scan`, and packers,
+`_wide_bwd_weights`) or, above H = 512, as a streamed cluster
 (csrc/scan_bwd_stream.cu `gru_scan_bwd_stream`), all the same bits,
 whichever ops/lstm.py `plan_bwd` models fastest on the card: the wrapper
 asks `card_bwd_scan_plan` first and packs W_hh for a wide or streamed
@@ -89,28 +91,27 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from generative_audio_torch.ops.lstm import (
-    _BWD_RESIDENT_MAX, _PAD, _ROWS, _STEP_UNITS, H100_SMS, BwdPlan,
-    BwdStreamPlan, BwdWidePlan, ScanPlan, StreamBwdClusters, StreamPlan,
-    WideBwdClusters, WidePlan, _bwd_design, _bwd_hidden,
-    _card_stream_bwd_clusters,
-    _card_wide_bwd_clusters, _check_kernel_operand, _device_index,
+    _BWD_RESIDENT_MAX, _PAD, _ROWS, _STEP_UNITS, CLUSTER_SIZES, H100_SMS,
+    SMEM_LIMIT, BwdPlan, BwdStreamPlan, ScanPlan, StreamBwdClusters,
+    StreamPlan, WideBwdClusters, WidePlan, _bwd_design, _bwd_hidden,
+    _card_stream_bwd_clusters, _check_kernel_operand, _device_index,
     _device_sms, _fragment_weight, _is_cuda, _kernel_operand,
     _kernel_weight, _max_clusters, _on_card, _pad_gates, _pad_units,
     _padded_weight, _wide_args,
     _resident_occupancy, _route_weight, _stream_args, _stream_dh_weight,
     _stream_weight, _unpad_gates, _unpad_units, _wants_grad,
     block_forward_step_us, bwd_cluster_smem_bytes, bwd_cluster_step_us,
-    bwd_stream_cluster_step_us, bwd_wide_cluster_smem_bytes,
-    bwd_wide_cluster_step_us, card_bwd_plan, card_plan, card_stream,
+    bwd_stream_cluster_step_us, card_bwd_plan, card_plan, card_stream,
     bwd_stream_cluster_smem_bytes,
     cluster_hidden, cluster_step_us, mixed_gates, plan_bwd,
-    plan_bwd_stream, plan_bwd_wide_cluster, plan_cluster_scan,
+    plan_bwd_stream, plan_cluster_scan,
     plan_forward, plan_stream, plan_wide_scan, resident_backwards, sm_blocks,
     stream_cluster_step_us, stream_fixed_bytes, wide_smem_bytes, wide_step_us)
 from generative_audio_torch.ops.lstm import _launch as _launch_entry
@@ -129,7 +130,8 @@ __all__ = ["gru_scan_tm", "gru_scan_reference_tm", "gru_scan_carry_tm",
            "block_step_us", "BwdStreamPlan", "bwd_stream_smem_bytes",
            "bwd_stream_step_us", "plan_bwd_stream_scan",
            "card_bwd_stream_plan", "bwd_wide_smem_bytes", "bwd_wide_step_us",
-           "plan_bwd_wide_scan", "card_bwd_wide_plan", "dwhh_us",
+           "plan_bwd_wide_scan", "card_bwd_wide_plan", "GruBwdWidePlan",
+           "bwd_wide_hidden", "dwhh_us",
            "plan_dwhh_first", "WidePlan", "gru_wide_smem_bytes",
            "gru_wide_step_us", "plan_gru_wide_scan", "card_gru_wide_plan"]
 
@@ -182,15 +184,32 @@ _BWD_BLOCK_US = 152.0
 # plans on an H100 SXM at 700 W (as the LSTM's), off by at most 11.5 us a
 # step and 3.4 in the mean.
 _BWD_STREAM_PARTS = (7.09412, 0.00812, 0.59754, 0.05541)
-# The wide backward scan's step model (ops/lstm.py
-# bwd_wide_cluster_step_us with three gates: step, CTA, warp, latency;
-# microseconds): a least-squares fit to the steps of 121 one-cluster plans
-# (H = 384 at 16-96 rows, H = 512 at 16 and 48; C = 8 and 16; items 1 x 2,
-# 1 x 3, 2 x 3; rings of 1-4 pieces, recompute rings of none, 1 and 3
-# stages) on an H100 SXM at 700 W (generative_audio_torch/scripts/
-# perf_bwd_scan.py --wide --kind gru), off by at most 2.07 us a step and
-# 0.65 in the mean.
-_BWD_WIDE_PARTS = (4.82735, 1.56704, 2.67486, 0.35465)
+# The wide backward scan on wgmma (csrc/gru_scan_bwd_wide.cu): its
+# instances' units a CTA (16, 32, 48: the accumulators, 2U registers a
+# thread, fit the 152 a thread of three warpgroups takes), its rows a
+# cluster (one to three warpgroups of 64 rows: wgmma's M), and the depths
+# of its ring, which carries both products' operands and the cell's (a
+# slot goes back once the next stage's products are issued, so a ring
+# holds two slots at least).
+BWD_WIDE_UNITS = (16, 32, 48)
+BWD_WIDE_ROWS = (64, 128, 192)
+BWD_WIDE_STAGES = (2, 3, 4, 5, 6)
+# bwd_wide_step_us's parts (microseconds, but the knee): a step; each 1000
+# m64n8k16 blocks of a CTA's products (both; the cell's (row, unit) pairs
+# grow with them and are in this part); and a copy's latency for each ring
+# stage a slot serves in a step (the cell's U / 8 blocks of operands, the
+# H / 64 boxes and the 3H / 64 dgh pieces over the ring's slots) beyond the
+# knee, below which the products and the cell hide the copies. A
+# least-squares fit (the knee by a search over whole stages) to the steps
+# of 40 one-cluster plans (H = 384 at C = 8, H = 512 at C = 16; 64, 128 and
+# 192 rows; rings of 2-6 slots) on an H100 SXM at 700 W
+# (generative_audio_torch/scripts/perf_bwd_scan.py --wide --kind gru), off
+# by at most 2.76 us a step and 1.06 in the mean. No deeper ring measured
+# slower than a shallower one, so the planner's ties go to the deeper; and
+# as the model is of one CTA an SM (two CTAs of 64 rows sharing an SM ran
+# 19 us a step where one ran 15), the planner runs no more clusters at
+# once than that allows.
+_BWD_WIDE_PARTS = (12.0411, 4.02332, 1.61067, 10.0)
 # The contraction's output tile (csrc/gru_scan_bwd.cu DW_TM x DW_TN) and the
 # rows of one pipeline stage, on which every slice begins (DW_TK).
 _DW_TILE_ROWS, _DW_TILE_COLS, _DW_STAGE_ROWS = 128, 256, 64
@@ -425,47 +444,179 @@ def plan_bwd_stream_scan(hsz: int, batch: int,
                            bwd_stream_step_us, resident)
 
 
-def bwd_wide_smem_bytes(hsz: int, cluster: int, rows: int, resident: int,
-                        stages: int, pieces: int) -> int:
-    """Shared memory of one CTA of the wide backward scan (csrc/
-    gru_scan_bwd_wide.cu `wide_bwd_smem`; ops/lstm.py
-    bwd_wide_cluster_smem_bytes with three gates: the cell's operands are
-    the 3 gates, gout and h_prev)."""
-    return bwd_wide_cluster_smem_bytes(hsz, cluster, rows, resident, stages,
-                                       pieces, 3)
+@dataclasses.dataclass(frozen=True)
+class GruBwdWidePlan:
+    """Launch plan of the GRU backward scan's wide cluster
+    (csrc/gru_scan_bwd_wide.cu `gru_scan_bwd_wide`, both products on wgmma):
+    clusters of `cluster` CTAs at H = `hidden` (the layer's units
+    zero-padded to bwd_wide_hidden's), each CTA owning hidden / cluster
+    units, over `rows` batch rows a cluster (a consumer warpgroup of wgmma
+    a 64 of them); one ring of `stages` slots carries a step's h_prev boxes
+    with their W_hh^T chunks and its dgh pieces with their W_hh rows."""
+    hidden: int           # H the kernel runs at
+    cluster: int          # CTAs per cluster
+    rows: int             # batch rows per cluster
+    stages: int           # slots of the ring
+    clusters: int         # clusters in the grid
+    active: int           # clusters the card runs at once (occupancy)
+    waves: int            # rounds of clusters, one after another
+    smem_bytes: int       # dynamic shared memory of one CTA
+    step_us: float        # modelled time of one step of one wave
+
+    @property
+    def design(self) -> str:
+        return "wide"
+
+    @property
+    def warpgroups(self) -> int:
+        """Consumer warpgroups of a CTA: one a 64 rows."""
+        return self.rows // 64
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int]:
+        """The C entry's last arguments before the stream."""
+        return (self.cluster, self.rows, self.stages, self.smem_bytes)
 
 
-def bwd_wide_step_us(hsz: int, cluster: int, rows: int, tiles: int,
-                     groups: int, resident: int, stages: int,
-                     pieces: int) -> float:
-    """Modelled time of one step of one wave of the wide backward scan
-    (ops/lstm.py bwd_wide_cluster_step_us with three gates and this
-    kernel's parts)."""
-    return bwd_wide_cluster_step_us(hsz, cluster, rows, tiles, groups,
-                                    resident, stages, pieces, 3,
-                                    _BWD_WIDE_PARTS)
+def bwd_wide_hidden(hsz: int, cluster: int) -> int:
+    """The H the wide backward scan runs a layer of hsz units at with
+    clusters of `cluster` CTAs: hsz padded to whole 16-unit groups a CTA
+    and whole 64-column boxes."""
+    unit = 16 * cluster * 64 // math.gcd(16 * cluster, 64)
+    return -(-hsz // unit) * unit
+
+
+def bwd_wide_smem_bytes(hsz: int, cluster: int, rows: int,
+                        stages: int) -> int:
+    """Shared memory of one CTA of the wide backward scan
+    (csrc/gru_scan_bwd_wide.cu `wide_bwd_smem`): 1024 bytes of slack to
+    align the swizzled boxes, the ring of `stages` slots (a box of `rows`
+    rows x 64 bf16, or a block of the cell's operands, and a weight chunk
+    of 3U rows x 64 bf16 each), the tiles' db_hh sums [rows / 16][3U] and
+    dh of the warps' (row, unit) pairs [rows][U] in fp32, and the ring's
+    mbarriers (two a slot), with U = H / cluster units."""
+    units = hsz // cluster
+    return (1024 + stages * (rows * 128 + units * 384)
+            + 12 * (rows // 16) * units + 4 * rows * units + 16 * stages)
+
+
+def bwd_wide_step_us(hsz: int, cluster: int, rows: int, stages: int,
+                     parts: Tuple[float, ...] = _BWD_WIDE_PARTS) -> float:
+    """Modelled time of one step of one wave of the wide backward scan, from
+    `parts` (_BWD_WIDE_PARTS): a step, the CTA's wgmma products (the
+    recompute's 3U columns over H and dh's U columns over 3H, m64n8k16
+    blocks of each warpgroup), and a copy's latency for each stage a ring
+    slot serves in a step (U / 8 + 4H / 64 stages over the slots) beyond
+    the knee."""
+    step_us, cta_us, latency_us, knee = parts
+    units = hsz // cluster
+    blocks = rows // 64 * 2 * (hsz // 16) * (3 * units // 8)
+    served = (units // 8 + 4 * hsz // 64) / stages
+    return (step_us + blocks / 1000 * cta_us
+            + max(served - knee, 0.0) * latency_us)
 
 
 def plan_bwd_wide_scan(hsz: int, batch: int, max_clusters: WideBwdClusters,
-                       resident: Optional[int] = None) -> BwdWidePlan:
+                       sms: int = H100_SMS) -> GruBwdWidePlan:
     """The backward scan's wide plan for `batch` rows of a layer of hsz
-    units (ops/lstm.py plan_bwd_wide_cluster with this kernel's layout and
-    step model)."""
-    return plan_bwd_wide_cluster("GRU", hsz, batch, max_clusters,
-                                 bwd_wide_smem_bytes, bwd_wide_step_us,
-                                 resident)
+    units.
+
+    For each cluster size C of CLUSTER_SIZES at H = bwd_wide_hidden(hsz,
+    C) whose CTAs hold one of BWD_WIDE_UNITS units, each row count R of
+    BWD_WIDE_ROWS up to the first that holds the batch in one cluster and
+    each ring depth of BWD_WIDE_STAGES whose CTA fits SMEM_LIMIT bytes,
+    max_clusters runs some at once (at most one CTA on each of the card's
+    `sms` SMs) over ceil(batch / R) clusters and a step takes
+    bwd_wide_step_us. The occupancy callable has kernel D's signature
+    (ops/lstm.py WideBwdClusters: H, cluster, rows, tiles, groups, resident
+    k-steps, stages, pieces), so that one stub serves both planners; this
+    design's item is a warpgroup's four m16 tiles x the CTA's U / 8 unit
+    groups, with no resident k-steps and one ring of `stages` slots for
+    both products. The plan minimises waves x step time; ties go to the
+    smaller cluster, then to fewer clusters and the deeper ring. Raises
+    ValueError with the reasons when nothing fits."""
+    if batch < 1:
+        raise ValueError(f"the scan needs at least one row, got {batch}")
+    best, refused = None, []
+    for cluster in CLUSTER_SIZES:
+        hp = bwd_wide_hidden(hsz, cluster)
+        units = hp // cluster
+        if units not in BWD_WIDE_UNITS:
+            refused.append(f"C={cluster}: {units} units a CTA (an instance "
+                           f"takes {', '.join(map(str, BWD_WIDE_UNITS))})")
+            continue
+        fitted = idle = False
+        for rows in BWD_WIDE_ROWS:
+            if rows - 64 >= batch:
+                break
+            clusters = -(-batch // rows)
+            for stages in BWD_WIDE_STAGES:
+                smem = bwd_wide_smem_bytes(hp, cluster, rows, stages)
+                if smem > SMEM_LIMIT:
+                    break
+                fitted = True
+                active = min(max_clusters(hp, cluster, rows, 4, units // 8,
+                                          0, stages, stages), sms // cluster)
+                if active < 1:
+                    idle = True
+                    continue
+                waves = -(-clusters // active)
+                step = bwd_wide_step_us(hp, cluster, rows, stages)
+                key = (waves * step, cluster, clusters, -stages)
+                if best is None or key < best[0]:
+                    best = (key, GruBwdWidePlan(hp, cluster, rows, stages,
+                                                clusters, active, waves, smem,
+                                                step))
+        if idle:
+            refused.append(f"C={cluster}: the card runs no such cluster")
+        if not fitted:
+            refused.append(
+                f"C={cluster}: {bwd_wide_smem_bytes(hp, cluster, 64, 2)} B at "
+                f"64 rows (at most {SMEM_LIMIT} B)")
+    if best is None:
+        raise ValueError(f"no wide plan for the GRU backward scan at "
+                         f"H={hsz}, {batch} rows: " + "; ".join(refused))
+    return best[1]
+
+
+def _card_wide_bwd_occupancy(index: int) -> WideBwdClusters:
+    """The card's occupancy of the wide backward scan
+    (csrc/gru_scan_bwd_wide.cu `gru_scan_bwd_wide_max_clusters`, whose
+    instance takes the ring's depth) behind kernel D's signature."""
+    return lambda h, c, r, tiles, groups, res, stages, pieces: _max_clusters(
+        "gru_scan_bwd_wide", index, (stages,), h, c, r)
 
 
 @functools.lru_cache(maxsize=None)
-def card_bwd_wide_plan(device: torch.device, hsz: int, batch: int,
-                       resident: Optional[int] = None) -> BwdWidePlan:
-    """The wide plan on `device` (a CUDA device) at any H its planner holds
-    (occupancy from csrc/gru_scan_bwd_wide.cu
-    `gru_scan_bwd_wide_max_clusters`), for holding it against the other
-    designs through gru_scan_bwd_streams_planned_tm and timing it."""
-    return plan_bwd_wide_scan(
-        hsz, batch, _card_wide_bwd_clusters(_device_index(device),
-                                            "gru_scan_bwd_wide"), resident)
+def card_bwd_wide_plan(device: torch.device, hsz: int, batch: int
+                       ) -> GruBwdWidePlan:
+    """The wide plan on `device` (a CUDA device) at any H its planner holds,
+    for holding it against the other designs through
+    gru_scan_bwd_streams_planned_tm and timing it."""
+    return plan_bwd_wide_scan(hsz, batch,
+                              _card_wide_bwd_occupancy(_device_index(device)),
+                              _device_sms(device))
+
+
+def _wide_bwd_weights(w_hh: torch.Tensor, hp: int, cluster: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W_hh [H, 3H] -> the wide backward scan's two wgmma B operands,
+    K-major without swizzle, zero-padded to hp units (U = hp / cluster a
+    CTA): the recompute's W_hh^T slice of each CTA in 64-deep chunks,
+    [cluster][hp/64][8 k8 groups][3U][8] bf16, row q U + u of chunk b and
+    group g holding W_hh[64 b + 8 g + j, q hp + c U + u] at j; and the
+    second product's W_hh rows of each CTA's units in 64-deep chunks over
+    the 3hp columns, [cluster][3hp/64][8][U][8] bf16, row u of chunk c and
+    group g holding W_hh[c U + u, 64 c + 8 g + j] at j."""
+    w = _padded_weight(w_hh, hp)                       # [hp, 3hp]
+    units = hp // cluster
+    # [b][g][j][q][C][u] -> [C][b][g][q][u][j]
+    rec = w.reshape(hp // 64, 8, 8, 3, cluster, units).permute(
+        4, 0, 1, 3, 5, 2).reshape(cluster, hp // 64, 8, 3 * units, 8)
+    # [C][u][c][g][j] -> [C][c][g][u][j]
+    dh = w.reshape(cluster, units, 3 * hp // 64, 8, 8).permute(
+        0, 2, 3, 1, 4).contiguous()
+    return rec, dh
 
 
 def plan_bwd_scan(hsz: int, batch: int,
@@ -473,7 +624,7 @@ def plan_bwd_scan(hsz: int, batch: int,
                   sms: int = H100_SMS,
                   stream_clusters: Optional[StreamBwdClusters] = None,
                   wide_clusters: Optional[WideBwdClusters] = None
-                  ) -> Union[BwdPlan, BwdStreamPlan, BwdWidePlan]:
+                  ) -> Union[BwdPlan, BwdStreamPlan, GruBwdWidePlan]:
     """The backward scan's plan for `batch` rows at H = hsz (a multiple of
     16): the single-block design, a resident cluster, up to H = 512 the
     wide cluster or above it the streamed cluster (ops/lstm.py plan_bwd),
@@ -489,11 +640,12 @@ def plan_bwd_scan(hsz: int, batch: int,
                     bwd_block_smem_bytes(hsz),
                     _BWD_BLOCK_US * hsz / 384,
                     lambda: plan_bwd_stream_scan(hsz, batch, stream_clusters),
-                    lambda: plan_bwd_wide_scan(hsz, batch, wide_clusters))
+                    lambda: plan_bwd_wide_scan(hsz, batch, wide_clusters,
+                                               sms))
 
 
 def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int
-                       ) -> Union[BwdPlan, BwdStreamPlan, BwdWidePlan]:
+                       ) -> Union[BwdPlan, BwdStreamPlan, GruBwdWidePlan]:
     """The plan the backward scan launches with on `device` (a CUDA device)
     for `batch` rows at H = hsz (occupancy from csrc/gru_scan_bwd.cu
     `gru_scan_bwd_max_clusters`, csrc/scan_bwd_stream.cu
@@ -507,12 +659,12 @@ def card_bwd_scan_plan(device: torch.device, hsz: int, batch: int
 @functools.lru_cache(maxsize=None)
 def _card_bwd_scan_plan(device: torch.device, hsz: int, batch: int,
                         design: Optional[str]
-                        ) -> Union[BwdPlan, BwdStreamPlan, BwdWidePlan]:
+                        ) -> Union[BwdPlan, BwdStreamPlan, GruBwdWidePlan]:
     """card_bwd_scan_plan under `design` (the forced design, part of the
     key: plan_bwd reads it)."""
     return card_bwd_plan("gru_scan_bwd", functools.partial(
-        plan_bwd_scan, wide_clusters=_card_wide_bwd_clusters(
-            _device_index(device), "gru_scan_bwd_wide")),
+        plan_bwd_scan, wide_clusters=_card_wide_bwd_occupancy(
+            _device_index(device))),
         device, hsz, batch)
 
 
@@ -530,7 +682,7 @@ def card_bwd_stream_plan(device: torch.device, hsz: int, batch: int,
 
 def _launch(fn_name: str, *args,
             plan: Optional[Union[BwdPlan, StreamPlan, BwdStreamPlan,
-                                 BwdWidePlan, WidePlan, "DwhhPlan"]] = None
+                                 GruBwdWidePlan, WidePlan, "DwhhPlan"]] = None
             ) -> None:
     """Launch csrc entry `fn_name` through the port's launch helper. The
     forward entries are cluster launches: their arguments end in (out_f32,
@@ -541,7 +693,7 @@ def _launch(fn_name: str, *args,
     end in (T, B, H, reverse), and `plan` (default: card_bwd_scan_plan's for
     (H, B) without the wide cluster, which takes other operands) is
     appended to them; its streamed and wide clusters' arguments end the
-    same way, and `plan` (the BwdStreamPlan or BwdWidePlan the wrapper
+    same way, and `plan` (the BwdStreamPlan or GruBwdWidePlan the wrapper
     packed W_hh for) is appended to them. The contraction's arguments end
     in (N, H), and `plan` (a DwhhPlan; default plan_dwhh's for (N, H)) is
     appended to them."""
@@ -552,7 +704,8 @@ def _launch(fn_name: str, *args,
     elif fn_name == "gru_scan_bwd_stream":
         args = (*args, *_stream_args(fn_name, plan, args[-2], BwdStreamPlan))
     elif fn_name == "gru_scan_bwd_wide":
-        args = (*args, *_stream_args(fn_name, plan, args[-2], BwdWidePlan))
+        args = (*args, *_stream_args(fn_name, plan, args[-2],
+                                     GruBwdWidePlan))
     elif fn_name == "gru_scan_bwd":
         b, hsz = args[-3], args[-2]
         if plan is None:        # the wrapper asked already where wide weighs
@@ -931,13 +1084,13 @@ def gru_scan_bwd_streams_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
                                     gout: torch.Tensor, w_hh: torch.Tensor,
                                     b_hh: torch.Tensor,
                                     plan: Union[BwdPlan, BwdStreamPlan,
-                                                BwdWidePlan],
+                                                GruBwdWidePlan],
                                     reverse: bool = False
                                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
     """gru_scan_bwd_streams_tm on CUDA tensors with a given launch plan (a
     BwdPlan for the operands' H, padded to 16, and any design, or a
-    BwdStreamPlan or BwdWidePlan for that H padded to its units), returning
+    BwdStreamPlan or GruBwdWidePlan for that H padded to its units), returning
     the per-tile db_hh partials [ceil(B / 16), 3H] unsummed, for holding the
     designs against each other bit for bit and timing plans."""
     if not _is_cuda(gates, h_seq, gout, w_hh, b_hh):
@@ -945,9 +1098,21 @@ def gru_scan_bwd_streams_planned_tm(gates: torch.Tensor, h_seq: torch.Tensor,
     return _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse, plan)
 
 
+def _wide_bwd_hidden(hp: int, plan) -> int:
+    """The H a backward runs a layer of hp units (a multiple of 16) at
+    under `plan`: a wide plan's H (hp padded to bwd_wide_hidden's units;
+    raises for a plan of another layer), else ops/lstm.py _bwd_hidden's."""
+    if not isinstance(plan, GruBwdWidePlan):
+        return _bwd_hidden(hp, plan)
+    if plan.hidden != bwd_wide_hidden(hp, plan.cluster):
+        raise ValueError(f"a wide plan at H={plan.hidden} is for no layer of "
+                         f"{hp} units")
+    return plan.hidden
+
+
 def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
               plan: Optional[Union[BwdPlan, BwdStreamPlan,
-                                   BwdWidePlan]] = None):
+                                   GruBwdWidePlan]] = None):
     t_len, b, hsz = _check_shapes(gates, w_hh, b_hh, torch.bfloat16)
     for name, x in (("h_seq", h_seq), ("gout", gout)):
         if tuple(x.shape) != (t_len, b, hsz):
@@ -969,7 +1134,7 @@ def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
         # on a card the plan weighs the wide cluster, so the wrapper asks
         # for it first (the wide entry takes other operands)
         plan = card_bwd_scan_plan(gates.device, hp, b)
-    hp = _bwd_hidden(hp, plan)
+    hp = _wide_bwd_hidden(hp, plan)
     dgx = torch.empty(t_len, b, 3 * hp, dtype=torch.bfloat16,
                       device=gates.device)
     dhn = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=gates.device)
@@ -979,10 +1144,16 @@ def _scan_bwd(gates, h_seq, gout, w_hh, b_hh, reverse,
                _pad_units(gout, hp))
     outputs = (_kernel_bias(b_hh, hp), dgx, dhn, db_blocks,
                db_blocks.shape[0], t_len, b, hp, reverse)
-    if isinstance(plan, (BwdStreamPlan, BwdWidePlan)):
+    if isinstance(plan, GruBwdWidePlan):
+        # both W_hh operands as wgmma's B, chunk after chunk: the
+        # recompute's W_hh^T slices and the second product's W_hh rows
+        _launch("gru_scan_bwd_wide", *streams,
+                *_wide_bwd_weights(w_hh, hp, plan.cluster), *outputs,
+                plan=plan)
+    elif isinstance(plan, BwdStreamPlan):
         # both W_hh operands in MMA fragment order, slot after slot: the
         # recompute's W_hh^T slices and the second product's W_hh rows
-        _launch("gru_scan_bwd_" + plan.design, *streams,
+        _launch("gru_scan_bwd_stream", *streams,
                 _stream_weight(w_hh, hp, plan.cluster),
                 _stream_dh_weight(w_hh, hp, plan.cluster), *outputs,
                 plan=plan)

@@ -2398,15 +2398,15 @@ def bwd_wide_items(hsz: int, cluster: int, rows: int, tiles: int,
 def bwd_wide_cluster_smem_bytes(hsz: int, cluster: int, rows: int,
                                 resident: int, stages: int, pieces: int,
                                 n_gates: int) -> int:
-    """Shared memory of one CTA of a wide backward with n gate columns a
-    unit (csrc/lstm_scan_bwd_wide.cu and csrc/gru_scan_bwd_wide.cu
+    """Shared memory of one CTA of a wide backward of kernel D's design
+    with n gate columns a unit (csrc/lstm_scan_bwd_wide.cu
     `wide_bwd_smem`): 1024 bytes of slack to align the swizzled boxes,
     h_prev [H/64][rows][64] bf16, the second product's ring of `pieces`
     slots (a dgates piece [rows][64] and the W_hh rows of its k-steps
     [U][64], bf16), the recompute's ring of `stages` k-pairs and its
     `resident` k-steps of the W_hh^T slice in fragment order (n U x 32 bf16
     a k-pair), the cell's operands [n + 3][rows][U] bf16 (LSTM: 4 gates,
-    c_t, c_prev, gout; GRU, n = 3: [n + 2], 3 gates, gout, h_prev) and the
+    c_t, c_prev, gout; n = 3: [n + 2], 3 gates, gout, h_prev) and the
     mbarriers (both rings' two a slot, the h tile's and the operands' two
     each), with U = H / cluster units."""
     units = hsz // cluster
@@ -2580,13 +2580,12 @@ def plan_bwd_wide(hsz: int, batch: int, max_clusters: WideBwdClusters,
                                  resident)
 
 
-def _card_wide_bwd_clusters(index: int, source: str = "lstm_scan_bwd_wide"
-                            ) -> WideBwdClusters:
-    """The card's occupancy of a wide backward
-    (`<source>_max_clusters` of csrc/<source>.cu: kernel D's by default,
-    or the GRU's, gru_scan_bwd_wide)."""
+def _card_wide_bwd_clusters(index: int) -> WideBwdClusters:
+    """The card's occupancy of kernel D's wide cluster
+    (`lstm_scan_bwd_wide_max_clusters` of csrc/lstm_scan_bwd_wide.cu)."""
     return lambda h, c, r, tiles, groups, res, stages, pieces: _max_clusters(
-        source, index, (tiles, groups, res, stages, pieces), h, c, r)
+        "lstm_scan_bwd_wide", index, (tiles, groups, res, stages, pieces), h,
+        c, r)
 
 
 @functools.lru_cache(maxsize=None)

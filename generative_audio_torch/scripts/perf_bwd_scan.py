@@ -14,10 +14,11 @@ plan, one cluster alone and a full batch of them, to fit the planners' step
 models; with --stream it does so for a spread of streamed plans (cluster
 size, rows, resident slots, ring depth, whole tile or slices) and prints the
 least-squares fit of the streamed step model's parts; with --wide the same
-for a spread of the wide plans of kernel D and of the GRU backward
-(cluster size, item, rows, both rings' depths, resident k-steps), then the
-planner's wide plan at the training shape beside the resident cluster in
-turns, with a clock64 trace of kernel D's steps, and the GRU's dW_hh
+for a spread of the wide plans of kernel D (cluster size, item, rows, both
+rings' depths, resident k-steps) and of the GRU backward (cluster size,
+rows, ring depth), then the planner's wide plan at the training shape
+beside the resident cluster in turns, with a clock64 trace of each one's
+steps, and the GRU's dW_hh
 contraction (csrc/gru_scan_bwd.cu `gru_scan_bwd_dwhh`): plan_dwhh's plan
 against the first design's and torch.mm, and a sweep of slice counts.
 
@@ -30,8 +31,8 @@ against the first design's and torch.mm, and a sweep of slice counts.
     python -m generative_audio_torch.scripts.perf_bwd_scan --stream-check
     python -m generative_audio_torch.scripts.perf_bwd_scan --stream
     # the wide plans of kernel D and the GRU: their identity at small
-    # ragged shapes (--wide-check), then their sweeps, fits, kernel D's
-    # trace and the GRU's contraction (--wide); --kind lstm or gru for one
+    # ragged shapes (--wide-check), then their sweeps, fits, traces and
+    # the GRU's contraction (--wide); --kind lstm or gru for one
     python -m generative_audio_torch.scripts.perf_bwd_scan --wide-check
     python -m generative_audio_torch.scripts.perf_bwd_scan --wide --kind gru
     # the GRU's dW_hh contraction alone (--wide --kind gru runs it too)
@@ -53,6 +54,8 @@ __all__ = ["plans", "lstm_inputs", "gru_inputs", "run", "check", "sweep",
            "stream_plan", "stream_plans", "check_stream", "fit_stream_parts",
            "sweep_stream", "wide_plan", "wide_plans", "check_wide",
            "fit_wide_parts", "wide_trace", "sweep_wide", "sweep_gru_wide",
+           "gru_wide_plan", "gru_wide_trace", "gru_trace_spans",
+           "fit_gru_wide_parts",
            "dwhh_inputs", "device_us", "dwhh_rounds", "dwhh_times",
            "main"]
 
@@ -352,44 +355,65 @@ def sweep_stream(device, card: str) -> None:
 # ---- the wide clusters: kernel D's and the GRU backward's ------------------
 
 # (T, rows, H) of the identity: ragged row counts, T = 1, and H = 128 and
-# 512, where only 1 x 2 items fit
+# 512, where only 1 x 2 items fit; the GRU's also at 200 rows, where its
+# clusters of 128 and 192 rows (two and three warpgroups) are ragged
 WIDE_CHECK = ((7, 40, 384), (6, 17, 384), (1, 17, 384), (5, 33, 512),
               (6, 100, 128))
-# (H, rows) of the GRU's one-cluster sweep
-GRU_SWEEP = ((384, 16), (384, 48), (384, 80), (384, 96), (512, 16),
-             (512, 48))
+GRU_WIDE_CHECK = WIDE_CHECK + ((4, 200, 384), (1, 200, 128))
+# (H, rows) of the GRU's one-cluster sweep: each row count of its wide
+# cluster at v1's sub-band width (clusters of 8, and of 16 at H padded to
+# 512) and at the full band's
+GRU_SWEEP = ((384, 64), (384, 128), (384, 192), (512, 64), (512, 128),
+             (512, 192))
 
 
 def wide_plan(hsz: int, batch: int, cluster: int, rows: int, tiles: int,
-              groups: int, resident, stages: int, pieces: int, device,
-              kind: str = "lstm"):
-    """The BwdWidePlan of (cluster, rows, item, resident k-steps, stages,
-    pieces) for `batch` rows of a layer of hsz units with the card's
-    occupancy of `kind`'s wide backward (kernel D's, or the GRU's),
-    resident None for the most that fit; None where it does not fit."""
-    M = _MODULES[kind]
+              groups: int, resident, stages: int, pieces: int, device):
+    """Kernel D's BwdWidePlan of (cluster, rows, item, resident k-steps,
+    stages, pieces) for `batch` rows of a layer of hsz units with the
+    card's occupancy, resident None for the most that fit; None where it
+    does not fit."""
     hp = L.stream_hidden(hsz, cluster)
     units = hp // cluster
     if (units // 8 % groups or units > L._BWD_WIDE_BOX or rows % (16 * tiles)
             or L.bwd_wide_items(hp, cluster, rows, tiles, groups)
             > L._BWD_WIDE_MAX_ITEMS[tiles, groups]):
         return None
-    res = L._bwd_wide_resident(hp, cluster, rows, stages, pieces, resident,
-                               M.bwd_wide_smem_bytes)
+    res = L._bwd_wide_resident(hp, cluster, rows, stages, pieces, resident)
     if res is None or (stages and stages > hp // 32 - res // 2):
         return None
-    active = L._card_wide_bwd_clusters(torch.device(device).index,
-                                       f"{kind}_scan_bwd_wide")(
+    active = L._card_wide_bwd_clusters(torch.device(device).index)(
         hp, cluster, rows, tiles, groups, res, stages, pieces)
     if active < 1:
         return None
     clusters = -(-batch // rows)
     return L.BwdWidePlan(hp, cluster, rows, tiles, groups, res, stages, pieces,
                          clusters, active, -(-clusters // active),
-                         M.bwd_wide_smem_bytes(hp, cluster, rows, res, stages,
+                         L.bwd_wide_smem_bytes(hp, cluster, rows, res, stages,
                                                pieces),
-                         M.bwd_wide_step_us(hp, cluster, rows, tiles, groups,
+                         L.bwd_wide_step_us(hp, cluster, rows, tiles, groups,
                                             res, stages, pieces))
+
+
+def gru_wide_plan(hsz: int, batch: int, cluster: int, rows: int,
+                  stages: int, device):
+    """The GRU's GruBwdWidePlan of (cluster, rows, stages) for `batch` rows
+    of a layer of hsz units with the card's occupancy; None where it does
+    not fit."""
+    hp = G.bwd_wide_hidden(hsz, cluster)
+    smem = G.bwd_wide_smem_bytes(hp, cluster, rows, stages)
+    if hp // cluster not in G.BWD_WIDE_UNITS or smem > L.SMEM_LIMIT:
+        return None
+    index = torch.device(device).index
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    active = min(L._max_clusters("gru_scan_bwd_wide", index, (stages,), hp,
+                                 cluster, rows), sms // cluster)
+    if active < 1:
+        return None
+    clusters = -(-batch // rows)
+    return G.GruBwdWidePlan(hp, cluster, rows, stages, clusters, active,
+                            -(-clusters // active), smem,
+                            G.bwd_wide_step_us(hp, cluster, rows, stages))
 
 
 def wide_plans(hsz: int, batch: int, device, rows_list=None,
@@ -398,8 +422,20 @@ def wide_plans(hsz: int, batch: int, device, rows_list=None,
     every item, rows from one item's tile up to the item's limit (or
     `rows_list`), rings of 1-4 pieces and recompute rings of none (all
     resident), 1 and 3 stages with no and the most resident k-steps, each
-    that fits."""
+    that fits; for the GRU both cluster sizes, its row counts up to the
+    first that holds the batch (or `rows_list`) and every ring depth of
+    BWD_WIDE_STAGES that fits."""
     out = []
+    if kind == "gru":
+        for cluster in L.CLUSTER_SIZES:
+            for rows in rows_list or [r for r in G.BWD_WIDE_ROWS
+                                      if r - 64 < batch]:
+                for stages in G.BWD_WIDE_STAGES:
+                    plan = gru_wide_plan(hsz, batch, cluster, rows, stages,
+                                         device)
+                    if plan is not None:
+                        out.append(plan)
+        return out
     for cluster in L.CLUSTER_SIZES:
         for tiles, groups in L.BWD_WIDE_ITEMS:
             for rows in rows_list or range(16 * tiles, 16 * -(-batch // 16)
@@ -409,7 +445,7 @@ def wide_plans(hsz: int, batch: int, device, rows_list=None,
                                              (3, None)):
                         plan = wide_plan(hsz, batch, cluster, rows, tiles,
                                          groups, resident, stages, pieces,
-                                         device, kind)
+                                         device)
                         if plan is not None and plan not in out:
                             out.append(plan)
     return out
@@ -422,7 +458,8 @@ def check_wide(device, card: str = "", kinds=("lstm", "gru")) -> int:
     kind. Returns the number of failures."""
     failures = 0
     for kind in kinds:
-        for i, (t_len, b, hsz) in enumerate(WIDE_CHECK):
+        for i, (t_len, b, hsz) in enumerate(
+                GRU_WIDE_CHECK if kind == "gru" else WIDE_CHECK):
             inputs = _INPUTS[kind](t_len, b, hsz, device, seed=300 + i)
             refs = plans(kind, hsz, b, device)
             tried = 0
@@ -448,17 +485,33 @@ def check_wide(device, card: str = "", kinds=("lstm", "gru")) -> int:
     return failures
 
 
-def _wide_features(plan, kind: str = "lstm"):
-    """The terms of bwd_wide_cluster_step_us: (1, CTA products, warp
-    products, streamed slots over their rings' depths)."""
-    n = 4 if kind == "lstm" else 3
+def _wide_features(plan):
+    """The terms of kernel D's bwd_wide_cluster_step_us: (1, CTA products,
+    warp products, streamed slots over their rings' depths)."""
     hp, c, r = plan.hidden, plan.cluster, plan.rows
     units, ksteps = hp // c, hp // 16
     streamed = hp // 32 - plan.resident // 2
-    return (1.0, r // 16 * (units // 8) * 2 * n * ksteps / 1000,
-            plan.tiles * plan.groups * 2 * n * ksteps / 1000,
+    return (1.0, r // 16 * (units // 8) * 8 * ksteps / 1000,
+            plan.tiles * plan.groups * 8 * ksteps / 1000,
             (streamed / plan.stages if streamed else 0.0)
-            + n * hp // 64 / plan.pieces)
+            + 4 * hp // 64 / plan.pieces)
+
+
+def fit_gru_wide_parts(plans, steps):
+    """The GRU's bwd_wide_step_us parts for the measured steps of `plans`:
+    for each knee of whole stages a slot serves, the least-squares fit of
+    the other three (the model is linear in them there), keeping the knee
+    of the least worst error. Returns (parts, max |error|, mean |error|)."""
+    best = None
+    for knee in range(0, 17):
+        feats = [tuple(G.bwd_wide_step_us(
+            p.hidden, p.cluster, p.rows, p.stages,
+            (float(i == 0), float(i == 1), float(i == 2), float(knee)))
+            for i in range(3)) for p in plans]
+        coef, worst, mean = fit_wide_parts(feats, steps)
+        if best is None or worst < best[1]:
+            best = ((*coef, float(knee)), worst, mean)
+    return best
 
 
 def fit_wide_parts(features, steps):
@@ -579,33 +632,75 @@ def sweep_wide(device, card: str) -> None:
         del inputs
 
 
+def gru_wide_trace(inputs, plan, reverse: bool = False):
+    """One launch of gru_scan_bwd_wide_trace under `plan` (its operands
+    packed as gru_scan_bwd_streams_planned_tm packs them): the clock64
+    readings of the first CTA's consumer warp 0, [steps][8] int64
+    (csrc/gru_scan_bwd_wide.cu BWD_TRACE_POINTS), and dgx."""
+    from generative_audio_torch.ops import _cuda
+    g, h_seq, gout, w_hh, b_hh = inputs
+    t_len, b, _ = g.shape
+    hp = plan.hidden
+    ops = (L._pad_gates(g, 3, hp), L._pad_units(h_seq, hp),
+           L._pad_units(gout, hp), *G._wide_bwd_weights(w_hh, hp, plan.cluster),
+           G._kernel_bias(b_hh, hp))
+    dgx = torch.empty(t_len, b, 3 * hp, dtype=torch.bfloat16, device=g.device)
+    dhn = torch.empty(t_len, b, hp, dtype=torch.bfloat16, device=g.device)
+    dbhh = torch.empty(-(-b // 16), 3 * hp, device=g.device)
+    trace = torch.zeros(64, 8, dtype=torch.int64, device=g.device)
+    lib = _cuda.load("gru_scan_bwd_wide")
+    err = lib.gru_scan_bwd_wide_trace(
+        *[x.data_ptr() for x in ops], dgx.data_ptr(), dhn.data_ptr(),
+        dbhh.data_ptr(), dbhh.shape[0], t_len, b, hp, int(reverse),
+        *plan.launch_args, trace.data_ptr(), _cuda.stream_handle(g.device))
+    _cuda.check("gru_scan_bwd_wide", err, "gru_scan_bwd_wide_trace")
+    torch.cuda.synchronize()
+    return trace.cpu(), dgx
+
+
+def gru_trace_spans(trace, us_per_step: float, t_len: int) -> dict:
+    """The phases of the GRU wide backward's traced step in microseconds
+    (the SM clock scaled by the measured step), the mean over steps 1 ..
+    min(T, 64) - 2: the cell operands' wait, the cell and the barrier's
+    arrive, the recompute's issue (its boxes waited for), the first dgh
+    piece's wait, the rest of the second product, the barrier's wait, and
+    the clocks the step waited for ring slots."""
+    n = min(t_len, trace.shape[0]) - 1
+    rows = trace[1:n].double()
+    steps = rows[1:, 0] - rows[:-1, 0]
+    scale = us_per_step / float(steps.mean())
+    names = ("operands' wait", "cell + arrive", "recompute issue",
+             "first piece's wait", "second product", "barrier wait")
+    out = {name: float((rows[:, i + 1] - rows[:, i]).mean()) * scale
+           for i, name in enumerate(names)}
+    out["ring waits"] = float(rows[:, 7].mean()) * scale
+    return out
+
+
 def sweep_gru_wide(device, card: str) -> None:
-    """The GRU backward's wide cluster: one-cluster plans of GRU_SWEEP timed
-    at T steps beside the model, the least-squares fit of its parts
-    (ops/gru.py _BWD_WIDE_PARTS), then the planner's plan at the training
-    shape, 2295 and 1024 rows in turns against the resident cluster (wide,
-    resident, resident, wide)."""
-    feats, steps = [], []
+    """The GRU backward's wide cluster: one-cluster plans of GRU_SWEEP (every
+    ring that fits, both cluster sizes) timed at T steps beside the model,
+    the least-squares fit of its parts (ops/gru.py _BWD_WIDE_PARTS), then
+    the planner's plan at the training shape, 2295, 1152 and 1024 rows in
+    turns against the resident cluster (wide, resident, resident, wide),
+    and the clock64 trace of the training shape's plan."""
+    swept, steps = [], []
     for hsz, rows in GRU_SWEEP:
         inputs = gru_inputs(T, rows, hsz, device, seed=hsz + rows)
         for plan in wide_plans(hsz, rows, device, (rows,), "gru"):
-            if plan.pieces == 1 and plan.stages == 1:
-                continue
             us = cuda_ms(lambda: run("gru", inputs, plan), iters=3) * 1e3 / T
-            feats.append(_wide_features(plan, "gru"))
+            swept.append(plan)
             steps.append(us)
-            print(f"gru wide H={hsz} C={plan.cluster} R={rows} item "
-                  f"{plan.tiles}x{plan.groups} resident={plan.resident} "
-                  f"stages={plan.stages} pieces={plan.pieces} "
-                  f"smem={plan.smem_bytes}: {us:.3f} us a step (model "
-                  f"{plan.step_us:.3f})", flush=True)
+            print(f"gru wide H={plan.hidden} C={plan.cluster} R={rows} "
+                  f"stages={plan.stages} smem={plan.smem_bytes}: {us:.3f} us "
+                  f"a step (model {plan.step_us:.3f})", flush=True)
         del inputs
-    parts, worst, mean = fit_wide_parts(feats, steps)
-    print(f"gru wide backward step fit (step, CTA, warp, latency): "
+    parts, worst, mean = fit_gru_wide_parts(swept, steps)
+    print(f"gru wide backward step fit (step, CTA, latency, knee): "
           f"{tuple(round(p, 5) for p in parts)}, off by at most {worst:.3f} "
           f"us over {len(steps)} plans, mean {mean:.3f}; on {card}",
           flush=True)
-    for b in (ROWS, ROWS - 9, 1024):
+    for b in (ROWS, ROWS - 9, ROWS // 2, 1024):
         inputs = gru_inputs(T, b, H, device, seed=b)
         plan = G.card_bwd_wide_plan(device, H, b)
         with L.resident_backwards():
@@ -620,6 +715,15 @@ def sweep_gru_wide(device, card: str) -> None:
               f"{' '.join(f'{r:.3f}' for r in rounds)}; route "
               f"{G.card_bwd_scan_plan(device, H, b).design}; on {card}",
               flush=True)
+        if b == ROWS:
+            trace, dgx = gru_wide_trace(inputs, plan)
+            want = run("gru", inputs, plan)[0]
+            spans = gru_trace_spans(trace, 1e3 * ms / T / plan.waves, T)
+            print("gru wide trace (us, mean over steps 1-62): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in spans.items()) + f"; step "
+                f"{1e3 * ms / T / plan.waves:.2f}; the traced launch's dgx "
+                f"== the untraced one's: {torch.equal(dgx, want)}; {card}",
+                flush=True)
         del inputs
 
 

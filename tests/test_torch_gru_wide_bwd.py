@@ -1,29 +1,35 @@
-"""The GRU backward scan as a wide cluster (csrc/gru_scan_bwd_wide.cu:
-`gru_scan_bwd_wide`, the route of `gru_scan_bwd_streams_tm` and of GRUScan's
-backward where its model beats the resident cluster's) and the dW_hh
-contraction's new plan (ops/gru.py plan_dwhh) on the CPU: the layout
-against the source, the planner (ops/gru.py plan_bwd_wide_scan) at the
-training row counts over a stub H100 occupancy, the full band staying
-resident, the route between the wide and the resident cluster and the two
-context managers that force one (past the plan cache), the plan and the
-packed operands the wrappers hand the entry (a recording fake of the
-launch helper), the kernel branch (the fake launch of
-tests/test_torch_gru.py, which unpacks the packed W_hh operands and runs
-the plain version) against the CPU branch, the contraction's slices and
-sum, and the plain backward and GRUScan against the JAX package's Pallas
-backward in interpret mode at H=128. No JAX model is built.
+"""The GRU backward scan as a wide cluster with both products on wgmma
+(csrc/gru_scan_bwd_wide.cu: `gru_scan_bwd_wide`, the route of
+`gru_scan_bwd_streams_tm` and of GRUScan's backward where its model beats
+the resident cluster's) and the dW_hh contraction's new plan (ops/gru.py
+plan_dwhh) on the CPU: the layout against the source, the packed weights
+against the W_hh they came from, one step's two products emulated from
+the source's descriptors (the swizzled A boxes, the K-major B chunks), the
+planner (ops/gru.py plan_bwd_wide_scan) at the training row counts over a
+stub H100 occupancy, the full band staying resident, the route between the
+wide and the resident cluster and the two context managers that force one
+(past the plan cache), the refusals of one-slot rings and of bytes that
+are not the layout's, the plan and the packed operands the wrappers hand
+the entry (a recording fake of the launch helper), the kernel branch (the
+fake launch of tests/test_torch_gru.py, which unpacks the packed W_hh
+operands and runs the plain version) against the CPU branch, the
+contraction's slices and sum, and the plain backward and GRUScan against
+the JAX package's Pallas backward in interpret mode at H=128. No JAX model
+is built.
 
-The tolerances: the kernel branch equals the CPU branch bit for bit in
-the scan (the fake computes the plain version on the real units, which
-the padded units leave unchanged) and within 1e-6 of the norm in dW_hh
-(its partials are summed in another order than one product's); against
-Pallas the bf16 ones of tests/test_torch_gru.py, 1e-2 absolute and
-relative on dgx, dW_hh and the db_hh partials (the same bf16 algorithm,
-other orders of the sums and other transcendental functions: a float32
-difference that crosses a bf16 rounding boundary moves a dgates entry by
-one bf16 step, 2^-8 relative, which dh carries to earlier steps), and on
-the gradients against jax.grad the JAX tests' 2e-2 absolute, 1e-2
-relative.
+The tolerances: the packing and the emulated addressing are exact (the
+emulated products sum the same bf16 operands in float32 in one order, as
+the plain version's matmul does); the kernel branch equals the CPU branch
+bit for bit in the scan (the fake computes the plain version on the real
+units, which the padded units leave unchanged) and within 1e-6 of the
+norm in dW_hh (its partials are summed in another order than one
+product's); against Pallas the bf16 ones of tests/test_torch_gru.py, 1e-2
+absolute and relative on dgx, dW_hh and the db_hh partials (the same bf16
+algorithm, other orders of the sums and other transcendental functions: a
+float32 difference that crosses a bf16 rounding boundary moves a dgates
+entry by one bf16 step, 2^-8 relative, which dh carries to earlier
+steps), and on the gradients against jax.grad the JAX tests' 2e-2
+absolute, 1e-2 relative.
 """
 import re
 
@@ -38,14 +44,13 @@ from generative_audio_torch.ops import _cuda
 from generative_audio_torch.ops import gru as tg
 from generative_audio_torch.ops import lstm as tl
 from test_torch_gru import fake_launch
-from torch_stream_stubs import (stream_dh_weight_rows, stream_weight_rows,
-                                stub_bwd_plans)
+from torch_stream_stubs import stub_bwd_plans, wide_bwd_weight_rows
 
 torch.set_num_threads(2)
 BF16 = dict(atol=1e-2, rtol=1e-2)
 EXACT = dict(atol=2e-2, rtol=1e-2)
 SOURCE = "gru_scan_bwd_wide.cu"
-TRAIN_ROWS = (2304, 2295, 1024)
+TRAIN_ROWS = (2304, 2295, 1152, 1024)
 BLOCK = 16          # the Pallas backward's batch block: one db_hh partial
 
 
@@ -56,7 +61,8 @@ def _h100(cluster, rows, resident=False):
 
 
 def stub_wide(hsz, cluster, rows, tiles, groups, resident, stages, pieces):
-    """Clusters of the wide backward an H100 runs at once, as _h100."""
+    """Clusters of the wide backward an H100 runs at once, as _h100 (kernel
+    D's occupancy signature, which the GRU's planner calls too)."""
     return _h100(cluster, rows)
 
 
@@ -83,88 +89,93 @@ def _source_fn(name, **env):
     return eval(py(body[body.rindex("return") + 6:]), {}, env)
 
 
+def _source_smem(hsz, cluster, rows, stages):
+    return _source_fn(
+        "wide_bwd_smem", H=hsz, C=cluster, R=rows, stages=stages,
+        a_slot=lambda r: _source_fn("a_slot", R=r),
+        w_slot=lambda u: _source_fn("w_slot", U=u))
+
+
 def _check_plan(plan, hsz, batch):
     hp = plan.hidden
-    assert hp == tl.stream_hidden(hsz, plan.cluster) >= hsz
-    assert hp % (8 * plan.cluster) == 0 and hp % 64 == 0
-    assert (plan.tiles, plan.groups) in tl.BWD_WIDE_ITEMS
-    assert plan.rows % (16 * plan.tiles) == 0 and plan.rows <= 256
-    assert 1 <= tl.bwd_wide_items(hp, plan.cluster, plan.rows, plan.tiles,
-                                  plan.groups) <= tl._BWD_WIDE_MAX_ITEMS[
-                                      plan.tiles, plan.groups]
-    assert plan.resident % 2 == 0 and plan.resident <= hp // 16
-    assert (plan.stages == 0) == (plan.resident == hp // 16)
+    assert hp == tg.bwd_wide_hidden(hsz, plan.cluster) >= hsz
+    assert hp % (16 * plan.cluster) == 0 and hp % 64 == 0
+    assert hp // plan.cluster in tg.BWD_WIDE_UNITS
+    assert plan.rows in tg.BWD_WIDE_ROWS and plan.warpgroups == plan.rows // 64
+    assert plan.stages in tg.BWD_WIDE_STAGES and plan.stages >= 2
     assert plan.clusters == -(-batch // plan.rows)
     assert plan.waves == -(-plan.clusters // plan.active)
     assert plan.smem_bytes == tg.bwd_wide_smem_bytes(
-        hp, plan.cluster, plan.rows, plan.resident, plan.stages, plan.pieces)
+        hp, plan.cluster, plan.rows, plan.stages)
     assert plan.smem_bytes <= tl.SMEM_LIMIT
-    assert plan.step_us == tg.bwd_wide_step_us(
-        hp, plan.cluster, plan.rows, plan.tiles, plan.groups, plan.resident,
-        plan.stages, plan.pieces)
+    assert plan.step_us == tg.bwd_wide_step_us(hp, plan.cluster, plan.rows,
+                                               plan.stages)
     assert plan.design == "wide"
+    assert plan.launch_args == (plan.cluster, plan.rows, plan.stages,
+                                plan.smem_bytes)
 
 
 @pytest.mark.parametrize("hsz", [128, 384, 512])
 def test_wide_layout_is_the_source(hsz):
     """The plans at the training row counts: the shared bytes are the
-    source's layout (the h tile, the second product's ring of dgh pieces
-    and W_hh rows, the recompute's ring and resident k-pairs of three
-    gates, the cell's five operands and the mbarriers), for the plan and
-    for every resident count and ring it could have; the GRU's CTA is
-    smaller than kernel D's by a quarter of each k-pair and two operands."""
+    source's layout (the ring of swizzled boxes and weight chunks, the
+    cell's five operands, b_hh and the tiles' db_hh sums, the mbarriers),
+    for the plan and for every ring it could have; a ring one slot deeper
+    than the deepest that fits does not fit."""
     for rows in TRAIN_ROWS + (18,):
         plan = tg.plan_bwd_wide_scan(hsz, rows, stub_wide)
         _check_plan(plan, hsz, rows)
-        for pieces in (1, 4):
-            for stages in (0, 1, 3):
-                top = plan.hidden // 16 - (2 if stages else 0)
-                for resident in range(0 if stages else top, top + 1, 2):
-                    want = _source_fn(
-                        "wide_bwd_smem", H=plan.hidden, C=plan.cluster,
-                        R=plan.rows, resident=resident, stages1=stages,
-                        stages2=pieces,
-                        pair_bytes=lambda u: _source_fn("pair_bytes", U=u))
-                    assert tg.bwd_wide_smem_bytes(
-                        plan.hidden, plan.cluster, plan.rows, resident,
-                        stages, pieces) == want
-    units = 384 // 8
-    assert (tl.bwd_wide_smem_bytes(384, 8, 80, 4, 3, 4)
-            - tg.bwd_wide_smem_bytes(384, 8, 80, 4, 3, 4)) == (
-                (3 + 2) * units * 64 + 2 * 2 * 80 * units)
+        for stages in range(1, 8):
+            assert tg.bwd_wide_smem_bytes(
+                plan.hidden, plan.cluster, plan.rows, stages) == _source_smem(
+                    plan.hidden, plan.cluster, plan.rows, stages)
+        deepest = max(d for d in tg.BWD_WIDE_STAGES if tg.bwd_wide_smem_bytes(
+            plan.hidden, plan.cluster, plan.rows, d) <= tl.SMEM_LIMIT)
+        assert plan.stages <= deepest
+    # at v1's sub-band width a CTA of 192 rows takes four slots
+    assert tg.bwd_wide_smem_bytes(384, 8, 192, 4) == 216896 <= tl.SMEM_LIMIT
+    assert tg.bwd_wide_smem_bytes(384, 8, 192, 5) > tl.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("rows", TRAIN_ROWS)
 def test_plans_at_the_training_rows(rows):
-    """At v1's sub-band training batch (2304 rows, 2295 ragged) two waves of
-    29 clusters of 8 x 80 rows, where the resident cluster runs ten; at
-    1024 rows one wave of 13; each modelled faster than the resident
-    cluster, and no other row count of the same cluster size and item
-    models faster."""
+    """At v1's sub-band training batch (2304 rows, 2295 ragged) one wave of
+    12 clusters of 8 x 192 rows, where the resident cluster runs ten; at a
+    band rank's 1152 rows and at 1024 one wave; each modelled faster than
+    the resident cluster, and no other row count or ring of the same
+    cluster size models faster; an occupancy of two CTAs an SM counts as
+    one."""
     plan = tg.plan_bwd_wide_scan(384, rows, stub_wide)
     _check_plan(plan, 384, rows)
     with tl.resident_backwards():
         resident = tg.plan_bwd_scan(384, rows, _h100)
     assert resident.design == "cluster"
     assert plan.waves * plan.step_us < resident.waves * resident.step_us
-    want = (8, 80, 1, 3, 29, 2) if rows > 2048 else (8, 80, 1, 3, 13, 1)
-    assert (plan.cluster, plan.rows, plan.tiles, plan.groups, plan.clusters,
-            plan.waves) == want
+    assert plan.waves == 1 and (plan.cluster, plan.hidden) == (8, 384)
     if rows > 2048:
+        assert (plan.rows, plan.clusters, plan.stages) == (192, 12, 4)
         assert resident.waves == 10
-    for other in range(16, 97, 16):
-        alt = tl.plan_bwd_wide_cluster(
-            "GRU", 384, rows, lambda h, c, r, *a: _h100(c, r) if r == other
-            else 0, tg.bwd_wide_smem_bytes, tg.bwd_wide_step_us)
-        assert plan.waves * plan.step_us <= alt.waves * alt.step_us + 1e-9
+    # an occupancy of two CTAs an SM is used as one (the step model's)
+    two = tg.plan_bwd_wide_scan(384, rows, lambda h, c, *a: 264 // c)
+    assert two.active == 132 // two.cluster
+    for other in tg.BWD_WIDE_ROWS:
+        for stages in tg.BWD_WIDE_STAGES:
+            if tg.bwd_wide_smem_bytes(384, 8, other, stages) > tl.SMEM_LIMIT:
+                continue
+            alt = tg.bwd_wide_step_us(384, 8, other, stages) * -(
+                -(-(-rows // other)) // 15)
+            assert plan.waves * plan.step_us <= alt + 1e-9
 
 
 def test_full_band_stays_resident():
     """At the full band (H=512 x 18 rows, and one row) the resident cluster
-    models faster than the wide one, so the plan is unchanged."""
+    models faster than the wide one (16 CTAs of 32 units x 64 rows), so
+    the plan is unchanged."""
     for rows in (18, 1):
         plan = tg.plan_bwd_scan(512, rows, _h100)
         wide = tg.plan_bwd_wide_scan(512, rows, stub_wide)
+        _check_plan(wide, 512, rows)
+        assert (wide.cluster, wide.rows) == (16, 64)
         assert plan.design == "cluster" and (plan.cluster, plan.rows) == (
             16, 16)
         assert plan.waves * plan.step_us < wide.waves * wide.step_us
@@ -175,7 +186,7 @@ def test_route_weighs_wide_against_resident(hsz):
     """plan_bwd_scan takes the GRU's wide cluster where its modelled waves x
     step beat the resident cluster's (and the single block's), at every
     row count, and else keeps the resident plan."""
-    for rows in TRAIN_ROWS + (1, 18, 257, 1152, 2056):
+    for rows in TRAIN_ROWS + (1, 18, 36, 257, 2056):
         wide = tg.plan_bwd_wide_scan(hsz, rows, stub_wide)
         with tl.resident_backwards():
             resident = tg.plan_bwd_scan(hsz, rows, _h100)
@@ -195,8 +206,8 @@ def card_plans(monkeypatch):
     every design in place of the card's queries; the plan cache cleared
     before and after."""
     monkeypatch.setattr(tg, "_device_index", lambda device: 0)
-    monkeypatch.setattr(tg, "_card_wide_bwd_clusters",
-                        lambda index, source: stub_wide)
+    monkeypatch.setattr(tg, "_card_wide_bwd_occupancy",
+                        lambda index: stub_wide)
     monkeypatch.setattr(
         tg, "card_bwd_plan", lambda source, plan, device, hsz, batch: plan(
             hsz, batch, lambda c, r, res: _h100(c, r), tl.H100_SMS,
@@ -231,28 +242,41 @@ def test_context_managers_force_the_design_past_the_cache(card_plans):
 
 
 def test_refusals_name_the_bytes():
-    """Where no CTA holds a whole item within its warps and shared memory,
-    nor a TMA box of its units, the planner raises naming each cluster
-    size's reason; a plan that is not the entry's BwdWidePlan at the H
-    given is refused before anything launches, and the resident entry
-    refuses a wide plan."""
+    """Where no CTA holds an instance's units, the planner raises naming
+    each cluster size's reason; no plan has a ring of one slot, and the
+    source refuses one and bytes that are not the layout's; a plan that is
+    not the entry's GruBwdWidePlan at the H given is refused before
+    anything launches, and the resident entry refuses a wide plan."""
     with pytest.raises(ValueError, match=r"no wide plan for the GRU backward "
                                          r"scan at H=4096, 18 rows: C=8: 512 "
                                          r"units a CTA"):
         tg.plan_bwd_wide_scan(4096, 18, stub_wide)
     with pytest.raises(ValueError, match="no wide plan.*the card runs no"):
         tg.plan_bwd_wide_scan(384, 18, lambda *a: 0)
-    plan = tg.plan_bwd_wide_scan(384, 40, stub_wide)
+    seen = []
+    tg.plan_bwd_wide_scan(384, 2304, lambda *a: seen.append(a[-2:]) or 15)
+    assert seen and all(stages == pieces >= 2 for stages, pieces in seen)
+    text = (_cuda.CSRC / SOURCE).read_text()
+    fits = re.search(r"bool bwd_plan_fits\(.*?\n\}", text, re.S).group(0)
+    assert "stages >= 2" in fits
+    assert ("smem_bytes != wide_bwd_smem(H, C, R, stages)") in text
+    plan = tg.plan_bwd_wide_scan(384, 40, lambda h, c, *a: 15 if c == 8
+                                 else 0)
+    assert plan.hidden == 384
     x = torch.zeros(2, 16)
     args = (x,) * 9 + (3, 5, 40, 384, 0)
     for bad in (None, tg.plan_bwd_scan(384, 40, _h100),
-                tg.plan_bwd_wide_scan(512, 40, stub_wide)):
-        with pytest.raises(ValueError, match="BwdWidePlan its weight was "
+                tg.plan_bwd_wide_scan(512, 40, stub_wide),
+                tl.plan_bwd_wide(384, 40, stub_wide)):
+        with pytest.raises(ValueError, match="GruBwdWidePlan its weight was "
                                              "packed for, at H=384"):
             tg._launch("gru_scan_bwd_wide", *args, plan=bad)
     with pytest.raises(ValueError, match="gru_scan_bwd launches with a "
-                                         "BwdPlan, got BwdWidePlan"):
+                                         "BwdPlan, got GruBwdWidePlan"):
         tg._launch("gru_scan_bwd", *(x,) * 10, 3, 5, 40, 384, 0, plan=plan)
+    with pytest.raises(ValueError, match="a wide plan at H=384 is for no "
+                                         "layer of 512 units"):
+        tg._wide_bwd_hidden(512, plan)
     seen = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tg, "_launch_entry", lambda *a: seen.append(a))
@@ -261,36 +285,134 @@ def test_refusals_name_the_bytes():
 
 
 def test_sources_declare_their_entries():
-    """Without a compiler: the entry takes the arguments ops/_cuda.py
-    declares, ending in the plan and the stream, the occupancy query its
-    instance flags, the entry refuses bytes that are not the layout's, its
+    """Without a compiler: the entry and its traced twin take the arguments
+    ops/_cuda.py declares, ending in the plan (and the trace) and the
+    stream, the occupancy query its instance flag, the instances are the
+    planner's units, both products run on wgmma (no mma.sync left), the
     k order walks dgx's r and z columns and then dhn, and the launch counts
     know the entry."""
     text = (_cuda.CSRC / SOURCE).read_text()
-    tail = ["n_blocks", "T", "B", "H", "reverse", "cluster", "rows", "tiles",
-            "groups", "resident", "stages1", "stages2", "smem_bytes",
-            "stream"]
-    (name, argtypes), = _cuda._SIGNATURES["gru_scan_bwd_wide"].items()
-    params = re.search(rf"\bint {name}\(([^)]*)\)", text).group(1)
-    names = [p.split()[-1].lstrip("*") for p in params.split(",")]
-    assert len(names) == len(argtypes) and names[-len(tail):] == tail
-    assert names[:9] == ["gates", "h_seq", "gout", "wrec", "wdh", "bhh",
-                         "dgx", "dhn", "dbhh"]
+    tail = ["n_blocks", "T", "B", "H", "reverse", "cluster", "rows",
+            "stages", "smem_bytes"]
+    for name, argtypes in _cuda._SIGNATURES["gru_scan_bwd_wide"].items():
+        params = re.search(rf"\bint {name}\(([^)]*)\)", text).group(1)
+        names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+        want = tail + (["trace"] if name.endswith("_trace") else [])
+        assert len(names) == len(argtypes)
+        assert names[-len(want) - 1:] == want + ["stream"]
+        assert names[:9] == ["gates", "h_seq", "gout", "wrec", "wdh", "bhh",
+                             "dgx", "dhn", "dbhh"]
     query = re.search(r"\bint gru_scan_bwd_wide_max_clusters\(([^)]*)\)",
                       text)
     assert " ".join(query.group(1).split()) == (
-        "int tiles, int groups, int resident, int stages1, int stages2, "
-        "int H, int cluster, int rows, int* n")
-    for tiles, groups in tl.BWD_WIDE_ITEMS:
-        assert f"WIDE_BWD_ITEM({tiles}, {groups})" in text
-    assert ("smem_bytes != wide_bwd_smem(H, C, R, resident, stages1, "
-            "stages2)") in text
+        "int stages, int H, int cluster, int rows, int* n")
+    instances = re.findall(r"X\((\d+), (\d+)\)", re.search(
+        r"#define GRU_BWD_INSTANCES\(X\)(.*?)\n\n", text, re.S).group(1))
+    assert sorted((int(u), int(r)) for u, r in instances) == [
+        (u, r) for u in tg.BWD_WIDE_UNITS for r in tg.BWD_WIDE_ROWS]
+    assert "mma16816" not in text and "mma.sync" not in text.split(
+        "#include")[1]
+    assert "stage_mma<N3>(zacc" in text and "stage_mma<U>(acc" in text
     assert "NC1 = 2 * H / 64" in text and "64 * (c - NC1)" in text
     assert tl._SOURCE_OF["gru_scan_bwd_wide"] == "gru_scan_bwd_wide"
     assert "gru_scan_bwd_wide" in tl.launch_counts
-    assert '#include "scan_bwd_wide.cuh"' in text
+    assert '#include "scan_fwd_wide.cuh"' in text
     assert '#include "scan_bwd_wide.cuh"' in (
         _cuda.CSRC / "lstm_scan_bwd_wide.cu").read_text()
+
+
+@pytest.mark.parametrize("hsz,cluster", [(384, 8), (512, 16), (100, 8)])
+def test_packed_weights_give_w_hh_back(hsz, cluster):
+    """_wide_bwd_weights of seeded bf16 weights: each operand's shape, its
+    index map undone (tests/torch_stream_stubs.py wide_bwd_weight_rows)
+    gives the zero-padded W_hh exactly, and both operands hold the same
+    weight."""
+    w_hh = torch.from_numpy(_rand((hsz, 3 * hsz), hsz)).to(torch.bfloat16)
+    hp = tg.bwd_wide_hidden(hsz, cluster)
+    plan = tg.GruBwdWidePlan(hp, cluster, 64, 2, 1, 1, 1, 0, 0.0)
+    wrec, wdh = tg._wide_bwd_weights(w_hh, hp, cluster)
+    assert wrec.dtype == wdh.dtype == torch.bfloat16
+    assert wrec.is_contiguous() and wdh.is_contiguous()
+    assert torch.equal(wide_bwd_weight_rows(wrec, wdh, plan),
+                       tl._padded_weight(w_hh, hp))
+
+
+def _b_operand(chunk, n, kk):
+    """The [16 x n] B operand of k16 step kk that wgmma reads from a packed
+    chunk (flat bf16, [8 k8 groups][n][8]) through the source's K-major
+    descriptor: start 2 kk n 16 bytes on, leading offset n 16 bytes (the
+    k8 groups), stride 128 bytes (8 rows), 16 bytes a row of a core
+    matrix."""
+    k, col = torch.meshgrid(torch.arange(16), torch.arange(n), indexing="ij")
+    byte = (2 * kk * n * 16 + k // 8 * n * 16 + col // 8 * 128
+            + col % 8 * 16 + k % 8 * 2)
+    return chunk[byte // 2]
+
+
+def _a_operand(box, row0, kk):
+    """The [64 x 16] A operand of k16 step kk that wgmma reads from a box of
+    64-column rows as TMA's 128-byte swizzle wrote it (16-byte piece c of
+    row r at c ^ (r & 7)), through the source's descriptor: start row0 x
+    128 + 32 kk bytes on, 8 rows 1024 bytes apart, the swizzle on the
+    address bits."""
+    r, k = torch.meshgrid(torch.arange(64), torch.arange(16), indexing="ij")
+    row = row0 + r
+    plain = row * 128 + 32 * kk + k // 8 * 16          # before the swizzle
+    piece = (plain % 128) // 16 ^ (row % 8)
+    byte = row * 128 + piece * 16 + k % 8 * 2
+    flat = box.flatten()
+    return flat[byte // 2]
+
+
+def _swizzled(x):
+    """A box [R][64] as TMA's SWIZZLE_128B lays it in shared memory."""
+    out = torch.empty_like(x)
+    rows = torch.arange(x.shape[0])
+    for c in range(8):
+        dst = (c ^ (rows % 8)) * 8
+        for j in range(8):
+            out[rows, dst + j] = x[:, 8 * c + j]
+    return out
+
+
+@pytest.mark.parametrize("hsz,cluster", [(384, 8), (512, 16)])
+def test_one_step_products_emulated(hsz, cluster):
+    """One step's two products of one CTA (rank 1) and warpgroup (rows
+    64-127 of 192) emulated as the source addresses them: the h_prev boxes
+    swizzled as TMA writes them, read through the A descriptor, against the
+    recompute's W_hh^T chunks through the B descriptor, k16 step after k16
+    step; then a dgh tile's pieces against the W_hh rows. Both equal the
+    plain products of the CTA's columns (gate-major) and units."""
+    rng = np.random.default_rng(hsz)
+    units, rank, rows, wg = hsz // cluster, 1, 192, 1
+    w = torch.from_numpy(rng.standard_normal((hsz, 3 * hsz)).astype(
+        np.float32)).to(torch.bfloat16)
+    h = torch.from_numpy(rng.standard_normal((rows, hsz)).astype(
+        np.float32)).to(torch.bfloat16)
+    dgh = torch.from_numpy(rng.standard_normal((rows, 3 * hsz)).astype(
+        np.float32)).to(torch.bfloat16)
+    wrec, wdh = tg._wide_bwd_weights(w, hsz, cluster)
+    gh = torch.zeros(64, 3 * units)
+    for b in range(hsz // 64):
+        box = _swizzled(h[:, 64 * b:64 * b + 64])
+        chunk = wrec[rank, b].flatten()
+        for kk in range(4):
+            gh += (_a_operand(box, 64 * wg, kk).float()
+                   @ _b_operand(chunk, 3 * units, kk).float())
+    cols = torch.cat([q * hsz + rank * units + torch.arange(units)
+                      for q in range(3)])
+    rows_wg = slice(64 * wg, 64 * wg + 64)
+    want = h[rows_wg].float() @ w[:, cols].float()
+    torch.testing.assert_close(gh, want, rtol=1e-5, atol=1e-4)
+    dh = torch.zeros(64, units)
+    for c in range(3 * hsz // 64):
+        box = _swizzled(dgh[:, 64 * c:64 * c + 64])
+        chunk = wdh[rank, c].flatten()
+        for kk in range(4):
+            dh += (_a_operand(box, 64 * wg, kk).float()
+                   @ _b_operand(chunk, units, kk).float())
+    want = dgh[rows_wg].float() @ w[rank * units:(rank + 1) * units].float().t()
+    torch.testing.assert_close(dh, want, rtol=1e-5, atol=1e-4)
 
 
 def _operands(t_len, b, hsz, seed):
@@ -320,9 +442,9 @@ def test_wrappers_hand_the_entry_its_plan(recorded, monkeypatch):
     no card's occupancy, the resident entry (its plan asked at launch);
     within wide_backwards(), on a (stubbed) card, and through the planned
     wrapper one launch of the wide entry whose arguments are the wrapper's
-    operands (W_hh packed twice in fragment order for the plan's cluster,
-    b_hh in fp32, the three outputs and one db_hh partial a 16-row tile)
-    and end in the plan."""
+    operands (W_hh packed twice as wgmma's B operands for the plan's
+    cluster, b_hh in fp32, the three outputs and one db_hh partial a 16-row
+    tile) and end in the plan."""
     t_len, b, hsz = 2, 2304, 384
     ops = _operands(t_len, b, hsz, 7)
     plan = tg.plan_bwd_wide_scan(hsz, b, stub_wide)
@@ -339,11 +461,9 @@ def test_wrappers_hand_the_entry_its_plan(recorded, monkeypatch):
     assert recorded[0][1][-9:] == (144, t_len, b, hsz, 1,
                                    *resident.launch_args)
     for _, args in recorded[1:]:
-        assert args[-13:] == (144, t_len, b, hsz, 1, *plan.launch_args)
+        assert args[-9:] == (144, t_len, b, hsz, 1, *plan.launch_args)
         assert args[0] is ops[0] and args[1] is ops[1] and args[2] is ops[2]
-        assert torch.equal(stream_weight_rows(args[3], plan, 3),
-                           tl._kernel_weight(ops[3]))
-        assert torch.equal(stream_dh_weight_rows(args[4], plan, 3),
+        assert torch.equal(wide_bwd_weight_rows(args[3], args[4], plan),
                            tl._padded_weight(ops[3], hsz))
         assert args[5].dtype == torch.float32 and torch.equal(args[5], ops[4])
         assert args[6].shape == (t_len, b, 3 * hsz)

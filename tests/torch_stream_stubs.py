@@ -135,8 +135,26 @@ def stream_dh_weight_rows(wdh, plan, n_gates):
     return wdh.permute(0, 2, 3, 1, 5, 6, 4, 7).reshape(hp, n_gates * hp)
 
 
+def wide_bwd_weight_rows(wrec, wdh, plan):
+    """W_hh [hp, 3hp] from the GRU wide backward's two operands (ops/gru.py
+    _wide_bwd_weights undone: the recompute's W_hh^T chunks [C][hp/64][8
+    k8 groups][3U][8], row q U + u of chunk b and group g holding W_hh[64 b
+    + 8 g + j, q hp + c U + u]; the second product's W_hh rows [C][3hp/64][8]
+    [U][8], row u of chunk c and group g holding W_hh[c U + u, 64 c + 8 g +
+    j]), after checking their shapes against the plan they were packed for
+    and that both hold the same weight."""
+    hp, cluster = plan.hidden, plan.cluster
+    units = hp // cluster
+    assert tuple(wrec.shape) == (cluster, hp // 64, 8, 3 * units, 8)
+    assert tuple(wdh.shape) == (cluster, 3 * hp // 64, 8, units, 8)
+    w = wrec.reshape(cluster, hp // 64, 8, 3, units, 8).permute(
+        1, 2, 5, 3, 0, 4).reshape(hp, 3 * hp)
+    assert torch.equal(wdh.permute(0, 3, 1, 2, 4).reshape(hp, 3 * hp), w)
+    return w
+
+
 BWD_STREAM_ENTRIES = ("lstm_scan_bwd_stream", "gru_scan_bwd_stream",
-                      "lstm_scan_bwd_wide", "gru_scan_bwd_wide")
+                      "lstm_scan_bwd_wide")
 
 
 def unstream(fn_name, args, plan, n_gates):
@@ -147,7 +165,16 @@ def unstream(fn_name, args, plan, n_gates):
     to wide_hidden's). A streamed or wide
     backward's two operands (the recompute's W_hh^T and the second
     product's W_hh, each packed on its own) become the cluster backward's
-    three: wt, w and wt in fragment order."""
+    three: wt, w and wt in fragment order; so does the GRU wide backward's
+    (its two operands packed as wgmma's B, H padded to bwd_wide_hidden's
+    units)."""
+    if fn_name == "gru_scan_bwd_wide":
+        from generative_audio_torch.ops import gru as tg
+        assert isinstance(plan, tg.GruBwdWidePlan) and plan.hidden == args[-2]
+        w = wide_bwd_weight_rows(args[3], args[4], plan)
+        wt = w.t().contiguous()
+        return ("gru_scan_bwd", (*args[:3], wt, w, tl._fragment_weight(wt),
+                                 *args[5:]), tg.bwd_wide_hidden(1, plan.cluster))
     if fn_name in BWD_STREAM_ENTRIES:
         kind = (tl.BwdWidePlan if fn_name.endswith("_wide")
                 else tl.BwdStreamPlan)
